@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``swin_unet_image_fusion_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the shapes of the 512x512 main path, serves
-``Fuser.fuse_y`` requests with the full default 33M-parameter model (weights made with
-numpy from a seed) at 512x512 and 100x90, checks the outputs and the kernel launch
-counts, times the kernels and the requests, and breaks one request's device time down
-by kernel family with ``torch.profiler``. Every phase raises on failure. The last
-line of standard output is ``{"ok": true, "device": {...}}``; the line before it lists
-the kernels with their launches, errors, times and bounds.
+Builds the port's CUDA kernels from ``swin_unet_image_fusion_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once) and holds each against its plain PyTorch version at
+the shapes of a 512x512 request: window attention (K3), the fused block on
+window-packed tokens (K1) and on the image (K4), and the window re-partition (K2,
+bit-exact). Then it serves ``Fuser.fuse_y`` requests with the full default
+33M-parameter model (weights made with numpy from a seed) at 512x512 and 100x90 under
+each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_block``:
+K4), checks the outputs and each kernel's launch count, times the kernels and the
+requests, and breaks one request's device time down by kernel family with
+``torch.profiler``. Every phase raises on failure. The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
+launches, errors, times and bounds.
 
 It needs a CUDA device and the repository beside it, and exits non-zero without them.
 """
@@ -35,6 +39,20 @@ MODEL_ATOL, MODEL_RTOL = 5e-4, 1e-3
 REQUESTS = 3
 LATENCY_SAMPLES = 20
 SEED = 0
+WINDOW = (7, 7)
+T = WINDOW[0] * WINDOW[1]
+# attention_impl -> kernel launches per request at each served shape; "fused" is K1
+# under cuda_pack and K4 under cuda_block (one wrapper, two layouts)
+CONFIGS = {
+    "cuda": {(512, 512): {"K3": 40}, (100, 90): {"K3": 24}},
+    "cuda_pack": {(512, 512): {"K1": 32, "K2": 24, "K3": 8},
+                  (100, 90): {"K1": 24, "K2": 18, "K3": 8}},
+    "cuda_block": {(512, 512): {"K4": 40}, (100, 90): {"K4": 24}},
+}
+FUSED_NAME = {"cuda": "K4", "cuda_pack": "K1", "cuda_block": "K4"}
+# the configuration whose run gives each kernel's launches in the kernels line
+MAIN_PATH = {"K3": "cuda", "K1": "cuda_pack", "K2": "cuda_pack", "K4": "cuda_block"}
+DEVICE = "cuda"
 
 
 def card_line() -> str:
@@ -53,31 +71,74 @@ def stage_geometries(cfg, hw=(512, 512)):
              cfg.dims_per_head(cfg.out_dims_list[k])) for k, p in enumerate(plan)]
 
 
-def attention_inputs(h, w, c, heads, d, seed, device, t=49):
+def mlp_hiddens(cfg, k):
+    """(role, MLP hidden) of stage k's encoder and decoder blocks (the decoder quirk)."""
+    return (("enc", cfg.out_dims_list[k] * cfg.mlp_hidden_dims_ratio),
+            ("dec", cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio))
+
+
+def _rand(gen, device):
+    def rand(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + offset).to(device)
+    return rand
+
+
+def attention_inputs(h, w, c, heads, d, seed, device):
     """x like an LN output, He-scaled weights, small biases, N(0, 1) bias table."""
-    gen = torch.Generator().manual_seed(seed)
+    rand = _rand(torch.Generator().manual_seed(seed), device)
     inner = heads * d
-
-    def rand(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(device)
-
     return (rand(2, 1, h, w, c),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1),
-            rand(2, t, t))
+            rand(2, T, T))
 
 
-def attention_bound_ms(h, w, c, heads, d, t=49):
-    """Least time for one launch: matmul FLOPs over the fp32 peak vs each input byte
+def block_inputs(h, w, c, heads, d, hidden, seed, device):
+    """x like a stage's activations and the 17 weights of one fused block (LN scales
+    near 1, He-scaled dense kernels, small biases, N(0, 1) bias table)."""
+    rand = _rand(torch.Generator().manual_seed(seed), device)
+    inner = heads * d
+
+    def dense(i, o):
+        return rand(2, i, o, scale=i**-0.5), rand(2, o, scale=0.1)
+
+    return (rand(2, 1, h, w, c),
+            rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1),
+            *dense(c, inner), *dense(c, inner), *dense(c, inner), *dense(inner, c),
+            rand(2, T, T), rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1),
+            *dense(c, hidden), *dense(hidden, c))
+
+
+def _bound(flops, bytes_):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_bound_ms(h, w, c, heads, d):
+    """Least time for one K3 launch: matmul FLOPs over the fp32 peak vs each input byte
     read once and the output written once over HBM bandwidth (both streams)."""
     inner = heads * d
-    windows = 2 * (h // 7) * (w // 7)
-    flops = windows * (8 * t * c * inner + 4 * t * t * inner)
-    bytes_ = 4 * (2 * 2 * h * w * c + 2 * (4 * c * inner + 3 * inner + c + t * t))
-    return 1e3 * max(flops / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES_PER_S), (
-        "operations" if flops / PEAK_FP32_FLOPS >= bytes_ / PEAK_BYTES_PER_S else "bytes")
+    windows = 2 * (h // WINDOW[0]) * (w // WINDOW[1])
+    flops = windows * (8 * T * c * inner + 4 * T * T * inner)
+    return _bound(flops, 4 * (2 * 2 * h * w * c + 2 * (4 * c * inner + 3 * inner + c + T * T)))
+
+
+def block_bound_ms(h, w, c, heads, d, hidden):
+    """Least time for one K1/K4 launch: the block's matmul FLOPs (q/k/v, scores, AV,
+    proj, fc1, fc2) over the fp32 peak vs x read once, the output written once and the
+    weights read once over HBM bandwidth (both streams)."""
+    inner = heads * d
+    windows = 2 * (h // WINDOW[0]) * (w // WINDOW[1])
+    flops = windows * (8 * T * c * inner + 4 * T * T * inner + 4 * T * c * hidden)
+    weights = 4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden
+    return _bound(flops, 4 * (2 * 2 * h * w * c + 2 * weights))
+
+
+def repartition_bound_ms(h, w, c):
+    """Least time for one K2 launch: both streams' tokens read once and written once."""
+    return _bound(0, 4 * 2 * 2 * h * w * c)
 
 
 def time_ms(fn, iters, warmup=3):
@@ -95,7 +156,7 @@ def time_ms(fn, iters, warmup=3):
 
 
 def check_attention_kernel(cfg, device):
-    """Phase 2: the kernel against its plain version in all 20 stage x variant cases."""
+    """K3 against its plain version in all 20 stage x variant cases."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     worst = 0.0
@@ -103,7 +164,7 @@ def check_attention_kernel(cfg, device):
         for shift in (False, True):
             for cross in (False, True):
                 args = attention_inputs(h, w, c, heads, d, SEED + k, device)
-                kw = dict(window=cfg.window_size, num_heads=heads, dims_per_head=d,
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
                           shift=shift, cross=cross)
                 out = twa.window_attention(*args, **kw)
                 torch.cuda.synchronize()
@@ -116,8 +177,98 @@ def check_attention_kernel(cfg, device):
     return worst
 
 
+def block_cases(cfg, device, packed_only):
+    """Every (stage, role, shift, cross) block of a 512x512 request with its inputs;
+    ``packed_only`` keeps the stages that cuda_pack packs."""
+    from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_beneficial
+
+    for k, h, w, c, heads, d in stage_geometries(cfg):
+        if packed_only and not pack_beneficial(c, w):
+            continue
+        for r, (role, hidden) in enumerate(mlp_hiddens(cfg, k)):
+            x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 10 * k + r, device)
+            for shift in (False, True):
+                for cross in (False, True):
+                    yield (k, h, w, c, heads, d, role, hidden, shift, cross), x, weights
+
+
+def fused_args(case, x, layout):
+    """x in ``layout`` and the wrapper's keyword arguments for a block case."""
+    from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_windows
+
+    k, h, w, c, heads, d, role, hidden, shift, cross = case
+    if layout == "windows":
+        x = pack_windows(x, WINDOW, shift).contiguous()
+    return x, dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift,
+                   cross=cross, layout=layout, hw=(h, w))
+
+
+def check_fused_block(cfg, device):
+    """K1 (windows layout, the packed stages) and K4 (image layout, every stage) against
+    their plain version in every stage x role x shift x cross case of a 512² request."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    worst = {}
+    for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
+        worst[name] = 0.0
+        for case, x, weights in block_cases(cfg, device, packed_only):
+            xl, kw = fused_args(case, x, layout)
+            out = tfb.fused_block(xl, *weights, **kw)
+            torch.cuda.synchronize()
+            ref = tfb.fused_block_plain(xl, *weights, **kw)
+            err = (out - ref).abs().max().item()
+            worst[name] = max(worst[name], err)
+            k, h, w, c, _, d, role, hidden, shift, cross = case
+            print(f"[{name.lower()}] stage {k} {role} {h}x{w} C={c} hidden={hidden} "
+                  f"shift={shift} cross={cross}: max_abs_err {err:.3e}", flush=True)
+            torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    return worst
+
+
+def repartition_cases(cfg, device):
+    """(stage, h, w, c, from_shift, xw, permutation) at every packed stage map of a
+    512² request, both directions; the permutation is the source token of each
+    destination slot (for the library call)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    for k, h, w, c, _, _ in stage_geometries(cfg):
+        if not twp.pack_beneficial(c, w):
+            continue
+        x = torch.randn(2, 1, h, w, c, generator=torch.Generator().manual_seed(SEED + k)).to(device)
+        for from_shift in (False, True):
+            xw = twp.pack_windows(x, WINDOW, from_shift).contiguous()
+            ids = torch.arange(h * w, dtype=torch.float32, device=device).reshape(1, 1, -1, T, 1)
+            perm = twp.repartition_windows_plain(ids, (h, w), WINDOW, from_shift, not from_shift)
+            yield k, h, w, c, from_shift, xw, perm.reshape(-1).long()
+
+
+def repartition_library(xw, perm):
+    """One PyTorch call computing the re-partition: index_select of the token axis."""
+    s, b, n, t, c = xw.shape
+    return xw.reshape(s * b, n * t, c).index_select(1, perm).reshape(s, b, n, t, c)
+
+
+def check_repartition(cfg, device):
+    """K2 bit-exact against its plain version (and the library call) at every packed
+    stage map of a 512² request, in both directions."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    worst = 0.0
+    for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device):
+        out = twp.repartition_windows(xw, (h, w), WINDOW, from_shift, not from_shift)
+        torch.cuda.synchronize()
+        ref = twp.repartition_windows_plain(xw, (h, w), WINDOW, from_shift, not from_shift)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"[k2] stage {k} {h}x{w} C={c} shift {from_shift} -> {not from_shift}: "
+              f"bit-exact {torch.equal(out, ref)}", flush=True)
+        if not torch.equal(out, ref) or not torch.equal(repartition_library(xw, perm), ref):
+            raise AssertionError(f"K2 at stage {k} is not bit-exact (max_abs_err {err})")
+    return worst
+
+
 def serve(fuser, shape, requests, seed):
-    """Phase 3: ``requests`` fuse_y calls at ``shape``; returns the last inputs/output."""
+    """``requests`` fuse_y calls at ``shape``; returns the last inputs/output."""
     rng = np.random.default_rng(seed)
     for _ in range(requests):
         ir = rng.random((1, *shape, 1), dtype=np.float32)
@@ -136,8 +287,144 @@ def forward(fuser, ir, vis):
         return fuser.model(torch.from_numpy(ir).to(dev), torch.from_numpy(vis).to(dev)).cpu().numpy()
 
 
+def reset_counts():
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    twa.LAUNCHES = tfb.LAUNCHES = twp.LAUNCHES = 0
+
+
+def read_counts(impl):
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    return {"K3": twa.LAUNCHES, "K2": twp.LAUNCHES, FUSED_NAME[impl]: tfb.LAUNCHES}
+
+
+def serve_configs(fusers, plain_fuser, cpu_fuser):
+    """The main paths: every configuration at every served shape, with its launch counts
+    (each read right after its own run), checked against the torch composition on the
+    card and, at 100x90, against the CPU composition. Returns the launches per kernel."""
+    launches = {}
+    cpu_out = {}
+    for impl, shapes in CONFIGS.items():
+        fuser = fusers[impl]
+        for shape, per_request in shapes.items():
+            reset_counts()
+            ir, vis, out = serve(fuser, shape, REQUESTS, seed=SEED + shape[1])
+            got = read_counts(impl)
+            expected = {name: 0 for name in got}
+            expected.update({name: n * REQUESTS for name, n in per_request.items()})
+            print(f"[serve] {impl} {shape}: {REQUESTS} requests, launches {got}", flush=True)
+            if got != expected:
+                raise AssertionError(f"{impl} at {shape}: launches {got}, expected {expected}")
+            for name, n in got.items():
+                if MAIN_PATH[name] == impl:
+                    launches[name] = launches.get(name, 0) + n
+            plain_out = plain_fuser.fuse_y(ir, vis)
+            raw, plain_raw = forward(fuser, ir, vis), forward(plain_fuser, ir, vis)
+            print(f"[parity] {impl} {shape}: kernels vs torch composition on the card, fuse_y "
+                  f"max_abs_err {np.abs(out - plain_out).max():.3e}, unclamped "
+                  f"{np.abs(raw - plain_raw).max():.3e}", flush=True)
+            np.testing.assert_allclose(out, plain_out, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+            np.testing.assert_allclose(raw, plain_raw, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+            if shape == (100, 90):
+                if shape not in cpu_out:
+                    cpu_out[shape] = cpu_fuser.fuse_y(ir, vis)
+                print(f"[parity] {impl} {shape}: card vs CPU composition max_abs_err "
+                      f"{float(np.abs(out - cpu_out[shape]).max()):.3e}", flush=True)
+                np.testing.assert_allclose(out, cpu_out[shape], atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    return launches
+
+
+def time_attention(cfg, device, card):
+    """K3 per launch at every stage x variant; per-request sums weight each by its 2
+    launches (encoder and decoder)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by = {}
+    for k, h, w, c, heads, d in stage_geometries(cfg):
+        args = attention_inputs(h, w, c, heads, d, SEED + k, device)
+        bound, bound_by = attention_bound_ms(h, w, c, heads, d)
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
+                          shift=shift, cross=cross)
+                ms = time_ms(lambda: twa.window_attention(*args, **kw), iters=20)
+                plain = time_ms(lambda: twa.window_attention_plain(*args, **kw), iters=5)
+                print(f"[time] K3 stage {k} {h}x{w} C={c} shift={shift} cross={cross}: "
+                      f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}",
+                      flush=True)
+                for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                    totals[key] += 2 * v
+                by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
+    print(f"[time] K3 per 512x512 request under cuda (40 launches): {totals['ms']:.3f} ms, plain "
+          f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    return dict(totals, bound_by=max(by, key=by.get), library_ms=None)
+
+
+def time_fused_block(cfg, device, card):
+    """K1 (packed stages, windows layout) and K4 (every stage, image layout) per launch
+    at every stage x role x shift x cross block of a 512² request; each block runs once
+    per request, so the per-request sums add them all."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    results = {}
+    for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
+        totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        by = {}
+        for case, x, weights in block_cases(cfg, device, packed_only):
+            xl, kw = fused_args(case, x, layout)
+            k, h, w, c, heads, d, role, hidden, shift, cross = case
+            bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden)
+            ms = time_ms(lambda: tfb.fused_block(xl, *weights, **kw), iters=20)
+            plain = time_ms(lambda: tfb.fused_block_plain(xl, *weights, **kw), iters=3, warmup=1)
+            print(f"[time] {name} stage {k} {role} {h}x{w} C={c} hidden={hidden} shift={shift} "
+                  f"cross={cross}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({bound_by}) | {card}", flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                totals[key] += v
+            by[bound_by] = by.get(bound_by, 0.0) + bound
+        n = 32 if packed_only else 40
+        print(f"[time] {name} per 512x512 request ({n} launches): {totals['ms']:.3f} ms, plain "
+              f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+        results[name] = dict(totals, bound_by=max(by, key=by.get), library_ms=None)
+    return results
+
+
+def time_repartition(cfg, device, card):
+    """K2 per launch at every packed stage map, both directions. A packed stage
+    re-partitions normal -> shift twice and shift -> normal once per role (encoder and
+    decoder), so a request runs each normal -> shift launch 4 times and each
+    shift -> normal launch twice."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device):
+        args = (xw, (h, w), WINDOW, from_shift, not from_shift)
+        bound, _ = repartition_bound_ms(h, w, c)
+        ms = time_ms(lambda: twp.repartition_windows(*args), iters=50)
+        plain = time_ms(lambda: twp.repartition_windows_plain(*args), iters=20)
+        library = time_ms(lambda: repartition_library(xw, perm), iters=50)
+        print(f"[time] K2 stage {k} {h}x{w} C={c} shift {from_shift} -> {not from_shift}: "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, index_select {library:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes) | {card}", flush=True)
+        per_request = 2 if from_shift else 4
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
+            totals[key] += per_request * v
+    print(f"[time] K2 per 512x512 request under cuda_pack (24 launches): {totals['ms']:.3f} ms, "
+          f"plain {totals['plain_ms']:.3f} ms, index_select {totals['library_ms']:.3f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    return dict(totals, bound_by="bytes")
+
+
 KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first match wins
-    ("K3 (csrc/window_attention.cu)", ("window_core_kernel", "gemm_bias_kernel")),
+    ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
+    ("csrc attention core", ("window_core_kernel",)),
+    ("csrc re-partition (K2)", ("repartition_kernel",)),
     ("host-device copies", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "implicit")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "Kernel2")),
@@ -146,9 +433,9 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
 )
 
 
-def trace_request(fuser, ir, vis, wall_ms, card):
-    """Phase 5: one request under torch.profiler; device time by kernel family, the
-    busiest kernels, and the device's idle share of the request's median latency."""
+def trace_request(impl, fuser, ir, vis, wall_ms, card):
+    """One request under torch.profiler; device time by kernel family, the busiest
+    kernels, and the device's idle share of the request's median latency."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,7 +445,7 @@ def trace_request(fuser, ir, vis, wall_ms, card):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0.0:
-        print(f"[trace] the profiler recorded no device time: breakdown not measured | {card}")
+        print(f"[trace] {impl}: the profiler recorded no device time: breakdown not measured | {card}")
         return
     families = {}
     for e in kernels:
@@ -167,14 +454,14 @@ def trace_request(fuser, ir, vis, wall_ms, card):
                       "other elementwise")
         ms, count = families.get(family, (0.0, 0))
         families[family] = (ms + e.self_device_time_total / 1e3, count + e.count)
-    print(f"[trace] fuse_y 512x512 bs=1 (cuda): {sum(e.count for e in kernels)} device "
+    print(f"[trace] fuse_y 512x512 bs=1 ({impl}): {sum(e.count for e in kernels)} device "
           f"kernels and copies, {total_ms:.3f} ms busy; idle share of the {wall_ms:.2f} ms "
           f"median request {1 - total_ms / wall_ms:.3f} | {card}", flush=True)
     for family, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
-        print(f"[trace]   {family}: {ms:.3f} ms in {count} launches", flush=True)
+        print(f"[trace]   {impl} {family}: {ms:.3f} ms in {count} launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[trace]   top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:100]}",
-              flush=True)
+        print(f"[trace]   {impl} top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+              f"{e.key[:100]}", flush=True)
 
 
 def main() -> int:
@@ -184,12 +471,11 @@ def main() -> int:
     from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
     from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
     from swin_unet_image_fusion_tpu_torch.ops import _build
-    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     # fp32 parity mode: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda")
+    device = torch.device(DEVICE)
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -200,92 +486,60 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = ModelConfig()
-    worst = check_attention_kernel(cfg, device)
+    worst = {"K3": check_attention_kernel(cfg, device), **check_fused_block(cfg, device),
+             "K2": check_repartition(cfg, device)}
 
-    # Phase 3: the main path, full model, counted launches
     flat = random_variables(cfg, seed=SEED)
-    fuser = Fuser(Config(model=cfg), flat, device="cuda")
-    plain_fuser = Fuser(Config(model=ModelConfig(attention_impl="torch")), flat, device="cuda")
-    expected = {(512, 512): 40, (100, 90): 24}
-    main_launches = 0
-    last = {}
-    for shape, per_request in expected.items():
-        twa.LAUNCHES = 0
-        last[shape] = serve(fuser, shape, REQUESTS, seed=SEED + shape[1])
-        got = twa.LAUNCHES
-        main_launches += got
-        print(f"[serve] {shape}: {REQUESTS} requests, {got} kernel launches", flush=True)
-        if got != per_request * REQUESTS:
-            raise AssertionError(f"K3 launched {got} times at {shape}, expected {per_request * REQUESTS}")
-    for shape, (ir, vis, out) in last.items():
-        plain_out = plain_fuser.fuse_y(ir, vis)
-        raw, plain_raw = forward(fuser, ir, vis), forward(plain_fuser, ir, vis)
-        print(f"[parity] {shape}: kernel vs torch composition on the card, fuse_y max_abs_err "
-              f"{np.abs(out - plain_out).max():.3e}, unclamped {np.abs(raw - plain_raw).max():.3e}",
-              flush=True)
-        np.testing.assert_allclose(out, plain_out, atol=MODEL_ATOL, rtol=MODEL_RTOL)
-        np.testing.assert_allclose(raw, plain_raw, atol=MODEL_ATOL, rtol=MODEL_RTOL)
-    ir, vis, out = last[(100, 90)]
-    cpu_out = Fuser(Config(model=cfg), flat, device="cpu").fuse_y(ir, vis)
-    print(f"[parity] (100, 90): card vs CPU composition max_abs_err "
-          f"{float(np.abs(out - cpu_out).max()):.3e}", flush=True)
-    np.testing.assert_allclose(out, cpu_out, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    fusers = {impl: Fuser(Config(model=ModelConfig(attention_impl=impl)), flat, device=DEVICE)
+              for impl in CONFIGS}
+    plain_fuser = Fuser(Config(model=ModelConfig(attention_impl="torch")), flat, device=DEVICE)
+    cpu_fuser = Fuser(Config(model=cfg), flat, device="cpu")
+    launches = serve_configs(fusers, plain_fuser, cpu_fuser)
 
-    # Phase 4: times beside bounds; per-forward sums weight each stage by its 8 launches
-    twa.LAUNCHES = 0
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    bound_by = {}
-    for k, h, w, c, heads, d in stage_geometries(cfg):
-        args = attention_inputs(h, w, c, heads, d, SEED + k, device)
-        bound, by = attention_bound_ms(h, w, c, heads, d)
-        for shift in (False, True):
-            for cross in (False, True):
-                kw = dict(window=cfg.window_size, num_heads=heads, dims_per_head=d,
-                          shift=shift, cross=cross)
-                ms = time_ms(lambda: twa.window_attention(*args, **kw), iters=20)
-                plain = time_ms(lambda: twa.window_attention_plain(*args, **kw), iters=5)
-                print(f"[time] K3 stage {k} {h}x{w} C={c} shift={shift} cross={cross}: "
-                      f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) | {card}",
-                      flush=True)
-                totals["ms"] += 2 * ms
-                totals["plain_ms"] += 2 * plain
-                totals["bound_ms"] += 2 * bound
-                bound_by[by] = bound_by.get(by, 0.0) + 8 * bound
-    print(f"[time] K3 per 512x512 request (40 launches): {totals['ms']:.3f} ms, plain "
-          f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    times = {"K3": time_attention(cfg, device, card), **time_fused_block(cfg, device, card),
+             "K2": time_repartition(cfg, device, card)}
 
     rng = np.random.default_rng(SEED)
     ir = rng.random((1, 512, 512, 1), dtype=np.float32)
     vis = rng.random((1, 512, 512, 1), dtype=np.float32)
-    median_ms = {}
-    for name, f in (("cuda", fuser), ("torch composition", plain_fuser)):
+    # the configurations take turns, one request each, so that a change in the host's
+    # speed during the run falls on all of them alike
+    served = {**fusers, "torch composition": plain_fuser}
+    walls = {name: [] for name in served}
+    peaks = dict.fromkeys(served, 0.0)
+    for f in served.values():
         f.fuse_y(ir, vis)
-        torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for _ in range(LATENCY_SAMPLES):
+    for _ in range(LATENCY_SAMPLES):
+        for name, f in served.items():
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             f.fuse_y(ir, vis)
-            walls.append(1e3 * (time.perf_counter() - t))
-        median_ms[name] = float(np.median(walls))
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        print(f"[latency] fuse_y 512x512 bs=1 ({name}), {LATENCY_SAMPLES} requests: median "
-              f"{median_ms[name]:.2f} ms/pair, min {min(walls):.2f}, max {max(walls):.2f}, "
-              f"peak memory {peak:.0f} MiB | {card}", flush=True)
-    trace_request(fuser, ir, vis, median_ms["cuda"], card)
+            walls[name].append(1e3 * (time.perf_counter() - t))
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**20)
+    median_ms = {name: float(np.median(w)) for name, w in walls.items()}
+    for name, w in walls.items():
+        print(f"[latency] fuse_y 512x512 bs=1 ({name}), {LATENCY_SAMPLES} requests in turns: "
+              f"median {median_ms[name]:.2f} ms/pair, min {min(w):.2f}, max {max(w):.2f}, "
+              f"peak memory {peaks[name]:.0f} MiB | {card}", flush=True)
+    for impl, fuser in fusers.items():
+        trace_request(impl, fuser, ir, vis, median_ms[impl], card)
 
+    csrc = "swin_unet_image_fusion_tpu_torch/csrc"
+    described = (
+        ("K3", "window_attention_fwd (K3)", f"{csrc}/window_attention.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
+        ("K1", "fused_block_fwd, windows layout (K1)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
+        ("K2", "repartition_fwd (K2)", f"{csrc}/repartition.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
+        ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
+    )
     kernels = [{
-        "name": "window_attention_fwd (K3)",
-        "route": "cuda",
-        "source": "swin_unet_image_fusion_tpu_torch/csrc/window_attention.cu",
-        "replaces": "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249",
-        "launches": main_launches,
-        "max_abs_err": worst,
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": max(bound_by, key=bound_by.get),
-        "library_ms": None,
-    }]
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[key], "max_abs_err": worst[key],
+        **{k: times[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for key, name, source, replaces in described]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -4,8 +4,13 @@ Counterpart of ``swin_unet_image_fusion_tpu/config.py``: the same dataclasses wi
 same defaults, kept as a separate copy so that the port never imports the JAX package.
 Like the JAX module it imports nothing but the standard library.
 The one field whose values differ is ``ModelConfig.attention_impl``: the port knows
-``"auto"``, ``"torch"`` (the plain PyTorch composition) and ``"cuda"`` (the
-hand-written window-attention kernel, ``ops/window_attention.py``).
+``"auto"``, ``"torch"`` (the plain PyTorch composition), ``"cuda"`` (the hand-written
+window-attention kernel, ``ops/window_attention.py``; the JAX ``"pallas"``),
+``"cuda_pack"`` (the JAX ``"pallas_pack"``: stages that ``pack_beneficial`` accepts run
+each block as one fused kernel on window-packed tokens with the re-partition kernel
+between blocks, ``ops/fused_block.py`` and ``ops/window_pack.py``; the other stages run
+``"cuda"``) and ``"cuda_block"`` (the JAX ``"pallas_block"``: every block as one fused
+kernel on the image).
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-ATTENTION_IMPLS = ("auto", "torch", "cuda")
+ATTENTION_IMPLS = ("auto", "torch", "cuda", "cuda_pack", "cuda_block")
 
 
 @dataclass(frozen=True)
@@ -37,11 +42,13 @@ class ModelConfig:
     # The port computes in float32 only; bfloat16 is not ported yet.
     compute_dtype: str = "float32"
     # "auto" resolves from the device the caller passed: "cuda" on a CUDA device,
-    # "torch" on the CPU. "cuda" on a CPU tensor runs the kernel's plain version.
+    # "torch" on the CPU. A kernel impl ("cuda", "cuda_pack", "cuda_block") on a CPU
+    # tensor runs the kernels' plain versions.
     attention_impl: str = "auto"
     # Stages whose attention map has at most this many tokens (H*W) run the torch
     # composition instead of the kernel: the JAX package's static routing on shapes
-    # (unet.py, the same field). 49 gates exactly the one-window 7x7 map.
+    # (unet.py, the same field). 49 gates exactly the one-window 7x7 map. A stage that
+    # "cuda_pack" packs is never gated.
     attention_jnp_max_tokens: Optional[int] = 49
     remat: bool = False
     bn_axis_name: str = ""

@@ -30,157 +30,12 @@
 // (the TPU kernel's shape) would need ~190 KB of shared memory at C = 384 and runs only
 // 18 blocks there; measured on an H100 it took 13.7 ms per deep-stage launch, 25x the
 // plain PyTorch version. The split keeps every block small and the card full at every
-// stage, at the cost of writing q, k, v and AV once (4x the activation bytes).
+// stage, at the cost of writing q, k, v and AV once (4x the activation bytes). The GEMM
+// and the core kernel live in window_core.cuh, shared with the fused block (fused_block.cu).
 
-#include <cuda_runtime.h>
+#include "window_core.cuh"
 
-namespace {
-
-constexpr float kMaskFill = -1e10f;
-constexpr float kSoftmaxClamp = 80.0f;
-
-// ---- batched C[z] = (A[z] @ B[z] + bias[z]) * alpha[z], row-major, fp32 -------------
-constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
-constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);  // 256
-constexpr int kMaxBatch = 6;
-
-struct GemmBatch {
-  const float* a[kMaxBatch];     // (M, K)
-  const float* b[kMaxBatch];     // (K, N)
-  const float* bias[kMaxBatch];  // (N)
-  float* c[kMaxBatch];           // (M, N)
-  float alpha[kMaxBatch];
-};
-
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_bias_kernel(GemmBatch p, int M, int N, int K) {
-  __shared__ float as[kBK][kBM];  // A tile, transposed
-  __shared__ float bs[kBK][kBN];
-  const int z = blockIdx.z;
-  const float* __restrict__ a = p.a[z];
-  const float* __restrict__ b = p.b[z];
-  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int ty = tid / (kBN / kTN), tx = tid % (kBN / kTN);
-  float acc[kTM][kTN] = {};
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
-      const int r = i / kBK, kk = i % kBK;  // consecutive threads walk along K
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < M && gk < K) ? a[static_cast<size_t>(gr) * K + gk] : 0.0f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
-      const int kk = i / kBN, n = i % kBN;
-      const int gk = k0 + kk, gn = col0 + n;
-      bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const float alpha = p.alpha[z];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gr = row0 + ty * kTM + i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = col0 + tx * kTN + j;
-      if (gn < N) p.c[z][static_cast<size_t>(gr) * N + gn] = (acc[i][j] + p.bias[z][gn]) * alpha;
-    }
-  }
-}
-
-// ---- per (window, stream*batch, head): scores, mask, softmax, AV ---------------------
-constexpr int kCoreThreads = 128;
-
-__global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias, float* __restrict__ o, int B, int H, int W, int heads,
-    int d, int wh, int ww, int top, int left) {
-  extern __shared__ float smem[];
-  const int T = wh * ww;
-  const int inner = heads * d;
-  const int nw = W / ww;
-  const int wr = blockIdx.x / nw, wc = blockIdx.x % nw;
-  const int n = blockIdx.y;  // s * B + b
-  const int s = n / B;
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x;
-
-  float* qs = smem;          // [T][d]
-  float* ks = qs + T * d;    // [T][d]
-  float* vs = ks + T * d;    // [T][d]
-  float* ps = vs + T * d;    // [T][T]
-  int* pix = reinterpret_cast<int*>(ps + T * T);  // [T] pixel index in the image
-  int* region = pix + T;                           // [T] wrap-seam region
-
-  for (int t = tid; t < T; t += kCoreThreads) {
-    const int rr = wr * wh + t / ww;  // row and column in the rolled map
-    const int rc = wc * ww + t % ww;
-    pix[t] = ((rr - top + H) % H) * W + (rc - left + W) % W;
-    region[t] = ((rr < top) << 1) | (rc < left);
-  }
-  __syncthreads();
-  const size_t base = static_cast<size_t>(n) * H * W * inner + static_cast<size_t>(h) * d;
-  for (int i = tid; i < T * d; i += kCoreThreads) {
-    const size_t at = base + static_cast<size_t>(pix[i / d]) * inner + i % d;
-    qs[i] = q[at];
-    ks[i] = k[at];
-    vs[i] = v[at];
-  }
-  __syncthreads();
-
-  const float* __restrict__ bias_s = bias + static_cast<size_t>(s) * T * T;
-  for (int i = tid; i < T * T; i += kCoreThreads) {
-    const int t = i / T, u = i % T;
-    float acc = 0.0f;
-    for (int j = 0; j < d; ++j) acc = fmaf(qs[t * d + j], ks[u * d + j], acc);
-    acc += bias_s[i];
-    if (region[t] != region[u]) acc = kMaskFill;
-    ps[i] = expf(fminf(acc, kSoftmaxClamp));
-  }
-  __syncthreads();
-  // one warp per row: p = e * (1 / (sum + 1e-30))
-  const int warp = tid / 32, lane = tid % 32;
-  for (int t = warp; t < T; t += kCoreThreads / 32) {
-    float sum = 0.0f;
-    for (int u = lane; u < T; u += 32) sum += ps[t * T + u];
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float r = 1.0f / (sum + 1e-30f);
-    for (int u = lane; u < T; u += 32) ps[t * T + u] *= r;
-  }
-  __syncthreads();
-  for (int i = tid; i < T * d; i += kCoreThreads) {
-    const int t = i / d, j = i % d;
-    float acc = 0.0f;
-    for (int u = 0; u < T; ++u) acc = fmaf(ps[t * T + u], vs[u * d + j], acc);
-    o[base + static_cast<size_t>(pix[t]) * inner + j] = acc;
-  }
-}
-
-size_t core_smem_bytes(int d, int wh, int ww) {
-  const size_t T = static_cast<size_t>(wh) * ww;
-  return (3 * T * d + T * T) * sizeof(float) + 2 * T * sizeof(int);
-}
-
-dim3 gemm_grid(int M, int N, int batch) {
-  return dim3((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-}
-
-}  // namespace
+using namespace swin;
 
 extern "C" {
 
@@ -219,17 +74,11 @@ int swin_window_attention_fwd(const float* x, const float* wq, const float* bq, 
       qkv.alpha[z] = part == 0 ? scale : 1.0f;
     }
   }
-  gemm_bias_kernel<<<gemm_grid(M, inner, 3 * S), kGemmThreads, 0, st>>>(qkv, M, inner, C);
+  launch_gemm<false, false, false>(qkv, M, inner, C, 3 * S, st);
 
-  const size_t smem = core_smem_bytes(d, wh, ww);
-  cudaError_t err = cudaFuncSetAttribute(window_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = launch_core<false>(q, k, v, bias, o, S, B, H, W, heads, d, wh, ww,
+                                             shift != 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 core_grid((H / wh) * (W / ww), S * B, heads);
-  window_core_kernel<<<core_grid, kCoreThreads, smem, st>>>(
-      q, k, v, bias, o, B, H, W, heads, d, wh, ww, shift ? wh - wh / 2 : 0,
-      shift ? ww - ww / 2 : 0);
 
   GemmBatch proj = {};
   for (int s = 0; s < S; ++s) {
@@ -239,12 +88,8 @@ int swin_window_attention_fwd(const float* x, const float* wq, const float* bq, 
     proj.c[s] = out + s * x_stream;
     proj.alpha[s] = 1.0f;
   }
-  gemm_bias_kernel<<<gemm_grid(M, C, S), kGemmThreads, 0, st>>>(proj, M, C, inner);
+  launch_gemm<false, false, false>(proj, M, C, inner, S, st);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* swin_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,0 +1,249 @@
+// Device code shared by the window-attention kernel (K3, window_attention.cu) and the
+// fused Swin block (K1/K4, fused_block.cu), fp32, for Hopper (sm_90a):
+//
+//   gemm_kernel         batched row-major C[z] = act((LN(A[z]) @ B[z] + bias[z]) * alpha[z])
+//                       + res[z], with the LayerNorm of A's rows optional in the prologue
+//                       (row statistics computed by each block for its own rows) and ELU
+//                       and a residual optional in the epilogue;
+//   window_core_kernel  one block per (window, stream*batch, head): scores q.k plus the
+//                       shared relative-position bias, the shift mask that SETS scores to
+//                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
+//                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV.
+//
+// Token layouts of the core kernel, both (S*B, H*W tokens, heads*d) in device memory:
+//   image    tokens in (H, W) row-major order; the window partition and the shifted
+//            partition are address arithmetic: the shifted grid is the map rolled by
+//            (top, left) = (wh - wh/2, ww - ww/2), so token (i, j) of window (wr, wc) is
+//            pixel ((wr*wh + i - top) mod H, (wc*ww + j - left) mod W);
+//   windows  tokens already grouped by window (nWin, T) in that same geometry, as
+//            ops/window_pack.py::pack_windows lays them out.
+// In both, the wrap seams are masked by region: a token's region is whether its rolled
+// row is < top and whether its rolled column is < left; scores between regions are set
+// to -1e10, whose exp is exactly 0. Without shift, top = left = 0 and all tokens share
+// one region.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace swin {
+
+constexpr float kMaskFill = -1e10f;
+constexpr float kSoftmaxClamp = 80.0f;
+constexpr float kLnEps = 1e-5f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ---- batched GEMM with optional LayerNorm prologue, ELU and residual epilogue ----------
+constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
+constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);  // 256
+constexpr int kMaxBatch = 6;
+
+struct GemmBatch {
+  const float* a[kMaxBatch];     // (M, K)
+  const float* b[kMaxBatch];     // (K, N)
+  const float* bias[kMaxBatch];  // (N)
+  const float* ln_g[kMaxBatch];  // (K) LayerNorm scale of A's rows (kLn only)
+  const float* ln_b[kMaxBatch];  // (K) LayerNorm bias (kLn only)
+  const float* res[kMaxBatch];   // (M, N) added last (kRes only); may alias c
+  float* c[kMaxBatch];           // (M, N)
+  float alpha[kMaxBatch];
+};
+
+template <bool kLn, bool kElu, bool kRes>
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_kernel(GemmBatch p, int M, int N, int K) {
+  __shared__ float as[kBK][kBM];  // A tile, transposed
+  __shared__ float bs[kBK][kBN];
+  __shared__ float row_mean[kLn ? kBM : 1], row_rstd[kLn ? kBM : 1];
+  const int z = blockIdx.z;
+  const float* __restrict__ a = p.a[z];
+  const float* __restrict__ b = p.b[z];
+  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
+  const int ty = tid / (kBN / kTN), tx = tid % (kBN / kTN);
+
+  if (kLn) {  // one warp per row: mean, then the biased variance about it
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
+      const int gr = row0 + r;
+      float mean = 0.0f, rstd = 0.0f;
+      if (gr < M) {
+        const float* row = a + static_cast<size_t>(gr) * K;
+        float sum = 0.0f;
+        for (int k = lane; k < K; k += 32) sum += row[k];
+        mean = warp_sum(sum) / K;
+        float sq = 0.0f;
+        for (int k = lane; k < K; k += 32) {
+          const float dev = row[k] - mean;
+          sq = fmaf(dev, dev, sq);
+        }
+        rstd = 1.0f / sqrtf(warp_sum(sq) / K + kLnEps);
+      }
+      if (lane == 0) {
+        row_mean[r] = mean;
+        row_rstd[r] = rstd;
+      }
+    }
+    __syncthreads();
+  }
+  const float* __restrict__ ln_g = kLn ? p.ln_g[z] : nullptr;
+  const float* __restrict__ ln_b = kLn ? p.ln_b[z] : nullptr;
+
+  float acc[kTM][kTN] = {};
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
+      const int r = i / kBK, kk = i % kBK;  // consecutive threads walk along K
+      const int gr = row0 + r, gk = k0 + kk;
+      float val = 0.0f;
+      if (gr < M && gk < K) {
+        val = a[static_cast<size_t>(gr) * K + gk];
+        if (kLn) val = (val - row_mean[r]) * row_rstd[r] * ln_g[gk] + ln_b[gk];
+      }
+      as[kk][r] = val;
+    }
+    for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
+      const int kk = i / kBN, n = i % kBN;
+      const int gk = k0 + kk, gn = col0 + n;
+      bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[kTM], bv[kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty * kTM + i];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx * kTN + j];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  const float alpha = p.alpha[z];
+  const float* res = kRes ? p.res[z] : nullptr;
+  float* c = p.c[z];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int gr = row0 + ty * kTM + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int gn = col0 + tx * kTN + j;
+      if (gn >= N) continue;
+      const size_t at = static_cast<size_t>(gr) * N + gn;
+      float v = (acc[i][j] + p.bias[z][gn]) * alpha;
+      if (kElu) v = v > 0.0f ? v : expm1f(v);
+      if (kRes) v += res[at];  // read and written by this thread only
+      c[at] = v;
+    }
+  }
+}
+
+template <bool kLn, bool kElu, bool kRes>
+void launch_gemm(const GemmBatch& p, int M, int N, int K, int batch, cudaStream_t st) {
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
+  gemm_kernel<kLn, kElu, kRes><<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
+}
+
+// ---- per (window, stream*batch, head): scores, mask, softmax, AV -----------------------
+constexpr int kCoreThreads = 128;
+
+template <bool kWindows>
+__global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ bias, float* __restrict__ o, int B, int H, int W, int heads,
+    int d, int wh, int ww, int top, int left) {
+  extern __shared__ float smem[];
+  const int T = wh * ww;
+  const int inner = heads * d;
+  const int nw = W / ww;
+  const int wr = blockIdx.x / nw, wc = blockIdx.x % nw;
+  const int n = blockIdx.y;  // s * B + b
+  const int s = n / B;
+  const int h = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  float* qs = smem;          // [T][d]
+  float* ks = qs + T * d;    // [T][d]
+  float* vs = ks + T * d;    // [T][d]
+  float* ps = vs + T * d;    // [T][T]
+  int* pix = reinterpret_cast<int*>(ps + T * T);  // [T] token index in the (s, b) map
+  int* region = pix + T;                           // [T] wrap-seam region
+
+  for (int t = tid; t < T; t += kCoreThreads) {
+    const int rr = wr * wh + t / ww;  // row and column in the rolled map
+    const int rc = wc * ww + t % ww;
+    pix[t] = kWindows ? blockIdx.x * T + t : ((rr - top + H) % H) * W + (rc - left + W) % W;
+    region[t] = ((rr < top) << 1) | (rc < left);
+  }
+  __syncthreads();
+  const size_t base = static_cast<size_t>(n) * H * W * inner + static_cast<size_t>(h) * d;
+  for (int i = tid; i < T * d; i += kCoreThreads) {
+    const size_t at = base + static_cast<size_t>(pix[i / d]) * inner + i % d;
+    qs[i] = q[at];
+    ks[i] = k[at];
+    vs[i] = v[at];
+  }
+  __syncthreads();
+
+  const float* __restrict__ bias_s = bias + static_cast<size_t>(s) * T * T;
+  for (int i = tid; i < T * T; i += kCoreThreads) {
+    const int t = i / T, u = i % T;
+    float acc = 0.0f;
+    for (int j = 0; j < d; ++j) acc = fmaf(qs[t * d + j], ks[u * d + j], acc);
+    acc += bias_s[i];
+    if (region[t] != region[u]) acc = kMaskFill;
+    ps[i] = expf(fminf(acc, kSoftmaxClamp));
+  }
+  __syncthreads();
+  // one warp per row: p = e * (1 / (sum + 1e-30))
+  const int warp = tid / 32, lane = tid % 32;
+  for (int t = warp; t < T; t += kCoreThreads / 32) {
+    float sum = 0.0f;
+    for (int u = lane; u < T; u += 32) sum += ps[t * T + u];
+    const float r = 1.0f / (warp_sum(sum) + 1e-30f);
+    for (int u = lane; u < T; u += 32) ps[t * T + u] *= r;
+  }
+  __syncthreads();
+  for (int i = tid; i < T * d; i += kCoreThreads) {
+    const int t = i / d, j = i % d;
+    float acc = 0.0f;
+    for (int u = 0; u < T; ++u) acc = fmaf(ps[t * T + u], vs[u * d + j], acc);
+    o[base + static_cast<size_t>(pix[t]) * inner + j] = acc;
+  }
+}
+
+inline size_t core_smem_bytes(int d, int wh, int ww) {
+  const size_t T = static_cast<size_t>(wh) * ww;
+  return (3 * T * d + T * T) * sizeof(float) + 2 * T * sizeof(int);
+}
+
+// Sets the core kernel's shared memory and launches it over every window, stream*batch
+// and head of an (S*B, H, W) map; returns the attribute call's error (0 = ok).
+template <bool kWindows>
+cudaError_t launch_core(const float* q, const float* k, const float* v, const float* bias,
+                        float* o, int S, int B, int H, int W, int heads, int d, int wh,
+                        int ww, bool shift, cudaStream_t st) {
+  const size_t smem = core_smem_bytes(d, wh, ww);
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_core_kernel<kWindows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / wh) * (W / ww), S * B, heads);
+  window_core_kernel<kWindows><<<grid, kCoreThreads, smem, st>>>(
+      q, k, v, bias, o, B, H, W, heads, d, wh, ww, shift ? wh - wh / 2 : 0,
+      shift ? ww - ww / 2 : 0);
+  return cudaSuccess;
+}
+
+}  // namespace swin
+
+extern "C" const char* swin_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -33,7 +33,9 @@ from ..ops.window import (
     window_partition,
     window_unpartition,
 )
+from ..ops.fused_block import fused_block
 from ..ops.window_attention import window_attention
+from ..ops.window_pack import pack_windows, repartition_windows, unpack_windows
 
 
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -174,12 +176,14 @@ class DualMLP(nn.Module):
 
 class BasicBlock(nn.Module):
     """Pre-norm block: LN -> window attention -> +res, LN -> MLP -> +res (JAX
-    ``BasicBlock``, NHWC path)."""
+    ``BasicBlock``). ``impl="cuda_block"`` runs the whole block as one fused kernel on
+    the image (the JAX ``pallas_block``); :meth:`fused` also takes window-packed tokens."""
 
     def __init__(self, streams: int, dims: int, num_heads: int, dims_per_head: int,
                  window_size: Tuple[int, int], shift: bool, cross: bool,
                  mlp_hidden_dims: int, activation: str = "elu", use_qkv_bias: bool = True):
         super().__init__()
+        self.activation = activation
         self.norm1 = StackedLayerNorm(streams, dims)
         self.attn = DualWindowAttention(streams, dims, num_heads, dims_per_head,
                                         window_size, shift, cross, use_qkv_bias)
@@ -187,13 +191,35 @@ class BasicBlock(nn.Module):
         self.mlp = DualMLP(streams, dims, mlp_hidden_dims, activation)
 
     def forward(self, x: torch.Tensor, impl: str = "torch") -> torch.Tensor:
+        if impl == "cuda_block":
+            return self.fused(x, "image")
         x = x + self.attn(self.norm1(x), impl)
         return x + self.mlp(self.norm2(x))
+
+    def fused(self, x: torch.Tensor, layout: str, hw: Tuple[int, int] | None = None) -> torch.Tensor:
+        """The block through the fused kernel's wrapper (its plain version on a CPU
+        tensor): ``layout="image"`` for (S, B, H, W, C), ``"windows"`` for the
+        ``pack_windows`` tokens of an ``hw`` map in this block's geometry."""
+        attn = self.attn
+        weights = [t for layer in (attn.q, attn.k, attn.v, attn.proj) for t in layer.weights()]
+        bias = gather_relative_position_bias(attn.rel_pos_bias_table, attn.window_size)
+        return fused_block(
+            x.contiguous(), self.norm1.scale, self.norm1.bias, *weights, bias.contiguous(),
+            self.norm2.scale, self.norm2.bias, *self.mlp.fc1.weights(), *self.mlp.fc2.weights(),
+            window=attn.window_size, num_heads=attn.num_heads,
+            dims_per_head=attn.dims_per_head, shift=attn.shift, cross=attn.cross,
+            layout=layout, hw=hw, activation=self.activation,
+        )
 
 
 class SelfAndCrossBlockPair(nn.Module):
     """The per-stage unit: self normal, self shift, cross normal, cross shift (JAX
-    ``SelfAndCrossBlockPair``, NHWC branch)."""
+    ``SelfAndCrossBlockPair``).
+
+    ``impl="cuda_pack"`` packs the stage's tokens by window once, runs the four blocks
+    as fused kernels on them with the re-partition kernel between the normal and the
+    shifted geometry, and unpacks once (the JAX non-``strips_io`` packed branch). Which
+    stages pack is the model's decision (``SwinFusionUNet.stage_impls``)."""
 
     ORDER = (("self_normal", False, False), ("self_shift", True, False),
              ("cross_normal", False, True), ("cross_shift", True, True))
@@ -209,9 +235,23 @@ class SelfAndCrossBlockPair(nn.Module):
             ))
 
     def forward(self, x: torch.Tensor, impl: str = "torch") -> torch.Tensor:
+        if impl == "cuda_pack":
+            return self._packed_forward(x)
         for name, _, _ in self.ORDER:
             x = getattr(self, name)(x, impl)
         return x
+
+    def _packed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        hw = (x.shape[2], x.shape[3])
+        window = self.self_normal.attn.window_size
+        xw = pack_windows(x, window, shift=False)
+        was_shift = False
+        for name, shift, _ in self.ORDER:
+            if shift != was_shift:
+                xw = repartition_windows(xw, hw, window, was_shift, shift)
+                was_shift = shift
+            xw = getattr(self, name).fused(xw, "windows", hw)
+        return unpack_windows(xw, hw, window, shift=was_shift)
 
 
 class PatchMergeLayer(nn.Module):

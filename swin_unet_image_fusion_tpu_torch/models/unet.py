@@ -7,7 +7,8 @@ port of the JAX ``models/unet.py``, NHWC path).
 - decoder stage k's MLP hidden width is ``in_dims_list[k] * ratio`` while its blocks
   run at ``out_dims_list[k]`` (a quirk of the original model, kept);
 - stages whose attention map has at most ``attention_jnp_max_tokens`` tokens run the
-  torch composition instead of the kernel, the JAX package's static routing on shapes.
+  torch composition instead of the kernel, unless ``"cuda_pack"`` packs them: the JAX
+  package's static routing on shapes (:meth:`SwinFusionUNet.stage_impls`).
 
 Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 """
@@ -20,6 +21,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.patch import crop_bottom_right, pad_reflect_bottom_right
 from ..ops.shape_plan import make_plan
+from ..ops.window_pack import pack_beneficial
 from .layers import FinalHead, PatchMergeLayer, PatchUnmergeLayer, SelfAndCrossBlockPair
 
 STREAMS = 2  # dual path: (x=ir, y=vis_Y)
@@ -47,16 +49,25 @@ class SwinFusionUNet(nn.Module):
         self.final_head = FinalHead(cfg.final_conv_layer_kernel_size, cfg.mlp_activation)
 
     def stage_impls(self, h: int, w: int, device: torch.device | str) -> tuple:
-        """The attention impl each stage runs for an (h, w) input on ``device``."""
+        """The route each stage runs for an (h, w) input on ``device``: "torch", "cuda"
+        (K3), "cuda_pack" (a packed stage: K1 and K2) or "cuda_block" (K4). As the JAX
+        model routes: under "cuda_pack" a stage that ``pack_beneficial`` rejects runs
+        "cuda"; a stage that is not packed and whose map has at most
+        ``attention_jnp_max_tokens`` tokens runs "torch"."""
         cfg = self.cfg
         impl = cfg.resolved_attention_impl(device)
         plan = make_plan(h, w, cfg.num_stages, cfg.merging_size, cfg.window_size)
         gate = cfg.attention_jnp_max_tokens
-        return tuple(
-            "torch" if impl == "cuda" and gate is not None
-            and p.att_hw[0] * p.att_hw[1] <= gate else impl
-            for p in plan
-        )
+        routes = []
+        for k, p in enumerate(plan):
+            route = impl
+            if impl == "cuda_pack" and not pack_beneficial(cfg.out_dims_list[k], p.att_hw[1]):
+                route = "cuda"
+            if (route in ("cuda", "cuda_block") and gate is not None
+                    and p.att_hw[0] * p.att_hw[1] <= gate):
+                route = "torch"
+            routes.append(route)
+        return tuple(routes)
 
     def forward(self, ir: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

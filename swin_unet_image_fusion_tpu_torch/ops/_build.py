@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("window_attention",)
+KERNEL_SOURCES = ("window_attention", "fused_block", "repartition")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -39,6 +39,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
@@ -73,8 +75,19 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Every source
+    exports ``swin_cuda_error_string``."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build_all((name,))[name]))
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            lib.swin_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.swin_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
         return _libs[name]
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code (0 = ok)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({lib.swin_cuda_error_string(rc).decode()})")

@@ -1,0 +1,207 @@
+"""Fused pre-norm Swin block (K1 and K4): the CUDA kernels' wrapper, their plain PyTorch
+version and the launch counter.
+
+Counterpart of the JAX ``ops/pallas_block.py::pallas_fused_block`` (K4, tokens in the
+image) and of the block half of ``ops/pallas_pack.py::pallas_packed_block_strips`` (K1,
+tokens packed by window). Both compute one whole ``BasicBlock`` on both streams:
+
+- LN1 in fp32 with the biased variance and eps 1e-5;
+- window attention as ``ops/window_attention.py`` computes it (scale folded into q, the
+  gathered relative-position bias, the wrap-seam mask *setting* scores to -1e10, the
+  clamped fast softmax); under cross, k/v come from the other stream normalised with
+  *that* stream's LN1;
+- proj + bias, + x; LN2; fc1 + b1; ELU; fc2 + b2; + y.
+
+``layout`` says where the tokens live: ``"image"`` is ``(S, B, H, W, C)`` with the
+shifted partition as index arithmetic (K4); ``"windows"`` is ``(S, B, nWin, T, C)`` as
+``ops/window_pack.py::pack_windows`` lays out an ``hw`` map in this block's own geometry
+(K1). ``fused_block`` runs the plain version for a CPU tensor and launches the kernels of
+``csrc/fused_block.cu`` for a CUDA tensor; there is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .window import device_constant
+from .window_attention import MAX_STREAMS, SMEM_LIMIT_BYTES, fast_softmax, wrap_region_mask
+from .window_pack import pack_windows, unpack_windows
+
+LN_EPS = 1e-5
+LAYOUTS = ("image", "windows")
+WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
+                "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+
+# Calls that launched the kernels (one per call on a card) since the last reset; the
+# plain version never counts.
+LAUNCHES = 0
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Per-stream LayerNorm of (S, ..., C) with (S, C) weights."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    shape = (scale.shape[0],) + (1,) * (x.ndim - 2) + (scale.shape[1],)
+    return (x - mean) * torch.rsqrt(var + LN_EPS) * scale.reshape(shape) + bias.reshape(shape)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-stream dense layer: (S, ..., K) @ (S, K, N) + (S, N)."""
+    s, k, n = w.shape
+    y = (x.reshape(s, -1, k) @ w).reshape(*x.shape[:-1], n)
+    return y + b.reshape((s,) + (1,) * (x.ndim - 2) + (n,))
+
+
+def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+                         ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
+                         dims_per_head, shift, cross):
+    s, b, n_win, t, _ = xw.shape
+    d = dims_per_head
+    ln = _layer_norm(xw, ln1_scale, ln1_bias)
+    kv = ln.flip(0) if cross else ln
+
+    def heads(a):  # (S, B, nWin, T, inner) -> (S, B, nWin, heads, T, d)
+        return a.reshape(s, b, n_win, t, num_heads, d).transpose(3, 4)
+
+    q = heads(_dense(ln, wq, bq) * d**-0.5)
+    k = heads(_dense(kv, wk, bk))
+    v = heads(_dense(kv, wv, bv))
+    scores = q @ k.transpose(-1, -2) + bias[:, None, None, None]
+    if shift:
+        mask = device_constant(wrap_region_mask, (tuple(hw), tuple(window)), xw.device)
+        scores = scores.masked_fill(mask[:, None], -1e10)
+    av = (fast_softmax(scores) @ v).transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
+    y = xw + _dense(av, wp, bp)
+    hidden = F.elu(_dense(_layer_norm(y, ln2_scale, ln2_bias), w1, b1))
+    return y + _dense(hidden, w2, b2)
+
+
+def _check(x: torch.Tensor, layout: str, hw, window) -> Tuple[int, int]:
+    """The block's map (H, W) for ``x`` in ``layout``; raises on a shape it does not take."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")
+    if layout == "image":
+        if x.ndim != 5:
+            raise ValueError(f"image-layout x must be (S, B, H, W, C), got {tuple(x.shape)}")
+        hw = tuple(x.shape[2:4])
+    elif hw is None:
+        raise ValueError("the windows layout needs the map size hw")
+    h, w = hw
+    if h % window[0] or w % window[1]:
+        raise ValueError(f"map {h}x{w} is not a multiple of the window {window}")
+    if layout == "windows":
+        n_win = (h // window[0]) * (w // window[1])
+        if x.ndim != 5 or tuple(x.shape[2:4]) != (n_win, window[0] * window[1]):
+            raise ValueError(f"windows of a {h}x{w} map are (S, B, {n_win}, "
+                             f"{window[0] * window[1]}, C), got {tuple(x.shape)}")
+    return h, w
+
+
+def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+                      ln2_scale, ln2_bias, w1, b1, w2, b2, *, window: Tuple[int, int],
+                      num_heads: int, dims_per_head: int, shift: bool, cross: bool,
+                      layout: str, hw: Optional[Tuple[int, int]] = None,
+                      activation: str = "elu") -> torch.Tensor:
+    """Plain PyTorch version of the kernels, same inputs and semantics.
+
+    x: (S, B, H, W, C) for ``layout="image"``, (S, B, nWin, T, C) of an ``hw`` map for
+    ``layout="windows"``; ln*_scale/ln*_bias: (S, C); wq/wk/wv: (S, C, inner);
+    bq/bk/bv: (S, inner); wp: (S, inner, C); bp: (S, C); bias: (S, T, T) gathered
+    relative-position bias; w1: (S, C, hidden); b1: (S, hidden); w2: (S, hidden, C);
+    b2: (S, C). Returns the same shape as x.
+    """
+    if activation != "elu":
+        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    hw = _check(x, layout, hw, window)
+    weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+               ln2_scale, ln2_bias, w1, b1, w2, b2)
+    kw = dict(hw=hw, window=window, num_heads=num_heads, dims_per_head=dims_per_head,
+              shift=shift, cross=cross)
+    if layout == "windows":
+        return _block_windows_plain(x, *weights, **kw)
+    xw = pack_windows(x, window, shift)
+    return unpack_windows(_block_windows_plain(xw, *weights, **kw), hw, window, shift)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("fused_block")
+    lib.swin_fused_block_fwd.argtypes = [_P] * 24 + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_fused_block_fwd.restype = _I
+    lib.swin_fused_block_fwd_smem.argtypes = [_I] * 3
+    lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, *, window: Tuple[int, int],
+                num_heads: int, dims_per_head: int, shift: bool, cross: bool,
+                layout: str, hw: Optional[Tuple[int, int]] = None,
+                activation: str = "elu") -> torch.Tensor:
+    """One fused Swin block: the plain version on the CPU, the CUDA kernels on a card.
+
+    Arguments as :func:`fused_block_plain`. On a CUDA tensor every argument must be a
+    contiguous float32 tensor on that device; anything else raises.
+    """
+    global LAUNCHES
+    kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
+              shift=shift, cross=cross, layout=layout, hw=hw, activation=activation)
+    weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+               ln2_scale, ln2_bias, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return fused_block_plain(x, *weights, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block runs on cpu or cuda tensors, not {x.device}")
+    if activation != "elu":
+        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    h, w = _check(x, layout, hw, window)
+    s, b, c = x.shape[0], x.shape[1], x.shape[-1]
+    wh, ww = window
+    t = wh * ww
+    inner = num_heads * dims_per_head
+    hidden = w1.shape[-1]
+    expected = {
+        "ln1_scale": (s, c), "ln1_bias": (s, c),
+        "wq": (s, c, inner), "bq": (s, inner), "wk": (s, c, inner), "bk": (s, inner),
+        "wv": (s, c, inner), "bv": (s, inner), "wp": (s, inner, c), "bp": (s, c),
+        "bias": (s, t, t), "ln2_scale": (s, c), "ln2_bias": (s, c),
+        "w1": (s, c, hidden), "b1": (s, hidden), "w2": (s, hidden, c), "b2": (s, c),
+    }
+    for name, a in zip(("x", *WEIGHT_NAMES), (x, *weights)):
+        if a.device != x.device or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}, "
+                             f"got {a.dtype} on {a.device}, contiguous={a.is_contiguous()}")
+        if name in expected and tuple(a.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
+    if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
+        raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
+    lib = _library()
+    smem = lib.swin_fused_block_fwd_smem(dims_per_head, wh, ww)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
+                         f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
+    out = torch.empty_like(x)
+    tokens = b * h * w  # per stream
+    # q (scaled), k, v and AV of every token, then the MLP hidden: written and read once
+    scratch = [x.new_empty(s, tokens, inner) for _ in range(4)] + [x.new_empty(s, tokens, hidden)]
+    with torch.cuda.device(x.device):
+        rc = lib.swin_fused_block_fwd(
+            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+            *(a.data_ptr() for a in scratch),
+            s, b, h, w, c, num_heads, dims_per_head, hidden, wh, ww, int(shift), int(cross),
+            int(layout == "windows"), float(dims_per_head**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block")
+    LAUNCHES += 1
+    return out

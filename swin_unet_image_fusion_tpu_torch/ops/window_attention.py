@@ -129,8 +129,6 @@ def _library() -> ctypes.CDLL:
     lib.swin_window_attention_fwd.restype = _I
     lib.swin_window_attention_fwd_smem.argtypes = [_I] * 3
     lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
-    lib.swin_cuda_error_string.argtypes = [_I]
-    lib.swin_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -184,8 +182,6 @@ def window_attention(
             s, b, h, w, c, num_heads, dims_per_head, wh, ww, int(shift), int(cross),
             float(dims_per_head**-0.5), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"window attention kernel launch failed: CUDA error {rc} "
-                           f"({lib.swin_cuda_error_string(rc).decode()})")
+    _build.check_launch(lib, rc, "window attention")
     LAUNCHES += 1
     return out

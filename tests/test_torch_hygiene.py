@@ -12,7 +12,9 @@ import torch
 from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
 from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
 from swin_unet_image_fusion_tpu_torch.ops import _build
+from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "swin_unet_image_fusion_tpu_torch"
@@ -31,6 +33,8 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch, swin_unet_image_fusion_tpu_torch.infer\n"
         "import swin_unet_image_fusion_tpu_torch.models.from_jax\n"
         "import swin_unet_image_fusion_tpu_torch.ops.window_attention\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.fused_block\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.window_pack\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -65,6 +69,34 @@ def test_window_attention_never_runs_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="cpu or cuda"):
         twa.window_attention(x, w, b, w, b, w, b, w, b, torch.empty(2, 49, 49, device="meta"),
                              window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False)
+
+
+def test_fused_block_never_runs_the_plain_version_off_the_cpu():
+    c, hidden = 8, 32
+    x = torch.empty(2, 1, 7, 7, c, device="meta")
+    vec, mat = torch.empty(2, c, device="meta"), torch.empty(2, c, c, device="meta")
+    weights = (vec, vec, mat, vec, mat, vec, mat, vec, mat, vec, torch.empty(2, 49, 49, device="meta"),
+               vec, vec, torch.empty(2, c, hidden, device="meta"), torch.empty(2, hidden, device="meta"),
+               torch.empty(2, hidden, c, device="meta"), vec)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfb.fused_block(x, *weights, window=(7, 7), num_heads=2, dims_per_head=4, shift=False,
+                        cross=False, layout="image")
+
+
+def test_repartition_never_runs_the_plain_version_off_the_cpu():
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        twp.repartition_windows(torch.empty(2, 1, 4, 49, 8, device="meta"), (14, 14), (7, 7),
+                                False, True)
+
+
+def test_kernel_build_hash_covers_the_shared_headers(monkeypatch, tmp_path):
+    """A source that includes a header is rebuilt when only the header changes."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k")
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert _build._target("k") != before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
