@@ -12,7 +12,12 @@ bit-exact). Then it serves ``Fuser.fuse_y`` requests with the full default
 each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_block``:
 K4), checks the outputs and each kernel's launch count, times the kernels and the
 requests, and breaks one request's device time down by kernel family with
-``torch.profiler``. Every phase raises on failure. The last line of standard output is
+``torch.profiler``. Then the training path: each backward kernel (K3, K1, K2 and K4
+bwd) against autograd of its plain version at the shapes of a 224x224 batch-20 train
+step, and the first train step of the full model under each configuration against the
+torch composition on the card (loss terms, every parameter's gradient, the exact
+forward and backward launches), then timed steps in turns and one profiled step per
+configuration. Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -39,6 +44,9 @@ MODEL_ATOL, MODEL_RTOL = 5e-4, 1e-3
 REQUESTS = 3
 LATENCY_SAMPLES = 20
 SEED = 0
+SERVE_HW = (512, 512)
+TRAIN_HW, TRAIN_BATCH = (224, 224), 20  # the JAX package's default training crop and batch
+TRAIN_STEPS = 5  # timed steps per configuration, after the checked first one
 WINDOW = (7, 7)
 T = WINDOW[0] * WINDOW[1]
 # attention_impl -> kernel launches per request at each served shape; "fused" is K1
@@ -62,7 +70,7 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def stage_geometries(cfg, hw=(512, 512)):
+def stage_geometries(cfg, hw=SERVE_HW):
     """(stage, H, W, C, heads, d) of every attention stage of an ``hw`` input."""
     from swin_unet_image_fusion_tpu_torch.ops.shape_plan import make_plan
 
@@ -83,11 +91,11 @@ def _rand(gen, device):
     return rand
 
 
-def attention_inputs(h, w, c, heads, d, seed, device):
+def attention_inputs(h, w, c, heads, d, seed, device, batch=1):
     """x like an LN output, He-scaled weights, small biases, N(0, 1) bias table."""
     rand = _rand(torch.Generator().manual_seed(seed), device)
     inner = heads * d
-    return (rand(2, 1, h, w, c),
+    return (rand(2, batch, h, w, c),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
@@ -95,7 +103,7 @@ def attention_inputs(h, w, c, heads, d, seed, device):
             rand(2, T, T))
 
 
-def block_inputs(h, w, c, heads, d, hidden, seed, device):
+def block_inputs(h, w, c, heads, d, hidden, seed, device, batch=1):
     """x like a stage's activations and the 17 weights of one fused block (LN scales
     near 1, He-scaled dense kernels, small biases, N(0, 1) bias table)."""
     rand = _rand(torch.Generator().manual_seed(seed), device)
@@ -104,7 +112,7 @@ def block_inputs(h, w, c, heads, d, hidden, seed, device):
     def dense(i, o):
         return rand(2, i, o, scale=i**-0.5), rand(2, o, scale=0.1)
 
-    return (rand(2, 1, h, w, c),
+    return (rand(2, batch, h, w, c),
             rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1),
             *dense(c, inner), *dense(c, inner), *dense(c, inner), *dense(inner, c),
             rand(2, T, T), rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1),
@@ -116,29 +124,44 @@ def _bound(flops, bytes_):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound_ms(h, w, c, heads, d):
+def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False):
     """Least time for one K3 launch: matmul FLOPs over the fp32 peak vs each input byte
-    read once and the output written once over HBM bandwidth (both streams)."""
+    read once and the output written once over HBM bandwidth (both streams). The
+    backward's inputs are x, the weights and g alone, so its work is the forward's
+    recomputed but for the projection (its output is not needed), plus the input- and
+    weight-gradient products of every matmul: three times the forward's FLOPs less the
+    projection's 2*T*C*inner per window. It reads x and g and writes g_x and the weight
+    gradients."""
     inner = heads * d
-    windows = 2 * (h // WINDOW[0]) * (w // WINDOW[1])
+    windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner)
-    return _bound(flops, 4 * (2 * 2 * h * w * c + 2 * (4 * c * inner + 3 * inner + c + T * T)))
+    maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + T * T)
+    if backward:
+        return _bound(3 * flops - windows * 2 * T * c * inner, 4 * (3 * maps // 2 + 2 * weights))
+    return _bound(flops, 4 * (maps + weights))
 
 
-def block_bound_ms(h, w, c, heads, d, hidden):
+def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False):
     """Least time for one K1/K4 launch: the block's matmul FLOPs (q/k/v, scores, AV,
     proj, fc1, fc2) over the fp32 peak vs x read once, the output written once and the
-    weights read once over HBM bandwidth (both streams)."""
+    weights read once over HBM bandwidth (both streams). The backward as K3's: the
+    forward recomputed but for its last matmul, fc2, plus every matmul's input- and
+    weight-gradient products, so three times the forward's FLOPs less fc2's
+    2*T*C*hidden per window; x and g read, g_x and the weight gradients written."""
     inner = heads * d
-    windows = 2 * (h // WINDOW[0]) * (w // WINDOW[1])
+    windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner + 4 * T * c * hidden)
-    weights = 4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden
-    return _bound(flops, 4 * (2 * 2 * h * w * c + 2 * weights))
+    maps = 2 * 2 * batch * h * w * c
+    weights = 2 * (4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden)
+    if backward:
+        return _bound(3 * flops - windows * 2 * T * c * hidden, 4 * (3 * maps // 2 + 2 * weights))
+    return _bound(flops, 4 * (maps + weights))
 
 
-def repartition_bound_ms(h, w, c):
-    """Least time for one K2 launch: both streams' tokens read once and written once."""
-    return _bound(0, 4 * 2 * 2 * h * w * c)
+def repartition_bound_ms(h, w, c, batch=1):
+    """Least time for one K2 launch, forward or backward: both streams' tokens read once
+    and written once."""
+    return _bound(0, 4 * 2 * 2 * batch * h * w * c)
 
 
 def time_ms(fn, iters, warmup=3):
@@ -177,16 +200,16 @@ def check_attention_kernel(cfg, device):
     return worst
 
 
-def block_cases(cfg, device, packed_only):
-    """Every (stage, role, shift, cross) block of a 512x512 request with its inputs;
-    ``packed_only`` keeps the stages that cuda_pack packs."""
+def block_cases(cfg, device, packed_only, hw=SERVE_HW, batch=1):
+    """Every (stage, role, shift, cross) block of an ``hw`` input of ``batch`` images with
+    its inputs; ``packed_only`` keeps the stages that cuda_pack packs."""
     from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_beneficial
 
-    for k, h, w, c, heads, d in stage_geometries(cfg):
+    for k, h, w, c, heads, d in stage_geometries(cfg, hw):
         if packed_only and not pack_beneficial(c, w):
             continue
         for r, (role, hidden) in enumerate(mlp_hiddens(cfg, k)):
-            x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 10 * k + r, device)
+            x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 10 * k + r, device, batch)
             for shift in (False, True):
                 for cross in (False, True):
                     yield (k, h, w, c, heads, d, role, hidden, shift, cross), x, weights
@@ -225,16 +248,16 @@ def check_fused_block(cfg, device):
     return worst
 
 
-def repartition_cases(cfg, device):
-    """(stage, h, w, c, from_shift, xw, permutation) at every packed stage map of a
-    512² request, both directions; the permutation is the source token of each
-    destination slot (for the library call)."""
+def repartition_cases(cfg, device, hw=SERVE_HW, batch=1):
+    """(stage, h, w, c, from_shift, xw, permutation) at every packed stage map of an
+    ``hw`` input of ``batch`` images, both directions; the permutation is the source
+    token of each destination slot (for the library call)."""
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    for k, h, w, c, _, _ in stage_geometries(cfg):
+    for k, h, w, c, _, _ in stage_geometries(cfg, hw):
         if not twp.pack_beneficial(c, w):
             continue
-        x = torch.randn(2, 1, h, w, c, generator=torch.Generator().manual_seed(SEED + k)).to(device)
+        x = torch.randn(2, batch, h, w, c, generator=torch.Generator().manual_seed(SEED + k)).to(device)
         for from_shift in (False, True):
             xw = twp.pack_windows(x, WINDOW, from_shift).contiguous()
             ids = torch.arange(h * w, dtype=torch.float32, device=device).reshape(1, 1, -1, T, 1)
@@ -288,19 +311,24 @@ def forward(fuser, ir, vis):
 
 
 def reset_counts():
+    """Every kernel wrapper's forward and backward launch count to 0."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    twa.LAUNCHES = tfb.LAUNCHES = twp.LAUNCHES = 0
+    for m in (tfb, twa, twp):
+        m.LAUNCHES = m.BWD_LAUNCHES = 0
 
 
 def read_counts(impl):
+    """Forward and backward launches since the reset, by kernel name under ``impl``."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    return {"K3": twa.LAUNCHES, "K2": twp.LAUNCHES, FUSED_NAME[impl]: tfb.LAUNCHES}
+    fused = FUSED_NAME[impl]
+    return {"K3": twa.LAUNCHES, "K3 bwd": twa.BWD_LAUNCHES, "K2": twp.LAUNCHES,
+            "K2 bwd": twp.BWD_LAUNCHES, fused: tfb.LAUNCHES, f"{fused} bwd": tfb.BWD_LAUNCHES}
 
 
 def serve_configs(fusers, plain_fuser, cpu_fuser):
@@ -321,7 +349,7 @@ def serve_configs(fusers, plain_fuser, cpu_fuser):
             if got != expected:
                 raise AssertionError(f"{impl} at {shape}: launches {got}, expected {expected}")
             for name, n in got.items():
-                if MAIN_PATH[name] == impl:
+                if MAIN_PATH.get(name) == impl:
                     launches[name] = launches.get(name, 0) + n
             plain_out = plain_fuser.fuse_y(ir, vis)
             raw, plain_raw = forward(fuser, ir, vis), forward(plain_fuser, ir, vis)
@@ -425,6 +453,11 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
+    ("csrc weight-gradient GEMMs (backward)", ("wgrad_kernel",)),
+    ("csrc attention core backward", ("window_core_bwd_kernel",)),
+    ("csrc LayerNorm fwd/bwd (backward)", ("ln_fwd_kernel", "ln_bwd_kernel")),
+    ("csrc partial sums (backward)", ("reduce_chunks_kernel",)),
+    ("optimizer and foreach ops", ("multi_tensor",)),
     ("host-device copies", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "implicit")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "Kernel2")),
@@ -433,19 +466,20 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
 )
 
 
-def trace_request(impl, fuser, ir, vis, wall_ms, card):
-    """One request under torch.profiler; device time by kernel family, the busiest
-    kernels, and the device's idle share of the request's median latency."""
+def trace(what, label, fn, wall_ms, card):
+    """``fn`` once under torch.profiler (after one call outside it); device time by
+    kernel family, the busiest kernels, and the device's idle share of ``wall_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fuser.fuse_y(ir, vis)
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fuser.fuse_y(ir, vis)
+        fn()
+        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0.0:
-        print(f"[trace] {impl}: the profiler recorded no device time: breakdown not measured | {card}")
+        print(f"[trace] {label}: the profiler recorded no device time: breakdown not measured | {card}")
         return
     families = {}
     for e in kernels:
@@ -454,14 +488,235 @@ def trace_request(impl, fuser, ir, vis, wall_ms, card):
                       "other elementwise")
         ms, count = families.get(family, (0.0, 0))
         families[family] = (ms + e.self_device_time_total / 1e3, count + e.count)
-    print(f"[trace] fuse_y 512x512 bs=1 ({impl}): {sum(e.count for e in kernels)} device "
+    print(f"[trace] {what}: {sum(e.count for e in kernels)} device "
           f"kernels and copies, {total_ms:.3f} ms busy; idle share of the {wall_ms:.2f} ms "
-          f"median request {1 - total_ms / wall_ms:.3f} | {card}", flush=True)
+          f"median {1 - total_ms / wall_ms:.3f} | {card}", flush=True)
     for family, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
-        print(f"[trace]   {impl} {family}: {ms:.3f} ms in {count} launches", flush=True)
+        print(f"[trace]   {label} {family}: {ms:.3f} ms in {count} launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[trace]   {impl} top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+        print(f"[trace]   {label} top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
               f"{e.key[:100]}", flush=True)
+
+
+def trace_request(impl, fuser, ir, vis, wall_ms, card):
+    """One request's device time by kernel family (see :func:`trace`)."""
+    trace(f"fuse_y 512x512 bs=1 ({impl})", impl, lambda: fuser.fuse_y(ir, vis), wall_ms, card)
+
+
+# ---- the training path: one train step of the full model at 224x224, batch 20 ----------
+# attention_impl -> kernel launches per train step at 224², forward and backward (stage 4
+# is a 7x7 map: the composition under every configuration)
+TRAIN_CONFIGS = {
+    "cuda_pack": {"K1": 32, "K1 bwd": 32, "K2": 24, "K2 bwd": 24},
+    "cuda": {"K3": 32, "K3 bwd": 32},
+    "cuda_block": {"K4": 32, "K4 bwd": 32},
+}
+TRAIN_MAIN_PATH = {"K3 bwd": "cuda", "K1 bwd": "cuda_pack", "K2 bwd": "cuda_pack",
+                   "K4 bwd": "cuda_block"}
+
+
+def train_block_backward(cfg, device, card):
+    """K1 bwd (windows layout) and K4 bwd (image layout) against autograd of their plain
+    version in every stage 0-3 x role x shift x cross block of a 224² batch-20 step, with
+    their times; each block runs once per step."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    results = {}
+    for name, layout in (("K1", "windows"), ("K4", "image")):
+        totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        by, worst, worst_own, smallest = {}, 0.0, 0.0, 1.0
+        for case, x, weights in block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH):
+            xl, kw = fused_args(case, x, layout)
+            k, h, w, c, heads, d, role, hidden, shift, cross = case
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k)).to(device)
+            got = tfb._launch_bwd(g, xl, weights, kw)
+            torch.cuda.synchronize()
+            ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
+            check = assert_grads_close(got, ref, ("x", *tfb.WEIGHT_NAMES), f"{name} bwd stage {k} {role}")
+            err, smallest = check.worst, min(smallest, check.smallest)
+            worst, worst_own = max(worst, err), max(worst_own, check.worst_own)
+            del got, ref
+            bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH, backward=True)
+            ms = time_ms(lambda: tfb._launch_bwd(g, xl, weights, kw), iters=5, warmup=1)
+            plain = time_ms(lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **kw), iters=2, warmup=1)
+            print(f"[time] {name} bwd stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} "
+                  f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                totals[key] += v
+            by[bound_by] = by.get(bound_by, 0.0) + bound
+        print(f"[check] {name} bwd: worst max_abs_err {worst:.3e} over 32 cases, "
+              f"{worst_own:.3e} of a gradient's own largest; every gradient but bk's (exactly "
+              f"0) held to its own scale, the smallest {smallest:.3e} of its call's largest",
+              flush=True)
+        print(f"[time] {name} bwd per 224x224 batch-20 step (32 launches): {totals['ms']:.3f} ms, "
+              f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+        results[f"{name} bwd"] = dict(totals, bound_by=max(by, key=by.get), library_ms=None, worst=worst)
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_attention_backward(cfg, device, card):
+    """K3 bwd against autograd of its plain version at stages 0-3 of a 224² batch-20 step
+    (each shift x cross variant runs twice per step: encoder and decoder) and at the
+    C=384 stage 4 of a 512² step (21x21), with its times."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by, worst, worst_own, smallest = {}, 0.0, 0.0, 1.0
+    geometries = [(*geo, TRAIN_HW) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
+    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW))
+    for k, h, w, c, heads, d, hw in geometries:
+        args = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+        g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(k)).to(device)
+        bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=True)
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                got = twa._launch_bwd(g, args[0], args[1:], kw)
+                torch.cuda.synchronize()
+                ref = twa.window_attention_bwd_plain(g, *args, **kw)
+                names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+                check = assert_grads_close(got, ref, names, f"K3 bwd stage {k} of {hw}")
+                err, smallest = check.worst, min(smallest, check.smallest)
+                worst, worst_own = max(worst, err), max(worst_own, check.worst_own)
+                del got, ref
+                ms = time_ms(lambda: twa._launch_bwd(g, args[0], args[1:], kw), iters=5, warmup=1)
+                plain = time_ms(lambda: twa.window_attention_bwd_plain(g, *args, **kw), iters=2, warmup=1)
+                print(f"[time] K3 bwd stage {k} of {hw[0]}x{hw[1]}: {h}x{w}x{TRAIN_BATCH} C={c} "
+                      f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                if hw == TRAIN_HW:
+                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                        totals[key] += 2 * v
+                    by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
+        torch.cuda.empty_cache()
+    print(f"[check] K3 bwd: worst max_abs_err {worst:.3e} over {4 * len(geometries)} cases, "
+          f"{worst_own:.3e} of a gradient's own largest; every gradient but bk's (exactly 0) "
+          f"held to its own scale, the smallest {smallest:.3e} of its call's largest", flush=True)
+    print(f"[time] K3 bwd per 224x224 batch-20 step under cuda (32 launches): {totals['ms']:.3f} ms, "
+          f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    return dict(totals, bound_by=max(by, key=by.get), library_ms=None, worst=worst)
+
+
+def train_repartition_backward(cfg, device, card):
+    """K2 bwd (the kernel from the other geometry back) bit-exact against the plain
+    inverse permutation and the library call at the four packed maps of a 224² batch-20
+    step. The backward of a normal -> shift launch is a shift -> normal one: a step runs
+    each shift -> normal backward 4 times and each normal -> shift backward twice."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for k, h, w, c, to_shift, g, perm in repartition_cases(cfg, device, TRAIN_HW, TRAIN_BATCH):
+        # g is the gradient of a forward from ``not to_shift`` to ``to_shift``: it lies in
+        # the ``to_shift`` geometry and goes back to the other
+        fwd = (h, w), WINDOW, not to_shift, to_shift
+        got = twp._launch(g, (h, w), WINDOW, to_shift, not to_shift)
+        torch.cuda.synchronize()
+        ref = twp.repartition_windows_bwd_plain(g, *fwd)
+        if not torch.equal(got, ref) or not torch.equal(repartition_library(g, perm), ref):
+            raise AssertionError(f"K2 bwd at stage {k} is not bit-exact")
+        bound, _ = repartition_bound_ms(h, w, c, TRAIN_BATCH)
+        ms = time_ms(lambda: twp._launch(g, (h, w), WINDOW, to_shift, not to_shift), iters=50)
+        plain = time_ms(lambda: twp.repartition_windows_bwd_plain(g, *fwd), iters=20)
+        library = time_ms(lambda: repartition_library(g, perm), iters=50)
+        print(f"[time] K2 bwd stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift {to_shift} -> "
+              f"{not to_shift}: bit-exact, {ms:.4f} ms, plain {plain:.4f} ms, index_select "
+              f"{library:.4f} ms, bound {bound:.4f} ms (bytes) | {card}", flush=True)
+        per_step = 4 if to_shift else 2
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
+            totals[key] += per_step * v
+    print("[check] K2 bwd: bit-exact at every packed map, both directions", flush=True)
+    print(f"[time] K2 bwd per 224x224 batch-20 step under cuda_pack (24 launches): "
+          f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, index_select "
+          f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    return dict(totals, bound_by="bytes", worst=0.0)
+
+
+def train_configs(flat, device, card):
+    """The training main paths: the first step of the full model at 224² batch 20 under
+    each kernel configuration with its launch counts (read right after that step),
+    checked against the torch composition's first step on the card (loss terms to 1e-5
+    relative, every parameter's gradient present, finite and within the gradient
+    tolerance); then TRAIN_STEPS timed steps each, in turns, and one profiled step.
+    Returns the backward kernels' launches."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED)
+    ir = torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+    vis = torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+    names = ("torch", *TRAIN_CONFIGS)
+    states, steps, first = {}, {}, {}
+    launches = {}
+    for impl in names:
+        cfg = Config(model=ModelConfig(attention_impl=impl))
+        states[impl] = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+        steps[impl] = make_train_step(cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        terms = steps[impl](states[impl], ir, vis)
+        torch.cuda.synchronize()
+        if impl != "torch":
+            got = read_counts(impl)
+            expected = {name: 0 for name in got}
+            expected.update(TRAIN_CONFIGS[impl])
+            print(f"[train] {impl} first step: launches {got}", flush=True)
+            if got != expected:
+                raise AssertionError(f"{impl} train step: launches {got}, expected {expected}")
+            for name, n in got.items():
+                if TRAIN_MAIN_PATH.get(name) == impl:
+                    launches[name] = n
+        grads = {}
+        for pname, p in states[impl].model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{impl}: the gradient of {pname} is missing or not finite")
+            grads[pname] = p.grad.detach().clone()
+        first[impl] = ({k: float(v) for k, v in terms.items()}, grads)
+        print(f"[train] {impl} first step: " + ", ".join(f"{k} {v:.7g}" for k, v in first[impl][0].items())
+              + f"; all {len(grads)} parameter gradients present and finite", flush=True)
+    ref_terms, ref_grads = first["torch"]
+    for impl in TRAIN_CONFIGS:
+        terms, grads = first[impl]
+        for k, v in terms.items():
+            if abs(v - ref_terms[k]) > 1e-5 * abs(ref_terms[k]):
+                raise AssertionError(f"{impl} step 1 {k} {v} vs torch composition {ref_terms[k]}")
+        check = assert_grads_close([grads[n] for n in ref_grads], list(ref_grads.values()),
+                                   list(ref_grads), f"{impl} step 1")
+        rel = max(abs(terms[k] - ref_terms[k]) / max(abs(ref_terms[k]), 1e-30) for k in terms)
+        held = len(ref_grads) - len(check.zeros) - check.floored
+        print(f"[parity] {impl} train step 1 vs torch composition on the card: loss terms max "
+              f"relative difference {rel:.3e}, gradients max_abs_err {check.worst:.3e}; of "
+              f"{len(ref_grads)} gradients {held} held to their own scale, {check.floored} to "
+              f"1e-8 of the largest (the smallest is {check.smallest:.3e} of it; the worst "
+              f"error {check.worst_own:.3e} of a gradient's own largest), {len(check.zeros)} "
+              f"exactly 0 (key biases, head conv1 bias) to the largest (their rounding noise "
+              f"{check.zero_noise:.3e} of it)", flush=True)
+    del first
+
+    walls = {impl: [] for impl in names}
+    peaks = dict.fromkeys(names, 0.0)
+    for _ in range(TRAIN_STEPS):
+        for impl in names:
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            steps[impl](states[impl], ir, vis)
+            torch.cuda.synchronize()
+            walls[impl].append(1e3 * (time.perf_counter() - t))
+            peaks[impl] = max(peaks[impl], torch.cuda.max_memory_allocated() / 2**20)
+    for impl in names:
+        w = walls[impl]
+        median = float(np.median(w))
+        label = "torch composition" if impl == "torch" else impl
+        print(f"[train] step 224x224 bs={TRAIN_BATCH} ({label}), {TRAIN_STEPS} steps in turns: "
+              f"median {median:.2f} ms/step, min {min(w):.2f}, max {max(w):.2f}, peak memory "
+              f"{peaks[impl]:.0f} MiB | {card}", flush=True)
+        trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
+              lambda: steps[impl](states[impl], ir, vis), median, card)
+    return launches
 
 
 def main() -> int:
@@ -523,6 +778,16 @@ def main() -> int:
               f"peak memory {peaks[name]:.0f} MiB | {card}", flush=True)
     for impl, fuser in fusers.items():
         trace_request(impl, fuser, ir, vis, median_ms[impl], card)
+    del fusers, plain_fuser, cpu_fuser, served
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bwd = {**train_block_backward(cfg, device, card), "K3 bwd": train_attention_backward(cfg, device, card),
+           "K2 bwd": train_repartition_backward(cfg, device, card)}
+    torch.cuda.empty_cache()
+    launches.update(train_configs(flat, device, card))
+    print(f"[train] backward checks, train steps and traces took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -534,12 +799,24 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
+        ("K3 bwd", "window_attention_bwd (K3 bwd)", f"{csrc}/window_attention.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
+        ("K1 bwd", "fused_block_bwd, windows layout (K1 bwd)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
+        ("K2 bwd", "repartition_bwd (K2 bwd, the inverse permutation)", f"{csrc}/repartition.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
+        ("K4 bwd", "fused_block_bwd, image layout (K4 bwd)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
     )
+    times.update(bwd)
+    worst.update({key: bwd[key]["worst"] for key in bwd})
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[key], "max_abs_err": worst[key],
         **{k: times[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for key, name, source, replaces in described]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel never launched on its main path: {launches}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -38,8 +38,32 @@
 // Every block is small and the card is full at every stage; the price is writing q, k,
 // v, AV and the hidden activations to device memory once (mostly L2-resident at these
 // sizes). fp32 FMA throughout; TF32 and the tensor cores are off.
+//
+// Backward (swin_fused_block_bwd) replaces K1 bwd (pallas_pack.py::_packed_block_bwd_body,
+// through _packed_bwd_kernel / _packed_bwd_kernel_self) and K4 bwd
+// (pallas_block.py::_block_bwd_body, through _block_bwd_kernel / _block_bwd_kernel_self).
+// Like the JAX custom VJPs it is given only x, the weights and g = dL/d out, recomputes
+// the forward into scratch and backpropagates the whole block:
+//   recompute   LN1(x) with its row statistics; q/k/v; the attention core; y = x + proj;
+//               LN2(y); h = ELU(fc1);
+//   backward    g_pre1 = (g w2^T) * ELU'(h); g_lny = g_pre1 w1^T; g_y = g + LN2 bwd;
+//               then the attention half (window_core_bwd.cuh): g_o = g_y wp^T, the core
+//               backward, g_ln = g_q wq^T + g_k wk^T + g_v wv^T; g_x = g_y + LN1 bwd;
+//   weights     every dense weight and bias gradient as [A | 1]^T B over the tokens, the
+//               LayerNorm and relative-position bias gradients as column sums, each
+//               summed from per-block partials by one fixed-order reduction launch.
+// Cross routing. Stream s's k/v are stream 1-s's rows normalised with stream 1-s's LN1,
+// i.e. LN1(x)[1-s] itself. So the k/v gradients of stream s are added to g_ln[1-s], and
+// one LayerNorm backward per stream (x[r], gamma[r]) then serves both the q side of r
+// and the k/v side that read r: the JAX kernels' kv-slot LN1 gradients land in the other
+// stream's slot, here by construction. In self mode the same sum is the JAX kernels' LN
+// backward of g_lnx + g_lnkv.
+// What bounds it: the fp32 rate, as the forward, at about three times the forward's
+// matmul work (recompute, input gradients, weight gradients). The scratch of a stage-0
+// block at 224x224 batch 20 is about 1.1 GB (activations and gradients of 250,880 tokens
+// per stream), allocated by the wrapper for the call.
 
-#include "window_core.cuh"
+#include "window_core_bwd.cuh"
 
 using namespace swin;
 
@@ -61,25 +85,10 @@ int fused_block(const float* x, const float* ln1g, const float* ln1b, const floa
   const size_t h_stream = static_cast<size_t>(M) * inner;
   const size_t m_stream = static_cast<size_t>(M) * hidden;
 
-  GemmBatch qkv = {};
-  for (int s = 0; s < S; ++s) {
-    const int s_kv = cross ? S - 1 - s : s;
-    const float* w[3] = {wq, wk, wv};
-    const float* bb[3] = {bq, bk, bv};
-    float* dst[3] = {q, k, v};
-    for (int part = 0; part < 3; ++part) {
-      const int z = s * 3 + part;
-      const int src = part == 0 ? s : s_kv;
-      qkv.a[z] = x + src * x_stream;
-      qkv.ln_g[z] = ln1g + static_cast<size_t>(src) * C;
-      qkv.ln_b[z] = ln1b + static_cast<size_t>(src) * C;
-      qkv.b[z] = w[part] + static_cast<size_t>(s) * C * inner;
-      qkv.bias[z] = bb[part] + static_cast<size_t>(s) * inner;
-      qkv.c[z] = dst[part] + s * h_stream;
-      qkv.alpha[z] = part == 0 ? scale : 1.0f;
-    }
-  }
-  launch_gemm<true, false, false>(qkv, M, inner, C, 3 * S, st);
+  launch_gemm<true, false, false>(
+      qkv_batch(x, wq, bq, wk, bk, wv, bv, q, k, v, S, M, C, inner, cross != 0, scale, ln1g,
+                ln1b),
+      M, inner, C, 3 * S, st);
 
   const cudaError_t err = launch_core<kWindows>(q, k, v, bias, o, S, B, H, W, heads, d, wh,
                                                 ww, shift != 0, st);
@@ -115,6 +124,186 @@ int fused_block(const float* x, const float* ln1g, const float* ln1b, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// Argument slots of the backward, in the forward's order (ops/fused_block.py).
+enum In { kX, kLn1g, kLn1b, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kLn2g, kLn2b,
+          kW1, kB1, kW2, kB2, kG, kNumIn };
+// outputs: g_x, then the gradient of each weight in slot order (out[w] for In w)
+
+struct BlockBwdScratch {
+  float *lnx, *stats1, *q, *k, *v, *o, *y, *lny, *stats2, *h, *gpre, *glny, *gy, *gln;
+  float *ln1_part, *ln2_part, *w1_part, *w2_part;
+  WgradPlan w1_plan, w2_plan;
+  AttnBwdScratch attn;
+};
+
+BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, int heads,
+                                int d, int hidden, int wh, int ww) {
+  BlockBwdScratch sc;
+  const int inner = heads * d;
+  const size_t M = static_cast<size_t>(B) * H * W;
+  sc.lnx = ar.take(S * M * C);
+  sc.stats1 = ar.take(S * M * 2);
+  sc.q = ar.take(S * M * inner);
+  sc.k = ar.take(S * M * inner);
+  sc.v = ar.take(S * M * inner);
+  sc.o = ar.take(S * M * inner);
+  sc.y = ar.take(S * M * C);
+  sc.lny = ar.take(S * M * C);
+  sc.stats2 = ar.take(S * M * 2);
+  sc.h = ar.take(S * M * hidden);
+  sc.gpre = ar.take(S * M * hidden);
+  sc.glny = ar.take(S * M * C);
+  sc.gy = ar.take(S * M * C);
+  sc.gln = ar.take(S * M * C);
+  const size_t ln_blocks = ln_bwd_blocks(static_cast<int>(M));
+  sc.ln1_part = ar.take(S * ln_blocks * 2 * C);
+  sc.ln2_part = ar.take(S * ln_blocks * 2 * C);
+  sc.w2_plan = wgrad_plan(static_cast<int>(M), hidden, C, S);
+  sc.w2_part = ar.take(static_cast<size_t>(S) * sc.w2_plan.chunks * (hidden + 1) * C);
+  sc.w1_plan = wgrad_plan(static_cast<int>(M), C, hidden, S);
+  sc.w1_part = ar.take(static_cast<size_t>(S) * sc.w1_plan.chunks * (C + 1) * hidden);
+  sc.attn = carve_attn_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
+  return sc;
+}
+
+template <bool kWindows>
+int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H,
+                    int W, int C, int heads, int d, int hidden, int wh, int ww, int shift,
+                    int cross, float scale, cudaStream_t st) {
+  const int inner = heads * d;
+  const int M = B * H * W;
+  const size_t x_stream = static_cast<size_t>(M) * C;
+  const size_t h_stream = static_cast<size_t>(M) * inner;
+  const size_t m_stream = static_cast<size_t>(M) * hidden;
+  Arena ar{ws};
+  const BlockBwdScratch sc = carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww);
+  const float* x = in[kX];
+  const float* g = in[kG];
+
+  // ---- recompute the forward ----
+  LnBatch ln1 = {};
+  for (int s = 0; s < S; ++s) {
+    ln1.x[s] = x + s * x_stream;
+    ln1.gamma[s] = in[kLn1g] + static_cast<size_t>(s) * C;
+    ln1.beta[s] = in[kLn1b] + static_cast<size_t>(s) * C;
+    ln1.out[s] = sc.lnx + s * x_stream;
+    ln1.stats[s] = sc.stats1 + s * 2 * static_cast<size_t>(M);
+  }
+  launch_ln_fwd(ln1, M, C, S, st);
+
+  launch_gemm<false, false, false>(
+      qkv_batch(sc.lnx, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], sc.q, sc.k, sc.v,
+                S, M, C, inner, cross != 0, scale),
+      M, inner, C, 3 * S, st);
+  cudaError_t err = launch_core<kWindows>(sc.q, sc.k, sc.v, in[kBias], sc.o, S, B, H, W, heads,
+                                          d, wh, ww, shift != 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  GemmBatch proj = {}, fc1 = {};
+  LnBatch ln2 = {};
+  for (int s = 0; s < S; ++s) {
+    proj.a[s] = sc.o + s * h_stream;
+    proj.b[s] = in[kWp] + static_cast<size_t>(s) * inner * C;
+    proj.bias[s] = in[kBp] + static_cast<size_t>(s) * C;
+    proj.res[s] = x + s * x_stream;
+    proj.c[s] = sc.y + s * x_stream;
+    proj.alpha[s] = 1.0f;
+
+    ln2.x[s] = sc.y + s * x_stream;
+    ln2.gamma[s] = in[kLn2g] + static_cast<size_t>(s) * C;
+    ln2.beta[s] = in[kLn2b] + static_cast<size_t>(s) * C;
+    ln2.out[s] = sc.lny + s * x_stream;
+    ln2.stats[s] = sc.stats2 + s * 2 * static_cast<size_t>(M);
+
+    fc1.a[s] = sc.lny + s * x_stream;
+    fc1.b[s] = in[kW1] + static_cast<size_t>(s) * C * hidden;
+    fc1.bias[s] = in[kB1] + static_cast<size_t>(s) * hidden;
+    fc1.c[s] = sc.h + s * m_stream;
+    fc1.alpha[s] = 1.0f;
+  }
+  launch_gemm<false, false, true>(proj, M, C, inner, S, st);
+  launch_ln_fwd(ln2, M, C, S, st);
+  launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);
+
+  // ---- MLP and LN2 backward ----
+  GemmBatch gpre = {}, glny = {};
+  LnBwdBatch ln2b = {};
+  for (int s = 0; s < S; ++s) {
+    gpre.a[s] = g + s * x_stream;
+    gpre.b[s] = in[kW2] + static_cast<size_t>(s) * hidden * C;  // (hidden, C) = (N, K)
+    gpre.res[s] = sc.h + s * m_stream;
+    gpre.c[s] = sc.gpre + s * m_stream;
+    gpre.alpha[s] = 1.0f;
+
+    glny.a[s] = sc.gpre + s * m_stream;
+    glny.b[s] = in[kW1] + static_cast<size_t>(s) * C * hidden;  // (C, hidden) = (N, K)
+    glny.c[s] = sc.glny + s * x_stream;
+    glny.alpha[s] = 1.0f;
+
+    ln2b.g[s] = sc.glny + s * x_stream;
+    ln2b.x[s] = sc.y + s * x_stream;
+    ln2b.stats[s] = sc.stats2 + s * 2 * static_cast<size_t>(M);
+    ln2b.gamma[s] = in[kLn2g] + static_cast<size_t>(s) * C;
+    ln2b.res[s] = g + s * x_stream;
+    ln2b.gx[s] = sc.gy + s * x_stream;
+    ln2b.part[s] = sc.ln2_part + s * static_cast<size_t>(ln_bwd_blocks(M)) * 2 * C;
+  }
+  launch_gemm<false, false, false, false, true, true>(gpre, M, hidden, C, S, st);
+  launch_gemm<false, false, false, false, true>(glny, M, C, hidden, S, st);
+  launch_ln_bwd(ln2b, M, C, S, st);
+
+  // ---- attention backward, into g_ln ----
+  ReduceJobs jobs = {};
+  const AttnGrads ag = {out[kWq], out[kBq], out[kWk], out[kBk], out[kWv],
+                        out[kBv], out[kWp], out[kBp], out[kBias]};
+  err = attention_bwd<kWindows>(sc.attn, sc.lnx, sc.q, sc.k, sc.v, sc.o, sc.gy, in[kWq],
+                                in[kWk], in[kWv], in[kWp], in[kBias], sc.gln, ag, jobs, S, B,
+                                H, W, C, heads, d, wh, ww, shift != 0, cross != 0, scale, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // ---- LN1 backward: g_x = g_y + LN1 bwd(g_ln) ----
+  LnBwdBatch ln1b = {};
+  for (int s = 0; s < S; ++s) {
+    ln1b.g[s] = sc.gln + s * x_stream;
+    ln1b.x[s] = x + s * x_stream;
+    ln1b.stats[s] = sc.stats1 + s * 2 * static_cast<size_t>(M);
+    ln1b.gamma[s] = in[kLn1g] + static_cast<size_t>(s) * C;
+    ln1b.res[s] = sc.gy + s * x_stream;
+    ln1b.gx[s] = out[0] + s * x_stream;
+    ln1b.part[s] = sc.ln1_part + s * static_cast<size_t>(ln_bwd_blocks(M)) * 2 * C;
+  }
+  launch_ln_bwd(ln1b, M, C, S, st);
+
+  // ---- MLP weight gradients, then every reduction ----
+  WgradBatch w2b = {}, w1b = {};
+  for (int s = 0; s < S; ++s) {
+    w2b.a[s] = sc.h + s * m_stream;
+    w2b.b[s] = g + s * x_stream;
+    w2b.part[s] = sc.w2_part + static_cast<size_t>(s) * sc.w2_plan.chunks * (hidden + 1) * C;
+    w1b.a[s] = sc.lny + s * x_stream;
+    w1b.b[s] = sc.gpre + s * m_stream;
+    w1b.part[s] = sc.w1_part + static_cast<size_t>(s) * sc.w1_plan.chunks * (C + 1) * hidden;
+  }
+  launch_wgrad(w2b, sc.w2_plan, M, hidden, C, S, st);
+  launch_wgrad(w1b, sc.w1_plan, M, C, hidden, S, st);
+  const int ln_chunks = ln_bwd_blocks(M);
+  bool ok = true;
+  for (int s = 0; s < S; ++s) {
+    ok &= jobs.add(w2b.part[s], sc.w2_plan.chunks, (hidden + 1) * C, hidden * C,
+                   out[kW2] + static_cast<size_t>(s) * hidden * C, out[kB2] + static_cast<size_t>(s) * C);
+    ok &= jobs.add(w1b.part[s], sc.w1_plan.chunks, (C + 1) * hidden, C * hidden,
+                   out[kW1] + static_cast<size_t>(s) * C * hidden,
+                   out[kB1] + static_cast<size_t>(s) * hidden);
+    ok &= jobs.add(ln2b.part[s], ln_chunks, 2 * C, C, out[kLn2g] + static_cast<size_t>(s) * C,
+                   out[kLn2b] + static_cast<size_t>(s) * C);
+    ok &= jobs.add(ln1b.part[s], ln_chunks, 2 * C, C, out[kLn1g] + static_cast<size_t>(s) * C,
+                   out[kLn1b] + static_cast<size_t>(s) * C);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  launch_reduce(jobs, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -141,6 +330,28 @@ int swin_fused_block_fwd(const float* x, const float* ln1g, const float* ln1b, c
   return run(x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
              out, q, k, v, o, hid, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross,
              scale, st);
+}
+
+// Floats of scratch the backward needs for one block of these dimensions.
+size_t swin_fused_block_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
+                                      int hidden, int wh, int ww) {
+  Arena ar{nullptr};
+  carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww);
+  return ar.used;
+}
+
+// The block's backward on `stream`. in: x, the 17 weights in the forward's order, then
+// g = dL/d out (same shape as x); out: g_x, then the 17 weight gradients in that order
+// and shapes. ws: swin_fused_block_bwd_workspace(...) floats of scratch. Every output is
+// written in full. Returns cudaGetLastError() after the launches (0 = ok).
+int swin_fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B,
+                         int H, int W, int C, int heads, int d, int hidden, int wh, int ww,
+                         int shift, int cross, int windows, float scale, void* stream) {
+  if (S * 3 > kMaxBatch || C > kLnMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using Launcher = decltype(&fused_block_bwd<true>);
+  const Launcher run = windows ? &fused_block_bwd<true> : &fused_block_bwd<false>;
+  return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, st);
 }
 
 }  // extern "C"

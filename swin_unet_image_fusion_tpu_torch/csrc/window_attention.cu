@@ -32,8 +32,20 @@
 // plain PyTorch version. The split keeps every block small and the card full at every
 // stage, at the cost of writing q, k, v and AV once (4x the activation bytes). The GEMM
 // and the core kernel live in window_core.cuh, shared with the fused block (fused_block.cu).
+//
+// Backward (swin_window_attention_bwd) replaces
+// pallas_attention.py::_attention_bwd_body (through _attention_bwd_kernel /
+// _attention_bwd_kernel_self from pallas_window_attention's _backward). Given x, the
+// weights and g = dL/d out it recomputes q/k/v and AV (launches 1-2 above), then runs the
+// attention half of window_core_bwd.cuh, shared with the fused block: g_o = g wp^T, the
+// core backward (g_q, g_k, g_v and per-block partials of the (S, T, T) bias gradient),
+// g_x[r] = g_q[r] wq[r]^T + g_k[kv(r)] wk[kv(r)]^T + g_v[kv(r)] wv[kv(r)]^T (under cross
+// the k/v gradients go to the other stream's rows, pallas_attention.py:816-819), the
+// weight gradients as [rows | 1]^T g over every token, and one fixed-order reduction
+// launch for every weight, bias and relative-position bias gradient. Like the forward it
+// is bound by the fp32 rate, at about three times the forward's matmul work.
 
-#include "window_core.cuh"
+#include "window_core_bwd.cuh"
 
 using namespace swin;
 
@@ -59,22 +71,9 @@ int swin_window_attention_fwd(const float* x, const float* wq, const float* bq, 
   const size_t x_stream = static_cast<size_t>(M) * C;
   const size_t h_stream = static_cast<size_t>(M) * inner;
 
-  GemmBatch qkv = {};
-  for (int s = 0; s < S; ++s) {
-    const int s_kv = cross ? S - 1 - s : s;
-    const float* w[3] = {wq, wk, wv};
-    const float* bb[3] = {bq, bk, bv};
-    float* dst[3] = {q, k, v};
-    for (int part = 0; part < 3; ++part) {
-      const int z = s * 3 + part;
-      qkv.a[z] = x + (part == 0 ? s : s_kv) * x_stream;
-      qkv.b[z] = w[part] + static_cast<size_t>(s) * C * inner;
-      qkv.bias[z] = bb[part] + static_cast<size_t>(s) * inner;
-      qkv.c[z] = dst[part] + s * h_stream;
-      qkv.alpha[z] = part == 0 ? scale : 1.0f;
-    }
-  }
-  launch_gemm<false, false, false>(qkv, M, inner, C, 3 * S, st);
+  launch_gemm<false, false, false>(
+      qkv_batch(x, wq, bq, wk, bk, wv, bv, q, k, v, S, M, C, inner, cross != 0, scale), M,
+      inner, C, 3 * S, st);
 
   const cudaError_t err = launch_core<false>(q, k, v, bias, o, S, B, H, W, heads, d, wh, ww,
                                              shift != 0, st);
@@ -89,6 +88,76 @@ int swin_window_attention_fwd(const float* x, const float* wq, const float* bq, 
     proj.alpha[s] = 1.0f;
   }
   launch_gemm<false, false, false>(proj, M, C, inner, S, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+namespace {
+
+// Argument slots of the backward, in the forward's order (ops/window_attention.py).
+enum In { kX, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kG, kNumIn };
+// outputs: g_x, then the gradient of each weight in slot order (out[w] for In w)
+
+struct AttentionBwdScratch {
+  float *q, *k, *v, *o;
+  AttnBwdScratch attn;
+};
+
+AttentionBwdScratch carve_attention_bwd(Arena& ar, int S, int B, int H, int W, int C,
+                                        int heads, int d, int wh, int ww) {
+  AttentionBwdScratch sc;
+  const size_t n = static_cast<size_t>(S) * B * H * W * heads * d;
+  sc.q = ar.take(n);
+  sc.k = ar.take(n);
+  sc.v = ar.take(n);
+  sc.o = ar.take(n);
+  sc.attn = carve_attn_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
+  return sc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the backward needs for these dimensions.
+size_t swin_window_attention_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
+                                           int wh, int ww) {
+  Arena ar{nullptr};
+  carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
+  return ar.used;
+}
+
+// The backward on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
+// g = dL/d out; out: g_x, then the gradients of those nine weights in that order and
+// shapes. ws: swin_window_attention_bwd_workspace(...) floats of scratch. Every output is
+// written in full. Returns cudaGetLastError() after the launches (0 = ok).
+int swin_window_attention_bwd(const float* const* in, float* const* out, float* ws, int S,
+                              int B, int H, int W, int C, int heads, int d, int wh, int ww,
+                              int shift, int cross, float scale, void* stream) {
+  if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int inner = heads * d;
+  const int M = B * H * W;
+  Arena ar{ws};
+  const AttentionBwdScratch sc = carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
+
+  launch_gemm<false, false, false>(
+      qkv_batch(in[kX], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], sc.q, sc.k, sc.v,
+                S, M, C, inner, cross != 0, scale),
+      M, inner, C, 3 * S, st);
+  cudaError_t err = launch_core<false>(sc.q, sc.k, sc.v, in[kBias], sc.o, S, B, H, W, heads, d,
+                                       wh, ww, shift != 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  ReduceJobs jobs = {};
+  const AttnGrads ag = {out[kWq], out[kBq], out[kWk], out[kBk], out[kWv],
+                        out[kBv], out[kWp], out[kBp], out[kBias]};
+  err = attention_bwd<false>(sc.attn, in[kX], sc.q, sc.k, sc.v, sc.o, in[kG], in[kWq], in[kWk],
+                             in[kWv], in[kWp], in[kBias], out[0], ag, jobs, S, B, H, W, C,
+                             heads, d, wh, ww, shift != 0, cross != 0, scale, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_reduce(jobs, st);
   return static_cast<int>(cudaGetLastError());
 }
 

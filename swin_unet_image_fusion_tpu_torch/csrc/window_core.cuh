@@ -4,7 +4,9 @@
 //   gemm_kernel         batched row-major C[z] = act((LN(A[z]) @ B[z] + bias[z]) * alpha[z])
 //                       + res[z], with the LayerNorm of A's rows optional in the prologue
 //                       (row statistics computed by each block for its own rows) and ELU
-//                       and a residual optional in the epilogue;
+//                       and a residual optional in the epilogue; for the backward also
+//                       C = A @ B^T (B stored (N, K)) without bias, and an epilogue that
+//                       multiplies by the ELU derivative of an activation `res` holds;
 //   window_core_kernel  one block per (window, stream*batch, head): scores q.k plus the
 //                       shared relative-position bias, the shift mask that SETS scores to
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
@@ -44,20 +46,24 @@ constexpr int kMaxBatch = 6;
 
 struct GemmBatch {
   const float* a[kMaxBatch];     // (M, K)
-  const float* b[kMaxBatch];     // (K, N)
-  const float* bias[kMaxBatch];  // (N)
+  const float* b[kMaxBatch];     // (K, N), or (N, K) under kBT
+  const float* bias[kMaxBatch];  // (N) (kBias only)
   const float* ln_g[kMaxBatch];  // (K) LayerNorm scale of A's rows (kLn only)
   const float* ln_b[kMaxBatch];  // (K) LayerNorm bias (kLn only)
-  const float* res[kMaxBatch];   // (M, N) added last (kRes only); may alias c
+  const float* res[kMaxBatch];   // (M, N) added last (kRes), or the ELU output whose
+                                 // derivative scales the result (kDElu); may alias c
   float* c[kMaxBatch];           // (M, N)
   float alpha[kMaxBatch];
 };
 
-template <bool kLn, bool kElu, bool kRes>
+// d ELU / dz from the ELU's output h: 1 where z > 0 (h > 0), else exp(z) = h + 1.
+__device__ __forceinline__ float elu_grad_from_output(float h) { return h > 0.0f ? 1.0f : h + 1.0f; }
+
+template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_kernel(GemmBatch p, int M, int N, int K) {
   __shared__ float as[kBK][kBM];  // A tile, transposed
-  __shared__ float bs[kBK][kBN];
+  __shared__ float bs[kBK][kBN + (kBT ? 1 : 0)];  // padded when stored along K
   __shared__ float row_mean[kLn ? kBM : 1], row_rstd[kLn ? kBM : 1];
   const int z = blockIdx.z;
   const float* __restrict__ a = p.a[z];
@@ -105,10 +111,18 @@ __global__ void __launch_bounds__(kGemmThreads)
       }
       as[kk][r] = val;
     }
-    for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
-      const int kk = i / kBN, n = i % kBN;
-      const int gk = k0 + kk, gn = col0 + n;
-      bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
+    if (kBT) {
+      for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
+        const int n = i / kBK, kk = i % kBK;  // consecutive threads walk along K
+        const int gk = k0 + kk, gn = col0 + n;
+        bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gn) * K + gk] : 0.0f;
+      }
+    } else {
+      for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
+        const int kk = i / kBN, n = i % kBN;
+        const int gk = k0 + kk, gn = col0 + n;
+        bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -126,7 +140,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     __syncthreads();
   }
   const float alpha = p.alpha[z];
-  const float* res = kRes ? p.res[z] : nullptr;
+  const float* res = (kRes || kDElu) ? p.res[z] : nullptr;
   float* c = p.c[z];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
@@ -137,18 +151,53 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int gn = col0 + tx * kTN + j;
       if (gn >= N) continue;
       const size_t at = static_cast<size_t>(gr) * N + gn;
-      float v = (acc[i][j] + p.bias[z][gn]) * alpha;
+      float v = acc[i][j];
+      if (kBias) v += p.bias[z][gn];
+      v *= alpha;
       if (kElu) v = v > 0.0f ? v : expm1f(v);
-      if (kRes) v += res[at];  // read and written by this thread only
+      if (kDElu) v *= elu_grad_from_output(res[at]);
+      else if (kRes) v += res[at];  // read and written by this thread only
       c[at] = v;
     }
   }
 }
 
-template <bool kLn, bool kElu, bool kRes>
+template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false>
 void launch_gemm(const GemmBatch& p, int M, int N, int K, int batch, cudaStream_t st) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_kernel<kLn, kElu, kRes><<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
+  gemm_kernel<kLn, kElu, kRes, kBias, kBT, kDElu><<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
+}
+
+// The q/k/v GEMM of S streams as one batch, z = s*3 + part: q (times `scale`) from stream
+// s's rows, k and v from the rows of stream kv(s) (1 - s under cross), all with stream s's
+// weights. rows: (S, M, C); q, k, v: (S, M, inner). With ln_g/ln_b (S, C) the GEMM
+// normalises each row in its prologue with the LayerNorm of the stream the row comes from
+// (launch it with kLn).
+inline GemmBatch qkv_batch(const float* rows, const float* wq, const float* bq,
+                           const float* wk, const float* bk, const float* wv, const float* bv,
+                           float* q, float* k, float* v, int S, int M, int C, int inner,
+                           bool cross, float scale, const float* ln_g = nullptr,
+                           const float* ln_b = nullptr) {
+  GemmBatch p = {};
+  const float* w[3] = {wq, wk, wv};
+  const float* bb[3] = {bq, bk, bv};
+  float* dst[3] = {q, k, v};
+  for (int s = 0; s < S; ++s) {
+    for (int part = 0; part < 3; ++part) {
+      const int z = s * 3 + part;
+      const int src = part == 0 || !cross ? s : S - 1 - s;
+      p.a[z] = rows + static_cast<size_t>(src) * M * C;
+      if (ln_g != nullptr) {
+        p.ln_g[z] = ln_g + static_cast<size_t>(src) * C;
+        p.ln_b[z] = ln_b + static_cast<size_t>(src) * C;
+      }
+      p.b[z] = w[part] + static_cast<size_t>(s) * C * inner;
+      p.bias[z] = bb[part] + static_cast<size_t>(s) * inner;
+      p.c[z] = dst[part] + static_cast<size_t>(s) * M * inner;
+      p.alpha[z] = part == 0 ? scale : 1.0f;
+    }
+  }
+  return p;
 }
 
 // ---- per (window, stream*batch, head): scores, mask, softmax, AV -----------------------

@@ -8,8 +8,10 @@ weights keep their shape. The one change of layout: flax conv kernels
 ``(kh, kw, in, out)`` become torch conv weights ``(out, in, kh, kw)`` named ``weight``.
 
 Load the result with ``model.load_state_dict(...)`` (strict by default), so a missing
-or extra key, or a wrong shape, raises. ``random_variables`` makes seeded numpy weights
-in the same flat naming without JAX, for the tests and ``chip_smoke.py``.
+or extra key, or a wrong shape, raises. ``variables_to_jax`` is the inverse: a state dict
+(or any dict of tensors by parameter or buffer name, such as gradients) back to flat flax
+naming. ``random_variables`` makes seeded numpy weights in the same flat naming without
+JAX, for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..config import ModelConfig
 from .unet import SwinFusionUNet
 
 COLLECTIONS = ("params", "batch_stats")
+BATCH_STATS_LEAVES = ("mean", "var")  # the model's only buffers: the head's BatchNorm
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -54,6 +57,22 @@ def variables_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
             path[-1] = "weight"
         state[".".join(path)] = torch.tensor(arr)  # a copy: JAX arrays are read-only
     return state
+
+
+def variables_to_jax(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's state dict (or tensors named as its keys) -> flat flax variables:
+    the inverse of :func:`variables_from_jax`. BatchNorm's running ``mean``/``var`` go to
+    ``batch_stats``, everything else to ``params``."""
+    flat = {}
+    for name, tensor in tensors.items():
+        path = name.split(".")
+        arr = tensor.detach().cpu().numpy()
+        if path[-1] == "weight" and arr.ndim == 4:  # torch conv (out, in, kh, kw)
+            arr = arr.transpose(2, 3, 1, 0)
+            path[-1] = "kernel"
+        collection = "batch_stats" if path[-1] in BATCH_STATS_LEAVES else "params"
+        flat["/".join([collection, *path])] = arr
+    return flat
 
 
 def flax_variable_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:

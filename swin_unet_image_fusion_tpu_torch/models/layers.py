@@ -6,9 +6,11 @@ axis, so one batched matmul computes both streams with independent weights. Para
 names and shapes mirror the flax tree, so ``models/from_jax.py`` loads a flattened
 flax variable dict 1:1.
 
-Only the eval forward is ported: dropout is the identity, BatchNorm uses its running
-statistics. Parameters start as placeholders (zeros, LayerNorm and BatchNorm scales
-and variances one); real weights come from ``load_state_dict``.
+Dropout is not ported (every ratio of the default configuration is 0; the model raises
+on a nonzero one in training). ``FinalHead``'s BatchNorm uses its running statistics,
+or with ``train=True`` the batch's and updates the running ones, as flax does.
+Parameters start as placeholders (zeros, LayerNorm and BatchNorm scales and variances
+one); real weights come from ``load_state_dict``.
 
 Numerics: LayerNorm over the trailing channel axis in fp32 with biased variance and
 eps 1e-5; under the shift mask scores are **set** to -1e10; the relative-position bias
@@ -288,10 +290,19 @@ class PatchUnmergeLayer(nn.Module):
         return self.act(depth_to_space(x, self.merging_size))
 
 
-class BatchNormEval(nn.Module):
-    """BatchNorm over the channel axis of NCHW input in its eval form, with flax's
+BN_MOMENTUM = 0.9  # flax's (torch's 0.1 weighs the other side)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel axis of NCHW input in flax's semantics, with flax's
     names (``scale``, ``bias``; running ``mean``, ``var``) and arithmetic
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+
+    ``train=False`` normalises with the running statistics. ``train=True`` normalises
+    with the batch's over (B, H, W), the biased "fast" variance ``E[x^2] - E[x]^2``
+    clipped at 0 (flax ``_compute_stats``, not torch's unbiased running variance), and
+    updates the running statistics in place: ``new = BN_MOMENTUM * old + (1 -
+    BN_MOMENTUM) * batch``."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -301,13 +312,21 @@ class BatchNormEval(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return (x - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+                self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class FinalHead(nn.Module):
-    """(B, H, W, 2) -> reflect conv3x3 -> BatchNorm (eval) -> act -> reflect conv3x3 ->
+    """(B, H, W, 2) -> reflect conv3x3 -> BatchNorm -> act -> reflect conv3x3 ->
     (B, H, W, 1) (JAX ``FinalHead``)."""
 
     def __init__(self, kernel_size: int = 3, activation: str = "elu"):
@@ -315,7 +334,7 @@ class FinalHead(nn.Module):
         self.pad = kernel_size // 2
         self.act = activation_fn(activation)
         self.conv1 = nn.Conv2d(2, 2, kernel_size)
-        self.bn = BatchNormEval(2)
+        self.bn = BatchNorm(2)
         self.conv2 = nn.Conv2d(2, 1, kernel_size)
         for conv in (self.conv1, self.conv2):
             nn.init.zeros_(conv.weight)
@@ -325,11 +344,12 @@ class FinalHead(nn.Module):
         x = pad_reflect(pad_reflect(x, 2, self.pad, self.pad), 3, self.pad, self.pad)
         return conv(x)
 
-    def forward(self, xy: torch.Tensor) -> torch.Tensor:
+    def forward(self, xy: torch.Tensor, train: bool = False) -> torch.Tensor:
         # The JAX head runs its convs at Precision.HIGHEST; cuDNN's default TF32 would
-        # keep only ~3 decimal digits, so TF32 is off for these convs.
+        # keep only ~3 decimal digits, so TF32 is off for these convs. Their backward
+        # runs later, outside this block: the train step keeps TF32 off for it.
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             x = self._reflect_conv(xy.permute(0, 3, 1, 2), self.conv1)
-            x = self.act(self.bn(x))
+            x = self.act(self.bn(x, train))
             x = self._reflect_conv(x, self.conv2)
         return x.permute(0, 2, 3, 1)

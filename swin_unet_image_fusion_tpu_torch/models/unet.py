@@ -69,8 +69,17 @@ class SwinFusionUNet(nn.Module):
             routes.append(route)
         return tuple(routes)
 
-    def forward(self, ir: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
+    def forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The fused map (B, H, W, 1). ``train=True`` runs the head's BatchNorm on the
+        batch's statistics and updates its running ones (the JAX ``train=True``);
+        dropout and rematerialisation are not ported and raise there."""
         cfg = self.cfg
+        if train:
+            if cfg.attention_drop_ratio or cfg.linear_after_att_drop_ratio or cfg.mlp_drop_ratio:
+                raise NotImplementedError("dropout is not ported yet: train with every "
+                                          "dropout ratio 0")
+            if cfg.remat:
+                raise NotImplementedError("rematerialisation (remat=True) is not ported yet")
         n = cfg.num_stages
         _, h, w, _ = ir.shape
         plan = make_plan(h, w, n, cfg.merging_size, cfg.window_size)
@@ -98,4 +107,4 @@ class SwinFusionUNet(nn.Module):
             x = crop_bottom_right(x, p.pad_merge)
 
         xy = torch.cat([x[0], x[1]], dim=-1)  # (B, H, W, 2): [x_stream, y_stream]
-        return self.final_head(xy)
+        return self.final_head(xy, train)

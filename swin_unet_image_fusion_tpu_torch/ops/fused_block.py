@@ -17,6 +17,14 @@ shifted partition as index arithmetic (K4); ``"windows"`` is ``(S, B, nWin, T, C
 ``ops/window_pack.py::pack_windows`` lays out an ``hw`` map in this block's own geometry
 (K1). ``fused_block`` runs the plain version for a CPU tensor and launches the kernels of
 ``csrc/fused_block.cu`` for a CUDA tensor; there is no fallback between the two.
+
+On a card, a call that autograd records (grad mode on and an input that requires grad)
+goes through ``_FusedBlockFunction``: its backward launches ``swin_fused_block_bwd`` (K1
+bwd and K4 bwd), which recomputes the block from x and the weights, as the JAX custom
+VJPs do, and returns g_x and every weight's gradient. ``fused_block_bwd_plain`` is the
+plain backward (autograd of the plain version); it differs from the kernel only where a
+score exceeds the softmax clamp of 80, whose derivative the kernel, like the TPU's, does
+not take.
 """
 
 from __future__ import annotations
@@ -34,13 +42,15 @@ from .window_attention import MAX_STREAMS, SMEM_LIMIT_BYTES, fast_softmax, wrap_
 from .window_pack import pack_windows, unpack_windows
 
 LN_EPS = 1e-5
+MAX_CHANNELS = 384  # the LayerNorm backward kernel's limit (csrc/window_core_bwd.cuh)
 LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
-# Calls that launched the kernels (one per call on a card) since the last reset; the
-# plain version never counts.
+# Calls that launched the forward kernels, and backward calls that launched the backward
+# kernels (one per call on a card), since the last reset; the plain versions never count.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -133,6 +143,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def fused_block_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
+    """Plain backward: (g_x, the 17 weight gradients) of :func:`fused_block_plain` for the
+    output gradient ``g``, by autograd. Keyword arguments as the forward's."""
+    with torch.enable_grad():
+        inputs = [a.detach().requires_grad_() for a in (x, *weights)]
+        return torch.autograd.grad(fused_block_plain(*inputs, **kw), inputs, g)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_block")
@@ -140,7 +158,79 @@ def _library() -> ctypes.CDLL:
     lib.swin_fused_block_fwd.restype = _I
     lib.swin_fused_block_fwd_smem.argtypes = [_I] * 3
     lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
+    lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10
+    lib.swin_fused_block_bwd_workspace.restype = ctypes.c_size_t
+    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_fused_block_bwd.restype = _I
     return lib
+
+
+def _dims(x, weights, kw):
+    """(S, B, H, W, C, heads, d, hidden, wh, ww) of a checked call."""
+    h, w = _check(x, kw["layout"], kw["hw"], kw["window"])
+    return (x.shape[0], x.shape[1], h, w, x.shape[-1], kw["num_heads"], kw["dims_per_head"],
+            weights[-4].shape[-1], *kw["window"])
+
+
+def _launch_fwd(x, weights, kw) -> torch.Tensor:
+    global LAUNCHES
+    s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
+    inner = heads * d
+    lib = _library()
+    out = torch.empty_like(x)
+    tokens = b * h * w  # per stream
+    # q (scaled), k, v and AV of every token, then the MLP hidden: written and read once
+    scratch = [x.new_empty(s, tokens, inner) for _ in range(4)] + [x.new_empty(s, tokens, hidden)]
+    with torch.cuda.device(x.device):
+        rc = lib.swin_fused_block_fwd(
+            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+            *(a.data_ptr() for a in scratch),
+            s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
+            int(kw["layout"] == "windows"), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
+    global BWD_LAUNCHES
+    dims = _dims(x, weights, kw)
+    d = kw["dims_per_head"]
+    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    g = g.contiguous()
+    lib = _library()
+    grads = [torch.empty_like(a) for a in (x, *weights)]
+    workspace = x.new_empty(lib.swin_fused_block_bwd_workspace(*dims))
+    ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
+    outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
+    with torch.cuda.device(x.device):
+        rc = lib.swin_fused_block_bwd(
+            ins, outs, workspace.data_ptr(), *dims, int(kw["shift"]), int(kw["cross"]),
+            int(kw["layout"] == "windows"), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block backward")
+    BWD_LAUNCHES += 1
+    return tuple(grads)
+
+
+class _FusedBlockFunction(torch.autograd.Function):
+    """The kernels' forward and backward; saves only x and the weights."""
+
+    @staticmethod
+    def forward(ctx, kw, x, *weights):
+        ctx.kw = kw
+        ctx.save_for_backward(x, *weights)
+        return _launch_fwd(x, weights, kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        return (None, *_launch_bwd(g, x, weights, ctx.kw))
 
 
 def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
@@ -151,9 +241,9 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     """One fused Swin block: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`fused_block_plain`. On a CUDA tensor every argument must be a
-    contiguous float32 tensor on that device; anything else raises.
+    contiguous float32 tensor on that device; anything else raises. When autograd records
+    the call, its backward is the backward kernel.
     """
-    global LAUNCHES
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross, layout=layout, hw=hw, activation=activation)
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
@@ -164,8 +254,8 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
         raise ValueError(f"fused_block runs on cpu or cuda tensors, not {x.device}")
     if activation != "elu":
         raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
-    h, w = _check(x, layout, hw, window)
-    s, b, c = x.shape[0], x.shape[1], x.shape[-1]
+    _check(x, layout, hw, window)
+    s, c = x.shape[0], x.shape[-1]
     wh, ww = window
     t = wh * ww
     inner = num_heads * dims_per_head
@@ -185,23 +275,13 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
-    lib = _library()
-    smem = lib.swin_fused_block_fwd_smem(dims_per_head, wh, ww)
+    smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
-    out = torch.empty_like(x)
-    tokens = b * h * w  # per stream
-    # q (scaled), k, v and AV of every token, then the MLP hidden: written and read once
-    scratch = [x.new_empty(s, tokens, inner) for _ in range(4)] + [x.new_empty(s, tokens, hidden)]
-    with torch.cuda.device(x.device):
-        rc = lib.swin_fused_block_fwd(
-            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(a.data_ptr() for a in scratch),
-            s, b, h, w, c, num_heads, dims_per_head, hidden, wh, ww, int(shift), int(cross),
-            int(layout == "windows"), float(dims_per_head**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch(lib, rc, "fused block")
-    LAUNCHES += 1
-    return out
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *weights)):
+        if c > MAX_CHANNELS:
+            raise ValueError(f"the fused block's backward (its LayerNorm kernel) takes "
+                             f"C <= {MAX_CHANNELS}, got {c}")
+        return _FusedBlockFunction.apply(kw, x, *weights)
+    return _launch_fwd(x, weights, kw)

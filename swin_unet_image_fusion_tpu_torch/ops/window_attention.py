@@ -17,6 +17,14 @@ Counterpart of the JAX ``ops/pallas_attention.py::pallas_window_attention`` forw
 of ``csrc/window_attention.cu`` for a CUDA tensor: a batched GEMM for q/k/v, one block
 per (window, stream, head) for scores, mask, softmax and AV, and a batched GEMM for
 the output projection. There is no fallback between the two versions.
+
+On a card, a call that autograd records (grad mode on and an input that requires grad)
+goes through ``_WindowAttentionFunction``, whose backward launches
+``swin_window_attention_bwd`` (K3 bwd): it recomputes q/k/v and AV from x and the
+weights, as the JAX custom VJP does, and returns g_x and every weight's gradient.
+``window_attention_bwd_plain`` is the plain backward (autograd of the plain version); it
+differs from the kernel only where a score exceeds the softmax clamp of 80, whose
+derivative the kernel, like the TPU's, does not take.
 """
 
 from __future__ import annotations
@@ -35,9 +43,10 @@ SOFTMAX_CLAMP = 80.0
 SMEM_LIMIT_BYTES = 232_448  # what one block may use on Hopper
 MAX_STREAMS = 2  # the kernel's batched projections hold 3 * streams operands
 
-# Calls that launched the kernels (one per call on a card) since the last reset; the
-# plain version never counts.
+# Calls that launched the forward kernels, and backward calls that launched the backward
+# kernels (one per call on a card), since the last reset; the plain versions never count.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def wrap_offsets(window: Tuple[int, int]) -> Tuple[int, int]:
@@ -122,6 +131,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def window_attention_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
+    """Plain backward: (g_x, the 9 weight gradients) of :func:`window_attention_plain`
+    for the output gradient ``g``, by autograd. Keyword arguments as the forward's."""
+    with torch.enable_grad():
+        inputs = [a.detach().requires_grad_() for a in (x, *weights)]
+        return torch.autograd.grad(window_attention_plain(*inputs, **kw), inputs, g)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("window_attention")
@@ -129,7 +146,72 @@ def _library() -> ctypes.CDLL:
     lib.swin_window_attention_fwd.restype = _I
     lib.swin_window_attention_fwd_smem.argtypes = [_I] * 3
     lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
+    lib.swin_window_attention_bwd_workspace.argtypes = [_I] * 9
+    lib.swin_window_attention_bwd_workspace.restype = ctypes.c_size_t
+    lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [_I] * 11 + [ctypes.c_float, _P]
+    lib.swin_window_attention_bwd.restype = _I
     return lib
+
+
+def _dims(x, kw):
+    """(S, B, H, W, C, heads, d, wh, ww) of a checked call."""
+    return (*x.shape, kw["num_heads"], kw["dims_per_head"], *kw["window"])
+
+
+def _launch_fwd(x, weights, kw) -> torch.Tensor:
+    global LAUNCHES
+    s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
+    lib = _library()
+    out = torch.empty_like(x)
+    # q (scaled), k, v and AV of every token, written and read once by the kernels
+    scratch = [x.new_empty(s, b, h, w, heads * d) for _ in range(4)]
+    with torch.cuda.device(x.device):
+        rc = lib.swin_window_attention_fwd(
+            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+            *(a.data_ptr() for a in scratch), s, b, h, w, c, heads, d, wh, ww,
+            int(kw["shift"]), int(kw["cross"]), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "window attention")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
+    global BWD_LAUNCHES
+    dims = _dims(x, kw)
+    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    g = g.contiguous()
+    lib = _library()
+    grads = [torch.empty_like(a) for a in (x, *weights)]
+    workspace = x.new_empty(lib.swin_window_attention_bwd_workspace(*dims))
+    ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
+    outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
+    with torch.cuda.device(x.device):
+        rc = lib.swin_window_attention_bwd(
+            ins, outs, workspace.data_ptr(), *dims, int(kw["shift"]), int(kw["cross"]),
+            float(kw["dims_per_head"]**-0.5), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "window attention backward")
+    BWD_LAUNCHES += 1
+    return tuple(grads)
+
+
+class _WindowAttentionFunction(torch.autograd.Function):
+    """The kernels' forward and backward; saves only x and the weights."""
+
+    @staticmethod
+    def forward(ctx, kw, x, *weights):
+        ctx.kw = kw
+        ctx.save_for_backward(x, *weights)
+        return _launch_fwd(x, weights, kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        return (None, *_launch_bwd(g, x, weights, ctx.kw))
 
 
 def window_attention(
@@ -139,9 +221,9 @@ def window_attention(
     """Window attention: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`window_attention_plain`. On a CUDA tensor every argument must be
-    a contiguous float32 tensor on that device; anything else raises.
+    a contiguous float32 tensor on that device; anything else raises. When autograd
+    records the call, its backward is the backward kernel.
     """
-    global LAUNCHES
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross)
     args = (x, wq, bq, wk, bk, wv, bv, wp, bp, bias)
@@ -150,7 +232,7 @@ def window_attention(
     if x.device.type != "cuda":
         raise ValueError(f"window_attention runs on cpu or cuda tensors, not {x.device}")
     _check_geometry(x, window)
-    s, b, h, w, c = x.shape
+    s, _, _, _, c = x.shape
     wh, ww = window
     t = wh * ww
     inner = num_heads * dims_per_head
@@ -167,21 +249,10 @@ def window_attention(
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
-    lib = _library()
-    smem = lib.swin_window_attention_fwd_smem(dims_per_head, wh, ww)
+    smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
-    out = torch.empty_like(x)
-    # q (scaled), k, v and AV of every token, written and read once by the kernels
-    scratch = [x.new_empty(s, b, h, w, inner) for _ in range(4)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.swin_window_attention_fwd(
-            *(a.data_ptr() for a in args), out.data_ptr(), *(a.data_ptr() for a in scratch),
-            s, b, h, w, c, num_heads, dims_per_head, wh, ww, int(shift), int(cross),
-            float(dims_per_head**-0.5), stream,
-        )
-    _build.check_launch(lib, rc, "window attention")
-    LAUNCHES += 1
-    return out
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _WindowAttentionFunction.apply(kw, *args)
+    return _launch_fwd(x, args[1:], kw)

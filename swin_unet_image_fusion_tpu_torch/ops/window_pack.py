@@ -14,6 +14,9 @@ Counterpart of the layout half of the JAX ``ops/pallas_pack.py``. The TPU packs 
 - :func:`unpack_windows` is its inverse.
 - :func:`repartition_windows` (K2) moves packed tokens from one geometry to the other. It
   is a pure permutation of tokens, so the kernel (``csrc/repartition.cu``) is bit-exact.
+  Its backward (K2 bwd) is the transpose of the permutation, i.e. its inverse: the same
+  kernel launched from ``to_shift`` back to ``from_shift``, through
+  ``_RepartitionFunction`` when autograd records the call on a card.
 
 :func:`pack_beneficial` is the JAX package's default rule for which stages the
 ``pallas_pack`` configuration packs (``models/layers.py::pack_beneficial``); the port's
@@ -33,9 +36,10 @@ from . import _build
 from .window import window_partition, window_unpartition
 from .window_attention import wrap_offsets
 
-# Calls that launched the kernel (one per call on a card) since the last reset; the plain
-# version never counts.
+# Calls that launched the kernel forward, and backward calls that launched it (one per
+# call on a card), since the last reset; the plain version never counts.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def pack_beneficial(c: int, w: int) -> bool:
@@ -98,12 +102,51 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _launch(xw: torch.Tensor, hw, window, from_shift: bool, to_shift: bool) -> torch.Tensor:
+    s, b, _, _, c = xw.shape
+    out = torch.empty_like(xw)
+    lib = _library()
+    with torch.cuda.device(xw.device):
+        rc = lib.swin_repartition_fwd(
+            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c, window[0], window[1],
+            int(from_shift), int(to_shift), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, rc, "repartition")
+    return out
+
+
+def repartition_windows_bwd_plain(g: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int],
+                                  from_shift: bool, to_shift: bool) -> torch.Tensor:
+    """Plain backward of the re-partition: the inverse permutation of ``g``."""
+    return repartition_windows_plain(g, hw, window, to_shift, from_shift)
+
+
+class _RepartitionFunction(torch.autograd.Function):
+    """The kernel forward; its backward is the kernel from ``to_shift`` to ``from_shift``."""
+
+    @staticmethod
+    def forward(ctx, xw, hw, window, from_shift, to_shift):
+        global LAUNCHES
+        ctx.geometry = (hw, window, from_shift, to_shift)
+        out = _launch(xw, hw, window, from_shift, to_shift)
+        LAUNCHES += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global BWD_LAUNCHES
+        hw, window, from_shift, to_shift = ctx.geometry
+        out = _launch(g.contiguous(), hw, window, to_shift, from_shift)
+        BWD_LAUNCHES += 1
+        return out, None, None, None, None
+
+
 def repartition_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int],
                         from_shift: bool, to_shift: bool) -> torch.Tensor:
     """Re-partition (S, B, nWin, T, C) tokens of an ``hw`` map from the ``from_shift`` to
     the ``to_shift`` geometry: the plain version on the CPU, the CUDA kernel on a card.
 
-    On a CUDA tensor ``xw`` must be contiguous float32; anything else raises.
+    On a CUDA tensor ``xw`` must be contiguous float32; anything else raises. When
+    autograd records the call, its backward is the kernel's inverse permutation.
     """
     global LAUNCHES
     if xw.device.type == "cpu":
@@ -114,13 +157,8 @@ def repartition_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int
     if xw.dtype != torch.float32 or not xw.is_contiguous():
         raise ValueError(f"xw must be a contiguous float32 tensor, got {xw.dtype}, "
                          f"contiguous={xw.is_contiguous()}")
-    s, b, _, _, c = xw.shape
-    out = torch.empty_like(xw)
-    lib = _library()
-    with torch.cuda.device(xw.device):
-        rc = lib.swin_repartition_fwd(
-            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c, window[0], window[1],
-            int(from_shift), int(to_shift), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(lib, rc, "repartition")
+    if torch.is_grad_enabled() and xw.requires_grad:
+        return _RepartitionFunction.apply(xw, tuple(hw), tuple(window), from_shift, to_shift)
+    out = _launch(xw, hw, window, from_shift, to_shift)
     LAUNCHES += 1
     return out

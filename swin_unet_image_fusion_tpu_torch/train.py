@@ -1,0 +1,115 @@
+"""Training step (port of the JAX ``train.py::make_train_step``, ``make_eval_step`` and
+``create_train_state``).
+
+A step is: forward with ``train=True`` (the head's BatchNorm on batch statistics,
+its running statistics updated in place), the output clamped to [0, 1] *before* the
+loss (the clamp's zero gradient outside the range is part of the reference's training
+dynamics), ``total_fusion_loss``, backward, the opt-in guards, the learning rate of the
+per-iteration cosine warm-restart schedule, and Adam's update. Under a kernel
+configuration the backward runs the backward kernels (``ops/fused_block.py``,
+``ops/window_attention.py``, ``ops/window_pack.py``). A step returns the loss terms as
+0-d device tensors and never waits for the device.
+
+TF32 stays off for the whole step, backward included (fp32 parity with the JAX
+package's ``Precision.HIGHEST``): cuBLAS matmuls and cuDNN convolutions.
+
+The ``Trainer`` of the JAX package (data loader, TensorBoard, checkpoints) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+from .config import Config
+from .losses import total_fusion_loss
+from .models.from_jax import flatten_variables, variables_from_jax
+from .models.unet import SwinFusionUNet
+from .optim import all_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
+
+
+@dataclass
+class TrainState:
+    """The model (in ``train()`` mode), its Adam optimiser and the step counts."""
+
+    model: SwinFusionUNet
+    optimizer: torch.optim.Adam
+    schedule: Callable[[int], float]
+    step: int = 0  # steps taken
+    updates: int = 0  # updates applied: the schedule's count (a skipped step adds none)
+
+
+def create_train_state(cfg: Config, variables: Mapping, iters_per_epoch: int, *,
+                       device: torch.device | str = "cuda") -> TrainState:
+    """A train state on ``device`` ("cuda" unless the caller passes "cpu") from flax
+    variables, nested or flat (as :func:`~.models.from_jax.variables_from_jax` takes)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_train_state was asked for a CUDA device and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    model = SwinFusionUNet(cfg.model)
+    model.load_state_dict(variables_from_jax(flatten_variables(variables)))
+    model.to(device).train()
+    o = cfg.optim
+    return TrainState(model=model, optimizer=make_optimizer(model.parameters(), o),
+                      schedule=cosine_warm_restarts_schedule(o.lr, o.minimum_lr, o.scheduler_t0,
+                                                             iters_per_epoch))
+
+
+@contextlib.contextmanager
+def fp32_mode():
+    """TF32 off in cuBLAS matmuls and cuDNN convolutions, restored on exit."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def make_train_step(cfg: Config) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
+                                             Dict[str, torch.Tensor]]:
+    """``step(state, ir, vis) -> terms``: one update of ``state`` in place on an (B, H, W, 1)
+    pair. The gradients of the step stay in each parameter's ``.grad``."""
+    loss_cfg, optim_cfg = cfg.loss, cfg.optim
+
+    def step(state: TrainState, ir: torch.Tensor, vis: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model, opt = state.model, state.optimizer
+        with fp32_mode():
+            opt.zero_grad(set_to_none=True)
+            fusion = torch.clamp(model(ir, vis, train=True), 0.0, 1.0)
+            total, terms = total_fusion_loss(loss_cfg, fusion, ir, vis)
+            total.backward()
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            apply = not optim_cfg.skip_nonfinite_updates or all_finite(grads)
+            if apply:
+                if optim_cfg.grad_clip_norm > 0.0:
+                    clip_by_global_norm_(grads, optim_cfg.grad_clip_norm)
+                for group in opt.param_groups:
+                    group["lr"] = state.schedule(state.updates)
+                opt.step()
+                state.updates += 1
+        state.step += 1
+        return {name: value.detach() for name, value in terms.items()}
+
+    return step
+
+
+def make_eval_step(cfg: Config) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
+                                            Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """``step(state, ir, vis) -> (fusion, terms)``: the eval forward (running BatchNorm
+    statistics), clamped, and its loss terms."""
+
+    @torch.no_grad()
+    def step(state: TrainState, ir: torch.Tensor, vis: torch.Tensor):
+        with fp32_mode():
+            fusion = torch.clamp(state.model(ir, vis, train=False), 0.0, 1.0)
+            _, terms = total_fusion_loss(cfg.loss, fusion, ir, vis)
+        return fusion, terms
+
+    return step

@@ -35,6 +35,9 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch.ops.window_attention\n"
         "import swin_unet_image_fusion_tpu_torch.ops.fused_block\n"
         "import swin_unet_image_fusion_tpu_torch.ops.window_pack\n"
+        "import swin_unet_image_fusion_tpu_torch.train, swin_unet_image_fusion_tpu_torch.losses\n"
+        "import swin_unet_image_fusion_tpu_torch.optim, swin_unet_image_fusion_tpu_torch.ops.ssim\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.edges\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: window attention (K3), the fused block (K1/K4) and the
-window re-partition (K2) against their plain versions, and inside the whole model under
-each kernel configuration against the CPU and without blocking the host.
+window re-partition (K2) against their plain versions, forward and backward, and inside
+the whole model under each kernel configuration against the CPU, without blocking the
+host, and through one train step.
 
 These tests import no JAX, so they run on a machine with a card and without JAX:
 ``python -m pytest -m gpu --noconftest tests/test_torch_kernel_gpu.py`` (``tests/conftest.py``
@@ -20,6 +21,7 @@ from swin_unet_image_fusion_tpu_torch.models.unet import SwinFusionUNet
 from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 
 
 TINY = ModelConfig(in_dims_list=(1, 8), out_dims_list=(8, 16), att_num_heads=2,
@@ -193,3 +195,110 @@ def test_fused_configs_never_block_the_host_after_warmup(impl):
             model(ir, vis)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_attention_bwd_matches_plain_on_card(shift, cross):
+    """K3's backward kernel against autograd of its plain version on the card, at the
+    stage-0 width and at C=384, two images per stream."""
+    _need_card()
+    for c, h in ((24, 28), (384, 21)):
+        gen = torch.Generator(device="cpu").manual_seed(c + 1)
+        d = c // 8
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        args = [rand(2, 2, h, h, c), rand(2, c, c, scale=c**-0.5), rand(2, c, scale=0.1),
+                rand(2, c, c, scale=c**-0.5), rand(2, c, scale=0.1),
+                rand(2, c, c, scale=c**-0.5), rand(2, c, scale=0.1),
+                rand(2, c, c, scale=c**-0.5), rand(2, c, scale=0.1), rand(2, 49, 49)]
+        g = rand(2, 2, h, h, c)
+        kw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross)
+        inputs = [a.requires_grad_() for a in args]
+        launches = twa.BWD_LAUNCHES
+        got = torch.autograd.grad(twa.window_attention(*inputs, **kw), inputs, g)
+        torch.cuda.synchronize()
+        assert twa.BWD_LAUNCHES == launches + 1
+        ref = twa.window_attention_bwd_plain(g, *args, **kw)
+        assert_grads_close(got, ref, ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_fused_block_bwd_matches_plain_on_card(layout, shift, cross):
+    """The fused block's backward kernel (K4 bwd on the image, K1 bwd on window-packed
+    tokens) against autograd of its plain version on the card, at the shapes of the
+    forward test."""
+    _need_card()
+    for c, hidden, hw in ((24, 96, (28, 35)), (24, 4, (14, 14)), (384, 1536, (21, 21))):
+        x, weights, d = _block_args(c, hidden, hw, c + hidden + 1, layout, shift)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(c)).cuda()
+        kw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross,
+                  layout=layout, hw=hw)
+        inputs = [a.requires_grad_() for a in (x, *weights)]
+        launches = tfb.BWD_LAUNCHES
+        got = torch.autograd.grad(tfb.fused_block(*inputs, **kw), inputs, g)
+        torch.cuda.synchronize()
+        assert tfb.BWD_LAUNCHES == launches + 1
+        ref = tfb.fused_block_bwd_plain(g, x, *weights, **kw)
+        assert_grads_close(got, ref, ("x", *tfb.WEIGHT_NAMES))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [24, 6])
+def test_repartition_bwd_is_bit_exact_on_card(c):
+    """The re-partition's backward (the kernel from the other geometry back) equals the
+    plain inverse permutation exactly."""
+    _need_card()
+    for hw in ((7, 7), (14, 28), (35, 21)):
+        for from_shift in (False, True):
+            xw = twp.pack_windows(torch.randn(2, 3, *hw, c, device="cuda"), (7, 7), from_shift)
+            xw = xw.contiguous().requires_grad_()
+            g = torch.randn(xw.shape, device="cuda")
+            launches = twp.BWD_LAUNCHES
+            (got,) = torch.autograd.grad(
+                twp.repartition_windows(xw, hw, (7, 7), from_shift, not from_shift), xw, g)
+            torch.cuda.synchronize()
+            assert twp.BWD_LAUNCHES == launches + 1
+            ref = twp.repartition_windows_bwd_plain(g, hw, (7, 7), from_shift, not from_shift)
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda_pack", "cuda_block"])
+def test_tiny_train_step_on_card_matches_cpu(impl):
+    """One train step of the tiny model on the card under each kernel configuration: every
+    parameter gets a finite gradient through the backward kernels, each kernel's backward
+    runs as often as its forward, and loss, gradients and BatchNorm statistics agree with
+    the CPU composition (loss rtol 1e-5; gradients by ``testing.assert_grads_close``, as
+    the kernel tests)."""
+    _need_card()
+    from swin_unet_image_fusion_tpu_torch.config import OptimConfig
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    variables = random_variables(TINY, seed=10)
+    rng = np.random.default_rng(10)
+    ir, vis = (torch.from_numpy(rng.random((2, 28, 28, 1), dtype=np.float32)) for _ in range(2))
+    results = {}
+    for name, device in ((impl, "cuda"), ("torch", "cpu")):
+        cfg = Config(model=dataclasses.replace(TINY, attention_impl=name),
+                     optim=OptimConfig(lr=1e-3))
+        state = create_train_state(cfg, variables, 10, device=device)
+        before = [(m.LAUNCHES, m.BWD_LAUNCHES) for m in (tfb, twa, twp)]
+        terms = make_train_step(cfg)(state, ir.to(device), vis.to(device))
+        counts = [(m.LAUNCHES - f, m.BWD_LAUNCHES - b) for m, (f, b) in zip((tfb, twa, twp), before)]
+        grads = {n: p.grad for n, p in state.model.named_parameters()}
+        results[name] = (terms, grads, state.model.final_head.bn.mean.cpu(), counts)
+    terms, grads, bn_mean, counts = results[impl]
+    assert all(f == b for f, b in counts) and sum(f for f, _ in counts) > 0, counts
+    ref_terms, ref_grads, ref_bn_mean, _ = results["torch"]
+    torch.testing.assert_close(terms["total_loss"].cpu(), ref_terms["total_loss"], rtol=1e-5, atol=0)
+    for name, grad in grads.items():
+        assert grad is not None and torch.isfinite(grad).all(), name
+    assert_grads_close([grads[n].cpu() for n in ref_grads], list(ref_grads.values()), list(ref_grads))
+    torch.testing.assert_close(bn_mean, ref_bn_mean, rtol=1e-5, atol=1e-6)
