@@ -17,7 +17,12 @@ bwd) against autograd of its plain version at the shapes of a 224x224 batch-20 t
 step, and the first train step of the full model under each configuration against the
 torch composition on the card (loss terms, every parameter's gradient, the exact
 forward and backward launches), then timed steps in turns and one profiled step per
-configuration. Every phase raises on failure. The last line of standard output is
+configuration. The bf16 serving path (``compute_dtype="bfloat16"``) takes the same
+steps: the bf16 form of each kernel against its bf16 plain version, ``fuse_y`` under each
+configuration with exact launch counts and against the bf16 and the fp32 torch
+compositions on the card by image-level criteria, kernel times, latencies in turns with
+the fp32 configurations, a traced request each, and the throughput of 512x512 batches of
+32 in both dtypes. Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -26,6 +31,7 @@ It needs a CUDA device and the repository beside it, and exits non-zero without 
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -38,8 +44,15 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores, NVIDIA's data sheet
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores, NVIDIA's data sheet
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 KERNEL_ATOL = KERNEL_RTOL = 1e-4
+# bf16 kernel against its bf16 plain version: rtol 2^-7 (two bf16 ulps), atol 2^-6 x the
+# case's largest magnitude (a rare one-ulp flip of an intermediate), and at most 10% of
+# the elements different at all (the right rounding points differed in up to 6.0% on an
+# H100, K4 at stage 4, C=384; other rounding points differ in 66-75%)
+BF16_RTOL, BF16_ATOL, BF16_MAX_MISMATCH = 2.0**-7, 2.0**-6, 0.1
+BF16 = torch.bfloat16
 MODEL_ATOL, MODEL_RTOL = 5e-4, 1e-3
 REQUESTS = 3
 LATENCY_SAMPLES = 20
@@ -47,6 +60,7 @@ SEED = 0
 SERVE_HW = (512, 512)
 TRAIN_HW, TRAIN_BATCH = (224, 224), 20  # the JAX package's default training crop and batch
 TRAIN_STEPS = 5  # timed steps per configuration, after the checked first one
+THROUGHPUT_BATCH, THROUGHPUT_ROUNDS = 32, 3  # 512x512 pairs per fuse_y call; timed calls each
 WINDOW = (7, 7)
 T = WINDOW[0] * WINDOW[1]
 # attention_impl -> kernel launches per request at each served shape; "fused" is K1
@@ -58,8 +72,10 @@ CONFIGS = {
     "cuda_block": {(512, 512): {"K4": 40}, (100, 90): {"K4": 24}},
 }
 FUSED_NAME = {"cuda": "K4", "cuda_pack": "K1", "cuda_block": "K4"}
-# the configuration whose run gives each kernel's launches in the kernels line
+# the configuration whose run gives each kernel's launches in the kernels line; a bf16
+# kernel's come from the bf16 run of the same configuration
 MAIN_PATH = {"K3": "cuda", "K1": "cuda_pack", "K2": "cuda_pack", "K4": "cuda_block"}
+MAIN_PATH.update({f"{name} bf16": impl for name, impl in MAIN_PATH.items()})
 DEVICE = "cuda"
 
 
@@ -119,15 +135,17 @@ def block_inputs(h, w, c, heads, d, hidden, seed, device, batch=1):
             *dense(c, hidden), *dense(hidden, c))
 
 
-def _bound(flops, bytes_):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES_PER_S
+def _bound(flops, bytes_, peak_flops=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False):
-    """Least time for one K3 launch: matmul FLOPs over the fp32 peak vs each input byte
-    read once and the output written once over HBM bandwidth (both streams). The
-    backward's inputs are x, the weights and g alone, so its work is the forward's
+def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.float32):
+    """Least time for one K3 launch: matmul FLOPs over the peak for their operands vs each
+    input byte read once and the output written once over HBM bandwidth (both streams).
+    In bf16 the products take bf16 operands, so the FLOPs are at the dense bf16
+    tensor-core rate, and x and the output are 2 bytes an element (the weights stay fp32).
+    The backward's inputs are x, the weights and g alone, so its work is the forward's
     recomputed but for the projection (its output is not needed), plus the input- and
     weight-gradient products of every matmul: three times the forward's FLOPs less the
     projection's 2*T*C*inner per window. It reads x and g and writes g_x and the weight
@@ -138,16 +156,22 @@ def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False):
     maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + T * T)
     if backward:
         return _bound(3 * flops - windows * 2 * T * c * inner, 4 * (3 * maps // 2 + 2 * weights))
+    if dtype == BF16:
+        return _bound(flops, 2 * maps + 4 * weights, PEAK_BF16_FLOPS)
     return _bound(flops, 4 * (maps + weights))
 
 
-def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False):
+def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False, dtype=torch.float32,
+                   layout="image"):
     """Least time for one K1/K4 launch: the block's matmul FLOPs (q/k/v, scores, AV,
-    proj, fc1, fc2) over the fp32 peak vs x read once, the output written once and the
-    weights read once over HBM bandwidth (both streams). The backward as K3's: the
-    forward recomputed but for its last matmul, fc2, plus every matmul's input- and
-    weight-gradient products, so three times the forward's FLOPs less fc2's
-    2*T*C*hidden per window; x and g read, g_x and the weight gradients written."""
+    proj, fc1, fc2) over the peak for their operands vs x read once, the output written
+    once and the weights read once over HBM bandwidth (both streams). In bf16, x and the
+    output are 2 bytes an element; K4 (image) takes bf16 operands, at the dense bf16
+    tensor-core rate, while K1 (windows) computes in fp32 inside, at the fp32 rate. The
+    backward as K3's: the forward recomputed but for its last matmul, fc2, plus every
+    matmul's input- and weight-gradient products, so three times the forward's FLOPs
+    less fc2's 2*T*C*hidden per window; x and g read, g_x and the weight gradients
+    written."""
     inner = heads * d
     windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner + 4 * T * c * hidden)
@@ -155,13 +179,16 @@ def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False):
     weights = 2 * (4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden)
     if backward:
         return _bound(3 * flops - windows * 2 * T * c * hidden, 4 * (3 * maps // 2 + 2 * weights))
+    if dtype == BF16:
+        peak = PEAK_BF16_FLOPS if layout == "image" else PEAK_FP32_FLOPS
+        return _bound(flops, 2 * maps + 4 * weights, peak)
     return _bound(flops, 4 * (maps + weights))
 
 
-def repartition_bound_ms(h, w, c, batch=1):
+def repartition_bound_ms(h, w, c, batch=1, dtype=torch.float32):
     """Least time for one K2 launch, forward or backward: both streams' tokens read once
     and written once."""
-    return _bound(0, 4 * 2 * 2 * batch * h * w * c)
+    return _bound(0, torch.finfo(dtype).bits // 8 * 2 * 2 * batch * h * w * c)
 
 
 def time_ms(fn, iters, warmup=3):
@@ -178,25 +205,50 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def check_attention_kernel(cfg, device):
+def tag(dtype) -> str:
+    return " bf16" if dtype == BF16 else ""
+
+
+def compare_kernel(out, ref, what):
+    """A kernel's output against its plain version's on the same inputs: fp32 within atol
+    and rtol 1e-4; bf16 within rtol 2^-7 and atol 2^-6 x the largest magnitude, with at
+    most 10% of the elements different. Returns (max_abs_err, share of elements that
+    differ)."""
+    o, r = out.float(), ref.float()
+    err, share = (o - r).abs().max().item(), (o != r).float().mean().item()
+    print(f"{what}: max_abs_err {err:.3e}, {share:.3%} of the elements differ", flush=True)
+    if out.dtype != ref.dtype:
+        raise AssertionError(f"{what}: the kernel returned {out.dtype}, its plain version {ref.dtype}")
+    if out.dtype == BF16:
+        torch.testing.assert_close(o, r, rtol=BF16_RTOL, atol=BF16_ATOL * r.abs().max().item())
+        if share > BF16_MAX_MISMATCH:
+            raise AssertionError(f"{what}: {share:.2%} of the elements differ")
+    else:
+        torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+    return err, share
+
+
+def check_attention_kernel(cfg, device, dtype=torch.float32):
     """K3 against its plain version in all 20 stage x variant cases."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
-    worst = 0.0
+    worst = worst_share = 0.0
     for k, h, w, c, heads, d in stage_geometries(cfg):
         for shift in (False, True):
             for cross in (False, True):
-                args = attention_inputs(h, w, c, heads, d, SEED + k, device)
+                x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device)
+                args = (x.to(dtype), *weights)
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
                           shift=shift, cross=cross)
                 out = twa.window_attention(*args, **kw)
                 torch.cuda.synchronize()
                 ref = twa.window_attention_plain(*args, **kw)
-                err = (out - ref).abs().max().item()
-                worst = max(worst, err)
-                print(f"[k3] stage {k} {h}x{w} C={c} d={d} shift={shift} cross={cross}: "
-                      f"max_abs_err {err:.3e}", flush=True)
-                torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                err, share = compare_kernel(out, ref, f"[k3{tag(dtype)}] stage {k} {h}x{w} C={c} "
+                                            f"d={d} shift={shift} cross={cross}")
+                worst, worst_share = max(worst, err), max(worst_share, share)
+    if dtype == BF16:
+        print(f"[check] K3 bf16: worst max_abs_err {worst:.3e}, at most {worst_share:.3%} of the "
+              f"elements differ, over 20 cases", flush=True)
     return worst
 
 
@@ -226,29 +278,31 @@ def fused_args(case, x, layout):
                    cross=cross, layout=layout, hw=(h, w))
 
 
-def check_fused_block(cfg, device):
+def check_fused_block(cfg, device, dtype=torch.float32):
     """K1 (windows layout, the packed stages) and K4 (image layout, every stage) against
     their plain version in every stage x role x shift x cross case of a 512² request."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     worst = {}
     for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
-        worst[name] = 0.0
+        key, worst_share = f"{name}{tag(dtype)}", 0.0
+        worst[key] = 0.0
         for case, x, weights in block_cases(cfg, device, packed_only):
-            xl, kw = fused_args(case, x, layout)
+            xl, kw = fused_args(case, x.to(dtype), layout)
             out = tfb.fused_block(xl, *weights, **kw)
             torch.cuda.synchronize()
             ref = tfb.fused_block_plain(xl, *weights, **kw)
-            err = (out - ref).abs().max().item()
-            worst[name] = max(worst[name], err)
             k, h, w, c, _, d, role, hidden, shift, cross = case
-            print(f"[{name.lower()}] stage {k} {role} {h}x{w} C={c} hidden={hidden} "
-                  f"shift={shift} cross={cross}: max_abs_err {err:.3e}", flush=True)
-            torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            err, share = compare_kernel(out, ref, f"[{key.lower()}] stage {k} {role} {h}x{w} C={c} "
+                                        f"hidden={hidden} shift={shift} cross={cross}")
+            worst[key], worst_share = max(worst[key], err), max(worst_share, share)
+        if dtype == BF16:
+            print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}, at most {worst_share:.3%} "
+                  f"of the elements differ, over {32 if packed_only else 40} cases", flush=True)
     return worst
 
 
-def repartition_cases(cfg, device, hw=SERVE_HW, batch=1):
+def repartition_cases(cfg, device, hw=SERVE_HW, batch=1, dtype=torch.float32):
     """(stage, h, w, c, from_shift, xw, permutation) at every packed stage map of an
     ``hw`` input of ``batch`` images, both directions; the permutation is the source
     token of each destination slot (for the library call)."""
@@ -257,7 +311,8 @@ def repartition_cases(cfg, device, hw=SERVE_HW, batch=1):
     for k, h, w, c, _, _ in stage_geometries(cfg, hw):
         if not twp.pack_beneficial(c, w):
             continue
-        x = torch.randn(2, batch, h, w, c, generator=torch.Generator().manual_seed(SEED + k)).to(device)
+        x = torch.randn(2, batch, h, w, c, generator=torch.Generator().manual_seed(SEED + k))
+        x = x.to(device=device, dtype=dtype)
         for from_shift in (False, True):
             xw = twp.pack_windows(x, WINDOW, from_shift).contiguous()
             ids = torch.arange(h * w, dtype=torch.float32, device=device).reshape(1, 1, -1, T, 1)
@@ -271,23 +326,34 @@ def repartition_library(xw, perm):
     return xw.reshape(s * b, n * t, c).index_select(1, perm).reshape(s, b, n, t, c)
 
 
-def check_repartition(cfg, device):
+def check_repartition(cfg, device, dtype=torch.float32):
     """K2 bit-exact against its plain version (and the library call) at every packed
     stage map of a 512² request, in both directions."""
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
     worst = 0.0
-    for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device):
+    for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device, dtype=dtype):
         out = twp.repartition_windows(xw, (h, w), WINDOW, from_shift, not from_shift)
         torch.cuda.synchronize()
         ref = twp.repartition_windows_plain(xw, (h, w), WINDOW, from_shift, not from_shift)
-        err = (out - ref).abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
         worst = max(worst, err)
-        print(f"[k2] stage {k} {h}x{w} C={c} shift {from_shift} -> {not from_shift}: "
+        print(f"[k2{tag(dtype)}] stage {k} {h}x{w} C={c} shift {from_shift} -> {not from_shift}: "
               f"bit-exact {torch.equal(out, ref)}", flush=True)
-        if not torch.equal(out, ref) or not torch.equal(repartition_library(xw, perm), ref):
-            raise AssertionError(f"K2 at stage {k} is not bit-exact (max_abs_err {err})")
+        if (out.dtype != dtype or not torch.equal(out, ref)
+                or not torch.equal(repartition_library(xw, perm), ref)):
+            raise AssertionError(f"K2{tag(dtype)} at stage {k} is not bit-exact (max_abs_err {err})")
+    if dtype == BF16:
+        print("[check] K2 bf16: bit-exact at every packed map, both directions", flush=True)
     return worst
+
+
+def check_fused(out, shape):
+    """A fuse_y output: the input's shape, finite, inside [0, 1]."""
+    if out.shape != shape or not np.isfinite(out).all():
+        raise AssertionError(f"fuse_y at {shape}: shape {out.shape}, finite {np.isfinite(out).all()}")
+    if out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"fuse_y at {shape} left [0, 1]: {out.min()} .. {out.max()}")
 
 
 def serve(fuser, shape, requests, seed):
@@ -297,10 +363,7 @@ def serve(fuser, shape, requests, seed):
         ir = rng.random((1, *shape, 1), dtype=np.float32)
         vis = rng.random((1, *shape, 1), dtype=np.float32)
         out = fuser.fuse_y(ir, vis)
-        if out.shape != (1, *shape, 1) or not np.isfinite(out).all():
-            raise AssertionError(f"fuse_y at {shape}: shape {out.shape}, finite {np.isfinite(out).all()}")
-        if out.min() < 0.0 or out.max() > 1.0:
-            raise AssertionError(f"fuse_y at {shape} left [0, 1]: {out.min()} .. {out.max()}")
+        check_fused(out, (1, *shape, 1))
     return ir, vis, out
 
 
@@ -311,30 +374,36 @@ def forward(fuser, ir, vis):
 
 
 def reset_counts():
-    """Every kernel wrapper's forward and backward launch count to 0."""
+    """Every kernel wrapper's forward (fp32 and bf16) and backward launch count to 0."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
     for m in (tfb, twa, twp):
-        m.LAUNCHES = m.BWD_LAUNCHES = 0
+        m.LAUNCHES = m.BF16_LAUNCHES = m.BWD_LAUNCHES = 0
 
 
 def read_counts(impl):
-    """Forward and backward launches since the reset, by kernel name under ``impl``."""
+    """Forward launches of the fp32 and the bf16 kernels and backward launches since the
+    reset, by kernel name under ``impl``."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    fused = FUSED_NAME[impl]
-    return {"K3": twa.LAUNCHES, "K3 bwd": twa.BWD_LAUNCHES, "K2": twp.LAUNCHES,
-            "K2 bwd": twp.BWD_LAUNCHES, fused: tfb.LAUNCHES, f"{fused} bwd": tfb.BWD_LAUNCHES}
+    counts = {}
+    for name, m in (("K3", twa), ("K2", twp), (FUSED_NAME[impl], tfb)):
+        counts.update({name: m.LAUNCHES, f"{name} bf16": m.BF16_LAUNCHES,
+                       f"{name} bwd": m.BWD_LAUNCHES})
+    return counts
 
 
-def serve_configs(fusers, plain_fuser, cpu_fuser):
+def serve_configs(fusers, plain_fuser, cpu_fuser, dtype=torch.float32, plain32=None):
     """The main paths: every configuration at every served shape, with its launch counts
     (each read right after its own run), checked against the torch composition on the
-    card and, at 100x90, against the CPU composition. Returns the launches per kernel."""
+    card and, at 100x90, against the CPU composition. In bf16 the launches are the bf16
+    kernels' (the fp32 ones stay 0), and the outputs are held to the bf16 and the fp32
+    compositions on the card (``plain32``) by the image-level criteria of
+    ``testing.py``. Returns the launches per kernel."""
     launches = {}
     cpu_out = {}
     for impl, shapes in CONFIGS.items():
@@ -344,13 +413,16 @@ def serve_configs(fusers, plain_fuser, cpu_fuser):
             ir, vis, out = serve(fuser, shape, REQUESTS, seed=SEED + shape[1])
             got = read_counts(impl)
             expected = {name: 0 for name in got}
-            expected.update({name: n * REQUESTS for name, n in per_request.items()})
-            print(f"[serve] {impl} {shape}: {REQUESTS} requests, launches {got}", flush=True)
+            expected.update({f"{name}{tag(dtype)}": n * REQUESTS for name, n in per_request.items()})
+            print(f"[serve]{tag(dtype)} {impl} {shape}: {REQUESTS} requests, launches {got}", flush=True)
             if got != expected:
-                raise AssertionError(f"{impl} at {shape}: launches {got}, expected {expected}")
+                raise AssertionError(f"{impl}{tag(dtype)} at {shape}: launches {got}, expected {expected}")
             for name, n in got.items():
-                if MAIN_PATH.get(name) == impl:
+                if MAIN_PATH.get(name) == impl and name.endswith(" bf16") == (dtype == BF16):
                     launches[name] = launches.get(name, 0) + n
+            if dtype == BF16:
+                check_bf16_fidelity(impl, shape, out, plain_fuser.fuse_y(ir, vis), plain32.fuse_y(ir, vis))
+                continue
             plain_out = plain_fuser.fuse_y(ir, vis)
             raw, plain_raw = forward(fuser, ir, vis), forward(plain_fuser, ir, vis)
             print(f"[parity] {impl} {shape}: kernels vs torch composition on the card, fuse_y "
@@ -367,34 +439,50 @@ def serve_configs(fusers, plain_fuser, cpu_fuser):
     return launches
 
 
-def time_attention(cfg, device, card):
+def check_bf16_fidelity(impl, shape, out, plain16_out, plain32_out):
+    """A bf16 request against the bf16 and the fp32 torch compositions on the card, by the
+    image-level criteria of ``testing.py`` (never a largest difference: rounding flips
+    amplify through the stages)."""
+    from swin_unet_image_fusion_tpu_torch.testing import assert_bf16_fidelity, image_fidelity
+
+    for ref, ref_dtype in ((plain16_out, "bfloat16"), (plain32_out, "float32")):
+        f = image_fidelity(out, ref)
+        print(f"[parity] bf16 {impl} {shape}: vs the {ref_dtype} torch composition on the card: "
+              f"mean_abs {f.mean_abs:.3e}, max_abs {f.max_abs:.3e}, PSNR {f.psnr:.2f} dB, "
+              f"SSIM {f.ssim:.5f}, {f.interior:.1%} of the reference inside (0, 1)", flush=True)
+        assert_bf16_fidelity(out, ref, ref_dtype, f"bf16 {impl} {shape}")
+
+
+def time_attention(cfg, device, card, dtype=torch.float32):
     """K3 per launch at every stage x variant; per-request sums weight each by its 2
     launches (encoder and decoder)."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
+    name = f"K3{tag(dtype)}"
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     by = {}
     for k, h, w, c, heads, d in stage_geometries(cfg):
-        args = attention_inputs(h, w, c, heads, d, SEED + k, device)
-        bound, bound_by = attention_bound_ms(h, w, c, heads, d)
+        x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device)
+        args = (x.to(dtype), *weights)
+        bound, bound_by = attention_bound_ms(h, w, c, heads, d, dtype=dtype)
         for shift in (False, True):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
                           shift=shift, cross=cross)
                 ms = time_ms(lambda: twa.window_attention(*args, **kw), iters=20)
                 plain = time_ms(lambda: twa.window_attention_plain(*args, **kw), iters=5)
-                print(f"[time] K3 stage {k} {h}x{w} C={c} shift={shift} cross={cross}: "
+                print(f"[time] {name} stage {k} {h}x{w} C={c} shift={shift} cross={cross}: "
                       f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}",
                       flush=True)
                 for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
                     totals[key] += 2 * v
                 by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
-    print(f"[time] K3 per 512x512 request under cuda (40 launches): {totals['ms']:.3f} ms, plain "
+    print(f"[time] {name} per 512x512 request under cuda (40 launches): {totals['ms']:.3f} ms, plain "
           f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
     return dict(totals, bound_by=max(by, key=by.get), library_ms=None)
 
 
-def time_fused_block(cfg, device, card):
+def time_fused_block(cfg, device, card, dtype=torch.float32):
     """K1 (packed stages, windows layout) and K4 (every stage, image layout) per launch
     at every stage x role x shift x cross block of a 512² request; each block runs once
     per request, so the per-request sums add them all."""
@@ -402,12 +490,13 @@ def time_fused_block(cfg, device, card):
 
     results = {}
     for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
+        name = f"{name}{tag(dtype)}"
         totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
         by = {}
         for case, x, weights in block_cases(cfg, device, packed_only):
-            xl, kw = fused_args(case, x, layout)
+            xl, kw = fused_args(case, x.to(dtype), layout)
             k, h, w, c, heads, d, role, hidden, shift, cross = case
-            bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden)
+            bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, dtype=dtype, layout=layout)
             ms = time_ms(lambda: tfb.fused_block(xl, *weights, **kw), iters=20)
             plain = time_ms(lambda: tfb.fused_block_plain(xl, *weights, **kw), iters=3, warmup=1)
             print(f"[time] {name} stage {k} {role} {h}x{w} C={c} hidden={hidden} shift={shift} "
@@ -423,30 +512,128 @@ def time_fused_block(cfg, device, card):
     return results
 
 
+def device_ms(fn, iters):
+    """Mean device time of ``fn`` per call over ``iters`` calls, by torch.profiler (the
+    kernels' own time, which the host's enqueue rate does not enter); None where the
+    profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
+
+
 def time_repartition(cfg, device, card):
-    """K2 per launch at every packed stage map, both directions. A packed stage
-    re-partitions normal -> shift twice and shift -> normal once per role (encoder and
-    decoder), so a request runs each normal -> shift launch 4 times and each
-    shift -> normal launch twice."""
+    """K2 per launch at every packed stage map, both directions, fp32 and bf16 in turns at
+    each map (fp32, bf16, bf16, fp32), so that a drift of the host's speed falls on both
+    alike. A packed stage re-partitions normal -> shift twice and shift -> normal once per
+    role (encoder and decoder), so a request runs each normal -> shift launch 4 times and
+    each shift -> normal launch twice. A launch takes a few µs on the device, so the
+    CUDA-event time of back-to-back launches reads the host's enqueue rate; the profiler's
+    device time of one request's 24 launches stands beside it."""
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device):
-        args = (xw, (h, w), WINDOW, from_shift, not from_shift)
-        bound, _ = repartition_bound_ms(h, w, c)
-        ms = time_ms(lambda: twp.repartition_windows(*args), iters=50)
-        plain = time_ms(lambda: twp.repartition_windows_plain(*args), iters=20)
-        library = time_ms(lambda: repartition_library(xw, perm), iters=50)
-        print(f"[time] K2 stage {k} {h}x{w} C={c} shift {from_shift} -> {not from_shift}: "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, index_select {library:.4f} ms, bound "
-              f"{bound:.4f} ms (bytes) | {card}", flush=True)
+    dtypes = (torch.float32, BF16)
+    totals = {dt: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for dt in dtypes}
+    request = {dt: [] for dt in dtypes}  # (launches per request, launch) of one request
+    for pair in zip(*(repartition_cases(cfg, device, dtype=dt) for dt in dtypes)):
+        k, h, w, c, from_shift, _, _ = pair[0]
         per_request = 2 if from_shift else 4
-        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
-            totals[key] += per_request * v
-    print(f"[time] K2 per 512x512 request under cuda_pack (24 launches): {totals['ms']:.3f} ms, "
-          f"plain {totals['plain_ms']:.3f} ms, index_select {totals['library_ms']:.3f} ms, "
-          f"bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
-    return dict(totals, bound_by="bytes")
+        launch = {dt: functools.partial(twp.repartition_windows, case[5], (h, w), WINDOW,
+                                        from_shift, not from_shift)
+                  for dt, case in zip(dtypes, pair)}
+        events = {dt: [] for dt in dtypes}
+        for dt in (*dtypes, *reversed(dtypes)):
+            events[dt].append(time_ms(launch[dt], iters=50))
+        for dt, (*_, xw, perm) in zip(dtypes, pair):
+            ms = sum(events[dt]) / len(events[dt])
+            plain = time_ms(lambda: twp.repartition_windows_plain(xw, (h, w), WINDOW, from_shift,
+                                                                  not from_shift), iters=20)
+            library = time_ms(lambda: repartition_library(xw, perm), iters=50)
+            bound, _ = repartition_bound_ms(h, w, c, dtype=dt)
+            print(f"[time] K2{tag(dt)} stage {k} {h}x{w} C={c} shift {from_shift} -> "
+                  f"{not from_shift}: {ms:.4f} ms ({events[dt][0]:.4f}, {events[dt][1]:.4f} in "
+                  f"turns with the other dtype), plain {plain:.4f} ms, index_select {library:.4f} "
+                  f"ms, bound {bound:.4f} ms (bytes) | {card}", flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                           ("library_ms", library)):
+                totals[dt][key] += per_request * v
+            request[dt].append((per_request, launch[dt]))
+    results = {}
+    for dt in dtypes:
+        name, t = f"K2{tag(dt)}", totals[dt]
+        dev = device_ms(lambda: [fn() for n, fn in request[dt] for _ in range(n)], iters=5)
+        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"[time] {name} per 512x512 request under cuda_pack (24 launches): {t['ms']:.3f} ms "
+              f"by events, {dev} of device time (profiler), plain {t['plain_ms']:.3f} ms, "
+              f"index_select {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms | {card}",
+              flush=True)
+        results[name] = dict(t, bound_by="bytes")
+    return results
+
+
+def time_kernels(cfg, device, card, dtype=torch.float32):
+    """K3, K1 and K4's times per 512² request in ``dtype``, by kernel name."""
+    return {f"K3{tag(dtype)}": time_attention(cfg, device, card, dtype),
+            **time_fused_block(cfg, device, card, dtype)}
+
+
+def in_turns(served, ir, vis, rounds):
+    """``rounds`` fuse_y calls per fuser, the fusers taking turns, so that a change in the
+    host's speed during the run falls on all of them alike: each fuser's wall times (ms)
+    and peak device memory (MiB)."""
+    walls = {name: [] for name in served}
+    peaks = dict.fromkeys(served, 0.0)
+    for _ in range(rounds):
+        for name, f in served.items():
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            f.fuse_y(ir, vis)
+            walls[name].append(1e3 * (time.perf_counter() - t))
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**20)
+    return walls, peaks
+
+
+def latency(served, card):
+    """Per-pair latency of fuse_y at 512² bs=1 after one warm-up call each, the fusers in
+    turns. Returns the medians and the inputs."""
+    rng = np.random.default_rng(SEED)
+    ir = rng.random((1, *SERVE_HW, 1), dtype=np.float32)
+    vis = rng.random((1, *SERVE_HW, 1), dtype=np.float32)
+    for f in served.values():
+        f.fuse_y(ir, vis)
+    walls, peaks = in_turns(served, ir, vis, LATENCY_SAMPLES)
+    median_ms = {name: float(np.median(w)) for name, w in walls.items()}
+    for name, w in walls.items():
+        print(f"[latency] fuse_y 512x512 bs=1 ({name}), {LATENCY_SAMPLES} requests in turns: "
+              f"median {median_ms[name]:.2f} ms/pair, min {min(w):.2f}, max {max(w):.2f}, "
+              f"peak memory {peaks[name]:.0f} MiB | {card}", flush=True)
+    return median_ms, ir, vis
+
+
+def throughput(served, card):
+    """Pairs per second of fuse_y on 512² batches of THROUGHPUT_BATCH: one checked call
+    per fuser, then THROUGHPUT_ROUNDS timed calls each, the fusers in turns; the host
+    copies in and out are part of the call, as in serving."""
+    rng = np.random.default_rng(SEED + 1)
+    shape = (THROUGHPUT_BATCH, *SERVE_HW, 1)
+    ir, vis = rng.random(shape, dtype=np.float32), rng.random(shape, dtype=np.float32)
+    for f in served.values():
+        check_fused(f.fuse_y(ir, vis), shape)
+    walls, peaks = in_turns(served, ir, vis, THROUGHPUT_ROUNDS)
+    for name, w in walls.items():
+        median = float(np.median(w))
+        print(f"[throughput] fuse_y 512x512 bs={THROUGHPUT_BATCH} ({name}), {THROUGHPUT_ROUNDS} "
+              f"calls in turns: {1e3 * THROUGHPUT_BATCH / median:.2f} pairs/s (median {median:.1f} "
+              f"ms per call, min {min(w):.1f}, max {max(w):.1f}), peak memory {peaks[name]:.0f} MiB "
+              f"| {card}", flush=True)
 
 
 KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first match wins
@@ -727,58 +914,54 @@ def main() -> int:
     from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
     from swin_unet_image_fusion_tpu_torch.ops import _build
 
-    # fp32 parity mode: no TF32 in matmuls or convolutions
+    # fp32 parity mode: no TF32 in matmuls or convolutions. cuBLAS's reduced-precision
+    # reduction of bf16 GEMMs stays at PyTorch's default: the model's forward turns it off
+    # while it runs, so what is served here is what a caller gets.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(DEVICE)
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"{kind} x{count}", flush=True)
+          f"{kind} x{count} | allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = ModelConfig()
-    worst = {"K3": check_attention_kernel(cfg, device), **check_fused_block(cfg, device),
-             "K2": check_repartition(cfg, device)}
+    worst = {}
+    for dtype in (torch.float32, BF16):
+        worst.update({f"K3{tag(dtype)}": check_attention_kernel(cfg, device, dtype),
+                      **check_fused_block(cfg, device, dtype),
+                      f"K2{tag(dtype)}": check_repartition(cfg, device, dtype)})
 
     flat = random_variables(cfg, seed=SEED)
-    fusers = {impl: Fuser(Config(model=ModelConfig(attention_impl=impl)), flat, device=DEVICE)
-              for impl in CONFIGS}
-    plain_fuser = Fuser(Config(model=ModelConfig(attention_impl="torch")), flat, device=DEVICE)
-    cpu_fuser = Fuser(Config(model=cfg), flat, device="cpu")
+
+    def fuser(impl, dtype="float32", on=DEVICE):
+        model = ModelConfig(attention_impl=impl, compute_dtype=dtype)
+        return Fuser(Config(model=model), flat, device=on)
+
+    fusers = {impl: fuser(impl) for impl in CONFIGS}
+    fusers16 = {impl: fuser(impl, "bfloat16") for impl in CONFIGS}
+    plain_fuser, plain16 = fuser("torch"), fuser("torch", "bfloat16")
+    cpu_fuser = fuser("auto", on="cpu")
     launches = serve_configs(fusers, plain_fuser, cpu_fuser)
+    launches.update(serve_configs(fusers16, plain16, None, BF16, plain_fuser))
 
-    times = {"K3": time_attention(cfg, device, card), **time_fused_block(cfg, device, card),
-             "K2": time_repartition(cfg, device, card)}
+    times = {**time_kernels(cfg, device, card), **time_kernels(cfg, device, card, BF16),
+             **time_repartition(cfg, device, card)}
 
-    rng = np.random.default_rng(SEED)
-    ir = rng.random((1, 512, 512, 1), dtype=np.float32)
-    vis = rng.random((1, 512, 512, 1), dtype=np.float32)
-    # the configurations take turns, one request each, so that a change in the host's
-    # speed during the run falls on all of them alike
-    served = {**fusers, "torch composition": plain_fuser}
-    walls = {name: [] for name in served}
-    peaks = dict.fromkeys(served, 0.0)
-    for f in served.values():
-        f.fuse_y(ir, vis)
-    for _ in range(LATENCY_SAMPLES):
-        for name, f in served.items():
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            f.fuse_y(ir, vis)
-            walls[name].append(1e3 * (time.perf_counter() - t))
-            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**20)
-    median_ms = {name: float(np.median(w)) for name, w in walls.items()}
-    for name, w in walls.items():
-        print(f"[latency] fuse_y 512x512 bs=1 ({name}), {LATENCY_SAMPLES} requests in turns: "
-              f"median {median_ms[name]:.2f} ms/pair, min {min(w):.2f}, max {max(w):.2f}, "
-              f"peak memory {peaks[name]:.0f} MiB | {card}", flush=True)
-    for impl, fuser in fusers.items():
-        trace_request(impl, fuser, ir, vis, median_ms[impl], card)
-    del fusers, plain_fuser, cpu_fuser, served
+    # the configurations take turns, fp32 and bf16 alike
+    served = {**fusers, **{f"{impl} bf16": f for impl, f in fusers16.items()},
+              "torch composition": plain_fuser, "torch composition bf16": plain16}
+    median_ms, ir, vis = latency(served, card)
+    for name, f in served.items():
+        if not name.startswith("torch"):
+            trace_request(name, f, ir, vis, median_ms[name], card)
+    throughput({name: f for name, f in served.items() if not name.startswith("torch")}, card)
+    del fusers, fusers16, plain_fuser, plain16, cpu_fuser, served
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -798,6 +981,14 @@ def main() -> int:
         ("K2", "repartition_fwd (K2)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
+        ("K3 bf16", "window_attention_fwd bf16 (K3 bf16)", f"{csrc}/window_attention.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
+        ("K1 bf16", "fused_block_fwd bf16, windows layout (K1 bf16)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
+        ("K2 bf16", "repartition_fwd bf16 (K2 bf16)", f"{csrc}/repartition.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
+        ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
         ("K3 bwd", "window_attention_bwd (K3 bwd)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),

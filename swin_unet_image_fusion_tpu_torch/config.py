@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 ATTENTION_IMPLS = ("auto", "torch", "cuda", "cuda_pack", "cuda_block")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -39,7 +40,8 @@ class ModelConfig:
     mlp_drop_ratio: float = 0.0
     final_conv_layer_kernel_size: int = 3
     use_qkv_bias: bool = True
-    # The port computes in float32 only; bfloat16 is not ported yet.
+    # "float32" or "bfloat16" (serving only): the activations' dtype between layers;
+    # parameters stay float32, as in the JAX package.
     compute_dtype: str = "float32"
     # "auto" resolves from the device the caller passed: "cuda" on a CUDA device,
     # "torch" on the CPU. A kernel impl ("cuda", "cuda_pack", "cuda_block") on a CPU

@@ -1,4 +1,4 @@
-// Fused pre-norm Swin block, forward, fp32, for Hopper (sm_90a).
+// Fused pre-norm Swin block, forward in fp32 or bf16, for Hopper (sm_90a).
 //
 // Replaces two TPU kernels that compute the same function:
 //   K1  swin_unet_image_fusion_tpu/ops/pallas_pack.py::_packed_block_fwd_body (entered
@@ -39,6 +39,18 @@
 // v, AV and the hidden activations to device memory once (mostly L2-resident at these
 // sizes). fp32 FMA throughout; TF32 and the tensor cores are off.
 //
+// bf16 (x and out bf16, the weights fp32). The two TPU kernels round differently, so the
+// rounding is a template parameter beside the layout, and the dispatch below ties K4's
+// rounding to the image layout and K1's to the windows layout:
+//   K4 (pallas_block.py:111-190) takes bf16 operands (kBf16Ops): x is upcast on load;
+//       LN1(x) and LN1(kv) are rounded as the q/k/v GEMM loads them, the weights as every
+//       GEMM loads them; p and v are rounded before AV and AV is stored rounded; LN2(y) is
+//       rounded in fc1's prologue and the ELU hidden on its store; the sums are fp32;
+//   K1 (pallas_pack.py:563-688) is the fp32 block with bf16 input and output: every
+//       product takes fp32 operands, the weights included (l.617-618).
+// In both, y = x + proj is never rounded: it goes to an fp32 scratch (in fp32 it is
+// `out` itself, as above), and fc2's epilogue rounds y + m once on the store.
+//
 // Backward (swin_fused_block_bwd) replaces K1 bwd (pallas_pack.py::_packed_block_bwd_body,
 // through _packed_bwd_kernel / _packed_bwd_kernel_self) and K4 bwd
 // (pallas_block.py::_block_bwd_body, through _block_bwd_kernel / _block_bwd_kernel_self).
@@ -63,47 +75,58 @@
 // block at 224x224 batch 20 is about 1.1 GB (activations and gradients of 250,880 tokens
 // per stream), allocated by the wrapper for the call.
 
+#include <type_traits>
+
 #include "window_core_bwd.cuh"
 
 using namespace swin;
 
 namespace {
 
-// Launch sequence of one block; returns cudaGetLastError() after it (0 = ok).
-template <bool kWindows>
-int fused_block(const float* x, const float* ln1g, const float* ln1b, const float* wq,
+// Launch sequence of one block; returns cudaGetLastError() after it (0 = ok). x and out
+// are TX; AV (o) and the MLP hidden (hid) are bf16 under kBf16Ops, else fp32; y is fp32
+// (it may be `out` when TX is float).
+template <bool kWindows, typename TX, bool kBf16Ops>
+int fused_block(const void* xv, const float* ln1g, const float* ln1b, const float* wq,
                 const float* bq, const float* wk, const float* bk, const float* wv,
                 const float* bv, const float* wp, const float* bp, const float* bias,
                 const float* ln2g, const float* ln2b, const float* w1, const float* b1,
-                const float* w2, const float* b2, float* out, float* q, float* k, float* v,
-                float* o, float* hid, int S, int B, int H, int W, int C, int heads, int d,
-                int hidden, int wh, int ww, int shift, int cross, float scale,
+                const float* w2, const float* b2, void* outv, float* q, float* k, float* v,
+                void* ov, void* hidv, float* y, int S, int B, int H, int W, int C, int heads,
+                int d, int hidden, int wh, int ww, int shift, int cross, float scale,
                 cudaStream_t st) {
+  using TM = typename std::conditional<kBf16Ops, bf16, float>::type;
+  const TX* x = static_cast<const TX*>(xv);
+  TX* out = static_cast<TX*>(outv);
+  TM* o = static_cast<TM*>(ov);
+  TM* hid = static_cast<TM*>(hidv);
   const int inner = heads * d;
   const int M = B * H * W;  // tokens per stream
   const size_t x_stream = static_cast<size_t>(M) * C;
   const size_t h_stream = static_cast<size_t>(M) * inner;
   const size_t m_stream = static_cast<size_t>(M) * hidden;
 
-  launch_gemm<true, false, false>(
+  launch_gemm<true, false, false, true, false, false, kBf16Ops>(
       qkv_batch(x, wq, bq, wk, bk, wv, bv, q, k, v, S, M, C, inner, cross != 0, scale, ln1g,
                 ln1b),
       M, inner, C, 3 * S, st);
 
-  const cudaError_t err = launch_core<kWindows>(q, k, v, bias, o, S, B, H, W, heads, d, wh,
-                                                ww, shift != 0, st);
+  const cudaError_t err = launch_core<kWindows, kBf16Ops>(q, k, v, bias, o, S, B, H, W, heads,
+                                                          d, wh, ww, shift != 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmBatch proj = {}, fc1 = {}, fc2 = {};
+  GemmBatchT<TM, TX, float> proj = {};
+  GemmBatchT<float, float, TM> fc1 = {};
+  GemmBatchT<TM, float, TX> fc2 = {};
   for (int s = 0; s < S; ++s) {
     proj.a[s] = o + s * h_stream;
     proj.b[s] = wp + static_cast<size_t>(s) * inner * C;
     proj.bias[s] = bp + static_cast<size_t>(s) * C;
     proj.res[s] = x + s * x_stream;
-    proj.c[s] = out + s * x_stream;
+    proj.c[s] = y + s * x_stream;
     proj.alpha[s] = 1.0f;
 
-    fc1.a[s] = out + s * x_stream;
+    fc1.a[s] = y + s * x_stream;
     fc1.ln_g[s] = ln2g + static_cast<size_t>(s) * C;
     fc1.ln_b[s] = ln2b + static_cast<size_t>(s) * C;
     fc1.b[s] = w1 + static_cast<size_t>(s) * C * hidden;
@@ -114,13 +137,13 @@ int fused_block(const float* x, const float* ln1g, const float* ln1b, const floa
     fc2.a[s] = hid + s * m_stream;
     fc2.b[s] = w2 + static_cast<size_t>(s) * hidden * C;
     fc2.bias[s] = b2 + static_cast<size_t>(s) * C;
-    fc2.res[s] = out + s * x_stream;
+    fc2.res[s] = y + s * x_stream;
     fc2.c[s] = out + s * x_stream;
     fc2.alpha[s] = 1.0f;
   }
-  launch_gemm<false, false, true>(proj, M, C, inner, S, st);
-  launch_gemm<true, true, false>(fc1, M, hidden, C, S, st);
-  launch_gemm<false, false, true>(fc2, M, C, hidden, S, st);
+  launch_gemm<false, false, true, true, false, false, kBf16Ops>(proj, M, C, inner, S, st);
+  launch_gemm<true, true, false, true, false, false, kBf16Ops>(fc1, M, hidden, C, S, st);
+  launch_gemm<false, false, true, true, false, false, kBf16Ops>(fc2, M, C, hidden, S, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,22 +336,28 @@ size_t swin_fused_block_fwd_smem(int d, int wh, int ww) { return core_smem_bytes
 
 // One block on `stream`. H, W are the block's map (the window-multiple stage map, also
 // under the windows layout, where the tokens of each (s, b) are H*W in window order).
-// q, k, v, o are (S, M, heads*d) and hid (S, M, hidden) scratch, M = B*H*W. `out` must not
-// alias x. Returns cudaGetLastError() after the launches (0 = ok).
-int swin_fused_block_fwd(const float* x, const float* ln1g, const float* ln1b, const float* wq,
+// x and out are fp32, or bf16 when `bf16_io` is set (K4's rounding under the image layout,
+// K1's under the windows layout). q, k, v are (S, M, heads*d) fp32 scratch, o the same
+// and hid (S, M, hidden) bf16 for K4 in bf16 and fp32 otherwise, y (S, M, C) fp32 scratch
+// that may be `out` in fp32; M = B*H*W. `out` must not alias x. Returns
+// cudaGetLastError() after the launches (0 = ok).
+int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq,
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, const float* wp, const float* bp, const float* bias,
                          const float* ln2g, const float* ln2b, const float* w1, const float* b1,
-                         const float* w2, const float* b2, float* out, float* q, float* k,
-                         float* v, float* o, float* hid, int S, int B, int H, int W, int C,
-                         int heads, int d, int hidden, int wh, int ww, int shift, int cross,
-                         int windows, float scale, void* stream) {
+                         const float* w2, const float* b2, void* out, float* q, float* k,
+                         float* v, void* o, void* hid, float* y, int S, int B, int H, int W,
+                         int C, int heads, int d, int hidden, int wh, int ww, int shift,
+                         int cross, int windows, int bf16_io, float scale, void* stream) {
   if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using Launcher = decltype(&fused_block<true>);
-  const Launcher run = windows ? &fused_block<true> : &fused_block<false>;
+  using Launcher = decltype(&fused_block<true, float, false>);
+  const Launcher run = !bf16_io ? (windows ? &fused_block<true, float, false>
+                                           : &fused_block<false, float, false>)
+                                : (windows ? &fused_block<true, bf16, false>    // K1
+                                           : &fused_block<false, bf16, true>);  // K4
   return run(x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
-             out, q, k, v, o, hid, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross,
+             out, q, k, v, o, hid, y, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross,
              scale, st);
 }
 

@@ -1,5 +1,5 @@
-// Window re-partition between the normal and the shifted window grid, fp32, for Hopper
-// (sm_90a).
+// Window re-partition between the normal and the shifted window grid, for Hopper (sm_90a),
+// on tokens of any element type (fp32 or bf16).
 //
 // Replaces swin_unet_image_fusion_tpu/ops/pallas_pack.py::_repart_standalone_call (the
 // kernel of repartition_packed_pallas), which moves packed strips between the two grids
@@ -7,10 +7,11 @@
 // rows as ops/window_pack.py::pack_windows lays them out, and the change of grid is a
 // pure permutation of tokens: the shifted grid is the map rolled by
 // (top, left) = (wh - wh/2, ww - ww/2), so token (i, j) of window (wr, wc) holds pixel
-// ((wr*wh + i - top) mod H, (wc*ww + j - left) mod W). Each thread copies one 16-byte
-// (or 4-byte, when C is not a multiple of 4) piece of a destination token from its
-// source slot; neighbouring threads write neighbouring addresses of a token and of the
-// next token of the same window. Bit-exact by construction.
+// ((wr*wh + i - top) mod H, (wc*ww + j - left) mod W). A token is a row of bytes (C times
+// the element size); each thread copies one 16-, 4- or 2-byte piece of a destination
+// token from its source slot, the widest that divides the row and the alignment;
+// neighbouring threads write neighbouring addresses of a token and of the next token of
+// the same window. Bit-exact by construction, in any dtype.
 //
 // What bounds it: bytes. Each token is read once and written once; there is no
 // arithmetic beyond the index computation.
@@ -55,25 +56,33 @@ __global__ void __launch_bounds__(kThreads) repartition_kernel(
 extern "C" {
 
 // out = `in` re-partitioned from the `from_shift` to the `to_shift` grid; both
-// (N, H*W tokens, C) with N = S*B. Returns cudaGetLastError() after the launch (0 = ok).
-int swin_repartition_fwd(const float* in, float* out, int N, int H, int W, int C, int wh,
+// (N, H*W tokens, row_bytes) with N = S*B and row_bytes = C times the element size (a
+// multiple of 2). Returns cudaGetLastError() after the launch (0 = ok).
+int swin_repartition_fwd(const void* in, void* out, int N, int H, int W, int row_bytes, int wh,
                          int ww, int from_shift, int to_shift, void* stream) {
+  if (row_bytes % 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int top = wh - wh / 2, left = ww - ww / 2;
   const int tf = from_shift ? top : 0, lf = from_shift ? left : 0;
   const int tt = to_shift ? top : 0, lt = to_shift ? left : 0;
-  const bool wide = C % 4 == 0 && reinterpret_cast<size_t>(in) % 16 == 0 &&
-                    reinterpret_cast<size_t>(out) % 16 == 0;
-  const int vec = wide ? C / 4 : C;
+  const size_t align = reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out);
+  const int piece = row_bytes % 16 == 0 && align % 16 == 0 ? 16
+                    : row_bytes % 4 == 0 && align % 4 == 0 ? 4 : 2;
+  const int vec = row_bytes / piece;
   const size_t per_map = static_cast<size_t>(H) * W * vec;
   const dim3 grid(static_cast<unsigned>((per_map + kThreads - 1) / kThreads), N);
-  if (wide) {
-    repartition_kernel<float4><<<grid, kThreads, 0, st>>>(
-        reinterpret_cast<const float4*>(in), reinterpret_cast<float4*>(out), vec, H, W, wh,
-        ww, tf, lf, tt, lt);
+  if (piece == 16) {
+    repartition_kernel<uint4><<<grid, kThreads, 0, st>>>(
+        static_cast<const uint4*>(in), static_cast<uint4*>(out), vec, H, W, wh, ww, tf, lf, tt,
+        lt);
+  } else if (piece == 4) {
+    repartition_kernel<unsigned><<<grid, kThreads, 0, st>>>(
+        static_cast<const unsigned*>(in), static_cast<unsigned*>(out), vec, H, W, wh, ww, tf,
+        lf, tt, lt);
   } else {
-    repartition_kernel<float><<<grid, kThreads, 0, st>>>(in, out, vec, H, W, wh, ww, tf, lf,
-                                                         tt, lt);
+    repartition_kernel<unsigned short><<<grid, kThreads, 0, st>>>(
+        static_cast<const unsigned short*>(in), static_cast<unsigned short*>(out), vec, H, W,
+        wh, ww, tf, lf, tt, lt);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-// Swin window attention, forward, fp32, for Hopper (sm_90a).
+// Swin window attention, forward in fp32 or bf16, for Hopper (sm_90a).
 //
 // Replaces swin_unet_image_fusion_tpu/ops/pallas_attention.py::_attention_fwd_kernel
 // (entered through _attention_fwd_kernel_self / _attention_fwd_kernel_cross from
@@ -9,7 +9,7 @@
 // and the output projection + bias. Cross attention takes k/v from the other stream's
 // tokens of the same input, with this stream's weights.
 //
-// Layout. x and out are (S, B, H, W, C) fp32 with H, W multiples of the window. The
+// Layout. x and out are (S, B, H, W, C), fp32 or bf16, with H, W multiples of the window. The
 // window partition and the shifted partition are address arithmetic: the shifted grid
 // is the map rolled by (top, left) = (wh - wh/2, ww - ww/2), so token (i, j) of window
 // (wr, wc) is pixel ((wr*wh + i - top) mod H, (wc*ww + j - left) mod W). The wrap seams
@@ -33,6 +33,14 @@
 // stage, at the cost of writing q, k, v and AV once (4x the activation bytes). The GEMM
 // and the core kernel live in window_core.cuh, shared with the fused block (fused_block.cu).
 //
+// bf16 (the TPU kernel with a bf16 x, as the JAX package serves). The weights stay fp32 in
+// memory and are rounded to bf16 as the GEMMs load them, as the TPU body casts them
+// (pallas_attention.py:311-313, 328): no extra launch and no cached copy. q, k, v (+ the
+// fp32 biases), the scores and the fast softmax stay fp32; p and v are rounded before AV
+// (l.325) and AV is stored rounded (l.327); the projection sums in fp32, adds bp and
+// rounds once on the store (l.331-332). The same three launches, on half the activation
+// bytes; the FMAs stay fp32, so it is bound as the fp32 form is.
+//
 // Backward (swin_window_attention_bwd) replaces
 // pallas_attention.py::_attention_bwd_body (through _attention_bwd_kernel /
 // _attention_bwd_kernel_self from pallas_window_attention's _backward). Given x, the
@@ -45,9 +53,52 @@
 // launch for every weight, bias and relative-position bias gradient. Like the forward it
 // is bound by the fp32 rate, at about three times the forward's matmul work.
 
+#include <type_traits>
+
 #include "window_core_bwd.cuh"
 
 using namespace swin;
+
+namespace {
+
+// The three launches with x, out and AV of type T (float or bf16); bf16 rounds the
+// products' operands (kBf16Ops).
+template <typename T>
+int attention_fwd(const void* xv, const float* wq, const float* bq, const float* wk,
+                  const float* bk, const float* wv, const float* bv, const float* wp,
+                  const float* bp, const float* bias, void* outv, float* q, float* k, float* v,
+                  void* ov, int S, int B, int H, int W, int C, int heads, int d, int wh, int ww,
+                  int shift, int cross, float scale, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  T* o = static_cast<T*>(ov);
+  const int inner = heads * d;
+  const int M = B * H * W;  // tokens per stream
+  const size_t x_stream = static_cast<size_t>(M) * C;
+  const size_t h_stream = static_cast<size_t>(M) * inner;
+
+  launch_gemm<false, false, false, true, false, false, kBf16>(
+      qkv_batch(x, wq, bq, wk, bk, wv, bv, q, k, v, S, M, C, inner, cross != 0, scale), M,
+      inner, C, 3 * S, st);
+
+  const cudaError_t err = launch_core<false, kBf16>(q, k, v, bias, o, S, B, H, W, heads, d, wh,
+                                                    ww, shift != 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  GemmBatchT<T, float, T> proj = {};
+  for (int s = 0; s < S; ++s) {
+    proj.a[s] = o + s * h_stream;
+    proj.b[s] = wp + static_cast<size_t>(s) * inner * C;
+    proj.bias[s] = bp + static_cast<size_t>(s) * C;
+    proj.c[s] = out + s * x_stream;
+    proj.alpha[s] = 1.0f;
+  }
+  launch_gemm<false, false, false, true, false, false, kBf16>(proj, M, C, inner, S, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -56,39 +107,19 @@ size_t swin_window_attention_fwd_smem(int d, int wh, int ww) {
   return core_smem_bytes(d, wh, ww);
 }
 
-// Launches the three kernels on `stream`. q, k, v and o are (S, B, H, W, heads*d)
-// scratch buffers. Returns cudaGetLastError() after the launches (0 = ok).
-int swin_window_attention_fwd(const float* x, const float* wq, const float* bq, const float* wk,
+// Launches the three kernels on `stream`. x and out are fp32, or bf16 when `bf16` is set;
+// q, k, v are (S, B, H, W, heads*d) fp32 scratch and o (AV) the same in x's type. Returns
+// cudaGetLastError() after the launches (0 = ok).
+int swin_window_attention_fwd(const void* x, const float* wq, const float* bq, const float* wk,
                               const float* bk, const float* wv, const float* bv, const float* wp,
-                              const float* bp, const float* bias, float* out, float* q, float* k,
-                              float* v, float* o, int S, int B, int H, int W, int C, int heads,
-                              int d, int wh, int ww, int shift, int cross, float scale,
-                              void* stream) {
+                              const float* bp, const float* bias, void* out, float* q, float* k,
+                              float* v, void* o, int S, int B, int H, int W, int C, int heads,
+                              int d, int wh, int ww, int shift, int cross, int bf16_io,
+                              float scale, void* stream) {
   if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int inner = heads * d;
-  const int M = B * H * W;  // tokens per stream
-  const size_t x_stream = static_cast<size_t>(M) * C;
-  const size_t h_stream = static_cast<size_t>(M) * inner;
-
-  launch_gemm<false, false, false>(
-      qkv_batch(x, wq, bq, wk, bk, wv, bv, q, k, v, S, M, C, inner, cross != 0, scale), M,
-      inner, C, 3 * S, st);
-
-  const cudaError_t err = launch_core<false>(q, k, v, bias, o, S, B, H, W, heads, d, wh, ww,
-                                             shift != 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmBatch proj = {};
-  for (int s = 0; s < S; ++s) {
-    proj.a[s] = o + s * h_stream;
-    proj.b[s] = wp + static_cast<size_t>(s) * inner * C;
-    proj.bias[s] = bp + static_cast<size_t>(s) * C;
-    proj.c[s] = out + s * x_stream;
-    proj.alpha[s] = 1.0f;
-  }
-  launch_gemm<false, false, false>(proj, M, C, inner, S, st);
-  return static_cast<int>(cudaGetLastError());
+  const auto run = bf16_io ? &attention_fwd<bf16> : &attention_fwd<float>;
+  return run(x, wq, bq, wk, bk, wv, bv, wp, bp, bias, out, q, k, v, o, S, B, H, W, C, heads, d,
+             wh, ww, shift, cross, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Device code shared by the window-attention kernel (K3, window_attention.cu) and the
-// fused Swin block (K1/K4, fused_block.cu), fp32, for Hopper (sm_90a):
+// fused Swin block (K1/K4, fused_block.cu), for Hopper (sm_90a):
 //
 //   gemm_kernel         batched row-major C[z] = act((LN(A[z]) @ B[z] + bias[z]) * alpha[z])
 //                       + res[z], with the LayerNorm of A's rows optional in the prologue
@@ -11,6 +11,14 @@
 //                       shared relative-position bias, the shift mask that SETS scores to
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
 //                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV.
+//
+// Precision. Every sum is fp32 FMA. A, the residual and C are fp32 or bf16 in memory
+// (B, the weights, always fp32); a bf16 element is converted to fp32 on load and rounded
+// to nearest even on store, as XLA's convert does. Under kBf16Ops the GEMM rounds both
+// operands to bf16 as they enter shared memory (A after the LayerNorm prologue), and the
+// core rounds p and v before AV and stores AV rounded: the TPU bodies' bf16 operands. A
+// product of two bf16 values is exact in fp32, so this computes what the MXU computes up
+// to the order of the sums.
 //
 // Token layouts of the core kernel, both (S*B, H*W tokens, heads*d) in device memory:
 //   image    tokens in (H, W) row-major order; the window partition and the shifted
@@ -26,9 +34,19 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace swin {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 constexpr float kMaskFill = -1e10f;
 constexpr float kSoftmaxClamp = 80.0f;
@@ -44,29 +62,33 @@ constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
 constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kMaxBatch = 6;
 
-struct GemmBatch {
-  const float* a[kMaxBatch];     // (M, K)
+// TA, TR, TC: the element types of A, res and C (float or bf16).
+template <typename TA = float, typename TR = float, typename TC = float>
+struct GemmBatchT {
+  const TA* a[kMaxBatch];        // (M, K)
   const float* b[kMaxBatch];     // (K, N), or (N, K) under kBT
   const float* bias[kMaxBatch];  // (N) (kBias only)
   const float* ln_g[kMaxBatch];  // (K) LayerNorm scale of A's rows (kLn only)
   const float* ln_b[kMaxBatch];  // (K) LayerNorm bias (kLn only)
-  const float* res[kMaxBatch];   // (M, N) added last (kRes), or the ELU output whose
+  const TR* res[kMaxBatch];      // (M, N) added last (kRes), or the ELU output whose
                                  // derivative scales the result (kDElu); may alias c
-  float* c[kMaxBatch];           // (M, N)
+  TC* c[kMaxBatch];              // (M, N)
   float alpha[kMaxBatch];
 };
+using GemmBatch = GemmBatchT<>;
 
 // d ELU / dz from the ELU's output h: 1 where z > 0 (h > 0), else exp(z) = h + 1.
 __device__ __forceinline__ float elu_grad_from_output(float h) { return h > 0.0f ? 1.0f : h + 1.0f; }
 
-template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false>
+template <bool kLn, bool kElu, bool kRes, bool kBias, bool kBT, bool kDElu, bool kBf16Ops,
+          typename TA, typename TR, typename TC>
 __global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(GemmBatch p, int M, int N, int K) {
+    gemm_kernel(GemmBatchT<TA, TR, TC> p, int M, int N, int K) {
   __shared__ float as[kBK][kBM];  // A tile, transposed
   __shared__ float bs[kBK][kBN + (kBT ? 1 : 0)];  // padded when stored along K
   __shared__ float row_mean[kLn ? kBM : 1], row_rstd[kLn ? kBM : 1];
   const int z = blockIdx.z;
-  const float* __restrict__ a = p.a[z];
+  const TA* __restrict__ a = p.a[z];
   const float* __restrict__ b = p.b[z];
   const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
@@ -78,13 +100,13 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int gr = row0 + r;
       float mean = 0.0f, rstd = 0.0f;
       if (gr < M) {
-        const float* row = a + static_cast<size_t>(gr) * K;
+        const TA* row = a + static_cast<size_t>(gr) * K;
         float sum = 0.0f;
-        for (int k = lane; k < K; k += 32) sum += row[k];
+        for (int k = lane; k < K; k += 32) sum += to_float(row[k]);
         mean = warp_sum(sum) / K;
         float sq = 0.0f;
         for (int k = lane; k < K; k += 32) {
-          const float dev = row[k] - mean;
+          const float dev = to_float(row[k]) - mean;
           sq = fmaf(dev, dev, sq);
         }
         rstd = 1.0f / sqrtf(warp_sum(sq) / K + kLnEps);
@@ -106,8 +128,9 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int gr = row0 + r, gk = k0 + kk;
       float val = 0.0f;
       if (gr < M && gk < K) {
-        val = a[static_cast<size_t>(gr) * K + gk];
+        val = to_float(a[static_cast<size_t>(gr) * K + gk]);
         if (kLn) val = (val - row_mean[r]) * row_rstd[r] * ln_g[gk] + ln_b[gk];
+        if (kBf16Ops) val = round_bf16(val);
       }
       as[kk][r] = val;
     }
@@ -115,13 +138,15 @@ __global__ void __launch_bounds__(kGemmThreads)
       for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
         const int n = i / kBK, kk = i % kBK;  // consecutive threads walk along K
         const int gk = k0 + kk, gn = col0 + n;
-        bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gn) * K + gk] : 0.0f;
+        const float val = (gk < K && gn < N) ? b[static_cast<size_t>(gn) * K + gk] : 0.0f;
+        bs[kk][n] = kBf16Ops ? round_bf16(val) : val;
       }
     } else {
       for (int i = tid; i < kBK * kBN; i += kGemmThreads) {
         const int kk = i / kBN, n = i % kBN;
         const int gk = k0 + kk, gn = col0 + n;
-        bs[kk][n] = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
+        const float val = (gk < K && gn < N) ? b[static_cast<size_t>(gk) * N + gn] : 0.0f;
+        bs[kk][n] = kBf16Ops ? round_bf16(val) : val;
       }
     }
     __syncthreads();
@@ -140,8 +165,8 @@ __global__ void __launch_bounds__(kGemmThreads)
     __syncthreads();
   }
   const float alpha = p.alpha[z];
-  const float* res = (kRes || kDElu) ? p.res[z] : nullptr;
-  float* c = p.c[z];
+  const TR* res = (kRes || kDElu) ? p.res[z] : nullptr;
+  TC* c = p.c[z];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int gr = row0 + ty * kTM + i;
@@ -155,30 +180,33 @@ __global__ void __launch_bounds__(kGemmThreads)
       if (kBias) v += p.bias[z][gn];
       v *= alpha;
       if (kElu) v = v > 0.0f ? v : expm1f(v);
-      if (kDElu) v *= elu_grad_from_output(res[at]);
-      else if (kRes) v += res[at];  // read and written by this thread only
-      c[at] = v;
+      if (kDElu) v *= elu_grad_from_output(to_float(res[at]));
+      else if (kRes) v += to_float(res[at]);  // read and written by this thread only
+      c[at] = from_float<TC>(v);
     }
   }
 }
 
-template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false>
-void launch_gemm(const GemmBatch& p, int M, int N, int K, int batch, cudaStream_t st) {
+template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false,
+          bool kBf16Ops = false, typename TA, typename TR, typename TC>
+void launch_gemm(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int batch, cudaStream_t st) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_kernel<kLn, kElu, kRes, kBias, kBT, kDElu><<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
+  gemm_kernel<kLn, kElu, kRes, kBias, kBT, kDElu, kBf16Ops, TA, TR, TC>
+      <<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
 }
 
 // The q/k/v GEMM of S streams as one batch, z = s*3 + part: q (times `scale`) from stream
 // s's rows, k and v from the rows of stream kv(s) (1 - s under cross), all with stream s's
-// weights. rows: (S, M, C); q, k, v: (S, M, inner). With ln_g/ln_b (S, C) the GEMM
-// normalises each row in its prologue with the LayerNorm of the stream the row comes from
-// (launch it with kLn).
-inline GemmBatch qkv_batch(const float* rows, const float* wq, const float* bq,
-                           const float* wk, const float* bk, const float* wv, const float* bv,
-                           float* q, float* k, float* v, int S, int M, int C, int inner,
-                           bool cross, float scale, const float* ln_g = nullptr,
-                           const float* ln_b = nullptr) {
-  GemmBatch p = {};
+// weights. rows: (S, M, C); q, k, v: (S, M, inner), fp32 in every mode. With ln_g/ln_b
+// (S, C) the GEMM normalises each row in its prologue with the LayerNorm of the stream the
+// row comes from (launch it with kLn).
+template <typename TA>
+GemmBatchT<TA> qkv_batch(const TA* rows, const float* wq, const float* bq,
+                         const float* wk, const float* bk, const float* wv, const float* bv,
+                         float* q, float* k, float* v, int S, int M, int C, int inner,
+                         bool cross, float scale, const float* ln_g = nullptr,
+                         const float* ln_b = nullptr) {
+  GemmBatchT<TA> p = {};
   const float* w[3] = {wq, wk, wv};
   const float* bb[3] = {bq, bk, bv};
   float* dst[3] = {q, k, v};
@@ -203,10 +231,12 @@ inline GemmBatch qkv_batch(const float* rows, const float* wq, const float* bq,
 // ---- per (window, stream*batch, head): scores, mask, softmax, AV -----------------------
 constexpr int kCoreThreads = 128;
 
-template <bool kWindows>
+// TO: AV's element type; under kBf16Ops p and v are rounded to bf16 before AV (and TO is
+// bf16, so AV is rounded on its store).
+template <bool kWindows, bool kBf16Ops = false, typename TO = float>
 __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias, float* __restrict__ o, int B, int H, int W, int heads,
+    const float* __restrict__ bias, TO* __restrict__ o, int B, int H, int W, int heads,
     int d, int wh, int ww, int top, int left) {
   extern __shared__ float smem[];
   const int T = wh * ww;
@@ -237,7 +267,7 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
     const size_t at = base + static_cast<size_t>(pix[i / d]) * inner + i % d;
     qs[i] = q[at];
     ks[i] = k[at];
-    vs[i] = v[at];
+    vs[i] = kBf16Ops ? round_bf16(v[at]) : v[at];
   }
   __syncthreads();
 
@@ -257,14 +287,17 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
     float sum = 0.0f;
     for (int u = lane; u < T; u += 32) sum += ps[t * T + u];
     const float r = 1.0f / (warp_sum(sum) + 1e-30f);
-    for (int u = lane; u < T; u += 32) ps[t * T + u] *= r;
+    for (int u = lane; u < T; u += 32) {
+      const float p = ps[t * T + u] * r;
+      ps[t * T + u] = kBf16Ops ? round_bf16(p) : p;
+    }
   }
   __syncthreads();
   for (int i = tid; i < T * d; i += kCoreThreads) {
     const int t = i / d, j = i % d;
     float acc = 0.0f;
     for (int u = 0; u < T; ++u) acc = fmaf(ps[t * T + u], vs[u * d + j], acc);
-    o[base + static_cast<size_t>(pix[t]) * inner + j] = acc;
+    o[base + static_cast<size_t>(pix[t]) * inner + j] = from_float<TO>(acc);
   }
 }
 
@@ -275,17 +308,17 @@ inline size_t core_smem_bytes(int d, int wh, int ww) {
 
 // Sets the core kernel's shared memory and launches it over every window, stream*batch
 // and head of an (S*B, H, W) map; returns the attribute call's error (0 = ok).
-template <bool kWindows>
+template <bool kWindows, bool kBf16Ops = false, typename TO = float>
 cudaError_t launch_core(const float* q, const float* k, const float* v, const float* bias,
-                        float* o, int S, int B, int H, int W, int heads, int d, int wh,
+                        TO* o, int S, int B, int H, int W, int heads, int d, int wh,
                         int ww, bool shift, cudaStream_t st) {
   const size_t smem = core_smem_bytes(d, wh, ww);
   const cudaError_t err = cudaFuncSetAttribute(
-      window_core_kernel<kWindows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_core_kernel<kWindows, kBf16Ops, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((H / wh) * (W / ww), S * B, heads);
-  window_core_kernel<kWindows><<<grid, kCoreThreads, smem, st>>>(
+  window_core_kernel<kWindows, kBf16Ops, TO><<<grid, kCoreThreads, smem, st>>>(
       q, k, v, bias, o, B, H, W, heads, d, wh, ww, shift ? wh - wh / 2 : 0,
       shift ? ww - ww / 2 : 0);
   return cudaSuccess;

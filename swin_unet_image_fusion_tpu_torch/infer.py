@@ -4,7 +4,8 @@ of the JAX ``infer.py::Fuser.fuse_y``).
 ``Fuser`` runs the eval forward on the device it was given (``"cuda"`` by default) and
 clamps the fused Y to [0, 1]. With ``bucket=N`` it reflect-pads the inputs bottom/right
 up to multiples of N and crops the output back; the padding changes the reflect context
-at the crop border, so ``bucket=0`` (the default) is parity mode.
+at the crop border, so ``bucket=0`` (the default) is parity mode. The inputs go to the
+device as fp32; under ``compute_dtype="bfloat16"`` the model casts them there.
 """
 
 from __future__ import annotations

@@ -15,6 +15,15 @@ one); real weights come from ``load_state_dict``.
 Numerics: LayerNorm over the trailing channel axis in fp32 with biased variance and
 eps 1e-5; under the shift mask scores are **set** to -1e10; the relative-position bias
 table is 2-D and shared across heads.
+
+Compute dtype: each layer computes in the dtype of the activation it is given (the model
+casts its input once), with the JAX package's rounding points under bf16: dense layers
+take bf16 operands (input and kernel) and round their product and the bias add to bf16;
+LayerNorm and BatchNorm work in fp32 (LayerNorm casts back to its input's dtype); the
+attention scores, their scale and bias and the softmax stay fp32, and the weights are
+rounded to bf16 before AV; the head's convs round input, kernel, product and bias add.
+PyTorch would promote bf16 with an fp32 parameter to fp32 without a word, so every
+parameter is cast where it meets an activation.
 """
 
 from __future__ import annotations
@@ -60,9 +69,9 @@ class StackedDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s, i, o = self.kernel.shape
-        y = (x.reshape(s, -1, i) @ self.kernel).reshape(*x.shape[:-1], o)
+        y = (x.reshape(s, -1, i) @ self.kernel.to(x.dtype)).reshape(*x.shape[:-1], o)
         if self.bias is not None:
-            y = y + self.bias.reshape((s,) + (1,) * (x.ndim - 2) + (o,))
+            y = y + self.bias.to(x.dtype).reshape((s,) + (1,) * (x.ndim - 2) + (o,))
         return y
 
     def weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,7 +82,8 @@ class StackedDense(nn.Module):
 
 class StackedLayerNorm(nn.Module):
     """Per-stream LayerNorm over the trailing channel axis, biased variance (JAX
-    ``StackedLayerNorm``; the port computes in fp32 throughout)."""
+    ``StackedLayerNorm``): statistics and the affine step in fp32, the output in the
+    input's dtype."""
 
     def __init__(self, streams: int, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -82,11 +92,12 @@ class StackedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(streams, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = x.var(dim=-1, keepdim=True, correction=0)
-        xn = (x - mean) * torch.rsqrt(var + self.epsilon)
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        xn = (xf - mean) * torch.rsqrt(var + self.epsilon)
         shape = (self.scale.shape[0],) + (1,) * (x.ndim - 2) + (self.scale.shape[1],)
-        return xn * self.scale.reshape(shape) + self.bias.reshape(shape)
+        return (xn * self.scale.reshape(shape) + self.bias.reshape(shape)).to(x.dtype)
 
 
 class DualWindowAttention(nn.Module):
@@ -137,13 +148,14 @@ class DualWindowAttention(nn.Module):
         q = split_heads(self.q(xw))
         k = split_heads(self.k(kvw))
         v = split_heads(self.v(kvw))
-        scores = (q @ k.transpose(-1, -2)) * d**-0.5
+        # scores in fp32 (exact products of the bf16 q and k under bf16)
+        scores = (q.float() @ k.float().transpose(-1, -2)) * d**-0.5
         bias = gather_relative_position_bias(self.rel_pos_bias_table, self.window_size)
         scores = scores + bias[:, None, None]
         if self.shift:
             mask = device_constant(shift_attention_mask, ((h, w), self.window_size), x.device)
             scores = apply_shift_mask(scores, mask)
-        out = torch.softmax(scores, dim=-1) @ v
+        out = torch.softmax(scores, dim=-1).to(v.dtype) @ v
         out = self.proj(out.transpose(2, 3).reshape(s, bw, t, heads * d))
         out = window_unpartition(out, self.window_size, (h, w))
         if self.shift:
@@ -313,6 +325,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()  # flax's BatchNorm(dtype=float32)
         if train:
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
@@ -327,7 +340,9 @@ class BatchNorm(nn.Module):
 
 class FinalHead(nn.Module):
     """(B, H, W, 2) -> reflect conv3x3 -> BatchNorm -> act -> reflect conv3x3 ->
-    (B, H, W, 1) (JAX ``FinalHead``)."""
+    (B, H, W, 1) (JAX ``FinalHead``). The convs compute in the input's dtype, as flax's
+    ``nn.Conv(dtype=...)``: input and kernel cast, the product rounded, then the bias
+    added; BatchNorm and its activation are fp32."""
 
     def __init__(self, kernel_size: int = 3, activation: str = "elu"):
         super().__init__()
@@ -342,7 +357,7 @@ class FinalHead(nn.Module):
 
     def _reflect_conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
         x = pad_reflect(pad_reflect(x, 2, self.pad, self.pad), 3, self.pad, self.pad)
-        return conv(x)
+        return F.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
 
     def forward(self, xy: torch.Tensor, train: bool = False) -> torch.Tensor:
         # The JAX head runs its convs at Precision.HIGHEST; cuDNN's default TF32 would
@@ -351,5 +366,5 @@ class FinalHead(nn.Module):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             x = self._reflect_conv(xy.permute(0, 3, 1, 2), self.conv1)
             x = self.act(self.bn(x, train))
-            x = self._reflect_conv(x, self.conv2)
+            x = self._reflect_conv(x.to(xy.dtype), self.conv2)
         return x.permute(0, 2, 3, 1)

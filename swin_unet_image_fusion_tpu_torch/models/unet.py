@@ -8,17 +8,26 @@ port of the JAX ``models/unet.py``, NHWC path).
   run at ``out_dims_list[k]`` (a quirk of the original model, kept);
 - stages whose attention map has at most ``attention_jnp_max_tokens`` tokens run the
   torch composition instead of the kernel, unless ``"cuda_pack"`` packs them: the JAX
-  package's static routing on shapes (:meth:`SwinFusionUNet.stage_impls`).
+  package's static routing on shapes (:meth:`SwinFusionUNet.stage_impls`);
+- ``compute_dtype="bfloat16"`` casts the stacked input to bf16 at entry, so every
+  activation between layers and the additive skips are bf16, as in the JAX trunk; each
+  layer keeps its own rounding points (``models/layers.py``) and the output is cast back
+  to fp32. Parameters stay fp32. bf16 runs the eval forward only. The forward turns
+  cuBLAS's reduced-precision reduction of bf16 GEMMs off for its duration
+  (:func:`fp32_accumulation`), so the bf16 layers accumulate in fp32 as the JAX
+  composition does, whatever the caller's setting.
 
 Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import COMPUTE_DTYPES, ModelConfig
 from ..ops.patch import crop_bottom_right, pad_reflect_bottom_right
 from ..ops.shape_plan import make_plan
 from ..ops.window_pack import pack_beneficial
@@ -27,12 +36,28 @@ from .layers import FinalHead, PatchMergeLayer, PatchUnmergeLayer, SelfAndCrossB
 STREAMS = 2  # dual path: (x=ir, y=vis_Y)
 
 
+@contextlib.contextmanager
+def fp32_accumulation():
+    """cuBLAS GEMMs on bf16 operands accumulate in fp32: PyTorch's default lets a split-K
+    bf16 GEMM reduce its partial sums in bf16, which the JAX composition never does. The
+    caller's setting is restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+
+
 class SwinFusionUNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise ValueError(f"the port computes in float32 only, not {cfg.compute_dtype}")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; expected one of "
+                             f"{COMPUTE_DTYPES}")
         self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
         n = cfg.num_stages
         for k in range(n):
             dims = cfg.out_dims_list[k]
@@ -72,20 +97,28 @@ class SwinFusionUNet(nn.Module):
     def forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The fused map (B, H, W, 1). ``train=True`` runs the head's BatchNorm on the
         batch's statistics and updates its running ones (the JAX ``train=True``);
-        dropout and rematerialisation are not ported and raise there."""
+        dropout, rematerialisation and bf16 training are not ported and raise there."""
         cfg = self.cfg
         if train:
+            if self.compute_dtype != torch.float32:
+                raise NotImplementedError("bf16 training is not ported yet: train with "
+                                          "compute_dtype='float32'")
             if cfg.attention_drop_ratio or cfg.linear_after_att_drop_ratio or cfg.mlp_drop_ratio:
                 raise NotImplementedError("dropout is not ported yet: train with every "
                                           "dropout ratio 0")
             if cfg.remat:
                 raise NotImplementedError("rematerialisation (remat=True) is not ported yet")
+        with fp32_accumulation():
+            return self._forward(ir, vis, train)
+
+    def _forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool) -> torch.Tensor:
+        cfg = self.cfg
         n = cfg.num_stages
         _, h, w, _ = ir.shape
         plan = make_plan(h, w, n, cfg.merging_size, cfg.window_size)
         impls = self.stage_impls(h, w, ir.device)
 
-        x = torch.stack([ir, vis], dim=0).float()  # (S, B, H, W, 1)
+        x = torch.stack([ir, vis], dim=0).to(self.compute_dtype)  # (S, B, H, W, 1)
         skips = []
         for k in range(n):
             p = plan[k]
@@ -107,4 +140,4 @@ class SwinFusionUNet(nn.Module):
             x = crop_bottom_right(x, p.pad_merge)
 
         xy = torch.cat([x[0], x[1]], dim=-1)  # (B, H, W, 2): [x_stream, y_stream]
-        return self.final_head(xy, train)
+        return self.final_head(xy, train).float()

@@ -12,6 +12,17 @@ tokens packed by window). Both compute one whole ``BasicBlock`` on both streams:
   *that* stream's LN1;
 - proj + bias, + x; LN2; fc1 + b1; ELU; fc2 + b2; + y.
 
+x and the output are fp32 or bf16 (the weights fp32), and the two TPU kernels round
+differently in bf16, so the rounding goes with the layout and not with the dtype alone:
+
+- K4 (``"image"``, ``pallas_block.py::_block_fwd_body``) takes bf16 operands: x is upcast
+  on load; LN1(x) and LN1(kv), the weights, p and v before AV, AV, LN2(y) and the ELU
+  hidden are rounded to bf16 as they enter a product, whose sums stay fp32; the scores,
+  the softmax, q/k/v and **y = x + proj are never rounded**; ``y + m`` is rounded once on
+  the store;
+- K1 (``"windows"``, ``pallas_pack.py::_packed_block_fwd_body``) computes the fp32 block
+  inside, weights included: bf16 is only its input and output.
+
 ``layout`` says where the tokens live: ``"image"`` is ``(S, B, H, W, C)`` with the
 shifted partition as index arithmetic (K4); ``"windows"`` is ``(S, B, nWin, T, C)`` as
 ``ops/window_pack.py::pack_windows`` lays out an ``hw`` map in this block's own geometry
@@ -38,7 +49,14 @@ import torch.nn.functional as F
 
 from . import _build
 from .window import device_constant
-from .window_attention import MAX_STREAMS, SMEM_LIMIT_BYTES, fast_softmax, wrap_region_mask
+from .window_attention import (
+    ACT_DTYPES,
+    MAX_STREAMS,
+    SMEM_LIMIT_BYTES,
+    fast_softmax,
+    operand_rounding,
+    wrap_region_mask,
+)
 from .window_pack import pack_windows, unpack_windows
 
 LN_EPS = 1e-5
@@ -47,10 +65,18 @@ LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
-# Calls that launched the forward kernels, and backward calls that launched the backward
-# kernels (one per call on a card), since the last reset; the plain versions never count.
+# Calls that launched the fp32 and the bf16 forward kernels, and backward calls that
+# launched the backward kernels (one per call on a card), since the last reset; the
+# plain versions never count.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+
+def rounds_operands(dtype: torch.dtype, layout: str) -> bool:
+    """Whether the block rounds its products' operands to bf16: K4 in bf16 does, K1
+    computes in fp32 inside whatever its I/O dtype."""
+    return dtype == torch.bfloat16 and layout == "image"
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -70,30 +96,35 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
-                         dims_per_head, shift, cross):
+                         dims_per_head, shift, cross, rnd):
+    """The block on fp32 window-packed tokens; ``rnd`` is applied to every operand of a
+    product that K4 rounds to bf16 (the identity for fp32 and for K1)."""
     s, b, n_win, t, _ = xw.shape
     d = dims_per_head
-    ln = _layer_norm(xw, ln1_scale, ln1_bias)
+    ln = rnd(_layer_norm(xw, ln1_scale, ln1_bias))
     kv = ln.flip(0) if cross else ln
 
     def heads(a):  # (S, B, nWin, T, inner) -> (S, B, nWin, heads, T, d)
         return a.reshape(s, b, n_win, t, num_heads, d).transpose(3, 4)
 
-    q = heads(_dense(ln, wq, bq) * d**-0.5)
-    k = heads(_dense(kv, wk, bk))
-    v = heads(_dense(kv, wv, bv))
+    q = heads(_dense(ln, rnd(wq), bq) * d**-0.5)
+    k = heads(_dense(kv, rnd(wk), bk))
+    v = heads(_dense(kv, rnd(wv), bv))
     scores = q @ k.transpose(-1, -2) + bias[:, None, None, None]
     if shift:
         mask = device_constant(wrap_region_mask, (tuple(hw), tuple(window)), xw.device)
         scores = scores.masked_fill(mask[:, None], -1e10)
-    av = (fast_softmax(scores) @ v).transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
-    y = xw + _dense(av, wp, bp)
-    hidden = F.elu(_dense(_layer_norm(y, ln2_scale, ln2_bias), w1, b1))
-    return y + _dense(hidden, w2, b2)
+    av = rnd(rnd(fast_softmax(scores)) @ rnd(v))
+    av = av.transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
+    y = xw + _dense(av, rnd(wp), bp)
+    hidden = rnd(F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)))
+    return y + _dense(hidden, rnd(w2), b2)
 
 
 def _check(x: torch.Tensor, layout: str, hw, window) -> Tuple[int, int]:
     """The block's map (H, W) for ``x`` in ``layout``; raises on a shape it does not take."""
+    if x.dtype not in ACT_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")
     if layout == "image":
@@ -121,10 +152,11 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
     """Plain PyTorch version of the kernels, same inputs and semantics.
 
     x: (S, B, H, W, C) for ``layout="image"``, (S, B, nWin, T, C) of an ``hw`` map for
-    ``layout="windows"``; ln*_scale/ln*_bias: (S, C); wq/wk/wv: (S, C, inner);
-    bq/bk/bv: (S, inner); wp: (S, inner, C); bp: (S, C); bias: (S, T, T) gathered
-    relative-position bias; w1: (S, C, hidden); b1: (S, hidden); w2: (S, hidden, C);
-    b2: (S, C). Returns the same shape as x.
+    ``layout="windows"``, fp32 or bf16; ln*_scale/ln*_bias: (S, C); wq/wk/wv: (S, C,
+    inner); bq/bk/bv: (S, inner); wp: (S, inner, C); bp: (S, C); bias: (S, T, T)
+    gathered relative-position bias; w1: (S, C, hidden); b1: (S, hidden); w2: (S,
+    hidden, C); b2: (S, C), all fp32. Returns the same shape and dtype as x, computed in
+    fp32 with K4's or K1's bf16 rounding points (module docstring) when x is bf16.
     """
     if activation != "elu":
         raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
@@ -132,11 +164,11 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                ln2_scale, ln2_bias, w1, b1, w2, b2)
     kw = dict(hw=hw, window=window, num_heads=num_heads, dims_per_head=dims_per_head,
-              shift=shift, cross=cross)
+              shift=shift, cross=cross, rnd=operand_rounding(rounds_operands(x.dtype, layout)))
     if layout == "windows":
-        return _block_windows_plain(x, *weights, **kw)
-    xw = pack_windows(x, window, shift)
-    return unpack_windows(_block_windows_plain(xw, *weights, **kw), hw, window, shift)
+        return _block_windows_plain(x.float(), *weights, **kw).to(x.dtype)
+    xw = pack_windows(x.float(), window, shift)
+    return unpack_windows(_block_windows_plain(xw, *weights, **kw).to(x.dtype), hw, window, shift)
 
 
 _P = ctypes.c_void_p
@@ -154,7 +186,7 @@ def fused_block_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_block")
-    lib.swin_fused_block_fwd.argtypes = [_P] * 24 + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [_I] * 14 + [ctypes.c_float, _P]
     lib.swin_fused_block_fwd.restype = _I
     lib.swin_fused_block_fwd_smem.argtypes = [_I] * 3
     lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
@@ -173,24 +205,36 @@ def _dims(x, weights, kw):
 
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
-    global LAUNCHES
+    """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
+    for a bf16 x: never an upcast."""
+    global LAUNCHES, BF16_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     inner = heads * d
+    bf16 = x.dtype == torch.bfloat16
+    # AV and the MLP hidden are bf16 where the kernel rounds them (K4 in bf16)
+    mid = torch.bfloat16 if rounds_operands(x.dtype, kw["layout"]) else torch.float32
     lib = _library()
     out = torch.empty_like(x)
     tokens = b * h * w  # per stream
-    # q (scaled), k, v and AV of every token, then the MLP hidden: written and read once
-    scratch = [x.new_empty(s, tokens, inner) for _ in range(4)] + [x.new_empty(s, tokens, hidden)]
+    # q (scaled), k, v and AV of every token, the MLP hidden, and y = x + proj in fp32
+    # when the output is bf16 (fp32 writes y into `out`): written and read once
+    f32 = torch.float32
+    scratch = [x.new_empty(s, tokens, inner, dtype=f32) for _ in range(3)]
+    scratch += [x.new_empty(s, tokens, inner, dtype=mid), x.new_empty(s, tokens, hidden, dtype=mid),
+                x.new_empty(s, tokens, c, dtype=f32) if bf16 else out]
     with torch.cuda.device(x.device):
         rc = lib.swin_fused_block_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
             *(a.data_ptr() for a in scratch),
             s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
-            int(kw["layout"] == "windows"), float(d**-0.5),
+            int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -198,6 +242,9 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     global BWD_LAUNCHES
     dims = _dims(x, weights, kw)
     d = kw["dims_per_head"]
+    if x.dtype != torch.float32:
+        raise NotImplementedError("the fused block backward is fp32 only: bf16 training "
+                                  "is not ported yet")
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
@@ -241,8 +288,9 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     """One fused Swin block: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`fused_block_plain`. On a CUDA tensor every argument must be a
-    contiguous float32 tensor on that device; anything else raises. When autograd records
-    the call, its backward is the backward kernel.
+    contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
+    anything else raises. A bf16 x runs the bf16 form of the kernels. When autograd
+    records the call, its backward is the backward kernel (fp32 only).
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross, layout=layout, hw=hw, activation=activation)
@@ -268,9 +316,11 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
         "w1": (s, c, hidden), "b1": (s, hidden), "w2": (s, hidden, c), "b2": (s, c),
     }
     for name, a in zip(("x", *WEIGHT_NAMES), (x, *weights)):
-        if a.device != x.device or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}, "
-                             f"got {a.dtype} on {a.device}, contiguous={a.is_contiguous()}")
+        dtypes = ACT_DTYPES if name == "x" else (torch.float32,)
+        if a.device != x.device or a.dtype not in dtypes or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {' or '.join(map(str, dtypes))} "
+                             f"tensor on {x.device}, got {a.dtype} on {a.device}, "
+                             f"contiguous={a.is_contiguous()}")
         if name in expected and tuple(a.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):

@@ -13,6 +13,12 @@ Counterpart of the JAX ``ops/pallas_attention.py::pallas_window_attention`` forw
   with same-region masks on the wrap seams (``_wrap_region_mask``), rolled back after;
 - cross attention takes k/v from the stream-flipped input, with stream s's weights.
 
+x and the output are fp32 or bf16; the weights are always fp32. In bf16 both versions
+round where the TPU body ``_attention_fwd_body`` rounds: the weights to bf16 as they are
+loaded, so q/k/v are bf16 products accumulated in fp32 (+ the fp32 biases); the scores
+and the fast softmax stay fp32; p and v are rounded to bf16 before AV, AV is rounded
+before the projection, whose fp32 sum plus ``bp`` is rounded once on the store.
+
 ``window_attention`` runs the plain version for a CPU tensor and launches the kernels
 of ``csrc/window_attention.cu`` for a CUDA tensor: a batched GEMM for q/k/v, one block
 per (window, stream, head) for scores, mask, softmax and AV, and a batched GEMM for
@@ -43,10 +49,28 @@ SOFTMAX_CLAMP = 80.0
 SMEM_LIMIT_BYTES = 232_448  # what one block may use on Hopper
 MAX_STREAMS = 2  # the kernel's batched projections hold 3 * streams operands
 
-# Calls that launched the forward kernels, and backward calls that launched the backward
-# kernels (one per call on a card), since the last reset; the plain versions never count.
+ACT_DTYPES = (torch.float32, torch.bfloat16)  # of x and the output; weights are fp32
+
+# Calls that launched the fp32 and the bf16 forward kernels, and backward calls that
+# launched the backward kernels (one per call on a card), since the last reset; the
+# plain versions never count.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+
+def round_to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bf16 value (ties to even), kept in its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def operand_rounding(bf16: bool):
+    """What an operand of a bf16 product goes through: rounding to bf16, or nothing."""
+    return round_to_bf16 if bf16 else _identity
 
 
 def wrap_offsets(window: Tuple[int, int]) -> Tuple[int, int]:
@@ -79,6 +103,8 @@ def fast_softmax(s: torch.Tensor) -> torch.Tensor:
 
 
 def _check_geometry(x: torch.Tensor, window: Tuple[int, int]) -> None:
+    if x.dtype not in ACT_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.ndim != 5:
         raise ValueError(f"x must be (S, B, H, W, C), got shape {tuple(x.shape)}")
     h, w = x.shape[2], x.shape[3]
@@ -92,23 +118,27 @@ def window_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same inputs and semantics.
 
-    x: (S, B, H, W, C); wq/wk/wv: (S, C, inner); bq/bk/bv: (S, inner); wp: (S, inner, C);
-    bp: (S, C); bias: (S, T, T) gathered relative-position bias. Returns (S, B, H, W, C).
+    x: (S, B, H, W, C) fp32 or bf16; wq/wk/wv: (S, C, inner); bq/bk/bv: (S, inner); wp:
+    (S, inner, C); bp: (S, C); bias: (S, T, T) gathered relative-position bias, all fp32.
+    Returns (S, B, H, W, C) in x's dtype, computed in fp32 with the bf16 rounding points
+    of the module docstring when x is bf16.
     """
     _check_geometry(x, window)
+    rnd = operand_rounding(x.dtype == torch.bfloat16)
     s, _, h, w, _ = x.shape
     t = window[0] * window[1]
     d = dims_per_head
     inner = num_heads * d
     top, left = wrap_offsets(window)
+    xf = x.float()
     if shift:
-        x = torch.roll(x, shifts=(top, left), dims=(2, 3))
-    xw = window_partition(x, window)  # (S, Bw, T, C)
+        xf = torch.roll(xf, shifts=(top, left), dims=(2, 3))
+    xw = window_partition(xf, window)  # (S, Bw, T, C)
     kvw = xw.flip(0) if cross else xw
     bw = xw.shape[1]
 
     def proj(a, wmat, bvec):  # (S, Bw, T, C) -> (S, Bw, heads, T, d)
-        y = torch.einsum("sntc,sci->snti", a, wmat) + bvec[:, None, None, :]
+        y = torch.einsum("sntc,sci->snti", a, rnd(wmat)) + bvec[:, None, None, :]
         return y.reshape(s, bw, t, num_heads, d).transpose(2, 3)
 
     q = proj(xw, wq, bq) * d**-0.5
@@ -118,13 +148,13 @@ def window_attention_plain(
     if shift:
         scores = apply_shift_mask(
             scores, device_constant(wrap_region_mask, ((h, w), tuple(window)), x.device))
-    av = fast_softmax(scores) @ v
+    av = rnd(rnd(fast_softmax(scores)) @ rnd(v))
     av = av.transpose(2, 3).reshape(s, bw, t, inner)
-    out = torch.einsum("snti,sic->sntc", av, wp) + bp[:, None, None, :]
+    out = torch.einsum("snti,sic->sntc", av, rnd(wp)) + bp[:, None, None, :]
     out = window_unpartition(out, window, (h, w))
     if shift:
         out = torch.roll(out, shifts=(-top, -left), dims=(2, 3))
-    return out
+    return out.to(x.dtype)
 
 
 _P = ctypes.c_void_p
@@ -142,7 +172,7 @@ def window_attention_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("window_attention")
-    lib.swin_window_attention_fwd.argtypes = [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P]
+    lib.swin_window_attention_fwd.argtypes = [_P] * 15 + [_I] * 12 + [ctypes.c_float, _P]
     lib.swin_window_attention_fwd.restype = _I
     lib.swin_window_attention_fwd_smem.argtypes = [_I] * 3
     lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
@@ -159,27 +189,37 @@ def _dims(x, kw):
 
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
-    global LAUNCHES
+    """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast."""
+    global LAUNCHES, BF16_LAUNCHES
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
+    bf16 = x.dtype == torch.bfloat16
     lib = _library()
     out = torch.empty_like(x)
-    # q (scaled), k, v and AV of every token, written and read once by the kernels
-    scratch = [x.new_empty(s, b, h, w, heads * d) for _ in range(4)]
+    # q (scaled), k, v (fp32) and AV (x's dtype: rounded in bf16) of every token, written
+    # and read once by the kernels
+    scratch = [x.new_empty(s, b, h, w, heads * d, dtype=torch.float32) for _ in range(3)]
+    scratch.append(x.new_empty(s, b, h, w, heads * d))
     with torch.cuda.device(x.device):
         rc = lib.swin_window_attention_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
             *(a.data_ptr() for a in scratch), s, b, h, w, c, heads, d, wh, ww,
-            int(kw["shift"]), int(kw["cross"]), float(d**-0.5),
+            int(kw["shift"]), int(kw["cross"]), int(bf16), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     global BWD_LAUNCHES
     dims = _dims(x, kw)
+    if x.dtype != torch.float32:
+        raise NotImplementedError("the window attention backward is fp32 only: bf16 "
+                                  "training is not ported yet")
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
@@ -221,8 +261,9 @@ def window_attention(
     """Window attention: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`window_attention_plain`. On a CUDA tensor every argument must be
-    a contiguous float32 tensor on that device; anything else raises. When autograd
-    records the call, its backward is the backward kernel.
+    a contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
+    anything else raises. A bf16 x runs the bf16 form of the kernels. When autograd
+    records the call, its backward is the backward kernel (fp32 only).
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross)
@@ -242,9 +283,11 @@ def window_attention(
         "bias": (s, t, t),
     }
     for name, a in zip(("x", *expected), args):
-        if a.device != x.device or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}, "
-                             f"got {a.dtype} on {a.device}, contiguous={a.is_contiguous()}")
+        dtypes = ACT_DTYPES if name == "x" else (torch.float32,)
+        if a.device != x.device or a.dtype not in dtypes or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {' or '.join(map(str, dtypes))} "
+                             f"tensor on {x.device}, got {a.dtype} on {a.device}, "
+                             f"contiguous={a.is_contiguous()}")
         if name in expected and tuple(a.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):

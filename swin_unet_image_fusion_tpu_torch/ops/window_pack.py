@@ -13,7 +13,8 @@ Counterpart of the layout half of the JAX ``ops/pallas_pack.py``. The TPU packs 
   partition (``shift_pad_geometry``) is mathematically identical and is not carried over.
 - :func:`unpack_windows` is its inverse.
 - :func:`repartition_windows` (K2) moves packed tokens from one geometry to the other. It
-  is a pure permutation of tokens, so the kernel (``csrc/repartition.cu``) is bit-exact.
+  is a pure permutation of tokens, so the kernel (``csrc/repartition.cu``) is bit-exact
+  in any dtype; it moves fp32 or bf16 tokens.
   Its backward (K2 bwd) is the transpose of the permutation, i.e. its inverse: the same
   kernel launched from ``to_shift`` back to ``from_shift``, through
   ``_RepartitionFunction`` when autograd records the call on a card.
@@ -34,11 +35,13 @@ import torch
 
 from . import _build
 from .window import window_partition, window_unpartition
-from .window_attention import wrap_offsets
+from .window_attention import ACT_DTYPES, wrap_offsets
 
-# Calls that launched the kernel forward, and backward calls that launched it (one per
-# call on a card), since the last reset; the plain version never counts.
+# Calls that launched the kernel forward on fp32 and on bf16 tokens, and backward calls
+# that launched it (one per call on a card), since the last reset; the plain version
+# never counts.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
@@ -108,10 +111,19 @@ def _launch(xw: torch.Tensor, hw, window, from_shift: bool, to_shift: bool) -> t
     lib = _library()
     with torch.cuda.device(xw.device):
         rc = lib.swin_repartition_fwd(
-            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c, window[0], window[1],
-            int(from_shift), int(to_shift), torch.cuda.current_stream().cuda_stream)
+            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c * xw.element_size(),
+            window[0], window[1], int(from_shift), int(to_shift),
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, rc, "repartition")
     return out
+
+
+def _count_forward(xw: torch.Tensor) -> None:
+    global LAUNCHES, BF16_LAUNCHES
+    if xw.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
 
 
 def repartition_windows_bwd_plain(g: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int],
@@ -125,10 +137,9 @@ class _RepartitionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xw, hw, window, from_shift, to_shift):
-        global LAUNCHES
         ctx.geometry = (hw, window, from_shift, to_shift)
         out = _launch(xw, hw, window, from_shift, to_shift)
-        LAUNCHES += 1
+        _count_forward(xw)
         return out
 
     @staticmethod
@@ -145,20 +156,19 @@ def repartition_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int
     """Re-partition (S, B, nWin, T, C) tokens of an ``hw`` map from the ``from_shift`` to
     the ``to_shift`` geometry: the plain version on the CPU, the CUDA kernel on a card.
 
-    On a CUDA tensor ``xw`` must be contiguous float32; anything else raises. When
-    autograd records the call, its backward is the kernel's inverse permutation.
+    On a CUDA tensor ``xw`` must be contiguous float32 or bfloat16; anything else raises.
+    When autograd records the call, its backward is the kernel's inverse permutation.
     """
-    global LAUNCHES
     if xw.device.type == "cpu":
         return repartition_windows_plain(xw, hw, window, from_shift, to_shift)
     if xw.device.type != "cuda":
         raise ValueError(f"repartition_windows runs on cpu or cuda tensors, not {xw.device}")
     _check_windows(xw, hw, window)
-    if xw.dtype != torch.float32 or not xw.is_contiguous():
-        raise ValueError(f"xw must be a contiguous float32 tensor, got {xw.dtype}, "
+    if xw.dtype not in ACT_DTYPES or not xw.is_contiguous():
+        raise ValueError(f"xw must be a contiguous float32 or bfloat16 tensor, got {xw.dtype}, "
                          f"contiguous={xw.is_contiguous()}")
     if torch.is_grad_enabled() and xw.requires_grad:
         return _RepartitionFunction.apply(xw, tuple(hw), tuple(window), from_shift, to_shift)
     out = _launch(xw, hw, window, from_shift, to_shift)
-    LAUNCHES += 1
+    _count_forward(xw)
     return out

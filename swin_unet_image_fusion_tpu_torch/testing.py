@@ -1,10 +1,12 @@
-"""The gradient comparison that holds the backward kernels to their plain versions, shared
-by ``chip_smoke.py`` and the tests."""
+"""The comparisons shared by ``chip_smoke.py`` and the tests: the gradient check that holds
+the backward kernels to their plain versions, and the image-level criteria that hold a
+bf16 forward of the whole model to a reference forward."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 GRAD_RTOL = 1e-3
@@ -66,3 +68,62 @@ def assert_grads_close(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
                                    msg=lambda m: f"{what}, {name}: {m}")
         worst = max(worst, err)
     return GradCheck(worst, worst_own, smallest, floored, tuple(zeros), zero_noise)
+
+
+# A bf16 forward of the whole model is held to a reference by image metrics on the
+# clamped output, never by a largest difference: rounding flips amplify through the
+# stages, and the JAX package's own bf16 routes differ from each other by up to 0.8 at
+# isolated pixels. Against an fp32 forward, the JAX package's bar
+# (tests/test_bf16_fidelity.py); against another bf16 forward, the JAX package's own
+# route-to-route spread with room: its pallas_interpret and jnp bf16 forwards of the tiny
+# model in tests/test_torch_bf16_model.py differ by a mean of 5.9e-3 (PSNR 36.7 dB; run
+# that file as a script for the table), above the 5e-3 first proposed.
+# The maps must keep at least 10% of their pixels inside (0, 1): a map that the clamp
+# saturates everywhere compares equal to anything.
+BF16_VS_FP32 = dict(min_ssim=0.98, min_psnr=30.0)
+BF16_VS_BF16 = dict(max_mean_abs=1e-2, min_psnr=30.0)
+MIN_INTERIOR = 0.1
+
+
+class Fidelity(NamedTuple):
+    mean_abs: float
+    max_abs: float
+    psnr: float  # dB, peak 1
+    ssim: float  # mean SSIM index, 11x11 Gaussian window
+    interior: float  # the reference's share of pixels strictly inside (0, 1)
+
+
+def image_fidelity(out, ref) -> Fidelity:
+    """Metrics of the clamped fused maps ``out`` against ``ref`` (B, H, W, 1), numpy or
+    torch; computed in fp32 on the CPU."""
+    from .ops.ssim import psnr, ssim_index
+
+    def cpu(m):
+        m = m.detach().cpu() if isinstance(m, torch.Tensor) else torch.from_numpy(np.array(m))
+        return m.float().clamp(0.0, 1.0)
+
+    a, b = cpu(out), cpu(ref)
+    diff = (a - b).abs()
+    return Fidelity(float(diff.mean()), float(diff.max()), float(psnr(a, b)),
+                    float(ssim_index(a, b).mean()), float(((b > 0.0) & (b < 1.0)).float().mean()))
+
+
+def assert_bf16_fidelity(out, ref, ref_dtype: str, what: str = "") -> Fidelity:
+    """Hold a bf16 forward's output to a reference forward's: ``ref_dtype`` "float32"
+    (SSIM > 0.98 and PSNR > 30 dB) or "bfloat16" (mean |diff| <= 1e-2 and PSNR >= 30 dB),
+    on a reference with at least 10% of its pixels inside (0, 1)."""
+    f = image_fidelity(out, ref)
+    if f.interior < MIN_INTERIOR:
+        raise AssertionError(f"{what}: only {f.interior:.1%} of the reference's pixels lie "
+                             f"inside (0, 1); the comparison would show nothing")
+    if ref_dtype == "float32":
+        ok = f.ssim > BF16_VS_FP32["min_ssim"] and f.psnr > BF16_VS_FP32["min_psnr"]
+        bar = f"SSIM > {BF16_VS_FP32['min_ssim']} and PSNR > {BF16_VS_FP32['min_psnr']} dB"
+    elif ref_dtype == "bfloat16":
+        ok = f.mean_abs <= BF16_VS_BF16["max_mean_abs"] and f.psnr >= BF16_VS_BF16["min_psnr"]
+        bar = f"mean |diff| <= {BF16_VS_BF16['max_mean_abs']} and PSNR >= {BF16_VS_BF16['min_psnr']} dB"
+    else:
+        raise ValueError(f"ref_dtype must be 'float32' or 'bfloat16', got {ref_dtype!r}")
+    if not ok:
+        raise AssertionError(f"{what}: bf16 against the {ref_dtype} forward misses {bar}: {f}")
+    return f

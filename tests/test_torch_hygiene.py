@@ -2,6 +2,7 @@
 entry points refuse to run on the CPU when a CUDA device was asked for."""
 
 import ast
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -90,6 +91,102 @@ def test_repartition_never_runs_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="cpu or cuda"):
         twp.repartition_windows(torch.empty(2, 1, 4, 49, 8, device="meta"), (14, 14), (7, 7),
                                 False, True)
+
+
+def _meta_block_args(c=8, hidden=32, dtype=torch.float32):
+    x = torch.empty(2, 1, 7, 7, c, device="meta", dtype=dtype)
+    vec, mat = torch.empty(2, c, device="meta"), torch.empty(2, c, c, device="meta")
+    weights = (vec, vec, mat, vec, mat, vec, mat, vec, mat, vec, torch.empty(2, 49, 49, device="meta"),
+               vec, vec, torch.empty(2, c, hidden, device="meta"), torch.empty(2, hidden, device="meta"),
+               torch.empty(2, hidden, c, device="meta"), vec)
+    return x, weights
+
+
+def test_bf16_never_runs_a_plain_version_off_the_cpu():
+    x = torch.empty(2, 1, 7, 7, 8, device="meta", dtype=torch.bfloat16)
+    w, b = torch.empty(2, 8, 8, device="meta"), torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        twa.window_attention(x, w, b, w, b, w, b, w, b, torch.empty(2, 49, 49, device="meta"),
+                             window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False)
+    x, weights = _meta_block_args(dtype=torch.bfloat16)
+    for layout in ("image", "windows"):
+        xl = x if layout == "image" else x.reshape(2, 1, 1, 49, 8)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            tfb.fused_block(xl, *weights, window=(7, 7), num_heads=2, dims_per_head=4, shift=False,
+                            cross=False, layout=layout, hw=(7, 7))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        twp.repartition_windows(torch.empty(2, 1, 4, 49, 8, device="meta", dtype=torch.bfloat16),
+                                (14, 14), (7, 7), False, True)
+
+
+class _FakeLibrary:
+    """Records the arguments of every launcher call; every call succeeds."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The wrappers' launch code with a fake library and no CUDA runtime, so that what
+    they would hand the kernels can be read on the CPU."""
+    lib = _FakeLibrary()
+    for module in (twa, tfb, twp):
+        monkeypatch.setattr(module, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
+    return lib
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
+    """A bf16 tensor goes to the bf16 form of each kernel and an fp32 one to the fp32
+    form, each counted as such: nothing is upcast into the fp32 kernels."""
+    bf16 = int(dtype == torch.bfloat16)
+    x = torch.zeros(2, 1, 7, 7, 8, dtype=dtype)
+    w, b = torch.zeros(2, 8, 8), torch.zeros(2, 8)
+    before = (twa.LAUNCHES, twa.BF16_LAUNCHES)
+    out = twa._launch_fwd(x, (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49)),
+                          dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False))
+    assert out.dtype == dtype and fake_library.calls["swin_window_attention_fwd"][-3] == bf16
+    assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+
+    _, weights = _meta_block_args()
+    weights = [torch.zeros(a.shape) for a in weights]
+    for layout, xl in (("image", x), ("windows", x.reshape(2, 1, 1, 49, 8))):
+        before = (tfb.LAUNCHES, tfb.BF16_LAUNCHES)
+        out = tfb._launch_fwd(xl, weights, dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=True,
+                                                cross=True, layout=layout, hw=(7, 7)))
+        args = fake_library.calls["swin_fused_block_fwd"]
+        assert out.dtype == dtype and args[-3] == bf16 and args[-4] == int(layout == "windows")
+        assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+
+    before = (twp.LAUNCHES, twp.BF16_LAUNCHES)
+    xw = torch.zeros(2, 1, 4, 49, 8, dtype=dtype)
+    out = twp._launch(xw, (14, 14), (7, 7), False, True)
+    twp._count_forward(xw)
+    assert out.dtype == dtype
+    assert fake_library.calls["swin_repartition_fwd"][5] == 8 * x.element_size(), "bytes per token"
+    assert (twp.LAUNCHES, twp.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+
+
+def test_bf16_backward_raises_before_any_launch(fake_library):
+    x = torch.zeros(2, 1, 7, 7, 8, dtype=torch.bfloat16)
+    w, b = torch.zeros(2, 8, 8), torch.zeros(2, 8)
+    kw = dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        twa._launch_bwd(x, x, (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49)), kw)
+    _, weights = _meta_block_args()
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        tfb._launch_bwd(x, x, [torch.zeros(a.shape) for a in weights],
+                        dict(kw, layout="image", hw=None))
+    assert not fake_library.calls
 
 
 def test_kernel_build_hash_covers_the_shared_headers(monkeypatch, tmp_path):

@@ -302,3 +302,99 @@ def test_tiny_train_step_on_card_matches_cpu(impl):
         assert grad is not None and torch.isfinite(grad).all(), name
     assert_grads_close([grads[n].cpu() for n in ref_grads], list(ref_grads.values()), list(ref_grads))
     torch.testing.assert_close(bn_mean, ref_bn_mean, rtol=1e-5, atol=1e-6)
+
+
+# ---- the bf16 forms of the forward kernels -----------------------------------------------
+
+BF16_RTOL, BF16_ATOL = 2.0**-7, 2.0**-6  # atol times the reference's largest magnitude
+# of the elements that may differ from the plain version at all: the right rounding points
+# differ in up to 3.4% (K4 at C=384, where sums of 1,536 terms in another order flip more
+# roundings), other rounding points in 66-75% (tests/test_torch_bf16.py)
+MAX_MISMATCH_SHARE = 0.1
+
+
+def _assert_bf16_close(out, ref, what):
+    """bf16 kernel against its bf16 plain version: rtol 2^-7 (two bf16 ulps), atol 2^-6 x
+    the largest magnitude (room for a rare flip of an intermediate rounding), and at most
+    10% of the elements different at all."""
+    assert out.dtype == ref.dtype == torch.bfloat16, what
+    o, r = out.float(), ref.float()
+    torch.testing.assert_close(o, r, rtol=BF16_RTOL, atol=BF16_ATOL * r.abs().max().item(),
+                               msg=lambda m: f"{what}: {m}")
+    share = (o != r).float().mean().item()
+    assert share <= MAX_MISMATCH_SHARE, f"{what}: {share:.2%} of the elements differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_bf16_kernels_match_plain_on_card(shift, cross):
+    """K3, K4 (image) and K1 (windows) on bf16 activations against their bf16 plain
+    versions on the card, at the stage-0 width and at C=384; each counts as a bf16 launch
+    and never as an fp32 one."""
+    _need_card()
+    for c, hidden, hw in ((24, 96, (28, 35)), (384, 1536, (21, 21))):
+        for layout in ("image", "windows"):
+            x, weights, d = _block_args(c, hidden, hw, c + hidden, layout, shift)
+            x = x.to(torch.bfloat16)
+            kw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross,
+                      layout=layout, hw=hw)
+            before = (tfb.LAUNCHES, tfb.BF16_LAUNCHES)
+            out = tfb.fused_block(x, *weights, **kw)
+            torch.cuda.synchronize()
+            assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0], before[1] + 1)
+            _assert_bf16_close(out, tfb.fused_block_plain(x, *weights, **kw), f"{layout} C={c}")
+            if layout == "image":
+                attn = (x, *weights[2:11])
+                akw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross)
+                before = (twa.LAUNCHES, twa.BF16_LAUNCHES)
+                out = twa.window_attention(*attn, **akw)
+                torch.cuda.synchronize()
+                assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0], before[1] + 1)
+                _assert_bf16_close(out, twa.window_attention_plain(*attn, **akw), f"K3 C={c}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [24, 6])
+def test_repartition_bf16_is_bit_exact_on_card(c):
+    """The re-partition kernel on bf16 tokens, 16-byte pieces (C=24) and 4-byte ones (C=6)."""
+    _need_card()
+    for hw in ((7, 7), (14, 28), (35, 21)):
+        x = torch.randn(2, 3, *hw, c, device="cuda").to(torch.bfloat16)
+        for from_shift in (False, True):
+            xw = twp.pack_windows(x, (7, 7), from_shift).contiguous()
+            before = (twp.LAUNCHES, twp.BF16_LAUNCHES)
+            out = twp.repartition_windows(xw, hw, (7, 7), from_shift, not from_shift)
+            torch.cuda.synchronize()
+            assert (twp.LAUNCHES, twp.BF16_LAUNCHES) == (before[0], before[1] + 1)
+            assert out.dtype == torch.bfloat16
+            assert torch.equal(out, twp.repartition_windows_plain(xw, hw, (7, 7), from_shift, not from_shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda_pack", "cuda_block"])
+def test_tiny_bf16_model_on_card_matches_cpu(impl):
+    """The tiny model in bf16 through Fuser on the card, launching only the bf16 kernel
+    forms, against the CPU bf16 composition by the image-level criteria of
+    ``testing.py`` (mean |diff| <= 1e-2, PSNR >= 30 dB): bf16 rounding flips amplify
+    through the stages, so no largest difference is held."""
+    from swin_unet_image_fusion_tpu_torch.testing import assert_bf16_fidelity
+
+    _need_card()
+    cfg = dataclasses.replace(TINY, attention_impl=impl, compute_dtype="bfloat16")
+    variables = random_variables(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    ir = rng.random((2, 56, 56, 1), dtype=np.float32)
+    vis = rng.random((2, 56, 56, 1), dtype=np.float32)
+    fuser = Fuser(Config(model=cfg), variables)
+    routes = fuser.model.stage_impls(56, 56, "cuda")
+    counters = (tfb.LAUNCHES, tfb.BF16_LAUNCHES, twp.LAUNCHES, twp.BF16_LAUNCHES,
+                twa.LAUNCHES, twa.BF16_LAUNCHES)
+    out = fuser.fuse_y(ir, vis)
+    got = tuple(n - b for n, b in zip((tfb.LAUNCHES, tfb.BF16_LAUNCHES, twp.LAUNCHES,
+                                       twp.BF16_LAUNCHES, twa.LAUNCHES, twa.BF16_LAUNCHES), counters))
+    assert got == (0, 8 * (routes.count("cuda_pack") + routes.count("cuda_block")),
+                   0, 6 * routes.count("cuda_pack"), 0, 8 * routes.count("cuda"))
+    ref = Fuser(Config(model=dataclasses.replace(cfg, attention_impl="torch")), variables,
+                device="cpu").fuse_y(ir, vis)
+    assert_bf16_fidelity(out, ref, "bfloat16", f"{impl} bf16 on the card vs the CPU composition")
