@@ -22,7 +22,15 @@ steps: the bf16 form of each kernel against its bf16 plain version, ``fuse_y`` u
 configuration with exact launch counts and against the bf16 and the fp32 torch
 compositions on the card by image-level criteria, kernel times, latencies in turns with
 the fp32 configurations, a traced request each, and the throughput of 512x512 batches of
-32 in both dtypes. Every phase raises on failure. The last line of standard output is
+32 in both dtypes. Dropout training (every ratio 0.1, a test setting: the reference
+configuration trains without dropout): the hash-dropout forms of K3, K1 and K4, forward
+and backward, against their plain versions at rates 0.1 and 0.5 at the 224x224 batch-20
+shapes, with the keep fraction of each site and the times beside the forms without
+dropout, and the composition's mask kernels bit for bit; the first dropout train step
+under each configuration with exact launch counts and repeated bit for bit; timed in
+turns with the steps without dropout; and a
+full-width step on a 112x112 map on the card against the same configuration on the CPU.
+Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -46,6 +54,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores, NVIDIA's data sheet
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores, NVIDIA's data sheet
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# The hash dropout's integer work (132 SMs at 1.98 GHz, each of an SM's 4 schedulers issuing
+# one warp instruction a clock): the INT32 pipe takes 16 lanes per scheduler and clock,
+# half of the 32 fp32 lanes behind the 67 TFLOP/s above (an FMA is 2 FLOP); an integer and
+# an fp32 instruction run on separate pipes but share the schedulers' issue slots.
+PEAK_INT32_OPS = 16.7e12
+PEAK_ISSUE_LANES = 33.4e12  # warp-instruction lanes issued per second, of any type
+HASH_OPS = 11  # integer operations of one keep decision: fmix32 (8), the offset add, mask, compare
 KERNEL_ATOL = KERNEL_RTOL = 1e-4
 # bf16 kernel against its bf16 plain version: rtol 2^-7 (two bf16 ulps), atol 2^-6 x the
 # case's largest magnitude (a rare one-ulp flip of an intermediate), and at most 10% of
@@ -135,12 +150,20 @@ def block_inputs(h, w, c, heads, d, hidden, seed, device, batch=1):
             *dense(c, hidden), *dense(hidden, c))
 
 
-def _bound(flops, bytes_, peak_flops=PEAK_FP32_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES_PER_S
+def _bound(flops, bytes_, peak_flops=PEAK_FP32_FLOPS, int_ops=0):
+    """Least time (ms) and what bounds it: the operations against the bytes at the memory
+    rate. The operations take the FLOPs at their peak; with integer work (fp32 FLOPs only)
+    the larger of the INT32 pipe's time and the issue slots that the FMAs and the integer
+    instructions share."""
+    t_ops = flops / peak_flops
+    if int_ops:
+        t_ops = max(int_ops / PEAK_INT32_OPS, t_ops + int_ops / PEAK_ISSUE_LANES)
+    t_bytes = bytes_ / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.float32):
+def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.float32,
+                       int_ops=0):
     """Least time for one K3 launch: matmul FLOPs over the peak for their operands vs each
     input byte read once and the output written once over HBM bandwidth (both streams).
     In bf16 the products take bf16 operands, so the FLOPs are at the dense bf16
@@ -149,20 +172,23 @@ def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.f
     recomputed but for the projection (its output is not needed), plus the input- and
     weight-gradient products of every matmul: three times the forward's FLOPs less the
     projection's 2*T*C*inner per window. It reads x and g and writes g_x and the weight
-    gradients."""
+    gradients. ``int_ops``: the dropout form's hash work, added to the operations."""
     inner = heads * d
     windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner)
     maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + T * T)
     if backward:
-        return _bound(3 * flops - windows * 2 * T * c * inner, 4 * (3 * maps // 2 + 2 * weights))
+        return _bound(3 * flops - windows * 2 * T * c * inner, 4 * (3 * maps // 2 + 2 * weights),
+                      int_ops=int_ops)
+    if int_ops:
+        return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
     if dtype == BF16:
         return _bound(flops, 2 * maps + 4 * weights, PEAK_BF16_FLOPS)
     return _bound(flops, 4 * (maps + weights))
 
 
 def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False, dtype=torch.float32,
-                   layout="image"):
+                   layout="image", int_ops=0):
     """Least time for one K1/K4 launch: the block's matmul FLOPs (q/k/v, scores, AV,
     proj, fc1, fc2) over the peak for their operands vs x read once, the output written
     once and the weights read once over HBM bandwidth (both streams). In bf16, x and the
@@ -171,14 +197,17 @@ def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False, dtype=tor
     backward as K3's: the forward recomputed but for its last matmul, fc2, plus every
     matmul's input- and weight-gradient products, so three times the forward's FLOPs
     less fc2's 2*T*C*hidden per window; x and g read, g_x and the weight gradients
-    written."""
+    written. ``int_ops``: the dropout form's hash work, added to the operations."""
     inner = heads * d
     windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner + 4 * T * c * hidden)
     maps = 2 * 2 * batch * h * w * c
     weights = 2 * (4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden)
     if backward:
-        return _bound(3 * flops - windows * 2 * T * c * hidden, 4 * (3 * maps // 2 + 2 * weights))
+        return _bound(3 * flops - windows * 2 * T * c * hidden, 4 * (3 * maps // 2 + 2 * weights),
+                      int_ops=int_ops)
+    if int_ops:
+        return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
     if dtype == BF16:
         peak = PEAK_BF16_FLOPS if layout == "image" else PEAK_FP32_FLOPS
         return _bound(flops, 2 * maps + 4 * weights, peak)
@@ -374,18 +403,32 @@ def forward(fuser, ir, vis):
 
 
 def reset_counts():
-    """Every kernel wrapper's forward (fp32 and bf16) and backward launch count to 0."""
+    """Every kernel wrapper's forward (fp32, bf16, dropout) and backward (without and with
+    dropout) launch count to 0, and the composition's mask kernels' counts."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
     for m in (tfb, twa, twp):
         m.LAUNCHES = m.BF16_LAUNCHES = m.BWD_LAUNCHES = 0
+    for m in (tfb, twa):
+        m.DROP_LAUNCHES = m.DROP_BWD_LAUNCHES = 0
+    dm.TOKEN_LAUNCHES = dm.TOKEN_BWD_LAUNCHES = dm.ATTN_LAUNCHES = dm.ATTN_BWD_LAUNCHES = 0
+
+
+def read_mask_counts():
+    """Launches of the composition's dropout mask kernels since the reset, forward and on
+    a gradient."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+
+    return {"mask tokens": dm.TOKEN_LAUNCHES, "mask tokens bwd": dm.TOKEN_BWD_LAUNCHES,
+            "mask attention": dm.ATTN_LAUNCHES, "mask attention bwd": dm.ATTN_BWD_LAUNCHES}
 
 
 def read_counts(impl):
-    """Forward launches of the fp32 and the bf16 kernels and backward launches since the
-    reset, by kernel name under ``impl``."""
+    """Forward launches of the fp32, the bf16 and the dropout kernels and backward launches
+    without and with dropout since the reset, by kernel name under ``impl``."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
@@ -394,6 +437,8 @@ def read_counts(impl):
     for name, m in (("K3", twa), ("K2", twp), (FUSED_NAME[impl], tfb)):
         counts.update({name: m.LAUNCHES, f"{name} bf16": m.BF16_LAUNCHES,
                        f"{name} bwd": m.BWD_LAUNCHES})
+        if m is not twp:
+            counts.update({f"{name} drop": m.DROP_LAUNCHES, f"{name} drop bwd": m.DROP_BWD_LAUNCHES})
     return counts
 
 
@@ -644,6 +689,7 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
     ("csrc attention core backward", ("window_core_bwd_kernel",)),
     ("csrc LayerNorm fwd/bwd (backward)", ("ln_fwd_kernel", "ln_bwd_kernel")),
     ("csrc partial sums (backward)", ("reduce_chunks_kernel",)),
+    ("csrc dropout masks", ("dropout_rows_kernel", "dropout_attn_kernel")),
     ("optimizer and foreach ops", ("multi_tensor",)),
     ("host-device copies", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "implicit")),
@@ -822,13 +868,24 @@ def train_repartition_backward(cfg, device, card):
     return dict(totals, bound_by="bytes", worst=0.0)
 
 
+def state_bytes(state) -> int:
+    """Device bytes a train state holds: parameters, buffers, gradients and Adam's
+    moments."""
+    model = state.model
+    tensors = [*model.parameters(), *model.buffers(),
+               *(p.grad for p in model.parameters() if p.grad is not None),
+               *(t for per in state.optimizer.state.values() for t in per.values()
+                 if torch.is_tensor(t))]
+    return sum(t.numel() * t.element_size() for t in tensors if t.device.type == "cuda")
+
+
 def train_configs(flat, device, card):
     """The training main paths: the first step of the full model at 224² batch 20 under
     each kernel configuration with its launch counts (read right after that step),
     checked against the torch composition's first step on the card (loss terms to 1e-5
     relative, every parameter's gradient present, finite and within the gradient
     tolerance); then TRAIN_STEPS timed steps each, in turns, and one profiled step.
-    Returns the backward kernels' launches."""
+    Returns the backward kernels' launches, the states and steps, and the inputs."""
     from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
     from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
@@ -903,7 +960,470 @@ def train_configs(flat, device, card):
               f"{peaks[impl]:.0f} MiB | {card}", flush=True)
         trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
               lambda: steps[impl](states[impl], ir, vis), median, card)
+    return launches, states, steps, (ir, vis)
+
+
+def dropout_train(flat, device, card, states, steps, inputs):
+    """The dropout main paths after the steps without dropout: the first dropout step per
+    configuration (:func:`dropout_first_steps`), then TRAIN_STEPS timed steps of each
+    configuration with and without dropout, all in turns, and one profiled dropout step
+    each. A step's peak memory is printed as read and, beside it, less the other
+    configurations' train states resident in this run. Returns the dropout kernels'
+    launches."""
+    ir, vis = inputs
+    drop_states, drop_steps, launches = dropout_first_steps(flat, device, ir, vis, card)
+    states, steps = {**states, **drop_states}, {**steps, **drop_steps}
+    names = (*TRAIN_DROP_CONFIGS, *drop_steps)
+    walls = {impl: [] for impl in names}
+    peaks, own = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for _ in range(TRAIN_STEPS):
+        for impl in names:
+            others = torch.cuda.memory_allocated() - state_bytes(states[impl])
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            steps[impl](states[impl], ir, vis)
+            torch.cuda.synchronize()
+            walls[impl].append(1e3 * (time.perf_counter() - t))
+            peak = torch.cuda.max_memory_allocated()
+            peaks[impl] = max(peaks[impl], peak / 2**20)
+            own[impl] = max(own[impl], (peak - others) / 2**20)
+    median = {impl: float(np.median(w)) for impl, w in walls.items()}
+    for impl in names:
+        w = walls[impl]
+        base = impl.split()[0]
+        label = f"{base}, dropout {DROP_RATIOS}" if impl in drop_steps else impl
+        versus = (f" ({median[impl] / median[base] - 1:+.1%} against the step without dropout in "
+                  f"the same turns)" if impl in drop_steps else "")
+        print(f"[train] step 224x224 bs={TRAIN_BATCH} ({label}), {TRAIN_STEPS} steps in turns with "
+              f"and without dropout: median {median[impl]:.2f} ms/step{versus}, min {min(w):.2f}, "
+              f"max {max(w):.2f}, peak memory {peaks[impl]:.0f} MiB ({own[impl]:.0f} MiB less "
+              f"the other configurations' train states) | {card}", flush=True)
+    for impl in drop_steps:
+        label = f"{impl.split()[0]}, dropout {DROP_RATIOS}"
+        trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
+              lambda: steps[impl](states[impl], ir, vis), median[impl], card)
     return launches
+
+
+# ---- dropout training: the hash-dropout forms of K3, K1 and K4 --------------------------
+DROP_RATIOS = (0.1, 0.1, 0.1)  # attention, proj, MLP: a test setting (the reference's are 0)
+DROP_CHECK_RATES = (0.1, 0.5)  # at 0.5 a mismatched mask cannot hide inside the tolerance
+DROP_SEED = 4_242_421
+# attention_impl -> the dropout step's launches at 224²: the dropout forms replace the
+# forms without dropout one for one (K2 has no dropout)
+TRAIN_DROP_CONFIGS = {
+    "cuda_pack": {"K1 drop": 32, "K1 drop bwd": 32, "K2": 24, "K2 bwd": 24},
+    "cuda": {"K3 drop": 32, "K3 drop bwd": 32},
+    "cuda_block": {"K4 drop": 32, "K4 drop bwd": 32},
+}
+DROP_MAIN_PATH = {f"{name} drop{bwd}": impl for name, impl in
+                  (("K3", "cuda"), ("K1", "cuda_pack"), ("K4", "cuda_block")) for bwd in ("", " bwd")}
+# attention_impl -> the composition's mask launches in the dropout step (csrc/dropout_mask.cu),
+# forward and on the gradient: the 8 stage-4 blocks' attention weights and 3 token sites
+# (proj, MLP hidden, MLP out) each; under cuda also the 3 token sites of the 32 blocks of
+# stages 0-3, whose attention weights K3 masks
+TRAIN_DROP_MASKS = {
+    "cuda_pack": {"mask tokens": 24, "mask tokens bwd": 24, "mask attention": 8, "mask attention bwd": 8},
+    "cuda": {"mask tokens": 120, "mask tokens bwd": 120, "mask attention": 8, "mask attention bwd": 8},
+    "cuda_block": {"mask tokens": 24, "mask tokens bwd": 24, "mask attention": 8, "mask attention bwd": 8},
+}
+MASK_MAIN_PATH = "cuda"  # the configuration whose dropout step gives the masks' launches
+PARITY_HW, PARITY_BATCH = (112, 112), 2  # the full-width dropout step on the card vs the CPU
+
+
+def hash_ops(h, w, c, heads, hidden, batch, attention_only, backward):
+    """Integer operations of the hash masks of one dropout launch (both streams): HASH_OPS
+    per masked element. Forward: the attention weights (heads x T x T per window), proj,
+    the MLP hidden and out, once each. Backward: the attention weights twice (the
+    recompute, the core backward), proj twice (the recompute, g_y), the hidden twice (its
+    gradient, the hidden for w2's gradient) and out once (g; fc2 is not recomputed)."""
+    tokens = 2 * batch * h * w
+    attention = tokens * heads * T
+    if attention_only:
+        return HASH_OPS * attention * (2 if backward else 1)
+    proj = out = tokens * c
+    hidden_ = tokens * hidden
+    if backward:
+        return HASH_OPS * (2 * attention + 2 * proj + 2 * hidden_ + out)
+    return HASH_OPS * (attention + proj + hidden_ + out)
+
+
+def _keep_fractions(key, hw, shift, rate, seed, heads, hidden, c, batch, sites):
+    """Kept share of each site's mask for one launch (the masks the kernel and its plain
+    version draw)."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
+    out = {}
+    if "attention" in sites:
+        keep = dl.attention_keep(seed, rate, key, dl.windows_table(key), 2, batch, heads)
+        out["attention"] = (keep.sum().item(), keep.numel())
+    for site, name, cols in ((hd.SITE_PROJ, "proj", c), (hd.SITE_MLP_HIDDEN, "hidden", hidden),
+                             (hd.SITE_MLP_OUT, "out", c)):
+        if name in sites:
+            keep = dl.token_keep(seed, site, rate, key, 2, batch, cols)
+            out[name] = (keep.sum().item(), keep.numel())
+    return out
+
+
+def _print_keep(name, kept, card):
+    for rate, sites in kept.items():
+        shares = ", ".join(f"{site} {k / n:.6f} of {n}" for site, (k, n) in sites.items())
+        print(f"[check] {name} drop rate {rate}: keep fraction {shares} (expected {1 - rate:.6f}) "
+              f"| {card}", flush=True)
+
+
+def _in_turns(nodrop, drop, iters, warmup):
+    """(without dropout, with dropout) mean ms of two launches timed in turns (without,
+    with, with, without)."""
+    a1 = time_ms(nodrop, iters, warmup)
+    b1, b2 = time_ms(drop, iters, warmup), time_ms(drop, iters, warmup)
+    a2 = time_ms(nodrop, iters, warmup)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def check_dropout_kernels(cfg, device, card):
+    """The dropout forms of K1 (windows layout, packed stages) and K4 (image layout) with
+    every site at each rate of DROP_CHECK_RATES, and of K3 (the attention site), forward
+    and backward, against their plain versions with the same seed at every stage 0-3 x
+    role x shift x cross shape of a 224² batch-20 step (fp32 atol/rtol 1e-4; gradients by
+    ``testing.assert_grads_close``), with the keep fraction of each site; then each form
+    timed at the step's ratios in turns with the form without dropout. Returns the worst
+    errors and the per-step times by kernel name."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    worst, results = {}, {}
+    for name, layout in (("K1", "windows"), ("K4", "image")):
+        totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0) for part in ("", " bwd")}
+        by = {part: {} for part in totals}
+        kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
+        # the blocks of stages 0-3, as train_block_backward (stage 4's 7x7 map is gated to
+        # the composition at 224²)
+        for case, x, weights in block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH):
+            cases += 1
+            xl, kw = fused_args(case, x, layout)
+            k, h, w, c, heads, d, role, hidden, shift, cross = case
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 7)).to(device)
+            seed = DROP_SEED + 100 * k + 10 * shift + cross
+            for rate in DROP_CHECK_RATES:
+                dkw = dict(kw, drop_rates=(rate,) * 3, drop_seed=seed)
+                what = (f"[{name.lower()} drop] stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} "
+                        f"hidden={hidden} shift={shift} cross={cross} rate {rate}")
+                out = tfb.fused_block(xl, *weights, **dkw)
+                torch.cuda.synchronize()
+                err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
+                got = tfb._launch_bwd(g, xl, weights, dkw)
+                torch.cuda.synchronize()
+                check = assert_grads_close(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw),
+                                           ("x", *tfb.WEIGHT_NAMES), what + " bwd")
+                print(f"{what} bwd: max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
+                      f"gradient's own largest", flush=True)
+                errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
+                key = tfb.block_keying(layout, (h, w), WINDOW, shift, heads, d, device)
+                for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, hidden, c,
+                                                TRAIN_BATCH, ("attention", "proj", "hidden", "out")).items():
+                    sk, sn = kept.setdefault(rate, {}).get(site, (0, 0))
+                    kept[rate][site] = (sk + kn[0], sn + kn[1])
+                del out, got
+            dkw = dict(kw, drop_rates=DROP_RATIOS, drop_seed=seed)
+            for part, launch, plain, iters in (
+                    ("", lambda a: tfb.fused_block(xl, *weights, **a),
+                     lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5),
+                    (" bwd", lambda a: tfb._launch_bwd(g, xl, weights, a),
+                     lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
+                nodrop, ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1)
+                plain_ms = time_ms(plain, iters=2, warmup=1)
+                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False, part == " bwd")
+                bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH,
+                                                 backward=part == " bwd", int_ops=ops)
+                print(f"[time] {name} drop{part} stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} "
+                      f"hidden={hidden} shift={shift} cross={cross}: {ms:.4f} ms, without dropout "
+                      f"{nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, "
+                      f"bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("nodrop_ms", nodrop)):
+                    totals[part][key_] += v
+                by[part][bound_by] = by[part].get(bound_by, 0.0) + bound
+            torch.cuda.empty_cache()
+        _print_keep(name, kept, card)
+        for part, t in totals.items():
+            print(f"[check] {name} drop{part}: worst max_abs_err {errs[part]:.3e} over "
+                  f"{cases} blocks x rates {DROP_CHECK_RATES}", flush=True)
+            print(f"[time] {name} drop{part} per 224x224 batch-20 step ({cases} launches): {t['ms']:.3f} ms, "
+                  f"without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), "
+                  f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms | {card}", flush=True)
+            results[f"{name} drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get),
+                                                 library_ms=None)
+            worst[f"{name} drop{part}"] = errs[part]
+
+    totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0) for part in ("", " bwd")}
+    by = {part: {} for part in totals}
+    kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
+    names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+    for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
+        x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(k + 9)).to(device)
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                seed = DROP_SEED + 100 * k + 10 * shift + cross + 1
+                cases += 1
+                for rate in DROP_CHECK_RATES:
+                    dkw = dict(kw, attn_drop_rate=rate, drop_seed=seed)
+                    what = (f"[k3 drop] stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
+                            f"cross={cross} rate {rate}")
+                    out = twa.window_attention(x, *weights, **dkw)
+                    torch.cuda.synchronize()
+                    err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
+                    got = twa._launch_bwd(g, x, weights, dkw)
+                    torch.cuda.synchronize()
+                    check = assert_grads_close(got, twa.window_attention_bwd_plain(g, x, *weights, **dkw),
+                                               names, what + " bwd")
+                    print(f"{what} bwd: max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
+                          f"gradient's own largest", flush=True)
+                    errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
+                    key = twa.attention_keying((h, w), WINDOW, shift, heads, d, device)
+                    for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, 0, c,
+                                                    TRAIN_BATCH, ("attention",)).items():
+                        sk, sn = kept.setdefault(rate, {}).get(site, (0, 0))
+                        kept[rate][site] = (sk + kn[0], sn + kn[1])
+                    del out, got
+                dkw = dict(kw, attn_drop_rate=DROP_RATIOS[0], drop_seed=seed)
+                for part, launch, plain, iters in (
+                        ("", lambda a: twa.window_attention(x, *weights, **a),
+                         lambda: twa.window_attention_plain(x, *weights, **dkw), 5),
+                        (" bwd", lambda a: twa._launch_bwd(g, x, weights, a),
+                         lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
+                    nodrop, ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1)
+                    plain_ms = time_ms(plain, iters=2, warmup=1)
+                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, part == " bwd")
+                    bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH,
+                                                         backward=part == " bwd", int_ops=ops)
+                    print(f"[time] K3 drop{part} stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
+                          f"cross={cross}: {ms:.4f} ms, without dropout {nodrop:.4f} ms (in turns, "
+                          f"{ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                          f"({bound_by}) | {card}", flush=True)
+                    for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                                    ("nodrop_ms", nodrop)):
+                        totals[part][key_] += 2 * v  # encoder and decoder
+                    by[part][bound_by] = by[part].get(bound_by, 0.0) + 2 * bound
+        torch.cuda.empty_cache()
+    _print_keep("K3", kept, card)
+    for part, t in totals.items():
+        print(f"[check] K3 drop{part}: worst max_abs_err {errs[part]:.3e} over {cases} shapes "
+              f"x rates {DROP_CHECK_RATES}", flush=True)
+        print(f"[time] K3 drop{part} per 224x224 batch-20 step under cuda ({2 * cases} launches): "
+              f"{t['ms']:.3f} ms, without dropout {t['nodrop_ms']:.3f} ms "
+              f"({t['ms'] / t['nodrop_ms'] - 1:+.1%}), plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.4f} ms | {card}", flush=True)
+        results[f"K3 drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get), library_ms=None)
+        worst[f"K3 drop{part}"] = errs[part]
+    return worst, results
+
+
+def mask_bound_ms(elements, table_tokens):
+    """Least time for one launch of a composition mask: each element read and written once
+    and the keying table read once, against the hash's integer work and the scale's
+    multiply."""
+    return _bound(elements, 8 * elements + 8 * table_tokens, int_ops=HASH_OPS * elements)
+
+
+def check_mask_kernels(cfg, device, card):
+    """The composition's dropout masks (csrc/dropout_mask.cu) against their plain versions
+    at the shapes of the 224² batch-20 dropout step under cuda: every token site (proj and
+    MLP out of C columns, the encoder's and the decoder's MLP hidden) of stages 0-4 and
+    the attention weights of the stage-4 blocks, normal and shifted keyings, rates of
+    DROP_CHECK_RATES; forward and on a gradient, bit for bit (both compute ``keep ? x *
+    scale : 0``), with the keep fraction of each site. Then each timed at the step's
+    ratios; per step a shape counts as often as the step launches it, twice (forward and
+    gradient). Returns the worst errors and the per-step times by kernel name."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
+    def check(what, launch, plain, x, g, rate):
+        xg = x.detach().requires_grad_()
+        out = launch(xg)
+        (got,) = torch.autograd.grad(out, xg, g)
+        torch.cuda.synchronize()
+        xr = x.detach().requires_grad_()
+        ref = plain(xr)
+        (ref_g,) = torch.autograd.grad(ref, xr, g)
+        same = torch.equal(out, ref) and torch.equal(got, ref_g)
+        kept = (out != 0).sum().item()
+        print(f"{what} rate {rate}: forward and gradient bit-exact {same}, keep fraction "
+              f"{kept / out.numel():.6f} of {out.numel()}", flush=True)
+        if not same:
+            raise AssertionError(f"{what} rate {rate}: the mask kernel differs from its plain "
+                                 f"version (max_abs_err {(out - ref).abs().max().item():.3e})")
+        return kept, out.numel()
+
+    geos = stage_geometries(cfg, TRAIN_HW)
+    worst, results = {}, {}
+    for name, cases in (("mask tokens", [
+            (k, h, w, c, heads, d, shift, cols, per_step)
+            for k, h, w, c, heads, d in geos for shift in (False, True)
+            for cols, per_step in ((c, 8), *((hidden, 2) for _, hidden in mlp_hiddens(cfg, k)))]),
+            ("mask attention", [(*geos[-1], shift, None, 4) for shift in (False, True)])):
+        totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        by, kept = {}, {}
+        for k, h, w, c, heads, d, shift, cols, per_step in cases:
+            key = dl.keying("k4", (h, w), WINDOW, shift, heads, d, device)
+            gen = torch.Generator().manual_seed(SEED + 31 * k + cols if cols else SEED + k)
+            if cols:
+                shape = (2, TRAIN_BATCH, h, w, cols)
+                site = hd.SITE_MLP_HIDDEN if cols != c else hd.SITE_PROJ
+                fns = lambda r: (functools.partial(dm.token_dropout, seed=DROP_SEED + k, site=site,
+                                                   rate=r, key=key),
+                                 functools.partial(dm.token_dropout_plain, seed=DROP_SEED + k,
+                                                   site=site, rate=r, key=key))
+                what = f"[mask tokens] stage {k} {h}x{w}x{TRAIN_BATCH} cols={cols} shift={shift}"
+            else:
+                n_win = (h // WINDOW[0]) * (w // WINDOW[1])
+                shape = (2, TRAIN_BATCH * n_win, heads, T, T)
+                fns = lambda r: (functools.partial(dm.attention_dropout, seed=DROP_SEED + k, rate=r,
+                                                   key=key),
+                                 functools.partial(dm.attention_dropout_plain, seed=DROP_SEED + k,
+                                                   rate=r, key=key))
+                what = f"[mask attention] stage {k} {h}x{w}x{TRAIN_BATCH} heads={heads} shift={shift}"
+            x = torch.randn(shape, generator=gen).to(device)
+            g = torch.randn(shape, generator=gen).to(device)
+            for rate in DROP_CHECK_RATES:
+                kn = check(what, *fns(rate), x, g, rate)
+                sk, sn = kept.get(rate, (0, 0))
+                kept[rate] = (sk + kn[0], sn + kn[1])
+            launch, plain = fns(DROP_RATIOS[0])
+            ms = time_ms(lambda: launch(x), iters=20)
+            plain_ms = time_ms(lambda: plain(x), iters=5)
+            bound, bound_by = mask_bound_ms(x.numel(), h * w)
+            print(f"[time] {name} stage {k} {h}x{w}x{TRAIN_BATCH} {tuple(shape[2:])} shift={shift}: "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+                  f"{2 * per_step} launches per step | {card}", flush=True)
+            for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+                totals[key_] += 2 * per_step * v
+            by[bound_by] = by.get(bound_by, 0.0) + 2 * per_step * bound
+            del x, g
+        for rate, (k_, n_) in kept.items():
+            print(f"[check] {name} rate {rate}: keep fraction {k_ / n_:.6f} of {n_} (expected "
+                  f"{1 - rate:.6f}) | {card}", flush=True)
+        n = 2 * sum(case[-1] for case in cases)
+        print(f"[check] {name}: bit-exact against its plain version, forward and gradient, in "
+              f"{len(cases)} shapes x rates {DROP_CHECK_RATES}", flush=True)
+        print(f"[time] {name} per 224x224 batch-20 dropout step under {MASK_MAIN_PATH} ({n} "
+              f"launches): {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
+              f"{totals['bound_ms']:.4f} ms | {card}", flush=True)
+        results[name] = dict(totals, bound_by=max(by, key=by.get), library_ms=None)
+        worst[name] = 0.0
+        torch.cuda.empty_cache()
+    return worst, results
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def dropout_first_steps(flat, device, ir, vis, card):
+    """The dropout main paths: the first step of the full model at 224² batch 20 under
+    each configuration with every ratio DROP_RATIOS, its exact launch counts (read right
+    after it), every gradient present and finite, and the same step from a second state
+    with the same seeds bit-identical (loss terms and gradients; both steps under
+    ``torch.use_deterministic_algorithms(True)``, so that the gradient of the gathered
+    relative-position bias and the head's convolutions sum in a fixed order as the kernels
+    do; the timed steps run in PyTorch's default mode). Returns the states, steps and the
+    dropout and mask kernels' launches."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    states, steps, launches = {}, {}, {}
+    ratios = dict(zip(("attention_drop_ratio", "linear_after_att_drop_ratio", "mlp_drop_ratio"),
+                      DROP_RATIOS))
+    for impl, per_step in TRAIN_DROP_CONFIGS.items():
+        cfg = Config(model=ModelConfig(attention_impl=impl, **ratios))
+        label = f"{impl} drop"
+        steps[label] = make_train_step(cfg)
+        runs = []
+        for repeat in range(2):
+            state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.use_deterministic_algorithms(True)  # an op without a deterministic form raises
+            try:
+                terms = steps[label](state, ir, vis)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            if repeat == 0:
+                got = {**read_counts(impl), **read_mask_counts()}
+                expected = {name: 0 for name in got}
+                expected.update(per_step)
+                expected.update(TRAIN_DROP_MASKS[impl])
+                print(f"[train] dropout {impl} first step: launches {got}", flush=True)
+                if got != expected:
+                    raise AssertionError(f"{impl} dropout train step: launches {got}, expected {expected}")
+                launches.update({n: c for n, c in got.items() if DROP_MAIN_PATH.get(n) == impl})
+                if impl == MASK_MAIN_PATH:  # one kernel each, forward and on the gradient
+                    for name in ("mask tokens", "mask attention"):
+                        launches[name] = got[name] + got[f"{name} bwd"]
+                states[label] = state
+            grads = _grads(state.model)
+            missing = [n for n, p in state.model.named_parameters()
+                       if n not in grads or not torch.isfinite(grads[n]).all()]
+            if missing:
+                raise AssertionError(f"{impl} dropout: gradients missing or not finite: {missing}")
+            runs.append(({k: v.item() for k, v in terms.items()}, grads))
+        (terms_a, grads_a), (terms_b, grads_b) = runs
+        same = terms_a == terms_b and all(torch.equal(grads_a[n], grads_b[n]) for n in grads_a)
+        differ = [n for n in grads_a if not torch.equal(grads_a[n], grads_b[n])]
+        print(f"[train] dropout {impl} first step: " + ", ".join(f"{k} {v:.7g}" for k, v in terms_a.items())
+              + f"; all {len(grads_a)} parameter gradients present and finite; the same step "
+              f"repeated from a second state: bit-identical {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{impl} dropout step repeated differs: terms {terms_a} vs "
+                                 f"{terms_b}, gradients {differ}")
+        del runs, grads_a, grads_b
+        torch.cuda.empty_cache()
+    return states, steps, launches
+
+
+def dropout_parity(flat, card):
+    """One dropout train step of the full-width model at 112² batch 2 under each
+    configuration on the card against the same configuration on the CPU (the plain
+    versions) with the same block seeds: the hash masks make the two the same function.
+    Loss terms to 1e-5 relative, every gradient by ``testing.assert_grads_close``."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED + 5)
+    ir, vis = (torch.from_numpy(rng.random((PARITY_BATCH, *PARITY_HW, 1), dtype=np.float32))
+               for _ in range(2))
+    seeds = [(2_654_435_761 * (i + 1)) % (1 << 24) for i in range(40)]
+    ratios = dict(zip(("attention_drop_ratio", "linear_after_att_drop_ratio", "mlp_drop_ratio"),
+                      DROP_RATIOS))
+    for impl in TRAIN_DROP_CONFIGS:
+        cfg = Config(model=ModelConfig(attention_impl=impl, **ratios))
+        out = {}
+        for device in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+            terms = make_train_step(cfg)(state, ir.to(device), vis.to(device), seeds=seeds)
+            out[device] = ({k: v.item() for k, v in terms.items()},
+                           {n: g.cpu() for n, g in _grads(state.model).items()})
+            print(f"[parity] dropout {impl} step at {PARITY_HW[0]}x{PARITY_HW[1]} bs={PARITY_BATCH} "
+                  f"on {device}: {time.perf_counter() - t:.1f} s", flush=True)
+            del state
+        (terms, grads), (ref_terms, ref_grads) = out[DEVICE], out["cpu"]
+        rel = max(abs(terms[k] - ref_terms[k]) / max(abs(ref_terms[k]), 1e-30) for k in terms)
+        if rel > 1e-5 or set(grads) != set(ref_grads):
+            raise AssertionError(f"dropout {impl}: card {terms} vs CPU {ref_terms}")
+        check = assert_grads_close([grads[n] for n in ref_grads], list(ref_grads.values()),
+                                   list(ref_grads), f"dropout {impl} card vs CPU")
+        print(f"[parity] dropout {impl} train step, card vs CPU with the same seeds: loss terms "
+              f"max relative difference {rel:.3e}, gradients max_abs_err {check.worst:.3e} "
+              f"({check.worst_own:.3e} of a gradient's own largest, {len(ref_grads)} gradients) "
+              f"| {card}", flush=True)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -968,9 +1488,19 @@ def main() -> int:
     bwd = {**train_block_backward(cfg, device, card), "K3 bwd": train_attention_backward(cfg, device, card),
            "K2 bwd": train_repartition_backward(cfg, device, card)}
     torch.cuda.empty_cache()
-    launches.update(train_configs(flat, device, card))
-    print(f"[train] backward checks, train steps and traces took {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
+    torch.cuda.empty_cache()
+    mask_worst, mask_times = check_mask_kernels(cfg, device, card)
+    drop_worst.update(mask_worst)
+    drop_times.update(mask_times)
+    train_launches, states, steps, inputs = train_configs(flat, device, card)
+    launches.update(train_launches)
+    launches.update(dropout_train(flat, device, card, states, steps, inputs))
+    del states, steps, inputs
+    torch.cuda.empty_cache()
+    dropout_parity(flat, card)
+    print(f"[train] backward and dropout checks, train steps and traces took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -998,9 +1528,29 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
         ("K4 bwd", "fused_block_bwd, image layout (K4 bwd)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
+        ("K3 drop", "window_attention_fwd with hash dropout (K3 drop)", f"{csrc}/window_attention.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
+        ("K3 drop bwd", "window_attention_bwd with hash dropout (K3 drop bwd)",
+         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
+        ("K1 drop", "fused_block_fwd with hash dropout, windows layout (K1 drop)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+        ("K1 drop bwd", "fused_block_bwd with hash dropout, windows layout (K1 drop bwd)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
+        ("K4 drop", "fused_block_fwd with hash dropout, image layout (K4 drop)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+        ("K4 drop bwd", "fused_block_bwd with hash dropout, image layout (K4 drop bwd)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
+        # the composition's masks, where the JAX package applies flax's nn.Dropout outside
+        # Pallas; launches forward and on the gradient
+        ("mask tokens", "dropout_tokens, the composition's proj/MLP masks", f"{csrc}/dropout_mask.cu",
+         "swin_unet_image_fusion_tpu/models/layers.py:365"),
+        ("mask attention", "dropout_attention, the composition's attention-weight masks",
+         f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:248"),
     )
     times.update(bwd)
+    times.update(drop_times)
     worst.update({key: bwd[key]["worst"] for key in bwd})
+    worst.update(drop_worst)
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[key], "max_abs_err": worst[key],

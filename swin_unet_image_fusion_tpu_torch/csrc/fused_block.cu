@@ -74,6 +74,22 @@
 // matmul work (recompute, input gradients, weight gradients). The scratch of a stage-0
 // block at 224x224 batch 20 is about 1.1 GB (activations and gradients of 250,880 tokens
 // per stream), allocated by the wrapper for the call.
+//
+// Dropout (training; the seed_ref paths of K1, pallas_pack.py:581-686 and 808-929, and of
+// K4, pallas_block.py:87-187 and 257-411): the four sites of the reference, with the hash
+// masks of hash_dropout.cuh keyed on each TPU kernel's own geometry (ops/dropout_layout.py:
+// "k1" window pairs for the windows layout, "k4" padded windows for the image layout):
+//   forward     p masked before AV (the core); y = x + drop(proj + bp) (proj epilogue);
+//               h = drop(ELU(fc1)) (fc1 epilogue); out = y + drop(fc2 + b2) (fc2 epilogue);
+//   backward    the recompute masks p and proj as the forward and keeps h unmasked for
+//               ELU'; g_m = drop(g) (dropout_rows_kernel) feeds fc2's input and weight
+//               gradients; g_pre1 = drop(g_m w2^T) * ELU'(h) (gpre epilogue); h is then
+//               masked in place for w2's gradient; g_proj = drop(g_y) feeds the attention
+//               backward (proj's gradients and g_o), whose core masks g_P and P as the
+//               JAX body does; the residual paths (g, g_y) stay unmasked.
+// A site of rate 0 runs the launch without the mask, so every rate 0 is the code above.
+// The masks add ~11 integer operations per masked element, the backward two elementwise
+// launches and 2 x (S, M, C) fp32 scratch.
 
 #include <type_traits>
 
@@ -94,7 +110,7 @@ int fused_block(const void* xv, const float* ln1g, const float* ln1b, const floa
                 const float* w2, const float* b2, void* outv, float* q, float* k, float* v,
                 void* ov, void* hidv, float* y, int S, int B, int H, int W, int C, int heads,
                 int d, int hidden, int wh, int ww, int shift, int cross, float scale,
-                cudaStream_t st) {
+                const DropArgs* drop, cudaStream_t st) {
   using TM = typename std::conditional<kBf16Ops, bf16, float>::type;
   const TX* x = static_cast<const TX*>(xv);
   TX* out = static_cast<TX*>(outv);
@@ -112,7 +128,7 @@ int fused_block(const void* xv, const float* ln1g, const float* ln1b, const floa
       M, inner, C, 3 * S, st);
 
   const cudaError_t err = launch_core<kWindows, kBf16Ops>(q, k, v, bias, o, S, B, H, W, heads,
-                                                          d, wh, ww, shift != 0, st);
+                                                          d, wh, ww, shift != 0, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmBatchT<TM, TX, float> proj = {};
@@ -141,9 +157,13 @@ int fused_block(const void* xv, const float* ln1g, const float* ln1b, const floa
     fc2.c[s] = out + s * x_stream;
     fc2.alpha[s] = 1.0f;
   }
-  launch_gemm<false, false, true, true, false, false, kBf16Ops>(proj, M, C, inner, S, st);
-  launch_gemm<true, true, false, true, false, false, kBf16Ops>(fc1, M, hidden, C, S, st);
-  launch_gemm<false, false, true, true, false, false, kBf16Ops>(fc2, M, C, hidden, S, st);
+  const int hw = H * W;
+  launch_gemm_site<false, false, true, true, false, false, kBf16Ops>(proj, M, C, inner, S, st,
+                                                                     drop, kSiteProj, hw, B);
+  launch_gemm_site<true, true, false, true, false, false, kBf16Ops>(fc1, M, hidden, C, S, st,
+                                                                    drop, kSiteHidden, hw, B);
+  launch_gemm_site<false, false, true, true, false, false, kBf16Ops>(fc2, M, C, hidden, S, st,
+                                                                     drop, kSiteOut, hw, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -154,13 +174,14 @@ enum In { kX, kLn1g, kLn1b, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kLn2g
 
 struct BlockBwdScratch {
   float *lnx, *stats1, *q, *k, *v, *o, *y, *lny, *stats2, *h, *gpre, *glny, *gy, *gln;
+  float *gm, *gproj;  // the masked gradients of the MLP output and of proj (dropout only)
   float *ln1_part, *ln2_part, *w1_part, *w2_part;
   WgradPlan w1_plan, w2_plan;
   AttnBwdScratch attn;
 };
 
 BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, int heads,
-                                int d, int hidden, int wh, int ww) {
+                                int d, int hidden, int wh, int ww, const DropArgs* drop) {
   BlockBwdScratch sc;
   const int inner = heads * d;
   const size_t M = static_cast<size_t>(B) * H * W;
@@ -178,6 +199,8 @@ BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, in
   sc.glny = ar.take(S * M * C);
   sc.gy = ar.take(S * M * C);
   sc.gln = ar.take(S * M * C);
+  sc.gm = drop_on(drop, kSiteOut) ? ar.take(S * M * C) : nullptr;
+  sc.gproj = drop_on(drop, kSiteProj) ? ar.take(S * M * C) : nullptr;
   const size_t ln_blocks = ln_bwd_blocks(static_cast<int>(M));
   sc.ln1_part = ar.take(S * ln_blocks * 2 * C);
   sc.ln2_part = ar.take(S * ln_blocks * 2 * C);
@@ -192,16 +215,17 @@ BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, in
 template <bool kWindows>
 int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H,
                     int W, int C, int heads, int d, int hidden, int wh, int ww, int shift,
-                    int cross, float scale, cudaStream_t st) {
+                    int cross, float scale, const DropArgs* drop, cudaStream_t st) {
   const int inner = heads * d;
   const int M = B * H * W;
   const size_t x_stream = static_cast<size_t>(M) * C;
   const size_t h_stream = static_cast<size_t>(M) * inner;
   const size_t m_stream = static_cast<size_t>(M) * hidden;
   Arena ar{ws};
-  const BlockBwdScratch sc = carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww);
+  const BlockBwdScratch sc = carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop);
   const float* x = in[kX];
   const float* g = in[kG];
+  const int hw = H * W;
 
   // ---- recompute the forward ----
   LnBatch ln1 = {};
@@ -219,7 +243,7 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
                 S, M, C, inner, cross != 0, scale),
       M, inner, C, 3 * S, st);
   cudaError_t err = launch_core<kWindows>(sc.q, sc.k, sc.v, in[kBias], sc.o, S, B, H, W, heads,
-                                          d, wh, ww, shift != 0, st);
+                                          d, wh, ww, shift != 0, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmBatch proj = {}, fc1 = {};
@@ -244,15 +268,20 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
     fc1.c[s] = sc.h + s * m_stream;
     fc1.alpha[s] = 1.0f;
   }
-  launch_gemm<false, false, true>(proj, M, C, inner, S, st);
+  launch_gemm_site<false, false, true>(proj, M, C, inner, S, st, drop, kSiteProj, hw, B);
   launch_ln_fwd(ln2, M, C, S, st);
-  launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);
+  launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);  // h unmasked: ELU' needs it
 
-  // ---- MLP and LN2 backward ----
+  // ---- MLP and LN2 backward; under dropout the MLP sees the masked g ----
+  const float* gmlp = g;
+  if (drop_on(drop, kSiteOut)) {
+    launch_dropout_rows(g, sc.gm, drop_site(drop, kSiteOut, hw, B), M, C, S, st);
+    gmlp = sc.gm;
+  }
   GemmBatch gpre = {}, glny = {};
   LnBwdBatch ln2b = {};
   for (int s = 0; s < S; ++s) {
-    gpre.a[s] = g + s * x_stream;
+    gpre.a[s] = gmlp + s * x_stream;
     gpre.b[s] = in[kW2] + static_cast<size_t>(s) * hidden * C;  // (hidden, C) = (N, K)
     gpre.res[s] = sc.h + s * m_stream;
     gpre.c[s] = sc.gpre + s * m_stream;
@@ -271,17 +300,26 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
     ln2b.gx[s] = sc.gy + s * x_stream;
     ln2b.part[s] = sc.ln2_part + s * static_cast<size_t>(ln_bwd_blocks(M)) * 2 * C;
   }
-  launch_gemm<false, false, false, false, true, true>(gpre, M, hidden, C, S, st);
+  launch_gemm_site<false, false, false, false, true, true>(gpre, M, hidden, C, S, st, drop,
+                                                           kSiteHidden, hw, B);
+  if (drop_on(drop, kSiteHidden))  // the dropped hidden that fc2 read, for w2's gradient
+    launch_dropout_rows(sc.h, sc.h, drop_site(drop, kSiteHidden, hw, B), M, hidden, S, st);
   launch_gemm<false, false, false, false, true>(glny, M, C, hidden, S, st);
   launch_ln_bwd(ln2b, M, C, S, st);
 
-  // ---- attention backward, into g_ln ----
+  // ---- attention backward, into g_ln; proj's gradient is g_y through proj's mask ----
+  const float* gattn = sc.gy;
+  if (drop_on(drop, kSiteProj)) {
+    launch_dropout_rows(sc.gy, sc.gproj, drop_site(drop, kSiteProj, hw, B), M, C, S, st);
+    gattn = sc.gproj;
+  }
   ReduceJobs jobs = {};
   const AttnGrads ag = {out[kWq], out[kBq], out[kWk], out[kBk], out[kWv],
                         out[kBv], out[kWp], out[kBp], out[kBias]};
-  err = attention_bwd<kWindows>(sc.attn, sc.lnx, sc.q, sc.k, sc.v, sc.o, sc.gy, in[kWq],
+  err = attention_bwd<kWindows>(sc.attn, sc.lnx, sc.q, sc.k, sc.v, sc.o, gattn, in[kWq],
                                 in[kWk], in[kWv], in[kWp], in[kBias], sc.gln, ag, jobs, S, B,
-                                H, W, C, heads, d, wh, ww, shift != 0, cross != 0, scale, st);
+                                H, W, C, heads, d, wh, ww, shift != 0, cross != 0, scale, st,
+                                drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // ---- LN1 backward: g_x = g_y + LN1 bwd(g_ln) ----
@@ -301,7 +339,7 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
   WgradBatch w2b = {}, w1b = {};
   for (int s = 0; s < S; ++s) {
     w2b.a[s] = sc.h + s * m_stream;
-    w2b.b[s] = g + s * x_stream;
+    w2b.b[s] = gmlp + s * x_stream;
     w2b.part[s] = sc.w2_part + static_cast<size_t>(s) * sc.w2_plan.chunks * (hidden + 1) * C;
     w1b.a[s] = sc.lny + s * x_stream;
     w1b.b[s] = sc.gpre + s * m_stream;
@@ -331,24 +369,28 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
 
 extern "C" {
 
-// Shared memory of one attention-core block, in bytes.
-size_t swin_fused_block_fwd_smem(int d, int wh, int ww) { return core_smem_bytes(d, wh, ww); }
+// Shared memory of one attention-core block, in bytes, with the dropout's per-token arrays
+// when `drop` is set.
+size_t swin_fused_block_fwd_smem(int d, int wh, int ww, int drop) {
+  return core_smem_bytes(d, wh, ww, drop != 0);
+}
 
 // One block on `stream`. H, W are the block's map (the window-multiple stage map, also
 // under the windows layout, where the tokens of each (s, b) are H*W in window order).
 // x and out are fp32, or bf16 when `bf16_io` is set (K4's rounding under the image layout,
 // K1's under the windows layout). q, k, v are (S, M, heads*d) fp32 scratch, o the same
 // and hid (S, M, hidden) bf16 for K4 in bf16 and fp32 otherwise, y (S, M, C) fp32 scratch
-// that may be `out` in fp32; M = B*H*W. `out` must not alias x. Returns
-// cudaGetLastError() after the launches (0 = ok).
+// that may be `out` in fp32; M = B*H*W. `out` must not alias x. `drop`: the dropout's
+// arguments, or nullptr for none. Returns cudaGetLastError() after the launches (0 = ok).
 int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq,
                          const float* bq, const float* wk, const float* bk, const float* wv,
                          const float* bv, const float* wp, const float* bp, const float* bias,
                          const float* ln2g, const float* ln2b, const float* w1, const float* b1,
                          const float* w2, const float* b2, void* out, float* q, float* k,
-                         float* v, void* o, void* hid, float* y, int S, int B, int H, int W,
-                         int C, int heads, int d, int hidden, int wh, int ww, int shift,
-                         int cross, int windows, int bf16_io, float scale, void* stream) {
+                         float* v, void* o, void* hid, float* y, const DropArgs* drop, int S,
+                         int B, int H, int W, int C, int heads, int d, int hidden, int wh,
+                         int ww, int shift, int cross, int windows, int bf16_io, float scale,
+                         void* stream) {
   if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Launcher = decltype(&fused_block<true, float, false>);
@@ -358,29 +400,32 @@ int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, co
                                            : &fused_block<false, bf16, true>);  // K4
   return run(x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
              out, q, k, v, o, hid, y, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross,
-             scale, st);
+             scale, drop, st);
 }
 
-// Floats of scratch the backward needs for one block of these dimensions.
+// Floats of scratch the backward needs for one block of these dimensions and dropout.
 size_t swin_fused_block_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
-                                      int hidden, int wh, int ww) {
+                                      int hidden, int wh, int ww, const DropArgs* drop) {
   Arena ar{nullptr};
-  carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww);
+  carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop);
   return ar.used;
 }
 
 // The block's backward on `stream`. in: x, the 17 weights in the forward's order, then
 // g = dL/d out (same shape as x); out: g_x, then the 17 weight gradients in that order
-// and shapes. ws: swin_fused_block_bwd_workspace(...) floats of scratch. Every output is
-// written in full. Returns cudaGetLastError() after the launches (0 = ok).
-int swin_fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B,
-                         int H, int W, int C, int heads, int d, int hidden, int wh, int ww,
-                         int shift, int cross, int windows, float scale, void* stream) {
+// and shapes. ws: swin_fused_block_bwd_workspace(...) floats of scratch. `drop`: the
+// forward's dropout arguments, or nullptr. Every output is written in full. Returns
+// cudaGetLastError() after the launches (0 = ok).
+int swin_fused_block_bwd(const float* const* in, float* const* out, float* ws,
+                         const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
+                         int d, int hidden, int wh, int ww, int shift, int cross, int windows,
+                         float scale, void* stream) {
   if (S * 3 > kMaxBatch || C > kLnMaxC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Launcher = decltype(&fused_block_bwd<true>);
   const Launcher run = windows ? &fused_block_bwd<true> : &fused_block_bwd<false>;
-  return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, st);
+  return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, drop,
+             st);
 }
 
 }  // extern "C"

@@ -52,6 +52,13 @@
 // weight gradients as [rows | 1]^T g over every token, and one fixed-order reduction
 // launch for every weight, bias and relative-position bias gradient. Like the forward it
 // is bound by the fp32 rate, at about three times the forward's matmul work.
+//
+// Dropout (training, the TPU kernels' seed_ref paths, l.278-290, 322-323, 366-382): with the
+// attention site of `drop` on, the core masks p before AV with the hash masks of
+// hash_dropout.cuh keyed on the wrap windows (ops/dropout_layout.py, "k3"), and the
+// backward's recompute and core backward apply the same masks. The projection's dropout is
+// the caller's, on the output, as in the JAX package. The hash adds ~11 integer operations
+// per attention weight to a core that is bound by its per-head products.
 
 #include <type_traits>
 
@@ -68,7 +75,7 @@ int attention_fwd(const void* xv, const float* wq, const float* bq, const float*
                   const float* bk, const float* wv, const float* bv, const float* wp,
                   const float* bp, const float* bias, void* outv, float* q, float* k, float* v,
                   void* ov, int S, int B, int H, int W, int C, int heads, int d, int wh, int ww,
-                  int shift, int cross, float scale, cudaStream_t st) {
+                  int shift, int cross, float scale, const DropArgs* drop, cudaStream_t st) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
@@ -83,7 +90,7 @@ int attention_fwd(const void* xv, const float* wq, const float* bq, const float*
       inner, C, 3 * S, st);
 
   const cudaError_t err = launch_core<false, kBf16>(q, k, v, bias, o, S, B, H, W, heads, d, wh,
-                                                    ww, shift != 0, st);
+                                                    ww, shift != 0, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmBatchT<T, float, T> proj = {};
@@ -102,24 +109,26 @@ int attention_fwd(const void* xv, const float* wq, const float* bq, const float*
 
 extern "C" {
 
-// Shared memory of one attention-core block, in bytes.
-size_t swin_window_attention_fwd_smem(int d, int wh, int ww) {
-  return core_smem_bytes(d, wh, ww);
+// Shared memory of one attention-core block, in bytes, with the dropout's per-token
+// arrays when `drop` is set.
+size_t swin_window_attention_fwd_smem(int d, int wh, int ww, int drop) {
+  return core_smem_bytes(d, wh, ww, drop != 0);
 }
 
 // Launches the three kernels on `stream`. x and out are fp32, or bf16 when `bf16` is set;
-// q, k, v are (S, B, H, W, heads*d) fp32 scratch and o (AV) the same in x's type. Returns
+// q, k, v are (S, B, H, W, heads*d) fp32 scratch and o (AV) the same in x's type. `drop`:
+// the dropout's arguments (its attention site), or nullptr for none. Returns
 // cudaGetLastError() after the launches (0 = ok).
 int swin_window_attention_fwd(const void* x, const float* wq, const float* bq, const float* wk,
                               const float* bk, const float* wv, const float* bv, const float* wp,
                               const float* bp, const float* bias, void* out, float* q, float* k,
-                              float* v, void* o, int S, int B, int H, int W, int C, int heads,
-                              int d, int wh, int ww, int shift, int cross, int bf16_io,
-                              float scale, void* stream) {
+                              float* v, void* o, const DropArgs* drop, int S, int B, int H, int W,
+                              int C, int heads, int d, int wh, int ww, int shift, int cross,
+                              int bf16_io, float scale, void* stream) {
   if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   const auto run = bf16_io ? &attention_fwd<bf16> : &attention_fwd<float>;
   return run(x, wq, bq, wk, bk, wv, bv, wp, bp, bias, out, q, k, v, o, S, B, H, W, C, heads, d,
-             wh, ww, shift, cross, scale, static_cast<cudaStream_t>(stream));
+             wh, ww, shift, cross, scale, drop, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"
@@ -161,11 +170,13 @@ size_t swin_window_attention_bwd_workspace(int S, int B, int H, int W, int C, in
 
 // The backward on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
 // g = dL/d out; out: g_x, then the gradients of those nine weights in that order and
-// shapes. ws: swin_window_attention_bwd_workspace(...) floats of scratch. Every output is
-// written in full. Returns cudaGetLastError() after the launches (0 = ok).
-int swin_window_attention_bwd(const float* const* in, float* const* out, float* ws, int S,
-                              int B, int H, int W, int C, int heads, int d, int wh, int ww,
-                              int shift, int cross, float scale, void* stream) {
+// shapes. ws: swin_window_attention_bwd_workspace(...) floats of scratch. `drop`: the
+// forward's dropout arguments, or nullptr. Every output is written in full. Returns
+// cudaGetLastError() after the launches (0 = ok).
+int swin_window_attention_bwd(const float* const* in, float* const* out, float* ws,
+                              const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
+                              int d, int wh, int ww, int shift, int cross, float scale,
+                              void* stream) {
   if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int inner = heads * d;
@@ -178,7 +189,7 @@ int swin_window_attention_bwd(const float* const* in, float* const* out, float* 
                 S, M, C, inner, cross != 0, scale),
       M, inner, C, 3 * S, st);
   cudaError_t err = launch_core<false>(sc.q, sc.k, sc.v, in[kBias], sc.o, S, B, H, W, heads, d,
-                                       wh, ww, shift != 0, st);
+                                       wh, ww, shift != 0, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   ReduceJobs jobs = {};
@@ -186,7 +197,7 @@ int swin_window_attention_bwd(const float* const* in, float* const* out, float* 
                         out[kBv], out[kWp], out[kBp], out[kBias]};
   err = attention_bwd<false>(sc.attn, in[kX], sc.q, sc.k, sc.v, sc.o, in[kG], in[kWq], in[kWk],
                              in[kWv], in[kWp], in[kBias], out[0], ag, jobs, S, B, H, W, C,
-                             heads, d, wh, ww, shift != 0, cross != 0, scale, st);
+                             heads, d, wh, ww, shift != 0, cross != 0, scale, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_reduce(jobs, st);
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,16 @@
 //   window_core_kernel  one block per (window, stream*batch, head): scores q.k plus the
 //                       shared relative-position bias, the shift mask that SETS scores to
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
-//                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV.
+//                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV;
+//   dropout_rows_kernel the hash-dropout mask of a token site applied to (S, M, N) rows.
+//
+// Dropout (kDrop, a template flag of the GEMM and of the core, so that a launch without
+// dropout compiles to the code it had before): the masks of hash_dropout.cuh. The GEMM's
+// epilogue masks its result after the bias, the scale and the ELU and before the
+// residual or the ELU derivative: proj (x + drop(proj + bp)), the MLP hidden
+// (drop(ELU(fc1))), the MLP output (y + drop(fc2 + b2)) and, in the backward, the
+// gradient of the hidden (drop(g w2^T) * ELU'). The core masks the normalised weights p
+// before AV. Batch entry z of a masked GEMM is stream z.
 //
 // Precision. Every sum is fp32 FMA. A, the residual and C are fp32 or bf16 in memory
 // (B, the weights, always fp32); a bf16 element is converted to fp32 on load and rounded
@@ -36,6 +45,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hash_dropout.cuh"
 
 namespace swin {
 
@@ -81,9 +92,9 @@ using GemmBatch = GemmBatchT<>;
 __device__ __forceinline__ float elu_grad_from_output(float h) { return h > 0.0f ? 1.0f : h + 1.0f; }
 
 template <bool kLn, bool kElu, bool kRes, bool kBias, bool kBT, bool kDElu, bool kBf16Ops,
-          typename TA, typename TR, typename TC>
+          bool kDrop, typename TA, typename TR, typename TC>
 __global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(GemmBatchT<TA, TR, TC> p, int M, int N, int K) {
+    gemm_kernel(GemmBatchT<TA, TR, TC> p, int M, int N, int K, DropSite drop) {
   __shared__ float as[kBK][kBM];  // A tile, transposed
   __shared__ float bs[kBK][kBN + (kBT ? 1 : 0)];  // padded when stored along K
   __shared__ float row_mean[kLn ? kBM : 1], row_rstd[kLn ? kBM : 1];
@@ -171,6 +182,12 @@ __global__ void __launch_bounds__(kGemmThreads)
   for (int i = 0; i < kTM; ++i) {
     const int gr = row0 + ty * kTM + i;
     if (gr >= M) continue;
+    uint32_t ph = 0;
+    int slot = 0;
+    if (kDrop) {
+      const int b = gr / drop.hw;
+      ph = token_hash(drop, z * drop.B + b, gr - b * drop.hw, &slot);
+    }
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int gn = col0 + tx * kTN + j;
@@ -180,6 +197,8 @@ __global__ void __launch_bounds__(kGemmThreads)
       if (kBias) v += p.bias[z][gn];
       v *= alpha;
       if (kElu) v = v > 0.0f ? v : expm1f(v);
+      if (kDrop)
+        v = hash_keep(ph, token_intra(drop, slot, gn, N), drop.threshold) ? v * drop.scale : 0.0f;
       if (kDElu) v *= elu_grad_from_output(to_float(res[at]));
       else if (kRes) v += to_float(res[at]);  // read and written by this thread only
       c[at] = from_float<TC>(v);
@@ -188,11 +207,48 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false,
-          bool kBf16Ops = false, typename TA, typename TR, typename TC>
-void launch_gemm(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int batch, cudaStream_t st) {
+          bool kBf16Ops = false, bool kDrop = false, typename TA, typename TR, typename TC>
+void launch_gemm(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int batch, cudaStream_t st,
+                 const DropSite& drop = DropSite{}) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_kernel<kLn, kElu, kRes, kBias, kBT, kDElu, kBf16Ops, TA, TR, TC>
-      <<<grid, kGemmThreads, 0, st>>>(p, M, N, K);
+  gemm_kernel<kLn, kElu, kRes, kBias, kBT, kDElu, kBf16Ops, kDrop, TA, TR, TC>
+      <<<grid, kGemmThreads, 0, st>>>(p, M, N, K, drop);
+}
+
+// launch_gemm with the epilogue's dropout at `site` when `drop` has it on, without it else.
+template <bool kLn, bool kElu, bool kRes, bool kBias = true, bool kBT = false, bool kDElu = false,
+          bool kBf16Ops = false, typename TA, typename TR, typename TC>
+void launch_gemm_site(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int batch,
+                      cudaStream_t st, const DropArgs* drop, int site, int hw, int B) {
+  if (drop_on(drop, site))
+    launch_gemm<kLn, kElu, kRes, kBias, kBT, kDElu, kBf16Ops, true>(p, M, N, K, batch, st,
+                                                                      drop_site(drop, site, hw, B));
+  else
+    launch_gemm<kLn, kElu, kRes, kBias, kBT, kDElu, kBf16Ops>(p, M, N, K, batch, st);
+}
+
+// ---- the mask of a token site on (S, M, N) rows, z = stream; `out` may be `in` -------
+constexpr int kDropThreads = 256;
+
+__global__ void __launch_bounds__(kDropThreads)
+    dropout_rows_kernel(const float* in, float* out, DropSite d, int M, int N) {
+  const size_t per_stream = static_cast<size_t>(M) * N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kDropThreads + threadIdx.x;
+  if (i >= per_stream) return;
+  const int gr = static_cast<int>(i / N), gn = static_cast<int>(i % N);
+  const int b = gr / d.hw;
+  int slot;
+  const uint32_t ph = token_hash(d, blockIdx.y * d.B + b, gr - b * d.hw, &slot);
+  const size_t at = blockIdx.y * per_stream + i;
+  const float v = in[at];
+  out[at] = hash_keep(ph, token_intra(d, slot, gn, N), d.threshold) ? v * d.scale : 0.0f;
+}
+
+inline void launch_dropout_rows(const float* in, float* out, const DropSite& d, int M, int N,
+                                int S, cudaStream_t st) {
+  const size_t n = static_cast<size_t>(M) * N;
+  const dim3 grid(static_cast<unsigned>((n + kDropThreads - 1) / kDropThreads), S);
+  dropout_rows_kernel<<<grid, kDropThreads, 0, st>>>(in, out, d, M, N);
 }
 
 // The q/k/v GEMM of S streams as one batch, z = s*3 + part: q (times `scale`) from stream
@@ -232,12 +288,13 @@ GemmBatchT<TA> qkv_batch(const TA* rows, const float* wq, const float* bq,
 constexpr int kCoreThreads = 128;
 
 // TO: AV's element type; under kBf16Ops p and v are rounded to bf16 before AV (and TO is
-// bf16, so AV is rounded on its store).
-template <bool kWindows, bool kBf16Ops = false, typename TO = float>
+// bf16, so AV is rounded on its store). Under kDrop p is masked (the query's unit hash and
+// every token's slot kept in shared memory) before the rounding and AV.
+template <bool kWindows, bool kBf16Ops = false, typename TO = float, bool kDrop = false>
 __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ bias, TO* __restrict__ o, int B, int H, int W, int heads,
-    int d, int wh, int ww, int top, int left) {
+    int d, int wh, int ww, int top, int left, DropSite drop) {
   extern __shared__ float smem[];
   const int T = wh * ww;
   const int inner = heads * d;
@@ -254,12 +311,15 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
   float* ps = vs + T * d;    // [T][T]
   int* pix = reinterpret_cast<int*>(ps + T * T);  // [T] token index in the (s, b) map
   int* region = pix + T;                           // [T] wrap-seam region
+  uint32_t* phs = reinterpret_cast<uint32_t*>(region + T);  // [T] unit hash (kDrop)
+  int* slots = reinterpret_cast<int*>(phs + T);              // [T] slot (kDrop)
 
   for (int t = tid; t < T; t += kCoreThreads) {
     const int rr = wr * wh + t / ww;  // row and column in the rolled map
     const int rc = wc * ww + t % ww;
     pix[t] = kWindows ? blockIdx.x * T + t : ((rr - top + H) % H) * W + (rc - left + W) % W;
     region[t] = ((rr < top) << 1) | (rc < left);
+    if (kDrop) phs[t] = token_hash(drop, n, pix[t], &slots[t]);
   }
   __syncthreads();
   const size_t base = static_cast<size_t>(n) * H * W * inner + static_cast<size_t>(h) * d;
@@ -288,7 +348,10 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
     for (int u = lane; u < T; u += 32) sum += ps[t * T + u];
     const float r = 1.0f / (warp_sum(sum) + 1e-30f);
     for (int u = lane; u < T; u += 32) {
-      const float p = ps[t * T + u] * r;
+      float p = ps[t * T + u] * r;
+      if (kDrop)
+        p = hash_keep(phs[t], attn_intra(drop, h, slots[t], slots[u], heads), drop.threshold)
+                ? p * drop.scale : 0.0f;
       ps[t * T + u] = kBf16Ops ? round_bf16(p) : p;
     }
   }
@@ -301,27 +364,40 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_kernel(
   }
 }
 
-inline size_t core_smem_bytes(int d, int wh, int ww) {
+inline size_t core_smem_bytes(int d, int wh, int ww, bool drop = false) {
   const size_t T = static_cast<size_t>(wh) * ww;
-  return (3 * T * d + T * T) * sizeof(float) + 2 * T * sizeof(int);
+  return (3 * T * d + T * T) * sizeof(float) + (drop ? 4 : 2) * T * sizeof(int);
 }
 
 // Sets the core kernel's shared memory and launches it over every window, stream*batch
 // and head of an (S*B, H, W) map; returns the attribute call's error (0 = ok).
+template <bool kWindows, bool kBf16Ops = false, typename TO = float, bool kDrop = false>
+cudaError_t launch_core_as(const float* q, const float* k, const float* v, const float* bias,
+                           TO* o, int S, int B, int H, int W, int heads, int d, int wh,
+                           int ww, bool shift, cudaStream_t st, const DropSite& drop) {
+  const size_t smem = core_smem_bytes(d, wh, ww, kDrop);
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_core_kernel<kWindows, kBf16Ops, TO, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H / wh) * (W / ww), S * B, heads);
+  window_core_kernel<kWindows, kBf16Ops, TO, kDrop><<<grid, kCoreThreads, smem, st>>>(
+      q, k, v, bias, o, B, H, W, heads, d, wh, ww, shift ? wh - wh / 2 : 0,
+      shift ? ww - ww / 2 : 0, drop);
+  return cudaSuccess;
+}
+
+// The core with the attention-site dropout of `drop` where it is on (nullptr: none).
 template <bool kWindows, bool kBf16Ops = false, typename TO = float>
 cudaError_t launch_core(const float* q, const float* k, const float* v, const float* bias,
                         TO* o, int S, int B, int H, int W, int heads, int d, int wh,
-                        int ww, bool shift, cudaStream_t st) {
-  const size_t smem = core_smem_bytes(d, wh, ww);
-  const cudaError_t err = cudaFuncSetAttribute(
-      window_core_kernel<kWindows, kBf16Ops, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H / wh) * (W / ww), S * B, heads);
-  window_core_kernel<kWindows, kBf16Ops, TO><<<grid, kCoreThreads, smem, st>>>(
-      q, k, v, bias, o, B, H, W, heads, d, wh, ww, shift ? wh - wh / 2 : 0,
-      shift ? ww - ww / 2 : 0);
-  return cudaSuccess;
+                        int ww, bool shift, cudaStream_t st, const DropArgs* drop = nullptr) {
+  if (drop_on(drop, kSiteAttn))
+    return launch_core_as<kWindows, kBf16Ops, TO, true>(q, k, v, bias, o, S, B, H, W, heads, d,
+                                                        wh, ww, shift, st,
+                                                        drop_site(drop, kSiteAttn, H * W, B));
+  return launch_core_as<kWindows, kBf16Ops, TO>(q, k, v, bias, o, S, B, H, W, heads, d, wh, ww,
+                                                shift, st, DropSite{});
 }
 
 }  // namespace swin

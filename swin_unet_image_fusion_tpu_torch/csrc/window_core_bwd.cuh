@@ -15,6 +15,9 @@
 //                           g_v = P^T g_o, g_P = g_o v^T, g_S = P (g_P - rowsum(g_P P)),
 //                           g_q = scale g_S k, g_k = g_S^T q_scaled, and sums g_S over its
 //                           windows into a (T, T) partial of the relative-position bias grad;
+//                           under kDrop with the forward's attention mask: g_P' = mask(g_P),
+//                           g_S = P (g_P' - rowsum(g_P' P)) with the unmasked P, and
+//                           g_v = mask(P)^T g_o (JAX _win64_attention_grads l.466-480);
 //   reduce_chunks_kernel    sums the partials of every job above in a fixed order.
 //
 // Why two passes. The TPU kernels accumulate weight gradients across their sequential
@@ -315,13 +318,13 @@ inline void launch_ln_bwd(const LnBwdBatch& p, int M, int C, int batch, cudaStre
 // ---- attention core backward -----------------------------------------------------------
 constexpr int kCoreBwdWindows = 16;  // windows per block, summed into one bias partial
 
-template <bool kWindows>
+template <bool kWindows, bool kDrop = false>
 __global__ void __launch_bounds__(kCoreThreads) window_core_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ go, const float* __restrict__ bias, float* __restrict__ gq,
     float* __restrict__ gk, float* __restrict__ gv, float* __restrict__ gbias_part, int B,
     int H, int W, int heads, int d, int wh, int ww, int top, int left, float scale,
-    int groups) {
+    int groups, DropSite drop) {
   extern __shared__ float smem[];
   const int T = wh * ww;
   const int inner = heads * d;
@@ -343,6 +346,8 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_bwd_kernel(
   float* acc = gs + T * T;     // [T][T] sum of g_S over this block's windows
   int* pix = reinterpret_cast<int*>(acc + T * T);  // [T]
   int* region = pix + T;                           // [T]
+  uint32_t* phs = reinterpret_cast<uint32_t*>(region + T);  // [T] unit hash (kDrop)
+  int* slots = reinterpret_cast<int*>(phs + T);              // [T] slot (kDrop)
 
   for (int i = tid; i < T * T; i += kCoreThreads) acc[i] = 0.0f;
   const size_t base = static_cast<size_t>(n) * H * W * inner + static_cast<size_t>(h) * d;
@@ -355,6 +360,7 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_bwd_kernel(
       const int rc = wc * ww + t % ww;
       pix[t] = kWindows ? win * T + t : ((rr - top + H) % H) * W + (rc - left + W) % W;
       region[t] = ((rr < top) << 1) | (rc < left);
+      if (kDrop) phs[t] = token_hash(drop, n, pix[t], &slots[t]);
     }
     __syncthreads();
     for (int i = tid; i < T * d; i += kCoreThreads) {
@@ -379,22 +385,35 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_bwd_kernel(
       gs[i] = gp;
     }
     __syncthreads();
-    // one warp per row: normalise P, then g_S = P (g_P - sum_u g_P P)
+    // one warp per row: normalise P, then g_S = P (g_P - sum_u g_P P); under kDrop g_P is
+    // masked first, and P, once g_S has used it, becomes the masked P that g_v needs (the
+    // lane's keep bits ride in a register between the two passes)
     for (int t = warp; t < T; t += kCoreThreads / 32) {
       float sum = 0.0f;
       for (int u = lane; u < T; u += 32) sum += ps[t * T + u];
       const float r = 1.0f / (warp_sum(sum) + 1e-30f);
       float dot = 0.0f;
-      for (int u = lane; u < T; u += 32) {
+      uint32_t keep_bits = 0;
+      for (int u = lane, it = 0; u < T; u += 32, ++it) {
         const float pv = ps[t * T + u] * r;
         ps[t * T + u] = pv;
-        dot = fmaf(gs[t * T + u], pv, dot);
+        float gp = gs[t * T + u];
+        if (kDrop) {
+          const bool keep =
+              hash_keep(phs[t], attn_intra(drop, h, slots[t], slots[u], heads), drop.threshold);
+          keep_bits |= static_cast<uint32_t>(keep) << it;
+          gp = keep ? gp * drop.scale : 0.0f;
+          gs[t * T + u] = gp;
+        }
+        dot = fmaf(gp, pv, dot);
       }
       dot = warp_sum(dot);
-      for (int u = lane; u < T; u += 32) {
-        const float g_s = ps[t * T + u] * (gs[t * T + u] - dot);
+      for (int u = lane, it = 0; u < T; u += 32, ++it) {
+        const float pv = ps[t * T + u];
+        const float g_s = pv * (gs[t * T + u] - dot);
         gs[t * T + u] = g_s;
         acc[t * T + u] += g_s;  // this (warp, lane) owns the entry in every window
+        if (kDrop) ps[t * T + u] = (keep_bits >> it) & 1u ? pv * drop.scale : 0.0f;
       }
     }
     __syncthreads();
@@ -418,9 +437,9 @@ __global__ void __launch_bounds__(kCoreThreads) window_core_bwd_kernel(
   for (int i = tid; i < T * T; i += kCoreThreads) part[i] = acc[i];
 }
 
-inline size_t core_bwd_smem_bytes(int d, int wh, int ww) {
+inline size_t core_bwd_smem_bytes(int d, int wh, int ww, bool drop = false) {
   const size_t T = static_cast<size_t>(wh) * ww;
-  return (4 * T * d + 3 * T * T) * sizeof(float) + 2 * T * sizeof(int);
+  return (4 * T * d + 3 * T * T) * sizeof(float) + (drop ? 4 : 2) * T * sizeof(int);
 }
 
 inline int core_bwd_groups(int H, int W, int wh, int ww) {
@@ -431,21 +450,22 @@ inline int core_bwd_groups(int H, int W, int wh, int ww) {
 // Launches the core backward over every window group, stream*batch and head; the bias
 // partials are (S*B*heads*groups, T, T), those of stream s contiguous. Returns the
 // attribute call's error (0 = ok).
-template <bool kWindows>
+template <bool kWindows, bool kDrop = false>
 cudaError_t launch_core_bwd(const float* q, const float* k, const float* v, const float* go,
                             const float* bias, float* gq, float* gk, float* gv, float* part,
                             int S, int B, int H, int W, int heads, int d, int wh, int ww,
-                            bool shift, float scale, cudaStream_t st) {
-  const size_t smem = core_bwd_smem_bytes(d, wh, ww);
+                            bool shift, float scale, cudaStream_t st,
+                            const DropSite& drop = DropSite{}) {
+  const size_t smem = core_bwd_smem_bytes(d, wh, ww, kDrop);
   const cudaError_t err = cudaFuncSetAttribute(
-      window_core_bwd_kernel<kWindows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_core_bwd_kernel<kWindows, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int groups = core_bwd_groups(H, W, wh, ww);
   const dim3 grid(groups, S * B, heads);
-  window_core_bwd_kernel<kWindows><<<grid, kCoreThreads, smem, st>>>(
+  window_core_bwd_kernel<kWindows, kDrop><<<grid, kCoreThreads, smem, st>>>(
       q, k, v, go, bias, gq, gk, gv, part, B, H, W, heads, d, wh, ww,
-      shift ? wh - wh / 2 : 0, shift ? ww - ww / 2 : 0, scale, groups);
+      shift ? wh - wh / 2 : 0, shift ? ww - ww / 2 : 0, scale, groups, drop);
   return cudaSuccess;
 }
 
@@ -455,7 +475,8 @@ cudaError_t launch_core_bwd(const float* q, const float* k, const float* v, cons
 // of the projection's output. Writes g_in[r] = g_q[r] wq[r]^T + g_k[kv(r)] wk[kv(r)]^T +
 // g_v[kv(r)] wv[kv(r)]^T, where kv(r) is the stream whose k/v were made from r's rows
 // (the other stream under cross), and queues the reductions of the q/k/v/proj weight and
-// bias gradients and of the relative-position bias gradient.
+// bias gradients and of the relative-position bias gradient. With the attention site of
+// `drop` on, q/k/v/o must be the forward's recompute with the same mask (o = mask(P) v).
 struct AttnBwdScratch {
   float *go, *gq, *gk, *gv, *bias_part;
   float *wp_part, *qkv_part;
@@ -491,7 +512,8 @@ cudaError_t attention_bwd(const AttnBwdScratch& sc, const float* in, const float
                           const float* wq, const float* wk, const float* wv, const float* wp,
                           const float* bias, float* g_in, const AttnGrads& gr, ReduceJobs& jobs,
                           int S, int B, int H, int W, int C, int heads, int d, int wh, int ww,
-                          bool shift, bool cross, float scale, cudaStream_t st) {
+                          bool shift, bool cross, float scale, cudaStream_t st,
+                          const DropArgs* drop = nullptr) {
   const int inner = heads * d;
   const int M = B * H * W;
   const size_t x_stream = static_cast<size_t>(M) * C;
@@ -508,9 +530,13 @@ cudaError_t attention_bwd(const AttnBwdScratch& sc, const float* in, const float
   }
   launch_gemm<false, false, false, false, true>(gop, M, inner, C, S, st);
 
-  const cudaError_t err = launch_core_bwd<kWindows>(q, k, v, sc.go, bias, sc.gq, sc.gk, sc.gv,
-                                                    sc.bias_part, S, B, H, W, heads, d, wh,
-                                                    ww, shift, scale, st);
+  const cudaError_t err =
+      drop_on(drop, kSiteAttn)
+          ? launch_core_bwd<kWindows, true>(q, k, v, sc.go, bias, sc.gq, sc.gk, sc.gv,
+                                            sc.bias_part, S, B, H, W, heads, d, wh, ww, shift,
+                                            scale, st, drop_site(drop, kSiteAttn, H * W, B))
+          : launch_core_bwd<kWindows>(q, k, v, sc.go, bias, sc.gq, sc.gk, sc.gv, sc.bias_part,
+                                      S, B, H, W, heads, d, wh, ww, shift, scale, st);
   if (err != cudaSuccess) return err;
 
   // g_in[r]: the q side of stream r, then the k and v sides of the stream that read r

@@ -6,9 +6,21 @@ axis, so one batched matmul computes both streams with independent weights. Para
 names and shapes mirror the flax tree, so ``models/from_jax.py`` loads a flattened
 flax variable dict 1:1.
 
-Dropout is not ported (every ratio of the default configuration is 0; the model raises
-on a nonzero one in training). ``FinalHead``'s BatchNorm uses its running statistics,
-or with ``train=True`` the batch's and updates the running ones, as flax does.
+Dropout (training) draws one seed per block call from a :class:`DropoutSeeds` source, in
+the JAX package's call order, and every site of the block takes its masks from that seed
+with the TPU kernels' counter-based hash (``ops/hash_dropout.py``): in-kernel under
+``cuda_pack`` and ``cuda_block`` (all four sites) and under ``cuda`` (the attention
+weights); elsewhere in the composition, which keys each token on K4's geometry
+(``ops/dropout_layout.py``, ``"k4"``): the attention weights by the query's window of the
+zero-padded partition and both tokens' slots in it (the composition's cyclically shifted
+windows hold the same tokens on every pair its mask leaves unmasked), the projection's
+output and the MLP's hidden and output by the token's window and slot, offset
+``slot * cols + c``; on a card each such mask is one launch of ``ops/dropout_mask.py``'s
+kernel, on the CPU its plain version. The JAX package draws the composition's masks from flax's threefry
+bits instead, which PyTorch cannot reproduce; the hash keeps a dropout step the same on
+the CPU and on a card for the same seeds. ``FinalHead``'s BatchNorm uses its running
+statistics, or with ``train=True`` the batch's and updates the running ones, as flax
+does.
 Parameters start as placeholders (zeros, LayerNorm and BatchNorm scales and variances
 one); real weights come from ``load_state_dict``.
 
@@ -28,7 +40,7 @@ parameter is cast where it meets an activation.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +56,51 @@ from ..ops.window import (
     window_partition,
     window_unpartition,
 )
+from ..ops import dropout_layout as dl
+from ..ops import dropout_mask as dm
+from ..ops import hash_dropout as hd
 from ..ops.fused_block import fused_block
 from ..ops.window_attention import window_attention
 from ..ops.window_pack import pack_windows, repartition_windows, unpack_windows
+
+SEED_LIMIT = 1 << 24  # a block's seed lies in [0, 2^24), as the JAX layers draw it
+
+
+class DropoutSeeds:
+    """The source of the per-block dropout seeds of one forward: a CPU ``torch.Generator``
+    (each seed ``randint(0, 2^24)`` from it) or a sequence of seeds taken in order, as the
+    JAX layers draw theirs (``layers.py:310-315``, ``495-499``, ``606-610``). Seeds are
+    host ints, so drawing one never waits on the device."""
+
+    def __init__(self, source: Union[torch.Generator, Iterable[int]]):
+        self.generator = source if isinstance(source, torch.Generator) else None
+        self._seeds = None if self.generator is not None else iter(source)
+        self.drawn = 0
+
+    def __call__(self) -> int:
+        if self.generator is not None:
+            seed = int(torch.randint(0, SEED_LIMIT, (1,), generator=self.generator))
+        else:
+            try:
+                seed = int(next(self._seeds))
+            except StopIteration:
+                raise ValueError(f"the dropout seed sequence ran out after {self.drawn} "
+                                 "blocks") from None
+        self.drawn += 1
+        return seed
+
+
+# A block's dropout in the composition: its seed and the keying of its geometry.
+Drop = Optional[Tuple[int, dl.Keying]]
+
+
+def token_dropout(a: torch.Tensor, drop: Drop, site: int, rate: float) -> torch.Tensor:
+    """Hash dropout of a token site on (S, B, H, W, cols) in image order (identity
+    without dropout or at rate 0)."""
+    if drop is None or not rate:
+        return a
+    seed, key = drop
+    return dm.token_dropout(a, seed, site, rate, key)
 
 
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -106,13 +160,18 @@ class DualWindowAttention(nn.Module):
     Input/output (S, B, H, W, C) with H, W multiples of the window. ``cross=True`` takes
     k/v from the other stream (stream flip after each stream's own LN1), with stream
     s's weights. ``impl="torch"`` is the composition of the JAX jnp path; ``impl="cuda"``
-    calls the K3 kernel's wrapper (its plain version on a CPU tensor).
+    calls the K3 kernel's wrapper (its plain version on a CPU tensor), whose dropout of
+    the attention weights is in the kernel; the projection's dropout is the
+    composition's on either path.
     """
 
     def __init__(self, streams: int, dims: int, num_heads: int, dims_per_head: int,
                  window_size: Tuple[int, int], shift: bool, cross: bool,
-                 use_qkv_bias: bool = True):
+                 use_qkv_bias: bool = True, attention_drop_ratio: float = 0.0,
+                 proj_drop_ratio: float = 0.0):
         super().__init__()
+        self.attention_drop_ratio = attention_drop_ratio
+        self.proj_drop_ratio = proj_drop_ratio
         self.num_heads = num_heads
         self.dims_per_head = dims_per_head
         self.window_size = tuple(window_size)
@@ -126,9 +185,11 @@ class DualWindowAttention(nn.Module):
         self.proj = StackedDense(streams, inner, dims, True)
         self.rel_pos_bias_table = nn.Parameter(torch.zeros(streams, 2 * wh - 1, 2 * ww - 1))
 
-    def forward(self, x: torch.Tensor, impl: str = "torch") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "torch", drop: Drop = None) -> torch.Tensor:
+        """``drop``: the block's (seed, keying) in training, None for no dropout."""
         if impl == "cuda":
-            return self._kernel_forward(x)
+            out = self._kernel_forward(x, None if drop is None else drop[0])
+            return token_dropout(out, drop, hd.SITE_PROJ, self.proj_drop_ratio)
         if impl != "torch":
             raise ValueError(f"unknown attention impl {impl!r}; expected 'torch' or 'cuda'")
         s, b, h, w, _ = x.shape
@@ -155,14 +216,18 @@ class DualWindowAttention(nn.Module):
         if self.shift:
             mask = device_constant(shift_attention_mask, ((h, w), self.window_size), x.device)
             scores = apply_shift_mask(scores, mask)
-        out = torch.softmax(scores, dim=-1).to(v.dtype) @ v
+        weights = torch.softmax(scores, dim=-1)
+        if drop is not None and self.attention_drop_ratio:
+            seed, key = drop
+            weights = dm.attention_dropout(weights, seed, self.attention_drop_ratio, key)
+        out = weights.to(v.dtype) @ v
         out = self.proj(out.transpose(2, 3).reshape(s, bw, t, heads * d))
         out = window_unpartition(out, self.window_size, (h, w))
         if self.shift:
             out = cyclic_shift(out, self.window_size, reverse=True)
-        return out
+        return token_dropout(out, drop, hd.SITE_PROJ, self.proj_drop_ratio)
 
-    def _kernel_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _kernel_forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         wq, bq = self.q.weights()
         wk, bk = self.k.weights()
         wv, bv = self.v.weights()
@@ -172,48 +237,78 @@ class DualWindowAttention(nn.Module):
             x.contiguous(), wq, bq, wk, bk, wv, bv, wp, bp, bias.contiguous(),
             window=self.window_size, num_heads=self.num_heads,
             dims_per_head=self.dims_per_head, shift=self.shift, cross=self.cross,
+            attn_drop_rate=self.attention_drop_ratio if seed is not None else 0.0,
+            drop_seed=seed,
         )
 
 
 class DualMLP(nn.Module):
-    """Per-stream 2-layer MLP (JAX ``DualMLP``)."""
+    """Per-stream 2-layer MLP (JAX ``DualMLP``), dropout on the hidden after the
+    activation and on the output."""
 
-    def __init__(self, streams: int, dims: int, hidden_dims: int, activation: str = "elu"):
+    def __init__(self, streams: int, dims: int, hidden_dims: int, activation: str = "elu",
+                 drop_ratio: float = 0.0):
         super().__init__()
         self.act = activation_fn(activation)
+        self.drop_ratio = drop_ratio
         self.fc1 = StackedDense(streams, dims, hidden_dims)
         self.fc2 = StackedDense(streams, hidden_dims, dims)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor, drop: Drop = None) -> torch.Tensor:
+        """x (S, B, H, W, C); ``drop``: the block's (seed, keying) in training."""
+        hidden = token_dropout(self.act(self.fc1(x)), drop, hd.SITE_MLP_HIDDEN, self.drop_ratio)
+        return token_dropout(self.fc2(hidden), drop, hd.SITE_MLP_OUT, self.drop_ratio)
 
 
 class BasicBlock(nn.Module):
     """Pre-norm block: LN -> window attention -> +res, LN -> MLP -> +res (JAX
     ``BasicBlock``). ``impl="cuda_block"`` runs the whole block as one fused kernel on
-    the image (the JAX ``pallas_block``); :meth:`fused` also takes window-packed tokens."""
+    the image (the JAX ``pallas_block``); :meth:`fused` also takes window-packed tokens.
+    With ``seeds`` and a nonzero dropout ratio the block draws one seed per call and
+    trains with dropout (module docstring)."""
 
     def __init__(self, streams: int, dims: int, num_heads: int, dims_per_head: int,
                  window_size: Tuple[int, int], shift: bool, cross: bool,
-                 mlp_hidden_dims: int, activation: str = "elu", use_qkv_bias: bool = True):
+                 mlp_hidden_dims: int, activation: str = "elu", use_qkv_bias: bool = True,
+                 attention_drop_ratio: float = 0.0, proj_drop_ratio: float = 0.0,
+                 mlp_drop_ratio: float = 0.0):
         super().__init__()
         self.activation = activation
         self.norm1 = StackedLayerNorm(streams, dims)
         self.attn = DualWindowAttention(streams, dims, num_heads, dims_per_head,
-                                        window_size, shift, cross, use_qkv_bias)
+                                        window_size, shift, cross, use_qkv_bias,
+                                        attention_drop_ratio, proj_drop_ratio)
         self.norm2 = StackedLayerNorm(streams, dims)
-        self.mlp = DualMLP(streams, dims, mlp_hidden_dims, activation)
+        self.mlp = DualMLP(streams, dims, mlp_hidden_dims, activation, mlp_drop_ratio)
 
-    def forward(self, x: torch.Tensor, impl: str = "torch") -> torch.Tensor:
+    @property
+    def drop_rates(self) -> Tuple[float, float, float]:
+        """(attention, proj, MLP) dropout ratios."""
+        return self.attn.attention_drop_ratio, self.attn.proj_drop_ratio, self.mlp.drop_ratio
+
+    def draw_seed(self, seeds: Optional[DropoutSeeds]) -> Optional[int]:
+        """This call's dropout seed: one from ``seeds`` when a ratio is nonzero, else None."""
+        return seeds() if seeds is not None and any(self.drop_rates) else None
+
+    def forward(self, x: torch.Tensor, impl: str = "torch",
+                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        seed = self.draw_seed(seeds)
         if impl == "cuda_block":
-            return self.fused(x, "image")
-        x = x + self.attn(self.norm1(x), impl)
-        return x + self.mlp(self.norm2(x))
+            return self.fused(x, "image", seed=seed)
+        drop = None
+        if seed is not None:
+            attn = self.attn
+            drop = (seed, dl.keying("k4", x.shape[2:4], attn.window_size, attn.shift,
+                                    attn.num_heads, attn.dims_per_head, x.device))
+        x = x + self.attn(self.norm1(x), impl, drop)
+        return x + self.mlp(self.norm2(x), drop)
 
-    def fused(self, x: torch.Tensor, layout: str, hw: Tuple[int, int] | None = None) -> torch.Tensor:
+    def fused(self, x: torch.Tensor, layout: str, hw: Tuple[int, int] | None = None,
+              seed: Optional[int] = None) -> torch.Tensor:
         """The block through the fused kernel's wrapper (its plain version on a CPU
         tensor): ``layout="image"`` for (S, B, H, W, C), ``"windows"`` for the
-        ``pack_windows`` tokens of an ``hw`` map in this block's geometry."""
+        ``pack_windows`` tokens of an ``hw`` map in this block's geometry; with a
+        ``seed``, the block's dropout in the kernel."""
         attn = self.attn
         weights = [t for layer in (attn.q, attn.k, attn.v, attn.proj) for t in layer.weights()]
         bias = gather_relative_position_bias(attn.rel_pos_bias_table, attn.window_size)
@@ -223,6 +318,7 @@ class BasicBlock(nn.Module):
             window=attn.window_size, num_heads=attn.num_heads,
             dims_per_head=attn.dims_per_head, shift=attn.shift, cross=attn.cross,
             layout=layout, hw=hw, activation=self.activation,
+            drop_rates=self.drop_rates if seed is not None else (0.0, 0.0, 0.0), drop_seed=seed,
         )
 
 
@@ -240,22 +336,25 @@ class SelfAndCrossBlockPair(nn.Module):
 
     def __init__(self, streams: int, dims: int, num_heads: int, dims_per_head: int,
                  window_size: Tuple[int, int], mlp_hidden_dims: int,
-                 activation: str = "elu", use_qkv_bias: bool = True):
+                 activation: str = "elu", use_qkv_bias: bool = True,
+                 drop_ratios: Tuple[float, float, float] = (0.0, 0.0, 0.0)):
         super().__init__()
         for name, shift, cross in self.ORDER:
             self.add_module(name, BasicBlock(
                 streams, dims, num_heads, dims_per_head, window_size, shift, cross,
-                mlp_hidden_dims, activation, use_qkv_bias,
+                mlp_hidden_dims, activation, use_qkv_bias, *drop_ratios,
             ))
 
-    def forward(self, x: torch.Tensor, impl: str = "torch") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "torch",
+                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        """``seeds``: the dropout seed source in training (one seed per block, in order)."""
         if impl == "cuda_pack":
-            return self._packed_forward(x)
+            return self._packed_forward(x, seeds)
         for name, _, _ in self.ORDER:
-            x = getattr(self, name)(x, impl)
+            x = getattr(self, name)(x, impl, seeds)
         return x
 
-    def _packed_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _packed_forward(self, x: torch.Tensor, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
         hw = (x.shape[2], x.shape[3])
         window = self.self_normal.attn.window_size
         xw = pack_windows(x, window, shift=False)
@@ -264,7 +363,8 @@ class SelfAndCrossBlockPair(nn.Module):
             if shift != was_shift:
                 xw = repartition_windows(xw, hw, window, was_shift, shift)
                 was_shift = shift
-            xw = getattr(self, name).fused(xw, "windows", hw)
+            block = getattr(self, name)
+            xw = block.fused(xw, "windows", hw, seed=block.draw_seed(seeds))
         return unpack_windows(xw, hw, window, shift=was_shift)
 
 

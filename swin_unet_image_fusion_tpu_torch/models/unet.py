@@ -15,7 +15,10 @@ port of the JAX ``models/unet.py``, NHWC path).
   to fp32. Parameters stay fp32. bf16 runs the eval forward only. The forward turns
   cuBLAS's reduced-precision reduction of bf16 GEMMs off for its duration
   (:func:`fp32_accumulation`), so the bf16 layers accumulate in fp32 as the JAX
-  composition does, whatever the caller's setting.
+  composition does, whatever the caller's setting;
+- dropout (``attention_drop_ratio``, ``linear_after_att_drop_ratio``, ``mlp_drop_ratio``)
+  acts in the training forward only, which then takes a seed source: every block draws
+  one seed in [0, 2^24) per call, in the order the blocks run (``models/layers.py``).
 
 Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 """
@@ -23,6 +26,7 @@ Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 from __future__ import annotations
 
 import contextlib
+from typing import Iterable, Union
 
 import torch
 from torch import nn
@@ -31,7 +35,13 @@ from ..config import COMPUTE_DTYPES, ModelConfig
 from ..ops.patch import crop_bottom_right, pad_reflect_bottom_right
 from ..ops.shape_plan import make_plan
 from ..ops.window_pack import pack_beneficial
-from .layers import FinalHead, PatchMergeLayer, PatchUnmergeLayer, SelfAndCrossBlockPair
+from .layers import (
+    DropoutSeeds,
+    FinalHead,
+    PatchMergeLayer,
+    PatchUnmergeLayer,
+    SelfAndCrossBlockPair,
+)
 
 STREAMS = 2  # dual path: (x=ir, y=vis_Y)
 
@@ -59,6 +69,8 @@ class SwinFusionUNet(nn.Module):
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         n = cfg.num_stages
+        drop_ratios = (cfg.attention_drop_ratio, cfg.linear_after_att_drop_ratio,
+                       cfg.mlp_drop_ratio)
         for k in range(n):
             dims = cfg.out_dims_list[k]
             self.add_module(f"enc{k}_merge", PatchMergeLayer(
@@ -67,7 +79,7 @@ class SwinFusionUNet(nn.Module):
                 self.add_module(f"{role}{k}_blocks", SelfAndCrossBlockPair(
                     STREAMS, dims, cfg.att_num_heads, cfg.dims_per_head(dims),
                     cfg.window_size, hidden * cfg.mlp_hidden_dims_ratio,
-                    cfg.mlp_activation, cfg.use_qkv_bias,
+                    cfg.mlp_activation, cfg.use_qkv_bias, drop_ratios,
                 ))
             self.add_module(f"dec{k}_unmerge", PatchUnmergeLayer(
                 STREAMS, dims, cfg.in_dims_list[k], cfg.merging_size, cfg.mlp_activation))
@@ -94,24 +106,38 @@ class SwinFusionUNet(nn.Module):
             routes.append(route)
         return tuple(routes)
 
-    def forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """The fused map (B, H, W, 1). ``train=True`` runs the head's BatchNorm on the
-        batch's statistics and updates its running ones (the JAX ``train=True``);
-        dropout, rematerialisation and bf16 training are not ported and raise there."""
+    @property
+    def has_dropout(self) -> bool:
         cfg = self.cfg
+        return bool(cfg.attention_drop_ratio or cfg.linear_after_att_drop_ratio
+                    or cfg.mlp_drop_ratio)
+
+    def forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool = False,
+                seeds: Union[torch.Generator, Iterable[int], None] = None) -> torch.Tensor:
+        """The fused map (B, H, W, 1). ``train=True`` runs the head's BatchNorm on the
+        batch's statistics and updates its running ones (the JAX ``train=True``) and,
+        with a nonzero dropout ratio, dropout with the per-block seeds of ``seeds``: a
+        CPU ``torch.Generator`` or a sequence of seeds in block order. Without ``train``
+        there is no dropout and ``seeds`` is not read. Rematerialisation and bf16
+        training are not ported and raise."""
+        cfg = self.cfg
+        source = None
         if train:
             if self.compute_dtype != torch.float32:
                 raise NotImplementedError("bf16 training is not ported yet: train with "
                                           "compute_dtype='float32'")
-            if cfg.attention_drop_ratio or cfg.linear_after_att_drop_ratio or cfg.mlp_drop_ratio:
-                raise NotImplementedError("dropout is not ported yet: train with every "
-                                          "dropout ratio 0")
             if cfg.remat:
                 raise NotImplementedError("rematerialisation (remat=True) is not ported yet")
+            if self.has_dropout:
+                if seeds is None:
+                    raise ValueError("a training forward with dropout needs a seed source: "
+                                     "a CPU torch.Generator or a sequence of block seeds")
+                source = DropoutSeeds(seeds)
         with fp32_accumulation():
-            return self._forward(ir, vis, train)
+            return self._forward(ir, vis, train, source)
 
-    def _forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool) -> torch.Tensor:
+    def _forward(self, ir: torch.Tensor, vis: torch.Tensor, train: bool,
+                 seeds: DropoutSeeds | None = None) -> torch.Tensor:
         cfg = self.cfg
         n = cfg.num_stages
         _, h, w, _ = ir.shape
@@ -125,7 +151,7 @@ class SwinFusionUNet(nn.Module):
             x = pad_reflect_bottom_right(x, p.pad_merge)
             x = getattr(self, f"enc{k}_merge")(x)
             x = pad_reflect_bottom_right(x, p.pad_win)
-            x = getattr(self, f"enc{k}_blocks")(x, impls[k])
+            x = getattr(self, f"enc{k}_blocks")(x, impls[k], seeds)
             if k < n - 1:
                 skips.append(x)
 
@@ -134,7 +160,7 @@ class SwinFusionUNet(nn.Module):
             p = plan[k]
             if j > 0:
                 x = x + skips.pop()
-            x = getattr(self, f"dec{k}_blocks")(x, impls[k])
+            x = getattr(self, f"dec{k}_blocks")(x, impls[k], seeds)
             x = crop_bottom_right(x, p.pad_win)
             x = getattr(self, f"dec{k}_unmerge")(x)
             x = crop_bottom_right(x, p.pad_merge)

@@ -1,0 +1,172 @@
+"""Hash-dropout masks of the composition's sites: the CUDA kernels' wrappers, their plain
+PyTorch versions and the launch counters.
+
+Where a block runs outside the fused kernels (the composition of ``models/layers.py``:
+the projection's output and the MLP's hidden and output under ``cuda``, every site of the
+blocks gated to the composition), its dropout masks come from the TPU kernels' hash keyed
+on K4's geometry (``ops/dropout_layout.py``, ``"k4"``). The plain versions build each mask
+from int64 tensors (``dl.token_keep``, ``dl.attention_keep``), some 25 elementwise
+launches per masked tensor; on a card one launch of ``csrc/dropout_mask.cu`` applies it:
+
+- :func:`token_dropout`: a token site on (S, B, H, W, cols) in image order;
+- :func:`attention_dropout`: the attention weights (S, B*nWin, heads, T, T) of the
+  composition's windows (``dl.composition_windows``).
+
+Both return ``keep ? x * scale : 0`` with the float32 scale of ``hash_dropout.keep_scale``,
+as ``hash_dropout.apply_mask`` does, and both versions' backward applies the same mask
+to the gradient. A CPU tensor takes the plain version, a CUDA tensor (fp32) the kernel;
+there is no fallback between the two. Forward and backward launches count apart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from . import dropout_layout as dl
+from . import hash_dropout as hd
+
+# Calls that launched each kernel, forward and on a gradient, since the last reset; the
+# plain versions never count.
+TOKEN_LAUNCHES = 0
+TOKEN_BWD_LAUNCHES = 0
+ATTN_LAUNCHES = 0
+ATTN_BWD_LAUNCHES = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def token_dropout_plain(a: torch.Tensor, seed: int, site: int, rate: float,
+                        key: dl.Keying) -> torch.Tensor:
+    """Hash dropout of token site ``site`` (``hd.SITE_PROJ``, ``SITE_MLP_HIDDEN`` or
+    ``SITE_MLP_OUT``) on ``a`` (S, B, H, W, cols), tokens keyed by ``key`` in image order."""
+    keep = dl.token_keep(seed, site, rate, key, a.shape[0], a.shape[1], a.shape[-1])
+    return hd.apply_mask(a, keep.reshape(a.shape), rate)
+
+
+def attention_dropout_plain(weights: torch.Tensor, seed: int, rate: float,
+                            key: dl.Keying) -> torch.Tensor:
+    """Hash dropout of the attention weights (S, B*nWin, heads, T, T) of the composition's
+    windows of the map ``key`` was made for."""
+    windows = dl.composition_windows(key)
+    s, bw, heads = weights.shape[:3]
+    keep = dl.attention_keep(seed, rate, key, windows, s, bw // windows.shape[0], heads)
+    return hd.apply_mask(weights, keep.reshape(weights.shape), rate)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("dropout_mask")
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_dropout_tokens.argtypes = [_P, _P, drop] + [_I] * 5 + [_P]
+    lib.swin_dropout_tokens.restype = _I
+    lib.swin_dropout_attention.argtypes = [_P, _P, drop, _P] + [_I] * 5 + [_P]
+    lib.swin_dropout_attention.restype = _I
+    return lib
+
+
+def _site_args(key: dl.Keying, site: int, rate: float, seed: int) -> dl.DropArgs:
+    rates = [0.0] * len(hd.SITES)
+    rates[hd.SITES.index(site)] = rate
+    return dl.drop_args(key, rates, seed)
+
+
+def _launch_tokens(a: torch.Tensor, seed: int, site: int, rate: float, key: dl.Keying,
+                   backward: bool = False) -> torch.Tensor:
+    global TOKEN_LAUNCHES, TOKEN_BWD_LAUNCHES
+    a = a.contiguous()
+    s, b, h, w, cols = a.shape
+    args = _site_args(key, site, rate, seed)
+    out = torch.empty_like(a)
+    lib = _library()
+    with torch.cuda.device(a.device):
+        rc = lib.swin_dropout_tokens(a.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
+                                     hd.SITES.index(site), s, b, h * w, cols,
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, rc, "token dropout mask")
+    if backward:
+        TOKEN_BWD_LAUNCHES += 1
+    else:
+        TOKEN_LAUNCHES += 1
+    return out
+
+
+def _launch_attention(weights: torch.Tensor, seed: int, rate: float, key: dl.Keying,
+                      backward: bool = False) -> torch.Tensor:
+    global ATTN_LAUNCHES, ATTN_BWD_LAUNCHES
+    weights = weights.contiguous()
+    windows = dl.composition_windows(key)
+    s, bw, heads, t, _ = weights.shape
+    args = _site_args(key, hd.SITE_ATTN, rate, seed)
+    out = torch.empty_like(weights)
+    lib = _library()
+    with torch.cuda.device(weights.device):
+        rc = lib.swin_dropout_attention(weights.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
+                                        windows.data_ptr(), s, bw // windows.shape[0],
+                                        windows.shape[0], t, heads,
+                                        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, rc, "attention dropout mask")
+    if backward:
+        ATTN_BWD_LAUNCHES += 1
+    else:
+        ATTN_LAUNCHES += 1
+    return out
+
+
+class _MaskFunction(torch.autograd.Function):
+    """A mask kernel's launch, and the same launch on the gradient."""
+
+    @staticmethod
+    def forward(ctx, launch, a):
+        ctx.launch = launch
+        return launch(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.launch(g, backward=True)
+
+
+def _check(a: torch.Tensor, key: dl.Keying, ndim: int, what: str) -> None:
+    if a.device.type != "cuda":
+        raise ValueError(f"the {what} dropout mask runs on cpu or cuda tensors, not {a.device}")
+    if a.dtype != torch.float32 or a.ndim != ndim:
+        raise ValueError(f"the {what} dropout mask takes a float32 tensor of {ndim} "
+                         f"dimensions, got {a.dtype} {tuple(a.shape)}")
+    if key.table.device != a.device or key.geometry[0] != "k4":
+        raise ValueError(f"the {what} dropout mask needs a 'k4' keying on {a.device}, got "
+                         f"{key.geometry[0]!r} on {key.table.device}")
+
+
+def _apply(launch, a: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _MaskFunction.apply(launch, a)
+    return launch(a)
+
+
+def token_dropout(a: torch.Tensor, seed: int, site: int, rate: float,
+                  key: dl.Keying) -> torch.Tensor:
+    """:func:`token_dropout_plain` on the CPU, one kernel launch on a card."""
+    if a.device.type == "cpu":
+        return token_dropout_plain(a, seed, site, rate, key)
+    _check(a, key, 5, "token")
+    h, w = key.geometry[1]
+    if tuple(a.shape[2:4]) != (h, w) or site not in hd.SITES[1:]:
+        raise ValueError(f"token site {site} on {tuple(a.shape)} with a keying of a {h}x{w} map")
+    return _apply(functools.partial(_launch_tokens, seed=seed, site=site, rate=rate, key=key), a)
+
+
+def attention_dropout(weights: torch.Tensor, seed: int, rate: float,
+                      key: dl.Keying) -> torch.Tensor:
+    """:func:`attention_dropout_plain` on the CPU, one kernel launch on a card."""
+    if weights.device.type == "cpu":
+        return attention_dropout_plain(weights, seed, rate, key)
+    _check(weights, key, 5, "attention")
+    n_win, t = dl.composition_windows(key).shape[:2]
+    if weights.shape[1] % n_win or weights.shape[3:] != (t, t):
+        raise ValueError(f"attention weights {tuple(weights.shape)} do not hold windows of "
+                         f"{t} tokens of a {key.geometry[1]} map")
+    return _apply(functools.partial(_launch_attention, seed=seed, rate=rate, key=key), weights)

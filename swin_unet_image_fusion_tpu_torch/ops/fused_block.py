@@ -36,6 +36,15 @@ VJPs do, and returns g_x and every weight's gradient. ``fused_block_bwd_plain`` 
 plain backward (autograd of the plain version); it differs from the kernel only where a
 score exceeds the softmax clamp of 80, whose derivative the kernel, like the TPU's, does
 not take.
+
+Dropout (training): ``drop_rates`` = (attention, proj, MLP) with a ``drop_seed`` in
+[0, 2^24) applies the reference's four sites with the TPU kernels' hash masks
+(``pallas_block.py:87-187``, ``pallas_pack.py:581-686``): p before AV, proj + bp before
+the residual, the MLP hidden after the ELU and fc2 + b2 before the residual, the MLP rate
+at both MLP sites. The masks are keyed on the TPU kernel's own geometry
+(``ops/dropout_layout.py``): K4's padded windows for the image layout, K1's window pairs
+for the windows layout. On a card a dropout call launches the fp32 dropout form of the
+kernels, counted in ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import dropout_layout as dl
+from . import hash_dropout as hd
 from .window import device_constant
 from .window_attention import (
     ACT_DTYPES,
@@ -65,12 +76,14 @@ LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
-# Calls that launched the fp32 and the bf16 forward kernels, and backward calls that
-# launched the backward kernels (one per call on a card), since the last reset; the
-# plain versions never count.
+# Calls that launched the fp32, the bf16 and the dropout forward kernels, and backward
+# calls that launched the backward kernels without and with dropout (one per call on a
+# card), since the last reset; the plain versions never count.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+DROP_LAUNCHES = 0
 BWD_LAUNCHES = 0
+DROP_BWD_LAUNCHES = 0
 
 
 def rounds_operands(dtype: torch.dtype, layout: str) -> bool:
@@ -94,12 +107,21 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y + b.reshape((s,) + (1,) * (x.ndim - 2) + (n,))
 
 
+def block_keying(layout: str, hw, window, shift: bool, num_heads: int, dims_per_head: int,
+                 device) -> dl.Keying:
+    """The dropout keying of the TPU kernel a layout stands for: K4's for ``"image"``,
+    K1's for ``"windows"`` (``ops/dropout_layout.py``)."""
+    kind = "k4" if layout == "image" else "k1"
+    return dl.keying(kind, hw, window, shift, num_heads, dims_per_head, device)
+
+
 def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
-                         dims_per_head, shift, cross, rnd):
+                         dims_per_head, shift, cross, rnd, drop=None):
     """The block on fp32 window-packed tokens; ``rnd`` is applied to every operand of a
-    product that K4 rounds to bf16 (the identity for fp32 and for K1)."""
-    s, b, n_win, t, _ = xw.shape
+    product that K4 rounds to bf16 (the identity for fp32 and for K1). ``drop``: None,
+    or (rates, seed, keying) of the call's dropout."""
+    s, b, n_win, t, c = xw.shape
     d = dims_per_head
     ln = rnd(_layer_norm(xw, ln1_scale, ln1_bias))
     kv = ln.flip(0) if cross else ln
@@ -114,11 +136,31 @@ def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp
     if shift:
         mask = device_constant(wrap_region_mask, (tuple(hw), tuple(window)), xw.device)
         scores = scores.masked_fill(mask[:, None], -1e10)
-    av = rnd(rnd(fast_softmax(scores)) @ rnd(v))
+    p = fast_softmax(scores)
+    if drop is None:
+        av = rnd(rnd(p) @ rnd(v))
+        av = av.transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
+        y = xw + _dense(av, rnd(wp), bp)
+        hidden = rnd(F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)))
+        return y + _dense(hidden, rnd(w2), b2)
+    (rate_a, rate_p, rate_m), seed, key = drop
+    table = dl.windows_table(key)
+
+    def site(a, site_id, rate):  # a: (S, B, nWin, T, cols) token site
+        if not rate:
+            return a
+        keep = dl.token_keep(seed, site_id, rate, key, s, b, a.shape[-1], table)
+        return hd.apply_mask(a, keep.reshape(a.shape), rate)
+
+    if rate_a:
+        keep = dl.attention_keep(seed, rate_a, key, table, s, b, num_heads)
+        p = hd.apply_mask(p, keep, rate_a)
+    av = rnd(rnd(p) @ rnd(v))
     av = av.transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
-    y = xw + _dense(av, rnd(wp), bp)
-    hidden = rnd(F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)))
-    return y + _dense(hidden, rnd(w2), b2)
+    y = xw + site(_dense(av, rnd(wp), bp), hd.SITE_PROJ, rate_p)
+    hidden = F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1))
+    hidden = rnd(site(hidden, hd.SITE_MLP_HIDDEN, rate_m))
+    return y + site(_dense(hidden, rnd(w2), b2), hd.SITE_MLP_OUT, rate_m)
 
 
 def _check(x: torch.Tensor, layout: str, hw, window) -> Tuple[int, int]:
@@ -148,7 +190,8 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
                       ln2_scale, ln2_bias, w1, b1, w2, b2, *, window: Tuple[int, int],
                       num_heads: int, dims_per_head: int, shift: bool, cross: bool,
                       layout: str, hw: Optional[Tuple[int, int]] = None,
-                      activation: str = "elu") -> torch.Tensor:
+                      activation: str = "elu", drop_rates: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+                      drop_seed: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels, same inputs and semantics.
 
     x: (S, B, H, W, C) for ``layout="image"``, (S, B, nWin, T, C) of an ``hw`` map for
@@ -156,15 +199,22 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
     inner); bq/bk/bv: (S, inner); wp: (S, inner, C); bp: (S, C); bias: (S, T, T)
     gathered relative-position bias; w1: (S, C, hidden); b1: (S, hidden); w2: (S,
     hidden, C); b2: (S, C), all fp32. Returns the same shape and dtype as x, computed in
-    fp32 with K4's or K1's bf16 rounding points (module docstring) when x is bf16.
+    fp32 with K4's or K1's bf16 rounding points (module docstring) when x is bf16, and
+    with the hash dropout of ``drop_rates`` and ``drop_seed`` (module docstring).
     """
     if activation != "elu":
         raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
     hw = _check(x, layout, hw, window)
+    dl.check_seed(drop_rates, drop_seed)
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                ln2_scale, ln2_bias, w1, b1, w2, b2)
+    drop = None
+    if any(drop_rates):
+        key = block_keying(layout, hw, window, shift, num_heads, dims_per_head, x.device)
+        drop = (tuple(drop_rates), drop_seed, key)
     kw = dict(hw=hw, window=window, num_heads=num_heads, dims_per_head=dims_per_head,
-              shift=shift, cross=cross, rnd=operand_rounding(rounds_operands(x.dtype, layout)))
+              shift=shift, cross=cross, rnd=operand_rounding(rounds_operands(x.dtype, layout)),
+              drop=drop)
     if layout == "windows":
         return _block_windows_plain(x.float(), *weights, **kw).to(x.dtype)
     xw = pack_windows(x.float(), window, shift)
@@ -186,13 +236,14 @@ def fused_block_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_block")
-    lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [_I] * 14 + [ctypes.c_float, _P]
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
     lib.swin_fused_block_fwd.restype = _I
-    lib.swin_fused_block_fwd_smem.argtypes = [_I] * 3
+    lib.swin_fused_block_fwd_smem.argtypes = [_I] * 4
     lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
-    lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10
+    lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10 + [drop]
     lib.swin_fused_block_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 13 + [ctypes.c_float, _P]
     lib.swin_fused_block_bwd.restype = _I
     return lib
 
@@ -204,11 +255,24 @@ def _dims(x, weights, kw):
             weights[-4].shape[-1], *kw["window"])
 
 
+def _drop_args(x, kw):
+    """The kernels' dropout arguments of a call (None without dropout); kept alive by the
+    caller until the launch returns."""
+    rates = kw.get("drop_rates", (0.0, 0.0, 0.0))
+    if not any(rates):
+        return None
+    h, w = _check(x, kw["layout"], kw["hw"], kw["window"])
+    key = block_keying(kw["layout"], (h, w), kw["window"], kw["shift"], kw["num_heads"],
+                       kw["dims_per_head"], x.device)
+    return dl.drop_args(key, (rates[0], rates[1], rates[2], rates[2]), kw["drop_seed"])
+
+
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
     for a bf16 x: never an upcast."""
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
+    drop = _drop_args(x, kw)
     inner = heads * d
     bf16 = x.dtype == torch.bfloat16
     # AV and the MLP hidden are bf16 where the kernel rounds them (K4 in bf16)
@@ -225,13 +289,15 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.swin_fused_block_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(a.data_ptr() for a in scratch),
+            *(a.data_ptr() for a in scratch), dl.drop_pointer(drop),
             s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
             int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
-    if bf16:
+    if drop is not None:
+        DROP_LAUNCHES += 1
+    elif bf16:
         BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -239,7 +305,7 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, DROP_BWD_LAUNCHES
     dims = _dims(x, weights, kw)
     d = kw["dims_per_head"]
     if x.dtype != torch.float32:
@@ -249,24 +315,29 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     g = g.contiguous()
+    drop = _drop_args(x, kw)
     lib = _library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
-    workspace = x.new_empty(lib.swin_fused_block_bwd_workspace(*dims))
+    workspace = x.new_empty(lib.swin_fused_block_bwd_workspace(*dims, dl.drop_pointer(drop)))
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_fused_block_bwd(
-            ins, outs, workspace.data_ptr(), *dims, int(kw["shift"]), int(kw["cross"]),
-            int(kw["layout"] == "windows"), float(d**-0.5),
+            ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
+            int(kw["cross"]), int(kw["layout"] == "windows"), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block backward")
-    BWD_LAUNCHES += 1
+    if drop is not None:
+        DROP_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return tuple(grads)
 
 
 class _FusedBlockFunction(torch.autograd.Function):
-    """The kernels' forward and backward; saves only x and the weights."""
+    """The kernels' forward and backward; saves only x and the weights (and, in ``kw``,
+    the dropout's rates and seed, so that the backward recomputes the forward's masks)."""
 
     @staticmethod
     def forward(ctx, kw, x, *weights):
@@ -284,16 +355,19 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                 ln2_scale, ln2_bias, w1, b1, w2, b2, *, window: Tuple[int, int],
                 num_heads: int, dims_per_head: int, shift: bool, cross: bool,
                 layout: str, hw: Optional[Tuple[int, int]] = None,
-                activation: str = "elu") -> torch.Tensor:
+                activation: str = "elu", drop_rates: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+                drop_seed: Optional[int] = None) -> torch.Tensor:
     """One fused Swin block: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`fused_block_plain`. On a CUDA tensor every argument must be a
     contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
-    anything else raises. A bf16 x runs the bf16 form of the kernels. When autograd
-    records the call, its backward is the backward kernel (fp32 only).
+    anything else raises. A bf16 x runs the bf16 form of the kernels; dropout runs their
+    fp32 dropout form. When autograd records the call, its backward is the backward
+    kernel (fp32 only).
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
-              shift=shift, cross=cross, layout=layout, hw=hw, activation=activation)
+              shift=shift, cross=cross, layout=layout, hw=hw, activation=activation,
+              drop_rates=tuple(float(r) for r in drop_rates), drop_seed=drop_seed)
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                ln2_scale, ln2_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -325,7 +399,11 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
-    smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww)
+    dl.check_seed(drop_rates, drop_seed)
+    if any(drop_rates) and x.dtype != torch.float32:
+        raise NotImplementedError("the fused block kernels' dropout form is fp32 only "
+                                  "(training); bf16 training is not ported yet")
+    smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww, int(drop_rates[0] > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")

@@ -31,18 +31,28 @@ weights, as the JAX custom VJP does, and returns g_x and every weight's gradient
 ``window_attention_bwd_plain`` is the plain backward (autograd of the plain version); it
 differs from the kernel only where a score exceeds the softmax clamp of 80, whose
 derivative the kernel, like the TPU's, does not take.
+
+Dropout (training): ``attn_drop_rate`` > 0 with a ``drop_seed`` in [0, 2^24) masks the
+normalised attention weights before AV with the hash masks of the TPU kernel
+(``_attention_fwd_kernel`` l.278-290, 322-323), keyed on its wrap windows
+(``ops/dropout_layout.py``, ``"k3"``), in both versions and in the backward. The
+projection's dropout is the caller's, on the output, as in the JAX package. On a card a
+dropout call launches the kernels' dropout form, fp32 only, counted in ``DROP_LAUNCHES``
+and ``DROP_BWD_LAUNCHES`` instead of ``LAUNCHES`` and ``BWD_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from . import dropout_layout as dl
+from . import hash_dropout as hd
 from .window import apply_shift_mask, device_constant, window_partition, window_unpartition
 
 SOFTMAX_CLAMP = 80.0
@@ -51,12 +61,14 @@ MAX_STREAMS = 2  # the kernel's batched projections hold 3 * streams operands
 
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # of x and the output; weights are fp32
 
-# Calls that launched the fp32 and the bf16 forward kernels, and backward calls that
-# launched the backward kernels (one per call on a card), since the last reset; the
-# plain versions never count.
+# Calls that launched the fp32, the bf16 and the dropout forward kernels, and backward
+# calls that launched the backward kernels without and with dropout (one per call on a
+# card), since the last reset; the plain versions never count.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+DROP_LAUNCHES = 0
 BWD_LAUNCHES = 0
+DROP_BWD_LAUNCHES = 0
 
 
 def round_to_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -112,20 +124,29 @@ def _check_geometry(x: torch.Tensor, window: Tuple[int, int]) -> None:
         raise ValueError(f"map {h}x{w} is not a multiple of the window {window}")
 
 
+def attention_keying(hw, window, shift: bool, num_heads: int, dims_per_head: int,
+                     device) -> dl.Keying:
+    """K3's dropout keying of an ``hw`` map (``dropout_layout.py``, ``"k3"``)."""
+    return dl.keying("k3", hw, window, shift, num_heads, dims_per_head, device)
+
+
 def window_attention_plain(
     x, wq, bq, wk, bk, wv, bv, wp, bp, bias, *,
     window: Tuple[int, int], num_heads: int, dims_per_head: int, shift: bool, cross: bool,
+    attn_drop_rate: float = 0.0, drop_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same inputs and semantics.
 
     x: (S, B, H, W, C) fp32 or bf16; wq/wk/wv: (S, C, inner); bq/bk/bv: (S, inner); wp:
     (S, inner, C); bp: (S, C); bias: (S, T, T) gathered relative-position bias, all fp32.
     Returns (S, B, H, W, C) in x's dtype, computed in fp32 with the bf16 rounding points
-    of the module docstring when x is bf16.
+    of the module docstring when x is bf16, the attention weights masked by the hash
+    dropout of ``attn_drop_rate`` and ``drop_seed``.
     """
     _check_geometry(x, window)
+    dl.check_seed((attn_drop_rate,), drop_seed)
     rnd = operand_rounding(x.dtype == torch.bfloat16)
-    s, _, h, w, _ = x.shape
+    s, b, h, w, _ = x.shape
     t = window[0] * window[1]
     d = dims_per_head
     inner = num_heads * d
@@ -148,7 +169,13 @@ def window_attention_plain(
     if shift:
         scores = apply_shift_mask(
             scores, device_constant(wrap_region_mask, ((h, w), tuple(window)), x.device))
-    av = rnd(rnd(fast_softmax(scores)) @ rnd(v))
+    p = fast_softmax(scores)
+    if attn_drop_rate:
+        k3 = attention_keying((h, w), window, shift, num_heads, d, x.device)
+        keep = dl.attention_keep(drop_seed, attn_drop_rate, k3,
+                                 dl.windows_table(k3), s, b, num_heads)
+        p = hd.apply_mask(p, keep.reshape(p.shape), attn_drop_rate)
+    av = rnd(rnd(p) @ rnd(v))
     av = av.transpose(2, 3).reshape(s, bw, t, inner)
     out = torch.einsum("snti,sic->sntc", av, rnd(wp)) + bp[:, None, None, :]
     out = window_unpartition(out, window, (h, w))
@@ -172,13 +199,14 @@ def window_attention_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("window_attention")
-    lib.swin_window_attention_fwd.argtypes = [_P] * 15 + [_I] * 12 + [ctypes.c_float, _P]
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_window_attention_fwd.argtypes = [_P] * 15 + [drop] + [_I] * 12 + [ctypes.c_float, _P]
     lib.swin_window_attention_fwd.restype = _I
-    lib.swin_window_attention_fwd_smem.argtypes = [_I] * 3
+    lib.swin_window_attention_fwd_smem.argtypes = [_I] * 4
     lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
     lib.swin_window_attention_bwd_workspace.argtypes = [_I] * 9
     lib.swin_window_attention_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [_I] * 11 + [ctypes.c_float, _P]
+    lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 11 + [ctypes.c_float, _P]
     lib.swin_window_attention_bwd.restype = _I
     return lib
 
@@ -188,11 +216,23 @@ def _dims(x, kw):
     return (*x.shape, kw["num_heads"], kw["dims_per_head"], *kw["window"])
 
 
+def _drop_args(x, kw):
+    """The kernels' dropout arguments of a call (None without dropout); kept alive by the
+    caller until the launch returns."""
+    rate = kw.get("attn_drop_rate", 0.0)
+    if not rate:
+        return None
+    k3 = attention_keying(x.shape[2:4], kw["window"], kw["shift"], kw["num_heads"],
+                          kw["dims_per_head"], x.device)
+    return dl.drop_args(k3, (rate, 0.0, 0.0, 0.0), kw["drop_seed"])
+
+
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast."""
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     bf16 = x.dtype == torch.bfloat16
+    drop = _drop_args(x, kw)
     lib = _library()
     out = torch.empty_like(x)
     # q (scaled), k, v (fp32) and AV (x's dtype: rounded in bf16) of every token, written
@@ -202,12 +242,14 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.swin_window_attention_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(a.data_ptr() for a in scratch), s, b, h, w, c, heads, d, wh, ww,
-            int(kw["shift"]), int(kw["cross"]), int(bf16), float(d**-0.5),
+            *(a.data_ptr() for a in scratch), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
+            wh, ww, int(kw["shift"]), int(kw["cross"]), int(bf16), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention")
-    if bf16:
+    if drop is not None:
+        DROP_LAUNCHES += 1
+    elif bf16:
         BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -215,7 +257,7 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, DROP_BWD_LAUNCHES
     dims = _dims(x, kw)
     if x.dtype != torch.float32:
         raise NotImplementedError("the window attention backward is fp32 only: bf16 "
@@ -224,6 +266,7 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     g = g.contiguous()
+    drop = _drop_args(x, kw)
     lib = _library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
     workspace = x.new_empty(lib.swin_window_attention_bwd_workspace(*dims))
@@ -231,16 +274,21 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_window_attention_bwd(
-            ins, outs, workspace.data_ptr(), *dims, int(kw["shift"]), int(kw["cross"]),
-            float(kw["dims_per_head"]**-0.5), torch.cuda.current_stream().cuda_stream,
+            ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
+            int(kw["cross"]), float(kw["dims_per_head"]**-0.5),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention backward")
-    BWD_LAUNCHES += 1
+    if drop is not None:
+        DROP_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return tuple(grads)
 
 
 class _WindowAttentionFunction(torch.autograd.Function):
-    """The kernels' forward and backward; saves only x and the weights."""
+    """The kernels' forward and backward; saves only x and the weights (and, in ``kw``,
+    the dropout's rate and seed, so that the backward recomputes the forward's masks)."""
 
     @staticmethod
     def forward(ctx, kw, x, *weights):
@@ -257,16 +305,19 @@ class _WindowAttentionFunction(torch.autograd.Function):
 def window_attention(
     x, wq, bq, wk, bk, wv, bv, wp, bp, bias, *,
     window: Tuple[int, int], num_heads: int, dims_per_head: int, shift: bool, cross: bool,
+    attn_drop_rate: float = 0.0, drop_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Window attention: the plain version on the CPU, the CUDA kernels on a card.
 
     Arguments as :func:`window_attention_plain`. On a CUDA tensor every argument must be
     a contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
-    anything else raises. A bf16 x runs the bf16 form of the kernels. When autograd
-    records the call, its backward is the backward kernel (fp32 only).
+    anything else raises. A bf16 x runs the bf16 form of the kernels; dropout runs their
+    fp32 dropout form. When autograd records the call, its backward is the backward kernel
+    (fp32 only).
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
-              shift=shift, cross=cross)
+              shift=shift, cross=cross, attn_drop_rate=float(attn_drop_rate),
+              drop_seed=drop_seed)
     args = (x, wq, bq, wk, bk, wv, bv, wp, bp, bias)
     if x.device.type == "cpu":
         return window_attention_plain(*args, **kw)
@@ -292,7 +343,11 @@ def window_attention(
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {expected[name]}")
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
-    smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww)
+    dl.check_seed((attn_drop_rate,), drop_seed)
+    if attn_drop_rate and x.dtype != torch.float32:
+        raise NotImplementedError("the window attention kernels' dropout form is fp32 only "
+                                  "(training); bf16 training is not ported yet")
+    smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")

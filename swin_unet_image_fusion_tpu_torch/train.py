@@ -13,6 +13,12 @@ configuration the backward runs the backward kernels (``ops/fused_block.py``,
 TF32 stays off for the whole step, backward included (fp32 parity with the JAX
 package's ``Precision.HIGHEST``): cuBLAS matmuls and cuDNN convolutions.
 
+With a nonzero dropout ratio a step draws its per-block dropout seeds from a CPU
+``torch.Generator`` seeded from (``cfg.seed``, step): the counterpart of the JAX step's
+``fold_in(PRNGKey(cfg.seed), step)``, with other bits and the same determinism (the same
+state, batch and step number give the same step). A step with every ratio 0 draws
+nothing.
+
 The ``Trainer`` of the JAX package (data loader, TensorBoard, checkpoints) is not
 ported yet.
 """
@@ -21,8 +27,9 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import Config
@@ -72,17 +79,28 @@ def fp32_mode():
         torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
-def make_train_step(cfg: Config) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
-                                             Dict[str, torch.Tensor]]:
-    """``step(state, ir, vis) -> terms``: one update of ``state`` in place on an (B, H, W, 1)
-    pair. The gradients of the step stay in each parameter's ``.grad``."""
+def dropout_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of step ``step``'s dropout seeds under ``cfg.seed`` = ``seed``:
+    seeded with 32 bits of numpy's ``SeedSequence((seed, step))`` (the CPU generator
+    keeps only 32 bits of its seed)."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence((seed & 0xFFFFFFFF, step)).generate_state(1)[0]))
+
+
+def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(state, ir, vis, seeds=None) -> terms``: one update of ``state`` in place on
+    an (B, H, W, 1) pair. The gradients of the step stay in each parameter's ``.grad``.
+    With dropout, ``seeds`` (a sequence of per-block seeds) replaces the step's generator
+    (:func:`dropout_generator`)."""
     loss_cfg, optim_cfg = cfg.loss, cfg.optim
 
-    def step(state: TrainState, ir: torch.Tensor, vis: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, ir: torch.Tensor, vis: torch.Tensor,
+             seeds: Optional[Iterable[int]] = None) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        if model.has_dropout and seeds is None:
+            seeds = dropout_generator(cfg.seed, state.step)
         with fp32_mode():
             opt.zero_grad(set_to_none=True)
-            fusion = torch.clamp(model(ir, vis, train=True), 0.0, 1.0)
+            fusion = torch.clamp(model(ir, vis, train=True, seeds=seeds), 0.0, 1.0)
             total, terms = total_fusion_loss(loss_cfg, fusion, ir, vis)
             total.backward()
             grads = [p.grad for p in model.parameters() if p.grad is not None]

@@ -3,6 +3,8 @@ entry points refuse to run on the CPU when a CUDA device was asked for."""
 
 import ast
 import contextlib
+import ctypes
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -13,6 +15,9 @@ import torch
 from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
 from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
 from swin_unet_image_fusion_tpu_torch.ops import _build
+from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
 from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
@@ -39,6 +44,9 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch.train, swin_unet_image_fusion_tpu_torch.losses\n"
         "import swin_unet_image_fusion_tpu_torch.optim, swin_unet_image_fusion_tpu_torch.ops.ssim\n"
         "import swin_unet_image_fusion_tpu_torch.ops.edges\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.hash_dropout\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.dropout_layout\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.dropout_mask\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -93,6 +101,14 @@ def test_repartition_never_runs_the_plain_version_off_the_cpu():
                                 False, True)
 
 
+def test_dropout_masks_never_run_the_plain_version_off_the_cpu():
+    key = dl.keying("k4", (7, 7), (7, 7), False, 2, 4, "cpu")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dm.token_dropout(torch.empty(2, 1, 7, 7, 8, device="meta"), 5, hd.SITE_PROJ, 0.1, key)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dm.attention_dropout(torch.empty(2, 1, 2, 49, 49, device="meta"), 5, 0.1, key)
+
+
 def _meta_block_args(c=8, hidden=32, dtype=torch.float32):
     x = torch.empty(2, 1, 7, 7, c, device="meta", dtype=dtype)
     vec, mat = torch.empty(2, c, device="meta"), torch.empty(2, c, c, device="meta")
@@ -137,7 +153,7 @@ def fake_library(monkeypatch):
     """The wrappers' launch code with a fake library and no CUDA runtime, so that what
     they would hand the kernels can be read on the CPU."""
     lib = _FakeLibrary()
-    for module in (twa, tfb, twp):
+    for module in (twa, tfb, twp, dm):
         monkeypatch.setattr(module, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
@@ -187,6 +203,68 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
         tfb._launch_bwd(x, x, [torch.zeros(a.shape) for a in weights],
                         dict(kw, layout="image", hw=None))
     assert not fake_library.calls
+
+
+def test_dropout_launches_its_own_kernel_form(fake_library):
+    """A call with dropout hands the kernels its arguments (the keying table, the per-site
+    hash base, threshold and scale, a site of rate 0 off) and counts in the dropout
+    counters, forward and backward."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
+    x = torch.zeros(2, 1, 7, 7, 8)
+    _, weights = _meta_block_args()
+    weights = [torch.zeros(a.shape) for a in weights]
+    kw = dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=True, cross=True,
+              layout="image", hw=None, drop_rates=(0.1, 0.0, 0.25), drop_seed=5)
+    before = (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES)
+    tfb._launch_fwd(x, weights, kw)
+    tfb._launch_bwd(x, x, weights, kw)
+    assert (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES) == (
+        before[0], before[1] + 1, before[2], before[3] + 1)
+    for name in ("swin_fused_block_fwd", "swin_fused_block_bwd"):
+        args = fake_library.calls[name]
+        drop = next(a for a in args if isinstance(a, ctypes._Pointer)).contents
+        assert list(drop.on) == [1, 0, 1, 1] and drop.pairs == 0 and drop.t_pad == 56
+        assert drop.base[0] == hd.site_base(5, hd.SITE_ATTN)
+        assert drop.base[3] == hd.site_base(5, hd.SITE_MLP_OUT)
+        assert drop.threshold[2] == hd.keep_threshold(0.25) and drop.scale[2] == hd.keep_scale(0.25)
+        table, units = dl.keying_table("k4", (7, 7), (7, 7), True)
+        assert drop.units == units == 4 and drop.table != 0
+    before = (twa.LAUNCHES, twa.DROP_LAUNCHES)
+    w, b = torch.zeros(2, 8, 8), torch.zeros(2, 8)
+    attn = (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49))
+    twa._launch_fwd(x, attn, dict(kw, attn_drop_rate=0.5))
+    assert (twa.LAUNCHES, twa.DROP_LAUNCHES) == (before[0], before[1] + 1)
+    drop = fake_library.calls["swin_window_attention_fwd"][15].contents
+    assert list(drop.on) == [1, 0, 0, 0] and drop.units == 1
+
+
+def test_dropout_masks_launch_with_their_site_and_count_each_direction(fake_library):
+    """The composition's mask kernels get the keying, the one site that is on (its hash
+    base, threshold and scale) and the tensor's geometry; a recorded call counts once
+    forward and once on the gradient."""
+    key = dl.keying("k4", (14, 7), (7, 7), True, 2, 4, "cpu")
+    x = torch.zeros(2, 3, 14, 7, 8, requires_grad=True)
+    before = (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES)
+    out = dm._apply(functools.partial(dm._launch_tokens, seed=5, site=hd.SITE_MLP_OUT, rate=0.25,
+                                      key=key), x)
+    out.backward(torch.ones_like(out))
+    assert (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    args = fake_library.calls["swin_dropout_tokens"]
+    drop = args[2].contents
+    assert args[3:8] == (3, 2, 3, 98, 8), "site index, streams, images, tokens per image, columns"
+    assert list(drop.on) == [0, 0, 0, 1] and drop.base[3] == hd.site_base(5, hd.SITE_MLP_OUT)
+    assert drop.threshold[3] == hd.keep_threshold(0.25) and drop.scale[3] == hd.keep_scale(0.25)
+    assert drop.units == dl.keying_table("k4", (14, 7), (7, 7), True)[1] and drop.table != 0
+
+    before = dm.ATTN_LAUNCHES
+    dm._launch_attention(torch.zeros(2, 3 * 2, 2, 49, 49), 5, 0.5, key)
+    assert dm.ATTN_LAUNCHES == before + 1
+    args = fake_library.calls["swin_dropout_attention"]
+    drop = args[2].contents
+    assert args[3] != 0 and args[4:9] == (2, 3, 2, 49, 2), "streams, images, windows, T, heads"
+    assert list(drop.on) == [1, 0, 0, 0] and drop.t_pad == 56 and drop.attn_mode == dl.ATTN_SLOTS
 
 
 def test_kernel_build_hash_covers_the_shared_headers(monkeypatch, tmp_path):

@@ -18,7 +18,10 @@ from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
 from swin_unet_image_fusion_tpu_torch.models.from_jax import variables_from_jax
 from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
 from swin_unet_image_fusion_tpu_torch.models.unet import SwinFusionUNet
+from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
 from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
@@ -398,3 +401,118 @@ def test_tiny_bf16_model_on_card_matches_cpu(impl):
     ref = Fuser(Config(model=dataclasses.replace(cfg, attention_impl="torch")), variables,
                 device="cpu").fuse_y(ir, vis)
     assert_bf16_fidelity(out, ref, "bfloat16", f"{impl} bf16 on the card vs the CPU composition")
+
+
+# ---- the hash-dropout forms of the forward and backward kernels -----------------------------
+
+DROP_RATES = (0.5, 0.5, 0.5)  # at 0.5 a mask that differs in one element cannot hide
+DROP_SEED = 1_234_567
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_dropout_kernels_match_plain_on_card(layout, shift, cross):
+    """The dropout forms of K4 (image) and K1 (windows) with every site at rate 0.5, and
+    of K3 (its attention site), forward and backward, against the plain versions with the
+    same seed on the card: the masks must be the same element for element. Forward
+    atol/rtol 1e-4 as the fp32 kernels; gradients by ``testing.assert_grads_close``. Each
+    call counts as a dropout launch and never as a plain one."""
+    _need_card()
+    for c, hidden, hw in ((24, 96, (28, 35)), (384, 1536, (21, 21))):
+        x, weights, d = _block_args(c, hidden, hw, c + hidden + 2, layout, shift)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(c + 2)).cuda()
+        kw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross,
+                  layout=layout, hw=hw, drop_rates=DROP_RATES, drop_seed=DROP_SEED)
+        inputs = [a.requires_grad_() for a in (x, *weights)]
+        before = (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES)
+        out = tfb.fused_block(*inputs, **kw)
+        got = torch.autograd.grad(out, inputs, g)
+        torch.cuda.synchronize()
+        assert (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES) == (
+            before[0], before[1] + 1, before[2], before[3] + 1)
+        with torch.no_grad():
+            torch.testing.assert_close(out, tfb.fused_block_plain(x, *weights, **kw), atol=1e-4, rtol=1e-4)
+        assert_grads_close(got, tfb.fused_block_bwd_plain(g, x, *weights, **kw), ("x", *tfb.WEIGHT_NAMES),
+                           f"{layout} C={c}")
+        if layout == "image":
+            attn = [a.detach().requires_grad_() for a in (x, *weights[2:11])]
+            akw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross,
+                       attn_drop_rate=0.5, drop_seed=DROP_SEED)
+            before = (twa.LAUNCHES, twa.DROP_LAUNCHES, twa.BWD_LAUNCHES, twa.DROP_BWD_LAUNCHES)
+            out = twa.window_attention(*attn, **akw)
+            got = torch.autograd.grad(out, attn, g)
+            torch.cuda.synchronize()
+            assert (twa.LAUNCHES, twa.DROP_LAUNCHES, twa.BWD_LAUNCHES, twa.DROP_BWD_LAUNCHES) == (
+                before[0], before[1] + 1, before[2], before[3] + 1)
+            with torch.no_grad():
+                plain = twa.window_attention_plain(*[a.detach() for a in attn], **akw)
+            torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+            assert_grads_close(got, twa.window_attention_bwd_plain(g, *[a.detach() for a in attn], **akw),
+                               ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias"), f"K3 C={c}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [False, True])
+def test_composition_masks_match_plain_on_card(shift):
+    """The composition's mask kernels (a token site at stage-0 and C=384 widths, the
+    attention weights of a 14x21 map) against their plain versions on the card at rate
+    0.5, forward and on the gradient, bit for bit: both compute ``keep ? x * scale : 0``.
+    Each direction is one launch."""
+    _need_card()
+    gen = torch.Generator().manual_seed(int(shift) + 5)
+    for hw, cols in (((28, 35), 24), ((21, 21), 1536)):
+        key = dl.keying("k4", hw, (7, 7), shift, 8, 3, "cuda")
+        x = torch.randn(2, 3, *hw, cols, generator=gen).cuda().requires_grad_()
+        g = torch.randn(x.shape, generator=gen).cuda()
+        before = (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES)
+        out = dm.token_dropout(x, DROP_SEED, hd.SITE_MLP_HIDDEN, 0.5, key)
+        (got,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        assert (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        ref = dm.token_dropout_plain(x, DROP_SEED, hd.SITE_MLP_HIDDEN, 0.5, key)
+        assert torch.equal(out, ref) and torch.equal(got, torch.autograd.grad(ref, x, g)[0])
+    key = dl.keying("k4", (14, 21), (7, 7), shift, 8, 3, "cuda")
+    weights = torch.rand(2, 3 * 6, 8, 49, 49, generator=gen).cuda().requires_grad_()
+    g = torch.randn(weights.shape, generator=gen).cuda()
+    before = (dm.ATTN_LAUNCHES, dm.ATTN_BWD_LAUNCHES)
+    out = dm.attention_dropout(weights, DROP_SEED, 0.5, key)
+    (got,) = torch.autograd.grad(out, weights, g)
+    torch.cuda.synchronize()
+    assert (dm.ATTN_LAUNCHES, dm.ATTN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = dm.attention_dropout_plain(weights, DROP_SEED, 0.5, key)
+    assert torch.equal(out, ref) and torch.equal(got, torch.autograd.grad(ref, weights, g)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda_pack", "cuda_block"])
+def test_tiny_dropout_train_step_on_card_matches_cpu(impl):
+    """One train step of the tiny model with every dropout ratio 0.2 on the card against
+    the same configuration on the CPU (the plain versions) with the same block seeds: the
+    hash masks make the two the same function. Loss rtol 1e-5; gradients by
+    ``testing.assert_grads_close``; the dropout forms launch, the plain forms do not."""
+    _need_card()
+    from swin_unet_image_fusion_tpu_torch.config import OptimConfig
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = Config(model=dataclasses.replace(TINY, attention_impl=impl, attention_drop_ratio=0.2,
+                                           linear_after_att_drop_ratio=0.2, mlp_drop_ratio=0.2),
+                 optim=OptimConfig(lr=1e-3))
+    variables = random_variables(TINY, seed=11)
+    rng = np.random.default_rng(11)
+    ir, vis = (torch.from_numpy(rng.random((2, 28, 28, 1), dtype=np.float32)) for _ in range(2))
+    seeds = [(7_919 * (i + 1)) % (1 << 24) for i in range(16)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        state = create_train_state(cfg, variables, 10, device=device)
+        before = [(m.LAUNCHES, m.DROP_LAUNCHES, m.DROP_BWD_LAUNCHES) for m in (tfb, twa)]
+        terms = make_train_step(cfg)(state, ir.to(device), vis.to(device), seeds=seeds)
+        counts = [(m.LAUNCHES - a, m.DROP_LAUNCHES - b, m.DROP_BWD_LAUNCHES - c)
+                  for m, (a, b, c) in zip((tfb, twa), before)]
+        results[device] = (terms, {n: p.grad for n, p in state.model.named_parameters()}, counts)
+    terms, grads, counts = results["cuda"]
+    assert all(a == 0 and b == c for a, b, c in counts) and sum(b for _, b, _ in counts) > 0, counts
+    ref_terms, ref_grads, _ = results["cpu"]
+    torch.testing.assert_close(terms["total_loss"].cpu(), ref_terms["total_loss"], rtol=1e-5, atol=0)
+    assert_grads_close([grads[n].cpu() for n in ref_grads], list(ref_grads.values()), list(ref_grads))
