@@ -30,7 +30,15 @@ dropout, and the composition's mask kernels bit for bit; the first dropout train
 under each configuration with exact launch counts and repeated bit for bit; timed in
 turns with the steps without dropout; and a
 full-width step on a 112x112 map on the card against the same configuration on the CPU.
-Every phase raises on failure. The last line of standard output is
+bf16 training (``compute_dtype="bfloat16"``, the JAX package's production path): the bf16
+backward forms of K3, K1, K2 and K4 and the bf16 dropout forms, forward and backward,
+against their plain bf16 versions at the 224x224 batch-20 shapes, without dropout and at
+rates 0.1 and 0.5, their keep masks against the fp32 dropout forms', each timed in turns
+with its fp32 form, and the bf16 token masks bit for bit; the first bf16 step under each
+configuration with exact launch counts, held against the bf16 and the fp32 torch
+compositions on the card, bf16 steps timed in turns with the fp32 steps and one traced;
+the first bf16 dropout step under each configuration, repeated bit for bit. Each phase
+prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -152,12 +160,15 @@ def block_inputs(h, w, c, heads, d, hidden, seed, device, batch=1):
 
 def _bound(flops, bytes_, peak_flops=PEAK_FP32_FLOPS, int_ops=0):
     """Least time (ms) and what bounds it: the operations against the bytes at the memory
-    rate. The operations take the FLOPs at their peak; with integer work (fp32 FLOPs only)
+    rate. The operations take the FLOPs at their peak; with integer work, for fp32 FLOPs
     the larger of the INT32 pipe's time and the issue slots that the FMAs and the integer
-    instructions share."""
+    instructions share, for bf16 FLOPs (the tensor cores, which take few issue slots) the
+    larger of the tensor cores' and the INT32 pipe's times."""
     t_ops = flops / peak_flops
-    if int_ops:
+    if int_ops and peak_flops == PEAK_FP32_FLOPS:
         t_ops = max(int_ops / PEAK_INT32_OPS, t_ops + int_ops / PEAK_ISSUE_LANES)
+    elif int_ops:
+        t_ops = max(int_ops / PEAK_INT32_OPS, t_ops)
     t_bytes = bytes_ / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -172,19 +183,20 @@ def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.f
     recomputed but for the projection (its output is not needed), plus the input- and
     weight-gradient products of every matmul: three times the forward's FLOPs less the
     projection's 2*T*C*inner per window. It reads x and g and writes g_x and the weight
-    gradients. ``int_ops``: the dropout form's hash work, added to the operations."""
+    gradients. In bf16 the backward computes in fp32 (the JAX body upcasts), at the fp32
+    rate, on 2-byte x, g and g_x. ``int_ops``: the dropout form's hash work, added to the
+    operations."""
     inner = heads * d
     windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner)
     maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + T * T)
+    act = 2 if dtype == BF16 else 4  # bytes of an x, g, g_x or output element
     if backward:
-        return _bound(3 * flops - windows * 2 * T * c * inner, 4 * (3 * maps // 2 + 2 * weights),
+        return _bound(3 * flops - windows * 2 * T * c * inner, act * 3 * maps // 2 + 8 * weights,
                       int_ops=int_ops)
-    if int_ops:
-        return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
     if dtype == BF16:
-        return _bound(flops, 2 * maps + 4 * weights, PEAK_BF16_FLOPS)
-    return _bound(flops, 4 * (maps + weights))
+        return _bound(flops, 2 * maps + 4 * weights, PEAK_BF16_FLOPS, int_ops=int_ops)
+    return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
 
 
 def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False, dtype=torch.float32,
@@ -197,21 +209,21 @@ def block_bound_ms(h, w, c, heads, d, hidden, batch=1, backward=False, dtype=tor
     backward as K3's: the forward recomputed but for its last matmul, fc2, plus every
     matmul's input- and weight-gradient products, so three times the forward's FLOPs
     less fc2's 2*T*C*hidden per window; x and g read, g_x and the weight gradients
-    written. ``int_ops``: the dropout form's hash work, added to the operations."""
+    written; in bf16 at the fp32 rate (the JAX bodies upcast) on 2-byte x, g and g_x.
+    ``int_ops``: the dropout form's hash work, added to the operations."""
     inner = heads * d
     windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
     flops = windows * (8 * T * c * inner + 4 * T * T * inner + 4 * T * c * hidden)
     maps = 2 * 2 * batch * h * w * c
     weights = 2 * (4 * c * inner + 3 * inner + 6 * c + T * T + 2 * c * hidden + hidden)
+    act = 2 if dtype == BF16 else 4  # bytes of an x, g, g_x or output element
     if backward:
-        return _bound(3 * flops - windows * 2 * T * c * hidden, 4 * (3 * maps // 2 + 2 * weights),
+        return _bound(3 * flops - windows * 2 * T * c * hidden, act * 3 * maps // 2 + 8 * weights,
                       int_ops=int_ops)
-    if int_ops:
-        return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
     if dtype == BF16:
         peak = PEAK_BF16_FLOPS if layout == "image" else PEAK_FP32_FLOPS
-        return _bound(flops, 2 * maps + 4 * weights, peak)
-    return _bound(flops, 4 * (maps + weights))
+        return _bound(flops, 2 * maps + 4 * weights, peak, int_ops=int_ops)
+    return _bound(flops, 4 * (maps + weights), int_ops=int_ops)
 
 
 def repartition_bound_ms(h, w, c, batch=1, dtype=torch.float32):
@@ -402,43 +414,57 @@ def forward(fuser, ir, vis):
         return fuser.model(torch.from_numpy(ir).to(dev), torch.from_numpy(vis).to(dev)).cpu().numpy()
 
 
-def reset_counts():
-    """Every kernel wrapper's forward (fp32, bf16, dropout) and backward (without and with
-    dropout) launch count to 0, and the composition's mask kernels' counts."""
-    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+# the counters of each form, by the suffix of its kernel name
+FORM_COUNTERS = {"": "LAUNCHES", " bf16": "BF16_LAUNCHES", " bwd": "BWD_LAUNCHES",
+                 " bwd bf16": "BF16_BWD_LAUNCHES", " drop": "DROP_LAUNCHES",
+                 " drop bf16": "BF16_DROP_LAUNCHES", " drop bwd": "DROP_BWD_LAUNCHES",
+                 " drop bwd bf16": "BF16_DROP_BWD_LAUNCHES"}
+MASK_COUNTERS = {"mask tokens": "TOKEN_LAUNCHES", "mask tokens bwd": "TOKEN_BWD_LAUNCHES",
+                 "mask attention": "ATTN_LAUNCHES", "mask attention bwd": "ATTN_BWD_LAUNCHES",
+                 "mask tokens bf16": "BF16_TOKEN_LAUNCHES",
+                 "mask tokens bwd bf16": "BF16_TOKEN_BWD_LAUNCHES",
+                 "mask attention bf16": "BF16_ATTN_LAUNCHES",
+                 "mask attention bwd bf16": "BF16_ATTN_BWD_LAUNCHES"}
+
+
+def _counted():
+    """(kernel name prefix, module) of every kernel wrapper with launch counters."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
-    for m in (tfb, twa, twp):
-        m.LAUNCHES = m.BF16_LAUNCHES = m.BWD_LAUNCHES = 0
-    for m in (tfb, twa):
-        m.DROP_LAUNCHES = m.DROP_BWD_LAUNCHES = 0
-    dm.TOKEN_LAUNCHES = dm.TOKEN_BWD_LAUNCHES = dm.ATTN_LAUNCHES = dm.ATTN_BWD_LAUNCHES = 0
+    return (("K3", twa), ("K2", twp), ("fused", tfb))
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count of every form (fp32, bf16, with dropout, forward
+    and backward) to 0, and the composition's mask kernels' counts."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+
+    for _, m in _counted():
+        for counter in FORM_COUNTERS.values():
+            if hasattr(m, counter):
+                setattr(m, counter, 0)
+    for counter in MASK_COUNTERS.values():
+        setattr(dm, counter, 0)
 
 
 def read_mask_counts():
     """Launches of the composition's dropout mask kernels since the reset, forward and on
-    a gradient."""
+    a gradient, fp32 and bf16."""
     from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
 
-    return {"mask tokens": dm.TOKEN_LAUNCHES, "mask tokens bwd": dm.TOKEN_BWD_LAUNCHES,
-            "mask attention": dm.ATTN_LAUNCHES, "mask attention bwd": dm.ATTN_BWD_LAUNCHES}
+    return {name: getattr(dm, counter) for name, counter in MASK_COUNTERS.items()}
 
 
 def read_counts(impl):
-    """Forward launches of the fp32, the bf16 and the dropout kernels and backward launches
-    without and with dropout since the reset, by kernel name under ``impl``."""
-    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
-    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
-    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
-
+    """Launches of every form of every kernel since the reset, by kernel name under
+    ``impl`` (K2 has no dropout form)."""
     counts = {}
-    for name, m in (("K3", twa), ("K2", twp), (FUSED_NAME[impl], tfb)):
-        counts.update({name: m.LAUNCHES, f"{name} bf16": m.BF16_LAUNCHES,
-                       f"{name} bwd": m.BWD_LAUNCHES})
-        if m is not twp:
-            counts.update({f"{name} drop": m.DROP_LAUNCHES, f"{name} drop bwd": m.DROP_BWD_LAUNCHES})
+    for name, m in _counted():
+        name = FUSED_NAME[impl] if name == "fused" else name
+        counts.update({f"{name}{suffix}": getattr(m, counter)
+                       for suffix, counter in FORM_COUNTERS.items() if hasattr(m, counter)})
     return counts
 
 
@@ -885,7 +911,8 @@ def train_configs(flat, device, card):
     checked against the torch composition's first step on the card (loss terms to 1e-5
     relative, every parameter's gradient present, finite and within the gradient
     tolerance); then TRAIN_STEPS timed steps each, in turns, and one profiled step.
-    Returns the backward kernels' launches, the states and steps, and the inputs."""
+    Returns the backward kernels' launches, the states and steps, the inputs, and the
+    torch composition's first step (terms, gradients)."""
     from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
     from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
@@ -939,6 +966,7 @@ def train_configs(flat, device, card):
               f"error {check.worst_own:.3e} of a gradient's own largest), {len(check.zeros)} "
               f"exactly 0 (key biases, head conv1 bias) to the largest (their rounding noise "
               f"{check.zero_noise:.3e} of it)", flush=True)
+    fp32_first = first["torch"]
     del first
 
     walls = {impl: [] for impl in names}
@@ -960,7 +988,7 @@ def train_configs(flat, device, card):
               f"{peaks[impl]:.0f} MiB | {card}", flush=True)
         trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
               lambda: steps[impl](states[impl], ir, vis), median, card)
-    return launches, states, steps, (ir, vis)
+    return launches, states, steps, (ir, vis), fp32_first
 
 
 def dropout_train(flat, device, card, states, steps, inputs):
@@ -1222,11 +1250,12 @@ def check_dropout_kernels(cfg, device, card):
     return worst, results
 
 
-def mask_bound_ms(elements, table_tokens):
+def mask_bound_ms(elements, table_tokens, elem_bytes=4):
     """Least time for one launch of a composition mask: each element read and written once
     and the keying table read once, against the hash's integer work and the scale's
     multiply."""
-    return _bound(elements, 8 * elements + 8 * table_tokens, int_ops=HASH_OPS * elements)
+    return _bound(elements, 2 * elem_bytes * elements + 8 * table_tokens,
+                  int_ops=HASH_OPS * elements)
 
 
 def check_mask_kernels(cfg, device, card):
@@ -1426,6 +1455,508 @@ def dropout_parity(flat, card):
         torch.cuda.empty_cache()
 
 
+# ---- bf16 training: the bf16 backward forms and the bf16 dropout forms ------------------
+# attention_impl -> the bf16 step's launches at 224² (as in fp32, every form in bf16)
+TRAIN_BF16_CONFIGS = {
+    "cuda_pack": {"K1 bf16": 32, "K1 bwd bf16": 32, "K2 bf16": 24, "K2 bwd bf16": 24},
+    "cuda": {"K3 bf16": 32, "K3 bwd bf16": 32},
+    "cuda_block": {"K4 bf16": 32, "K4 bwd bf16": 32},
+}
+TRAIN_BF16_DROP_CONFIGS = {
+    "cuda_pack": {"K1 drop bf16": 32, "K1 drop bwd bf16": 32, "K2 bf16": 24, "K2 bwd bf16": 24},
+    "cuda": {"K3 drop bf16": 32, "K3 drop bwd bf16": 32},
+    "cuda_block": {"K4 drop bf16": 32, "K4 drop bwd bf16": 32},
+}
+# the composition's token sites are bf16 in a bf16 step; its attention weights stay fp32
+# (the softmax is fp32), so their masks are the fp32 kernel's
+TRAIN_BF16_DROP_MASKS = {
+    impl: {"mask tokens bf16": masks["mask tokens"], "mask tokens bwd bf16": masks["mask tokens bwd"],
+           "mask attention": masks["mask attention"], "mask attention bwd": masks["mask attention bwd"]}
+    for impl, masks in TRAIN_DROP_MASKS.items()}
+BF16_MAIN_PATH = {**{name: impl for impl, per in TRAIN_BF16_CONFIGS.items() for name in per
+                     if "bwd" in name},
+                  **{name: impl for impl, per in TRAIN_BF16_DROP_CONFIGS.items() for name in per
+                     if "drop" in name}}
+
+
+def _check_bf16_grads(got, ref, names, what):
+    """A bf16 backward kernel's outputs against its plain version's: g_x (bf16) by the
+    bf16 kernel criteria of :func:`compare_kernel`, every weight gradient (fp32) by
+    ``testing.assert_grads_close``. Returns the worst absolute error."""
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    if got[0].dtype != BF16 or any(g.dtype != torch.float32 for g in got[1:]):
+        raise AssertionError(f"{what}: g_x {got[0].dtype}, weight gradients "
+                             f"{sorted({str(g.dtype) for g in got[1:]})}")
+    err, _ = compare_kernel(got[0], ref[0], what + " g_x")
+    check = assert_grads_close(got[1:], ref[1:], names[1:], what)
+    return max(err, check.worst)
+
+
+def _keep_masks_match(got, fp32, names, cross, what):
+    """The keep masks of a bf16 dropout form against the fp32 form's: its backward is the
+    fp32 backward at the upcast inputs, the same kernels in the same order, so every
+    weight gradient must equal the fp32 dropout kernel's bit for bit (a mask that differs in
+    one element moves some sum), but for the LN1 scale and bias under cross, which sum the
+    q side and the k/v side in another order (JAX rounds the two sides of g_x apart).
+    Returns the share of all weight-gradient elements equal bit for bit."""
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    same = sum((a == b).sum().item() for a, b in zip(got[1:], fp32[1:]))
+    share = same / sum(a.numel() for a in got[1:])
+    print(f"{what} bwd against the fp32 dropout form at the upcast inputs: {share:.4%} of the "
+          f"weight-gradient elements equal bit for bit", flush=True)
+    apart = ("ln1_scale", "ln1_bias") if cross else ()
+    differ = [n for n, a, b in zip(names[1:], got[1:], fp32[1:]) if n not in apart and not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"{what}: the bf16 dropout form's gradients of {differ} differ from "
+                             f"the fp32 form's at the upcast inputs: its keep masks are not the same")
+    assert_grads_close(got[1:], fp32[1:], names[1:], what + " vs fp32")
+    return share
+
+
+def _new_totals():
+    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fp32_ms=0.0)
+
+
+def _add(totals, by, ms, plain_ms, bound, bound_by, fp32_ms, times=1):
+    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("fp32_ms", fp32_ms)):
+        totals[key] += times * v
+    by[bound_by] = by.get(bound_by, 0.0) + times * bound
+
+
+def _summary(name, totals, by, launches, card, results):
+    t = totals
+    print(f"[time] {name} per 224x224 batch-20 step ({launches} launches): {t['ms']:.3f} ms, fp32 "
+          f"form {t['fp32_ms']:.3f} ms ({t['ms'] / t['fp32_ms'] - 1:+.1%}, in turns), plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms | {card}", flush=True)
+    results[name] = dict(t, bound_by=max(by, key=by.get), library_ms=None)
+
+
+def check_bf16_blocks(cfg, device, card):
+    """The bf16 forms of K1 (windows layout, packed stages) and K4 (image layout) at every
+    stage 0-3 x role x shift x cross block of a 224² batch-20 step: the backward without
+    dropout and with every site at each rate of DROP_CHECK_RATES, and the dropout forward,
+    against their plain bf16 versions (the fp32 backward at the upcast inputs, g_x rounded
+    as JAX rounds it); the keep masks against the fp32 dropout form's
+    (:func:`_keep_masks_match`); then each form timed in turns with its fp32 form. Returns
+    the worst errors and per-step times."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    names = ("x", *tfb.WEIGHT_NAMES)
+    worst, results = {}, {}
+    for name, layout in (("K1", "windows"), ("K4", "image")):
+        forms = (" bwd bf16", " drop bf16", " drop bwd bf16")
+        totals, by = {f: _new_totals() for f in forms}, {f: {} for f in forms}
+        errs, bits, cases = dict.fromkeys(forms, 0.0), 1.0, 0
+        for case, x, weights in block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH):
+            cases += 1
+            xl, kw = fused_args(case, x.to(BF16), layout)
+            k, h, w, c, heads, d, role, hidden, shift, cross = case
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 11)).to(device, BF16)
+            seed = DROP_SEED + 100 * k + 10 * shift + cross + 2
+            label = (f"stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} shift={shift} "
+                     f"cross={cross}")
+            for rate in (0.0, *DROP_CHECK_RATES):
+                dkw = dict(kw, drop_rates=(rate,) * 3, drop_seed=seed) if rate else kw
+                what = f"[{name.lower()} bf16] {label} rate {rate}"
+                if rate:
+                    out = tfb.fused_block(xl, *weights, **dkw)
+                    torch.cuda.synchronize()
+                    err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
+                    errs[" drop bf16"] = max(errs[" drop bf16"], err)
+                    del out
+                got = tfb._launch_bwd(g, xl, weights, dkw)
+                torch.cuda.synchronize()
+                err = _check_bf16_grads(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), names,
+                                        what + " bwd")
+                form = " drop bwd bf16" if rate else " bwd bf16"
+                errs[form] = max(errs[form], err)
+                if rate == DROP_CHECK_RATES[-1]:  # the keep masks of the fp32 dropout form
+                    fp32 = tfb._launch_bwd(g.float(), xl.float(), weights, dkw)
+                    bits = min(bits, _keep_masks_match(got, fp32, names, cross, what))
+                    del fp32
+                del got
+            dkw = dict(kw, drop_rates=DROP_RATIOS, drop_seed=seed)
+            x32, g32 = xl.float(), g.float()
+            for form, launch, launch32, plain, iters in (
+                    (" bwd bf16", lambda: tfb._launch_bwd(g, xl, weights, kw),
+                     lambda: tfb._launch_bwd(g32, x32, weights, kw),
+                     lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **kw), 3),
+                    (" drop bf16", lambda: tfb.fused_block(xl, *weights, **dkw),
+                     lambda: tfb.fused_block(x32, *weights, **dkw),
+                     lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5),
+                    (" drop bwd bf16", lambda: tfb._launch_bwd(g, xl, weights, dkw),
+                     lambda: tfb._launch_bwd(g32, x32, weights, dkw),
+                     lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
+                fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
+                plain_ms = time_ms(plain, iters=1, warmup=1)
+                backward = "bwd" in form
+                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False, backward) if "drop" in form else 0
+                bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH, backward=backward,
+                                                 dtype=BF16, layout=layout, int_ops=ops)
+                print(f"[time] {name}{form} {label}: {ms:.4f} ms, fp32 form {fp32_ms:.4f} ms (in turns, "
+                      f"{ms / fp32_ms - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({bound_by}) | {card}", flush=True)
+                _add(totals[form], by[form], ms, plain_ms, bound, bound_by, fp32_ms)
+            del x32, g32
+            torch.cuda.empty_cache()
+        for form in forms:
+            print(f"[check] {name}{form}: worst max_abs_err {errs[form]:.3e} over {cases} blocks"
+                  + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else ""), flush=True)
+            _summary(f"{name}{form}", totals[form], by[form], cases, card, results)
+            worst[f"{name}{form}"] = errs[form]
+        print(f"[check] {name} drop bf16: the keep masks are the fp32 form's: at rate "
+              f"{DROP_CHECK_RATES[-1]} the bf16 backward's weight gradients equal the fp32 dropout "
+              f"kernel's at the upcast inputs bit for bit, but LN1's under cross (at least "
+              f"{bits:.4%} of all the elements)", flush=True)
+    return worst, results
+
+
+def check_bf16_attention(cfg, device, card):
+    """The bf16 forms of K3 at stages 0-3 of a 224² batch-20 step, every shift x cross
+    variant (each runs twice per step, encoder and decoder): the backward without dropout
+    and with the attention site at each rate of DROP_CHECK_RATES, and the dropout forward,
+    against their plain bf16 versions; the keep masks against the fp32 dropout form's; each
+    form timed in turns with its fp32 form."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+    forms = (" bwd bf16", " drop bf16", " drop bwd bf16")
+    totals, by = {f: _new_totals() for f in forms}, {f: {} for f in forms}
+    errs, bits, cases = dict.fromkeys(forms, 0.0), 1.0, 0
+    worst, results = {}, {}
+    for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
+        x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+        x = x.to(BF16)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(k + 13)).to(device, BF16)
+        x32, g32 = x.float(), g.float()
+        for shift in (False, True):
+            for cross in (False, True):
+                cases += 1
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                seed = DROP_SEED + 100 * k + 10 * shift + cross + 3
+                label = f"stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} cross={cross}"
+                for rate in (0.0, *DROP_CHECK_RATES):
+                    dkw = dict(kw, attn_drop_rate=rate, drop_seed=seed) if rate else kw
+                    what = f"[k3 bf16] {label} rate {rate}"
+                    if rate:
+                        out = twa.window_attention(x, *weights, **dkw)
+                        torch.cuda.synchronize()
+                        err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
+                        errs[" drop bf16"] = max(errs[" drop bf16"], err)
+                    got = twa._launch_bwd(g, x, weights, dkw)
+                    torch.cuda.synchronize()
+                    err = _check_bf16_grads(got, twa.window_attention_bwd_plain(g, x, *weights, **dkw),
+                                            names, what + " bwd")
+                    form = " drop bwd bf16" if rate else " bwd bf16"
+                    errs[form] = max(errs[form], err)
+                    if rate == DROP_CHECK_RATES[-1]:
+                        fp32 = twa._launch_bwd(g32, x32, weights, dkw)
+                        bits = min(bits, _keep_masks_match(got, fp32, names, False, what))
+                    del got
+                dkw = dict(kw, attn_drop_rate=DROP_RATIOS[0], drop_seed=seed)
+                for form, launch, launch32, plain, iters in (
+                        (" bwd bf16", lambda: twa._launch_bwd(g, x, weights, kw),
+                         lambda: twa._launch_bwd(g32, x32, weights, kw),
+                         lambda: twa.window_attention_bwd_plain(g, x, *weights, **kw), 3),
+                        (" drop bf16", lambda: twa.window_attention(x, *weights, **dkw),
+                         lambda: twa.window_attention(x32, *weights, **dkw),
+                         lambda: twa.window_attention_plain(x, *weights, **dkw), 5),
+                        (" drop bwd bf16", lambda: twa._launch_bwd(g, x, weights, dkw),
+                         lambda: twa._launch_bwd(g32, x32, weights, dkw),
+                         lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
+                    fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
+                    plain_ms = time_ms(plain, iters=1, warmup=1)
+                    backward = "bwd" in form
+                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, backward) if "drop" in form else 0
+                    bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=backward,
+                                                         dtype=BF16, int_ops=ops)
+                    print(f"[time] K3{form} {label}: {ms:.4f} ms, fp32 form {fp32_ms:.4f} ms (in "
+                          f"turns, {ms / fp32_ms - 1:+.1%}), plain {plain_ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                    _add(totals[form], by[form], ms, plain_ms, bound, bound_by, fp32_ms, times=2)
+        del x, g, x32, g32
+        torch.cuda.empty_cache()
+    for form in forms:
+        print(f"[check] K3{form}: worst max_abs_err {errs[form]:.3e} over {cases} shapes"
+              + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else ""), flush=True)
+        _summary(f"K3{form}", totals[form], by[form], 2 * cases, card, results)
+        worst[f"K3{form}"] = errs[form]
+    print(f"[check] K3 drop bf16: the keep masks are the fp32 form's: at rate "
+          f"{DROP_CHECK_RATES[-1]} the bf16 backward's weight gradients equal the fp32 dropout "
+          f"kernel's at the upcast inputs bit for bit ({bits:.4%} of the elements)", flush=True)
+    return worst, results
+
+
+def check_bf16_repartition(cfg, device, card):
+    """K2 bwd on bf16 gradients bit-exact against the plain inverse permutation and the
+    library call at the packed maps of a 224² batch-20 step, timed in turns with fp32."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    totals, by = dict(_new_totals(), library_ms=0.0), {}
+    for k, h, w, c, to_shift, g, perm in repartition_cases(cfg, device, TRAIN_HW, TRAIN_BATCH, BF16):
+        fwd = (h, w), WINDOW, not to_shift, to_shift
+        got = twp._launch(g, (h, w), WINDOW, to_shift, not to_shift)
+        torch.cuda.synchronize()
+        ref = twp.repartition_windows_bwd_plain(g, *fwd)
+        if (got.dtype != BF16 or not torch.equal(got, ref)
+                or not torch.equal(repartition_library(g, perm), ref)):
+            raise AssertionError(f"K2 bwd bf16 at stage {k} is not bit-exact")
+        g32 = g.float()
+        fp32_ms, ms = _in_turns(lambda: twp._launch(g32, (h, w), WINDOW, to_shift, not to_shift),
+                                lambda: twp._launch(g, (h, w), WINDOW, to_shift, not to_shift), 50, 3)
+        plain = time_ms(lambda: twp.repartition_windows_bwd_plain(g, *fwd), iters=10)
+        library = time_ms(lambda: repartition_library(g, perm), iters=50)
+        bound, _ = repartition_bound_ms(h, w, c, TRAIN_BATCH, BF16)
+        print(f"[time] K2 bwd bf16 stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift {to_shift} -> "
+              f"{not to_shift}: bit-exact, {ms:.4f} ms, fp32 {fp32_ms:.4f} ms (in turns), plain "
+              f"{plain:.4f} ms, index_select {library:.4f} ms, bound {bound:.4f} ms (bytes) | {card}",
+              flush=True)
+        times = 4 if to_shift else 2
+        _add(totals, by, ms, plain, bound, "bytes", fp32_ms, times)
+        totals["library_ms"] += times * library
+    print("[check] K2 bwd bf16: bit-exact at every packed map, both directions", flush=True)
+    results = {}
+    _summary("K2 bwd bf16", totals, by, 24, card, results)
+    results["K2 bwd bf16"]["library_ms"] = totals["library_ms"]
+    return {"K2 bwd bf16": 0.0}, results
+
+
+def check_bf16_masks(cfg, device, card):
+    """The composition's mask kernels on bf16 tensors against their plain versions, forward
+    and on a gradient, bit for bit, at the token sites of the 224² batch-20 bf16 dropout
+    step under cuda (and the attention weights' bf16 form, which no bf16 step takes: the
+    composition's softmax is fp32), with the elements kept equal to the fp32 masks'; the
+    token masks timed in turns with their fp32 form."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
+    geos = stage_geometries(cfg, TRAIN_HW)
+    totals, by, cases = _new_totals(), {}, 0
+    for k, h, w, c, heads, d in geos:
+        for shift in (False, True):
+            key = dl.keying("k4", (h, w), WINDOW, shift, heads, d, device)
+            for cols, per_step in ((c, 8), *((hidden, 2) for _, hidden in mlp_hiddens(cfg, k))):
+                cases += 1
+                site = hd.SITE_MLP_HIDDEN if cols != c else hd.SITE_PROJ
+                gen = torch.Generator().manual_seed(SEED + 37 * k + cols)
+                x = torch.randn((2, TRAIN_BATCH, h, w, cols), generator=gen).to(device, BF16)
+                g = torch.randn(x.shape, generator=gen).to(device, BF16)
+                for rate in DROP_CHECK_RATES:
+                    fn = functools.partial(dm.token_dropout, seed=DROP_SEED + k, site=site, rate=rate, key=key)
+                    plain = functools.partial(dm.token_dropout_plain, seed=DROP_SEED + k, site=site,
+                                              rate=rate, key=key)
+                    xg = x.detach().requires_grad_()
+                    out = fn(xg)
+                    (got,) = torch.autograd.grad(out, xg, g)
+                    xr = x.detach().requires_grad_()
+                    ref = plain(xr)
+                    (ref_g,) = torch.autograd.grad(ref, xr, g)
+                    fp32 = fn(x.float())
+                    same = (out.dtype == BF16 and torch.equal(out, ref) and torch.equal(got, ref_g)
+                            and torch.equal(out, fp32.to(BF16)))
+                    if not same:
+                        raise AssertionError(f"[mask tokens bf16] stage {k} cols={cols} shift={shift} "
+                                             f"rate {rate}: differs from its plain version or the fp32 mask")
+                fn = functools.partial(dm._launch_tokens, seed=DROP_SEED + k, site=site,
+                                       rate=DROP_RATIOS[1], key=key)
+                x32 = x.float()
+                fp32_ms, ms = _in_turns(lambda: fn(x32), lambda: fn(x), 20, 3)
+                plain_ms = time_ms(lambda: dm.token_dropout_plain(x, DROP_SEED + k, site, DROP_RATIOS[1],
+                                                                  key), iters=3)
+                bound, bound_by = mask_bound_ms(x.numel(), h * w, elem_bytes=2)
+                print(f"[time] mask tokens bf16 stage {k} {h}x{w}x{TRAIN_BATCH} cols={cols} "
+                      f"shift={shift}: bit-exact, {ms:.4f} ms, fp32 {fp32_ms:.4f} ms (in turns), plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), {2 * per_step} launches "
+                      f"per step | {card}", flush=True)
+                _add(totals, by, ms, plain_ms, bound, bound_by, fp32_ms, 2 * per_step)
+                del x, g
+        torch.cuda.empty_cache()
+    k, h, w, c, heads, d = geos[-1]
+    for shift in (False, True):
+        key = dl.keying("k4", (h, w), WINDOW, shift, heads, d, device)
+        n_win = (h // WINDOW[0]) * (w // WINDOW[1])
+        x = torch.rand((2, TRAIN_BATCH * n_win, heads, T, T), generator=torch.Generator().manual_seed(k))
+        x = x.to(device, BF16)
+        for rate in DROP_CHECK_RATES:
+            out = dm.attention_dropout(x, DROP_SEED + k, rate, key)
+            if not torch.equal(out, dm.attention_dropout_plain(x, DROP_SEED + k, rate, key)):
+                raise AssertionError(f"[mask attention bf16] stage {k} shift={shift} rate {rate} differs")
+    print(f"[check] mask tokens bf16: bit-exact against its plain version, forward and gradient, "
+          f"keeping the fp32 mask's elements, in {cases} shapes x rates {DROP_CHECK_RATES}; the "
+          f"attention weights' bf16 form bit-exact at stage 4", flush=True)
+    results = {}
+    _summary("mask tokens bf16", totals, by, 2 * TRAIN_DROP_MASKS["cuda"]["mask tokens"], card, results)
+    return {"mask tokens bf16": 0.0}, results
+
+
+def _first_bf16_step(cfg, flat, device, ir, vis, impl, counts, masks=None, repeat=False):
+    """The first step of a fresh train state: its exact launches (``counts``, and with
+    ``masks`` the mask kernels'), every fp32 gradient present and finite; with ``repeat``
+    the step twice from fresh states under deterministic algorithms, bit-identical.
+    Returns the state, the step, its terms and gradients, and its launches."""
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    step = make_train_step(cfg)
+    runs = []
+    for run in range(2 if repeat else 1):
+        state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.use_deterministic_algorithms(repeat)  # an op without a deterministic form raises
+        try:
+            terms = step(state, ir, vis)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got = read_counts(impl) if impl != "torch" else {}
+        if masks is not None:
+            got.update(read_mask_counts())
+        expected = dict.fromkeys(got, 0)
+        expected.update(counts)
+        expected.update(masks or {})
+        if got != expected:
+            raise AssertionError(f"bf16 {impl} train step: launches {got}, expected {expected}")
+        grads = _grads(state.model)
+        bad = [n for n, p in state.model.named_parameters()
+               if n not in grads or grads[n].dtype != torch.float32 or not torch.isfinite(grads[n]).all()]
+        if bad:
+            raise AssertionError(f"bf16 {impl}: gradients missing, not fp32 or not finite: {bad}")
+        runs.append(({k: v.item() for k, v in terms.items()}, grads))
+    if repeat:
+        (ta, ga), (tb, gb) = runs
+        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        if ta != tb or differ:
+            raise AssertionError(f"bf16 {impl} step repeated differs: {ta} vs {tb}, gradients {differ}")
+    return state, step, runs[0][0], runs[0][1], got
+
+
+def step_spread(a, b):
+    """How far step ``a`` (terms, gradients) is from step ``b``: the largest relative
+    loss-term difference, the largest gradient error relative to its tensor's largest
+    magnitude (the step's largest for a gradient that is exactly 0 by construction), and
+    the share of gradient elements off by more than 3e-2 of it (the numbers of
+    ``tests/test_torch_bf16_train.py``)."""
+    from swin_unet_image_fusion_tpu_torch.testing import exact_zero
+
+    (terms_a, grads_a), (terms_b, grads_b) = a, b
+    terms = max(abs(terms_a[k] - v) / max(abs(v), 1e-12) for k, v in terms_b.items())
+    call = max(g.abs().max().item() for g in grads_b.values())
+    worst, far, total = 0.0, 0, 0
+    for name, ref in grads_b.items():
+        scale = call if exact_zero(name) else max(ref.abs().max().item(), 1e-30)
+        err = (grads_a[name] - ref).abs() / scale
+        worst = max(worst, err.max().item())
+        far += (err > 3e-2).sum().item()
+        total += ref.numel()
+    return terms, worst, far / total
+
+
+def bf16_train(flat, device, card, states, steps, inputs, fp32_first):
+    """bf16 training, the main paths of this slice: the first bf16 step of the full model
+    at 224² batch 20 under the torch composition and each kernel configuration, with exact
+    launch counts; each kernel configuration's held against the bf16 composition's and
+    against the fp32 composition's first step at the same weights: as close to the fp32
+    step, in each number of :func:`step_spread`, as twice the bf16 composition is, and to
+    the bf16 composition as three times that (the triangle); then TRAIN_STEPS bf16 steps
+    in turns with the fp32 steps, peak memory, and one profiled bf16 step each. Then the
+    bf16 dropout step (every ratio 0.1) per configuration with exact launch counts (the
+    dropout forms and the mask kernels), repeated bit for bit under deterministic
+    algorithms. Returns the bf16 backward and dropout kernels' launches."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+
+    ir, vis = inputs
+    launches, first, bf16_states, bf16_steps = {}, {}, {}, {}
+    for impl in ("torch", *TRAIN_BF16_CONFIGS):
+        t = time.perf_counter()
+        cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype="bfloat16"))
+        state, step, terms, grads, got = _first_bf16_step(cfg, flat, device, ir, vis, impl,
+                                                           TRAIN_BF16_CONFIGS.get(impl, {}))
+        bf16_states[impl], bf16_steps[impl], first[impl] = state, step, (terms, grads)
+        launches.update({n: c for n, c in got.items() if BF16_MAIN_PATH.get(n) == impl and "drop" not in n})
+        print(f"[train] bf16 {impl} first step ({time.perf_counter() - t:.1f} s): launches "
+              f"{ {n: c for n, c in got.items() if c} }; " + ", ".join(f"{k} {v:.7g}" for k, v in terms.items())
+              + f"; all {len(grads)} parameter gradients present, fp32 and finite", flush=True)
+    base = step_spread(first["torch"], fp32_first)
+    print(f"[parity] bf16 torch composition step 1 vs the fp32 composition's: loss terms "
+          f"{base[0]:.3e} relative, gradients worst {base[1]:.4f} of their own largest, "
+          f"{base[2]:.4%} of the elements off by > 3e-2", flush=True)
+    for impl in TRAIN_BF16_CONFIGS:
+        to32 = step_spread(first[impl], fp32_first)
+        to16 = step_spread(first[impl], first["torch"])
+        print(f"[parity] bf16 {impl} step 1: vs the fp32 composition loss terms {to32[0]:.3e}, "
+              f"gradients worst {to32[1]:.4f}, {to32[2]:.4%} off; vs the bf16 composition "
+              f"{to16[0]:.3e}, {to16[1]:.4f}, {to16[2]:.4%} off (bounds {2 * base[0]:.3e}, "
+              f"{2 * base[1]:.4f}, {2 * base[2]:.4%} and three times the composition's)", flush=True)
+        if any(a > 2 * b for a, b in zip(to32, base)) or any(a > 3 * b for a, b in zip(to16, base)):
+            raise AssertionError(f"bf16 {impl} step 1 is farther from the fp32 step ({to32}) or the "
+                                 f"bf16 composition ({to16}) than the composition's spread {base} allows")
+    del first
+
+    names = tuple(TRAIN_BF16_CONFIGS)
+    walls = {f"{impl}{dt}": [] for impl in names for dt in ("", " bf16")}
+    peaks, own = dict.fromkeys(walls, 0.0), dict.fromkeys(walls, 0.0)
+    for _ in range(TRAIN_STEPS):
+        for impl in names:
+            for dt, state, step in (("", states[impl], steps[impl]),
+                                    (" bf16", bf16_states[impl], bf16_steps[impl])):
+                others = torch.cuda.memory_allocated() - state_bytes(state)
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                step(state, ir, vis)
+                torch.cuda.synchronize()
+                walls[impl + dt].append(1e3 * (time.perf_counter() - t))
+                peak = torch.cuda.max_memory_allocated()
+                peaks[impl + dt] = max(peaks[impl + dt], peak / 2**20)
+                own[impl + dt] = max(own[impl + dt], (peak - others) / 2**20)
+    median = {k: float(np.median(w)) for k, w in walls.items()}
+    for impl in names:
+        w = walls[f"{impl} bf16"]
+        print(f"[train] bf16 step 224x224 bs={TRAIN_BATCH} ({impl}), {TRAIN_STEPS} steps in turns "
+              f"with fp32: median {median[impl + ' bf16']:.2f} ms/step (fp32 {median[impl]:.2f}, "
+              f"{median[impl + ' bf16'] / median[impl] - 1:+.1%}), min {min(w):.2f}, max {max(w):.2f}, "
+              f"peak memory {peaks[impl + ' bf16']:.0f} MiB as read, {own[impl + ' bf16']:.0f} MiB less "
+              f"the other train states (fp32 {peaks[impl]:.0f}, {own[impl]:.0f} MiB) | {card}",
+              flush=True)
+        trace(f"train step 224x224 bs={TRAIN_BATCH} ({impl}, bf16)", f"train bf16 {impl}",
+              lambda: bf16_steps[impl](bf16_states[impl], ir, vis), median[impl + " bf16"], card)
+    del bf16_states, bf16_steps
+    torch.cuda.empty_cache()
+
+    ratios = dict(zip(("attention_drop_ratio", "linear_after_att_drop_ratio", "mlp_drop_ratio"),
+                      DROP_RATIOS))
+    for impl, per_step in TRAIN_BF16_DROP_CONFIGS.items():
+        t = time.perf_counter()
+        cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype="bfloat16", **ratios))
+        state, _, terms, grads, got = _first_bf16_step(cfg, flat, device, ir, vis, impl, per_step,
+                                                       TRAIN_BF16_DROP_MASKS[impl], repeat=True)
+        launches.update({n: c for n, c in got.items() if BF16_MAIN_PATH.get(n) == impl and "drop" in n})
+        if impl == MASK_MAIN_PATH:  # one kernel, forward and on the gradient
+            launches["mask tokens bf16"] = got["mask tokens bf16"] + got["mask tokens bwd bf16"]
+        print(f"[train] bf16 dropout {impl} first step ({time.perf_counter() - t:.1f} s, twice): "
+              f"launches { {n: c for n, c in got.items() if c} }; "
+              + ", ".join(f"{k} {v:.7g}" for k, v in terms.items())
+              + f"; all {len(grads)} parameter gradients present, fp32 and finite; repeated from a "
+              f"second state under deterministic algorithms: bit-identical", flush=True)
+        del state, grads
+        torch.cuda.empty_cache()
+    return launches
+
+
+class Phases:
+    """Prints each phase's wall seconds on its own line, and the run's so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - self.last:.1f} s (run {now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1446,9 +1977,9 @@ def main() -> int:
           f"{kind} x{count} | allow_bf16_reduced_precision_reduction "
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
-    t0 = time.perf_counter()
+    phase = Phases()
     _build.build_all()
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("build")
 
     cfg = ModelConfig()
     worst = {}
@@ -1456,6 +1987,7 @@ def main() -> int:
         worst.update({f"K3{tag(dtype)}": check_attention_kernel(cfg, device, dtype),
                       **check_fused_block(cfg, device, dtype),
                       f"K2{tag(dtype)}": check_repartition(cfg, device, dtype)})
+    phase("[check] forward kernels, fp32 and bf16")
 
     flat = random_variables(cfg, seed=SEED)
 
@@ -1469,9 +2001,11 @@ def main() -> int:
     cpu_fuser = fuser("auto", on="cpu")
     launches = serve_configs(fusers, plain_fuser, cpu_fuser)
     launches.update(serve_configs(fusers16, plain16, None, BF16, plain_fuser))
+    phase("[serve] fp32 and bf16")
 
     times = {**time_kernels(cfg, device, card), **time_kernels(cfg, device, card, BF16),
              **time_repartition(cfg, device, card)}
+    phase("[time] forward kernels")
 
     # the configurations take turns, fp32 and bf16 alike
     served = {**fusers, **{f"{impl} bf16": f for impl, f in fusers16.items()},
@@ -1483,24 +2017,35 @@ def main() -> int:
     throughput({name: f for name, f in served.items() if not name.startswith("torch")}, card)
     del fusers, fusers16, plain_fuser, plain16, cpu_fuser, served
     torch.cuda.empty_cache()
+    phase("[latency], [trace] and [throughput] of serving")
 
-    t0 = time.perf_counter()
     bwd = {**train_block_backward(cfg, device, card), "K3 bwd": train_attention_backward(cfg, device, card),
            "K2 bwd": train_repartition_backward(cfg, device, card)}
     torch.cuda.empty_cache()
+    phase("[check] and [time] of the backward kernels")
     drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
     torch.cuda.empty_cache()
     mask_worst, mask_times = check_mask_kernels(cfg, device, card)
     drop_worst.update(mask_worst)
     drop_times.update(mask_times)
-    train_launches, states, steps, inputs = train_configs(flat, device, card)
+    phase("[check] and [time] of the dropout forms and the mask kernels")
+    for check in (check_bf16_blocks, check_bf16_attention, check_bf16_repartition, check_bf16_masks):
+        bf16_worst, bf16_times = check(cfg, device, card)
+        drop_worst.update(bf16_worst)
+        drop_times.update(bf16_times)
+        torch.cuda.empty_cache()
+    phase("[check] and [time] of the bf16 backward and dropout forms and the bf16 mask kernels")
+    train_launches, states, steps, inputs, fp32_first = train_configs(flat, device, card)
     launches.update(train_launches)
+    phase("[train] fp32")
     launches.update(dropout_train(flat, device, card, states, steps, inputs))
-    del states, steps, inputs
+    phase("[train] dropout")
+    launches.update(bf16_train(flat, device, card, states, steps, inputs, fp32_first))
+    del states, steps, inputs, fp32_first
     torch.cuda.empty_cache()
+    phase("[train] bf16 and bf16 dropout")
     dropout_parity(flat, card)
-    print(f"[train] backward and dropout checks, train steps and traces took "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase("[parity] dropout, card vs CPU")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -1546,6 +2091,30 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/models/layers.py:365"),
         ("mask attention", "dropout_attention, the composition's attention-weight masks",
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:248"),
+        # bf16 training: the bf16 backward forms (fp32 inside, as the JAX bodies upcast) and
+        # the bf16 dropout forms, forward and backward
+        ("K3 bwd bf16", "window_attention_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
+        ("K1 bwd bf16", "fused_block_bwd bf16, windows layout (K1 bwd bf16)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
+        ("K2 bwd bf16", "repartition_bwd bf16 (K2 bwd bf16)", f"{csrc}/repartition.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
+        ("K4 bwd bf16", "fused_block_bwd bf16, image layout (K4 bwd bf16)", f"{csrc}/fused_block.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
+        ("K3 drop bf16", "window_attention_fwd bf16 with hash dropout (K3 drop bf16)",
+         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
+        ("K3 drop bwd bf16", "window_attention_bwd bf16 with hash dropout (K3 drop bwd bf16)",
+         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
+        ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+        ("K1 drop bwd bf16", "fused_block_bwd bf16 with hash dropout, windows layout (K1 drop bwd bf16)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
+        ("K4 drop bf16", "fused_block_fwd bf16 with hash dropout, image layout (K4 drop bf16)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+        ("K4 drop bwd bf16", "fused_block_bwd bf16 with hash dropout, image layout (K4 drop bwd bf16)",
+         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
+        ("mask tokens bf16", "dropout_tokens bf16, the composition's proj/MLP masks in a bf16 step",
+         f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:365"),
     )
     times.update(bwd)
     times.update(drop_times)

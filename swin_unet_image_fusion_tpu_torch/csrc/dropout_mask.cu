@@ -1,4 +1,4 @@
-// Hash-dropout masks of the composition's sites, fp32, for Hopper (sm_90a).
+// Hash-dropout masks of the composition's sites, fp32 or bf16, for Hopper (sm_90a).
 //
 // The JAX package applies flax's nn.Dropout where a block runs outside its Pallas kernels
 // (swin_unet_image_fusion_tpu/models/layers.py:248 on the attention weights, l.259 and
@@ -12,11 +12,13 @@
 //   dropout_attn_kernel  the attention weights (S, B*nWin, heads, T, T) of the composition's
 //                        windows, whose tokens' (unit, slot) a (nWin, T) table gives.
 // out = keep ? in * scale : 0, with scale = float32(1 / (1 - rate)): the plain version's
-// torch.where(keep, x * scale, 0) bit for bit. The backward of a mask is the same launch
-// on the output's gradient. `out` may be `in`.
+// torch.where(keep, x * scale, 0) bit for bit. In bf16 (the composition of a bf16 training
+// step) the product is taken in fp32 and rounded once, as PyTorch multiplies a bf16
+// tensor by a float. The backward of a mask is the same launch on the output's gradient.
+// `out` may be `in`.
 //
-// What bounds it: each element is read and written once (8 bytes) against ~11 integer
-// operations of the hash, so device memory bounds it.
+// What bounds it: each element is read and written once (8 bytes in fp32, 4 in bf16)
+// against ~11 integer operations of the hash, so device memory bounds it.
 
 #include "window_core.cuh"
 
@@ -26,9 +28,10 @@ namespace {
 
 constexpr int kAttnThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-    dropout_attn_kernel(const float* in, float* out, DropSite d, const int2* windows, int n_win,
-                        int t, int heads) {
+    dropout_attn_kernel(const T* in, T* out, DropSite d, const int2* windows, int n_win, int t,
+                        int heads) {
   const size_t per_stream = static_cast<size_t>(d.B) * n_win * heads * t * t;
   const size_t i = static_cast<size_t>(blockIdx.x) * kAttnThreads + threadIdx.x;
   if (i >= per_stream) return;
@@ -43,9 +46,10 @@ __global__ void __launch_bounds__(kAttnThreads)
   const uint32_t unit = (blockIdx.y * static_cast<uint32_t>(d.B) + static_cast<uint32_t>(b)) *
                             static_cast<uint32_t>(d.units) + static_cast<uint32_t>(eq.x);
   const size_t at = blockIdx.y * per_stream + i;
-  const float v = in[at];
-  out[at] = hash_keep(fmix32(unit ^ d.base), attn_intra(d, h, eq.y, ek.y, heads), d.threshold)
-                ? v * d.scale : 0.0f;
+  const float v = to_float(in[at]);
+  out[at] = from_float<T>(
+      hash_keep(fmix32(unit ^ d.base), attn_intra(d, h, eq.y, ek.y, heads), d.threshold)
+          ? v * d.scale : 0.0f);
 }
 
 }  // namespace
@@ -53,31 +57,45 @@ __global__ void __launch_bounds__(kAttnThreads)
 extern "C" {
 
 // The mask of token site `site` (kSiteProj, kSiteHidden or kSiteOut) applied to `in`
-// (S, B, H*W tokens in image order, cols) into `out`, on `stream`. drop->table holds each
-// token's (unit, slot). Returns cudaGetLastError() after the launch (0 = ok).
-int swin_dropout_tokens(const float* in, float* out, const DropArgs* drop, int site, int S,
-                        int B, int hw, int cols, void* stream) {
+// (S, B, H*W tokens in image order, cols) into `out`, both fp32 or both bf16 (`bf16`), on
+// `stream`. drop->table holds each token's (unit, slot). Returns cudaGetLastError() after
+// the launch (0 = ok).
+int swin_dropout_tokens(const void* in, void* out, const DropArgs* drop, int site, int S, int B,
+                        int hw, int cols, int bf16_io, void* stream) {
   if (site <= kSiteAttn || site >= kNumSites || !drop_on(drop, site))
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<size_t>(B) * hw * cols == 0) return 0;
-  launch_dropout_rows(in, out, drop_site(drop, site, hw, B), B * hw, cols, S,
-                      static_cast<cudaStream_t>(stream));
+  const DropSite d = drop_site(drop, site, hw, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_io)
+    launch_dropout_rows(static_cast<const bf16*>(in), static_cast<bf16*>(out), d, B * hw, cols, S,
+                        st);
+  else
+    launch_dropout_rows(static_cast<const float*>(in), static_cast<float*>(out), d, B * hw, cols,
+                        S, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The attention site's mask applied to the weights `in` (S, B*n_win, heads, t, t) into
-// `out`, on `stream`; `windows` (n_win, t, 2) holds the (unit, slot) of each window's
-// tokens. Returns cudaGetLastError() after the launch (0 = ok).
-int swin_dropout_attention(const float* in, float* out, const DropArgs* drop, const int* windows,
-                           int S, int B, int n_win, int t, int heads, void* stream) {
+// `out`, both fp32 or both bf16 (`bf16`), on `stream`; `windows` (n_win, t, 2) holds the
+// (unit, slot) of each window's tokens. Returns cudaGetLastError() after the launch (0 = ok).
+int swin_dropout_attention(const void* in, void* out, const DropArgs* drop, const int* windows,
+                           int S, int B, int n_win, int t, int heads, int bf16_io, void* stream) {
   if (!drop_on(drop, kSiteAttn)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t n = static_cast<size_t>(B) * n_win * heads * t * t;
   if (n == 0) return 0;
   const dim3 grid(static_cast<unsigned>((n + kAttnThreads - 1) / kAttnThreads), S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dropout_attn_kernel<<<grid, kAttnThreads, 0, st>>>(in, out, drop_site(drop, kSiteAttn, 0, B),
-                                                     reinterpret_cast<const int2*>(windows),
-                                                     n_win, t, heads);
+  const DropSite d = drop_site(drop, kSiteAttn, 0, B);
+  const int2* win = reinterpret_cast<const int2*>(windows);
+  if (bf16_io)
+    dropout_attn_kernel<<<grid, kAttnThreads, 0, st>>>(static_cast<const bf16*>(in),
+                                                       static_cast<bf16*>(out), d, win, n_win, t,
+                                                       heads);
+  else
+    dropout_attn_kernel<<<grid, kAttnThreads, 0, st>>>(static_cast<const float*>(in),
+                                                       static_cast<float*>(out), d, win, n_win, t,
+                                                       heads);
   return static_cast<int>(cudaGetLastError());
 }
 

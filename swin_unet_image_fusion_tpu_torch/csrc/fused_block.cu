@@ -70,6 +70,14 @@
 // and the k/v side that read r: the JAX kernels' kv-slot LN1 gradients land in the other
 // stream's slot, here by construction. In self mode the same sum is the JAX kernels' LN
 // backward of g_lnx + g_lnkv.
+// bf16 backward (training at compute_dtype=bfloat16): both JAX bodies upcast x, kv and g
+// and recompute and backpropagate in fp32 with fp32 weights (K4 l.278-293, 337-340,
+// 397-400; K1 l.792-794), so K1 and K4 alike run the fp32 code above with x and g upcast
+// as they are loaded; the weight gradients stay fp32 and g_x is rounded once on the LN1
+// backward's store. Under cross JAX writes gx (the residual and q side) and gkv (the k/v
+// side, at the stream whose rows k/v read) in x's dtype and adds the two in bf16 (K4
+// l.439-449), so here the attention backward keeps the k/v side of LN1's gradient apart
+// and the LN1 backward stores rnd(rnd(g_y + q side) + rnd(k/v side)).
 // What bounds it: the fp32 rate, as the forward, at about three times the forward's
 // matmul work (recompute, input gradients, weight gradients). The scratch of a stage-0
 // block at 224x224 batch 20 is about 1.1 GB (activations and gradients of 250,880 tokens
@@ -175,13 +183,15 @@ enum In { kX, kLn1g, kLn1b, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kLn2g
 struct BlockBwdScratch {
   float *lnx, *stats1, *q, *k, *v, *o, *y, *lny, *stats2, *h, *gpre, *glny, *gy, *gln;
   float *gm, *gproj;  // the masked gradients of the MLP output and of proj (dropout only)
+  float *glnkv;       // the k/v side of LN1's gradient, kept apart (bf16 under cross only)
   float *ln1_part, *ln2_part, *w1_part, *w2_part;
   WgradPlan w1_plan, w2_plan;
   AttnBwdScratch attn;
 };
 
 BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, int heads,
-                                int d, int hidden, int wh, int ww, const DropArgs* drop) {
+                                int d, int hidden, int wh, int ww, const DropArgs* drop,
+                                bool split_kv) {
   BlockBwdScratch sc;
   const int inner = heads * d;
   const size_t M = static_cast<size_t>(B) * H * W;
@@ -201,6 +211,7 @@ BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, in
   sc.gln = ar.take(S * M * C);
   sc.gm = drop_on(drop, kSiteOut) ? ar.take(S * M * C) : nullptr;
   sc.gproj = drop_on(drop, kSiteProj) ? ar.take(S * M * C) : nullptr;
+  sc.glnkv = split_kv ? ar.take(S * M * C) : nullptr;
   const size_t ln_blocks = ln_bwd_blocks(static_cast<int>(M));
   sc.ln1_part = ar.take(S * ln_blocks * 2 * C);
   sc.ln2_part = ar.take(S * ln_blocks * 2 * C);
@@ -212,23 +223,84 @@ BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, in
   return sc;
 }
 
-template <bool kWindows>
+// The MLP's backward from the gradient gmlp of its output (TG: the block's g, or its
+// masked fp32 copy under the MLP-out dropout): g_pre1 = drop(gmlp w2^T) * ELU'(h), the
+// hidden masked in place for w2's gradient, g_lny = g_pre1 w1^T, and the w1, w2 weight
+// gradients' partials, whose reductions it queues.
+template <typename TG>
+bool mlp_bwd(const BlockBwdScratch& sc, const TG* gmlp, const float* const* in,
+             float* const* out, ReduceJobs& jobs, int S, int M, int C, int hidden, int hw, int B,
+             const DropArgs* drop, cudaStream_t st) {
+  const size_t x_stream = static_cast<size_t>(M) * C;
+  const size_t m_stream = static_cast<size_t>(M) * hidden;
+  GemmBatchT<TG> gpre = {};
+  GemmBatch glny = {};
+  for (int s = 0; s < S; ++s) {
+    gpre.a[s] = gmlp + s * x_stream;
+    gpre.b[s] = in[kW2] + static_cast<size_t>(s) * hidden * C;  // (hidden, C) = (N, K)
+    gpre.res[s] = sc.h + s * m_stream;
+    gpre.c[s] = sc.gpre + s * m_stream;
+    gpre.alpha[s] = 1.0f;
+
+    glny.a[s] = sc.gpre + s * m_stream;
+    glny.b[s] = in[kW1] + static_cast<size_t>(s) * C * hidden;  // (C, hidden) = (N, K)
+    glny.c[s] = sc.glny + s * x_stream;
+    glny.alpha[s] = 1.0f;
+  }
+  launch_gemm_site<false, false, false, false, true, true>(gpre, M, hidden, C, S, st, drop,
+                                                           kSiteHidden, hw, B);
+  if (drop_on(drop, kSiteHidden))  // the dropped hidden that fc2 read, for w2's gradient
+    launch_dropout_rows(sc.h, sc.h, drop_site(drop, kSiteHidden, hw, B), M, hidden, S, st);
+  launch_gemm<false, false, false, false, true>(glny, M, C, hidden, S, st);
+
+  WgradBatchT<float, TG> w2b = {};
+  WgradBatch w1b = {};
+  for (int s = 0; s < S; ++s) {
+    w2b.a[s] = sc.h + s * m_stream;
+    w2b.b[s] = gmlp + s * x_stream;
+    w2b.part[s] = sc.w2_part + static_cast<size_t>(s) * sc.w2_plan.chunks * (hidden + 1) * C;
+    w1b.a[s] = sc.lny + s * x_stream;
+    w1b.b[s] = sc.gpre + s * m_stream;
+    w1b.part[s] = sc.w1_part + static_cast<size_t>(s) * sc.w1_plan.chunks * (C + 1) * hidden;
+  }
+  launch_wgrad(w2b, sc.w2_plan, M, hidden, C, S, st);
+  launch_wgrad(w1b, sc.w1_plan, M, C, hidden, S, st);
+  bool ok = true;
+  for (int s = 0; s < S; ++s) {
+    ok &= jobs.add(w2b.part[s], sc.w2_plan.chunks, (hidden + 1) * C, hidden * C,
+                   out[kW2] + static_cast<size_t>(s) * hidden * C, out[kB2] + static_cast<size_t>(s) * C);
+    ok &= jobs.add(w1b.part[s], sc.w1_plan.chunks, (C + 1) * hidden, C * hidden,
+                   out[kW1] + static_cast<size_t>(s) * C * hidden,
+                   out[kB1] + static_cast<size_t>(s) * hidden);
+  }
+  return ok;
+}
+
+// The backward with x, g and g_x of type TX (fp32 arithmetic in both: the JAX bodies
+// upcast a bf16 x and g). A bf16 g_x under cross is rnd(rnd(g_y + LN1 bwd of the q side)
+// + rnd(LN1 bwd of the k/v side that read these rows)), the sum of the JAX kernels' gx
+// and gkv outputs in x's dtype; otherwise it is rounded once.
+template <bool kWindows, typename TX>
 int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H,
                     int W, int C, int heads, int d, int hidden, int wh, int ww, int shift,
                     int cross, float scale, const DropArgs* drop, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<TX, bf16>::value;
+  const bool split_kv = kBf16 && cross != 0;
   const int inner = heads * d;
   const int M = B * H * W;
   const size_t x_stream = static_cast<size_t>(M) * C;
   const size_t h_stream = static_cast<size_t>(M) * inner;
   const size_t m_stream = static_cast<size_t>(M) * hidden;
   Arena ar{ws};
-  const BlockBwdScratch sc = carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop);
-  const float* x = in[kX];
-  const float* g = in[kG];
+  const BlockBwdScratch sc =
+      carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop, split_kv);
+  const TX* x = reinterpret_cast<const TX*>(in[kX]);
+  const TX* g = reinterpret_cast<const TX*>(in[kG]);
+  TX* gx = reinterpret_cast<TX*>(out[0]);
   const int hw = H * W;
 
-  // ---- recompute the forward ----
-  LnBatch ln1 = {};
+  // ---- recompute the forward (fp32 throughout, x upcast as it is loaded) ----
+  LnBatchT<TX> ln1 = {};
   for (int s = 0; s < S; ++s) {
     ln1.x[s] = x + s * x_stream;
     ln1.gamma[s] = in[kLn1g] + static_cast<size_t>(s) * C;
@@ -246,7 +318,8 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
                                           d, wh, ww, shift != 0, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmBatch proj = {}, fc1 = {};
+  GemmBatchT<float, TX, float> proj = {};
+  GemmBatch fc1 = {};
   LnBatch ln2 = {};
   for (int s = 0; s < S; ++s) {
     proj.a[s] = sc.o + s * h_stream;
@@ -273,25 +346,17 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
   launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);  // h unmasked: ELU' needs it
 
   // ---- MLP and LN2 backward; under dropout the MLP sees the masked g ----
-  const float* gmlp = g;
+  ReduceJobs jobs = {};
+  bool ok;
   if (drop_on(drop, kSiteOut)) {
     launch_dropout_rows(g, sc.gm, drop_site(drop, kSiteOut, hw, B), M, C, S, st);
-    gmlp = sc.gm;
+    ok = mlp_bwd(sc, static_cast<const float*>(sc.gm), in, out, jobs, S, M, C, hidden, hw, B,
+                 drop, st);
+  } else {
+    ok = mlp_bwd(sc, g, in, out, jobs, S, M, C, hidden, hw, B, drop, st);
   }
-  GemmBatch gpre = {}, glny = {};
-  LnBwdBatch ln2b = {};
+  LnBwdBatchT<float, TX, float> ln2b = {};
   for (int s = 0; s < S; ++s) {
-    gpre.a[s] = gmlp + s * x_stream;
-    gpre.b[s] = in[kW2] + static_cast<size_t>(s) * hidden * C;  // (hidden, C) = (N, K)
-    gpre.res[s] = sc.h + s * m_stream;
-    gpre.c[s] = sc.gpre + s * m_stream;
-    gpre.alpha[s] = 1.0f;
-
-    glny.a[s] = sc.gpre + s * m_stream;
-    glny.b[s] = in[kW1] + static_cast<size_t>(s) * C * hidden;  // (C, hidden) = (N, K)
-    glny.c[s] = sc.glny + s * x_stream;
-    glny.alpha[s] = 1.0f;
-
     ln2b.g[s] = sc.glny + s * x_stream;
     ln2b.x[s] = sc.y + s * x_stream;
     ln2b.stats[s] = sc.stats2 + s * 2 * static_cast<size_t>(M);
@@ -300,61 +365,41 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
     ln2b.gx[s] = sc.gy + s * x_stream;
     ln2b.part[s] = sc.ln2_part + s * static_cast<size_t>(ln_bwd_blocks(M)) * 2 * C;
   }
-  launch_gemm_site<false, false, false, false, true, true>(gpre, M, hidden, C, S, st, drop,
-                                                           kSiteHidden, hw, B);
-  if (drop_on(drop, kSiteHidden))  // the dropped hidden that fc2 read, for w2's gradient
-    launch_dropout_rows(sc.h, sc.h, drop_site(drop, kSiteHidden, hw, B), M, hidden, S, st);
-  launch_gemm<false, false, false, false, true>(glny, M, C, hidden, S, st);
   launch_ln_bwd(ln2b, M, C, S, st);
 
-  // ---- attention backward, into g_ln; proj's gradient is g_y through proj's mask ----
+  // ---- attention backward, into g_ln (and g_lnkv); proj's gradient is g_y through
+  // proj's mask ----
   const float* gattn = sc.gy;
   if (drop_on(drop, kSiteProj)) {
     launch_dropout_rows(sc.gy, sc.gproj, drop_site(drop, kSiteProj, hw, B), M, C, S, st);
     gattn = sc.gproj;
   }
-  ReduceJobs jobs = {};
   const AttnGrads ag = {out[kWq], out[kBq], out[kWk], out[kBk], out[kWv],
                         out[kBv], out[kWp], out[kBp], out[kBias]};
-  err = attention_bwd<kWindows>(sc.attn, sc.lnx, sc.q, sc.k, sc.v, sc.o, gattn, in[kWq],
-                                in[kWk], in[kWv], in[kWp], in[kBias], sc.gln, ag, jobs, S, B,
-                                H, W, C, heads, d, wh, ww, shift != 0, cross != 0, scale, st,
-                                drop);
+  err = attention_bwd<kWindows>(sc.attn, static_cast<const float*>(sc.lnx), sc.q, sc.k, sc.v,
+                                sc.o, gattn, in[kWq], in[kWk], in[kWv], in[kWp], in[kBias],
+                                sc.gln, sc.glnkv, ag, jobs, S, B, H, W, C, heads, d, wh, ww,
+                                shift != 0, cross != 0, scale, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // ---- LN1 backward: g_x = g_y + LN1 bwd(g_ln) ----
-  LnBwdBatch ln1b = {};
+  LnBwdBatchT<TX, float, TX> ln1b = {};
   for (int s = 0; s < S; ++s) {
     ln1b.g[s] = sc.gln + s * x_stream;
+    if (split_kv) ln1b.g2[s] = sc.glnkv + s * x_stream;
     ln1b.x[s] = x + s * x_stream;
     ln1b.stats[s] = sc.stats1 + s * 2 * static_cast<size_t>(M);
     ln1b.gamma[s] = in[kLn1g] + static_cast<size_t>(s) * C;
     ln1b.res[s] = sc.gy + s * x_stream;
-    ln1b.gx[s] = out[0] + s * x_stream;
+    ln1b.gx[s] = gx + s * x_stream;
     ln1b.part[s] = sc.ln1_part + s * static_cast<size_t>(ln_bwd_blocks(M)) * 2 * C;
   }
-  launch_ln_bwd(ln1b, M, C, S, st);
+  if (split_kv) launch_ln_bwd<true>(ln1b, M, C, S, st);
+  else launch_ln_bwd(ln1b, M, C, S, st);
 
-  // ---- MLP weight gradients, then every reduction ----
-  WgradBatch w2b = {}, w1b = {};
-  for (int s = 0; s < S; ++s) {
-    w2b.a[s] = sc.h + s * m_stream;
-    w2b.b[s] = gmlp + s * x_stream;
-    w2b.part[s] = sc.w2_part + static_cast<size_t>(s) * sc.w2_plan.chunks * (hidden + 1) * C;
-    w1b.a[s] = sc.lny + s * x_stream;
-    w1b.b[s] = sc.gpre + s * m_stream;
-    w1b.part[s] = sc.w1_part + static_cast<size_t>(s) * sc.w1_plan.chunks * (C + 1) * hidden;
-  }
-  launch_wgrad(w2b, sc.w2_plan, M, hidden, C, S, st);
-  launch_wgrad(w1b, sc.w1_plan, M, C, hidden, S, st);
+  // ---- every reduction ----
   const int ln_chunks = ln_bwd_blocks(M);
-  bool ok = true;
   for (int s = 0; s < S; ++s) {
-    ok &= jobs.add(w2b.part[s], sc.w2_plan.chunks, (hidden + 1) * C, hidden * C,
-                   out[kW2] + static_cast<size_t>(s) * hidden * C, out[kB2] + static_cast<size_t>(s) * C);
-    ok &= jobs.add(w1b.part[s], sc.w1_plan.chunks, (C + 1) * hidden, C * hidden,
-                   out[kW1] + static_cast<size_t>(s) * C * hidden,
-                   out[kB1] + static_cast<size_t>(s) * hidden);
     ok &= jobs.add(ln2b.part[s], ln_chunks, 2 * C, C, out[kLn2g] + static_cast<size_t>(s) * C,
                    out[kLn2b] + static_cast<size_t>(s) * C);
     ok &= jobs.add(ln1b.part[s], ln_chunks, 2 * C, C, out[kLn1g] + static_cast<size_t>(s) * C,
@@ -403,27 +448,33 @@ int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, co
              scale, drop, st);
 }
 
-// Floats of scratch the backward needs for one block of these dimensions and dropout.
+// Floats of scratch the backward needs for one block of these dimensions, dropout, dtype
+// and mode.
 size_t swin_fused_block_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
-                                      int hidden, int wh, int ww, const DropArgs* drop) {
+                                      int hidden, int wh, int ww, const DropArgs* drop,
+                                      int bf16_io, int cross) {
   Arena ar{nullptr};
-  carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop);
+  carve_block_bwd(ar, S, B, H, W, C, heads, d, hidden, wh, ww, drop, bf16_io != 0 && cross != 0);
   return ar.used;
 }
 
 // The block's backward on `stream`. in: x, the 17 weights in the forward's order, then
 // g = dL/d out (same shape as x); out: g_x, then the 17 weight gradients in that order
-// and shapes. ws: swin_fused_block_bwd_workspace(...) floats of scratch. `drop`: the
-// forward's dropout arguments, or nullptr. Every output is written in full. Returns
+// and shapes. x, g and g_x are fp32, or bf16 when `bf16_io` is set; the weights and their
+// gradients are fp32. ws: swin_fused_block_bwd_workspace(...) floats of scratch. `drop`:
+// the forward's dropout arguments, or nullptr. Every output is written in full. Returns
 // cudaGetLastError() after the launches (0 = ok).
 int swin_fused_block_bwd(const float* const* in, float* const* out, float* ws,
                          const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
                          int d, int hidden, int wh, int ww, int shift, int cross, int windows,
-                         float scale, void* stream) {
+                         int bf16_io, float scale, void* stream) {
   if (S * 3 > kMaxBatch || C > kLnMaxC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using Launcher = decltype(&fused_block_bwd<true>);
-  const Launcher run = windows ? &fused_block_bwd<true> : &fused_block_bwd<false>;
+  using Launcher = decltype(&fused_block_bwd<true, float>);
+  const Launcher run = bf16_io ? (windows ? &fused_block_bwd<true, bf16>     // K1 bf16
+                                          : &fused_block_bwd<false, bf16>)   // K4 bf16
+                               : (windows ? &fused_block_bwd<true, float>
+                                          : &fused_block_bwd<false, float>);
   return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, drop,
              st);
 }

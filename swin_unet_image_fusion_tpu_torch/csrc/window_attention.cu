@@ -52,6 +52,13 @@
 // weight gradients as [rows | 1]^T g over every token, and one fixed-order reduction
 // launch for every weight, bias and relative-position bias gradient. Like the forward it
 // is bound by the fp32 rate, at about three times the forward's matmul work.
+// bf16 backward (training at compute_dtype=bfloat16): the JAX body upcasts x, kv and g
+// and runs the recompute and the backward in fp32 with fp32 weights (l.388-390, 432-435),
+// so this is the fp32 backward with x and g upcast as they are loaded (the recompute does
+// not take the bf16 forward's rounding points); the weight gradients stay fp32 and g_x is
+// rounded once from the fp32 sums by one more elementwise launch: rnd(q side + k/v side)
+// in self mode, rnd(rnd(q side) + rnd(k/v side)) under cross, where JAX writes gx and gkv
+// in x's dtype (l.495-498) and its caller adds the two in bf16.
 //
 // Dropout (training, the TPU kernels' seed_ref paths, l.278-290, 322-323, 366-382): with the
 // attention site of `drop` on, the core masks p before AV with the hash masks of
@@ -141,52 +148,46 @@ enum In { kX, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kG, kNumIn };
 
 struct AttentionBwdScratch {
   float *q, *k, *v, *o;
+  float *gx, *gkv;  // bf16 only: the fp32 q-side (all of g_x in self mode) and k/v-side sums
   AttnBwdScratch attn;
 };
 
 AttentionBwdScratch carve_attention_bwd(Arena& ar, int S, int B, int H, int W, int C,
-                                        int heads, int d, int wh, int ww) {
+                                        int heads, int d, int wh, int ww, bool bf16,
+                                        bool cross) {
   AttentionBwdScratch sc;
   const size_t n = static_cast<size_t>(S) * B * H * W * heads * d;
+  const size_t nx = static_cast<size_t>(S) * B * H * W * C;
   sc.q = ar.take(n);
   sc.k = ar.take(n);
   sc.v = ar.take(n);
   sc.o = ar.take(n);
+  sc.gx = bf16 ? ar.take(nx) : nullptr;
+  sc.gkv = bf16 && cross ? ar.take(nx) : nullptr;
   sc.attn = carve_attn_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
   return sc;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of scratch the backward needs for these dimensions.
-size_t swin_window_attention_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
-                                           int wh, int ww) {
-  Arena ar{nullptr};
-  carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
-  return ar.used;
-}
-
-// The backward on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
-// g = dL/d out; out: g_x, then the gradients of those nine weights in that order and
-// shapes. ws: swin_window_attention_bwd_workspace(...) floats of scratch. `drop`: the
-// forward's dropout arguments, or nullptr. Every output is written in full. Returns
-// cudaGetLastError() after the launches (0 = ok).
-int swin_window_attention_bwd(const float* const* in, float* const* out, float* ws,
-                              const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
-                              int d, int wh, int ww, int shift, int cross, float scale,
-                              void* stream) {
-  if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The backward with x, g and g_x of type T; the arithmetic is fp32 in both (the JAX body
+// upcasts a bf16 x and g, l.388-390), and a bf16 g_x is rounded once from the fp32 sums:
+// rnd(q side + k/v side) in self mode, rnd(rnd(q side) + rnd(k/v side)) under cross, as
+// the JAX kernel writes its gx and gkv in x's dtype and the caller adds them (l.495-498).
+template <typename T>
+int attention_bwd_as(const float* const* in, float* const* out, float* ws, const DropArgs* drop,
+                     int S, int B, int H, int W, int C, int heads, int d, int wh, int ww,
+                     int shift, int cross, float scale, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const T* x = reinterpret_cast<const T*>(in[kX]);
+  const T* g = reinterpret_cast<const T*>(in[kG]);
   const int inner = heads * d;
   const int M = B * H * W;
   Arena ar{ws};
-  const AttentionBwdScratch sc = carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww);
+  const AttentionBwdScratch sc =
+      carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww, kBf16, cross != 0);
 
   launch_gemm<false, false, false>(
-      qkv_batch(in[kX], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], sc.q, sc.k, sc.v,
-                S, M, C, inner, cross != 0, scale),
+      qkv_batch(x, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], sc.q, sc.k, sc.v, S, M,
+                C, inner, cross != 0, scale),
       M, inner, C, 3 * S, st);
   cudaError_t err = launch_core<false>(sc.q, sc.k, sc.v, in[kBias], sc.o, S, B, H, W, heads, d,
                                        wh, ww, shift != 0, st, drop);
@@ -195,12 +196,43 @@ int swin_window_attention_bwd(const float* const* in, float* const* out, float* 
   ReduceJobs jobs = {};
   const AttnGrads ag = {out[kWq], out[kBq], out[kWk], out[kBk], out[kWv],
                         out[kBv], out[kWp], out[kBp], out[kBias]};
-  err = attention_bwd<false>(sc.attn, in[kX], sc.q, sc.k, sc.v, sc.o, in[kG], in[kWq], in[kWk],
-                             in[kWv], in[kWp], in[kBias], out[0], ag, jobs, S, B, H, W, C,
-                             heads, d, wh, ww, shift != 0, cross != 0, scale, st, drop);
+  err = attention_bwd<false>(sc.attn, x, sc.q, sc.k, sc.v, sc.o, g, in[kWq], in[kWk], in[kWv],
+                             in[kWp], in[kBias], kBf16 ? sc.gx : out[0], sc.gkv, ag, jobs, S, B,
+                             H, W, C, heads, d, wh, ww, shift != 0, cross != 0, scale, st, drop);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kBf16)
+    launch_store_rounded(sc.gx, sc.gkv, reinterpret_cast<bf16*>(out[0]),
+                         static_cast<size_t>(S) * M * C, st);
   launch_reduce(jobs, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the backward needs for these dimensions, dtype and mode.
+size_t swin_window_attention_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d,
+                                           int wh, int ww, int bf16_io, int cross) {
+  Arena ar{nullptr};
+  carve_attention_bwd(ar, S, B, H, W, C, heads, d, wh, ww, bf16_io != 0, cross != 0);
+  return ar.used;
+}
+
+// The backward on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
+// g = dL/d out; out: g_x, then the gradients of those nine weights in that order and
+// shapes. x, g and g_x are fp32, or bf16 when `bf16_io` is set; the weights and their
+// gradients are fp32. ws: swin_window_attention_bwd_workspace(...) floats of scratch.
+// `drop`: the forward's dropout arguments, or nullptr. Every output is written in full.
+// Returns cudaGetLastError() after the launches (0 = ok).
+int swin_window_attention_bwd(const float* const* in, float* const* out, float* ws,
+                              const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
+                              int d, int wh, int ww, int shift, int cross, int bf16_io,
+                              float scale, void* stream) {
+  if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = bf16_io ? &attention_bwd_as<bf16> : &attention_bwd_as<float>;
+  return run(in, out, ws, drop, S, B, H, W, C, heads, d, wh, ww, shift, cross, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

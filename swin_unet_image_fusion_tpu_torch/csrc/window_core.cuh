@@ -11,7 +11,8 @@
 //                       shared relative-position bias, the shift mask that SETS scores to
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
 //                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV;
-//   dropout_rows_kernel the hash-dropout mask of a token site applied to (S, M, N) rows.
+//   dropout_rows_kernel the hash-dropout mask of a token site applied to (S, M, N) rows,
+//                       fp32 or bf16 in and out.
 //
 // Dropout (kDrop, a template flag of the GEMM and of the core, so that a launch without
 // dropout compiles to the code it had before): the masks of hash_dropout.cuh. The GEMM's
@@ -228,10 +229,13 @@ void launch_gemm_site(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int 
 }
 
 // ---- the mask of a token site on (S, M, N) rows, z = stream; `out` may be `in` -------
+// TI, TO: the element types of in and out (float or bf16); a kept element is in * scale
+// in fp32, rounded once on the store.
 constexpr int kDropThreads = 256;
 
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(kDropThreads)
-    dropout_rows_kernel(const float* in, float* out, DropSite d, int M, int N) {
+    dropout_rows_kernel(const TI* in, TO* out, DropSite d, int M, int N) {
   const size_t per_stream = static_cast<size_t>(M) * N;
   const size_t i = static_cast<size_t>(blockIdx.x) * kDropThreads + threadIdx.x;
   if (i >= per_stream) return;
@@ -240,15 +244,17 @@ __global__ void __launch_bounds__(kDropThreads)
   int slot;
   const uint32_t ph = token_hash(d, blockIdx.y * d.B + b, gr - b * d.hw, &slot);
   const size_t at = blockIdx.y * per_stream + i;
-  const float v = in[at];
-  out[at] = hash_keep(ph, token_intra(d, slot, gn, N), d.threshold) ? v * d.scale : 0.0f;
+  const float v = to_float(in[at]);
+  out[at] = from_float<TO>(hash_keep(ph, token_intra(d, slot, gn, N), d.threshold) ? v * d.scale
+                                                                                    : 0.0f);
 }
 
-inline void launch_dropout_rows(const float* in, float* out, const DropSite& d, int M, int N,
-                                int S, cudaStream_t st) {
+template <typename TI, typename TO>
+void launch_dropout_rows(const TI* in, TO* out, const DropSite& d, int M, int N, int S,
+                         cudaStream_t st) {
   const size_t n = static_cast<size_t>(M) * N;
   const dim3 grid(static_cast<unsigned>((n + kDropThreads - 1) / kDropThreads), S);
-  dropout_rows_kernel<<<grid, kDropThreads, 0, st>>>(in, out, d, M, N);
+  dropout_rows_kernel<TI, TO><<<grid, kDropThreads, 0, st>>>(in, out, d, M, N);
 }
 
 // The q/k/v GEMM of S streams as one batch, z = s*3 + part: q (times `scale`) from stream

@@ -1,5 +1,8 @@
 // Backward device code shared by the window-attention kernel (K3 bwd, window_attention.cu)
-// and the fused Swin block (K1/K4 bwd, fused_block.cu), fp32, for Hopper (sm_90a):
+// and the fused Swin block (K1/K4 bwd, fused_block.cu), for Hopper (sm_90a). The
+// arithmetic is fp32; the block's input x and the output gradient g may be fp32 or bf16
+// (a bf16 element is upcast as it is loaded, as the JAX backward bodies upcast theirs) and
+// the input gradient is written in x's type, rounded once on the store:
 //
 //   wgrad_kernel            weight gradients W = A^T @ B over all M token rows, with a row
 //                           of ones appended to A so that the last output row is B's
@@ -9,7 +12,10 @@
 //   ln_bwd_kernel           its backward, g_a = rstd (g_xhat - mean(g_xhat)
 //                           - xhat mean(g_xhat xhat)) with g_xhat = g * gamma, plus a
 //                           residual gradient, and per-block partial column sums of
-//                           g * xhat and g (the gamma and beta gradients);
+//                           g * xhat and g (the gamma and beta gradients); under kSplit a
+//                           second gradient g2 of the same LayerNorm (the k/v side under
+//                           cross) gets its own g_a, rounded apart: out = rnd(rnd(res + g_a)
+//                           + rnd(g2_a)), the sum of the JAX kernels' gx and gkv outputs;
 //   window_core_bwd_kernel  the backward of window_core_kernel, one block per (group of
 //                           windows, stream*batch, head): recomputes P, then
 //                           g_v = P^T g_o, g_P = g_o v^T, g_S = P (g_P - rowsum(g_P P)),
@@ -18,7 +24,9 @@
 //                           under kDrop with the forward's attention mask: g_P' = mask(g_P),
 //                           g_S = P (g_P' - rowsum(g_P' P)) with the unmasked P, and
 //                           g_v = mask(P)^T g_o (JAX _win64_attention_grads l.466-480);
-//   reduce_chunks_kernel    sums the partials of every job above in a fixed order.
+//   reduce_chunks_kernel    sums the partials of every job above in a fixed order;
+//   store_rounded_kernel    out = rnd(a), or rnd(rnd(a) + rnd(b)): K3's input gradient in
+//                           bf16 from its fp32 q-side (a) and, under cross, k/v-side (b) sums.
 //
 // Why two passes. The TPU kernels accumulate weight gradients across their sequential
 // grid (gw_ref[0] += mm_tn(...)). Hopper's blocks run in parallel and in no order, and
@@ -51,15 +59,18 @@ struct Arena {
 };
 
 // ---- weight gradients: partial[z][chunk] (Ka + 1, Nb) = [A | 1]^T @ B over the chunk ----
-struct WgradBatch {
-  const float* a[kMaxBatch];  // (M, Ka)
-  const float* b[kMaxBatch];  // (M, Nb)
-  float* part[kMaxBatch];     // (chunks, Ka + 1, Nb)
+// TA, TB: the element types of A and B (float or bf16).
+template <typename TA = float, typename TB = float>
+struct WgradBatchT {
+  const TA* a[kMaxBatch];  // (M, Ka)
+  const TB* b[kMaxBatch];  // (M, Nb)
+  float* part[kMaxBatch];  // (chunks, Ka + 1, Nb)
 };
+using WgradBatch = WgradBatchT<>;
 
-template <int kTileA, int kTileB>
+template <int kTileA, int kTileB, typename TA, typename TB>
 __global__ void __launch_bounds__((kTileA / 4) * (kTileB / 4))
-    wgrad_kernel(WgradBatch p, int M, int Ka, int Nb, int chunk_rows) {
+    wgrad_kernel(WgradBatchT<TA, TB> p, int M, int Ka, int Nb, int chunk_rows) {
   constexpr int kThreads = (kTileA / 4) * (kTileB / 4);
   __shared__ float as[kBK][kTileA];
   __shared__ float bs[kBK][kTileB];
@@ -71,8 +82,8 @@ __global__ void __launch_bounds__((kTileA / 4) * (kTileB / 4))
   const int m_end = min(M, m_begin + chunk_rows);
   const int tid = threadIdx.x;
   const int ty = tid / (kTileB / 4), tx = tid % (kTileB / 4);
-  const float* __restrict__ a = p.a[z];
-  const float* __restrict__ b = p.b[z];
+  const TA* __restrict__ a = p.a[z];
+  const TB* __restrict__ b = p.b[z];
 
   float acc[4][4] = {};
   for (int m0 = m_begin; m0 < m_end; m0 += kBK) {
@@ -81,7 +92,7 @@ __global__ void __launch_bounds__((kTileA / 4) * (kTileB / 4))
       const int m = m0 + kk, gi = i0 + i;
       float val = 0.0f;
       if (m < m_end) {
-        if (gi < Ka) val = a[static_cast<size_t>(m) * Ka + gi];
+        if (gi < Ka) val = to_float(a[static_cast<size_t>(m) * Ka + gi]);
         else if (gi == Ka) val = 1.0f;
       }
       as[kk][i] = val;
@@ -89,7 +100,7 @@ __global__ void __launch_bounds__((kTileA / 4) * (kTileB / 4))
     for (int e = tid; e < kBK * kTileB; e += kThreads) {
       const int kk = e / kTileB, j = e % kTileB;
       const int m = m0 + kk, gj = j0 + j;
-      bs[kk][j] = (m < m_end && gj < Nb) ? b[static_cast<size_t>(m) * Nb + gj] : 0.0f;
+      bs[kk][j] = (m < m_end && gj < Nb) ? to_float(b[static_cast<size_t>(m) * Nb + gj]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -141,17 +152,18 @@ inline WgradPlan wgrad_plan(int M, int Ka, int Nb, int batch) {
   return w;
 }
 
-inline void launch_wgrad(const WgradBatch& p, const WgradPlan& w, int M, int Ka, int Nb,
-                         int batch, cudaStream_t st) {
+template <typename TA, typename TB>
+void launch_wgrad(const WgradBatchT<TA, TB>& p, const WgradPlan& w, int M, int Ka, int Nb,
+                  int batch, cudaStream_t st) {
   const dim3 grid(w.tiles, w.chunks, batch);
   if (w.tile_a == 32 && w.tile_b == 32)
-    wgrad_kernel<32, 32><<<grid, 64, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
+    wgrad_kernel<32, 32, TA, TB><<<grid, 64, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
   else if (w.tile_a == 32)
-    wgrad_kernel<32, 64><<<grid, 128, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
+    wgrad_kernel<32, 64, TA, TB><<<grid, 128, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
   else if (w.tile_b == 32)
-    wgrad_kernel<64, 32><<<grid, 128, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
+    wgrad_kernel<64, 32, TA, TB><<<grid, 128, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
   else
-    wgrad_kernel<64, 64><<<grid, 256, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
+    wgrad_kernel<64, 64, TA, TB><<<grid, 256, 0, st>>>(p, M, Ka, Nb, w.chunk_rows);
 }
 
 // ---- fixed-order sums of partials ------------------------------------------------------
@@ -205,59 +217,71 @@ constexpr int kLnRowsPerBlock = 128;
 constexpr int kLnMaxPerLane = 12;  // C <= 384
 constexpr int kLnMaxC = 32 * kLnMaxPerLane;
 
-struct LnBatch {
-  const float* x[kMaxBatch];      // (M, C)
+// TX: the element type of x (float or bf16); out and the statistics are fp32.
+template <typename TX = float>
+struct LnBatchT {
+  const TX* x[kMaxBatch];         // (M, C)
   const float* gamma[kMaxBatch];  // (C)
   const float* beta[kMaxBatch];   // (C)
   float* out[kMaxBatch];          // (M, C)
   float* stats[kMaxBatch];        // (M, 2): mean, 1/std
 };
+using LnBatch = LnBatchT<>;
 
 // one warp per row: the mean, then the biased variance about it (as the GEMM prologue)
-__global__ void __launch_bounds__(kLnThreads) ln_fwd_kernel(LnBatch p, int M, int C) {
+template <typename TX>
+__global__ void __launch_bounds__(kLnThreads) ln_fwd_kernel(LnBatchT<TX> p, int M, int C) {
   const int z = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnWarps + warp;
   if (row >= M) return;
-  const float* __restrict__ x = p.x[z] + static_cast<size_t>(row) * C;
+  const TX* __restrict__ x = p.x[z] + static_cast<size_t>(row) * C;
   float sum = 0.0f;
-  for (int k = lane; k < C; k += 32) sum += x[k];
+  for (int k = lane; k < C; k += 32) sum += to_float(x[k]);
   const float mean = warp_sum(sum) / C;
   float sq = 0.0f;
   for (int k = lane; k < C; k += 32) {
-    const float dev = x[k] - mean;
+    const float dev = to_float(x[k]) - mean;
     sq = fmaf(dev, dev, sq);
   }
   const float rstd = 1.0f / sqrtf(warp_sum(sq) / C + kLnEps);
   float* out = p.out[z] + static_cast<size_t>(row) * C;
-  for (int k = lane; k < C; k += 32) out[k] = (x[k] - mean) * rstd * p.gamma[z][k] + p.beta[z][k];
+  for (int k = lane; k < C; k += 32)
+    out[k] = (to_float(x[k]) - mean) * rstd * p.gamma[z][k] + p.beta[z][k];
   if (lane == 0) {
     p.stats[z][2 * static_cast<size_t>(row)] = mean;
     p.stats[z][2 * static_cast<size_t>(row) + 1] = rstd;
   }
 }
 
-inline void launch_ln_fwd(const LnBatch& p, int M, int C, int batch, cudaStream_t st) {
+template <typename TX>
+void launch_ln_fwd(const LnBatchT<TX>& p, int M, int C, int batch, cudaStream_t st) {
   const dim3 grid((M + kLnWarps - 1) / kLnWarps, batch);
-  ln_fwd_kernel<<<grid, kLnThreads, 0, st>>>(p, M, C);
+  ln_fwd_kernel<TX><<<grid, kLnThreads, 0, st>>>(p, M, C);
 }
 
-struct LnBwdBatch {
+// TX, TR, TO: the element types of x, res and gx (float or bf16).
+template <typename TX = float, typename TR = float, typename TO = float>
+struct LnBwdBatchT {
   const float* g[kMaxBatch];      // (M, C) gradient of the LayerNorm's output
-  const float* x[kMaxBatch];      // (M, C) its input
+  const float* g2[kMaxBatch];     // (M, C) a second gradient of it, rounded apart (kSplit)
+  const TX* x[kMaxBatch];         // (M, C) its input
   const float* stats[kMaxBatch];  // (M, 2) from ln_fwd_kernel
   const float* gamma[kMaxBatch];  // (C)
-  const float* res[kMaxBatch];    // (M, C) gradient added to the input gradient
-  float* gx[kMaxBatch];           // (M, C)
+  const TR* res[kMaxBatch];       // (M, C) gradient added to the input gradient
+  TO* gx[kMaxBatch];              // (M, C)
   float* part[kMaxBatch];         // (blocks, 2C): column sums of g * xhat, then of g
 };
+using LnBwdBatch = LnBwdBatchT<>;
 
-__global__ void __launch_bounds__(kLnThreads) ln_bwd_kernel(LnBwdBatch p, int M, int C) {
+template <typename TX, typename TR, typename TO, bool kSplit>
+__global__ void __launch_bounds__(kLnThreads) ln_bwd_kernel(LnBwdBatchT<TX, TR, TO> p, int M, int C) {
   extern __shared__ float red[];  // [kLnWarps][2C]
   const int z = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* __restrict__ g = p.g[z];
-  const float* __restrict__ x = p.x[z];
+  const float* __restrict__ g2 = kSplit ? p.g2[z] : nullptr;
+  const TX* __restrict__ x = p.x[z];
   const float* __restrict__ gamma = p.gamma[z];
   float pg[kLnMaxPerLane] = {}, pb[kLnMaxPerLane] = {};
   const int row0 = blockIdx.x * kLnRowsPerBlock;
@@ -266,28 +290,48 @@ __global__ void __launch_bounds__(kLnThreads) ln_bwd_kernel(LnBwdBatch p, int M,
     const float mean = p.stats[z][2 * static_cast<size_t>(r)];
     const float rstd = p.stats[z][2 * static_cast<size_t>(r) + 1];
     const size_t off = static_cast<size_t>(r) * C;
-    float xh[kLnMaxPerLane], gh[kLnMaxPerLane];
-    float s1 = 0.0f, s2 = 0.0f;
+    float xh[kLnMaxPerLane], gh[kLnMaxPerLane], gh2[kLnMaxPerLane];
+    float s1 = 0.0f, s2 = 0.0f, t1 = 0.0f, t2 = 0.0f;
 #pragma unroll
     for (int e = 0; e < kLnMaxPerLane; ++e) {
       const int c = lane + 32 * e;
       xh[e] = gh[e] = 0.0f;
+      if (kSplit) gh2[e] = 0.0f;
       if (c < C) {
-        const float gv = g[off + c];
-        xh[e] = (x[off + c] - mean) * rstd;
+        float gv = g[off + c];
+        xh[e] = (to_float(x[off + c]) - mean) * rstd;
         gh[e] = gv * gamma[c];
         s1 += gh[e];
         s2 = fmaf(gh[e], xh[e], s2);
+        if (kSplit) {
+          const float gv2 = g2[off + c];
+          gh2[e] = gv2 * gamma[c];
+          t1 += gh2[e];
+          t2 = fmaf(gh2[e], xh[e], t2);
+          gv += gv2;  // the gamma and beta gradients take both sides' sum
+        }
         pg[e] = fmaf(gv, xh[e], pg[e]);
         pb[e] += gv;
       }
     }
     s1 = warp_sum(s1) / C;
     s2 = warp_sum(s2) / C;
+    if (kSplit) {
+      t1 = warp_sum(t1) / C;
+      t2 = warp_sum(t2) / C;
+    }
 #pragma unroll
     for (int e = 0; e < kLnMaxPerLane; ++e) {
       const int c = lane + 32 * e;
-      if (c < C) p.gx[z][off + c] = p.res[z][off + c] + rstd * (gh[e] - s1 - xh[e] * s2);
+      if (c < C) {
+        const float v = to_float(p.res[z][off + c]) + rstd * (gh[e] - s1 - xh[e] * s2);
+        if (kSplit) {
+          const float v2 = rstd * (gh2[e] - t1 - xh[e] * t2);
+          p.gx[z][off + c] = from_float<TO>(round_bf16(v) + round_bf16(v2));
+        } else {
+          p.gx[z][off + c] = from_float<TO>(v);
+        }
+      }
     }
   }
 #pragma unroll
@@ -309,10 +353,29 @@ __global__ void __launch_bounds__(kLnThreads) ln_bwd_kernel(LnBwdBatch p, int M,
 
 inline int ln_bwd_blocks(int M) { return (M + kLnRowsPerBlock - 1) / kLnRowsPerBlock; }
 
-inline void launch_ln_bwd(const LnBwdBatch& p, int M, int C, int batch, cudaStream_t st) {
+// kSplit: p.g2 holds a second gradient whose input gradient is rounded to bf16 apart
+// (only with a bf16 gx).
+template <bool kSplit = false, typename TX, typename TR, typename TO>
+void launch_ln_bwd(const LnBwdBatchT<TX, TR, TO>& p, int M, int C, int batch, cudaStream_t st) {
   const dim3 grid(ln_bwd_blocks(M), batch);
   const size_t smem = static_cast<size_t>(kLnWarps) * 2 * C * sizeof(float);
-  ln_bwd_kernel<<<grid, kLnThreads, smem, st>>>(p, M, C);
+  ln_bwd_kernel<TX, TR, TO, kSplit><<<grid, kLnThreads, smem, st>>>(p, M, C);
+}
+
+// ---- K3's bf16 input gradient: rnd(a), or rnd(rnd(a) + rnd(b)) under cross --------------
+constexpr int kStoreThreads = 256;
+
+__global__ void __launch_bounds__(kStoreThreads)
+    store_rounded_kernel(const float* a, const float* b, bf16* out, size_t n) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kStoreThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = from_float<bf16>(b != nullptr ? round_bf16(a[i]) + round_bf16(b[i]) : a[i]);
+}
+
+inline void launch_store_rounded(const float* a, const float* b, bf16* out, size_t n,
+                                 cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>((n + kStoreThreads - 1) / kStoreThreads);
+  store_rounded_kernel<<<blocks, kStoreThreads, 0, st>>>(a, b, out, n);
 }
 
 // ---- attention core backward -----------------------------------------------------------
@@ -471,12 +534,14 @@ cudaError_t launch_core_bwd(const float* q, const float* k, const float* v, cons
 
 // ---- the attention half of a backward, shared by K3 and K1/K4 --------------------------
 // Inputs per stream s (token rows, M per stream): `in` the rows the q/k/v projections
-// read (LN1(x) in the block, x in K3), q (scaled), k, v, o = AV, and g_out, the gradient
-// of the projection's output. Writes g_in[r] = g_q[r] wq[r]^T + g_k[kv(r)] wk[kv(r)]^T +
-// g_v[kv(r)] wv[kv(r)]^T, where kv(r) is the stream whose k/v were made from r's rows
-// (the other stream under cross), and queues the reductions of the q/k/v/proj weight and
-// bias gradients and of the relative-position bias gradient. With the attention site of
-// `drop` on, q/k/v/o must be the forward's recompute with the same mask (o = mask(P) v).
+// read (LN1(x) in the block, x in K3; TIn fp32 or bf16), q (scaled), k, v, o = AV, and
+// g_out (TG), the gradient of the projection's output. Writes g_in[r] = g_q[r] wq[r]^T +
+// g_k[kv(r)] wk[kv(r)]^T + g_v[kv(r)] wv[kv(r)]^T, where kv(r) is the stream whose k/v
+// were made from r's rows (the other stream under cross), and queues the reductions of
+// the q/k/v/proj weight and bias gradients and of the relative-position bias gradient.
+// With g_in_kv, the k/v terms go there instead and g_in holds the q term alone. With the
+// attention site of `drop` on, q/k/v/o must be the forward's recompute with the same mask
+// (o = mask(P) v).
 struct AttnBwdScratch {
   float *go, *gq, *gk, *gv, *bias_part;
   float *wp_part, *qkv_part;
@@ -506,13 +571,13 @@ struct AttnGrads {
   float *wq, *bq, *wk, *bk, *wv, *bv, *wp, *bp, *bias;
 };
 
-template <bool kWindows>
-cudaError_t attention_bwd(const AttnBwdScratch& sc, const float* in, const float* q,
-                          const float* k, const float* v, const float* o, const float* g_out,
+template <bool kWindows, typename TIn, typename TG>
+cudaError_t attention_bwd(const AttnBwdScratch& sc, const TIn* in, const float* q,
+                          const float* k, const float* v, const float* o, const TG* g_out,
                           const float* wq, const float* wk, const float* wv, const float* wp,
-                          const float* bias, float* g_in, const AttnGrads& gr, ReduceJobs& jobs,
-                          int S, int B, int H, int W, int C, int heads, int d, int wh, int ww,
-                          bool shift, bool cross, float scale, cudaStream_t st,
+                          const float* bias, float* g_in, float* g_in_kv, const AttnGrads& gr,
+                          ReduceJobs& jobs, int S, int B, int H, int W, int C, int heads, int d,
+                          int wh, int ww, bool shift, bool cross, float scale, cudaStream_t st,
                           const DropArgs* drop = nullptr) {
   const int inner = heads * d;
   const int M = B * H * W;
@@ -521,7 +586,7 @@ cudaError_t attention_bwd(const AttnBwdScratch& sc, const float* in, const float
   const size_t T = static_cast<size_t>(wh) * ww;
 
   // g_o = g_out @ wp^T
-  GemmBatch gop = {};
+  GemmBatchT<TG> gop = {};
   for (int s = 0; s < S; ++s) {
     gop.a[s] = g_out + s * x_stream;
     gop.b[s] = wp + static_cast<size_t>(s) * inner * C;
@@ -540,31 +605,35 @@ cudaError_t attention_bwd(const AttnBwdScratch& sc, const float* in, const float
   if (err != cudaSuccess) return err;
 
   // g_in[r]: the q side of stream r, then the k and v sides of the stream that read r
+  // (into g_in_kv when it is given, the k side starting the sum there)
   const float* gsrc[3] = {sc.gq, sc.gk, sc.gv};
   const float* wsrc[3] = {wq, wk, wv};
   for (int part = 0; part < 3; ++part) {
+    float* dst = part > 0 && g_in_kv != nullptr ? g_in_kv : g_in;
     GemmBatch gin = {};
     for (int r = 0; r < S; ++r) {
       const int s = part == 0 ? r : (cross ? S - 1 - r : r);
       gin.a[r] = gsrc[part] + s * h_stream;
       gin.b[r] = wsrc[part] + static_cast<size_t>(s) * C * inner;
-      gin.res[r] = g_in + r * x_stream;
-      gin.c[r] = g_in + r * x_stream;
+      gin.res[r] = dst + r * x_stream;
+      gin.c[r] = dst + r * x_stream;
       gin.alpha[r] = 1.0f;
     }
-    if (part == 0) launch_gemm<false, false, false, false, true>(gin, M, C, inner, S, st);
-    else launch_gemm<false, false, true, false, true>(gin, M, C, inner, S, st);
+    if (part == 0 || (part == 1 && g_in_kv != nullptr))
+      launch_gemm<false, false, false, false, true>(gin, M, C, inner, S, st);
+    else
+      launch_gemm<false, false, true, false, true>(gin, M, C, inner, S, st);
   }
 
   // weight gradients: wp from o and g_out; wq/wk/wv from the rows each projection read
-  WgradBatch wpb = {};
+  WgradBatchT<float, TG> wpb = {};
   for (int s = 0; s < S; ++s) {
     wpb.a[s] = o + s * h_stream;
     wpb.b[s] = g_out + s * x_stream;
     wpb.part[s] = sc.wp_part + static_cast<size_t>(s) * sc.wp_plan.chunks * (inner + 1) * C;
   }
   launch_wgrad(wpb, sc.wp_plan, M, inner, C, S, st);
-  WgradBatch qkvb = {};
+  WgradBatchT<TIn, float> qkvb = {};
   for (int s = 0; s < S; ++s) {
     const int s_kv = cross ? S - 1 - s : s;
     for (int part = 0; part < 3; ++part) {

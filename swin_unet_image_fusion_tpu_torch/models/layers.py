@@ -35,7 +35,10 @@ LayerNorm and BatchNorm work in fp32 (LayerNorm casts back to its input's dtype)
 attention scores, their scale and bias and the softmax stay fp32, and the weights are
 rounded to bf16 before AV; the head's convs round input, kernel, product and bias add.
 PyTorch would promote bf16 with an fp32 parameter to fp32 without a word, so every
-parameter is cast where it meets an activation.
+parameter is cast where it meets an activation. Under autograd (bf16 training) the
+backward follows JAX's rounding where PyTorch's would differ: the ELU derivative is taken
+in bf16 op by op (:func:`elu`), and a bf16 input of the training BatchNorm is cast
+twice, so that its two gradient paths meet in bf16 as in flax.
 """
 
 from __future__ import annotations
@@ -103,9 +106,35 @@ def token_dropout(a: torch.Tensor, drop: Drop, site: int, rate: float) -> torch.
     return dm.token_dropout(a, seed, site, rate, key)
 
 
+class _Bf16Elu(torch.autograd.Function):
+    """ELU of a bf16 tensor with the JAX package's derivative: ``jax.nn.elu``'s gradient
+    at x <= 0 is g * (expm1(x) + 1) taken in bf16, each operation rounded (autograd's
+    ELU derivative takes it in fp32 and rounds once). The forward is F.elu's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = F.elu(x)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        slope = (out.float() + 1.0).to(out.dtype)  # expm1(x) + 1 in bf16
+        return torch.where(x > 0, g, (g.float() * slope.float()).to(g.dtype))
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """ELU, with the JAX package's bf16 derivative rounding on a bf16 tensor that
+    autograd records."""
+    if x.dtype == torch.bfloat16 and torch.is_grad_enabled() and x.requires_grad:
+        return _Bf16Elu.apply(x)
+    return F.elu(x)
+
+
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "elu":
-        return F.elu
+        return elu
     if name == "gelu":
         return F.gelu
     if name == "relu":
@@ -425,15 +454,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = x.float()  # flax's BatchNorm(dtype=float32)
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            # flax upcasts a bf16 input once for the statistics and once more where it
+            # normalises it, so the two paths' gradients meet in x's dtype: two casts
+            # here too (one and the same tensor for an fp32 input)
+            stats = x.float()
+            mean = stats.mean(dim=(0, 2, 3))
+            var = torch.clamp((stats * stats).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
                 self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         else:
             mean, var = self.mean, self.var
+        x = x.float()  # flax's BatchNorm(dtype=float32)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
@@ -455,16 +488,18 @@ class FinalHead(nn.Module):
             nn.init.zeros_(conv.weight)
             nn.init.zeros_(conv.bias)
 
-    def _reflect_conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-        x = pad_reflect(pad_reflect(x, 2, self.pad, self.pad), 3, self.pad, self.pad)
-        return F.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
+    def _reflect_conv(self, x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+        """The reflect pad in x's dtype, then the conv in ``dtype`` (flax pads, then its
+        ``nn.Conv`` casts: the pad's backward sums in x's dtype)."""
+        x = pad_reflect(pad_reflect(x, 2, self.pad, self.pad), 3, self.pad, self.pad).to(dtype)
+        return F.conv2d(x, conv.weight.to(dtype)) + conv.bias.to(dtype)[:, None, None]
 
     def forward(self, xy: torch.Tensor, train: bool = False) -> torch.Tensor:
         # The JAX head runs its convs at Precision.HIGHEST; cuDNN's default TF32 would
         # keep only ~3 decimal digits, so TF32 is off for these convs. Their backward
         # runs later, outside this block: the train step keeps TF32 off for it.
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            x = self._reflect_conv(xy.permute(0, 3, 1, 2), self.conv1)
+            x = self._reflect_conv(xy.permute(0, 3, 1, 2), self.conv1, xy.dtype)
             x = self.act(self.bn(x, train))
-            x = self._reflect_conv(x.to(xy.dtype), self.conv2)
+            x = self._reflect_conv(x, self.conv2, xy.dtype)
         return x.permute(0, 2, 3, 1)

@@ -12,10 +12,12 @@ port of the JAX ``models/unet.py``, NHWC path).
 - ``compute_dtype="bfloat16"`` casts the stacked input to bf16 at entry, so every
   activation between layers and the additive skips are bf16, as in the JAX trunk; each
   layer keeps its own rounding points (``models/layers.py``) and the output is cast back
-  to fp32. Parameters stay fp32. bf16 runs the eval forward only. The forward turns
-  cuBLAS's reduced-precision reduction of bf16 GEMMs off for its duration
-  (:func:`fp32_accumulation`), so the bf16 layers accumulate in fp32 as the JAX
-  composition does, whatever the caller's setting;
+  to fp32 (JAX ``models/unet.py:138, 269``). Parameters stay fp32 and train in fp32: their
+  gradients flow back through each layer's cast, and the kernels' bf16 backward forms
+  return fp32 weight gradients. The forward turns cuBLAS's reduced-precision reduction of
+  bf16 GEMMs off for its duration (:func:`fp32_accumulation`), so the bf16 layers
+  accumulate in fp32 as the JAX composition does, whatever the caller's setting; the train
+  step holds it off through the backward too;
 - dropout (``attention_drop_ratio``, ``linear_after_att_drop_ratio``, ``mlp_drop_ratio``)
   acts in the training forward only, which then takes a seed source: every block draws
   one seed in [0, 2^24) per call, in the order the blocks run (``models/layers.py``).
@@ -118,14 +120,11 @@ class SwinFusionUNet(nn.Module):
         batch's statistics and updates its running ones (the JAX ``train=True``) and,
         with a nonzero dropout ratio, dropout with the per-block seeds of ``seeds``: a
         CPU ``torch.Generator`` or a sequence of seeds in block order. Without ``train``
-        there is no dropout and ``seeds`` is not read. Rematerialisation and bf16
-        training are not ported and raise."""
+        there is no dropout and ``seeds`` is not read. Rematerialisation is not ported and
+        raises."""
         cfg = self.cfg
         source = None
         if train:
-            if self.compute_dtype != torch.float32:
-                raise NotImplementedError("bf16 training is not ported yet: train with "
-                                          "compute_dtype='float32'")
             if cfg.remat:
                 raise NotImplementedError("rematerialisation (remat=True) is not ported yet")
             if self.has_dropout:

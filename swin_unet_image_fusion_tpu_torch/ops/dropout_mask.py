@@ -13,9 +13,11 @@ launches per masked tensor; on a card one launch of ``csrc/dropout_mask.cu`` app
   composition's windows (``dl.composition_windows``).
 
 Both return ``keep ? x * scale : 0`` with the float32 scale of ``hash_dropout.keep_scale``,
-as ``hash_dropout.apply_mask`` does, and both versions' backward applies the same mask
-to the gradient. A CPU tensor takes the plain version, a CUDA tensor (fp32) the kernel;
-there is no fallback between the two. Forward and backward launches count apart.
+as ``hash_dropout.apply_mask`` does (on a bf16 tensor the product is taken in fp32 and
+rounded once, as PyTorch multiplies a bf16 tensor by a float), and both versions' backward
+applies the same mask to the gradient. A CPU tensor takes the plain version, a CUDA tensor
+(fp32 or bf16) the kernel; there is no fallback between the two. Forward and backward
+launches count apart, and bf16 launches apart from fp32 ones.
 """
 
 from __future__ import annotations
@@ -29,12 +31,16 @@ from . import _build
 from . import dropout_layout as dl
 from . import hash_dropout as hd
 
-# Calls that launched each kernel, forward and on a gradient, since the last reset; the
-# plain versions never count.
+# Calls that launched each kernel, forward and on a gradient, on fp32 and on bf16 tensors,
+# since the last reset; the plain versions never count.
 TOKEN_LAUNCHES = 0
 TOKEN_BWD_LAUNCHES = 0
 ATTN_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
+BF16_TOKEN_LAUNCHES = 0
+BF16_TOKEN_BWD_LAUNCHES = 0
+BF16_ATTN_LAUNCHES = 0
+BF16_ATTN_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,9 +68,9 @@ def attention_dropout_plain(weights: torch.Tensor, seed: int, rate: float,
 def _library() -> ctypes.CDLL:
     lib = _build.load("dropout_mask")
     drop = ctypes.POINTER(dl.DropArgs)
-    lib.swin_dropout_tokens.argtypes = [_P, _P, drop] + [_I] * 5 + [_P]
+    lib.swin_dropout_tokens.argtypes = [_P, _P, drop] + [_I] * 6 + [_P]
     lib.swin_dropout_tokens.restype = _I
-    lib.swin_dropout_attention.argtypes = [_P, _P, drop, _P] + [_I] * 5 + [_P]
+    lib.swin_dropout_attention.argtypes = [_P, _P, drop, _P] + [_I] * 6 + [_P]
     lib.swin_dropout_attention.restype = _I
     return lib
 
@@ -77,19 +83,24 @@ def _site_args(key: dl.Keying, site: int, rate: float, seed: int) -> dl.DropArgs
 
 def _launch_tokens(a: torch.Tensor, seed: int, site: int, rate: float, key: dl.Keying,
                    backward: bool = False) -> torch.Tensor:
-    global TOKEN_LAUNCHES, TOKEN_BWD_LAUNCHES
+    global TOKEN_LAUNCHES, TOKEN_BWD_LAUNCHES, BF16_TOKEN_LAUNCHES, BF16_TOKEN_BWD_LAUNCHES
     a = a.contiguous()
+    bf16 = a.dtype == torch.bfloat16
     s, b, h, w, cols = a.shape
     args = _site_args(key, site, rate, seed)
     out = torch.empty_like(a)
     lib = _library()
     with torch.cuda.device(a.device):
         rc = lib.swin_dropout_tokens(a.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
-                                     hd.SITES.index(site), s, b, h * w, cols,
+                                     hd.SITES.index(site), s, b, h * w, cols, int(bf16),
                                      torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, rc, "token dropout mask")
-    if backward:
+    if backward and bf16:
+        BF16_TOKEN_BWD_LAUNCHES += 1
+    elif backward:
         TOKEN_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_TOKEN_LAUNCHES += 1
     else:
         TOKEN_LAUNCHES += 1
     return out
@@ -97,8 +108,9 @@ def _launch_tokens(a: torch.Tensor, seed: int, site: int, rate: float, key: dl.K
 
 def _launch_attention(weights: torch.Tensor, seed: int, rate: float, key: dl.Keying,
                       backward: bool = False) -> torch.Tensor:
-    global ATTN_LAUNCHES, ATTN_BWD_LAUNCHES
+    global ATTN_LAUNCHES, ATTN_BWD_LAUNCHES, BF16_ATTN_LAUNCHES, BF16_ATTN_BWD_LAUNCHES
     weights = weights.contiguous()
+    bf16 = weights.dtype == torch.bfloat16
     windows = dl.composition_windows(key)
     s, bw, heads, t, _ = weights.shape
     args = _site_args(key, hd.SITE_ATTN, rate, seed)
@@ -107,11 +119,15 @@ def _launch_attention(weights: torch.Tensor, seed: int, rate: float, key: dl.Key
     with torch.cuda.device(weights.device):
         rc = lib.swin_dropout_attention(weights.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
                                         windows.data_ptr(), s, bw // windows.shape[0],
-                                        windows.shape[0], t, heads,
+                                        windows.shape[0], t, heads, int(bf16),
                                         torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, rc, "attention dropout mask")
-    if backward:
+    if backward and bf16:
+        BF16_ATTN_BWD_LAUNCHES += 1
+    elif backward:
         ATTN_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_ATTN_LAUNCHES += 1
     else:
         ATTN_LAUNCHES += 1
     return out
@@ -133,9 +149,9 @@ class _MaskFunction(torch.autograd.Function):
 def _check(a: torch.Tensor, key: dl.Keying, ndim: int, what: str) -> None:
     if a.device.type != "cuda":
         raise ValueError(f"the {what} dropout mask runs on cpu or cuda tensors, not {a.device}")
-    if a.dtype != torch.float32 or a.ndim != ndim:
-        raise ValueError(f"the {what} dropout mask takes a float32 tensor of {ndim} "
-                         f"dimensions, got {a.dtype} {tuple(a.shape)}")
+    if a.dtype not in (torch.float32, torch.bfloat16) or a.ndim != ndim:
+        raise ValueError(f"the {what} dropout mask takes a float32 or bfloat16 tensor of "
+                         f"{ndim} dimensions, got {a.dtype} {tuple(a.shape)}")
     if key.table.device != a.device or key.geometry[0] != "k4":
         raise ValueError(f"the {what} dropout mask needs a 'k4' keying on {a.device}, got "
                          f"{key.geometry[0]!r} on {key.table.device}")

@@ -35,7 +35,12 @@ bwd and K4 bwd), which recomputes the block from x and the weights, as the JAX c
 VJPs do, and returns g_x and every weight's gradient. ``fused_block_bwd_plain`` is the
 plain backward (autograd of the plain version); it differs from the kernel only where a
 score exceeds the softmax clamp of 80, whose derivative the kernel, like the TPU's, does
-not take.
+not take. For a bf16 x, K1 and K4 alike, both compute what the JAX backward bodies do
+(``pallas_block.py:278-293, 439-449``, ``pallas_pack.py:792-794``): the fp32 backward of
+the fp32 block at the upcast x and g (not autograd of K4's bf16 rounding points), the
+weight gradients fp32 and g_x in bf16, rounded once in self mode; under cross the residual
+and q side and the k/v side (JAX's gx and gkv outputs) are rounded apart and added in
+bf16.
 
 Dropout (training): ``drop_rates`` = (attention, proj, MLP) with a ``drop_seed`` in
 [0, 2^24) applies the reference's four sites with the TPU kernels' hash masks
@@ -43,8 +48,11 @@ Dropout (training): ``drop_rates`` = (attention, proj, MLP) with a ``drop_seed``
 the residual, the MLP hidden after the ELU and fc2 + b2 before the residual, the MLP rate
 at both MLP sites. The masks are keyed on the TPU kernel's own geometry
 (``ops/dropout_layout.py``): K4's padded windows for the image layout, K1's window pairs
-for the windows layout. On a card a dropout call launches the fp32 dropout form of the
-kernels, counted in ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES``.
+for the windows layout. On a card a dropout call launches the dropout form of the
+kernels (fp32 or bf16; the masks do not depend on the dtype), counted in
+``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES`` and
+``BF16_DROP_BWD_LAUNCHES`` in bf16); without dropout a bf16 call counts in
+``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ from .window_attention import (
     SMEM_LIMIT_BYTES,
     fast_softmax,
     operand_rounding,
+    recorded,
+    split_input_grad,
     wrap_region_mask,
 )
 from .window_pack import pack_windows, unpack_windows
@@ -76,14 +86,17 @@ LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
-# Calls that launched the fp32, the bf16 and the dropout forward kernels, and backward
-# calls that launched the backward kernels without and with dropout (one per call on a
+# Calls that launched each form of the forward kernels (fp32, bf16, each with dropout),
+# and backward calls that launched each form of the backward kernels (one per call on a
 # card), since the last reset; the plain versions never count.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 DROP_LAUNCHES = 0
+BF16_DROP_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
+BF16_DROP_BWD_LAUNCHES = 0
 
 
 def rounds_operands(dtype: torch.dtype, layout: str) -> bool:
@@ -117,14 +130,16 @@ def block_keying(layout: str, hw, window, shift: bool, num_heads: int, dims_per_
 
 def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
-                         dims_per_head, shift, cross, rnd, drop=None):
+                         dims_per_head, shift, cross, rnd, drop=None, kvw=None):
     """The block on fp32 window-packed tokens; ``rnd`` is applied to every operand of a
     product that K4 rounds to bf16 (the identity for fp32 and for K1). ``drop``: None,
-    or (rates, seed, keying) of the call's dropout."""
+    or (rates, seed, keying) of the call's dropout. ``kvw``: the tokens k/v are made from
+    (stream-flipped under cross), ``xw`` by default."""
     s, b, n_win, t, c = xw.shape
     d = dims_per_head
     ln = rnd(_layer_norm(xw, ln1_scale, ln1_bias))
-    kv = ln.flip(0) if cross else ln
+    kv = ln if kvw is None else rnd(_layer_norm(kvw, ln1_scale, ln1_bias))
+    kv = kv.flip(0) if cross else kv
 
     def heads(a):  # (S, B, nWin, T, inner) -> (S, B, nWin, heads, T, d)
         return a.reshape(s, b, n_win, t, num_heads, d).transpose(3, 4)
@@ -191,7 +206,8 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
                       num_heads: int, dims_per_head: int, shift: bool, cross: bool,
                       layout: str, hw: Optional[Tuple[int, int]] = None,
                       activation: str = "elu", drop_rates: Tuple[float, float, float] = (0.0, 0.0, 0.0),
-                      drop_seed: Optional[int] = None) -> torch.Tensor:
+                      drop_seed: Optional[int] = None,
+                      kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels, same inputs and semantics.
 
     x: (S, B, H, W, C) for ``layout="image"``, (S, B, nWin, T, C) of an ``hw`` map for
@@ -201,6 +217,9 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
     hidden, C); b2: (S, C), all fp32. Returns the same shape and dtype as x, computed in
     fp32 with K4's or K1's bf16 rounding points (module docstring) when x is bf16, and
     with the hash dropout of ``drop_rates`` and ``drop_seed`` (module docstring).
+    ``kv``: a tensor like x that k/v are made from (stream-flipped under cross), x itself
+    by default; the plain backward passes a copy of x to keep the k/v side of x's
+    gradient apart.
     """
     if activation != "elu":
         raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
@@ -216,9 +235,12 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
               shift=shift, cross=cross, rnd=operand_rounding(rounds_operands(x.dtype, layout)),
               drop=drop)
     if layout == "windows":
-        return _block_windows_plain(x.float(), *weights, **kw).to(x.dtype)
+        kvw = None if kv is None else kv.float()
+        return _block_windows_plain(x.float(), *weights, kvw=kvw, **kw).to(x.dtype)
     xw = pack_windows(x.float(), window, shift)
-    return unpack_windows(_block_windows_plain(xw, *weights, **kw).to(x.dtype), hw, window, shift)
+    kvw = None if kv is None else pack_windows(kv.float(), window, shift)
+    return unpack_windows(_block_windows_plain(xw, *weights, kvw=kvw, **kw).to(x.dtype), hw,
+                          window, shift)
 
 
 _P = ctypes.c_void_p
@@ -227,10 +249,17 @@ _I = ctypes.c_int
 
 def fused_block_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
     """Plain backward: (g_x, the 17 weight gradients) of :func:`fused_block_plain` for the
-    output gradient ``g``, by autograd. Keyword arguments as the forward's."""
+    output gradient ``g``. Keyword arguments as the forward's. fp32: autograd of the plain
+    version. bf16: the fp32 backward of the fp32 block at the upcast x and g, g_x in bf16
+    (``window_attention.split_input_grad``), the weight gradients fp32."""
     with torch.enable_grad():
-        inputs = [a.detach().requires_grad_() for a in (x, *weights)]
-        return torch.autograd.grad(fused_block_plain(*inputs, **kw), inputs, g)
+        if x.dtype == torch.float32:
+            inputs = [a.detach().requires_grad_() for a in (x, *weights)]
+            return torch.autograd.grad(fused_block_plain(*inputs, **kw), inputs, g)
+        leaves = [a.detach().requires_grad_() for a in weights]
+        return split_input_grad(
+            x, lambda xq, xkv: (fused_block_plain(xq, *leaves, kv=xkv, **kw), leaves),
+            g, kw["cross"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,9 +270,9 @@ def _library() -> ctypes.CDLL:
     lib.swin_fused_block_fwd.restype = _I
     lib.swin_fused_block_fwd_smem.argtypes = [_I] * 4
     lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
-    lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10 + [drop]
+    lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10 + [drop] + [_I] * 2
     lib.swin_fused_block_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
     lib.swin_fused_block_bwd.restype = _I
     return lib
 
@@ -270,7 +299,7 @@ def _drop_args(x, kw):
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
     for a bf16 x: never an upcast."""
-    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     drop = _drop_args(x, kw)
     inner = heads * d
@@ -295,7 +324,9 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
-    if drop is not None:
+    if drop is not None and bf16:
+        BF16_DROP_LAUNCHES += 1
+    elif drop is not None:
         DROP_LAUNCHES += 1
     elif bf16:
         BF16_LAUNCHES += 1
@@ -305,49 +336,60 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    global BWD_LAUNCHES, DROP_BWD_LAUNCHES
+    """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
+    the weight gradients fp32; K1 and K4 alike) for a bf16 x."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     dims = _dims(x, weights, kw)
     d = kw["dims_per_head"]
-    if x.dtype != torch.float32:
-        raise NotImplementedError("the fused block backward is fp32 only: bf16 training "
-                                  "is not ported yet")
-    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
-        raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"the output gradient must be {x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     g = g.contiguous()
+    bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
     lib = _library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
-    workspace = x.new_empty(lib.swin_fused_block_bwd_workspace(*dims, dl.drop_pointer(drop)))
+    workspace = x.new_empty(lib.swin_fused_block_bwd_workspace(
+        *dims, dl.drop_pointer(drop), int(bf16), int(kw["cross"])), dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_fused_block_bwd(
             ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
-            int(kw["cross"]), int(kw["layout"] == "windows"), float(d**-0.5),
+            int(kw["cross"]), int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block backward")
-    if drop is not None:
+    if drop is not None and bf16:
+        BF16_DROP_BWD_LAUNCHES += 1
+    elif drop is not None:
         DROP_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
     return tuple(grads)
 
 
 class _FusedBlockFunction(torch.autograd.Function):
-    """The kernels' forward and backward; saves only x and the weights (and, in ``kw``,
-    the dropout's rates and seed, so that the backward recomputes the forward's masks)."""
+    """The kernels' forward and backward on a card, the plain versions on the CPU (a bf16
+    call, whose plain backward is not autograd of its plain forward); saves only x and the
+    weights (and, in ``kw``, the dropout's rates and seed, so that the backward recomputes
+    the forward's masks)."""
 
     @staticmethod
     def forward(ctx, kw, x, *weights):
         ctx.kw = kw
         ctx.save_for_backward(x, *weights)
+        if x.device.type == "cpu":
+            return fused_block_plain(x, *weights, **kw)
         return _launch_fwd(x, weights, kw)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return (None, *fused_block_bwd_plain(g, x, *weights, **ctx.kw))
         return (None, *_launch_bwd(g, x, weights, ctx.kw))
 
 
@@ -357,13 +399,13 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                 layout: str, hw: Optional[Tuple[int, int]] = None,
                 activation: str = "elu", drop_rates: Tuple[float, float, float] = (0.0, 0.0, 0.0),
                 drop_seed: Optional[int] = None) -> torch.Tensor:
-    """One fused Swin block: the plain version on the CPU, the CUDA kernels on a card.
+    """One fused Swin block: the plain version on the CPU (with its plain backward when
+    autograd records a bf16 call), the CUDA kernels on a card.
 
     Arguments as :func:`fused_block_plain`. On a CUDA tensor every argument must be a
     contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
-    anything else raises. A bf16 x runs the bf16 form of the kernels; dropout runs their
-    fp32 dropout form. When autograd records the call, its backward is the backward
-    kernel (fp32 only).
+    anything else raises. A bf16 x runs the bf16 form of the kernels, dropout their dropout
+    form. When autograd records the call, its backward is the backward kernel of x's dtype.
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross, layout=layout, hw=hw, activation=activation,
@@ -371,6 +413,8 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                ln2_scale, ln2_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16 and recorded(x, *weights):
+            return _FusedBlockFunction.apply(kw, x, *weights)
         return fused_block_plain(x, *weights, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block runs on cpu or cuda tensors, not {x.device}")
@@ -400,14 +444,11 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed(drop_rates, drop_seed)
-    if any(drop_rates) and x.dtype != torch.float32:
-        raise NotImplementedError("the fused block kernels' dropout form is fp32 only "
-                                  "(training); bf16 training is not ported yet")
     smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww, int(drop_rates[0] > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *weights)):
+    if recorded(x, *weights):
         if c > MAX_CHANNELS:
             raise ValueError(f"the fused block's backward (its LayerNorm kernel) takes "
                              f"C <= {MAX_CHANNELS}, got {c}")

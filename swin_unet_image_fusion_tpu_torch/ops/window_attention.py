@@ -30,15 +30,22 @@ goes through ``_WindowAttentionFunction``, whose backward launches
 weights, as the JAX custom VJP does, and returns g_x and every weight's gradient.
 ``window_attention_bwd_plain`` is the plain backward (autograd of the plain version); it
 differs from the kernel only where a score exceeds the softmax clamp of 80, whose
-derivative the kernel, like the TPU's, does not take.
+derivative the kernel, like the TPU's, does not take. For a bf16 x both are what the JAX
+backward body computes (``_attention_bwd_body`` l.388-390, 495-498): the fp32 backward
+at the upcast x and g (not autograd of the bf16 forward's rounding points), the weight
+gradients fp32 and g_x in bf16, rounded once in self mode; under cross the q side and the
+k/v side (which JAX writes as two bf16 outputs, gx and gkv) are rounded apart and added in
+bf16.
 
 Dropout (training): ``attn_drop_rate`` > 0 with a ``drop_seed`` in [0, 2^24) masks the
 normalised attention weights before AV with the hash masks of the TPU kernel
 (``_attention_fwd_kernel`` l.278-290, 322-323), keyed on its wrap windows
 (``ops/dropout_layout.py``, ``"k3"``), in both versions and in the backward. The
 projection's dropout is the caller's, on the output, as in the JAX package. On a card a
-dropout call launches the kernels' dropout form, fp32 only, counted in ``DROP_LAUNCHES``
-and ``DROP_BWD_LAUNCHES`` instead of ``LAUNCHES`` and ``BWD_LAUNCHES``.
+dropout call launches the kernels' dropout form (fp32 or bf16; the masks do not depend on
+the dtype), counted in ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES``
+and ``BF16_DROP_BWD_LAUNCHES`` in bf16) instead of ``LAUNCHES`` and ``BWD_LAUNCHES``
+(``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -61,14 +68,17 @@ MAX_STREAMS = 2  # the kernel's batched projections hold 3 * streams operands
 
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # of x and the output; weights are fp32
 
-# Calls that launched the fp32, the bf16 and the dropout forward kernels, and backward
-# calls that launched the backward kernels without and with dropout (one per call on a
+# Calls that launched each form of the forward kernels (fp32, bf16, each with dropout),
+# and backward calls that launched each form of the backward kernels (one per call on a
 # card), since the last reset; the plain versions never count.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 DROP_LAUNCHES = 0
+BF16_DROP_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
+BF16_DROP_BWD_LAUNCHES = 0
 
 
 def round_to_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -134,6 +144,7 @@ def window_attention_plain(
     x, wq, bq, wk, bk, wv, bv, wp, bp, bias, *,
     window: Tuple[int, int], num_heads: int, dims_per_head: int, shift: bool, cross: bool,
     attn_drop_rate: float = 0.0, drop_seed: Optional[int] = None,
+    kv: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same inputs and semantics.
 
@@ -141,7 +152,9 @@ def window_attention_plain(
     (S, inner, C); bp: (S, C); bias: (S, T, T) gathered relative-position bias, all fp32.
     Returns (S, B, H, W, C) in x's dtype, computed in fp32 with the bf16 rounding points
     of the module docstring when x is bf16, the attention weights masked by the hash
-    dropout of ``attn_drop_rate`` and ``drop_seed``.
+    dropout of ``attn_drop_rate`` and ``drop_seed``. ``kv``: the tensor k/v are made from
+    (stream-flipped under cross), x itself by default; the plain backward passes a copy
+    of x to keep the k/v side of x's gradient apart.
     """
     _check_geometry(x, window)
     dl.check_seed((attn_drop_rate,), drop_seed)
@@ -151,11 +164,16 @@ def window_attention_plain(
     d = dims_per_head
     inner = num_heads * d
     top, left = wrap_offsets(window)
-    xf = x.float()
-    if shift:
-        xf = torch.roll(xf, shifts=(top, left), dims=(2, 3))
-    xw = window_partition(xf, window)  # (S, Bw, T, C)
-    kvw = xw.flip(0) if cross else xw
+
+    def windows(a):  # (S, B, H, W, C) -> (S, Bw, T, C) fp32, in the shifted partition
+        a = a.float()
+        if shift:
+            a = torch.roll(a, shifts=(top, left), dims=(2, 3))
+        return window_partition(a, window)
+
+    xw = windows(x)
+    kvw = xw if kv is None else windows(kv)
+    kvw = kvw.flip(0) if cross else kvw
     bw = xw.shape[1]
 
     def proj(a, wmat, bvec):  # (S, Bw, T, C) -> (S, Bw, heads, T, d)
@@ -188,12 +206,37 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def split_input_grad(x, run, g, cross: bool) -> Tuple[torch.Tensor, ...]:
+    """(g_x, the weight gradients) of ``run(xq, xkv)``, the fp32 forward of a kernel whose
+    q side reads ``xq`` and whose k/v side reads ``xkv`` (x upcast; None in self mode,
+    where both read ``xq``), for the output gradient ``g``: the JAX bf16 backward bodies'
+    result. g_x is in x's dtype: the fp32 sum rounded once in self mode; under cross the q
+    side and the k/v side rounded apart and added in x's dtype, as JAX adds its kernels'
+    gx and gkv outputs."""
+    xq = x.detach().float().requires_grad_()
+    xkv = x.detach().float().requires_grad_() if cross else None
+    out, weights = run(xq, xkv)
+    inputs = [xq, xkv, *weights] if cross else [xq, *weights]
+    grads = torch.autograd.grad(out, inputs, g.float())
+    if not cross:
+        return (grads[0].to(x.dtype), *grads[1:])
+    gx = (grads[0].to(x.dtype).float() + grads[1].to(x.dtype).float()).to(x.dtype)
+    return (gx, *grads[2:])
+
+
 def window_attention_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
     """Plain backward: (g_x, the 9 weight gradients) of :func:`window_attention_plain`
-    for the output gradient ``g``, by autograd. Keyword arguments as the forward's."""
+    for the output gradient ``g``. Keyword arguments as the forward's. fp32: autograd of
+    the plain version. bf16: the fp32 backward at the upcast x and g, g_x in bf16
+    (:func:`split_input_grad`), the weight gradients fp32 (module docstring)."""
     with torch.enable_grad():
-        inputs = [a.detach().requires_grad_() for a in (x, *weights)]
-        return torch.autograd.grad(window_attention_plain(*inputs, **kw), inputs, g)
+        if x.dtype == torch.float32:
+            inputs = [a.detach().requires_grad_() for a in (x, *weights)]
+            return torch.autograd.grad(window_attention_plain(*inputs, **kw), inputs, g)
+        leaves = [a.detach().requires_grad_() for a in weights]
+        return split_input_grad(
+            x, lambda xq, xkv: (window_attention_plain(xq, *leaves, kv=xkv, **kw), leaves),
+            g, kw["cross"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,9 +247,9 @@ def _library() -> ctypes.CDLL:
     lib.swin_window_attention_fwd.restype = _I
     lib.swin_window_attention_fwd_smem.argtypes = [_I] * 4
     lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
-    lib.swin_window_attention_bwd_workspace.argtypes = [_I] * 9
+    lib.swin_window_attention_bwd_workspace.argtypes = [_I] * 11
     lib.swin_window_attention_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 11 + [ctypes.c_float, _P]
+    lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 12 + [ctypes.c_float, _P]
     lib.swin_window_attention_bwd.restype = _I
     return lib
 
@@ -229,7 +272,7 @@ def _drop_args(x, kw):
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast."""
-    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
@@ -247,7 +290,9 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention")
-    if drop is not None:
+    if drop is not None and bf16:
+        BF16_DROP_LAUNCHES += 1
+    elif drop is not None:
         DROP_LAUNCHES += 1
     elif bf16:
         BF16_LAUNCHES += 1
@@ -257,49 +302,65 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    global BWD_LAUNCHES, DROP_BWD_LAUNCHES
+    """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
+    the weight gradients fp32) for a bf16 x."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     dims = _dims(x, kw)
-    if x.dtype != torch.float32:
-        raise NotImplementedError("the window attention backward is fp32 only: bf16 "
-                                  "training is not ported yet")
-    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
-        raise ValueError(f"the output gradient must be float32 {tuple(x.shape)} on {x.device}, "
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"the output gradient must be {x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     g = g.contiguous()
+    bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
     lib = _library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
-    workspace = x.new_empty(lib.swin_window_attention_bwd_workspace(*dims))
+    workspace = x.new_empty(lib.swin_window_attention_bwd_workspace(*dims, int(bf16), int(kw["cross"])),
+                            dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_window_attention_bwd(
             ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
-            int(kw["cross"]), float(kw["dims_per_head"]**-0.5),
+            int(kw["cross"]), int(bf16), float(kw["dims_per_head"]**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention backward")
-    if drop is not None:
+    if drop is not None and bf16:
+        BF16_DROP_BWD_LAUNCHES += 1
+    elif drop is not None:
         DROP_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
     return tuple(grads)
 
 
 class _WindowAttentionFunction(torch.autograd.Function):
-    """The kernels' forward and backward; saves only x and the weights (and, in ``kw``,
-    the dropout's rate and seed, so that the backward recomputes the forward's masks)."""
+    """The kernels' forward and backward on a card, the plain versions on the CPU (a bf16
+    call, whose plain backward is not autograd of its plain forward); saves only x and the
+    weights (and, in ``kw``, the dropout's rate and seed, so that the backward recomputes
+    the forward's masks)."""
 
     @staticmethod
     def forward(ctx, kw, x, *weights):
         ctx.kw = kw
         ctx.save_for_backward(x, *weights)
+        if x.device.type == "cpu":
+            return window_attention_plain(x, *weights, **kw)
         return _launch_fwd(x, weights, kw)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return (None, *window_attention_bwd_plain(g, x, *weights, **ctx.kw))
         return (None, *_launch_bwd(g, x, weights, ctx.kw))
+
+
+def recorded(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
 
 
 def window_attention(
@@ -307,19 +368,21 @@ def window_attention(
     window: Tuple[int, int], num_heads: int, dims_per_head: int, shift: bool, cross: bool,
     attn_drop_rate: float = 0.0, drop_seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Window attention: the plain version on the CPU, the CUDA kernels on a card.
+    """Window attention: the plain version on the CPU (with its plain backward when
+    autograd records a bf16 call), the CUDA kernels on a card.
 
     Arguments as :func:`window_attention_plain`. On a CUDA tensor every argument must be
     a contiguous tensor on that device, x float32 or bfloat16 and every weight float32;
-    anything else raises. A bf16 x runs the bf16 form of the kernels; dropout runs their
-    fp32 dropout form. When autograd records the call, its backward is the backward kernel
-    (fp32 only).
+    anything else raises. A bf16 x runs the bf16 form of the kernels, dropout their dropout
+    form. When autograd records the call, its backward is the backward kernel of x's dtype.
     """
     kw = dict(window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross, attn_drop_rate=float(attn_drop_rate),
               drop_seed=drop_seed)
     args = (x, wq, bq, wk, bk, wv, bv, wp, bp, bias)
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16 and recorded(*args):
+            return _WindowAttentionFunction.apply(kw, *args)
         return window_attention_plain(*args, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"window_attention runs on cpu or cuda tensors, not {x.device}")
@@ -344,13 +407,10 @@ def window_attention(
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed((attn_drop_rate,), drop_seed)
-    if attn_drop_rate and x.dtype != torch.float32:
-        raise NotImplementedError("the window attention kernels' dropout form is fp32 only "
-                                  "(training); bf16 training is not ported yet")
     smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if recorded(*args):
         return _WindowAttentionFunction.apply(kw, *args)
     return _launch_fwd(x, args[1:], kw)

@@ -38,11 +38,12 @@ from .window import window_partition, window_unpartition
 from .window_attention import ACT_DTYPES, wrap_offsets
 
 # Calls that launched the kernel forward on fp32 and on bf16 tokens, and backward calls
-# that launched it (one per call on a card), since the last reset; the plain version
-# never counts.
+# that launched it on an fp32 and on a bf16 gradient, since the last reset; the plain
+# version never counts.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 
 
 def pack_beneficial(c: int, w: int) -> bool:
@@ -144,10 +145,13 @@ class _RepartitionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES
+        global BWD_LAUNCHES, BF16_BWD_LAUNCHES
         hw, window, from_shift, to_shift = ctx.geometry
         out = _launch(g.contiguous(), hw, window, to_shift, from_shift)
-        BWD_LAUNCHES += 1
+        if g.dtype == torch.bfloat16:
+            BF16_BWD_LAUNCHES += 1
+        else:
+            BWD_LAUNCHES += 1
         return out, None, None, None, None
 
 

@@ -11,7 +11,15 @@ configuration the backward runs the backward kernels (``ops/fused_block.py``,
 0-d device tensors and never waits for the device.
 
 TF32 stays off for the whole step, backward included (fp32 parity with the JAX
-package's ``Precision.HIGHEST``): cuBLAS matmuls and cuDNN convolutions.
+package's ``Precision.HIGHEST``): cuBLAS matmuls and cuDNN convolutions. So does cuBLAS's
+reduced-precision reduction of bf16 GEMMs, which would let a split-K GEMM of a
+``compute_dtype="bfloat16"`` step reduce its partial sums in bf16 where JAX accumulates in
+fp32: the model's forward turns it off while it runs, and the step's scope keeps it off
+through the loss and the backward. The caller's settings are restored after the step.
+
+At ``compute_dtype="bfloat16"`` the forward runs in bf16 and returns fp32 at the head (JAX
+``models/unet.py:269``); the clamp, the loss, the gradients of the fp32 parameters, the
+BatchNorm statistics and Adam's state are fp32, as in the JAX step.
 
 With a nonzero dropout ratio a step draws its per-block dropout seeds from a CPU
 ``torch.Generator`` seeded from (``cfg.seed``, step): the counterpart of the JAX step's
@@ -35,7 +43,7 @@ import torch
 from .config import Config
 from .losses import total_fusion_loss
 from .models.from_jax import flatten_variables, variables_from_jax
-from .models.unet import SwinFusionUNet
+from .models.unet import SwinFusionUNet, fp32_accumulation
 from .optim import all_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
 
 
@@ -69,11 +77,12 @@ def create_train_state(cfg: Config, variables: Mapping, iters_per_epoch: int, *,
 
 @contextlib.contextmanager
 def fp32_mode():
-    """TF32 off in cuBLAS matmuls and cuDNN convolutions, restored on exit."""
+    """TF32 off in cuBLAS matmuls and cuDNN convolutions, and cuBLAS's bf16 GEMMs
+    accumulating in fp32 (:func:`~.models.unet.fp32_accumulation`), restored on exit."""
     matmul = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), fp32_accumulation():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -272,10 +272,20 @@ def test_tiny_bf16_forward_matches_jax_jnp(tiny_flat, hw):
 
 
 def test_bf16_training_raises(tiny_flat):
-    model = _port(SwinFusionUNet(ModelConfig(**TINY, compute_dtype="bfloat16")), tiny_flat)
+    """bf16 training is ported: the training forward runs (BatchNorm on the batch's
+    statistics in fp32, the output fp32) and its backward reaches every parameter with an
+    fp32 gradient; only rematerialisation still raises."""
+    model = _port(SwinFusionUNet(ModelConfig(**TINY, compute_dtype="bfloat16")), tiny_flat).train()
     ir, vis = _inputs((14, 14))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        model(torch.from_numpy(ir), torch.from_numpy(vis), train=True)
+    before = model.final_head.bn.mean.clone()
+    out = model(torch.from_numpy(ir), torch.from_numpy(vis), train=True)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert not torch.equal(model.final_head.bn.mean, before), "batch statistics update"
+    out.sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
+    remat = _port(SwinFusionUNet(ModelConfig(**TINY, compute_dtype="bfloat16", remat=True)), tiny_flat)
+    with pytest.raises(NotImplementedError, match="remat"):
+        remat(torch.from_numpy(ir), torch.from_numpy(vis), train=True)
 
 
 def test_unknown_compute_dtype_raises():

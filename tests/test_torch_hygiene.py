@@ -193,16 +193,39 @@ def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
 
 
 def test_bf16_backward_raises_before_any_launch(fake_library):
+    """A bf16 backward launches the bf16 form of each backward kernel (g_x bf16, the weight
+    gradients fp32) and counts in its own counter, with and without dropout; a gradient of
+    another dtype than x raises before any launch."""
     x = torch.zeros(2, 1, 7, 7, 8, dtype=torch.bfloat16)
     w, b = torch.zeros(2, 8, 8), torch.zeros(2, 8)
-    kw = dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        twa._launch_bwd(x, x, (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49)), kw)
+    attn = (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49))
+    kw = dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=True)
     _, weights = _meta_block_args()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        tfb._launch_bwd(x, x, [torch.zeros(a.shape) for a in weights],
-                        dict(kw, layout="image", hw=None))
+    weights = [torch.zeros(a.shape) for a in weights]
+    with pytest.raises(ValueError, match="output gradient"):
+        twa._launch_bwd(x.float(), x, attn, kw)
+    with pytest.raises(ValueError, match="output gradient"):
+        tfb._launch_bwd(x.float(), x, weights, dict(kw, layout="image", hw=None))
     assert not fake_library.calls
+
+    counters = lambda m: (m.BWD_LAUNCHES, m.BF16_BWD_LAUNCHES, m.DROP_BWD_LAUNCHES,
+                          m.BF16_DROP_BWD_LAUNCHES)
+    for rate in (0.0, 0.5):
+        before = counters(twa)
+        grads = twa._launch_bwd(x, x, attn, dict(kw, attn_drop_rate=rate, drop_seed=3))
+        assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
+        args = fake_library.calls["swin_window_attention_bwd"]
+        assert args[-3] == 1 and args[-4] == 1, "the bf16 form, cross"
+        assert counters(twa) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
+        for layout in ("image", "windows"):
+            xl = x if layout == "image" else x.reshape(2, 1, 1, 49, 8)
+            before = counters(tfb)
+            grads = tfb._launch_bwd(xl, xl, weights, dict(kw, layout=layout, hw=(7, 7),
+                                                          drop_rates=(rate, rate, rate), drop_seed=3))
+            assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
+            args = fake_library.calls["swin_fused_block_bwd"]
+            assert args[-3] == 1 and args[-4] == int(layout == "windows")
+            assert counters(tfb) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
 
 
 def test_dropout_launches_its_own_kernel_form(fake_library):
@@ -265,6 +288,27 @@ def test_dropout_masks_launch_with_their_site_and_count_each_direction(fake_libr
     drop = args[2].contents
     assert args[3] != 0 and args[4:9] == (2, 3, 2, 49, 2), "streams, images, windows, T, heads"
     assert list(drop.on) == [1, 0, 0, 0] and drop.t_pad == 56 and drop.attn_mode == dl.ATTN_SLOTS
+
+
+def test_bf16_dropout_masks_launch_their_bf16_form(fake_library):
+    """A bf16 tensor hands the composition's mask kernels the bf16 flag, gets a bf16 output
+    and counts in the bf16 counters, forward and on the gradient; the fp32 counters stay."""
+    key = dl.keying("k4", (14, 7), (7, 7), True, 2, 4, "cpu")
+    x = torch.zeros(2, 3, 14, 7, 8, dtype=torch.bfloat16, requires_grad=True)
+    fp32 = (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES, dm.ATTN_LAUNCHES, dm.ATTN_BWD_LAUNCHES)
+    before = (dm.BF16_TOKEN_LAUNCHES, dm.BF16_TOKEN_BWD_LAUNCHES, dm.BF16_ATTN_LAUNCHES)
+    out = dm._apply(functools.partial(dm._launch_tokens, seed=5, site=hd.SITE_PROJ, rate=0.25,
+                                      key=key), x)
+    out.backward(torch.ones_like(out))
+    assert out.dtype == x.grad.dtype == torch.bfloat16
+    assert fake_library.calls["swin_dropout_tokens"][-2] == 1, "the bf16 form"
+    dm._launch_attention(torch.zeros(2, 6, 2, 49, 49, dtype=torch.bfloat16), 5, 0.5, key)
+    assert fake_library.calls["swin_dropout_attention"][-2] == 1
+    assert (dm.BF16_TOKEN_LAUNCHES, dm.BF16_TOKEN_BWD_LAUNCHES, dm.BF16_ATTN_LAUNCHES) == tuple(
+        c + 1 for c in before)
+    assert (dm.TOKEN_LAUNCHES, dm.TOKEN_BWD_LAUNCHES, dm.ATTN_LAUNCHES, dm.ATTN_BWD_LAUNCHES) == fp32
+    dm._launch_tokens(torch.zeros(2, 3, 14, 7, 8), 5, hd.SITE_PROJ, 0.25, key)
+    assert fake_library.calls["swin_dropout_tokens"][-2] == 0
 
 
 def test_kernel_build_hash_covers_the_shared_headers(monkeypatch, tmp_path):

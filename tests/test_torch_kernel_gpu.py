@@ -516,3 +516,154 @@ def test_tiny_dropout_train_step_on_card_matches_cpu(impl):
     ref_terms, ref_grads, _ = results["cpu"]
     torch.testing.assert_close(terms["total_loss"].cpu(), ref_terms["total_loss"], rtol=1e-5, atol=0)
     assert_grads_close([grads[n].cpu() for n in ref_grads], list(ref_grads.values()), list(ref_grads))
+
+
+# ---- bf16 training: the bf16 backward forms and the bf16 dropout forms ------------------
+
+BF16 = torch.bfloat16
+ATTENTION_NAMES = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+
+
+def _bf16_bwd_cases(layout, shift, cross):
+    """(what, module, args, kw, names) of the fused block in ``layout`` and, on the image,
+    of K3, with bf16 x, at the stage-0 width and at C=384."""
+    for c, hidden, hw in ((24, 96, (28, 35)), (384, 1536, (21, 21))):
+        x, weights, d = _block_args(c, hidden, hw, c + hidden + 3, layout, shift)
+        x = x.to(BF16)
+        kw = dict(window=(7, 7), num_heads=8, dims_per_head=d, shift=shift, cross=cross)
+        yield (f"{layout} C={c}", tfb, (x, *weights), dict(kw, layout=layout, hw=hw),
+               ("x", *tfb.WEIGHT_NAMES))
+        if layout == "image":
+            yield f"K3 C={c}", twa, (x, *weights[2:11]), kw, ATTENTION_NAMES
+
+
+def _bf16_call(module, args, kw, rate):
+    """The wrapper of ``module`` with dropout at ``rate`` (every site of a block, the
+    attention site of K3), and the counters of its forward and backward form."""
+    if rate:
+        kw = (dict(kw, drop_rates=(rate,) * 3, drop_seed=DROP_SEED) if module is tfb
+              else dict(kw, attn_drop_rate=rate, drop_seed=DROP_SEED))
+    fn = tfb.fused_block if module is tfb else twa.window_attention
+    plain = tfb.fused_block_plain if module is tfb else twa.window_attention_plain
+    plain_bwd = tfb.fused_block_bwd_plain if module is tfb else twa.window_attention_bwd_plain
+    counters = ("BF16_DROP_LAUNCHES", "BF16_DROP_BWD_LAUNCHES") if rate else ("BF16_LAUNCHES",
+                                                                              "BF16_BWD_LAUNCHES")
+    return fn, plain, plain_bwd, kw, counters
+
+
+def _counts(module):
+    names = ("LAUNCHES", "BF16_LAUNCHES", "DROP_LAUNCHES", "BF16_DROP_LAUNCHES", "BWD_LAUNCHES",
+             "BF16_BWD_LAUNCHES", "DROP_BWD_LAUNCHES", "BF16_DROP_BWD_LAUNCHES")
+    return {n: getattr(module, n) for n in names}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_bf16_backward_kernels_match_plain_on_card(layout, shift, cross):
+    """The bf16 backward forms of K4 (image), K1 (windows) and K3 against their plain
+    bf16 backward (the fp32 backward at the upcast inputs, g_x rounded as JAX rounds it)
+    on the card: g_x bf16 by the bf16 kernel criteria, every weight gradient fp32 by
+    ``testing.assert_grads_close``. Each call counts one bf16 forward and one bf16
+    backward launch and nothing else."""
+    _need_card()
+    for what, module, args, kw, names in _bf16_bwd_cases(layout, shift, cross):
+        fn, _, plain_bwd, kw, (fwd, bwd) = _bf16_call(module, args, kw, 0.0)
+        g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(7)).cuda().to(BF16)
+        inputs = [a.detach().requires_grad_() for a in args]
+        before = _counts(module)
+        got = torch.autograd.grad(fn(*inputs, **kw), inputs, g)
+        torch.cuda.synchronize()
+        assert _counts(module) == {n: c + (n in (fwd, bwd)) for n, c in before.items()}, what
+        ref = plain_bwd(g, *args, **kw)
+        assert got[0].dtype == BF16 and all(t.dtype == torch.float32 for t in got[1:]), what
+        _assert_bf16_close(got[0], ref[0], f"{what} g_x")
+        assert_grads_close(got[1:], ref[1:], names[1:], what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("cross", [False, True])
+def test_bf16_dropout_kernels_match_plain_on_card(layout, shift, cross):
+    """The bf16 dropout forms, forward and backward, with every site (K3: its attention
+    site) at rate 0.5 against their plain bf16 versions with the same seed on the card,
+    and their keep masks against the fp32 dropout form's: the bf16 backward computes the
+    fp32 backward at the upcast inputs with the same kernels, so its weight gradients equal
+    the fp32 dropout kernel's there bit for bit (a mask that differs in one element would
+    move a sum), but the LN1 scale and bias of K1/K4 under cross, which sum the q and the
+    k/v sides of LN1's gradient in another order."""
+    _need_card()
+    for what, module, args, kw, names in _bf16_bwd_cases(layout, shift, cross):
+        fn, plain, plain_bwd, kw, (fwd, bwd) = _bf16_call(module, args, kw, 0.5)
+        g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(8)).cuda().to(BF16)
+        inputs = [a.detach().requires_grad_() for a in args]
+        before = _counts(module)
+        out = fn(*inputs, **kw)
+        got = torch.autograd.grad(out, inputs, g)
+        torch.cuda.synchronize()
+        assert _counts(module) == {n: c + (n in (fwd, bwd)) for n, c in before.items()}, what
+        with torch.no_grad():
+            _assert_bf16_close(out, plain(*args, **kw), f"{what} forward")
+        ref = plain_bwd(g, *args, **kw)
+        _assert_bf16_close(got[0], ref[0], f"{what} g_x")
+        assert_grads_close(got[1:], ref[1:], names[1:], what)
+        fp32 = module._launch_bwd(g.float(), args[0].float(), args[1:], kw)
+        apart = ("ln1_scale", "ln1_bias") if cross and module is tfb else ()  # q + k/v sums
+        for name, a, b in zip(names[1:], got[1:], fp32[1:]):
+            assert name in apart or torch.equal(a, b), f"{what} {name}: not the fp32 form's masks"
+        assert_grads_close(got[1:], fp32[1:], names[1:], f"{what} against the fp32 form")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [24, 6])
+def test_repartition_bwd_bf16_is_bit_exact_on_card(c):
+    """The re-partition's backward on a bf16 gradient equals the plain inverse permutation
+    exactly and counts as a bf16 backward launch."""
+    _need_card()
+    for hw in ((14, 28), (35, 21)):
+        x = torch.randn(2, 3, *hw, c, device="cuda").to(BF16)
+        for from_shift in (False, True):
+            xw = twp.pack_windows(x, (7, 7), from_shift).contiguous().requires_grad_()
+            g = torch.randn(xw.shape, device="cuda").to(BF16)
+            before = (twp.BWD_LAUNCHES, twp.BF16_BWD_LAUNCHES)
+            (got,) = torch.autograd.grad(twp.repartition_windows(xw, hw, (7, 7), from_shift, not from_shift),
+                                         xw, g)
+            torch.cuda.synchronize()
+            assert (twp.BWD_LAUNCHES, twp.BF16_BWD_LAUNCHES) == (before[0], before[1] + 1)
+            ref = twp.repartition_windows_bwd_plain(g, hw, (7, 7), from_shift, not from_shift)
+            assert got.dtype == BF16 and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [False, True])
+def test_bf16_composition_masks_match_plain_on_card(shift):
+    """The composition's mask kernels on bf16 tensors against their plain versions at rate
+    0.1 (a scale not exact in bf16), forward and on the gradient, bit for bit, keeping the
+    elements the fp32 masks keep; each direction one bf16 launch."""
+    _need_card()
+    gen = torch.Generator().manual_seed(int(shift) + 9)
+    for hw, cols in (((28, 35), 24), ((21, 21), 1536)):
+        key = dl.keying("k4", hw, (7, 7), shift, 8, 3, "cuda")
+        x = torch.randn(2, 3, *hw, cols, generator=gen).cuda().to(BF16).requires_grad_()
+        g = torch.randn(x.shape, generator=gen).cuda().to(BF16)
+        before = (dm.BF16_TOKEN_LAUNCHES, dm.BF16_TOKEN_BWD_LAUNCHES, dm.TOKEN_LAUNCHES)
+        out = dm.token_dropout(x, DROP_SEED, hd.SITE_MLP_OUT, 0.1, key)
+        (got,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        assert (dm.BF16_TOKEN_LAUNCHES, dm.BF16_TOKEN_BWD_LAUNCHES, dm.TOKEN_LAUNCHES) == (
+            before[0] + 1, before[1] + 1, before[2])
+        ref = dm.token_dropout_plain(x, DROP_SEED, hd.SITE_MLP_OUT, 0.1, key)
+        assert out.dtype == BF16 and torch.equal(out, ref)
+        assert torch.equal(got, torch.autograd.grad(ref, x, g)[0])
+        with torch.no_grad():
+            fp32 = dm.token_dropout(x.float(), DROP_SEED, hd.SITE_MLP_OUT, 0.1, key)
+        assert torch.equal(out, fp32.to(BF16))
+    key = dl.keying("k4", (14, 21), (7, 7), shift, 8, 3, "cuda")
+    weights = torch.rand(2, 3 * 6, 8, 49, 49, generator=gen).cuda().to(BF16)
+    before = dm.BF16_ATTN_LAUNCHES
+    out = dm.attention_dropout(weights, DROP_SEED, 0.1, key)
+    torch.cuda.synchronize()
+    assert dm.BF16_ATTN_LAUNCHES == before + 1
+    assert torch.equal(out, dm.attention_dropout_plain(weights, DROP_SEED, 0.1, key))

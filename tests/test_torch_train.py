@@ -187,16 +187,22 @@ def test_eval_step_clamps_and_nonfinite_step_is_skipped():
 
 
 def test_training_with_dropout_or_remat_raises():
-    """Dropout trains (``test_torch_dropout_model.py``); rematerialisation and bf16
-    training, with or without dropout, are not ported and raise."""
-    for field in ({"remat": True}, {"compute_dtype": "bfloat16"},
-                  {"compute_dtype": "bfloat16", "mlp_drop_ratio": 0.1}):
+    """Dropout trains (``test_torch_dropout_model.py``), and so does bf16 with or without
+    dropout (``test_torch_bf16_train.py``): the step runs and updates the fp32
+    parameters. Rematerialisation is not ported and raises."""
+    ir = torch.zeros(1, 14, 14, 1)
+    for field in ({"compute_dtype": "bfloat16"}, {"compute_dtype": "bfloat16", "mlp_drop_ratio": 0.1}):
         cfg = Config(model=ModelConfig(**TINY, **field))
         state = create_train_state(cfg, random_variables(ModelConfig(**TINY), seed=25), ITERS,
                                    device="cpu")
-        ir = torch.zeros(1, 14, 14, 1)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_train_step(cfg)(state, ir, ir)
+        terms = make_train_step(cfg)(state, ir, ir)
+        assert torch.isfinite(terms["total_loss"]) and (state.step, state.updates) == (1, 1)
+        assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    cfg = Config(model=ModelConfig(**TINY, remat=True))
+    state = create_train_state(cfg, random_variables(ModelConfig(**TINY), seed=25), ITERS,
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        make_train_step(cfg)(state, ir, ir)
 
 
 def test_create_train_state_raises_without_a_card():
