@@ -12,12 +12,16 @@ bit-exact). Then it serves ``Fuser.fuse_y`` requests with the full default
 each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_block``:
 K4), checks the outputs and each kernel's launch count, times the kernels and the
 requests, and breaks one request's device time down by kernel family with
-``torch.profiler``. Then the training path: each backward kernel (K3, K1, K2 and K4
-bwd) against autograd of its plain version at the shapes of a 224x224 batch-20 train
-step, and the first train step of the full model under each configuration against the
-torch composition on the card (loss terms, every parameter's gradient, the exact
-forward and backward launches), then timed steps in turns and one profiled step per
-configuration. The bf16 serving path (``compute_dtype="bfloat16"``) takes the same
+``torch.profiler``. K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
+launch at C <= 64, two above); it is checked for a bit-identical repeat, timed in turns with
+the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forms
+and the backward's recompute still run them), and both are broken down by stage and kernel
+from the profiler's device times (``[split]``). Then the training path: each backward
+kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
+224x224 batch-20 train step, and the first train step of the full model under each
+configuration against the torch composition on the card (loss terms, every parameter's
+gradient, the exact forward and backward launches), then timed steps in turns and one
+profiled step per configuration. The bf16 serving path (``compute_dtype="bfloat16"``) takes the same
 steps: the bf16 form of each kernel against its bf16 plain version, ``fuse_y`` under each
 configuration with exact launch counts and against the bf16 and the fp32 torch
 compositions on the card by image-level criteria, kernel times, latencies in turns with
@@ -282,14 +286,16 @@ def check_attention_kernel(cfg, device, dtype=torch.float32):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
                           shift=shift, cross=cross)
                 out = twa.window_attention(*args, **kw)
+                again = twa.window_attention(*args, **kw)
                 torch.cuda.synchronize()
                 ref = twa.window_attention_plain(*args, **kw)
-                err, share = compare_kernel(out, ref, f"[k3{tag(dtype)}] stage {k} {h}x{w} C={c} "
-                                            f"d={d} shift={shift} cross={cross}")
+                what = f"[k3{tag(dtype)}] stage {k} {h}x{w} C={c} d={d} shift={shift} cross={cross}"
+                err, share = compare_kernel(out, ref, what)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{what}: a repeat gave other bits")
                 worst, worst_share = max(worst, err), max(worst_share, share)
-    if dtype == BF16:
-        print(f"[check] K3 bf16: worst max_abs_err {worst:.3e}, at most {worst_share:.3%} of the "
-              f"elements differ, over 20 cases", flush=True)
+    print(f"[check] K3{tag(dtype)}: worst max_abs_err {worst:.3e}, at most {worst_share:.3%} of "
+          f"the elements differ, over 20 cases, each repeated bit for bit", flush=True)
     return worst
 
 
@@ -525,12 +531,15 @@ def check_bf16_fidelity(impl, shape, out, plain16_out, plain32_out):
 
 
 def time_attention(cfg, device, card, dtype=torch.float32):
-    """K3 per launch at every stage x variant; per-request sums weight each by its 2
-    launches (encoder and decoder)."""
+    """K3 per call at every stage x variant: the forward without dropout
+    (``csrc/window_attention_fwd.cu``, one or two kernels) in turns with the three launches
+    it replaced, which the dropout forms and the backward's recompute still run
+    (``_launch_three``: new, three, three, new); per-request sums weight each by its 2
+    calls (encoder and decoder)."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     name = f"K3{tag(dtype)}"
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    totals = dict(ms=0.0, three_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     by = {}
     for k, h, w, c, heads, d in stage_geometries(cfg):
         x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device)
@@ -538,18 +547,26 @@ def time_attention(cfg, device, card, dtype=torch.float32):
         bound, bound_by = attention_bound_ms(h, w, c, heads, d, dtype=dtype)
         for shift in (False, True):
             for cross in (False, True):
-                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d,
-                          shift=shift, cross=cross)
-                ms = time_ms(lambda: twa.window_attention(*args, **kw), iters=20)
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift,
+                          cross=cross, attn_drop_rate=0.0, drop_seed=None)
+                forms = {"new": lambda: twa.window_attention(*args, **kw),
+                         "three": lambda: twa._launch_three(args[0], args[1:], kw)}
+                runs = {form: [] for form in forms}
+                for form in ("new", "three", "three", "new"):
+                    runs[form].append(time_ms(forms[form], iters=20))
+                ms, three = (sum(runs[f]) / 2 for f in ("new", "three"))
                 plain = time_ms(lambda: twa.window_attention_plain(*args, **kw), iters=5)
                 print(f"[time] {name} stage {k} {h}x{w} C={c} shift={shift} cross={cross}: "
-                      f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}",
-                      flush=True)
-                for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                      f"{ms:.4f} ms ({runs['new'][0]:.4f}, {runs['new'][1]:.4f}), three launches "
+                      f"{three:.4f} ms in turns, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                      f"({bound_by}) | {card}", flush=True)
+                for key, v in (("ms", ms), ("three_ms", three), ("plain_ms", plain), ("bound_ms", bound)):
                     totals[key] += 2 * v
                 by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
-    print(f"[time] {name} per 512x512 request under cuda (40 launches): {totals['ms']:.3f} ms, plain "
-          f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+    print(f"[time] {name} per 512x512 request under cuda (40 calls): {totals['ms']:.3f} ms "
+          f"({totals['bound_ms'] / totals['ms']:.1%} of the bound), the three launches in turns "
+          f"{totals['three_ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
+          f"{totals['bound_ms']:.4f} ms | {card}", flush=True)
     return dict(totals, bound_by=max(by, key=by.get), library_ms=None)
 
 
@@ -601,6 +618,56 @@ def device_ms(fn, iters):
     return total / 1e3 / iters if total else None
 
 
+def _kernel_name(key):
+    """The function name of a device kernel's profiler key (no namespace, no arguments)."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1] \
+        .replace("void ", "").strip()
+
+
+def k3_split(cfg, device, card, launch, label, dtype=torch.float32, runs=5):
+    """K3's device time per 512² request by stage and by kernel, from torch.profiler:
+    ``launch(x, weights, kw)`` ``runs`` times at each stage's four variants (each runs twice
+    per request, encoder and decoder), every kernel of a call named by its position in the
+    call and its function (the three-launch form's two GEMMs share a name). Returns
+    {stage: {kernel: ms per request}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    split = {}
+    for k, h, w, c, heads, d in stage_geometries(cfg):
+        x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device)
+        x = x.to(dtype)
+        parts = {}
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift,
+                          cross=cross, attn_drop_rate=0.0, drop_seed=None)
+                launch(x, weights, kw)
+                torch.cuda.synchronize()
+                for _ in range(3):  # a session now and then drops device events: take another
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        for _ in range(runs):
+                            launch(x, weights, kw)
+                        torch.cuda.synchronize()
+                    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                                     and "mem" not in e.name.lower()), key=lambda e: e.time_range.start)
+                    if events and not len(events) % runs:
+                        break
+                if not events or len(events) % runs:
+                    print(f"[split] {label}: the profiler recorded {len(events)} device kernels for "
+                          f"{runs} calls: not measured | {card}")
+                    return None
+                per_call = len(events) // runs
+                for i, e in enumerate(events):
+                    name = f"{i % per_call}:{_kernel_name(e.name)}"
+                    parts[name] = parts.get(name, 0.0) + 2 * e.time_range.elapsed_us() / 1e3 / runs
+        split[k] = parts
+        print(f"[split] {label} stage {k} {h}x{w} C={c} d={d}, per 512x512 request (8 calls): "
+              + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+              + f", total {sum(parts.values()):.4f} ms | {card}", flush=True)
+    return split
+
+
 def time_repartition(cfg, device, card):
     """K2 per launch at every packed stage map, both directions, fp32 and bf16 in turns at
     each map (fp32, bf16, bf16, fp32), so that a drift of the host's speed falls on both
@@ -636,16 +703,18 @@ def time_repartition(cfg, device, card):
             for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
                            ("library_ms", library)):
                 totals[dt][key] += per_request * v
-            request[dt].append((per_request, launch[dt]))
+            request[dt].append((per_request, launch[dt],
+                                functools.partial(repartition_library, xw, perm)))
     results = {}
     for dt in dtypes:
         name, t = f"K2{tag(dt)}", totals[dt]
-        dev = device_ms(lambda: [fn() for n, fn in request[dt] for _ in range(n)], iters=5)
-        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        dev, lib_dev = (device_ms(lambda: [call[i]() for call in request[dt] for _ in range(call[0])],
+                                  iters=5) for i in (1, 2))
+        dev, lib_dev = ("not measured" if v is None else f"{v:.4f} ms" for v in (dev, lib_dev))
         print(f"[time] {name} per 512x512 request under cuda_pack (24 launches): {t['ms']:.3f} ms "
               f"by events, {dev} of device time (profiler), plain {t['plain_ms']:.3f} ms, "
-              f"index_select {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms | {card}",
-              flush=True)
+              f"index_select {t['library_ms']:.3f} ms by events, {lib_dev} of device time "
+              f"(profiler), bound {t['bound_ms']:.4f} ms | {card}", flush=True)
         results[name] = dict(t, bound_by="bytes")
     return results
 
@@ -708,6 +777,7 @@ def throughput(served, card):
 
 
 KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first match wins
+    ("csrc K3 forward (attention, projection)", ("k3_attention_kernel", "k3_proj_kernel")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
@@ -1223,7 +1293,9 @@ def check_dropout_kernels(cfg, device, card):
                          lambda: twa.window_attention_plain(x, *weights, **dkw), 5),
                         (" bwd", lambda a: twa._launch_bwd(g, x, weights, a),
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
-                    nodrop, ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1)
+                    # the forward without dropout as the three launches the dropout form extends
+                    base = (lambda: twa._launch_three(x, weights, kw)) if part == "" else (lambda: launch(kw))
+                    nodrop, ms = _in_turns(base, lambda: launch(dkw), iters, 1)
                     plain_ms = time_ms(plain, iters=2, warmup=1)
                     ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, part == " bwd")
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH,
@@ -2005,7 +2077,11 @@ def main() -> int:
 
     times = {**time_kernels(cfg, device, card), **time_kernels(cfg, device, card, BF16),
              **time_repartition(cfg, device, card)}
-    phase("[time] forward kernels")
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    for dtype in (torch.float32, BF16):
+        for launch, label in ((twa._launch_fwd, "redesigned"), (twa._launch_three, "three launches")):
+            k3_split(cfg, device, card, launch, f"K3{tag(dtype)} {label}", dtype)
+    phase("[time] forward kernels, [split] K3 by stage and kernel")
 
     # the configurations take turns, fp32 and bf16 alike
     served = {**fusers, **{f"{impl} bf16": f for impl, f in fusers16.items()},
@@ -2049,7 +2125,7 @@ def main() -> int:
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
-        ("K3", "window_attention_fwd (K3)", f"{csrc}/window_attention.cu",
+        ("K3", "window_attention_fwd (K3)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
         ("K1", "fused_block_fwd, windows layout (K1)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
@@ -2057,7 +2133,7 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
-        ("K3 bf16", "window_attention_fwd bf16 (K3 bf16)", f"{csrc}/window_attention.cu",
+        ("K3 bf16", "window_attention_fwd bf16 (K3 bf16)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
         ("K1 bf16", "fused_block_fwd bf16, windows layout (K1 bf16)", f"{csrc}/fused_block.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),

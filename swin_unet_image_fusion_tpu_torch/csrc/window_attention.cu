@@ -19,18 +19,17 @@
 //
 // What bounds it, and the design. At the model's shapes (C = 24..384, d = C/8 = 3..48,
 // T = 49) the work is ~8*T*C^2 + 4*T^2*C FLOP per window against 16*T*C bytes in and out:
-// the fp32 rate bounds it, not device memory. The dims do not suit the tensor cores
-// (d = 3, 6, 12; T = 49), so this version stays on fp32 FMA in three launches:
+// the fp32 rate bounds it, not device memory. A call WITHOUT dropout runs the redesigned
+// forward of window_attention_fwd.cu (one launch at C <= 64, two above: a block per window
+// holds q, k, v in shared memory; see that file). This file keeps the three launches that
+// the dropout forms run and that the backward recomputes:
 //   1. one batched tiled GEMM computes q (scaled), k and v for both streams into
 //      (S, B, H, W, inner) scratch, k/v from the other stream under cross;
 //   2. one block per (window, stream*batch, head) gathers that head's q/k/v tokens,
 //      keeps the (T, T) probabilities in shared memory and writes AV to scratch;
 //   3. one batched tiled GEMM applies the output projection + bias.
-// A single block per window holding x, the other stream's kv and a (T, C) accumulator
-// (the TPU kernel's shape) would need ~190 KB of shared memory at C = 384 and runs only
-// 18 blocks there; measured on an H100 it took 13.7 ms per deep-stage launch, 25x the
-// plain PyTorch version. The split keeps every block small and the card full at every
-// stage, at the cost of writing q, k, v and AV once (4x the activation bytes). The GEMM
+// Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W), a 512² request's 40 calls spent 8.8
+// ms in them, 6.0 ms of it in launch 2 (chip_smoke.py's [split] lines; PERF.md). The GEMM
 // and the core kernel live in window_core.cuh, shared with the fused block (fused_block.cu).
 //
 // bf16 (the TPU kernel with a bf16 x, as the JAX package serves). The weights stay fp32 in
@@ -39,7 +38,8 @@
 // fp32 biases), the scores and the fast softmax stay fp32; p and v are rounded before AV
 // (l.325) and AV is stored rounded (l.327); the projection sums in fp32, adds bp and
 // rounds once on the store (l.331-332). The same three launches, on half the activation
-// bytes; the FMAs stay fp32, so it is bound as the fp32 form is.
+// bytes; the FMAs stay fp32 here (window_attention_fwd.cu runs these products on the
+// tensor cores for a call without dropout).
 //
 // Backward (swin_window_attention_bwd) replaces
 // pallas_attention.py::_attention_bwd_body (through _attention_bwd_kernel /

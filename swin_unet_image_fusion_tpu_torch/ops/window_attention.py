@@ -19,10 +19,17 @@ loaded, so q/k/v are bf16 products accumulated in fp32 (+ the fp32 biases); the 
 and the fast softmax stay fp32; p and v are rounded to bf16 before AV, AV is rounded
 before the projection, whose fp32 sum plus ``bp`` is rounded once on the store.
 
-``window_attention`` runs the plain version for a CPU tensor and launches the kernels
-of ``csrc/window_attention.cu`` for a CUDA tensor: a batched GEMM for q/k/v, one block
-per (window, stream, head) for scores, mask, softmax and AV, and a batched GEMM for
-the output projection. There is no fallback between the two versions.
+``window_attention`` runs the plain version for a CPU tensor and launches kernels for a
+CUDA tensor. A call without dropout runs ``csrc/window_attention_fwd.cu`` as
+:func:`fwd_plan` lays it out: one block per window and stream computes q/k/v, scores,
+mask, softmax and AV in shared memory and, where every head fits a block that two can
+share an SM (the stages with C <= 64 of the default model), the output projection too:
+one launch; elsewhere a block takes a group of heads and writes AV, and a second launch
+projects. On the tensor cores in bf16 (``mma.sync``), on fp32 FMA in fp32. Dropout calls
+run the three launches of ``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one
+block per (window, stream, head) for scores, mask, softmax and AV, a batched GEMM for the
+output projection), which the backward also recomputes. There is no fallback between the
+versions.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_WindowAttentionFunction``, whose backward launches
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -254,6 +262,129 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_library() -> ctypes.CDLL:
+    lib = _build.load("window_attention_fwd")
+    lib.swin_k3_fwd.argtypes = [_P] * 12 + [_I] * 12 + [ctypes.c_float, _P]
+    lib.swin_k3_fwd.restype = _I
+    lib.swin_k3_fwd_smem.argtypes = [_I] * 9
+    lib.swin_k3_fwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+# ---- the forward without dropout (csrc/window_attention_fwd.cu): its launch plan ----------
+# Block geometry of the kernels, as in the source: 256 threads; fp32 GEMM rows padded to 56
+# (8x4 register tiles, at most one per thread; A rows pitched 60 floats), bf16 rows to 64
+# (mma tiles of 16 rows and 8 columns, at most three column tiles per warp); channels in
+# chunks of 16; tables of at most 192 q/k/v columns.
+FWD_WINDOW = (7, 7)
+FWD_PITCHES = (4, 8, 12, 16, 24, 32, 48)  # q/k row pitches (d rounded up), one kernel each
+_T = FWD_WINDOW[0] * FWD_WINDOW[1]
+_THREADS, _WARPS, _PITCH_F, _TILE_N, _ROWS_B, _KC = 256, 8, 60, 4, 64, 16
+_STAGES, _PROJ_STAGES = 3, 6  # cp.async ring depths of the attention and projection kernels
+_STRIDE_B, _P_STRIDE, _MAX_COLS = 24, 72, 3 * 8 * 8
+PROJ_COLS = 48  # output columns per block of the projection launch
+GROUP_COLS = 48  # q/k/v columns per part that a block of the split route takes at most
+FUSED_SMEM_MAX = SMEM_LIMIT_BYTES // 2  # the one-launch route only where two blocks fit an SM
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward without dropout runs at one shape: ``route`` "fused" (one launch, a
+    block per window and stream with every head, the projection included) or "split" (a
+    block per window, stream and group of ``heads_per_block`` heads writes AV, then a
+    projection launch over 48-column groups); ``smem`` and ``proj_smem`` are each block's
+    shared-memory bytes (``proj_smem`` 0 when fused)."""
+
+    route: str
+    launches: int
+    heads_per_block: int
+    pitch: int
+    smem: int
+    proj_smem: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _align16(v: int) -> int:
+    return _round_up(v, 16)
+
+
+def _f32_tiles(nb: int) -> int:
+    return 7 * (nb // _TILE_N)
+
+
+def _ring_a_bytes(bf16: bool, parts: int, stages: int) -> int:
+    return stages * parts * (_ROWS_B * _STRIDE_B * 2 if bf16 else _KC * _PITCH_F * 4)
+
+
+def _b_bytes(bf16: bool, nb: int, stages: int) -> int:
+    """The fp32 weight ring; in bf16 rows pitched nb + 4 floats."""
+    return stages * _KC * (nb + 4 if bf16 else nb) * 4
+
+
+def attention_smem(bf16: bool, fused: bool, cross: bool, c: int, inner: int, hg: int, d: int,
+                   pitch: int) -> int:
+    """Shared-memory bytes of one attention block (``attention_layout`` in the source): the
+    GEMM space (the x and weight rings; after the q/k/v GEMM, bf16's P and the fused
+    route's wp), q/k/v, AV when fused, the bias table, the row and column tables."""
+    ki = _round_up(inner, _KC)
+    ring = _ring_a_bytes(bf16, 2 if cross else 1, _STAGES) + _b_bytes(bf16, 3 * hg * d, _STAGES)
+    after = (_WARPS * 32 * _P_STRIDE * 2 if bf16 else 0) + (ki * (c + 4 if bf16 else c) * 4 if fused else 0)
+    total = _align16(max(ring, after)) + 2 * _align16(hg * _T * pitch * 4)
+    total += _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
+    if fused:
+        total += _align16(_ROWS_B * (ki + 8) * 2 if bf16 else ki * _PITCH_F * 4)
+    return total + _align16(_T * _T * 4) + _align16((2 * _ROWS_B + 3 * _MAX_COLS) * 4)
+
+
+def proj_smem(bf16: bool) -> int:
+    """Shared-memory bytes of one projection block (``proj_layout`` in the source)."""
+    gemm = _ring_a_bytes(bf16, 1, _PROJ_STAGES) + _b_bytes(bf16, PROJ_COLS, _PROJ_STAGES)
+    return _align16(gemm) + _align16(2 * _ROWS_B * 4)
+
+
+def _takes(c: int, heads: int, d: int, hg: int, fused: bool) -> bool:
+    """The kernels' limits on a head grouping (``supported`` in the source)."""
+    n = hg * d
+    if n % 8 or 3 * n > _MAX_COLS or _f32_tiles(3 * n) > _THREADS:
+        return False
+    return not fused or (c <= _MAX_COLS and _f32_tiles(c) <= _THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
+             bf16: bool) -> FwdPlan:
+    """The launch plan of the forward without dropout, or ValueError where its kernels do
+    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8. Every head in
+    one block (one launch) where q, k, v of every head fit its column tiles (3 heads*d <=
+    192) and two such blocks fit an SM (alone on an SM a block waits on each of its phases);
+    else the largest group of heads with at most 48 columns per q/k/v part (a multiple of
+    8) and the projection as a second launch."""
+    inner = heads * d
+    if tuple(window) != FWD_WINDOW:
+        raise ValueError(f"the window-attention forward takes {FWD_WINDOW} windows, got {tuple(window)}")
+    pitch = next((p for p in FWD_PITCHES if d <= p), None)
+    if pitch is None:
+        raise ValueError(f"the window-attention forward takes at most {FWD_PITCHES[-1]} dims per "
+                         f"head, got {d}")
+    if c % 8 or inner % 8:
+        raise ValueError(f"the window-attention forward takes C and heads*d multiples of 8, "
+                         f"got C={c}, heads*d={inner}")
+    if _takes(c, heads, d, heads, True):
+        smem = attention_smem(bf16, True, cross, c, inner, heads, d, pitch)
+        if smem <= FUSED_SMEM_MAX:
+            return FwdPlan("fused", 1, heads, pitch, smem, 0)
+    for hg in range(heads, 0, -1):
+        if heads % hg == 0 and hg * d <= GROUP_COLS and _takes(c, heads, d, hg, False):
+            return FwdPlan("split", 2, hg, pitch,
+                           attention_smem(bf16, False, cross, c, inner, hg, d, pitch), proj_smem(bf16))
+    raise ValueError(f"the window-attention forward has no head grouping for {heads} heads "
+                     f"of {d} dims")
+
+
 def _dims(x, kw):
     """(S, B, H, W, C, heads, d, wh, ww) of a checked call."""
     return (*x.shape, kw["num_heads"], kw["dims_per_head"], *kw["window"])
@@ -271,7 +402,43 @@ def _drop_args(x, kw):
 
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
-    """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast."""
+    """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast. A
+    call without dropout launches the forward of ``csrc/window_attention_fwd.cu`` (one or
+    two launches, :func:`fwd_plan`), a dropout call the three launches."""
+    global LAUNCHES, BF16_LAUNCHES
+    if _drop_args(x, kw) is None:
+        out = _launch_redesigned(x, weights, kw)
+        if x.dtype == torch.bfloat16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+        return out
+    return _launch_three(x, weights, kw)
+
+
+def _launch_redesigned(x, weights, kw) -> torch.Tensor:
+    """The forward without dropout: the attention kernel, and the projection kernel on the
+    split route (AV through a window-major scratch in x's dtype)."""
+    s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
+    bf16 = x.dtype == torch.bfloat16
+    plan = fwd_plan(c, heads, d, (wh, ww), bool(kw["cross"]), bf16)
+    lib = _fwd_library()
+    out = torch.empty_like(x)
+    av = None if plan.route == "fused" else x.new_empty(s * b * h * w * heads * d)
+    with torch.cuda.device(x.device):
+        rc = lib.swin_k3_fwd(
+            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+            None if av is None else av.data_ptr(), s, b, h, w, c, heads, d,
+            plan.heads_per_block, int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
+            int(bf16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "window attention")
+    return out
+
+
+def _launch_three(x, weights, kw) -> torch.Tensor:
+    """The three launches of ``csrc/window_attention.cu``: the dropout forms (and, as
+    ``swin_window_attention_fwd``, the form without dropout that the backward recomputes)."""
     global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     bf16 = x.dtype == torch.bfloat16
@@ -407,6 +574,8 @@ def window_attention(
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed((attn_drop_rate,), drop_seed)
+    if not attn_drop_rate:
+        fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), x.dtype == torch.bfloat16)
     smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "

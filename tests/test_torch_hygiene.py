@@ -155,6 +155,7 @@ def fake_library(monkeypatch):
     lib = _FakeLibrary()
     for module in (twa, tfb, twp, dm):
         monkeypatch.setattr(module, "_library", lambda: lib)
+    monkeypatch.setattr(twa, "_fwd_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     return lib
@@ -170,7 +171,7 @@ def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
     before = (twa.LAUNCHES, twa.BF16_LAUNCHES)
     out = twa._launch_fwd(x, (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49)),
                           dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False))
-    assert out.dtype == dtype and fake_library.calls["swin_window_attention_fwd"][-3] == bf16
+    assert out.dtype == dtype and fake_library.calls["swin_k3_fwd"][-3] == bf16
     assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
     _, weights = _meta_block_args()

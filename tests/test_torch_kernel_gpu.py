@@ -667,3 +667,70 @@ def test_bf16_composition_masks_match_plain_on_card(shift):
     torch.cuda.synchronize()
     assert dm.BF16_ATTN_LAUNCHES == before + 1
     assert torch.equal(out, dm.attention_dropout_plain(weights, DROP_SEED, 0.1, key))
+
+
+def _stage_cases(hw):
+    """(stage, H, W, C, heads, d) of every attention stage of the default model at ``hw``."""
+    from swin_unet_image_fusion_tpu_torch.ops.shape_plan import make_plan
+
+    cfg = ModelConfig()
+    plan = make_plan(*hw, cfg.num_stages, cfg.merging_size, cfg.window_size)
+    return [(k, *p.att_hw, cfg.out_dims_list[k], cfg.att_num_heads,
+             cfg.dims_per_head(cfg.out_dims_list[k])) for k, p in enumerate(plan)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw", [(512, 512), (100, 90)], ids=["512", "100x90"])
+def test_k3_forward_matches_plain_at_every_stage_on_card(hw, dtype):
+    """The forward without dropout (``csrc/window_attention_fwd.cu``: one launch at stages
+    0-1, two at 2-4) against its plain version in all 20 stage x shift x cross cases of a
+    request at ``hw``: fp32 within atol/rtol 1e-4 (fp32 sums of up to 384 terms in another
+    order), bf16 by the share bound of the bf16 kernels; every call counted once in its
+    dtype's counter and repeated bit for bit (no atomics, fixed sum orders)."""
+    _need_card()
+    counter = "BF16_LAUNCHES" if dtype == BF16 else "LAUNCHES"
+    for k, h, w, c, heads, d in _stage_cases(hw):
+        gen = torch.Generator().manual_seed(100 + k)
+        inner = heads * d
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        args = (rand(2, 1, h, w, c).to(dtype), rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1), rand(2, 49, 49))
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                before = getattr(twa, counter)
+                out = twa.window_attention(*args, **kw)
+                again = twa.window_attention(*args, **kw)
+                torch.cuda.synchronize()
+                assert getattr(twa, counter) == before + 2
+                what = f"stage {k} {h}x{w} C={c} shift={shift} cross={cross}"
+                assert torch.equal(out, again), f"{what}: a repeat gave other bits"
+                ref = twa.window_attention_plain(*args, **kw)
+                if dtype == BF16:
+                    _assert_bf16_close(out, ref, what)
+                else:
+                    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4, msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.gpu
+def test_k3_forward_plan_agrees_with_the_kernels_shared_memory():
+    """The launch plan's shared-memory bytes (``ops/window_attention.py::attention_smem``,
+    ``proj_smem``) are the ones the kernels' layouts give, at every stage in both dtypes
+    and modes, and within what a block may use."""
+    _need_card()
+    lib = twa._fwd_library()
+    for k, h, w, c, heads, d in _stage_cases((512, 512)):
+        for bf16 in (False, True):
+            for cross in (False, True):
+                plan = twa.fwd_plan(c, heads, d, (7, 7), cross, bf16)
+                args = (int(bf16), int(plan.route == "fused"), int(cross), c, heads * d, heads, d,
+                        plan.heads_per_block)
+                assert lib.swin_k3_fwd_smem(*args, 0) == plan.smem <= twa.SMEM_LIMIT_BYTES
+                if plan.route == "split":
+                    assert lib.swin_k3_fwd_smem(*args, 1) == plan.proj_smem
