@@ -12,7 +12,11 @@ bit-exact). Then it serves ``Fuser.fuse_y`` requests with the full default
 each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_block``:
 K4), checks the outputs and each kernel's launch count, times the kernels and the
 requests, and breaks one request's device time down by kernel family with
-``torch.profiler``. K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
+``torch.profiler``. K4's forward without dropout is ``csrc/fused_block_fwd.cu`` (one launch
+at C <= 48, five above); it is checked for a bit-identical repeat, timed in turns with the
+five launches of ``csrc/fused_block.cu`` that it replaced there (K1, the dropout forms and
+the backward's recompute still run them), and both are broken down by stage and kernel
+(``[split] K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
 launch at C <= 64, two above); it is checked for a bit-identical repeat, timed in turns with
 the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forms
 and the backward's recompute still run them), and both are broken down by stage and kernel
@@ -326,8 +330,9 @@ def fused_args(case, x, layout):
 
 
 def check_fused_block(cfg, device, dtype=torch.float32):
-    """K1 (windows layout, the packed stages) and K4 (image layout, every stage) against
-    their plain version in every stage x role x shift x cross case of a 512² request."""
+    """K1 (windows layout, the packed stages) and K4 (image layout, every stage: the forward
+    of ``csrc/fused_block_fwd.cu``, each case repeated bit for bit) against their plain
+    version in every stage x role x shift x cross case of a 512² request."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     worst = {}
@@ -337,15 +342,18 @@ def check_fused_block(cfg, device, dtype=torch.float32):
         for case, x, weights in block_cases(cfg, device, packed_only):
             xl, kw = fused_args(case, x.to(dtype), layout)
             out = tfb.fused_block(xl, *weights, **kw)
+            again = tfb.fused_block(xl, *weights, **kw) if layout == "image" else out
             torch.cuda.synchronize()
             ref = tfb.fused_block_plain(xl, *weights, **kw)
             k, h, w, c, _, d, role, hidden, shift, cross = case
-            err, share = compare_kernel(out, ref, f"[{key.lower()}] stage {k} {role} {h}x{w} C={c} "
-                                        f"hidden={hidden} shift={shift} cross={cross}")
+            what = f"[{key.lower()}] stage {k} {role} {h}x{w} C={c} hidden={hidden} shift={shift} cross={cross}"
+            err, share = compare_kernel(out, ref, what)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{what}: a repeat gave other bits")
             worst[key], worst_share = max(worst[key], err), max(worst_share, share)
-        if dtype == BF16:
-            print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}, at most {worst_share:.3%} "
-                  f"of the elements differ, over {32 if packed_only else 40} cases", flush=True)
+        repeat = "" if packed_only else ", each repeated bit for bit"
+        print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}, at most {worst_share:.3%} "
+              f"of the elements differ, over {32 if packed_only else 40} cases{repeat}", flush=True)
     return worst
 
 
@@ -571,30 +579,46 @@ def time_attention(cfg, device, card, dtype=torch.float32):
 
 
 def time_fused_block(cfg, device, card, dtype=torch.float32):
-    """K1 (packed stages, windows layout) and K4 (every stage, image layout) per launch
-    at every stage x role x shift x cross block of a 512² request; each block runs once
-    per request, so the per-request sums add them all."""
+    """K1 (packed stages, windows layout) and K4 (every stage, image layout) per call at
+    every stage x role x shift x cross block of a 512² request; each block runs once per
+    request, so the per-request sums add them all. K4's forward (``csrc/fused_block_fwd.cu``)
+    is timed in turns with the five launches of ``csrc/fused_block.cu`` that it replaced
+    there (new, five, five, new)."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     results = {}
     for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
         name = f"{name}{tag(dtype)}"
-        totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        totals = dict(ms=0.0, five_ms=0.0, plain_ms=0.0, bound_ms=0.0)
         by = {}
         for case, x, weights in block_cases(cfg, device, packed_only):
             xl, kw = fused_args(case, x.to(dtype), layout)
             k, h, w, c, heads, d, role, hidden, shift, cross = case
             bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, dtype=dtype, layout=layout)
-            ms = time_ms(lambda: tfb.fused_block(xl, *weights, **kw), iters=20)
+            new = lambda: tfb.fused_block(xl, *weights, **kw)  # noqa: E731
+            five_kw = dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None)
+            if layout == "image":  # the redesigned forward in turns with the five launches
+                runs = {"new": [], "five": []}
+                forms = {"new": new, "five": lambda: tfb._launch_five(xl, weights, five_kw)}
+                for form in ("new", "five", "five", "new"):
+                    runs[form].append(time_ms(forms[form], iters=20))
+                ms, five = (sum(runs[f]) / 2 for f in ("new", "five"))
+                turns = (f" ({runs['new'][0]:.4f}, {runs['new'][1]:.4f}), five launches {five:.4f} "
+                         f"ms in turns")
+                totals["five_ms"] += five
+            else:
+                ms, turns = time_ms(new, iters=20), ""
             plain = time_ms(lambda: tfb.fused_block_plain(xl, *weights, **kw), iters=3, warmup=1)
             print(f"[time] {name} stage {k} {role} {h}x{w} C={c} hidden={hidden} shift={shift} "
-                  f"cross={cross}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"cross={cross}: {ms:.4f} ms{turns}, plain {plain:.4f} ms, bound {bound:.4f} ms "
                   f"({bound_by}) | {card}", flush=True)
             for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
                 totals[key] += v
             by[bound_by] = by.get(bound_by, 0.0) + bound
         n = 32 if packed_only else 40
-        print(f"[time] {name} per 512x512 request ({n} launches): {totals['ms']:.3f} ms, plain "
+        five = "" if packed_only else f", the five launches in turns {totals['five_ms']:.3f} ms"
+        print(f"[time] {name} per 512x512 request ({n} launches): {totals['ms']:.3f} ms "
+              f"({totals['bound_ms'] / totals['ms']:.1%} of the bound){five}, plain "
               f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
         results[name] = dict(totals, bound_by=max(by, key=by.get), library_ms=None)
     return results
@@ -624,15 +648,42 @@ def _kernel_name(key):
         .replace("void ", "").strip()
 
 
+def _profile_call(call, runs):
+    """The device kernels of ``runs`` calls of ``call`` under torch.profiler: {position in the
+    call:function name: mean ms per call}, or None where the profiler recorded no whole calls
+    (a session now and then drops device events: five tries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                call()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and "mem" not in e.name.lower()), key=lambda e: e.time_range.start)
+        if events and not len(events) % runs:
+            per_call, parts = len(events) // runs, {}
+            for i, e in enumerate(events):
+                name = f"{i % per_call}:{_kernel_name(e.name)}"
+                parts[name] = parts.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
+            return parts
+    return None
+
+
+def _add_parts(into, parts, times=1):
+    for name, ms in parts.items():
+        into[name] = into.get(name, 0.0) + times * ms
+
+
 def k3_split(cfg, device, card, launch, label, dtype=torch.float32, runs=5):
     """K3's device time per 512² request by stage and by kernel, from torch.profiler:
     ``launch(x, weights, kw)`` ``runs`` times at each stage's four variants (each runs twice
     per request, encoder and decoder), every kernel of a call named by its position in the
     call and its function (the three-launch form's two GEMMs share a name). Returns
     {stage: {kernel: ms per request}}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     split = {}
     for k, h, w, c, heads, d in stage_geometries(cfg):
         x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device)
@@ -642,30 +693,58 @@ def k3_split(cfg, device, card, launch, label, dtype=torch.float32, runs=5):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift,
                           cross=cross, attn_drop_rate=0.0, drop_seed=None)
-                launch(x, weights, kw)
-                torch.cuda.synchronize()
-                for _ in range(3):  # a session now and then drops device events: take another
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                        for _ in range(runs):
-                            launch(x, weights, kw)
-                        torch.cuda.synchronize()
-                    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                                     and "mem" not in e.name.lower()), key=lambda e: e.time_range.start)
-                    if events and not len(events) % runs:
-                        break
-                if not events or len(events) % runs:
-                    print(f"[split] {label}: the profiler recorded {len(events)} device kernels for "
-                          f"{runs} calls: not measured | {card}")
+                got = _profile_call(lambda: launch(x, weights, kw), runs)
+                if got is None:
+                    print(f"[split] {label}: the profiler recorded no whole calls: not measured | {card}")
                     return None
-                per_call = len(events) // runs
-                for i, e in enumerate(events):
-                    name = f"{i % per_call}:{_kernel_name(e.name)}"
-                    parts[name] = parts.get(name, 0.0) + 2 * e.time_range.elapsed_us() / 1e3 / runs
+                _add_parts(parts, got, 2)
         split[k] = parts
         print(f"[split] {label} stage {k} {h}x{w} C={c} d={d}, per 512x512 request (8 calls): "
               + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
               + f", total {sum(parts.values()):.4f} ms | {card}", flush=True)
     return split
+
+
+def k4_split(cfg, device, card, dtype=torch.float32, runs=5):
+    """K4's device time per 512² request by stage and by kernel, from torch.profiler: at each
+    of the 40 blocks of a request (stage x role x shift x cross, each once per request) the
+    redesigned forward (``csrc/fused_block_fwd.cu``) and the five launches of
+    ``csrc/fused_block.cu``, in turns (the redesigned one first at every other block).
+    Returns {form: {stage: {kernel: ms per request}}}."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    label = f"K4{tag(dtype)}"
+    split = {"redesigned": {}, "five launches": {}}
+    for i, (case, x, weights) in enumerate(block_cases(cfg, device, False)):
+        xl, kw = fused_args(case, x.to(dtype), "image")
+        five_kw = dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None)
+        forms = {"redesigned": lambda: tfb._launch_fwd(xl, weights, kw),
+                 "five launches": lambda: tfb._launch_five(xl, weights, five_kw)}
+        for form in (forms if i % 2 == 0 else reversed(forms)):
+            got = _profile_call(forms[form], runs)
+            if got is None:
+                print(f"[split] {label} {form}: the profiler recorded no whole calls: not measured | {card}")
+                return None
+            _add_parts(split[form].setdefault(case[0], {}), got)
+    for k, h, w, c, heads, d in stage_geometries(cfg):
+        for form, stages in split.items():
+            parts = stages[k]
+            print(f"[split] {label} {form} stage {k} {h}x{w} C={c}, per 512x512 request (8 calls): "
+                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                  + f", total {sum(parts.values()):.4f} ms | {card}", flush=True)
+    totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
+    print(f"[split] {label} per 512x512 request (40 calls): redesigned {totals['redesigned']:.4f} ms of "
+          f"device time, the five launches {totals['five launches']:.4f} ms | {card}", flush=True)
+    return split
+
+
+def _repartition_device_ms(calls):
+    """The device time of one request's or step's re-partitions by torch.profiler, the
+    kernel's and the library call's (index_select), each "not measured" where the profiler
+    recorded none; ``calls``: (launches per request or step, kernel call, library call)."""
+    return tuple("not measured" if v is None else f"{v:.4f} ms" for v in (
+        device_ms(lambda: [call[i]() for call in calls for _ in range(call[0])], iters=5)
+        for i in (1, 2)))
 
 
 def time_repartition(cfg, device, card):
@@ -708,9 +787,7 @@ def time_repartition(cfg, device, card):
     results = {}
     for dt in dtypes:
         name, t = f"K2{tag(dt)}", totals[dt]
-        dev, lib_dev = (device_ms(lambda: [call[i]() for call in request[dt] for _ in range(call[0])],
-                                  iters=5) for i in (1, 2))
-        dev, lib_dev = ("not measured" if v is None else f"{v:.4f} ms" for v in (dev, lib_dev))
+        dev, lib_dev = _repartition_device_ms(request[dt])
         print(f"[time] {name} per 512x512 request under cuda_pack (24 launches): {t['ms']:.3f} ms "
               f"by events, {dev} of device time (profiler), plain {t['plain_ms']:.3f} ms, "
               f"index_select {t['library_ms']:.3f} ms by events, {lib_dev} of device time "
@@ -777,7 +854,10 @@ def throughput(served, card):
 
 
 KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first match wins
-    ("csrc K3 forward (attention, projection)", ("k3_attention_kernel", "k3_proj_kernel")),
+    ("csrc K3 forward (attention, projection; K4's split-route attention)",
+     ("k3_attention_kernel", "k3_proj_kernel")),
+    ("csrc K4 forward (block, LN1, proj/fc2, fc1)",
+     ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1_kernel")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
@@ -938,6 +1018,7 @@ def train_repartition_backward(cfg, device, card):
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    step = []  # (launches per step, kernel call, library call)
     for k, h, w, c, to_shift, g, perm in repartition_cases(cfg, device, TRAIN_HW, TRAIN_BATCH):
         # g is the gradient of a forward from ``not to_shift`` to ``to_shift``: it lies in
         # the ``to_shift`` geometry and goes back to the other
@@ -957,10 +1038,14 @@ def train_repartition_backward(cfg, device, card):
         per_step = 4 if to_shift else 2
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
             totals[key] += per_step * v
+        step.append((per_step, functools.partial(twp._launch, g, (h, w), WINDOW, to_shift, not to_shift),
+                     functools.partial(repartition_library, g, perm)))
     print("[check] K2 bwd: bit-exact at every packed map, both directions", flush=True)
+    dev, lib_dev = _repartition_device_ms(step)
     print(f"[time] K2 bwd per 224x224 batch-20 step under cuda_pack (24 launches): "
-          f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, index_select "
-          f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+          f"{totals['ms']:.3f} ms by events, {dev} of device time (profiler), plain "
+          f"{totals['plain_ms']:.3f} ms, index_select {totals['library_ms']:.3f} ms by events, "
+          f"{lib_dev} of device time (profiler), bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
     return dict(totals, bound_by="bytes", worst=0.0)
 
 
@@ -1231,7 +1316,9 @@ def check_dropout_kernels(cfg, device, card):
                      lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5),
                     (" bwd", lambda a: tfb._launch_bwd(g, xl, weights, a),
                      lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
-                nodrop, ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1)
+                # the forward without dropout as the five launches the dropout form extends
+                base = (lambda: tfb._launch_five(xl, weights, kw)) if part == "" else (lambda: launch(kw))
+                nodrop, ms = _in_turns(base, lambda: launch(dkw), iters, 1)
                 plain_ms = time_ms(plain, iters=2, warmup=1)
                 ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False, part == " bwd")
                 bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH,
@@ -1767,6 +1854,7 @@ def check_bf16_repartition(cfg, device, card):
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 
     totals, by = dict(_new_totals(), library_ms=0.0), {}
+    step = []  # (launches per step, kernel call, library call)
     for k, h, w, c, to_shift, g, perm in repartition_cases(cfg, device, TRAIN_HW, TRAIN_BATCH, BF16):
         fwd = (h, w), WINDOW, not to_shift, to_shift
         got = twp._launch(g, (h, w), WINDOW, to_shift, not to_shift)
@@ -1788,7 +1876,12 @@ def check_bf16_repartition(cfg, device, card):
         times = 4 if to_shift else 2
         _add(totals, by, ms, plain, bound, "bytes", fp32_ms, times)
         totals["library_ms"] += times * library
+        step.append((times, functools.partial(twp._launch, g, (h, w), WINDOW, to_shift, not to_shift),
+                     functools.partial(repartition_library, g, perm)))
     print("[check] K2 bwd bf16: bit-exact at every packed map, both directions", flush=True)
+    dev, lib_dev = _repartition_device_ms(step)
+    print(f"[time] K2 bwd bf16 per 224x224 batch-20 step (24 launches): {dev} of device time "
+          f"(profiler), index_select {lib_dev} of device time (profiler) | {card}", flush=True)
     results = {}
     _summary("K2 bwd bf16", totals, by, 24, card, results)
     results["K2 bwd bf16"]["library_ms"] = totals["library_ms"]
@@ -2081,7 +2174,8 @@ def main() -> int:
     for dtype in (torch.float32, BF16):
         for launch, label in ((twa._launch_fwd, "redesigned"), (twa._launch_three, "three launches")):
             k3_split(cfg, device, card, launch, f"K3{tag(dtype)} {label}", dtype)
-    phase("[time] forward kernels, [split] K3 by stage and kernel")
+        k4_split(cfg, device, card, dtype)
+    phase("[time] forward kernels, [split] K3 and K4 by stage and kernel")
 
     # the configurations take turns, fp32 and bf16 alike
     served = {**fusers, **{f"{impl} bf16": f for impl, f in fusers16.items()},
@@ -2131,7 +2225,7 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
         ("K2", "repartition_fwd (K2)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
-        ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block.cu",
+        ("K4", "fused_block_fwd, image layout (K4)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
         ("K3 bf16", "window_attention_fwd bf16 (K3 bf16)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
@@ -2139,7 +2233,7 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
         ("K2 bf16", "repartition_fwd bf16 (K2 bf16)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
-        ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block.cu",
+        ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
         ("K3 bwd", "window_attention_bwd (K3 bwd)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),

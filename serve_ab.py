@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""fuse_y of the PyTorch port under ``attention_impl="cuda"`` at 512x512, fp32 and bf16, for
-the package in one checkout: the bs=1 median latency of 20 requests, the bs=32 pairs/s of
-3 calls (medians) and one bs=1 request's device busy time from ``torch.profiler``, with the
-full default model and random weights from seed 0. Prints one ``[ab] LABEL {json}`` line.
+"""fuse_y of the PyTorch port under one ``attention_impl`` (``cuda`` by default) at 512x512,
+fp32 and bf16, for the package in one checkout: the bs=1 median latency of 20 requests, the
+bs=32 pairs/s of 3 calls (medians) and one bs=1 request's device busy time from
+``torch.profiler``, with the full default model and random weights from seed 0; with
+``--train``, also the median of 5 train steps at 224x224 batch 20 after a first one. Prints
+one ``[ab] LABEL {json}`` line.
 
-    python3 serve_ab.py ROOT LABEL
+    python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train]
 
 ROOT is a checkout of one commit (``git archive`` of a parent unpacked into a directory
 that ``.gitignore`` lists, or ``.``). To compare two commits on one card, run them in
 turns in one session: parent, change, change, parent. Needs a CUDA device.
 """
 
+import argparse
 import json
 import sys
 import time
@@ -20,7 +23,29 @@ import numpy as np
 import torch
 
 
-def main(root: str, label: str) -> None:
+def train_ms(impl: str, dtype: str, flat, steps: int = 5) -> float:
+    """Median wall ms of ``steps`` train steps at 224x224 batch 20 after a first one, each
+    ending in a synchronise."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype=dtype))
+    state = create_train_state(cfg, flat, iters_per_epoch=100, device="cuda")
+    step = make_train_step(cfg)
+    rng = np.random.default_rng(0)
+    ir, vis = (torch.from_numpy(rng.random((20, 224, 224, 1), dtype=np.float32)).cuda() for _ in range(2))
+    step(state, ir, vis)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        step(state, ir, vis)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(walls))
+
+
+def main(root: str, label: str, impl: str, train: bool) -> None:
     sys.path.insert(0, root)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -41,7 +66,7 @@ def main(root: str, label: str) -> None:
     many = [rng.random((32, 512, 512, 1), dtype=np.float32) for _ in range(2)]
     res = {}
     for dtype in ("float32", "bfloat16"):
-        fuser = Fuser(Config(model=ModelConfig(attention_impl="cuda", compute_dtype=dtype)), flat)
+        fuser = Fuser(Config(model=ModelConfig(attention_impl=impl, compute_dtype=dtype)), flat)
         fuser.fuse_y(*one)
         fuser.fuse_y(*many)
         walls = []
@@ -67,11 +92,20 @@ def main(root: str, label: str) -> None:
                           bs32_pairs_per_s=32 / float(np.median(calls)), bs1_device_busy_ms=busy)
         del fuser
         torch.cuda.empty_cache()
-    print(f"[ab] {label} {json.dumps(res)}", flush=True)
+        if train:
+            res[dtype]["train_224x20_median_ms"] = train_ms(impl, dtype, flat)
+            torch.cuda.empty_cache()
+    print(f"[ab] {label} {impl} {json.dumps(res)}", flush=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3 or not torch.cuda.is_available():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("root")
+    parser.add_argument("label")
+    parser.add_argument("--impl", default="cuda")
+    parser.add_argument("--train", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         sys.exit(1)
-    main(sys.argv[1], sys.argv[2])
+    main(args.root, args.label, args.impl, args.train)

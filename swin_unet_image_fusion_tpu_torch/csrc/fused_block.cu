@@ -36,8 +36,13 @@
 //   4. fc1 GEMM with LN2 in its prologue, + b1, ELU in its epilogue, into `hid`;
 //   5. fc2 GEMM + b2 + the residual y, in place in `out`.
 // Every block is small and the card is full at every stage; the price is writing q, k,
-// v, AV and the hidden activations to device memory once (mostly L2-resident at these
-// sizes). fp32 FMA throughout; TF32 and the tensor cores are off.
+// v, AV, y and the hidden activations to device memory and reading them back: at stage 0 of
+// a 512² request (67,081 tokens a stream) about 0.3 GB a call against 26 MB of x in and
+// out, and the two streams' 96-wide hidden alone (51.5 MB) exceeds the 50 MB L2. fp32 FMA
+// throughout; TF32 and the tensor cores are off.
+// These five launches now serve K1 (the windows layout), the dropout forms and the
+// backward's recompute; K4's forward without dropout runs fused_block_fwd.cu (one launch a
+// block at C <= 48, five above, bf16 on the tensor cores).
 //
 // bf16 (x and out bf16, the weights fp32). The two TPU kernels round differently, so the
 // rounding is a template parameter beside the layout, and the dispatch below ties K4's

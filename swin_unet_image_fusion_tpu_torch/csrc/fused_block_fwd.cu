@@ -1,0 +1,709 @@
+// Fused pre-norm Swin block on the image (K4), the forward without dropout, fp32 and bf16,
+// redesigned for Hopper (sm_90a).
+//
+// Replaces swin_unet_image_fusion_tpu/ops/pallas_block.py::_block_fwd_body (l.52-190,
+// through _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block) for calls
+// without dropout; the dropout forms, the backward's recompute and the windows layout (K1)
+// keep the five launches of fused_block.cu. The function is the one fused_block.cu computes:
+//   y   = x + proj(attention(LN1(x), LN1(kv))) + bp
+//   out = y + fc2(ELU(fc1(LN2(y)) + b1)) + b2
+// LN in fp32 with the biased variance and eps 1e-5; under cross k/v come from the other
+// stream's rows normalised with that stream's LN1; attention as window_fwd.cuh's core (the
+// scale folded into q, the shared relative-position bias with the wrap-seam mask folded in
+// as -inf, the fast softmax); x and out (S, B, H, W, C), the (shifted) window partition as
+// address arithmetic.
+//
+// What bounds it, and the design. A 512² request runs ~80 GFLOP of K4 in 40 calls against
+// ~25 MB of activations in and out: the arithmetic bounds it, not device memory (1.24 ms
+// fp32 at 67 TFLOP/s; 0.11 ms bf16, then bytes). The five launches wrote q, k, v, AV, y and
+// the MLP hidden to device memory (~0.3 GB per stage-0 call, more than the 50 MB L2) and ran
+// every GEMM on one 64x64 tile shape. Here, by stage (ops/fused_block.py::block_fwd_plan):
+//   fused (C <= 48 at 512²: 2,738 and 722 windows; where two blocks fit an SM, built for
+//     three where three fit: stage 0 in fp32): ONE launch, k4_fused_kernel. A block owns
+//     one window of one stream: it loads x (and, under cross,
+//     the other stream's rows), keeps LN1(x) and LN1(kv) resident as GEMM operands, computes
+//     q/k/v with the weights streamed through a three-deep cp.async ring, the attention core
+//     and AV, the projection + bp + x = y (fp32, in shared memory), LN2(y), and the MLP in
+//     chunks of the hidden: h = ELU(LN2(y) w1[:, j..] + b1) in shared memory, then its fc2
+//     product added to register sums, so the hidden never leaves the block and any width
+//     fits. Only x and out touch device memory.
+//   split (stages 2-4: 200, 50 and 18 windows): FIVE launches, each sized to its N:
+//     k4_ln_kernel (LN1 of every token into a scratch in x's type: K4's bf16 operand),
+//     k3_attention_kernel (K3's split attention block, window_fwd.cuh, on it; heads in
+//     groups of <= 48 columns; AV to a window-major scratch),
+//     k4_rows_kernel<proj> (48 output columns per block, + bp + x into an fp32 y scratch),
+//     k4_fc1_kernel (49 rows of LN2(y) resident, 144 / 192 hidden columns per block, + b1,
+//     ELU, into the hidden scratch), k4_rows_kernel<fc2> (48 columns, + b2 + y, into out).
+// fp32: FMA only (TF32 stays off), 8x4 register tiles. bf16 (K4's rounding,
+// pallas_block.py:120-189): every product that the TPU body rounds runs on mma.sync with bf16
+// operands and fp32 accumulators: LN1(x), LN1(kv) and the weights (l.120-146), p and v
+// (l.160), AV and wp (l.161-163), LN2(y) and w1 (l.172-173), the ELU hidden and w2 (l.185);
+// the weights are rounded as the fragments are built; q/k/v, the scores and y stay fp32;
+// out is rounded once on the store.
+// Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
+// same bits.
+
+#include "window_fwd.cuh"
+
+namespace {
+
+using namespace wfwd;
+
+constexpr float kLnEps = 1e-5f;
+constexpr int kFusedPitchMax = 16;  // the one-launch route's q/k row pitches: 4 to 16
+constexpr int kMaxC = 384;          // channels of the split route (its fc1 keeps 49 rows of LN2(y))
+// Shared memory a block of the one-launch route may take for three to share an SM (228 KB an
+// SM, 1 KB of it reserved per block); such blocks are built for three (85 registers a
+// thread): at stage 0 in fp32 the latency of each phase hides behind a third block.
+constexpr int kSmem3 = 233472 / 3 - 1024;
+
+// Columns one GEMM of a block takes at most: 7 x 36 fp32 tiles of 8x4 on 256 threads, or
+// three 8-column mma tiles per warp.
+__host__ __device__ constexpr int max_cols(bool bf16) { return bf16 ? kMaxNTilesB * kWarps * 8 : 36 * kTileN; }
+// A GEMM's column count padded to its tiles.
+__host__ __device__ constexpr int pad_cols(bool bf16, int n) { return round_up(n, bf16 ? 8 : kTileN); }
+
+// A resident GEMM operand of K channels (zero up to K rounded to 16): fp32 channel-major
+// [k][kPitchF] (a_col row groups), bf16 [64 rows][a_lda(K)] halves.
+__host__ __device__ constexpr int a_lda(int K) { return round_up(K, kKc) + 8; }
+__host__ __device__ inline int a_bytes(bool bf16, int K) {
+  return bf16 ? kRowsB * a_lda(K) * 2 : round_up(K, kKc) * kPitchF * 4;
+}
+
+enum Kind { kFused = 0, kAttn = 1, kRows = 2, kFc1 = 3, kLn = 4 };  // kLn: no dynamic shared memory
+
+// Byte offsets of one block's dynamic shared memory, per kernel (ops/fused_block.py mirrors
+// them in block_fwd_plan). ring: the cp.async rings (bf16: the core's P after them); xs: x,
+// then y, fp32 [49][C]; a0/a1: resident operands (LN1(x), then AV, then LN2(y); LN1(kv));
+// q..zero_end: q/k/v, zero-filled before the q/k/v GEMM; the same space holds the raw kv rows
+// before it and the MLP's hidden chunk after the core; tabs: rows, regions, q/k/v columns
+// and biases, and the LN statistics (fc1: LN2's alone).
+struct K4Layout {
+  int ring, xs, a0, a1, q, k, v, zero_end, h, bias, tabs, total;
+};
+
+__host__ __device__ inline K4Layout k4_layout(int kind, bool bf16, bool cross, int C, int inner, int hidden,
+                                              int hg, int d, int dp, int hc) {
+  K4Layout L{};
+  const int p_bytes = bf16 ? kWarps * 32 * kPStride * 2 : 0;
+  const int qk = align16(hg * kT * dp * 4);
+  const int vb = align16(bf16 ? hg * round_up(d, 8) * kPStride * 2 : hg * kT * dp * 4);
+  int off = 0;
+  if (kind == kFused) {
+    const int nb = max2(max2(3 * inner, C), pad_cols(bf16, hc));
+    off = align16(max2(b_bytes(bf16, nb, kStages), p_bytes));
+    L.xs = off;
+    off += align16(kT * C * 4);
+    L.a0 = off;
+    off += align16(a_bytes(bf16, max2(C, inner)));
+    L.a1 = cross ? off : L.a0;
+    if (cross) off += align16(a_bytes(bf16, C));
+    L.q = L.h = off;
+    L.k = off + qk;
+    L.v = L.k + qk;
+    L.zero_end = L.v + vb;
+    off += max2(max2(2 * qk + vb, cross ? align16(kT * C * 4) : 0), align16(a_bytes(bf16, hc)));
+    L.bias = off;
+    off += align16(kT * kT * 4);
+    L.tabs = off;
+    off += align16((2 * kRowsB + 2 * kColTable + 4 * kRowsB) * 4);  // + LN statistics of x and kv
+  } else if (kind == kAttn) {  // K3's split attention block (window_fwd.cuh)
+    off = attention_layout(bf16, false, cross, C, inner, hg, d, dp).total;
+  } else if (kind == kRows) {
+    off = L.tabs = align16(ring_a_bytes(bf16, 1, kProjStages) + b_bytes(bf16, kProjCols, kProjStages));
+    off += align16(2 * kRowsB * 4);
+  } else if (kind == kFc1) {  // hc hidden columns per block
+    off = align16(b_bytes(bf16, pad_cols(bf16, hc), kStages));
+    L.a0 = off;
+    off += align16(a_bytes(bf16, C));
+    L.tabs = off;
+    off += align16(kRowsB * 8);  // LN2 statistics
+  }
+  L.total = off;
+  return L;
+}
+
+struct K4Args {
+  const void* x;
+  const float *ln1g, *ln1b, *wq, *bq, *wk, *bk, *wv, *bv, *wp, *bp, *bias, *ln2g, *ln2b, *w1, *b1, *w2, *b2;
+  void* out;
+  void* ln;   // split: LN1(x) (S*B, H, W, C) in x's type
+  void* av;   // split: AV (S*B, windows, 49, inner) in x's type
+  float* y;   // split: y = x + proj, (S*B, H*W, C) fp32
+  void* hid;  // split: the MLP hidden (S*B, H*W, hidden) in x's type (bf16: K4 rounds it)
+  int S, B, H, W, C, inner, heads, d, hidden, hg, hc, top, left, cross;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float elu(float v) { return v > 0.0f ? v : expm1f(v); }
+
+// For i in [0, n) over the block's threads, four at a time: every read of load(i) before any
+// store(i, v). An element's store could alias the next one's loads, so one at a time each
+// load would wait for the store before it.
+template <typename Load, typename Store>
+__device__ __forceinline__ void batched(int n, Load load, Store store) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * kThreads) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = i0 + u * kThreads < n ? load(i0 + u * kThreads) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * kThreads < n) store(i0 + u * kThreads, v[u]);
+  }
+}
+
+// An operand's element (t, col) of a resident A of K channels.
+template <bool kBf16>
+__device__ __forceinline__ void a_put(void* a, int K, int t, int col, float v) {
+  if constexpr (kBf16) reinterpret_cast<bf16*>(a)[t * a_lda(K) + col] = __float2bfloat16_rn(v);
+  else reinterpret_cast<float*>(a)[col * kPitchF + a_col(t >> 3) + (t & 7)] = v;
+}
+
+// Mean and 1/sqrt(biased variance + eps) of n rows of C values (row r at row(r)) into
+// st[r], as the reference computes them: the mean, then the mean square about it, in fp32.
+// Eight lanes a row, the loads of a row in flight together.
+template <typename RowOf>
+__device__ void row_stats(int n, int C, RowOf row_of, float2* st) {
+  const int lane8 = threadIdx.x & 7;
+  const unsigned mask = 0xffu << (threadIdx.x & 24);  // the eight lanes of this row
+  auto sum8 = [&](float v) {
+    for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+    return v;
+  };
+  for (int r = threadIdx.x / 8; r < n; r += kThreads / 8) {
+    const auto* row = row_of(r);
+    float s1 = 0.0f;
+#pragma unroll 4
+    for (int k = lane8; k < C; k += 8) s1 += to_f(row[k]);
+    const float mean = sum8(s1) / C;
+    float s2 = 0.0f;
+#pragma unroll 4
+    for (int k = lane8; k < C; k += 8) {
+      const float dev = to_f(row[k]) - mean;
+      s2 = fmaf(dev, dev, s2);
+    }
+    const float rstd = 1.0f / sqrtf(sum8(s2) / C + kLnEps);
+    if (lane8 == 0) st[r] = make_float2(mean, rstd);
+  }
+}
+
+__device__ __forceinline__ float layer_norm(float v, float2 st, float g, float b) {
+  return (v - st.x) * st.y * g + b;
+}
+
+// LN of 49 fp32 rows (row t at src + t * ld) into a resident operand, channels from C to C
+// rounded to 16 zero (rounded to bf16 in the bf16 form, as the TPU body casts LN1(x) and
+// LN2(y)); st: 49 float2 of shared memory. Ends with a barrier.
+template <bool kBf16>
+__device__ void ln_to_a(const float* src, int ld, int C, const float* g, const float* b, void* a, float2* st) {
+  row_stats(kT, C, [&](int t) { return src + static_cast<size_t>(t) * ld; }, st);
+  __syncthreads();
+  const int kp = round_up(C, kKc);
+  batched(
+      kT * kp,
+      [&](int i) {
+        const int t = i / kp, k = i - t * kp;
+        return k < C ? layer_norm(src[static_cast<size_t>(t) * ld + k], st[t], g[k], b[k]) : 0.0f;
+      },
+      [&](int i, float v) { a_put<kBf16>(a, C, i / kp, i % kp, v); });
+  __syncthreads();
+}
+
+// One GEMM result's sums in registers, fp32 tiles or mma fragments.
+template <bool kBf16> struct Sums;
+template <> struct Sums<false> {
+  float v[8][kTileN];
+  int tile;
+};
+template <> struct Sums<true> {
+  float v[kMaxNTilesB][4][4];
+  int nb;
+};
+
+// sums += A @ B with A resident (a0, and a1 for the k/v parts under cross); K channels of A.
+template <bool kBf16>
+__device__ __forceinline__ void gemm_res(Sums<kBf16>& s, const Gemm& g, const void* a0, const void* a1, float* ring) {
+  if constexpr (kBf16) {
+    gemm_res_bf16<kStages>(g, static_cast<const bf16*>(a0), static_cast<const bf16*>(a1), a_lda(g.K), ring, s.v);
+    s.nb = g.nb;
+  } else {
+    s.tile = gemm_res_f32<kStages>(g, static_cast<const float*>(a0), static_cast<const float*>(a1), ring, s.v);
+  }
+}
+
+// f(t, col, sum) for every row t < 49 and column col < ncols that this thread holds.
+template <typename F>
+__device__ __forceinline__ void each(const Sums<false>& s, int ncols, F f) {
+  if (s.tile < 0) return;
+  const int rg = s.tile % kRowGroups, c0 = s.tile / kRowGroups * kTileN;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+      if (rg * 8 + i < kT && c0 + j < ncols) f(rg * 8 + i, c0 + j, s.v[i][j]);
+}
+template <typename F>
+__device__ __forceinline__ void each(const Sums<true>& s, int ncols, F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int m = 0; m < kMaxNTilesB; ++m) {
+    const int nt = warp + m * kWarps;
+    if (nt >= s.nb / 8) continue;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = mt * 16 + gq + (e >> 1) * 8, col = nt * 8 + 2 * t4 + (e & 1);
+        if (t < kT && col < ncols) f(t, col, s.v[m][mt][e]);
+      }
+  }
+}
+
+// The same elements, each replaced by f(t, col, sum): reads only, so that their loads overlap
+// (each() then stores).
+template <typename F>
+__device__ __forceinline__ void apply(Sums<false>& s, int ncols, F f) {
+  if (s.tile < 0) return;
+  const int rg = s.tile % kRowGroups, c0 = s.tile / kRowGroups * kTileN;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+      if (rg * 8 + i < kT && c0 + j < ncols) s.v[i][j] = f(rg * 8 + i, c0 + j, s.v[i][j]);
+}
+template <typename F>
+__device__ __forceinline__ void apply(Sums<true>& s, int ncols, F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int m = 0; m < kMaxNTilesB; ++m) {
+    const int nt = warp + m * kWarps;
+    if (nt >= s.nb / 8) continue;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = mt * 16 + gq + (e >> 1) * 8, col = nt * 8 + 2 * t4 + (e & 1);
+        if (t < kT && col < ncols) s.v[m][mt][e] = f(t, col, s.v[m][mt][e]);
+      }
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void zero_sums(Sums<kBf16>& s) { zero_acc(s.v); }
+
+// q (scaled), k or v of token t, column col of the block's heads, into the core's layout
+// (window_fwd.cuh's store_qkv without the bias, which apply() added).
+template <int DP, bool kBf16>
+__device__ __forceinline__ void put_qkv(int t, int col, float v, int n, const int* col_ofs, float* q_s,
+                                        float* k_s, unsigned char* v_s) {
+  const int part = (col >= n) + (col >= 2 * n), at = col_ofs[col];
+  if (part == 0) q_s[at + t * DP] = v;
+  else if (part == 1) k_s[at + t * DP] = v;
+  else if (kBf16) reinterpret_cast<bf16*>(v_s)[at + t] = __float2bfloat16_rn(v);
+  else reinterpret_cast<float*>(v_s)[at + t * DP] = v;
+}
+
+__device__ void zero_smem(unsigned char* smem, int from, int to) {
+  for (int i = from / 16 + threadIdx.x; i < to / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The relative-position bias and the q/k/v biases of columns c0.. (n per part) into shared
+// memory: one cp.async group that the q/k/v GEMM waits for with its own.
+__device__ void load_biases(const K4Args& a, int s, int c0, int n, float* bias_s, float* bqkv_s) {
+  for (int i = threadIdx.x; i < kT * kT; i += kThreads) cp_async4(bias_s + i, a.bias + s * kT * kT + i, true);
+  for (int col = threadIdx.x; col < 3 * n; col += kThreads) {
+    const int part = (col >= n) + (col >= 2 * n);
+    const float* bsrc = part == 0 ? a.bq : part == 1 ? a.bk : a.bv;
+    cp_async4(bqkv_s + col, bsrc + s * a.inner + c0 + col - part * n, true);
+  }
+  cp_async_commit();
+}
+
+// The region mask folded into the bias: -inf between regions, whose exp is exactly 0 as
+// exp(-1e10) is (the scores are finite).
+__device__ void mask_bias(float* bias_s, const int* region) {
+  for (int i = threadIdx.x; i < kT * kT; i += kThreads)
+    if (region[i / kT] != region[i % kT]) bias_s[i] = -__int_as_float(0x7f800000);
+}
+
+// ---- the one-launch route ----------------------------------------------------------------
+// One block per (window, stream * batch): the whole block in shared memory (header).
+template <int DP, bool kBf16, int kBlocksPerSm>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const K4Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using T = Act<kBf16>;
+  const int C = a.C, inner = a.inner, hidden = a.hidden;
+  const K4Layout L = k4_layout(kFused, kBf16, a.cross != 0, C, inner, hidden, a.heads, a.d, DP, a.hc);
+  const int tid = threadIdx.x;
+  const int win = blockIdx.x, nb = blockIdx.y;
+  const int s = nb / a.B, b = nb % a.B;
+  const int kvs = a.cross ? a.S - 1 - s : s;
+  const size_t map = static_cast<size_t>(a.H) * a.W * C;
+
+  int* rows = reinterpret_cast<int*>(smem + L.tabs);
+  int* region = rows + kRowsB;
+  int* col_ofs = region + kRowsB;
+  float* bqkv_s = reinterpret_cast<float*>(col_ofs + kColTable);
+  float2* st = reinterpret_cast<float2*>(bqkv_s + kColTable);  // LN statistics: x (or y), kv
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* kv_raw = reinterpret_cast<float*>(smem + L.q);  // cross: the kv rows until LN1
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* k_s = reinterpret_cast<float*>(smem + L.k);
+  void* a0 = smem + L.a0;
+  void* a1 = smem + L.a1;
+  void* h_s = smem + L.h;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+
+  window_rows(a, win, rows, region);
+  fill_col_table<DP, kBf16>(col_ofs, inner, a.d);
+  load_biases(a, s, 0, inner, bias_s, bqkv_s);
+  __syncthreads();
+  const T* xb = static_cast<const T*>(a.x) + static_cast<size_t>(s * a.B + b) * map;
+  const T* kvb = static_cast<const T*>(a.x) + static_cast<size_t>(kvs * a.B + b) * map;
+  batched(kT * C, [&](int i) { return to_f(xb[rows[i / C] + i % C]); }, [&](int i, float v) { xs[i] = v; });
+  if (a.cross)
+    batched(kT * C, [&](int i) { return to_f(kvb[rows[i / C] + i % C]); }, [&](int i, float v) { kv_raw[i] = v; });
+  __syncthreads();
+  ln_to_a<kBf16>(xs, C, C, a.ln1g + s * C, a.ln1b + s * C, a0, st);
+  if (a.cross) ln_to_a<kBf16>(kv_raw, C, C, a.ln1g + kvs * C, a.ln1b + kvs * C, a1, st + kRowsB);
+  zero_smem(smem, L.q, L.zero_end);
+  __syncthreads();
+
+  {  // q/k/v of every head
+    Gemm g{};
+    g.aparts = a.cross ? 2 : 1;
+    const size_t wofs = static_cast<size_t>(s) * C * inner;
+    g.w[0] = a.wq + wofs;
+    g.w[1] = a.wk + wofs;
+    g.w[2] = a.wv + wofs;
+    g.n = inner;
+    g.ldw = inner;
+    g.nb = 3 * inner;
+    g.K = C;
+    Sums<kBf16> acc;
+    zero_sums(acc);
+    gemm_res(acc, g, a0, a1, ring);
+    apply(acc, g.nb, [&](int, int col, float v) {
+      const float u = v + bqkv_s[col];
+      return col < inner ? u * a.scale : u;
+    });
+    each(acc, g.nb, [&](int t, int col, float v) { put_qkv<DP, kBf16>(t, col, v, inner, col_ofs, q_s, k_s, smem + L.v); });
+  }
+  mask_bias(bias_s, region);
+  zero_smem(smem, L.a0, L.a0 + a_bytes(kBf16, max2(C, inner)));  // AV's padded channels
+  __syncthreads();
+  attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(ring), bias_s, a.heads, a.d,
+                            [&](int t, int col, float v) { a_put<kBf16>(a0, inner, t, col, v); });
+  __syncthreads();
+
+  {  // y = x + (AV wp + bp), fp32, in place of x
+    Gemm g{};
+    g.aparts = 1;
+    g.w[0] = a.wp + static_cast<size_t>(s) * inner * C;
+    g.n = g.nb = C;
+    g.ldw = C;
+    g.K = inner;
+    Sums<kBf16> acc;
+    zero_sums(acc);
+    gemm_res(acc, g, a0, a0, ring);
+    const float* bp = a.bp + s * C;
+    apply(acc, C, [&](int t, int col, float v) { return xs[t * C + col] + (v + bp[col]); });
+    each(acc, C, [&](int t, int col, float v) { xs[t * C + col] = v; });
+  }
+  __syncthreads();
+  ln_to_a<kBf16>(xs, C, C, a.ln2g + s * C, a.ln2b + s * C, a0, st);
+  zero_smem(smem, L.h, L.h + a_bytes(kBf16, a.hc));
+  __syncthreads();
+
+  // the MLP in chunks of hc hidden columns: h = ELU(LN2(y) w1[:, j0..] + b1) in shared
+  // memory, its product with w2[j0.., :] added to the output's sums
+  Sums<kBf16> out_acc;
+  zero_sums(out_acc);
+  for (int j0 = 0; j0 < hidden; j0 += a.hc) {
+    const int nh = min(a.hc, hidden - j0);
+    Gemm g1{};
+    g1.aparts = 1;
+    g1.w[0] = a.w1 + static_cast<size_t>(s) * C * hidden + j0;
+    g1.n = g1.nb = pad_cols(kBf16, nh);
+    g1.ncols = nh;
+    g1.ldw = hidden;
+    g1.K = C;
+    Sums<kBf16> acc;
+    zero_sums(acc);
+    gemm_res(acc, g1, a0, a0, ring);
+    const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
+    apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+    each(acc, nh, [&](int t, int col, float v) { a_put<kBf16>(h_s, a.hc, t, col, v); });
+    __syncthreads();
+    Gemm g2{};
+    g2.aparts = 1;
+    g2.w[0] = a.w2 + (static_cast<size_t>(s) * hidden + j0) * C;
+    g2.n = g2.nb = C;
+    g2.ldw = C;
+    g2.K = nh;
+    if constexpr (kBf16) {
+      gemm_res_bf16<kStages>(g2, static_cast<const bf16*>(h_s), static_cast<const bf16*>(h_s), a_lda(a.hc),
+                             ring, out_acc.v);
+      out_acc.nb = C;
+    } else {
+      out_acc.tile = gemm_res_f32<kStages>(g2, static_cast<const float*>(h_s), static_cast<const float*>(h_s),
+                                           ring, out_acc.v);
+    }
+  }
+  T* out = static_cast<T*>(a.out) + static_cast<size_t>(s * a.B + b) * map;
+  const float* b2 = a.b2 + s * C;
+  apply(out_acc, C, [&](int t, int col, float v) { return xs[t * C + col] + (v + b2[col]); });
+  each(out_acc, C, [&](int t, int col, float v) { out[rows[t] + col] = from_float<T>(v); });
+}
+
+// ---- the split route ---------------------------------------------------------------------
+// LN1 of every token of both streams, 32 rows a block, into the scratch `ln` in x's type
+// (rounded to bf16 in the bf16 form: K4's operand of the q/k/v products).
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
+  using T = Act<kBf16>;
+  constexpr int kRows = kThreads / 8;
+  __shared__ float2 st[kRows];
+  const int C = a.C;
+  const size_t per_stream = static_cast<size_t>(a.B) * a.H * a.W;
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * kRows;
+  const size_t left = a.S * per_stream - r0;
+  const int n = left < kRows ? static_cast<int>(left) : kRows;
+  const T* x = static_cast<const T*>(a.x) + r0 * C;
+  T* out = static_cast<T*>(a.ln) + r0 * C;
+  row_stats(n, C, [&](int r) { return x + static_cast<size_t>(r) * C; }, st);
+  __syncthreads();
+  batched(
+      n * C,
+      [&](int i) {
+        const int r = i / C, k = i - r * C;
+        const size_t s = (r0 + r) / per_stream;
+        return layer_norm(to_f(x[i]), st[r], a.ln1g[s * C + k], a.ln1b[s * C + k]);
+      },
+      [&](int i, float v) { out[i] = from_float<T>(v); });
+}
+
+// One block per (49 rows, stream * batch, 48 output columns), A streamed through a six-deep
+// ring. kFc2 false: the projection, rows of a window, y = x + (AV wp + bp) into the fp32
+// scratch; kFc2 true: 49 consecutive tokens, out = y + (h w2 + b2).
+template <bool kBf16, bool kFc2>
+__global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using T = Act<kBf16>;
+  const K4Layout L = k4_layout(kRows, kBf16, false, a.C, a.inner, a.hidden, 1, a.d, 4, a.hc);
+  const int C = a.C;
+  const int nb = blockIdx.y, s = nb / a.B, c0 = blockIdx.z * kProjCols;
+  const size_t hw = static_cast<size_t>(a.H) * a.W;
+  const int K = kFc2 ? a.hidden : a.inner;
+  int* orows = reinterpret_cast<int*>(smem + L.tabs);  // output, x and y rows: token * C
+  int* arows = orows + kRowsB;                          // A rows
+  if (kFc2) {
+    const int r0 = blockIdx.x * kT;
+    for (int t = threadIdx.x; t < kRowsB; t += kThreads) {
+      orows[t] = t < kT ? (r0 + t) * C : 0;
+      arows[t] = t < kT ? (r0 + t) * K : 0;
+    }
+  } else {
+    window_rows(a, blockIdx.x, orows, arows);
+    for (int t = threadIdx.x; t < kRowsB; t += kThreads) arows[t] = t * K;
+  }
+  __syncthreads();
+
+  Gemm g{};
+  const T* abase = static_cast<const T*>(kFc2 ? a.hid : a.av);
+  g.abase[0] = kFc2 ? abase + nb * hw * K
+                    : abase + (static_cast<size_t>(nb) * (a.H / 7) * (a.W / 7) + blockIdx.x) * kT * K;
+  g.aparts = 1;
+  g.rows = arows;
+  g.w[0] = (kFc2 ? a.w2 : a.wp) + static_cast<size_t>(s) * K * C + c0;
+  g.n = g.nb = min(kProjCols, C - c0);
+  g.ldw = C;
+  g.K = K;
+  Sums<kBf16> acc;
+  if constexpr (kBf16) {
+    gemm_bf16<kProjStages>(g, reinterpret_cast<bf16*>(smem), reinterpret_cast<float*>(smem) +
+                           ring_a_bytes(true, 1, kProjStages) / 4, acc.v);
+    acc.nb = g.nb;
+  } else {
+    acc.tile = gemm_f32<kProjStages>(g, reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) +
+                                     ring_a_bytes(false, 1, kProjStages) / 4, acc.v);
+  }
+  const float* bias = (kFc2 ? a.b2 : a.bp) + s * C + c0;
+  const size_t base = nb * hw * C + c0;
+  float* y = a.y + base;
+  if constexpr (kFc2) {
+    T* out = static_cast<T*>(a.out) + base;
+    apply(acc, g.nb, [&](int t, int col, float v) { return y[orows[t] + col] + (v + bias[col]); });
+    each(acc, g.nb, [&](int t, int col, float v) { out[orows[t] + col] = from_float<T>(v); });
+  } else {
+    const T* x = static_cast<const T*>(a.x) + base;
+    apply(acc, g.nb, [&](int t, int col, float v) { return to_f(x[orows[t] + col]) + (v + bias[col]); });
+    each(acc, g.nb, [&](int t, int col, float v) { y[orows[t] + col] = v; });
+  }
+}
+
+// One block per (49 tokens, stream * batch, hc hidden columns): LN2(y) of the rows resident,
+// w1's columns streamed; h = ELU(. + b1) into the hidden scratch (rounded in bf16).
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1) k4_fc1_kernel(const K4Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using T = Act<kBf16>;
+  const int C = a.C, hidden = a.hidden;
+  const K4Layout L = k4_layout(kFc1, kBf16, false, C, a.inner, hidden, 1, a.d, 4, a.hc);
+  const int nb = blockIdx.y, s = nb / a.B, r0 = blockIdx.x * kT, j0 = blockIdx.z * a.hc;
+  const size_t tok = static_cast<size_t>(nb) * a.H * a.W + r0;  // first token of the tile
+  void* a0 = smem + L.a0;
+  ln_to_a<kBf16>(a.y + tok * C, C, C, a.ln2g + s * C, a.ln2b + s * C, a0,
+                 reinterpret_cast<float2*>(smem + L.tabs));
+  const int nh = min(a.hc, hidden - j0);
+  Gemm g{};
+  g.aparts = 1;
+  g.w[0] = a.w1 + static_cast<size_t>(s) * C * hidden + j0;
+  g.n = g.nb = pad_cols(kBf16, nh);
+  g.ncols = nh;
+  g.ldw = hidden;
+  g.K = C;
+  Sums<kBf16> acc;
+  zero_sums(acc);
+  gemm_res(acc, g, a0, a0, reinterpret_cast<float*>(smem + L.ring));
+  T* h = static_cast<T*>(a.hid) + tok * hidden + j0;
+  const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
+  apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+  each(acc, nh, [&](int t, int col, float v) { h[static_cast<size_t>(t) * hidden + col] = from_float<T>(v); });
+}
+
+// ---- host side -------------------------------------------------------------------------
+constexpr int kPitches[] = {4, 8, 12, 16, 24, 32, 48};
+
+int pitch_for(int d) {
+  for (int p : kPitches)
+    if (d <= p) return p;
+  return 0;
+}
+
+// Whether the kernels take these dimensions (ops/fused_block.py::block_fwd_plan makes the
+// same checks and raises first). fused: every head in the block, hc hidden columns per MLP
+// step; split: hg heads per attention block, hc hidden columns per fc1 block.
+bool supported(bool bf16, int C, int inner, int heads, int d, int hidden, int hg, int hc, bool fused) {
+  const int dp = pitch_for(d);
+  if (dp == 0 || hg < 1 || heads % hg != 0 || inner != heads * d) return false;
+  if (C % 8 != 0 || inner % 8 != 0 || hidden % 4 != 0 || hc < 1 || hc % 4 != 0) return false;
+  const int n = hg * d, cols = max_cols(bf16);
+  if (n % 8 != 0 || 3 * n > cols || 3 * n > kColTable) return false;
+  if (fused) return hg == heads && dp <= kFusedPitchMax && C <= cols && hc <= cols && hc <= hidden;
+  return hc == cols && C <= kMaxC;
+}
+
+cudaError_t set_smem(const void* kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int smem, const K4Args& a, cudaStream_t st) {
+  const cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+int layout_total(int kind, bool bf16, const K4Args& a) {
+  return k4_layout(kind, bf16, a.cross != 0, a.C, a.inner, a.hidden, a.hg, a.d, pitch_for(a.d), a.hc).total;
+}
+
+template <int DP, bool kBf16>
+cudaError_t launch_block(bool fused, const K4Args& a, cudaStream_t st) {
+  const int nwin = (a.H / 7) * (a.W / 7), nb = a.S * a.B;
+  if (fused) {
+    if constexpr (DP <= kFusedPitchMax) {
+      const int smem = layout_total(kFused, kBf16, a);
+      return smem <= kSmem3 ? launch(k4_fused_kernel<DP, kBf16, 3>, dim3(nwin, nb), smem, a, st)
+                            : launch(k4_fused_kernel<DP, kBf16, 2>, dim3(nwin, nb), smem, a, st);
+    }
+    return cudaErrorInvalidValue;
+  }
+  const size_t rows = static_cast<size_t>(nb) * a.H * a.W;
+  k4_ln_kernel<kBf16><<<static_cast<unsigned>((rows + kThreads / 8 - 1) / (kThreads / 8)), kThreads, 0, st>>>(a);
+  // K3's split attention block on LN1(x) and LN1(kv): AV into the window-major scratch
+  const Args k3 = {a.ln, a.wq, a.bq, a.wk, a.bk, a.wv, a.bv, a.wp, a.bp, a.bias, nullptr, a.av,
+                   a.S, a.B, a.H, a.W, a.C, a.inner, a.heads, a.d, a.hg, a.top, a.left, a.cross, a.scale};
+  const int asmem = layout_total(kAttn, kBf16, a);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false>), asmem);
+  if (err != cudaSuccess) return err;
+  k3_attention_kernel<DP, kBf16, false><<<dim3(nwin, nb, a.heads / a.hg), kThreads, asmem, st>>>(k3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles = a.H * a.W / kT, col_groups = (a.C + kProjCols - 1) / kProjCols;
+  err = launch(k4_rows_kernel<kBf16, false>, dim3(nwin, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+  if (err != cudaSuccess) return err;
+  err = launch(k4_fc1_kernel<kBf16>, dim3(tiles, nb, (a.hidden + a.hc - 1) / a.hc), layout_total(kFc1, kBf16, a),
+               a, st);
+  if (err != cudaSuccess) return err;
+  return launch(k4_rows_kernel<kBf16, true>, dim3(tiles, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+}
+
+template <bool kBf16>
+cudaError_t launch_pitch(bool fused, const K4Args& a, cudaStream_t st) {
+  switch (pitch_for(a.d)) {
+    case 4: return launch_block<4, kBf16>(fused, a, st);
+    case 8: return launch_block<8, kBf16>(fused, a, st);
+    case 12: return launch_block<12, kBf16>(fused, a, st);
+    case 16: return launch_block<16, kBf16>(fused, a, st);
+    case 24: return launch_block<24, kBf16>(fused, a, st);
+    case 32: return launch_block<32, kBf16>(fused, a, st);
+    case 48: return launch_block<48, kBf16>(fused, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* swin_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Shared memory in bytes of one block of kernel `kind` (0 the one-launch block, 1 the split
+// route's attention, 2 its projection and fc2, 3 its fc1, 4 its LN1, which has none), or 0
+// where the kernels do not take the dimensions (see supported()).
+size_t swin_k4_fwd_smem(int kind, int bf16_io, int cross, int C, int inner, int heads, int d, int hidden,
+                        int hg, int hc) {
+  if (kind < kFused || kind > kLn || !supported(bf16_io != 0, C, inner, heads, d, hidden, hg, hc, kind == kFused))
+    return 0;
+  return static_cast<size_t>(
+      k4_layout(kind, bf16_io != 0, cross != 0, C, inner, hidden, hg, d, pitch_for(d), hc).total);
+}
+
+// The block's forward without dropout on `stream`: x and out (S, B, H, W, C) fp32, or bf16
+// with K4's rounding when `bf16_io` is set; the weights fp32 as fused_block.cu's; 7x7
+// windows. fused: one launch, hc hidden columns per MLP step (ln, av, y and hid unused, may
+// be null); else hg heads per attention block and hc hidden columns per fc1 block, with the
+// scratch ln (S*B, H, W, C), av (S*B, windows, 49, heads*d) and hid (S*B, H*W, hidden) in
+// x's type and y (S*B, H*W, C) fp32. Returns cudaGetLastError() after the launches (0 = ok),
+// cudaErrorInvalidValue on dimensions the kernels do not take.
+int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq, const float* bq,
+                const float* wk, const float* bk, const float* wv, const float* bv, const float* wp,
+                const float* bp, const float* bias, const float* ln2g, const float* ln2b, const float* w1,
+                const float* b1, const float* w2, const float* b2, void* out, void* ln, void* av, float* y,
+                void* hid,
+                int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg, int hc, int fused,
+                int shift, int cross, int bf16_io, float scale, void* stream) {
+  const int inner = heads * d;
+  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) ||
+      !supported(bf16_io != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
+      (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K4Args a = {x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
+                    out, ln, av, y, hid, S, B, H, W, C, inner, heads, d, hidden, hg, hc,
+                    shift ? 4 : 0, shift ? 4 : 0, cross, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16_io ? launch_pitch<true>(fused != 0, a, st) : launch_pitch<false>(fused != 0, a, st));
+}
+
+}  // extern "C"

@@ -26,8 +26,17 @@ differently in bf16, so the rounding goes with the layout and not with the dtype
 ``layout`` says where the tokens live: ``"image"`` is ``(S, B, H, W, C)`` with the
 shifted partition as index arithmetic (K4); ``"windows"`` is ``(S, B, nWin, T, C)`` as
 ``ops/window_pack.py::pack_windows`` lays out an ``hw`` map in this block's own geometry
-(K1). ``fused_block`` runs the plain version for a CPU tensor and launches the kernels of
-``csrc/fused_block.cu`` for a CUDA tensor; there is no fallback between the two.
+(K1). ``fused_block`` runs the plain version for a CPU tensor and launches kernels for a
+CUDA tensor; there is no fallback between the two. An image-layout call without dropout
+(K4, what ``cuda_block`` serves) runs ``csrc/fused_block_fwd.cu`` as :func:`block_fwd_plan`
+lays it out: where two blocks fit an SM (C <= 48 in the default model) one launch, a block
+per window and stream computing the whole block in shared memory with the MLP in steps of
+the hidden; elsewhere five launches (LN1, attention in head groups, projection + x, fc1 with
+LN2(y) resident, fc2 + y); bf16 products on the tensor cores (``mma.sync``), fp32 on FMA.
+K1, the dropout forms and the backward's recompute run the five launches of
+``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its prologue, the attention core, proj,
+fc1 with LN2 in its prologue, fc2); a shape that the new forward does not take raises
+before any launch.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_FusedBlockFunction``: its backward launches ``swin_fused_block_bwd`` (K1
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -70,10 +80,21 @@ from . import hash_dropout as hd
 from .window import device_constant
 from .window_attention import (
     ACT_DTYPES,
+    FUSED_SMEM_MAX,
+    FWD_PITCHES,
+    FWD_WINDOW,
+    GROUP_COLS,
     MAX_STREAMS,
+    PROJ_COLS,
     SMEM_LIMIT_BYTES,
+    _STAGES,
+    _align16,
+    _b_bytes,
+    _round_up,
+    attention_smem,
     fast_softmax,
     operand_rounding,
+    proj_smem,
     recorded,
     split_input_grad,
     wrap_region_mask,
@@ -277,6 +298,143 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_library() -> ctypes.CDLL:
+    lib = _build.load("fused_block_fwd")
+    lib.swin_k4_fwd.argtypes = [_P] * 23 + [_I] * 14 + [ctypes.c_float, _P]
+    lib.swin_k4_fwd.restype = _I
+    lib.swin_k4_fwd_smem.argtypes = [_I] * 10
+    lib.swin_k4_fwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+# ---- K4's forward without dropout (csrc/fused_block_fwd.cu): its launch plan --------------
+# Block geometry as csrc/window_fwd.cuh's (256 threads; fp32 GEMM rows padded to 56, A
+# operands channel-major with rows pitched 60 floats; bf16 rows to 64, operands [64][K + 8]
+# halves; channels in chunks of 16; rings three deep, the row kernels' six deep).
+FUSED_PITCH_MAX = 16  # the one-launch route's q/k row pitches
+# the one-launch route's blocks are built for three an SM where three fit (228 KB an SM, 1 KB
+# of it reserved per block)
+SMEM_THREE_PER_SM = 233_472 // 3 - 1024
+MAX_SPLIT_CHANNELS = 384  # the split route's fc1 keeps 49 rows of LN2(y) resident
+_T, _WARPS, _P_STRIDE, _COL_TABLE = 49, 8, 72, 192
+KERNEL_KINDS = ("fused", "attention", "rows", "fc1", "ln")  # as the source's Kind
+
+
+def max_cols(bf16: bool) -> int:
+    """Columns one GEMM of a block takes at most: 36 fp32 8x4 tiles of 7 row groups on 256
+    threads, or three 8-column mma tiles per warp."""
+    return 3 * _WARPS * 8 if bf16 else 36 * 4
+
+
+def _pad_cols(bf16: bool, n: int) -> int:
+    return _round_up(n, 8 if bf16 else 4)
+
+
+def operand_bytes(bf16: bool, k: int) -> int:
+    """A GEMM operand of k channels resident in shared memory: fp32 channel-major [k][60],
+    bf16 [64][k + 8] halves, k rounded up to 16."""
+    k = _round_up(k, 16)
+    return 64 * (k + 8) * 2 if bf16 else k * 60 * 4
+
+
+def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, d: int,
+               pitch: int, hc: int) -> int:
+    """Shared-memory bytes of one block of ``kind`` (``k4_layout`` in the source). fused: the
+    weight ring (bf16: or the core's P, whichever is larger), x/y rows, LN1(x) (then AV,
+    then LN2(y)) and under cross LN1(kv), q/k/v (or the raw kv rows before them, the hidden
+    chunk of hc columns after), the bias table, the row, region, column and bias tables and
+    the LN statistics of x and kv. attention: K3's split attention block
+    (``window_attention.attention_smem``) on LN1(x). rows (proj and fc2): the six-deep x and weight rings of 48 columns, the
+    row tables. fc1: the weight ring of hc columns, LN2(y) of 49 rows and its statistics. ln:
+    none (LN1's statistics are static shared memory)."""
+    p_bytes = _WARPS * 32 * _P_STRIDE * 2 if bf16 else 0
+    qk = _align16(hg * _T * pitch * 4)
+    vb = _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
+    bias_tables = _align16(_T * _T * 4) + _align16((2 * 64 + 2 * _COL_TABLE) * 4)
+    stats = 2 * 64 * 8  # LN statistics (mean, rstd) of x and kv
+    if kind == "ln":
+        return 0  # static shared memory only
+    if kind == "fused":
+        nb = max(3 * inner, c, _pad_cols(bf16, hc))
+        total = _align16(max(_b_bytes(bf16, nb, _STAGES), p_bytes)) + _align16(_T * c * 4)
+        total += _align16(operand_bytes(bf16, max(c, inner)))
+        total += _align16(operand_bytes(bf16, c)) if cross else 0
+        total += max(2 * qk + vb, _align16(_T * c * 4) if cross else 0,
+                     _align16(operand_bytes(bf16, hc)))
+        return total + bias_tables + stats
+    if kind == "attention":  # K3's split attention block
+        return attention_smem(bf16, False, cross, c, inner, hg, d, pitch)
+    if kind == "rows":
+        return proj_smem(bf16)
+    if kind == "fc1":
+        return (_align16(_b_bytes(bf16, _pad_cols(bf16, hc), _STAGES)) + _align16(operand_bytes(bf16, c))
+                + stats // 2)
+    raise ValueError(f"unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}")
+
+
+@dataclass(frozen=True)
+class BlockFwdPlan:
+    """How K4's forward without dropout runs at one shape: ``route`` "fused" (one launch, a
+    block per window and stream computes the whole block, the MLP in steps of
+    ``hidden_chunk`` hidden columns) or "split" (five launches: LN1, attention with
+    ``heads_per_block`` heads a block, projection, fc1 with ``hidden_chunk`` columns a block,
+    fc2); ``smem``: (kernel kind, dynamic shared-memory bytes of one block) of each launch in
+    order; ``blocks_per_sm``: the one-launch block's build, 3 where three fit an SM, else 2
+    (0 on the split route)."""
+
+    route: str
+    launches: int
+    heads_per_block: int
+    hidden_chunk: int
+    pitch: int
+    smem: Tuple[Tuple[str, int], ...]
+    blocks_per_sm: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int], cross: bool,
+                   bf16: bool) -> BlockFwdPlan:
+    """The launch plan of K4's forward without dropout, or ValueError where its kernels do
+    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8, the hidden a
+    multiple of 4. One launch where every head's q/k/v fit one GEMM (3 heads*d <= 144 fp32,
+    192 bf16), d <= 16, and two such blocks fit an SM, the MLP in steps of as many hidden
+    columns as one GEMM takes; else five launches (LN1 first), the attention in the largest group of heads with at most 48
+    columns per q/k/v part (a multiple of 8), C <= 384."""
+    inner = heads * d
+    if tuple(window) != FWD_WINDOW:
+        raise ValueError(f"the fused block's forward takes {FWD_WINDOW} windows, got {tuple(window)}")
+    pitch = next((p for p in FWD_PITCHES if d <= p), None)
+    if pitch is None:
+        raise ValueError(f"the fused block's forward takes at most {FWD_PITCHES[-1]} dims per "
+                         f"head, got {d}")
+    if c % 8 or inner % 8 or hidden % 4 or hidden < 4:
+        raise ValueError(f"the fused block's forward takes C and heads*d multiples of 8 and a "
+                         f"hidden multiple of 4, got C={c}, heads*d={inner}, hidden={hidden}")
+    cols = max_cols(bf16)
+    if pitch <= FUSED_PITCH_MAX and 3 * inner <= cols and c <= cols:
+        hc = min(hidden, cols)
+        smem = block_smem("fused", bf16, cross, c, inner, heads, d, pitch, hc)
+        if smem <= FUSED_SMEM_MAX:
+            return BlockFwdPlan("fused", 1, heads, hc, pitch, (("fused", smem),),
+                                3 if smem <= SMEM_THREE_PER_SM else 2)
+    if c > MAX_SPLIT_CHANNELS:
+        raise ValueError(f"the fused block's forward takes C <= {MAX_SPLIT_CHANNELS} where one "
+                         f"launch does not fit, got {c}")
+    for hg in range(heads, 0, -1):
+        n = hg * d
+        if heads % hg or n > GROUP_COLS or n % 8 or 3 * n > cols:
+            continue
+        rows = block_smem("rows", bf16, cross, c, inner, hg, d, pitch, cols)
+        smem = (("ln", 0), ("attention", block_smem("attention", bf16, cross, c, inner, hg, d, pitch, cols)),
+                ("rows", rows), ("fc1", block_smem("fc1", bf16, cross, c, inner, hg, d, pitch, cols)),
+                ("rows", rows))
+        if max(b for _, b in smem) > SMEM_LIMIT_BYTES:
+            break
+        return BlockFwdPlan("split", 5, hg, cols, pitch, smem)
+    raise ValueError(f"the fused block's forward has no head grouping for {heads} heads of {d} dims")
+
+
 def _dims(x, weights, kw):
     """(S, B, H, W, C, heads, d, hidden, wh, ww) of a checked call."""
     h, w = _check(x, kw["layout"], kw["hw"], kw["window"])
@@ -298,7 +456,48 @@ def _drop_args(x, kw):
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
-    for a bf16 x: never an upcast."""
+    for a bf16 x: never an upcast. An image-layout call without dropout (K4) launches the
+    forward of ``csrc/fused_block_fwd.cu`` (one or five launches, :func:`block_fwd_plan`),
+    any other call the five launches of ``csrc/fused_block.cu``."""
+    global LAUNCHES, BF16_LAUNCHES
+    if kw["layout"] == "image" and _drop_args(x, kw) is None:
+        out = _launch_redesigned(x, weights, kw)
+        if x.dtype == torch.bfloat16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+        return out
+    return _launch_five(x, weights, kw)
+
+
+def _launch_redesigned(x, weights, kw) -> torch.Tensor:
+    """K4's forward without dropout: one launch, or five with the split route's scratch
+    (LN1(x), AV window-major and the MLP hidden in x's dtype, y in fp32)."""
+    s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
+    bf16 = x.dtype == torch.bfloat16
+    plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), bf16)
+    lib = _fwd_library()
+    out = torch.empty_like(x)
+    scratch = [None] * 4
+    if plan.route == "split":
+        tokens = s * b * h * w
+        scratch = [x.new_empty(tokens * c), x.new_empty(tokens * heads * d),
+                   x.new_empty(tokens * c, dtype=torch.float32), x.new_empty(tokens * hidden)]
+    with torch.cuda.device(x.device):
+        rc = lib.swin_k4_fwd(
+            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+            *(None if a is None else a.data_ptr() for a in scratch),
+            s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+            int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]), int(bf16),
+            float(d**-0.5), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block")
+    return out
+
+
+def _launch_five(x, weights, kw) -> torch.Tensor:
+    """The five launches of ``csrc/fused_block.cu``: K1, the dropout forms and (as
+    ``swin_fused_block_fwd``, the form that the backward recomputes) K4 without dropout."""
     global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     drop = _drop_args(x, kw)
@@ -444,6 +643,9 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed(drop_rates, drop_seed)
+    if layout == "image" and not any(drop_rates):
+        block_fwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross),
+                       x.dtype == torch.bfloat16)
     smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww, int(drop_rates[0] > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
