@@ -12,11 +12,12 @@ bit-exact). Then it serves ``Fuser.fuse_y`` requests with the full default
 each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_block``:
 K4), checks the outputs and each kernel's launch count, times the kernels and the
 requests, and breaks one request's device time down by kernel family with
-``torch.profiler``. K4's forward without dropout is ``csrc/fused_block_fwd.cu`` (one launch
-at C <= 48, five above); it is checked for a bit-identical repeat, timed in turns with the
-five launches of ``csrc/fused_block.cu`` that it replaced there (K1, the dropout forms and
-the backward's recompute still run them), and both are broken down by stage and kernel
-(``[split] K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
+``torch.profiler``. The fused block's forward without dropout, K4 on the image and K1 on
+window-packed tokens, is ``csrc/fused_block_fwd.cu`` (one launch at C <= 48, six above);
+each is checked for a bit-identical repeat, timed in turns with the five launches of
+``csrc/fused_block.cu`` that it replaced (the dropout forms and the backward's recompute
+still run them), and both are broken down by stage and kernel (``[split] K1``, ``[split]
+K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
 launch at C <= 64, two above); it is checked for a bit-identical repeat, timed in turns with
 the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forms
 and the backward's recompute still run them), and both are broken down by stage and kernel
@@ -330,9 +331,9 @@ def fused_args(case, x, layout):
 
 
 def check_fused_block(cfg, device, dtype=torch.float32):
-    """K1 (windows layout, the packed stages) and K4 (image layout, every stage: the forward
-    of ``csrc/fused_block_fwd.cu``, each case repeated bit for bit) against their plain
-    version in every stage x role x shift x cross case of a 512² request."""
+    """K1 (windows layout, the packed stages) and K4 (image layout, every stage), both the
+    forward of ``csrc/fused_block_fwd.cu``, each case repeated bit for bit, against their
+    plain version in every stage x role x shift x cross case of a 512² request."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     worst = {}
@@ -342,7 +343,7 @@ def check_fused_block(cfg, device, dtype=torch.float32):
         for case, x, weights in block_cases(cfg, device, packed_only):
             xl, kw = fused_args(case, x.to(dtype), layout)
             out = tfb.fused_block(xl, *weights, **kw)
-            again = tfb.fused_block(xl, *weights, **kw) if layout == "image" else out
+            again = tfb.fused_block(xl, *weights, **kw)
             torch.cuda.synchronize()
             ref = tfb.fused_block_plain(xl, *weights, **kw)
             k, h, w, c, _, d, role, hidden, shift, cross = case
@@ -351,9 +352,9 @@ def check_fused_block(cfg, device, dtype=torch.float32):
             if not torch.equal(out, again):
                 raise AssertionError(f"{what}: a repeat gave other bits")
             worst[key], worst_share = max(worst[key], err), max(worst_share, share)
-        repeat = "" if packed_only else ", each repeated bit for bit"
         print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}, at most {worst_share:.3%} "
-              f"of the elements differ, over {32 if packed_only else 40} cases{repeat}", flush=True)
+              f"of the elements differ, over {32 if packed_only else 40} cases, each repeated bit "
+              f"for bit", flush=True)
     return worst
 
 
@@ -581,9 +582,9 @@ def time_attention(cfg, device, card, dtype=torch.float32):
 def time_fused_block(cfg, device, card, dtype=torch.float32):
     """K1 (packed stages, windows layout) and K4 (every stage, image layout) per call at
     every stage x role x shift x cross block of a 512² request; each block runs once per
-    request, so the per-request sums add them all. K4's forward (``csrc/fused_block_fwd.cu``)
+    request, so the per-request sums add them all. Each forward (``csrc/fused_block_fwd.cu``)
     is timed in turns with the five launches of ``csrc/fused_block.cu`` that it replaced
-    there (new, five, five, new)."""
+    (new, five, five, new)."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     results = {}
@@ -595,19 +596,17 @@ def time_fused_block(cfg, device, card, dtype=torch.float32):
             xl, kw = fused_args(case, x.to(dtype), layout)
             k, h, w, c, heads, d, role, hidden, shift, cross = case
             bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, dtype=dtype, layout=layout)
-            new = lambda: tfb.fused_block(xl, *weights, **kw)  # noqa: E731
             five_kw = dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None)
-            if layout == "image":  # the redesigned forward in turns with the five launches
-                runs = {"new": [], "five": []}
-                forms = {"new": new, "five": lambda: tfb._launch_five(xl, weights, five_kw)}
-                for form in ("new", "five", "five", "new"):
-                    runs[form].append(time_ms(forms[form], iters=20))
-                ms, five = (sum(runs[f]) / 2 for f in ("new", "five"))
-                turns = (f" ({runs['new'][0]:.4f}, {runs['new'][1]:.4f}), five launches {five:.4f} "
-                         f"ms in turns")
-                totals["five_ms"] += five
-            else:
-                ms, turns = time_ms(new, iters=20), ""
+            # the redesigned forward in turns with the five launches
+            runs = {"new": [], "five": []}
+            forms = {"new": lambda: tfb.fused_block(xl, *weights, **kw),
+                     "five": lambda: tfb._launch_five(xl, weights, five_kw)}
+            for form in ("new", "five", "five", "new"):
+                runs[form].append(time_ms(forms[form], iters=20))
+            ms, five = (sum(runs[f]) / 2 for f in ("new", "five"))
+            turns = (f" ({runs['new'][0]:.4f}, {runs['new'][1]:.4f}), five launches {five:.4f} "
+                     f"ms in turns")
+            totals["five_ms"] += five
             plain = time_ms(lambda: tfb.fused_block_plain(xl, *weights, **kw), iters=3, warmup=1)
             print(f"[time] {name} stage {k} {role} {h}x{w} C={c} hidden={hidden} shift={shift} "
                   f"cross={cross}: {ms:.4f} ms{turns}, plain {plain:.4f} ms, bound {bound:.4f} ms "
@@ -616,9 +615,9 @@ def time_fused_block(cfg, device, card, dtype=torch.float32):
                 totals[key] += v
             by[bound_by] = by.get(bound_by, 0.0) + bound
         n = 32 if packed_only else 40
-        five = "" if packed_only else f", the five launches in turns {totals['five_ms']:.3f} ms"
-        print(f"[time] {name} per 512x512 request ({n} launches): {totals['ms']:.3f} ms "
-              f"({totals['bound_ms'] / totals['ms']:.1%} of the bound){five}, plain "
+        print(f"[time] {name} per 512x512 request ({n} calls): {totals['ms']:.3f} ms "
+              f"({totals['bound_ms'] / totals['ms']:.1%} of the bound), the five launches in turns "
+              f"{totals['five_ms']:.3f} ms, plain "
               f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
         results[name] = dict(totals, bound_by=max(by, key=by.get), library_ms=None)
     return results
@@ -705,18 +704,14 @@ def k3_split(cfg, device, card, launch, label, dtype=torch.float32, runs=5):
     return split
 
 
-def k4_split(cfg, device, card, dtype=torch.float32, runs=5):
-    """K4's device time per 512² request by stage and by kernel, from torch.profiler: at each
-    of the 40 blocks of a request (stage x role x shift x cross, each once per request) the
-    redesigned forward (``csrc/fused_block_fwd.cu``) and the five launches of
-    ``csrc/fused_block.cu``, in turns (the redesigned one first at every other block).
-    Returns {form: {stage: {kernel: ms per request}}}."""
+def _block_split_forms(cfg, device, card, label, layout, packed_only, dtype, runs):
+    """{form: {stage: {kernel: ms per request}}} of ``block_split`` for one layout, or None
+    where the profiler recorded no whole calls of a form."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
-    label = f"K4{tag(dtype)}"
     split = {"redesigned": {}, "five launches": {}}
-    for i, (case, x, weights) in enumerate(block_cases(cfg, device, False)):
-        xl, kw = fused_args(case, x.to(dtype), "image")
+    for i, (case, x, weights) in enumerate(block_cases(cfg, device, packed_only)):
+        xl, kw = fused_args(case, x.to(dtype), layout)
         five_kw = dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None)
         forms = {"redesigned": lambda: tfb._launch_fwd(xl, weights, kw),
                  "five launches": lambda: tfb._launch_five(xl, weights, five_kw)}
@@ -726,16 +721,32 @@ def k4_split(cfg, device, card, dtype=torch.float32, runs=5):
                 print(f"[split] {label} {form}: the profiler recorded no whole calls: not measured | {card}")
                 return None
             _add_parts(split[form].setdefault(case[0], {}), got)
-    for k, h, w, c, heads, d in stage_geometries(cfg):
-        for form, stages in split.items():
-            parts = stages[k]
-            print(f"[split] {label} {form} stage {k} {h}x{w} C={c}, per 512x512 request (8 calls): "
-                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
-                  + f", total {sum(parts.values()):.4f} ms | {card}", flush=True)
-    totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
-    print(f"[split] {label} per 512x512 request (40 calls): redesigned {totals['redesigned']:.4f} ms of "
-          f"device time, the five launches {totals['five launches']:.4f} ms | {card}", flush=True)
     return split
+
+
+def block_split(cfg, device, card, dtype=torch.float32, runs=5):
+    """K1's and K4's device time per 512² request by stage and by kernel, from
+    torch.profiler: at each block of a request (stage x role x shift x cross, each once per
+    request: K1's 32 at the packed stages in the windows layout, K4's 40 in the image
+    layout) the redesigned forward (``csrc/fused_block_fwd.cu``) and the five launches of
+    ``csrc/fused_block.cu``, in turns (the redesigned one first at every other block)."""
+    for name, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
+        label = f"{name}{tag(dtype)}"
+        split = _block_split_forms(cfg, device, card, label, layout, packed_only, dtype, runs)
+        if split is None:
+            continue
+        for k, h, w, c, heads, d in stage_geometries(cfg):
+            for form, stages in split.items():
+                if k not in stages:
+                    continue
+                parts = stages[k]
+                print(f"[split] {label} {form} stage {k} {h}x{w} C={c}, per 512x512 request (8 calls): "
+                      + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                      + f", total {sum(parts.values()):.4f} ms | {card}", flush=True)
+        totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
+        print(f"[split] {label} per 512x512 request ({32 if packed_only else 40} calls): redesigned "
+              f"{totals['redesigned']:.4f} ms of device time, the five launches "
+              f"{totals['five launches']:.4f} ms | {card}", flush=True)
 
 
 def _repartition_device_ms(calls):
@@ -854,10 +865,10 @@ def throughput(served, card):
 
 
 KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first match wins
-    ("csrc K3 forward (attention, projection; K4's split-route attention)",
+    ("csrc K3 forward (attention, projection; K1's and K4's split-route attention)",
      ("k3_attention_kernel", "k3_proj_kernel")),
-    ("csrc K4 forward (block, LN1, proj/fc2, fc1)",
-     ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1_kernel")),
+    ("csrc K1/K4 forward (block, LN1/LN2, proj/fc2, fc1)",
+     ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
@@ -2174,8 +2185,8 @@ def main() -> int:
     for dtype in (torch.float32, BF16):
         for launch, label in ((twa._launch_fwd, "redesigned"), (twa._launch_three, "three launches")):
             k3_split(cfg, device, card, launch, f"K3{tag(dtype)} {label}", dtype)
-        k4_split(cfg, device, card, dtype)
-    phase("[time] forward kernels, [split] K3 and K4 by stage and kernel")
+        block_split(cfg, device, card, dtype)
+    phase("[time] forward kernels, [split] K3, K1 and K4 by stage and kernel")
 
     # the configurations take turns, fp32 and bf16 alike
     served = {**fusers, **{f"{impl} bf16": f for impl, f in fusers16.items()},
@@ -2221,7 +2232,7 @@ def main() -> int:
     described = (
         ("K3", "window_attention_fwd (K3)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
-        ("K1", "fused_block_fwd, windows layout (K1)", f"{csrc}/fused_block.cu",
+        ("K1", "fused_block_fwd, windows layout (K1)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
         ("K2", "repartition_fwd (K2)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
@@ -2229,7 +2240,7 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
         ("K3 bf16", "window_attention_fwd bf16 (K3 bf16)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:249"),
-        ("K1 bf16", "fused_block_fwd bf16, windows layout (K1 bf16)", f"{csrc}/fused_block.cu",
+        ("K1 bf16", "fused_block_fwd bf16, windows layout (K1 bf16)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:525"),
         ("K2 bf16", "repartition_fwd bf16 (K2 bf16)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),

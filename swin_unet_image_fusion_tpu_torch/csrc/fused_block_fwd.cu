@@ -1,23 +1,30 @@
-// Fused pre-norm Swin block on the image (K4), the forward without dropout, fp32 and bf16,
-// redesigned for Hopper (sm_90a).
-//
-// Replaces swin_unet_image_fusion_tpu/ops/pallas_block.py::_block_fwd_body (l.52-190,
-// through _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block) for calls
-// without dropout; the dropout forms, the backward's recompute and the windows layout (K1)
-// keep the five launches of fused_block.cu. The function is the one fused_block.cu computes:
+// Fused pre-norm Swin block, the forward without dropout, fp32 and bf16, redesigned for
+// Hopper (sm_90a), in both layouts of fused_block.cu:
+//   K4  swin_unet_image_fusion_tpu/ops/pallas_block.py::_block_fwd_body (l.52-190, through
+//       _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block), on the image;
+//   K1  swin_unet_image_fusion_tpu/ops/pallas_pack.py::_packed_block_fwd_body (l.525-688,
+//       through _packed_fwd_kernel / _packed_fwd_kernel_self from
+//       pallas_packed_block_strips), on window-packed tokens.
+// The dropout forms and the backward's recompute keep the five launches of fused_block.cu.
+// The function is the one fused_block.cu computes:
 //   y   = x + proj(attention(LN1(x), LN1(kv))) + bp
 //   out = y + fc2(ELU(fc1(LN2(y)) + b1)) + b2
 // LN in fp32 with the biased variance and eps 1e-5; under cross k/v come from the other
 // stream's rows normalised with that stream's LN1; attention as window_fwd.cuh's core (the
 // scale folded into q, the shared relative-position bias with the wrap-seam mask folded in
-// as -inf, the fast softmax); x and out (S, B, H, W, C), the (shifted) window partition as
-// address arithmetic.
+// as -inf, the fast softmax). Layouts (`windows`, a runtime flag that only window_rows
+// reads): image x and out (S, B, H, W, C), the (shifted) window partition as address
+// arithmetic; windows x and out (S, B, nWin, 49, C) as ops/window_pack.py::pack_windows lays
+// them out in this block's geometry, token t of window w at row w * 49 + t. Every kernel
+// after the attention works on token rows in x's layout, so only the rows of a window
+// differ; the wrap regions come from the rolled-map coordinates in both.
 //
 // What bounds it, and the design. A 512² request runs ~80 GFLOP of K4 in 40 calls against
 // ~25 MB of activations in and out: the arithmetic bounds it, not device memory (1.24 ms
-// fp32 at 67 TFLOP/s; 0.11 ms bf16, then bytes). The five launches wrote q, k, v, AV, y and
-// the MLP hidden to device memory (~0.3 GB per stage-0 call, more than the 50 MB L2) and ran
-// every GEMM on one 64x64 tile shape. Here, by stage (ops/fused_block.py::block_fwd_plan):
+// fp32 at 67 TFLOP/s; 0.11 ms bf16, then bytes); K1's 32 calls, 0.92 ms fp32 in both
+// dtypes. The five launches wrote q, k, v, AV, y and the MLP hidden to device memory (~0.3
+// GB per stage-0 call, more than the 50 MB L2) and ran every GEMM on one 64x64 tile shape.
+// Here, by stage (ops/fused_block.py::block_fwd_plan):
 //   fused (C <= 48 at 512²: 2,738 and 722 windows; where two blocks fit an SM, built for
 //     three where three fit: stage 0 in fp32): ONE launch, k4_fused_kernel. A block owns
 //     one window of one stream: it loads x (and, under cross,
@@ -27,19 +34,30 @@
 //     chunks of the hidden: h = ELU(LN2(y) w1[:, j..] + b1) in shared memory, then its fc2
 //     product added to register sums, so the hidden never leaves the block and any width
 //     fits. Only x and out touch device memory.
-//   split (stages 2-4: 200, 50 and 18 windows): FIVE launches, each sized to its N:
-//     k4_ln_kernel (LN1 of every token into a scratch in x's type: K4's bf16 operand),
+//   split (stages 2-4: 200, 50 and 18 windows): SIX launches, each sized to its N:
+//     k4_ln_kernel (LN1 of every token into a scratch in the operands' type),
 //     k3_attention_kernel (K3's split attention block, window_fwd.cuh, on it; heads in
 //     groups of <= 48 columns; AV to a window-major scratch),
 //     k4_rows_kernel<proj> (48 output columns per block, + bp + x into an fp32 y scratch),
-//     k4_fc1_kernel (49 rows of LN2(y) resident, 144 / 192 hidden columns per block, + b1,
-//     ELU, into the hidden scratch), k4_rows_kernel<fc2> (48 columns, + b2 + y, into out).
-// fp32: FMA only (TF32 stays off), 8x4 register tiles. bf16 (K4's rounding,
-// pallas_block.py:120-189): every product that the TPU body rounds runs on mma.sync with bf16
-// operands and fp32 accumulators: LN1(x), LN1(kv) and the weights (l.120-146), p and v
-// (l.160), AV and wp (l.161-163), LN2(y) and w1 (l.172-173), the ELU hidden and w2 (l.185);
-// the weights are rounded as the fragments are built; q/k/v, the scores and y stay fp32;
-// out is rounded once on the store.
+//     k4_ln_kernel<kLn2> (LN2 of y into LN1's scratch, dead by then), k4_fc1_kernel (both
+//     it and w1 streamed, 144 / 192 hidden columns per block, two blocks an SM, + b1, ELU,
+//     into the hidden scratch), k4_rows_kernel<fc2> (48 columns, + b2 + y, into out). The
+//     LN2 pass and the streamed fc1 replaced an fc1 that kept 49 rows of LN2(y) resident and
+//     recomputed them in every block of a tile (one block an SM): 0.59 / 0.56 / 0.87 ms to
+//     0.07 + 0.43 / 0.08 + 0.38 / 0.15 + 0.47 per 512² request at stages 2 / 3 / 4 in fp32,
+//     and 4.38 to 4.16 ms over stages 2-4 in bf16, the same bits (NVIDIA H100 80GB HBM3,
+//     700 W, profiler device time, split_ab.py; PERF.md §6). fc2 split along K over two
+//     blocks (partials added in a fixed order) was slower at stages 2-3 (0.56 to 0.62 ms)
+//     and faster only at stage 4 (1.03 to 0.89); three row blocks an SM were no faster.
+// Rounding: the I/O type (TX) and the operands' rounding (kBf16) are separate template
+// parameters, as fused_block.cu's. fp32, and K1 in either I/O type (pallas_pack.py:563-688,
+// its weights fp32 too, l.617-618): FMA only (TF32 stays off), 8x4 register tiles, every
+// scratch fp32; K1 bf16 upcasts x on load, keeps y = x + proj fp32 and rounds y + m once on
+// the store. K4 bf16 (kBf16, pallas_block.py:120-189): every product that the TPU body
+// rounds runs on mma.sync with bf16 operands and fp32 accumulators: LN1(x), LN1(kv) and the
+// weights (l.120-146), p and v (l.160), AV and wp (l.161-163), LN2(y) and w1 (l.172-173), the
+// ELU hidden and w2 (l.185); the weights are rounded as the fragments are built; q/k/v, the
+// scores and y stay fp32; out is rounded once on the store.
 // Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
 // same bits.
 
@@ -51,7 +69,7 @@ using namespace wfwd;
 
 constexpr float kLnEps = 1e-5f;
 constexpr int kFusedPitchMax = 16;  // the one-launch route's q/k row pitches: 4 to 16
-constexpr int kMaxC = 384;          // channels of the split route (its fc1 keeps 49 rows of LN2(y))
+constexpr int kMaxC = 384;          // channels of the split route, the backward's LayerNorm limit
 // Shared memory a block of the one-launch route may take for three to share an SM (228 KB an
 // SM, 1 KB of it reserved per block); such blocks are built for three (85 registers a
 // thread): at stage 0 in fp32 the latency of each phase hides behind a third block.
@@ -77,7 +95,7 @@ enum Kind { kFused = 0, kAttn = 1, kRows = 2, kFc1 = 3, kLn = 4 };  // kLn: no d
 // then y, fp32 [49][C]; a0/a1: resident operands (LN1(x), then AV, then LN2(y); LN1(kv));
 // q..zero_end: q/k/v, zero-filled before the q/k/v GEMM; the same space holds the raw kv rows
 // before it and the MLP's hidden chunk after the core; tabs: rows, regions, q/k/v columns
-// and biases, and the LN statistics (fc1: LN2's alone).
+// and biases, and the LN statistics (the row kernels and fc1: their row tables).
 struct K4Layout {
   int ring, xs, a0, a1, q, k, v, zero_end, h, bias, tabs, total;
 };
@@ -112,12 +130,9 @@ __host__ __device__ inline K4Layout k4_layout(int kind, bool bf16, bool cross, i
   } else if (kind == kRows) {
     off = L.tabs = align16(ring_a_bytes(bf16, 1, kProjStages) + b_bytes(bf16, kProjCols, kProjStages));
     off += align16(2 * kRowsB * 4);
-  } else if (kind == kFc1) {  // hc hidden columns per block
-    off = align16(b_bytes(bf16, pad_cols(bf16, hc), kStages));
-    L.a0 = off;
-    off += align16(a_bytes(bf16, C));
-    L.tabs = off;
-    off += align16(kRowsB * 8);  // LN2 statistics
+  } else if (kind == kFc1) {  // hc hidden columns per block, A (LN2(y)) and w1 streamed
+    off = L.tabs = align16(ring_a_bytes(bf16, 1, kStages) + b_bytes(bf16, pad_cols(bf16, hc), kStages));
+    off += align16(kRowsB * 4);
   }
   L.total = off;
   return L;
@@ -127,12 +142,13 @@ struct K4Args {
   const void* x;
   const float *ln1g, *ln1b, *wq, *bq, *wk, *bk, *wv, *bv, *wp, *bp, *bias, *ln2g, *ln2b, *w1, *b1, *w2, *b2;
   void* out;
-  void* ln;   // split: LN1(x) (S*B, H, W, C) in x's type
-  void* av;   // split: AV (S*B, windows, 49, inner) in x's type
-  float* y;   // split: y = x + proj, (S*B, H*W, C) fp32
-  void* hid;  // split: the MLP hidden (S*B, H*W, hidden) in x's type (bf16: K4 rounds it)
+  void* ln;   // split: LN1(x) (S*B, H*W, C) in x's layout, in the operands' type
+  void* av;   // split: AV (S*B, windows, 49, inner) in the operands' type
+  float* y;   // split: y = x + proj, (S*B, H*W, C) fp32 in x's layout
+  void* hid;  // split: the MLP hidden (S*B, H*W, hidden) in the operands' type (K4 bf16 rounds it)
   int S, B, H, W, C, inner, heads, d, hidden, hg, hc, top, left, cross;
   float scale;
+  int windows;  // the token layout: 0 image (K4), 1 windows (K1)
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -333,10 +349,11 @@ __device__ void mask_bias(float* bias_s, const int* region) {
 
 // ---- the one-launch route ----------------------------------------------------------------
 // One block per (window, stream * batch): the whole block in shared memory (header).
-template <int DP, bool kBf16, int kBlocksPerSm>
+// TX: x's and out's type; kBf16: bf16 operands (K4's rounding), else fp32 inside.
+template <int DP, typename TX, bool kBf16, int kBlocksPerSm>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using T = Act<kBf16>;
+  using T = TX;
   const int C = a.C, inner = a.inner, hidden = a.hidden;
   const K4Layout L = k4_layout(kFused, kBf16, a.cross != 0, C, inner, hidden, a.heads, a.d, DP, a.hc);
   const int tid = threadIdx.x;
@@ -463,11 +480,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
 }
 
 // ---- the split route ---------------------------------------------------------------------
-// LN1 of every token of both streams, 32 rows a block, into the scratch `ln` in x's type
-// (rounded to bf16 in the bf16 form: K4's operand of the q/k/v products).
-template <bool kBf16>
+// LN1 of every token of both streams (x), or with kLn2 LN2 of y, 32 rows a block, into the
+// scratch `ln` in the operands' type (rounded to bf16 under kBf16: K4's operand of the q/k/v
+// products), row for row in x's layout. LN1(x) is dead once the attention has read it, so
+// LN2(y) reuses its scratch.
+template <typename TX, bool kBf16, bool kLn2>
 __global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
-  using T = Act<kBf16>;
+  using T = typename std::conditional<kLn2, float, TX>::type;
   constexpr int kRows = kThreads / 8;
   __shared__ float2 st[kRows];
   const int C = a.C;
@@ -475,8 +494,10 @@ __global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
   const size_t r0 = static_cast<size_t>(blockIdx.x) * kRows;
   const size_t left = a.S * per_stream - r0;
   const int n = left < kRows ? static_cast<int>(left) : kRows;
-  const T* x = static_cast<const T*>(a.x) + r0 * C;
-  T* out = static_cast<T*>(a.ln) + r0 * C;
+  const T* x = static_cast<const T*>(kLn2 ? static_cast<const void*>(a.y) : a.x) + r0 * C;
+  const float* gamma = kLn2 ? a.ln2g : a.ln1g;
+  const float* beta = kLn2 ? a.ln2b : a.ln1b;
+  Act<kBf16>* out = static_cast<Act<kBf16>*>(a.ln) + r0 * C;
   row_stats(n, C, [&](int r) { return x + static_cast<size_t>(r) * C; }, st);
   __syncthreads();
   batched(
@@ -484,18 +505,20 @@ __global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
       [&](int i) {
         const int r = i / C, k = i - r * C;
         const size_t s = (r0 + r) / per_stream;
-        return layer_norm(to_f(x[i]), st[r], a.ln1g[s * C + k], a.ln1b[s * C + k]);
+        return layer_norm(to_f(x[i]), st[r], gamma[s * C + k], beta[s * C + k]);
       },
-      [&](int i, float v) { out[i] = from_float<T>(v); });
+      [&](int i, float v) { out[i] = from_float<Act<kBf16>>(v); });
 }
 
-// One block per (49 rows, stream * batch, 48 output columns), A streamed through a six-deep
-// ring. kFc2 false: the projection, rows of a window, y = x + (AV wp + bp) into the fp32
-// scratch; kFc2 true: 49 consecutive tokens, out = y + (h w2 + b2).
-template <bool kBf16, bool kFc2>
+// One block per (49 rows, stream * batch, 48 output columns), A (in the operands' type)
+// streamed through a six-deep ring. kFc2 false: the projection, rows of a window, y = x +
+// (AV wp + bp) into the fp32 scratch; kFc2 true: 49 consecutive token rows of x's layout,
+// out = y + (h w2 + b2).
+template <typename TX, bool kBf16, bool kFc2>
 __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using T = Act<kBf16>;
+  using T = TX;
+  using A = Act<kBf16>;
   const K4Layout L = k4_layout(kRows, kBf16, false, a.C, a.inner, a.hidden, 1, a.d, 4, a.hc);
   const int C = a.C;
   const int nb = blockIdx.y, s = nb / a.B, c0 = blockIdx.z * kProjCols;
@@ -516,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
   __syncthreads();
 
   Gemm g{};
-  const T* abase = static_cast<const T*>(kFc2 ? a.hid : a.av);
+  const A* abase = static_cast<const A*>(kFc2 ? a.hid : a.av);
   g.abase[0] = kFc2 ? abase + nb * hw * K
                     : abase + (static_cast<size_t>(nb) * (a.H / 7) * (a.W / 7) + blockIdx.x) * kT * K;
   g.aparts = 1;
@@ -548,30 +571,39 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
   }
 }
 
-// One block per (49 tokens, stream * batch, hc hidden columns): LN2(y) of the rows resident,
-// w1's columns streamed; h = ELU(. + b1) into the hidden scratch (rounded in bf16).
+// One block per (49 tokens, stream * batch, hc hidden columns): LN2(y) from the LN2 pass's
+// scratch and w1's columns both streamed through rings (no per-block LN2 prologue: the block
+// is small enough for two an SM); h = ELU(. + b1) into the hidden scratch (rounded under
+// kBf16).
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1) k4_fc1_kernel(const K4Args a) {
+__global__ void __launch_bounds__(kThreads, 2) k4_fc1_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   using T = Act<kBf16>;
   const int C = a.C, hidden = a.hidden;
   const K4Layout L = k4_layout(kFc1, kBf16, false, C, a.inner, hidden, 1, a.d, 4, a.hc);
   const int nb = blockIdx.y, s = nb / a.B, r0 = blockIdx.x * kT, j0 = blockIdx.z * a.hc;
   const size_t tok = static_cast<size_t>(nb) * a.H * a.W + r0;  // first token of the tile
-  void* a0 = smem + L.a0;
-  ln_to_a<kBf16>(a.y + tok * C, C, C, a.ln2g + s * C, a.ln2b + s * C, a0,
-                 reinterpret_cast<float2*>(smem + L.tabs));
+  int* arows = reinterpret_cast<int*>(smem + L.tabs);
+  for (int t = threadIdx.x; t < kRowsB; t += kThreads) arows[t] = t < kT ? t * C : 0;
+  __syncthreads();
   const int nh = min(a.hc, hidden - j0);
   Gemm g{};
+  g.abase[0] = static_cast<const T*>(a.ln) + tok * C;
   g.aparts = 1;
+  g.rows = arows;
   g.w[0] = a.w1 + static_cast<size_t>(s) * C * hidden + j0;
   g.n = g.nb = pad_cols(kBf16, nh);
   g.ncols = nh;
   g.ldw = hidden;
   g.K = C;
   Sums<kBf16> acc;
-  zero_sums(acc);
-  gemm_res(acc, g, a0, a0, reinterpret_cast<float*>(smem + L.ring));
+  float* bbuf = reinterpret_cast<float*>(smem + ring_a_bytes(kBf16, 1, kStages));
+  if constexpr (kBf16) {
+    gemm_bf16<kStages>(g, reinterpret_cast<bf16*>(smem), bbuf, acc.v);
+    acc.nb = g.nb;
+  } else {
+    acc.tile = gemm_f32<kStages>(g, reinterpret_cast<float*>(smem), bbuf, acc.v);
+  }
   T* h = static_cast<T*>(a.hid) + tok * hidden + j0;
   const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
   apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
@@ -616,22 +648,24 @@ int layout_total(int kind, bool bf16, const K4Args& a) {
   return k4_layout(kind, bf16, a.cross != 0, a.C, a.inner, a.hidden, a.hg, a.d, pitch_for(a.d), a.hc).total;
 }
 
-template <int DP, bool kBf16>
+template <int DP, typename TX, bool kBf16>
 cudaError_t launch_block(bool fused, const K4Args& a, cudaStream_t st) {
   const int nwin = (a.H / 7) * (a.W / 7), nb = a.S * a.B;
   if (fused) {
     if constexpr (DP <= kFusedPitchMax) {
       const int smem = layout_total(kFused, kBf16, a);
-      return smem <= kSmem3 ? launch(k4_fused_kernel<DP, kBf16, 3>, dim3(nwin, nb), smem, a, st)
-                            : launch(k4_fused_kernel<DP, kBf16, 2>, dim3(nwin, nb), smem, a, st);
+      return smem <= kSmem3 ? launch(k4_fused_kernel<DP, TX, kBf16, 3>, dim3(nwin, nb), smem, a, st)
+                            : launch(k4_fused_kernel<DP, TX, kBf16, 2>, dim3(nwin, nb), smem, a, st);
     }
     return cudaErrorInvalidValue;
   }
   const size_t rows = static_cast<size_t>(nb) * a.H * a.W;
-  k4_ln_kernel<kBf16><<<static_cast<unsigned>((rows + kThreads / 8 - 1) / (kThreads / 8)), kThreads, 0, st>>>(a);
+  const unsigned ln_blocks = static_cast<unsigned>((rows + kThreads / 8 - 1) / (kThreads / 8));
+  k4_ln_kernel<TX, kBf16, false><<<ln_blocks, kThreads, 0, st>>>(a);
   // K3's split attention block on LN1(x) and LN1(kv): AV into the window-major scratch
   const Args k3 = {a.ln, a.wq, a.bq, a.wk, a.bk, a.wv, a.bv, a.wp, a.bp, a.bias, nullptr, a.av,
-                   a.S, a.B, a.H, a.W, a.C, a.inner, a.heads, a.d, a.hg, a.top, a.left, a.cross, a.scale};
+                   a.S, a.B, a.H, a.W, a.C, a.inner, a.heads, a.d, a.hg, a.top, a.left, a.cross, a.scale,
+                   a.windows};
   const int asmem = layout_total(kAttn, kBf16, a);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false>), asmem);
   if (err != cudaSuccess) return err;
@@ -639,24 +673,25 @@ cudaError_t launch_block(bool fused, const K4Args& a, cudaStream_t st) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int tiles = a.H * a.W / kT, col_groups = (a.C + kProjCols - 1) / kProjCols;
-  err = launch(k4_rows_kernel<kBf16, false>, dim3(nwin, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+  err = launch(k4_rows_kernel<TX, kBf16, false>, dim3(nwin, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
   if (err != cudaSuccess) return err;
+  k4_ln_kernel<TX, kBf16, true><<<ln_blocks, kThreads, 0, st>>>(a);  // LN2 into LN1's scratch
   err = launch(k4_fc1_kernel<kBf16>, dim3(tiles, nb, (a.hidden + a.hc - 1) / a.hc), layout_total(kFc1, kBf16, a),
                a, st);
   if (err != cudaSuccess) return err;
-  return launch(k4_rows_kernel<kBf16, true>, dim3(tiles, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+  return launch(k4_rows_kernel<TX, kBf16, true>, dim3(tiles, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
 }
 
-template <bool kBf16>
+template <typename TX, bool kBf16>
 cudaError_t launch_pitch(bool fused, const K4Args& a, cudaStream_t st) {
   switch (pitch_for(a.d)) {
-    case 4: return launch_block<4, kBf16>(fused, a, st);
-    case 8: return launch_block<8, kBf16>(fused, a, st);
-    case 12: return launch_block<12, kBf16>(fused, a, st);
-    case 16: return launch_block<16, kBf16>(fused, a, st);
-    case 24: return launch_block<24, kBf16>(fused, a, st);
-    case 32: return launch_block<32, kBf16>(fused, a, st);
-    case 48: return launch_block<48, kBf16>(fused, a, st);
+    case 4: return launch_block<4, TX, kBf16>(fused, a, st);
+    case 8: return launch_block<8, TX, kBf16>(fused, a, st);
+    case 12: return launch_block<12, TX, kBf16>(fused, a, st);
+    case 16: return launch_block<16, TX, kBf16>(fused, a, st);
+    case 24: return launch_block<24, TX, kBf16>(fused, a, st);
+    case 32: return launch_block<32, TX, kBf16>(fused, a, st);
+    case 48: return launch_block<48, TX, kBf16>(fused, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -670,40 +705,49 @@ const char* swin_cuda_error_string(int code) {
 }
 
 // Shared memory in bytes of one block of kernel `kind` (0 the one-launch block, 1 the split
-// route's attention, 2 its projection and fc2, 3 its fc1, 4 its LN1, which has none), or 0
-// where the kernels do not take the dimensions (see supported()).
-size_t swin_k4_fwd_smem(int kind, int bf16_io, int cross, int C, int inner, int heads, int d, int hidden,
+// route's attention, 2 its projection and fc2, 3 its fc1, 4 its LN1 and LN2 passes, which
+// have none), with
+// bf16 operands (K4 bf16) or fp32 ones (fp32, and K1 in either I/O type), or 0 where the
+// kernels do not take the dimensions (see supported()).
+size_t swin_k4_fwd_smem(int kind, int bf16_ops, int cross, int C, int inner, int heads, int d, int hidden,
                         int hg, int hc) {
-  if (kind < kFused || kind > kLn || !supported(bf16_io != 0, C, inner, heads, d, hidden, hg, hc, kind == kFused))
+  if (kind < kFused || kind > kLn || !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, kind == kFused))
     return 0;
   return static_cast<size_t>(
-      k4_layout(kind, bf16_io != 0, cross != 0, C, inner, hidden, hg, d, pitch_for(d), hc).total);
+      k4_layout(kind, bf16_ops != 0, cross != 0, C, inner, hidden, hg, d, pitch_for(d), hc).total);
 }
 
-// The block's forward without dropout on `stream`: x and out (S, B, H, W, C) fp32, or bf16
-// with K4's rounding when `bf16_io` is set; the weights fp32 as fused_block.cu's; 7x7
-// windows. fused: one launch, hc hidden columns per MLP step (ln, av, y and hid unused, may
-// be null); else hg heads per attention block and hc hidden columns per fc1 block, with the
-// scratch ln (S*B, H, W, C), av (S*B, windows, 49, heads*d) and hid (S*B, H*W, hidden) in
-// x's type and y (S*B, H*W, C) fp32. Returns cudaGetLastError() after the launches (0 = ok),
-// cudaErrorInvalidValue on dimensions the kernels do not take.
+// The block's forward without dropout on `stream`: x and out fp32, or bf16 when `bf16_io` is
+// set, (S, B, H, W, C) in the image layout or (S, B, nWin, 49, C) in the windows layout
+// (`windows`); `bf16_ops`: K4's rounding (bf16 operands; needs bf16_io), else the block in
+// fp32 inside (fp32, and K1 with bf16 I/O: x upcast on load, out rounded once on the store);
+// the weights fp32 as fused_block.cu's; 7x7 windows. fused: one launch, hc hidden columns
+// per MLP step (ln, av, y and hid unused, may be null); else hg heads per attention block and
+// hc hidden columns per fc1 block, with the scratch ln (S*B, H*W, C), av (S*B, windows, 49,
+// heads*d) and hid (S*B, H*W, hidden) in the operands' type and y (S*B, H*W, C) fp32. Returns
+// cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions the
+// kernels do not take.
 int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq, const float* bq,
                 const float* wk, const float* bk, const float* wv, const float* bv, const float* wp,
                 const float* bp, const float* bias, const float* ln2g, const float* ln2b, const float* w1,
                 const float* b1, const float* w2, const float* b2, void* out, void* ln, void* av, float* y,
                 void* hid,
                 int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg, int hc, int fused,
-                int shift, int cross, int bf16_io, float scale, void* stream) {
+                int shift, int cross, int windows, int bf16_io, int bf16_ops, float scale, void* stream) {
   const int inner = heads * d;
-  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) ||
-      !supported(bf16_io != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
+  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || (bf16_ops && !bf16_io) ||
+      !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
       (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const K4Args a = {x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
                     out, ln, av, y, hid, S, B, H, W, C, inner, heads, d, hidden, hg, hc,
-                    shift ? 4 : 0, shift ? 4 : 0, cross, scale};
+                    shift ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16_io ? launch_pitch<true>(fused != 0, a, st) : launch_pitch<false>(fused != 0, a, st));
+  cudaError_t err;
+  if (bf16_ops) err = launch_pitch<bf16, true>(fused != 0, a, st);        // K4 bf16
+  else if (bf16_io) err = launch_pitch<bf16, false>(fused != 0, a, st);   // K1 bf16
+  else err = launch_pitch<float, false>(fused != 0, a, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

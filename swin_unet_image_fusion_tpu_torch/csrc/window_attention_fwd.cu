@@ -203,7 +203,7 @@ int swin_k3_fwd(const void* x, const float* wq, const float* bq, const float* wk
       !supported(C, inner, heads, d, hg, fused != 0) || (!fused && av == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {x, wq, bq, wk, bk, wv, bv, wp, bp, bias, out, av, S, B, H, W, C, inner, heads,
-                  d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale};
+                  d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0};
   const int smem = block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = pitch_for(d);

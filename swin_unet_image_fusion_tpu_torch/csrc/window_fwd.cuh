@@ -1,5 +1,6 @@
 // Device code of the window-attention forward without dropout, shared by K3's redesigned
-// forward (window_attention_fwd.cu) and K4's (fused_block_fwd.cu), for Hopper (sm_90a): the
+// forward (window_attention_fwd.cu) and the fused block's, K4 and K1 (fused_block_fwd.cu),
+// for Hopper (sm_90a): the
 // block geometry (one 7x7 window of T = 49 tokens per block, 256 threads), cp.async and
 // mma.sync helpers, the GEMMs of a window's rows (fp32 FMA with 8x4 register tiles, or bf16
 // operands on mma.sync.m16n8k16 with fp32 accumulators) with x and the weights streamed
@@ -414,8 +415,11 @@ __device__ void store_proj_bf16(const float (&acc)[kMaxNTilesB][4][4], int nb, c
 template <bool kBf16>
 using Act = typename std::conditional<kBf16, bf16, float>::type;
 
-// Row offsets (x rows: pixel * C) and wrap regions of window `win`'s 49 tokens; the padded
-// rows get offset 0 and region -1.
+// Row offsets (x rows: token * C) and wrap regions of window `win`'s 49 tokens; the padded
+// rows get offset 0 and region -1. The image layout (a.windows == 0) finds a token's pixel
+// through the roll; the windows layout (ops/window_pack.py::pack_windows, already rolled and
+// partitioned in the block's geometry) holds token t of window win at row win * 49 + t. The
+// region comes from the rolled-map coordinates in both.
 template <typename Args>
 __device__ void window_rows(const Args& a, int win, int* rows, int* region) {
   const int nw = a.W / 7;
@@ -423,7 +427,7 @@ __device__ void window_rows(const Args& a, int win, int* rows, int* region) {
   for (int t = threadIdx.x; t < kRowsB; t += kThreads) {
     if (t < kT) {
       const int rr = wr * 7 + t / 7, rc = wc * 7 + t % 7;  // row and column in the rolled map
-      rows[t] = (((rr - a.top + a.H) % a.H) * a.W + (rc - a.left + a.W) % a.W) * a.C;
+      rows[t] = (a.windows ? win * kT + t : ((rr - a.top + a.H) % a.H) * a.W + (rc - a.left + a.W) % a.W) * a.C;
       region[t] = ((rr < a.top) << 1) | (rc < a.left);
     } else {
       rows[t] = 0;
@@ -621,7 +625,7 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
   }
 }
 
-// ---- K3's attention block (also the attention of K4's split route, on LN1(x)) ---------------
+// ---- K3's attention block (also the attention of K4's and K1's split route, on LN1(x)) ------
 // Byte offsets of one block's dynamic shared memory. The `gemm` space holds the x and weight
 // rings of the q/k/v GEMM, then (bf16) the core's P and (fused) the output projection's
 // weights, which arrive by cp.async while the core runs.
@@ -666,6 +670,7 @@ struct Args {
   void* av;  // split: AV scratch (S*B, windows, 49, inner) in x's type
   int S, B, H, W, C, inner, heads, d, hg, top, left, cross;
   float scale;
+  int windows;  // the token layout: 0 image (K3's and K4's), 1 windows (K1's)
 };
 
 // One block per (window, stream * batch, group of hg heads): q/k/v of the group's heads from

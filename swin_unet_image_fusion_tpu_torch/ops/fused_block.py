@@ -27,16 +27,17 @@ differently in bf16, so the rounding goes with the layout and not with the dtype
 shifted partition as index arithmetic (K4); ``"windows"`` is ``(S, B, nWin, T, C)`` as
 ``ops/window_pack.py::pack_windows`` lays out an ``hw`` map in this block's own geometry
 (K1). ``fused_block`` runs the plain version for a CPU tensor and launches kernels for a
-CUDA tensor; there is no fallback between the two. An image-layout call without dropout
-(K4, what ``cuda_block`` serves) runs ``csrc/fused_block_fwd.cu`` as :func:`block_fwd_plan`
-lays it out: where two blocks fit an SM (C <= 48 in the default model) one launch, a block
-per window and stream computing the whole block in shared memory with the MLP in steps of
-the hidden; elsewhere five launches (LN1, attention in head groups, projection + x, fc1 with
-LN2(y) resident, fc2 + y); bf16 products on the tensor cores (``mma.sync``), fp32 on FMA.
-K1, the dropout forms and the backward's recompute run the five launches of
-``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its prologue, the attention core, proj,
-fc1 with LN2 in its prologue, fc2); a shape that the new forward does not take raises
-before any launch.
+CUDA tensor; there is no fallback between the two. A call without dropout, K4 (what
+``cuda_block`` serves) and K1 (what ``cuda_pack`` serves) alike, runs
+``csrc/fused_block_fwd.cu`` as :func:`block_fwd_plan` lays it out: where two blocks fit an
+SM (C <= 48 in the default model) one launch, a block per window and stream computing the
+whole block in shared memory with the MLP in steps of the hidden; elsewhere six launches
+(LN1, attention in head groups, projection + x, LN2, fc1, fc2 + y). K4's bf16 products
+run on the tensor cores (``mma.sync``), fp32 ones (K1 in both dtypes) on FMA; the layout
+changes only which rows a window's tokens are. The dropout forms and the backward's
+recompute run the five launches of ``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its
+prologue, the attention core, proj, fc1 with LN2 in its prologue, fc2); a shape that the
+new forward does not take raises before any launch.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_FusedBlockFunction``: its backward launches ``swin_fused_block_bwd`` (K1
@@ -90,6 +91,7 @@ from .window_attention import (
     _STAGES,
     _align16,
     _b_bytes,
+    _ring_a_bytes,
     _round_up,
     attention_smem,
     fast_softmax,
@@ -102,7 +104,9 @@ from .window_attention import (
 from .window_pack import pack_windows, unpack_windows
 
 LN_EPS = 1e-5
-MAX_CHANNELS = 384  # the LayerNorm backward kernel's limit (csrc/window_core_bwd.cuh)
+# the LayerNorm backward kernel's limit (csrc/window_core_bwd.cuh), and the forward's split
+# route's (csrc/fused_block_fwd.cu's kMaxC)
+MAX_CHANNELS = 384
 LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
@@ -301,14 +305,14 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_fwd")
-    lib.swin_k4_fwd.argtypes = [_P] * 23 + [_I] * 14 + [ctypes.c_float, _P]
+    lib.swin_k4_fwd.argtypes = [_P] * 23 + [_I] * 16 + [ctypes.c_float, _P]
     lib.swin_k4_fwd.restype = _I
     lib.swin_k4_fwd_smem.argtypes = [_I] * 10
     lib.swin_k4_fwd_smem.restype = ctypes.c_size_t
     return lib
 
 
-# ---- K4's forward without dropout (csrc/fused_block_fwd.cu): its launch plan --------------
+# ---- the forward without dropout, K4 and K1 (csrc/fused_block_fwd.cu): its launch plan ----
 # Block geometry as csrc/window_fwd.cuh's (256 threads; fp32 GEMM rows padded to 56, A
 # operands channel-major with rows pitched 60 floats; bf16 rows to 64, operands [64][K + 8]
 # halves; channels in chunks of 16; rings three deep, the row kernels' six deep).
@@ -316,7 +320,6 @@ FUSED_PITCH_MAX = 16  # the one-launch route's q/k row pitches
 # the one-launch route's blocks are built for three an SM where three fit (228 KB an SM, 1 KB
 # of it reserved per block)
 SMEM_THREE_PER_SM = 233_472 // 3 - 1024
-MAX_SPLIT_CHANNELS = 384  # the split route's fc1 keeps 49 rows of LN2(y) resident
 _T, _WARPS, _P_STRIDE, _COL_TABLE = 49, 8, 72, 192
 KERNEL_KINDS = ("fused", "attention", "rows", "fc1", "ln")  # as the source's Kind
 
@@ -345,9 +348,10 @@ def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, 
     then LN2(y)) and under cross LN1(kv), q/k/v (or the raw kv rows before them, the hidden
     chunk of hc columns after), the bias table, the row, region, column and bias tables and
     the LN statistics of x and kv. attention: K3's split attention block
-    (``window_attention.attention_smem``) on LN1(x). rows (proj and fc2): the six-deep x and weight rings of 48 columns, the
-    row tables. fc1: the weight ring of hc columns, LN2(y) of 49 rows and its statistics. ln:
-    none (LN1's statistics are static shared memory)."""
+    (``window_attention.attention_smem``) on LN1(x). rows (proj and fc2): the six-deep A
+    and weight rings of 48 columns, the row tables. fc1: the A ring over the LN2 pass's
+    scratch and the weight ring of hc columns, three deep, and the row table. ln (the LN1
+    and LN2 passes): none (their statistics are static shared memory)."""
     p_bytes = _WARPS * 32 * _P_STRIDE * 2 if bf16 else 0
     qk = _align16(hg * _T * pitch * 4)
     vb = _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
@@ -368,20 +372,19 @@ def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, 
     if kind == "rows":
         return proj_smem(bf16)
     if kind == "fc1":
-        return (_align16(_b_bytes(bf16, _pad_cols(bf16, hc), _STAGES)) + _align16(operand_bytes(bf16, c))
-                + stats // 2)
+        return _align16(_ring_a_bytes(bf16, 1, _STAGES) + _b_bytes(bf16, _pad_cols(bf16, hc), _STAGES)) + 64 * 4
     raise ValueError(f"unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}")
 
 
 @dataclass(frozen=True)
 class BlockFwdPlan:
-    """How K4's forward without dropout runs at one shape: ``route`` "fused" (one launch, a
+    """How the forward without dropout runs at one shape: ``route`` "fused" (one launch, a
     block per window and stream computes the whole block, the MLP in steps of
-    ``hidden_chunk`` hidden columns) or "split" (five launches: LN1, attention with
-    ``heads_per_block`` heads a block, projection, fc1 with ``hidden_chunk`` columns a block,
-    fc2); ``smem``: (kernel kind, dynamic shared-memory bytes of one block) of each launch in
-    order; ``blocks_per_sm``: the one-launch block's build, 3 where three fit an SM, else 2
-    (0 on the split route)."""
+    ``hidden_chunk`` hidden columns) or "split" (six launches: LN1, attention with
+    ``heads_per_block`` heads a block, projection, LN2, fc1 with ``hidden_chunk`` columns a
+    block, fc2); ``smem``: (kernel kind, dynamic shared-memory bytes of one block) of each
+    launch in order; ``blocks_per_sm``: the one-launch block's build, 3 where three fit an
+    SM, else 2 (0 on the split route)."""
 
     route: str
     launches: int
@@ -395,12 +398,15 @@ class BlockFwdPlan:
 @functools.lru_cache(maxsize=None)
 def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int], cross: bool,
                    bf16: bool) -> BlockFwdPlan:
-    """The launch plan of K4's forward without dropout, or ValueError where its kernels do
-    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8, the hidden a
-    multiple of 4. One launch where every head's q/k/v fit one GEMM (3 heads*d <= 144 fp32,
-    192 bf16), d <= 16, and two such blocks fit an SM, the MLP in steps of as many hidden
-    columns as one GEMM takes; else five launches (LN1 first), the attention in the largest group of heads with at most 48
-    columns per q/k/v part (a multiple of 8), C <= 384."""
+    """The launch plan of the forward without dropout (K4 and K1, either layout), or
+    ValueError where its kernels do not take the shape: 7x7 windows, d <= 48, C and heads*d
+    multiples of 8, the hidden a multiple of 4. ``bf16``: bf16 *operands*
+    (:func:`rounds_operands`: K4 in bf16); fp32 and K1 in either dtype take the fp32 plan.
+    One launch where every head's q/k/v fit one GEMM (3 heads*d <= 144 fp32 operands, 192
+    bf16), d <= 16, and two such blocks fit an SM, the MLP in steps of as many hidden
+    columns as one GEMM takes; else six launches (LN1 first, LN2 before fc1), the attention
+    in the largest group of heads with at most 48 columns per q/k/v part (a multiple of 8),
+    C <= 384."""
     inner = heads * d
     if tuple(window) != FWD_WINDOW:
         raise ValueError(f"the fused block's forward takes {FWD_WINDOW} windows, got {tuple(window)}")
@@ -418,8 +424,8 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
         if smem <= FUSED_SMEM_MAX:
             return BlockFwdPlan("fused", 1, heads, hc, pitch, (("fused", smem),),
                                 3 if smem <= SMEM_THREE_PER_SM else 2)
-    if c > MAX_SPLIT_CHANNELS:
-        raise ValueError(f"the fused block's forward takes C <= {MAX_SPLIT_CHANNELS} where one "
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the fused block's forward takes C <= {MAX_CHANNELS} where one "
                          f"launch does not fit, got {c}")
     for hg in range(heads, 0, -1):
         n = hg * d
@@ -427,11 +433,11 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
             continue
         rows = block_smem("rows", bf16, cross, c, inner, hg, d, pitch, cols)
         smem = (("ln", 0), ("attention", block_smem("attention", bf16, cross, c, inner, hg, d, pitch, cols)),
-                ("rows", rows), ("fc1", block_smem("fc1", bf16, cross, c, inner, hg, d, pitch, cols)),
+                ("rows", rows), ("ln", 0), ("fc1", block_smem("fc1", bf16, cross, c, inner, hg, d, pitch, cols)),
                 ("rows", rows))
         if max(b for _, b in smem) > SMEM_LIMIT_BYTES:
             break
-        return BlockFwdPlan("split", 5, hg, cols, pitch, smem)
+        return BlockFwdPlan("split", 6, hg, cols, pitch, smem)
     raise ValueError(f"the fused block's forward has no head grouping for {heads} heads of {d} dims")
 
 
@@ -456,11 +462,11 @@ def _drop_args(x, kw):
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
-    for a bf16 x: never an upcast. An image-layout call without dropout (K4) launches the
-    forward of ``csrc/fused_block_fwd.cu`` (one or five launches, :func:`block_fwd_plan`),
-    any other call the five launches of ``csrc/fused_block.cu``."""
+    for a bf16 x: never an upcast. A call without dropout (K4 and K1) launches the forward
+    of ``csrc/fused_block_fwd.cu`` (one or six launches, :func:`block_fwd_plan`), a dropout
+    call the five launches of ``csrc/fused_block.cu``."""
     global LAUNCHES, BF16_LAUNCHES
-    if kw["layout"] == "image" and _drop_args(x, kw) is None:
+    if _drop_args(x, kw) is None:
         out = _launch_redesigned(x, weights, kw)
         if x.dtype == torch.bfloat16:
             BF16_LAUNCHES += 1
@@ -471,33 +477,38 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
 
 
 def _launch_redesigned(x, weights, kw) -> torch.Tensor:
-    """K4's forward without dropout: one launch, or five with the split route's scratch
-    (LN1(x), AV window-major and the MLP hidden in x's dtype, y in fp32)."""
+    """The forward without dropout in either layout: one launch, or five with the split
+    route's scratch (LN1(x), AV window-major and the MLP hidden in the operands' dtype: bf16
+    where K4 rounds them, fp32 for fp32 and for K1, which never rounds them; y in fp32)."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     bf16 = x.dtype == torch.bfloat16
-    plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), bf16)
+    ops = rounds_operands(x.dtype, kw["layout"])
+    plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), ops)
     lib = _fwd_library()
     out = torch.empty_like(x)
     scratch = [None] * 4
     if plan.route == "split":
         tokens = s * b * h * w
-        scratch = [x.new_empty(tokens * c), x.new_empty(tokens * heads * d),
-                   x.new_empty(tokens * c, dtype=torch.float32), x.new_empty(tokens * hidden)]
+        mid = torch.bfloat16 if ops else torch.float32
+        scratch = [x.new_empty(tokens * c, dtype=mid), x.new_empty(tokens * heads * d, dtype=mid),
+                   x.new_empty(tokens * c, dtype=torch.float32), x.new_empty(tokens * hidden, dtype=mid)]
     with torch.cuda.device(x.device):
         rc = lib.swin_k4_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
             *(None if a is None else a.data_ptr() for a in scratch),
             s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
-            int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]), int(bf16),
-            float(d**-0.5), torch.cuda.current_stream().cuda_stream,
+            int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
+            int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
     return out
 
 
 def _launch_five(x, weights, kw) -> torch.Tensor:
-    """The five launches of ``csrc/fused_block.cu``: K1, the dropout forms and (as
-    ``swin_fused_block_fwd``, the form that the backward recomputes) K4 without dropout."""
+    """The five launches of ``csrc/fused_block.cu``: the dropout forms and (as
+    ``swin_fused_block_fwd``, the form that the backward recomputes) K1 and K4 without
+    dropout."""
     global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     drop = _drop_args(x, kw)
@@ -643,9 +654,9 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed(drop_rates, drop_seed)
-    if layout == "image" and not any(drop_rates):
+    if not any(drop_rates):
         block_fwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross),
-                       x.dtype == torch.bfloat16)
+                       rounds_operands(x.dtype, layout))
     smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww, int(drop_rates[0] > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "

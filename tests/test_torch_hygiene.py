@@ -177,16 +177,17 @@ def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
 
     _, weights = _meta_block_args()
     weights = [torch.zeros(a.shape) for a in weights]
-    # K4 (image layout, no dropout) runs csrc/fused_block_fwd.cu, K1 (windows) the five launches
-    for layout, xl, launcher in (("image", x, "swin_k4_fwd"),
-                                 ("windows", x.reshape(2, 1, 1, 49, 8), "swin_fused_block_fwd")):
+    # without dropout K4 (image layout) and K1 (windows) run csrc/fused_block_fwd.cu: the
+    # bf16 I/O form, with bf16 operands for K4 alone (K1 is fp32 inside)
+    for layout, xl in (("image", x), ("windows", x.reshape(2, 1, 1, 49, 8))):
         before = (tfb.LAUNCHES, tfb.BF16_LAUNCHES)
         out = tfb._launch_fwd(xl, weights, dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=True,
                                                 cross=True, layout=layout, hw=(7, 7)))
-        args = fake_library.calls[launcher]
-        assert out.dtype == dtype and args[-3] == bf16
-        assert layout == "image" or args[-4] == 1, "the windows layout's flag"
-        assert layout == "windows" or "swin_fused_block_fwd" not in fake_library.calls
+        args = fake_library.calls["swin_k4_fwd"]
+        assert out.dtype == dtype and args[-4] == bf16
+        assert args[-3] == (bf16 if layout == "image" else 0), "the operands' rounding"
+        assert args[-5] == (layout == "windows"), "the windows layout's flag"
+        assert "swin_fused_block_fwd" not in fake_library.calls
         assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
     before = (twp.LAUNCHES, twp.BF16_LAUNCHES)

@@ -1,7 +1,9 @@
-"""The launch plan of K4's forward without dropout (``csrc/fused_block_fwd.cu``), on the CPU:
-the route, launches and shared memory of each of the default model's ten (stage, MLP width)
-shapes, what the wrapper hands the kernels (with a fake library and no CUDA runtime), that
-the windows layout (K1), dropout and the backward keep the five launches of
+"""The launch plan of the fused block's forward without dropout (``csrc/fused_block_fwd.cu``:
+K4 on the image, K1 on window-packed tokens), on the CPU: the route, launches and shared
+memory of each of the default model's ten (stage, MLP width) shapes, K1's plan at the packed
+stages (the fp32 plan in both dtypes: K1 is fp32 inside), what the wrapper hands the kernels
+in both layouts (with a fake library and no CUDA runtime: the layout, the rounding mode, the
+scratch dtypes), that dropout in either layout and the backward keep the five launches of
 ``csrc/fused_block.cu``, and that shapes the kernels do not take raise before any launch.
 The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
@@ -52,8 +54,18 @@ class _FakeLibrary:
 @pytest.fixture
 def fake_library(monkeypatch):
     """Both fused-block libraries replaced by one fake that records every launcher call,
-    bound with the wrapper's own argtypes."""
+    bound with the wrapper's own argtypes; ``lib.allocated`` maps the data pointer of every
+    tensor that ``Tensor.new_empty`` made during the test to the tensor."""
     lib = _FakeLibrary()
+    lib.allocated = {}
+    new_empty = torch.Tensor.new_empty
+
+    def recording_new_empty(self, *args, **kwargs):
+        t = new_empty(self, *args, **kwargs)
+        lib.allocated[t.data_ptr()] = t
+        return t
+
+    monkeypatch.setattr(torch.Tensor, "new_empty", recording_new_empty)
     monkeypatch.setattr(_build, "load", lambda name: lib)
     tfb._library.cache_clear()
     tfb._fwd_library.cache_clear()
@@ -78,7 +90,17 @@ def _block_args(c, heads, d, hidden, hw=(14, 14), dtype=torch.float32):
 
 def _kw(heads, d, shift=True, cross=True, layout="image", **extra):
     return dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
-                layout=layout, hw=None, **extra)
+                layout=layout, hw=(14, 14) if layout == "windows" else None, **extra)
+
+
+def _windows(x):
+    """An image-layout x of a 14x14 map as the windows layout's (S, B, 4, 49, C)."""
+    return x.reshape(x.shape[0], x.shape[1], 4, 49, x.shape[-1])
+
+
+def _scratch_dtypes(lib, args):
+    """The dtypes of the split route's scratch handed to ``swin_k4_fwd``: LN1(x), AV, y, hidden."""
+    return [lib.allocated[p].dtype for p in args[19:23]]
 
 
 @pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
@@ -87,9 +109,9 @@ def _kw(heads, d, shift=True, cross=True, layout="image", **extra):
 def test_plan_of_each_shape(k, c, hidden, dtype, cross):
     """One launch with every head and the whole MLP in a block where two such blocks fit an
     SM (stages 0-1), the MLP in steps of as many hidden columns as one GEMM takes (144 fp32,
-    192 bf16); else five launches (LN1, attention, projection, fc1, fc2), a head group of at
-    most 48 columns per q/k/v part and fc1 blocks of 144 / 192 hidden columns; every block
-    within the 227 KB a block may use."""
+    192 bf16); else six launches (LN1, attention, projection, LN2, fc1 streaming LN2(y),
+    fc2), a head group of at most 48 columns per q/k/v part and fc1 blocks of 144 / 192
+    hidden columns; every block within the 227 KB a block may use."""
     bf16 = dtype == "bf16"
     d = CFG.dims_per_head(c)
     plan = tfb.block_fwd_plan(c, CFG.att_num_heads, d, hidden, CFG.window_size, cross, bf16)
@@ -105,9 +127,9 @@ def test_plan_of_each_shape(k, c, hidden, dtype, cross):
         assert plan.blocks_per_sm == (3 if k == 0 and not bf16 else 2)
         assert (plan.blocks_per_sm == 3) == (smem <= tfb.SMEM_THREE_PER_SM)
     else:
-        assert plan.launches == 5 and plan.hidden_chunk == cols and plan.blocks_per_sm == 0
-        assert [kind for kind, _ in plan.smem] == ["ln", "attention", "rows", "fc1", "rows"]
-        assert plan.smem[0][1] == 0 and all(0 < smem <= tfb.SMEM_LIMIT_BYTES for _, smem in plan.smem[1:])
+        assert plan.launches == 6 and plan.hidden_chunk == cols and plan.blocks_per_sm == 0
+        assert [kind for kind, _ in plan.smem] == ["ln", "attention", "rows", "ln", "fc1", "rows"]
+        assert all((smem == 0) == (kind == "ln") and smem <= tfb.SMEM_LIMIT_BYTES for kind, smem in plan.smem)
         assert hg * d <= tfb.GROUP_COLS and (hg * d) % 8 == 0
 
 
@@ -119,8 +141,9 @@ def test_shared_memory_counts_every_buffer():
     statistics of x and kv (2 x 64 x 2). bf16: the P
     rows (8 warps x 32 x 72 halves) over the weight ring (3 x 16 x 196 with the 192-column
     step), operands 64 x 56 halves, v^T (8 heads x 8 x 72). Split, stage 4, fp32, cross:
-    attention K3's split block (on LN1(x)), fc1 its ring, LN2(y) of 49 rows (384 x 60) and their
-    statistics, proj and fc2 K3's projection block, LN1 none."""
+    attention K3's split block (on LN1(x)), fc1 the LN2 pass's scratch and its weights
+    streamed through two rings three deep and a row table (two blocks an SM), proj and fc2
+    K3's projection block, LN1 and LN2 none."""
     tables = 9616 + 2048 + 1024
     fp32 = 3 * 16 * 144 * 4 + 49 * 48 * 4 + 2 * 48 * 60 * 4 + 3 * (8 * 49 * 8 * 4) + tables
     bf16 = 3 * 16 * 196 * 4 + 49 * 48 * 4 + 2 * 64 * 56 * 2 + 2 * (8 * 49 * 8 * 4) + 8 * 8 * 72 * 2 + tables
@@ -130,14 +153,15 @@ def test_shared_memory_counts_every_buffer():
     attention = 3 * 2 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 3 * (49 * 48 * 4) + 9616 + 2816
     assert tfb.block_smem("attention", False, True, 384, 384, 1, 48, 48, 144) == attention
     assert attention == twa.attention_smem(False, False, True, 384, 384, 1, 48, 48)
-    assert tfb.block_smem("fc1", False, True, 384, 384, 1, 48, 48, 144) == 3 * 16 * 144 * 4 + 384 * 60 * 4 + 512
+    fc1 = 3 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 64 * 4
+    assert tfb.block_smem("fc1", False, True, 384, 384, 1, 48, 48, 144) == fc1 <= tfb.SMEM_LIMIT_BYTES // 2
     assert tfb.block_smem("rows", False, True, 384, 384, 1, 48, 48, 144) == 6 * 16 * 60 * 4 + 6 * 16 * 48 * 4 + 512
     assert tfb.block_smem("ln", False, True, 384, 384, 1, 48, 48, 144) == 0
 
 
 def test_a_wide_block_takes_four_launches():
     """Where q/k/v of every head exceed one GEMM's columns, or two blocks of the one-launch
-    route do not fit an SM, the plan takes five launches; a hidden wider than one GEMM's
+    route do not fit an SM, the plan takes six launches; a hidden wider than one GEMM's
     columns is stepped through."""
     assert tfb.block_fwd_plan(48, 8, 6, 384, (7, 7), True, False).hidden_chunk == 144
     assert tfb.block_fwd_plan(64, 8, 8, 256, (7, 7), True, False).route == "split"  # 192 q/k/v columns
@@ -173,22 +197,74 @@ def test_image_call_without_dropout_launches_the_new_forward(fake_library, c, hi
     plan = tfb.block_fwd_plan(c, 8, d, hidden, (7, 7), True, bf16)
     (args,) = fake_library.calls["swin_k4_fwd"]
     fused = plan.route == "fused"
-    assert args[23:37] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
-                           int(fused), 1, 1, int(bf16))
+    # ..., fused, shift, cross, windows layout, bf16 I/O, bf16 operands (K4's rounding)
+    assert args[23:39] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+                           int(fused), 1, 1, 0, int(bf16), int(bf16))
     assert [a is None for a in args[19:23]] == [fused] * 4
+    if not fused:  # LN1(x), AV and the hidden in x's dtype (K4 rounds them), y fp32
+        assert _scratch_dtypes(fake_library, args) == [dtype, dtype, torch.float32, dtype]
     assert "swin_fused_block_fwd" not in fake_library.calls
     assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
 
-@pytest.mark.parametrize("what", ["windows layout", "dropout", "backward"])
+# K1: the windows layout at the stages cuda_pack packs (stages 0-3 at 512²), both MLP widths
+PACKED_SHAPES = tuple(shape for shape in SHAPES if shape[0] < 4)
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k,c,hidden", PACKED_SHAPES, ids=[f"s{k}-C{c}-h{h}" for k, c, h in PACKED_SHAPES])
+def test_windows_plan_of_each_packed_shape(fake_library, k, c, hidden, dtype, cross):
+    """K1 computes the block in fp32 inside whatever its I/O dtype, so both dtypes take the
+    fp32 plan (stages 0-1 one launch, 2-3 six), and the wrapper hands the kernels that plan
+    with the windows layout, x's I/O dtype and fp32 operands."""
+    d = CFG.dims_per_head(c)
+    assert not tfb.rounds_operands(dtype, "windows")
+    plan = tfb.block_fwd_plan(c, CFG.att_num_heads, d, hidden, CFG.window_size, cross, False)
+    assert (plan.route, plan.heads_per_block) == ROUTES[k]
+    x, weights = _block_args(c, CFG.att_num_heads, d, hidden, dtype=dtype)
+    tfb._launch_fwd(_windows(x), weights, _kw(CFG.att_num_heads, d, cross=cross, layout="windows",
+                                              drop_rates=(0.0, 0.0, 0.0), drop_seed=None))
+    (args,) = fake_library.calls["swin_k4_fwd"]
+    assert args[31:39] == (plan.heads_per_block, plan.hidden_chunk, int(plan.route == "fused"), 1,
+                           int(cross), 1, int(dtype == torch.bfloat16), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,hidden", [(24, 4), (96, 384)], ids=["C24-fused", "C96-split"])
+def test_windows_call_without_dropout_launches_the_new_forward(fake_library, c, hidden, dtype):
+    """K1 without dropout runs ``csrc/fused_block_fwd.cu``: the windows layout, x's I/O dtype,
+    fp32 operands (K1 never rounds inside), the fp32 plan, and on the split route fp32
+    scratch in both dtypes; the five launches are not called, and the call counts once in
+    its dtype's counter."""
+    d = CFG.dims_per_head(c)
+    x, weights = _block_args(c, 8, d, hidden, dtype=dtype)
+    before = (tfb.LAUNCHES, tfb.BF16_LAUNCHES)
+    out = tfb._launch_fwd(_windows(x), weights, _kw(8, d, layout="windows", drop_rates=(0.0, 0.0, 0.0),
+                                                    drop_seed=None))
+    assert out.dtype == dtype and out.shape == (2, 1, 4, 49, c)
+    bf16 = dtype == torch.bfloat16
+    plan = tfb.block_fwd_plan(c, 8, d, hidden, (7, 7), True, False)
+    (args,) = fake_library.calls["swin_k4_fwd"]
+    fused = plan.route == "fused"
+    assert args[23:39] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+                           int(fused), 1, 1, 1, int(bf16), 0)
+    assert [a is None for a in args[19:23]] == [fused] * 4
+    if not fused:
+        assert _scratch_dtypes(fake_library, args) == [torch.float32] * 4
+    assert "swin_fused_block_fwd" not in fake_library.calls
+    assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+
+
+@pytest.mark.parametrize("what", ["windows layout dropout", "dropout", "backward"])
 def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what):
-    """K1 (the windows layout), a dropout forward and every backward run
+    """A dropout forward in either layout (K1's and K4's) and every backward run
     ``csrc/fused_block.cu`` (the backward recomputes with its five launches), never the new
     forward."""
     x, weights = _block_args(24, 8, 3, 96)
-    if what == "windows layout":
-        xw = x.reshape(2, 1, 4, 49, 24)
-        tfb._launch_fwd(xw, weights, dict(_kw(8, 3, layout="windows"), hw=(14, 14)))
+    if what == "windows layout dropout":
+        tfb._launch_fwd(_windows(x), weights, _kw(8, 3, layout="windows", drop_rates=(0.25, 0.0, 0.1),
+                                                   drop_seed=9))
         name = "swin_fused_block_fwd"
     elif what == "dropout":
         tfb._launch_fwd(x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))

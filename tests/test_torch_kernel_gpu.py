@@ -753,35 +753,34 @@ def _block_case(k, h, w, c, heads, d, hidden, dtype, batch=1):
             rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1), *dense(c, hidden), *dense(hidden, c))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("hw,batch", [((512, 512), 1), ((100, 90), 1), ((224, 224), 20)],
-                         ids=["512", "100x90", "224x20"])
-def test_k4_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, batch, dtype):
-    """K4's forward without dropout (``csrc/fused_block_fwd.cu``: one launch at stages 0-1,
-    five at 2-4) against its plain version and against the five launches of
-    ``csrc/fused_block.cu`` in every stage x MLP width (encoder, decoder) x shift x cross
-    case at ``hw`` and ``batch``: fp32 within atol/rtol 1e-4, bf16 by the share bound of the
-    bf16 kernels; every call counted once in its dtype's counter and repeated bit for bit."""
-    _need_card()
+def _check_block_forward(layout, hw, batch, dtype, stages):
+    """The forward without dropout (``csrc/fused_block_fwd.cu``) in ``layout`` against its
+    plain version and against the five launches of ``csrc/fused_block.cu`` in every stage x
+    MLP width (encoder, decoder) x shift x cross case of ``stages`` at ``hw`` and ``batch``:
+    fp32 within atol/rtol 1e-4, bf16 by the share bound of the bf16 kernels; every call
+    counted once in its dtype's counter and repeated bit for bit."""
     cfg = ModelConfig()
     counter = "BF16_LAUNCHES" if dtype == BF16 else "LAUNCHES"
     for k, h, w, c, heads, d in _stage_cases(hw):
+        if k not in stages:
+            continue
         for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
             x, *weights = _block_case(k, h, w, c, heads, d, hidden, dtype, batch)
             for shift in (False, True):
                 for cross in (False, True):
+                    xl = twp.pack_windows(x, (7, 7), shift).contiguous() if layout == "windows" else x
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift,
-                              cross=cross, layout="image", hw=None)
+                              cross=cross, layout=layout, hw=(h, w))
                     before = getattr(tfb, counter)
-                    out = tfb.fused_block(x, *weights, **kw)
-                    again = tfb.fused_block(x, *weights, **kw)
+                    out = tfb.fused_block(xl, *weights, **kw)
+                    again = tfb.fused_block(xl, *weights, **kw)
                     torch.cuda.synchronize()
                     assert getattr(tfb, counter) == before + 2
-                    what = f"stage {k} {h}x{w}x{batch} C={c} hidden={hidden} shift={shift} cross={cross}"
+                    what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} hidden={hidden} shift={shift} "
+                            f"cross={cross}")
                     assert torch.equal(out, again), f"{what}: a repeat gave other bits"
-                    five = tfb._launch_five(x, weights, dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None))
-                    ref = tfb.fused_block_plain(x, *weights, **kw)
+                    five = tfb._launch_five(xl, weights, dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None))
+                    ref = tfb.fused_block_plain(xl, *weights, **kw)
                     for other, name in ((ref, "plain"), (five, "five launches")):
                         if dtype == BF16:
                             _assert_bf16_close(out, other, f"{what} vs {name}")
@@ -791,20 +790,52 @@ def test_k4_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, b
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch", [((512, 512), 1), ((100, 90), 1), ((224, 224), 20)],
+                         ids=["512", "100x90", "224x20"])
+def test_k4_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, batch, dtype):
+    """K4's forward without dropout (``csrc/fused_block_fwd.cu``: one launch at stages 0-1,
+    six at 2-4) against its plain version and against the five launches of
+    ``csrc/fused_block.cu`` in every stage x MLP width (encoder, decoder) x shift x cross
+    case at ``hw`` and ``batch``: fp32 within atol/rtol 1e-4, bf16 by the share bound of the
+    bf16 kernels; every call counted once in its dtype's counter and repeated bit for bit."""
+    _need_card()
+    _check_block_forward("image", hw, batch, dtype, range(5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch", [((512, 512), 1), ((100, 90), 1), ((224, 224), 20)],
+                         ids=["512", "100x90", "224x20"])
+def test_k1_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, batch, dtype):
+    """K1's forward without dropout (``csrc/fused_block_fwd.cu`` on window-packed tokens, fp32
+    inside in both dtypes: one launch at stages 0-1, six at 2-3) against its plain version
+    and against the five launches of ``csrc/fused_block.cu`` at the stages ``cuda_pack``
+    packs (0-3) in every MLP width x shift x cross case at ``hw`` and ``batch``: fp32 within
+    atol/rtol 1e-4, bf16 by the share bound of the bf16 kernels; every call counted once in
+    its dtype's counter and repeated bit for bit."""
+    _need_card()
+    _check_block_forward("windows", hw, batch, dtype, range(4))
+
+
+@pytest.mark.gpu
 def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
     """The launch plan's shared-memory bytes (``ops/fused_block.py::block_smem``) are the
     ones the kernels' layouts give, for every launch at every stage and MLP width in both
-    dtypes and modes, and within what a block may use."""
+    dtypes, both layouts (K4's bf16 plan takes bf16 operands, K1's is the fp32 plan in both
+    dtypes) and both modes, and within what a block may use."""
     _need_card()
     cfg = ModelConfig()
     lib = tfb._fwd_library()
     for k, h, w, c, heads, d in _stage_cases((512, 512)):
         for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
-            for bf16 in (False, True):
-                for cross in (False, True):
-                    plan = tfb.block_fwd_plan(c, heads, d, hidden, (7, 7), cross, bf16)
-                    for kind, smem in plan.smem:
-                        got = lib.swin_k4_fwd_smem(tfb.KERNEL_KINDS.index(kind), int(bf16), int(cross), c,
-                                                   heads * d, heads, d, hidden, plan.heads_per_block,
-                                                   plan.hidden_chunk)
-                        assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, bf16, cross, kind)
+            for layout in ("image", "windows"):
+                for dtype in (torch.float32, BF16):
+                    ops = tfb.rounds_operands(dtype, layout)
+                    for cross in (False, True):
+                        plan = tfb.block_fwd_plan(c, heads, d, hidden, (7, 7), cross, ops)
+                        for kind, smem in plan.smem:
+                            got = lib.swin_k4_fwd_smem(tfb.KERNEL_KINDS.index(kind), int(ops), int(cross), c,
+                                                       heads * d, heads, d, hidden, plan.heads_per_block,
+                                                       plan.hidden_chunk)
+                            assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, layout, dtype, cross, kind)
