@@ -23,7 +23,11 @@ the three launches of ``csrc/window_attention.cu`` that it replaced there (the d
 and the backward's recompute still run them), and both are broken down by stage and kernel
 from the profiler's device times (``[split]``). Then the training path: each backward
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
-224x224 batch-20 train step, and the first train step of the full model under each
+224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward
+without dropout is ``csrc/fused_block_bwd.cu`` where ``block_bwd_plan`` routes "fused"
+(stages 0-1) and the five-launch backward of ``csrc/fused_block.cu`` elsewhere, both broken
+down by stage and kernel in turns (``[split] K1 bwd``, ``[split] K4 bwd``); the first train
+step of the full model under each
 configuration against the torch composition on the card (loss terms, every parameter's
 gradient, the exact forward and backward launches), then timed steps in turns and one
 profiled step per configuration. The bf16 serving path (``compute_dtype="bfloat16"``) takes the same
@@ -749,6 +753,80 @@ def block_split(cfg, device, card, dtype=torch.float32, runs=5):
               f"{totals['five launches']:.4f} ms | {card}", flush=True)
 
 
+def _profile_kernels(call, runs):
+    """{kernel function name: mean device ms per call} of ``runs`` calls of ``call`` under
+    torch.profiler, summed by name over the session's kernels (``key_averages``: a kernel's
+    records are not ordered within a call), or None where the profiler recorded no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a session now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                call()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total and "mem" not in e.key.lower():
+                name = _kernel_name(e.key)
+                parts[name] = parts.get(name, 0.0) + e.self_device_time_total / 1e3 / runs
+        if parts:
+            return parts
+    return None
+
+
+def block_bwd_split(cfg, device, card, runs=2):
+    """K1 bwd's and K4 bwd's device time per 224² batch-20 step by stage and by kernel, from
+    torch.profiler (:func:`_profile_kernels`): at each of the step's 32 blocks (stage 0-3 x
+    role x shift x cross) the redesigned backward (``_launch_bwd``:
+    ``csrc/fused_block_bwd.cu`` where ``block_bwd_plan`` routes "fused") and the five-launch
+    backward of ``csrc/fused_block.cu`` (``_launch_bwd_five``), in turns (the redesigned one
+    first at every other block)."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    for name, layout in (("K1 bwd", "windows"), ("K4 bwd", "image")):
+        split = {"redesigned": {}, "five-launch": {}}
+        events = {"redesigned": {}, "five-launch": {}}  # ms per stage by CUDA events
+        for i, (case, x, weights) in enumerate(block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH)):
+            xl, kw = fused_args(case, x, layout)
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(case[0])).to(device)
+            forms = {"redesigned": lambda: tfb._launch_bwd(g, xl, weights, kw),
+                     "five-launch": lambda: tfb._launch_bwd_five(g, xl, weights, kw)}
+            for form in (forms if i % 2 == 0 else reversed(forms)):
+                ms = time_ms(forms[form], iters=runs, warmup=1)
+                events[form][case[0]] = events[form].get(case[0], 0.0) + ms
+                got = _profile_kernels(forms[form], runs)
+                if got is None:
+                    print(f"[split] {name} {form}: the profiler recorded no whole calls: not measured | {card}")
+                    split = None
+                    break
+                _add_parts(split[form].setdefault(case[0], {}), got)
+            if split is None:
+                break
+            del g
+        if split is None:
+            continue
+        for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW):
+            for form, stages in split.items():
+                if k not in stages:
+                    continue
+                parts = stages[k]
+                print(f"[split] {name} {form} stage {k} {h}x{w}x{TRAIN_BATCH} C={c}, per step (8 calls): "
+                      + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                      + f", total {sum(parts.values()):.4f} ms of device time, {events[form][k]:.4f} ms "
+                      f"by events | {card}", flush=True)
+        totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
+        by_events = {form: sum(per.values()) for form, per in events.items()}
+        print(f"[split] {name} per {TRAIN_HW[0]}x{TRAIN_HW[1]} batch-{TRAIN_BATCH} step ({i + 1} calls): "
+              f"redesigned {totals['redesigned']:.4f} ms of device time ({by_events['redesigned']:.4f} by "
+              f"events), five-launch {totals['five-launch']:.4f} ms ({by_events['five-launch']:.4f}) | {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+
+
 def _repartition_device_ms(calls):
     """The device time of one request's or step's re-partitions by torch.profiler, the
     kernel's and the library call's (index_select), each "not measured" where the profiler
@@ -869,6 +947,9 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
      ("k3_attention_kernel", "k3_proj_kernel")),
     ("csrc K1/K4 forward (block, LN1/LN2, proj/fc2, fc1)",
      ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1")),
+    ("csrc K1/K4 backward (recompute, MLP, attention, LN1, weights; fused_block_bwd.cu)",
+     ("block_fwd_kernel", "block_mlp_bwd_kernel", "block_bwd_attn_kernel", "ln1_bwd_kernel",
+      "wgrad_rows_kernel", "::transposes)")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
@@ -951,7 +1032,11 @@ def train_block_backward(cfg, device, card):
             k, h, w, c, heads, d, role, hidden, shift, cross = case
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k)).to(device)
             got = tfb._launch_bwd(g, xl, weights, kw)
+            again = tfb._launch_bwd(g, xl, weights, kw)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} bwd stage {k} {role}: a repeat gave other bits")
+            del again
             ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
             check = assert_grads_close(got, ref, ("x", *tfb.WEIGHT_NAMES), f"{name} bwd stage {k} {role}")
             err, smallest = check.worst, min(smallest, check.smallest)
@@ -968,8 +1053,8 @@ def train_block_backward(cfg, device, card):
             by[bound_by] = by.get(bound_by, 0.0) + bound
         print(f"[check] {name} bwd: worst max_abs_err {worst:.3e} over 32 cases, "
               f"{worst_own:.3e} of a gradient's own largest; every gradient but bk's (exactly "
-              f"0) held to its own scale, the smallest {smallest:.3e} of its call's largest",
-              flush=True)
+              f"0) held to its own scale, the smallest {smallest:.3e} of its call's largest; "
+              f"every case repeated bit for bit", flush=True)
         print(f"[time] {name} bwd per 224x224 batch-20 step (32 launches): {totals['ms']:.3f} ms, "
               f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
         results[f"{name} bwd"] = dict(totals, bound_by=max(by, key=by.get), library_ms=None, worst=worst)
@@ -1737,6 +1822,12 @@ def check_bf16_blocks(cfg, device, card):
                     errs[" drop bf16"] = max(errs[" drop bf16"], err)
                     del out
                 got = tfb._launch_bwd(g, xl, weights, dkw)
+                if not rate:  # the redesigned backward (csrc/fused_block_bwd.cu at stages 0-1)
+                    again = tfb._launch_bwd(g, xl, weights, dkw)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{what} bwd: a repeat gave other bits")
+                    del again
                 torch.cuda.synchronize()
                 err = _check_bf16_grads(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), names,
                                         what + " bwd")
@@ -1773,7 +1864,8 @@ def check_bf16_blocks(cfg, device, card):
             torch.cuda.empty_cache()
         for form in forms:
             print(f"[check] {name}{form}: worst max_abs_err {errs[form]:.3e} over {cases} blocks"
-                  + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else ""), flush=True)
+                  + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else "")
+                  + ("; every case repeated bit for bit" if form == " bwd bf16" else ""), flush=True)
             _summary(f"{name}{form}", totals[form], by[form], cases, card, results)
             worst[f"{name}{form}"] = errs[form]
         print(f"[check] {name} drop bf16: the keep masks are the fp32 form's: at rate "
@@ -2203,7 +2295,8 @@ def main() -> int:
     bwd = {**train_block_backward(cfg, device, card), "K3 bwd": train_attention_backward(cfg, device, card),
            "K2 bwd": train_repartition_backward(cfg, device, card)}
     torch.cuda.empty_cache()
-    phase("[check] and [time] of the backward kernels")
+    block_bwd_split(cfg, device, card)
+    phase("[check] and [time] of the backward kernels, [split] K1 bwd and K4 bwd")
     drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
     torch.cuda.empty_cache()
     mask_worst, mask_times = check_mask_kernels(cfg, device, card)
@@ -2248,11 +2341,13 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
         ("K3 bwd", "window_attention_bwd (K3 bwd)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
-        ("K1 bwd", "fused_block_bwd, windows layout (K1 bwd)", f"{csrc}/fused_block.cu",
+        ("K1 bwd", "block_bwd, windows layout (K1 bwd; the five-launch backward of fused_block.cu "
+         "at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd", "repartition_bwd (K2 bwd, the inverse permutation)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
-        ("K4 bwd", "fused_block_bwd, image layout (K4 bwd)", f"{csrc}/fused_block.cu",
+        ("K4 bwd", "block_bwd, image layout (K4 bwd; the five-launch backward of fused_block.cu "
+         "at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop", "window_attention_fwd with hash dropout (K3 drop)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
@@ -2276,11 +2371,13 @@ def main() -> int:
         # the bf16 dropout forms, forward and backward
         ("K3 bwd bf16", "window_attention_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
-        ("K1 bwd bf16", "fused_block_bwd bf16, windows layout (K1 bwd bf16)", f"{csrc}/fused_block.cu",
+        ("K1 bwd bf16", "block_bwd bf16, windows layout (K1 bwd bf16; the five-launch backward of "
+         "fused_block.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd bf16", "repartition_bwd bf16 (K2 bwd bf16)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
-        ("K4 bwd bf16", "fused_block_bwd bf16, image layout (K4 bwd bf16)", f"{csrc}/fused_block.cu",
+        ("K4 bwd bf16", "block_bwd bf16, image layout (K4 bwd bf16; the five-launch backward of "
+         "fused_block.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop bf16", "window_attention_fwd bf16 with hash dropout (K3 drop bf16)",
          f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),

@@ -5,7 +5,9 @@
 //   K1  swin_unet_image_fusion_tpu/ops/pallas_pack.py::_packed_block_fwd_body (l.525-688,
 //       through _packed_fwd_kernel / _packed_fwd_kernel_self from
 //       pallas_packed_block_strips), on window-packed tokens.
-// The dropout forms and the backward's recompute keep the five launches of fused_block.cu.
+// The dropout forms keep the five launches of fused_block.cu, and so does the backward's
+// recompute where ops/fused_block.py::block_bwd_plan routes it to fused_block.cu's backward;
+// fused_block_bwd.cu recomputes on this file's design (window_fwd.cuh).
 // The function is the one fused_block.cu computes:
 //   y   = x + proj(attention(LN1(x), LN1(kv))) + bp
 //   out = y + fc2(ELU(fc1(LN2(y)) + b1)) + b2
@@ -67,7 +69,6 @@ namespace {
 
 using namespace wfwd;
 
-constexpr float kLnEps = 1e-5f;
 constexpr int kFusedPitchMax = 16;  // the one-launch route's q/k row pitches: 4 to 16
 constexpr int kMaxC = 384;          // channels of the split route, the backward's LayerNorm limit
 // Shared memory a block of the one-launch route may take for three to share an SM (228 KB an
@@ -80,13 +81,6 @@ constexpr int kSmem3 = 233472 / 3 - 1024;
 __host__ __device__ constexpr int max_cols(bool bf16) { return bf16 ? kMaxNTilesB * kWarps * 8 : 36 * kTileN; }
 // A GEMM's column count padded to its tiles.
 __host__ __device__ constexpr int pad_cols(bool bf16, int n) { return round_up(n, bf16 ? 8 : kTileN); }
-
-// A resident GEMM operand of K channels (zero up to K rounded to 16): fp32 channel-major
-// [k][kPitchF] (a_col row groups), bf16 [64 rows][a_lda(K)] halves.
-__host__ __device__ constexpr int a_lda(int K) { return round_up(K, kKc) + 8; }
-__host__ __device__ inline int a_bytes(bool bf16, int K) {
-  return bf16 ? kRowsB * a_lda(K) * 2 : round_up(K, kKc) * kPitchF * 4;
-}
 
 enum Kind { kFused = 0, kAttn = 1, kRows = 2, kFc1 = 3, kLn = 4 };  // kLn: no dynamic shared memory
 
@@ -150,82 +144,6 @@ struct K4Args {
   float scale;
   int windows;  // the token layout: 0 image (K4), 1 windows (K1)
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float elu(float v) { return v > 0.0f ? v : expm1f(v); }
-
-// For i in [0, n) over the block's threads, four at a time: every read of load(i) before any
-// store(i, v). An element's store could alias the next one's loads, so one at a time each
-// load would wait for the store before it.
-template <typename Load, typename Store>
-__device__ __forceinline__ void batched(int n, Load load, Store store) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * kThreads) {
-    float v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = i0 + u * kThreads < n ? load(i0 + u * kThreads) : 0.0f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (i0 + u * kThreads < n) store(i0 + u * kThreads, v[u]);
-  }
-}
-
-// An operand's element (t, col) of a resident A of K channels.
-template <bool kBf16>
-__device__ __forceinline__ void a_put(void* a, int K, int t, int col, float v) {
-  if constexpr (kBf16) reinterpret_cast<bf16*>(a)[t * a_lda(K) + col] = __float2bfloat16_rn(v);
-  else reinterpret_cast<float*>(a)[col * kPitchF + a_col(t >> 3) + (t & 7)] = v;
-}
-
-// Mean and 1/sqrt(biased variance + eps) of n rows of C values (row r at row(r)) into
-// st[r], as the reference computes them: the mean, then the mean square about it, in fp32.
-// Eight lanes a row, the loads of a row in flight together.
-template <typename RowOf>
-__device__ void row_stats(int n, int C, RowOf row_of, float2* st) {
-  const int lane8 = threadIdx.x & 7;
-  const unsigned mask = 0xffu << (threadIdx.x & 24);  // the eight lanes of this row
-  auto sum8 = [&](float v) {
-    for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
-    return v;
-  };
-  for (int r = threadIdx.x / 8; r < n; r += kThreads / 8) {
-    const auto* row = row_of(r);
-    float s1 = 0.0f;
-#pragma unroll 4
-    for (int k = lane8; k < C; k += 8) s1 += to_f(row[k]);
-    const float mean = sum8(s1) / C;
-    float s2 = 0.0f;
-#pragma unroll 4
-    for (int k = lane8; k < C; k += 8) {
-      const float dev = to_f(row[k]) - mean;
-      s2 = fmaf(dev, dev, s2);
-    }
-    const float rstd = 1.0f / sqrtf(sum8(s2) / C + kLnEps);
-    if (lane8 == 0) st[r] = make_float2(mean, rstd);
-  }
-}
-
-__device__ __forceinline__ float layer_norm(float v, float2 st, float g, float b) {
-  return (v - st.x) * st.y * g + b;
-}
-
-// LN of 49 fp32 rows (row t at src + t * ld) into a resident operand, channels from C to C
-// rounded to 16 zero (rounded to bf16 in the bf16 form, as the TPU body casts LN1(x) and
-// LN2(y)); st: 49 float2 of shared memory. Ends with a barrier.
-template <bool kBf16>
-__device__ void ln_to_a(const float* src, int ld, int C, const float* g, const float* b, void* a, float2* st) {
-  row_stats(kT, C, [&](int t) { return src + static_cast<size_t>(t) * ld; }, st);
-  __syncthreads();
-  const int kp = round_up(C, kKc);
-  batched(
-      kT * kp,
-      [&](int i) {
-        const int t = i / kp, k = i - t * kp;
-        return k < C ? layer_norm(src[static_cast<size_t>(t) * ld + k], st[t], g[k], b[k]) : 0.0f;
-      },
-      [&](int i, float v) { a_put<kBf16>(a, C, i / kp, i % kp, v); });
-  __syncthreads();
-}
 
 // One GEMM result's sums in registers, fp32 tiles or mma fragments.
 template <bool kBf16> struct Sums;
@@ -310,23 +228,6 @@ __device__ __forceinline__ void apply(Sums<true>& s, int ncols, F f) {
 
 template <bool kBf16>
 __device__ __forceinline__ void zero_sums(Sums<kBf16>& s) { zero_acc(s.v); }
-
-// q (scaled), k or v of token t, column col of the block's heads, into the core's layout
-// (window_fwd.cuh's store_qkv without the bias, which apply() added).
-template <int DP, bool kBf16>
-__device__ __forceinline__ void put_qkv(int t, int col, float v, int n, const int* col_ofs, float* q_s,
-                                        float* k_s, unsigned char* v_s) {
-  const int part = (col >= n) + (col >= 2 * n), at = col_ofs[col];
-  if (part == 0) q_s[at + t * DP] = v;
-  else if (part == 1) k_s[at + t * DP] = v;
-  else if (kBf16) reinterpret_cast<bf16*>(v_s)[at + t] = __float2bfloat16_rn(v);
-  else reinterpret_cast<float*>(v_s)[at + t * DP] = v;
-}
-
-__device__ void zero_smem(unsigned char* smem, int from, int to) {
-  for (int i = from / 16 + threadIdx.x; i < to / 16; i += kThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
 
 // The relative-position bias and the q/k/v biases of columns c0.. (n per part) into shared
 // memory: one cp.async group that the q/k/v GEMM waits for with its own.

@@ -1,0 +1,394 @@
+// Device code of the window-attention backward, redesigned for Hopper (sm_90a): what the
+// fused block's backward (fused_block_bwd.cu, K1 bwd and K4 bwd) runs in its blocks of one
+// window, written so that a later K3 bwd on the same block geometry can reuse it. Built on
+// window_fwd.cuh: one 7x7 window of T = 49 tokens per block, 256 threads, GEMM operands
+// resident in shared memory channel-major ([k][kPitchF], row groups at a_col) with the
+// weights streamed through a cp.async ring.
+//
+//   gemm_tile    Y[49, nb] += A[49, K] @ B[K, nb] with fp32 FMA, each thread holding an 8 x
+//                TN register tile (TN = 1, 2 or 4, chosen by with_tn from nb so that the
+//                narrow products of the backward (nb = C = 24 or 48) keep 168-252 threads
+//                busy where window_fwd.cuh's fixed 8 x 4 tile keeps 42-84);
+//   core_bwd_rows / core_bwd_cols
+//                the attention core's backward for every head of one window, from q
+//                (scaled), k, v and g_o in the core layout [head][49][DP]: the rows pass
+//                (four lanes a query row, the heads in turn) recomputes the scores and P,
+//                forms g_P = g_o v^T, dot = rowsum(g_P P) and g_S = P (g_P - dot), adds
+//                g_S to a register accumulator of the relative-position bias gradient that
+//                the lane owns across heads and windows (so the sum has one fixed order and
+//                needs no atomics), and writes g_q = scale g_S k; the columns pass (a lane
+//                per key of a head) recomputes P and g_S from the rows pass's 1/sum and dot
+//                and writes g_k = g_S^T q and g_v = P^T g_o. The softmax clamp at 80 is not
+//                differentiated and a masked score (-inf in the bias) gives P = g_S = 0,
+//                as in window_core_bwd.cuh and the JAX bodies;
+//   wgrad_rows_kernel
+//                weight gradients [A | 1]^T B over token rows, every weight of a call in one
+//                launch: a block per (chunk of rows, weight, group of output tiles), 4 x 4
+//                register tiles, rows in slabs through shared memory in 16-byte loads; where
+//                a weight has fewer tiles than threads the rows are split among thread
+//                groups summed in a fixed order (window_core_bwd.cuh's wgrad_kernel gives
+//                each output tile a 32- or 64-wide block, mostly zeros at C = 24).
+// Every sum runs in a fixed order in one thread or one set of shuffles: a repeat gives the
+// same bits.
+
+#pragma once
+
+#include "window_fwd.cuh"
+
+namespace wbwd {
+
+using namespace wfwd;
+
+template <int N> struct TnTag { static constexpr int value = N; };
+
+// The register tile width for a GEMM of nb columns: the widest whose 7 x nb / TN tiles fit
+// the 256 threads.
+__host__ __device__ constexpr int tn_for(int nb) { return nb <= 36 ? 1 : nb <= 72 ? 2 : 4; }
+
+// f(TnTag<TN>{}) with TN = tn_for(nb): one instantiation of the GEMM per tile width.
+template <typename F>
+__device__ __forceinline__ void with_tn(int nb, F f) {
+  const int tn = tn_for(nb);
+  if (tn == 1) f(TnTag<1>{});
+  else if (tn == 2) f(TnTag<2>{});
+  else f(TnTag<4>{});
+}
+
+template <int TN> struct Tile {
+  float v[8][TN];
+  int tile;  // rg + 7 cg of the thread's tile, -1 for none
+};
+
+template <int TN>
+__device__ __forceinline__ void zero_tile(Tile<TN>& s) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s.v[i][j] = 0.0f;
+}
+
+// acc += 16 channels of A (channel-major, at the tile's row group) times the same channels of
+// B ([k][ldb], at the tile's columns).
+template <int TN>
+__device__ __forceinline__ void chunk_tn(float (&acc)[8][TN], const float* a, const float* b, int ldb) {
+#pragma unroll
+  for (int kk = 0; kk < kKc; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + kk * kPitchF);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + kk * kPitchF + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float bv[TN];
+    if constexpr (TN == 4) {
+      const float4 b4 = *reinterpret_cast<const float4*>(b + kk * ldb);
+      bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
+    } else if constexpr (TN == 2) {
+      const float2 b2 = *reinterpret_cast<const float2*>(b + kk * ldb);
+      bv[0] = b2.x, bv[1] = b2.y;
+    } else {
+      bv[0] = b[kk * ldb];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc += A @ B over g.K channels with A resident (a0; a1 for the k/v parts under cross,
+// window_fwd.cuh's a_part) and the weights streamed through a kDepth-deep ring of 16
+// channels. g.nb must be a multiple of 4 (the ring's 16-byte copies) and of TN; A's channels
+// from K to K rounded to 16 must be finite (they meet the ring's zero rows). Ends with a
+// barrier.
+template <int TN, int kDepth = kStages>
+__device__ __forceinline__ void gemm_tile(Tile<TN>& acc, const Gemm& g, const float* a0, const float* a1,
+                                          float* bbuf) {
+  const int tid = threadIdx.x;
+  const bool active = tid < kRowGroups * (g.nb / TN);
+  const int rg = tid % kRowGroups, cg = tid / kRowGroups;
+  const float* a = (a_part(g, cg * TN >= g.n) ? a1 : a0) + a_col(rg);
+  const int chunks = (g.K + kKc - 1) / kKc;
+  auto issue = [&](int c) {
+    if (c < chunks) issue_b(g, bbuf + (c % kDepth) * kKc * g.nb, c * kKc, g.nb);
+    cp_async_commit();
+  };
+  for (int c = 0; c < kDepth - 1; ++c) issue(c);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kDepth - 2>();
+    __syncthreads();
+    issue(c + kDepth - 1);
+    if (active) chunk_tn<TN>(acc.v, a + c * kKc * kPitchF, bbuf + (c % kDepth) * kKc * g.nb + cg * TN, g.nb);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  acc.tile = active ? tid : -1;
+}
+
+// f(t, col, sum) for every row t < 49 and column col < ncols of the thread's tile.
+template <int TN, typename F>
+__device__ __forceinline__ void each(const Tile<TN>& s, int ncols, F f) {
+  if (s.tile < 0) return;
+  const int rg = s.tile % kRowGroups, c0 = s.tile / kRowGroups * TN;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (rg * 8 + i < kT && c0 + j < ncols) f(rg * 8 + i, c0 + j, s.v[i][j]);
+}
+
+// A resident operand's element (t, k), fp32 channel-major.
+__device__ __forceinline__ float& a_at(float* a, int t, int k) { return a[k * kPitchF + a_col(t >> 3) + (t & 7)]; }
+
+// K channels of a resident operand to token rows of device memory: row t to
+// dst[tok[t] * width + k], consecutive threads along k.
+__device__ __forceinline__ void store_a(float* a, int K, float* dst, int width, const int* tok) {
+  each_row_col(kT, K, [&](int t, int k) { dst[static_cast<size_t>(tok[t]) * width + k] = a_at(a, t, k); });
+}
+
+template <int DP>
+__device__ __forceinline__ void load_row(const float* p, float (&r)[DP]) {
+#pragma unroll
+  for (int j = 0; j < DP; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + j);
+    r[j] = v.x, r[j + 1] = v.y, r[j + 2] = v.z, r[j + 3] = v.w;
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ float dot_row(const float (&a)[DP], const float* b) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < DP; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(b + j);
+    s0 = fmaf(a[j], v.x, s0);
+    s1 = fmaf(a[j + 1], v.y, s1);
+    s2 = fmaf(a[j + 2], v.z, s2);
+    s3 = fmaf(a[j + 3], v.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+constexpr int kQuarter = 13;  // keys per lane of a query row in the rows pass (4 x 13 >= 49)
+
+// The rows pass. Thread (t, qd) = (tid / 4, tid % 4) holds keys 13 qd.. of query row t for
+// every head in turn. q/k/v/g_o: [heads][49][DP] fp32 (q scaled, pads 0); bias: the
+// relative-position bias of the window, -inf between wrap regions. Writes scale * g_S k for
+// (t, head h, dim j) through gq(t, h * d + j, value), and (1 / sum, dot) of every (h, t) to
+// rd; adds g_S to tab, the lane's bias-gradient sums of entries (t, 13 qd + uu).
+template <int DP, typename GqOut>
+__device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
+                              const float* bias_s, int heads, int d, float scale, float2* rd,
+                              float (&tab)[kQuarter], GqOut gq_out) {
+  const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
+  const bool act = t < kT;
+  const int tq = act ? t : kT - 1;
+  const int u0 = qd * kQuarter;
+  const unsigned mask = 0xfu << (threadIdx.x & 28);  // the four lanes of this row
+  auto sum4 = [&](float v) {
+    v += __shfl_xor_sync(mask, v, 1);
+    return v + __shfl_xor_sync(mask, v, 2);
+  };
+  for (int h = 0; h < heads; ++h) {
+    float qr[DP], gor[DP];
+    load_row<DP>(q_s + (h * kT + tq) * DP, qr);
+    load_row<DP>(go_s + (h * kT + tq) * DP, gor);
+    const float* kh = k_s + h * kT * DP;
+    const float* vh = v_s + h * kT * DP;
+    float e[kQuarter], gp[kQuarter];
+    float se = 0.0f, sg = 0.0f;
+#pragma unroll
+    for (int uu = 0; uu < kQuarter; ++uu) {
+      const int u = u0 + uu;
+      e[uu] = gp[uu] = 0.0f;
+      if (u < kT) {
+        e[uu] = expf(fminf(dot_row<DP>(qr, kh + u * DP) + bias_s[tq * kT + u], kSoftmaxClamp));
+        gp[uu] = dot_row<DP>(gor, vh + u * DP);
+        se += e[uu];
+        sg = fmaf(e[uu], gp[uu], sg);
+      }
+    }
+    const float r = 1.0f / (sum4(se) + 1e-30f);
+    const float dot = sum4(sg) * r;
+    float gq[DP];
+#pragma unroll
+    for (int j = 0; j < DP; ++j) gq[j] = 0.0f;
+#pragma unroll
+    for (int uu = 0; uu < kQuarter; ++uu) {
+      const int u = u0 + uu;
+      if (u < kT) {
+        const float gs = e[uu] * r * (gp[uu] - dot);
+        tab[uu] += gs;
+#pragma unroll
+        for (int j = 0; j < DP; j += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kh + u * DP + j);
+          gq[j] = fmaf(gs, kv.x, gq[j]);
+          gq[j + 1] = fmaf(gs, kv.y, gq[j + 1]);
+          gq[j + 2] = fmaf(gs, kv.z, gq[j + 2]);
+          gq[j + 3] = fmaf(gs, kv.w, gq[j + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DP; ++j) gq[j] = sum4(gq[j]);
+    if (act && qd == 0) {
+#pragma unroll
+      for (int j = 0; j < DP; ++j)
+        if (j < d) gq_out(t, h * d + j, gq[j] * scale);
+      rd[h * kT + t] = make_float2(r, dot);
+    }
+  }
+}
+
+// The columns pass: a lane per (head, key u), the 49 query rows in order. Writes g_k and
+// g_v of (u, head h, dim j) through gkv(u, h * d + j, g_k, g_v).
+template <int DP, typename GkvOut>
+__device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
+                              const float* bias_s, int heads, int d, const float2* rd, GkvOut gkv_out) {
+  for (int item = threadIdx.x; item < heads * kT; item += kThreads) {
+    const int h = item / kT, u = item - h * kT;
+    float kr[DP], vr[DP], gk[DP], gv[DP];
+    load_row<DP>(k_s + (h * kT + u) * DP, kr);
+    load_row<DP>(v_s + (h * kT + u) * DP, vr);
+#pragma unroll
+    for (int j = 0; j < DP; ++j) gk[j] = gv[j] = 0.0f;
+    const float* qh = q_s + h * kT * DP;
+    const float* goh = go_s + h * kT * DP;
+#pragma unroll 7
+    for (int t = 0; t < kT; ++t) {
+      const float e = expf(fminf(dot_row<DP>(kr, qh + t * DP) + bias_s[t * kT + u], kSoftmaxClamp));
+      const float2 rdt = rd[h * kT + t];
+      const float p = e * rdt.x;
+      const float gs = p * (dot_row<DP>(vr, goh + t * DP) - rdt.y);
+#pragma unroll
+      for (int j = 0; j < DP; j += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qh + t * DP + j);
+        const float4 gv4 = *reinterpret_cast<const float4*>(goh + t * DP + j);
+        gk[j] = fmaf(gs, qv.x, gk[j]);
+        gk[j + 1] = fmaf(gs, qv.y, gk[j + 1]);
+        gk[j + 2] = fmaf(gs, qv.z, gk[j + 2]);
+        gk[j + 3] = fmaf(gs, qv.w, gk[j + 3]);
+        gv[j] = fmaf(p, gv4.x, gv[j]);
+        gv[j + 1] = fmaf(p, gv4.y, gv[j + 1]);
+        gv[j + 2] = fmaf(p, gv4.z, gv[j + 2]);
+        gv[j + 3] = fmaf(p, gv4.w, gv[j + 3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DP; ++j)
+      if (j < d) gkv_out(u, h * d + j, gk[j], gv[j]);
+  }
+}
+
+// ---- weight gradients: partial[chunk] (Ka + 1, Nb) = [A | 1]^T B over a chunk of rows -----
+// One launch for every weight of a call (up to kMaxWgJobs jobs of their own shapes), a block
+// per (chunk of rows, job, group of output tiles). A thread holds a 4 x 4 output tile in
+// registers; where a job has fewer tiles than threads (C = 24: 7 x 6 tiles), the block's
+// threads split each slab's rows into groups that a fixed-order pass sums at the end. Rows
+// arrive in slabs of kWgSlab through shared memory in 16-byte loads; the ones column of A (the
+// bias gradient) is appended there.
+constexpr int kWgSlab = 64;
+constexpr int kMaxWgJobs = 12;
+
+struct WgJob {
+  const float* a;  // (M, ka) fp32 token rows
+  const void* b;   // (M, nb) token rows, fp32 or (b_bf16) bf16
+  float* part;     // (chunks, ka + 1, nb)
+  int ka, nb, b_bf16;
+};
+
+struct WgJobs {
+  WgJob job[kMaxWgJobs];
+  int count, rows, chunk_rows;
+};
+
+__host__ __device__ inline int wg_tiles(int ka, int nb) { return ((ka + 4) / 4) * ((nb + 3) / 4); }
+__host__ __device__ inline int wg_groups_of_tiles(int ka, int nb) { return (wg_tiles(ka, nb) + kThreads - 1) / kThreads; }
+// Shared memory of a job's block: the A slab (ka + 1 columns, pitched to 4) and the B slab,
+// or the row groups' 4 x 4 sums where they take more.
+__host__ __device__ inline int wg_smem(int ka, int nb) {
+  return max2(kWgSlab * (round_up(ka + 1, 4) + round_up(nb, 4)), kThreads * 16) * 4;
+}
+// Chunks of `rows` token rows that a launch of `jobs` jobs cuts (about eight blocks an SM of
+// a 132-SM card), and the rows of each.
+constexpr int kWgTargetBlocks = 132 * 8;
+__host__ __device__ inline int wg_chunk_rows(int rows, int jobs) {
+  const int slabs = (rows + kWgSlab - 1) / kWgSlab, want = kWgTargetBlocks / jobs;
+  const int chunks = max2(1, slabs < want ? slabs : want);
+  return round_up((rows + chunks - 1) / chunks, kWgSlab);
+}
+
+__global__ void __launch_bounds__(kThreads) wgrad_rows_kernel(const WgJobs p) {
+  extern __shared__ __align__(16) float wsm[];
+  const WgJob jb = p.job[blockIdx.y];
+  const int ka = jb.ka, nb = jb.nb, tid = threadIdx.x;
+  const int tiles_b = (nb + 3) / 4, tiles = wg_tiles(ka, nb);
+  const int first = blockIdx.z * kThreads;
+  if (first >= tiles) return;
+  const int mine = min(kThreads, tiles - first);  // output tiles of this block
+  const int groups = kThreads / mine;              // row groups (1 where the tiles fill the block)
+  const int group = tid / mine, tile = first + tid % mine;
+  const bool active = group < groups;
+  const int ta = tile / tiles_b, tb = tile - ta * tiles_b;
+  const int pa = round_up(ka + 1, 4), pb = round_up(nb, 4);
+  float* as = wsm;
+  float* bs = wsm + kWgSlab * pa;
+  const int r_begin = blockIdx.x * p.chunk_rows, r_end = min(p.rows, r_begin + p.chunk_rows);
+  float acc[4][4] = {};
+  for (int r0 = r_begin; r0 < r_end; r0 += kWgSlab) {
+    __syncthreads();
+    for (int e = tid; e < kWgSlab * (pa / 4); e += kThreads) {
+      const int r = e / (pa / 4), c = (e - r * (pa / 4)) * 4, row = r0 + r;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < r_end) {
+        if (c < ka) v = *reinterpret_cast<const float4*>(jb.a + static_cast<size_t>(row) * ka + c);
+        else if (c == ka) v.x = 1.0f;  // the ones column: the bias gradient
+      }
+      *reinterpret_cast<float4*>(as + r * pa + c) = v;
+    }
+    for (int e = tid; e < kWgSlab * (pb / 4); e += kThreads) {
+      const int r = e / (pb / 4), c = (e - r * (pb / 4)) * 4, row = r0 + r;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < r_end && c < nb) {
+        const size_t at = static_cast<size_t>(row) * nb + c;
+        if (jb.b_bf16) {
+          const bf16* b = static_cast<const bf16*>(jb.b) + at;
+          v = make_float4(__bfloat162float(b[0]), __bfloat162float(b[1]), __bfloat162float(b[2]),
+                          __bfloat162float(b[3]));
+        } else {
+          v = *reinterpret_cast<const float4*>(static_cast<const float*>(jb.b) + at);
+        }
+      }
+      *reinterpret_cast<float4*>(bs + r * pb + c) = v;
+    }
+    __syncthreads();
+    if (active)
+      for (int r = group; r < kWgSlab; r += groups) {
+        const float4 av = *reinterpret_cast<const float4*>(as + r * pa + 4 * ta);
+        const float4 bv = *reinterpret_cast<const float4*>(bs + r * pb + 4 * tb);
+        const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
+      }
+  }
+  // the groups' sums, in group order, by group 0
+  __syncthreads();
+  if (active && groups > 1)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) wsm[(group * mine + tid % mine) * 16 + e] = acc[e / 4][e % 4];
+  __syncthreads();
+  if (group != 0) return;
+  for (int g = 1; g < groups; ++g)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] += wsm[(g * mine + tid) * 16 + e];
+  float* part = jb.part + static_cast<size_t>(blockIdx.x) * (ka + 1) * nb;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = 4 * ta + i;
+    if (row > ka) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * tb + j < nb) part[static_cast<size_t>(row) * nb + 4 * tb + j] = acc[i][j];
+  }
+}
+
+}  // namespace wbwd

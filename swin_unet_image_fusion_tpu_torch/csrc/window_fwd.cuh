@@ -5,8 +5,9 @@
 // mma.sync helpers, the GEMMs of a window's rows (fp32 FMA with 8x4 register tiles, or bf16
 // operands on mma.sync.m16n8k16 with fp32 accumulators) with x and the weights streamed
 // through a cp.async ring or the A operand resident in shared memory, and the attention core
-// (one lane per query row). window_attention_fwd.cu's header says what bounds it and why
-// the design is so.
+// (one lane per query row); and the fused block's LayerNorm and operand helpers, which its
+// backward (fused_block_bwd.cu, window_bwd.cuh) shares. window_attention_fwd.cu's header
+// says what bounds it and why the design is so.
 
 #pragma once
 
@@ -623,6 +624,142 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
       }
     }
   }
+}
+
+// ---- helpers of the fused block's kernels (fused_block_fwd.cu, fused_block_bwd.cu) ------
+constexpr float kLnEps = 1e-5f;
+
+// A resident GEMM operand of K channels (zero up to K rounded to 16): fp32 channel-major
+// [k][kPitchF] (a_col row groups), bf16 [64 rows][a_lda(K)] halves.
+__host__ __device__ constexpr int a_lda(int K) { return round_up(K, kKc) + 8; }
+__host__ __device__ inline int a_bytes(bool bf16, int K) {
+  return bf16 ? kRowsB * a_lda(K) * 2 : round_up(K, kKc) * kPitchF * 4;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float elu(float v) { return v > 0.0f ? v : expm1f(v); }
+
+// For i in [0, n) over the block's threads, four at a time: every read of load(i) before any
+// store(i, v). An element's store could alias the next one's loads, so one at a time each
+// load would wait for the store before it.
+template <typename Load, typename Store>
+__device__ __forceinline__ void batched(int n, Load load, Store store) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * kThreads) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = i0 + u * kThreads < n ? load(i0 + u * kThreads) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * kThreads < n) store(i0 + u * kThreads, v[u]);
+  }
+}
+
+// f(t, k) for every row t < rows and column k < width over the block's threads, consecutive
+// threads along k; the indices advance by the block's stride, not by a division an element.
+template <typename F>
+__device__ __forceinline__ void each_row_col(int rows, int width, F f) {
+  const int dt = kThreads / width, dk = kThreads - dt * width;
+  int t = threadIdx.x / width, k = threadIdx.x - t * width;
+  while (t < rows) {
+    f(t, k);
+    t += dt;
+    k += dk;
+    if (k >= width) k -= width, ++t;
+  }
+}
+
+// store(t, k, load(t, k)) over the same (t, k), four elements a thread at a time: every load
+// of a step before any of its stores, so that the loads' latencies overlap.
+template <typename Load, typename Store>
+__device__ __forceinline__ void copy_row_col(int rows, int width, Load load, Store store) {
+  const int dt = kThreads / width, dk = kThreads - dt * width;
+  int t = threadIdx.x / width, k = threadIdx.x - t * width;
+  while (t < rows) {
+    int ts[4], ks[4];
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ts[u] = t, ks[u] = k;
+      v[u] = t < rows ? load(t, k) : 0.0f;
+      t += dt;
+      k += dk;
+      if (k >= width) k -= width, ++t;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (ts[u] < rows) store(ts[u], ks[u], v[u]);
+  }
+}
+
+// An operand's element (t, col) of a resident A of K channels.
+template <bool kBf16>
+__device__ __forceinline__ void a_put(void* a, int K, int t, int col, float v) {
+  if constexpr (kBf16) reinterpret_cast<bf16*>(a)[t * a_lda(K) + col] = __float2bfloat16_rn(v);
+  else reinterpret_cast<float*>(a)[col * kPitchF + a_col(t >> 3) + (t & 7)] = v;
+}
+
+// Mean and 1/sqrt(biased variance + eps) of n rows of C values (row r at row(r)) into
+// st[r], as the reference computes them: the mean, then the mean square about it, in fp32.
+// Eight lanes a row, the loads of a row in flight together.
+template <typename RowOf>
+__device__ void row_stats(int n, int C, RowOf row_of, float2* st) {
+  const int lane8 = threadIdx.x & 7;
+  const unsigned mask = 0xffu << (threadIdx.x & 24);  // the eight lanes of this row
+  auto sum8 = [&](float v) {
+    for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+    return v;
+  };
+  for (int r = threadIdx.x / 8; r < n; r += kThreads / 8) {
+    const auto* row = row_of(r);
+    float s1 = 0.0f;
+#pragma unroll 4
+    for (int k = lane8; k < C; k += 8) s1 += to_f(row[k]);
+    const float mean = sum8(s1) / C;
+    float s2 = 0.0f;
+#pragma unroll 4
+    for (int k = lane8; k < C; k += 8) {
+      const float dev = to_f(row[k]) - mean;
+      s2 = fmaf(dev, dev, s2);
+    }
+    const float rstd = 1.0f / sqrtf(sum8(s2) / C + kLnEps);
+    if (lane8 == 0) st[r] = make_float2(mean, rstd);
+  }
+}
+
+__device__ __forceinline__ float layer_norm(float v, float2 st, float g, float b) {
+  return (v - st.x) * st.y * g + b;
+}
+
+// LN of 49 fp32 rows (row t at src + t * ld) into a resident operand, channels from C to C
+// rounded to 16 zero (rounded to bf16 in the bf16 form, as the TPU body casts LN1(x) and
+// LN2(y)); st: 49 float2 of shared memory. Ends with a barrier.
+template <bool kBf16>
+__device__ void ln_to_a(const float* src, int ld, int C, const float* g, const float* b, void* a, float2* st) {
+  row_stats(kT, C, [&](int t) { return src + static_cast<size_t>(t) * ld; }, st);
+  __syncthreads();
+  copy_row_col(
+      kT, round_up(C, kKc),
+      [&](int t, int k) { return k < C ? layer_norm(src[static_cast<size_t>(t) * ld + k], st[t], g[k], b[k]) : 0.0f; },
+      [&](int t, int k, float v) { a_put<kBf16>(a, C, t, k, v); });
+  __syncthreads();
+}
+
+// q (scaled), k or v of token t, column col of the block's heads, into the core's layout
+// (window_fwd.cuh's store_qkv without the bias, which apply() added).
+template <int DP, bool kBf16>
+__device__ __forceinline__ void put_qkv(int t, int col, float v, int n, const int* col_ofs, float* q_s,
+                                        float* k_s, unsigned char* v_s) {
+  const int part = (col >= n) + (col >= 2 * n), at = col_ofs[col];
+  if (part == 0) q_s[at + t * DP] = v;
+  else if (part == 1) k_s[at + t * DP] = v;
+  else if (kBf16) reinterpret_cast<bf16*>(v_s)[at + t] = __float2bfloat16_rn(v);
+  else reinterpret_cast<float*>(v_s)[at + t * DP] = v;
+}
+
+__device__ void zero_smem(unsigned char* smem, int from, int to) {
+  for (int i = from / 16 + threadIdx.x; i < to / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // ---- K3's attention block (also the attention of K4's and K1's split route, on LN1(x)) ------

@@ -34,23 +34,29 @@ SM (C <= 48 in the default model) one launch, a block per window and stream comp
 whole block in shared memory with the MLP in steps of the hidden; elsewhere six launches
 (LN1, attention in head groups, projection + x, LN2, fc1, fc2 + y). K4's bf16 products
 run on the tensor cores (``mma.sync``), fp32 ones (K1 in both dtypes) on FMA; the layout
-changes only which rows a window's tokens are. The dropout forms and the backward's
-recompute run the five launches of ``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its
-prologue, the attention core, proj, fc1 with LN2 in its prologue, fc2); a shape that the
-new forward does not take raises before any launch.
+changes only which rows a window's tokens are. The dropout forms run the five launches of
+``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its prologue, the attention core, proj,
+fc1 with LN2 in its prologue, fc2); a shape that the new forward does not take raises
+before any launch.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
-goes through ``_FusedBlockFunction``: its backward launches ``swin_fused_block_bwd`` (K1
-bwd and K4 bwd), which recomputes the block from x and the weights, as the JAX custom
-VJPs do, and returns g_x and every weight's gradient. ``fused_block_bwd_plain`` is the
-plain backward (autograd of the plain version); it differs from the kernel only where a
-score exceeds the softmax clamp of 80, whose derivative the kernel, like the TPU's, does
-not take. For a bf16 x, K1 and K4 alike, both compute what the JAX backward bodies do
-(``pallas_block.py:278-293, 439-449``, ``pallas_pack.py:792-794``): the fp32 backward of
-the fp32 block at the upcast x and g (not autograd of K4's bf16 rounding points), the
-weight gradients fp32 and g_x in bf16, rounded once in self mode; under cross the residual
-and q side and the k/v side (JAX's gx and gkv outputs) are rounded apart and added in
-bf16.
+goes through ``_FusedBlockFunction``: its backward (K1 bwd and K4 bwd) recomputes the block
+from x and the weights, as the JAX custom VJPs do, and returns g_x and every weight's
+gradient. Without dropout :func:`block_bwd_plan` routes it: where a window's blocks fit in
+shared memory (C <= 48 in the default model) ``csrc/fused_block_bwd.cu`` (seven launches: the
+transposed weights, the recomputed forward a block per group of windows, the MLP's backward
+over 49-token tiles, the attention's backward over windows, the LN1 backward, the weight
+gradients, one reduction); elsewhere, and with dropout, ``swin_fused_block_bwd`` of
+``csrc/fused_block.cu`` (twenty launches, the forward recomputed with its five).
+``_launch_bwd_five`` keeps the latter callable without dropout, for timing in turns.
+``fused_block_bwd_plain`` is the plain backward (autograd of the plain version); it differs
+from the kernels only where a score exceeds the softmax clamp of 80, whose derivative the
+kernels, like the TPU's, do not take. For a bf16 x, K1 and K4 alike, both compute what the
+JAX backward bodies do (``pallas_block.py:278-293, 439-449``, ``pallas_pack.py:792-794``):
+the fp32 backward of the fp32 block at the upcast x and g (not autograd of K4's bf16
+rounding points), the weight gradients fp32 and g_x in bf16, rounded once in self mode;
+under cross the residual and q side and the k/v side (JAX's gx and gkv outputs) are rounded
+apart and added in bf16.
 
 Dropout (training): ``drop_rates`` = (attention, proj, MLP) with a ``drop_seed`` in
 [0, 2^24) applies the reference's four sites with the TPU kernels' hash masks
@@ -312,6 +318,18 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("fused_block_bwd")
+    lib.swin_block_bwd.argtypes = [_P] * 3 + [ctypes.c_size_t] + [_I] * 16 + [ctypes.c_float, _P]
+    lib.swin_block_bwd.restype = _I
+    lib.swin_block_bwd_workspace.argtypes = [_I] * 12
+    lib.swin_block_bwd_workspace.restype = ctypes.c_size_t
+    lib.swin_block_bwd_smem.argtypes = [_I] * 7
+    lib.swin_block_bwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
 # ---- the forward without dropout, K4 and K1 (csrc/fused_block_fwd.cu): its launch plan ----
 # Block geometry as csrc/window_fwd.cuh's (256 threads; fp32 GEMM rows padded to 56, A
 # operands channel-major with rows pitched 60 floats; bf16 rows to 64, operands [64][K + 8]
@@ -441,6 +459,134 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
     raise ValueError(f"the fused block's forward has no head grouping for {heads} heads of {d} dims")
 
 
+# ---- the backward without dropout, K1 and K4 (csrc/fused_block_bwd.cu): its launch plan ----
+BWD_KERNELS = ("forward", "mlp", "attention")  # the fused route's three block kernels
+BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
+SMEM_TWO_PER_SM = 233_472 // 2 - 1024  # where two blocks of a kernel share an SM
+DEFAULT_SMS = 132  # SMs of an H100 SXM: the plan's block count where no card is given
+_BWD_RING = 2  # weight-ring slots of the block kernels
+_LN1_ROWS = 128
+_WG_SLAB, _WG_TARGET_BLOCKS = 64, 132 * 8  # csrc/window_bwd.cuh's kWgSlab, kWgTargetBlocks
+
+
+def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, cross: bool) -> int:
+    """Shared-memory bytes of one block of a kernel of the fused route (``bwd_layout`` in the
+    source). forward: the weight ring (2 slots x 16 channels x the widest product's columns),
+    x/y and under cross the kv rows [49][C], LN1(x) (then LN2(y)) and AV resident [C][60],
+    q/k/v [heads][49][pitch] (before them LN1(kv) under cross, after them the MLP step's
+    hidden), the masked bias table, and the row, token, column and bias tables with the LN
+    statistics. mlp: the ring, y and a row buffer (g_lny, g_o) [49][C], g (then g_y) resident,
+    the MLP step's g_pre, the LN2 statistics and gradient sums. attention: the ring of the g_ln
+    products, q/k/v/g_o, g_q | g_k | g_v resident, the core's row sums, a row buffer, the bias
+    table and the row tables."""
+    qkv = _align16(heads * _T * pitch * 4)
+    rows_c = _align16(_T * c * 4)
+    bias = _align16(_T * _T * 4)
+    step = _align16(operand_bytes(False, _round_up(hc, 4)))
+    if kernel == "forward":
+        total = _align16(_b_bytes(False, max(3 * inner, c, _round_up(hc, 4)), _BWD_RING))
+        total += rows_c * (2 if cross else 1) + _align16(operand_bytes(False, c))
+        total += _align16(operand_bytes(False, inner))
+        total += max(3 * qkv, step, _align16(operand_bytes(False, c)) if cross else 0)
+        return total + bias + _align16((3 * 64 + 2 * _COL_TABLE) * 4 + 3 * 64 * 8)
+    if kernel == "mlp":
+        total = _align16(_b_bytes(False, max(inner, c, _round_up(hc, 4)), _BWD_RING)) + 2 * rows_c
+        return total + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+    if kernel == "attention":
+        return (_align16(_b_bytes(False, c, _BWD_RING)) + 4 * qkv + _align16(operand_bytes(False, 3 * inner))
+                + _align16(heads * _T * 8) + rows_c + bias + _align16(3 * 64 * 4))
+    raise ValueError(f"unknown kernel {kernel!r}; expected one of {BWD_KERNELS}")
+
+
+def _core_bwd_smem(d: int, window) -> int:
+    """Dynamic shared memory of ``csrc/window_core_bwd.cuh``'s core backward (the five
+    route's largest block) without dropout."""
+    t = window[0] * window[1]
+    return (4 * t * d + 3 * t * t) * 4 + 2 * t * 4
+
+
+@dataclass(frozen=True)
+class BlockBwdPlan:
+    """How the backward without dropout runs at one shape, in both dtypes (fp32 inside):
+    ``route`` "fused" (``csrc/fused_block_bwd.cu``, seven launches: the transposed weights;
+    the recomputed forward, the MLP's backward and the attention's backward, each a block per
+    group of windows (49-token tiles for the MLP) and stream with ``blocks_per_sm`` blocks an
+    SM, the MLP in steps of ``hidden_chunk`` columns; the LN1 backward; the weight gradients;
+    one reduction) or "five" (``csrc/fused_block.cu``'s backward, twenty launches); ``smem``:
+    (kernel, dynamic shared-memory bytes) of the route's block kernels (the five route's
+    largest)."""
+
+    route: str
+    launches: int
+    pitch: int
+    hidden_chunk: int
+    smem: Tuple[Tuple[str, int], ...]
+    blocks_per_sm: Tuple[int, ...] = ()
+
+    def blocks(self, s: int, b: int, h: int, w: int, sms: int = DEFAULT_SMS) -> Tuple[int, ...]:
+        """Blocks per stream of each block kernel of the fused route: one wave of the card, at
+        most one per window (per 49-token tile for the MLP's)."""
+        windows = b * (h // 7) * (w // 7)
+        return tuple(max(1, min(windows, sms * n // s)) for n in self.blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int],
+                   cross: bool) -> BlockBwdPlan:
+    """The launch plan of the backward without dropout (K1 and K4, either layout, fp32 and
+    bf16 alike), or ValueError where no backward takes the shape. The fused route where one
+    window's blocks fit a block's shared memory: 7x7 windows, d <= 8, C and heads*d
+    multiples of 8, 3 heads*d <= 144 and C <= 144 (one product's columns), the hidden a
+    multiple of 4, stepped through in chunks of at most 144 columns; else the five-launch
+    backward, which takes C <= 384 (its LayerNorm kernel)."""
+    inner = heads * d
+    pitch = next((p for p in FWD_PITCHES if d <= p), None)
+    cols = max_cols(False)
+    if (tuple(window) == FWD_WINDOW and pitch is not None and pitch <= BWD_PITCH_MAX and c % 8 == 0
+            and inner % 8 == 0 and hidden % 4 == 0 and 3 * inner <= cols and c <= cols):
+        hc = min(hidden, cols)
+        smem = tuple((kernel, bwd_smem(kernel, c, inner, heads, pitch, hc, cross)) for kernel in BWD_KERNELS)
+        if max(b for _, b in smem) <= SMEM_LIMIT_BYTES:
+            return BlockBwdPlan("fused", 7, pitch, hc, smem,
+                                tuple(2 if b <= SMEM_TWO_PER_SM else 1 for _, b in smem))
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the fused block's backward (its LayerNorm kernel) takes C <= "
+                         f"{MAX_CHANNELS}, got {c}")
+    smem = _core_bwd_smem(d, window)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"the fused block's backward at d={d} needs {smem} bytes of shared "
+                         f"memory, more than the {SMEM_LIMIT_BYTES} a block has")
+    return BlockBwdPlan("five", 20, 0, 0, (("core_bwd", smem),))
+
+
+def _wgrad_chunks(m: int, jobs: int) -> int:
+    """Chunks of the token rows of the weight-gradient launch (``wg_chunk_rows`` in
+    ``csrc/window_bwd.cuh``: about eight blocks an SM of a 132-SM card, whole slabs of 64
+    rows)."""
+    slabs = -(-m // _WG_SLAB)
+    chunks = max(1, min(slabs, _WG_TARGET_BLOCKS // jobs))
+    return -(-m // _round_up(-(-m // chunks), _WG_SLAB))
+
+
+def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
+                         blocks: Tuple[int, int, int], cross: bool) -> int:
+    """Floats of workspace of one fused-route call (``carve`` in the source, every piece
+    rounded up to 32 floats): the transposed weights; LN1(x) and its statistics, q, k, v,
+    AV, y, g_y, g_o, LN2(y), the hidden, g_pre, g_q, g_k, g_v and g_ln (two sides under
+    cross) of every token; the partial sums of the bias-table (per attention block), LN2 (per
+    MLP block) and LN1 gradients and of the weight-gradient launch's chunks."""
+    inner, m = heads * d, b * h * w
+    sm = s * m
+    _, mlp_blocks, attn_blocks = blocks
+    pieces = [s * 3 * inner * c, s * c * inner, s * hidden * c, s * c * hidden,
+              sm * c, sm * 2, sm * inner, sm * inner, sm * inner, sm * inner, sm * c, sm * c, sm * inner, sm * c,
+              sm * hidden, sm * hidden, sm * inner, sm * inner, sm * inner, sm * c] + ([sm * c] if cross else [])
+    pieces += [s * attn_blocks * _T * _T, s * mlp_blocks * 2 * c, s * -(-m // _LN1_ROWS) * 2 * c]
+    per_chunk = 3 * (c + 1) * inner + (inner + 1) * c + (c + 1) * hidden + (hidden + 1) * c
+    pieces.append(s * _wgrad_chunks(m, 6 * s) * per_chunk)
+    return sum(_round_up(p, 32) for p in pieces)
+
+
 def _dims(x, weights, kw):
     """(S, B, H, W, C, heads, d, hidden, wh, ww) of a checked call."""
     h, w = _check(x, kw["layout"], kw["hw"], kw["window"])
@@ -545,15 +691,70 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
     return out
 
 
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count (the fused route's blocks fill one wave of it)."""
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
-    the weight gradients fp32; K1 and K4 alike) for a bf16 x."""
+    the weight gradients fp32; K1 and K4 alike) for a bf16 x. Without dropout
+    :func:`block_bwd_plan` routes the call ("fused": ``csrc/fused_block_bwd.cu``); a dropout
+    call and the "five" route run ``csrc/fused_block.cu``'s backward."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
-    dims = _dims(x, weights, kw)
-    d = kw["dims_per_head"]
+    s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"the output gradient must be {x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    g = g.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    drop = _drop_args(x, kw) is not None
+    plan = None if drop else block_bwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]))
+    if plan is not None and plan.route == "fused":
+        grads = _launch_bwd_fused(g, x, weights, kw, plan)
+    else:
+        grads = _launch_bwd_five(g, x, weights, kw)
+    if drop and bf16:
+        BF16_DROP_BWD_LAUNCHES += 1
+    elif drop:
+        DROP_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
+    return grads
+
+
+def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tensor, ...]:
+    """``csrc/fused_block_bwd.cu``'s seven launches: x, g and g_x in x's dtype, the weight
+    gradients fp32, the workspace (:func:`bwd_workspace_floats`) fp32."""
+    s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
+    cross = bool(kw["cross"])
+    blocks = plan.blocks(s, b, h, w, _sm_count(x.device))
+    lib = _bwd_library()
+    grads = [torch.empty_like(a) for a in (x, *weights)]
+    floats = bwd_workspace_floats(s, b, h, w, c, heads, d, hidden, blocks, cross)
+    workspace = x.new_empty(floats, dtype=torch.float32)
+    ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
+    outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
+    with torch.cuda.device(x.device):
+        rc = lib.swin_block_bwd(
+            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, hidden,
+            plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
+            int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block backward")
+    return tuple(grads)
+
+
+def _launch_bwd_five(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
+    """``csrc/fused_block.cu``'s backward (the dropout forms, and the five route): it
+    recomputes with the five launches and runs twenty in all. Counts nothing
+    (:func:`_launch_bwd` does)."""
+    dims = _dims(x, weights, kw)
+    d = kw["dims_per_head"]
     g = g.contiguous()
     bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
@@ -570,14 +771,6 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block backward")
-    if drop is not None and bf16:
-        BF16_DROP_BWD_LAUNCHES += 1
-    elif drop is not None:
-        DROP_BWD_LAUNCHES += 1
-    elif bf16:
-        BF16_BWD_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
     return tuple(grads)
 
 
@@ -662,8 +855,6 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
     if recorded(x, *weights):
-        if c > MAX_CHANNELS:
-            raise ValueError(f"the fused block's backward (its LayerNorm kernel) takes "
-                             f"C <= {MAX_CHANNELS}, got {c}")
+        block_bwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross))
         return _FusedBlockFunction.apply(kw, x, *weights)
     return _launch_fwd(x, weights, kw)

@@ -157,6 +157,7 @@ def fake_library(monkeypatch):
         monkeypatch.setattr(module, "_library", lambda: lib)
     monkeypatch.setattr(twa, "_fwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_fwd_library", lambda: lib)
+    monkeypatch.setattr(tfb, "_bwd_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     return lib
@@ -230,7 +231,8 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
             grads = tfb._launch_bwd(xl, xl, weights, dict(kw, layout=layout, hw=(7, 7),
                                                           drop_rates=(rate, rate, rate), drop_seed=3))
             assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
-            args = fake_library.calls["swin_fused_block_bwd"]
+            # without dropout the backward of csrc/fused_block_bwd.cu, with it csrc/fused_block.cu's
+            args = fake_library.calls["swin_fused_block_bwd" if rate else "swin_block_bwd"]
             assert args[-3] == 1 and args[-4] == int(layout == "windows")
             assert counters(tfb) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
 

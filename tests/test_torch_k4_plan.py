@@ -67,13 +67,13 @@ def fake_library(monkeypatch):
 
     monkeypatch.setattr(torch.Tensor, "new_empty", recording_new_empty)
     monkeypatch.setattr(_build, "load", lambda name: lib)
-    tfb._library.cache_clear()
-    tfb._fwd_library.cache_clear()
+    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library):
+        cached.cache_clear()
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     yield lib
-    tfb._library.cache_clear()
-    tfb._fwd_library.cache_clear()
+    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library):
+        cached.cache_clear()
 
 
 def _block_args(c, heads, d, hidden, hw=(14, 14), dtype=torch.float32):
@@ -258,9 +258,9 @@ def test_windows_call_without_dropout_launches_the_new_forward(fake_library, c, 
 
 @pytest.mark.parametrize("what", ["windows layout dropout", "dropout", "backward"])
 def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what):
-    """A dropout forward in either layout (K1's and K4's) and every backward run
+    """A dropout forward in either layout (K1's and K4's) and a dropout backward run
     ``csrc/fused_block.cu`` (the backward recomputes with its five launches), never the new
-    forward."""
+    forward; the backward without dropout is ``tests/test_torch_block_bwd_plan.py``'s."""
     x, weights = _block_args(24, 8, 3, 96)
     if what == "windows layout dropout":
         tfb._launch_fwd(_windows(x), weights, _kw(8, 3, layout="windows", drop_rates=(0.25, 0.0, 0.1),
@@ -270,7 +270,7 @@ def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what)
         tfb._launch_fwd(x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))
         name = "swin_fused_block_fwd"
     else:
-        tfb._launch_bwd(x, x, weights, _kw(8, 3))
+        tfb._launch_bwd(x, x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))
         name = "swin_fused_block_bwd"
     assert name in fake_library.calls
     assert "swin_k4_fwd" not in fake_library.calls

@@ -839,3 +839,83 @@ def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
                                                        heads * d, heads, d, hidden, plan.heads_per_block,
                                                        plan.hidden_chunk)
                             assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, layout, dtype, cross, kind)
+
+
+def _check_block_backward(layout, hw, batch, dtype, stages):
+    """The backward without dropout (``_launch_bwd``: ``csrc/fused_block_bwd.cu`` where
+    ``block_bwd_plan`` routes "fused", ``csrc/fused_block.cu``'s backward elsewhere) in
+    ``layout`` against the plain backward and against the five-launch backward
+    (``_launch_bwd_five``) in every stage x MLP width x shift x cross case of ``stages`` at
+    ``hw`` and ``batch``: every fp32 gradient by ``testing.assert_grads_close``, a bf16 g_x by
+    the bf16 kernel criteria; each call repeated bit for bit (no atomics, fixed sum orders)."""
+    cfg = ModelConfig()
+    for k, h, w, c, heads, d in _stage_cases(hw):
+        if k not in stages:
+            continue
+        for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
+            x, *weights = _block_case(k, h, w, c, heads, d, hidden, dtype, batch)
+            gen = torch.Generator().manual_seed(300 + k + hidden)
+            for shift in (False, True):
+                for cross in (False, True):
+                    xl = twp.pack_windows(x, (7, 7), shift).contiguous() if layout == "windows" else x
+                    g = torch.randn(xl.shape, generator=gen).cuda().to(dtype)
+                    kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift,
+                              cross=cross, layout=layout, hw=(h, w))
+                    got = tfb._launch_bwd(g, xl, weights, kw)
+                    again = tfb._launch_bwd(g, xl, weights, kw)
+                    five = tfb._launch_bwd_five(g, xl, weights, kw)
+                    torch.cuda.synchronize()
+                    what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} hidden={hidden} shift={shift} "
+                            f"cross={cross} {dtype}")
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a repeat gave other bits"
+                    ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
+                    for other, name in ((ref, "plain"), (five, "five launches")):
+                        if dtype == BF16:
+                            _assert_bf16_close(got[0], other[0], f"{what} g_x vs {name}")
+                            assert_grads_close(got[1:], other[1:], tfb.WEIGHT_NAMES, f"{what} vs {name}")
+                        else:
+                            assert_grads_close(got, other, ("x", *tfb.WEIGHT_NAMES), f"{what} vs {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
+def test_k4_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
+    """K4 bwd (the image layout) at every stage: the fused route of
+    ``csrc/fused_block_bwd.cu`` at stages 0-1, the five-launch backward at 2-4
+    (``_check_block_backward``)."""
+    _need_card()
+    _check_block_backward("image", hw, batch, dtype, range(5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
+def test_k1_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
+    """K1 bwd (window-packed tokens) at the stages ``cuda_pack`` packs (0-3)
+    (``_check_block_backward``)."""
+    _need_card()
+    _check_block_backward("windows", hw, batch, dtype, range(4))
+
+
+@pytest.mark.gpu
+def test_block_backward_plan_agrees_with_the_kernels_on_card():
+    """The backward plan's shared memory (``bwd_smem``) and workspace
+    (``bwd_workspace_floats``) are the ones ``csrc/fused_block_bwd.cu`` computes, at every
+    fused-route stage and MLP width of a 224² batch-20 step in both modes."""
+    _need_card()
+    cfg = ModelConfig()
+    lib = tfb._bwd_library()
+    sms = tfb._sm_count(torch.device("cuda"))
+    for k, h, w, c, heads, d in _stage_cases((224, 224)):
+        for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
+            for cross in (False, True):
+                plan = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross)
+                if plan.route != "fused":
+                    continue
+                for kind, (kernel, smem) in enumerate(plan.smem):
+                    got = lib.swin_block_bwd_smem(kind, c, heads, d, hidden, plan.hidden_chunk, int(cross))
+                    assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, cross, kernel)
+                blocks = plan.blocks(2, 20, h, w, sms)
+                assert lib.swin_block_bwd_workspace(2, 20, h, w, c, heads, d, hidden, *blocks, int(cross)) == \
+                    tfb.bwd_workspace_floats(2, 20, h, w, c, heads, d, hidden, blocks, cross)
