@@ -947,9 +947,12 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
      ("k3_attention_kernel", "k3_proj_kernel")),
     ("csrc K1/K4 forward (block, LN1/LN2, proj/fc2, fc1)",
      ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1")),
-    ("csrc K1/K4 backward (recompute, MLP, attention, LN1, weights; fused_block_bwd.cu)",
-     ("block_fwd_kernel", "block_mlp_bwd_kernel", "block_bwd_attn_kernel", "ln1_bwd_kernel",
-      "wgrad_rows_kernel", "::transposes)")),
+    ("csrc K1/K4 backward (recompute, MLP, attention, LN1; fused_block_bwd.cu)",
+     ("block_fwd_kernel", "block_mlp_bwd_kernel", "block_bwd_attn_kernel", "ln1_bwd_kernel")),
+    ("csrc K3 backward (window blocks, g_x; window_attention_bwd.cu)",
+     ("k3_bwd_kernel", "gx_kernel", "sum_sides_kernel")),
+    ("csrc weight gradients and transposed weights of K1/K4/K3 bwd (window_bwd.cuh)",
+     ("wgrad_rows_kernel", "::transposes)")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
     ("csrc re-partition (K2)", ("repartition_kernel",)),
@@ -1063,13 +1066,15 @@ def train_block_backward(cfg, device, card):
 
 
 def train_attention_backward(cfg, device, card):
-    """K3 bwd against autograd of its plain version at stages 0-3 of a 224² batch-20 step
-    (each shift x cross variant runs twice per step: encoder and decoder) and at the
-    C=384 stage 4 of a 512² step (21x21), with its times."""
+    """K3 bwd without dropout (``csrc/window_attention_bwd.cu``) against autograd of its plain
+    version at stages 0-3 of a 224² batch-20 step (each shift x cross variant runs twice per
+    step: encoder and decoder) and at the C=384 stage 4 of a 512² step (21x21, batch 20),
+    each case repeated bit for bit, with its times in turns with the three-launch backward of
+    ``csrc/window_attention.cu`` (``_launch_bwd_three``) and the plain version's."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    totals = dict(ms=0.0, old_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     by, worst, worst_own, smallest = {}, 0.0, 0.0, 1.0
     geometries = [(*geo, TRAIN_HW) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
     geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW))
@@ -1080,30 +1085,88 @@ def train_attention_backward(cfg, device, card):
         for shift in (False, True):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                route = twa.bwd_plan(c, heads, d, WINDOW, cross, False).route
+                what = f"K3 bwd stage {k} of {hw} ({route}) shift={shift} cross={cross}"
                 got = twa._launch_bwd(g, args[0], args[1:], kw)
+                again = twa._launch_bwd(g, args[0], args[1:], kw)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what}: a repeat gave other bits")
+                del again
                 ref = twa.window_attention_bwd_plain(g, *args, **kw)
                 names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
-                check = assert_grads_close(got, ref, names, f"K3 bwd stage {k} of {hw}")
+                check = assert_grads_close(got, ref, names, what)
                 err, smallest = check.worst, min(smallest, check.smallest)
                 worst, worst_own = max(worst, err), max(worst_own, check.worst_own)
                 del got, ref
-                ms = time_ms(lambda: twa._launch_bwd(g, args[0], args[1:], kw), iters=5, warmup=1)
+                old, ms = _in_turns(lambda: twa._launch_bwd_three(g, args[0], args[1:], kw),
+                                    lambda: twa._launch_bwd(g, args[0], args[1:], kw), 5, 1)
                 plain = time_ms(lambda: twa.window_attention_bwd_plain(g, *args, **kw), iters=2, warmup=1)
-                print(f"[time] K3 bwd stage {k} of {hw[0]}x{hw[1]}: {h}x{w}x{TRAIN_BATCH} C={c} "
-                      f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
-                      f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                print(f"[time] K3 bwd stage {k} of {hw[0]}x{hw[1]}: {h}x{w}x{TRAIN_BATCH} C={c} ({route}) "
+                      f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, three-launch "
+                      f"{old:.4f} ms (in turns), plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+                      f"| {card}", flush=True)
                 if hw == TRAIN_HW:
-                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                    for key, v in (("ms", ms), ("old_ms", old), ("plain_ms", plain), ("bound_ms", bound)):
                         totals[key] += 2 * v
                     by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
         torch.cuda.empty_cache()
     print(f"[check] K3 bwd: worst max_abs_err {worst:.3e} over {4 * len(geometries)} cases, "
           f"{worst_own:.3e} of a gradient's own largest; every gradient but bk's (exactly 0) "
-          f"held to its own scale, the smallest {smallest:.3e} of its call's largest", flush=True)
+          f"held to its own scale, the smallest {smallest:.3e} of its call's largest; every case "
+          f"repeated bit for bit", flush=True)
     print(f"[time] K3 bwd per 224x224 batch-20 step under cuda (32 launches): {totals['ms']:.3f} ms, "
-          f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
+          f"three-launch {totals['old_ms']:.3f} ms (in turns), plain {totals['plain_ms']:.3f} ms, bound "
+          f"{totals['bound_ms']:.4f} ms | {card}", flush=True)
     return dict(totals, bound_by=max(by, key=by.get), library_ms=None, worst=worst)
+
+
+def k3_bwd_split(cfg, device, card, runs=2):
+    """K3 bwd's device time per 224² batch-20 step by stage and by kernel, from torch.profiler
+    (:func:`_profile_kernels`), and per stage by CUDA events: at each stage 0-3 x shift x cross
+    call (each twice a step, encoder and decoder) and at the 512² stage-4 shape, the new
+    backward (``_launch_bwd``: ``csrc/window_attention_bwd.cu``) and the three-launch backward
+    (``_launch_bwd_three``), in turns (the new one first at every other call)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    forms = ("new", "three-launch")
+    split, events = {f: {} for f in forms}, {f: {} for f in forms}
+    geometries = [(*geo, TRAIN_HW, 2) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
+    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW, 1))
+    i = 0
+    for k, h, w, c, heads, d, hw, times in geometries:
+        args = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+        g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(k)).to(device)
+        key = f"stage {k} of {hw[0]}x{hw[1]}"
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                calls = {"new": lambda: twa._launch_bwd(g, args[0], args[1:], kw),
+                         "three-launch": lambda: twa._launch_bwd_three(g, args[0], args[1:], kw)}
+                for form in (forms if i % 2 == 0 else reversed(forms)):
+                    ms = time_ms(calls[form], iters=runs, warmup=1)
+                    events[form][key] = events[form].get(key, 0.0) + times * ms
+                    got = _profile_kernels(calls[form], runs)
+                    if got is None:
+                        print(f"[split] K3 bwd {form}: the profiler recorded no device time: not measured | {card}")
+                        return
+                    _add_parts(split[form].setdefault(key, {}), got, times)
+                i += 1
+        del args, g
+        torch.cuda.empty_cache()
+        for form in forms:
+            parts = split[form][key]
+            print(f"[split] K3 bwd {form} {key} {h}x{w}x{TRAIN_BATCH} C={c}, "
+                  f"{'per step (8 calls)' if hw == TRAIN_HW else 'per 4 calls (shift x cross)'}: "
+                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                  + f", total {sum(parts.values()):.4f} ms of device time, {events[form][key]:.4f} ms by "
+                  f"events | {card}", flush=True)
+    step = {f: [key for key in split[f] if key.endswith(f"{TRAIN_HW[0]}x{TRAIN_HW[1]}")] for f in forms}
+    busy = {f: sum(sum(split[f][key].values()) for key in step[f]) for f in forms}
+    by_events = {f: sum(events[f][key] for key in step[f]) for f in forms}
+    print(f"[split] K3 bwd per {TRAIN_HW[0]}x{TRAIN_HW[1]} batch-{TRAIN_BATCH} step (32 calls): new "
+          f"{busy['new']:.4f} ms of device time ({by_events['new']:.4f} by events), three-launch "
+          f"{busy['three-launch']:.4f} ms ({by_events['three-launch']:.4f}) | {card}", flush=True)
 
 
 def train_repartition_backward(cfg, device, card):
@@ -1878,9 +1941,10 @@ def check_bf16_blocks(cfg, device, card):
 def check_bf16_attention(cfg, device, card):
     """The bf16 forms of K3 at stages 0-3 of a 224² batch-20 step, every shift x cross
     variant (each runs twice per step, encoder and decoder): the backward without dropout
-    and with the attention site at each rate of DROP_CHECK_RATES, and the dropout forward,
-    against their plain bf16 versions; the keep masks against the fp32 dropout form's; each
-    form timed in turns with its fp32 form."""
+    (``csrc/window_attention_bwd.cu``, repeated bit for bit) and with the attention site at
+    each rate of DROP_CHECK_RATES, and the dropout forward, against their plain bf16
+    versions; the keep masks against the fp32 dropout form's; each form timed in turns with
+    its fp32 form, the backward without dropout also with the three-launch backward."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
@@ -1888,6 +1952,7 @@ def check_bf16_attention(cfg, device, card):
     totals, by = {f: _new_totals() for f in forms}, {f: {} for f in forms}
     errs, bits, cases = dict.fromkeys(forms, 0.0), 1.0, 0
     worst, results = {}, {}
+    three = [0.0, 0.0]  # the bf16 backward per step: three-launch, new (in turns)
     for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
         x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
         x = x.to(BF16)
@@ -1908,7 +1973,11 @@ def check_bf16_attention(cfg, device, card):
                         err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
                         errs[" drop bf16"] = max(errs[" drop bf16"], err)
                     got = twa._launch_bwd(g, x, weights, dkw)
+                    again = twa._launch_bwd(g, x, weights, dkw)
                     torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{what} bwd: a repeat gave other bits")
+                    del again
                     err = _check_bf16_grads(got, twa.window_attention_bwd_plain(g, x, *weights, **dkw),
                                             names, what + " bwd")
                     form = " drop bwd bf16" if rate else " bwd bf16"
@@ -1930,6 +1999,13 @@ def check_bf16_attention(cfg, device, card):
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
                     fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
                     plain_ms = time_ms(plain, iters=1, warmup=1)
+                    if form == " bwd bf16":  # the three-launch backward, in turns with the new one
+                        three_ms, new_ms = _in_turns(lambda: twa._launch_bwd_three(g, x, weights, kw), launch,
+                                                     iters, 1)
+                        three[0] += 2 * three_ms
+                        three[1] += 2 * new_ms
+                        print(f"[time] K3 bwd bf16 {label}: {new_ms:.4f} ms, three-launch {three_ms:.4f} ms "
+                              f"(in turns) | {card}", flush=True)
                     backward = "bwd" in form
                     ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, backward) if "drop" in form else 0
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=backward,
@@ -1945,6 +2021,8 @@ def check_bf16_attention(cfg, device, card):
               + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else ""), flush=True)
         _summary(f"K3{form}", totals[form], by[form], 2 * cases, card, results)
         worst[f"K3{form}"] = errs[form]
+    print(f"[time] K3 bwd bf16 per 224x224 batch-20 step ({2 * cases} launches): new {three[1]:.3f} ms, "
+          f"three-launch {three[0]:.3f} ms (in turns) | {card}", flush=True)
     print(f"[check] K3 drop bf16: the keep masks are the fp32 form's: at rate "
           f"{DROP_CHECK_RATES[-1]} the bf16 backward's weight gradients equal the fp32 dropout "
           f"kernel's at the upcast inputs bit for bit ({bits:.4%} of the elements)", flush=True)
@@ -2296,7 +2374,8 @@ def main() -> int:
            "K2 bwd": train_repartition_backward(cfg, device, card)}
     torch.cuda.empty_cache()
     block_bwd_split(cfg, device, card)
-    phase("[check] and [time] of the backward kernels, [split] K1 bwd and K4 bwd")
+    k3_bwd_split(cfg, device, card)
+    phase("[check] and [time] of the backward kernels, [split] K1 bwd, K4 bwd and K3 bwd")
     drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
     torch.cuda.empty_cache()
     mask_worst, mask_times = check_mask_kernels(cfg, device, card)
@@ -2339,7 +2418,8 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
-        ("K3 bwd", "window_attention_bwd (K3 bwd)", f"{csrc}/window_attention.cu",
+        ("K3 bwd", "k3_bwd (K3 bwd; the dropout forms keep window_attention.cu's)",
+         f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
         ("K1 bwd", "block_bwd, windows layout (K1 bwd; the five-launch backward of fused_block.cu "
          "at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
@@ -2369,7 +2449,7 @@ def main() -> int:
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:248"),
         # bf16 training: the bf16 backward forms (fp32 inside, as the JAX bodies upcast) and
         # the bf16 dropout forms, forward and backward
-        ("K3 bwd bf16", "window_attention_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention.cu",
+        ("K3 bwd bf16", "k3_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
         ("K1 bwd bf16", "block_bwd bf16, windows layout (K1 bwd bf16; the five-launch backward of "
          "fused_block.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",

@@ -4,9 +4,13 @@ fp32 and bf16, for the package in one checkout: the bs=1 median latency of 20 re
 bs=32 pairs/s of 3 calls (medians) and one bs=1 request's device busy time from
 ``torch.profiler``, with the full default model and random weights from seed 0; with
 ``--train``, also the median of 5 train steps at 224x224 batch 20 after a first one. Prints
-one ``[ab] LABEL {json}`` line.
+one ``[ab] LABEL {json}`` line. With ``--hashes`` it serves nothing and prints ``[hash] LABEL
+{json}``: a digest of every output of K3's dropout forward and backward at stages 0-3 and of
+K1's and K4's backward without dropout at stages 0-1 of a 224x224 batch-2 step, fp32 and
+bf16, every shift x cross case, inputs from fixed seeds, so that two checkouts whose kernels
+give the same bits print the same digests.
 
-    python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train]
+    python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train | --hashes]
 
 ROOT is a checkout of one commit (``git archive`` of a parent unpacked into a directory
 that ``.gitignore`` lists, or ``.``). To compare two commits on one card, run them in
@@ -45,7 +49,60 @@ def train_ms(impl: str, dtype: str, flat, steps: int = 5) -> float:
     return float(np.median(walls))
 
 
-def main(root: str, label: str, impl: str, train: bool) -> None:
+def kernel_hashes() -> dict:
+    """The digests of ``--hashes``, by kernel, stage, dtype, shift and cross."""
+    import hashlib
+
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.ops.shape_plan import make_plan
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    cfg = ModelConfig()
+    heads, batch, out = cfg.att_num_heads, 2, {}
+    for k, stage in enumerate(make_plan(224, 224, cfg.num_stages, cfg.merging_size, cfg.window_size)[:4]):
+        (h, w), c = stage.att_hw, cfg.out_dims_list[k]
+        d, hidden = cfg.dims_per_head(c), c * cfg.mlp_hidden_dims_ratio
+        inner = heads * d
+        gen = torch.Generator().manual_seed(700 + k)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        ln = (1.0 + rand(2, c, scale=0.1), rand(2, c, scale=0.1))
+        attn = (rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1), rand(2, c, inner, scale=c**-0.5),
+                rand(2, inner, scale=0.1), rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1), rand(2, 49, 49))
+        mlp = (rand(2, c, hidden, scale=c**-0.5), rand(2, hidden, scale=0.1), rand(2, hidden, c, scale=hidden**-0.5),
+               rand(2, c, scale=0.1))
+        x32, g32 = rand(2, batch, h, w, c), rand(2, batch, h, w, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            for shift in (False, True):
+                for cross in (False, True):
+                    kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                    key = f"s{k} {str(dtype)[6:]} shift={int(shift)} cross={int(cross)}"
+                    drop = dict(kw, attn_drop_rate=0.1, drop_seed=11 + k)
+                    out[f"K3 drop {key}"] = digest([twa._launch_fwd(x, attn, drop)])
+                    out[f"K3 drop bwd {key}"] = digest(twa._launch_bwd(g, x, attn, drop))
+                    if k > 1:
+                        continue
+                    for name, layout in (("K4", "image"), ("K1", "windows")):
+                        shape = (2, batch, (h // 7) * (w // 7), 49, c) if layout == "windows" else x.shape
+                        out[f"{name} bwd {key}"] = digest(tfb._launch_bwd(
+                            g.reshape(shape), x.reshape(shape), (*ln, *attn, *ln, *mlp),
+                            dict(kw, layout=layout, hw=(h, w))))
+    torch.cuda.synchronize()
+    return out
+
+
+def main(root: str, label: str, impl: str, train: bool, hashes: bool = False) -> None:
     sys.path.insert(0, root)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -60,6 +117,9 @@ def main(root: str, label: str, impl: str, train: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
+    if hashes:
+        print(f"[hash] {label} {json.dumps(kernel_hashes())}", flush=True)
+        return
     flat = random_variables(ModelConfig(), seed=0)
     rng = np.random.default_rng(0)
     one = [rng.random((1, 512, 512, 1), dtype=np.float32) for _ in range(2)]
@@ -103,9 +163,11 @@ if __name__ == "__main__":
     parser.add_argument("root")
     parser.add_argument("label")
     parser.add_argument("--impl", default="cuda")
-    parser.add_argument("--train", action="store_true")
+    what = parser.add_mutually_exclusive_group()
+    what.add_argument("--train", action="store_true")
+    what.add_argument("--hashes", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         sys.exit(1)
-    main(args.root, args.label, args.impl, args.train)
+    main(args.root, args.label, args.impl, args.train, args.hashes)

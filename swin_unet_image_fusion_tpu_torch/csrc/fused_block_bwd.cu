@@ -66,10 +66,8 @@ namespace {
 
 using namespace wbwd;
 
-constexpr int kMaxCols = 36 * kTileN;  // columns one product takes at most (7 x 36 tiles of 8 x 4)
 constexpr int kLn1Rows = 128;          // token rows per block of the LN1 backward
 constexpr int kLnMaxPerLane = 12;      // C <= 384 in the LN1 backward
-constexpr int kSmemMax = 232448;       // dynamic shared memory a block may use
 constexpr int kBlocksPerSm = 2;        // the block kernels' register bound (128 a thread)
 
 // Element i of an activation in device memory, fp32 or bf16, as fp32.
@@ -190,18 +188,6 @@ __device__ __forceinline__ void core_rows(float* core, float* dst, int inner, in
                  [&](int t, int col, float v) { at(t, col) = v; });
   else
     each_row_col(kT, inner, [&](int t, int col) { row(t, col) = at(t, col); });
-}
-
-// A Gemm of one weight matrix w ([K][ldw], columns nb of which ncols are real).
-__device__ __forceinline__ Gemm weights(const float* w, int nb, int ldw, int K, int ncols = 0) {
-  Gemm g{};
-  g.aparts = 1;
-  g.w[0] = w;
-  g.n = g.nb = nb;
-  g.ldw = ldw;
-  g.K = K;
-  g.ncols = ncols;
-  return g;
 }
 
 // The forward, recomputed: a block per (group of windows, stream) writes what the backward
@@ -606,22 +592,6 @@ __global__ void __launch_bounds__(kThreads) ln1_bwd_kernel(const Ln1Args p) {
     float sum = 0.0f;
     for (int w = 0; w < kWarps; ++w) sum += red[w * 2 * C + c];
     part[c] = sum;
-  }
-}
-
-// ---- the transposed weights ----
-constexpr int kMaxTransposes = 12;
-struct Transposes {
-  const float* src[kMaxTransposes];  // (rows, cols)
-  float* dst[kMaxTransposes];        // (cols, rows)
-  int rows[kMaxTransposes], cols[kMaxTransposes];
-};
-
-__global__ void __launch_bounds__(kThreads) transpose_kernel(const Transposes p) {
-  const int j = blockIdx.y, rows = p.rows[j], cols = p.cols[j];
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < rows * cols; e += gridDim.x * kThreads) {
-    const int r = e / cols, c = e - r * cols;
-    p.dst[j][static_cast<size_t>(c) * rows + r] = p.src[j][e];
   }
 }
 

@@ -1,0 +1,551 @@
+// Swin window attention (K3), the backward without dropout, fp32 and bf16, redesigned for
+// Hopper (sm_90a).
+//
+// Replaces swin_unet_image_fusion_tpu/ops/pallas_attention.py::_attention_bwd_body (l.335-,
+// through _attention_bwd_kernel / _attention_bwd_kernel_self from pallas_window_attention's
+// _backward, l.770) for calls without dropout; the dropout forms keep window_attention.cu's
+// backward (swin_window_attention_bwd). The function is that backward's: given x, the nine
+// weights and g = dL/d out it recomputes q (scaled), k, v and AV and returns g_x and every
+// weight's gradient; under cross the k/v gradients of stream s belong to stream 1-s's rows;
+// the softmax clamp at 80 is not differentiated and a masked score gives P = g_S = 0. fp32
+// inside in both dtypes (x and g upcast as they are loaded, as the JAX body upcasts, l.388-390);
+// a bf16 g_x is rounded once in self mode, and under cross its q side and k/v side are rounded
+// apart and added in bf16 (JAX's gx and gkv outputs, added by the caller, l.495-498).
+//
+// What bounds it, and the design. The backward does about three times the forward's matmul
+// work at the same bytes, so the fp32 rate bounds it (4.62 ms per 224² batch-20 step;
+// PERF.md §6). window_attention.cu's backward ran about ten launches over whole activations in
+// device memory, its core one block per (16 windows, image, head) with scalar loops over three
+// T x T buffers. Here one block kernel (k3_bwd_kernel) takes each window from x and g to its
+// gradients in shared memory, walking a fixed list of windows (blockIdx.x, + gridDim.x, ...)
+// of its stream and group of heads, one wave of the card:
+//   q (scaled), k, v of its heads from x (and under cross the other stream's rows) and g_o =
+//   g wp^T from g, both with A streamed through a ring (window_bwd.cuh's gemm_stream); AV, the
+//   wp gradient's operand (window_fwd.cuh's attention core); window_bwd.cuh's core backward
+//   (g_q, g_k, g_v; the bias-table gradient summed in the lane's registers across heads and
+//   windows); g_q, g_k, g_v and AV to token rows for the weight gradients.
+// Two routes (ops/window_attention.py::bwd_plan):
+//   fused (every head in the block, d <= 8, 3 heads*d <= 144, C <= 144: stages 0-1 of the
+//     default model): the block also forms g_x = [g_q | g_k | g_v] [wq | wk | wv]^T from the
+//     resident gradients, under cross the q side to its own rows and the k/v side to the other
+//     stream's rows of a second buffer, which sum_sides_kernel adds, so no block waits on
+//     another;
+//   split (a group of heads of at most 48 columns a q/k/v part: stages 2-4): the blocks write
+//     g_q, g_k, g_v, and gx_kernel forms g_x over 49-token tiles and column groups, the q side
+//     parked in a row buffer while the k/v side is summed.
+// Then one wgrad_rows_kernel launch for wq, wk, wv, wp and their biases and one fixed-order
+// reduction of every partial (window_core_bwd.cuh). The transposed weights (wp^T, [wq | wk |
+// wv]^T) come first, so that every product streams its weights through the same ring.
+// fp32 FMA throughout (TF32 off), no atomics: every sum has one fixed order, and the blocks
+// per stream and group come from the caller, so a repeat gives the same bits.
+
+#include "window_bwd.cuh"
+#include "window_core_bwd.cuh"
+
+namespace {
+
+using namespace wbwd;
+
+constexpr int kRing = 2;  // ring slots of every product
+
+// Blocks an SM of the block kernel (its register bound): one from a q/k row pitch of 24 on,
+// where the rows pass holds three rows of DP floats a lane.
+__host__ __device__ constexpr int min_blocks(int dp) { return dp >= 24 ? 1 : 2; }
+
+// Byte offsets of the block kernel's dynamic shared memory (ops/window_attention.py::bwd_smem
+// mirrors them): the A ring (x, and under cross the kv rows; then g) and the weight ring at
+// ring_b, over which the fused route keeps g_q | g_k | g_v resident after the core; q, k, v,
+// g_o in the core layout [hg][49][DP] (the fused route's g_x products put their weight ring
+// and a row buffer over them after the core); the rows pass's (1/sum, dot); the window's bias
+// with the wrap mask as -inf; the row, region and token tables, the q/k/v column offsets and
+// biases.
+struct BwdLayout {
+  int ring_b, q, k, v, go, rd, bias, tabs, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, int inner, int hg, int d, int dp) {
+  BwdLayout L{};
+  const int n = hg * d;
+  const int qkv = align16(hg * kT * dp * 4);
+  L.ring_b = ring_a_bytes(false, cross ? 2 : 1, kRing);
+  const int ring = L.ring_b + b_bytes(false, 3 * n, kRing);
+  int off = align16(max2(ring, fused ? a_bytes(false, 3 * inner) : 0));
+  L.q = off;
+  L.k = off + qkv;
+  L.v = off + 2 * qkv;
+  L.go = off + 3 * qkv;
+  off += max2(4 * qkv, fused ? align16(b_bytes(false, C, kRing)) + align16(kT * C * 4) : 0);
+  L.rd = off;
+  off += align16(hg * kT * 8);
+  L.bias = off;
+  off += align16(kT * kT * 4);
+  L.tabs = off;
+  off += align16((3 * kRowsB + 2 * kColTable) * 4);
+  L.total = off;
+  return L;
+}
+
+struct BwdArgs {
+  const void* x;  // (S, B, H, W, C) fp32 or bf16
+  const void* g;  // dL/d out, same
+  const float *wq, *bq, *wk, *bk, *wv, *bv, *bias;
+  const float *wpT, *wqkvT;  // per stream (C, inner), (3 inner, C)
+  float *av, *gq, *gk, *gv;  // (S, B*H*W, inner) token rows
+  void* gx;                  // fused self: g_x, in x's type
+  float *gxq, *gxkv;         // fused cross: its q side and k/v side, (S, B*H*W, C)
+  float* tab_part;           // (S, groups, blocks, 49*49)
+  int S, B, H, W, C, inner, d, hg, top, left, cross;
+  float scale;
+  int windows;  // the token layout that window_rows reads: 0, the image
+  int bf16;     // x, g and g_x bf16 (else fp32)
+};
+
+// Element i of x's type (fp32, or bf16 rounded once) from an fp32 value.
+__device__ __forceinline__ void put_act(void* p, size_t i, float v, int is_bf16) {
+  if (is_bf16) static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(p)[i] = v;
+}
+
+// One block per (group of windows, stream, group of hg heads): see the header.
+template <int DP, bool kFused>
+__global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
+  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP);
+  const int s = blockIdx.y, grp = blockIdx.z, c0 = grp * n;
+  const int kvs = a.cross ? a.S - 1 - s : s;
+  const int nwin = (a.H / 7) * (a.W / 7), hw = a.H * a.W;
+  const size_t map = static_cast<size_t>(hw) * C;
+
+  int* rows = reinterpret_cast<int*>(smem + L.tabs);
+  int* region = rows + kRowsB;
+  int* tok = region + kRowsB;
+  int* col_ofs = tok + kRowsB;
+  float* bqkv_s = reinterpret_cast<float*>(col_ofs + kColTable);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + L.ring_b);
+  float* u = reinterpret_cast<float*>(smem);  // fused: g_q | g_k | g_v, channel-major, over the rings
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* k_s = reinterpret_cast<float*>(smem + L.k);
+  float* v_s = reinterpret_cast<float*>(smem + L.v);
+  float* go_s = reinterpret_cast<float*>(smem + L.go);
+  float2* rd = reinterpret_cast<float2*>(smem + L.rd);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+
+  zero_smem(smem, 0, L.total);  // the padded dims and channels stay finite
+  __syncthreads();
+  fill_col_table<DP, false>(col_ofs, n, d);
+  for (int col = threadIdx.x; col < 3 * n; col += kThreads) {
+    const int part = (col >= n) + (col >= 2 * n);
+    const float* bsrc = part == 0 ? a.bq : part == 1 ? a.bk : a.bv;
+    bqkv_s[col] = bsrc[s * inner + c0 + col - part * n];
+  }
+  float tab[kQuarter];
+#pragma unroll
+  for (int uu = 0; uu < kQuarter; ++uu) tab[uu] = 0.0f;
+  const size_t elem = a.bf16 ? 2 : 4;  // bytes of an x or g element
+  const unsigned char* x = static_cast<const unsigned char*>(a.x);
+  const unsigned char* g = static_cast<const unsigned char*>(a.g);
+
+  for (int item = blockIdx.x; item < a.B * nwin; item += gridDim.x) {
+    const int b = item / nwin, win = item - b * nwin;
+    const size_t img = static_cast<size_t>(s) * a.B + b;      // (s, b)
+    const size_t kv_img = static_cast<size_t>(kvs) * a.B + b;  // the image k/v come from
+    const size_t hrow = img * hw;                              // its first token row
+    __syncthreads();  // the previous window's readers are done
+    if (kFused) zero_smem(smem, L.q, L.rd);  // q/k/v/g_o's padded dims, under the g_x products
+    window_rows(a, win, rows, region);
+    for (int t = threadIdx.x; t < kRowsB; t += kThreads) tok[t] = rows[t] / C;  // this thread's rows[t]
+    __syncthreads();
+    for (int e = threadIdx.x; e < kT * kT; e += kThreads)
+      bias_s[e] = region[e / kT] == region[e % kT] ? a.bias[s * kT * kT + e] : -__int_as_float(0x7f800000);
+    {  // q (scaled), k, v of the group's heads
+      Gemm gm{};
+      gm.abase[0] = x + img * map * elem;
+      gm.abase[1] = x + kv_img * map * elem;
+      gm.aparts = a.cross ? 2 : 1;
+      gm.rows = rows;
+      const size_t wofs = static_cast<size_t>(s) * C * inner + c0;
+      gm.w[0] = a.wq + wofs;
+      gm.w[1] = a.wk + wofs;
+      gm.w[2] = a.wv + wofs;
+      gm.n = n;
+      gm.ldw = inner;
+      gm.nb = 3 * n;
+      gm.K = C;
+      with_tn(gm.nb, [&](auto tn) {
+        Tile<decltype(tn)::value> acc;
+        zero_tile(acc);
+        gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
+        each(acc, gm.nb, [&](int t, int col, float v) {
+          const float y = v + bqkv_s[col];
+          put_qkv<DP, false>(t, col, col < n ? y * a.scale : y, n, col_ofs, q_s, k_s, smem + L.v);
+        });
+      });
+    }
+    {  // g_o = g wp^T for the group's heads
+      Gemm gm{};
+      gm.abase[0] = g + img * map * elem;
+      gm.aparts = 1;
+      gm.rows = rows;
+      gm.w[0] = a.wpT + static_cast<size_t>(s) * C * inner + c0;
+      gm.n = gm.nb = n;
+      gm.ldw = inner;
+      gm.K = C;
+      with_tn(n, [&](auto tn) {
+        Tile<decltype(tn)::value> acc;
+        zero_tile(acc);
+        gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
+        each(acc, n, [&](int t, int col, float v) { go_s[col_ofs[col] + t * DP] = v; });
+      });
+    }
+    __syncthreads();
+    float* av = a.av + hrow * inner + c0;
+    attention_core<DP, false>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
+                              [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; });
+    if constexpr (kFused) {
+      core_bwd<DP>(
+          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab, [&](int t, int col, float v) { a_at(u, t, col) = v; },
+          [&](int t, int col, float gk, float gv) {
+            a_at(u, t, inner + col) = gk;
+            a_at(u, t, 2 * inner + col) = gv;
+          });
+      __syncthreads();
+      store_a(u, inner, a.gq + hrow * inner, inner, tok);
+      store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);
+      store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok);
+      // g_x = [g_q | g_k | g_v] [wq | wk | wv]^T, the weight ring and a row buffer over q/k/v/g_o
+      float* rowbuf = reinterpret_cast<float*>(smem + L.q + align16(b_bytes(false, C, kRing)));
+      const float* wt = a.wqkvT + static_cast<size_t>(s) * 3 * inner * C;
+      auto product = [&](const float* a0, int K, const float* w, auto store) {
+        const Gemm gm = weights(w, C, C, K);
+        with_tn(C, [&](auto tn) {
+          Tile<decltype(tn)::value> acc;
+          zero_tile(acc);
+          gemm_tile<decltype(tn)::value, kRing>(acc, gm, a0, a0, q_s);
+          each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; });
+        });
+        __syncthreads();
+        each_row_col(kT, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
+      };
+      if (a.cross) {
+        product(u, inner, wt, [&](size_t at, float v) { a.gxq[img * map + at] = v; });
+        __syncthreads();
+        product(u + inner * kPitchF, 2 * inner, wt + static_cast<size_t>(inner) * C,
+                [&](size_t at, float v) { a.gxkv[kv_img * map + at] = v; });
+      } else {
+        product(u, 3 * inner, wt, [&](size_t at, float v) { put_act(a.gx, img * map + at, v, a.bf16); });
+      }
+    } else {
+      float* gq = a.gq + hrow * inner + c0;
+      float* gk = a.gk + hrow * inner + c0;
+      float* gv = a.gv + hrow * inner + c0;
+      core_bwd<DP>(
+          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
+          [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
+          [&](int t, int col, float gkv, float gvv) {
+            gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
+            gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
+          });
+    }
+  }
+
+  const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
+  if (t < kT) {
+    float* tp = a.tab_part + ((static_cast<size_t>(s) * gridDim.z + grp) * gridDim.x + blockIdx.x) * kT * kT + t * kT;
+#pragma unroll
+    for (int uu = 0; uu < kQuarter; ++uu)
+      if (qd * kQuarter + uu < kT) tp[qd * kQuarter + uu] = tab[uu];
+  }
+}
+
+// ---- the split route's g_x: [g_q | g_k' | g_v'] [wq | wk' | wv']^T over token rows ---------
+// A block per (49-token tile, stream, group of `width` output columns): the q side from the
+// stream's g_q and wq^T into a row buffer, then the k/v side from the k/v stream's g_k, g_v
+// and wk^T, wv^T (the other stream under cross) added to it; g_x = q + kv, in bf16 under cross
+// rnd(rnd(q) + rnd(kv)); from the row buffer to coalesced stores.
+struct GxLayout {
+  int ring_b, rowbuf, rows, total;
+};
+
+__host__ __device__ inline GxLayout gx_layout(int width) {
+  GxLayout L{};
+  L.ring_b = ring_a_bytes(false, 1, kRing);
+  L.rowbuf = align16(L.ring_b + b_bytes(false, width, kRing));
+  L.rows = L.rowbuf + align16(kT * width * 4);
+  L.total = L.rows + align16(kRowsB * 4);
+  return L;
+}
+
+// Output columns of a gx_kernel block: C in the fewest groups of at most kMaxCols, each a
+// multiple of 4.
+__host__ __device__ inline int gx_width(int C) {
+  const int groups = (C + kMaxCols - 1) / kMaxCols;
+  return round_up((C + groups - 1) / groups, 4);
+}
+
+struct GxArgs {
+  const float *gq, *gk, *gv, *wqkvT;
+  void* gx;
+  int S, M, C, inner, width, cross, bf16;
+};
+
+__global__ void __launch_bounds__(kThreads) gx_kernel(const GxArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const GxLayout L = gx_layout(a.width);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + L.ring_b);
+  float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf);
+  int* rows = reinterpret_cast<int*>(smem + L.rows);
+  const int s = blockIdx.y, kvs = a.cross ? a.S - 1 - s : s;
+  const int C = a.C, inner = a.inner, width = a.width;
+  const int cg0 = blockIdx.z * width, ncols = min(width, C - cg0);
+  const size_t r0 = static_cast<size_t>(s) * a.M + static_cast<size_t>(blockIdx.x) * kT;
+  const size_t kv0 = static_cast<size_t>(kvs) * a.M + static_cast<size_t>(blockIdx.x) * kT;
+  for (int t = threadIdx.x; t < kRowsB; t += kThreads) rows[t] = t < kT ? t * inner : 0;
+  __syncthreads();
+  with_tn(width, [&](auto tn) {
+    constexpr int TN = decltype(tn)::value;
+    auto part = [&](Tile<TN>& acc, const float* src, int sw, int p) {
+      Gemm gm{};
+      gm.abase[0] = src;
+      gm.aparts = 1;
+      gm.rows = rows;
+      gm.w[0] = a.wqkvT + (static_cast<size_t>(sw) * 3 + p) * inner * C + cg0;
+      gm.n = gm.nb = width;
+      gm.ldw = C;
+      gm.K = inner;
+      gm.ncols = ncols;
+      gemm_stream<TN>(acc, gm, ring, bring, 0);
+    };
+    const bool apart = a.bf16 && a.cross;  // bf16 under cross: each side rounded
+    Tile<TN> acc;
+    zero_tile(acc);
+    part(acc, a.gq + r0 * inner, s, 0);
+    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] = apart ? swin::round_bf16(v) : v; });
+    zero_tile(acc);
+    part(acc, a.gk + kv0 * inner, kvs, 1);
+    part(acc, a.gv + kv0 * inner, kvs, 2);
+    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] += apart ? swin::round_bf16(v) : v; });
+  });
+  __syncthreads();
+  each_row_col(kT, ncols, [&](int t, int k) { put_act(a.gx, (r0 + t) * C + cg0 + k, rowbuf[t * width + k], a.bf16); });
+}
+
+// The fused route's g_x under cross: its q side and k/v side added, in bf16 rounded apart.
+__global__ void __launch_bounds__(kThreads) sum_sides_kernel(const float* q, const float* kv, void* out, size_t n,
+                                                           int is_bf16) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * kThreads)
+    put_act(out, i, is_bf16 ? swin::round_bf16(q[i]) + swin::round_bf16(kv[i]) : q[i] + kv[i], is_bf16);
+}
+
+// ---- host side -------------------------------------------------------------------------
+int pitch_for(int d, bool fused) {
+  if (fused) return d <= 4 ? 4 : d <= 8 ? 8 : 0;
+  for (int p : {4, 8, 12, 16, 24, 32, 48})
+    if (d <= p) return p;
+  return 0;
+}
+
+// Whether the route takes these dimensions (ops/window_attention.py::bwd_plan makes the same
+// checks and raises first): every head in the block on the fused route, the weight-gradient
+// launch's slabs and each block within a block's shared memory.
+bool supported(int C, int inner, int heads, int d, int hg, bool fused, bool cross) {
+  const int n = hg * d;
+  if (pitch_for(d, fused) == 0 || hg < 1 || heads % hg != 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 ||
+      n % 8 != 0 || 3 * n > kMaxCols || 3 * n > kColTable || (fused && (hg != heads || C > kMaxCols)))
+    return false;
+  return bwd_layout(fused, cross, C, inner, hg, d, pitch_for(d, fused)).total <= kSmemMax &&
+         gx_layout(gx_width(C)).total <= kSmemMax && wg_smem(C, inner) <= kSmemMax && wg_smem(inner, C) <= kSmemMax;
+}
+
+// Workspace of one call, carved in this order (ops/window_attention.py::bwd_workspace_floats
+// mirrors it); with base == nullptr the walk sizes it.
+struct BwdScratch {
+  float *wpT, *wqkvT, *av, *gq, *gk, *gv, *gxq, *gxkv, *tab_part, *wg_part;
+  int chunk_rows, chunks;  // of the weight-gradient launch
+};
+
+constexpr int kWgPerStream = 4;  // wq, wk, wv (A = the rows each read, B = g_q, g_k, g_v); wp (A = AV, B = g)
+
+BwdScratch carve(swin::Arena& ar, int S, int M, int C, int inner, int groups, int blocks, bool fused, bool cross) {
+  BwdScratch sc{};
+  const size_t SM = static_cast<size_t>(S) * M;
+  sc.wpT = ar.take(static_cast<size_t>(S) * C * inner);
+  sc.wqkvT = ar.take(static_cast<size_t>(S) * 3 * inner * C);
+  sc.av = ar.take(SM * inner);
+  sc.gq = ar.take(SM * inner);
+  sc.gk = ar.take(SM * inner);
+  sc.gv = ar.take(SM * inner);
+  sc.gxq = fused && cross ? ar.take(SM * C) : nullptr;
+  sc.gxkv = fused && cross ? ar.take(SM * C) : nullptr;
+  sc.tab_part = ar.take(static_cast<size_t>(S) * groups * blocks * kT * kT);
+  sc.chunk_rows = wg_chunk_rows(M, kWgPerStream * S * max2(wg_groups_of_tiles(C, inner), wg_groups_of_tiles(inner, C)));
+  sc.chunks = (M + sc.chunk_rows - 1) / sc.chunk_rows;
+  sc.wg_part = ar.take(static_cast<size_t>(S) * sc.chunks * (3 * (C + 1) * inner + (inner + 1) * C));
+  return sc;
+}
+
+// Argument slots, in the forward's order (ops/window_attention.py), then g; outputs: g_x, then
+// the gradient of each weight in slot order (out[w] for In w).
+enum In { kX, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kG };
+
+template <int DP, bool kFused>
+cudaError_t launch_block(int blocks, int groups, int smem, const BwdArgs& a, cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(k3_bwd_kernel<DP, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  k3_bwd_kernel<DP, kFused><<<dim3(blocks, a.S, groups), kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pitch(bool fused, int dp, int blocks, int groups, int smem, const BwdArgs& a, cudaStream_t st) {
+  if (fused) {
+    if (dp == 4) return launch_block<4, true>(blocks, groups, smem, a, st);
+    if (dp == 8) return launch_block<8, true>(blocks, groups, smem, a, st);
+    return cudaErrorInvalidValue;
+  }
+  switch (dp) {
+    case 4: return launch_block<4, false>(blocks, groups, smem, a, st);
+    case 8: return launch_block<8, false>(blocks, groups, smem, a, st);
+    case 12: return launch_block<12, false>(blocks, groups, smem, a, st);
+    case 16: return launch_block<16, false>(blocks, groups, smem, a, st);
+    case 24: return launch_block<24, false>(blocks, groups, smem, a, st);
+    case 32: return launch_block<32, false>(blocks, groups, smem, a, st);
+    case 48: return launch_block<48, false>(blocks, groups, smem, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x, g and g_x fp32, or bf16 with `is_bf16` set (fp32 inside).
+int k3_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H, int W, int C, int heads,
+           int d, int hg, bool fused, int blocks, int shift, int cross, int is_bf16, float scale, cudaStream_t st) {
+  const int inner = heads * d, M = B * H * W, groups = heads / hg;
+  swin::Arena ar{ws};
+  const BwdScratch sc = carve(ar, S, M, C, inner, groups, blocks, fused, cross != 0);
+
+  Transposes tr = {};
+  int jobs = 0, most = 0;
+  auto add = [&](const float* src, float* dst, int rows, int cols) {
+    tr.src[jobs] = src, tr.dst[jobs] = dst, tr.rows[jobs] = rows, tr.cols[jobs] = cols;
+    most = max2(most, rows * cols);
+    ++jobs;
+  };
+  const int w_of[3] = {kWq, kWk, kWv};
+  for (int s = 0; s < S; ++s) {
+    const size_t ci = static_cast<size_t>(s) * C * inner;
+    add(in[kWp] + ci, sc.wpT + ci, inner, C);
+    for (int p = 0; p < 3; ++p) add(in[w_of[p]] + ci, sc.wqkvT + 3 * ci + static_cast<size_t>(p) * inner * C, C, inner);
+  }
+  transpose_kernel<<<dim3(std::min((most + kThreads - 1) / kThreads, 64), jobs), kThreads, 0, st>>>(tr);
+
+  const BwdArgs a = {in[kX], in[kG], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias], sc.wpT,
+                     sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, out[0], sc.gxq, sc.gxkv, sc.tab_part, S, B, H, W, C,
+                     inner, d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0, is_bf16};
+  const int smem = bwd_layout(fused, cross != 0, C, inner, hg, d, pitch_for(d, fused)).total;
+  cudaError_t err = launch_pitch(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t n_x = static_cast<size_t>(S) * M * C;
+  if (fused && cross) {
+    sum_sides_kernel<<<static_cast<unsigned>(std::min<size_t>((n_x + kThreads - 1) / kThreads, 132 * 16)),
+                       kThreads, 0, st>>>(sc.gxq, sc.gxkv, out[0], n_x, is_bf16);
+  } else if (!fused) {
+    const int width = gx_width(C);
+    const GxArgs ga = {sc.gq, sc.gk, sc.gv, sc.wqkvT, out[0], S, M, C, inner, width, cross, is_bf16};
+    const int gsmem = gx_layout(width).total;
+    err = cudaFuncSetAttribute(gx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gx_kernel<<<dim3(M / kT, S, (C + width - 1) / width), kThreads, gsmem, st>>>(ga);
+  }
+
+  // weight gradients from the stored operands, one launch; then every partial sum
+  WgJobs wg = {};
+  wg.rows = M;
+  wg.chunk_rows = sc.chunk_rows;
+  swin::ReduceJobs red = {};
+  bool ok = true;
+  const int grads[kWgPerStream][2] = {{kWq, kBq}, {kWk, kBk}, {kWv, kBv}, {kWp, kBp}};
+  float* part = sc.wg_part;
+  int tile_groups = 1, wg_bytes = 0;
+  for (int s = 0; s < S; ++s) {
+    const size_t tok = static_cast<size_t>(s) * M, s_kv = cross ? static_cast<size_t>(S - 1 - s) * M : tok;
+    const size_t elem = is_bf16 ? 2 : 4;  // bytes of an x or g element
+    const unsigned char* x = reinterpret_cast<const unsigned char*>(in[kX]);
+    const unsigned char* g = reinterpret_cast<const unsigned char*>(in[kG]);
+    const WgJob job[kWgPerStream] = {
+        {x + tok * C * elem, sc.gq + tok * inner, nullptr, C, inner, 0, is_bf16},
+        {x + s_kv * C * elem, sc.gk + tok * inner, nullptr, C, inner, 0, is_bf16},
+        {x + s_kv * C * elem, sc.gv + tok * inner, nullptr, C, inner, 0, is_bf16},
+        {sc.av + tok * inner, g + tok * C * elem, nullptr, inner, C, is_bf16, 0},
+    };
+    for (int j = 0; j < kWgPerStream; ++j) {
+      WgJob jb = job[j];
+      jb.part = part;
+      wg.job[wg.count++] = jb;
+      tile_groups = max2(tile_groups, wg_groups_of_tiles(jb.ka, jb.nb));
+      wg_bytes = max2(wg_bytes, wg_smem(jb.ka, jb.nb));
+      ok &= red.add(part, sc.chunks, (jb.ka + 1) * jb.nb, jb.ka * jb.nb,
+                    out[grads[j][0]] + static_cast<size_t>(s) * jb.ka * jb.nb,
+                    out[grads[j][1]] + static_cast<size_t>(s) * jb.nb);
+      part += static_cast<size_t>(sc.chunks) * (jb.ka + 1) * jb.nb;
+    }
+  }
+  err = cudaFuncSetAttribute(wgrad_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgrad_rows_kernel<<<dim3(sc.chunks, wg.count, tile_groups), kThreads, wg_bytes, st>>>(wg);
+
+  const int tab_chunks = groups * blocks;
+  for (int s = 0; s < S; ++s)
+    ok &= red.add(sc.tab_part + static_cast<size_t>(s) * tab_chunks * kT * kT, tab_chunks, kT * kT, kT * kT,
+                  out[kBias] + static_cast<size_t>(s) * kT * kT, nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  swin::launch_reduce(red, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// swin_cuda_error_string comes with window_core.cuh.
+
+// Dynamic shared memory in bytes of one block of the block kernel (kind 0) or of the split
+// route's g_x kernel (kind 1), or 0 where the route does not take the dimensions (hg: heads a
+// block; fused: every head, hg == heads).
+size_t swin_k3_bwd_smem(int kind, int fused, int cross, int C, int heads, int d, int hg) {
+  const int inner = heads * d;
+  if (kind < 0 || kind > 1 || !supported(C, inner, heads, d, hg, fused != 0, cross != 0)) return 0;
+  if (kind == 1) return static_cast<size_t>(gx_layout(gx_width(C)).total);
+  return static_cast<size_t>(bwd_layout(fused != 0, cross != 0, C, inner, hg, d, pitch_for(d, fused != 0)).total);
+}
+
+// Floats of workspace one call needs; blocks: blocks per (stream, group of heads).
+size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d, int hg, int fused, int blocks,
+                             int cross) {
+  swin::Arena ar{nullptr};
+  carve(ar, S, B * H * W, C, heads * d, heads / hg, blocks, fused != 0, cross != 0);
+  return ar.used;
+}
+
+// The backward without dropout on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
+// g = dL/d out; out: g_x, then the gradients of those nine weights in that order and shapes. x,
+// g and g_x are (S, B, H, W, C) fp32, or bf16 when `bf16_io` is set (fp32 inside); the weights
+// and their gradients fp32; 7x7 windows. hg: heads a block (fused: every head, g_x in the
+// block); blocks: blocks per (stream, group of heads); ws: ws_floats floats of workspace, at
+// least swin_k3_bwd_workspace(...). Every output is written in full. Returns
+// cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions the
+// route does not take or a workspace too small.
+int swin_k3_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats, int S, int B, int H, int W,
+                int C, int heads, int d, int hg, int fused, int blocks, int shift, int cross, int bf16_io, float scale,
+                void* stream) {
+  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || blocks < 1 ||
+      !supported(C, heads * d, heads, d, hg, fused != 0, cross != 0) ||
+      ws_floats < swin_k3_bwd_workspace(S, B, H, W, C, heads, d, hg, fused, blocks, cross))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return k3_bwd(in, out, ws, S, B, H, W, C, heads, d, hg, fused != 0, blocks, shift, cross, bf16_io != 0, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,14 +1,17 @@
 // Device code of the window-attention backward, redesigned for Hopper (sm_90a): what the
-// fused block's backward (fused_block_bwd.cu, K1 bwd and K4 bwd) runs in its blocks of one
-// window, written so that a later K3 bwd on the same block geometry can reuse it. Built on
-// window_fwd.cuh: one 7x7 window of T = 49 tokens per block, 256 threads, GEMM operands
-// resident in shared memory channel-major ([k][kPitchF], row groups at a_col) with the
-// weights streamed through a cp.async ring.
+// fused block's backward (fused_block_bwd.cu, K1 bwd and K4 bwd) and K3's backward
+// (window_attention_bwd.cu) run in their blocks of one window. Built on window_fwd.cuh: one
+// 7x7 window of T = 49 tokens per block, 256 threads, GEMM operands resident in shared memory
+// channel-major ([k][kPitchF], row groups at a_col) or streamed through a ring in that layout,
+// with the weights streamed through a cp.async ring.
 //
 //   gemm_tile    Y[49, nb] += A[49, K] @ B[K, nb] with fp32 FMA, each thread holding an 8 x
 //                TN register tile (TN = 1, 2 or 4, chosen by with_tn from nb so that the
 //                narrow products of the backward (nb = C = 24 or 48) keep 168-252 threads
 //                busy where window_fwd.cuh's fixed 8 x 4 tile keeps 42-84);
+//   gemm_stream  the same product with A streamed from device memory (fp32, or bf16 upcast
+//                as it is loaded) through a two-slot ring, each thread staging its share of
+//                the next chunk in registers while the current one is multiplied;
 //   core_bwd_rows / core_bwd_cols
 //                the attention core's backward for every head of one window, from q
 //                (scaled), k, v and g_o in the core layout [head][49][DP]: the rows pass
@@ -20,14 +23,20 @@
 //                per key of a head) recomputes P and g_S from the rows pass's 1/sum and dot
 //                and writes g_k = g_S^T q and g_v = P^T g_o. The softmax clamp at 80 is not
 //                differentiated and a masked score (-inf in the bias) gives P = g_S = 0,
-//                as in window_core_bwd.cuh and the JAX bodies;
+//                as in window_core_bwd.cuh and the JAX bodies; core_bwd runs both passes for
+//                any group of heads, so a block may take all of a window's heads or some;
 //   wgrad_rows_kernel
 //                weight gradients [A | 1]^T B over token rows, every weight of a call in one
 //                launch: a block per (chunk of rows, weight, group of output tiles), 4 x 4
-//                register tiles, rows in slabs through shared memory in 16-byte loads; where
+//                register tiles, rows in slabs through shared memory in 16-byte loads (only a
+//                block's own columns where a weight's tiles are cut into rectangles); where
 //                a weight has fewer tiles than threads the rows are split among thread
 //                groups summed in a fixed order (window_core_bwd.cuh's wgrad_kernel gives
-//                each output tile a 32- or 64-wide block, mostly zeros at C = 24).
+//                each output tile a 32- or 64-wide block, mostly zeros at C = 24); A and B
+//                fp32 or bf16 token rows;
+//   transpose_kernel
+//                weight matrices transposed into a workspace, so that a product with W^T
+//                streams its weights through the same ring as one with W.
 // Every sum runs in a fixed order in one thread or one set of shuffles: a repeat gives the
 // same bits.
 
@@ -38,6 +47,9 @@
 namespace wbwd {
 
 using namespace wfwd;
+
+constexpr int kMaxCols = 36 * kTileN;  // columns one product takes at most (7 x 36 tiles of 8 x 4)
+constexpr int kSmemMax = 232448;       // dynamic shared memory a block may use
 
 template <int N> struct TnTag { static constexpr int value = N; };
 
@@ -93,6 +105,18 @@ __device__ __forceinline__ void chunk_tn(float (&acc)[8][TN], const float* a, co
   }
 }
 
+// A Gemm of one weight matrix w ([K][ldw], columns nb of which ncols are real).
+__device__ __forceinline__ Gemm weights(const float* w, int nb, int ldw, int K, int ncols = 0) {
+  Gemm g{};
+  g.aparts = 1;
+  g.w[0] = w;
+  g.n = g.nb = nb;
+  g.ldw = ldw;
+  g.K = K;
+  g.ncols = ncols;
+  return g;
+}
+
 // acc += A @ B over g.K channels with A resident (a0; a1 for the k/v parts under cross,
 // window_fwd.cuh's a_part) and the weights streamed through a kDepth-deep ring of 16
 // channels. g.nb must be a multiple of 4 (the ring's 16-byte copies) and of TN; A's channels
@@ -116,6 +140,64 @@ __device__ __forceinline__ void gemm_tile(Tile<TN>& acc, const Gemm& g, const fl
     __syncthreads();
     issue(c + kDepth - 1);
     if (active) chunk_tn<TN>(acc.v, a + c * kKc * kPitchF, bbuf + (c % kDepth) * kKc * g.nb + cg * TN, g.nb);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  acc.tile = active ? tid : -1;
+}
+
+// acc += A @ B over g.K channels with A streamed from device memory: row t of A part p at
+// g.abase[p] + g.rows[t], fp32 or (a_bf16) bf16 upcast as it is loaded, into a
+// two-slot ring in the layout of window_fwd.cuh's gemm_f32 ([part][k][kPitchF], row groups at
+// a_col), the weights through a two-slot cp.async ring (bbuf). Each thread loads its share of
+// chunk c + 1 into registers before it multiplies chunk c and stores it after, so the loads
+// overlap the FMAs. g.nb must be a multiple of 4 and of TN. Ends with a barrier.
+template <int TN>
+__device__ __forceinline__ void gemm_stream(Tile<TN>& acc, const Gemm& g, float* abuf, float* bbuf, int a_bf16) {
+  constexpr int kPer = (2 * kKc * kT + kThreads - 1) / kThreads;  // A elements a thread stages
+  const int tid = threadIdx.x;
+  const bool active = tid < kRowGroups * (g.nb / TN);
+  const int rg = tid % kRowGroups, cg = tid / kRowGroups;
+  const int ap = a_part(g, cg * TN >= g.n);
+  const int chunks = (g.K + kKc - 1) / kKc;
+  const int per = g.aparts * kKc * kT, slot = g.aparts * kKc * kPitchF;
+  float staged[kPer];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % kT, k = c * kKc + kk;
+      const void* base = i >= kKc * kT ? g.abase[1] : g.abase[0];
+      const int at = g.rows[t] + k;
+      staged[u] = i >= per || k >= g.K ? 0.0f
+                  : a_bf16              ? __bfloat162float(static_cast<const bf16*>(base)[at])
+                                        : static_cast<const float*>(base)[at];
+    }
+  };
+  auto place = [&](int c) {
+    float* ab = abuf + (c % 2) * slot;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % kT, part = i / (kKc * kT);
+      if (i < per) ab[(part * kKc + kk) * kPitchF + a_col(t >> 3) + (t & 7)] = staged[u];
+    }
+  };
+  auto issue_w = [&](int c) {
+    if (c < chunks) issue_b(g, bbuf + (c % 2) * kKc * g.nb, c * kKc, g.nb);
+    cp_async_commit();
+  };
+  fetch(0);
+  place(0);
+  issue_w(0);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const bool more = c + 1 < chunks;
+    if (more) fetch(c + 1);
+    issue_w(c + 1);
+    if (active)
+      chunk_tn<TN>(acc.v, abuf + (c % 2) * slot + ap * kKc * kPitchF + a_col(rg), bbuf + (c % 2) * kKc * g.nb + cg * TN,
+                   g.nb);
+    if (more) place(c + 1);  // slot (c + 1) % 2 was last read before this chunk's barrier
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -277,6 +359,17 @@ __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v
   }
 }
 
+// Both passes of the core's backward for the `heads` heads of q/k/v/g_o (a window's heads, or a
+// group of them), with the barrier between them.
+template <int DP, typename GqOut, typename GkvOut>
+__device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
+                                         const float* bias_s, int heads, int d, float scale, float2* rd,
+                                         float (&tab)[kQuarter], GqOut gq_out, GkvOut gkv_out) {
+  core_bwd_rows<DP>(q_s, k_s, v_s, go_s, bias_s, heads, d, scale, rd, tab, gq_out);
+  __syncthreads();
+  core_bwd_cols<DP>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out);
+}
+
 // ---- weight gradients: partial[chunk] (Ka + 1, Nb) = [A | 1]^T B over a chunk of rows -----
 // One launch for every weight of a call (up to kMaxWgJobs jobs of their own shapes), a block
 // per (chunk of rows, job, group of output tiles). A thread holds a 4 x 4 output tile in
@@ -288,11 +381,18 @@ constexpr int kWgSlab = 64;
 constexpr int kMaxWgJobs = 12;
 
 struct WgJob {
-  const float* a;  // (M, ka) fp32 token rows
-  const void* b;   // (M, nb) token rows, fp32 or (b_bf16) bf16
-  float* part;     // (chunks, ka + 1, nb)
-  int ka, nb, b_bf16;
+  const void* a;  // (M, ka) token rows, fp32 or (a_bf16) bf16
+  const void* b;  // (M, nb) token rows, fp32 or (b_bf16) bf16
+  float* part;    // (chunks, ka + 1, nb)
+  int ka, nb, b_bf16, a_bf16;
 };
+
+// Four consecutive elements of fp32 or bf16 token rows at element `at`, as fp32.
+__device__ __forceinline__ float4 load4(const void* p, size_t at, int is_bf16) {
+  if (!is_bf16) return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + at);
+  const bf16* b = static_cast<const bf16*>(p) + at;
+  return make_float4(__bfloat162float(b[0]), __bfloat162float(b[1]), __bfloat162float(b[2]), __bfloat162float(b[3]));
+}
 
 struct WgJobs {
   WgJob job[kMaxWgJobs];
@@ -300,11 +400,21 @@ struct WgJobs {
 };
 
 __host__ __device__ inline int wg_tiles(int ka, int nb) { return ((ka + 4) / 4) * ((nb + 3) / 4); }
-__host__ __device__ inline int wg_groups_of_tiles(int ka, int nb) { return (wg_tiles(ka, nb) + kThreads - 1) / kThreads; }
-// Shared memory of a job's block: the A slab (ka + 1 columns, pitched to 4) and the B slab,
-// or the row groups' 4 x 4 sums where they take more.
+// A job with more than kWgRect tile rows and tile columns (K3's at C >= 96) is cut into
+// rectangles of kWgRect x kWgRect tiles, a block each, that load only their columns of A and
+// B; a smaller job takes kThreads consecutive tiles a block and loads whole rows.
+constexpr int kWgRect = 16;
+__host__ __device__ inline bool wg_rect(int ka, int nb) { return (ka + 4) / 4 > kWgRect && (nb + 3) / 4 > kWgRect; }
+// Blocks of one chunk of rows of a job.
+__host__ __device__ inline int wg_groups_of_tiles(int ka, int nb) {
+  if (wg_rect(ka, nb)) return ((ka + 4) / 4 + kWgRect - 1) / kWgRect * (((nb + 3) / 4 + kWgRect - 1) / kWgRect);
+  return (wg_tiles(ka, nb) + kThreads - 1) / kThreads;
+}
+// Shared memory of a job's block: the A slab (its columns of ka + 1, pitched to 4) and the B
+// slab, or the row groups' 4 x 4 sums where they take more.
 __host__ __device__ inline int wg_smem(int ka, int nb) {
-  return max2(kWgSlab * (round_up(ka + 1, 4) + round_up(nb, 4)), kThreads * 16) * 4;
+  const int cols = wg_rect(ka, nb) ? 8 * kWgRect : round_up(ka + 1, 4) + round_up(nb, 4);
+  return max2(kWgSlab * cols, kThreads * 16) * 4;
 }
 // Chunks of `rows` token rows that a launch of `jobs` jobs cuts (about eight blocks an SM of
 // a 132-SM card), and the rows of each.
@@ -319,15 +429,25 @@ __global__ void __launch_bounds__(kThreads) wgrad_rows_kernel(const WgJobs p) {
   extern __shared__ __align__(16) float wsm[];
   const WgJob jb = p.job[blockIdx.y];
   const int ka = jb.ka, nb = jb.nb, tid = threadIdx.x;
-  const int tiles_b = (nb + 3) / 4, tiles = wg_tiles(ka, nb);
-  const int first = blockIdx.z * kThreads;
-  if (first >= tiles) return;
-  const int mine = min(kThreads, tiles - first);  // output tiles of this block
-  const int groups = kThreads / mine;              // row groups (1 where the tiles fill the block)
+  const int tiles_a = (ka + 4) / 4, tiles_b = (nb + 3) / 4;
+  int ta0 = 0, tb0 = 0, na = tiles_a, nbt = tiles_b, first = 0;  // the block's tiles: a rectangle, or a run
+  if (wg_rect(ka, nb)) {
+    const int across = (tiles_b + kWgRect - 1) / kWgRect;
+    ta0 = blockIdx.z / across * kWgRect;
+    tb0 = blockIdx.z % across * kWgRect;
+    if (ta0 >= tiles_a) return;
+    na = min(kWgRect, tiles_a - ta0);
+    nbt = min(kWgRect, tiles_b - tb0);
+  } else {
+    first = blockIdx.z * kThreads;
+    if (first >= tiles_a * tiles_b) return;
+  }
+  const int mine = min(kThreads, na * nbt - first);  // output tiles of this block
+  const int groups = kThreads / mine;                // row groups (1 where the tiles fill the block)
   const int group = tid / mine, tile = first + tid % mine;
   const bool active = group < groups;
-  const int ta = tile / tiles_b, tb = tile - ta * tiles_b;
-  const int pa = round_up(ka + 1, 4), pb = round_up(nb, 4);
+  const int ta = tile / nbt, tb = tile - ta * nbt;  // within the block's columns
+  const int pa = 4 * na, pb = 4 * nbt, ca0 = 4 * ta0, cb0 = 4 * tb0;
   float* as = wsm;
   float* bs = wsm + kWgSlab * pa;
   const int r_begin = blockIdx.x * p.chunk_rows, r_end = min(p.rows, r_begin + p.chunk_rows);
@@ -338,24 +458,15 @@ __global__ void __launch_bounds__(kThreads) wgrad_rows_kernel(const WgJobs p) {
       const int r = e / (pa / 4), c = (e - r * (pa / 4)) * 4, row = r0 + r;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (row < r_end) {
-        if (c < ka) v = *reinterpret_cast<const float4*>(jb.a + static_cast<size_t>(row) * ka + c);
-        else if (c == ka) v.x = 1.0f;  // the ones column: the bias gradient
+        if (ca0 + c < ka) v = load4(jb.a, static_cast<size_t>(row) * ka + ca0 + c, jb.a_bf16);
+        else if (ca0 + c == ka) v.x = 1.0f;  // the ones column: the bias gradient
       }
       *reinterpret_cast<float4*>(as + r * pa + c) = v;
     }
     for (int e = tid; e < kWgSlab * (pb / 4); e += kThreads) {
       const int r = e / (pb / 4), c = (e - r * (pb / 4)) * 4, row = r0 + r;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < r_end && c < nb) {
-        const size_t at = static_cast<size_t>(row) * nb + c;
-        if (jb.b_bf16) {
-          const bf16* b = static_cast<const bf16*>(jb.b) + at;
-          v = make_float4(__bfloat162float(b[0]), __bfloat162float(b[1]), __bfloat162float(b[2]),
-                          __bfloat162float(b[3]));
-        } else {
-          v = *reinterpret_cast<const float4*>(static_cast<const float*>(jb.b) + at);
-        }
-      }
+      if (row < r_end && cb0 + c < nb) v = load4(jb.b, static_cast<size_t>(row) * nb + cb0 + c, jb.b_bf16);
       *reinterpret_cast<float4*>(bs + r * pb + c) = v;
     }
     __syncthreads();
@@ -383,11 +494,27 @@ __global__ void __launch_bounds__(kThreads) wgrad_rows_kernel(const WgJobs p) {
   float* part = jb.part + static_cast<size_t>(blockIdx.x) * (ka + 1) * nb;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ta + i;
+    const int row = ca0 + 4 * ta + i, col = cb0 + 4 * tb;
     if (row > ka) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (4 * tb + j < nb) part[static_cast<size_t>(row) * nb + 4 * tb + j] = acc[i][j];
+      if (col + j < nb) part[static_cast<size_t>(row) * nb + col + j] = acc[i][j];
+  }
+}
+
+// ---- the transposed weights ----
+constexpr int kMaxTransposes = 12;
+struct Transposes {
+  const float* src[kMaxTransposes];  // (rows, cols)
+  float* dst[kMaxTransposes];        // (cols, rows)
+  int rows[kMaxTransposes], cols[kMaxTransposes];
+};
+
+__global__ void __launch_bounds__(kThreads) transpose_kernel(const Transposes p) {
+  const int j = blockIdx.y, rows = p.rows[j], cols = p.cols[j];
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < rows * cols; e += gridDim.x * kThreads) {
+    const int r = e / cols, c = e - r * cols;
+    p.dst[j][static_cast<size_t>(c) * rows + r] = p.src[j][e];
   }
 }
 

@@ -24,8 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("window_attention", "window_attention_fwd", "fused_block", "fused_block_fwd", "fused_block_bwd",
-                  "repartition", "dropout_mask")
+KERNEL_SOURCES = ("window_attention", "window_attention_fwd", "window_attention_bwd", "fused_block",
+                  "fused_block_fwd", "fused_block_bwd", "repartition", "dropout_mask")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

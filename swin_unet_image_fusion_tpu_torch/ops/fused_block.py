@@ -87,6 +87,7 @@ from . import hash_dropout as hd
 from .window import device_constant
 from .window_attention import (
     ACT_DTYPES,
+    DEFAULT_SMS,
     FUSED_SMEM_MAX,
     FWD_PITCHES,
     FWD_WINDOW,
@@ -94,11 +95,14 @@ from .window_attention import (
     MAX_STREAMS,
     PROJ_COLS,
     SMEM_LIMIT_BYTES,
+    SMEM_TWO_PER_SM,
     _STAGES,
     _align16,
     _b_bytes,
     _ring_a_bytes,
     _round_up,
+    _sm_count,
+    _wgrad_chunks,
     attention_smem,
     fast_softmax,
     operand_rounding,
@@ -462,11 +466,8 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
 # ---- the backward without dropout, K1 and K4 (csrc/fused_block_bwd.cu): its launch plan ----
 BWD_KERNELS = ("forward", "mlp", "attention")  # the fused route's three block kernels
 BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
-SMEM_TWO_PER_SM = 233_472 // 2 - 1024  # where two blocks of a kernel share an SM
-DEFAULT_SMS = 132  # SMs of an H100 SXM: the plan's block count where no card is given
 _BWD_RING = 2  # weight-ring slots of the block kernels
 _LN1_ROWS = 128
-_WG_SLAB, _WG_TARGET_BLOCKS = 64, 132 * 8  # csrc/window_bwd.cuh's kWgSlab, kWgTargetBlocks
 
 
 def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, cross: bool) -> int:
@@ -557,15 +558,6 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
         raise ValueError(f"the fused block's backward at d={d} needs {smem} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT_BYTES} a block has")
     return BlockBwdPlan("five", 20, 0, 0, (("core_bwd", smem),))
-
-
-def _wgrad_chunks(m: int, jobs: int) -> int:
-    """Chunks of the token rows of the weight-gradient launch (``wg_chunk_rows`` in
-    ``csrc/window_bwd.cuh``: about eight blocks an SM of a 132-SM card, whole slabs of 64
-    rows)."""
-    slabs = -(-m // _WG_SLAB)
-    chunks = max(1, min(slabs, _WG_TARGET_BLOCKS // jobs))
-    return -(-m // _round_up(-(-m // chunks), _WG_SLAB))
 
 
 def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
@@ -689,13 +681,6 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
     else:
         LAUNCHES += 1
     return out
-
-
-def _sm_count(device: torch.device) -> int:
-    """The card's SM count (the fused route's blocks fill one wave of it)."""
-    if device.type != "cuda":
-        return DEFAULT_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:

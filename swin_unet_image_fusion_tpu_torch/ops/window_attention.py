@@ -28,16 +28,22 @@ one launch; elsewhere a block takes a group of heads and writes AV, and a second
 projects. On the tensor cores in bf16 (``mma.sync``), on fp32 FMA in fp32. Dropout calls
 run the three launches of ``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one
 block per (window, stream, head) for scores, mask, softmax and AV, a batched GEMM for the
-output projection), which the backward also recomputes. There is no fallback between the
+output projection), which the dropout backward also recomputes. There is no fallback between the
 versions.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
-goes through ``_WindowAttentionFunction``, whose backward launches
-``swin_window_attention_bwd`` (K3 bwd): it recomputes q/k/v and AV from x and the
-weights, as the JAX custom VJP does, and returns g_x and every weight's gradient.
+goes through ``_WindowAttentionFunction``, whose backward (K3 bwd) recomputes q/k/v and AV
+from x and the weights, as the JAX custom VJP does, and returns g_x and every weight's
+gradient. Without dropout it runs ``csrc/window_attention_bwd.cu`` as :func:`bwd_plan` lays it
+out: a block per (group of windows, stream, group of heads) recomputes each window in shared
+memory and backpropagates it; where every head fits a block (the stages with d <= 8 of the
+default model) the block also forms g_x ("fused"), elsewhere a second kernel does ("split");
+one weight-gradient launch and one reduction follow. A dropout call runs
+``swin_window_attention_bwd`` of ``csrc/window_attention.cu`` (the three-launch recompute and
+the old core backward). There is no fallback between the two.
 ``window_attention_bwd_plain`` is the plain backward (autograd of the plain version); it
-differs from the kernel only where a score exceeds the softmax clamp of 80, whose
-derivative the kernel, like the TPU's, does not take. For a bf16 x both are what the JAX
+differs from the kernels only where a score exceeds the softmax clamp of 80, whose
+derivative the kernels, like the TPU's, do not take. For a bf16 x both are what the JAX
 backward body computes (``_attention_bwd_body`` l.388-390, 495-498): the fp32 backward
 at the upcast x and g (not autograd of the bf16 forward's rounding points), the weight
 gradients fp32 and g_x in bf16, rounded once in self mode; under cross the q side and the
@@ -72,6 +78,8 @@ from .window import apply_shift_mask, device_constant, window_partition, window_
 
 SOFTMAX_CLAMP = 80.0
 SMEM_LIMIT_BYTES = 232_448  # what one block may use on Hopper
+SMEM_TWO_PER_SM = 233_472 // 2 - 1024  # where two blocks of a kernel share an SM
+DEFAULT_SMS = 132  # SMs of an H100 SXM: a plan's block count where no card is given
 MAX_STREAMS = 2  # the kernel's batched projections hold 3 * streams operands
 
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # of x and the output; weights are fp32
@@ -263,6 +271,18 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("window_attention_bwd")
+    lib.swin_k3_bwd.argtypes = [_P, _P, _P, ctypes.c_size_t] + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_k3_bwd.restype = _I
+    lib.swin_k3_bwd_smem.argtypes = [_I] * 7
+    lib.swin_k3_bwd_smem.restype = ctypes.c_size_t
+    lib.swin_k3_bwd_workspace.argtypes = [_I] * 11
+    lib.swin_k3_bwd_workspace.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load("window_attention_fwd")
     lib.swin_k3_fwd.argtypes = [_P] * 12 + [_I] * 12 + [ctypes.c_float, _P]
@@ -385,6 +405,173 @@ def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
                      f"of {d} dims")
 
 
+# ---- the backward without dropout (csrc/window_attention_bwd.cu): its launch plan ----------
+# Block geometry as the forward's; every product streams its weights (and on the recompute its
+# A rows) through two-slot rings; a product takes at most 144 columns (7 x 36 tiles of 8 x 4).
+BWD_KERNELS = ("attention", "gx")  # the block kernel; the split route's g_x kernel
+BWD_RING = 2
+BWD_COLS = 144
+BWD_FUSED_PITCHES = (4, 8)  # the fused route's q/k row pitches
+_WG_SLAB, _WG_TARGET_BLOCKS, _WG_RECT = 64, 132 * 8, 16  # csrc/window_bwd.cuh's kWgSlab, kWgTargetBlocks, kWgRect
+
+
+def _bwd_blocks_per_sm(pitch: int, smem: int) -> int:
+    """Blocks an SM of the block kernel: its register bound (``min_blocks`` in the source, one
+    from a row pitch of 24 on) and its shared memory."""
+    return 1 if pitch >= 24 or smem > SMEM_TWO_PER_SM else 2
+
+
+def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitch: int) -> int:
+    """Shared-memory bytes of one block of the backward's block kernel (``bwd_layout`` in the
+    source): the A ring (x, and under cross the kv rows, 2 slots x 16 channels x 60 floats a
+    part) and the weight ring (2 x 16 x the 3 hg*d q/k/v columns), over which the fused route
+    keeps g_q | g_k | g_v resident ([3 heads*d rounded to 16][60]); q, k, v and g_o of hg heads
+    [hg][49][pitch] (on the fused route at least the g_x product's ring, 2 x 16 x C, and a row
+    buffer [49][C]); the rows pass's (1/sum, dot) per (head, row); the masked bias table; the
+    row, region and token tables, the column offsets and biases."""
+    n = hg * d
+    qkv = _align16(hg * _T * pitch * 4)
+    ring = _ring_a_bytes(False, 2 if cross else 1, BWD_RING) + _b_bytes(False, 3 * n, BWD_RING)
+    total = _align16(max(ring, _round_up(3 * inner, _KC) * _PITCH_F * 4 if fused else 0))
+    gx = _align16(_b_bytes(False, c, BWD_RING)) + _align16(_T * c * 4) if fused else 0
+    total += max(4 * qkv, gx)
+    return total + _align16(hg * _T * 8) + _align16(_T * _T * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
+
+
+def gx_width(c: int) -> int:
+    """Output columns of a block of the split route's g_x kernel: C in the fewest groups of
+    at most 144 columns, each a multiple of 4 (``gx_width`` in the source)."""
+    groups = -(-c // BWD_COLS)
+    return _round_up(-(-c // groups), 4)
+
+
+def gx_smem(c: int) -> int:
+    """Shared-memory bytes of one block of the g_x kernel (``gx_layout``): its A ring (2 x 16
+    x 60 floats), weight ring (2 x 16 x width), a row buffer [49][width] and the row table."""
+    width = gx_width(c)
+    return (_align16(_ring_a_bytes(False, 1, BWD_RING) + _b_bytes(False, width, BWD_RING))
+            + _align16(_T * width * 4) + _align16(_ROWS_B * 4))
+
+
+def _wg_rect(ka: int, nb: int) -> bool:
+    """Whether a weight-gradient job is cut into rectangles of 16 x 16 output tiles
+    (``wg_rect`` in csrc/window_bwd.cuh)."""
+    return (ka + 4) // 4 > _WG_RECT and (nb + 3) // 4 > _WG_RECT
+
+
+def _wg_groups(ka: int, nb: int) -> int:
+    """Blocks of one chunk of rows of a weight-gradient job (``wg_groups_of_tiles``)."""
+    if _wg_rect(ka, nb):
+        return -(-((ka + 4) // 4) // _WG_RECT) * -(-((nb + 3) // 4) // _WG_RECT)
+    return -(-((ka + 4) // 4 * ((nb + 3) // 4)) // _THREADS)
+
+
+def _wg_smem(ka: int, nb: int) -> int:
+    """Shared memory of a weight-gradient block (``wg_smem`` in csrc/window_bwd.cuh)."""
+    cols = 8 * _WG_RECT if _wg_rect(ka, nb) else _round_up(ka + 1, 4) + _round_up(nb, 4)
+    return max(_WG_SLAB * cols, _THREADS * 16) * 4
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward without dropout runs at one shape, fp32 and bf16 alike (fp32 inside):
+    ``route`` "fused" (a block per group of windows and stream with every head forms g_x too:
+    the transposed weights, the block kernel, under cross the sum of g_x's two sides, the
+    weight gradients, one reduction) or "split" (a block per group of windows, stream and group
+    of ``heads_per_block`` heads, then the g_x kernel); ``smem``: (kernel, dynamic
+    shared-memory bytes of one block) of the route's kernels (``BWD_KERNELS``);
+    ``blocks_per_sm`` of the block kernel."""
+
+    route: str
+    heads_per_block: int
+    pitch: int
+    smem: Tuple[Tuple[str, int], ...]
+    blocks_per_sm: int
+
+    def launches(self, cross: bool) -> int:
+        """Kernel launches of one call."""
+        return 5 if self.route == "split" or cross else 4
+
+    def blocks(self, s: int, b: int, h: int, w: int, heads: int, sms: int = DEFAULT_SMS) -> int:
+        """Blocks per (stream, group of heads) of the block kernel: one wave of the card, at
+        most one per window."""
+        windows = b * (h // FWD_WINDOW[0]) * (w // FWD_WINDOW[1])
+        groups = heads // self.heads_per_block
+        return max(1, min(windows, sms * self.blocks_per_sm // (s * groups)))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
+             bf16: bool) -> BwdPlan:
+    """The launch plan of the backward without dropout, or ValueError where its kernels do
+    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8, and the weight
+    gradients' row slabs within a block's shared memory. Every head in one block ("fused")
+    where d <= 8, 3 heads*d <= 144 and C <= 144 (one product's columns); else the largest group
+    of heads with at most 48 columns per q/k/v part (a multiple of 8, as the forward's split
+    route). ``bf16`` does not change the plan: the backward is fp32 inside."""
+    del bf16  # one plan for both dtypes
+    inner = heads * d
+    if tuple(window) != FWD_WINDOW:
+        raise ValueError(f"the window-attention backward takes {FWD_WINDOW} windows, got {tuple(window)}")
+    pitch = next((p for p in FWD_PITCHES if d <= p), None)
+    if pitch is None:
+        raise ValueError(f"the window-attention backward takes at most {FWD_PITCHES[-1]} dims per "
+                         f"head, got {d}")
+    if c % 8 or inner % 8:
+        raise ValueError(f"the window-attention backward takes C and heads*d multiples of 8, "
+                         f"got C={c}, heads*d={inner}")
+    if max(_wg_smem(c, inner), _wg_smem(inner, c), gx_smem(c)) > SMEM_LIMIT_BYTES:
+        raise ValueError(f"the window-attention backward's weight gradients at C={c}, heads*d={inner} "
+                         f"need more than the {SMEM_LIMIT_BYTES} bytes of shared memory a block has")
+    if pitch in BWD_FUSED_PITCHES and 3 * inner <= BWD_COLS and c <= BWD_COLS:
+        smem = bwd_smem(True, cross, c, inner, heads, d, pitch)
+        if smem <= SMEM_LIMIT_BYTES:
+            return BwdPlan("fused", heads, pitch, (("attention", smem),), _bwd_blocks_per_sm(pitch, smem))
+    for hg in range(heads, 0, -1):
+        n = hg * d
+        if heads % hg or n > GROUP_COLS or n % 8:
+            continue
+        smem = bwd_smem(False, cross, c, inner, hg, d, pitch)
+        if smem > SMEM_LIMIT_BYTES:
+            break
+        return BwdPlan("split", hg, pitch, (("attention", smem), ("gx", gx_smem(c))),
+                       _bwd_blocks_per_sm(pitch, smem))
+    raise ValueError(f"the window-attention backward has no head grouping for {heads} heads of {d} dims")
+
+
+def _wgrad_chunks(m: int, jobs: int) -> int:
+    """Chunks of the token rows of a weight-gradient launch (``wg_chunk_rows`` in
+    ``csrc/window_bwd.cuh``: about eight blocks an SM of a 132-SM card, whole slabs of 64
+    rows)."""
+    slabs = -(-m // _WG_SLAB)
+    chunks = max(1, min(slabs, _WG_TARGET_BLOCKS // jobs))
+    return -(-m // _round_up(-(-m // chunks), _WG_SLAB))
+
+
+def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, plan: BwdPlan,
+                         blocks: int, cross: bool) -> int:
+    """Floats of workspace of one call (``carve`` in the source, every piece rounded up to 32
+    floats): wp^T and [wq | wk | wv]^T; AV, g_q, g_k and g_v of every token; on the fused route
+    under cross g_x's q side and k/v side; the bias-table partials per block; the weight
+    gradients' chunks (wq, wk, wv, wp with their biases; chunks for about eight blocks an SM
+    counting every job's tile groups)."""
+    inner, m = heads * d, b * h * w
+    sm = s * m
+    pieces = [s * c * inner, s * 3 * inner * c] + [sm * inner] * 4
+    pieces += [sm * c] * 2 if plan.route == "fused" and cross else []
+    pieces.append(s * (heads // plan.heads_per_block) * blocks * _T * _T)
+    jobs = 4 * s * max(_wg_groups(c, inner), _wg_groups(inner, c))
+    pieces.append(s * _wgrad_chunks(m, jobs) * (3 * (c + 1) * inner + (inner + 1) * c))
+    return sum(_round_up(p, 32) for p in pieces)
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count (the backward kernels' blocks fill one wave of it)."""
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _dims(x, kw):
     """(S, B, H, W, C, heads, d, wh, ww) of a checked call."""
     return (*x.shape, kw["num_heads"], kw["dims_per_head"], *kw["window"])
@@ -470,12 +657,58 @@ def _launch_three(x, weights, kw) -> torch.Tensor:
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
-    the weight gradients fp32) for a bf16 x."""
+    the weight gradients fp32) for a bf16 x. A call without dropout runs
+    ``csrc/window_attention_bwd.cu`` (:func:`bwd_plan`), a dropout call
+    ``swin_window_attention_bwd`` of ``csrc/window_attention.cu``."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
-    dims = _dims(x, kw)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"the output gradient must be {x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    bf16 = x.dtype == torch.bfloat16
+    drop = _drop_args(x, kw) is not None
+    grads = _launch_bwd_three(g, x, weights, kw) if drop else _launch_bwd_redesigned(g, x, weights, kw)
+    if drop and bf16:
+        BF16_DROP_BWD_LAUNCHES += 1
+    elif drop:
+        DROP_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
+    return grads
+
+
+def _launch_bwd_redesigned(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
+    """``csrc/window_attention_bwd.cu``: x, g and g_x in x's dtype, the weight gradients
+    fp32, the workspace (:func:`bwd_workspace_floats`) fp32. Counts nothing
+    (:func:`_launch_bwd` does)."""
+    s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
+    cross = bool(kw["cross"])
+    bf16 = x.dtype == torch.bfloat16
+    plan = bwd_plan(c, heads, d, (wh, ww), cross, bf16)
+    blocks = plan.blocks(s, b, h, w, heads, _sm_count(x.device))
+    g = g.contiguous()
+    lib = _bwd_library()
+    grads = [torch.empty_like(a) for a in (x, *weights)]
+    floats = bwd_workspace_floats(s, b, h, w, c, heads, d, plan, blocks, cross)
+    workspace = x.new_empty(floats, dtype=torch.float32)
+    ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
+    outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
+    with torch.cuda.device(x.device):
+        rc = lib.swin_k3_bwd(
+            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, plan.heads_per_block,
+            int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "window attention backward")
+    return tuple(grads)
+
+
+def _launch_bwd_three(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
+    """``swin_window_attention_bwd`` of ``csrc/window_attention.cu``: the dropout forms, and
+    (without dropout, as the comparison the card checks time) the backward that recomputes
+    with the three launches. Counts nothing (:func:`_launch_bwd` does)."""
+    dims = _dims(x, kw)
     g = g.contiguous()
     bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
@@ -492,14 +725,6 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention backward")
-    if drop is not None and bf16:
-        BF16_DROP_BWD_LAUNCHES += 1
-    elif drop is not None:
-        DROP_BWD_LAUNCHES += 1
-    elif bf16:
-        BF16_BWD_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
     return tuple(grads)
 
 
@@ -575,7 +800,10 @@ def window_attention(
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed((attn_drop_rate,), drop_seed)
     if not attn_drop_rate:
-        fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), x.dtype == torch.bfloat16)
+        bf16 = x.dtype == torch.bfloat16
+        fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16)
+        if recorded(*args):
+            bwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16)
     smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "

@@ -44,7 +44,7 @@ from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
 from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
-from swin_unet_image_fusion_tpu_torch.testing import exact_zero
+from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close, exact_zero
 from test_torch_attention import JaxAttention
 from test_torch_attention import _case as attention_case
 from test_torch_dropout import RATE, SEED, _set_block_rates, pinned_seed
@@ -212,23 +212,39 @@ def test_k2_bf16_backward_is_bit_exact(to_shift):
     np.testing.assert_array_equal(src.grad.float().numpy(), _decode_strips(ref.astype(jnp.float32)))
 
 
-def test_bf16_backward_forms_return_bf16_input_and_fp32_weight_gradients():
+@pytest.mark.parametrize("bias_seed", [0, 2, 8])
+def test_bf16_backward_forms_return_bf16_input_and_fp32_weight_gradients(bias_seed):
     """The plain bf16 backward forms themselves: g_x in bf16, every weight gradient fp32,
-    and under cross g_x is the bf16 sum of the separately rounded q and k/v sides."""
+    and under cross g_x is the bf16 sum of the separately rounded q and k/v sides.
+
+    The reference is the fp32 backward through the same ``kv=`` split
+    (``window_attention.split_input_grad``): the q side and the k/v side of g_x, each
+    rounded to bf16 and added in bf16, and the weight gradients, all equal bit for bit. The
+    fp32 backward without the split (``kv=None``) sums the two sides' contributions to a
+    weight gradient in another order: it is held at each tensor's own scale. The bias table
+    comes from a local generator; draws 2 and 8 are ones where the two orders differ in the
+    last bits of the LN1 gradients."""
     x, _, _, port = _block_case(CASES["c8-shift1-cross1"], seed=58)
     xt = torch.from_numpy(x).to(BF16)
     g = torch.from_numpy(_cotangent(x.shape, 59)).to(BF16)
     attn = port.attn
+    table = torch.randn(2, 49, 49, generator=torch.Generator().manual_seed(bias_seed))
     weights = [t.detach() for t in (port.norm1.scale, port.norm1.bias)]
     weights += [t.detach() for layer in (attn.q, attn.k, attn.v, attn.proj) for t in layer.weights()]
-    weights += [torch.randn(2, 49, 49), port.norm2.scale.detach(), port.norm2.bias.detach()]
+    weights += [table, port.norm2.scale.detach(), port.norm2.bias.detach()]
     weights += [t.detach() for t in (*port.mlp.fc1.weights(), *port.mlp.fc2.weights())]
     kw = dict(window=WINDOW, num_heads=2, dims_per_head=4, shift=True, cross=True, layout="image")
     grads = tfb.fused_block_bwd_plain(g, xt, *weights, **kw)
     assert grads[0].dtype == BF16 and all(t.dtype == torch.float32 for t in grads[1:])
+    leaves = [t.detach().clone().requires_grad_() for t in weights]
+    xq, xkv = (xt.float().requires_grad_() for _ in range(2))
+    split = torch.autograd.grad(tfb.fused_block_plain(xq, *leaves, kv=xkv, **kw), [xq, xkv, *leaves],
+                                g.float())
+    assert torch.equal(grads[0], (split[0].to(BF16).float() + split[1].to(BF16).float()).to(BF16))
+    for name, got, want in zip(tfb.WEIGHT_NAMES, grads[1:], split[2:]):
+        assert torch.equal(got, want), name
     fp32 = tfb.fused_block_bwd_plain(g.float(), xt.float(), *weights, **kw)
-    for got, want in zip(grads[1:], fp32[1:]):  # the fp32 backward at the upcast inputs
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert_grads_close(grads[1:], fp32[1:], tfb.WEIGHT_NAMES, "bf16 block bwd against kv=None")
     assert not torch.equal(grads[0], fp32[0].to(BF16)), "cross rounds its two sides apart"
     torch.testing.assert_close(grads[0].float(), fp32[0], rtol=0, atol=2.0**-7 * fp32[0].abs().max().item())
     attention = twa.window_attention_bwd_plain(g, xt, *weights[2:11], window=WINDOW, num_heads=2,
@@ -248,6 +264,6 @@ def test_bf16_composition_masks_keep_the_fp32_elements():
     assert out.dtype == BF16 and torch.equal(out, want.to(BF16))
     (g,) = torch.autograd.grad(out, x, torch.ones_like(out))
     assert torch.equal(g, (want != 0).float().mul(hd.keep_scale(rate)).to(BF16))
-    weights = torch.rand(2, 2 * 4, 2, 49, 49).to(BF16)
+    weights = torch.rand(2, 2 * 4, 2, 49, 49, generator=torch.Generator().manual_seed(61)).to(BF16)
     got = dm.attention_dropout(weights, SEED, rate, key)
     assert torch.equal(got, dm.attention_dropout(weights.float(), SEED, rate, key).to(BF16))

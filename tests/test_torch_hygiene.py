@@ -156,6 +156,7 @@ def fake_library(monkeypatch):
     for module in (twa, tfb, twp, dm):
         monkeypatch.setattr(module, "_library", lambda: lib)
     monkeypatch.setattr(twa, "_fwd_library", lambda: lib)
+    monkeypatch.setattr(twa, "_bwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_fwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_bwd_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -222,7 +223,8 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
         before = counters(twa)
         grads = twa._launch_bwd(x, x, attn, dict(kw, attn_drop_rate=rate, drop_seed=3))
         assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
-        args = fake_library.calls["swin_window_attention_bwd"]
+        # without dropout the backward of csrc/window_attention_bwd.cu, with it csrc/window_attention.cu's
+        args = fake_library.calls["swin_window_attention_bwd" if rate else "swin_k3_bwd"]
         assert args[-3] == 1 and args[-4] == 1, "the bf16 form, cross"
         assert counters(twa) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
         for layout in ("image", "windows"):

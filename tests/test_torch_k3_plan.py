@@ -1,8 +1,9 @@
 """The launch plan of K3's forward without dropout (``csrc/window_attention_fwd.cu``), on
 the CPU: the route, head grouping and shared memory per stage of the default model, what
-the wrapper hands the kernels (with a fake library and no CUDA runtime), that dropout and
-the backward keep the three launches of ``csrc/window_attention.cu``, and that shapes the
-kernels do not take raise before any launch. The kernels themselves run in
+the wrapper hands the kernels (with a fake library and no CUDA runtime), that dropout keeps
+the three launches of ``csrc/window_attention.cu`` forward and backward while the backward
+without dropout runs ``csrc/window_attention_bwd.cu``, and that shapes the kernels do not take
+raise before any launch. The kernels themselves run in
 ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
 import contextlib
@@ -46,17 +47,17 @@ class _FakeLibrary:
 
 @pytest.fixture
 def fake_library(monkeypatch):
-    """Both K3 libraries replaced by one fake that records every launcher call, bound with
-    the wrapper's own argtypes."""
+    """Every K3 library replaced by one fake that records each launcher call, bound with the
+    wrapper's own argtypes."""
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name: lib)
-    twa._library.cache_clear()
-    twa._fwd_library.cache_clear()
+    for cached in (twa._library, twa._fwd_library, twa._bwd_library):
+        cached.cache_clear()
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     yield lib
-    twa._library.cache_clear()
-    twa._fwd_library.cache_clear()
+    for cached in (twa._library, twa._fwd_library, twa._bwd_library):
+        cached.cache_clear()
 
 
 def _attention_args(c, heads, d, hw=(14, 14), dtype=torch.float32):
@@ -132,14 +133,20 @@ def test_call_without_dropout_launches_the_new_forward(fake_library, c, route, h
     assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
 
-def test_dropout_and_backward_keep_the_three_launches(fake_library):
-    """A dropout forward and every backward run ``csrc/window_attention.cu`` (its
-    recompute is the three-launch forward), never the new forward."""
+def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_new(fake_library):
+    """A dropout forward and a dropout backward run ``csrc/window_attention.cu`` (the
+    backward's recompute is the three-launch forward), never the new forward or backward; the
+    backward without dropout runs ``swin_k3_bwd`` of ``csrc/window_attention_bwd.cu``."""
     x, weights = _attention_args(24, 8, 3)
     kw = dict(window=(7, 7), num_heads=8, dims_per_head=3, shift=False, cross=True)
-    twa._launch_fwd(x, weights, dict(kw, attn_drop_rate=0.25, drop_seed=9))
+    drop = dict(kw, attn_drop_rate=0.25, drop_seed=9)
+    twa._launch_fwd(x, weights, drop)
+    twa._launch_bwd(x, x, weights, drop)
+    launchers = ("swin_window_attention_fwd", "swin_window_attention_bwd", "swin_k3_fwd", "swin_k3_bwd")
+    assert {n: len(fake_library.calls.get(n, ())) for n in launchers} == \
+        {"swin_window_attention_fwd": 1, "swin_window_attention_bwd": 1, "swin_k3_fwd": 0, "swin_k3_bwd": 0}
     twa._launch_bwd(x, x, weights, kw)
-    assert set(fake_library.calls) >= {"swin_window_attention_fwd", "swin_window_attention_bwd"}
+    assert len(fake_library.calls["swin_k3_bwd"]) == 1 and len(fake_library.calls["swin_window_attention_bwd"]) == 1
     assert "swin_k3_fwd" not in fake_library.calls
 
 

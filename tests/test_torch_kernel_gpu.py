@@ -919,3 +919,81 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
                 blocks = plan.blocks(2, 20, h, w, sms)
                 assert lib.swin_block_bwd_workspace(2, 20, h, w, c, heads, d, hidden, *blocks, int(cross)) == \
                     tfb.bwd_workspace_floats(2, 20, h, w, c, heads, d, hidden, blocks, cross)
+
+
+def _check_k3_backward(hw, batch, dtype, stages):
+    """K3's backward without dropout (``_launch_bwd``: ``csrc/window_attention_bwd.cu`` on the
+    route ``bwd_plan`` names) against the plain backward and against the three-launch
+    backward of ``csrc/window_attention.cu`` (``_launch_bwd_three``) in every stage x shift x
+    cross case of ``stages`` at ``hw`` and ``batch``: every fp32 gradient by
+    ``testing.assert_grads_close``, a bf16 g_x by the bf16 kernel criteria; each call counted
+    once in its dtype's counter and repeated bit for bit (no atomics, fixed sum orders)."""
+    counter = "BF16_BWD_LAUNCHES" if dtype == BF16 else "BWD_LAUNCHES"
+    for k, h, w, c, heads, d in _stage_cases(hw):
+        if k not in stages:
+            continue
+        gen = torch.Generator().manual_seed(400 + k)
+        inner = heads * d
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        x = rand(2, batch, h, w, c).to(dtype)
+        weights = (rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                   rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                   rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                   rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1), rand(2, 49, 49))
+        g = rand(2, batch, h, w, c).to(dtype)
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                before = getattr(twa, counter)
+                got = twa._launch_bwd(g, x, weights, kw)
+                again = twa._launch_bwd(g, x, weights, kw)
+                three = twa._launch_bwd_three(g, x, weights, kw)
+                torch.cuda.synchronize()
+                assert getattr(twa, counter) == before + 2
+                route = twa.bwd_plan(c, heads, d, (7, 7), cross, dtype == BF16).route
+                what = f"stage {k} {h}x{w}x{batch} C={c} ({route}) shift={shift} cross={cross} {dtype}"
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a repeat gave other bits"
+                ref = twa.window_attention_bwd_plain(g, x, *weights, **kw)
+                for other, name in ((ref, "plain"), (three, "three launches")):
+                    if dtype == BF16:
+                        assert got[0].dtype == BF16, what
+                        _assert_bf16_close(got[0], other[0], f"{what} g_x vs {name}")
+                        assert_grads_close(got[1:], other[1:], ATTENTION_NAMES[1:], f"{what} vs {name}")
+                    else:
+                        assert_grads_close(got, other, ATTENTION_NAMES, f"{what} vs {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(5)), ((100, 90), 1, range(5)),
+                                             ((512, 512), 1, (4,))], ids=["224x2", "100x90", "512-stage4"])
+def test_k3_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, stages, dtype):
+    """K3 bwd at every stage of a 224² batch-2 step and a 100x90 map, and at the 512² stage-4
+    shape (21², C = 384): the fused route at stages 0-1, the split route at 2-4
+    (``_check_k3_backward``)."""
+    _need_card()
+    _check_k3_backward(hw, batch, dtype, stages)
+
+
+@pytest.mark.gpu
+def test_k3_backward_plan_agrees_with_the_kernels_on_card():
+    """The backward plan's shared memory (``bwd_smem``, ``gx_smem``) and workspace
+    (``bwd_workspace_floats``) are the ones ``csrc/window_attention_bwd.cu`` computes, at every
+    stage of a 224² and a 512² batch-20 step in both modes."""
+    _need_card()
+    lib = twa._bwd_library()
+    sms = twa._sm_count(torch.device("cuda"))
+    for hw in ((224, 224), (512, 512)):
+        for k, h, w, c, heads, d in _stage_cases(hw):
+            for cross in (False, True):
+                plan = twa.bwd_plan(c, heads, d, (7, 7), cross, False)
+                fused, hg = int(plan.route == "fused"), plan.heads_per_block
+                for kind, (kernel, smem) in enumerate(plan.smem):
+                    got = lib.swin_k3_bwd_smem(kind, fused, int(cross), c, heads, d, hg)
+                    assert got == smem <= twa.SMEM_LIMIT_BYTES, (hw, k, cross, kernel)
+                blocks = plan.blocks(2, 20, h, w, heads, sms)
+                assert lib.swin_k3_bwd_workspace(2, 20, h, w, c, heads, d, hg, fused, blocks, int(cross)) == \
+                    twa.bwd_workspace_floats(2, 20, h, w, c, heads, d, plan, blocks, cross)
