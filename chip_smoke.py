@@ -24,9 +24,10 @@ and the backward's recompute still run them), and both are broken down by stage 
 from the profiler's device times (``[split]``). Then the training path: each backward
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
 224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward
-without dropout is ``csrc/fused_block_bwd.cu`` where ``block_bwd_plan`` routes "fused"
-(stages 0-1) and the five-launch backward of ``csrc/fused_block.cu`` elsewhere, both broken
-down by stage and kernel in turns (``[split] K1 bwd``, ``[split] K4 bwd``); the first train
+without dropout is the route ``block_bwd_plan`` names ("fused", ``csrc/fused_block_bwd.cu``,
+at stages 0-1, "split", ``csrc/fused_block_bwd_split.cu``, at stages 2-3; the five-launch backward of
+``csrc/fused_block.cu`` at stage 4 and with dropout), broken down by stage and kernel in turns
+with the five-launch backward (``[split] K1 bwd``, ``[split] K4 bwd``); the first train
 step of the full model under each
 configuration against the torch composition on the card (loss terms, every parameter's
 gradient, the exact forward and backward launches), then timed steps in turns and one
@@ -780,11 +781,12 @@ def _profile_kernels(call, runs):
 
 def block_bwd_split(cfg, device, card, runs=2):
     """K1 bwd's and K4 bwd's device time per 224² batch-20 step by stage and by kernel, from
-    torch.profiler (:func:`_profile_kernels`): at each of the step's 32 blocks (stage 0-3 x
-    role x shift x cross) the redesigned backward (``_launch_bwd``:
-    ``csrc/fused_block_bwd.cu`` where ``block_bwd_plan`` routes "fused") and the five-launch
-    backward of ``csrc/fused_block.cu`` (``_launch_bwd_five``), in turns (the redesigned one
-    first at every other block)."""
+    torch.profiler (:func:`_profile_kernels`), and by CUDA events: at each of the step's 32
+    blocks (stage 0-3 x role x shift x cross) the redesigned backward (``_launch_bwd``:
+    ``csrc/fused_block_bwd.cu`` at stages 0-1, ``csrc/fused_block_bwd_split.cu`` at 2-3) and
+    the five-launch backward of ``csrc/fused_block.cu`` (``_launch_bwd_five``), in turns (the
+    redesigned one first at every other block); per stage, then the split route's stages 2-3
+    and the step."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     for name, layout in (("K1 bwd", "windows"), ("K4 bwd", "image")):
@@ -818,6 +820,13 @@ def block_bwd_split(cfg, device, card, runs=2):
                       + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
                       + f", total {sum(parts.values()):.4f} ms of device time, {events[form][k]:.4f} ms "
                       f"by events | {card}", flush=True)
+        split_stages = {form: sum(sum(p.values()) for k, p in stages.items() if k in (2, 3))
+                        for form, stages in split.items()}
+        split_events = {form: sum(ms for k, ms in per.items() if k in (2, 3)) for form, per in events.items()}
+        print(f"[split] {name} stages 2-3 (the split route, 16 calls) per step: redesigned "
+              f"{split_stages['redesigned']:.4f} ms of device time ({split_events['redesigned']:.4f} by events), "
+              f"five-launch {split_stages['five-launch']:.4f} ms ({split_events['five-launch']:.4f}) | {card}",
+              flush=True)
         totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
         by_events = {form: sum(per.values()) for form, per in events.items()}
         print(f"[split] {name} per {TRAIN_HW[0]}x{TRAIN_HW[1]} batch-{TRAIN_BATCH} step ({i + 1} calls): "
@@ -947,8 +956,10 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
      ("k3_attention_kernel", "k3_proj_kernel")),
     ("csrc K1/K4 forward (block, LN1/LN2, proj/fc2, fc1)",
      ("k4_fused_kernel", "k4_ln_kernel", "k4_rows_kernel", "k4_fc1")),
-    ("csrc K1/K4 backward (recompute, MLP, attention, LN1; fused_block_bwd.cu)",
-     ("block_fwd_kernel", "block_mlp_bwd_kernel", "block_bwd_attn_kernel", "ln1_bwd_kernel")),
+    ("csrc K1/K4 backward (fused route: recompute, MLP, attention, LN1; split route: MLP, g_ln + LN1; "
+     "fused_block_bwd*.cu; the split route's recompute and attention blocks count as K1/K4 fwd and K3 bwd)",
+     ("block_fwd_kernel", "block_mlp_bwd_kernel", "split_mlp_bwd_kernel", "block_bwd_attn_kernel",
+      "ln1_bwd_kernel", "gln_ln1_kernel")),
     ("csrc K3 backward (window blocks, g_x; window_attention_bwd.cu)",
      ("k3_bwd_kernel", "gx_kernel", "sum_sides_kernel")),
     ("csrc weight gradients and transposed weights of K1/K4/K3 bwd (window_bwd.cuh)",
@@ -1021,8 +1032,10 @@ TRAIN_MAIN_PATH = {"K3 bwd": "cuda", "K1 bwd": "cuda_pack", "K2 bwd": "cuda_pack
 
 def train_block_backward(cfg, device, card):
     """K1 bwd (windows layout) and K4 bwd (image layout) against autograd of their plain
-    version in every stage 0-3 x role x shift x cross block of a 224² batch-20 step, with
-    their times; each block runs once per step."""
+    version in every stage 0-3 x role x shift x cross block of a 224² batch-20 step, each
+    repeated bit for bit on the route ``block_bwd_plan`` names ("fused" at stages 0-1, "split"
+    at 2-3: the five-launch backward runs only in the timing in turns), with their times; each
+    block runs once per step."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 
@@ -1033,6 +1046,9 @@ def train_block_backward(cfg, device, card):
         for case, x, weights in block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH):
             xl, kw = fused_args(case, x, layout)
             k, h, w, c, heads, d, role, hidden, shift, cross = case
+            route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross).route
+            if route != ("fused" if k < 2 else "split"):
+                raise AssertionError(f"{name} bwd stage {k} {role}: the plan routes {route!r}")
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k)).to(device)
             got = tfb._launch_bwd(g, xl, weights, kw)
             again = tfb._launch_bwd(g, xl, weights, kw)
@@ -1048,7 +1064,7 @@ def train_block_backward(cfg, device, card):
             bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH, backward=True)
             ms = time_ms(lambda: tfb._launch_bwd(g, xl, weights, kw), iters=5, warmup=1)
             plain = time_ms(lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **kw), iters=2, warmup=1)
-            print(f"[time] {name} bwd stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} "
+            print(f"[time] {name} bwd stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} ({route}) "
                   f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
             for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
@@ -1873,7 +1889,10 @@ def check_bf16_blocks(cfg, device, card):
             k, h, w, c, heads, d, role, hidden, shift, cross = case
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 11)).to(device, BF16)
             seed = DROP_SEED + 100 * k + 10 * shift + cross + 2
-            label = (f"stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} shift={shift} "
+            route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross).route
+            if route != ("fused" if k < 2 else "split"):
+                raise AssertionError(f"{name} bwd bf16 stage {k} {role}: the plan routes {route!r}")
+            label = (f"stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} ({route}) shift={shift} "
                      f"cross={cross}")
             for rate in (0.0, *DROP_CHECK_RATES):
                 dkw = dict(kw, drop_rates=(rate,) * 3, drop_seed=seed) if rate else kw
@@ -1885,7 +1904,7 @@ def check_bf16_blocks(cfg, device, card):
                     errs[" drop bf16"] = max(errs[" drop bf16"], err)
                     del out
                 got = tfb._launch_bwd(g, xl, weights, dkw)
-                if not rate:  # the redesigned backward (csrc/fused_block_bwd.cu at stages 0-1)
+                if not rate:  # the fused route at stages 0-1, the split route at 2-3
                     again = tfb._launch_bwd(g, xl, weights, dkw)
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -2421,13 +2440,14 @@ def main() -> int:
         ("K3 bwd", "k3_bwd (K3 bwd; the dropout forms keep window_attention.cu's)",
          f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
-        ("K1 bwd", "block_bwd, windows layout (K1 bwd; the five-launch backward of fused_block.cu "
-         "at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
+        ("K1 bwd", "block_bwd, windows layout (K1 bwd; the fused route at stages 0-1, the split route of "
+         "fused_block_bwd_split.cu at stages 2-3)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd", "repartition_bwd (K2 bwd, the inverse permutation)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
-        ("K4 bwd", "block_bwd, image layout (K4 bwd; the five-launch backward of fused_block.cu "
-         "at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
+        ("K4 bwd", "block_bwd, image layout (K4 bwd; the fused route at stages 0-1, the split route of "
+         "fused_block_bwd_split.cu at stages 2-3, the five-launch backward of fused_block.cu at stage 4)",
+         f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop", "window_attention_fwd with hash dropout (K3 drop)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
@@ -2451,13 +2471,15 @@ def main() -> int:
         # the bf16 dropout forms, forward and backward
         ("K3 bwd bf16", "k3_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
-        ("K1 bwd bf16", "block_bwd bf16, windows layout (K1 bwd bf16; the five-launch backward of "
-         "fused_block.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
+        ("K1 bwd bf16", "block_bwd bf16, windows layout (K1 bwd bf16; the fused route at stages 0-1, "
+         "the split route of fused_block_bwd_split.cu at stages 2-3)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd bf16", "repartition_bwd bf16 (K2 bwd bf16)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
-        ("K4 bwd bf16", "block_bwd bf16, image layout (K4 bwd bf16; the five-launch backward of "
-         "fused_block.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
+        ("K4 bwd bf16", "block_bwd bf16, image layout (K4 bwd bf16; the fused route at stages 0-1, "
+         "the split route of fused_block_bwd_split.cu at stages 2-3, the five-launch backward of "
+         "fused_block.cu at stage 4)",
+         f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop bf16", "window_attention_fwd bf16 with hash dropout (K3 drop bf16)",
          f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),

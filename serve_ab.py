@@ -5,10 +5,10 @@ bs=32 pairs/s of 3 calls (medians) and one bs=1 request's device busy time from
 ``torch.profiler``, with the full default model and random weights from seed 0; with
 ``--train``, also the median of 5 train steps at 224x224 batch 20 after a first one. Prints
 one ``[ab] LABEL {json}`` line. With ``--hashes`` it serves nothing and prints ``[hash] LABEL
-{json}``: a digest of every output of K3's dropout forward and backward at stages 0-3 and of
-K1's and K4's backward without dropout at stages 0-1 of a 224x224 batch-2 step, fp32 and
-bf16, every shift x cross case, inputs from fixed seeds, so that two checkouts whose kernels
-give the same bits print the same digests.
+{json}``: a digest of every output of K3's forward and backward, each without dropout and with
+it, and of K1's and K4's forward and backward, each without dropout and with it, at stages 0-3
+of a 224x224 batch-2 step, fp32 and bf16, every shift x cross case, inputs from fixed seeds,
+so that two checkouts whose kernels give the same bits print the same digests.
 
     python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train | --hashes]
 
@@ -89,15 +89,19 @@ def kernel_hashes() -> dict:
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
                     key = f"s{k} {str(dtype)[6:]} shift={int(shift)} cross={int(cross)}"
                     drop = dict(kw, attn_drop_rate=0.1, drop_seed=11 + k)
+                    out[f"K3 {key}"] = digest([twa._launch_fwd(x, attn, kw)])
+                    out[f"K3 bwd {key}"] = digest(twa._launch_bwd(g, x, attn, kw))
                     out[f"K3 drop {key}"] = digest([twa._launch_fwd(x, attn, drop)])
                     out[f"K3 drop bwd {key}"] = digest(twa._launch_bwd(g, x, attn, drop))
-                    if k > 1:
-                        continue
                     for name, layout in (("K4", "image"), ("K1", "windows")):
                         shape = (2, batch, (h // 7) * (w // 7), 49, c) if layout == "windows" else x.shape
-                        out[f"{name} bwd {key}"] = digest(tfb._launch_bwd(
-                            g.reshape(shape), x.reshape(shape), (*ln, *attn, *ln, *mlp),
-                            dict(kw, layout=layout, hw=(h, w))))
+                        xl, gl, weights = x.reshape(shape), g.reshape(shape), (*ln, *attn, *ln, *mlp)
+                        bkw = dict(kw, layout=layout, hw=(h, w))
+                        bdrop = dict(bkw, drop_rates=(0.1, 0.1, 0.1), drop_seed=13 + k)
+                        out[f"{name} {key}"] = digest([tfb._launch_fwd(xl, weights, bkw)])
+                        out[f"{name} bwd {key}"] = digest(tfb._launch_bwd(gl, xl, weights, bkw))
+                        out[f"{name} drop {key}"] = digest([tfb._launch_fwd(xl, weights, bdrop)])
+                        out[f"{name} drop bwd {key}"] = digest(tfb._launch_bwd(gl, xl, weights, bdrop))
     torch.cuda.synchronize()
     return out
 

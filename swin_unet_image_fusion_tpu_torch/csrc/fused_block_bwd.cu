@@ -7,7 +7,9 @@
 //           through _packed_bwd_kernel / _packed_bwd_kernel_self from _backward, l.1644), on
 //           window-packed tokens.
 // The dropout forms keep fused_block.cu's backward (swin_fused_block_bwd), and so does every
-// shape this file does not take (ops/fused_block.py::block_bwd_plan routes them).
+// shape this file does not take (ops/fused_block.py::block_bwd_plan routes them: this file's
+// route at stages 0-1 of the default model, fused_block_bwd_split.cu at stages 2-3,
+// fused_block.cu at stage 4).
 // The function is fused_block.cu's backward: given x, the 17 weights and g = dL/d out, it
 // recomputes the block and returns g_x and every weight's gradient; under cross the k/v
 // gradients of stream s go into stream 1-s's LN1 backward; a bf16 g_x under cross is
@@ -55,25 +57,23 @@
 // registers), and register bounds for three blocks an SM were no faster, for one slower.
 // The stored operands take ~1.0 GB at stage 0 of a 224² batch-20 step, written once and
 // read once, against the twenty launches' 1.1 GB of scratch.
+// At stages 2-3 (C = 96 and 192, d = 12 and 24) a window's blocks do not fit;
+// fused_block_bwd_split.cu's split route runs eleven launches sized to each step instead, K3's
+// backward block (k3_bwd.cuh) on the stored LN1(x) among them. Both share block_bwd.cuh's
+// transposed weights and weight-gradient tail.
 // fp32 FMA throughout (TF32 off), no atomics: every sum runs in a fixed order, and the
 // blocks per stream come from the caller (one wave of the card's SMs), so two calls on one
 // card give the same bits.
 
-#include "window_bwd.cuh"
-#include "window_core_bwd.cuh"
+#include "block_bwd.cuh"
 
 namespace {
 
 using namespace wbwd;
+using namespace bbwd;
 
 constexpr int kLn1Rows = 128;          // token rows per block of the LN1 backward
 constexpr int kLnMaxPerLane = 12;      // C <= 384 in the LN1 backward
-constexpr int kBlocksPerSm = 2;        // the block kernels' register bound (128 a thread)
-
-// Element i of an activation in device memory, fp32 or bf16, as fp32.
-__device__ __forceinline__ float act(const void* p, size_t i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const wfwd::bf16*>(p)[i]) : static_cast<const float*>(p)[i];
-}
 
 // Byte offsets of the three blocks' dynamic shared memory (ops/fused_block.py::bwd_smem
 // mirrors them).
@@ -87,7 +87,6 @@ __device__ __forceinline__ float act(const void* p, size_t i, int bf16) {
 //   attention backward: ring; q, k, v, g_o (core layout); u: g_q | g_k | g_v (operands);
 //     rd: the rows pass's (1/sum, dot) per (head, row); rowbuf: a g_ln product's rows; bias;
 //     tabs: rows, regions, token rows.
-constexpr int kRing = 2;  // weight-ring slots (two or three chunks a product)
 enum Kernel { kForward = 0, kMlp = 1, kAttention = 2 };  // the three block kernels
 
 struct BwdLayout {
@@ -619,15 +618,6 @@ struct BwdScratch {
   int chunk_rows, chunks;  // of the weight-gradient launch
 };
 
-// The weight-gradient jobs of stream s, in order: wq, wk, wv (A = LN1 of the rows each read),
-// wp (A = AV), w1 (A = LN2(y)), w2 (A = the hidden; B = g): (ka, nb) of each.
-constexpr int kWgPerStream = 6;
-inline void wg_shape(int job, int C, int inner, int hidden, int* ka, int* nb) {
-  const int shapes[kWgPerStream][2] = {{C, inner}, {C, inner}, {C, inner}, {inner, C}, {C, hidden}, {hidden, C}};
-  *ka = shapes[job][0];
-  *nb = shapes[job][1];
-}
-
 int ln1_blocks(int M) { return (M + kLn1Rows - 1) / kLn1Rows; }
 
 // blocks: blocks per stream of the forward, MLP and attention halves.
@@ -672,9 +662,6 @@ BwdScratch carve(swin::Arena& ar, int S, int B, int H, int W, int C, int inner, 
   return sc;
 }
 
-// Argument slots, in the forward's order (ops/fused_block.py), then g.
-enum In { kX, kLn1g, kLn1b, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kLn2g, kLn2b, kW1, kB1, kW2, kB2, kG };
-
 template <typename Fn>
 cudaError_t launch_blocks(Fn kernel, int blocks, int smem, const BwdArgs& a, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -691,25 +678,7 @@ int block_bwd(const float* const* in, float* const* out, float* ws, int S, int B
   const int M = B * H * W;
   swin::Arena ar{ws};
   const BwdScratch sc = carve(ar, S, B, H, W, C, inner, hidden, blocks, cross != 0);
-
-  Transposes tr = {};
-  int jobs = 0, most = 0;
-  auto add = [&](const float* src, float* dst, int rows, int cols) {
-    tr.src[jobs] = src, tr.dst[jobs] = dst, tr.rows[jobs] = rows, tr.cols[jobs] = cols;
-    most = max2(most, rows * cols);
-    ++jobs;
-  };
-  for (int s = 0; s < S; ++s) {
-    const size_t ci = static_cast<size_t>(s) * C * inner, ch = static_cast<size_t>(s) * C * hidden;
-    float* wqkvT = sc.wqkvT + 3 * ci;
-    add(in[kWq] + ci, wqkvT, C, inner);
-    add(in[kWk] + ci, wqkvT + static_cast<size_t>(inner) * C, C, inner);
-    add(in[kWv] + ci, wqkvT + 2 * static_cast<size_t>(inner) * C, C, inner);
-    add(in[kWp] + ci, sc.wpT + ci, inner, C);
-    add(in[kW1] + ch, sc.w1T + ch, C, hidden);
-    add(in[kW2] + ch, sc.w2T + ch, hidden, C);
-  }
-  transpose_kernel<<<dim3(std::min((most + kThreads - 1) / kThreads, 64), jobs), kThreads, 0, st>>>(tr);
+  launch_transposes(in, sc.wqkvT, sc.wpT, sc.w1T, sc.w2T, S, C, inner, hidden, st);
 
   const BwdArgs a = {in[kX], in[kG], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv],
                      in[kBv], in[kWp], in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2],
@@ -730,6 +699,8 @@ int block_bwd(const float* const* in, float* const* out, float* ws, int S, int B
                   : launch_blocks(block_bwd_attn_kernel<8>, blocks[kAttention], smem[kAttention], a, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  // the LN1 backward: g_x = g_y + LN1'(g_ln), rounded as the header says, with its gamma/beta
+  // partials
   constexpr bool kBf16 = std::is_same<TX, bf16>::value;
   const Ln1Args ln = {in[kX], sc.stats1, in[kLn1g], sc.glnq, sc.glnkv, sc.gy, out[0], sc.ln1_part, M, C};
   const dim3 ln_grid(ln1_blocks(M), S);
@@ -738,48 +709,9 @@ int block_bwd(const float* const* in, float* const* out, float* ws, int S, int B
   else if (kBf16) ln1_bwd_kernel<TX, true, true><<<ln_grid, kThreads, ln_smem, st>>>(ln);
   else ln1_bwd_kernel<TX, true, false><<<ln_grid, kThreads, ln_smem, st>>>(ln);
 
-  // weight gradients from the stored operands, one launch; then every partial sum
-  WgJobs wg = {};
-  wg.rows = M;
-  wg.chunk_rows = sc.chunk_rows;
-  swin::ReduceJobs red = {};
-  bool ok = true;
-  const int grads[kWgPerStream][2] = {{kWq, kBq}, {kWk, kBk}, {kWv, kBv}, {kWp, kBp}, {kW1, kB1}, {kW2, kB2}};
-  float* part = sc.wg_part;
-  int tile_groups = 1, wg_bytes = 0;
-  for (int s = 0; s < S; ++s) {
-    const size_t tok = static_cast<size_t>(s) * M, s_kv = cross ? static_cast<size_t>(S - 1 - s) * M : tok;
-    const float* a_of[kWgPerStream] = {sc.lnx + tok * C, sc.lnx + s_kv * C, sc.lnx + s_kv * C,
-                                       sc.o + tok * inner, sc.lny + tok * C, sc.h + tok * hidden};
-    const void* b_of[kWgPerStream] = {sc.gq + tok * inner, sc.gk + tok * inner, sc.gv + tok * inner,
-                                      sc.gy + tok * C, sc.gpre + tok * hidden,
-                                      static_cast<const TX*>(static_cast<const void*>(in[kG])) + tok * C};
-    for (int job = 0; job < kWgPerStream; ++job) {
-      int ka, nb;
-      wg_shape(job, C, inner, hidden, &ka, &nb);
-      wg.job[wg.count++] = {a_of[job], b_of[job], part, ka, nb, job == kWgPerStream - 1 && kBf16};
-      tile_groups = max2(tile_groups, wg_groups_of_tiles(ka, nb));
-      wg_bytes = max2(wg_bytes, wg_smem(ka, nb));
-      ok &= red.add(part, sc.chunks, (ka + 1) * nb, ka * nb, out[grads[job][0]] + static_cast<size_t>(s) * ka * nb,
-                    out[grads[job][1]] + static_cast<size_t>(s) * nb);
-      part += static_cast<size_t>(sc.chunks) * (ka + 1) * nb;
-    }
-  }
-  err = cudaFuncSetAttribute(wgrad_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wgrad_rows_kernel<<<dim3(sc.chunks, wg.count, tile_groups), kThreads, wg_bytes, st>>>(wg);
-
-  for (int s = 0; s < S; ++s) {
-    ok &= red.add(sc.tab_part + static_cast<size_t>(s) * blocks[kAttention] * kT * kT, blocks[kAttention], kT * kT,
-                  kT * kT, out[kBias] + static_cast<size_t>(s) * kT * kT, nullptr);
-    ok &= red.add(sc.ln2_part + static_cast<size_t>(s) * blocks[kMlp] * 2 * C, blocks[kMlp], 2 * C, C,
-                  out[kLn2g] + static_cast<size_t>(s) * C, out[kLn2b] + static_cast<size_t>(s) * C);
-    ok &= red.add(sc.ln1_part + static_cast<size_t>(s) * ln1_blocks(M) * 2 * C, ln1_blocks(M), 2 * C, C,
-                  out[kLn1g] + static_cast<size_t>(s) * C, out[kLn1b] + static_cast<size_t>(s) * C);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  swin::launch_reduce(red, st);
-  return static_cast<int>(cudaGetLastError());
+  const Tail t = {sc.gy, sc.lnx, sc.o, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part, sc.ln2_part,
+                  sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, blocks[kAttention], blocks[kMlp], ln1_blocks(M)};
+  return launch_tail<TX>(in, out, t, S, M, C, inner, hidden, cross != 0, st);
 }
 
 }  // namespace

@@ -1,0 +1,554 @@
+// Fused pre-norm Swin block, the backward without dropout, fp32 and bf16, redesigned for
+// Hopper (sm_90a): the split route, in both layouts of fused_block.cu (K4 bwd on the image,
+// K1 bwd on window-packed tokens), for the shapes whose window does not fit one block of
+// fused_block_bwd.cu's fused route. The function is fused_block_bwd.cu's (its header): g_x and
+// every weight's gradient from x, the 17 weights and g; fp32 inside in both dtypes; a bf16 g_x
+// under cross rnd(rnd(g_y + LN1'(q side)) + rnd(LN1'(k/v side))); the softmax clamp at 80 not
+// differentiated. ops/fused_block.py::block_bwd_plan routes the default model's stages 2-3
+// here; stage 4 (d = 48), other heads and the dropout forms keep fused_block.cu's backward.
+//
+// Where a window's blocks do not fit one block's shared memory (C = 96 and 192 in the default
+// model, stages 2-3), the backward runs on kernels sized to each step, eleven launches:
+//   1. transpose_kernel (block_bwd.cuh), as the fused route;
+//   2-6. the forward recomputed on fused_block_fwd.cu's split route (block_fwd.cuh), fp32
+//      inside in both dtypes (K1's fp32 block, never K4 bf16's rounding): k4_ln_kernel (LN1(x)
+//      and its statistics), K3's split attention block (window_fwd.cuh's k3_attention_kernel,
+//      AV window-major), k4_rows_kernel (y = x + AV wp + bp, fp32), k4_ln_kernel<kLn2> (LN2(y),
+//      into a scratch of its own: LN1(x) stays for the attention's backward), k4_fc1_kernel
+//      (the hidden); fc2 is not recomputed, neither backward needs it;
+//   7. split_mlp_bwd_kernel: g_pre and g_y = g + LN2'(g_lny) over 49-token tiles, the g_lny
+//      products in column groups of at most kMaxCols;
+//   8. K3's split-route block (k3_bwd.cuh's k3_bwd_kernel<DP, false>, a block per group of
+//      windows, stream and group of heads, as ops/window_attention.py::bwd_plan groups them) on
+//      the stored LN1(x) as its x and g_y as its g: it recomputes q/k/v, AV and g_o = g_y wp^T,
+//      runs the core backward (the bias-table gradient summed in registers) and writes AV, g_q,
+//      g_k and g_v to token rows;
+//   9. gln_ln1_kernel: g_ln = [g_q | g_k | g_v] [wq | wk | wv]^T over 49-token tiles, under
+//      cross its q side and its k/v side apart, and the LN1 backward in its epilogue;
+//   10-11. one weight-gradient launch (with kWgRect's rectangles at these widths, the rows cut
+//      for about sixteen working blocks an SM) and one reduction (block_bwd.cuh's tail, as
+//      the fused route's).
+// fp32 FMA throughout (TF32 off), no atomics: every sum runs in a fixed order, and the blocks
+// of each kernel that walks a list come from the caller (one wave of the card's SMs), so two
+// calls on one card give the same bits.
+
+#include "block_bwd.cuh"
+#include "block_fwd.cuh"
+#include "k3_bwd.cuh"
+
+namespace {
+
+using namespace wbwd;
+using namespace bbwd;
+
+// The split route's MLP backward: a block per (group of 49-token tiles, stream), as
+// block_mlp_bwd_kernel but for rows of up to C = 192: y is read from device memory where the
+// LN2 statistics and backward need it, so that g (resident, the g_h products' A), the g_lny
+// sums [49][C] and the hidden step's g_pre fit two blocks an SM at C = 96; the g_lny products
+// run in column groups of at most kMaxCols (k3bwd::gx_width); no g_o (the K3 block forms it
+// from g_y). Writes g_pre, g_y and the LN2 gamma/beta partials.
+struct MlpArgs {
+  const void* g;                                // dL/d out, (S, M, C) fp32 or bf16
+  const float *ln2g, *w1T, *w2T, *y, *h;        // (S, C); per stream (hidden, C), (C, hidden); y, the hidden
+  float *gpre, *gy, *ln2_part;                  // (S, M, hidden), (S, M, C), (S, blocks, 2C)
+  int B, H, W, C, hidden, hc, bf16;
+};
+
+struct SplitMlpLayout {
+  int rowbuf, a1, u, tabs, total;
+};
+
+__host__ __device__ inline SplitMlpLayout split_mlp_layout(int C, int hc) {
+  SplitMlpLayout L{};
+  L.rowbuf = align16(b_bytes(false, max2(k3bwd::gx_width(C), round_up(hc, 4)), kRing));
+  L.a1 = L.rowbuf + align16(kT * C * 4);
+  L.u = L.a1 + align16(a_bytes(false, C));
+  L.tabs = L.u + align16(a_bytes(false, round_up(hc, 4)));
+  L.total = L.tabs + align16(kRowsB * 8 + 2 * C * 4);
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(const MlpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, hidden = a.hidden, tid = threadIdx.x, s = blockIdx.y;
+  const SplitMlpLayout L = split_mlp_layout(C, a.hc);
+  const int tiles = a.B * a.H * a.W / kT, cw = k3bwd::gx_width(C), cp = round_up(C, kKc);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf);
+  float* a1 = reinterpret_cast<float*>(smem + L.a1);
+  float* ch = reinterpret_cast<float*>(smem + L.u);
+  float2* st2 = reinterpret_cast<float2*>(smem + L.tabs);
+  float* ln2_acc = reinterpret_cast<float*>(st2 + kRowsB);
+  const float* gam = a.ln2g + s * C;
+
+  zero_smem(smem, 0, L.total);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t r0 = static_cast<size_t>(s) * tiles * kT + static_cast<size_t>(tile) * kT;  // first row
+    const float* y = a.y + r0 * C;
+    __syncthreads();  // the previous tile's readers are done
+    copy_row_col(kT, cp, [&](int t, int k) { return k < C ? act(a.g, (r0 + t) * C + k, a.bf16) : 0.0f; },
+                 [&](int t, int k, float v) { a_at(a1, t, k) = v; });
+    for (int e = tid; e < kT * C; e += kThreads) rowbuf[e] = 0.0f;
+    row_stats(kT, C, [&](int t) { return y + static_cast<size_t>(t) * C; }, st2);
+    __syncthreads();
+    for (int j0 = 0; j0 < hidden; j0 += a.hc) {
+      const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
+      const float* h = a.h + r0 * hidden + j0;
+      with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) ELU'(h)
+        Tile<decltype(tn)::value> acc;
+        zero_tile(acc);
+        gemm_tile<decltype(tn)::value, kRing>(
+            acc, weights(a.w2T + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
+        each(acc, nh, [&](int t, int col, float v) {
+          const float hv = h[static_cast<size_t>(t) * hidden + col];
+          a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+        });
+      });
+      __syncthreads();
+      each_row_col(kT, nh, [&](int t, int col) { a.gpre[(r0 + t) * hidden + j0 + col] = a_at(ch, t, col); });
+      for (int c0 = 0; c0 < C; c0 += cw) {  // g_lny += g_pre w1^T, a column group at a time
+        const int nc = min(cw, C - c0);
+        with_tn(cw, [&](auto tn) {
+          Tile<decltype(tn)::value> acc;
+          zero_tile(acc);
+          gemm_tile<decltype(tn)::value, kRing>(
+              acc, weights(a.w1T + (static_cast<size_t>(s) * hidden + j0) * C + c0, cw, C, nh, nc), ch, ch, ring);
+          each(acc, nc, [&](int t, int col, float v) { rowbuf[t * C + c0 + col] += v; });
+        });
+      }
+    }
+    __syncthreads();
+    {  // g_y = g + LN2'(g_lny); the gamma/beta sums
+      const int lane8 = tid & 7;
+      const unsigned mask = 0xffu << (tid & 24);
+      auto sum8 = [&](float v) {
+        for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+        return v;
+      };
+      for (int t = tid / 8; t < kT; t += kThreads / 8) {
+        const float2 st = st2[t];
+        const float* yr = y + static_cast<size_t>(t) * C;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int k = lane8; k < C; k += 8) {
+          const float gh = rowbuf[t * C + k] * gam[k], xh = (yr[k] - st.x) * st.y;
+          s1 += gh;
+          s2 = fmaf(gh, xh, s2);
+        }
+        s1 = sum8(s1) / C;
+        s2 = sum8(s2) / C;
+        for (int k = lane8; k < C; k += 8) {
+          const float gh = rowbuf[t * C + k] * gam[k], xh = (yr[k] - st.x) * st.y;
+          a.gy[(r0 + t) * C + k] = a_at(a1, t, k) + st.y * (gh - s1 - xh * s2);
+        }
+      }
+      for (int c = tid; c < C; c += kThreads) {
+        float pg = 0.0f, pb = 0.0f;
+        for (int t = 0; t < kT; ++t) {
+          const float gl = rowbuf[t * C + c];
+          pg = fmaf(gl, (y[static_cast<size_t>(t) * C + c] - st2[t].x) * st2[t].y, pg);
+          pb += gl;
+        }
+        ln2_acc[c] += pg;
+        ln2_acc[C + c] += pb;
+      }
+    }
+  }
+  __syncthreads();
+  float* part = a.ln2_part + (static_cast<size_t>(s) * gridDim.x + blockIdx.x) * 2 * C;
+  for (int c = tid; c < 2 * C; c += kThreads) part[c] = ln2_acc[c];
+}
+
+// The split route's g_ln product with the LN1 backward in its epilogue: a block per (group of
+// 49-token tiles, stream) forms g_ln = [g_q | g_k' | g_v'] [wq | wk' | wv']^T for each tile (as
+// k3_bwd.cuh's gx_kernel forms K3's g_x: the q side from the stream's g_q, the k/v side from
+// the k/v stream's g_k, g_v and weights, A streamed through a ring, in column groups of at
+// most kMaxCols) into rows of C in shared memory, under cross its q side and its k/v side
+// apart, then g_x = g_y + LN1'(g_ln) of each row (rounded as the header says; kSplit: bf16
+// under cross, the sides' input gradients rounded apart) and the tile's LN1 gamma/beta sums,
+// added in the block in tile order.
+struct GlnLayout {
+  int ring_b, rowq, rowkv, tabs, total;
+};
+
+__host__ __device__ inline GlnLayout gln_layout(int C, bool cross) {
+  GlnLayout L{};
+  L.ring_b = ring_a_bytes(false, 1, kRing);
+  L.rowq = align16(L.ring_b + b_bytes(false, k3bwd::gx_width(C), kRing));
+  L.rowkv = L.rowq + align16(kT * C * 4);
+  L.tabs = L.rowkv + (cross ? align16(kT * C * 4) : 0);
+  L.total = L.tabs + align16(kRowsB * 4 + kRowsB * 8 + 2 * C * 4);
+  return L;
+}
+
+struct GlnArgs {
+  const void* x;                            // (S, M, C) TX
+  const float *stats, *gamma, *gy;          // LN1's (mean, 1/std) (S, M, 2); (S, C); (S, M, C)
+  const float *gq, *gk, *gv, *wqkvT;        // (S, M, inner) each; per stream (3 inner, C)
+  void* gx;                                 // (S, M, C) TX
+  float* part;                              // (S, blocks, 2C): column sums of g_ln * xhat, then of g_ln
+  int S, M, C, inner;
+};
+
+template <typename TX, bool kCross, bool kSplit>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) gln_ln1_kernel(const GlnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, inner = a.inner, tid = threadIdx.x, s = blockIdx.y;
+  const int kvs = kCross ? a.S - 1 - s : s;
+  const GlnLayout L = gln_layout(C, kCross);
+  const int width = k3bwd::gx_width(C), tiles = a.M / kT;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + L.ring_b);
+  float* rowq = reinterpret_cast<float*>(smem + L.rowq);
+  float* rowkv = reinterpret_cast<float*>(smem + L.rowkv);
+  int* rows = reinterpret_cast<int*>(smem + L.tabs);
+  float2* st = reinterpret_cast<float2*>(rows + kRowsB);
+  float* sums = reinterpret_cast<float*>(st + kRowsB);
+  const float* gamma = a.gamma + s * C;
+  const TX* x = static_cast<const TX*>(a.x);
+
+  zero_smem(smem, 0, L.total);
+  __syncthreads();
+  for (int t = tid; t < kRowsB; t += kThreads) rows[t] = t < kT ? t * inner : 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t r0 = static_cast<size_t>(s) * a.M + static_cast<size_t>(tile) * kT;    // first row
+    const size_t kv0 = static_cast<size_t>(kvs) * a.M + static_cast<size_t>(tile) * kT;  // its k/v side's
+    __syncthreads();  // the previous tile's readers are done
+    for (int t = tid; t < kT; t += kThreads) st[t] = reinterpret_cast<const float2*>(a.stats)[r0 + t];
+    for (int cg0 = 0; cg0 < C; cg0 += width) {
+      const int ncols = min(width, C - cg0);
+      with_tn(width, [&](auto tn) {
+        constexpr int TN = decltype(tn)::value;
+        auto part = [&](Tile<TN>& acc, const float* src, int sw, int p) {
+          Gemm gm{};
+          gm.abase[0] = src;
+          gm.aparts = 1;
+          gm.rows = rows;
+          gm.w[0] = a.wqkvT + (static_cast<size_t>(sw) * 3 + p) * inner * C + cg0;
+          gm.n = gm.nb = width;
+          gm.ldw = C;
+          gm.K = inner;
+          gm.ncols = ncols;
+          gemm_stream<TN>(acc, gm, ring, bring, 0);
+        };
+        Tile<TN> acc;
+        zero_tile(acc);
+        part(acc, a.gq + r0 * inner, s, 0);
+        each(acc, ncols, [&](int t, int col, float v) { rowq[t * C + cg0 + col] = v; });
+        zero_tile(acc);
+        part(acc, a.gk + kv0 * inner, kvs, 1);
+        part(acc, a.gv + kv0 * inner, kvs, 2);
+        each(acc, ncols, [&](int t, int col, float v) {
+          if (kCross) rowkv[t * C + cg0 + col] = v;
+          else rowq[t * C + cg0 + col] += v;
+        });
+      });
+    }
+    __syncthreads();
+    {  // g_x = g_y + LN1'(g_ln), eight lanes a row
+      const int lane8 = tid & 7;
+      const unsigned mask = 0xffu << (tid & 24);
+      auto sum8 = [&](float v) {
+        for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+        return v;
+      };
+      for (int t = tid / 8; t < kT; t += kThreads / 8) {
+        const float2 sv = st[t];
+        const TX* xr = x + (r0 + t) * C;
+        auto sides = [&](int k, float& xh, float& g1, float& g2) {
+          xh = (to_f(xr[k]) - sv.x) * sv.y;
+          g1 = rowq[t * C + k];
+          g2 = kCross ? rowkv[t * C + k] : 0.0f;
+          if (!kSplit) g1 += g2;
+        };
+        float s1 = 0.0f, s2 = 0.0f, t1 = 0.0f, t2 = 0.0f;
+        for (int k = lane8; k < C; k += 8) {
+          float xh, g1, g2;
+          sides(k, xh, g1, g2);
+          const float gh = g1 * gamma[k];
+          s1 += gh;
+          s2 = fmaf(gh, xh, s2);
+          if (kSplit) {
+            const float gh2 = g2 * gamma[k];
+            t1 += gh2;
+            t2 = fmaf(gh2, xh, t2);
+          }
+        }
+        s1 = sum8(s1) / C;
+        s2 = sum8(s2) / C;
+        if (kSplit) {
+          t1 = sum8(t1) / C;
+          t2 = sum8(t2) / C;
+        }
+        TX* gx = static_cast<TX*>(a.gx) + (r0 + t) * C;
+        for (int k = lane8; k < C; k += 8) {
+          float xh, g1, g2;
+          sides(k, xh, g1, g2);
+          const float v = a.gy[(r0 + t) * C + k] + sv.y * (g1 * gamma[k] - s1 - xh * s2);
+          if (kSplit)
+            gx[k] = from_float<TX>(swin::round_bf16(v) + swin::round_bf16(sv.y * (g2 * gamma[k] - t1 - xh * t2)));
+          else
+            gx[k] = from_float<TX>(v);
+        }
+      }
+    }
+    for (int c = tid; c < C; c += kThreads) {  // the tile's gamma/beta sums, in row order
+      float pg = 0.0f, pb = 0.0f;
+      for (int t = 0; t < kT; ++t) {
+        const float gl = rowq[t * C + c] + (kCross ? rowkv[t * C + c] : 0.0f);
+        pg = fmaf(gl, (to_f(x[(r0 + t) * C + c]) - st[t].x) * st[t].y, pg);
+        pb += gl;
+      }
+      sums[c] += pg;
+      sums[C + c] += pb;
+    }
+  }
+  __syncthreads();
+  float* part = a.part + (static_cast<size_t>(s) * gridDim.x + blockIdx.x) * 2 * C;
+  for (int c = tid; c < 2 * C; c += kThreads) part[c] = sums[c];
+}
+
+// The split route's q/k row pitches: the default model's stages 2-3 (d = 12 and 24); other
+// heads go to fused_block.cu's backward (ops/fused_block.py::SPLIT_PITCHES).
+int split_pitch(int d) { return d > 8 && d <= 12 ? 12 : d > 16 && d <= 24 ? 24 : 0; }
+
+// The hidden columns of the recompute's fc1 blocks (fused_block_fwd.cu's split route).
+constexpr int kFc1Cols = k4fwd::max_cols(false);
+
+// Dynamic shared memory of the split route's kernel `kind`: 0 the recomputed attention, 1 the
+// projection rows, 2 the fc1, 3 the MLP backward, 4 K3's backward block, 5 the g_ln product
+// with the LN1 backward.
+int split_smem(int kind, int C, int inner, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross) {
+  const int dp = split_pitch(d);
+  switch (kind) {
+    case 0: return attention_layout(false, false, cross, C, inner, hg_fwd, d, dp).total;
+    case 1: return k4fwd::k4_layout(k4fwd::kRows, false, cross, C, inner, hidden, hg_fwd, d, dp, kFc1Cols).total;
+    case 2: return k4fwd::k4_layout(k4fwd::kFc1, false, cross, C, inner, hidden, hg_fwd, d, dp, kFc1Cols).total;
+    case 3: return split_mlp_layout(C, hc).total;
+    case 4: return k3bwd::bwd_layout(false, cross, C, inner, hg_bwd, d, dp).total;
+    case 5: return gln_layout(C, cross).total;
+    default: return 0;
+  }
+}
+constexpr int kSplitKinds = 6;
+
+// Whether the split route takes the dimensions (ops/fused_block.py::block_bwd_plan makes the
+// same checks): hg_fwd heads a block of the recomputed attention, hg_bwd of K3's backward
+// block (each at most 48 columns a q/k/v part, a multiple of 8), hc hidden columns per MLP
+// step, and every block within a block's shared memory.
+bool split_supported(int C, int inner, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross) {
+  if (split_pitch(d) == 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 || hidden % 4 != 0 || C > 384)
+    return false;
+  if (hc < 4 || hc % 4 != 0 || hc > kMaxCols || hc > hidden) return false;
+  for (int hg : {hg_fwd, hg_bwd}) {
+    const int n = hg * d;
+    if (hg < 1 || heads % hg != 0 || n % 8 != 0 || n > 48 || 3 * n > kMaxCols || 3 * n > kColTable) return false;
+  }
+  for (int kind = 0; kind < kSplitKinds; ++kind)
+    if (split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, cross) > kSmemMax) return false;
+  for (int b : {wg_smem(C, inner), wg_smem(inner, C), wg_smem(C, hidden), wg_smem(hidden, C)})
+    if (b > kSmemMax) return false;
+  return true;
+}
+
+// The workspace of one split-route call, carved in this order (ops/fused_block.py::
+// split_workspace_floats mirrors it). av holds the recompute's AV window-major until the
+// projection has read it, then K3's block writes AV to token rows into it.
+struct SplitScratch {
+  float *wqkvT, *wpT, *w1T, *w2T, *lnx, *stats1, *av, *y, *lny, *h, *gpre, *gy, *gq, *gk, *gv;
+  float *tab_part, *ln2_part, *ln1_part, *wg_part;
+  int chunk_rows, chunks;  // of the weight-gradient launch
+};
+
+// The blocks of one chunk of rows that do work in a stream's weight-gradient jobs (the
+// launch's grid gives every job as many as the widest; the rest return at once): the chunks
+// are cut for about sixteen working blocks an SM, two waves of the eight that fit (faster than
+// one wave on an H100: 28.38 against 28.87 ms over the split route's calls of a 224² batch-20
+// step, split_bwd_ab.py).
+int wg_working_blocks(int C, int inner, int hidden) {
+  int n = 0;
+  for (int job = 0; job < kWgPerStream; ++job) {
+    int ka, nb;
+    wg_shape(job, C, inner, hidden, &ka, &nb);
+    n += wg_groups_of_tiles(ka, nb);
+  }
+  return n;
+}
+
+// groups: heads / hg_bwd; blocks: per stream of the MLP backward, per (stream, group) of K3's
+// block, per stream of the g_ln product.
+SplitScratch carve_split(swin::Arena& ar, int S, int M, int C, int inner, int hidden, int groups, const int* blocks) {
+  SplitScratch sc;
+  const size_t SM = static_cast<size_t>(S) * M;
+  sc.wqkvT = ar.take(static_cast<size_t>(S) * 3 * inner * C);
+  sc.wpT = ar.take(static_cast<size_t>(S) * C * inner);
+  sc.w1T = ar.take(static_cast<size_t>(S) * hidden * C);
+  sc.w2T = ar.take(static_cast<size_t>(S) * C * hidden);
+  sc.lnx = ar.take(SM * C);
+  sc.stats1 = ar.take(SM * 2);
+  sc.av = ar.take(SM * inner);
+  sc.y = ar.take(SM * C);
+  sc.lny = ar.take(SM * C);
+  sc.h = ar.take(SM * hidden);
+  sc.gpre = ar.take(SM * hidden);
+  sc.gy = ar.take(SM * C);
+  sc.gq = ar.take(SM * inner);
+  sc.gk = ar.take(SM * inner);
+  sc.gv = ar.take(SM * inner);
+  sc.tab_part = ar.take(static_cast<size_t>(S) * groups * blocks[1] * kT * kT);
+  sc.ln2_part = ar.take(static_cast<size_t>(S) * blocks[0] * 2 * C);
+  sc.ln1_part = ar.take(static_cast<size_t>(S) * blocks[2] * 2 * C);
+  sc.chunk_rows = wg_chunk_rows(M, max2(1, S * wg_working_blocks(C, inner, hidden) / 2));
+  sc.chunks = (M + sc.chunk_rows - 1) / sc.chunk_rows;
+  size_t per_chunk = 0;
+  for (int job = 0; job < kWgPerStream; ++job) {
+    int ka, nb;
+    wg_shape(job, C, inner, hidden, &ka, &nb);
+    per_chunk += static_cast<size_t>(ka + 1) * nb;
+  }
+  sc.wg_part = ar.take(S * sc.chunks * per_chunk);
+  return sc;
+}
+
+template <typename Kernel, typename KernelArgs>
+cudaError_t launch_grid(Kernel kernel, dim3 grid, int smem, const KernelArgs& a, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// blocks: per stream of the MLP backward, per (stream, group of hg_bwd heads) of K3's block,
+// per stream of the g_ln product.
+template <int DP, typename TX>
+int block_bwd_split(const float* const* in, float* const* out, float* ws, int S, int B, int H, int W, int C,
+                    int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, const int* blocks, int shift,
+                    int cross, int windows, float scale, cudaStream_t st) {
+  const int inner = heads * d, M = B * H * W, groups = heads / hg_bwd, nb = S * B;
+  const int nwin = (H / 7) * (W / 7), top = shift ? 4 : 0;
+  const bool kv = cross != 0;
+  auto smem = [&](int kind) { return split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, kv); };
+  swin::Arena ar{ws};
+  const SplitScratch sc = carve_split(ar, S, M, C, inner, hidden, groups, blocks);
+  launch_transposes(in, sc.wqkvT, sc.wpT, sc.w1T, sc.w2T, S, C, inner, hidden, st);
+
+  // the forward, recomputed (fp32 inside): LN1(x) and its statistics, AV, y, LN2(y), the hidden
+  k4fwd::K4Args f = {in[kX], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp],
+                     in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2], in[kB2], nullptr, sc.lnx,
+                     sc.av, sc.y, sc.h, S, B, H, W, C, inner, heads, d, hidden, hg_fwd, kFc1Cols, top, top, cross,
+                     scale, windows != 0, sc.stats1};
+  const unsigned ln_blocks =
+      static_cast<unsigned>((static_cast<size_t>(nb) * H * W + kThreads / 8 - 1) / (kThreads / 8));
+  k4fwd::k4_ln_kernel<TX, false, false, true><<<ln_blocks, kThreads, 0, st>>>(f);
+  const Args k3f = {sc.lnx, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp], in[kBp], in[kBias],
+                    nullptr, sc.av, S, B, H, W, C, inner, heads, d, hg_fwd, top, top, cross, scale, windows != 0};
+  cudaError_t err =
+      launch_grid(k3_attention_kernel<DP, false, false>, dim3(nwin, nb, heads / hg_fwd), smem(0), k3f, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int col_groups = (C + kProjCols - 1) / kProjCols, tiles = H * W / kT;
+  err = launch_grid(k4fwd::k4_rows_kernel<TX, false, false>, dim3(nwin, nb, col_groups), smem(1), f, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  f.ln = sc.lny;  // LN2(y) beside LN1(x), which the attention's backward reads
+  k4fwd::k4_ln_kernel<TX, false, true><<<ln_blocks, kThreads, 0, st>>>(f);
+  err = launch_grid(k4fwd::k4_fc1_kernel<false>, dim3(tiles, nb, (hidden + kFc1Cols - 1) / kFc1Cols), smem(2), f,
+                    st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // the MLP and LN2 backward: g_pre, g_y
+  const MlpArgs a = {in[kG], in[kLn2g], sc.w1T, sc.w2T, sc.y, sc.h, sc.gpre, sc.gy, sc.ln2_part,
+                     B, H, W, C, hidden, hc, std::is_same<TX, bf16>::value};
+  err = launch_grid(split_mlp_bwd_kernel, dim3(blocks[0], S), smem(3), a, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // the attention's backward: K3's split-route block on (LN1(x), g_y), then g_ln and LN1's
+  // backward
+  const k3bwd::BwdArgs k3 = {sc.lnx, sc.gy, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias],
+                             sc.wpT, sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, nullptr, nullptr, nullptr, sc.tab_part,
+                             S, B, H, W, C, inner, d, hg_bwd, top, top, cross, scale, windows != 0, 0};
+  err = launch_grid(k3bwd::k3_bwd_kernel<DP, false>, dim3(blocks[1], S, groups), smem(4), k3, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GlnArgs gl = {in[kX], sc.stats1, in[kLn1g], sc.gy, sc.gq, sc.gk, sc.gv, sc.wqkvT, out[0], sc.ln1_part,
+                      S, M, C, inner};
+  const dim3 gl_grid(blocks[2], S);
+  if (!kv) err = launch_grid(gln_ln1_kernel<TX, false, false>, gl_grid, smem(5), gl, st);
+  else if constexpr (std::is_same<TX, bf16>::value)  // under cross a bf16 g_x's sides are rounded apart
+    err = launch_grid(gln_ln1_kernel<TX, true, true>, gl_grid, smem(5), gl, st);
+  else err = launch_grid(gln_ln1_kernel<TX, true, false>, gl_grid, smem(5), gl, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const Tail t = {sc.gy, sc.lnx, sc.av, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part, sc.ln2_part,
+                  sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, groups * blocks[1], blocks[0], blocks[2]};
+  return launch_tail<TX>(in, out, t, S, M, C, inner, hidden, kv, st);
+}
+
+template <typename TX>
+int split_pitch_launch(int dp, const float* const* in, float* const* out, float* ws, int S, int B, int H, int W,
+                       int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, const int* blocks,
+                       int shift, int cross, int windows, float scale, cudaStream_t st) {
+  switch (dp) {
+#define SWIN_SPLIT_CASE(P)                                                                                    \
+  case P:                                                                                                     \
+    return block_bwd_split<P, TX>(in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd, blocks, \
+                                  shift, cross, windows, scale, st);
+    SWIN_SPLIT_CASE(12)
+    SWIN_SPLIT_CASE(24)
+#undef SWIN_SPLIT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// swin_cuda_error_string comes with window_core.cuh.
+
+// Dynamic shared memory in bytes of one block of the split route's kernel `kind` (0 the
+// recomputed attention, 1 its projection rows, 2 its fc1, 3 the MLP backward, 4 K3's backward
+// block, 5 the g_ln product with the LN1 backward), or 0 where the split route does not take
+// the dimensions (hc: hidden columns per MLP step; hg_fwd, hg_bwd: heads a block of the
+// recomputed attention and of K3's backward block).
+size_t swin_block_bwd_split_smem(int kind, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
+                                 int cross) {
+  if (kind < 0 || kind >= kSplitKinds ||
+      !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0))
+    return 0;
+  return static_cast<size_t>(split_smem(kind, C, heads * d, d, hidden, hc, hg_fwd, hg_bwd, cross != 0));
+}
+
+// Floats of workspace one split-route call needs; mlp_blocks: blocks per stream of the MLP
+// backward; k3_blocks: per (stream, group of hg_bwd heads) of K3's block; gln_blocks: per stream
+// of the g_ln product.
+size_t swin_block_bwd_split_workspace(int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg_bwd,
+                                      int mlp_blocks, int k3_blocks, int gln_blocks) {
+  const int blocks[3] = {mlp_blocks, k3_blocks, gln_blocks};
+  swin::Arena ar{nullptr};
+  carve_split(ar, S, B * H * W, C, heads * d, hidden, heads / hg_bwd, blocks);
+  return ar.used;
+}
+
+// The block's backward without dropout on the split route (eleven launches; the header of the
+// split route above). Arguments as swin_block_bwd's, with hg_fwd and hg_bwd the heads a block
+// of the recomputed attention and of K3's backward block, mlp_blocks, k3_blocks and gln_blocks
+// the blocks per stream of the MLP backward, per (stream, group of heads) of K3's block and per
+// stream of the g_ln product, and ws at least swin_block_bwd_split_workspace(...) floats.
+// Returns cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions
+// this route does not take or a workspace too small.
+int swin_block_bwd_split(const float* const* in, float* const* out, float* ws, size_t ws_floats, int S, int B,
+                         int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
+                         int mlp_blocks, int k3_blocks, int gln_blocks, int shift, int cross, int windows,
+                         int bf16_io, float scale, void* stream) {
+  const int blocks[3] = {mlp_blocks, k3_blocks, gln_blocks};
+  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || mlp_blocks < 1 || k3_blocks < 1 ||
+      gln_blocks < 1 || !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0) ||
+      ws_floats < swin_block_bwd_split_workspace(S, B, H, W, C, heads, d, hidden, hg_bwd, mlp_blocks, k3_blocks,
+                                                 gln_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int dp = split_pitch(d);
+  return bf16_io ? split_pitch_launch<bf16>(dp, in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd,
+                                            blocks, shift, cross, windows, scale, st)
+                 : split_pitch_launch<float>(dp, in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd,
+                                             blocks, shift, cross, windows, scale, st);
+}
+
+}  // extern "C"

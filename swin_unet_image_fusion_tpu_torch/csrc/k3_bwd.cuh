@@ -1,0 +1,305 @@
+// K3's backward blocks, shared by window_attention_bwd.cu (K3 bwd without dropout) and the
+// split route of fused_block_bwd.cu (K1 bwd and K4 bwd at stages 2-3, which runs
+// k3_bwd_kernel<DP, false> on the stored LN1(x) and g_y): the block kernel (a block per group
+// of windows, stream and group of heads recomputes q/k/v, g_o and AV and runs window_bwd.cuh's
+// core backward), its shared-memory layout and arguments, and the split route's g_x kernel
+// with its layout and column groups (gx_width, which fused_block_bwd.cu's split route uses
+// for its own products of C columns).
+// window_attention_bwd.cu's header says what bounds them and why the design is so.
+
+#pragma once
+
+#include "window_bwd.cuh"
+#include "window_core_bwd.cuh"
+
+namespace k3bwd {
+
+using namespace wbwd;
+
+constexpr int kRing = 2;  // ring slots of every product
+
+// Blocks an SM of the block kernel (its register bound): one from a q/k row pitch of 24 on,
+// where the rows pass holds three rows of DP floats a lane.
+__host__ __device__ constexpr int min_blocks(int dp) { return dp >= 24 ? 1 : 2; }
+
+// Byte offsets of the block kernel's dynamic shared memory (ops/window_attention.py::bwd_smem
+// mirrors them): the A ring (x, and under cross the kv rows; then g) and the weight ring at
+// ring_b, over which the fused route keeps g_q | g_k | g_v resident after the core; q, k, v,
+// g_o in the core layout [hg][49][DP] (the fused route's g_x products put their weight ring
+// and a row buffer over them after the core); the rows pass's (1/sum, dot); the window's bias
+// with the wrap mask as -inf; the row, region and token tables, the q/k/v column offsets and
+// biases.
+struct BwdLayout {
+  int ring_b, q, k, v, go, rd, bias, tabs, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, int inner, int hg, int d, int dp) {
+  BwdLayout L{};
+  const int n = hg * d;
+  const int qkv = align16(hg * kT * dp * 4);
+  L.ring_b = ring_a_bytes(false, cross ? 2 : 1, kRing);
+  const int ring = L.ring_b + b_bytes(false, 3 * n, kRing);
+  int off = align16(max2(ring, fused ? a_bytes(false, 3 * inner) : 0));
+  L.q = off;
+  L.k = off + qkv;
+  L.v = off + 2 * qkv;
+  L.go = off + 3 * qkv;
+  off += max2(4 * qkv, fused ? align16(b_bytes(false, C, kRing)) + align16(kT * C * 4) : 0);
+  L.rd = off;
+  off += align16(hg * kT * 8);
+  L.bias = off;
+  off += align16(kT * kT * 4);
+  L.tabs = off;
+  off += align16((3 * kRowsB + 2 * kColTable) * 4);
+  L.total = off;
+  return L;
+}
+
+struct BwdArgs {
+  const void* x;  // (S, B, H, W, C) fp32 or bf16
+  const void* g;  // dL/d out, same
+  const float *wq, *bq, *wk, *bk, *wv, *bv, *bias;
+  const float *wpT, *wqkvT;  // per stream (C, inner), (3 inner, C)
+  float *av, *gq, *gk, *gv;  // (S, B*H*W, inner) token rows
+  void* gx;                  // fused self: g_x, in x's type
+  float *gxq, *gxkv;         // fused cross: its q side and k/v side, (S, B*H*W, C)
+  float* tab_part;           // (S, groups, blocks, 49*49)
+  int S, B, H, W, C, inner, d, hg, top, left, cross;
+  float scale;
+  int windows;  // the token layout that window_rows reads: 0, the image
+  int bf16;     // x, g and g_x bf16 (else fp32)
+};
+
+// Element i of x's type (fp32, or bf16 rounded once) from an fp32 value.
+__device__ __forceinline__ void put_act(void* p, size_t i, float v, int is_bf16) {
+  if (is_bf16) static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(p)[i] = v;
+}
+
+// One block per (group of windows, stream, group of hg heads): see the header.
+template <int DP, bool kFused>
+__global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
+  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP);
+  const int s = blockIdx.y, grp = blockIdx.z, c0 = grp * n;
+  const int kvs = a.cross ? a.S - 1 - s : s;
+  const int nwin = (a.H / 7) * (a.W / 7), hw = a.H * a.W;
+  const size_t map = static_cast<size_t>(hw) * C;
+
+  int* rows = reinterpret_cast<int*>(smem + L.tabs);
+  int* region = rows + kRowsB;
+  int* tok = region + kRowsB;
+  int* col_ofs = tok + kRowsB;
+  float* bqkv_s = reinterpret_cast<float*>(col_ofs + kColTable);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + L.ring_b);
+  float* u = reinterpret_cast<float*>(smem);  // fused: g_q | g_k | g_v, channel-major, over the rings
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* k_s = reinterpret_cast<float*>(smem + L.k);
+  float* v_s = reinterpret_cast<float*>(smem + L.v);
+  float* go_s = reinterpret_cast<float*>(smem + L.go);
+  float2* rd = reinterpret_cast<float2*>(smem + L.rd);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+
+  zero_smem(smem, 0, L.total);  // the padded dims and channels stay finite
+  __syncthreads();
+  fill_col_table<DP, false>(col_ofs, n, d);
+  for (int col = threadIdx.x; col < 3 * n; col += kThreads) {
+    const int part = (col >= n) + (col >= 2 * n);
+    const float* bsrc = part == 0 ? a.bq : part == 1 ? a.bk : a.bv;
+    bqkv_s[col] = bsrc[s * inner + c0 + col - part * n];
+  }
+  float tab[kQuarter];
+#pragma unroll
+  for (int uu = 0; uu < kQuarter; ++uu) tab[uu] = 0.0f;
+  const size_t elem = a.bf16 ? 2 : 4;  // bytes of an x or g element
+  const unsigned char* x = static_cast<const unsigned char*>(a.x);
+  const unsigned char* g = static_cast<const unsigned char*>(a.g);
+
+  for (int item = blockIdx.x; item < a.B * nwin; item += gridDim.x) {
+    const int b = item / nwin, win = item - b * nwin;
+    const size_t img = static_cast<size_t>(s) * a.B + b;      // (s, b)
+    const size_t kv_img = static_cast<size_t>(kvs) * a.B + b;  // the image k/v come from
+    const size_t hrow = img * hw;                              // its first token row
+    __syncthreads();  // the previous window's readers are done
+    if (kFused) zero_smem(smem, L.q, L.rd);  // q/k/v/g_o's padded dims, under the g_x products
+    window_rows(a, win, rows, region);
+    for (int t = threadIdx.x; t < kRowsB; t += kThreads) tok[t] = rows[t] / C;  // this thread's rows[t]
+    __syncthreads();
+    for (int e = threadIdx.x; e < kT * kT; e += kThreads)
+      bias_s[e] = region[e / kT] == region[e % kT] ? a.bias[s * kT * kT + e] : -__int_as_float(0x7f800000);
+    {  // q (scaled), k, v of the group's heads
+      Gemm gm{};
+      gm.abase[0] = x + img * map * elem;
+      gm.abase[1] = x + kv_img * map * elem;
+      gm.aparts = a.cross ? 2 : 1;
+      gm.rows = rows;
+      const size_t wofs = static_cast<size_t>(s) * C * inner + c0;
+      gm.w[0] = a.wq + wofs;
+      gm.w[1] = a.wk + wofs;
+      gm.w[2] = a.wv + wofs;
+      gm.n = n;
+      gm.ldw = inner;
+      gm.nb = 3 * n;
+      gm.K = C;
+      with_tn(gm.nb, [&](auto tn) {
+        Tile<decltype(tn)::value> acc;
+        zero_tile(acc);
+        gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
+        each(acc, gm.nb, [&](int t, int col, float v) {
+          const float y = v + bqkv_s[col];
+          put_qkv<DP, false>(t, col, col < n ? y * a.scale : y, n, col_ofs, q_s, k_s, smem + L.v);
+        });
+      });
+    }
+    {  // g_o = g wp^T for the group's heads
+      Gemm gm{};
+      gm.abase[0] = g + img * map * elem;
+      gm.aparts = 1;
+      gm.rows = rows;
+      gm.w[0] = a.wpT + static_cast<size_t>(s) * C * inner + c0;
+      gm.n = gm.nb = n;
+      gm.ldw = inner;
+      gm.K = C;
+      with_tn(n, [&](auto tn) {
+        Tile<decltype(tn)::value> acc;
+        zero_tile(acc);
+        gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
+        each(acc, n, [&](int t, int col, float v) { go_s[col_ofs[col] + t * DP] = v; });
+      });
+    }
+    __syncthreads();
+    float* av = a.av + hrow * inner + c0;
+    attention_core<DP, false>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
+                              [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; });
+    if constexpr (kFused) {
+      core_bwd<DP>(
+          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab, [&](int t, int col, float v) { a_at(u, t, col) = v; },
+          [&](int t, int col, float gk, float gv) {
+            a_at(u, t, inner + col) = gk;
+            a_at(u, t, 2 * inner + col) = gv;
+          });
+      __syncthreads();
+      store_a(u, inner, a.gq + hrow * inner, inner, tok);
+      store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);
+      store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok);
+      // g_x = [g_q | g_k | g_v] [wq | wk | wv]^T, the weight ring and a row buffer over q/k/v/g_o
+      float* rowbuf = reinterpret_cast<float*>(smem + L.q + align16(b_bytes(false, C, kRing)));
+      const float* wt = a.wqkvT + static_cast<size_t>(s) * 3 * inner * C;
+      auto product = [&](const float* a0, int K, const float* w, auto store) {
+        const Gemm gm = weights(w, C, C, K);
+        with_tn(C, [&](auto tn) {
+          Tile<decltype(tn)::value> acc;
+          zero_tile(acc);
+          gemm_tile<decltype(tn)::value, kRing>(acc, gm, a0, a0, q_s);
+          each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; });
+        });
+        __syncthreads();
+        each_row_col(kT, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
+      };
+      if (a.cross) {
+        product(u, inner, wt, [&](size_t at, float v) { a.gxq[img * map + at] = v; });
+        __syncthreads();
+        product(u + inner * kPitchF, 2 * inner, wt + static_cast<size_t>(inner) * C,
+                [&](size_t at, float v) { a.gxkv[kv_img * map + at] = v; });
+      } else {
+        product(u, 3 * inner, wt, [&](size_t at, float v) { put_act(a.gx, img * map + at, v, a.bf16); });
+      }
+    } else {
+      float* gq = a.gq + hrow * inner + c0;
+      float* gk = a.gk + hrow * inner + c0;
+      float* gv = a.gv + hrow * inner + c0;
+      core_bwd<DP>(
+          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
+          [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
+          [&](int t, int col, float gkv, float gvv) {
+            gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
+            gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
+          });
+    }
+  }
+
+  const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
+  if (t < kT) {
+    float* tp = a.tab_part + ((static_cast<size_t>(s) * gridDim.z + grp) * gridDim.x + blockIdx.x) * kT * kT + t * kT;
+#pragma unroll
+    for (int uu = 0; uu < kQuarter; ++uu)
+      if (qd * kQuarter + uu < kT) tp[qd * kQuarter + uu] = tab[uu];
+  }
+}
+
+// ---- the split route's g_x: [g_q | g_k' | g_v'] [wq | wk' | wv']^T over token rows ---------
+// A block per (49-token tile, stream, group of `width` output columns): the q side from the
+// stream's g_q and wq^T into a row buffer, then the k/v side from the k/v stream's g_k, g_v
+// and wk^T, wv^T (the other stream under cross) added to it; g_x = q + kv, in bf16 under cross
+// rnd(rnd(q) + rnd(kv)); from the row buffer to coalesced stores.
+struct GxLayout {
+  int ring_b, rowbuf, rows, total;
+};
+
+__host__ __device__ inline GxLayout gx_layout(int width) {
+  GxLayout L{};
+  L.ring_b = ring_a_bytes(false, 1, kRing);
+  L.rowbuf = align16(L.ring_b + b_bytes(false, width, kRing));
+  L.rows = L.rowbuf + align16(kT * width * 4);
+  L.total = L.rows + align16(kRowsB * 4);
+  return L;
+}
+
+// Output columns of a gx_kernel block: C in the fewest groups of at most kMaxCols, each a
+// multiple of 4.
+__host__ __device__ inline int gx_width(int C) {
+  const int groups = (C + kMaxCols - 1) / kMaxCols;
+  return round_up((C + groups - 1) / groups, 4);
+}
+
+struct GxArgs {
+  const float *gq, *gk, *gv, *wqkvT;
+  void* gx;
+  int S, M, C, inner, width, cross, bf16;
+};
+
+__global__ void __launch_bounds__(kThreads) gx_kernel(const GxArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const GxLayout L = gx_layout(a.width);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + L.ring_b);
+  float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf);
+  int* rows = reinterpret_cast<int*>(smem + L.rows);
+  const int s = blockIdx.y, kvs = a.cross ? a.S - 1 - s : s;
+  const int C = a.C, inner = a.inner, width = a.width;
+  const int cg0 = blockIdx.z * width, ncols = min(width, C - cg0);
+  const size_t r0 = static_cast<size_t>(s) * a.M + static_cast<size_t>(blockIdx.x) * kT;
+  const size_t kv0 = static_cast<size_t>(kvs) * a.M + static_cast<size_t>(blockIdx.x) * kT;
+  for (int t = threadIdx.x; t < kRowsB; t += kThreads) rows[t] = t < kT ? t * inner : 0;
+  __syncthreads();
+  with_tn(width, [&](auto tn) {
+    constexpr int TN = decltype(tn)::value;
+    auto part = [&](Tile<TN>& acc, const float* src, int sw, int p) {
+      Gemm gm{};
+      gm.abase[0] = src;
+      gm.aparts = 1;
+      gm.rows = rows;
+      gm.w[0] = a.wqkvT + (static_cast<size_t>(sw) * 3 + p) * inner * C + cg0;
+      gm.n = gm.nb = width;
+      gm.ldw = C;
+      gm.K = inner;
+      gm.ncols = ncols;
+      gemm_stream<TN>(acc, gm, ring, bring, 0);
+    };
+    const bool apart = a.bf16 && a.cross;  // bf16 under cross: each side rounded
+    Tile<TN> acc;
+    zero_tile(acc);
+    part(acc, a.gq + r0 * inner, s, 0);
+    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] = apart ? swin::round_bf16(v) : v; });
+    zero_tile(acc);
+    part(acc, a.gk + kv0 * inner, kvs, 1);
+    part(acc, a.gv + kv0 * inner, kvs, 2);
+    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] += apart ? swin::round_bf16(v) : v; });
+  });
+  __syncthreads();
+  each_row_col(kT, ncols, [&](int t, int k) { put_act(a.gx, (r0 + t) * C + cg0 + k, rowbuf[t * width + k], a.bf16); });
+}
+
+}  // namespace k3bwd

@@ -43,11 +43,16 @@ On a card, a call that autograd records (grad mode on and an input that requires
 goes through ``_FusedBlockFunction``: its backward (K1 bwd and K4 bwd) recomputes the block
 from x and the weights, as the JAX custom VJPs do, and returns g_x and every weight's
 gradient. Without dropout :func:`block_bwd_plan` routes it: where a window's blocks fit in
-shared memory (C <= 48 in the default model) ``csrc/fused_block_bwd.cu`` (seven launches: the
-transposed weights, the recomputed forward a block per group of windows, the MLP's backward
-over 49-token tiles, the attention's backward over windows, the LN1 backward, the weight
-gradients, one reduction); elsewhere, and with dropout, ``swin_fused_block_bwd`` of
-``csrc/fused_block.cu`` (twenty launches, the forward recomputed with its five).
+shared memory (C <= 48 in the default model) the fused route of ``csrc/fused_block_bwd.cu``
+(seven launches: the transposed weights, the recomputed forward a block per group of windows,
+the MLP's backward over 49-token tiles, the attention's backward over windows, the LN1
+backward, the weight gradients, one reduction); at C = 96 and 192 (stages 2-3) the split route
+of ``csrc/fused_block_bwd_split.cu`` (eleven launches: the transposed weights, the forward
+recomputed on the forward's split route, the MLP's backward over 49-token tiles, K3's split
+backward block on the stored LN1(x) and g_y, the g_ln product with the LN1 backward, the weight
+gradients, one reduction); elsewhere
+(C = 384), and with dropout, ``swin_fused_block_bwd`` of ``csrc/fused_block.cu`` (twenty
+launches, the forward recomputed with its five).
 ``_launch_bwd_five`` keeps the latter callable without dropout, for timing in turns.
 ``fused_block_bwd_plain`` is the plain backward (autograd of the plain version); it differs
 from the kernels only where a score exceeds the softmax clamp of 80, whose derivative the
@@ -84,6 +89,7 @@ import torch.nn.functional as F
 from . import _build
 from . import dropout_layout as dl
 from . import hash_dropout as hd
+from . import window_attention as twa
 from .window import device_constant
 from .window_attention import (
     ACT_DTYPES,
@@ -334,6 +340,18 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _split_library() -> ctypes.CDLL:
+    lib = _build.load("fused_block_bwd_split")
+    lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t] + [_I] * 18 + [ctypes.c_float, _P]
+    lib.swin_block_bwd_split.restype = _I
+    lib.swin_block_bwd_split_workspace.argtypes = [_I] * 12
+    lib.swin_block_bwd_split_workspace.restype = ctypes.c_size_t
+    lib.swin_block_bwd_split_smem.argtypes = [_I] * 9
+    lib.swin_block_bwd_split_smem.restype = ctypes.c_size_t
+    return lib
+
+
 # ---- the forward without dropout, K4 and K1 (csrc/fused_block_fwd.cu): its launch plan ----
 # Block geometry as csrc/window_fwd.cuh's (256 threads; fp32 GEMM rows padded to 56, A
 # operands channel-major with rows pitched 60 floats; bf16 rows to 64, operands [64][K + 8]
@@ -465,6 +483,11 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
 
 # ---- the backward without dropout, K1 and K4 (csrc/fused_block_bwd.cu): its launch plan ----
 BWD_KERNELS = ("forward", "mlp", "attention")  # the fused route's three block kernels
+# the split route's kernels with dynamic shared memory, in the source's kind order: the
+# recomputed attention, its projection rows and fc1, the MLP backward, K3's backward block,
+# the g_ln product with the LN1 backward
+SPLIT_KERNELS = ("attention", "rows", "fc1", "mlp", "attention_bwd", "gln")
+SPLIT_PITCHES = (12, 24)  # the split route's q/k row pitches: d = 12 and 24, stages 2-3
 BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
 _BWD_RING = 2  # weight-ring slots of the block kernels
 _LN1_ROWS = 128
@@ -499,6 +522,32 @@ def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, c
     raise ValueError(f"unknown kernel {kernel!r}; expected one of {BWD_KERNELS}")
 
 
+def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg_bwd: int,
+               cross: bool) -> int:
+    """Shared-memory bytes of one block of a kernel of the split route (``split_smem`` in the
+    source): the recompute's attention, projection rows and fc1 as the forward's split route
+    lays them out in fp32 (:func:`block_smem`); the MLP backward (``split_mlp_layout``) the
+    weight ring (2 x 16 x the wider of the g_lny products' column groups,
+    ``window_attention.gx_width``, and the hidden step), the g_lny sums [49][C], g and the
+    step's g_pre resident, the LN2 statistics and gradient sums; K3's backward block as
+    ``window_attention.bwd_smem`` lays it out; the g_ln product (``gln_layout``) its A ring (2 x
+    16 x 60 floats) and weight ring (2 x 16 x the column group), LN1(x)'s gradient [49][C] (two
+    sides under cross), the row table, LN1 statistics and gradient sums."""
+    pitch = next(p for p in FWD_PITCHES if d <= p)
+    if kernel in ("attention", "rows", "fc1"):
+        return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False))
+    if kernel == "mlp":
+        ring = _align16(_b_bytes(False, max(twa.gx_width(c), _round_up(hc, 4)), _BWD_RING))
+        step = _align16(operand_bytes(False, _round_up(hc, 4)))
+        return ring + _align16(_T * c * 4) + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+    if kernel == "attention_bwd":
+        return twa.bwd_smem(False, cross, c, inner, hg_bwd, d, pitch)
+    if kernel == "gln":
+        ring = _ring_a_bytes(False, 1, _BWD_RING) + _b_bytes(False, twa.gx_width(c), _BWD_RING)
+        return _align16(ring) + (2 if cross else 1) * _align16(_T * c * 4) + _align16(64 * 4 + 64 * 8 + 2 * c * 4)
+    raise ValueError(f"unknown kernel {kernel!r}; expected one of {SPLIT_KERNELS}")
+
+
 def _core_bwd_smem(d: int, window) -> int:
     """Dynamic shared memory of ``csrc/window_core_bwd.cuh``'s core backward (the five
     route's largest block) without dropout."""
@@ -513,9 +562,14 @@ class BlockBwdPlan:
     the recomputed forward, the MLP's backward and the attention's backward, each a block per
     group of windows (49-token tiles for the MLP) and stream with ``blocks_per_sm`` blocks an
     SM, the MLP in steps of ``hidden_chunk`` columns; the LN1 backward; the weight gradients;
-    one reduction) or "five" (``csrc/fused_block.cu``'s backward, twenty launches); ``smem``:
-    (kernel, dynamic shared-memory bytes) of the route's block kernels (the five route's
-    largest)."""
+    one reduction), "split" (``csrc/fused_block_bwd_split.cu``, eleven launches: the
+    transposed weights; the forward recomputed on the forward's split route, with
+    ``heads_per_block[0]`` heads an attention block; the MLP's backward over 49-token tiles,
+    ``blocks_per_sm[0]`` blocks an SM; K3's split backward block on LN1(x) and g_y,
+    ``heads_per_block[1]`` heads a block in ``groups`` groups, ``blocks_per_sm[1]`` blocks an
+    SM; the g_ln product with the LN1 backward in its epilogue, ``blocks_per_sm[2]`` blocks an
+    SM; the weight gradients, one reduction) or "five" (``csrc/fused_block.cu``'s backward, twenty launches); ``smem``:
+    (kernel, dynamic shared-memory bytes) of the route's kernels (the five route's largest)."""
 
     route: str
     launches: int
@@ -523,11 +577,21 @@ class BlockBwdPlan:
     hidden_chunk: int
     smem: Tuple[Tuple[str, int], ...]
     blocks_per_sm: Tuple[int, ...] = ()
+    heads_per_block: Tuple[int, ...] = ()
+    groups: int = 1
 
     def blocks(self, s: int, b: int, h: int, w: int, sms: int = DEFAULT_SMS) -> Tuple[int, ...]:
-        """Blocks per stream of each block kernel of the fused route: one wave of the card, at
-        most one per window (per 49-token tile for the MLP's)."""
+        """Blocks of each kernel whose blocks walk a list of items, one wave of the card: on
+        the fused route per stream of each block kernel, at most one per window (per 49-token
+        tile for the MLP's); on the split route per stream of the MLP backward and of the g_ln
+        product, at most one per 49-token tile, and per (stream, group of heads) of K3's block,
+        at most one per window (``window_attention.BwdPlan.blocks``)."""
         windows = b * (h // 7) * (w // 7)
+        if self.route == "split":
+            mlp, k3, gln = self.blocks_per_sm
+            tiles = b * h * w // _T
+            return (max(1, min(tiles, sms * mlp // s)), max(1, min(windows, sms * k3 // (s * self.groups))),
+                    max(1, min(tiles, sms * gln // s)))
         return tuple(max(1, min(windows, sms * n // s)) for n in self.blocks_per_sm)
 
 
@@ -538,8 +602,12 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
     bf16 alike), or ValueError where no backward takes the shape. The fused route where one
     window's blocks fit a block's shared memory: 7x7 windows, d <= 8, C and heads*d
     multiples of 8, 3 heads*d <= 144 and C <= 144 (one product's columns), the hidden a
-    multiple of 4, stepped through in chunks of at most 144 columns; else the five-launch
-    backward, which takes C <= 384 (its LayerNorm kernel)."""
+    multiple of 4, stepped through in chunks of at most 144 columns. Else the split route
+    where d rounds up to a row pitch of 12 or 24 (stages 2-3 of the default model), C <= 384,
+    the forward's fp32 plan and K3's backward plan both take their split routes (heads in
+    groups of at most 48 columns a q/k/v part) and every kernel fits a block's shared memory.
+    Else the five-launch backward, which takes C <= 384 (its LayerNorm kernel): at stage 4
+    (d = 48) the split route fits but lost to it at 448² batch 4 (``PERF.md`` §6)."""
     inner = heads * d
     pitch = next((p for p in FWD_PITCHES if d <= p), None)
     cols = max_cols(False)
@@ -550,6 +618,9 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
         if max(b for _, b in smem) <= SMEM_LIMIT_BYTES:
             return BlockBwdPlan("fused", 7, pitch, hc, smem,
                                 tuple(2 if b <= SMEM_TWO_PER_SM else 1 for _, b in smem))
+    split = _split_plan(c, heads, d, hidden, tuple(window), cross)
+    if split is not None:
+        return split
     if c > MAX_CHANNELS:
         raise ValueError(f"the fused block's backward (its LayerNorm kernel) takes C <= "
                          f"{MAX_CHANNELS}, got {c}")
@@ -558,6 +629,54 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
         raise ValueError(f"the fused block's backward at d={d} needs {smem} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT_BYTES} a block has")
     return BlockBwdPlan("five", 20, 0, 0, (("core_bwd", smem),))
+
+
+def _split_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int],
+                cross: bool) -> Optional[BlockBwdPlan]:
+    """The split route's plan at a shape it takes, else None (``split_supported`` in the
+    source)."""
+    inner = heads * d
+    pitch = next((p for p in FWD_PITCHES if d <= p), None)
+    if (window != FWD_WINDOW or pitch not in SPLIT_PITCHES or c % 8 or inner % 8 or hidden % 4
+            or c > MAX_CHANNELS):
+        return None
+    try:
+        fwd = block_fwd_plan(c, heads, d, hidden, window, cross, False)
+        k3 = twa.bwd_plan(c, heads, d, window, cross, False)
+    except ValueError:
+        return None
+    if fwd.route != "split" or k3.route != "split":
+        return None
+    hc = min(hidden, max_cols(False))
+    hg = (fwd.heads_per_block, k3.heads_per_block)
+    smem = tuple((kernel, split_smem(kernel, c, inner, d, hc, *hg, cross)) for kernel in SPLIT_KERNELS)
+    wgrad = max(twa._wg_smem(ka, nb) for ka, nb in ((c, inner), (inner, c), (c, hidden), (hidden, c)))
+    if max(max(b for _, b in smem), wgrad) > SMEM_LIMIT_BYTES:
+        return None
+    two = {kernel: 2 if b <= SMEM_TWO_PER_SM else 1 for kernel, b in smem}
+    return BlockBwdPlan("split", 11, pitch, hc, smem, (two["mlp"], k3.blocks_per_sm, two["gln"]),
+                        hg, heads // k3.heads_per_block)
+
+
+def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
+                           plan: BlockBwdPlan, blocks: Tuple[int, int, int]) -> int:
+    """Floats of workspace of one split-route call (``carve_split`` in the source, every piece
+    rounded up to 32 floats): the transposed weights; LN1(x) and its statistics, AV, y,
+    LN2(y), the hidden, g_pre, g_y, g_q, g_k and g_v of every token; the partial sums of the
+    bias table (per K3 block), LN2 (per MLP block) and LN1 (per g_ln block) and the
+    weight-gradient launch's chunks (about sixteen working blocks an SM: each
+    job's own tile groups, ``wg_working_blocks`` in the source)."""
+    inner, m = heads * d, b * h * w
+    sm = s * m
+    mlp_blocks, k3_blocks, gln_blocks = blocks
+    pieces = [s * 3 * inner * c, s * c * inner, s * hidden * c, s * c * hidden,
+              sm * c, sm * 2, sm * inner, sm * c, sm * c, sm * hidden, sm * hidden, sm * c,
+              sm * inner, sm * inner, sm * inner]
+    pieces += [s * plan.groups * k3_blocks * _T * _T, s * mlp_blocks * 2 * c, s * gln_blocks * 2 * c]
+    shapes = ((c, inner), (c, inner), (c, inner), (inner, c), (c, hidden), (hidden, c))
+    working = s * sum(twa._wg_groups(ka, nb) for ka, nb in shapes)
+    pieces.append(s * _wgrad_chunks(m, max(1, working // 2)) * sum((ka + 1) * nb for ka, nb in shapes))
+    return sum(_round_up(p, 32) for p in pieces)
 
 
 def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
@@ -686,8 +805,9 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
     the weight gradients fp32; K1 and K4 alike) for a bf16 x. Without dropout
-    :func:`block_bwd_plan` routes the call ("fused": ``csrc/fused_block_bwd.cu``); a dropout
-    call and the "five" route run ``csrc/fused_block.cu``'s backward."""
+    :func:`block_bwd_plan` routes the call ("fused": ``csrc/fused_block_bwd.cu``, "split":
+    ``csrc/fused_block_bwd_split.cu``); a dropout call and the "five" route run
+    ``csrc/fused_block.cu``'s backward."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -699,6 +819,8 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     plan = None if drop else block_bwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]))
     if plan is not None and plan.route == "fused":
         grads = _launch_bwd_fused(g, x, weights, kw, plan)
+    elif plan is not None and plan.route == "split":
+        grads = _launch_bwd_split(g, x, weights, kw, plan)
     else:
         grads = _launch_bwd_five(g, x, weights, kw)
     if drop and bf16:
@@ -728,6 +850,28 @@ def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
         rc = lib.swin_block_bwd(
             ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, hidden,
             plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
+            int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(lib, rc, "fused block backward")
+    return tuple(grads)
+
+
+def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tensor, ...]:
+    """``csrc/fused_block_bwd_split.cu``, eleven launches: x, g and g_x in x's dtype, the
+    weight gradients fp32, the workspace (:func:`split_workspace_floats`) fp32."""
+    s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
+    cross = bool(kw["cross"])
+    blocks = plan.blocks(s, b, h, w, _sm_count(x.device))
+    lib = _split_library()
+    grads = [torch.empty_like(a) for a in (x, *weights)]
+    floats = split_workspace_floats(s, b, h, w, c, heads, d, hidden, plan, blocks)
+    workspace = x.new_empty(floats, dtype=torch.float32)
+    ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
+    outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
+    with torch.cuda.device(x.device):
+        rc = lib.swin_block_bwd_split(
+            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, hidden, plan.hidden_chunk,
+            *plan.heads_per_block, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
             int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block backward")

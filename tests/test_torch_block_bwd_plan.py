@@ -1,11 +1,12 @@
 """The launch plan of the fused block's backward without dropout (K1 bwd and K4 bwd), on the
 CPU: ``block_bwd_plan``'s route, launches, shared memory and workspace at every stage of the
 default model at 224² batch 20, 512² and 100x90 (the fused route of
-``csrc/fused_block_bwd.cu`` where one window's block fits, the five-launch backward of
-``csrc/fused_block.cu`` elsewhere), the same plan for both dtypes, what ``_launch_bwd`` hands
-the kernels (a fake library that checks ctypes' argument counts), that dropout keeps
-``swin_fused_block_bwd`` and that shapes no backward takes raise before any launch. The
-kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
+``csrc/fused_block_bwd.cu`` where one window's block fits, its split route at stages 2-3, the
+five-launch backward of ``csrc/fused_block.cu`` at stage 4), the same plan for both dtypes,
+what ``_launch_bwd`` hands the kernels (a fake library that checks ctypes' argument counts),
+that dropout and stage 4 keep ``swin_fused_block_bwd`` and that shapes no backward takes raise
+before any launch. The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and
+``chip_smoke.py``."""
 
 import contextlib
 
@@ -36,16 +37,37 @@ def test_plan_of_each_shape(k, c, hidden, cross, hw, batch):
     """Stages 0-1 (C <= 48) take the fused route: seven launches, every head in a block (q/k
     row pitch 4 or 8), the hidden in steps of at most 144 columns, each of the three block
     kernels two blocks an SM within the 113 KB that allows (and the 227 KB a block may use);
-    stages 2-4 the five-launch backward (twenty launches), whose core backward fits too. The
-    fused route's workspace is what the tokens need (LN1(x) and its statistics, q, k, v, AV,
-    y, g_y, g_o, LN2(y), the hidden and g_pre, g_q/g_k/g_v, g_ln and under cross its k/v side)
-    plus the transposed weights and partial sums, which stay below 64 MB."""
+    stages 2-3 (C = 96 and 192) the split route: eleven launches, the recomputed attention and
+    K3's backward block in groups of four heads of d = 12 (stage 2) or two of d = 24 (stage
+    3), the MLP backward two blocks an SM at C = 96 and one at C = 192, the g_ln product two;
+    stage 4 (C = 384, whose
+    MLP backward would need 292 KB) the five-launch backward (twenty launches), whose core
+    backward fits. The fused and split routes' workspaces are what the tokens need (fused:
+    LN1(x) and its statistics, q, k, v, AV, y, g_y, g_o, LN2(y), the hidden and g_pre,
+    g_q/g_k/g_v, g_ln and under cross its k/v side; split the same but q, k, v, g_o and g_ln) plus
+    the transposed weights and partial sums, which stay below 64 MB."""
     d = CFG.dims_per_head(c)
     plan = tfb.block_bwd_plan(c, CFG.att_num_heads, d, hidden, CFG.window_size, cross)
     assert all(0 < smem <= tfb.SMEM_LIMIT_BYTES for _, smem in plan.smem)
-    if k > 1:
+    h, w = _stage_map(hw, k)
+    if k == 4:
         assert (plan.route, plan.launches, plan.blocks_per_sm) == ("five", 20, ())
         assert [kind for kind, _ in plan.smem] == ["core_bwd"]
+        return
+    if k > 1:
+        assert (plan.route, plan.launches, plan.pitch) == ("split", 11, {12: 12, 24: 24}[d])
+        assert plan.heads_per_block == {12: (4, 4), 24: (2, 2)}[d] and plan.groups == 8 // plan.heads_per_block[1]
+        assert plan.hidden_chunk == min(hidden, 144) and [kind for kind, _ in plan.smem] == list(tfb.SPLIT_KERNELS)
+        assert plan.smem == tuple((kernel, tfb.split_smem(kernel, c, c, d, plan.hidden_chunk, *plan.heads_per_block,
+                                                         cross)) for kernel in tfb.SPLIT_KERNELS)
+        assert plan.blocks_per_sm == ({96: 2, 192: 1}[c], {12: 2, 24: 1}[d], 2)
+        mlp_blocks, k3_blocks, gln_blocks = blocks = plan.blocks(2, batch, h, w)
+        assert 1 <= min(mlp_blocks, gln_blocks) and max(mlp_blocks, gln_blocks) <= min(batch * h * w // 49,
+                                                                                      tfb.DEFAULT_SMS)
+        assert 1 <= k3_blocks <= min(batch * (h // 7) * (w // 7), tfb.DEFAULT_SMS)
+        floats = tfb.split_workspace_floats(2, batch, h, w, c, CFG.att_num_heads, d, hidden, plan, blocks)
+        per_token = 8 * c + 2 + 2 * hidden
+        assert 0 <= floats - 2 * batch * h * w * per_token < 16 * 2**20
         return
     assert (plan.route, plan.launches) == ("fused", 7)
     assert plan.pitch == {3: 4, 6: 8}[d] and plan.hidden_chunk == min(hidden, 144)
@@ -53,7 +75,6 @@ def test_plan_of_each_shape(k, c, hidden, cross, hw, batch):
     assert plan.blocks_per_sm == (2, 2, 2) and all(smem <= tfb.SMEM_TWO_PER_SM for _, smem in plan.smem)
     assert plan.smem == tuple((kernel, tfb.bwd_smem(kernel, c, c, CFG.att_num_heads, plan.pitch, plan.hidden_chunk,
                                                   cross)) for kernel in tfb.BWD_KERNELS)
-    h, w = _stage_map(hw, k)
     blocks = plan.blocks(2, batch, h, w)
     assert all(1 <= n <= min(batch * (h // 7) * (w // 7), tfb.DEFAULT_SMS) for n in blocks)
     floats = tfb.bwd_workspace_floats(2, batch, h, w, c, CFG.att_num_heads, d, hidden, blocks, cross)
@@ -110,13 +131,19 @@ def test_plan_raises_where_no_backward_takes_the_shape(what, c, heads, d, hidden
 
 
 def test_shapes_outside_the_fused_route_take_the_five_launches():
-    """Another window, d > 8, more than 144 q/k/v columns or a hidden that is not a
+    """Outside the fused route, the split route takes heads of d = 12 and 24 (row pitches 12
+    and 24: d = 20 in groups of two, d = 12 in groups of four); another window, d <= 8 with
+    more than 144 q/k/v columns, the other row pitches (d = 32, 48) or a hidden that is not a
     multiple of 4 run the five-launch backward, which takes any of them."""
     assert tfb.block_bwd_plan(24, 8, 3, 96, (8, 8), True).route == "five"
     assert tfb.block_bwd_plan(64, 2, 32, 256, (7, 7), True).route == "five"
-    assert tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True).route == "five"
+    plan = tfb.block_bwd_plan(80, 4, 20, 320, (7, 7), True)
+    assert (plan.route, plan.pitch, plan.heads_per_block, plan.groups) == ("split", 24, (2, 2), 2)
+    assert tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True).route == "split"
+    assert tfb.block_bwd_plan(64, 4, 16, 256, (7, 7), True).route == "five"
     assert tfb.block_bwd_plan(64, 8, 8, 256, (7, 7), True).route == "five"
     assert tfb.block_bwd_plan(24, 8, 3, 98, (7, 7), True).route == "five"
+    assert tfb.block_bwd_plan(384, 8, 48, 1536, (7, 7), False).route == "five"
     assert tfb.block_bwd_plan(16, 2, 8, 64, (7, 7), True).route == "fused"
 
 
@@ -151,12 +178,12 @@ def fake_library(monkeypatch):
     bound with the wrapper's own argtypes, and no CUDA runtime."""
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load", lambda name: lib)
-    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library):
+    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library, tfb._split_library):
         cached.cache_clear()
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     yield lib
-    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library):
+    for cached in (tfb._library, tfb._fwd_library, tfb._bwd_library, tfb._split_library):
         cached.cache_clear()
 
 
@@ -230,17 +257,106 @@ def test_both_dtypes_hand_the_kernels_one_plan(fake_library, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_five_route_and_dropout_run_the_five_launch_backward(fake_library, dtype):
-    """Stage 2's shape without dropout, and stage 0's with dropout, run
+    """Stage 4's shape without dropout (C = 384, d = 48), and stage 0's with dropout, run
     ``swin_fused_block_bwd``; the dropout call counts in the dropout counter."""
-    x, weights = _block_args(96, 8, 12, 384, dtype)
-    tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(12))
+    x, weights = _block_args(384, 8, 48, 1536, dtype)
+    tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(48))
     x, weights = _block_args(24, 8, 3, 96, dtype)
     before = (tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES)
     tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(3, drop_rates=(0.1, 0.0, 0.1), drop_seed=4))
     assert len(fake_library.calls["swin_fused_block_bwd"]) == 2
-    assert "swin_block_bwd" not in fake_library.calls
+    assert "swin_block_bwd" not in fake_library.calls and "swin_block_bwd_split" not in fake_library.calls
     bf16 = dtype == torch.bfloat16
     assert (tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+
+
+def test_the_split_plan_counts_every_buffer():
+    """Stage 2, encoder MLP, cross: the recomputed attention's block holds K3's split attention
+    block (the x rings of both streams, 3 x 16 x 60 floats each, and the weight ring of 3 x 16
+    x 144 columns; q/k/v of four heads [4][49][12]; the bias and the tables); the projection
+    rows' and fc1's the forward's rings; the MLP backward's weight ring (2 x 16 x 144: the
+    hidden step is wider than the 96-column g_lny groups), the g_lny sums [49][96], g resident
+    (96 x 60), the step's g_pre (144 x 60), the LN2 statistics and sums; K3's block its rings
+    (2 x 16 x 60 of both streams, 2 x 16 x 144 weights), q/k/v/g_o [4][49][12], the row sums,
+    the bias and tables; the g_ln product's rings (2 x 16 x 60, 2 x 16 x 96), both sides of
+    LN1(x)'s gradient [49][96], the row table, LN1 statistics and sums. At stage 3 (C = 192) the
+    MLP backward's g_lny sums and g double: 136 KB, one block an SM."""
+    tables = 9616 + (2 * 64 + 3 * 192) * 4
+    attention = 3 * 2 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 3 * (4 * 49 * 12 * 4) + tables
+    mlp = 2 * 16 * 144 * 4 + 49 * 96 * 4 + 96 * 60 * 4 + 144 * 60 * 4 + 64 * 8 + 2 * 96 * 4
+    k3 = 2 * 2 * 16 * 60 * 4 + 2 * 16 * 144 * 4 + 4 * (4 * 49 * 12 * 4) + 4 * 49 * 8 + 9616 + (3 * 64 + 2 * 192) * 4
+    gln = 2 * 16 * 60 * 4 + 2 * 16 * 96 * 4 + 2 * 49 * 96 * 4 + 64 * 4 + 64 * 8 + 2 * 96 * 4
+    plan = tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True)
+    rows, fc1 = 6 * 16 * 60 * 4 + 6 * 16 * 48 * 4 + 2 * 64 * 4, 3 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 64 * 4
+    assert plan.smem == (("attention", attention), ("rows", rows), ("fc1", fc1), ("mlp", mlp),
+                         ("attention_bwd", k3), ("gln", gln))
+    assert (attention, mlp, k3) == (91_344, 96_128, 84_912) and mlp <= tfb.SMEM_TWO_PER_SM
+    stage3 = dict(tfb.block_bwd_plan(192, 8, 24, 768, (7, 7), True).smem)["mlp"]
+    assert stage3 == mlp + 49 * 96 * 4 + 96 * 60 * 4 + 96 * 4 * 2 == 138_752 > tfb.SMEM_TWO_PER_SM
+
+
+def test_the_split_workspace_counts_every_buffer():
+    """Stage 3, encoder MLP, cross, at 224² batch 20 on a 132-SM card: 66 MLP blocks per stream
+    (one an SM), 16 K3 blocks per stream and group of two heads and 80 g_ln blocks per stream
+    (one per 49-token tile); the token buffers (LN1(x), y, LN2(y) and g_y of C = 192, the
+    statistics, AV, g_q, g_k and g_v of 192, the hidden and g_pre of 768), the transposed
+    weights, the partials of the bias table per K3 block, of LN2 per MLP block and of LN1 per
+    g_ln block, and the weight gradients' chunks: seven, for sixteen of the 270 blocks of a
+    chunk that do work (per stream 12 rectangles of 16 x 16 tiles for each of wq, wk, wv and wp,
+    48 for w1, 39 for w2) an SM."""
+    plan = tfb.block_bwd_plan(192, 8, 24, 768, (7, 7), True)
+    m, blocks = 20 * 14 * 14, plan.blocks(2, 20, 14, 14)
+    assert blocks == (66, 16, 80)
+    tokens = 2 * m * (192 * 8 + 2 + 768 * 2)
+    weights = 2 * (4 * 192 * 192 + 2 * 192 * 768)
+    partials = 2 * (4 * 16 * 49 * 49 + 66 * 384 + 80 * 384)
+    chunks = 2 * 7 * (4 * 193 * 192 + 193 * 768 + 769 * 192)
+    expected = tokens + weights + partials + chunks
+    assert tfb._wgrad_chunks(m, (4 * 12 + 48 + 39)) == 7
+    floats = tfb.split_workspace_floats(2, 20, 14, 14, 192, 8, 24, 768, plan, blocks)
+    assert expected <= floats < expected + 32 * 22  # every piece rounded up to 32 floats
+
+
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype, layout):
+    """Stage 2's shape without dropout launches ``swin_block_bwd_split`` once with x and g as
+    handed in, g_x in x's dtype and every weight gradient fp32, the plan's hidden step, heads a
+    block and block counts, the workspace the plan sizes (fp32), the layout and dtype flags,
+    and counts once in its dtype's counter; neither the fused route nor the five-launch
+    backward is called."""
+    x, weights = _block_args(96, 8, 12, 384, dtype, layout)
+    g = torch.zeros_like(x)
+    before = (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES)
+    new_empty = torch.Tensor.new_empty
+    made = {}
+
+    def recording_new_empty(self, *args, **kwargs):
+        t = new_empty(self, *args, **kwargs)
+        made[t.data_ptr()] = t
+        return t
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "new_empty", recording_new_empty)
+        grads = tfb._launch_bwd(g, x, weights, _kw(12, layout))
+    (args,) = fake_library.calls["swin_block_bwd_split"]
+    ins, outs, ws, floats = args[:4]
+    assert list(ins)[0] == x.data_ptr() and list(ins)[-1] == g.data_ptr() and len(list(ins)) == 19
+    assert list(outs) == [t.data_ptr() for t in grads]
+    assert grads[0].dtype == dtype and grads[0].shape == x.shape
+    assert all(t.dtype == torch.float32 and t.shape == w.shape for t, w in zip(grads[1:], weights))
+    plan = tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True)
+    blocks = plan.blocks(2, 1, 14, 14)
+    assert blocks == (4, 4, 4)  # one per 49-token tile, one per window, one per tile
+    assert made[ws].dtype == torch.float32 and made[ws].numel() == floats
+    assert floats == tfb.split_workspace_floats(2, 1, 14, 14, 96, 8, 12, 384, plan, blocks)
+    bf16 = dtype == torch.bfloat16
+    # S, B, H, W, C, heads, d, hidden, hidden step, heads a block (recompute, K3 block), blocks
+    # (MLP, K3, g_ln), shift, cross, windows, bf16
+    assert args[4:22] == (2, 1, 14, 14, 96, 8, 12, 384, 144, 4, 4, *blocks, 1, 1, int(layout == "windows"), int(bf16))
+    assert args[22] == pytest.approx(12**-0.5)
+    assert "swin_fused_block_bwd" not in fake_library.calls and "swin_block_bwd" not in fake_library.calls
+    assert (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
 
 def test_out_of_range_shapes_raise_before_any_launch(fake_library):

@@ -159,6 +159,7 @@ def fake_library(monkeypatch):
     monkeypatch.setattr(twa, "_bwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_fwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(tfb, "_split_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     return lib

@@ -843,12 +843,14 @@ def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
 
 def _check_block_backward(layout, hw, batch, dtype, stages):
     """The backward without dropout (``_launch_bwd``: ``csrc/fused_block_bwd.cu`` where
-    ``block_bwd_plan`` routes "fused", ``csrc/fused_block.cu``'s backward elsewhere) in
-    ``layout`` against the plain backward and against the five-launch backward
-    (``_launch_bwd_five``) in every stage x MLP width x shift x cross case of ``stages`` at
-    ``hw`` and ``batch``: every fp32 gradient by ``testing.assert_grads_close``, a bf16 g_x by
-    the bf16 kernel criteria; each call repeated bit for bit (no atomics, fixed sum orders)."""
+    ``block_bwd_plan`` routes "fused" (stages 0-1) or "split" (stages 2-3),
+    ``csrc/fused_block.cu``'s backward at stage 4) in ``layout`` against the plain backward and
+    against the five-launch backward (``_launch_bwd_five``) in every stage x MLP width x shift
+    x cross case of ``stages`` at ``hw`` and ``batch``: every fp32 gradient by
+    ``testing.assert_grads_close``, a bf16 g_x by the bf16 kernel criteria; each call counted
+    once in its dtype's counter and repeated bit for bit (no atomics, fixed sum orders)."""
     cfg = ModelConfig()
+    counter = "BF16_BWD_LAUNCHES" if dtype == BF16 else "BWD_LAUNCHES"
     for k, h, w, c, heads, d in _stage_cases(hw):
         if k not in stages:
             continue
@@ -861,11 +863,15 @@ def _check_block_backward(layout, hw, batch, dtype, stages):
                     g = torch.randn(xl.shape, generator=gen).cuda().to(dtype)
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift,
                               cross=cross, layout=layout, hw=(h, w))
+                    route = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross).route
+                    assert route == ("fused" if k < 2 else "split" if k < 4 else "five"), (k, route)
+                    before = getattr(tfb, counter)
                     got = tfb._launch_bwd(g, xl, weights, kw)
                     again = tfb._launch_bwd(g, xl, weights, kw)
                     five = tfb._launch_bwd_five(g, xl, weights, kw)
                     torch.cuda.synchronize()
-                    what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} hidden={hidden} shift={shift} "
+                    assert getattr(tfb, counter) == before + 2
+                    what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} hidden={hidden} ({route}) shift={shift} "
                             f"cross={cross} {dtype}")
                     assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a repeat gave other bits"
                     ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
@@ -882,8 +888,8 @@ def _check_block_backward(layout, hw, batch, dtype, stages):
 @pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
 def test_k4_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
     """K4 bwd (the image layout) at every stage: the fused route of
-    ``csrc/fused_block_bwd.cu`` at stages 0-1, the five-launch backward at 2-4
-    (``_check_block_backward``)."""
+    ``csrc/fused_block_bwd.cu`` at stages 0-1, its split route at 2-3, the five-launch backward
+    at 4 (``_check_block_backward``)."""
     _need_card()
     _check_block_backward("image", hw, batch, dtype, range(5))
 
@@ -892,17 +898,20 @@ def test_k4_backward_matches_plain_and_five_launch_backward_at_every_stage_on_ca
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
 def test_k1_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
-    """K1 bwd (window-packed tokens) at the stages ``cuda_pack`` packs (0-3)
-    (``_check_block_backward``)."""
+    """K1 bwd (window-packed tokens) at the stages ``cuda_pack`` packs (0-3): the fused route
+    at stages 0-1, the split route at 2-3 (``_check_block_backward``)."""
     _need_card()
     _check_block_backward("windows", hw, batch, dtype, range(4))
 
 
 @pytest.mark.gpu
 def test_block_backward_plan_agrees_with_the_kernels_on_card():
-    """The backward plan's shared memory (``bwd_smem``) and workspace
-    (``bwd_workspace_floats``) are the ones ``csrc/fused_block_bwd.cu`` computes, at every
-    fused-route stage and MLP width of a 224² batch-20 step in both modes."""
+    """The backward plan's shared memory (``bwd_smem``, ``split_smem``) and workspace
+    (``bwd_workspace_floats``, ``split_workspace_floats``) are the ones
+    ``csrc/fused_block_bwd.cu`` and ``csrc/fused_block_bwd_split.cu`` compute, at every fused-route and split-route stage and MLP
+    width of a 224² batch-20 step in both modes; the split route's recomputed attention and
+    K3 block take the shared memory that the forward's and K3's backward's libraries give
+    them."""
     _need_card()
     cfg = ModelConfig()
     lib = tfb._bwd_library()
@@ -911,6 +920,21 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
         for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
             for cross in (False, True):
                 plan = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross)
+                if plan.route == "split":
+                    hg_fwd, hg_bwd = plan.heads_per_block
+                    split = tfb._split_library()
+                    for kind, (kernel, smem) in enumerate(plan.smem):
+                        got = split.swin_block_bwd_split_smem(kind, c, heads, d, hidden, plan.hidden_chunk, hg_fwd,
+                                                            hg_bwd, int(cross))
+                        assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, cross, kernel)
+                    smem = dict(plan.smem)
+                    assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
+                        1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False))
+                    assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
+                        0, 0, int(cross), c, heads, d, hg_bwd)
+                    blocks = plan.blocks(2, 20, h, w, sms)
+                    assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden, hg_bwd, *blocks) == \
+                        tfb.split_workspace_floats(2, 20, h, w, c, heads, d, hidden, plan, blocks)
                 if plan.route != "fused":
                     continue
                 for kind, (kernel, smem) in enumerate(plan.smem):
