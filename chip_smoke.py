@@ -23,11 +23,12 @@ the three launches of ``csrc/window_attention.cu`` that it replaced there (the d
 and the backward's recompute still run them), and both are broken down by stage and kernel
 from the profiler's device times (``[split]``). Then the training path: each backward
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
-224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward
-without dropout is the route ``block_bwd_plan`` names ("fused", ``csrc/fused_block_bwd.cu``,
-at stages 0-1, "split", ``csrc/fused_block_bwd_split.cu``, at stages 2-3; the five-launch backward of
-``csrc/fused_block.cu`` at stage 4 and with dropout), broken down by stage and kernel in turns
-with the five-launch backward (``[split] K1 bwd``, ``[split] K4 bwd``); the first train
+224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward is the
+route ``block_bwd_plan`` names, with and without dropout ("fused", ``csrc/fused_block_bwd.cu``,
+at stages 0-1, "split", ``csrc/fused_block_bwd_split.cu``, at stages 2-3, each in its dropout
+form for a dropout call; the five-launch backward of ``csrc/fused_block.cu`` at stage 4),
+broken down by stage and kernel in turns with the five-launch backward (``[split] K1 bwd``,
+``[split] K4 bwd``); the first train
 step of the full model under each
 configuration against the torch composition on the card (loss terms, every parameter's
 gradient, the exact forward and backward launches), then timed steps in turns and one
@@ -40,9 +41,12 @@ the fp32 configurations, a traced request each, and the throughput of 512x512 ba
 configuration trains without dropout): the hash-dropout forms of K3, K1 and K4, forward
 and backward, against their plain versions at rates 0.1 and 0.5 at the 224x224 batch-20
 shapes, with the keep fraction of each site and the times beside the forms without
-dropout, and the composition's mask kernels bit for bit; the first dropout train step
-under each configuration with exact launch counts and repeated bit for bit; timed in
-turns with the steps without dropout; and a
+dropout (K1's and K4's dropout backward, each case repeated bit for bit, also beside the
+twenty-launch dropout backward of ``csrc/fused_block.cu``, per stage and per step), and the
+composition's mask kernels bit for bit; the first dropout train step under each
+configuration with exact launch counts and repeated bit for bit; timed in turns with the
+steps without dropout, the ``cuda_pack`` and ``cuda_block`` dropout steps' traces checked to
+launch no kernel of ``csrc/fused_block.cu``'s backward; and a
 full-width step on a 112x112 map on the card against the same configuration on the CPU.
 bf16 training (``compute_dtype="bfloat16"``, the JAX package's production path): the bf16
 backward forms of K3, K1, K2 and K4 and the bf16 dropout forms, forward and backward,
@@ -983,7 +987,8 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
 
 def trace(what, label, fn, wall_ms, card):
     """``fn`` once under torch.profiler (after one call outside it); device time by
-    kernel family, the busiest kernels, and the device's idle share of ``wall_ms``."""
+    kernel family, the busiest kernels, and the device's idle share of ``wall_ms``. Returns
+    the launches of each device kernel by name (empty where the profiler recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -995,7 +1000,7 @@ def trace(what, label, fn, wall_ms, card):
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0.0:
         print(f"[trace] {label}: the profiler recorded no device time: breakdown not measured | {card}")
-        return
+        return {}
     families = {}
     for e in kernels:
         name = e.key.lower()
@@ -1011,6 +1016,7 @@ def trace(what, label, fn, wall_ms, card):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[trace]   {label} top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
               f"{e.key[:100]}", flush=True)
+    return {e.key: e.count for e in kernels}
 
 
 def trace_request(impl, fuser, ir, vis, wall_ms, card):
@@ -1357,14 +1363,28 @@ def dropout_train(flat, device, card, states, steps, inputs):
               f"max {max(w):.2f}, peak memory {peaks[impl]:.0f} MiB ({own[impl]:.0f} MiB less "
               f"the other configurations' train states) | {card}", flush=True)
     for impl in drop_steps:
-        label = f"{impl.split()[0]}, dropout {DROP_RATIOS}"
-        trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
-              lambda: steps[impl](states[impl], ir, vis), median[impl], card)
+        base = impl.split()[0]
+        label = f"{base}, dropout {DROP_RATIOS}"
+        counts = trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
+                       lambda: steps[impl](states[impl], ir, vis), median[impl], card)
+        if base in ("cuda_pack", "cuda_block"):  # K1/K4 drop bwd on the redesigned routes alone
+            old = {name: n for name, n in counts.items() if any(k in name for k in FIVE_BWD_KERNELS)}
+            dropout_rows = sum(n for name, n in counts.items() if "dropout_rows_kernel" in name)
+            masks = TRAIN_DROP_MASKS[base]["mask tokens"] + TRAIN_DROP_MASKS[base]["mask tokens bwd"]
+            print(f"[trace]   train {label}: fused_block.cu backward kernels {sum(old.values())}, "
+                  f"dropout_rows_kernel {dropout_rows} (the composition's token masks: {masks})", flush=True)
+            if old or dropout_rows > masks:
+                raise AssertionError(f"{base} dropout step: fused_block.cu's backward ran: {old}, "
+                                     f"dropout_rows_kernel x{dropout_rows}")
     return launches
 
 
 # ---- dropout training: the hash-dropout forms of K3, K1 and K4 --------------------------
 DROP_RATIOS = (0.1, 0.1, 0.1)  # attention, proj, MLP: a test setting (the reference's are 0)
+# kernels that only csrc/fused_block.cu's twenty-launch backward runs in a cuda_pack or
+# cuda_block step (its recompute's LN1 and LN2, the core backward, the LayerNorm backwards,
+# its weight-gradient GEMMs); its dropout_rows_kernel launches are counted apart
+FIVE_BWD_KERNELS = ("swin::ln_fwd_kernel", "window_core_bwd_kernel", "swin::ln_bwd_kernel", "swin::wgrad_kernel")
 DROP_CHECK_RATES = (0.1, 0.5)  # at 0.5 a mismatched mask cannot hide inside the tolerance
 DROP_SEED = 4_242_421
 # attention_impl -> the dropout step's launches at 224²: the dropout forms replace the
@@ -1389,21 +1409,17 @@ MASK_MAIN_PATH = "cuda"  # the configuration whose dropout step gives the masks'
 PARITY_HW, PARITY_BATCH = (112, 112), 2  # the full-width dropout step on the card vs the CPU
 
 
-def hash_ops(h, w, c, heads, hidden, batch, attention_only, backward):
+def hash_ops(h, w, c, heads, hidden, batch, attention_only):
     """Integer operations of the hash masks of one dropout launch (both streams): HASH_OPS
-    per masked element. Forward: the attention weights (heads x T x T per window), proj,
-    the MLP hidden and out, once each. Backward: the attention weights twice (the
-    recompute, the core backward), proj twice (the recompute, g_y), the hidden twice (its
-    gradient, the hidden for w2's gradient) and out once (g; fc2 is not recomputed)."""
+    per masked element, each keep decision once: the attention weights (heads x T x T per
+    window), proj, the MLP hidden and out. The least the function needs, forward and backward
+    alike: a backward that recomputes its forward can keep the recompute's bits for its own
+    use, as the redesigned K1/K4 dropout backward keeps the attention's."""
     tokens = 2 * batch * h * w
     attention = tokens * heads * T
     if attention_only:
-        return HASH_OPS * attention * (2 if backward else 1)
-    proj = out = tokens * c
-    hidden_ = tokens * hidden
-    if backward:
-        return HASH_OPS * (2 * attention + 2 * proj + 2 * hidden_ + out)
-    return HASH_OPS * (attention + proj + hidden_ + out)
+        return HASH_OPS * attention
+    return HASH_OPS * (attention + tokens * c + tokens * hidden + tokens * c)
 
 
 def _keep_fractions(key, hw, shift, rate, seed, heads, hidden, c, batch, sites):
@@ -1431,13 +1447,20 @@ def _print_keep(name, kept, card):
               f"| {card}", flush=True)
 
 
-def _in_turns(nodrop, drop, iters, warmup):
+def _in_turns(nodrop, drop, iters, warmup, other=None):
     """(without dropout, with dropout) mean ms of two launches timed in turns (without,
-    with, with, without)."""
+    with, with, without); with ``other``, (without, with, other) in turns (without, with,
+    other, other, with, without)."""
     a1 = time_ms(nodrop, iters, warmup)
-    b1, b2 = time_ms(drop, iters, warmup), time_ms(drop, iters, warmup)
+    b1 = time_ms(drop, iters, warmup)
+    if other is None:
+        b2 = time_ms(drop, iters, warmup)
+        a2 = time_ms(nodrop, iters, warmup)
+        return (a1 + a2) / 2, (b1 + b2) / 2
+    c1, c2 = time_ms(other, iters, warmup), time_ms(other, iters, warmup)
+    b2 = time_ms(drop, iters, warmup)
     a2 = time_ms(nodrop, iters, warmup)
-    return (a1 + a2) / 2, (b1 + b2) / 2
+    return (a1 + a2) / 2, (b1 + b2) / 2, (c1 + c2) / 2
 
 
 def check_dropout_kernels(cfg, device, card):
@@ -1445,9 +1468,12 @@ def check_dropout_kernels(cfg, device, card):
     every site at each rate of DROP_CHECK_RATES, and of K3 (the attention site), forward
     and backward, against their plain versions with the same seed at every stage 0-3 x
     role x shift x cross shape of a 224² batch-20 step (fp32 atol/rtol 1e-4; gradients by
-    ``testing.assert_grads_close``), with the keep fraction of each site; then each form
-    timed at the step's ratios in turns with the form without dropout. Returns the worst
-    errors and the per-step times by kernel name."""
+    ``testing.assert_grads_close``), with the keep fraction of each site; K1's and K4's
+    backward on the dropout form of the route ``block_bwd_plan`` names (fused at stages 0-1,
+    split at 2-3), each case repeated bit for bit; then each form timed at the step's ratios
+    in turns with the form without dropout, K1's and K4's backward also with the twenty-launch
+    dropout backward of ``csrc/fused_block.cu``. Returns the worst errors and the per-step
+    times by kernel name."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
@@ -1455,7 +1481,9 @@ def check_dropout_kernels(cfg, device, card):
     worst, results = {}, {}
     for name, layout in (("K1", "windows"), ("K4", "image")):
         totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0) for part in ("", " bwd")}
+        totals[" bwd"]["five_ms"] = 0.0
         by = {part: {} for part in totals}
+        stage_ms = {}  # stage -> (dropout form, twenty launches, without dropout) of its backward
         kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
         # the blocks of stages 0-3, as train_block_backward (stage 4's 7x7 map is gated to
         # the composition at 224²)
@@ -1463,6 +1491,9 @@ def check_dropout_kernels(cfg, device, card):
             cases += 1
             xl, kw = fused_args(case, x, layout)
             k, h, w, c, heads, d, role, hidden, shift, cross = case
+            route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, True).route
+            if route != ("fused" if k < 2 else "split"):
+                raise AssertionError(f"{name} drop bwd stage {k} {role}: the plan routes {route!r}")
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 7)).to(device)
             seed = DROP_SEED + 100 * k + 10 * shift + cross
             for rate in DROP_CHECK_RATES:
@@ -1473,11 +1504,15 @@ def check_dropout_kernels(cfg, device, card):
                 torch.cuda.synchronize()
                 err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
                 got = tfb._launch_bwd(g, xl, weights, dkw)
+                again = tfb._launch_bwd(g, xl, weights, dkw)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what} bwd ({route}): a repeat gave other bits")
+                del again
                 check = assert_grads_close(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw),
                                            ("x", *tfb.WEIGHT_NAMES), what + " bwd")
-                print(f"{what} bwd: max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
-                      f"gradient's own largest", flush=True)
+                print(f"{what} bwd ({route}): max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
+                      f"gradient's own largest; repeated bit for bit", flush=True)
                 errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
                 key = tfb.block_keying(layout, (h, w), WINDOW, shift, heads, d, device)
                 for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, hidden, c,
@@ -1491,28 +1526,46 @@ def check_dropout_kernels(cfg, device, card):
                      lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5),
                     (" bwd", lambda a: tfb._launch_bwd(g, xl, weights, a),
                      lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
-                # the forward without dropout as the five launches the dropout form extends
-                base = (lambda: tfb._launch_five(xl, weights, kw)) if part == "" else (lambda: launch(kw))
-                nodrop, ms = _in_turns(base, lambda: launch(dkw), iters, 1)
+                # the forward without dropout as the five launches the dropout form extends; the
+                # backward in turns with the route without dropout and the twenty launches
+                if part == "":
+                    nodrop, ms = _in_turns(lambda: tfb._launch_five(xl, weights, kw), lambda: launch(dkw), iters, 1)
+                    five, twenty = 0.0, ""
+                else:
+                    nodrop, ms, five = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1,
+                                                 lambda: tfb._launch_bwd_five(g, xl, weights, dkw))
+                    twenty = f", twenty launches {five:.4f} ms ({ms / five - 1:+.1%})"
+                    st = stage_ms.setdefault(k, [0.0, 0.0, 0.0])
+                    st[0], st[1], st[2] = st[0] + ms, st[1] + five, st[2] + nodrop
+                    totals[part]["five_ms"] += five
                 plain_ms = time_ms(plain, iters=2, warmup=1)
-                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False, part == " bwd")
+                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False)
                 bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH,
                                                  backward=part == " bwd", int_ops=ops)
                 print(f"[time] {name} drop{part} stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} "
-                      f"hidden={hidden} shift={shift} cross={cross}: {ms:.4f} ms, without dropout "
-                      f"{nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, "
-                      f"bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                      f"hidden={hidden} shift={shift} cross={cross}{f' ({route})' if part else ''}: {ms:.4f} ms"
+                      f"{twenty}, without dropout {nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
                 for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("nodrop_ms", nodrop)):
                     totals[part][key_] += v
                 by[part][bound_by] = by[part].get(bound_by, 0.0) + bound
             torch.cuda.empty_cache()
         _print_keep(name, kept, card)
+        for k, (ms, five, nodrop) in sorted(stage_ms.items()):
+            print(f"[time] {name} drop bwd stage {k} per 224x224 batch-20 step (8 launches, "
+                  f"{'fused' if k < 2 else 'split'} route): {ms:.3f} ms, twenty launches {five:.3f} ms "
+                  f"({ms / five - 1:+.1%}), without dropout {nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns "
+                  f"| {card}", flush=True)
         for part, t in totals.items():
             print(f"[check] {name} drop{part}: worst max_abs_err {errs[part]:.3e} over "
-                  f"{cases} blocks x rates {DROP_CHECK_RATES}", flush=True)
-            print(f"[time] {name} drop{part} per 224x224 batch-20 step ({cases} launches): {t['ms']:.3f} ms, "
-                  f"without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), "
-                  f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms | {card}", flush=True)
+                  f"{cases} blocks x rates {DROP_CHECK_RATES}"
+                  + ("; every case repeated bit for bit" if part else ""), flush=True)
+            twenty = (f", twenty launches {t['five_ms']:.3f} ms ({t['ms'] / t['five_ms'] - 1:+.1%})"
+                      if part else "")
+            print(f"[time] {name} drop{part} per 224x224 batch-20 step ({cases} launches): {t['ms']:.3f} ms"
+                  f"{twenty}, without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), "
+                  f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) "
+                  f"| {card}", flush=True)
             results[f"{name} drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get),
                                                  library_ms=None)
             worst[f"{name} drop{part}"] = errs[part]
@@ -1559,7 +1612,7 @@ def check_dropout_kernels(cfg, device, card):
                     base = (lambda: twa._launch_three(x, weights, kw)) if part == "" else (lambda: launch(kw))
                     nodrop, ms = _in_turns(base, lambda: launch(dkw), iters, 1)
                     plain_ms = time_ms(plain, iters=2, warmup=1)
-                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, part == " bwd")
+                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True)
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH,
                                                          backward=part == " bwd", int_ops=ops)
                     print(f"[time] K3 drop{part} stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
@@ -1873,8 +1926,10 @@ def check_bf16_blocks(cfg, device, card):
     dropout and with every site at each rate of DROP_CHECK_RATES, and the dropout forward,
     against their plain bf16 versions (the fp32 backward at the upcast inputs, g_x rounded
     as JAX rounds it); the keep masks against the fp32 dropout form's
-    (:func:`_keep_masks_match`); then each form timed in turns with its fp32 form. Returns
-    the worst errors and per-step times."""
+    (:func:`_keep_masks_match`); every backward on the route ``block_bwd_plan`` names (with
+    dropout its dropout form) and repeated bit for bit; then each form timed in turns with its
+    fp32 form, the dropout backward also with the twenty-launch bf16 dropout backward.
+    Returns the worst errors and per-step times."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     names = ("x", *tfb.WEIGHT_NAMES)
@@ -1889,9 +1944,11 @@ def check_bf16_blocks(cfg, device, card):
             k, h, w, c, heads, d, role, hidden, shift, cross = case
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 11)).to(device, BF16)
             seed = DROP_SEED + 100 * k + 10 * shift + cross + 2
-            route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross).route
-            if route != ("fused" if k < 2 else "split"):
-                raise AssertionError(f"{name} bwd bf16 stage {k} {role}: the plan routes {route!r}")
+            for drop in (False, True):
+                route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, drop).route
+                if route != ("fused" if k < 2 else "split"):
+                    raise AssertionError(f"{name} bwd bf16 stage {k} {role} dropout {drop}: the plan routes "
+                                         f"{route!r}")
             label = (f"stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} hidden={hidden} ({route}) shift={shift} "
                      f"cross={cross}")
             for rate in (0.0, *DROP_CHECK_RATES):
@@ -1904,12 +1961,13 @@ def check_bf16_blocks(cfg, device, card):
                     errs[" drop bf16"] = max(errs[" drop bf16"], err)
                     del out
                 got = tfb._launch_bwd(g, xl, weights, dkw)
-                if not rate:  # the fused route at stages 0-1, the split route at 2-3
-                    again = tfb._launch_bwd(g, xl, weights, dkw)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise AssertionError(f"{what} bwd: a repeat gave other bits")
-                    del again
+                # the fused route at stages 0-1, the split route at 2-3, each in its dropout form
+                # at a rate
+                again = tfb._launch_bwd(g, xl, weights, dkw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what} bwd: a repeat gave other bits")
+                del again
                 torch.cuda.synchronize()
                 err = _check_bf16_grads(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), names,
                                         what + " bwd")
@@ -1932,14 +1990,21 @@ def check_bf16_blocks(cfg, device, card):
                     (" drop bwd bf16", lambda: tfb._launch_bwd(g, xl, weights, dkw),
                      lambda: tfb._launch_bwd(g32, x32, weights, dkw),
                      lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
-                fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
+                twenty = ""
+                if form == " drop bwd bf16":  # also in turns with the twenty launches
+                    fp32_ms, ms, five = _in_turns(launch32, launch, iters, 1,
+                                                  lambda: tfb._launch_bwd_five(g, xl, weights, dkw))
+                    twenty = f", twenty launches {five:.4f} ms ({ms / five - 1:+.1%})"
+                    totals[form]["five_ms"] = totals[form].get("five_ms", 0.0) + five
+                else:
+                    fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
                 plain_ms = time_ms(plain, iters=1, warmup=1)
                 backward = "bwd" in form
-                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False, backward) if "drop" in form else 0
+                ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False) if "drop" in form else 0
                 bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH, backward=backward,
                                                  dtype=BF16, layout=layout, int_ops=ops)
                 print(f"[time] {name}{form} {label}: {ms:.4f} ms, fp32 form {fp32_ms:.4f} ms (in turns, "
-                      f"{ms / fp32_ms - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"{ms / fp32_ms - 1:+.1%}){twenty}, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
                       f"({bound_by}) | {card}", flush=True)
                 _add(totals[form], by[form], ms, plain_ms, bound, bound_by, fp32_ms)
             del x32, g32
@@ -1947,7 +2012,12 @@ def check_bf16_blocks(cfg, device, card):
         for form in forms:
             print(f"[check] {name}{form}: worst max_abs_err {errs[form]:.3e} over {cases} blocks"
                   + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else "")
-                  + ("; every case repeated bit for bit" if form == " bwd bf16" else ""), flush=True)
+                  + ("; every case repeated bit for bit" if "bwd" in form else ""), flush=True)
+            if "five_ms" in totals[form]:
+                t = totals[form]
+                print(f"[time] {name}{form} per 224x224 batch-20 step: {t['ms']:.3f} ms, twenty launches "
+                      f"{t['five_ms']:.3f} ms ({t['ms'] / t['five_ms'] - 1:+.1%}, in turns), "
+                      f"{t['ms'] / t['bound_ms']:.1f}x the bound | {card}", flush=True)
             _summary(f"{name}{form}", totals[form], by[form], cases, card, results)
             worst[f"{name}{form}"] = errs[form]
         print(f"[check] {name} drop bf16: the keep masks are the fp32 form's: at rate "
@@ -2026,7 +2096,7 @@ def check_bf16_attention(cfg, device, card):
                         print(f"[time] K3 bwd bf16 {label}: {new_ms:.4f} ms, three-launch {three_ms:.4f} ms "
                               f"(in turns) | {card}", flush=True)
                     backward = "bwd" in form
-                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True, backward) if "drop" in form else 0
+                    ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True) if "drop" in form else 0
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=backward,
                                                          dtype=BF16, int_ops=ops)
                     print(f"[time] K3{form} {label}: {ms:.4f} ms, fp32 form {fp32_ms:.4f} ms (in "
@@ -2455,12 +2525,15 @@ def main() -> int:
          f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
         ("K1 drop", "fused_block_fwd with hash dropout, windows layout (K1 drop)",
          f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
-        ("K1 drop bwd", "fused_block_bwd with hash dropout, windows layout (K1 drop bwd)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
+        ("K1 drop bwd", "block_bwd with hash dropout, windows layout (K1 drop bwd; the dropout form of the "
+         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3)",
+         f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
         ("K4 drop", "fused_block_fwd with hash dropout, image layout (K4 drop)",
          f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
-        ("K4 drop bwd", "fused_block_bwd with hash dropout, image layout (K4 drop bwd)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
+        ("K4 drop bwd", "block_bwd with hash dropout, image layout (K4 drop bwd; the dropout form of the "
+         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3, "
+         "fused_block.cu's twenty launches at stage 4)",
+         f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         # the composition's masks, where the JAX package applies flax's nn.Dropout outside
         # Pallas; launches forward and on the gradient
         ("mask tokens", "dropout_tokens, the composition's proj/MLP masks", f"{csrc}/dropout_mask.cu",
@@ -2487,12 +2560,14 @@ def main() -> int:
          f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
         ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16)",
          f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
-        ("K1 drop bwd bf16", "fused_block_bwd bf16 with hash dropout, windows layout (K1 drop bwd bf16)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
+        ("K1 drop bwd bf16", "block_bwd bf16 with hash dropout, windows layout (K1 drop bwd bf16; the "
+         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
+         f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
         ("K4 drop bf16", "fused_block_fwd bf16 with hash dropout, image layout (K4 drop bf16)",
          f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
-        ("K4 drop bwd bf16", "fused_block_bwd bf16 with hash dropout, image layout (K4 drop bwd bf16)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
+        ("K4 drop bwd bf16", "block_bwd bf16 with hash dropout, image layout (K4 drop bwd bf16; the "
+         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
+         f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         ("mask tokens bf16", "dropout_tokens bf16, the composition's proj/MLP masks in a bf16 step",
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:365"),
     )

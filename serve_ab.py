@@ -8,9 +8,12 @@ one ``[ab] LABEL {json}`` line. With ``--hashes`` it serves nothing and prints `
 {json}``: a digest of every output of K3's forward and backward, each without dropout and with
 it, and of K1's and K4's forward and backward, each without dropout and with it, at stages 0-3
 of a 224x224 batch-2 step, fp32 and bf16, every shift x cross case, inputs from fixed seeds,
-so that two checkouts whose kernels give the same bits print the same digests.
+so that two checkouts whose kernels give the same bits print the same digests. With
+``--dropout`` it serves nothing and prints the ``[ab]`` line of the train steps alone, fp32 and
+bf16, with every dropout ratio 0.1: their median, peak memory, and one profiled step's device
+busy time and kernels.
 
-    python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train | --hashes]
+    python3 serve_ab.py ROOT LABEL [--impl cuda_block] [--train | --hashes | --dropout]
 
 ROOT is a checkout of one commit (``git archive`` of a parent unpacked into a directory
 that ``.gitignore`` lists, or ``.``). To compare two commits on one card, run them in
@@ -27,13 +30,16 @@ import numpy as np
 import torch
 
 
-def train_ms(impl: str, dtype: str, flat, steps: int = 5) -> float:
+def train_ms(impl: str, dtype: str, flat, steps: int = 5, drop: float = 0.0, profiled: bool = False):
     """Median wall ms of ``steps`` train steps at 224x224 batch 20 after a first one, each
-    ending in a synchronise."""
+    ending in a synchronise; ``drop``: every dropout ratio. ``profiled``: (the median, the
+    step's peak memory in MiB, one more step's device busy ms and device kernels under
+    torch.profiler)."""
     from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
     from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
 
-    cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype=dtype))
+    cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype=dtype, attention_drop_ratio=drop,
+                                   linear_after_att_drop_ratio=drop, mlp_drop_ratio=drop))
     state = create_train_state(cfg, flat, iters_per_epoch=100, device="cuda")
     step = make_train_step(cfg)
     rng = np.random.default_rng(0)
@@ -41,12 +47,24 @@ def train_ms(impl: str, dtype: str, flat, steps: int = 5) -> float:
     step(state, ir, vis)
     torch.cuda.synchronize()
     walls = []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(steps):
         t = time.perf_counter()
         step(state, ir, vis)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t))
-    return float(np.median(walls))
+    if not profiled:
+        return float(np.median(walls))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, ir, vis)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (float(np.median(walls)), peak, sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
 
 
 def kernel_hashes() -> dict:
@@ -106,7 +124,7 @@ def kernel_hashes() -> dict:
     return out
 
 
-def main(root: str, label: str, impl: str, train: bool, hashes: bool = False) -> None:
+def main(root: str, label: str, impl: str, train: bool, hashes: bool = False, dropout: bool = False) -> None:
     sys.path.insert(0, root)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -125,6 +143,15 @@ def main(root: str, label: str, impl: str, train: bool, hashes: bool = False) ->
         print(f"[hash] {label} {json.dumps(kernel_hashes())}", flush=True)
         return
     flat = random_variables(ModelConfig(), seed=0)
+    if dropout:
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            ms, peak, busy, kernels = train_ms(impl, dtype, flat, drop=0.1, profiled=True)
+            res[dtype] = dict(train_224x20_dropout_median_ms=ms, peak_mib=peak, device_busy_ms=busy,
+                              device_kernels=kernels)
+            torch.cuda.empty_cache()
+        print(f"[ab] {label} {impl} {json.dumps(res)}", flush=True)
+        return
     rng = np.random.default_rng(0)
     one = [rng.random((1, 512, 512, 1), dtype=np.float32) for _ in range(2)]
     many = [rng.random((32, 512, 512, 1), dtype=np.float32) for _ in range(2)]
@@ -170,8 +197,9 @@ if __name__ == "__main__":
     what = parser.add_mutually_exclusive_group()
     what.add_argument("--train", action="store_true")
     what.add_argument("--hashes", action="store_true")
+    what.add_argument("--dropout", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         sys.exit(1)
-    main(args.root, args.label, args.impl, args.train, args.hashes)
+    main(args.root, args.label, args.impl, args.train, args.hashes, args.dropout)

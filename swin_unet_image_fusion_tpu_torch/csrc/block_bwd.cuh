@@ -59,11 +59,14 @@ inline void launch_transposes(const float* const* in, float* wqkvT, float* wpT, 
 
 // What the last launches of either route read: the stored operands and gradients of every
 // token, and the partial sums with their chunk counts.
+// The dropout form passes g_proj = drop(g_y) as gy (wp's gradient), the dropped hidden as h and
+// g_m = drop(g) as gm (w2's gradient; nullptr: g itself).
 struct Tail {
   const float *gy, *lnx, *o, *lny, *h, *gpre, *gq, *gk, *gv;
   const float *tab_part, *ln2_part, *ln1_part;
   float* wg_part;
   int chunk_rows, chunks, tab_chunks, ln2_chunks, ln1_chunks;
+  const float* gm;
 };
 
 // The last launches of either route: every weight's gradient [A | 1]^T B from the stored
@@ -86,13 +89,14 @@ int launch_tail(const float* const* in, float* const* out, const Tail& t, int S,
     const size_t tok = static_cast<size_t>(s) * M, s_kv = cross ? static_cast<size_t>(S - 1 - s) * M : tok;
     const float* a_of[kWgPerStream] = {t.lnx + tok * C, t.lnx + s_kv * C, t.lnx + s_kv * C,
                                        t.o + tok * inner, t.lny + tok * C, t.h + tok * hidden};
+    const void* g_b = t.gm ? static_cast<const void*>(t.gm + tok * C)
+                           : static_cast<const TX*>(static_cast<const void*>(in[kG])) + tok * C;
     const void* b_of[kWgPerStream] = {t.gq + tok * inner, t.gk + tok * inner, t.gv + tok * inner,
-                                      t.gy + tok * C, t.gpre + tok * hidden,
-                                      static_cast<const TX*>(static_cast<const void*>(in[kG])) + tok * C};
+                                      t.gy + tok * C, t.gpre + tok * hidden, g_b};
     for (int job = 0; job < kWgPerStream; ++job) {
       int ka, nb;
       wg_shape(job, C, inner, hidden, &ka, &nb);
-      wg.job[wg.count++] = {a_of[job], b_of[job], part, ka, nb, job == kWgPerStream - 1 && kBf16};
+      wg.job[wg.count++] = {a_of[job], b_of[job], part, ka, nb, job == kWgPerStream - 1 && kBf16 && !t.gm};
       tile_groups = max2(tile_groups, wg_groups_of_tiles(ka, nb));
       wg_bytes = max2(wg_bytes, wg_smem(ka, nb));
       ok &= red.add(part, t.chunks, (ka + 1) * nb, ka * nb, out[grads[job][0]] + static_cast<size_t>(s) * ka * nb,

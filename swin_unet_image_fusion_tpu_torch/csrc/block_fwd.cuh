@@ -81,6 +81,7 @@ struct K4Args {
   float scale;
   int windows;  // the token layout: 0 image (K4), 1 windows (K1)
   float* stats;  // the backward's recompute: LN1's (mean, 1/std) of every token, (S*B*H*W, 2)
+  swin::DropSite drop;  // the dropout backward's recompute: the proj site (k4_rows_kernel's kDrop)
 };
 
 // One GEMM result's sums in registers, fp32 tiles or mma fragments.
@@ -204,9 +205,11 @@ __global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
 // One block per (49 rows, stream * batch, 48 output columns), A (in the operands' type)
 // streamed through a six-deep ring. kFc2 false: the projection, rows of a window, y = x +
 // (AV wp + bp) into the fp32 scratch; kFc2 true: 49 consecutive token rows of x's layout,
-// out = y + (h w2 + b2).
-template <typename TX, bool kBf16, bool kFc2>
+// out = y + (h w2 + b2). kDrop (the projection in fp32, the dropout backward's recompute): y = x +
+// drop(AV wp + bp) at a.drop, each element's token hashed where it is stored.
+template <typename TX, bool kBf16, bool kFc2, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
+  static_assert(!(kDrop && (kBf16 || kFc2)), "the dropout form is the fp32 projection");
   extern __shared__ __align__(16) unsigned char smem[];
   using T = TX;
   using A = Act<kBf16>;
@@ -255,6 +258,15 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
     T* out = static_cast<T*>(a.out) + base;
     apply(acc, g.nb, [&](int t, int col, float v) { return y[orows[t] + col] + (v + bias[col]); });
     each(acc, g.nb, [&](int t, int col, float v) { out[orows[t] + col] = from_float<T>(v); });
+  } else if constexpr (kDrop) {
+    const T* x = static_cast<const T*>(a.x) + base;
+    apply(acc, g.nb, [&](int t, int col, float v) {
+      int slot;
+      const uint32_t ph = swin::token_hash(a.drop, nb, orows[t] / C, &slot);
+      return to_f(x[orows[t] + col]) +
+             swin::masked(swin::token_keep(a.drop, ph, slot, c0 + col, C), v + bias[col], a.drop.scale);
+    });
+    each(acc, g.nb, [&](int t, int col, float v) { y[orows[t] + col] = v; });
   } else {
     const T* x = static_cast<const T*>(a.x) + base;
     apply(acc, g.nb, [&](int t, int col, float v) { return to_f(x[orows[t] + col]) + (v + bias[col]); });

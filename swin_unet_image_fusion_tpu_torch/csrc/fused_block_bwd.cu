@@ -1,15 +1,14 @@
-// Fused pre-norm Swin block, the backward without dropout, fp32 and bf16, redesigned for
-// Hopper (sm_90a), in both layouts of fused_block.cu:
+// Fused pre-norm Swin block, the backward with and without dropout, fp32 and bf16, redesigned
+// for Hopper (sm_90a), in both layouts of fused_block.cu:
 //   K4 bwd  swin_unet_image_fusion_tpu/ops/pallas_block.py::_block_bwd_body (l.230-449,
 //           through _block_bwd_kernel / _block_bwd_kernel_self from _backward, l.688), on
 //           the image;
 //   K1 bwd  swin_unet_image_fusion_tpu/ops/pallas_pack.py::_packed_block_bwd_body (l.760-,
 //           through _packed_bwd_kernel / _packed_bwd_kernel_self from _backward, l.1644), on
 //           window-packed tokens.
-// The dropout forms keep fused_block.cu's backward (swin_fused_block_bwd), and so does every
-// shape this file does not take (ops/fused_block.py::block_bwd_plan routes them: this file's
-// route at stages 0-1 of the default model, fused_block_bwd_split.cu at stages 2-3,
-// fused_block.cu at stage 4).
+// Every shape this file does not take keeps another route (ops/fused_block.py::block_bwd_plan
+// routes them, with and without dropout alike: this file's route at stages 0-1 of the default
+// model, fused_block_bwd_split.cu at stages 2-3, fused_block.cu's twenty launches at stage 4).
 // The function is fused_block.cu's backward: given x, the 17 weights and g = dL/d out, it
 // recomputes the block and returns g_x and every weight's gradient; under cross the k/v
 // gradients of stream s go into stream 1-s's LN1 backward; a bf16 g_x under cross is
@@ -64,6 +63,28 @@
 // fp32 FMA throughout (TF32 off), no atomics: every sum runs in a fixed order, and the
 // blocks per stream come from the caller (one wave of the card's SMs), so two calls on one
 // card give the same bits.
+//
+// Dropout (the seed_ref paths of K1 bwd, pallas_pack.py:808-818 and 866-929, and of K4 bwd,
+// pallas_block.py:255-271 and 348-411): the same seven launches, each block kernel's kDrop
+// form (a template parameter: the form without dropout keeps its bits), with the masks of
+// hash_dropout.cuh keyed as the forward keyed them (DropArgs, one site of rate 0 the identity):
+//   block_fwd_kernel<DP, true>      hashes the window's tokens at the attention and proj sites
+//                                   and the attention's keep bits of every head (two 32-bit
+//                                   words per query row, ballots of a warp), writes the words
+//                                   to the workspace, runs the core on the dropped weights (AV
+//                                   stored dropped) and adds drop(proj + bp) to x, so y and
+//                                   LN2(y) are the forward's; the ELU hidden stays undropped;
+//   block_mlp_bwd_kernel<true>      g_m = drop(g) as the g_h product's A (and to the workspace
+//                                   for w2's and b2's gradients), g_pre = drop(g_m w2^T)
+//                                   ELU'(h) with the hidden dropped in place once the tile has
+//                                   read ELU'(h) (w2's gradient reads it), g_y = g + LN2'(g_lny)
+//                                   with the undropped g, and g_o from g_proj = drop(g_y) (to the
+//                                   workspace for wp's and bp's gradients);
+//   block_bwd_attn_kernel<DP, true> the window's keep words (over its row buffer, dead during
+//                                   the core), g_P masked and g_v from the dropped P in
+//                                   window_bwd.cuh's core backward;
+// the LN1 backward adds the undropped g_y, and the weight-gradient launch reads g_m, the
+// dropped hidden and g_proj where the form without dropout reads g, h and g_y.
 
 #include "block_bwd.cuh"
 
@@ -89,11 +110,17 @@ constexpr int kLnMaxPerLane = 12;      // C <= 384 in the LN1 backward
 //     tabs: rows, regions, token rows.
 enum Kernel { kForward = 0, kMlp = 1, kAttention = 2 };  // the three block kernels
 
+//   drop (the dropout form), after the tables: forward, the tokens' unit hashes at the attention
+//     and proj sites and their slots, then the keep words of every head; MLP backward, the unit
+//     hashes at the proj, hidden and out sites and the slots; attention backward, the keep words,
+//     over rowbuf where they fit there (2 heads <= C: rowbuf is dead until the g_ln products,
+//     which run after the core; so stage 1 keeps two blocks an SM).
 struct BwdLayout {
-  int xs, rowbuf, a1, a2, a3, q, k, v, u, rd, go, bias, tabs, total;
+  int xs, rowbuf, a1, a2, a3, q, k, v, u, rd, go, bias, tabs, keep, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int kernel, int C, int inner, int heads, int dp, int hc, bool cross) {
+__host__ __device__ inline BwdLayout bwd_layout(int kernel, int C, int inner, int heads, int dp, int hc, bool cross,
+                                                bool drop = false) {
   BwdLayout L{};
   const int qkv = align16(heads * kT * dp * 4);
   const int rows_c = align16(kT * C * 4);
@@ -147,6 +174,10 @@ __host__ __device__ inline BwdLayout bwd_layout(int kernel, int C, int inner, in
     L.tabs = off;
     off += align16(3 * kRowsB * 4);
   }
+  L.keep = off;
+  const int words = align16(heads * kT * swin::kKeepWords * 4);
+  if (kernel == kAttention && words <= align16(kT * C * 4)) L.keep = L.rowbuf;
+  else if (drop) off += kernel == kForward ? align16(3 * kRowsB * 4) + words : kernel == kMlp ? align16(4 * kRowsB * 4) : words;
   L.total = off;
   return L;
 }
@@ -163,6 +194,12 @@ struct BwdArgs {
   float scale;
   int windows;  // the token layout: 0 image (K4), 1 windows (K1)
   int bf16;     // x and g bf16 (else fp32)
+  // the dropout form (kDrop): the call's sites; the keep words of every (image, window, head),
+  // (S*B, windows, heads, 49, 2), written by the forward and read by the attention's backward;
+  // g_m = drop(g) and g_proj = drop(g_y), (S, M, C)
+  swin::BlockDrop drop;
+  uint32_t* keep;
+  float *gm, *gproj;
 };
 
 // The window's token rows, wrap regions and token indices, and its bias with the wrap mask.
@@ -191,12 +228,13 @@ __device__ __forceinline__ void core_rows(float* core, float* dst, int inner, in
 
 // The forward, recomputed: a block per (group of windows, stream) writes what the backward
 // reads of each window: LN1(x) and its statistics, q (scaled), k, v, AV, y, LN2(y) and the
-// MLP hidden (header, step 2).
-template <int DP>
+// MLP hidden (header, step 2). kDrop: the window's keep words of every head (to a.keep too), AV
+// from the dropped weights, y = x + drop(proj + bp); the hidden stays undropped (ELU' reads it).
+template <int DP, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, hidden = a.hidden;
-  const BwdLayout L = bwd_layout(kForward, C, inner, a.heads, DP, a.hc, a.cross != 0);
+  const BwdLayout L = bwd_layout(kForward, C, inner, a.heads, DP, a.hc, a.cross != 0, kDrop);
   const int s = blockIdx.y;
   const int kvs = a.cross ? a.S - 1 - s : s;
   const int nwin = (a.H / 7) * (a.W / 7);
@@ -216,6 +254,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
   float* a3 = reinterpret_cast<float*>(smem + L.a3);
   float* qkv_s = reinterpret_cast<float*>(smem + L.q);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.keep);  // kDrop: unit hashes, attention then proj
+  int* slot = reinterpret_cast<int*>(ph + 2 * kRowsB);
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.keep + align16(3 * kRowsB * 4));
+  const swin::DropSite& attn_site = a.drop.site[swin::kSiteAttn];
+  const swin::DropSite& proj_site = a.drop.site[swin::kSiteProj];
+  const int words = a.heads * kT * swin::kKeepWords;
 
   zero_smem(smem, 0, L.total);  // the operands' padded channels stay finite zeros
   __syncthreads();
@@ -232,12 +276,25 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
     const size_t kv_img = static_cast<size_t>(kvs) * a.B + b;  // the image k/v come from
     __syncthreads();  // the previous window's readers are done
     window_setup(a, win, s, rows, region, tok, bias_s);
+    if constexpr (kDrop) {
+      for (int t = threadIdx.x; t < kT; t += kThreads) {
+        int unused;
+        ph[t] = swin::token_hash(attn_site, static_cast<int>(img), tok[t], &slot[t]);
+        ph[kRowsB + t] = swin::token_hash(proj_site, static_cast<int>(img), tok[t], &unused);
+      }
+      __syncthreads();
+      swin::attention_keep_words(attn_site, ph, slot, 0, a.heads, a.heads, keep_s);
+    }
     copy_row_col(kT, C, [&](int t, int k) { return act(a.x, img * map + rows[t] + k, a.bf16); },
                  [&](int t, int k, float v) { xs[t * C + k] = v; });
     if (a.cross)
       copy_row_col(kT, C, [&](int t, int k) { return act(a.x, kv_img * map + rows[t] + k, a.bf16); },
                    [&](int t, int k, float v) { rowbuf[t * C + k] = v; });
     __syncthreads();
+    if constexpr (kDrop) {
+      uint32_t* keep = a.keep + (img * nwin + win) * words;
+      for (int i = threadIdx.x; i < words; i += kThreads) keep[i] = keep_s[i];
+    }
     ln_to_a<false>(xs, C, C, a.ln1g + s * C, a.ln1b + s * C, a1, st);
     float* a2 = reinterpret_cast<float*>(smem + L.a2);
     if (a.cross) ln_to_a<false>(rowbuf, C, C, a.ln1g + kvs * C, a.ln1b + kvs * C, a2, st + kRowsB);
@@ -273,8 +330,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
     core_rows<DP, false>(qkv_s, a.q + hofs, inner, a.d, tok);
     core_rows<DP, false>(reinterpret_cast<float*>(smem + L.k), a.k + hofs, inner, a.d, tok);
     core_rows<DP, false>(reinterpret_cast<float*>(smem + L.v), a.v + hofs, inner, a.d, tok);
-    attention_core<DP, false>(qkv_s, reinterpret_cast<const float*>(smem + L.k), smem + L.v, nullptr, bias_s,
-                              a.heads, a.d, [&](int t, int col, float v) { a_at(a3, t, col) = v; });
+    attention_core<DP, false, kDrop>(qkv_s, reinterpret_cast<const float*>(smem + L.k), smem + L.v, nullptr, bias_s,
+                                     a.heads, a.d, [&](int t, int col, float v) { a_at(a3, t, col) = v; }, keep_s,
+                                     attn_site.scale);
     __syncthreads();
     store_a(a3, inner, a.o + hofs, inner, tok);
     with_tn(C, [&](auto tn) {  // y = x + (AV wp + bp), in place of x
@@ -283,7 +341,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
       gemm_tile<decltype(tn)::value, kRing>(acc, weights(a.wp + static_cast<size_t>(s) * inner * C, C, C, inner),
                                             a3, a3, ring);
       const float* bp = a.bp + s * C;
-      each(acc, C, [&](int t, int col, float v) { xs[t * C + col] = xs[t * C + col] + (v + bp[col]); });
+      each(acc, C, [&](int t, int col, float v) {
+        if constexpr (kDrop)
+          xs[t * C + col] = xs[t * C + col] + swin::masked(swin::token_keep(proj_site, ph[kRowsB + t], slot[t], col, C),
+                                                           v + bp[col], proj_site.scale);
+        else
+          xs[t * C + col] = xs[t * C + col] + (v + bp[col]);
+      });
     });
     __syncthreads();
     each_row_col(kT, C, [&](int t, int k) { a.y[(img * hw + tok[t]) * C + k] = xs[t * C + k]; });
@@ -309,11 +373,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
 // The MLP's backward: a block per (group of 49-token tiles, stream), the tokens of a tile
 // consecutive rows of x's layout (the MLP and LN2 work on rows): g_h = g w2^T, g_pre = g_h
 // ELU'(h), g_lny += g_pre w1^T per hidden step, g_y = g + LN2'(g_lny) with its gamma/beta
-// sums, g_o = g_y wp^T.
+// sums, g_o = g_y wp^T. kDrop: the g_h product's A is g_m = drop(g) (to a.gm too), g_pre =
+// drop(g_m w2^T) ELU'(h) and the hidden dropped in place once its ELU' is read (w2's gradient
+// reads it), g_y = g + LN2'(g_lny) with the undropped g, and g_o from g_proj = drop(g_y) (to
+// a.gproj, g_y to a.gy).
+template <bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, hidden = a.hidden;
-  const BwdLayout L = bwd_layout(kMlp, C, inner, a.heads, 4, a.hc, a.cross != 0);
+  const BwdLayout L = bwd_layout(kMlp, C, inner, a.heads, 4, a.hc, a.cross != 0, kDrop);
   const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const int tiles = a.B * a.H * a.W / kT;
@@ -326,13 +394,34 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
   float* ch = reinterpret_cast<float*>(smem + L.u);
   const float* gam = a.ln2g + s * C;
   const int cp = round_up(C, kKc);
+  uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.keep);  // kDrop: unit hashes, proj, hidden, out
+  int* slot = reinterpret_cast<int*>(ph + 3 * kRowsB);
+  const swin::DropSite& proj_site = a.drop.site[swin::kSiteProj];
+  const swin::DropSite& hid_site = a.drop.site[swin::kSiteHidden];
+  const swin::DropSite& out_site = a.drop.site[swin::kSiteOut];
 
   zero_smem(smem, 0, L.total);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t r0 = static_cast<size_t>(s) * tiles * kT + static_cast<size_t>(tile) * kT;  // first row
     __syncthreads();
+    if constexpr (kDrop) {  // the tile's tokens: image b, tokens tok0.. of its map
+      const int hw = a.H * a.W, b = tile * kT / hw, tok0 = tile * kT - b * hw, n = s * a.B + b;
+      for (int t = tid; t < kT; t += kThreads) {
+        int unused;
+        ph[t] = swin::token_hash(proj_site, n, tok0 + t, &slot[t]);
+        ph[kRowsB + t] = swin::token_hash(hid_site, n, tok0 + t, &unused);
+        ph[2 * kRowsB + t] = swin::token_hash(out_site, n, tok0 + t, &unused);
+      }
+      __syncthreads();
+    }
     copy_row_col(kT, cp, [&](int t, int k) { return k < C ? act(a.g, (r0 + t) * C + k, a.bf16) : 0.0f; },
-                 [&](int t, int k, float v) { a_at(a1, t, k) = v; });
+                 [&](int t, int k, float v) {
+                   if constexpr (kDrop) {
+                     v = swin::masked(swin::token_keep(out_site, ph[2 * kRowsB + t], slot[t], k, C), v, out_site.scale);
+                     if (k < C) a.gm[(r0 + t) * C + k] = v;
+                   }
+                   a_at(a1, t, k) = v;
+                 });
     for (int e = tid; e < kT * C; e += kThreads) {
       xs[e] = a.y[r0 * C + e];
       rowbuf[e] = 0.0f;
@@ -341,7 +430,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
     row_stats(kT, C, [&](int t) { return xs + t * C; }, st2);
     for (int j0 = 0; j0 < hidden; j0 += a.hc) {
       const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
-      const float* h = a.h + r0 * hidden + j0;
+      float* h = a.h + r0 * hidden + j0;
       with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) ELU'(h)
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
@@ -349,7 +438,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
             acc, weights(a.w2T + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
         each(acc, nh, [&](int t, int col, float v) {
           const float hv = h[static_cast<size_t>(t) * hidden + col];
-          a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+          if constexpr (kDrop) {
+            const bool keep = swin::token_keep(hid_site, ph[kRowsB + t], slot[t], j0 + col, hidden);
+            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * (hv > 0.0f ? 1.0f : hv + 1.0f);
+            h[static_cast<size_t>(t) * hidden + col] = swin::masked(keep, hv, hid_site.scale);
+          } else {
+            a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+          }
         });
       });
       __syncthreads();
@@ -382,9 +477,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
         s2 = sum8(s2) / C;
         for (int k = lane8; k < C; k += 8) {
           const float gh = rowbuf[t * C + k] * gam[k], xh = (xs[t * C + k] - st.x) * st.y;
-          const float gy = a_at(a1, t, k) + st.y * (gh - s1 - xh * s2);
-          a_at(a1, t, k) = gy;
-          a.gy[(r0 + t) * C + k] = gy;
+          if constexpr (kDrop) {  // the residual takes the undropped g; g_o's A is g_proj
+            const float gy = act(a.g, (r0 + t) * C + k, a.bf16) + st.y * (gh - s1 - xh * s2);
+            const float gp =
+                swin::masked(swin::token_keep(proj_site, ph[t], slot[t], k, C), gy, proj_site.scale);
+            a_at(a1, t, k) = gp;
+            a.gy[(r0 + t) * C + k] = gy;
+            a.gproj[(r0 + t) * C + k] = gp;
+          } else {
+            const float gy = a_at(a1, t, k) + st.y * (gh - s1 - xh * s2);
+            a_at(a1, t, k) = gy;
+            a.gy[(r0 + t) * C + k] = gy;
+          }
         }
       }
       for (int c = tid; c < C; c += kThreads) {
@@ -418,12 +522,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
 // and g_o, runs window_bwd.cuh's core backward over every head (its bias-gradient sums in
 // registers across the block's windows), writes g_q, g_k, g_v and g_ln = [g_q | g_k | g_v]
 // [wq | wk | wv]^T, under cross the q side and the k/v side apart, the latter to the other
-// stream's rows.
-template <int DP>
+// stream's rows. kDrop: the window's keep words from a.keep (g_o is already g_proj wp^T); the
+// core's backward with g_P masked and g_v from the dropped P.
+template <int DP, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_bwd_attn_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, heads = a.heads;
-  const BwdLayout L = bwd_layout(kAttention, C, inner, heads, DP, a.hc, a.cross != 0);
+  const BwdLayout L = bwd_layout(kAttention, C, inner, heads, DP, a.hc, a.cross != 0, kDrop);
   const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const int kvs = a.cross ? a.S - 1 - s : s;
@@ -455,19 +560,30 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_bwd_attn_kernel(
     const size_t kv_img = static_cast<size_t>(kvs) * a.B + b;
     __syncthreads();
     window_setup(a, win, s, rows, region, tok, bias_s);
+    uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.keep);
+    if constexpr (kDrop) {
+      const int words = heads * kT * swin::kKeepWords;
+      const uint32_t* keep = a.keep + (img * nwin + win) * words;
+      for (int i = tid; i < words; i += kThreads) keep_s[i] = keep[i];
+    }
     const size_t ofs = img * hw * inner;
     core_rows<DP, true>(q_s, a.q + ofs, inner, a.d, tok);
     core_rows<DP, true>(k_s, a.k + ofs, inner, a.d, tok);
     core_rows<DP, true>(v_s, a.v + ofs, inner, a.d, tok);
     core_rows<DP, true>(go_s, a.go + ofs, inner, a.d, tok);
     __syncthreads();
-    core_bwd_rows<DP>(q_s, k_s, v_s, go_s, bias_s, heads, a.d, a.scale, rd, tab,
-                      [&](int t, int col, float v) { a_at(ch, t, col) = v; });
+    const float drop_scale = a.drop.site[swin::kSiteAttn].scale;
+    core_bwd_rows<DP, kDrop>(
+        q_s, k_s, v_s, go_s, bias_s, heads, a.d, a.scale, rd, tab,
+        [&](int t, int col, float v) { a_at(ch, t, col) = v; }, keep_s, drop_scale);
     __syncthreads();
-    core_bwd_cols<DP>(q_s, k_s, v_s, go_s, bias_s, heads, a.d, rd, [&](int u, int col, float gk, float gv) {
-      a_at(ch, u, inner + col) = gk;
-      a_at(ch, u, 2 * inner + col) = gv;
-    });
+    core_bwd_cols<DP, kDrop>(
+        q_s, k_s, v_s, go_s, bias_s, heads, a.d, rd,
+        [&](int u, int col, float gk, float gv) {
+          a_at(ch, u, inner + col) = gk;
+          a_at(ch, u, 2 * inner + col) = gv;
+        },
+        keep_s, drop_scale);
     __syncthreads();
     store_a(ch, inner, a.gq + ofs, inner, tok);
     store_a(ch + inner * kPitchF, inner, a.gk + ofs, inner, tok);
@@ -598,14 +714,14 @@ __global__ void __launch_bounds__(kThreads) ln1_bwd_kernel(const Ln1Args p) {
 int pitch_for(int d) { return d <= 4 ? 4 : d <= 8 ? 8 : 0; }
 
 // Whether this route takes the dimensions (ops/fused_block.py::block_bwd_plan makes the same
-// checks and routes every other shape to fused_block.cu's backward).
-bool supported(int C, int inner, int heads, int d, int hidden, int hc, bool cross) {
+// checks and routes every other shape to fused_block.cu's backward); drop: the dropout form.
+bool supported(int C, int inner, int heads, int d, int hidden, int hc, bool cross, bool drop) {
   if (pitch_for(d) == 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 || hidden % 4 != 0) return false;
   if (3 * inner > kMaxCols || 3 * inner > kColTable || C > kMaxCols || hc < 4 || hc % 4 != 0 || hc > kMaxCols ||
       hc > hidden)
     return false;
   for (int kernel : {kForward, kMlp, kAttention})
-    if (bwd_layout(kernel, C, inner, heads, pitch_for(d), hc, cross).total > kSmemMax) return false;
+    if (bwd_layout(kernel, C, inner, heads, pitch_for(d), hc, cross, drop).total > kSmemMax) return false;
   return true;
 }
 
@@ -615,14 +731,17 @@ struct BwdScratch {
   float *wqkvT, *wpT, *w1T, *w2T, *lnx, *stats1, *q, *k, *v, *o, *y, *gy, *go, *lny, *h, *gpre, *gq, *gk, *gv,
       *glnq, *glnkv;
   float *tab_part, *ln2_part, *ln1_part, *wg_part;
+  float *gm, *gproj;  // the dropout form: drop(g), drop(g_y)
+  uint32_t* keep;     // the dropout form: the keep words of every (image, window, head)
   int chunk_rows, chunks;  // of the weight-gradient launch
 };
 
 int ln1_blocks(int M) { return (M + kLn1Rows - 1) / kLn1Rows; }
 
-// blocks: blocks per stream of the forward, MLP and attention halves.
-BwdScratch carve(swin::Arena& ar, int S, int B, int H, int W, int C, int inner, int hidden, const int* blocks,
-                 bool cross) {
+// blocks: blocks per stream of the forward, MLP and attention halves; drop: the dropout form's
+// pieces after the others.
+BwdScratch carve(swin::Arena& ar, int S, int B, int H, int W, int C, int heads, int inner, int hidden,
+                 const int* blocks, bool cross, bool drop) {
   BwdScratch sc;
   const int M = B * H * W;
   const size_t SM = static_cast<size_t>(S) * M;
@@ -659,6 +778,10 @@ BwdScratch carve(swin::Arena& ar, int S, int B, int H, int W, int C, int inner, 
     per_chunk += static_cast<size_t>(ka + 1) * nb;
   }
   sc.wg_part = ar.take(S * sc.chunks * per_chunk);
+  sc.gm = drop ? ar.take(SM * C) : nullptr;
+  sc.gproj = drop ? ar.take(SM * C) : nullptr;
+  const size_t words = static_cast<size_t>(S) * B * (H / 7) * (W / 7) * heads * kT * swin::kKeepWords;
+  sc.keep = drop ? reinterpret_cast<uint32_t*>(ar.take(words)) : nullptr;
   return sc;
 }
 
@@ -671,32 +794,49 @@ cudaError_t launch_blocks(Fn kernel, int blocks, int smem, const BwdArgs& a, cud
 }
 
 template <typename TX>
-int block_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H, int W, int C,
-              int heads, int d, int hidden, int hc, const int* blocks, int shift, int cross, int windows,
+int block_bwd(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B, int H,
+              int W, int C, int heads, int d, int hidden, int hc, const int* blocks, int shift, int cross, int windows,
               float scale, cudaStream_t st) {
   const int inner = heads * d;
   const int M = B * H * W;
+  const bool dropping = drop != nullptr;
   swin::Arena ar{ws};
-  const BwdScratch sc = carve(ar, S, B, H, W, C, inner, hidden, blocks, cross != 0);
+  const BwdScratch sc = carve(ar, S, B, H, W, C, heads, inner, hidden, blocks, cross != 0, dropping);
   launch_transposes(in, sc.wqkvT, sc.wpT, sc.w1T, sc.w2T, S, C, inner, hidden, st);
 
-  const BwdArgs a = {in[kX], in[kG], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv],
+  BwdArgs a = {in[kX], in[kG], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv],
                      in[kBv], in[kWp], in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2],
                      in[kB2], sc.wqkvT, sc.wpT, sc.w1T, sc.w2T, sc.lnx, sc.stats1, sc.q, sc.k, sc.v, sc.o, sc.y,
                      sc.lny, sc.h, sc.gpre, sc.gy, sc.go, sc.gq, sc.gk, sc.gv, sc.glnq, sc.glnkv, sc.tab_part,
                      sc.ln2_part,
                      S, B, H, W, C, inner, heads, d, hidden, hc, shift ? 4 : 0, shift ? 4 : 0, cross, scale,
                      windows != 0, std::is_same<TX, bf16>::value};
+  if (dropping) {
+    a.drop = swin::block_drop(drop, H * W, B);
+    a.keep = sc.keep;
+    a.gm = sc.gm;
+    a.gproj = sc.gproj;
+  }
   const int dp = pitch_for(d);
   int smem[3];
   for (int kernel : {kForward, kMlp, kAttention})
-    smem[kernel] = bwd_layout(kernel, C, inner, heads, dp, hc, cross != 0).total;
-  cudaError_t err = dp == 4 ? launch_blocks(block_fwd_kernel<4>, blocks[kForward], smem[kForward], a, st)
-                            : launch_blocks(block_fwd_kernel<8>, blocks[kForward], smem[kForward], a, st);
-  if (err == cudaSuccess) err = launch_blocks(block_mlp_bwd_kernel, blocks[kMlp], smem[kMlp], a, st);
-  if (err == cudaSuccess)
-    err = dp == 4 ? launch_blocks(block_bwd_attn_kernel<4>, blocks[kAttention], smem[kAttention], a, st)
-                  : launch_blocks(block_bwd_attn_kernel<8>, blocks[kAttention], smem[kAttention], a, st);
+    smem[kernel] = bwd_layout(kernel, C, inner, heads, dp, hc, cross != 0, dropping).total;
+  cudaError_t err;
+  if (dropping) {
+    err = dp == 4 ? launch_blocks(block_fwd_kernel<4, true>, blocks[kForward], smem[kForward], a, st)
+                  : launch_blocks(block_fwd_kernel<8, true>, blocks[kForward], smem[kForward], a, st);
+    if (err == cudaSuccess) err = launch_blocks(block_mlp_bwd_kernel<true>, blocks[kMlp], smem[kMlp], a, st);
+    if (err == cudaSuccess)
+      err = dp == 4 ? launch_blocks(block_bwd_attn_kernel<4, true>, blocks[kAttention], smem[kAttention], a, st)
+                    : launch_blocks(block_bwd_attn_kernel<8, true>, blocks[kAttention], smem[kAttention], a, st);
+  } else {
+    err = dp == 4 ? launch_blocks(block_fwd_kernel<4>, blocks[kForward], smem[kForward], a, st)
+                  : launch_blocks(block_fwd_kernel<8>, blocks[kForward], smem[kForward], a, st);
+    if (err == cudaSuccess) err = launch_blocks(block_mlp_bwd_kernel<false>, blocks[kMlp], smem[kMlp], a, st);
+    if (err == cudaSuccess)
+      err = dp == 4 ? launch_blocks(block_bwd_attn_kernel<4>, blocks[kAttention], smem[kAttention], a, st)
+                    : launch_blocks(block_bwd_attn_kernel<8>, blocks[kAttention], smem[kAttention], a, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // the LN1 backward: g_x = g_y + LN1'(g_ln), rounded as the header says, with its gamma/beta
@@ -709,8 +849,10 @@ int block_bwd(const float* const* in, float* const* out, float* ws, int S, int B
   else if (kBf16) ln1_bwd_kernel<TX, true, true><<<ln_grid, kThreads, ln_smem, st>>>(ln);
   else ln1_bwd_kernel<TX, true, false><<<ln_grid, kThreads, ln_smem, st>>>(ln);
 
-  const Tail t = {sc.gy, sc.lnx, sc.o, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part, sc.ln2_part,
-                  sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, blocks[kAttention], blocks[kMlp], ln1_blocks(M)};
+  // wp's gradient reads g_proj and w2's g_m (and the dropped hidden) in the dropout form
+  const Tail t = {dropping ? sc.gproj : sc.gy, sc.lnx, sc.o, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part,
+                  sc.ln2_part, sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, blocks[kAttention], blocks[kMlp],
+                  ln1_blocks(M), sc.gm};
   return launch_tail<TX>(in, out, t, S, M, C, inner, hidden, cross != 0, st);
 }
 
@@ -722,44 +864,49 @@ extern "C" {
 
 // Dynamic shared memory in bytes of one block of the forward (kind 0), MLP-backward (1) or
 // attention-backward (2) kernel, or 0 where this route does not take the dimensions (hc:
-// hidden columns per MLP step).
-size_t swin_block_bwd_smem(int kind, int C, int heads, int d, int hidden, int hc, int cross) {
-  if (kind < kForward || kind > kAttention || !supported(C, heads * d, heads, d, hidden, hc, cross != 0)) return 0;
-  return static_cast<size_t>(bwd_layout(kind, C, heads * d, heads, pitch_for(d), hc, cross != 0).total);
+// hidden columns per MLP step; drop: the dropout form).
+size_t swin_block_bwd_smem(int kind, int C, int heads, int d, int hidden, int hc, int cross, int drop) {
+  if (kind < kForward || kind > kAttention || !supported(C, heads * d, heads, d, hidden, hc, cross != 0, drop != 0))
+    return 0;
+  return static_cast<size_t>(bwd_layout(kind, C, heads * d, heads, pitch_for(d), hc, cross != 0, drop != 0).total);
 }
 
-// Floats of workspace one call needs; blocks: blocks per stream of the three kernels.
+// Floats of workspace one call needs; blocks: blocks per stream of the three kernels; drop: the
+// dropout form.
 size_t swin_block_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d, int hidden, int fwd_blocks,
-                                int mlp_blocks, int attn_blocks, int cross) {
+                                int mlp_blocks, int attn_blocks, int cross, int drop) {
   const int blocks[3] = {fwd_blocks, mlp_blocks, attn_blocks};
   swin::Arena ar{nullptr};
-  carve(ar, S, B, H, W, C, heads * d, hidden, blocks, cross != 0);
+  carve(ar, S, B, H, W, C, heads, heads * d, hidden, blocks, cross != 0, drop != 0);
   return ar.used;
 }
 
-// The block's backward without dropout on `stream`. in: x, the 17 weights in the forward's
-// order, then g = dL/d out (same shape as x); out: g_x, then the 17 weight gradients in that
-// order and shapes. x, g and g_x are fp32, or bf16 when `bf16_io` is set (fp32 inside, K1 and
-// K4 alike); the weights and their gradients fp32. Layout as swin_k4_fwd's (`windows`); 7x7
-// windows. hc: hidden columns per MLP step; fwd_blocks, mlp_blocks, attn_blocks: blocks per
-// stream of the three block kernels; ws: ws_floats floats of workspace, at least
-// swin_block_bwd_workspace(...). Every output is written in full. Returns cudaGetLastError()
-// after the launches (0 = ok), cudaErrorInvalidValue on dimensions this route does not take
-// or a workspace too small.
-int swin_block_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats, int S, int B, int H,
-                   int W, int C, int heads, int d, int hidden, int hc, int fwd_blocks, int mlp_blocks,
-                   int attn_blocks, int shift, int cross, int windows, int bf16_io, float scale, void* stream) {
+// The block's backward on `stream`. in: x, the 17 weights in the forward's order, then g =
+// dL/d out (same shape as x); out: g_x, then the 17 weight gradients in that order and shapes.
+// x, g and g_x are fp32, or bf16 when `bf16_io` is set (fp32 inside, K1 and K4 alike); the
+// weights and their gradients fp32. `drop`: the forward's dropout arguments (the dropout form,
+// ops/dropout_layout.py's keying for the layout), or nullptr for none. Layout as swin_k4_fwd's
+// (`windows`); 7x7 windows. hc: hidden columns per MLP step; fwd_blocks, mlp_blocks,
+// attn_blocks: blocks per stream of the three block kernels; ws: ws_floats floats of
+// workspace, at least swin_block_bwd_workspace(..., drop != nullptr). Every output is written
+// in full. Returns cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on
+// dimensions this route does not take or a workspace too small.
+int swin_block_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats,
+                   const swin::DropArgs* drop, int S, int B, int H, int W, int C, int heads, int d, int hidden, int hc,
+                   int fwd_blocks, int mlp_blocks, int attn_blocks, int shift, int cross, int windows, int bf16_io,
+                   float scale, void* stream) {
   const int blocks[3] = {fwd_blocks, mlp_blocks, attn_blocks};
+  const bool dropping = drop != nullptr;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || fwd_blocks < 1 || mlp_blocks < 1 ||
-      attn_blocks < 1 || !supported(C, heads * d, heads, d, hidden, hc, cross != 0) ||
+      attn_blocks < 1 || !supported(C, heads * d, heads, d, hidden, hc, cross != 0, dropping) ||
       ws_floats < swin_block_bwd_workspace(S, B, H, W, C, heads, d, hidden, fwd_blocks, mlp_blocks, attn_blocks,
-                                           cross))
+                                           cross, dropping))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16_io ? block_bwd<bf16>(in, out, ws, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross, windows,
-                                   scale, st)
-                 : block_bwd<float>(in, out, ws, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross, windows,
-                                    scale, st);
+  return bf16_io ? block_bwd<bf16>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross,
+                                   windows, scale, st)
+                 : block_bwd<float>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross,
+                                    windows, scale, st);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@
 // every weight's gradient from x, the 17 weights and g; fp32 inside in both dtypes; a bf16 g_x
 // under cross rnd(rnd(g_y + LN1'(q side)) + rnd(LN1'(k/v side))); the softmax clamp at 80 not
 // differentiated. ops/fused_block.py::block_bwd_plan routes the default model's stages 2-3
-// here; stage 4 (d = 48), other heads and the dropout forms keep fused_block.cu's backward.
+// here, with and without dropout; stage 4 (d = 48) and other heads keep fused_block.cu's
+// backward.
 //
 // Where a window's blocks do not fit one block's shared memory (C = 96 and 192 in the default
 // model, stages 2-3), the backward runs on kernels sized to each step, eleven launches:
@@ -31,6 +32,12 @@
 // fp32 FMA throughout (TF32 off), no atomics: every sum runs in a fixed order, and the blocks
 // of each kernel that walks a list come from the caller (one wave of the card's SMs), so two
 // calls on one card give the same bits.
+// Dropout: the same eleven launches in their kDrop forms (fused_block_bwd.cu's header says
+// which gradient each site masks): K3's attention block recomputes AV from the dropped weights
+// and writes every head's keep words for K3's backward block, k4_rows_kernel adds drop(proj +
+// bp), split_mlp_bwd_kernel<true> masks g, the hidden and g_y as block_mlp_bwd_kernel<true>
+// does, and K3's block k3_bwd_kernel<DP, false, true> runs on g = g_proj with those keep words
+// (its AV, which wp's gradient reads, the dropped one).
 
 #include "block_bwd.cuh"
 #include "block_fwd.cuh"
@@ -46,32 +53,42 @@ using namespace bbwd;
 // LN2 statistics and backward need it, so that g (resident, the g_h products' A), the g_lny
 // sums [49][C] and the hidden step's g_pre fit two blocks an SM at C = 96; the g_lny products
 // run in column groups of at most kMaxCols (k3bwd::gx_width); no g_o (the K3 block forms it
-// from g_y). Writes g_pre, g_y and the LN2 gamma/beta partials.
+// from g_y). Writes g_pre, g_y and the LN2 gamma/beta partials. kDrop: as fused_block_bwd.cu's
+// block_mlp_bwd_kernel<true>: g_m = drop(g) as the g_h product's A (to gm), g_pre = drop(g_m
+// w2^T) ELU'(h) with the hidden dropped in place after its ELU' is read, g_y with the undropped g
+// as its residual, and g_proj = drop(g_y) beside it (K3's block reads it as its g).
 struct MlpArgs {
   const void* g;                                // dL/d out, (S, M, C) fp32 or bf16
-  const float *ln2g, *w1T, *w2T, *y, *h;        // (S, C); per stream (hidden, C), (C, hidden); y, the hidden
+  const float *ln2g, *w1T, *w2T, *y;            // (S, C); per stream (hidden, C), (C, hidden); y
+  float* h;                                     // the hidden, (S, M, hidden) (kDrop: dropped in place)
   float *gpre, *gy, *ln2_part;                  // (S, M, hidden), (S, M, C), (S, blocks, 2C)
   int B, H, W, C, hidden, hc, bf16;
+  swin::BlockDrop drop;                         // kDrop: the call's sites
+  float *gm, *gproj;                            // kDrop: drop(g), drop(g_y), (S, M, C)
 };
 
+// drop: the tokens' unit hashes at the proj, hidden and out sites and their slots, after the
+// tables.
 struct SplitMlpLayout {
-  int rowbuf, a1, u, tabs, total;
+  int rowbuf, a1, u, tabs, keep, total;
 };
 
-__host__ __device__ inline SplitMlpLayout split_mlp_layout(int C, int hc) {
+__host__ __device__ inline SplitMlpLayout split_mlp_layout(int C, int hc, bool drop = false) {
   SplitMlpLayout L{};
   L.rowbuf = align16(b_bytes(false, max2(k3bwd::gx_width(C), round_up(hc, 4)), kRing));
   L.a1 = L.rowbuf + align16(kT * C * 4);
   L.u = L.a1 + align16(a_bytes(false, C));
   L.tabs = L.u + align16(a_bytes(false, round_up(hc, 4)));
-  L.total = L.tabs + align16(kRowsB * 8 + 2 * C * 4);
+  L.keep = L.tabs + align16(kRowsB * 8 + 2 * C * 4);
+  L.total = L.keep + (drop ? align16(4 * kRowsB * 4) : 0);
   return L;
 }
 
+template <bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(const MlpArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, hidden = a.hidden, tid = threadIdx.x, s = blockIdx.y;
-  const SplitMlpLayout L = split_mlp_layout(C, a.hc);
+  const SplitMlpLayout L = split_mlp_layout(C, a.hc, kDrop);
   const int tiles = a.B * a.H * a.W / kT, cw = k3bwd::gx_width(C), cp = round_up(C, kKc);
   float* ring = reinterpret_cast<float*>(smem);
   float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf);
@@ -80,20 +97,41 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(c
   float2* st2 = reinterpret_cast<float2*>(smem + L.tabs);
   float* ln2_acc = reinterpret_cast<float*>(st2 + kRowsB);
   const float* gam = a.ln2g + s * C;
+  uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.keep);  // kDrop: unit hashes, proj, hidden, out
+  int* slot = reinterpret_cast<int*>(ph + 3 * kRowsB);
+  const swin::DropSite& proj_site = a.drop.site[swin::kSiteProj];
+  const swin::DropSite& hid_site = a.drop.site[swin::kSiteHidden];
+  const swin::DropSite& out_site = a.drop.site[swin::kSiteOut];
 
   zero_smem(smem, 0, L.total);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t r0 = static_cast<size_t>(s) * tiles * kT + static_cast<size_t>(tile) * kT;  // first row
     const float* y = a.y + r0 * C;
     __syncthreads();  // the previous tile's readers are done
+    if constexpr (kDrop) {  // the tile's tokens: image b, tokens tok0.. of its map
+      const int hw = a.H * a.W, b = tile * kT / hw, tok0 = tile * kT - b * hw, n = s * a.B + b;
+      for (int t = tid; t < kT; t += kThreads) {
+        int unused;
+        ph[t] = swin::token_hash(proj_site, n, tok0 + t, &slot[t]);
+        ph[kRowsB + t] = swin::token_hash(hid_site, n, tok0 + t, &unused);
+        ph[2 * kRowsB + t] = swin::token_hash(out_site, n, tok0 + t, &unused);
+      }
+      __syncthreads();
+    }
     copy_row_col(kT, cp, [&](int t, int k) { return k < C ? act(a.g, (r0 + t) * C + k, a.bf16) : 0.0f; },
-                 [&](int t, int k, float v) { a_at(a1, t, k) = v; });
+                 [&](int t, int k, float v) {
+                   if constexpr (kDrop) {
+                     v = swin::masked(swin::token_keep(out_site, ph[2 * kRowsB + t], slot[t], k, C), v, out_site.scale);
+                     if (k < C) a.gm[(r0 + t) * C + k] = v;
+                   }
+                   a_at(a1, t, k) = v;
+                 });
     for (int e = tid; e < kT * C; e += kThreads) rowbuf[e] = 0.0f;
     row_stats(kT, C, [&](int t) { return y + static_cast<size_t>(t) * C; }, st2);
     __syncthreads();
     for (int j0 = 0; j0 < hidden; j0 += a.hc) {
       const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
-      const float* h = a.h + r0 * hidden + j0;
+      float* h = a.h + r0 * hidden + j0;
       with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) ELU'(h)
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
@@ -101,7 +139,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(c
             acc, weights(a.w2T + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
         each(acc, nh, [&](int t, int col, float v) {
           const float hv = h[static_cast<size_t>(t) * hidden + col];
-          a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+          if constexpr (kDrop) {
+            const bool keep = swin::token_keep(hid_site, ph[kRowsB + t], slot[t], j0 + col, hidden);
+            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * (hv > 0.0f ? 1.0f : hv + 1.0f);
+            h[static_cast<size_t>(t) * hidden + col] = swin::masked(keep, hv, hid_site.scale);
+          } else {
+            a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+          }
         });
       });
       __syncthreads();
@@ -138,7 +182,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(c
         s2 = sum8(s2) / C;
         for (int k = lane8; k < C; k += 8) {
           const float gh = rowbuf[t * C + k] * gam[k], xh = (yr[k] - st.x) * st.y;
-          a.gy[(r0 + t) * C + k] = a_at(a1, t, k) + st.y * (gh - s1 - xh * s2);
+          if constexpr (kDrop) {  // the residual takes the undropped g
+            const float gy = act(a.g, (r0 + t) * C + k, a.bf16) + st.y * (gh - s1 - xh * s2);
+            a.gy[(r0 + t) * C + k] = gy;
+            a.gproj[(r0 + t) * C + k] =
+                swin::masked(swin::token_keep(proj_site, ph[t], slot[t], k, C), gy, proj_site.scale);
+          } else {
+            a.gy[(r0 + t) * C + k] = a_at(a1, t, k) + st.y * (gh - s1 - xh * s2);
+          }
         }
       }
       for (int c = tid; c < C; c += kThreads) {
@@ -316,15 +367,19 @@ constexpr int kFc1Cols = k4fwd::max_cols(false);
 
 // Dynamic shared memory of the split route's kernel `kind`: 0 the recomputed attention, 1 the
 // projection rows, 2 the fc1, 3 the MLP backward, 4 K3's backward block, 5 the g_ln product
-// with the LN1 backward.
-int split_smem(int kind, int C, int inner, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross) {
+// with the LN1 backward; drop: the dropout form (the attention's hashes and keep words, the MLP
+// backward's hashes, K3's block's keep words).
+int split_smem(int kind, int C, int inner, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross,
+               bool drop = false) {
   const int dp = split_pitch(d);
   switch (kind) {
-    case 0: return attention_layout(false, false, cross, C, inner, hg_fwd, d, dp).total;
+    case 0:
+      return attention_layout(false, false, cross, C, inner, hg_fwd, d, dp).total +
+             (drop ? drop_attention_bytes(hg_fwd) : 0);
     case 1: return k4fwd::k4_layout(k4fwd::kRows, false, cross, C, inner, hidden, hg_fwd, d, dp, kFc1Cols).total;
     case 2: return k4fwd::k4_layout(k4fwd::kFc1, false, cross, C, inner, hidden, hg_fwd, d, dp, kFc1Cols).total;
-    case 3: return split_mlp_layout(C, hc).total;
-    case 4: return k3bwd::bwd_layout(false, cross, C, inner, hg_bwd, d, dp).total;
+    case 3: return split_mlp_layout(C, hc, drop).total;
+    case 4: return k3bwd::bwd_layout(false, cross, C, inner, hg_bwd, d, dp, drop).total;
     case 5: return gln_layout(C, cross).total;
     default: return 0;
   }
@@ -334,8 +389,9 @@ constexpr int kSplitKinds = 6;
 // Whether the split route takes the dimensions (ops/fused_block.py::block_bwd_plan makes the
 // same checks): hg_fwd heads a block of the recomputed attention, hg_bwd of K3's backward
 // block (each at most 48 columns a q/k/v part, a multiple of 8), hc hidden columns per MLP
-// step, and every block within a block's shared memory.
-bool split_supported(int C, int inner, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross) {
+// step, and every block within a block's shared memory (drop: in the dropout form).
+bool split_supported(int C, int inner, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, bool cross,
+                     bool drop) {
   if (split_pitch(d) == 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 || hidden % 4 != 0 || C > 384)
     return false;
   if (hc < 4 || hc % 4 != 0 || hc > kMaxCols || hc > hidden) return false;
@@ -344,7 +400,7 @@ bool split_supported(int C, int inner, int heads, int d, int hidden, int hc, int
     if (hg < 1 || heads % hg != 0 || n % 8 != 0 || n > 48 || 3 * n > kMaxCols || 3 * n > kColTable) return false;
   }
   for (int kind = 0; kind < kSplitKinds; ++kind)
-    if (split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, cross) > kSmemMax) return false;
+    if (split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, cross, drop) > kSmemMax) return false;
   for (int b : {wg_smem(C, inner), wg_smem(inner, C), wg_smem(C, hidden), wg_smem(hidden, C)})
     if (b > kSmemMax) return false;
   return true;
@@ -356,6 +412,8 @@ bool split_supported(int C, int inner, int heads, int d, int hidden, int hc, int
 struct SplitScratch {
   float *wqkvT, *wpT, *w1T, *w2T, *lnx, *stats1, *av, *y, *lny, *h, *gpre, *gy, *gq, *gk, *gv;
   float *tab_part, *ln2_part, *ln1_part, *wg_part;
+  float *gm, *gproj;  // the dropout form: drop(g), drop(g_y)
+  uint32_t* keep;     // the dropout form: the keep words of every (image, window, head)
   int chunk_rows, chunks;  // of the weight-gradient launch
 };
 
@@ -375,8 +433,10 @@ int wg_working_blocks(int C, int inner, int hidden) {
 }
 
 // groups: heads / hg_bwd; blocks: per stream of the MLP backward, per (stream, group) of K3's
-// block, per stream of the g_ln product.
-SplitScratch carve_split(swin::Arena& ar, int S, int M, int C, int inner, int hidden, int groups, const int* blocks) {
+// block, per stream of the g_ln product; windows: per stream, of every image; drop: the dropout
+// form's pieces after the others.
+SplitScratch carve_split(swin::Arena& ar, int S, int M, int C, int heads, int inner, int hidden, int groups,
+                         const int* blocks, int windows, bool drop) {
   SplitScratch sc;
   const size_t SM = static_cast<size_t>(S) * M;
   sc.wqkvT = ar.take(static_cast<size_t>(S) * 3 * inner * C);
@@ -406,6 +466,10 @@ SplitScratch carve_split(swin::Arena& ar, int S, int M, int C, int inner, int hi
     per_chunk += static_cast<size_t>(ka + 1) * nb;
   }
   sc.wg_part = ar.take(S * sc.chunks * per_chunk);
+  sc.gm = drop ? ar.take(SM * C) : nullptr;
+  sc.gproj = drop ? ar.take(SM * C) : nullptr;
+  const size_t words = static_cast<size_t>(S) * windows * heads * kT * swin::kKeepWords;
+  sc.keep = drop ? reinterpret_cast<uint32_t*>(ar.take(words)) : nullptr;
   return sc;
 }
 
@@ -420,32 +484,37 @@ cudaError_t launch_grid(Kernel kernel, dim3 grid, int smem, const KernelArgs& a,
 // blocks: per stream of the MLP backward, per (stream, group of hg_bwd heads) of K3's block,
 // per stream of the g_ln product.
 template <int DP, typename TX>
-int block_bwd_split(const float* const* in, float* const* out, float* ws, int S, int B, int H, int W, int C,
-                    int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, const int* blocks, int shift,
-                    int cross, int windows, float scale, cudaStream_t st) {
+int block_bwd_split(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B,
+                    int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
+                    const int* blocks, int shift, int cross, int windows, float scale, cudaStream_t st) {
   const int inner = heads * d, M = B * H * W, groups = heads / hg_bwd, nb = S * B;
   const int nwin = (H / 7) * (W / 7), top = shift ? 4 : 0;
-  const bool kv = cross != 0;
-  auto smem = [&](int kind) { return split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, kv); };
+  const bool kv = cross != 0, dropping = drop != nullptr;
+  auto smem = [&](int kind) { return split_smem(kind, C, inner, d, hidden, hc, hg_fwd, hg_bwd, kv, dropping); };
   swin::Arena ar{ws};
-  const SplitScratch sc = carve_split(ar, S, M, C, inner, hidden, groups, blocks);
+  const SplitScratch sc = carve_split(ar, S, M, C, heads, inner, hidden, groups, blocks, B * nwin, dropping);
+  const swin::BlockDrop sites = dropping ? swin::block_drop(drop, H * W, B) : swin::BlockDrop{};
   launch_transposes(in, sc.wqkvT, sc.wpT, sc.w1T, sc.w2T, S, C, inner, hidden, st);
 
   // the forward, recomputed (fp32 inside): LN1(x) and its statistics, AV, y, LN2(y), the hidden
   k4fwd::K4Args f = {in[kX], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp],
                      in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2], in[kB2], nullptr, sc.lnx,
                      sc.av, sc.y, sc.h, S, B, H, W, C, inner, heads, d, hidden, hg_fwd, kFc1Cols, top, top, cross,
-                     scale, windows != 0, sc.stats1};
+                     scale, windows != 0, sc.stats1, sites.site[swin::kSiteProj]};
   const unsigned ln_blocks =
       static_cast<unsigned>((static_cast<size_t>(nb) * H * W + kThreads / 8 - 1) / (kThreads / 8));
   k4fwd::k4_ln_kernel<TX, false, false, true><<<ln_blocks, kThreads, 0, st>>>(f);
   const Args k3f = {sc.lnx, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp], in[kBp], in[kBias],
-                    nullptr, sc.av, S, B, H, W, C, inner, heads, d, hg_fwd, top, top, cross, scale, windows != 0};
-  cudaError_t err =
-      launch_grid(k3_attention_kernel<DP, false, false>, dim3(nwin, nb, heads / hg_fwd), smem(0), k3f, st);
+                    nullptr, sc.av, S, B, H, W, C, inner, heads, d, hg_fwd, top, top, cross, scale, windows != 0,
+                    sites.site[swin::kSiteAttn], sc.keep};
+  const dim3 attn_grid(nwin, nb, heads / hg_fwd);
+  cudaError_t err = dropping ? launch_grid(k3_attention_kernel<DP, false, false, true>, attn_grid, smem(0), k3f, st)
+                             : launch_grid(k3_attention_kernel<DP, false, false>, attn_grid, smem(0), k3f, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int col_groups = (C + kProjCols - 1) / kProjCols, tiles = H * W / kT;
-  err = launch_grid(k4fwd::k4_rows_kernel<TX, false, false>, dim3(nwin, nb, col_groups), smem(1), f, st);
+  const dim3 rows_grid(nwin, nb, col_groups);
+  err = dropping ? launch_grid(k4fwd::k4_rows_kernel<TX, false, false, true>, rows_grid, smem(1), f, st)
+                 : launch_grid(k4fwd::k4_rows_kernel<TX, false, false>, rows_grid, smem(1), f, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   f.ln = sc.lny;  // LN2(y) beside LN1(x), which the attention's backward reads
   k4fwd::k4_ln_kernel<TX, false, true><<<ln_blocks, kThreads, 0, st>>>(f);
@@ -455,16 +524,20 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, int S,
 
   // the MLP and LN2 backward: g_pre, g_y
   const MlpArgs a = {in[kG], in[kLn2g], sc.w1T, sc.w2T, sc.y, sc.h, sc.gpre, sc.gy, sc.ln2_part,
-                     B, H, W, C, hidden, hc, std::is_same<TX, bf16>::value};
-  err = launch_grid(split_mlp_bwd_kernel, dim3(blocks[0], S), smem(3), a, st);
+                     B, H, W, C, hidden, hc, std::is_same<TX, bf16>::value, sites, sc.gm, sc.gproj};
+  err = dropping ? launch_grid(split_mlp_bwd_kernel<true>, dim3(blocks[0], S), smem(3), a, st)
+                 : launch_grid(split_mlp_bwd_kernel<false>, dim3(blocks[0], S), smem(3), a, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // the attention's backward: K3's split-route block on (LN1(x), g_y), then g_ln and LN1's
-  // backward
-  const k3bwd::BwdArgs k3 = {sc.lnx, sc.gy, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias],
-                             sc.wpT, sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, nullptr, nullptr, nullptr, sc.tab_part,
-                             S, B, H, W, C, inner, d, hg_bwd, top, top, cross, scale, windows != 0, 0};
-  err = launch_grid(k3bwd::k3_bwd_kernel<DP, false>, dim3(blocks[1], S, groups), smem(4), k3, st);
+  // backward; the dropout form's block takes g_proj = drop(g_y) and the recompute's keep words
+  const k3bwd::BwdArgs k3 = {sc.lnx, dropping ? sc.gproj : sc.gy, in[kWq], in[kBq], in[kWk], in[kBk], in[kWv],
+                             in[kBv], in[kBias], sc.wpT, sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, nullptr, nullptr,
+                             nullptr, sc.tab_part, S, B, H, W, C, inner, d, hg_bwd, top, top, cross, scale,
+                             windows != 0, 0, sc.keep, sites.site[swin::kSiteAttn].scale};
+  const dim3 k3_grid(blocks[1], S, groups);
+  err = dropping ? launch_grid(k3bwd::k3_bwd_kernel<DP, false, true>, k3_grid, smem(4), k3, st)
+                 : launch_grid(k3bwd::k3_bwd_kernel<DP, false>, k3_grid, smem(4), k3, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const GlnArgs gl = {in[kX], sc.stats1, in[kLn1g], sc.gy, sc.gq, sc.gk, sc.gv, sc.wqkvT, out[0], sc.ln1_part,
                       S, M, C, inner};
@@ -475,19 +548,22 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, int S,
   else err = launch_grid(gln_ln1_kernel<TX, true, false>, gl_grid, smem(5), gl, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const Tail t = {sc.gy, sc.lnx, sc.av, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part, sc.ln2_part,
-                  sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, groups * blocks[1], blocks[0], blocks[2]};
+  // wp's gradient reads g_proj and w2's g_m (and the dropped hidden) in the dropout form
+  const Tail t = {dropping ? sc.gproj : sc.gy, sc.lnx, sc.av, sc.lny, sc.h, sc.gpre, sc.gq, sc.gk, sc.gv, sc.tab_part,
+                  sc.ln2_part, sc.ln1_part, sc.wg_part, sc.chunk_rows, sc.chunks, groups * blocks[1], blocks[0],
+                  blocks[2], sc.gm};
   return launch_tail<TX>(in, out, t, S, M, C, inner, hidden, kv, st);
 }
 
 template <typename TX>
-int split_pitch_launch(int dp, const float* const* in, float* const* out, float* ws, int S, int B, int H, int W,
-                       int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd, const int* blocks,
-                       int shift, int cross, int windows, float scale, cudaStream_t st) {
+int split_pitch_launch(int dp, const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop,
+                       int S, int B, int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd,
+                       int hg_bwd, const int* blocks, int shift, int cross, int windows, float scale,
+                       cudaStream_t st) {
   switch (dp) {
-#define SWIN_SPLIT_CASE(P)                                                                                    \
-  case P:                                                                                                     \
-    return block_bwd_split<P, TX>(in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd, blocks, \
+#define SWIN_SPLIT_CASE(P)                                                                                         \
+  case P:                                                                                                          \
+    return block_bwd_split<P, TX>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd, blocks, \
                                   shift, cross, windows, scale, st);
     SWIN_SPLIT_CASE(12)
     SWIN_SPLIT_CASE(24)
@@ -506,49 +582,52 @@ extern "C" {
 // recomputed attention, 1 its projection rows, 2 its fc1, 3 the MLP backward, 4 K3's backward
 // block, 5 the g_ln product with the LN1 backward), or 0 where the split route does not take
 // the dimensions (hc: hidden columns per MLP step; hg_fwd, hg_bwd: heads a block of the
-// recomputed attention and of K3's backward block).
+// recomputed attention and of K3's backward block; drop: the dropout form).
 size_t swin_block_bwd_split_smem(int kind, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
-                                 int cross) {
+                                 int cross, int drop) {
   if (kind < 0 || kind >= kSplitKinds ||
-      !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0))
+      !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0, drop != 0))
     return 0;
-  return static_cast<size_t>(split_smem(kind, C, heads * d, d, hidden, hc, hg_fwd, hg_bwd, cross != 0));
+  return static_cast<size_t>(split_smem(kind, C, heads * d, d, hidden, hc, hg_fwd, hg_bwd, cross != 0, drop != 0));
 }
 
 // Floats of workspace one split-route call needs; mlp_blocks: blocks per stream of the MLP
 // backward; k3_blocks: per (stream, group of hg_bwd heads) of K3's block; gln_blocks: per stream
-// of the g_ln product.
+// of the g_ln product; drop: the dropout form.
 size_t swin_block_bwd_split_workspace(int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg_bwd,
-                                      int mlp_blocks, int k3_blocks, int gln_blocks) {
+                                      int mlp_blocks, int k3_blocks, int gln_blocks, int drop) {
   const int blocks[3] = {mlp_blocks, k3_blocks, gln_blocks};
   swin::Arena ar{nullptr};
-  carve_split(ar, S, B * H * W, C, heads * d, hidden, heads / hg_bwd, blocks);
+  carve_split(ar, S, B * H * W, C, heads, heads * d, hidden, heads / hg_bwd, blocks, B * (H / 7) * (W / 7),
+              drop != 0);
   return ar.used;
 }
 
-// The block's backward without dropout on the split route (eleven launches; the header of the
-// split route above). Arguments as swin_block_bwd's, with hg_fwd and hg_bwd the heads a block
-// of the recomputed attention and of K3's backward block, mlp_blocks, k3_blocks and gln_blocks
-// the blocks per stream of the MLP backward, per (stream, group of heads) of K3's block and per
-// stream of the g_ln product, and ws at least swin_block_bwd_split_workspace(...) floats.
-// Returns cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions
-// this route does not take or a workspace too small.
-int swin_block_bwd_split(const float* const* in, float* const* out, float* ws, size_t ws_floats, int S, int B,
-                         int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
-                         int mlp_blocks, int k3_blocks, int gln_blocks, int shift, int cross, int windows,
-                         int bf16_io, float scale, void* stream) {
+// The block's backward on the split route (eleven launches, with or without dropout; the header
+// of the split route above). Arguments as swin_block_bwd's, `drop` included, with hg_fwd and
+// hg_bwd the heads a block of the recomputed attention and of K3's backward block, mlp_blocks,
+// k3_blocks and gln_blocks the blocks per stream of the MLP backward, per (stream, group of
+// heads) of K3's block and per stream of the g_ln product, and ws at least
+// swin_block_bwd_split_workspace(..., drop != nullptr) floats. Returns cudaGetLastError() after
+// the launches (0 = ok), cudaErrorInvalidValue on dimensions this route does not take or a
+// workspace too small.
+int swin_block_bwd_split(const float* const* in, float* const* out, float* ws, size_t ws_floats,
+                         const swin::DropArgs* drop, int S, int B, int H, int W, int C, int heads, int d, int hidden,
+                         int hc, int hg_fwd, int hg_bwd, int mlp_blocks, int k3_blocks, int gln_blocks, int shift,
+                         int cross, int windows, int bf16_io, float scale, void* stream) {
   const int blocks[3] = {mlp_blocks, k3_blocks, gln_blocks};
+  const bool dropping = drop != nullptr;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || mlp_blocks < 1 || k3_blocks < 1 ||
-      gln_blocks < 1 || !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0) ||
+      gln_blocks < 1 || !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0, dropping) ||
       ws_floats < swin_block_bwd_split_workspace(S, B, H, W, C, heads, d, hidden, hg_bwd, mlp_blocks, k3_blocks,
-                                                 gln_blocks))
+                                                 gln_blocks, dropping))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = split_pitch(d);
-  return bf16_io ? split_pitch_launch<bf16>(dp, in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd,
-                                            blocks, shift, cross, windows, scale, st)
-                 : split_pitch_launch<float>(dp, in, out, ws, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd,
-                                             blocks, shift, cross, windows, scale, st);
+  return bf16_io ? split_pitch_launch<bf16>(dp, in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd,
+                                            hg_bwd, blocks, shift, cross, windows, scale, st)
+                 : split_pitch_launch<float>(dp, in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd,
+                                             hg_bwd, blocks, shift, cross, windows, scale, st);
 }
 
 }  // extern "C"

@@ -109,4 +109,67 @@ __device__ __forceinline__ uint32_t attn_intra(const DropSite& d, int h, int sq,
   return static_cast<uint32_t>((h * d.t_pad + sq) * d.t_pad + sk);
 }
 
+// ---- the masks of the redesigned backward (fused_block_bwd.cu, fused_block_bwd_split.cu) ----
+// A dropout call's four sites for kernels that mask every site alike: a site of rate 0 is the
+// identity (threshold 2^23 keeps every element, and it is multiplied by exactly 1).
+struct BlockDrop {
+  DropSite site[kNumSites];
+};
+
+inline BlockDrop block_drop(const DropArgs* a, int hw, int B) {
+  BlockDrop b{};
+  for (int i = 0; i < kNumSites; ++i) {
+    b.site[i] = drop_site(a, i, hw, B);
+    if (!drop_on(a, i)) {
+      b.site[i].base = 0u;
+      b.site[i].threshold = 1u << kKeepBits;
+      b.site[i].scale = 1.0f;
+    }
+  }
+  return b;
+}
+
+// x kept (times scale) or dropped (0).
+__device__ __forceinline__ float masked(bool keep, float x, float scale) { return keep ? x * scale : 0.0f; }
+
+// The keep bit of column c of a token site `cols` wide, at the token's unit hash and slot.
+__device__ __forceinline__ bool token_keep(const DropSite& d, uint32_t ph, int slot, int c, int cols) {
+  return hash_keep(ph, token_intra(d, slot, c, cols), d.threshold);
+}
+
+constexpr int kKeepT = 49;      // tokens of the 7x7 windows these kernels take
+constexpr int kKeepWords = 2;   // keep words of one (head, query row): keys 0-31, then 32-48
+constexpr int kKeepIlp = 4;     // words a warp hashes at once
+
+// The attention keep bits of one window: bit u % 32 of words[(h * 49 + t) * 2 + u / 32] keeps
+// the weight of query t and key u of head h0 + h, for hg heads; ph: the tokens' unit hashes at
+// the attention site (the query's unit keys the pair), slot: their slots. A warp per word and a
+// lane per key (__ballot_sync), over the block's warps, kKeepIlp words at a time: the hash is a
+// chain of dependent integer operations, and independent chains hide each other's latency.
+// Every thread of the block calls it.
+__device__ __forceinline__ void attention_keep_words(const DropSite& d, const uint32_t* ph, const int* slot,
+                                                     int h0, int hg, int heads, uint32_t* words) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int n = hg * kKeepT * kKeepWords;
+  for (int w0 = warp * kKeepIlp; w0 < n; w0 += warps * kKeepIlp) {
+    bool keep[kKeepIlp];
+#pragma unroll
+    for (int i = 0; i < kKeepIlp; ++i) {
+      const int w = w0 + i, ht = w / kKeepWords, u = (w % kKeepWords) * 32 + lane;
+      const int h = ht / kKeepT, t = ht - h * kKeepT;
+      // hashed unconditionally (slot has 64 entries), so that the chains carry no branch
+      const bool k = hash_keep(ph[t], attn_intra(d, h0 + h, slot[t], slot[u], heads), d.threshold);
+      keep[i] = k && w < n && u < kKeepT;
+    }
+#pragma unroll
+    for (int i = 0; i < kKeepIlp; ++i) {
+      const unsigned bits = __ballot_sync(0xffffffffu, keep[i]);
+      if (lane == 0 && w0 + i < n) words[w0 + i] = bits;
+    }
+  }
+}
+
+// Key u's bit of a (head, query row)'s keep words.
+__device__ __forceinline__ bool word_keep(const uint32_t* w, int u) { return (w[u >> 5] >> (u & 31)) & 1u; }
+
 }  // namespace swin

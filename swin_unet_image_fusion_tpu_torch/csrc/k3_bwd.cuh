@@ -4,7 +4,9 @@
 // of windows, stream and group of heads recomputes q/k/v, g_o and AV and runs window_bwd.cuh's
 // core backward), its shared-memory layout and arguments, and the split route's g_x kernel
 // with its layout and column groups (gx_width, which fused_block_bwd.cu's split route uses
-// for its own products of C columns).
+// for its own products of C columns). The block's kDrop form (k3_bwd_kernel<DP, false, true>)
+// takes the attention's keep words that the recompute wrote: the split route's dropout form
+// runs it with the block's own keying; K3's dropout backward still runs window_attention.cu.
 // window_attention_bwd.cu's header says what bounds them and why the design is so.
 
 #pragma once
@@ -30,10 +32,12 @@ __host__ __device__ constexpr int min_blocks(int dp) { return dp >= 24 ? 1 : 2; 
 // with the wrap mask as -inf; the row, region and token tables, the q/k/v column offsets and
 // biases.
 struct BwdLayout {
-  int ring_b, q, k, v, go, rd, bias, tabs, total;
+  int ring_b, q, k, v, go, rd, bias, tabs, keep, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, int inner, int hg, int d, int dp) {
+// drop: the dropout form's keep words of the group's heads after the tables ([hg][49][2]).
+__host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, int inner, int hg, int d, int dp,
+                                                bool drop = false) {
   BwdLayout L{};
   const int n = hg * d;
   const int qkv = align16(hg * kT * dp * 4);
@@ -51,6 +55,8 @@ __host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, i
   off += align16(kT * kT * 4);
   L.tabs = off;
   off += align16((3 * kRowsB + 2 * kColTable) * 4);
+  L.keep = off;
+  if (drop) off += align16(hg * kT * swin::kKeepWords * 4);
   L.total = off;
   return L;
 }
@@ -68,6 +74,10 @@ struct BwdArgs {
   float scale;
   int windows;  // the token layout that window_rows reads: 0, the image
   int bf16;     // x, g and g_x bf16 (else fp32)
+  // kDrop: the keep words of every (image, window, head), (S*B, windows, heads, 49, 2), as the
+  // recomputed forward wrote them, and the attention site's scale
+  const uint32_t* keep;
+  float drop_scale;
 };
 
 // Element i of x's type (fp32, or bf16 rounded once) from an fp32 value.
@@ -76,12 +86,16 @@ __device__ __forceinline__ void put_act(void* p, size_t i, float v, int is_bf16)
   else static_cast<float*>(p)[i] = v;
 }
 
-// One block per (group of windows, stream, group of hg heads): see the header.
-template <int DP, bool kFused>
+// One block per (group of windows, stream, group of hg heads): see the header. kDrop (the split
+// route of K1's and K4's dropout backward, on g = drop(g_y) at the proj site): the window's keep
+// words of the group's heads from a.keep; AV recomputed from the dropped weights (wp's gradient
+// reads it) and the core's backward with g_P masked and g_v from the dropped P.
+template <int DP, bool kFused, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const BwdArgs a) {
+  static_assert(!(kDrop && kFused), "the dropout form is the split block");
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
-  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP);
+  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP, kDrop);
   const int s = blockIdx.y, grp = blockIdx.z, c0 = grp * n;
   const int kvs = a.cross ? a.S - 1 - s : s;
   const int nwin = (a.H / 7) * (a.W / 7), hw = a.H * a.W;
@@ -129,6 +143,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
     __syncthreads();
     for (int e = threadIdx.x; e < kT * kT; e += kThreads)
       bias_s[e] = region[e / kT] == region[e % kT] ? a.bias[s * kT * kT + e] : -__int_as_float(0x7f800000);
+    uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.keep);
+    if constexpr (kDrop) {
+      const int words = hg * kT * swin::kKeepWords;
+      const uint32_t* keep = a.keep + ((img * nwin + win) * (inner / d) + grp * hg) * kT * swin::kKeepWords;
+      for (int i = threadIdx.x; i < words; i += kThreads) keep_s[i] = keep[i];
+    }
     {  // q (scaled), k, v of the group's heads
       Gemm gm{};
       gm.abase[0] = x + img * map * elem;
@@ -171,8 +191,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
     }
     __syncthreads();
     float* av = a.av + hrow * inner + c0;
-    attention_core<DP, false>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
-                              [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; });
+    attention_core<DP, false, kDrop>(
+        q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
+        [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; }, keep_s, a.drop_scale);
     if constexpr (kFused) {
       core_bwd<DP>(
           q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab, [&](int t, int col, float v) { a_at(u, t, col) = v; },
@@ -210,13 +231,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
       float* gq = a.gq + hrow * inner + c0;
       float* gk = a.gk + hrow * inner + c0;
       float* gv = a.gv + hrow * inner + c0;
-      core_bwd<DP>(
+      core_bwd<DP, kDrop>(
           q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
           [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
           [&](int t, int col, float gkv, float gvv) {
             gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
             gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
-          });
+          },
+          keep_s, a.drop_scale);
     }
   }
 

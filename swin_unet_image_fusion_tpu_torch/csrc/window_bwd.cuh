@@ -254,11 +254,14 @@ constexpr int kQuarter = 13;  // keys per lane of a query row in the rows pass (
 // every head in turn. q/k/v/g_o: [heads][49][DP] fp32 (q scaled, pads 0); bias: the
 // relative-position bias of the window, -inf between wrap regions. Writes scale * g_S k for
 // (t, head h, dim j) through gq(t, h * d + j, value), and (1 / sum, dot) of every (h, t) to
-// rd; adds g_S to tab, the lane's bias-gradient sums of entries (t, 13 qd + uu).
-template <int DP, typename GqOut>
+// rd; adds g_S to tab, the lane's bias-gradient sums of entries (t, 13 qd + uu). kDrop: g_P =
+// g_o v^T is masked by the keep words (keep_w, [heads][49][2], hash_dropout.cuh) and
+// drop_scale before dot and g_S, whose P stays the undropped one.
+template <int DP, bool kDrop = false, typename GqOut>
 __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                               const float* bias_s, int heads, int d, float scale, float2* rd,
-                              float (&tab)[kQuarter], GqOut gq_out) {
+                              float (&tab)[kQuarter], GqOut gq_out, const uint32_t* keep_w = nullptr,
+                              float drop_scale = 1.0f) {
   const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
   const bool act = t < kT;
   const int tq = act ? t : kT - 1;
@@ -276,6 +279,7 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
     const float* vh = v_s + h * kT * DP;
     float e[kQuarter], gp[kQuarter];
     float se = 0.0f, sg = 0.0f;
+    const uint32_t* kw = kDrop ? keep_w + (h * kT + tq) * swin::kKeepWords : nullptr;
 #pragma unroll
     for (int uu = 0; uu < kQuarter; ++uu) {
       const int u = u0 + uu;
@@ -283,6 +287,7 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
       if (u < kT) {
         e[uu] = expf(fminf(dot_row<DP>(qr, kh + u * DP) + bias_s[tq * kT + u], kSoftmaxClamp));
         gp[uu] = dot_row<DP>(gor, vh + u * DP);
+        if constexpr (kDrop) gp[uu] = swin::masked(swin::word_keep(kw, u), gp[uu], drop_scale);
         se += e[uu];
         sg = fmaf(e[uu], gp[uu], sg);
       }
@@ -320,10 +325,12 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
 }
 
 // The columns pass: a lane per (head, key u), the 49 query rows in order. Writes g_k and
-// g_v of (u, head h, dim j) through gkv(u, h * d + j, g_k, g_v).
-template <int DP, typename GkvOut>
+// g_v of (u, head h, dim j) through gkv(u, h * d + j, g_k, g_v). kDrop: g_P masked as in the
+// rows pass, and g_v = drop(P)^T g_o.
+template <int DP, bool kDrop = false, typename GkvOut>
 __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
-                              const float* bias_s, int heads, int d, const float2* rd, GkvOut gkv_out) {
+                              const float* bias_s, int heads, int d, const float2* rd, GkvOut gkv_out,
+                              const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
   for (int item = threadIdx.x; item < heads * kT; item += kThreads) {
     const int h = item / kT, u = item - h * kT;
     float kr[DP], vr[DP], gk[DP], gv[DP];
@@ -337,8 +344,15 @@ __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v
     for (int t = 0; t < kT; ++t) {
       const float e = expf(fminf(dot_row<DP>(kr, qh + t * DP) + bias_s[t * kT + u], kSoftmaxClamp));
       const float2 rdt = rd[h * kT + t];
-      const float p = e * rdt.x;
-      const float gs = p * (dot_row<DP>(vr, goh + t * DP) - rdt.y);
+      float p = e * rdt.x;
+      float gs;
+      if constexpr (kDrop) {
+        const bool keep = swin::word_keep(keep_w + (h * kT + t) * swin::kKeepWords, u);
+        gs = p * (swin::masked(keep, dot_row<DP>(vr, goh + t * DP), drop_scale) - rdt.y);
+        p = swin::masked(keep, p, drop_scale);  // g_v's weight: the dropped P
+      } else {
+        gs = p * (dot_row<DP>(vr, goh + t * DP) - rdt.y);
+      }
 #pragma unroll
       for (int j = 0; j < DP; j += 4) {
         const float4 qv = *reinterpret_cast<const float4*>(qh + t * DP + j);
@@ -361,13 +375,14 @@ __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v
 
 // Both passes of the core's backward for the `heads` heads of q/k/v/g_o (a window's heads, or a
 // group of them), with the barrier between them.
-template <int DP, typename GqOut, typename GkvOut>
+template <int DP, bool kDrop = false, typename GqOut, typename GkvOut>
 __device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                                          const float* bias_s, int heads, int d, float scale, float2* rd,
-                                         float (&tab)[kQuarter], GqOut gq_out, GkvOut gkv_out) {
-  core_bwd_rows<DP>(q_s, k_s, v_s, go_s, bias_s, heads, d, scale, rd, tab, gq_out);
+                                         float (&tab)[kQuarter], GqOut gq_out, GkvOut gkv_out,
+                                         const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
+  core_bwd_rows<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, scale, rd, tab, gq_out, keep_w, drop_scale);
   __syncthreads();
-  core_bwd_cols<DP>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out);
+  core_bwd_cols<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out, keep_w, drop_scale);
 }
 
 // ---- weight gradients: partial[chunk] (Ka + 1, Nb) = [A | 1]^T B over a chunk of rows -----

@@ -17,6 +17,8 @@
 
 #include <type_traits>
 
+#include "hash_dropout.cuh"
+
 namespace wfwd {
 
 using bf16 = __nv_bfloat16;
@@ -503,10 +505,14 @@ __device__ void store_qkv_mma(const float (&acc)[kMaxNTilesB][4][4], int nb, int
 // (which carries the region mask), exp of the clamped score, its sum,
 // and AV: fp32 FMAs folding 1/(sum + 1e-30) in after the sum; bf16 p = rnd(e * r) into
 // the warp's P rows and AV on the tensor cores. store(t, col, value): AV of token t, column
-// col of the block's heads (h * d + j).
-template <int DP, bool kBf16, typename Store>
+// col of the block's heads (h * d + j). kDrop (fp32 only, the backward's recompute): AV of the
+// dropped weights, a key's term kept or not by bit u of the row's keep words (keep_w, [hg][49][2],
+// hash_dropout.cuh) and the kept sum times drop_scale after 1/(sum + 1e-30).
+template <int DP, bool kBf16, bool kDrop = false, typename Store>
 __device__ void attention_core(const float* q_s, const float* k_s, const unsigned char* v_s, bf16* p_s,
-                               const float* bias_s, int hg, int d, Store store) {
+                               const float* bias_s, int hg, int d, Store store, const uint32_t* keep_w = nullptr,
+                               float drop_scale = 1.0f) {
+  static_assert(!(kDrop && kBf16), "the dropout form of the core is fp32");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int dp8 = round_up(d, 8);
   for (int item = warp; item < 2 * hg; item += kWarps) {
@@ -601,17 +607,24 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
 #pragma unroll
       for (int j = 0; j < DP; ++j) acc[j] = 0.0f;
       float sum = 0.0f;
+      uint32_t w0 = 0u, w1 = 0u;  // kDrop: the row's keep words
+      if constexpr (kDrop) {
+        w0 = keep_w[(h * kT + tq) * swin::kKeepWords];
+        w1 = keep_w[(h * kT + tq) * swin::kKeepWords + 1];
+      }
 #pragma unroll 7
       for (int u = 0; u < kT; ++u) {
         const float e = score(u);
         sum += e;
+        float ev = e;
+        if constexpr (kDrop) ev = ((u < 32 ? w0 : w1) >> (u & 31)) & 1u ? e : 0.0f;
 #pragma unroll
         for (int j = 0; j < DP; j += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(vh + u * DP + j);
-          acc[j] = fmaf(e, vv.x, acc[j]);
-          acc[j + 1] = fmaf(e, vv.y, acc[j + 1]);
-          acc[j + 2] = fmaf(e, vv.z, acc[j + 2]);
-          acc[j + 3] = fmaf(e, vv.w, acc[j + 3]);
+          acc[j] = fmaf(ev, vv.x, acc[j]);
+          acc[j + 1] = fmaf(ev, vv.y, acc[j + 1]);
+          acc[j + 2] = fmaf(ev, vv.z, acc[j + 2]);
+          acc[j + 3] = fmaf(ev, vv.w, acc[j + 3]);
         }
       }
       const float r = 1.0f / (sum + 1e-30f);
@@ -619,7 +632,8 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
 #pragma unroll
         for (int j = 0; j < DP; ++j) {
           if (j >= d) break;
-          store(t, h * d + j, acc[j] * r);
+          if constexpr (kDrop) store(t, h * d + j, acc[j] * r * drop_scale);
+          else store(t, h * d + j, acc[j] * r);
         }
       }
     }
@@ -808,7 +822,17 @@ struct Args {
   int S, B, H, W, C, inner, heads, d, hg, top, left, cross;
   float scale;
   int windows;  // the token layout: 0 image (K3's and K4's), 1 windows (K1's)
+  // kDrop (the dropout backward's recompute): the attention site, and where the keep words of
+  // every (image, window, head) go, (S*B, windows, heads, 49, 2)
+  swin::DropSite drop;
+  uint32_t* keep;
 };
+
+// Bytes a kDrop attention block adds after attention_layout's: the tokens' unit hashes and
+// slots, and the keep words of its hg heads.
+__host__ __device__ inline int drop_attention_bytes(int hg) {
+  return align16(2 * kRowsB * 4) + align16(hg * kT * swin::kKeepWords * 4);
+}
 
 // One block per (window, stream * batch, group of hg heads): q/k/v of the group's heads from
 // x and the weights streamed through rings, the bias with the region mask folded in,
@@ -816,8 +840,12 @@ struct Args {
 // kFused (every head in the block): wp arrives by cp.async while the core runs, and the
 // block projects AV from shared memory and stores the output: the whole forward in one
 // launch.
-template <int DP, bool kBf16, bool kFused>
+// kDrop (split, fp32: the dropout backward's recompute): the block hashes its tokens and the keep
+// words of its heads into shared memory after the layout's end, writes the words to a.keep for
+// the backward's blocks and runs the core on the dropped weights.
+template <int DP, bool kBf16, bool kFused, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attention_kernel(const Args a) {
+  static_assert(!(kDrop && (kBf16 || kFused)), "the dropout form is the split fp32 block");
   extern __shared__ __align__(16) unsigned char smem[];
   using T = Act<kBf16>;
   const Layout L = attention_layout(kBf16, kFused, a.cross != 0, a.C, a.inner, a.hg, a.d, DP);
@@ -854,6 +882,14 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
   for (int i = L.q / 16 + tid; i < L.zero_end / 16; i += kThreads)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.total + align16(2 * kRowsB * 4));
+  if constexpr (kDrop) {  // the keep words of the group's heads (the rows are in place)
+    uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.total);
+    int* slot = reinterpret_cast<int*>(ph + kRowsB);
+    for (int t = tid; t < kT; t += kThreads) ph[t] = swin::token_hash(a.drop, nb, rows[t] / a.C, &slot[t]);
+    __syncthreads();
+    swin::attention_keep_words(a.drop, ph, slot, grp * a.hg, a.hg, a.heads, keep_s);
+  }
 
   const T* x = static_cast<const T*>(a.x);
   Gemm g{};
@@ -916,6 +952,14 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
       const int tile = f32_resident(acc, av, wp_s, a.C, ki / kKc);
       store_proj_f32(acc, tile, rows, bp_s, out);
     }
+  } else if constexpr (kDrop) {
+    const int words = a.hg * kT * swin::kKeepWords;
+    uint32_t* keep = a.keep + ((static_cast<size_t>(nb) * nwin + win) * a.heads + grp * a.hg) * kT * swin::kKeepWords;
+    for (int i = tid; i < words; i += kThreads) keep[i] = keep_s[i];
+    float* av = static_cast<float*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
+    attention_core<DP, false, true>(
+        q_s, k_s, smem + L.v, nullptr, bias_s, a.hg, a.d,
+        [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = v; }, keep_s, a.drop.scale);
   } else {
     T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
     attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,

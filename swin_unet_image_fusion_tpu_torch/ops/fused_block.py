@@ -42,18 +42,19 @@ before any launch.
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_FusedBlockFunction``: its backward (K1 bwd and K4 bwd) recomputes the block
 from x and the weights, as the JAX custom VJPs do, and returns g_x and every weight's
-gradient. Without dropout :func:`block_bwd_plan` routes it: where a window's blocks fit in
-shared memory (C <= 48 in the default model) the fused route of ``csrc/fused_block_bwd.cu``
-(seven launches: the transposed weights, the recomputed forward a block per group of windows,
-the MLP's backward over 49-token tiles, the attention's backward over windows, the LN1
-backward, the weight gradients, one reduction); at C = 96 and 192 (stages 2-3) the split route
-of ``csrc/fused_block_bwd_split.cu`` (eleven launches: the transposed weights, the forward
-recomputed on the forward's split route, the MLP's backward over 49-token tiles, K3's split
-backward block on the stored LN1(x) and g_y, the g_ln product with the LN1 backward, the weight
-gradients, one reduction); elsewhere
-(C = 384), and with dropout, ``swin_fused_block_bwd`` of ``csrc/fused_block.cu`` (twenty
-launches, the forward recomputed with its five).
-``_launch_bwd_five`` keeps the latter callable without dropout, for timing in turns.
+gradient. :func:`block_bwd_plan` routes it, with and without dropout alike: where a window's
+blocks fit in shared memory (C <= 48 in the default model) the fused route of
+``csrc/fused_block_bwd.cu`` (seven launches: the transposed weights, the recomputed forward a
+block per group of windows, the MLP's backward over 49-token tiles, the attention's backward
+over windows, the LN1 backward, the weight gradients, one reduction); at C = 96 and 192
+(stages 2-3) the split route of ``csrc/fused_block_bwd_split.cu`` (eleven launches: the
+transposed weights, the forward recomputed on the forward's split route, the MLP's backward
+over 49-token tiles, K3's split backward block on the stored LN1(x) and g_y, the g_ln product
+with the LN1 backward, the weight gradients, one reduction); elsewhere (C = 384) the "five"
+route, ``swin_fused_block_bwd`` of ``csrc/fused_block.cu`` (twenty launches, the forward
+recomputed with its five). A dropout call runs each route's dropout form: the same launches,
+the masks in their epilogues and operand loads (below). ``_launch_bwd_five`` keeps the twenty
+launches callable at any shape, for timing in turns.
 ``fused_block_bwd_plain`` is the plain backward (autograd of the plain version); it differs
 from the kernels only where a score exceeds the softmax clamp of 80, whose derivative the
 kernels, like the TPU's, do not take. For a bf16 x, K1 and K4 alike, both compute what the
@@ -73,7 +74,14 @@ for the windows layout. On a card a dropout call launches the dropout form of th
 kernels (fp32 or bf16; the masks do not depend on the dtype), counted in
 ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES`` and
 ``BF16_DROP_BWD_LAUNCHES`` in bf16); without dropout a bf16 call counts in
-``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``.
+``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``. The forward's dropout form is the five launches
+of ``csrc/fused_block.cu``. The backward's dropout form of the fused and split routes recomputes
+the forward's attention and proj masks (the attention's keep bits once per window and head, two
+32-bit words per query row, stored for the attention's backward), keeps the ELU hidden
+undropped for ELU', and backpropagates g_m = drop(g) into the MLP (g_pre = drop(g_m w2^T)
+ELU'(h), the hidden dropped in place for w2's gradient) and g_proj = drop(g_y) into the
+attention (whose core masks g_P and weights g_v by the dropped P), while the residual paths
+take the undropped g and g_y; a site of rate 0 is the identity.
 """
 
 from __future__ import annotations
@@ -331,11 +339,12 @@ def _fwd_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_bwd")
-    lib.swin_block_bwd.argtypes = [_P] * 3 + [ctypes.c_size_t] + [_I] * 16 + [ctypes.c_float, _P]
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_block_bwd.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 16 + [ctypes.c_float, _P]
     lib.swin_block_bwd.restype = _I
-    lib.swin_block_bwd_workspace.argtypes = [_I] * 12
+    lib.swin_block_bwd_workspace.argtypes = [_I] * 13
     lib.swin_block_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_block_bwd_smem.argtypes = [_I] * 7
+    lib.swin_block_bwd_smem.argtypes = [_I] * 8
     lib.swin_block_bwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -343,11 +352,12 @@ def _bwd_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _split_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_bwd_split")
-    lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t] + [_I] * 18 + [ctypes.c_float, _P]
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 18 + [ctypes.c_float, _P]
     lib.swin_block_bwd_split.restype = _I
-    lib.swin_block_bwd_split_workspace.argtypes = [_I] * 12
+    lib.swin_block_bwd_split_workspace.argtypes = [_I] * 13
     lib.swin_block_bwd_split_workspace.restype = ctypes.c_size_t
-    lib.swin_block_bwd_split_smem.argtypes = [_I] * 9
+    lib.swin_block_bwd_split_smem.argtypes = [_I] * 10
     lib.swin_block_bwd_split_smem.restype = ctypes.c_size_t
     return lib
 
@@ -491,9 +501,22 @@ SPLIT_PITCHES = (12, 24)  # the split route's q/k row pitches: d = 12 and 24, st
 BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
 _BWD_RING = 2  # weight-ring slots of the block kernels
 _LN1_ROWS = 128
+_KEEP_WORDS = 2  # the dropout form's attention keep words per (head, query row): keys 0-31, 32-48
 
 
-def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, cross: bool) -> int:
+def keep_words_bytes(heads: int) -> int:
+    """Shared memory of a window's attention keep words for ``heads`` heads (``csrc/
+    hash_dropout.cuh::attention_keep_words``)."""
+    return _align16(heads * _T * _KEEP_WORDS * 4)
+
+
+def keep_words_floats(s: int, b: int, h: int, w: int, heads: int) -> int:
+    """The dropout form's keep words of every (image, window, head) of a call, in 4-byte units."""
+    return s * b * (h // 7) * (w // 7) * heads * _T * _KEEP_WORDS
+
+
+def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, cross: bool,
+             drop: bool = False) -> int:
     """Shared-memory bytes of one block of a kernel of the fused route (``bwd_layout`` in the
     source). forward: the weight ring (2 slots x 16 channels x the widest product's columns),
     x/y and under cross the kv rows [49][C], LN1(x) (then LN2(y)) and AV resident [C][60],
@@ -502,7 +525,10 @@ def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, c
     statistics. mlp: the ring, y and a row buffer (g_lny, g_o) [49][C], g (then g_y) resident,
     the MLP step's g_pre, the LN2 statistics and gradient sums. attention: the ring of the g_ln
     products, q/k/v/g_o, g_q | g_k | g_v resident, the core's row sums, a row buffer, the bias
-    table and the row tables."""
+    table and the row tables. ``drop`` (the dropout form) adds after the tables: forward, the
+    tokens' unit hashes at two sites and their slots, then every head's keep words; mlp, the
+    unit hashes at three sites and the slots; attention, the keep words unless they fit over
+    the row buffer, which is dead during the core (2 heads <= C)."""
     qkv = _align16(heads * _T * pitch * 4)
     rows_c = _align16(_T * c * 4)
     bias = _align16(_T * _T * 4)
@@ -512,18 +538,21 @@ def bwd_smem(kernel: str, c: int, inner: int, heads: int, pitch: int, hc: int, c
         total += rows_c * (2 if cross else 1) + _align16(operand_bytes(False, c))
         total += _align16(operand_bytes(False, inner))
         total += max(3 * qkv, step, _align16(operand_bytes(False, c)) if cross else 0)
-        return total + bias + _align16((3 * 64 + 2 * _COL_TABLE) * 4 + 3 * 64 * 8)
+        total += bias + _align16((3 * 64 + 2 * _COL_TABLE) * 4 + 3 * 64 * 8)
+        return total + (_align16(3 * 64 * 4) + keep_words_bytes(heads) if drop else 0)
     if kernel == "mlp":
         total = _align16(_b_bytes(False, max(inner, c, _round_up(hc, 4)), _BWD_RING)) + 2 * rows_c
-        return total + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+        total += _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+        return total + (_align16(4 * 64 * 4) if drop else 0)
     if kernel == "attention":
+        words = keep_words_bytes(heads) if drop and keep_words_bytes(heads) > rows_c else 0
         return (_align16(_b_bytes(False, c, _BWD_RING)) + 4 * qkv + _align16(operand_bytes(False, 3 * inner))
-                + _align16(heads * _T * 8) + rows_c + bias + _align16(3 * 64 * 4))
+                + _align16(heads * _T * 8) + rows_c + bias + _align16(3 * 64 * 4) + words)
     raise ValueError(f"unknown kernel {kernel!r}; expected one of {BWD_KERNELS}")
 
 
 def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg_bwd: int,
-               cross: bool) -> int:
+               cross: bool, drop: bool = False) -> int:
     """Shared-memory bytes of one block of a kernel of the split route (``split_smem`` in the
     source): the recompute's attention, projection rows and fc1 as the forward's split route
     lays them out in fp32 (:func:`block_smem`); the MLP backward (``split_mlp_layout``) the
@@ -532,16 +561,20 @@ def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg
     step's g_pre resident, the LN2 statistics and gradient sums; K3's backward block as
     ``window_attention.bwd_smem`` lays it out; the g_ln product (``gln_layout``) its A ring (2 x
     16 x 60 floats) and weight ring (2 x 16 x the column group), LN1(x)'s gradient [49][C] (two
-    sides under cross), the row table, LN1 statistics and gradient sums."""
+    sides under cross), the row table, LN1 statistics and gradient sums. ``drop`` (the dropout
+    form) adds the recomputed attention's token hashes and slots and its heads' keep words, the
+    MLP backward's unit hashes at three sites and slots, and K3's block's keep words."""
     pitch = next(p for p in FWD_PITCHES if d <= p)
     if kernel in ("attention", "rows", "fc1"):
-        return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False))
+        extra = _align16(2 * 64 * 4) + keep_words_bytes(hg_fwd) if drop and kernel == "attention" else 0
+        return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False)) + extra
     if kernel == "mlp":
         ring = _align16(_b_bytes(False, max(twa.gx_width(c), _round_up(hc, 4)), _BWD_RING))
         step = _align16(operand_bytes(False, _round_up(hc, 4)))
-        return ring + _align16(_T * c * 4) + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+        total = ring + _align16(_T * c * 4) + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
+        return total + (_align16(4 * 64 * 4) if drop else 0)
     if kernel == "attention_bwd":
-        return twa.bwd_smem(False, cross, c, inner, hg_bwd, d, pitch)
+        return twa.bwd_smem(False, cross, c, inner, hg_bwd, d, pitch) + (keep_words_bytes(hg_bwd) if drop else 0)
     if kernel == "gln":
         ring = _ring_a_bytes(False, 1, _BWD_RING) + _b_bytes(False, twa.gx_width(c), _BWD_RING)
         return _align16(ring) + (2 if cross else 1) * _align16(_T * c * 4) + _align16(64 * 4 + 64 * 8 + 2 * c * 4)
@@ -597,9 +630,10 @@ class BlockBwdPlan:
 
 @functools.lru_cache(maxsize=None)
 def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int],
-                   cross: bool) -> BlockBwdPlan:
-    """The launch plan of the backward without dropout (K1 and K4, either layout, fp32 and
-    bf16 alike), or ValueError where no backward takes the shape. The fused route where one
+                   cross: bool, drop: bool = False) -> BlockBwdPlan:
+    """The launch plan of the backward (K1 and K4, either layout, fp32 and bf16 alike; ``drop``:
+    the dropout form, whose blocks add the masks' hashes and keep words to their shared
+    memory), or ValueError where no backward takes the shape. The fused route where one
     window's blocks fit a block's shared memory: 7x7 windows, d <= 8, C and heads*d
     multiples of 8, 3 heads*d <= 144 and C <= 144 (one product's columns), the hidden a
     multiple of 4, stepped through in chunks of at most 144 columns. Else the split route
@@ -614,11 +648,11 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
     if (tuple(window) == FWD_WINDOW and pitch is not None and pitch <= BWD_PITCH_MAX and c % 8 == 0
             and inner % 8 == 0 and hidden % 4 == 0 and 3 * inner <= cols and c <= cols):
         hc = min(hidden, cols)
-        smem = tuple((kernel, bwd_smem(kernel, c, inner, heads, pitch, hc, cross)) for kernel in BWD_KERNELS)
+        smem = tuple((kernel, bwd_smem(kernel, c, inner, heads, pitch, hc, cross, drop)) for kernel in BWD_KERNELS)
         if max(b for _, b in smem) <= SMEM_LIMIT_BYTES:
             return BlockBwdPlan("fused", 7, pitch, hc, smem,
                                 tuple(2 if b <= SMEM_TWO_PER_SM else 1 for _, b in smem))
-    split = _split_plan(c, heads, d, hidden, tuple(window), cross)
+    split = _split_plan(c, heads, d, hidden, tuple(window), cross, drop)
     if split is not None:
         return split
     if c > MAX_CHANNELS:
@@ -632,7 +666,7 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
 
 
 def _split_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int],
-                cross: bool) -> Optional[BlockBwdPlan]:
+                cross: bool, drop: bool = False) -> Optional[BlockBwdPlan]:
     """The split route's plan at a shape it takes, else None (``split_supported`` in the
     source)."""
     inner = heads * d
@@ -649,7 +683,7 @@ def _split_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int]
         return None
     hc = min(hidden, max_cols(False))
     hg = (fwd.heads_per_block, k3.heads_per_block)
-    smem = tuple((kernel, split_smem(kernel, c, inner, d, hc, *hg, cross)) for kernel in SPLIT_KERNELS)
+    smem = tuple((kernel, split_smem(kernel, c, inner, d, hc, *hg, cross, drop)) for kernel in SPLIT_KERNELS)
     wgrad = max(twa._wg_smem(ka, nb) for ka, nb in ((c, inner), (inner, c), (c, hidden), (hidden, c)))
     if max(max(b for _, b in smem), wgrad) > SMEM_LIMIT_BYTES:
         return None
@@ -659,13 +693,14 @@ def _split_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int]
 
 
 def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
-                           plan: BlockBwdPlan, blocks: Tuple[int, int, int]) -> int:
+                           plan: BlockBwdPlan, blocks: Tuple[int, int, int], drop: bool = False) -> int:
     """Floats of workspace of one split-route call (``carve_split`` in the source, every piece
     rounded up to 32 floats): the transposed weights; LN1(x) and its statistics, AV, y,
     LN2(y), the hidden, g_pre, g_y, g_q, g_k and g_v of every token; the partial sums of the
     bias table (per K3 block), LN2 (per MLP block) and LN1 (per g_ln block) and the
     weight-gradient launch's chunks (about sixteen working blocks an SM: each
-    job's own tile groups, ``wg_working_blocks`` in the source)."""
+    job's own tile groups, ``wg_working_blocks`` in the source); ``drop`` (the dropout form):
+    then g_m and g_proj of every token and the keep words of every (image, window, head)."""
     inner, m = heads * d, b * h * w
     sm = s * m
     mlp_blocks, k3_blocks, gln_blocks = blocks
@@ -676,16 +711,20 @@ def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d
     shapes = ((c, inner), (c, inner), (c, inner), (inner, c), (c, hidden), (hidden, c))
     working = s * sum(twa._wg_groups(ka, nb) for ka, nb in shapes)
     pieces.append(s * _wgrad_chunks(m, max(1, working // 2)) * sum((ka + 1) * nb for ka, nb in shapes))
+    if drop:
+        pieces += [sm * c, sm * c, keep_words_floats(s, b, h, w, heads)]
     return sum(_round_up(p, 32) for p in pieces)
 
 
 def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
-                         blocks: Tuple[int, int, int], cross: bool) -> int:
+                         blocks: Tuple[int, int, int], cross: bool, drop: bool = False) -> int:
     """Floats of workspace of one fused-route call (``carve`` in the source, every piece
     rounded up to 32 floats): the transposed weights; LN1(x) and its statistics, q, k, v,
     AV, y, g_y, g_o, LN2(y), the hidden, g_pre, g_q, g_k, g_v and g_ln (two sides under
     cross) of every token; the partial sums of the bias-table (per attention block), LN2 (per
-    MLP block) and LN1 gradients and of the weight-gradient launch's chunks."""
+    MLP block) and LN1 gradients and of the weight-gradient launch's chunks; ``drop`` (the
+    dropout form): then g_m and g_proj of every token and the keep words of every (image,
+    window, head)."""
     inner, m = heads * d, b * h * w
     sm = s * m
     _, mlp_blocks, attn_blocks = blocks
@@ -695,6 +734,8 @@ def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: 
     pieces += [s * attn_blocks * _T * _T, s * mlp_blocks * 2 * c, s * -(-m // _LN1_ROWS) * 2 * c]
     per_chunk = 3 * (c + 1) * inner + (inner + 1) * c + (c + 1) * hidden + (hidden + 1) * c
     pieces.append(s * _wgrad_chunks(m, 6 * s) * per_chunk)
+    if drop:
+        pieces += [sm * c, sm * c, keep_words_floats(s, b, h, w, heads)]
     return sum(_round_up(p, 32) for p in pieces)
 
 
@@ -804,10 +845,11 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
-    the weight gradients fp32; K1 and K4 alike) for a bf16 x. Without dropout
+    the weight gradients fp32; K1 and K4 alike) for a bf16 x, with or without dropout.
     :func:`block_bwd_plan` routes the call ("fused": ``csrc/fused_block_bwd.cu``, "split":
-    ``csrc/fused_block_bwd_split.cu``); a dropout call and the "five" route run
-    ``csrc/fused_block.cu``'s backward."""
+    ``csrc/fused_block_bwd_split.cu``, each in its dropout form for a dropout call); the
+    "five" route (C = 384) runs ``csrc/fused_block.cu``'s backward. A call whose route fails to
+    build or launch raises: no route falls back to another."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -816,10 +858,10 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     g = g.contiguous()
     bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw) is not None
-    plan = None if drop else block_bwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]))
-    if plan is not None and plan.route == "fused":
+    plan = block_bwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), drop)
+    if plan.route == "fused":
         grads = _launch_bwd_fused(g, x, weights, kw, plan)
-    elif plan is not None and plan.route == "split":
+    elif plan.route == "split":
         grads = _launch_bwd_split(g, x, weights, kw, plan)
     else:
         grads = _launch_bwd_five(g, x, weights, kw)
@@ -835,20 +877,22 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
 
 
 def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tensor, ...]:
-    """``csrc/fused_block_bwd.cu``'s seven launches: x, g and g_x in x's dtype, the weight
-    gradients fp32, the workspace (:func:`bwd_workspace_floats`) fp32."""
+    """``csrc/fused_block_bwd.cu``'s seven launches (the dropout form for a dropout call): x, g
+    and g_x in x's dtype, the weight gradients fp32, the workspace
+    (:func:`bwd_workspace_floats`) fp32."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     cross = bool(kw["cross"])
+    drop = _drop_args(x, kw)
     blocks = plan.blocks(s, b, h, w, _sm_count(x.device))
     lib = _bwd_library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
-    floats = bwd_workspace_floats(s, b, h, w, c, heads, d, hidden, blocks, cross)
+    floats = bwd_workspace_floats(s, b, h, w, c, heads, d, hidden, blocks, cross, drop is not None)
     workspace = x.new_empty(floats, dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_block_bwd(
-            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, hidden,
+            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
             plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
             int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
         )
@@ -857,20 +901,23 @@ def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
 
 
 def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tensor, ...]:
-    """``csrc/fused_block_bwd_split.cu``, eleven launches: x, g and g_x in x's dtype, the
-    weight gradients fp32, the workspace (:func:`split_workspace_floats`) fp32."""
+    """``csrc/fused_block_bwd_split.cu``, eleven launches (the dropout form for a dropout
+    call): x, g and g_x in x's dtype, the weight gradients fp32, the workspace
+    (:func:`split_workspace_floats`) fp32."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     cross = bool(kw["cross"])
+    drop = _drop_args(x, kw)
     blocks = plan.blocks(s, b, h, w, _sm_count(x.device))
     lib = _split_library()
     grads = [torch.empty_like(a) for a in (x, *weights)]
-    floats = split_workspace_floats(s, b, h, w, c, heads, d, hidden, plan, blocks)
+    floats = split_workspace_floats(s, b, h, w, c, heads, d, hidden, plan, blocks, drop is not None)
     workspace = x.new_empty(floats, dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_block_bwd_split(
-            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, hidden, plan.hidden_chunk,
+            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
+            plan.hidden_chunk,
             *plan.heads_per_block, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
             int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
         )
@@ -879,8 +926,9 @@ def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
 
 
 def _launch_bwd_five(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    """``csrc/fused_block.cu``'s backward (the dropout forms, and the five route): it
-    recomputes with the five launches and runs twenty in all. Counts nothing
+    """``csrc/fused_block.cu``'s backward (the five route, C = 384, with and without dropout;
+    callable at any shape for timing in turns): it recomputes with the five launches and runs
+    twenty in all (with dropout, its ``dropout_rows_kernel`` launches too). Counts nothing
     (:func:`_launch_bwd` does)."""
     dims = _dims(x, weights, kw)
     d = kw["dims_per_head"]
@@ -984,6 +1032,6 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
         raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
     if recorded(x, *weights):
-        block_bwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross))
+        block_bwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross), any(drop_rates))
         return _FusedBlockFunction.apply(kw, x, *weights)
     return _launch_fwd(x, weights, kw)

@@ -4,8 +4,9 @@ default model at 224² batch 20, 512² and 100x90 (the fused route of
 ``csrc/fused_block_bwd.cu`` where one window's block fits, its split route at stages 2-3, the
 five-launch backward of ``csrc/fused_block.cu`` at stage 4), the same plan for both dtypes,
 what ``_launch_bwd`` hands the kernels (a fake library that checks ctypes' argument counts),
-that dropout and stage 4 keep ``swin_fused_block_bwd`` and that shapes no backward takes raise
-before any launch. The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and
+that stage 4 keeps ``swin_fused_block_bwd`` with and without dropout while dropout at stage 0
+takes the fused route, and that shapes no backward takes raise before any launch
+(``tests/test_torch_block_bwd_drop.py`` holds the dropout form's plan at every stage). The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and
 ``chip_smoke.py``."""
 
 import contextlib
@@ -228,7 +229,8 @@ def test_fused_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype,
         mp.setattr(torch.Tensor, "new_empty", recording_new_empty)
         grads = tfb._launch_bwd(g, x, weights, _kw(3, layout))
     (args,) = fake_library.calls["swin_block_bwd"]
-    ins, outs, ws, floats = args[:4]
+    ins, outs, ws, floats, drop = args[:5]
+    assert drop is None, "no dropout arguments without dropout"
     assert list(ins)[0] == x.data_ptr() and list(ins)[-1] == g.data_ptr() and len(list(ins)) == 19
     assert list(outs) == [t.data_ptr() for t in grads]
     assert grads[0].dtype == dtype and grads[0].shape == x.shape
@@ -239,7 +241,7 @@ def test_fused_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype,
     assert floats == tfb.bwd_workspace_floats(2, 1, 14, 14, 24, 8, 3, 96, blocks, True)
     bf16 = dtype == torch.bfloat16
     # S, B, H, W, C, heads, d, hidden, hidden step, blocks of each kernel, shift, cross, windows, bf16
-    assert args[4:20] == (2, 1, 14, 14, 24, 8, 3, 96, plan.hidden_chunk, *blocks, 1, 1,
+    assert args[5:21] == (2, 1, 14, 14, 24, 8, 3, 96, plan.hidden_chunk, *blocks, 1, 1,
                           int(layout == "windows"), int(bf16))
     assert "swin_fused_block_bwd" not in fake_library.calls
     assert (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
@@ -252,22 +254,38 @@ def test_both_dtypes_hand_the_kernels_one_plan(fake_library, dtype):
         x, weights = _block_args(48, 8, 6, 192, dt)
         tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(6, cross=False))
     first, last = fake_library.calls["swin_block_bwd"]
-    assert first[3] == last[3] and first[4:19] == last[4:19]
+    assert first[3] == last[3] and first[5:20] == last[5:20]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_five_route_and_dropout_run_the_five_launch_backward(fake_library, dtype):
-    """Stage 4's shape without dropout (C = 384, d = 48), and stage 0's with dropout, run
-    ``swin_fused_block_bwd``; the dropout call counts in the dropout counter."""
-    x, weights = _block_args(384, 8, 48, 1536, dtype)
-    tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(48))
-    x, weights = _block_args(24, 8, 3, 96, dtype)
-    before = (tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES)
-    tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(3, drop_rates=(0.1, 0.0, 0.1), drop_seed=4))
-    assert len(fake_library.calls["swin_fused_block_bwd"]) == 2
-    assert "swin_block_bwd" not in fake_library.calls and "swin_block_bwd_split" not in fake_library.calls
+@pytest.mark.parametrize("case", ["stage4", "stage4-dropout", "stage0-dropout"])
+def test_five_route_and_dropout_run_the_five_launch_backward(fake_library, dtype, case):
+    """Stage 4's shape (C = 384, d = 48) runs ``swin_fused_block_bwd`` (twenty launches) with
+    and without dropout; stage 0's with dropout runs the fused route's dropout form
+    (``swin_block_bwd`` with the call's dropout arguments). A dropout call counts in its
+    dtype's dropout counter, a call without dropout in its dtype's counter."""
+    stage4 = case.startswith("stage4")
+    drop = case.endswith("dropout")
+    c, d, hidden = (384, 48, 1536) if stage4 else (24, 3, 96)
+    x, weights = _block_args(c, 8, d, hidden, dtype)
+    extra = dict(drop_rates=(0.1, 0.0, 0.1), drop_seed=4) if drop else {}
+    before = (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES)
+    tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(d, **extra))
+    if stage4:
+        (args,) = fake_library.calls["swin_fused_block_bwd"]
+        assert "swin_block_bwd" not in fake_library.calls and "swin_block_bwd_split" not in fake_library.calls
+        pointer = args[3]
+    else:
+        (args,) = fake_library.calls["swin_block_bwd"]
+        assert "swin_fused_block_bwd" not in fake_library.calls and "swin_block_bwd_split" not in fake_library.calls
+        pointer = args[4]
+    assert (pointer is not None) == drop, "the dropout arguments exactly when the call drops"
+    if drop:
+        assert list(pointer.contents.on) == [1, 0, 1, 1]
     bf16 = dtype == torch.bfloat16
-    assert (tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
+    slot = 2 * drop + bf16
+    assert (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES) == tuple(
+        n + (i == slot) for i, n in enumerate(before))
 
 
 def test_the_split_plan_counts_every_buffer():
@@ -340,7 +358,8 @@ def test_split_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype,
         mp.setattr(torch.Tensor, "new_empty", recording_new_empty)
         grads = tfb._launch_bwd(g, x, weights, _kw(12, layout))
     (args,) = fake_library.calls["swin_block_bwd_split"]
-    ins, outs, ws, floats = args[:4]
+    ins, outs, ws, floats, drop = args[:5]
+    assert drop is None, "no dropout arguments without dropout"
     assert list(ins)[0] == x.data_ptr() and list(ins)[-1] == g.data_ptr() and len(list(ins)) == 19
     assert list(outs) == [t.data_ptr() for t in grads]
     assert grads[0].dtype == dtype and grads[0].shape == x.shape
@@ -353,8 +372,8 @@ def test_split_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype,
     bf16 = dtype == torch.bfloat16
     # S, B, H, W, C, heads, d, hidden, hidden step, heads a block (recompute, K3 block), blocks
     # (MLP, K3, g_ln), shift, cross, windows, bf16
-    assert args[4:22] == (2, 1, 14, 14, 96, 8, 12, 384, 144, 4, 4, *blocks, 1, 1, int(layout == "windows"), int(bf16))
-    assert args[22] == pytest.approx(12**-0.5)
+    assert args[5:23] == (2, 1, 14, 14, 96, 8, 12, 384, 144, 4, 4, *blocks, 1, 1, int(layout == "windows"), int(bf16))
+    assert args[23] == pytest.approx(12**-0.5)
     assert "swin_fused_block_bwd" not in fake_library.calls and "swin_block_bwd" not in fake_library.calls
     assert (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 

@@ -234,8 +234,8 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
             grads = tfb._launch_bwd(xl, xl, weights, dict(kw, layout=layout, hw=(7, 7),
                                                           drop_rates=(rate, rate, rate), drop_seed=3))
             assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
-            # without dropout the backward of csrc/fused_block_bwd.cu, with it csrc/fused_block.cu's
-            args = fake_library.calls["swin_fused_block_bwd" if rate else "swin_block_bwd"]
+            # csrc/fused_block_bwd.cu's fused route, without dropout and in its dropout form
+            args = fake_library.calls["swin_block_bwd"]
             assert args[-3] == 1 and args[-4] == int(layout == "windows")
             assert counters(tfb) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
 
@@ -257,7 +257,7 @@ def test_dropout_launches_its_own_kernel_form(fake_library):
     tfb._launch_bwd(x, x, weights, kw)
     assert (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES) == (
         before[0], before[1] + 1, before[2], before[3] + 1)
-    for name in ("swin_fused_block_fwd", "swin_fused_block_bwd"):
+    for name in ("swin_fused_block_fwd", "swin_block_bwd"):  # the backward's fused route
         args = fake_library.calls[name]
         drop = next(a for a in args if isinstance(a, ctypes._Pointer)).contents
         assert list(drop.on) == [1, 0, 1, 1] and drop.pairs == 0 and drop.t_pad == 56

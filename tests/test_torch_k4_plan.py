@@ -258,9 +258,11 @@ def test_windows_call_without_dropout_launches_the_new_forward(fake_library, c, 
 
 @pytest.mark.parametrize("what", ["windows layout dropout", "dropout", "backward"])
 def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what):
-    """A dropout forward in either layout (K1's and K4's) and a dropout backward run
-    ``csrc/fused_block.cu`` (the backward recomputes with its five launches), never the new
-    forward; the backward without dropout is ``tests/test_torch_block_bwd_plan.py``'s."""
+    """A dropout forward in either layout (K1's and K4's) runs ``csrc/fused_block.cu``, never
+    the new forward; a dropout backward at stage 0 runs the dropout form of
+    ``csrc/fused_block_bwd.cu``'s fused route, which recomputes the forward itself
+    (``tests/test_torch_block_bwd_drop.py`` holds the dropout backward's routes at every
+    stage, ``tests/test_torch_block_bwd_plan.py`` the backward without dropout)."""
     x, weights = _block_args(24, 8, 3, 96)
     if what == "windows layout dropout":
         tfb._launch_fwd(_windows(x), weights, _kw(8, 3, layout="windows", drop_rates=(0.25, 0.0, 0.1),
@@ -271,7 +273,7 @@ def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what)
         name = "swin_fused_block_fwd"
     else:
         tfb._launch_bwd(x, x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))
-        name = "swin_fused_block_bwd"
+        name = "swin_block_bwd"
     assert name in fake_library.calls
     assert "swin_k4_fwd" not in fake_library.calls
 

@@ -883,6 +883,61 @@ def _check_block_backward(layout, hw, batch, dtype, stages):
                             assert_grads_close(got, other, ("x", *tfb.WEIGHT_NAMES), f"{what} vs {name}")
 
 
+def _check_block_backward_drop(layout, hw, batch, dtype, stages):
+    """The backward's dropout form (``_launch_bwd`` with every site at rate 0.1 and at 0.5: the
+    fused route's at stages 0-1, the split route's at 2-3, ``csrc/fused_block.cu``'s backward
+    at stage 4) in ``layout`` against the plain dropout backward and against the twenty-launch
+    dropout backward (``_launch_bwd_five``) in every stage x MLP width x shift x cross case of
+    ``stages`` at ``hw`` and ``batch``: every fp32 gradient by ``testing.assert_grads_close``,
+    a bf16 g_x by the bf16 kernel criteria; each call counted once in its dtype's dropout
+    counter and repeated bit for bit."""
+    cfg = ModelConfig()
+    counter = "BF16_DROP_BWD_LAUNCHES" if dtype == BF16 else "DROP_BWD_LAUNCHES"
+    for k, h, w, c, heads, d in _stage_cases(hw):
+        if k not in stages:
+            continue
+        hidden = c * cfg.mlp_hidden_dims_ratio
+        x, *weights = _block_case(k, h, w, c, heads, d, hidden, dtype, batch)
+        gen = torch.Generator().manual_seed(400 + k + hidden)
+        for rate in (0.1, 0.5):
+            for shift in (False, True):
+                for cross in (False, True):
+                    xl = twp.pack_windows(x, (7, 7), shift).contiguous() if layout == "windows" else x
+                    g = torch.randn(xl.shape, generator=gen).cuda().to(dtype)
+                    kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
+                              layout=layout, hw=(h, w), drop_rates=(rate,) * 3, drop_seed=DROP_SEED + k)
+                    route = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross, True).route
+                    assert route == ("fused" if k < 2 else "split" if k < 4 else "five"), (k, route)
+                    before = getattr(tfb, counter)
+                    got = tfb._launch_bwd(g, xl, weights, kw)
+                    again = tfb._launch_bwd(g, xl, weights, kw)
+                    five = tfb._launch_bwd_five(g, xl, weights, kw)
+                    torch.cuda.synchronize()
+                    assert getattr(tfb, counter) == before + 2
+                    what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} ({route}) rate={rate} shift={shift} "
+                            f"cross={cross} {dtype}")
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a repeat gave other bits"
+                    ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
+                    for other, name in ((ref, "plain"), (five, "twenty launches")):
+                        if dtype == BF16:
+                            _assert_bf16_close(got[0], other[0], f"{what} g_x vs {name}")
+                            assert_grads_close(got[1:], other[1:], tfb.WEIGHT_NAMES, f"{what} vs {name}")
+                        else:
+                            assert_grads_close(got, other, ("x", *tfb.WEIGHT_NAMES), f"{what} vs {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
+def test_block_dropout_backward_matches_plain_and_twenty_launches_at_every_stage_on_card(hw, batch, dtype,
+                                                                                         layout):
+    """K4's (image) and K1's (windows) dropout backward at stages 0-3, the dropout form of the
+    fused route at stages 0-1 and of the split route at 2-3 (``_check_block_backward_drop``)."""
+    _need_card()
+    _check_block_backward_drop(layout, hw, batch, dtype, range(4))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
@@ -909,9 +964,10 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
     """The backward plan's shared memory (``bwd_smem``, ``split_smem``) and workspace
     (``bwd_workspace_floats``, ``split_workspace_floats``) are the ones
     ``csrc/fused_block_bwd.cu`` and ``csrc/fused_block_bwd_split.cu`` compute, at every fused-route and split-route stage and MLP
-    width of a 224² batch-20 step in both modes; the split route's recomputed attention and
-    K3 block take the shared memory that the forward's and K3's backward's libraries give
-    them."""
+    width of a 224² batch-20 step in both modes, without and with dropout (whose blocks add the
+    masks' hashes and keep words and whose workspace adds g_m, g_proj and the keep words); the
+    split route's recomputed attention and K3 block without dropout take the shared memory
+    that the forward's and K3's backward's libraries give them."""
     _need_card()
     cfg = ModelConfig()
     lib = tfb._bwd_library()
@@ -919,30 +975,36 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
     for k, h, w, c, heads, d in _stage_cases((224, 224)):
         for hidden in (c * cfg.mlp_hidden_dims_ratio, cfg.in_dims_list[k] * cfg.mlp_hidden_dims_ratio):
             for cross in (False, True):
-                plan = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross)
-                if plan.route == "split":
-                    hg_fwd, hg_bwd = plan.heads_per_block
-                    split = tfb._split_library()
+                for drop in (False, True):
+                    plan = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross, drop)
+                    what = (k, hidden, cross, drop)
+                    if plan.route == "split":
+                        hg_fwd, hg_bwd = plan.heads_per_block
+                        split = tfb._split_library()
+                        for kind, (kernel, smem) in enumerate(plan.smem):
+                            got = split.swin_block_bwd_split_smem(kind, c, heads, d, hidden, plan.hidden_chunk,
+                                                                hg_fwd, hg_bwd, int(cross), int(drop))
+                            assert got == smem <= tfb.SMEM_LIMIT_BYTES, (*what, kernel)
+                        smem = dict(plan.smem)
+                        if not drop:
+                            assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
+                                1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False))
+                            assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
+                                0, 0, int(cross), c, heads, d, hg_bwd)
+                        blocks = plan.blocks(2, 20, h, w, sms)
+                        assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden, hg_bwd, *blocks,
+                                                                    int(drop)) == \
+                            tfb.split_workspace_floats(2, 20, h, w, c, heads, d, hidden, plan, blocks, drop), what
+                    if plan.route != "fused":
+                        continue
                     for kind, (kernel, smem) in enumerate(plan.smem):
-                        got = split.swin_block_bwd_split_smem(kind, c, heads, d, hidden, plan.hidden_chunk, hg_fwd,
-                                                            hg_bwd, int(cross))
-                        assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, cross, kernel)
-                    smem = dict(plan.smem)
-                    assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
-                        1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False))
-                    assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
-                        0, 0, int(cross), c, heads, d, hg_bwd)
+                        got = lib.swin_block_bwd_smem(kind, c, heads, d, hidden, plan.hidden_chunk, int(cross),
+                                                      int(drop))
+                        assert got == smem <= tfb.SMEM_LIMIT_BYTES, (*what, kernel)
                     blocks = plan.blocks(2, 20, h, w, sms)
-                    assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden, hg_bwd, *blocks) == \
-                        tfb.split_workspace_floats(2, 20, h, w, c, heads, d, hidden, plan, blocks)
-                if plan.route != "fused":
-                    continue
-                for kind, (kernel, smem) in enumerate(plan.smem):
-                    got = lib.swin_block_bwd_smem(kind, c, heads, d, hidden, plan.hidden_chunk, int(cross))
-                    assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, cross, kernel)
-                blocks = plan.blocks(2, 20, h, w, sms)
-                assert lib.swin_block_bwd_workspace(2, 20, h, w, c, heads, d, hidden, *blocks, int(cross)) == \
-                    tfb.bwd_workspace_floats(2, 20, h, w, c, heads, d, hidden, blocks, cross)
+                    assert lib.swin_block_bwd_workspace(2, 20, h, w, c, heads, d, hidden, *blocks, int(cross),
+                                                        int(drop)) == \
+                        tfb.bwd_workspace_floats(2, 20, h, w, c, heads, d, hidden, blocks, cross, drop), what
 
 
 def _check_k3_backward(hw, batch, dtype, stages):
