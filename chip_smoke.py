@@ -15,13 +15,13 @@ requests, and breaks one request's device time down by kernel family with
 ``torch.profiler``. The fused block's forward without dropout, K4 on the image and K1 on
 window-packed tokens, is ``csrc/fused_block_fwd.cu`` (one launch at C <= 48, six above);
 each is checked for a bit-identical repeat, timed in turns with the five launches of
-``csrc/fused_block.cu`` that it replaced (the dropout forms and the backward's recompute
-still run them), and both are broken down by stage and kernel (``[split] K1``, ``[split]
-K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
+``csrc/fused_block.cu`` that it replaced (the C = 384 backward's recompute still runs them;
+the dropout forms run the new forward too), and both are broken down by stage and kernel
+(``[split] K1``, ``[split] K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
 launch at C <= 64, two above); it is checked for a bit-identical repeat, timed in turns with
-the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forms
-and the backward's recompute still run them), and both are broken down by stage and kernel
-from the profiler's device times (``[split]``). Then the training path: each backward
+the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forward
+still runs them), and both are broken down by stage and kernel from the profiler's device
+times (``[split]``). Then the training path: each backward
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
 224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward is the
 route ``block_bwd_plan`` names, with and without dropout ("fused", ``csrc/fused_block_bwd.cu``,
@@ -41,18 +41,22 @@ the fp32 configurations, a traced request each, and the throughput of 512x512 ba
 configuration trains without dropout): the hash-dropout forms of K3, K1 and K4, forward
 and backward, against their plain versions at rates 0.1 and 0.5 at the 224x224 batch-20
 shapes, with the keep fraction of each site and the times beside the forms without
-dropout (K1's and K4's dropout backward, each case repeated bit for bit, also beside the
-twenty-launch dropout backward of ``csrc/fused_block.cu``, per stage and per step), and the
-composition's mask kernels bit for bit; the first dropout train step under each
-configuration with exact launch counts and repeated bit for bit; timed in turns with the
-steps without dropout, the ``cuda_pack`` and ``cuda_block`` dropout steps' traces checked to
-launch no kernel of ``csrc/fused_block.cu``'s backward; and a
+dropout (K1's and K4's dropout forward on ``csrc/fused_block_fwd.cu`` and backward, and K3's
+dropout backward on ``csrc/window_attention_bwd.cu``, each case repeated bit for bit, also
+beside the old launches they replaced: the five-launch forward and twenty-launch backward of
+``csrc/fused_block.cu``, the three-launch backward of ``csrc/window_attention.cu``, per stage
+and per step), the new dropout forms at one C = 384 shape, and the composition's mask kernels
+bit for bit; the first dropout train step under each configuration with exact launch counts
+and repeated bit for bit; timed in turns with the steps without dropout, the dropout steps'
+traces checked to launch no kernel of ``csrc/fused_block.cu``'s forward or backward
+(``cuda_pack``, ``cuda_block``) or of ``csrc/window_attention.cu``'s backward (``cuda``); and a
 full-width step on a 112x112 map on the card against the same configuration on the CPU.
 bf16 training (``compute_dtype="bfloat16"``, the JAX package's production path): the bf16
 backward forms of K3, K1, K2 and K4 and the bf16 dropout forms, forward and backward,
 against their plain bf16 versions at the 224x224 batch-20 shapes, without dropout and at
 rates 0.1 and 0.5, their keep masks against the fp32 dropout forms', each timed in turns
-with its fp32 form, and the bf16 token masks bit for bit; the first bf16 step under each
+with its fp32 form (the new dropout forms also with the old launches and the form without
+dropout), and the bf16 token masks bit for bit; the first bf16 step under each
 configuration with exact launch counts, held against the bf16 and the fp32 torch
 compositions on the card, bf16 steps timed in turns with the fp32 steps and one traced;
 the first bf16 dropout step under each configuration, repeated bit for bit. Each phase
@@ -1367,15 +1371,25 @@ def dropout_train(flat, device, card, states, steps, inputs):
         label = f"{base}, dropout {DROP_RATIOS}"
         counts = trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
                        lambda: steps[impl](states[impl], ir, vis), median[impl], card)
-        if base in ("cuda_pack", "cuda_block"):  # K1/K4 drop bwd on the redesigned routes alone
+        if not counts:
+            print(f"[trace]   train {label}: no kernels recorded, the old launches' absence not read", flush=True)
+        elif base in ("cuda_pack", "cuda_block"):  # K1/K4 drop fwd and bwd on the redesigned routes alone
             old = {name: n for name, n in counts.items() if any(k in name for k in FIVE_BWD_KERNELS)}
+            old_fwd = {name: n for name, n in counts.items() if any(k in name for k in FIVE_FWD_KERNELS)}
             dropout_rows = sum(n for name, n in counts.items() if "dropout_rows_kernel" in name)
             masks = TRAIN_DROP_MASKS[base]["mask tokens"] + TRAIN_DROP_MASKS[base]["mask tokens bwd"]
-            print(f"[trace]   train {label}: fused_block.cu backward kernels {sum(old.values())}, "
-                  f"dropout_rows_kernel {dropout_rows} (the composition's token masks: {masks})", flush=True)
-            if old or dropout_rows > masks:
-                raise AssertionError(f"{base} dropout step: fused_block.cu's backward ran: {old}, "
-                                     f"dropout_rows_kernel x{dropout_rows}")
+            print(f"[trace]   train {label}: fused_block.cu backward kernels {sum(old.values())}, forward "
+                  f"kernels {sum(old_fwd.values())}, dropout_rows_kernel {dropout_rows} (the composition's "
+                  f"token masks: {masks})", flush=True)
+            if old or old_fwd or dropout_rows > masks:
+                raise AssertionError(f"{base} dropout step: fused_block.cu's backward ran: {old}, its forward: "
+                                     f"{old_fwd}, dropout_rows_kernel x{dropout_rows}")
+        else:  # K3 drop bwd on window_attention_bwd.cu alone
+            old = {name: n for name, n in counts.items() if any(k in name for k in THREE_BWD_KERNELS)}
+            print(f"[trace]   train {label}: window_attention.cu backward kernels {sum(old.values())}",
+                  flush=True)
+            if old:
+                raise AssertionError(f"{base} dropout step: window_attention.cu's backward ran: {old}")
     return launches
 
 
@@ -1385,6 +1399,12 @@ DROP_RATIOS = (0.1, 0.1, 0.1)  # attention, proj, MLP: a test setting (the refer
 # cuda_block step (its recompute's LN1 and LN2, the core backward, the LayerNorm backwards,
 # its weight-gradient GEMMs); its dropout_rows_kernel launches are counted apart
 FIVE_BWD_KERNELS = ("swin::ln_fwd_kernel", "window_core_bwd_kernel", "swin::ln_bwd_kernel", "swin::wgrad_kernel")
+# kernels that only csrc/fused_block.cu's five-launch forward runs in a cuda_pack or cuda_block
+# dropout step at 224² (its GEMMs and attention core; K3's dropout forward, window_attention.cu,
+# shares them, but those steps launch no K3), and that only csrc/window_attention.cu's
+# three-launch backward runs in a cuda step (its core backward and weight-gradient GEMMs)
+FIVE_FWD_KERNELS = ("swin::gemm_kernel", "window_core_kernel")
+THREE_BWD_KERNELS = ("window_core_bwd_kernel", "swin::wgrad_kernel")
 DROP_CHECK_RATES = (0.1, 0.5)  # at 0.5 a mismatched mask cannot hide inside the tolerance
 DROP_SEED = 4_242_421
 # attention_impl -> the dropout step's launches at 224²: the dropout forms replace the
@@ -1447,20 +1467,18 @@ def _print_keep(name, kept, card):
               f"| {card}", flush=True)
 
 
+def _turns(fns, iters, warmup):
+    """Mean ms of each launch in ``fns``, timed in turns: in order, then in reverse."""
+    first = [time_ms(fn, iters, warmup) for fn in fns]
+    second = [time_ms(fn, iters, warmup) for fn in reversed(fns)][::-1]
+    return tuple((a + b) / 2 for a, b in zip(first, second))
+
+
 def _in_turns(nodrop, drop, iters, warmup, other=None):
     """(without dropout, with dropout) mean ms of two launches timed in turns (without,
     with, with, without); with ``other``, (without, with, other) in turns (without, with,
     other, other, with, without)."""
-    a1 = time_ms(nodrop, iters, warmup)
-    b1 = time_ms(drop, iters, warmup)
-    if other is None:
-        b2 = time_ms(drop, iters, warmup)
-        a2 = time_ms(nodrop, iters, warmup)
-        return (a1 + a2) / 2, (b1 + b2) / 2
-    c1, c2 = time_ms(other, iters, warmup), time_ms(other, iters, warmup)
-    b2 = time_ms(drop, iters, warmup)
-    a2 = time_ms(nodrop, iters, warmup)
-    return (a1 + a2) / 2, (b1 + b2) / 2, (c1 + c2) / 2
+    return _turns((nodrop, drop) if other is None else (nodrop, drop, other), iters, warmup)
 
 
 def check_dropout_kernels(cfg, device, card):
@@ -1469,10 +1487,15 @@ def check_dropout_kernels(cfg, device, card):
     and backward, against their plain versions with the same seed at every stage 0-3 x
     role x shift x cross shape of a 224² batch-20 step (fp32 atol/rtol 1e-4; gradients by
     ``testing.assert_grads_close``), with the keep fraction of each site; K1's and K4's
-    backward on the dropout form of the route ``block_bwd_plan`` names (fused at stages 0-1,
-    split at 2-3), each case repeated bit for bit; then each form timed at the step's ratios
-    in turns with the form without dropout, K1's and K4's backward also with the twenty-launch
-    dropout backward of ``csrc/fused_block.cu``. Returns the worst errors and the per-step
+    forward on the dropout form of ``csrc/fused_block_fwd.cu``'s route (one launch at stages
+    0-1, six at 2-3) and backward on the dropout form of the route ``block_bwd_plan`` names
+    (fused at stages 0-1, split at 2-3), K3's backward on the dropout form of
+    ``csrc/window_attention_bwd.cu``'s (fused at stages 0-1, split at 2-3), each of these
+    cases repeated bit for bit; then each form timed at the step's ratios in turns with the
+    form without dropout, the new forms (K1/K4 drop, K3 drop bwd) and K1's and K4's dropout
+    backward also with the old launches they replaced (``csrc/fused_block.cu``'s five-launch
+    forward and twenty-launch backward, ``csrc/window_attention.cu``'s three-launch
+    backward), per case, per stage and per step. Returns the worst errors and the per-step
     times by kernel name."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
@@ -1480,10 +1503,9 @@ def check_dropout_kernels(cfg, device, card):
 
     worst, results = {}, {}
     for name, layout in (("K1", "windows"), ("K4", "image")):
-        totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0) for part in ("", " bwd")}
-        totals[" bwd"]["five_ms"] = 0.0
+        totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0, old_ms=0.0) for part in ("", " bwd")}
         by = {part: {} for part in totals}
-        stage_ms = {}  # stage -> (dropout form, twenty launches, without dropout) of its backward
+        stage_ms = {part: {} for part in totals}  # stage -> (dropout form, old launches, without dropout)
         kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
         # the blocks of stages 0-3, as train_block_backward (stage 4's 7x7 map is gated to
         # the composition at 224²)
@@ -1494,6 +1516,10 @@ def check_dropout_kernels(cfg, device, card):
             route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, True).route
             if route != ("fused" if k < 2 else "split"):
                 raise AssertionError(f"{name} drop bwd stage {k} {role}: the plan routes {route!r}")
+            fwd_route = tfb.block_fwd_plan(c, heads, d, hidden, WINDOW, cross, False, True).route
+            if fwd_route != ("fused" if k < 2 else "split"):
+                raise AssertionError(f"{name} drop stage {k} {role}: the forward's plan routes {fwd_route!r}")
+            routes = {"": fwd_route, " bwd": route}
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + 7)).to(device)
             seed = DROP_SEED + 100 * k + 10 * shift + cross
             for rate in DROP_CHECK_RATES:
@@ -1501,8 +1527,11 @@ def check_dropout_kernels(cfg, device, card):
                 what = (f"[{name.lower()} drop] stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} "
                         f"hidden={hidden} shift={shift} cross={cross} rate {rate}")
                 out = tfb.fused_block(xl, *weights, **dkw)
+                again = tfb.fused_block(xl, *weights, **dkw)
                 torch.cuda.synchronize()
-                err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
+                err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what + f" ({fwd_route})")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{what} ({fwd_route}): a repeat gave other bits")
                 got = tfb._launch_bwd(g, xl, weights, dkw)
                 again = tfb._launch_bwd(g, xl, weights, dkw)
                 torch.cuda.synchronize()
@@ -1512,7 +1541,7 @@ def check_dropout_kernels(cfg, device, card):
                 check = assert_grads_close(got, tfb.fused_block_bwd_plain(g, xl, *weights, **dkw),
                                            ("x", *tfb.WEIGHT_NAMES), what + " bwd")
                 print(f"{what} bwd ({route}): max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
-                      f"gradient's own largest; repeated bit for bit", flush=True)
+                      f"gradient's own largest; forward and backward repeated bit for bit", flush=True)
                 errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
                 key = tfb.block_keying(layout, (h, w), WINDOW, shift, heads, d, device)
                 for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, hidden, c,
@@ -1521,57 +1550,52 @@ def check_dropout_kernels(cfg, device, card):
                     kept[rate][site] = (sk + kn[0], sn + kn[1])
                 del out, got
             dkw = dict(kw, drop_rates=DROP_RATIOS, drop_seed=seed)
-            for part, launch, plain, iters in (
-                    ("", lambda a: tfb.fused_block(xl, *weights, **a),
-                     lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5),
+            for part, launch, old, plain, iters, old_name in (
+                    ("", lambda a: tfb.fused_block(xl, *weights, **a), lambda: tfb._launch_five(xl, weights, dkw),
+                     lambda: tfb.fused_block_plain(xl, *weights, **dkw), 5, "five launches"),
                     (" bwd", lambda a: tfb._launch_bwd(g, xl, weights, a),
-                     lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3)):
-                # the forward without dropout as the five launches the dropout form extends; the
-                # backward in turns with the route without dropout and the twenty launches
-                if part == "":
-                    nodrop, ms = _in_turns(lambda: tfb._launch_five(xl, weights, kw), lambda: launch(dkw), iters, 1)
-                    five, twenty = 0.0, ""
-                else:
-                    nodrop, ms, five = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1,
-                                                 lambda: tfb._launch_bwd_five(g, xl, weights, dkw))
-                    twenty = f", twenty launches {five:.4f} ms ({ms / five - 1:+.1%})"
-                    st = stage_ms.setdefault(k, [0.0, 0.0, 0.0])
-                    st[0], st[1], st[2] = st[0] + ms, st[1] + five, st[2] + nodrop
-                    totals[part]["five_ms"] += five
+                     lambda: tfb._launch_bwd_five(g, xl, weights, dkw),
+                     lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **dkw), 3, "twenty launches")):
+                # in turns with the route without dropout and the old launches with dropout
+                nodrop, ms, old_ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1, old)
+                st = stage_ms[part].setdefault(k, [0.0, 0.0, 0.0])
+                st[0], st[1], st[2] = st[0] + ms, st[1] + old_ms, st[2] + nodrop
                 plain_ms = time_ms(plain, iters=2, warmup=1)
                 ops = hash_ops(h, w, c, heads, hidden, TRAIN_BATCH, False)
                 bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, TRAIN_BATCH,
                                                  backward=part == " bwd", int_ops=ops)
                 print(f"[time] {name} drop{part} stage {k} {role} {h}x{w}x{TRAIN_BATCH} C={c} "
-                      f"hidden={hidden} shift={shift} cross={cross}{f' ({route})' if part else ''}: {ms:.4f} ms"
-                      f"{twenty}, without dropout {nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain "
-                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
-                for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("nodrop_ms", nodrop)):
+                      f"hidden={hidden} shift={shift} cross={cross} ({routes[part]}): {ms:.4f} ms, {old_name} "
+                      f"{old_ms:.4f} ms ({ms / old_ms - 1:+.1%}), without dropout {nodrop:.4f} ms (in turns, "
+                      f"{ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+                      f"| {card}", flush=True)
+                for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("nodrop_ms", nodrop),
+                                ("old_ms", old_ms)):
                     totals[part][key_] += v
                 by[part][bound_by] = by[part].get(bound_by, 0.0) + bound
             torch.cuda.empty_cache()
         _print_keep(name, kept, card)
-        for k, (ms, five, nodrop) in sorted(stage_ms.items()):
-            print(f"[time] {name} drop bwd stage {k} per 224x224 batch-20 step (8 launches, "
-                  f"{'fused' if k < 2 else 'split'} route): {ms:.3f} ms, twenty launches {five:.3f} ms "
-                  f"({ms / five - 1:+.1%}), without dropout {nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns "
-                  f"| {card}", flush=True)
+        for part, old_name in (("", "five launches"), (" bwd", "twenty launches")):
+            for k, (ms, old_ms, nodrop) in sorted(stage_ms[part].items()):
+                print(f"[time] {name} drop{part} stage {k} per 224x224 batch-20 step (8 launches, "
+                      f"{'fused' if k < 2 else 'split'} route): {ms:.3f} ms, {old_name} {old_ms:.3f} ms "
+                      f"({ms / old_ms - 1:+.1%}), without dropout {nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in "
+                      f"turns | {card}", flush=True)
         for part, t in totals.items():
+            old_name = "twenty launches" if part else "five launches"
             print(f"[check] {name} drop{part}: worst max_abs_err {errs[part]:.3e} over "
-                  f"{cases} blocks x rates {DROP_CHECK_RATES}"
-                  + ("; every case repeated bit for bit" if part else ""), flush=True)
-            twenty = (f", twenty launches {t['five_ms']:.3f} ms ({t['ms'] / t['five_ms'] - 1:+.1%})"
-                      if part else "")
-            print(f"[time] {name} drop{part} per 224x224 batch-20 step ({cases} launches): {t['ms']:.3f} ms"
-                  f"{twenty}, without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), "
-                  f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) "
-                  f"| {card}", flush=True)
+                  f"{cases} blocks x rates {DROP_CHECK_RATES}; every case repeated bit for bit", flush=True)
+            print(f"[time] {name} drop{part} per 224x224 batch-20 step ({cases} launches): {t['ms']:.3f} ms, "
+                  f"{old_name} {t['old_ms']:.3f} ms ({t['ms'] / t['old_ms'] - 1:+.1%}), without dropout "
+                  f"{t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), plain {t['plain_ms']:.3f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) | {card}", flush=True)
             results[f"{name} drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get),
                                                  library_ms=None)
             worst[f"{name} drop{part}"] = errs[part]
 
-    totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0) for part in ("", " bwd")}
+    totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0, old_ms=0.0) for part in ("", " bwd")}
     by = {part: {} for part in totals}
+    stage_ms = {}  # stage -> K3 drop bwd (dropout form, three launches, without dropout) per step
     kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
     names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
     for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
@@ -1581,6 +1605,9 @@ def check_dropout_kernels(cfg, device, card):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
                 seed = DROP_SEED + 100 * k + 10 * shift + cross + 1
+                route = twa.bwd_plan(c, heads, d, WINDOW, cross, False, True).route
+                if route != ("fused" if k < 2 else "split"):
+                    raise AssertionError(f"K3 drop bwd stage {k}: the plan routes {route!r}")
                 cases += 1
                 for rate in DROP_CHECK_RATES:
                     dkw = dict(kw, attn_drop_rate=rate, drop_seed=seed)
@@ -1590,11 +1617,15 @@ def check_dropout_kernels(cfg, device, card):
                     torch.cuda.synchronize()
                     err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
                     got = twa._launch_bwd(g, x, weights, dkw)
+                    again = twa._launch_bwd(g, x, weights, dkw)
                     torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{what} bwd ({route}): a repeat gave other bits")
+                    del again
                     check = assert_grads_close(got, twa.window_attention_bwd_plain(g, x, *weights, **dkw),
                                                names, what + " bwd")
-                    print(f"{what} bwd: max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
-                          f"gradient's own largest", flush=True)
+                    print(f"{what} bwd ({route}): max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
+                          f"gradient's own largest; repeated bit for bit", flush=True)
                     errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
                     key = twa.attention_keying((h, w), WINDOW, shift, heads, d, device)
                     for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, 0, c,
@@ -1608,33 +1639,108 @@ def check_dropout_kernels(cfg, device, card):
                          lambda: twa.window_attention_plain(x, *weights, **dkw), 5),
                         (" bwd", lambda a: twa._launch_bwd(g, x, weights, a),
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
-                    # the forward without dropout as the three launches the dropout form extends
-                    base = (lambda: twa._launch_three(x, weights, kw)) if part == "" else (lambda: launch(kw))
-                    nodrop, ms = _in_turns(base, lambda: launch(dkw), iters, 1)
+                    if part == "":  # the three launches, the form without dropout that it extends
+                        nodrop, ms = _in_turns(lambda: twa._launch_three(x, weights, kw), lambda: launch(dkw), iters, 1)
+                        old_ms, old = 0.0, ""
+                    else:  # the redesigned form without dropout, and the three-launch backward it replaced
+                        nodrop, ms, old_ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1,
+                                                       lambda: twa._launch_bwd_three(g, x, weights, dkw))
+                        old = f", three launches {old_ms:.4f} ms ({ms / old_ms - 1:+.1%})"
+                        st = stage_ms.setdefault(k, [0.0, 0.0, 0.0])
+                        st[0], st[1], st[2] = st[0] + 2 * ms, st[1] + 2 * old_ms, st[2] + 2 * nodrop
                     plain_ms = time_ms(plain, iters=2, warmup=1)
                     ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True)
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH,
                                                          backward=part == " bwd", int_ops=ops)
                     print(f"[time] K3 drop{part} stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
-                          f"cross={cross}: {ms:.4f} ms, without dropout {nodrop:.4f} ms (in turns, "
-                          f"{ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-                          f"({bound_by}) | {card}", flush=True)
+                          f"cross={cross}{f' ({route})' if part else ''}: {ms:.4f} ms{old}, without dropout "
+                          f"{nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({bound_by}) | {card}", flush=True)
                     for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                                    ("nodrop_ms", nodrop)):
+                                    ("nodrop_ms", nodrop), ("old_ms", old_ms)):
                         totals[part][key_] += 2 * v  # encoder and decoder
                     by[part][bound_by] = by[part].get(bound_by, 0.0) + 2 * bound
         torch.cuda.empty_cache()
     _print_keep("K3", kept, card)
+    for k, (ms, old_ms, nodrop) in sorted(stage_ms.items()):
+        print(f"[time] K3 drop bwd stage {k} per 224x224 batch-20 step (8 launches, {'fused' if k < 2 else 'split'} "
+              f"route): {ms:.3f} ms, three launches {old_ms:.3f} ms ({ms / old_ms - 1:+.1%}), without dropout "
+              f"{nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns | {card}", flush=True)
     for part, t in totals.items():
         print(f"[check] K3 drop{part}: worst max_abs_err {errs[part]:.3e} over {cases} shapes "
-              f"x rates {DROP_CHECK_RATES}", flush=True)
+              f"x rates {DROP_CHECK_RATES}" + ("; every case repeated bit for bit" if part else ""), flush=True)
+        old = (f", three launches {t['old_ms']:.3f} ms ({t['ms'] / t['old_ms'] - 1:+.1%})" if part else "")
         print(f"[time] K3 drop{part} per 224x224 batch-20 step under cuda ({2 * cases} launches): "
-              f"{t['ms']:.3f} ms, without dropout {t['nodrop_ms']:.3f} ms "
+              f"{t['ms']:.3f} ms{old}, without dropout {t['nodrop_ms']:.3f} ms "
               f"({t['ms'] / t['nodrop_ms'] - 1:+.1%}), plain {t['plain_ms']:.3f} ms, bound "
-              f"{t['bound_ms']:.4f} ms | {card}", flush=True)
+              f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) | {card}", flush=True)
         results[f"K3 drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get), library_ms=None)
         worst[f"K3 drop{part}"] = errs[part]
     return worst, results
+
+
+def check_drop_c384(cfg, device, card):
+    """The new dropout forms at one C = 384 shape, stage 4 of a 512² request (a 21 x 21 map):
+    K1's (windows layout) and K4's (image layout) dropout forward on ``csrc/fused_block_fwd.cu``'s
+    six launches and K3's dropout backward on ``csrc/window_attention_bwd.cu``'s split route
+    (pitch 48), fp32 and bf16, every shift x cross case at each rate of DROP_CHECK_RATES,
+    against their plain versions (``compare_kernel``, ``assert_grads_close``; a bf16 backward
+    by :func:`_check_bf16_grads`), each call repeated bit for bit. Returns the worst errors by
+    kernel name."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    k, h, w, c, heads, d = stage_geometries(cfg, SERVE_HW)[4]
+    hidden = c * cfg.mlp_hidden_dims_ratio
+    worst = {}
+    names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+    for dtype in (torch.float32, BF16):
+        x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 40, device)
+        ax, *aweights = attention_inputs(h, w, c, heads, d, SEED + 41, device)
+        x, ax = x.to(dtype), ax.to(dtype)
+        g = torch.randn(ax.shape, generator=torch.Generator().manual_seed(41)).to(device, dtype)
+        for shift in (False, True):
+            for cross in (False, True):
+                case = (k, h, w, c, heads, d, "enc", hidden, shift, cross)
+                seed = DROP_SEED + 400 + 10 * shift + cross
+                for rate in DROP_CHECK_RATES:
+                    for name, layout in (("K1", "windows"), ("K4", "image")):
+                        xl, kw = fused_args(case, x, layout)
+                        dkw = dict(kw, drop_rates=(rate,) * 3, drop_seed=seed)
+                        route = tfb.block_fwd_plan(c, heads, d, hidden, WINDOW, cross,
+                                                   tfb.rounds_operands(dtype, layout), True).route
+                        what = (f"[{name.lower()} drop{tag(dtype)}] stage {k} {h}x{w} C={c} hidden={hidden} "
+                                f"({route}) shift={shift} cross={cross} rate {rate}")
+                        out, again = tfb.fused_block(xl, *weights, **dkw), tfb.fused_block(xl, *weights, **dkw)
+                        torch.cuda.synchronize()
+                        err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
+                        if not torch.equal(out, again):
+                            raise AssertionError(f"{what}: a repeat gave other bits")
+                        key = f"{name} drop{tag(dtype)}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                    akw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
+                               attn_drop_rate=rate, drop_seed=seed)
+                    route = twa.bwd_plan(c, heads, d, WINDOW, cross, dtype == BF16, True).route
+                    what = (f"[k3 drop bwd{tag(dtype)}] stage {k} {h}x{w} C={c} ({route}) shift={shift} "
+                            f"cross={cross} rate {rate}")
+                    got, again = twa._launch_bwd(g, ax, aweights, akw), twa._launch_bwd(g, ax, aweights, akw)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{what}: a repeat gave other bits")
+                    ref = twa.window_attention_bwd_plain(g, ax, *aweights, **akw)
+                    if dtype == BF16:
+                        err = _check_bf16_grads(got, ref, names, what)
+                    else:
+                        err = assert_grads_close(got, ref, names, what).worst
+                    print(f"{what}: max_abs_err {err:.3e}; repeated bit for bit", flush=True)
+                    key = f"K3 drop bwd{tag(dtype)}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+        torch.cuda.empty_cache()
+    print(f"[check] the new dropout forms at C={c} ({h}x{w}, stage 4 of a 512x512 request): worst "
+          + ", ".join(f"{key} {v:.3e}" for key, v in worst.items())
+          + f" over 4 shift x cross cases x rates {DROP_CHECK_RATES}, each repeated bit for bit", flush=True)
+    return worst
 
 
 def mask_bound_ms(elements, table_tokens, elem_bytes=4):
@@ -1955,11 +2061,13 @@ def check_bf16_blocks(cfg, device, card):
                 dkw = dict(kw, drop_rates=(rate,) * 3, drop_seed=seed) if rate else kw
                 what = f"[{name.lower()} bf16] {label} rate {rate}"
                 if rate:
-                    out = tfb.fused_block(xl, *weights, **dkw)
+                    out, again = tfb.fused_block(xl, *weights, **dkw), tfb.fused_block(xl, *weights, **dkw)
                     torch.cuda.synchronize()
                     err, _ = compare_kernel(out, tfb.fused_block_plain(xl, *weights, **dkw), what)
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{what}: a repeat of the dropout forward gave other bits")
                     errs[" drop bf16"] = max(errs[" drop bf16"], err)
-                    del out
+                    del out, again
                 got = tfb._launch_bwd(g, xl, weights, dkw)
                 # the fused route at stages 0-1, the split route at 2-3, each in its dropout form
                 # at a rate
@@ -1996,6 +2104,14 @@ def check_bf16_blocks(cfg, device, card):
                                                   lambda: tfb._launch_bwd_five(g, xl, weights, dkw))
                     twenty = f", twenty launches {five:.4f} ms ({ms / five - 1:+.1%})"
                     totals[form]["five_ms"] = totals[form].get("five_ms", 0.0) + five
+                elif form == " drop bf16":  # also with the five launches and the form without dropout
+                    fp32_ms, ms, five, nodrop = _turns(
+                        (launch32, launch, lambda: tfb._launch_five(xl, weights, dkw),
+                         lambda: tfb.fused_block(xl, *weights, **kw)), iters, 1)
+                    twenty = (f", five launches {five:.4f} ms ({ms / five - 1:+.1%}), without dropout "
+                              f"{nodrop:.4f} ms ({ms / nodrop - 1:+.1%})")
+                    totals[form]["five_ms"] = totals[form].get("five_ms", 0.0) + five
+                    totals[form]["nodrop_ms"] = totals[form].get("nodrop_ms", 0.0) + nodrop
                 else:
                     fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
                 plain_ms = time_ms(plain, iters=1, warmup=1)
@@ -2015,9 +2131,12 @@ def check_bf16_blocks(cfg, device, card):
                   + ("; every case repeated bit for bit" if "bwd" in form else ""), flush=True)
             if "five_ms" in totals[form]:
                 t = totals[form]
-                print(f"[time] {name}{form} per 224x224 batch-20 step: {t['ms']:.3f} ms, twenty launches "
-                      f"{t['five_ms']:.3f} ms ({t['ms'] / t['five_ms'] - 1:+.1%}, in turns), "
-                      f"{t['ms'] / t['bound_ms']:.1f}x the bound | {card}", flush=True)
+                nodrop = (f", without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%})"
+                          if "nodrop_ms" in t else "")
+                print(f"[time] {name}{form} per 224x224 batch-20 step: {t['ms']:.3f} ms, "
+                      f"{'twenty' if 'bwd' in form else 'five'} launches {t['five_ms']:.3f} ms "
+                      f"({t['ms'] / t['five_ms'] - 1:+.1%}, in turns){nodrop}, {t['ms'] / t['bound_ms']:.1f}x the "
+                      f"bound | {card}", flush=True)
             _summary(f"{name}{form}", totals[form], by[form], cases, card, results)
             worst[f"{name}{form}"] = errs[form]
         print(f"[check] {name} drop bf16: the keep masks are the fp32 form's: at rate "
@@ -2086,7 +2205,17 @@ def check_bf16_attention(cfg, device, card):
                         (" drop bwd bf16", lambda: twa._launch_bwd(g, x, weights, dkw),
                          lambda: twa._launch_bwd(g32, x32, weights, dkw),
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
-                    fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
+                    extra = ""
+                    if form == " drop bwd bf16":  # also with the three launches and the form without dropout
+                        fp32_ms, ms, old_ms, nodrop = _turns(
+                            (launch32, launch, lambda: twa._launch_bwd_three(g, x, weights, dkw),
+                             lambda: twa._launch_bwd(g, x, weights, kw)), iters, 1)
+                        extra = (f", three launches {old_ms:.4f} ms ({ms / old_ms - 1:+.1%}), without dropout "
+                                 f"{nodrop:.4f} ms ({ms / nodrop - 1:+.1%})")
+                        for key_, v in (("old_ms", old_ms), ("nodrop_ms", nodrop)):
+                            totals[form][key_] = totals[form].get(key_, 0.0) + 2 * v
+                    else:
+                        fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
                     plain_ms = time_ms(plain, iters=1, warmup=1)
                     if form == " bwd bf16":  # the three-launch backward, in turns with the new one
                         three_ms, new_ms = _in_turns(lambda: twa._launch_bwd_three(g, x, weights, kw), launch,
@@ -2100,14 +2229,20 @@ def check_bf16_attention(cfg, device, card):
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=backward,
                                                          dtype=BF16, int_ops=ops)
                     print(f"[time] K3{form} {label}: {ms:.4f} ms, fp32 form {fp32_ms:.4f} ms (in "
-                          f"turns, {ms / fp32_ms - 1:+.1%}), plain {plain_ms:.4f} ms, bound "
+                          f"turns, {ms / fp32_ms - 1:+.1%}){extra}, plain {plain_ms:.4f} ms, bound "
                           f"{bound:.4f} ms ({bound_by}) | {card}", flush=True)
                     _add(totals[form], by[form], ms, plain_ms, bound, bound_by, fp32_ms, times=2)
         del x, g, x32, g32
         torch.cuda.empty_cache()
     for form in forms:
         print(f"[check] K3{form}: worst max_abs_err {errs[form]:.3e} over {cases} shapes"
-              + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else ""), flush=True)
+              + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else "")
+              + ("; every case repeated bit for bit" if "bwd" in form else ""), flush=True)
+        if "old_ms" in totals[form]:
+            t = totals[form]
+            print(f"[time] K3{form} per 224x224 batch-20 step: {t['ms']:.3f} ms, three launches {t['old_ms']:.3f} ms "
+                  f"({t['ms'] / t['old_ms'] - 1:+.1%}), without dropout {t['nodrop_ms']:.3f} ms "
+                  f"({t['ms'] / t['nodrop_ms'] - 1:+.1%}), in turns | {card}", flush=True)
         _summary(f"K3{form}", totals[form], by[form], 2 * cases, card, results)
         worst[f"K3{form}"] = errs[form]
     print(f"[time] K3 bwd bf16 per 224x224 batch-20 step ({2 * cases} launches): new {three[1]:.3f} ms, "
@@ -2467,6 +2602,7 @@ def main() -> int:
     phase("[check] and [time] of the backward kernels, [split] K1 bwd, K4 bwd and K3 bwd")
     drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
     torch.cuda.empty_cache()
+    c384_worst = check_drop_c384(cfg, device, card)
     mask_worst, mask_times = check_mask_kernels(cfg, device, card)
     drop_worst.update(mask_worst)
     drop_times.update(mask_times)
@@ -2476,6 +2612,8 @@ def main() -> int:
         drop_worst.update(bf16_worst)
         drop_times.update(bf16_times)
         torch.cuda.empty_cache()
+    for key, err in c384_worst.items():
+        drop_worst[key] = max(drop_worst[key], err)
     phase("[check] and [time] of the bf16 backward and dropout forms and the bf16 mask kernels")
     train_launches, states, steps, inputs, fp32_first = train_configs(flat, device, card)
     launches.update(train_launches)
@@ -2507,7 +2645,7 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
-        ("K3 bwd", "k3_bwd (K3 bwd; the dropout forms keep window_attention.cu's)",
+        ("K3 bwd", "k3_bwd (K3 bwd; the fused route at stages 0-1, the split route at stages 2-3)",
          f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
         ("K1 bwd", "block_bwd, windows layout (K1 bwd; the fused route at stages 0-1, the split route of "
@@ -2521,15 +2659,16 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop", "window_attention_fwd with hash dropout (K3 drop)", f"{csrc}/window_attention.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
-        ("K3 drop bwd", "window_attention_bwd with hash dropout (K3 drop bwd)",
-         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
-        ("K1 drop", "fused_block_fwd with hash dropout, windows layout (K1 drop)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+        ("K3 drop bwd", "k3_bwd with hash dropout (K3 drop bwd; the dropout form of the fused route at stages "
+         "0-1 and of the split route at stages 2-3)",
+         f"{csrc}/window_attention_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
+        ("K1 drop", "fused_block_fwd with hash dropout, windows layout (K1 drop; one launch at stages 0-1, six "
+         "at 2-3)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
         ("K1 drop bwd", "block_bwd with hash dropout, windows layout (K1 drop bwd; the dropout form of the "
          "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
-        ("K4 drop", "fused_block_fwd with hash dropout, image layout (K4 drop)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+        ("K4 drop", "fused_block_fwd with hash dropout, image layout (K4 drop; one launch at stages 0-1, six "
+         "at 2-3)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
         ("K4 drop bwd", "block_bwd with hash dropout, image layout (K4 drop bwd; the dropout form of the "
          "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3, "
          "fused_block.cu's twenty launches at stage 4)",
@@ -2556,15 +2695,15 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop bf16", "window_attention_fwd bf16 with hash dropout (K3 drop bf16)",
          f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
-        ("K3 drop bwd bf16", "window_attention_bwd bf16 with hash dropout (K3 drop bwd bf16)",
-         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
-        ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+        ("K3 drop bwd bf16", "k3_bwd bf16 with hash dropout (K3 drop bwd bf16, fp32 inside)",
+         f"{csrc}/window_attention_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
+        ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16, fp32 inside)",
+         f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
         ("K1 drop bwd bf16", "block_bwd bf16 with hash dropout, windows layout (K1 drop bwd bf16; the "
          "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
-        ("K4 drop bf16", "fused_block_fwd bf16 with hash dropout, image layout (K4 drop bf16)",
-         f"{csrc}/fused_block.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+        ("K4 drop bf16", "fused_block_fwd bf16 with hash dropout, image layout (K4 drop bf16, mma.sync)",
+         f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
         ("K4 drop bwd bf16", "block_bwd bf16 with hash dropout, image layout (K4 drop bwd bf16; the "
          "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),

@@ -2,16 +2,19 @@
 """The fused block's split route (stages 2-4 of ``csrc/fused_block_fwd.cu``) in variant builds
 against the committed one, on one CUDA card: each variant is a copy of
 ``fused_block_fwd.cu`` with the same C interface, built by ``nvcc`` with the port's flags,
-``-I`` the ``csrc`` directory and its own ``-D`` flags. At every split-route block of a
+``-I`` the ``csrc`` directory and its own ``-D`` flags (a copy's quoted includes find headers
+copied beside it first). At every split-route block of a
 512x512 request (stage x role x shift x cross; K1 at the packed stages in the windows
 layout, K4 in the image layout; fp32 and bf16) each build is checked for a bit-identical
 repeat and against the committed build's output, and its kernels' device time is read by
 ``torch.profiler`` in turns with the others (the order reversed at every other block), as
 ``chip_smoke.py``'s ``[split]`` lines read it. Prints one ``[variant]`` line per (kernel,
 dtype, build, stage) with the device ms per request by kernel, and one total per (kernel,
-dtype, build).
+dtype, build). With ``--dropout`` it times the dropout form instead, at every block of stages
+0-3 of a 224x224 batch-20 train step (the one-launch route at stages 0-1, the six launches at
+2-3), every site at ``chip_smoke.DROP_RATIOS``, per step.
 
-    python3 split_ab.py NAME=PATH[:-DFLAG=VALUE,...] [NAME=PATH...]
+    python3 split_ab.py [--dropout] NAME=PATH[:-DFLAG=VALUE,...] [NAME=PATH...]
 
 Needs a CUDA device and the CUDA toolkit.
 """
@@ -60,7 +63,8 @@ def main() -> int:
     from swin_unet_image_fusion_tpu_torch.ops import _build
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
-    specs = dict(arg.split("=", 1) for arg in sys.argv[1:])
+    dropout = "--dropout" in sys.argv[1:]
+    specs = dict(arg.split("=", 1) for arg in sys.argv[1:] if arg != "--dropout")
     if not specs or "committed" in specs:
         print(__doc__, file=sys.stderr)
         return 2
@@ -82,15 +86,19 @@ def main() -> int:
     cfg = ModelConfig()
     device = torch.device("cuda")
     names = list(libs)
+    stages, hw, batch = ((0, 1, 2, 3), cs.TRAIN_HW, cs.TRAIN_BATCH) if dropout else (SPLIT_STAGES, cs.SERVE_HW, 1)
+    per = f"per {hw[0]}x{hw[1]} batch-{batch} step" if dropout else "per 512x512 request"
     for dtype in (torch.float32, cs.BF16):
         for kernel, layout, packed_only in (("K1", "windows", True), ("K4", "image", False)):
             label = f"{kernel}{cs.tag(dtype)}"
             parts = {n: {} for n in names}
             worst = dict.fromkeys(names, 0.0)
-            for i, (case, x, weights) in enumerate(cs.block_cases(cfg, device, packed_only)):
-                if case[0] not in SPLIT_STAGES:
+            for i, (case, x, weights) in enumerate(cs.block_cases(cfg, device, packed_only, hw, batch)):
+                if case[0] not in stages:
                     continue
                 xl, kw = cs.fused_args(case, x.to(dtype), layout)
+                if dropout:
+                    kw = dict(kw, drop_rates=cs.DROP_RATIOS, drop_seed=cs.DROP_SEED + i)
                 outs = {}
                 for n in names:
                     tfb._fwd_library = lambda n=n: libs[n]
@@ -111,13 +119,13 @@ def main() -> int:
             tfb._fwd_library = lambda: committed
             for n in names:
                 for k, p in parts[n].items():
-                    print(f"[variant] {label} {n} stage {k}, per 512x512 request (8 calls): "
+                    print(f"[variant] {label}{' drop' if dropout else ''} {n} stage {k}, {per} (8 calls): "
                           + ", ".join(f"{kn} {ms:.4f} ms" for kn, ms in p.items())
                           + f", total {sum(p.values()):.4f} ms | {card}", flush=True)
             for n in names:
                 total = sum(sum(p.values()) for p in parts[n].values())
-                print(f"[variant] {label} {n}: stages {sorted(parts[n])} {total:.4f} ms of device time per "
-                      f"512x512 request, max |diff| against the committed build {worst[n]:.3e} | {card}",
+                print(f"[variant] {label}{' drop' if dropout else ''} {n}: stages {sorted(parts[n])} {total:.4f} ms "
+                      f"of device time {per}, max |diff| against the committed build {worst[n]:.3e} | {card}",
                       flush=True)
     print(f"[variant] done in {time.perf_counter() - start:.1f} s")
     return 0

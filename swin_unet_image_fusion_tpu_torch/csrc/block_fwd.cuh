@@ -1,5 +1,5 @@
-// The fused block's forward kernels and layouts that fused_block_fwd.cu (K4 and K1 without
-// dropout) and the split backward route of fused_block_bwd.cu (its recompute) share: the
+// The fused block's forward kernels and layouts that fused_block_fwd.cu (K4 and K1, with and
+// without dropout) and the split backward route of fused_block_bwd.cu (its recompute) share: the
 // block's shared-memory layouts and arguments, the GEMM sums in registers (fp32 tiles or mma
 // fragments), and the split route's kernels (the LN passes, the projection / fc2 rows kernel
 // and the streamed fc1). fused_block_fwd.cu's header says what bounds them and why the design
@@ -26,13 +26,15 @@ enum Kind { kFused = 0, kAttn = 1, kRows = 2, kFc1 = 3, kLn = 4 };  // kLn: no d
 // then y, fp32 [49][C]; a0/a1: resident operands (LN1(x), then AV, then LN2(y); LN1(kv));
 // q..zero_end: q/k/v, zero-filled before the q/k/v GEMM; the same space holds the raw kv rows
 // before it and the MLP's hidden chunk after the core; tabs: rows, regions, q/k/v columns
-// and biases, and the LN statistics (the row kernels and fc1: their row tables).
+// and biases, and the LN statistics (the row kernels and fc1: their row tables). keep (the
+// fused kernel's bf16 dropout form, drop): the attention's keep words of every head in the ring
+// after the core's P (the ring is free during the core), the ring grown where they do not fit.
 struct K4Layout {
-  int ring, xs, a0, a1, q, k, v, zero_end, h, bias, tabs, total;
+  int ring, xs, a0, a1, q, k, v, zero_end, h, bias, tabs, keep, total;
 };
 
 __host__ __device__ inline K4Layout k4_layout(int kind, bool bf16, bool cross, int C, int inner, int hidden,
-                                              int hg, int d, int dp, int hc) {
+                                              int hg, int d, int dp, int hc, bool drop = false) {
   K4Layout L{};
   const int p_bytes = bf16 ? kWarps * 32 * kPStride * 2 : 0;
   const int qk = align16(hg * kT * dp * 4);
@@ -40,7 +42,8 @@ __host__ __device__ inline K4Layout k4_layout(int kind, bool bf16, bool cross, i
   int off = 0;
   if (kind == kFused) {
     const int nb = max2(max2(3 * inner, C), pad_cols(bf16, hc));
-    off = align16(max2(b_bytes(bf16, nb, kStages), p_bytes));
+    L.keep = p_bytes;
+    off = align16(max2(b_bytes(bf16, nb, kStages), p_bytes + (drop && bf16 ? hg * kT * swin::kKeepWords * 4 : 0)));
     L.xs = off;
     off += align16(kT * C * 4);
     L.a0 = off;
@@ -56,8 +59,8 @@ __host__ __device__ inline K4Layout k4_layout(int kind, bool bf16, bool cross, i
     off += align16(kT * kT * 4);
     L.tabs = off;
     off += align16((2 * kRowsB + 2 * kColTable + 4 * kRowsB) * 4);  // + LN statistics of x and kv
-  } else if (kind == kAttn) {  // K3's split attention block (window_fwd.cuh)
-    off = attention_layout(bf16, false, cross, C, inner, hg, d, dp).total;
+  } else if (kind == kAttn) {  // K3's split attention block (window_fwd.cuh), its kDrop form's hashes after
+    off = attention_layout(bf16, false, cross, C, inner, hg, d, dp).total + (drop ? drop_attention_bytes(hg) : 0);
   } else if (kind == kRows) {
     off = L.tabs = align16(ring_a_bytes(bf16, 1, kProjStages) + b_bytes(bf16, kProjCols, kProjStages));
     off += align16(2 * kRowsB * 4);
@@ -81,7 +84,8 @@ struct K4Args {
   float scale;
   int windows;  // the token layout: 0 image (K4), 1 windows (K1)
   float* stats;  // the backward's recompute: LN1's (mean, 1/std) of every token, (S*B*H*W, 2)
-  swin::DropSite drop;  // the dropout backward's recompute: the proj site (k4_rows_kernel's kDrop)
+  // the kDrop forms: the call's sites (the backward's recompute reads only the proj site)
+  swin::BlockDrop drop;
 };
 
 // One GEMM result's sums in registers, fp32 tiles or mma fragments.
@@ -202,14 +206,22 @@ __global__ void __launch_bounds__(kThreads) k4_ln_kernel(const K4Args a) {
       [&](int i, float v) { out[i] = from_float<Act<kBf16>>(v); });
 }
 
+// The unit hashes and slots of a tile's 49 tokens at `site` (token t's row offset rows[t] =
+// token * C), over the ring once the GEMM is done with it; ends with a barrier.
+__device__ __forceinline__ void tile_hashes(const swin::DropSite& site, int n, const int* rows, int C, uint32_t* ph,
+                                            int* slot) {
+  for (int t = threadIdx.x; t < kT; t += kThreads) ph[t] = swin::token_hash(site, n, rows[t] / C, &slot[t]);
+  __syncthreads();
+}
+
 // One block per (49 rows, stream * batch, 48 output columns), A (in the operands' type)
 // streamed through a six-deep ring. kFc2 false: the projection, rows of a window, y = x +
 // (AV wp + bp) into the fp32 scratch; kFc2 true: 49 consecutive token rows of x's layout,
-// out = y + (h w2 + b2). kDrop (the projection in fp32, the dropout backward's recompute): y = x +
-// drop(AV wp + bp) at a.drop, each element's token hashed where it is stored.
+// out = y + (h w2 + b2). kDrop (the forward's dropout form, and the dropout backward's recompute
+// of the projection): y = x + drop(AV wp + bp) at the proj site, out = y + drop(h w2 + b2) at the
+// out site, the tokens' unit hashes over the ring after the GEMM.
 template <typename TX, bool kBf16, bool kFc2, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
-  static_assert(!(kDrop && (kBf16 || kFc2)), "the dropout form is the fp32 projection");
   extern __shared__ __align__(16) unsigned char smem[];
   using T = TX;
   using A = Act<kBf16>;
@@ -254,18 +266,22 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
   const float* bias = (kFc2 ? a.b2 : a.bp) + s * C + c0;
   const size_t base = nb * hw * C + c0;
   float* y = a.y + base;
+  // kDrop: the element's term, dropped or kept at this launch's site
+  const swin::DropSite& site = a.drop.site[kFc2 ? swin::kSiteOut : swin::kSiteProj];
+  uint32_t* ph = reinterpret_cast<uint32_t*>(smem);
+  int* slot = reinterpret_cast<int*>(ph + kRowsB);
+  if constexpr (kDrop) tile_hashes(site, nb, orows, C, ph, slot);
+  auto term = [&](int t, int col, float v) {
+    if constexpr (kDrop) return swin::masked(swin::token_keep(site, ph[t], slot[t], c0 + col, C), v, site.scale);
+    else return v;
+  };
   if constexpr (kFc2) {
     T* out = static_cast<T*>(a.out) + base;
-    apply(acc, g.nb, [&](int t, int col, float v) { return y[orows[t] + col] + (v + bias[col]); });
+    apply(acc, g.nb, [&](int t, int col, float v) { return y[orows[t] + col] + term(t, col, v + bias[col]); });
     each(acc, g.nb, [&](int t, int col, float v) { out[orows[t] + col] = from_float<T>(v); });
   } else if constexpr (kDrop) {
     const T* x = static_cast<const T*>(a.x) + base;
-    apply(acc, g.nb, [&](int t, int col, float v) {
-      int slot;
-      const uint32_t ph = swin::token_hash(a.drop, nb, orows[t] / C, &slot);
-      return to_f(x[orows[t] + col]) +
-             swin::masked(swin::token_keep(a.drop, ph, slot, c0 + col, C), v + bias[col], a.drop.scale);
-    });
+    apply(acc, g.nb, [&](int t, int col, float v) { return to_f(x[orows[t] + col]) + term(t, col, v + bias[col]); });
     each(acc, g.nb, [&](int t, int col, float v) { y[orows[t] + col] = v; });
   } else {
     const T* x = static_cast<const T*>(a.x) + base;
@@ -277,8 +293,9 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
 // One block per (49 tokens, stream * batch, hc hidden columns): LN2(y) from the LN2 pass's
 // scratch and w1's columns both streamed through rings (no per-block LN2 prologue: the block
 // is small enough for two an SM); h = ELU(. + b1) into the hidden scratch (rounded under
-// kBf16).
-template <bool kBf16>
+// kBf16). kDrop (the forward's dropout form): h = drop(ELU(. + b1)) at the hidden site, before
+// the rounding.
+template <bool kBf16, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, 2) k4_fc1_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   using T = Act<kBf16>;
@@ -309,7 +326,18 @@ __global__ void __launch_bounds__(kThreads, 2) k4_fc1_kernel(const K4Args a) {
   }
   T* h = static_cast<T*>(a.hid) + tok * hidden + j0;
   const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
-  apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+  if constexpr (kDrop) {
+    const swin::DropSite& site = a.drop.site[swin::kSiteHidden];
+    uint32_t* ph = reinterpret_cast<uint32_t*>(smem);
+    int* slot = reinterpret_cast<int*>(ph + kRowsB);
+    for (int t = threadIdx.x; t < kT; t += kThreads) ph[t] = swin::token_hash(site, nb, r0 + t, &slot[t]);
+    __syncthreads();
+    apply(acc, nh, [&](int t, int col, float v) {
+      return swin::masked(swin::token_keep(site, ph[t], slot[t], j0 + col, hidden), elu(v + b1[col]), site.scale);
+    });
+  } else {
+    apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+  }
   each(acc, nh, [&](int t, int col, float v) { h[static_cast<size_t>(t) * hidden + col] = from_float<T>(v); });
 }
 

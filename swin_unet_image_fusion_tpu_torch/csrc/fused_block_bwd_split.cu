@@ -500,7 +500,7 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, const 
   k4fwd::K4Args f = {in[kX], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp],
                      in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2], in[kB2], nullptr, sc.lnx,
                      sc.av, sc.y, sc.h, S, B, H, W, C, inner, heads, d, hidden, hg_fwd, kFc1Cols, top, top, cross,
-                     scale, windows != 0, sc.stats1, sites.site[swin::kSiteProj]};
+                     scale, windows != 0, sc.stats1, sites};
   const unsigned ln_blocks =
       static_cast<unsigned>((static_cast<size_t>(nb) * H * W + kThreads / 8 - 1) / (kThreads / 8));
   k4fwd::k4_ln_kernel<TX, false, false, true><<<ln_blocks, kThreads, 0, st>>>(f);

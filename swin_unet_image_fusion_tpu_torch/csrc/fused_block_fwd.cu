@@ -1,12 +1,14 @@
-// Fused pre-norm Swin block, the forward without dropout, fp32 and bf16, redesigned for
-// Hopper (sm_90a), in both layouts of fused_block.cu:
+// Fused pre-norm Swin block, the forward with and without dropout, fp32 and bf16, redesigned
+// for Hopper (sm_90a), in both layouts of fused_block.cu:
 //   K4  swin_unet_image_fusion_tpu/ops/pallas_block.py::_block_fwd_body (l.52-190, through
-//       _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block), on the image;
+//       _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block; dropout l.87-109,
+//       155-158, 167-168, 183-187), on the image;
 //   K1  swin_unet_image_fusion_tpu/ops/pallas_pack.py::_packed_block_fwd_body (l.525-688,
 //       through _packed_fwd_kernel / _packed_fwd_kernel_self from
-//       pallas_packed_block_strips), on window-packed tokens.
-// The dropout forms keep the five launches of fused_block.cu, and so does the backward's
-// recompute where ops/fused_block.py::block_bwd_plan routes it to fused_block.cu's backward;
+//       pallas_packed_block_strips; dropout l.581-594, 626-640, 657-661, 679-685), on
+//       window-packed tokens.
+// The backward's recompute keeps fused_block.cu's five launches where
+// ops/fused_block.py::block_bwd_plan routes it to fused_block.cu's backward (stage 4);
 // fused_block_bwd.cu recomputes on this file's design (window_fwd.cuh; at stages 2-3 the split
 // route's kernels, which block_fwd.cuh holds for both files).
 // The function is the one fused_block.cu computes:
@@ -63,6 +65,17 @@
 // scores and y stay fp32; out is rounded once on the store.
 // Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
 // same bits.
+// Dropout (kDrop, a template parameter: the forms without dropout keep their bits): the four
+// sites of the reference with hash_dropout.cuh's masks, keyed on K4's padded windows for the
+// image layout and on K1's window pairs for the windows layout (ops/dropout_layout.py; a site of
+// rate 0 is the identity), each in the epilogue of the product that makes it: p before AV (the
+// fp32 core hashes each weight's keep bit where it uses it, among the key's FMAs; the bf16 core,
+// whose P rows take few instructions, reads keep words hashed once a window and head, two 32-bit
+// words a query row, in shared memory: split_ab.py --dropout chose each, PERF.md §6; in bf16 p is
+// masked before its rounding), y = x + drop(proj + bp), the hidden
+// drop(ELU(fc1 + b1)) before its rounding, out = y + drop(fc2 + b2). The tokens' unit hashes are
+// computed once a block per site. The forward stores no keep bits: the backward hashes them
+// again. The same launches: one at C <= 48, six above, no mask kernel.
 
 #include "block_fwd.cuh"
 
@@ -99,13 +112,16 @@ __device__ void mask_bias(float* bias_s, const int* region) {
 
 // ---- the one-launch route ----------------------------------------------------------------
 // One block per (window, stream * batch): the whole block in shared memory (header).
-// TX: x's and out's type; kBf16: bf16 operands (K4's rounding), else fp32 inside.
-template <int DP, typename TX, bool kBf16, int kBlocksPerSm>
+// TX: x's and out's type; kBf16: bf16 operands (K4's rounding), else fp32 inside. kDrop: the
+// four sites (header); once the q/k/v product is stored, the tokens' unit hashes at each site
+// and their slots go over the q/k/v columns and biases, dead by then; the bf16 core reads the
+// attention's keep words from the ring after its P, the fp32 core hashes each weight's bit.
+template <int DP, typename TX, bool kBf16, int kBlocksPerSm, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   using T = TX;
   const int C = a.C, inner = a.inner, hidden = a.hidden;
-  const K4Layout L = k4_layout(kFused, kBf16, a.cross != 0, C, inner, hidden, a.heads, a.d, DP, a.hc);
+  const K4Layout L = k4_layout(kFused, kBf16, a.cross != 0, C, inner, hidden, a.heads, a.d, DP, a.hc, kDrop);
   const int tid = threadIdx.x;
   const int win = blockIdx.x, nb = blockIdx.y;
   const int s = nb / a.B, b = nb % a.B;
@@ -165,8 +181,33 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
   mask_bias(bias_s, region);
   zero_smem(smem, L.a0, L.a0 + a_bytes(kBf16, max2(C, inner)));  // AV's padded channels
   __syncthreads();
-  attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(ring), bias_s, a.heads, a.d,
-                            [&](int t, int col, float v) { a_put<kBf16>(a0, inner, t, col, v); });
+  uint32_t* ph = reinterpret_cast<uint32_t*>(col_ofs);  // kDrop: [site][64] unit hashes, then slots
+  int* slot = reinterpret_cast<int*>(ph + swin::kNumSites * kRowsB);
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.ring + L.keep);
+  if constexpr (kDrop) {
+    for (int t = tid; t < kT; t += kThreads)
+#pragma unroll
+      for (int site = 0; site < swin::kNumSites; ++site)
+        ph[site * kRowsB + t] = swin::token_hash(a.drop.site[site], nb, rows[t] / C, &slot[t]);
+    __syncthreads();
+    if constexpr (kBf16) {
+      swin::attention_keep_words(a.drop.site[swin::kSiteAttn], ph, slot, 0, a.heads, a.heads, keep_s);
+      __syncthreads();
+    }
+  }
+  // kDrop: the term of token t, column col of a token site `cols` wide, dropped or kept
+  auto term = [&](int site, int t, int col, int cols, float v) {
+    if constexpr (kDrop)
+      return swin::masked(swin::token_keep(a.drop.site[site], ph[site * kRowsB + t], slot[t], col, cols), v,
+                          a.drop.site[site].scale);
+    else
+      return v;
+  };
+  constexpr int kCoreDrop = !kDrop ? swin::kNoDrop : kBf16 ? swin::kDropWords : swin::kDropHashed;
+  attention_core<DP, kBf16, kCoreDrop>(
+      q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(ring), bias_s, a.heads, a.d,
+      [&](int t, int col, float v) { a_put<kBf16>(a0, inner, t, col, v); }, keep_s, a.drop.site[swin::kSiteAttn].scale,
+      swin::AttnHash{a.drop.site[swin::kSiteAttn], ph + swin::kSiteAttn * kRowsB, slot, 0, a.heads});
   __syncthreads();
 
   {  // y = x + (AV wp + bp), fp32, in place of x
@@ -180,7 +221,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
     zero_sums(acc);
     gemm_res(acc, g, a0, a0, ring);
     const float* bp = a.bp + s * C;
-    apply(acc, C, [&](int t, int col, float v) { return xs[t * C + col] + (v + bp[col]); });
+    apply(acc, C,
+          [&](int t, int col, float v) { return xs[t * C + col] + term(swin::kSiteProj, t, col, C, v + bp[col]); });
     each(acc, C, [&](int t, int col, float v) { xs[t * C + col] = v; });
   }
   __syncthreads();
@@ -205,7 +247,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
     zero_sums(acc);
     gemm_res(acc, g1, a0, a0, ring);
     const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
-    apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+    apply(acc, nh, [&](int t, int col, float v) {
+      return term(swin::kSiteHidden, t, j0 + col, hidden, elu(v + b1[col]));
+    });
     each(acc, nh, [&](int t, int col, float v) { a_put<kBf16>(h_s, a.hc, t, col, v); });
     __syncthreads();
     Gemm g2{};
@@ -225,7 +269,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
   }
   T* out = static_cast<T*>(a.out) + static_cast<size_t>(s * a.B + b) * map;
   const float* b2 = a.b2 + s * C;
-  apply(out_acc, C, [&](int t, int col, float v) { return xs[t * C + col] + (v + b2[col]); });
+  apply(out_acc, C,
+        [&](int t, int col, float v) { return xs[t * C + col] + term(swin::kSiteOut, t, col, C, v + b2[col]); });
   each(out_acc, C, [&](int t, int col, float v) { out[rows[t] + col] = from_float<T>(v); });
 }
 
@@ -263,56 +308,65 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const K4Args& a, cudaStre
   return cudaGetLastError();
 }
 
-int layout_total(int kind, bool bf16, const K4Args& a) {
-  return k4_layout(kind, bf16, a.cross != 0, a.C, a.inner, a.hidden, a.hg, a.d, pitch_for(a.d), a.hc).total;
+int layout_total(int kind, bool bf16, const K4Args& a, bool drop) {
+  return k4_layout(kind, bf16, a.cross != 0, a.C, a.inner, a.hidden, a.hg, a.d, pitch_for(a.d), a.hc, drop).total;
 }
 
-template <int DP, typename TX, bool kBf16>
+// kDrop: the dropout forms of the same launches.
+template <int DP, typename TX, bool kBf16, bool kDrop>
 cudaError_t launch_block(bool fused, const K4Args& a, cudaStream_t st) {
   const int nwin = (a.H / 7) * (a.W / 7), nb = a.S * a.B;
   if (fused) {
     if constexpr (DP <= kFusedPitchMax) {
-      const int smem = layout_total(kFused, kBf16, a);
-      return smem <= kSmem3 ? launch(k4_fused_kernel<DP, TX, kBf16, 3>, dim3(nwin, nb), smem, a, st)
-                            : launch(k4_fused_kernel<DP, TX, kBf16, 2>, dim3(nwin, nb), smem, a, st);
+      const int smem = layout_total(kFused, kBf16, a, kDrop);
+      return smem <= kSmem3 ? launch(k4_fused_kernel<DP, TX, kBf16, 3, kDrop>, dim3(nwin, nb), smem, a, st)
+                            : launch(k4_fused_kernel<DP, TX, kBf16, 2, kDrop>, dim3(nwin, nb), smem, a, st);
     }
     return cudaErrorInvalidValue;
   }
   const size_t rows = static_cast<size_t>(nb) * a.H * a.W;
   const unsigned ln_blocks = static_cast<unsigned>((rows + kThreads / 8 - 1) / (kThreads / 8));
   k4_ln_kernel<TX, kBf16, false><<<ln_blocks, kThreads, 0, st>>>(a);
-  // K3's split attention block on LN1(x) and LN1(kv): AV into the window-major scratch
+  // K3's split attention block on LN1(x) and LN1(kv): AV into the window-major scratch; its
+  // dropout form hashes the keep words of its heads and stores none
   const Args k3 = {a.ln, a.wq, a.bq, a.wk, a.bk, a.wv, a.bv, a.wp, a.bp, a.bias, nullptr, a.av,
                    a.S, a.B, a.H, a.W, a.C, a.inner, a.heads, a.d, a.hg, a.top, a.left, a.cross, a.scale,
-                   a.windows};
-  const int asmem = layout_total(kAttn, kBf16, a);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false>), asmem);
+                   a.windows, a.drop.site[swin::kSiteAttn], nullptr};
+  constexpr int kAttnDrop = !kDrop ? swin::kNoDrop : kBf16 ? swin::kDropWords : swin::kDropHashed;
+  const int asmem = layout_total(kAttn, kBf16, a, kDrop);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false, kAttnDrop>), asmem);
   if (err != cudaSuccess) return err;
-  k3_attention_kernel<DP, kBf16, false><<<dim3(nwin, nb, a.heads / a.hg), kThreads, asmem, st>>>(k3);
+  k3_attention_kernel<DP, kBf16, false, kAttnDrop><<<dim3(nwin, nb, a.heads / a.hg), kThreads, asmem, st>>>(k3);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int tiles = a.H * a.W / kT, col_groups = (a.C + kProjCols - 1) / kProjCols;
-  err = launch(k4_rows_kernel<TX, kBf16, false>, dim3(nwin, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+  const int rsmem = layout_total(kRows, kBf16, a, kDrop);
+  err = launch(k4_rows_kernel<TX, kBf16, false, kDrop>, dim3(nwin, nb, col_groups), rsmem, a, st);
   if (err != cudaSuccess) return err;
   k4_ln_kernel<TX, kBf16, true><<<ln_blocks, kThreads, 0, st>>>(a);  // LN2 into LN1's scratch
-  err = launch(k4_fc1_kernel<kBf16>, dim3(tiles, nb, (a.hidden + a.hc - 1) / a.hc), layout_total(kFc1, kBf16, a),
-               a, st);
+  err = launch(k4_fc1_kernel<kBf16, kDrop>, dim3(tiles, nb, (a.hidden + a.hc - 1) / a.hc),
+               layout_total(kFc1, kBf16, a, kDrop), a, st);
   if (err != cudaSuccess) return err;
-  return launch(k4_rows_kernel<TX, kBf16, true>, dim3(tiles, nb, col_groups), layout_total(kRows, kBf16, a), a, st);
+  return launch(k4_rows_kernel<TX, kBf16, true, kDrop>, dim3(tiles, nb, col_groups), rsmem, a, st);
+}
+
+template <typename TX, bool kBf16, bool kDrop>
+cudaError_t launch_pitch(bool fused, const K4Args& a, cudaStream_t st) {
+  switch (pitch_for(a.d)) {
+    case 4: return launch_block<4, TX, kBf16, kDrop>(fused, a, st);
+    case 8: return launch_block<8, TX, kBf16, kDrop>(fused, a, st);
+    case 12: return launch_block<12, TX, kBf16, kDrop>(fused, a, st);
+    case 16: return launch_block<16, TX, kBf16, kDrop>(fused, a, st);
+    case 24: return launch_block<24, TX, kBf16, kDrop>(fused, a, st);
+    case 32: return launch_block<32, TX, kBf16, kDrop>(fused, a, st);
+    case 48: return launch_block<48, TX, kBf16, kDrop>(fused, a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename TX, bool kBf16>
-cudaError_t launch_pitch(bool fused, const K4Args& a, cudaStream_t st) {
-  switch (pitch_for(a.d)) {
-    case 4: return launch_block<4, TX, kBf16>(fused, a, st);
-    case 8: return launch_block<8, TX, kBf16>(fused, a, st);
-    case 12: return launch_block<12, TX, kBf16>(fused, a, st);
-    case 16: return launch_block<16, TX, kBf16>(fused, a, st);
-    case 24: return launch_block<24, TX, kBf16>(fused, a, st);
-    case 32: return launch_block<32, TX, kBf16>(fused, a, st);
-    case 48: return launch_block<48, TX, kBf16>(fused, a, st);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_drop(bool fused, bool drop, const K4Args& a, cudaStream_t st) {
+  return drop ? launch_pitch<TX, kBf16, true>(fused, a, st) : launch_pitch<TX, kBf16, false>(fused, a, st);
 }
 
 }  // namespace
@@ -326,17 +380,19 @@ const char* swin_cuda_error_string(int code) {
 // Shared memory in bytes of one block of kernel `kind` (0 the one-launch block, 1 the split
 // route's attention, 2 its projection and fc2, 3 its fc1, 4 its LN1 and LN2 passes, which
 // have none), with
-// bf16 operands (K4 bf16) or fp32 ones (fp32, and K1 in either I/O type), or 0 where the
-// kernels do not take the dimensions (see supported()).
+// bf16 operands (K4 bf16) or fp32 ones (fp32, and K1 in either I/O type), in the dropout form
+// with `drop` set, or 0 where the kernels do not take the dimensions (see supported()).
 size_t swin_k4_fwd_smem(int kind, int bf16_ops, int cross, int C, int inner, int heads, int d, int hidden,
-                        int hg, int hc) {
+                        int hg, int hc, int drop) {
   if (kind < kFused || kind > kLn || !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, kind == kFused))
     return 0;
   return static_cast<size_t>(
-      k4_layout(kind, bf16_ops != 0, cross != 0, C, inner, hidden, hg, d, pitch_for(d), hc).total);
+      k4_layout(kind, bf16_ops != 0, cross != 0, C, inner, hidden, hg, d, pitch_for(d), hc, drop != 0).total);
 }
 
-// The block's forward without dropout on `stream`: x and out fp32, or bf16 when `bf16_io` is
+// The block's forward on `stream`, with dropout where `drop` (ops/dropout_layout.py's keying of
+// the layout: K4's for the image, K1's for the windows; a site off is the identity) is not
+// nullptr: x and out fp32, or bf16 when `bf16_io` is
 // set, (S, B, H, W, C) in the image layout or (S, B, nWin, 49, C) in the windows layout
 // (`windows`); `bf16_ops`: K4's rounding (bf16 operands; needs bf16_io), else the block in
 // fp32 inside (fp32, and K1 with bf16 I/O: x upcast on load, out rounded once on the store);
@@ -350,7 +406,7 @@ int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float
                 const float* wk, const float* bk, const float* wv, const float* bv, const float* wp,
                 const float* bp, const float* bias, const float* ln2g, const float* ln2b, const float* w1,
                 const float* b1, const float* w2, const float* b2, void* out, void* ln, void* av, float* y,
-                void* hid,
+                void* hid, const swin::DropArgs* drop,
                 int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg, int hc, int fused,
                 int shift, int cross, int windows, int bf16_io, int bf16_ops, float scale, void* stream) {
   const int inner = heads * d;
@@ -358,14 +414,16 @@ int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float
       !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
       (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool dropping = drop != nullptr;
   const K4Args a = {x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
                     out, ln, av, y, hid, S, B, H, W, C, inner, heads, d, hidden, hg, hc,
-                    shift ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0};
+                    shift ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0, nullptr,
+                    dropping ? swin::block_drop(drop, H * W, B) : swin::BlockDrop{}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bf16_ops) err = launch_pitch<bf16, true>(fused != 0, a, st);        // K4 bf16
-  else if (bf16_io) err = launch_pitch<bf16, false>(fused != 0, a, st);   // K1 bf16
-  else err = launch_pitch<float, false>(fused != 0, a, st);
+  if (bf16_ops) err = launch_drop<bf16, true>(fused != 0, dropping, a, st);        // K4 bf16
+  else if (bf16_io) err = launch_drop<bf16, false>(fused != 0, dropping, a, st);   // K1 bf16
+  else err = launch_drop<float, false>(fused != 0, dropping, a, st);
   return static_cast<int>(err);
 }
 

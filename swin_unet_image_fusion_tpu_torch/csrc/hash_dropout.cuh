@@ -172,4 +172,27 @@ __device__ __forceinline__ void attention_keep_words(const DropSite& d, const ui
 // Key u's bit of a (head, query row)'s keep words.
 __device__ __forceinline__ bool word_keep(const uint32_t* w, int u) { return (w[u >> 5] >> (u & 31)) & 1u; }
 
+// Where an attention core finds a weight's keep bit (its kDrop): nowhere (no dropout), in keep
+// words hashed once a window and head (attention_keep_words; the backward's blocks read them
+// again), or hashed where the core uses it, from the query token's unit hash and the tokens'
+// slots. The fp32 forward core takes the last: it hides the hash among a key's FMAs (K1's and
+// K4's fp32 dropout forward 33.2 / 33.8 ms per 224² batch-20 step with keep words, 31.4 / 31.8
+// hashed, split_ab.py --dropout on an H100); the bf16 core, whose P rows take few instructions a
+// key, the words (K4 bf16's 28.9 ms with words, 29.7 hashed).
+enum AttnDrop { kNoDrop = 0, kDropWords = 1, kDropHashed = 2 };
+
+// The per-element keys of kDropHashed: the site, the tokens' unit hashes at it and their slots
+// (64 each, the window's tokens), the first head of the block's group and the heads of a window.
+struct AttnHash {
+  DropSite site;
+  const uint32_t* ph;
+  const int* slot;
+  int h0, heads;
+};
+
+// The keep bit of the weight of query slot sq (unit hash phq) and key u, head h of the group.
+__device__ __forceinline__ bool hashed_keep(const AttnHash& k, uint32_t phq, int sq, int h, int u) {
+  return hash_keep(phq, attn_intra(k.site, k.h0 + h, sq, k.slot[u], k.heads), k.site.threshold);
+}
+
 }  // namespace swin

@@ -4,10 +4,11 @@
 // of windows, stream and group of heads recomputes q/k/v, g_o and AV and runs window_bwd.cuh's
 // core backward), its shared-memory layout and arguments, and the split route's g_x kernel
 // with its layout and column groups (gx_width, which fused_block_bwd.cu's split route uses
-// for its own products of C columns). The block's kDrop form (k3_bwd_kernel<DP, false, true>)
-// takes the attention's keep words that the recompute wrote: the split route's dropout form
-// runs it with the block's own keying; K3's dropout backward still runs window_attention.cu.
-// window_attention_bwd.cu's header says what bounds them and why the design is so.
+// for its own products of C columns). The block's kDrop form (k3_bwd_kernel<DP, kFused, true>)
+// masks the attention weights: with a.keep set it reads the keep words that a recompute wrote
+// (the split route of K1's and K4's dropout backward), else it hashes them itself once a window
+// and head (K3's dropout backward, window_attention_bwd.cu). window_attention_bwd.cu's header
+// says what bounds them and why the design is so.
 
 #pragma once
 
@@ -75,9 +76,11 @@ struct BwdArgs {
   int windows;  // the token layout that window_rows reads: 0, the image
   int bf16;     // x, g and g_x bf16 (else fp32)
   // kDrop: the keep words of every (image, window, head), (S*B, windows, heads, 49, 2), as the
-  // recomputed forward wrote them, and the attention site's scale
+  // recomputed forward wrote them, or nullptr for the block to hash them at `drop` (the
+  // attention site, K3's keying); and the attention site's scale
   const uint32_t* keep;
   float drop_scale;
+  swin::DropSite drop;
 };
 
 // Element i of x's type (fp32, or bf16 rounded once) from an fp32 value.
@@ -86,13 +89,13 @@ __device__ __forceinline__ void put_act(void* p, size_t i, float v, int is_bf16)
   else static_cast<float*>(p)[i] = v;
 }
 
-// One block per (group of windows, stream, group of hg heads): see the header. kDrop (the split
-// route of K1's and K4's dropout backward, on g = drop(g_y) at the proj site): the window's keep
-// words of the group's heads from a.keep; AV recomputed from the dropped weights (wp's gradient
-// reads it) and the core's backward with g_P masked and g_v from the dropped P.
+// One block per (group of windows, stream, group of hg heads): see the header. kDrop (K3's
+// dropout backward, and the split route of K1's and K4's, on g = drop(g_y) at the proj site): the
+// window's keep words of the group's heads, from a.keep or hashed here (the tokens' unit hashes
+// and slots over the ring, free until the q/k/v product); AV recomputed from the dropped weights
+// (wp's gradient reads it) and the core's backward with g_P masked and g_v from the dropped P.
 template <int DP, bool kFused, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const BwdArgs a) {
-  static_assert(!(kDrop && kFused), "the dropout form is the split block");
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
   const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP, kDrop);
@@ -145,9 +148,19 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
       bias_s[e] = region[e / kT] == region[e % kT] ? a.bias[s * kT * kT + e] : -__int_as_float(0x7f800000);
     uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.keep);
     if constexpr (kDrop) {
-      const int words = hg * kT * swin::kKeepWords;
-      const uint32_t* keep = a.keep + ((img * nwin + win) * (inner / d) + grp * hg) * kT * swin::kKeepWords;
-      for (int i = threadIdx.x; i < words; i += kThreads) keep_s[i] = keep[i];
+      if (a.keep != nullptr) {
+        const int words = hg * kT * swin::kKeepWords;
+        const uint32_t* keep = a.keep + ((img * nwin + win) * (inner / d) + grp * hg) * kT * swin::kKeepWords;
+        for (int i = threadIdx.x; i < words; i += kThreads) keep_s[i] = keep[i];
+      } else {  // the query's unit keys the pair: image img, the window's tokens
+        uint32_t* ph = reinterpret_cast<uint32_t*>(smem);
+        int* slot = reinterpret_cast<int*>(ph + kRowsB);
+        for (int t = threadIdx.x; t < kT; t += kThreads)
+          ph[t] = swin::token_hash(a.drop, static_cast<int>(img), tok[t], &slot[t]);
+        __syncthreads();
+        swin::attention_keep_words(a.drop, ph, slot, grp * hg, hg, inner / d, keep_s);
+        __syncthreads();  // the q/k/v product's ring goes over the hashes
+      }
     }
     {  // q (scaled), k, v of the group's heads
       Gemm gm{};
@@ -195,12 +208,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
         q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
         [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; }, keep_s, a.drop_scale);
     if constexpr (kFused) {
-      core_bwd<DP>(
+      core_bwd<DP, kDrop>(
           q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab, [&](int t, int col, float v) { a_at(u, t, col) = v; },
           [&](int t, int col, float gk, float gv) {
             a_at(u, t, inner + col) = gk;
             a_at(u, t, 2 * inner + col) = gv;
-          });
+          },
+          keep_s, a.drop_scale);
       __syncthreads();
       store_a(u, inner, a.gq + hrow * inner, inner, tok);
       store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);

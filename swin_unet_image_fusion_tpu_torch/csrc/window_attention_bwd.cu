@@ -1,10 +1,9 @@
-// Swin window attention (K3), the backward without dropout, fp32 and bf16, redesigned for
-// Hopper (sm_90a).
+// Swin window attention (K3), the backward with and without dropout, fp32 and bf16, redesigned
+// for Hopper (sm_90a).
 //
 // Replaces swin_unet_image_fusion_tpu/ops/pallas_attention.py::_attention_bwd_body (l.335-,
 // through _attention_bwd_kernel / _attention_bwd_kernel_self from pallas_window_attention's
-// _backward, l.770) for calls without dropout; the dropout forms keep window_attention.cu's
-// backward (swin_window_attention_bwd). The function is that backward's: given x, the nine
+// _backward, l.770), dropout l.372-386 and 450-468. The function is that backward's: given x, the nine
 // weights and g = dL/d out it recomputes q (scaled), k, v and AV and returns g_x and every
 // weight's gradient; under cross the k/v gradients of stream s belong to stream 1-s's rows;
 // the softmax clamp at 80 is not differentiated and a masked score gives P = g_S = 0. fp32
@@ -38,6 +37,14 @@
 // wv]^T) come first, so that every product streams its weights through the same ring.
 // fp32 FMA throughout (TF32 off), no atomics: every sum has one fixed order, and the blocks
 // per stream and group come from the caller, so a repeat gives the same bits.
+// Dropout (the attention site of `drop`, keyed on K3's wrap windows, ops/dropout_layout.py "k3";
+// the projection's dropout is the caller's): the same launches with the block's kDrop form
+// (k3_bwd.cuh). The block hashes its window's keep words of its heads once (two 32-bit words a
+// query row, hash_dropout.cuh::attention_keep_words) into shared memory; AV, wp's gradient's
+// operand, comes from the dropped P = drop(p); the core backward masks g_P = drop(g_o v^T) with
+// the same bits and scale, forms g_v from the dropped P and g_S = P (g_P - sum g_P P) from the
+// undropped P. A masked score has P = 0, so its keep bit never shows. The forward keeps
+// window_attention.cu's three launches.
 
 #include "k3_bwd.cuh"
 
@@ -65,12 +72,13 @@ int pitch_for(int d, bool fused) {
 // Whether the route takes these dimensions (ops/window_attention.py::bwd_plan makes the same
 // checks and raises first): every head in the block on the fused route, the weight-gradient
 // launch's slabs and each block within a block's shared memory.
-bool supported(int C, int inner, int heads, int d, int hg, bool fused, bool cross) {
+// drop: the dropout form, whose block holds its heads' keep words.
+bool supported(int C, int inner, int heads, int d, int hg, bool fused, bool cross, bool drop) {
   const int n = hg * d;
   if (pitch_for(d, fused) == 0 || hg < 1 || heads % hg != 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 ||
       n % 8 != 0 || 3 * n > kMaxCols || 3 * n > kColTable || (fused && (hg != heads || C > kMaxCols)))
     return false;
-  return bwd_layout(fused, cross, C, inner, hg, d, pitch_for(d, fused)).total <= kSmemMax &&
+  return bwd_layout(fused, cross, C, inner, hg, d, pitch_for(d, fused), drop).total <= kSmemMax &&
          gx_layout(gx_width(C)).total <= kSmemMax && wg_smem(C, inner) <= kSmemMax && wg_smem(inner, C) <= kSmemMax;
 }
 
@@ -105,36 +113,39 @@ BwdScratch carve(swin::Arena& ar, int S, int M, int C, int inner, int groups, in
 // the gradient of each weight in slot order (out[w] for In w).
 enum In { kX, kWq, kBq, kWk, kBk, kWv, kBv, kWp, kBp, kBias, kG };
 
-template <int DP, bool kFused>
+template <int DP, bool kFused, bool kDrop>
 cudaError_t launch_block(int blocks, int groups, int smem, const BwdArgs& a, cudaStream_t st) {
   const cudaError_t err =
-      cudaFuncSetAttribute(k3_bwd_kernel<DP, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(k3_bwd_kernel<DP, kFused, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  k3_bwd_kernel<DP, kFused><<<dim3(blocks, a.S, groups), kThreads, smem, st>>>(a);
+  k3_bwd_kernel<DP, kFused, kDrop><<<dim3(blocks, a.S, groups), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
+template <bool kDrop>
 cudaError_t launch_pitch(bool fused, int dp, int blocks, int groups, int smem, const BwdArgs& a, cudaStream_t st) {
   if (fused) {
-    if (dp == 4) return launch_block<4, true>(blocks, groups, smem, a, st);
-    if (dp == 8) return launch_block<8, true>(blocks, groups, smem, a, st);
+    if (dp == 4) return launch_block<4, true, kDrop>(blocks, groups, smem, a, st);
+    if (dp == 8) return launch_block<8, true, kDrop>(blocks, groups, smem, a, st);
     return cudaErrorInvalidValue;
   }
   switch (dp) {
-    case 4: return launch_block<4, false>(blocks, groups, smem, a, st);
-    case 8: return launch_block<8, false>(blocks, groups, smem, a, st);
-    case 12: return launch_block<12, false>(blocks, groups, smem, a, st);
-    case 16: return launch_block<16, false>(blocks, groups, smem, a, st);
-    case 24: return launch_block<24, false>(blocks, groups, smem, a, st);
-    case 32: return launch_block<32, false>(blocks, groups, smem, a, st);
-    case 48: return launch_block<48, false>(blocks, groups, smem, a, st);
+    case 4: return launch_block<4, false, kDrop>(blocks, groups, smem, a, st);
+    case 8: return launch_block<8, false, kDrop>(blocks, groups, smem, a, st);
+    case 12: return launch_block<12, false, kDrop>(blocks, groups, smem, a, st);
+    case 16: return launch_block<16, false, kDrop>(blocks, groups, smem, a, st);
+    case 24: return launch_block<24, false, kDrop>(blocks, groups, smem, a, st);
+    case 32: return launch_block<32, false, kDrop>(blocks, groups, smem, a, st);
+    case 48: return launch_block<48, false, kDrop>(blocks, groups, smem, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// x, g and g_x fp32, or bf16 with `is_bf16` set (fp32 inside).
-int k3_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H, int W, int C, int heads,
-           int d, int hg, bool fused, int blocks, int shift, int cross, int is_bf16, float scale, cudaStream_t st) {
+// x, g and g_x fp32, or bf16 with `is_bf16` set (fp32 inside); drop: the attention site's
+// dropout arguments, or nullptr.
+int k3_bwd(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B, int H,
+           int W, int C, int heads, int d, int hg, bool fused, int blocks, int shift, int cross, int is_bf16,
+           float scale, cudaStream_t st) {
   const int inner = heads * d, M = B * H * W, groups = heads / hg;
   swin::Arena ar{ws};
   const BwdScratch sc = carve(ar, S, M, C, inner, groups, blocks, fused, cross != 0);
@@ -154,11 +165,17 @@ int k3_bwd(const float* const* in, float* const* out, float* ws, int S, int B, i
   }
   transpose_kernel<<<dim3(std::min((most + kThreads - 1) / kThreads, 64), jobs), kThreads, 0, st>>>(tr);
 
-  const BwdArgs a = {in[kX], in[kG], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias], sc.wpT,
-                     sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, out[0], sc.gxq, sc.gxkv, sc.tab_part, S, B, H, W, C,
-                     inner, d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0, is_bf16};
-  const int smem = bwd_layout(fused, cross != 0, C, inner, hg, d, pitch_for(d, fused)).total;
-  cudaError_t err = launch_pitch(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
+  const bool dropping = drop != nullptr;
+  BwdArgs a = {in[kX], in[kG], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias], sc.wpT,
+               sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, out[0], sc.gxq, sc.gxkv, sc.tab_part, S, B, H, W, C,
+               inner, d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0, is_bf16};
+  if (dropping) {  // the block hashes its keep words (a.keep stays nullptr)
+    a.drop = swin::drop_site(drop, swin::kSiteAttn, H * W, B);
+    a.drop_scale = a.drop.scale;
+  }
+  const int smem = bwd_layout(fused, cross != 0, C, inner, hg, d, pitch_for(d, fused), dropping).total;
+  cudaError_t err = dropping ? launch_pitch<true>(fused, pitch_for(d, fused), blocks, groups, smem, a, st)
+                             : launch_pitch<false>(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t n_x = static_cast<size_t>(S) * M * C;
@@ -227,15 +244,18 @@ extern "C" {
 
 // Dynamic shared memory in bytes of one block of the block kernel (kind 0) or of the split
 // route's g_x kernel (kind 1), or 0 where the route does not take the dimensions (hg: heads a
-// block; fused: every head, hg == heads).
-size_t swin_k3_bwd_smem(int kind, int fused, int cross, int C, int heads, int d, int hg) {
+// block; fused: every head, hg == heads; drop: the dropout form, its block holding the keep
+// words of its heads).
+size_t swin_k3_bwd_smem(int kind, int fused, int cross, int C, int heads, int d, int hg, int drop) {
   const int inner = heads * d;
-  if (kind < 0 || kind > 1 || !supported(C, inner, heads, d, hg, fused != 0, cross != 0)) return 0;
+  if (kind < 0 || kind > 1 || !supported(C, inner, heads, d, hg, fused != 0, cross != 0, drop != 0)) return 0;
   if (kind == 1) return static_cast<size_t>(gx_layout(gx_width(C)).total);
-  return static_cast<size_t>(bwd_layout(fused != 0, cross != 0, C, inner, hg, d, pitch_for(d, fused != 0)).total);
+  return static_cast<size_t>(
+      bwd_layout(fused != 0, cross != 0, C, inner, hg, d, pitch_for(d, fused != 0), drop != 0).total);
 }
 
-// Floats of workspace one call needs; blocks: blocks per (stream, group of heads).
+// Floats of workspace one call needs; blocks: blocks per (stream, group of heads). The dropout
+// form needs no more: its keep words live in each block's shared memory.
 size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d, int hg, int fused, int blocks,
                              int cross) {
   swin::Arena ar{nullptr};
@@ -243,7 +263,8 @@ size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d
   return ar.used;
 }
 
-// The backward without dropout on `stream`. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
+// The backward on `stream`, with dropout where `drop` (the forward's dropout arguments, K3's
+// keying; its attention site) is not nullptr. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
 // g = dL/d out; out: g_x, then the gradients of those nine weights in that order and shapes. x,
 // g and g_x are (S, B, H, W, C) fp32, or bf16 when `bf16_io` is set (fp32 inside); the weights
 // and their gradients fp32; 7x7 windows. hg: heads a block (fused: every head, g_x in the
@@ -251,15 +272,16 @@ size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d
 // least swin_k3_bwd_workspace(...). Every output is written in full. Returns
 // cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions the
 // route does not take or a workspace too small.
-int swin_k3_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats, int S, int B, int H, int W,
-                int C, int heads, int d, int hg, int fused, int blocks, int shift, int cross, int bf16_io, float scale,
-                void* stream) {
+int swin_k3_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats, const swin::DropArgs* drop,
+                int S, int B, int H, int W, int C, int heads, int d, int hg, int fused, int blocks, int shift,
+                int cross, int bf16_io, float scale, void* stream) {
+  if (!swin::drop_on(drop, swin::kSiteAttn)) drop = nullptr;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || blocks < 1 ||
-      !supported(C, heads * d, heads, d, hg, fused != 0, cross != 0) ||
+      !supported(C, heads * d, heads, d, hg, fused != 0, cross != 0, drop != nullptr) ||
       ws_floats < swin_k3_bwd_workspace(S, B, H, W, C, heads, d, hg, fused, blocks, cross))
     return static_cast<int>(cudaErrorInvalidValue);
-  return k3_bwd(in, out, ws, S, B, H, W, C, heads, d, hg, fused != 0, blocks, shift, cross, bf16_io != 0, scale,
-                static_cast<cudaStream_t>(stream));
+  return k3_bwd(in, out, ws, drop, S, B, H, W, C, heads, d, hg, fused != 0, blocks, shift, cross, bf16_io != 0,
+                scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

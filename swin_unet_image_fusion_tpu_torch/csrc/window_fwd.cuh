@@ -505,14 +505,16 @@ __device__ void store_qkv_mma(const float (&acc)[kMaxNTilesB][4][4], int nb, int
 // (which carries the region mask), exp of the clamped score, its sum,
 // and AV: fp32 FMAs folding 1/(sum + 1e-30) in after the sum; bf16 p = rnd(e * r) into
 // the warp's P rows and AV on the tensor cores. store(t, col, value): AV of token t, column
-// col of the block's heads (h * d + j). kDrop (fp32 only, the backward's recompute): AV of the
-// dropped weights, a key's term kept or not by bit u of the row's keep words (keep_w, [hg][49][2],
-// hash_dropout.cuh) and the kept sum times drop_scale after 1/(sum + 1e-30).
-template <int DP, bool kBf16, bool kDrop = false, typename Store>
+// col of the block's heads (h * d + j). kDrop (swin::AttnDrop): AV of the dropped weights, a key
+// kept or not by bit u of the row's keep words (kDropWords: keep_w, [hg][49][2], hash_dropout.cuh)
+// or by its hash (kDropHashed: hash, fp32 only): in fp32 the kept terms' sum times drop_scale after
+// 1/(sum + 1e-30); in bf16 p = e / (sum + 1e-30) of a kept key times drop_scale, 0 else, before
+// its rounding (the TPU body masks p before the cast for AV).
+template <int DP, bool kBf16, int kDrop = swin::kNoDrop, typename Store>
 __device__ void attention_core(const float* q_s, const float* k_s, const unsigned char* v_s, bf16* p_s,
                                const float* bias_s, int hg, int d, Store store, const uint32_t* keep_w = nullptr,
-                               float drop_scale = 1.0f) {
-  static_assert(!(kDrop && kBf16), "the dropout form of the core is fp32");
+                               float drop_scale = 1.0f, const swin::AttnHash& hash = swin::AttnHash{}) {
+  static_assert(!(kBf16 && kDrop == swin::kDropHashed), "the bf16 core reads keep words");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int dp8 = round_up(d, 8);
   for (int item = warp; item < 2 * hg; item += kWarps) {
@@ -543,6 +545,15 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
     if constexpr (kBf16) {
       bf16* pw = p_s + warp * 32 * kPStride;
       uint32_t* prow = reinterpret_cast<uint32_t*>(pw + lane * kPStride);
+      uint32_t w0 = 0u, w1 = 0u;  // kDrop: the row's keep words
+      if constexpr (kDrop) {
+        w0 = keep_w[(h * kT + tq) * swin::kKeepWords];
+        w1 = keep_w[(h * kT + tq) * swin::kKeepWords + 1];
+      }
+      auto weight = [&](int u, float p) {  // p = e * r, dropped or kept
+        if constexpr (kDrop) return ((u < 32 ? w0 : w1) >> (u & 31)) & 1u ? p * drop_scale : 0.0f;
+        else return p;
+      };
       if constexpr (DP >= 24) {  // the scores twice rather than 49 more registers at large d
         float sum = 0.0f;
 #pragma unroll 7
@@ -550,8 +561,8 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
         const float r = 1.0f / (sum + 1e-30f);
 #pragma unroll 2
         for (int u = 0; u < 64; u += 2) {
-          const float lo = act && u < kT ? score(u) * r : 0.0f;
-          const float hi = act && u + 1 < kT ? score(u + 1) * r : 0.0f;
+          const float lo = act && u < kT ? weight(u, score(u) * r) : 0.0f;
+          const float hi = act && u + 1 < kT ? weight(u + 1, score(u + 1) * r) : 0.0f;
           prow[u / 2] = pack_bf16(lo, hi);
         }
       } else {
@@ -565,8 +576,8 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
         const float r = 1.0f / (sum + 1e-30f);
 #pragma unroll
         for (int u = 0; u < 64; u += 2) {
-          const float lo = act && u < kT ? e[u] * r : 0.0f;
-          const float hi = act && u + 1 < kT ? e[u + 1] * r : 0.0f;
+          const float lo = act && u < kT ? weight(u, e[u] * r) : 0.0f;
+          const float hi = act && u + 1 < kT ? weight(u + 1, e[u + 1] * r) : 0.0f;
           prow[u / 2] = pack_bf16(lo, hi);
         }
       }
@@ -607,17 +618,22 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
 #pragma unroll
       for (int j = 0; j < DP; ++j) acc[j] = 0.0f;
       float sum = 0.0f;
-      uint32_t w0 = 0u, w1 = 0u;  // kDrop: the row's keep words
-      if constexpr (kDrop) {
+      uint32_t w0 = 0u, w1 = 0u, phq = 0u;  // the row's keep words, or its query's unit hash
+      int sq = 0;                            // and slot
+      if constexpr (kDrop == swin::kDropWords) {
         w0 = keep_w[(h * kT + tq) * swin::kKeepWords];
         w1 = keep_w[(h * kT + tq) * swin::kKeepWords + 1];
+      } else if constexpr (kDrop == swin::kDropHashed) {
+        phq = hash.ph[tq];
+        sq = hash.slot[tq];
       }
 #pragma unroll 7
       for (int u = 0; u < kT; ++u) {
         const float e = score(u);
         sum += e;
         float ev = e;
-        if constexpr (kDrop) ev = ((u < 32 ? w0 : w1) >> (u & 31)) & 1u ? e : 0.0f;
+        if constexpr (kDrop == swin::kDropWords) ev = ((u < 32 ? w0 : w1) >> (u & 31)) & 1u ? e : 0.0f;
+        else if constexpr (kDrop == swin::kDropHashed) ev = swin::hashed_keep(hash, phq, sq, h, u) ? e : 0.0f;
 #pragma unroll
         for (int j = 0; j < DP; j += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(vh + u * DP + j);
@@ -822,8 +838,9 @@ struct Args {
   int S, B, H, W, C, inner, heads, d, hg, top, left, cross;
   float scale;
   int windows;  // the token layout: 0 image (K3's and K4's), 1 windows (K1's)
-  // kDrop (the dropout backward's recompute): the attention site, and where the keep words of
-  // every (image, window, head) go, (S*B, windows, heads, 49, 2)
+  // kDrop: the attention site, and where the keep words of every (image, window, head) go,
+  // (S*B, windows, heads, 49, 2), for the dropout backward's recompute (nullptr: not stored,
+  // the forward's dropout form)
   swin::DropSite drop;
   uint32_t* keep;
 };
@@ -840,12 +857,14 @@ __host__ __device__ inline int drop_attention_bytes(int hg) {
 // kFused (every head in the block): wp arrives by cp.async while the core runs, and the
 // block projects AV from shared memory and stores the output: the whole forward in one
 // launch.
-// kDrop (split, fp32: the dropout backward's recompute): the block hashes its tokens and the keep
-// words of its heads into shared memory after the layout's end, writes the words to a.keep for
-// the backward's blocks and runs the core on the dropped weights.
-template <int DP, bool kBf16, bool kFused, bool kDrop = false>
+// kDrop (split, swin::AttnDrop): the block hashes its tokens into shared memory after the
+// layout's end and runs the core on the dropped weights; kDropWords (the bf16 forward's dropout
+// form, and the dropout backward's recompute, which sets a.keep) hashes the keep words of its heads
+// there too and writes them to a.keep where it is set, for the backward's blocks; kDropHashed (the
+// fp32 forward's) hashes each weight's bit in the core.
+template <int DP, bool kBf16, bool kFused, int kDrop = swin::kNoDrop>
 __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attention_kernel(const Args a) {
-  static_assert(!(kDrop && (kBf16 || kFused)), "the dropout form is the split fp32 block");
+  static_assert(!(kDrop && kFused), "the dropout form is the split block");
   extern __shared__ __align__(16) unsigned char smem[];
   using T = Act<kBf16>;
   const Layout L = attention_layout(kBf16, kFused, a.cross != 0, a.C, a.inner, a.hg, a.d, DP);
@@ -883,12 +902,13 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.total + align16(2 * kRowsB * 4));
-  if constexpr (kDrop) {  // the keep words of the group's heads (the rows are in place)
-    uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.total);
-    int* slot = reinterpret_cast<int*>(ph + kRowsB);
+  uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.total);
+  int* slot = reinterpret_cast<int*>(ph + kRowsB);
+  if constexpr (kDrop) {  // the tokens' unit hashes (the rows are in place); kDropWords the group's keep words
     for (int t = tid; t < kT; t += kThreads) ph[t] = swin::token_hash(a.drop, nb, rows[t] / a.C, &slot[t]);
     __syncthreads();
-    swin::attention_keep_words(a.drop, ph, slot, grp * a.hg, a.hg, a.heads, keep_s);
+    if constexpr (kDrop == swin::kDropWords)
+      swin::attention_keep_words(a.drop, ph, slot, grp * a.hg, a.hg, a.heads, keep_s);
   }
 
   const T* x = static_cast<const T*>(a.x);
@@ -953,13 +973,17 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
       store_proj_f32(acc, tile, rows, bp_s, out);
     }
   } else if constexpr (kDrop) {
-    const int words = a.hg * kT * swin::kKeepWords;
-    uint32_t* keep = a.keep + ((static_cast<size_t>(nb) * nwin + win) * a.heads + grp * a.hg) * kT * swin::kKeepWords;
-    for (int i = tid; i < words; i += kThreads) keep[i] = keep_s[i];
-    float* av = static_cast<float*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
-    attention_core<DP, false, true>(
-        q_s, k_s, smem + L.v, nullptr, bias_s, a.hg, a.d,
-        [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = v; }, keep_s, a.drop.scale);
+    if (kDrop == swin::kDropWords && a.keep != nullptr) {
+      const int words = a.hg * kT * swin::kKeepWords;
+      uint32_t* keep =
+          a.keep + ((static_cast<size_t>(nb) * nwin + win) * a.heads + grp * a.hg) * kT * swin::kKeepWords;
+      for (int i = tid; i < words; i += kThreads) keep[i] = keep_s[i];
+    }
+    T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
+    attention_core<DP, kBf16, kDrop>(
+        q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
+        [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = from_float<T>(v); }, keep_s,
+        a.drop.scale, swin::AttnHash{a.drop, ph, slot, grp * a.hg, a.heads});
   } else {
     T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
     attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library under ``build/torch_kernels/`` at the repo root,
 then loaded with ``ctypes``. The build runs at first use, never at import, and is
 cached by the hash of the source and the flags. ``build_all`` starts one ``nvcc`` per
-source, all at once, and prints ptxas's register, shared-memory and spill lines.
+source, all at once, and prints each source's wall seconds and ptxas's register,
+shared-memory and spill lines.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -55,20 +57,29 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     """Compile every source that has no library yet, all ``nvcc`` runs at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(name) for name in names}
-    pending = {}
+    pending, done = {}, {}
+    start = time.perf_counter()
+
+    def finish(name, proc):  # read the log as it comes, so that no pipe fills
+        log, _ = proc.communicate()
+        done[name] = (log, time.perf_counter() - start)
+
     for name, so in targets.items():
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            pending[name] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            waiter = threading.Thread(target=finish, args=(name, proc))
+            waiter.start()
+            pending[name] = (tmp, proc, waiter)
     failures = []
-    for name, (tmp, proc) in pending.items():
-        log, _ = proc.communicate()
+    for name, (tmp, proc, waiter) in pending.items():
+        waiter.join()
+        log, seconds = done[name]
         if proc.returncode != 0:
             failures.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
             continue
-        print(f"[build] csrc/{name}.cu -> {targets[name].name}\n{_ptxas_lines(log)}", flush=True)
+        print(f"[build] csrc/{name}.cu -> {targets[name].name} ({seconds:.1f} s)\n{_ptxas_lines(log)}", flush=True)
         os.replace(tmp, targets[name])
     if failures:
         raise RuntimeError("\n".join(failures))

@@ -34,10 +34,11 @@ SM (C <= 48 in the default model) one launch, a block per window and stream comp
 whole block in shared memory with the MLP in steps of the hidden; elsewhere six launches
 (LN1, attention in head groups, projection + x, LN2, fc1, fc2 + y). K4's bf16 products
 run on the tensor cores (``mma.sync``), fp32 ones (K1 in both dtypes) on FMA; the layout
-changes only which rows a window's tokens are. The dropout forms run the five launches of
-``csrc/fused_block.cu`` (a q/k/v GEMM with LN1 in its prologue, the attention core, proj,
-fc1 with LN2 in its prologue, fc2); a shape that the new forward does not take raises
-before any launch.
+changes only which rows a window's tokens are. A dropout call runs the same launches in their
+dropout form, the masks in the epilogues (below); a shape that the forward does not take
+raises before any launch. ``_launch_five`` keeps the five launches of ``csrc/fused_block.cu``
+(a q/k/v GEMM with LN1 in its prologue, the attention core, proj, fc1 with LN2 in its
+prologue, fc2) callable, for timing in turns; no forward falls back to them.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_FusedBlockFunction``: its backward (K1 bwd and K4 bwd) recomputes the block
@@ -74,8 +75,13 @@ for the windows layout. On a card a dropout call launches the dropout form of th
 kernels (fp32 or bf16; the masks do not depend on the dtype), counted in
 ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES`` and
 ``BF16_DROP_BWD_LAUNCHES`` in bf16); without dropout a bf16 call counts in
-``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``. The forward's dropout form is the five launches
-of ``csrc/fused_block.cu``. The backward's dropout form of the fused and split routes recomputes
+``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``. The forward's dropout form is
+``csrc/fused_block_fwd.cu``'s, one launch or six as :func:`block_fwd_plan` lays them out: the
+attention's keep bits hashed where the fp32 core uses them, or for K4's bf16 core once per
+window and head into shared memory (two 32-bit words a query row; p masked before its
+rounding), the token sites masked in the epilogues of proj, fc1 (before the hidden's rounding)
+and fc2; it stores no keep bits. The backward's dropout
+form of the fused and split routes recomputes
 the forward's attention and proj masks (the attention's keep bits once per window and head, two
 32-bit words per query row, stored for the attention's backward), keeps the ELU hidden
 undropped for ELU', and backpropagates g_m = drop(g) into the MLP (g_pre = drop(g_m w2^T)
@@ -119,6 +125,7 @@ from .window_attention import (
     _wgrad_chunks,
     attention_smem,
     fast_softmax,
+    keep_words_bytes,
     operand_rounding,
     proj_smem,
     recorded,
@@ -317,8 +324,6 @@ def _library() -> ctypes.CDLL:
     drop = ctypes.POINTER(dl.DropArgs)
     lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
     lib.swin_fused_block_fwd.restype = _I
-    lib.swin_fused_block_fwd_smem.argtypes = [_I] * 4
-    lib.swin_fused_block_fwd_smem.restype = ctypes.c_size_t
     lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10 + [drop] + [_I] * 2
     lib.swin_fused_block_bwd_workspace.restype = ctypes.c_size_t
     lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
@@ -329,9 +334,9 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_fwd")
-    lib.swin_k4_fwd.argtypes = [_P] * 23 + [_I] * 16 + [ctypes.c_float, _P]
+    lib.swin_k4_fwd.argtypes = [_P] * 23 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 16 + [ctypes.c_float, _P]
     lib.swin_k4_fwd.restype = _I
-    lib.swin_k4_fwd_smem.argtypes = [_I] * 10
+    lib.swin_k4_fwd_smem.argtypes = [_I] * 11
     lib.swin_k4_fwd_smem.restype = ctypes.c_size_t
     return lib
 
@@ -392,7 +397,7 @@ def operand_bytes(bf16: bool, k: int) -> int:
 
 
 def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, d: int,
-               pitch: int, hc: int) -> int:
+               pitch: int, hc: int, drop: bool = False) -> int:
     """Shared-memory bytes of one block of ``kind`` (``k4_layout`` in the source). fused: the
     weight ring (bf16: or the core's P, whichever is larger), x/y rows, LN1(x) (then AV,
     then LN2(y)) and under cross LN1(kv), q/k/v (or the raw kv rows before them, the hidden
@@ -401,7 +406,11 @@ def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, 
     (``window_attention.attention_smem``) on LN1(x). rows (proj and fc2): the six-deep A
     and weight rings of 48 columns, the row tables. fc1: the A ring over the LN2 pass's
     scratch and the weight ring of hc columns, three deep, and the row table. ln (the LN1
-    and LN2 passes): none (their statistics are static shared memory)."""
+    and LN2 passes): none (their statistics are static shared memory). ``drop`` (the dropout
+    form): fused, in bf16 the keep words of every head in the ring after the core's P (the ring
+    grows where they do not fit; the fp32 core hashes each weight's bit where it uses it);
+    attention, the tokens' unit hashes and slots and room for its heads' keep words after the
+    layout; rows and fc1 hash over their ring once the GEMM is done."""
     p_bytes = _WARPS * 32 * _P_STRIDE * 2 if bf16 else 0
     qk = _align16(hg * _T * pitch * 4)
     vb = _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
@@ -411,14 +420,16 @@ def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, 
         return 0  # static shared memory only
     if kind == "fused":
         nb = max(3 * inner, c, _pad_cols(bf16, hc))
-        total = _align16(max(_b_bytes(bf16, nb, _STAGES), p_bytes)) + _align16(_T * c * 4)
+        words = hg * _T * _KEEP_WORDS * 4 if drop and bf16 else 0  # the bf16 core's keep words
+        total = _align16(max(_b_bytes(bf16, nb, _STAGES), p_bytes + words)) + _align16(_T * c * 4)
         total += _align16(operand_bytes(bf16, max(c, inner)))
         total += _align16(operand_bytes(bf16, c)) if cross else 0
         total += max(2 * qk + vb, _align16(_T * c * 4) if cross else 0,
                      _align16(operand_bytes(bf16, hc)))
         return total + bias_tables + stats
     if kind == "attention":  # K3's split attention block
-        return attention_smem(bf16, False, cross, c, inner, hg, d, pitch)
+        extra = _align16(2 * 64 * 4) + keep_words_bytes(hg) if drop else 0
+        return attention_smem(bf16, False, cross, c, inner, hg, d, pitch) + extra
     if kind == "rows":
         return proj_smem(bf16)
     if kind == "fc1":
@@ -428,7 +439,8 @@ def block_smem(kind: str, bf16: bool, cross: bool, c: int, inner: int, hg: int, 
 
 @dataclass(frozen=True)
 class BlockFwdPlan:
-    """How the forward without dropout runs at one shape: ``route`` "fused" (one launch, a
+    """How the forward runs at one shape, with or without dropout (the same launches): ``route``
+    "fused" (one launch, a
     block per window and stream computes the whole block, the MLP in steps of
     ``hidden_chunk`` hidden columns) or "split" (six launches: LN1, attention with
     ``heads_per_block`` heads a block, projection, LN2, fc1 with ``hidden_chunk`` columns a
@@ -447,8 +459,9 @@ class BlockFwdPlan:
 
 @functools.lru_cache(maxsize=None)
 def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int], cross: bool,
-                   bf16: bool) -> BlockFwdPlan:
-    """The launch plan of the forward without dropout (K4 and K1, either layout), or
+                   bf16: bool, drop: bool = False) -> BlockFwdPlan:
+    """The launch plan of the forward (K4 and K1, either layout; ``drop``: its dropout form,
+    whose blocks add the masks' hashes and keep words to their shared memory), or
     ValueError where its kernels do not take the shape: 7x7 windows, d <= 48, C and heads*d
     multiples of 8, the hidden a multiple of 4. ``bf16``: bf16 *operands*
     (:func:`rounds_operands`: K4 in bf16); fp32 and K1 in either dtype take the fp32 plan.
@@ -470,7 +483,7 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
     cols = max_cols(bf16)
     if pitch <= FUSED_PITCH_MAX and 3 * inner <= cols and c <= cols:
         hc = min(hidden, cols)
-        smem = block_smem("fused", bf16, cross, c, inner, heads, d, pitch, hc)
+        smem = block_smem("fused", bf16, cross, c, inner, heads, d, pitch, hc, drop)
         if smem <= FUSED_SMEM_MAX:
             return BlockFwdPlan("fused", 1, heads, hc, pitch, (("fused", smem),),
                                 3 if smem <= SMEM_THREE_PER_SM else 2)
@@ -482,7 +495,7 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
         if heads % hg or n > GROUP_COLS or n % 8 or 3 * n > cols:
             continue
         rows = block_smem("rows", bf16, cross, c, inner, hg, d, pitch, cols)
-        smem = (("ln", 0), ("attention", block_smem("attention", bf16, cross, c, inner, hg, d, pitch, cols)),
+        smem = (("ln", 0), ("attention", block_smem("attention", bf16, cross, c, inner, hg, d, pitch, cols, drop)),
                 ("rows", rows), ("ln", 0), ("fc1", block_smem("fc1", bf16, cross, c, inner, hg, d, pitch, cols)),
                 ("rows", rows))
         if max(b for _, b in smem) > SMEM_LIMIT_BYTES:
@@ -502,12 +515,6 @@ BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
 _BWD_RING = 2  # weight-ring slots of the block kernels
 _LN1_ROWS = 128
 _KEEP_WORDS = 2  # the dropout form's attention keep words per (head, query row): keys 0-31, 32-48
-
-
-def keep_words_bytes(heads: int) -> int:
-    """Shared memory of a window's attention keep words for ``heads`` heads (``csrc/
-    hash_dropout.cuh::attention_keep_words``)."""
-    return _align16(heads * _T * _KEEP_WORDS * 4)
 
 
 def keep_words_floats(s: int, b: int, h: int, w: int, heads: int) -> int:
@@ -566,15 +573,14 @@ def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg
     MLP backward's unit hashes at three sites and slots, and K3's block's keep words."""
     pitch = next(p for p in FWD_PITCHES if d <= p)
     if kernel in ("attention", "rows", "fc1"):
-        extra = _align16(2 * 64 * 4) + keep_words_bytes(hg_fwd) if drop and kernel == "attention" else 0
-        return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False)) + extra
+        return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False), drop)
     if kernel == "mlp":
         ring = _align16(_b_bytes(False, max(twa.gx_width(c), _round_up(hc, 4)), _BWD_RING))
         step = _align16(operand_bytes(False, _round_up(hc, 4)))
         total = ring + _align16(_T * c * 4) + _align16(operand_bytes(False, c)) + step + _align16(64 * 8 + 2 * c * 4)
         return total + (_align16(4 * 64 * 4) if drop else 0)
     if kernel == "attention_bwd":
-        return twa.bwd_smem(False, cross, c, inner, hg_bwd, d, pitch) + (keep_words_bytes(hg_bwd) if drop else 0)
+        return twa.bwd_smem(False, cross, c, inner, hg_bwd, d, pitch, drop)
     if kernel == "gln":
         ring = _ring_a_bytes(False, 1, _BWD_RING) + _b_bytes(False, twa.gx_width(c), _BWD_RING)
         return _align16(ring) + (2 if cross else 1) * _align16(_T * c * 4) + _align16(64 * 4 + 64 * 8 + 2 * c * 4)
@@ -760,28 +766,17 @@ def _drop_args(x, kw):
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
-    for a bf16 x: never an upcast. A call without dropout (K4 and K1) launches the forward
-    of ``csrc/fused_block_fwd.cu`` (one or six launches, :func:`block_fwd_plan`), a dropout
-    call the five launches of ``csrc/fused_block.cu``."""
-    global LAUNCHES, BF16_LAUNCHES
-    if _drop_args(x, kw) is None:
-        out = _launch_redesigned(x, weights, kw)
-        if x.dtype == torch.bfloat16:
-            BF16_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
-        return out
-    return _launch_five(x, weights, kw)
-
-
-def _launch_redesigned(x, weights, kw) -> torch.Tensor:
-    """The forward without dropout in either layout: one launch, or five with the split
-    route's scratch (LN1(x), AV window-major and the MLP hidden in the operands' dtype: bf16
-    where K4 rounds them, fp32 for fp32 and for K1, which never rounds them; y in fp32)."""
+    for a bf16 x: never an upcast. K4 and K1, with and without dropout, launch the forward
+    of ``csrc/fused_block_fwd.cu`` (:func:`block_fwd_plan`, a dropout call its dropout form):
+    one launch, or six with the split route's scratch (LN1(x), AV window-major and the MLP
+    hidden in the operands' dtype: bf16 where K4 rounds them, fp32 for fp32 and for K1, which
+    never rounds them; y in fp32)."""
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     bf16 = x.dtype == torch.bfloat16
     ops = rounds_operands(x.dtype, kw["layout"])
-    plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), ops)
+    drop = _drop_args(x, kw)
+    plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), ops, drop is not None)
     lib = _fwd_library()
     out = torch.empty_like(x)
     scratch = [None] * 4
@@ -793,21 +788,29 @@ def _launch_redesigned(x, weights, kw) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.swin_k4_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(None if a is None else a.data_ptr() for a in scratch),
+            *(None if a is None else a.data_ptr() for a in scratch), dl.drop_pointer(drop),
             s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
             int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
             int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
+    if drop is not None and bf16:
+        BF16_DROP_LAUNCHES += 1
+    elif drop is not None:
+        DROP_LAUNCHES += 1
+    elif bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def _launch_five(x, weights, kw) -> torch.Tensor:
-    """The five launches of ``csrc/fused_block.cu``: the dropout forms and (as
-    ``swin_fused_block_fwd``, the form that the backward recomputes) K1 and K4 without
-    dropout."""
-    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
+    """The five launches of ``csrc/fused_block.cu`` (``swin_fused_block_fwd``, the form that
+    the five route's backward recomputes), K1 and K4 with and without dropout: the old form,
+    which the card checks time the redesigned forward against. No forward of the model runs
+    it; counts nothing."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     drop = _drop_args(x, kw)
     inner = heads * d
@@ -832,14 +835,6 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
-    if drop is not None and bf16:
-        BF16_DROP_LAUNCHES += 1
-    elif drop is not None:
-        DROP_LAUNCHES += 1
-    elif bf16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
 
 
@@ -1024,13 +1019,8 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed(drop_rates, drop_seed)
-    if not any(drop_rates):
-        block_fwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross),
-                       rounds_operands(x.dtype, layout))
-    smem = _library().swin_fused_block_fwd_smem(dims_per_head, wh, ww, int(drop_rates[0] > 0))
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"the fused block at d={dims_per_head} needs {smem} bytes "
-                         f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
+    block_fwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross),
+                   rounds_operands(x.dtype, layout), any(drop_rates))
     if recorded(x, *weights):
         block_bwd_plan(c, num_heads, dims_per_head, hidden, tuple(window), bool(cross), any(drop_rates))
         return _FusedBlockFunction.apply(kw, x, *weights)

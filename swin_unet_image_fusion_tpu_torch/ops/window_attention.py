@@ -34,13 +34,16 @@ versions.
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_WindowAttentionFunction``, whose backward (K3 bwd) recomputes q/k/v and AV
 from x and the weights, as the JAX custom VJP does, and returns g_x and every weight's
-gradient. Without dropout it runs ``csrc/window_attention_bwd.cu`` as :func:`bwd_plan` lays it
-out: a block per (group of windows, stream, group of heads) recomputes each window in shared
-memory and backpropagates it; where every head fits a block (the stages with d <= 8 of the
-default model) the block also forms g_x ("fused"), elsewhere a second kernel does ("split");
-one weight-gradient launch and one reduction follow. A dropout call runs
-``swin_window_attention_bwd`` of ``csrc/window_attention.cu`` (the three-launch recompute and
-the old core backward). There is no fallback between the two.
+gradient. With and without dropout it runs ``csrc/window_attention_bwd.cu`` as
+:func:`bwd_plan` lays it out: a block per (group of windows, stream, group of heads)
+recomputes each window in shared memory and backpropagates it; where every head fits a block
+(the stages with d <= 8 of the default model) the block also forms g_x ("fused"), elsewhere a
+second kernel does ("split"); one weight-gradient launch and one reduction follow. A dropout
+call runs the block's dropout form: it hashes its window's attention keep bits once per head
+(two 32-bit words a query row), recomputes AV from the dropped weights and masks g_P with the
+same bits. ``_launch_bwd_three`` keeps ``swin_window_attention_bwd`` of
+``csrc/window_attention.cu`` (the three-launch recompute and the old core backward) callable,
+for timing in turns; no call falls back to it.
 ``window_attention_bwd_plain`` is the plain backward (autograd of the plain version); it
 differs from the kernels only where a score exceeds the softmax clamp of 80, whose
 derivative the kernels, like the TPU's, do not take. For a bf16 x both are what the JAX
@@ -273,9 +276,10 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("window_attention_bwd")
-    lib.swin_k3_bwd.argtypes = [_P, _P, _P, ctypes.c_size_t] + [_I] * 13 + [ctypes.c_float, _P]
+    drop = ctypes.POINTER(dl.DropArgs)
+    lib.swin_k3_bwd.argtypes = [_P, _P, _P, ctypes.c_size_t, drop] + [_I] * 13 + [ctypes.c_float, _P]
     lib.swin_k3_bwd.restype = _I
-    lib.swin_k3_bwd_smem.argtypes = [_I] * 7
+    lib.swin_k3_bwd_smem.argtypes = [_I] * 8
     lib.swin_k3_bwd_smem.restype = ctypes.c_size_t
     lib.swin_k3_bwd_workspace.argtypes = [_I] * 11
     lib.swin_k3_bwd_workspace.restype = ctypes.c_size_t
@@ -421,21 +425,31 @@ def _bwd_blocks_per_sm(pitch: int, smem: int) -> int:
     return 1 if pitch >= 24 or smem > SMEM_TWO_PER_SM else 2
 
 
-def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitch: int) -> int:
+def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitch: int,
+             drop: bool = False) -> int:
     """Shared-memory bytes of one block of the backward's block kernel (``bwd_layout`` in the
     source): the A ring (x, and under cross the kv rows, 2 slots x 16 channels x 60 floats a
     part) and the weight ring (2 x 16 x the 3 hg*d q/k/v columns), over which the fused route
     keeps g_q | g_k | g_v resident ([3 heads*d rounded to 16][60]); q, k, v and g_o of hg heads
     [hg][49][pitch] (on the fused route at least the g_x product's ring, 2 x 16 x C, and a row
     buffer [49][C]); the rows pass's (1/sum, dot) per (head, row); the masked bias table; the
-    row, region and token tables, the column offsets and biases."""
+    row, region and token tables, the column offsets and biases; ``drop`` (the dropout form)
+    adds the keep words of the block's heads ([hg][49][2] 32-bit words)."""
     n = hg * d
     qkv = _align16(hg * _T * pitch * 4)
     ring = _ring_a_bytes(False, 2 if cross else 1, BWD_RING) + _b_bytes(False, 3 * n, BWD_RING)
     total = _align16(max(ring, _round_up(3 * inner, _KC) * _PITCH_F * 4 if fused else 0))
     gx = _align16(_b_bytes(False, c, BWD_RING)) + _align16(_T * c * 4) if fused else 0
     total += max(4 * qkv, gx)
-    return total + _align16(hg * _T * 8) + _align16(_T * _T * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
+    total += _align16(hg * _T * 8) + _align16(_T * _T * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
+    return total + (keep_words_bytes(hg) if drop else 0)
+
+
+def keep_words_bytes(heads: int) -> int:
+    """Shared memory of a window's attention keep words for ``heads`` heads (``csrc/
+    hash_dropout.cuh::attention_keep_words``: two 32-bit words per (head, query row), keys 0-31
+    and 32-48)."""
+    return _align16(heads * _T * 2 * 4)
 
 
 def gx_width(c: int) -> int:
@@ -474,7 +488,8 @@ def _wg_smem(ka: int, nb: int) -> int:
 
 @dataclass(frozen=True)
 class BwdPlan:
-    """How the backward without dropout runs at one shape, fp32 and bf16 alike (fp32 inside):
+    """How the backward runs at one shape, fp32 and bf16 alike (fp32 inside), with or without
+    dropout (the same launches):
     ``route`` "fused" (a block per group of windows and stream with every head forms g_x too:
     the transposed weights, the block kernel, under cross the sum of g_x's two sides, the
     weight gradients, one reduction) or "split" (a block per group of windows, stream and group
@@ -502,8 +517,9 @@ class BwdPlan:
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
-             bf16: bool) -> BwdPlan:
-    """The launch plan of the backward without dropout, or ValueError where its kernels do
+             bf16: bool, drop: bool = False) -> BwdPlan:
+    """The launch plan of the backward (``drop``: its dropout form, whose block adds its heads'
+    keep words to its shared memory), or ValueError where its kernels do
     not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8, and the weight
     gradients' row slabs within a block's shared memory. Every head in one block ("fused")
     where d <= 8, 3 heads*d <= 144 and C <= 144 (one product's columns); else the largest group
@@ -524,14 +540,14 @@ def bwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
         raise ValueError(f"the window-attention backward's weight gradients at C={c}, heads*d={inner} "
                          f"need more than the {SMEM_LIMIT_BYTES} bytes of shared memory a block has")
     if pitch in BWD_FUSED_PITCHES and 3 * inner <= BWD_COLS and c <= BWD_COLS:
-        smem = bwd_smem(True, cross, c, inner, heads, d, pitch)
+        smem = bwd_smem(True, cross, c, inner, heads, d, pitch, drop)
         if smem <= SMEM_LIMIT_BYTES:
             return BwdPlan("fused", heads, pitch, (("attention", smem),), _bwd_blocks_per_sm(pitch, smem))
     for hg in range(heads, 0, -1):
         n = hg * d
         if heads % hg or n > GROUP_COLS or n % 8:
             continue
-        smem = bwd_smem(False, cross, c, inner, hg, d, pitch)
+        smem = bwd_smem(False, cross, c, inner, hg, d, pitch, drop)
         if smem > SMEM_LIMIT_BYTES:
             break
         return BwdPlan("split", hg, pitch, (("attention", smem), ("gx", gx_smem(c))),
@@ -554,7 +570,8 @@ def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: 
     floats): wp^T and [wq | wk | wv]^T; AV, g_q, g_k and g_v of every token; on the fused route
     under cross g_x's q side and k/v side; the bias-table partials per block; the weight
     gradients' chunks (wq, wk, wv, wp with their biases; chunks for about eight blocks an SM
-    counting every job's tile groups)."""
+    counting every job's tile groups). The dropout form needs no more: its keep words live in
+    each block's shared memory."""
     inner, m = heads * d, b * h * w
     sm = s * m
     pieces = [s * c * inner, s * 3 * inner * c] + [sm * inner] * 4
@@ -657,35 +674,18 @@ def _launch_three(x, weights, kw) -> torch.Tensor:
 
 def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     """The fp32 backward kernels for an fp32 x, their bf16 form (fp32 inside, g_x in bf16,
-    the weight gradients fp32) for a bf16 x. A call without dropout runs
-    ``csrc/window_attention_bwd.cu`` (:func:`bwd_plan`), a dropout call
-    ``swin_window_attention_bwd`` of ``csrc/window_attention.cu``."""
+    the weight gradients fp32) for a bf16 x: ``csrc/window_attention_bwd.cu``
+    (:func:`bwd_plan`), in its dropout form for a dropout call; the workspace
+    (:func:`bwd_workspace_floats`) fp32."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"the output gradient must be {x.dtype} {tuple(x.shape)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
-    bf16 = x.dtype == torch.bfloat16
-    drop = _drop_args(x, kw) is not None
-    grads = _launch_bwd_three(g, x, weights, kw) if drop else _launch_bwd_redesigned(g, x, weights, kw)
-    if drop and bf16:
-        BF16_DROP_BWD_LAUNCHES += 1
-    elif drop:
-        DROP_BWD_LAUNCHES += 1
-    elif bf16:
-        BF16_BWD_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
-    return grads
-
-
-def _launch_bwd_redesigned(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    """``csrc/window_attention_bwd.cu``: x, g and g_x in x's dtype, the weight gradients
-    fp32, the workspace (:func:`bwd_workspace_floats`) fp32. Counts nothing
-    (:func:`_launch_bwd` does)."""
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     cross = bool(kw["cross"])
     bf16 = x.dtype == torch.bfloat16
-    plan = bwd_plan(c, heads, d, (wh, ww), cross, bf16)
+    drop = _drop_args(x, kw)
+    plan = bwd_plan(c, heads, d, (wh, ww), cross, bf16, drop is not None)
     blocks = plan.blocks(s, b, h, w, heads, _sm_count(x.device))
     g = g.contiguous()
     lib = _bwd_library()
@@ -696,18 +696,27 @@ def _launch_bwd_redesigned(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
     with torch.cuda.device(x.device):
         rc = lib.swin_k3_bwd(
-            ins, outs, workspace.data_ptr(), floats, s, b, h, w, c, heads, d, plan.heads_per_block,
-            int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16), float(d**-0.5),
-            torch.cuda.current_stream().cuda_stream,
+            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d,
+            plan.heads_per_block, int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16),
+            float(d**-0.5), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention backward")
+    if drop is not None and bf16:
+        BF16_DROP_BWD_LAUNCHES += 1
+    elif drop is not None:
+        DROP_BWD_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return tuple(grads)
 
 
 def _launch_bwd_three(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    """``swin_window_attention_bwd`` of ``csrc/window_attention.cu``: the dropout forms, and
-    (without dropout, as the comparison the card checks time) the backward that recomputes
-    with the three launches. Counts nothing (:func:`_launch_bwd` does)."""
+    """``swin_window_attention_bwd`` of ``csrc/window_attention.cu``, the backward that
+    recomputes with the three launches, with and without dropout: the old form, which the card
+    checks time the redesigned backward against. No call of the model runs it; counts
+    nothing."""
     dims = _dims(x, kw)
     g = g.contiguous()
     bf16 = x.dtype == torch.bfloat16
@@ -799,11 +808,11 @@ def window_attention(
     if not 1 <= s <= MAX_STREAMS or (cross and s < 2):
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed((attn_drop_rate,), drop_seed)
+    bf16 = x.dtype == torch.bfloat16
     if not attn_drop_rate:
-        bf16 = x.dtype == torch.bfloat16
         fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16)
-        if recorded(*args):
-            bwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16)
+    if recorded(*args):
+        bwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16, attn_drop_rate > 0)
     smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "

@@ -224,9 +224,10 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
         before = counters(twa)
         grads = twa._launch_bwd(x, x, attn, dict(kw, attn_drop_rate=rate, drop_seed=3))
         assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
-        # without dropout the backward of csrc/window_attention_bwd.cu, with it csrc/window_attention.cu's
-        args = fake_library.calls["swin_window_attention_bwd" if rate else "swin_k3_bwd"]
+        # the backward of csrc/window_attention_bwd.cu, with dropout its dropout form
+        args = fake_library.calls["swin_k3_bwd"]
         assert args[-3] == 1 and args[-4] == 1, "the bf16 form, cross"
+        assert (args[4] is None) == (rate == 0.0), "the dropout arguments"
         assert counters(twa) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
         for layout in ("image", "windows"):
             xl = x if layout == "image" else x.reshape(2, 1, 1, 49, 8)
@@ -257,7 +258,7 @@ def test_dropout_launches_its_own_kernel_form(fake_library):
     tfb._launch_bwd(x, x, weights, kw)
     assert (tfb.LAUNCHES, tfb.DROP_LAUNCHES, tfb.BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES) == (
         before[0], before[1] + 1, before[2], before[3] + 1)
-    for name in ("swin_fused_block_fwd", "swin_block_bwd"):  # the backward's fused route
+    for name in ("swin_k4_fwd", "swin_block_bwd"):  # the forward's and the backward's fused route
         args = fake_library.calls[name]
         drop = next(a for a in args if isinstance(a, ctypes._Pointer)).contents
         assert list(drop.on) == [1, 0, 1, 1] and drop.pairs == 0 and drop.t_pad == 56

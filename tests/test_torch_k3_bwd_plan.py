@@ -3,9 +3,10 @@ CPU: ``bwd_plan``'s route, head grouping, launches, shared memory and workspace 
 of the default model at 224² batch 20 and 512² (the "fused" route, every head in a block that
 also forms g_x, at stages 0-1; the "split" route, a block per group of heads and a g_x kernel,
 at stages 2-4), one plan for both dtypes, what ``_launch_bwd`` hands ``swin_k3_bwd`` (a fake
-library that checks ctypes' argument counts), that a dropout backward keeps
-``swin_window_attention_bwd`` of ``csrc/window_attention.cu``, and that shapes the kernels do
-not take raise before any launch. The kernels themselves run in
+library that checks ctypes' argument counts), that a dropout backward runs the same entry
+point with its dropout arguments (not ``swin_window_attention_bwd`` of
+``csrc/window_attention.cu``), and that shapes the kernels do not take raise before any
+launch. The kernels themselves run in
 ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
 import pytest
@@ -141,7 +142,8 @@ def test_backward_without_dropout_launches_swin_k3_bwd(fake_library, k, c, route
         mp.setattr(torch.Tensor, "new_empty", recording_new_empty)
         grads = twa._launch_bwd(g, x, weights, kw)
     (args,) = fake_library.calls["swin_k3_bwd"]
-    ins, outs, ws, floats = args[:4]
+    ins, outs, ws, floats, drop = args[:5]
+    assert drop is None
     assert list(ins) == [a.data_ptr() for a in (x, *weights, g)]
     assert list(outs) == [t.data_ptr() for t in grads]
     assert grads[0].dtype == dtype and grads[0].shape == x.shape
@@ -152,26 +154,33 @@ def test_backward_without_dropout_launches_swin_k3_bwd(fake_library, k, c, route
     assert floats == twa.bwd_workspace_floats(2, 1, 14, 14, c, 8, d, plan, blocks, cross)
     bf16 = dtype == torch.bfloat16
     # S, B, H, W, C, heads, d, head group, fused, blocks, shift, cross, bf16, scale
-    assert args[4:17] == (2, 1, 14, 14, c, 8, d, hg, int(route == "fused"), blocks, 1, int(cross), int(bf16))
-    assert args[17] == pytest.approx(d**-0.5)
+    assert args[5:18] == (2, 1, 14, 14, c, 8, d, hg, int(route == "fused"), blocks, 1, int(cross), int(bf16))
+    assert args[18] == pytest.approx(d**-0.5)
     assert "swin_window_attention_bwd" not in fake_library.calls
     assert (twa.BWD_LAUNCHES, twa.BF16_BWD_LAUNCHES, twa.DROP_BWD_LAUNCHES, twa.BF16_DROP_BWD_LAUNCHES) == \
         (before[0] + 1 - bf16, before[1] + bf16, before[2], before[3])
 
 
 def test_library_binds_the_entry_points_with_their_argument_counts(fake_library):
-    """``swin_k3_bwd`` takes 19 arguments (in, out, workspace and its floats, 13 ints, the
-    scale, the stream), ``swin_k3_bwd_smem`` 7 and ``swin_k3_bwd_workspace`` 11: the counts
-    that ``tests/test_torch_kernel_gpu.py`` calls the library with on the card."""
+    """``swin_k3_bwd`` takes 20 arguments (in, out, workspace and its floats, the dropout
+    arguments, 13 ints, the scale, the stream), ``swin_k3_bwd_smem`` 8 and
+    ``swin_k3_bwd_workspace`` 11: the counts that ``tests/test_torch_kernel_gpu.py`` calls the
+    library with on the card."""
     lib = twa._bwd_library()
     assert [len(lib.swin_k3_bwd.argtypes), len(lib.swin_k3_bwd_smem.argtypes),
-            len(lib.swin_k3_bwd_workspace.argtypes)] == [19, 7, 11]
+            len(lib.swin_k3_bwd_workspace.argtypes)] == [20, 8, 11]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_dropout_backward_keeps_swin_window_attention_bwd(fake_library, dtype):
-    """A dropout backward, at a fused and at a split shape, runs the three-launch backward of
-    ``csrc/window_attention.cu`` and counts in its dropout counter."""
+    """A dropout backward, at a fused and at a split shape, runs ``swin_k3_bwd`` of
+    ``csrc/window_attention_bwd.cu`` (no longer the three-launch backward of
+    ``csrc/window_attention.cu``) with its dropout arguments (K3's keying, the attention site
+    on at the call's rate and seed, the other sites off), the dropout plan's route and head group
+    and the workspace without dropout's, and counts in its dropout counter."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
     before = (twa.DROP_BWD_LAUNCHES, twa.BF16_DROP_BWD_LAUNCHES, twa.BWD_LAUNCHES, twa.BF16_BWD_LAUNCHES)
     for c, d in ((24, 3), (96, 12)):
         x, weights = _attention_args(c, 8, d, dtype=dtype)
@@ -179,8 +188,17 @@ def test_dropout_backward_keeps_swin_window_attention_bwd(fake_library, dtype):
                   drop_seed=5)
         grads = twa._launch_bwd(torch.zeros_like(x), x, weights, kw)
         assert grads[0].dtype == dtype
-    assert len(fake_library.calls["swin_window_attention_bwd"]) == 2
-    assert "swin_k3_bwd" not in fake_library.calls
+        args = fake_library.calls["swin_k3_bwd"][-1]
+        drop = args[4].contents
+        key = twa.attention_keying((14, 14), (7, 7), False, 8, d, x.device)
+        assert (drop.units, drop.pairs, drop.attn_mode, drop.t_pad) == (key.units, 0, dl.ATTN_SLOTS, 56)
+        assert list(drop.on) == [1, 0, 0, 0]
+        assert drop.base[0] == hd.site_base(5, hd.SITE_ATTN) and drop.scale[0] == pytest.approx(1 / 0.9)
+        plan = twa.bwd_plan(c, 8, d, (7, 7), True, False, True)
+        assert args[12:14] == (plan.heads_per_block, int(plan.route == "fused"))
+        assert args[3] == twa.bwd_workspace_floats(2, 1, 14, 14, c, 8, d, plan, args[14], True)
+    assert len(fake_library.calls["swin_k3_bwd"]) == 2
+    assert "swin_window_attention_bwd" not in fake_library.calls
     bf16 = dtype == torch.bfloat16
     assert (twa.DROP_BWD_LAUNCHES, twa.BF16_DROP_BWD_LAUNCHES, twa.BWD_LAUNCHES, twa.BF16_BWD_LAUNCHES) == \
         (before[0] + 2 - 2 * bf16, before[1] + 2 * bf16, before[2], before[3])

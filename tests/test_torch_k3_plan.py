@@ -1,8 +1,8 @@
 """The launch plan of K3's forward without dropout (``csrc/window_attention_fwd.cu``), on
 the CPU: the route, head grouping and shared memory per stage of the default model, what
-the wrapper hands the kernels (with a fake library and no CUDA runtime), that dropout keeps
-the three launches of ``csrc/window_attention.cu`` forward and backward while the backward
-without dropout runs ``csrc/window_attention_bwd.cu``, and that shapes the kernels do not take
+the wrapper hands the kernels (with a fake library and no CUDA runtime), that the dropout
+forward keeps the three launches of ``csrc/window_attention.cu`` while the backward, with and
+without dropout, runs ``csrc/window_attention_bwd.cu``, and that shapes the kernels do not take
 raise before any launch. The kernels themselves run in
 ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
@@ -134,9 +134,10 @@ def test_call_without_dropout_launches_the_new_forward(fake_library, c, route, h
 
 
 def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_new(fake_library):
-    """A dropout forward and a dropout backward run ``csrc/window_attention.cu`` (the
-    backward's recompute is the three-launch forward), never the new forward or backward; the
-    backward without dropout runs ``swin_k3_bwd`` of ``csrc/window_attention_bwd.cu``."""
+    """A dropout forward runs the three launches of ``csrc/window_attention.cu``, never the
+    new forward; the backward, with and without dropout, runs ``swin_k3_bwd`` of
+    ``csrc/window_attention_bwd.cu`` (with the dropout arguments for a dropout call, NULL
+    without), never the three-launch backward."""
     x, weights = _attention_args(24, 8, 3)
     kw = dict(window=(7, 7), num_heads=8, dims_per_head=3, shift=False, cross=True)
     drop = dict(kw, attn_drop_rate=0.25, drop_seed=9)
@@ -144,10 +145,11 @@ def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_ne
     twa._launch_bwd(x, x, weights, drop)
     launchers = ("swin_window_attention_fwd", "swin_window_attention_bwd", "swin_k3_fwd", "swin_k3_bwd")
     assert {n: len(fake_library.calls.get(n, ())) for n in launchers} == \
-        {"swin_window_attention_fwd": 1, "swin_window_attention_bwd": 1, "swin_k3_fwd": 0, "swin_k3_bwd": 0}
+        {"swin_window_attention_fwd": 1, "swin_window_attention_bwd": 0, "swin_k3_fwd": 0, "swin_k3_bwd": 1}
     twa._launch_bwd(x, x, weights, kw)
-    assert len(fake_library.calls["swin_k3_bwd"]) == 1 and len(fake_library.calls["swin_window_attention_bwd"]) == 1
-    assert "swin_k3_fwd" not in fake_library.calls
+    (with_drop, without) = fake_library.calls["swin_k3_bwd"]
+    assert with_drop[4] is not None and without[4] is None
+    assert "swin_window_attention_bwd" not in fake_library.calls and "swin_k3_fwd" not in fake_library.calls
 
 
 def test_launch_raises_before_any_call_on_a_shape_it_does_not_take(fake_library):

@@ -3,8 +3,9 @@ K4 on the image, K1 on window-packed tokens), on the CPU: the route, launches an
 memory of each of the default model's ten (stage, MLP width) shapes, K1's plan at the packed
 stages (the fp32 plan in both dtypes: K1 is fp32 inside), what the wrapper hands the kernels
 in both layouts (with a fake library and no CUDA runtime: the layout, the rounding mode, the
-scratch dtypes), that dropout in either layout and the backward keep the five launches of
-``csrc/fused_block.cu``, and that shapes the kernels do not take raise before any launch.
+scratch dtypes), that a dropout forward in either layout runs the same entry point with its
+dropout arguments (never the five launches of ``csrc/fused_block.cu``), and that shapes the
+kernels do not take raise before any launch.
 The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
 import contextlib
@@ -197,8 +198,10 @@ def test_image_call_without_dropout_launches_the_new_forward(fake_library, c, hi
     plan = tfb.block_fwd_plan(c, 8, d, hidden, (7, 7), True, bf16)
     (args,) = fake_library.calls["swin_k4_fwd"]
     fused = plan.route == "fused"
-    # ..., fused, shift, cross, windows layout, bf16 I/O, bf16 operands (K4's rounding)
-    assert args[23:39] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+    # no dropout arguments; ..., fused, shift, cross, windows layout, bf16 I/O, bf16 operands
+    # (K4's rounding)
+    assert args[23] is None
+    assert args[24:40] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
                            int(fused), 1, 1, 0, int(bf16), int(bf16))
     assert [a is None for a in args[19:23]] == [fused] * 4
     if not fused:  # LN1(x), AV and the hidden in x's dtype (K4 rounds them), y fp32
@@ -226,7 +229,7 @@ def test_windows_plan_of_each_packed_shape(fake_library, k, c, hidden, dtype, cr
     tfb._launch_fwd(_windows(x), weights, _kw(CFG.att_num_heads, d, cross=cross, layout="windows",
                                               drop_rates=(0.0, 0.0, 0.0), drop_seed=None))
     (args,) = fake_library.calls["swin_k4_fwd"]
-    assert args[31:39] == (plan.heads_per_block, plan.hidden_chunk, int(plan.route == "fused"), 1,
+    assert args[32:40] == (plan.heads_per_block, plan.hidden_chunk, int(plan.route == "fused"), 1,
                            int(cross), 1, int(dtype == torch.bfloat16), 0)
 
 
@@ -247,7 +250,7 @@ def test_windows_call_without_dropout_launches_the_new_forward(fake_library, c, 
     plan = tfb.block_fwd_plan(c, 8, d, hidden, (7, 7), True, False)
     (args,) = fake_library.calls["swin_k4_fwd"]
     fused = plan.route == "fused"
-    assert args[23:39] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+    assert args[24:40] == (2, 1, 14, 14, c, 8, d, hidden, plan.heads_per_block, plan.hidden_chunk,
                            int(fused), 1, 1, 1, int(bf16), 0)
     assert [a is None for a in args[19:23]] == [fused] * 4
     if not fused:
@@ -258,24 +261,30 @@ def test_windows_call_without_dropout_launches_the_new_forward(fake_library, c, 
 
 @pytest.mark.parametrize("what", ["windows layout dropout", "dropout", "backward"])
 def test_windows_dropout_and_backward_keep_the_five_launches(fake_library, what):
-    """A dropout forward in either layout (K1's and K4's) runs ``csrc/fused_block.cu``, never
-    the new forward; a dropout backward at stage 0 runs the dropout form of
+    """A dropout forward in either layout (K1's and K4's) runs ``swin_k4_fwd`` of
+    ``csrc/fused_block_fwd.cu`` with its dropout arguments (the five launches of
+    ``csrc/fused_block.cu`` no longer); a dropout backward at stage 0 runs the dropout form of
     ``csrc/fused_block_bwd.cu``'s fused route, which recomputes the forward itself
-    (``tests/test_torch_block_bwd_drop.py`` holds the dropout backward's routes at every
-    stage, ``tests/test_torch_block_bwd_plan.py`` the backward without dropout)."""
+    (``tests/test_torch_block_fwd_drop.py`` holds the dropout forward's routes at every stage,
+    ``tests/test_torch_block_bwd_drop.py`` the dropout backward's)."""
     x, weights = _block_args(24, 8, 3, 96)
     if what == "windows layout dropout":
         tfb._launch_fwd(_windows(x), weights, _kw(8, 3, layout="windows", drop_rates=(0.25, 0.0, 0.1),
                                                    drop_seed=9))
-        name = "swin_fused_block_fwd"
+        name = "swin_k4_fwd"
     elif what == "dropout":
         tfb._launch_fwd(x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))
-        name = "swin_fused_block_fwd"
+        name = "swin_k4_fwd"
     else:
         tfb._launch_bwd(x, x, weights, _kw(8, 3, drop_rates=(0.25, 0.0, 0.1), drop_seed=9))
         name = "swin_block_bwd"
-    assert name in fake_library.calls
-    assert "swin_k4_fwd" not in fake_library.calls
+    (args,) = fake_library.calls[name]
+    if name == "swin_k4_fwd":
+        drop = args[23].contents
+        assert list(drop.on) == [1, 0, 1, 1] and drop.pairs == int(what == "windows layout dropout")
+        assert args[34] == 1, "the one-launch route at C = 24"
+    assert "swin_fused_block_fwd" not in fake_library.calls
+    assert ("swin_k4_fwd" in fake_library.calls) == (name == "swin_k4_fwd")
 
 
 def test_launch_raises_before_any_call_on_a_shape_it_does_not_take(fake_library):

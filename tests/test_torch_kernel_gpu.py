@@ -753,14 +753,16 @@ def _block_case(k, h, w, c, heads, d, hidden, dtype, batch=1):
             rand(2, c, scale=0.1, offset=1.0), rand(2, c, scale=0.1), *dense(c, hidden), *dense(hidden, c))
 
 
-def _check_block_forward(layout, hw, batch, dtype, stages):
-    """The forward without dropout (``csrc/fused_block_fwd.cu``) in ``layout`` against its
-    plain version and against the five launches of ``csrc/fused_block.cu`` in every stage x
-    MLP width (encoder, decoder) x shift x cross case of ``stages`` at ``hw`` and ``batch``:
-    fp32 within atol/rtol 1e-4, bf16 by the share bound of the bf16 kernels; every call
-    counted once in its dtype's counter and repeated bit for bit."""
+def _check_block_forward(layout, hw, batch, dtype, stages, rate=0.0):
+    """The forward (``csrc/fused_block_fwd.cu``; with every site at ``rate`` its dropout form)
+    in ``layout`` against its plain version and against the five launches of
+    ``csrc/fused_block.cu`` in every stage x MLP width (encoder, decoder) x shift x cross case of
+    ``stages`` at ``hw`` and ``batch``: fp32 within atol/rtol 1e-4, bf16 by the share bound of
+    the bf16 kernels; every call counted once in its dtype's (dropout) counter and repeated bit
+    for bit."""
     cfg = ModelConfig()
-    counter = "BF16_LAUNCHES" if dtype == BF16 else "LAUNCHES"
+    counter = ("BF16_" if dtype == BF16 else "") + ("DROP_LAUNCHES" if rate else "LAUNCHES")
+    drop = dict(drop_rates=(rate,) * 3, drop_seed=DROP_SEED) if rate else {}
     for k, h, w, c, heads, d in _stage_cases(hw):
         if k not in stages:
             continue
@@ -770,16 +772,16 @@ def _check_block_forward(layout, hw, batch, dtype, stages):
                 for cross in (False, True):
                     xl = twp.pack_windows(x, (7, 7), shift).contiguous() if layout == "windows" else x
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift,
-                              cross=cross, layout=layout, hw=(h, w))
+                              cross=cross, layout=layout, hw=(h, w), **drop)
                     before = getattr(tfb, counter)
                     out = tfb.fused_block(xl, *weights, **kw)
                     again = tfb.fused_block(xl, *weights, **kw)
                     torch.cuda.synchronize()
                     assert getattr(tfb, counter) == before + 2
                     what = (f"{layout} stage {k} {h}x{w}x{batch} C={c} hidden={hidden} shift={shift} "
-                            f"cross={cross}")
+                            f"cross={cross} rate={rate}")
                     assert torch.equal(out, again), f"{what}: a repeat gave other bits"
-                    five = tfb._launch_five(xl, weights, dict(kw, drop_rates=(0.0, 0.0, 0.0), drop_seed=None))
+                    five = tfb._launch_five(xl, weights, dict(kw, drop_rates=(rate,) * 3, drop_seed=DROP_SEED))
                     ref = tfb.fused_block_plain(xl, *weights, **kw)
                     for other, name in ((ref, "plain"), (five, "five launches")):
                         if dtype == BF16:
@@ -819,11 +821,28 @@ def test_k1_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, b
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(4)), ((100, 90), 1, range(4)),
+                                             ((448, 448), 1, (4,))], ids=["224x2", "100x90", "448-stage4"])
+def test_block_dropout_forward_matches_plain_and_five_launches_at_every_stage_on_card(hw, batch, stages, rate,
+                                                                                      dtype, layout):
+    """K4's (image) and K1's (windows) dropout forward, every site at ``rate``: the dropout form
+    of ``csrc/fused_block_fwd.cu``'s one-launch route at stages 0-1 and of its six launches at
+    2-3 and at the C = 384 stage of a 448² map (``_check_block_forward``; K1 at stage 4 too,
+    which ``cuda_pack`` leaves to K3)."""
+    _need_card()
+    _check_block_forward(layout, hw, batch, dtype, stages, rate)
+
+
+@pytest.mark.gpu
 def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
     """The launch plan's shared-memory bytes (``ops/fused_block.py::block_smem``) are the
     ones the kernels' layouts give, for every launch at every stage and MLP width in both
     dtypes, both layouts (K4's bf16 plan takes bf16 operands, K1's is the fp32 plan in both
-    dtypes) and both modes, and within what a block may use."""
+    dtypes), both modes and both forms (without and with dropout), and within what a block may
+    use."""
     _need_card()
     cfg = ModelConfig()
     lib = tfb._fwd_library()
@@ -833,12 +852,14 @@ def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
                 for dtype in (torch.float32, BF16):
                     ops = tfb.rounds_operands(dtype, layout)
                     for cross in (False, True):
-                        plan = tfb.block_fwd_plan(c, heads, d, hidden, (7, 7), cross, ops)
-                        for kind, smem in plan.smem:
-                            got = lib.swin_k4_fwd_smem(tfb.KERNEL_KINDS.index(kind), int(ops), int(cross), c,
-                                                       heads * d, heads, d, hidden, plan.heads_per_block,
-                                                       plan.hidden_chunk)
-                            assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, layout, dtype, cross, kind)
+                        for drop in (False, True):
+                            plan = tfb.block_fwd_plan(c, heads, d, hidden, (7, 7), cross, ops, drop)
+                            for kind, smem in plan.smem:
+                                got = lib.swin_k4_fwd_smem(tfb.KERNEL_KINDS.index(kind), int(ops), int(cross), c,
+                                                           heads * d, heads, d, hidden, plan.heads_per_block,
+                                                           plan.hidden_chunk, int(drop))
+                                assert got == smem <= tfb.SMEM_LIMIT_BYTES, (k, hidden, layout, dtype, cross, drop,
+                                                                             kind)
 
 
 def _check_block_backward(layout, hw, batch, dtype, stages):
@@ -966,8 +987,8 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
     ``csrc/fused_block_bwd.cu`` and ``csrc/fused_block_bwd_split.cu`` compute, at every fused-route and split-route stage and MLP
     width of a 224² batch-20 step in both modes, without and with dropout (whose blocks add the
     masks' hashes and keep words and whose workspace adds g_m, g_proj and the keep words); the
-    split route's recomputed attention and K3 block without dropout take the shared memory
-    that the forward's and K3's backward's libraries give them."""
+    split route's recomputed attention and K3 block, with and without dropout, take the shared
+    memory that the forward's and K3's backward's libraries give them."""
     _need_card()
     cfg = ModelConfig()
     lib = tfb._bwd_library()
@@ -986,11 +1007,10 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
                                                                 hg_fwd, hg_bwd, int(cross), int(drop))
                             assert got == smem <= tfb.SMEM_LIMIT_BYTES, (*what, kernel)
                         smem = dict(plan.smem)
-                        if not drop:
-                            assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
-                                1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False))
-                            assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
-                                0, 0, int(cross), c, heads, d, hg_bwd)
+                        assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
+                            1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False), int(drop))
+                        assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
+                            0, 0, int(cross), c, heads, d, hg_bwd, int(drop))
                         blocks = plan.blocks(2, 20, h, w, sms)
                         assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden, hg_bwd, *blocks,
                                                                     int(drop)) == \
@@ -1007,14 +1027,16 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
                         tfb.bwd_workspace_floats(2, 20, h, w, c, heads, d, hidden, blocks, cross, drop), what
 
 
-def _check_k3_backward(hw, batch, dtype, stages):
-    """K3's backward without dropout (``_launch_bwd``: ``csrc/window_attention_bwd.cu`` on the
-    route ``bwd_plan`` names) against the plain backward and against the three-launch
-    backward of ``csrc/window_attention.cu`` (``_launch_bwd_three``) in every stage x shift x
-    cross case of ``stages`` at ``hw`` and ``batch``: every fp32 gradient by
-    ``testing.assert_grads_close``, a bf16 g_x by the bf16 kernel criteria; each call counted
-    once in its dtype's counter and repeated bit for bit (no atomics, fixed sum orders)."""
-    counter = "BF16_BWD_LAUNCHES" if dtype == BF16 else "BWD_LAUNCHES"
+def _check_k3_backward(hw, batch, dtype, stages, rate=0.0):
+    """K3's backward (``_launch_bwd``: ``csrc/window_attention_bwd.cu`` on the route
+    ``bwd_plan`` names; with the attention site at ``rate`` its dropout form) against the plain
+    backward and against the three-launch backward of ``csrc/window_attention.cu``
+    (``_launch_bwd_three``) in every stage x shift x cross case of ``stages`` at ``hw`` and
+    ``batch``: every fp32 gradient by ``testing.assert_grads_close``, a bf16 g_x by the bf16
+    kernel criteria; each call counted once in its dtype's (dropout) counter and repeated bit
+    for bit (no atomics, fixed sum orders)."""
+    counter = ("BF16_" if dtype == BF16 else "") + ("DROP_BWD_LAUNCHES" if rate else "BWD_LAUNCHES")
+    drop = dict(attn_drop_rate=rate, drop_seed=DROP_SEED) if rate else {}
     for k, h, w, c, heads, d in _stage_cases(hw):
         if k not in stages:
             continue
@@ -1032,15 +1054,15 @@ def _check_k3_backward(hw, batch, dtype, stages):
         g = rand(2, batch, h, w, c).to(dtype)
         for shift in (False, True):
             for cross in (False, True):
-                kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross, **drop)
                 before = getattr(twa, counter)
                 got = twa._launch_bwd(g, x, weights, kw)
                 again = twa._launch_bwd(g, x, weights, kw)
                 three = twa._launch_bwd_three(g, x, weights, kw)
                 torch.cuda.synchronize()
                 assert getattr(twa, counter) == before + 2
-                route = twa.bwd_plan(c, heads, d, (7, 7), cross, dtype == BF16).route
-                what = f"stage {k} {h}x{w}x{batch} C={c} ({route}) shift={shift} cross={cross} {dtype}"
+                route = twa.bwd_plan(c, heads, d, (7, 7), cross, dtype == BF16, bool(rate)).route
+                what = f"stage {k} {h}x{w}x{batch} C={c} ({route}) shift={shift} cross={cross} rate={rate} {dtype}"
                 assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a repeat gave other bits"
                 ref = twa.window_attention_bwd_plain(g, x, *weights, **kw)
                 for other, name in ((ref, "plain"), (three, "three launches")):
@@ -1065,21 +1087,35 @@ def test_k3_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(5)), ((100, 90), 1, range(5)),
+                                             ((512, 512), 1, (4,))], ids=["224x2", "100x90", "512-stage4"])
+def test_k3_dropout_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, stages, rate, dtype):
+    """K3's dropout backward, the attention site at ``rate``: the dropout form of the fused
+    route at stages 0-1 and of the split route at 2-4 (``_check_k3_backward``)."""
+    _need_card()
+    _check_k3_backward(hw, batch, dtype, stages, rate)
+
+
+@pytest.mark.gpu
 def test_k3_backward_plan_agrees_with_the_kernels_on_card():
     """The backward plan's shared memory (``bwd_smem``, ``gx_smem``) and workspace
     (``bwd_workspace_floats``) are the ones ``csrc/window_attention_bwd.cu`` computes, at every
-    stage of a 224² and a 512² batch-20 step in both modes."""
+    stage of a 224² and a 512² batch-20 step in both modes, without and with dropout (whose
+    block adds its heads' keep words; the workspace is the same)."""
     _need_card()
     lib = twa._bwd_library()
     sms = twa._sm_count(torch.device("cuda"))
     for hw in ((224, 224), (512, 512)):
         for k, h, w, c, heads, d in _stage_cases(hw):
             for cross in (False, True):
-                plan = twa.bwd_plan(c, heads, d, (7, 7), cross, False)
-                fused, hg = int(plan.route == "fused"), plan.heads_per_block
-                for kind, (kernel, smem) in enumerate(plan.smem):
-                    got = lib.swin_k3_bwd_smem(kind, fused, int(cross), c, heads, d, hg)
-                    assert got == smem <= twa.SMEM_LIMIT_BYTES, (hw, k, cross, kernel)
+                for drop in (True, False):
+                    plan = twa.bwd_plan(c, heads, d, (7, 7), cross, False, drop)
+                    fused, hg = int(plan.route == "fused"), plan.heads_per_block
+                    for kind, (kernel, smem) in enumerate(plan.smem):
+                        got = lib.swin_k3_bwd_smem(kind, fused, int(cross), c, heads, d, hg, int(drop))
+                        assert got == smem <= twa.SMEM_LIMIT_BYTES, (hw, k, cross, drop, kernel)
                 blocks = plan.blocks(2, 20, h, w, heads, sms)
                 assert lib.swin_k3_bwd_workspace(2, 20, h, w, c, heads, d, hg, fused, blocks, int(cross)) == \
                     twa.bwd_workspace_floats(2, 20, h, w, c, heads, d, plan, blocks, cross)
