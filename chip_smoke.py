@@ -17,11 +17,11 @@ window-packed tokens, is ``csrc/fused_block_fwd.cu`` (one launch at C <= 48, six
 each is checked for a bit-identical repeat, timed in turns with the five launches of
 ``csrc/fused_block.cu`` that it replaced (the C = 384 backward's recompute still runs them;
 the dropout forms run the new forward too), and both are broken down by stage and kernel
-(``[split] K1``, ``[split] K4``). K3's forward without dropout is ``csrc/window_attention_fwd.cu`` (one
-launch at C <= 64, two above); it is checked for a bit-identical repeat, timed in turns with
-the three launches of ``csrc/window_attention.cu`` that it replaced there (the dropout forward
-still runs them), and both are broken down by stage and kernel from the profiler's device
-times (``[split]``). Then the training path: each backward
+(``[split] K1``, ``[split] K4``). K3's forward is ``csrc/window_attention_fwd.cu`` (one
+launch at C <= 64, two above, with and without dropout); it is checked for a bit-identical
+repeat, timed in turns with the three launches of ``csrc/window_attention.cu`` that it
+replaced (which no call of the model runs now), and both are broken down by stage and kernel
+from the profiler's device times (``[split]``). Then the training path: each backward
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
 224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward is the
 route ``block_bwd_plan`` names, with and without dropout ("fused", ``csrc/fused_block_bwd.cu``,
@@ -42,15 +42,18 @@ configuration trains without dropout): the hash-dropout forms of K3, K1 and K4, 
 and backward, against their plain versions at rates 0.1 and 0.5 at the 224x224 batch-20
 shapes, with the keep fraction of each site and the times beside the forms without
 dropout (K1's and K4's dropout forward on ``csrc/fused_block_fwd.cu`` and backward, and K3's
-dropout backward on ``csrc/window_attention_bwd.cu``, each case repeated bit for bit, also
-beside the old launches they replaced: the five-launch forward and twenty-launch backward of
-``csrc/fused_block.cu``, the three-launch backward of ``csrc/window_attention.cu``, per stage
-and per step), the new dropout forms at one C = 384 shape, and the composition's mask kernels
-bit for bit; the first dropout train step under each configuration with exact launch counts
-and repeated bit for bit; timed in turns with the steps without dropout, the dropout steps'
-traces checked to launch no kernel of ``csrc/fused_block.cu``'s forward or backward
-(``cuda_pack``, ``cuda_block``) or of ``csrc/window_attention.cu``'s backward (``cuda``); and a
-full-width step on a 112x112 map on the card against the same configuration on the CPU.
+dropout forward on ``csrc/window_attention_fwd.cu`` and backward on
+``csrc/window_attention_bwd.cu``, each case repeated bit for bit, also beside the old launches
+they replaced: the five-launch forward and twenty-launch backward of ``csrc/fused_block.cu``,
+the three-launch forward and backward of ``csrc/window_attention.cu``, per stage and per step),
+the new dropout forms at one C = 384 shape (K3's dropout forward also at every stage of
+100x90), and the composition's mask kernels bit for bit; the first dropout train step under
+each configuration with exact launch counts and repeated bit for bit; timed in turns with the
+steps without dropout, the dropout steps' traces checked to launch no kernel of
+``csrc/fused_block.cu``'s forward or backward (``cuda_pack``, ``cuda_block``) or of
+``csrc/window_attention.cu`` (``cuda``, fp32 and bf16, with K3's forward kernels as many as its
+plan reckons and the mask kernels' device ms apart); and a full-width step on a 112x112 map on
+the card against the same configuration on the CPU.
 bf16 training (``compute_dtype="bfloat16"``, the JAX package's production path): the bf16
 backward forms of K3, K1, K2 and K4 and the bf16 dropout forms, forward and backward,
 against their plain bf16 versions at the 224x224 batch-20 shapes, without dropout and at
@@ -555,9 +558,8 @@ def check_bf16_fidelity(impl, shape, out, plain16_out, plain32_out):
 def time_attention(cfg, device, card, dtype=torch.float32):
     """K3 per call at every stage x variant: the forward without dropout
     (``csrc/window_attention_fwd.cu``, one or two kernels) in turns with the three launches
-    it replaced, which the dropout forms and the backward's recompute still run
-    (``_launch_three``: new, three, three, new); per-request sums weight each by its 2
-    calls (encoder and decoder)."""
+    it replaced (``_launch_three``: new, three, three, new); per-request sums weight each by
+    its 2 calls (encoder and decoder)."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     name = f"K3{tag(dtype)}"
@@ -992,7 +994,8 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
 def trace(what, label, fn, wall_ms, card):
     """``fn`` once under torch.profiler (after one call outside it); device time by
     kernel family, the busiest kernels, and the device's idle share of ``wall_ms``. Returns
-    the launches of each device kernel by name (empty where the profiler recorded none)."""
+    (launches, device ms) of each device kernel by name (empty where the profiler recorded
+    none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1020,7 +1023,7 @@ def trace(what, label, fn, wall_ms, card):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[trace]   {label} top: {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
               f"{e.key[:100]}", flush=True)
-    return {e.key: e.count for e in kernels}
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in kernels}
 
 
 def trace_request(impl, fuser, ir, vis, wall_ms, card):
@@ -1374,9 +1377,9 @@ def dropout_train(flat, device, card, states, steps, inputs):
         if not counts:
             print(f"[trace]   train {label}: no kernels recorded, the old launches' absence not read", flush=True)
         elif base in ("cuda_pack", "cuda_block"):  # K1/K4 drop fwd and bwd on the redesigned routes alone
-            old = {name: n for name, n in counts.items() if any(k in name for k in FIVE_BWD_KERNELS)}
-            old_fwd = {name: n for name, n in counts.items() if any(k in name for k in FIVE_FWD_KERNELS)}
-            dropout_rows = sum(n for name, n in counts.items() if "dropout_rows_kernel" in name)
+            old = {name: n for name, (n, _) in counts.items() if any(k in name for k in FIVE_BWD_KERNELS)}
+            old_fwd = {name: n for name, (n, _) in counts.items() if any(k in name for k in FIVE_FWD_KERNELS)}
+            dropout_rows = sum(n for name, (n, _) in counts.items() if "dropout_rows_kernel" in name)
             masks = TRAIN_DROP_MASKS[base]["mask tokens"] + TRAIN_DROP_MASKS[base]["mask tokens bwd"]
             print(f"[trace]   train {label}: fused_block.cu backward kernels {sum(old.values())}, forward "
                   f"kernels {sum(old_fwd.values())}, dropout_rows_kernel {dropout_rows} (the composition's "
@@ -1384,13 +1387,40 @@ def dropout_train(flat, device, card, states, steps, inputs):
             if old or old_fwd or dropout_rows > masks:
                 raise AssertionError(f"{base} dropout step: fused_block.cu's backward ran: {old}, its forward: "
                                      f"{old_fwd}, dropout_rows_kernel x{dropout_rows}")
-        else:  # K3 drop bwd on window_attention_bwd.cu alone
-            old = {name: n for name, n in counts.items() if any(k in name for k in THREE_BWD_KERNELS)}
-            print(f"[trace]   train {label}: window_attention.cu backward kernels {sum(old.values())}",
-                  flush=True)
-            if old:
-                raise AssertionError(f"{base} dropout step: window_attention.cu's backward ran: {old}")
+        else:
+            check_k3_drop_trace(counts, label, card)
     return launches
+
+
+def k3_drop_kernels(cfg, bf16=False) -> int:
+    """K3's forward kernels in a ``cuda`` dropout step at 224²: 8 calls a stage at stages 0-3
+    (encoder and decoder, shift x cross), each the kernels of ``fwd_plan(..., drop=True)``'s
+    route (one fused, two split)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    return sum(8 * twa.fwd_plan(c, heads, d, WINDOW, False, bf16, True).launches
+               for _, _, _, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4])
+
+
+def check_k3_drop_trace(counts, label, card, bf16=False):
+    """A ``cuda`` dropout step's trace: K3's dropout forward and backward on the redesigned
+    kernels alone (no kernel of ``csrc/window_attention.cu``, forward or backward), K3's forward
+    kernels as many as the plan reckons; prints the composition's mask kernels' device ms, the
+    token masks' apart from the attention weights'."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+
+    old = {name: n for name, (n, _) in counts.items() if any(k in name for k in FIVE_FWD_KERNELS + THREE_BWD_KERNELS)}
+    k3 = sum(n for name, (n, _) in counts.items() if "k3_attention_kernel" in name or "k3_proj_kernel" in name)
+    expected = k3_drop_kernels(ModelConfig(), bf16)
+    masks = {kernel: [sum(v[i] for name, v in counts.items() if kernel in name) for i in (0, 1)]
+             for kernel in ("dropout_rows_kernel", "dropout_attn_kernel")}
+    print(f"[trace]   train {label}: window_attention.cu forward and backward kernels {sum(old.values())}, K3 "
+          f"forward kernels {k3} (the plan: {expected}); "
+          + ", ".join(f"{kernel} {ms:.3f} ms in {n} launches" for kernel, (n, ms) in masks.items())
+          + f" | {card}", flush=True)
+    if old or k3 != expected:
+        raise AssertionError(f"{label}: window_attention.cu's kernels ran: {old}; K3 forward kernels {k3}, "
+                             f"the plan {expected}")
 
 
 # ---- dropout training: the hash-dropout forms of K3, K1 and K4 --------------------------
@@ -1399,9 +1429,8 @@ DROP_RATIOS = (0.1, 0.1, 0.1)  # attention, proj, MLP: a test setting (the refer
 # cuda_block step (its recompute's LN1 and LN2, the core backward, the LayerNorm backwards,
 # its weight-gradient GEMMs); its dropout_rows_kernel launches are counted apart
 FIVE_BWD_KERNELS = ("swin::ln_fwd_kernel", "window_core_bwd_kernel", "swin::ln_bwd_kernel", "swin::wgrad_kernel")
-# kernels that only csrc/fused_block.cu's five-launch forward runs in a cuda_pack or cuda_block
-# dropout step at 224² (its GEMMs and attention core; K3's dropout forward, window_attention.cu,
-# shares them, but those steps launch no K3), and that only csrc/window_attention.cu's
+# kernels that only csrc/fused_block.cu's five-launch forward and csrc/window_attention.cu's
+# three-launch forward run (their GEMMs and attention core), and that only csrc/window_attention.cu's
 # three-launch backward runs in a cuda step (its core backward and weight-gradient GEMMs)
 FIVE_FWD_KERNELS = ("swin::gemm_kernel", "window_core_kernel")
 THREE_BWD_KERNELS = ("window_core_bwd_kernel", "swin::wgrad_kernel")
@@ -1489,14 +1518,14 @@ def check_dropout_kernels(cfg, device, card):
     ``testing.assert_grads_close``), with the keep fraction of each site; K1's and K4's
     forward on the dropout form of ``csrc/fused_block_fwd.cu``'s route (one launch at stages
     0-1, six at 2-3) and backward on the dropout form of the route ``block_bwd_plan`` names
-    (fused at stages 0-1, split at 2-3), K3's backward on the dropout form of
-    ``csrc/window_attention_bwd.cu``'s (fused at stages 0-1, split at 2-3), each of these
-    cases repeated bit for bit; then each form timed at the step's ratios in turns with the
-    form without dropout, the new forms (K1/K4 drop, K3 drop bwd) and K1's and K4's dropout
-    backward also with the old launches they replaced (``csrc/fused_block.cu``'s five-launch
-    forward and twenty-launch backward, ``csrc/window_attention.cu``'s three-launch
-    backward), per case, per stage and per step. Returns the worst errors and the per-step
-    times by kernel name."""
+    (fused at stages 0-1, split at 2-3), K3's forward on the dropout form of
+    ``csrc/window_attention_fwd.cu``'s route (one launch at stages 0-1, two at 2-3) and
+    backward on ``csrc/window_attention_bwd.cu``'s (fused at stages 0-1, split at 2-3), each of
+    these cases repeated bit for bit; then each form timed at the step's ratios in turns with
+    the form without dropout and the old launches it replaced (``csrc/fused_block.cu``'s
+    five-launch forward and twenty-launch backward, ``csrc/window_attention.cu``'s three-launch
+    forward and backward), per case, per stage and per step. Returns the worst errors and the
+    per-step times by kernel name."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
@@ -1595,7 +1624,7 @@ def check_dropout_kernels(cfg, device, card):
 
     totals = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, nodrop_ms=0.0, old_ms=0.0) for part in ("", " bwd")}
     by = {part: {} for part in totals}
-    stage_ms = {}  # stage -> K3 drop bwd (dropout form, three launches, without dropout) per step
+    stage_ms = {part: {} for part in totals}  # stage -> (dropout form, three launches, without dropout) per step
     kept, errs, cases = {}, {part: 0.0 for part in totals}, 0
     names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
     for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
@@ -1605,27 +1634,33 @@ def check_dropout_kernels(cfg, device, card):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
                 seed = DROP_SEED + 100 * k + 10 * shift + cross + 1
-                route = twa.bwd_plan(c, heads, d, WINDOW, cross, False, True).route
-                if route != ("fused" if k < 2 else "split"):
-                    raise AssertionError(f"K3 drop bwd stage {k}: the plan routes {route!r}")
+                routes = {"": twa.fwd_plan(c, heads, d, WINDOW, cross, False, True).route,
+                          " bwd": twa.bwd_plan(c, heads, d, WINDOW, cross, False, True).route}
+                for part, route in routes.items():
+                    if route != ("fused" if k < 2 else "split"):
+                        raise AssertionError(f"K3 drop{part} stage {k}: the plan routes {route!r}")
                 cases += 1
                 for rate in DROP_CHECK_RATES:
                     dkw = dict(kw, attn_drop_rate=rate, drop_seed=seed)
                     what = (f"[k3 drop] stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
                             f"cross={cross} rate {rate}")
                     out = twa.window_attention(x, *weights, **dkw)
+                    again = twa.window_attention(x, *weights, **dkw)
                     torch.cuda.synchronize()
-                    err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
+                    err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw),
+                                            f"{what} ({routes['']})")
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{what} ({routes['']}): a repeat gave other bits")
                     got = twa._launch_bwd(g, x, weights, dkw)
                     again = twa._launch_bwd(g, x, weights, dkw)
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise AssertionError(f"{what} bwd ({route}): a repeat gave other bits")
+                        raise AssertionError(f"{what} bwd ({routes[' bwd']}): a repeat gave other bits")
                     del again
                     check = assert_grads_close(got, twa.window_attention_bwd_plain(g, x, *weights, **dkw),
                                                names, what + " bwd")
-                    print(f"{what} bwd ({route}): max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a "
-                          f"gradient's own largest; repeated bit for bit", flush=True)
+                    print(f"{what} bwd ({routes[' bwd']}): max_abs_err {check.worst:.3e}, {check.worst_own:.3e} "
+                          f"of a gradient's own largest; forward and backward repeated bit for bit", flush=True)
                     errs[""], errs[" bwd"] = max(errs[""], err), max(errs[" bwd"], check.worst)
                     key = twa.attention_keying((h, w), WINDOW, shift, heads, d, device)
                     for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, 0, c,
@@ -1634,49 +1669,96 @@ def check_dropout_kernels(cfg, device, card):
                         kept[rate][site] = (sk + kn[0], sn + kn[1])
                     del out, got
                 dkw = dict(kw, attn_drop_rate=DROP_RATIOS[0], drop_seed=seed)
-                for part, launch, plain, iters in (
+                for part, launch, old, plain, iters in (
                         ("", lambda a: twa.window_attention(x, *weights, **a),
+                         lambda: twa._launch_three(x, weights, dkw),
                          lambda: twa.window_attention_plain(x, *weights, **dkw), 5),
                         (" bwd", lambda a: twa._launch_bwd(g, x, weights, a),
+                         lambda: twa._launch_bwd_three(g, x, weights, dkw),
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
-                    if part == "":  # the three launches, the form without dropout that it extends
-                        nodrop, ms = _in_turns(lambda: twa._launch_three(x, weights, kw), lambda: launch(dkw), iters, 1)
-                        old_ms, old = 0.0, ""
-                    else:  # the redesigned form without dropout, and the three-launch backward it replaced
-                        nodrop, ms, old_ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1,
-                                                       lambda: twa._launch_bwd_three(g, x, weights, dkw))
-                        old = f", three launches {old_ms:.4f} ms ({ms / old_ms - 1:+.1%})"
-                        st = stage_ms.setdefault(k, [0.0, 0.0, 0.0])
-                        st[0], st[1], st[2] = st[0] + 2 * ms, st[1] + 2 * old_ms, st[2] + 2 * nodrop
+                    # in turns with the redesigned form without dropout and the three launches with dropout
+                    nodrop, ms, old_ms = _in_turns(lambda: launch(kw), lambda: launch(dkw), iters, 1, old)
+                    st = stage_ms[part].setdefault(k, [0.0, 0.0, 0.0])
+                    st[0], st[1], st[2] = st[0] + 2 * ms, st[1] + 2 * old_ms, st[2] + 2 * nodrop
                     plain_ms = time_ms(plain, iters=2, warmup=1)
                     ops = hash_ops(h, w, c, heads, 0, TRAIN_BATCH, True)
                     bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH,
                                                          backward=part == " bwd", int_ops=ops)
                     print(f"[time] K3 drop{part} stage {k} {h}x{w}x{TRAIN_BATCH} C={c} shift={shift} "
-                          f"cross={cross}{f' ({route})' if part else ''}: {ms:.4f} ms{old}, without dropout "
-                          f"{nodrop:.4f} ms (in turns, {ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound "
-                          f"{bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                          f"cross={cross} ({routes[part]}): {ms:.4f} ms, three launches {old_ms:.4f} ms "
+                          f"({ms / old_ms - 1:+.1%}), without dropout {nodrop:.4f} ms (in turns, "
+                          f"{ms / nodrop - 1:+.1%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+                          f"| {card}", flush=True)
                     for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                                     ("nodrop_ms", nodrop), ("old_ms", old_ms)):
                         totals[part][key_] += 2 * v  # encoder and decoder
                     by[part][bound_by] = by[part].get(bound_by, 0.0) + 2 * bound
         torch.cuda.empty_cache()
     _print_keep("K3", kept, card)
-    for k, (ms, old_ms, nodrop) in sorted(stage_ms.items()):
-        print(f"[time] K3 drop bwd stage {k} per 224x224 batch-20 step (8 launches, {'fused' if k < 2 else 'split'} "
-              f"route): {ms:.3f} ms, three launches {old_ms:.3f} ms ({ms / old_ms - 1:+.1%}), without dropout "
-              f"{nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns | {card}", flush=True)
+    for part in totals:
+        for k, (ms, old_ms, nodrop) in sorted(stage_ms[part].items()):
+            launches = twa.fwd_plan(*stage_geometries(cfg, TRAIN_HW)[k][3:], WINDOW, False, False, True).launches
+            print(f"[time] K3 drop{part} stage {k} per 224x224 batch-20 step (8 calls, "
+                  f"{'fused' if k < 2 else 'split'} route{'' if part else f', {launches} kernels a call'}): "
+                  f"{ms:.3f} ms, three launches {old_ms:.3f} ms ({ms / old_ms - 1:+.1%}), without dropout "
+                  f"{nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns | {card}", flush=True)
     for part, t in totals.items():
         print(f"[check] K3 drop{part}: worst max_abs_err {errs[part]:.3e} over {cases} shapes "
-              f"x rates {DROP_CHECK_RATES}" + ("; every case repeated bit for bit" if part else ""), flush=True)
-        old = (f", three launches {t['old_ms']:.3f} ms ({t['ms'] / t['old_ms'] - 1:+.1%})" if part else "")
-        print(f"[time] K3 drop{part} per 224x224 batch-20 step under cuda ({2 * cases} launches): "
-              f"{t['ms']:.3f} ms{old}, without dropout {t['nodrop_ms']:.3f} ms "
-              f"({t['ms'] / t['nodrop_ms'] - 1:+.1%}), plain {t['plain_ms']:.3f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) | {card}", flush=True)
+              f"x rates {DROP_CHECK_RATES}; every case repeated bit for bit", flush=True)
+        print(f"[time] K3 drop{part} per 224x224 batch-20 step under cuda ({2 * cases} calls): "
+              f"{t['ms']:.3f} ms, three launches {t['old_ms']:.3f} ms ({t['ms'] / t['old_ms'] - 1:+.1%}), "
+              f"without dropout {t['nodrop_ms']:.3f} ms ({t['ms'] / t['nodrop_ms'] - 1:+.1%}), plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['ms'] / t['bound_ms']:.1f}x) | {card}",
+              flush=True)
         results[f"K3 drop{part}"] = dict(t, bound_by=max(by[part], key=by[part].get), library_ms=None)
         worst[f"K3 drop{part}"] = errs[part]
     return worst, results
+
+
+def check_k3_drop_forward(cfg, device, card):
+    """K3's dropout forward (``csrc/window_attention_fwd.cu``'s dropout form) at the shapes the
+    224² step does not give: every stage of a 100x90 request (batch 1) and the 512² stage 4
+    (a 21x21 map, C = 384, the split route at pitch 48), fp32 and bf16, every shift x cross
+    case at each rate of DROP_CHECK_RATES, against the plain version (``compare_kernel``),
+    each call repeated bit for bit, with the attention site's keep fraction. Returns the worst
+    errors by kernel name."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    shapes = [("100x90", *geo) for geo in stage_geometries(cfg, (100, 90))]
+    shapes.append(("512", *stage_geometries(cfg, SERVE_HW)[4]))
+    worst, kept = {}, {}
+    for where, k, h, w, c, heads, d in shapes:
+        x32, *weights = attention_inputs(h, w, c, heads, d, SEED + 50 + k, device)
+        for dtype in (torch.float32, BF16):
+            x = x32.to(dtype)
+            for shift in (False, True):
+                for cross in (False, True):
+                    route = twa.fwd_plan(c, heads, d, WINDOW, cross, dtype == BF16, True).route
+                    seed = DROP_SEED + 500 + 100 * k + 10 * shift + cross
+                    for rate in DROP_CHECK_RATES:
+                        dkw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
+                                   attn_drop_rate=rate, drop_seed=seed)
+                        what = (f"[k3 drop{tag(dtype)}] {where} stage {k} {h}x{w} C={c} ({route}) shift={shift} "
+                                f"cross={cross} rate {rate}")
+                        out, again = twa.window_attention(x, *weights, **dkw), twa.window_attention(x, *weights, **dkw)
+                        torch.cuda.synchronize()
+                        err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
+                        if not torch.equal(out, again):
+                            raise AssertionError(f"{what}: a repeat gave other bits")
+                        name = f"K3 drop{tag(dtype)}"
+                        worst[name] = max(worst.get(name, 0.0), err)
+                        if dtype == torch.float32:  # the masks do not depend on the dtype
+                            key = twa.attention_keying((h, w), WINDOW, shift, heads, d, device)
+                            for site, kn in _keep_fractions(key, (h, w), shift, rate, seed, heads, 0, c, 1,
+                                                            ("attention",)).items():
+                                sk, sn = kept.setdefault(rate, {}).get(site, (0, 0))
+                                kept[rate][site] = (sk + kn[0], sn + kn[1])
+        torch.cuda.empty_cache()
+    _print_keep("K3 (100x90, 512² stage 4)", kept, card)
+    print(f"[check] K3 drop at 100x90 (every stage) and the 512x512 stage 4 (C=384): worst "
+          + ", ".join(f"{key} {v:.3e}" for key, v in worst.items())
+          + f" over 4 shift x cross cases x rates {DROP_CHECK_RATES} a shape, each repeated bit for bit", flush=True)
+    return worst
 
 
 def check_drop_c384(cfg, device, card):
@@ -2150,9 +2232,11 @@ def check_bf16_attention(cfg, device, card):
     """The bf16 forms of K3 at stages 0-3 of a 224² batch-20 step, every shift x cross
     variant (each runs twice per step, encoder and decoder): the backward without dropout
     (``csrc/window_attention_bwd.cu``, repeated bit for bit) and with the attention site at
-    each rate of DROP_CHECK_RATES, and the dropout forward, against their plain bf16
-    versions; the keep masks against the fp32 dropout form's; each form timed in turns with
-    its fp32 form, the backward without dropout also with the three-launch backward."""
+    each rate of DROP_CHECK_RATES, and the dropout forward (``csrc/window_attention_fwd.cu``'s
+    dropout form, repeated bit for bit), against their plain bf16 versions; the keep masks
+    against the fp32 dropout form's; each form timed in turns with its fp32 form, the backward
+    without dropout also with the three-launch backward, the dropout forms also with the three
+    launches and the bf16 form without dropout, per case, stage and step."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
@@ -2161,6 +2245,7 @@ def check_bf16_attention(cfg, device, card):
     errs, bits, cases = dict.fromkeys(forms, 0.0), 1.0, 0
     worst, results = {}, {}
     three = [0.0, 0.0]  # the bf16 backward per step: three-launch, new (in turns)
+    stage_ms = {}  # stage -> K3 drop bf16 (dropout form, three launches, without dropout) per step
     for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW)[:4]:
         x, *weights = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
         x = x.to(BF16)
@@ -2176,10 +2261,17 @@ def check_bf16_attention(cfg, device, card):
                     dkw = dict(kw, attn_drop_rate=rate, drop_seed=seed) if rate else kw
                     what = f"[k3 bf16] {label} rate {rate}"
                     if rate:
-                        out = twa.window_attention(x, *weights, **dkw)
+                        route = twa.fwd_plan(c, heads, d, WINDOW, cross, True, True).route
+                        if route != ("fused" if k < 2 else "split"):
+                            raise AssertionError(f"K3 drop bf16 stage {k}: the plan routes {route!r}")
+                        out, again = twa.window_attention(x, *weights, **dkw), twa.window_attention(x, *weights, **dkw)
                         torch.cuda.synchronize()
-                        err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw), what)
+                        err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **dkw),
+                                                f"{what} ({route})")
+                        if not torch.equal(out, again):
+                            raise AssertionError(f"{what} ({route}): a repeat gave other bits")
                         errs[" drop bf16"] = max(errs[" drop bf16"], err)
+                        del out, again
                     got = twa._launch_bwd(g, x, weights, dkw)
                     again = twa._launch_bwd(g, x, weights, dkw)
                     torch.cuda.synchronize()
@@ -2206,14 +2298,19 @@ def check_bf16_attention(cfg, device, card):
                          lambda: twa._launch_bwd(g32, x32, weights, dkw),
                          lambda: twa.window_attention_bwd_plain(g, x, *weights, **dkw), 3)):
                     extra = ""
-                    if form == " drop bwd bf16":  # also with the three launches and the form without dropout
-                        fp32_ms, ms, old_ms, nodrop = _turns(
-                            (launch32, launch, lambda: twa._launch_bwd_three(g, x, weights, dkw),
-                             lambda: twa._launch_bwd(g, x, weights, kw)), iters, 1)
+                    if "drop" in form:  # also with the three launches and the form without dropout
+                        old, nodrop_fn = ((lambda: twa._launch_bwd_three(g, x, weights, dkw),
+                                           lambda: twa._launch_bwd(g, x, weights, kw)) if "bwd" in form else
+                                          (lambda: twa._launch_three(x, weights, dkw),
+                                           lambda: twa.window_attention(x, *weights, **kw)))
+                        fp32_ms, ms, old_ms, nodrop = _turns((launch32, launch, old, nodrop_fn), iters, 1)
                         extra = (f", three launches {old_ms:.4f} ms ({ms / old_ms - 1:+.1%}), without dropout "
                                  f"{nodrop:.4f} ms ({ms / nodrop - 1:+.1%})")
                         for key_, v in (("old_ms", old_ms), ("nodrop_ms", nodrop)):
                             totals[form][key_] = totals[form].get(key_, 0.0) + 2 * v
+                        if form == " drop bf16":
+                            st = stage_ms.setdefault(k, [0.0, 0.0, 0.0])
+                            st[0], st[1], st[2] = st[0] + 2 * ms, st[1] + 2 * old_ms, st[2] + 2 * nodrop
                     else:
                         fp32_ms, ms = _in_turns(launch32, launch, iters, 1)
                     plain_ms = time_ms(plain, iters=1, warmup=1)
@@ -2234,10 +2331,14 @@ def check_bf16_attention(cfg, device, card):
                     _add(totals[form], by[form], ms, plain_ms, bound, bound_by, fp32_ms, times=2)
         del x, g, x32, g32
         torch.cuda.empty_cache()
+    for k, (ms, old_ms, nodrop) in sorted(stage_ms.items()):
+        print(f"[time] K3 drop bf16 stage {k} per 224x224 batch-20 step (8 calls, {'fused' if k < 2 else 'split'} "
+              f"route): {ms:.3f} ms, three launches {old_ms:.3f} ms ({ms / old_ms - 1:+.1%}), without dropout "
+              f"{nodrop:.3f} ms ({ms / nodrop - 1:+.1%}), in turns | {card}", flush=True)
     for form in forms:
         print(f"[check] K3{form}: worst max_abs_err {errs[form]:.3e} over {cases} shapes"
               + (f" x rates {DROP_CHECK_RATES}" if "drop" in form else "")
-              + ("; every case repeated bit for bit" if "bwd" in form else ""), flush=True)
+              + "; every case repeated bit for bit", flush=True)
         if "old_ms" in totals[form]:
             t = totals[form]
             print(f"[time] K3{form} per 224x224 batch-20 step: {t['ms']:.3f} ms, three launches {t['old_ms']:.3f} ms "
@@ -2500,8 +2601,8 @@ def bf16_train(flat, device, card, states, steps, inputs, fp32_first):
     for impl, per_step in TRAIN_BF16_DROP_CONFIGS.items():
         t = time.perf_counter()
         cfg = Config(model=ModelConfig(attention_impl=impl, compute_dtype="bfloat16", **ratios))
-        state, _, terms, grads, got = _first_bf16_step(cfg, flat, device, ir, vis, impl, per_step,
-                                                       TRAIN_BF16_DROP_MASKS[impl], repeat=True)
+        state, step, terms, grads, got = _first_bf16_step(cfg, flat, device, ir, vis, impl, per_step,
+                                                          TRAIN_BF16_DROP_MASKS[impl], repeat=True)
         launches.update({n: c for n, c in got.items() if BF16_MAIN_PATH.get(n) == impl and "drop" in n})
         if impl == MASK_MAIN_PATH:  # one kernel, forward and on the gradient
             launches["mask tokens bf16"] = got["mask tokens bf16"] + got["mask tokens bwd bf16"]
@@ -2510,7 +2611,21 @@ def bf16_train(flat, device, card, states, steps, inputs, fp32_first):
               + ", ".join(f"{k} {v:.7g}" for k, v in terms.items())
               + f"; all {len(grads)} parameter gradients present, fp32 and finite; repeated from a "
               f"second state under deterministic algorithms: bit-identical", flush=True)
-        del state, grads
+        if impl == "cuda":  # K3 drop (bwd) bf16 on the redesigned kernels alone
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                step(state, ir, vis)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t))
+            label = f"bf16 cuda, dropout {DROP_RATIOS}"
+            counts = trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
+                           lambda: step(state, ir, vis), float(np.median(walls)), card)
+            if counts:
+                check_k3_drop_trace(counts, label, card, bf16=True)
+            else:
+                print(f"[trace]   train {label}: no kernels recorded, the old launches' absence not read", flush=True)
+        del state, step, grads
         torch.cuda.empty_cache()
     return launches
 
@@ -2603,6 +2718,7 @@ def main() -> int:
     drop_worst, drop_times = check_dropout_kernels(cfg, device, card)
     torch.cuda.empty_cache()
     c384_worst = check_drop_c384(cfg, device, card)
+    c384_worst.update(check_k3_drop_forward(cfg, device, card))
     mask_worst, mask_times = check_mask_kernels(cfg, device, card)
     drop_worst.update(mask_worst)
     drop_times.update(mask_times)
@@ -2657,7 +2773,8 @@ def main() -> int:
          "fused_block_bwd_split.cu at stages 2-3, the five-launch backward of fused_block.cu at stage 4)",
          f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
-        ("K3 drop", "window_attention_fwd with hash dropout (K3 drop)", f"{csrc}/window_attention.cu",
+        ("K3 drop", "k3_fwd with hash dropout (K3 drop; the dropout form of the one-launch block at stages 0-1 "
+         "and of the split route at stages 2-3)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
         ("K3 drop bwd", "k3_bwd with hash dropout (K3 drop bwd; the dropout form of the fused route at stages "
          "0-1 and of the split route at stages 2-3)",
@@ -2693,8 +2810,8 @@ def main() -> int:
          "fused_block.cu at stage 4)",
          f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
-        ("K3 drop bf16", "window_attention_fwd bf16 with hash dropout (K3 drop bf16)",
-         f"{csrc}/window_attention.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
+        ("K3 drop bf16", "k3_fwd bf16 with hash dropout (K3 drop bf16, mma.sync, p masked before its rounding)",
+         f"{csrc}/window_attention_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
         ("K3 drop bwd bf16", "k3_bwd bf16 with hash dropout (K3 drop bwd bf16, fp32 inside)",
          f"{csrc}/window_attention_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
         ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16, fp32 inside)",

@@ -1,9 +1,9 @@
-// Swin window attention (K3), the forward without dropout, fp32 and bf16, redesigned for
-// Hopper (sm_90a).
+// Swin window attention (K3), the forward with and without dropout, fp32 and bf16, redesigned
+// for Hopper (sm_90a).
 //
 // Replaces swin_unet_image_fusion_tpu/ops/pallas_attention.py::_attention_fwd_kernel (body
-// l.249-332) for calls without dropout; the dropout forms and the backward's recompute keep
-// the three launches of window_attention.cu. The function is the one window_attention.cu
+// l.249-332) for every call; window_attention.cu's three launches serve only as the form the
+// card checks time this one against. The function is the one window_attention.cu
 // computes: per window and stream, q/k/v projections (+bias, the scale folded into q), fp32
 // scores q.k plus the shared relative-position bias, region masks that SET scores to -1e10,
 // the fast softmax (one-sided clamp at 80, exp without max subtraction, 1/(sum + 1e-30)), AV,
@@ -11,6 +11,14 @@
 // other stream's tokens with this stream's weights. x and out are (S, B, H, W, C) in the
 // image layout; the window and the shifted window are address arithmetic (the map rolled
 // by (top, left) = (wh - wh/2, ww - ww/2), regions by rolled row < top, column < left).
+// Dropout (the attention site of `drop`, keyed on K3's wrap windows, ops/dropout_layout.py
+// "k3", l.278-290, 322-323 of the TPU body; the projection's dropout is the caller's): the same
+// launches with the attention block's kDrop form (window_fwd.cuh). The block hashes its
+// tokens' unit hashes and slots after its layout; the fp32 core hashes each weight's keep bit
+// where it uses it (kDropHashed), the bf16 core reads keep words that the block hashes once per
+// head before the q/k/v product (kDropWords), and masks p = e * r times 1 / (1 - rate) before
+// its rounding, as the TPU body masks before its cast for AV. No keep word is stored: the
+// backward (window_attention_bwd.cu) hashes its own.
 //
 // What bounds it, and the design. A 512² request runs ~40.5 GFLOP of K3 in 40 calls against
 // ~20 MB of activations: the arithmetic bounds it, not device memory. The three launches
@@ -47,9 +55,9 @@
 // rounded once on the store (l.331-332). Rows pad to 64 and keys to 64 with zeros, so
 // padding adds exactly 0.
 // Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
-// same bits. The attention kernel and the device code under it (rings, GEMMs, the core) are
-// window_fwd.cuh's, which K4's forward (fused_block_fwd.cu) shares; this file holds the
-// projection kernel and the launches.
+// same bits, with and without dropout. The attention kernel and the device code under it
+// (rings, GEMMs, the core) are window_fwd.cuh's, which K4's forward (fused_block_fwd.cu)
+// shares; this file holds the projection kernel and the launches.
 
 #include "window_fwd.cuh"
 
@@ -119,19 +127,21 @@ cudaError_t set_smem(const void* kernel, int smem) {
 }
 
 // The attention kernel over (window, stream * batch, head group); on the split route then the
-// projection kernel over (window, stream * batch, 48 columns).
-template <int DP, bool kBf16>
+// projection kernel over (window, stream * batch, 48 columns). kDrop: the attention kernel's
+// dropout form, fp32 hashing each weight's bit in the core, bf16 reading keep words.
+template <int DP, bool kBf16, bool kDrop>
 cudaError_t launch_route(bool fused, int smem, const Args& a, cudaStream_t st) {
+  constexpr int kCore = !kDrop ? swin::kNoDrop : kBf16 ? swin::kDropWords : swin::kDropHashed;
   const dim3 grid((a.H / 7) * (a.W / 7), a.S * a.B, a.heads / a.hg);
-  const void* kernel = fused ? reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, true>)
-                             : reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false>);
+  const void* kernel = fused ? reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, true, kCore>)
+                             : reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false, kCore>);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (fused) {
-    k3_attention_kernel<DP, kBf16, true><<<grid, kThreads, smem, st>>>(a);
+    k3_attention_kernel<DP, kBf16, true, kCore><<<grid, kThreads, smem, st>>>(a);
     return cudaGetLastError();
   }
-  k3_attention_kernel<DP, kBf16, false><<<grid, kThreads, smem, st>>>(a);
+  k3_attention_kernel<DP, kBf16, false, kCore><<<grid, kThreads, smem, st>>>(a);
   const int psmem = proj_layout(kBf16).total;
   err = set_smem(reinterpret_cast<const void*>(k3_proj_kernel<kBf16>), psmem);
   if (err != cudaSuccess) return err;
@@ -139,18 +149,23 @@ cudaError_t launch_route(bool fused, int smem, const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kDrop>
 cudaError_t launch_pitch(bool fused, int dp, int smem, const Args& a, cudaStream_t st) {
   switch (dp) {
-    case 4: return launch_route<4, kBf16>(fused, smem, a, st);
-    case 8: return launch_route<8, kBf16>(fused, smem, a, st);
-    case 12: return launch_route<12, kBf16>(fused, smem, a, st);
-    case 16: return launch_route<16, kBf16>(fused, smem, a, st);
-    case 24: return launch_route<24, kBf16>(fused, smem, a, st);
-    case 32: return launch_route<32, kBf16>(fused, smem, a, st);
-    case 48: return launch_route<48, kBf16>(fused, smem, a, st);
+    case 4: return launch_route<4, kBf16, kDrop>(fused, smem, a, st);
+    case 8: return launch_route<8, kBf16, kDrop>(fused, smem, a, st);
+    case 12: return launch_route<12, kBf16, kDrop>(fused, smem, a, st);
+    case 16: return launch_route<16, kBf16, kDrop>(fused, smem, a, st);
+    case 24: return launch_route<24, kBf16, kDrop>(fused, smem, a, st);
+    case 32: return launch_route<32, kBf16, kDrop>(fused, smem, a, st);
+    case 48: return launch_route<48, kBf16, kDrop>(fused, smem, a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kBf16>
+cudaError_t launch_drop(bool fused, bool drop, int dp, int smem, const Args& a, cudaStream_t st) {
+  return drop ? launch_pitch<kBf16, true>(fused, dp, smem, a, st) : launch_pitch<kBf16, false>(fused, dp, smem, a, st);
 }
 
 // Whether the kernels take these dimensions and this head grouping (ops/window_attention.py
@@ -165,8 +180,10 @@ bool supported(int C, int inner, int heads, int d, int hg, bool fused) {
   return true;
 }
 
-int block_smem(bool bf16_io, bool fused, bool cross, int C, int inner, int d, int hg) {
-  return attention_layout(bf16_io, fused, cross, C, inner, hg, d, pitch_for(d)).total;
+// drop: the dropout form's token hashes and slots after the layout, and bf16's keep words
+int block_smem(bool bf16_io, bool fused, bool cross, int C, int inner, int d, int hg, bool drop) {
+  return attention_layout(bf16_io, fused, cross, C, inner, hg, d, pitch_for(d)).total +
+         (drop ? drop_attention_bytes(hg, bf16_io) : 0);
 }
 
 }  // namespace
@@ -178,37 +195,40 @@ const char* swin_cuda_error_string(int code) {
 }
 
 // Shared memory in bytes of one block of the attention kernel (fused: every head and the
-// projection; else hg heads) with proj = 0, or of the projection kernel with proj = 1; 0
-// where the kernels do not take the dimensions.
+// projection; else hg heads; drop: its dropout form) with proj = 0, or of the projection
+// kernel with proj = 1; 0 where the kernels do not take the dimensions.
 size_t swin_k3_fwd_smem(int bf16_io, int fused, int cross, int C, int inner, int heads, int d,
-                        int hg, int proj) {
+                        int hg, int proj, int drop) {
   if (!supported(C, inner, heads, d, hg, fused != 0)) return 0;
   if (proj) return static_cast<size_t>(proj_layout(bf16_io != 0).total);
-  return static_cast<size_t>(block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg));
+  return static_cast<size_t>(block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, drop != 0));
 }
 
-// The forward without dropout on `stream`: x and out (S, B, H, W, C) fp32, or bf16 when
-// `bf16_io` is set; the weights fp32 as window_attention.cu's; 7x7 windows. fused: one
-// launch with every head in a block (hg == heads); else hg heads per block and av, a
-// (S*B, windows, 49, heads*d) scratch in x's type, then the projection launch.
-// Returns cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on
-// dimensions the kernels do not take.
+// The forward on `stream`, with dropout where `drop` (ops/dropout_layout.py's "k3" keying; its
+// attention site) is not nullptr: x and out (S, B, H, W, C) fp32, or bf16 when `bf16_io` is
+// set; the weights fp32 as window_attention.cu's; 7x7 windows. fused: one launch with every
+// head in a block (hg == heads); else hg heads per block and av, a (S*B, windows, 49,
+// heads*d) scratch in x's type, then the projection launch. Returns cudaGetLastError() after
+// the launches (0 = ok), cudaErrorInvalidValue on dimensions the kernels do not take.
 int swin_k3_fwd(const void* x, const float* wq, const float* bq, const float* wk, const float* bk,
                 const float* wv, const float* bv, const float* wp, const float* bp,
-                const float* bias, void* out, void* av, int S, int B, int H, int W, int C,
-                int heads, int d, int hg, int fused, int shift, int cross, int bf16_io,
+                const float* bias, void* out, void* av, const swin::DropArgs* drop, int S, int B, int H,
+                int W, int C, int heads, int d, int hg, int fused, int shift, int cross, int bf16_io,
                 float scale, void* stream) {
   const int inner = heads * d;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) ||
-      !supported(C, inner, heads, d, hg, fused != 0) || (!fused && av == nullptr))
+      !supported(C, inner, heads, d, hg, fused != 0) || (!fused && av == nullptr) ||
+      (drop != nullptr && !swin::drop_on(drop, swin::kSiteAttn)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool dropping = drop != nullptr;
   const Args a = {x, wq, bq, wk, bk, wv, bv, wp, bp, bias, out, av, S, B, H, W, C, inner, heads,
-                  d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0};
-  const int smem = block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg);
+                  d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0,
+                  dropping ? swin::drop_site(drop, swin::kSiteAttn, H * W, B) : swin::DropSite{}, nullptr};
+  const int smem = block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, dropping);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = pitch_for(d);
-  return static_cast<int>(bf16_io ? launch_pitch<true>(fused != 0, dp, smem, a, st)
-                                  : launch_pitch<false>(fused != 0, dp, smem, a, st));
+  return static_cast<int>(bf16_io ? launch_drop<true>(fused != 0, dropping, dp, smem, a, st)
+                                  : launch_drop<false>(fused != 0, dropping, dp, smem, a, st));
 }
 
 }  // extern "C"

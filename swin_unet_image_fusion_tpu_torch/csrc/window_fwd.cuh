@@ -1,6 +1,6 @@
-// Device code of the window-attention forward without dropout, shared by K3's redesigned
-// forward (window_attention_fwd.cu) and the fused block's, K4 and K1 (fused_block_fwd.cu),
-// for Hopper (sm_90a): the
+// Device code of the window-attention forward, with and without dropout, shared by K3's
+// redesigned forward (window_attention_fwd.cu) and the fused block's, K4 and K1
+// (fused_block_fwd.cu), for Hopper (sm_90a): the
 // block geometry (one 7x7 window of T = 49 tokens per block, 256 threads), cp.async and
 // mma.sync helpers, the GEMMs of a window's rows (fp32 FMA with 8x4 register tiles, or bf16
 // operands on mma.sync.m16n8k16 with fp32 accumulators) with x and the weights streamed
@@ -846,9 +846,9 @@ struct Args {
 };
 
 // Bytes a kDrop attention block adds after attention_layout's: the tokens' unit hashes and
-// slots, and the keep words of its hg heads.
-__host__ __device__ inline int drop_attention_bytes(int hg) {
-  return align16(2 * kRowsB * 4) + align16(hg * kT * swin::kKeepWords * 4);
+// slots, and (words: the kDropWords core's) the keep words of its hg heads.
+__host__ __device__ inline int drop_attention_bytes(int hg, bool words = true) {
+  return align16(2 * kRowsB * 4) + (words ? align16(hg * kT * swin::kKeepWords * 4) : 0);
 }
 
 // One block per (window, stream * batch, group of hg heads): q/k/v of the group's heads from
@@ -857,14 +857,14 @@ __host__ __device__ inline int drop_attention_bytes(int hg) {
 // kFused (every head in the block): wp arrives by cp.async while the core runs, and the
 // block projects AV from shared memory and stores the output: the whole forward in one
 // launch.
-// kDrop (split, swin::AttnDrop): the block hashes its tokens into shared memory after the
-// layout's end and runs the core on the dropped weights; kDropWords (the bf16 forward's dropout
-// form, and the dropout backward's recompute, which sets a.keep) hashes the keep words of its heads
-// there too and writes them to a.keep where it is set, for the backward's blocks; kDropHashed (the
-// fp32 forward's) hashes each weight's bit in the core.
+// kDrop (swin::AttnDrop, both routes): the block hashes its tokens into shared memory after the
+// layout's end and runs the core on the dropped weights, before AV (and, fused, before the
+// projection); kDropWords (the bf16 forward's dropout form, and the dropout backward's
+// recompute, which sets a.keep on the split block) hashes the keep words of its heads there too
+// and writes them to a.keep where it is set, for the backward's blocks; kDropHashed (the fp32
+// forward's) hashes each weight's bit in the core.
 template <int DP, bool kBf16, bool kFused, int kDrop = swin::kNoDrop>
 __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attention_kernel(const Args a) {
-  static_assert(!(kDrop && kFused), "the dropout form is the split block");
   extern __shared__ __align__(16) unsigned char smem[];
   using T = Act<kBf16>;
   const Layout L = attention_layout(kBf16, kFused, a.cross != 0, a.C, a.inner, a.hg, a.d, DP);
@@ -951,12 +951,15 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
   }
   __syncthreads();
 
+  const swin::AttnHash hash{a.drop, ph, slot, grp * a.hg, a.heads};  // kDropHashed's keys
   if constexpr (kFused) {
     T* out = static_cast<T*>(a.out) + static_cast<size_t>(s * a.B + b) * map;
     if constexpr (kBf16) {
       bf16* av = reinterpret_cast<bf16*>(smem + L.av);
-      attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
-                                [&](int t, int col, float v) { av[t * (ki + 8) + col] = __float2bfloat16_rn(v); });
+      attention_core<DP, kBf16, kDrop>(
+          q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
+          [&](int t, int col, float v) { av[t * (ki + 8) + col] = __float2bfloat16_rn(v); }, keep_s, a.drop.scale,
+          hash);
       cp_async_wait<0>();
       __syncthreads();
       float acc[kMaxNTilesB][4][4];
@@ -964,8 +967,10 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
       store_proj_bf16(acc, a.C, rows, bp_s, out);
     } else {
       float* av = reinterpret_cast<float*>(smem + L.av);
-      attention_core<DP, kBf16>(q_s, k_s, smem + L.v, nullptr, bias_s, a.hg, a.d,
-                                [&](int t, int col, float v) { av[col * kPitchF + a_col(t >> 3) + (t & 7)] = v; });
+      attention_core<DP, kBf16, kDrop>(
+          q_s, k_s, smem + L.v, nullptr, bias_s, a.hg, a.d,
+          [&](int t, int col, float v) { av[col * kPitchF + a_col(t >> 3) + (t & 7)] = v; }, keep_s, a.drop.scale,
+          hash);
       cp_async_wait<0>();
       __syncthreads();
       float acc[8][kTileN];
@@ -983,7 +988,7 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
     attention_core<DP, kBf16, kDrop>(
         q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
         [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = from_float<T>(v); }, keep_s,
-        a.drop.scale, swin::AttnHash{a.drop, ph, slot, grp * a.hg, a.heads});
+        a.drop.scale, hash);
   } else {
     T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
     attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,

@@ -20,16 +20,17 @@ and the fast softmax stay fp32; p and v are rounded to bf16 before AV, AV is rou
 before the projection, whose fp32 sum plus ``bp`` is rounded once on the store.
 
 ``window_attention`` runs the plain version for a CPU tensor and launches kernels for a
-CUDA tensor. A call without dropout runs ``csrc/window_attention_fwd.cu`` as
+CUDA tensor. Every call, with and without dropout, runs ``csrc/window_attention_fwd.cu`` as
 :func:`fwd_plan` lays it out: one block per window and stream computes q/k/v, scores,
 mask, softmax and AV in shared memory and, where every head fits a block that two can
 share an SM (the stages with C <= 64 of the default model), the output projection too:
 one launch; elsewhere a block takes a group of heads and writes AV, and a second launch
-projects. On the tensor cores in bf16 (``mma.sync``), on fp32 FMA in fp32. Dropout calls
-run the three launches of ``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one
-block per (window, stream, head) for scores, mask, softmax and AV, a batched GEMM for the
-output projection), which the dropout backward also recomputes. There is no fallback between the
-versions.
+projects. On the tensor cores in bf16 (``mma.sync``), on fp32 FMA in fp32. A dropout call
+runs the attention block's dropout form on the same route. ``_launch_three`` keeps the
+three launches of ``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one block per
+(window, stream, head) for scores, mask, softmax and AV, a batched GEMM for the output
+projection) callable, for timing in turns; no call of the model runs them. There is no
+fallback between the versions.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_WindowAttentionFunction``, whose backward (K3 bwd) recomputes q/k/v and AV
@@ -59,9 +60,11 @@ normalised attention weights before AV with the hash masks of the TPU kernel
 (``ops/dropout_layout.py``, ``"k3"``), in both versions and in the backward. The
 projection's dropout is the caller's, on the output, as in the JAX package. On a card a
 dropout call launches the kernels' dropout form (fp32 or bf16; the masks do not depend on
-the dtype), counted in ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES``
-and ``BF16_DROP_BWD_LAUNCHES`` in bf16) instead of ``LAUNCHES`` and ``BWD_LAUNCHES``
-(``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``).
+the dtype): the forward's block hashes each weight's keep bit in its fp32 core, or two keep
+words a query row once per head for its bf16 core, and stores none; the backward hashes its
+own. Dropout calls are counted in ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES``
+(``BF16_DROP_LAUNCHES`` and ``BF16_DROP_BWD_LAUNCHES`` in bf16) instead of ``LAUNCHES`` and
+``BWD_LAUNCHES`` (``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -264,8 +267,6 @@ def _library() -> ctypes.CDLL:
     drop = ctypes.POINTER(dl.DropArgs)
     lib.swin_window_attention_fwd.argtypes = [_P] * 15 + [drop] + [_I] * 12 + [ctypes.c_float, _P]
     lib.swin_window_attention_fwd.restype = _I
-    lib.swin_window_attention_fwd_smem.argtypes = [_I] * 4
-    lib.swin_window_attention_fwd_smem.restype = ctypes.c_size_t
     lib.swin_window_attention_bwd_workspace.argtypes = [_I] * 11
     lib.swin_window_attention_bwd_workspace.restype = ctypes.c_size_t
     lib.swin_window_attention_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 12 + [ctypes.c_float, _P]
@@ -289,14 +290,14 @@ def _bwd_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load("window_attention_fwd")
-    lib.swin_k3_fwd.argtypes = [_P] * 12 + [_I] * 12 + [ctypes.c_float, _P]
+    lib.swin_k3_fwd.argtypes = [_P] * 12 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 12 + [ctypes.c_float, _P]
     lib.swin_k3_fwd.restype = _I
-    lib.swin_k3_fwd_smem.argtypes = [_I] * 9
+    lib.swin_k3_fwd_smem.argtypes = [_I] * 10
     lib.swin_k3_fwd_smem.restype = ctypes.c_size_t
     return lib
 
 
-# ---- the forward without dropout (csrc/window_attention_fwd.cu): its launch plan ----------
+# ---- the forward (csrc/window_attention_fwd.cu): its launch plan ----------------------------
 # Block geometry of the kernels, as in the source: 256 threads; fp32 GEMM rows padded to 56
 # (8x4 register tiles, at most one per thread; A rows pitched 60 floats), bf16 rows to 64
 # (mma tiles of 16 rows and 8 columns, at most three column tiles per warp); channels in
@@ -314,7 +315,7 @@ FUSED_SMEM_MAX = SMEM_LIMIT_BYTES // 2  # the one-launch route only where two bl
 
 @dataclass(frozen=True)
 class FwdPlan:
-    """How the forward without dropout runs at one shape: ``route`` "fused" (one launch, a
+    """How the forward (or its dropout form) runs at one shape: ``route`` "fused" (one launch, a
     block per window and stream with every head, the projection included) or "split" (a
     block per window, stream and group of ``heads_per_block`` heads writes AV, then a
     projection launch over 48-column groups); ``smem`` and ``proj_smem`` are each block's
@@ -350,10 +351,12 @@ def _b_bytes(bf16: bool, nb: int, stages: int) -> int:
 
 
 def attention_smem(bf16: bool, fused: bool, cross: bool, c: int, inner: int, hg: int, d: int,
-                   pitch: int) -> int:
+                   pitch: int, drop: bool = False) -> int:
     """Shared-memory bytes of one attention block (``attention_layout`` in the source): the
     GEMM space (the x and weight rings; after the q/k/v GEMM, bf16's P and the fused
-    route's wp), q/k/v, AV when fused, the bias table, the row and column tables."""
+    route's wp), q/k/v, AV when fused, the bias table, the row and column tables; ``drop``
+    (the dropout form, ``drop_attention_bytes``) adds the tokens' unit hashes and slots and,
+    for the bf16 core, the keep words of the block's heads."""
     ki = _round_up(inner, _KC)
     ring = _ring_a_bytes(bf16, 2 if cross else 1, _STAGES) + _b_bytes(bf16, 3 * hg * d, _STAGES)
     after = (_WARPS * 32 * _P_STRIDE * 2 if bf16 else 0) + (ki * (c + 4 if bf16 else c) * 4 if fused else 0)
@@ -361,7 +364,10 @@ def attention_smem(bf16: bool, fused: bool, cross: bool, c: int, inner: int, hg:
     total += _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
     if fused:
         total += _align16(_ROWS_B * (ki + 8) * 2 if bf16 else ki * _PITCH_F * 4)
-    return total + _align16(_T * _T * 4) + _align16((2 * _ROWS_B + 3 * _MAX_COLS) * 4)
+    total += _align16(_T * _T * 4) + _align16((2 * _ROWS_B + 3 * _MAX_COLS) * 4)
+    if drop:
+        total += _align16(2 * _ROWS_B * 4) + (keep_words_bytes(hg) if bf16 else 0)
+    return total
 
 
 def proj_smem(bf16: bool) -> int:
@@ -380,13 +386,16 @@ def _takes(c: int, heads: int, d: int, hg: int, fused: bool) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
-             bf16: bool) -> FwdPlan:
-    """The launch plan of the forward without dropout, or ValueError where its kernels do
+             bf16: bool, drop: bool = False) -> FwdPlan:
+    """The launch plan of the forward (``drop``: its dropout form, whose blocks add the
+    masks' pieces to their shared memory), or ValueError where its kernels do
     not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8. Every head in
     one block (one launch) where q, k, v of every head fit its column tiles (3 heads*d <=
     192) and two such blocks fit an SM (alone on an SM a block waits on each of its phases);
     else the largest group of heads with at most 48 columns per q/k/v part (a multiple of
-    8) and the projection as a second launch."""
+    8) and the projection as a second launch. With dropout every stage of the default model
+    keeps its route: the masks add 512 bytes (fp32) or 3,648 (bf16) to a stage-1 block, which
+    stays within two an SM."""
     inner = heads * d
     if tuple(window) != FWD_WINDOW:
         raise ValueError(f"the window-attention forward takes {FWD_WINDOW} windows, got {tuple(window)}")
@@ -398,13 +407,13 @@ def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
         raise ValueError(f"the window-attention forward takes C and heads*d multiples of 8, "
                          f"got C={c}, heads*d={inner}")
     if _takes(c, heads, d, heads, True):
-        smem = attention_smem(bf16, True, cross, c, inner, heads, d, pitch)
+        smem = attention_smem(bf16, True, cross, c, inner, heads, d, pitch, drop)
         if smem <= FUSED_SMEM_MAX:
             return FwdPlan("fused", 1, heads, pitch, smem, 0)
     for hg in range(heads, 0, -1):
         if heads % hg == 0 and hg * d <= GROUP_COLS and _takes(c, heads, d, hg, False):
             return FwdPlan("split", 2, hg, pitch,
-                           attention_smem(bf16, False, cross, c, inner, hg, d, pitch), proj_smem(bf16))
+                           attention_smem(bf16, False, cross, c, inner, hg, d, pitch, drop), proj_smem(bf16))
     raise ValueError(f"the window-attention forward has no head grouping for {heads} heads "
                      f"of {d} dims")
 
@@ -606,44 +615,42 @@ def _drop_args(x, kw):
 
 
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
-    """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast. A
-    call without dropout launches the forward of ``csrc/window_attention_fwd.cu`` (one or
-    two launches, :func:`fwd_plan`), a dropout call the three launches."""
-    global LAUNCHES, BF16_LAUNCHES
-    if _drop_args(x, kw) is None:
-        out = _launch_redesigned(x, weights, kw)
-        if x.dtype == torch.bfloat16:
-            BF16_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
-        return out
-    return _launch_three(x, weights, kw)
-
-
-def _launch_redesigned(x, weights, kw) -> torch.Tensor:
-    """The forward without dropout: the attention kernel, and the projection kernel on the
-    split route (AV through a window-major scratch in x's dtype)."""
+    """The fp32 kernels for an fp32 x, their bf16 form for a bf16 x: never an upcast.
+    Every call launches the forward of ``csrc/window_attention_fwd.cu`` (one or two
+    launches, :func:`fwd_plan`), a dropout call its dropout form: the attention block's masks
+    keyed as :func:`window_attention_plain`'s (the attention site of ``_drop_args``); AV
+    through a window-major scratch in x's dtype on the split route."""
+    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     bf16 = x.dtype == torch.bfloat16
-    plan = fwd_plan(c, heads, d, (wh, ww), bool(kw["cross"]), bf16)
+    plan = fwd_plan(c, heads, d, (wh, ww), bool(kw["cross"]), bf16, bool(kw.get("attn_drop_rate")))
+    drop = _drop_args(x, kw)
     lib = _fwd_library()
     out = torch.empty_like(x)
     av = None if plan.route == "fused" else x.new_empty(s * b * h * w * heads * d)
     with torch.cuda.device(x.device):
         rc = lib.swin_k3_fwd(
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            None if av is None else av.data_ptr(), s, b, h, w, c, heads, d,
+            None if av is None else av.data_ptr(), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
             plan.heads_per_block, int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
             int(bf16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention")
+    if drop is not None and bf16:
+        BF16_DROP_LAUNCHES += 1
+    elif drop is not None:
+        DROP_LAUNCHES += 1
+    elif bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def _launch_three(x, weights, kw) -> torch.Tensor:
-    """The three launches of ``csrc/window_attention.cu``: the dropout forms (and, as
-    ``swin_window_attention_fwd``, the form without dropout that the backward recomputes)."""
-    global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
+    """``swin_window_attention_fwd`` of ``csrc/window_attention.cu``, the three launches, with
+    and without dropout: the old forward, which the card checks time the redesigned one
+    against. No call of the model runs it; counts nothing."""
     s, b, h, w, c, heads, d, wh, ww = _dims(x, kw)
     bf16 = x.dtype == torch.bfloat16
     drop = _drop_args(x, kw)
@@ -661,14 +668,6 @@ def _launch_three(x, weights, kw) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "window attention")
-    if drop is not None and bf16:
-        BF16_DROP_LAUNCHES += 1
-    elif drop is not None:
-        DROP_LAUNCHES += 1
-    elif bf16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
 
 
@@ -809,14 +808,8 @@ def window_attention(
         raise ValueError(f"the kernel takes 1 to {MAX_STREAMS} streams (2 for cross), got {s}")
     dl.check_seed((attn_drop_rate,), drop_seed)
     bf16 = x.dtype == torch.bfloat16
-    if not attn_drop_rate:
-        fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16)
+    fwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16, attn_drop_rate > 0)
     if recorded(*args):
         bwd_plan(c, num_heads, dims_per_head, tuple(window), bool(cross), bf16, attn_drop_rate > 0)
-    smem = _library().swin_window_attention_fwd_smem(dims_per_head, wh, ww, int(attn_drop_rate > 0))
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"window attention at d={dims_per_head} needs {smem} bytes "
-                         f"of shared memory, more than the {SMEM_LIMIT_BYTES} a block has")
-    if recorded(*args):
         return _WindowAttentionFunction.apply(kw, *args)
     return _launch_fwd(x, args[1:], kw)

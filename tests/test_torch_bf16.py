@@ -42,6 +42,7 @@ from swin_unet_image_fusion_tpu_torch.models.from_jax import (
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
 from swin_unet_image_fusion_tpu_torch.testing import assert_bf16_fidelity
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BF16 = torch.bfloat16
 LAYER_RTOL, LAYER_ATOL = 2.0**-7, 2.0**-7  # atol times the reference's largest magnitude

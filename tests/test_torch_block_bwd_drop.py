@@ -40,6 +40,7 @@ from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_windows, unpac
 from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 from test_torch_block_bwd_plan import _block_args, _kw, fake_library  # noqa: F401 (a fixture)
 from test_torch_block_bwd_split import HW, block_case
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WINDOW = (7, 7)
 BF16 = torch.bfloat16

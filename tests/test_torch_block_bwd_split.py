@@ -25,6 +25,7 @@ from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_windows, unpack_windows
 from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WINDOW = (7, 7)
 HW = (14, 14)

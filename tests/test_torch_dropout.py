@@ -41,6 +41,7 @@ from swin_unet_image_fusion_tpu_torch.testing import exact_zero
 from test_torch_attention import JaxAttention
 from test_torch_attention import _case as attention_case
 from test_torch_fused_block import CASES, _block_case
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL, RTOL = 2e-5, 1e-4
 WINDOW = (7, 7)

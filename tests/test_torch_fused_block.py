@@ -34,6 +34,7 @@ from swin_unet_image_fusion_tpu_torch.models.from_jax import (
 from swin_unet_image_fusion_tpu_torch.models.layers import BasicBlock
 from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BLOCK_ATOL, BLOCK_RTOL = 2e-5, 1e-4
 MODEL_ATOL, MODEL_RTOL = 5e-5, 1e-4

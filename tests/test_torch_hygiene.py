@@ -272,7 +272,7 @@ def test_dropout_launches_its_own_kernel_form(fake_library):
     attn = (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49))
     twa._launch_fwd(x, attn, dict(kw, attn_drop_rate=0.5))
     assert (twa.LAUNCHES, twa.DROP_LAUNCHES) == (before[0], before[1] + 1)
-    drop = fake_library.calls["swin_window_attention_fwd"][15].contents
+    drop = fake_library.calls["swin_k3_fwd"][12].contents
     assert list(drop.on) == [1, 0, 0, 0] and drop.units == 1
 
 

@@ -41,6 +41,7 @@ from test_torch_attention import _case as attention_case
 from test_torch_dropout import pinned_seed
 from test_torch_grad import ATOL, RTOL, _assert_param_grads, _cotangent, _jax_grads
 from test_torch_k3_plan import _attention_args, fake_library  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WINDOW = (7, 7)
 T = 49
@@ -54,17 +55,6 @@ GEOMETRIES = ((24, 8, 3), (48, 8, 6), (96, 8, 12), (192, 8, 24), (384, 8, 48))
 CASES = [(geo, shift, cross, rate) for geo in GEOMETRIES for shift in (False, True) for cross in (False, True)
          for rate in (0.1, 0.5)]
 IDS = [f"c{g[0]}-shift{int(s)}-cross{int(c)}-rate{r}" for g, s, c, r in CASES]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test on one torch thread, restored after: its many small CPU ops run no faster on
-    more, and under the parallel test runner, with every core busy, OpenMP's threads waiting on
-    each op made such a file ~35x slower (18 cases: 280 s on eight threads, 8 s on one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def keep_words(keep: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The launch plan of K3's forward without dropout (``csrc/window_attention_fwd.cu``), on
 the CPU: the route, head grouping and shared memory per stage of the default model, what
-the wrapper hands the kernels (with a fake library and no CUDA runtime), that the dropout
-forward keeps the three launches of ``csrc/window_attention.cu`` while the backward, with and
-without dropout, runs ``csrc/window_attention_bwd.cu``, and that shapes the kernels do not take
-raise before any launch. The kernels themselves run in
+the wrapper hands the kernels (with a fake library and no CUDA runtime), that the forward and
+the backward, with and without dropout, run ``csrc/window_attention_fwd.cu`` and
+``csrc/window_attention_bwd.cu`` and never the three launches of ``csrc/window_attention.cu``,
+and that shapes the kernels do not take raise before any launch. The dropout form's plan is
+``tests/test_torch_k3_fwd_drop.py``'s. The kernels themselves run in
 ``tests/test_torch_kernel_gpu.py`` and ``chip_smoke.py``."""
 
 import contextlib
@@ -126,18 +127,19 @@ def test_call_without_dropout_launches_the_new_forward(fake_library, c, route, h
                                            shift=True, cross=True))
     assert out.dtype == dtype and out.shape == x.shape
     (args,) = fake_library.calls["swin_k3_fwd"]
-    assert args[19:24] == (hg, int(route == "fused"), 1, 1, int(dtype == torch.bfloat16))
-    assert (args[11] is None) == (route == "fused")
+    assert args[20:25] == (hg, int(route == "fused"), 1, 1, int(dtype == torch.bfloat16))
+    assert (args[11] is None) == (route == "fused") and args[12] is None
     assert "swin_window_attention_fwd" not in fake_library.calls
     bf16 = int(dtype == torch.bfloat16)
     assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
 
 def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_new(fake_library):
-    """A dropout forward runs the three launches of ``csrc/window_attention.cu``, never the
-    new forward; the backward, with and without dropout, runs ``swin_k3_bwd`` of
-    ``csrc/window_attention_bwd.cu`` (with the dropout arguments for a dropout call, NULL
-    without), never the three-launch backward."""
+    """The dropout forward no longer keeps the three launches (the name is the older rule's):
+    the forward and the backward, with and without dropout, run ``swin_k3_fwd`` of
+    ``csrc/window_attention_fwd.cu`` and ``swin_k3_bwd`` of ``csrc/window_attention_bwd.cu``
+    (with the dropout arguments for a dropout call, NULL without), never the three-launch
+    forward or backward of ``csrc/window_attention.cu``."""
     x, weights = _attention_args(24, 8, 3)
     kw = dict(window=(7, 7), num_heads=8, dims_per_head=3, shift=False, cross=True)
     drop = dict(kw, attn_drop_rate=0.25, drop_seed=9)
@@ -145,11 +147,15 @@ def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_ne
     twa._launch_bwd(x, x, weights, drop)
     launchers = ("swin_window_attention_fwd", "swin_window_attention_bwd", "swin_k3_fwd", "swin_k3_bwd")
     assert {n: len(fake_library.calls.get(n, ())) for n in launchers} == \
-        {"swin_window_attention_fwd": 1, "swin_window_attention_bwd": 0, "swin_k3_fwd": 0, "swin_k3_bwd": 1}
+        {"swin_window_attention_fwd": 0, "swin_window_attention_bwd": 0, "swin_k3_fwd": 1, "swin_k3_bwd": 1}
+    twa._launch_fwd(x, weights, kw)
     twa._launch_bwd(x, x, weights, kw)
+    (fwd_drop, fwd_without) = fake_library.calls["swin_k3_fwd"]
+    assert fwd_drop[12] is not None and fwd_without[12] is None
     (with_drop, without) = fake_library.calls["swin_k3_bwd"]
     assert with_drop[4] is not None and without[4] is None
-    assert "swin_window_attention_bwd" not in fake_library.calls and "swin_k3_fwd" not in fake_library.calls
+    assert "swin_window_attention_fwd" not in fake_library.calls
+    assert "swin_window_attention_bwd" not in fake_library.calls
 
 
 def test_launch_raises_before_any_call_on_a_shape_it_does_not_take(fake_library):

@@ -722,18 +722,78 @@ def test_k3_forward_matches_plain_at_every_stage_on_card(hw, dtype):
 def test_k3_forward_plan_agrees_with_the_kernels_shared_memory():
     """The launch plan's shared-memory bytes (``ops/window_attention.py::attention_smem``,
     ``proj_smem``) are the ones the kernels' layouts give, at every stage in both dtypes
-    and modes, and within what a block may use."""
+    and modes, with and without dropout, and within what a block may use."""
     _need_card()
     lib = twa._fwd_library()
     for k, h, w, c, heads, d in _stage_cases((512, 512)):
         for bf16 in (False, True):
             for cross in (False, True):
-                plan = twa.fwd_plan(c, heads, d, (7, 7), cross, bf16)
-                args = (int(bf16), int(plan.route == "fused"), int(cross), c, heads * d, heads, d,
-                        plan.heads_per_block)
-                assert lib.swin_k3_fwd_smem(*args, 0) == plan.smem <= twa.SMEM_LIMIT_BYTES
-                if plan.route == "split":
-                    assert lib.swin_k3_fwd_smem(*args, 1) == plan.proj_smem
+                for drop in (False, True):
+                    plan = twa.fwd_plan(c, heads, d, (7, 7), cross, bf16, drop)
+                    args = (int(bf16), int(plan.route == "fused"), int(cross), c, heads * d, heads, d,
+                            plan.heads_per_block)
+                    assert lib.swin_k3_fwd_smem(*args, 0, int(drop)) == plan.smem <= twa.SMEM_LIMIT_BYTES
+                    if plan.route == "split":
+                        assert lib.swin_k3_fwd_smem(*args, 1, int(drop)) == plan.proj_smem
+
+
+def _check_k3_dropout_forward(hw, batch, dtype, stages, rate):
+    """K3's dropout forward (``window_attention``: the dropout form of
+    ``csrc/window_attention_fwd.cu``'s route, one launch at stages 0-1 and two at 2-4, as
+    ``fwd_plan(..., drop=True)`` names it), the attention site at ``rate``, against its plain
+    version and against the three launches of ``csrc/window_attention.cu`` with the same seed
+    (``_launch_three``) in every stage x shift x cross case of ``stages`` at ``hw`` and
+    ``batch``: fp32 within atol/rtol 1e-4, bf16 by the share bound of the bf16 kernels; each
+    call counted once in its dtype's dropout counter and in no other, and repeated bit for
+    bit."""
+    counters = ("LAUNCHES", "BF16_LAUNCHES", "DROP_LAUNCHES", "BF16_DROP_LAUNCHES")
+    counted = "BF16_DROP_LAUNCHES" if dtype == BF16 else "DROP_LAUNCHES"
+    for k, h, w, c, heads, d in _stage_cases(hw):
+        if k not in stages:
+            continue
+        gen = torch.Generator().manual_seed(600 + k)
+        inner = heads * d
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        args = (rand(2, batch, h, w, c).to(dtype), rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
+                rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1), rand(2, 49, 49))
+        for shift in (False, True):
+            for cross in (False, True):
+                kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
+                          attn_drop_rate=rate, drop_seed=DROP_SEED + k)
+                before = {n: getattr(twa, n) for n in counters}
+                out = twa.window_attention(*args, **kw)
+                again = twa.window_attention(*args, **kw)
+                three = twa._launch_three(args[0], args[1:], kw)
+                torch.cuda.synchronize()
+                assert {n: getattr(twa, n) - b for n, b in before.items()} == {n: 2 * (n == counted) for n in counters}
+                route = twa.fwd_plan(c, heads, d, (7, 7), cross, dtype == BF16, True).route
+                what = f"stage {k} {h}x{w}x{batch} C={c} ({route}) shift={shift} cross={cross} rate={rate} {dtype}"
+                assert torch.equal(out, again), f"{what}: a repeat gave other bits"
+                ref = twa.window_attention_plain(*args, **kw)
+                for other, name in ((ref, "plain"), (three, "three launches")):
+                    if dtype == BF16:
+                        _assert_bf16_close(out, other, f"{what} vs {name}")
+                    else:
+                        torch.testing.assert_close(out, other, atol=1e-4, rtol=1e-4,
+                                                   msg=lambda m: f"{what} vs {name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(5)), ((100, 90), 1, range(5)),
+                                             ((512, 512), 1, (4,))], ids=["224x2", "100x90", "512-stage4"])
+def test_k3_dropout_forward_matches_plain_and_three_launches_on_card(hw, batch, stages, rate, dtype):
+    """K3's dropout forward at every stage of a 224² batch-2 step and a 100x90 map, and at the
+    512² stage-4 shape (21², C = 384): the dropout form of the one-launch block at stages 0-1
+    and of the split route at 2-4 (``_check_k3_dropout_forward``)."""
+    _need_card()
+    _check_k3_dropout_forward(hw, batch, dtype, stages, rate)
 
 
 def _block_case(k, h, w, c, heads, d, hidden, dtype, batch=1):
