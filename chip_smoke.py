@@ -62,8 +62,16 @@ with its fp32 form (the new dropout forms also with the old launches and the for
 dropout), and the bf16 token masks bit for bit; the first bf16 step under each
 configuration with exact launch counts, held against the bf16 and the fp32 torch
 compositions on the card, bf16 steps timed in turns with the fp32 steps and one traced;
-the first bf16 dropout step under each configuration, repeated bit for bit. Each phase
-prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
+the first bf16 dropout step under each configuration, repeated bit for bit. Then the
+training entry point: ``Trainer.start_train`` on the default model over seeded arrays
+(``testing.ArrayPairDataset``) at 224x224 batch 20 with exact launch counts, its step beside
+the bare step, the loader, memory and checkpoints (``[trainer]``); a fresh ``Trainer`` resumed
+from the epoch-1 checkpoint, bit-equal in state and next step (``[resume]``); the trained
+weights out as a reference ``.pth`` and served back by ``Fuser.from_checkpoint`` bit for bit
+(``[pth]``); a NaN step under ``skip_nonfinite_updates`` (``[nonfinite]``);
+``python -m swin_unet_image_fusion_tpu_torch.train`` over a folder of PNG pairs (``[cli]``);
+and each configuration's step with and without ``remat`` in turns, gradients held to each
+other (``[remat]``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -1254,8 +1262,9 @@ def train_configs(flat, device, card):
     checked against the torch composition's first step on the card (loss terms to 1e-5
     relative, every parameter's gradient present, finite and within the gradient
     tolerance); then TRAIN_STEPS timed steps each, in turns, and one profiled step.
-    Returns the backward kernels' launches, the states and steps, the inputs, and the
-    torch composition's first step (terms, gradients)."""
+    Returns the backward kernels' launches, the states and steps, the inputs, the torch
+    composition's first step (terms, gradients) and the median ms per step by
+    configuration."""
     from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
     from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
@@ -1331,7 +1340,8 @@ def train_configs(flat, device, card):
               f"{peaks[impl]:.0f} MiB | {card}", flush=True)
         trace(f"train step 224x224 bs={TRAIN_BATCH} ({label})", f"train {label}",
               lambda: steps[impl](states[impl], ir, vis), median, card)
-    return launches, states, steps, (ir, vis), fp32_first
+    medians = {impl: float(np.median(walls[impl])) for impl in names}
+    return launches, states, steps, (ir, vis), fp32_first, medians
 
 
 def dropout_train(flat, device, card, states, steps, inputs):
@@ -2630,6 +2640,342 @@ def bf16_train(flat, device, card, states, steps, inputs, fp32_first):
     return launches
 
 
+# The Trainer's cell: the default model in fp32 under "auto" (K3 on the card) over seeded
+# arrays, 2 epochs of 2 steps at 224x224 batch 20, validation every 2 steps, a checkpoint
+# each epoch
+TRAINER_PAIRS, TRAINER_IMAGE_HW, TRAINER_EPOCHS = 80, (256, 320), 2
+TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+
+
+def _trainer_config():
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.config import LogConfig, OptimConfig
+
+    return Config(
+        model=ModelConfig(),
+        optim=OptimConfig(epochs=TRAINER_EPOCHS, batch_size=TRAIN_BATCH, training_set_ratio=0.5),
+        log=LogConfig(vali_interval_in_iters=2, save_model_interval_in_epochs=1,
+                      save_model_to_folder=str(TRAINER_DIR / "checkpoints"),
+                      save_vali_results_to_folder=str(TRAINER_DIR / "vali"),
+                      tensorboard_log_dir=str(TRAINER_DIR / "tb")))
+
+
+def _trainer(cfg, device):
+    from swin_unet_image_fusion_tpu_torch.testing import ArrayPairDataset
+    from swin_unet_image_fusion_tpu_torch.train import Trainer
+
+    dataset = ArrayPairDataset(TRAINER_PAIRS, TRAINER_IMAGE_HW, cfg.data, seed=SEED)
+    return Trainer(cfg, device=device, dataset=dataset)
+
+
+def _state_tensors(state):
+    """A train state's tensors by name (model, Adam) and its counts, for bit comparisons."""
+    opt = state.optimizer.state_dict()
+    tensors = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for index, per in opt["state"].items():
+        tensors.update({f"adam.{index}.{k}": v for k, v in per.items()})
+    return tensors, (state.step, state.updates, state.notfinite, opt["param_groups"])
+
+
+def _assert_states_equal(got, ref, what):
+    tensors, counts = _state_tensors(got)
+    ref_tensors, ref_counts = _state_tensors(ref)
+    if counts != ref_counts:
+        raise AssertionError(f"{what}: counts {counts[:3]} vs {ref_counts[:3]}, or Adam's groups differ")
+    if set(tensors) != set(ref_tensors):
+        raise AssertionError(f"{what}: other tensors: {sorted(set(tensors) ^ set(ref_tensors))[:5]}")
+    for key, value in ref_tensors.items():
+        if not torch.equal(tensors[key].to(value.device), value):
+            raise AssertionError(f"{what}: {key} differs")
+    return len(tensors)
+
+
+def trainer_phases(device, card, bare_ms):
+    """The training entry point as a user drives it: ``Trainer.start_train`` on the default
+    model in fp32 (``"auto"``) over ``ArrayPairDataset`` (its augmentation, batching and
+    prefetch are the real ones), with exact launch counts; then ``[resume]`` (a fresh
+    ``Trainer`` loads the epoch-1 checkpoint: its state equals the one saved bit for bit, and
+    one step of each on the same batch gives the same bits), ``[pth]`` (the trained model
+    out through ``save_torch_checkpoint``, back through ``Fuser.from_checkpoint``: ``fuse_y``
+    at 512x512 bit-equal to a ``Fuser`` over the trainer's weights, and the file loads back to
+    the same state dict exactly) and ``[nonfinite]`` (a step with a NaN input pixel under
+    ``skip_nonfinite_updates`` leaves the parameters bit-equal and counts 1). Returns the
+    trainer run's launches."""
+    import copy
+    import importlib.util
+    import os
+    import shutil
+
+    from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.config import OptimConfig
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import variables_to_jax
+    from swin_unet_image_fusion_tpu_torch.models.torch_export import save_torch_checkpoint
+    from swin_unet_image_fusion_tpu_torch.models.torch_import import load_torch_checkpoint
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    found = {name: importlib.util.find_spec(name) is not None for name in ("tensorboard", "matplotlib")}
+    cfg = _trainer_config()
+    impl = cfg.model.resolved_attention_impl(device)
+    trainer = _trainer(cfg, device)
+    train_step, eval_step, save = trainer.train_step, trainer.eval_step, trainer.save_checkpoint
+    marks, evals, saves, snapshots = [], [], [], {}
+
+    def timed_step(state, ir, vis):  # synchronised, as the bare [train] steps are timed
+        t = time.perf_counter()
+        terms = train_step(state, ir, vis)
+        torch.cuda.synchronize()
+        marks.append((trainer.current_epoch, t, time.perf_counter()))
+        return terms
+
+    def counted_eval(state, ir, vis):
+        evals.append(ir.shape[0])
+        return eval_step(state, ir, vis)
+
+    def timed_save():
+        t = time.perf_counter()
+        path = save()
+        saves.append((path, time.perf_counter() - t, os.path.getsize(path)))
+        if trainer.current_epoch == 1:
+            snapshots[1] = copy.deepcopy(trainer.state)  # the state just saved
+        return path
+
+    trainer.train_step, trainer.eval_step, trainer.save_checkpoint = timed_step, counted_eval, timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer.start_train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = read_counts(impl)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = len(marks)
+    expected = {name: 0 for name in got}
+    expected.update({name: n * (steps + len(evals)) if " bwd" not in name else n * steps
+                     for name, n in TRAIN_CONFIGS[impl].items()})
+    print(f"[trainer] Trainer.start_train, default model fp32 attention_impl auto -> {impl}: "
+          f"{TRAINER_EPOCHS} epochs x {trainer.iters_per_epoch} steps of {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+          f"bs={TRAIN_BATCH} over {TRAINER_PAIRS} array pairs of {TRAINER_IMAGE_HW}, {len(evals)} "
+          f"validation batches: launches {got}", flush=True)
+    if got != expected:
+        raise AssertionError(f"Trainer: launches {got}, expected {expected}")
+    if steps != TRAINER_EPOCHS * trainer.iters_per_epoch:
+        raise AssertionError(f"Trainer ran {steps} steps")
+    step_ms = [1e3 * (end - start) for _, start, end in marks]
+    gaps = [1e3 * (b[1] - a[2]) for a, b in zip(marks, marks[1:]) if a[0] == b[0]]
+    median = float(np.median(step_ms[1:]))
+    gap = float(np.median(gaps)) if gaps else float("nan")
+    t = time.perf_counter()
+    loader_batches = sum(1 for _ in trainer.train_loader)
+    loader_ms = 1e3 * (time.perf_counter() - t) / loader_batches
+    print(f"[trainer] step: median {median:.2f} ms after the first ({', '.join(f'{m:.2f}' for m in step_ms)}), "
+          f"the bare [train] {impl} step {bare_ms:.2f} ms ({median / bare_ms - 1:+.1%}); the loop's "
+          f"wait for the next batch in an epoch {gap:.2f} ms; the loader alone {loader_ms:.2f} ms "
+          f"per batch of {TRAIN_BATCH} (resized by "
+          f"{'cv2' if importlib.util.find_spec('cv2') else 'numpy, cv2 absent'}), keeps up: "
+          f"{loader_ms < median}; {TRAIN_BATCH * 1e3 / (median + gap):.1f} pairs/s; run wall "
+          f"{wall:.2f} s; peak memory {peak:.0f} MiB; checkpoints "
+          + ", ".join(f"{size} bytes in {seconds:.2f} s" for _, seconds, size in saves)
+          + f"; tensorboard {'found' if found['tensorboard'] else 'absent'}, matplotlib "
+          f"{'found' if found['matplotlib'] else 'absent'} | {card}", flush=True)
+
+    # [resume]: the epoch-1 checkpoint into a fresh Trainer
+    path, snapshot = saves[0][0], snapshots[1]
+    resumed = _trainer(cfg, device)
+    resumed.load_checkpoint(path)
+    if resumed.current_epoch != 2:
+        raise AssertionError(f"resumed at epoch {resumed.current_epoch}")
+    held = _assert_states_equal(resumed.state, snapshot, "resume")
+    counts = _state_tensors(snapshot)[1][:3]
+    batch = next(iter(resumed.train_loader))
+    ir, vis = (torch.from_numpy(batch[k]).to(device) for k in ("ir", "vis"))
+    torch.use_deterministic_algorithms(True)  # an op without a deterministic form raises
+    try:
+        terms = [resumed.train_step(state, ir, vis) for state in (snapshot, resumed.state)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if any(not torch.equal(terms[0][k], terms[1][k]) for k in terms[0]):
+        raise AssertionError("resume: the next step's loss terms differ")
+    stepped = _assert_states_equal(resumed.state, snapshot, "resume, after a step")
+    print(f"[resume] a fresh Trainer from {os.path.basename(path)}: epoch {resumed.current_epoch}, "
+          f"{held} tensors (model and Adam) and the counts (step, updates, notfinite) "
+          f"{counts} bit-equal to the state saved; one step of each on "
+          f"the same batch under deterministic algorithms: loss terms and all {stepped} tensors "
+          f"bit-equal | {card}", flush=True)
+    del resumed, snapshot, snapshots
+    torch.cuda.empty_cache()
+
+    # [pth]: the trained weights out as a reference .pth and back into a Fuser
+    pth = str(TRAINER_DIR / "trained.pth")
+    save_torch_checkpoint(pth, trainer.state.model, cfg.model, epoch=trainer.current_epoch)
+    served = Config(model=cfg.model)
+    from_pth = Fuser.from_checkpoint(served, pth, device=device)
+    direct = Fuser(served, variables_to_jax(trainer.state.model.state_dict()), device=device)
+    rng = np.random.default_rng(SEED + 7)
+    ir, vis = (rng.random((1, *SERVE_HW, 1), dtype=np.float32) for _ in range(2))
+    out, ref = from_pth.fuse_y(ir, vis), direct.fuse_y(ir, vis)
+    check_fused(out, (1, *SERVE_HW, 1))
+    if not np.array_equal(out, ref):
+        raise AssertionError(f"pth: fuse_y differs from the trainer's weights by {np.abs(out - ref).max()}")
+    loaded, epoch = load_torch_checkpoint(pth, cfg.model)
+    trained = trainer.state.model.state_dict()
+    if epoch != trainer.current_epoch or set(loaded) != set(trained) or any(
+            not torch.equal(loaded[k], v.cpu()) for k, v in trained.items()):
+        raise AssertionError("pth: the file does not load back to the trained state dict")
+    print(f"[pth] save_torch_checkpoint of the trained model ({os.path.getsize(pth)} bytes) -> "
+          f"Fuser.from_checkpoint on the card: fuse_y {SERVE_HW[0]}x{SERVE_HW[1]} bit-equal to a Fuser "
+          f"over the trainer's weights; the file loads back to all {len(trained)} tensors exactly, "
+          f"epoch {epoch} | {card}", flush=True)
+    del from_pth, direct, trainer
+
+    # [nonfinite]: a NaN input pixel under skip_nonfinite_updates
+    guarded = Config(model=ModelConfig(), optim=OptimConfig(skip_nonfinite_updates=True))
+    state = create_train_state(guarded, None, 100, device=device)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    ir, vis = (torch.from_numpy(np.random.default_rng(SEED + 8).random((TRAIN_BATCH, *TRAIN_HW, 1),
+                                                                         dtype=np.float32)).to(device)
+               for _ in range(2))
+    ir[0, 0, 0, 0] = float("nan")
+    terms = make_train_step(guarded)(state, ir, vis)
+    if torch.isfinite(terms["total_loss"]) or (state.step, state.updates, state.notfinite) != (1, 0, 1):
+        raise AssertionError(f"nonfinite: counts {(state.step, state.updates, state.notfinite)}")
+    if any(not torch.equal(p, before[n]) for n, p in state.model.named_parameters()):
+        raise AssertionError("nonfinite: a parameter moved")
+    print(f"[nonfinite] one step with a NaN input pixel under skip_nonfinite_updates: loss "
+          f"{float(terms['total_loss'])}, all {len(before)} parameters bit-equal, step 1, updates 0, "
+          f"notfinite 1 | {card}", flush=True)
+    del state, before
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return got
+
+
+def cli_phase(card):
+    """``python -m swin_unet_image_fusion_tpu_torch.train`` on a folder of image pairs, as a
+    user starts training: one epoch of the default model at a 56x56 crop, batch 2, on the card.
+    With cv2 the folder holds PNGs and the run must train and save its checkpoint; without it
+    the dataset must raise the JAX package's "cv2 required for image decoding"."""
+    import importlib.util
+    import os
+    import shutil
+
+    folder = TRAINER_DIR / "cli_pairs"
+    shutil.rmtree(folder, ignore_errors=True)
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    rng = np.random.default_rng(SEED + 10)
+    for sub, shape in (("ir", (64, 72)), ("vis", (64, 72, 3))):
+        os.makedirs(folder / sub)
+        for i in range(4):
+            path = str(folder / sub / f"{i}.png")
+            if have_cv2:
+                import cv2
+                cv2.imwrite(path, (rng.random(shape) * 255).astype(np.uint8))
+            else:
+                Path(path).write_bytes(b"not decoded without cv2")
+    args = [sys.executable, "-m", "swin_unet_image_fusion_tpu_torch.train",
+            f"data.training_dataset_folder={folder}", "optim.epochs=1", "optim.batch_size=2",
+            "optim.training_set_ratio=1.0", "data.crop_size=(56, 56)",
+            f"log.save_model_to_folder={folder / 'checkpoints'}", f"log.tensorboard_log_dir={folder / 'tb'}",
+            f"log.save_vali_results_to_folder={folder / 'vali'}"]
+    t = time.perf_counter()
+    run = subprocess.run(args, capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t
+    saved = sorted(os.listdir(folder / "checkpoints")) if (folder / "checkpoints").exists() else []
+    if have_cv2 and (run.returncode != 0 or len(saved) != 1 or not saved[0].endswith("_epoch1")):
+        raise AssertionError(f"cli: rc {run.returncode}, checkpoints {saved}:\n{run.stderr[-2000:]}")
+    if not have_cv2 and (run.returncode == 0 or "cv2 required for image decoding" not in run.stderr):
+        raise AssertionError(f"cli without cv2: rc {run.returncode}:\n{run.stderr[-2000:]}")
+    what = (f"trained 2 steps and saved {saved[0]}" if have_cv2 else
+            "cv2 absent: the dataset raised \"cv2 required for image decoding\"")
+    print(f"[cli] python -m swin_unet_image_fusion_tpu_torch.train over 4 PNG pairs: rc "
+          f"{run.returncode}, {what}, {seconds:.1f} s | {card}", flush=True)
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+
+
+REMAT_CONFIGS = ("cuda_pack", "cuda_block", "cuda")
+
+
+def remat_phase(device, card, rounds=TRAIN_STEPS):
+    """``remat=True`` against ``remat=False`` at 224x224 batch 20 under each kernel
+    configuration: the first step of each from the same weights and batch, under
+    ``torch.use_deterministic_algorithms(True)``, the forward's launches doubled and the
+    backward's not, every gradient held to the step's without remat
+    (``testing.assert_grads_close``; bit-equality reported); then ``rounds`` steps of
+    each in turns, ms per step and the step's peak memory above what it found allocated;
+    and one ``cuda`` step with every dropout ratio 0.1 and the same seeds, remat on and
+    off, gradients held likewise."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import init_variables
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    flat = init_variables(ModelConfig(), SEED)
+    rng = np.random.default_rng(SEED + 9)
+    ir, vis = (torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+               for _ in range(2))
+    ratios = dict(zip(("attention_drop_ratio", "linear_after_att_drop_ratio", "mlp_drop_ratio"),
+                      DROP_RATIOS))
+    cases = [(impl, {}) for impl in REMAT_CONFIGS] + [("cuda", ratios)]
+    for impl, drop in cases:
+        label = f"{impl}{' dropout' if drop else ''}"
+        states, steps, grads = {}, {}, {}
+        for remat in (False, True):
+            cfg = Config(model=ModelConfig(attention_impl=impl, remat=remat, **drop))
+            states[remat] = create_train_state(cfg, flat, 100, device=device)
+            steps[remat] = make_train_step(cfg)
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.use_deterministic_algorithms(True)  # the bias gather's gradient sums in a fixed order
+            try:
+                steps[remat](states[remat], ir, vis)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            counts = {k: v for k, v in read_counts(impl).items() if v}
+            if not drop:
+                per_step = TRAIN_CONFIGS[impl]
+                expected = {k: n * (2 if remat and " bwd" not in k else 1) for k, n in per_step.items()}
+                if counts != expected:
+                    raise AssertionError(f"remat {remat} {impl}: launches {counts}, expected {expected}")
+            print(f"[remat] {label} remat={remat} first step: launches {counts}", flush=True)
+            grads[remat] = {n: p.grad.detach().clone() for n, p in states[remat].model.named_parameters()}
+        names = list(grads[False])
+        check = assert_grads_close([grads[True][n] for n in names], [grads[False][n] for n in names],
+                                   names, f"remat {label}")
+        bit_equal = all(torch.equal(grads[True][n], grads[False][n]) for n in names)
+        print(f"[remat] {label}: all {len(names)} gradients with remat held to those without "
+              f"(max_abs_err {check.worst:.3e}), bit-equal: {bit_equal} | {card}", flush=True)
+        del grads
+        if drop:
+            del states, steps
+            torch.cuda.empty_cache()
+            continue
+        walls = {False: [], True: []}
+        peaks = {False: 0.0, True: 0.0}
+        for _ in range(rounds):
+            for remat in (False, True):
+                torch.cuda.synchronize()
+                resting = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                steps[remat](states[remat], ir, vis)
+                torch.cuda.synchronize()
+                walls[remat].append(1e3 * (time.perf_counter() - t))
+                peaks[remat] = max(peaks[remat], (torch.cuda.max_memory_allocated() - resting) / 2**20)
+        for remat in (False, True):
+            w = walls[remat]
+            print(f"[remat] step {TRAIN_HW[0]}x{TRAIN_HW[1]} bs={TRAIN_BATCH} ({impl}, remat={remat}), "
+                  f"{rounds} steps in turns: "
+                  f"median {float(np.median(w)):.2f} ms/step, min {min(w):.2f}, max {max(w):.2f}; the "
+                  f"step's peak memory above the {resting / 2**20:.0f} MiB allocated before it "
+                  f"{peaks[remat]:.0f} MiB | {card}", flush=True)
+        del states, steps
+        torch.cuda.empty_cache()
+
+
 class Phases:
     """Prints each phase's wall seconds on its own line, and the run's so far."""
 
@@ -2731,7 +3077,7 @@ def main() -> int:
     for key, err in c384_worst.items():
         drop_worst[key] = max(drop_worst[key], err)
     phase("[check] and [time] of the bf16 backward and dropout forms and the bf16 mask kernels")
-    train_launches, states, steps, inputs, fp32_first = train_configs(flat, device, card)
+    train_launches, states, steps, inputs, fp32_first, train_ms = train_configs(flat, device, card)
     launches.update(train_launches)
     phase("[train] fp32")
     launches.update(dropout_train(flat, device, card, states, steps, inputs))
@@ -2742,6 +3088,11 @@ def main() -> int:
     phase("[train] bf16 and bf16 dropout")
     dropout_parity(flat, card)
     phase("[parity] dropout, card vs CPU")
+    trainer_phases(device, card, train_ms["cuda"])
+    cli_phase(card)
+    phase("[trainer], [resume], [pth], [nonfinite] and [cli]")
+    remat_phase(device, card)
+    phase("[remat]")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (

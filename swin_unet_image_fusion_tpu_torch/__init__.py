@@ -2,12 +2,21 @@
 ``swin_unet_image_fusion_tpu``, the dual-stream Swin U-Net for IR/visible fusion.
 
 The JAX package is the reference this port is tested against; the port imports
-neither it nor JAX. Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+neither it nor JAX. Entry points (``Fuser`` serves, ``Trainer`` trains) run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
 
 from .config import Config, ModelConfig
 from .infer import Fuser
 from .models.unet import SwinFusionUNet
 
-__all__ = ["Config", "ModelConfig", "SwinFusionUNet", "Fuser"]
+__all__ = ["Config", "ModelConfig", "SwinFusionUNet", "Fuser", "Trainer"]
+
+
+def __getattr__(name):
+    # ``Trainer`` on first use: importing ``train`` with the package would load it twice
+    # under ``python -m swin_unet_image_fusion_tpu_torch.train``
+    if name == "Trainer":
+        from .train import Trainer
+        return Trainer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -11,13 +11,20 @@ each block as one fused kernel on window-packed tokens with the re-partition ker
 between blocks, ``ops/fused_block.py`` and ``ops/window_pack.py``; the other stages run
 ``"cuda"``) and ``"cuda_block"`` (the JAX ``"pallas_block"``: every block as one fused
 kernel on the image).
+
+:func:`config_from_cli` builds a config from ``section.key=value`` overrides, as the JAX
+``config_from_cli`` does: ``python -m swin_unet_image_fusion_tpu_torch.train optim.lr=1e-3``.
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 import math
+import sys
+import typing
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 ATTENTION_IMPLS = ("auto", "torch", "cuda", "cuda_pack", "cuda_block")
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -159,3 +166,81 @@ class Config:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     epsilon: float = 1e-10
     seed: int = 0
+
+
+def _check_key(obj, name: str, dotted_key: str) -> None:
+    """Raise unless ``name`` is a field of the dataclass ``obj``, listing the valid keys."""
+    names = {f.name for f in dataclasses.fields(obj)}
+    if name not in names:
+        raise ValueError(
+            f"unknown config key {dotted_key!r} ({name!r} is not a field of "
+            f"{type(obj).__name__}); valid keys: {', '.join(sorted(names))}"
+        )
+
+
+def _is_optional_field(obj, name: str) -> bool:
+    """Whether the dataclass field's annotation is ``Optional[...]`` (accepts None)."""
+    t = typing.get_type_hints(type(obj)).get(name)
+    return (t is not None and typing.get_origin(t) is typing.Union
+            and type(None) in typing.get_args(t))
+
+
+def _parse_value(value: str, current, optional: bool, dotted_key: str):
+    """Parse a command-line string against the field's current value and type; raise on
+    a mismatch."""
+    if optional and value in ("None", "none", "null"):
+        return None
+    if isinstance(current, bool):
+        low = value.lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"cannot parse {value!r} as bool for {dotted_key!r}")
+    if isinstance(current, str):
+        return value
+    try:
+        lit = ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        expected = "a literal" if current is None else type(current).__name__
+        raise ValueError(f"cannot parse {value!r} for {dotted_key!r} (expected {expected})") from None
+    if current is None:
+        return lit  # an Optional field that is None now takes the literal as it is
+    try:
+        return type(current)(lit)
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"cannot convert {value!r} to {type(current).__name__} for {dotted_key!r}: {e}"
+        ) from None
+
+
+def _apply_override(cfg: Config, dotted_key: str, raw_value: str) -> Config:
+    """One ``section.key=value`` (or top-level ``key=value``) override -> a new config."""
+    parts = dotted_key.split(".")
+    if len(parts) > 2:
+        raise ValueError(f"override key too deep: {dotted_key}")
+    if len(parts) == 1:
+        key = parts[0]
+        _check_key(cfg, key, dotted_key)
+        parsed = _parse_value(raw_value, getattr(cfg, key), _is_optional_field(cfg, key), dotted_key)
+        return dataclasses.replace(cfg, **{key: parsed})
+    section, key = parts
+    _check_key(cfg, section, dotted_key)
+    sub = getattr(cfg, section)
+    _check_key(sub, key, dotted_key)
+    parsed = _parse_value(raw_value, getattr(sub, key), _is_optional_field(sub, key), dotted_key)
+    return dataclasses.replace(cfg, **{section: dataclasses.replace(sub, **{key: parsed})})
+
+
+def config_from_cli(argv: Optional[Sequence[str]] = None, base: Optional[Config] = None) -> Config:
+    """A config from ``section.key=value`` arguments (``sys.argv[1:]`` by default) applied
+    in order to ``base`` (the defaults by default). An unknown or too deep key, an argument
+    without ``=`` or a value that does not parse as the field's type raises ``ValueError``;
+    ``None`` sets an ``Optional`` field."""
+    cfg = base or Config()
+    for arg in (sys.argv[1:] if argv is None else argv):
+        if "=" not in arg:
+            raise ValueError(f"expected key=value override, got: {arg}")
+        key, value = arg.split("=", 1)
+        cfg = _apply_override(cfg, key, value)
+    return cfg

@@ -6,6 +6,8 @@ clamps the fused Y to [0, 1]. With ``bucket=N`` it reflect-pads the inputs botto
 up to multiples of N and crops the output back; the padding changes the reflect context
 at the crop border, so ``bucket=0`` (the default) is parity mode. The inputs go to the
 device as fp32; under ``compute_dtype="bfloat16"`` the model casts them there.
+:meth:`Fuser.from_checkpoint` loads trained weights: a reference ``.pth`` or the
+``Trainer``'s checkpoint file.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models.from_jax import flatten_variables, variables_from_jax
+from .models.from_jax import flatten_variables, variables_from_jax, variables_to_jax
+from .models.torch_import import load_torch_checkpoint
 from .models.unet import SwinFusionUNet
 from .ops.shape_plan import pad_amount
 
@@ -40,6 +43,18 @@ class Fuser:
         self.model = SwinFusionUNet(cfg.model)
         self.model.load_state_dict(variables_from_jax(flatten_variables(variables)))
         self.model.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, path: str, *, bucket: int = 0,
+                        device: torch.device | str = "cuda") -> "Fuser":
+        """A fuser over trained weights: a path ending in ``.pth`` is a reference checkpoint
+        (``models/torch_import.py``), any other the ``Trainer``'s checkpoint file (its
+        model's state dict)."""
+        if path.endswith(".pth"):
+            state_dict, _ = load_torch_checkpoint(path, cfg.model)
+        else:
+            state_dict = torch.load(path, map_location="cpu", weights_only=True)["model"]
+        return cls(cfg, variables_to_jax(state_dict), bucket=bucket, device=device)
 
     @torch.inference_mode()
     def fuse_y(self, ir: np.ndarray, vis_y: np.ndarray) -> np.ndarray:

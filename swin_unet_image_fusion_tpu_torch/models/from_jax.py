@@ -11,7 +11,8 @@ Load the result with ``model.load_state_dict(...)`` (strict by default), so a mi
 or extra key, or a wrong shape, raises. ``variables_to_jax`` is the inverse: a state dict
 (or any dict of tensors by parameter or buffer name, such as gradients) back to flat flax
 naming. ``random_variables`` makes seeded numpy weights in the same flat naming without
-JAX, for the tests and ``chip_smoke.py``.
+JAX, for the tests and ``chip_smoke.py``; ``init_variables`` draws a model's starting
+weights from the distributions of the JAX ``model.init``.
 """
 
 from __future__ import annotations
@@ -116,8 +117,39 @@ def random_variables_like(shapes: Mapping[str, Tuple[int, ...]], seed: int) -> D
     return flat
 
 
+def model_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The flat flax paths and shapes of the variables of ``SwinFusionUNet(cfg)``."""
+    with torch.device("meta"):
+        return flax_variable_shapes(SwinFusionUNet(cfg))
+
+
 def random_variables(cfg: ModelConfig, seed: int) -> Dict[str, np.ndarray]:
     """Seeded numpy variables of the whole model in flat flax naming (no JAX needed)."""
-    with torch.device("meta"):
-        model = SwinFusionUNet(cfg)
-    return random_variables_like(flax_variable_shapes(model), seed)
+    return random_variables_like(model_shapes(cfg), seed)
+
+
+def init_variables(cfg: ModelConfig, seed: int) -> Dict[str, np.ndarray]:
+    """A model's starting variables in flat flax naming, from the distributions of the
+    JAX ``model.init`` (JAX ``models/layers.py``): every kernel He-normal over its fan-in,
+    ``N(0, 2 / fan_in)`` (a stacked ``(S, in, out)`` kernel's fan-in is ``in``: the stream
+    axis is a batch of layers, ``stacked_kaiming_normal``; a conv's ``kh * kw * in``), the
+    relative-position tables ``N(0, 1)``, biases 0, LayerNorm and BatchNorm scales 1,
+    BatchNorm's running mean 0 and variance 1.
+
+    The draws come from ``np.random.default_rng(seed)`` over the sorted paths, so the CPU
+    and a card start from the same float32 bits; they are not JAX's threefry bits."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in sorted(model_shapes(cfg).items()):
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1])) if len(shape) == 4 else shape[-2]
+            value = rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / fan_in))
+        elif leaf == "rel_pos_bias_table":
+            value = rng.standard_normal(shape, dtype=np.float32)
+        elif leaf in ("scale", "var"):
+            value = np.ones(shape, np.float32)
+        else:  # bias, mean
+            value = np.zeros(shape, np.float32)
+        flat[key] = value
+    return flat

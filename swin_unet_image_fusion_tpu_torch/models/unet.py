@@ -20,7 +20,12 @@ port of the JAX ``models/unet.py``, NHWC path).
   step holds it off through the backward too;
 - dropout (``attention_drop_ratio``, ``linear_after_att_drop_ratio``, ``mlp_drop_ratio``)
   acts in the training forward only, which then takes a seed source: every block draws
-  one seed in [0, 2^24) per call, in the order the blocks run (``models/layers.py``).
+  one seed in [0, 2^24) per call, in the order the blocks run (``models/layers.py``);
+- ``remat=True`` rematerialises each stage's block pair in training (JAX ``nn.remat`` of
+  ``SelfAndCrossBlockPair``, ``models/unet.py:61-66``): the pair runs under
+  ``torch.utils.checkpoint`` and its activations are recomputed in the backward. The
+  pair's four block seeds are drawn before it runs, so that the recompute replays them;
+  the kernels' launch counters see each pair's forward twice.
 
 Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 """
@@ -28,10 +33,11 @@ Inputs ir/vis are (B, H, W, 1); the fused output is (B, H, W, 1).
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable, Union
+from typing import Iterable, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import COMPUTE_DTYPES, ModelConfig
 from ..ops.patch import crop_bottom_right, pad_reflect_bottom_right
@@ -120,13 +126,11 @@ class SwinFusionUNet(nn.Module):
         batch's statistics and updates its running ones (the JAX ``train=True``) and,
         with a nonzero dropout ratio, dropout with the per-block seeds of ``seeds``: a
         CPU ``torch.Generator`` or a sequence of seeds in block order. Without ``train``
-        there is no dropout and ``seeds`` is not read. Rematerialisation is not ported and
-        raises."""
+        there is no dropout and ``seeds`` is not read. With ``remat`` a training forward
+        recomputes each stage's block pair in the backward (module docstring)."""
         cfg = self.cfg
         source = None
         if train:
-            if cfg.remat:
-                raise NotImplementedError("rematerialisation (remat=True) is not ported yet")
             if self.has_dropout:
                 if seeds is None:
                     raise ValueError("a training forward with dropout needs a seed source: "
@@ -150,7 +154,7 @@ class SwinFusionUNet(nn.Module):
             x = pad_reflect_bottom_right(x, p.pad_merge)
             x = getattr(self, f"enc{k}_merge")(x)
             x = pad_reflect_bottom_right(x, p.pad_win)
-            x = getattr(self, f"enc{k}_blocks")(x, impls[k], seeds)
+            x = self._blocks(f"enc{k}_blocks", x, impls[k], train, seeds)
             if k < n - 1:
                 skips.append(x)
 
@@ -159,10 +163,26 @@ class SwinFusionUNet(nn.Module):
             p = plan[k]
             if j > 0:
                 x = x + skips.pop()
-            x = getattr(self, f"dec{k}_blocks")(x, impls[k], seeds)
+            x = self._blocks(f"dec{k}_blocks", x, impls[k], train, seeds)
             x = crop_bottom_right(x, p.pad_win)
             x = getattr(self, f"dec{k}_unmerge")(x)
             x = crop_bottom_right(x, p.pad_merge)
 
         xy = torch.cat([x[0], x[1]], dim=-1)  # (B, H, W, 2): [x_stream, y_stream]
         return self.final_head(xy, train).float()
+
+    def _blocks(self, name: str, x: torch.Tensor, impl: str, train: bool,
+                seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """Block pair ``name`` on ``x``; under ``remat`` in training, checkpointed with its
+        block seeds drawn first, and with fp32 accumulation entered inside, so that the
+        backward's recompute runs what the forward ran."""
+        pair = getattr(self, name)
+        if not (train and self.cfg.remat):
+            return pair(x, impl, seeds)
+        drawn = None if seeds is None else [seeds() for _ in pair.ORDER]
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            with fp32_accumulation():
+                return pair(x, impl, None if drawn is None else DropoutSeeds(drawn))
+
+        return checkpoint(run, x, use_reentrant=False)

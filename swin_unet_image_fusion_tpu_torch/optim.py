@@ -10,17 +10,23 @@ the off-by-one is kept so that the curve matches sample for sample.
 Two opt-in guards, both off by default as in the JAX package: ``grad_clip_norm > 0``
 scales the gradients to that global norm first (optax ``clip_by_global_norm``), and
 ``skip_nonfinite_updates`` skips an update whose gradients are not all finite, leaving
-the parameters and the optimiser state as they were (optax ``apply_if_finite``).
+the parameters and the optimiser state as they were, as optax ``apply_if_finite(tx,
+max_consecutive_errors=100)`` does (:func:`apply_if_finite`): after more than
+:data:`MAX_CONSECUTIVE_ERRORS` non-finite steps in a row every further one is applied, until
+a finite step resets the count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Tuple
 
 import torch
 
 from .config import OptimConfig
+
+# The JAX package's ``optax.apply_if_finite(..., max_consecutive_errors=100)``.
+MAX_CONSECUTIVE_ERRORS = 100
 
 
 def cosine_warm_restarts_schedule(base_lr: float, eta_min: float, t0_epochs: int,
@@ -54,3 +60,14 @@ def all_finite(grads: List[torch.Tensor]) -> bool:
     """Whether every gradient is finite. Reads one flag from the device: the
     ``skip_nonfinite_updates`` guard costs one host synchronisation per step."""
     return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+
+
+def apply_if_finite(grads: List[torch.Tensor], notfinite: int) -> Tuple[bool, int]:
+    """``(apply, notfinite)``: optax ``apply_if_finite``'s decision for gradients ``grads``
+    after ``notfinite`` consecutive non-finite steps. A finite step applies and resets the
+    count to 0; a non-finite one adds 1 and applies only where the count now exceeds
+    :data:`MAX_CONSECUTIVE_ERRORS` (a forced update does not reset it)."""
+    if all_finite(grads):
+        return True, 0
+    notfinite += 1
+    return notfinite > MAX_CONSECUTIVE_ERRORS, notfinite

@@ -1,6 +1,7 @@
 """The comparisons shared by ``chip_smoke.py`` and the tests: the gradient check that holds
 the backward kernels to their plain versions, and the image-level criteria that hold a
-bf16 forward of the whole model to a reference forward."""
+bf16 forward of the whole model to a reference forward; and a dataset of seeded arrays
+for the trainer where no image folder or decoder is at hand."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .config import DataConfig
+from .data.dataset import FusionPairDataset
 
 GRAD_RTOL = 1e-3
 GRAD_ATOL = 1e-4  # times each tensor's scale
@@ -127,3 +131,24 @@ def assert_bf16_fidelity(out, ref, ref_dtype: str, what: str = "") -> Fidelity:
     if not ok:
         raise AssertionError(f"{what}: bf16 against the {ref_dtype} forward misses {bar}: {f}")
     return f
+
+
+class ArrayPairDataset(FusionPairDataset):
+    """``n`` seeded pairs of ``hw`` arrays in place of decoded images: IR gray (H, W, 1)
+    and VIS YCrCb (H, W, 3), uniform in [0, 1], pair ``i`` drawn from
+    ``default_rng((seed, i))``. Everything else (augmentation, batching, prefetch) is
+    :class:`~.data.dataset.FusionPairDataset`'s; it needs no folder and no cv2."""
+
+    def __init__(self, n: int, hw: Tuple[int, int], cfg: DataConfig = DataConfig(), seed: int = 0):
+        self.is_test = False
+        self.cfg = cfg
+        self.hw = tuple(hw)
+        self.ir_paths = [f"arrays/ir/{i:05d}" for i in range(n)]
+        self.vis_paths = [f"arrays/vis/{i:05d}" for i in range(n)]
+        self.seed = seed
+        self._aug_epoch = 0
+
+    def _read_pair(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed, index))
+        return (rng.random((*self.hw, 1), dtype=np.float32),
+                rng.random((*self.hw, 3), dtype=np.float32))

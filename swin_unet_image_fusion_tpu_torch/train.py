@@ -1,5 +1,5 @@
-"""Training step (port of the JAX ``train.py::make_train_step``, ``make_eval_step`` and
-``create_train_state``).
+"""Training: the step and the trainer (port of the JAX ``train.py``: ``make_train_step``,
+``make_eval_step``, ``create_train_state``, ``Trainer`` and ``start_main``).
 
 A step is: forward with ``train=True`` (the head's BatchNorm on batch statistics,
 its running statistics updated in place), the output clamped to [0, 1] *before* the
@@ -27,24 +27,42 @@ With a nonzero dropout ratio a step draws its per-block dropout seeds from a CPU
 state, batch and step number give the same step). A step with every ratio 0 draws
 nothing.
 
-The ``Trainer`` of the JAX package (data loader, TensorBoard, checkpoints) is not
-ported yet.
+``skip_nonfinite_updates`` is optax's ``apply_if_finite(tx, max_consecutive_errors=100)``
+(:func:`~.optim.apply_if_finite`): the state counts the consecutive non-finite steps
+(``notfinite``), a finite step resets it, and after more than 100 every further non-finite
+update is applied (clip, rate and Adam, ``updates`` advancing) until a finite step comes.
+The guard reads one flag from the device per step; without it the step reads nothing.
+
+:class:`Trainer` is the whole training workload on one device: the dataset
+(``data/dataset.py``) split and batched with the JAX package's seeds and prefetched to the
+device, a state drawn by :func:`~.models.from_jax.init_variables`, the epoch loop with its
+print and validation cadence, loss meters, optional TensorBoard scalars and validation
+grids, and checkpoints as one ``torch.save`` file (model, Adam, counts, epoch) named
+``{MM.DD.HH.MM}_epoch{N}`` as the JAX package names its Orbax directory. A reference
+``.pth`` loads its weights through ``models/torch_import.py``. :func:`start_main` is the
+command line: ``python -m swin_unet_image_fusion_tpu_torch.train section.key=value ...``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from dataclasses import dataclass
+from datetime import datetime
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, config_from_cli
+from .data.dataset import BatchLoader, FusionPairDataset, device_prefetch, split_train_val
 from .losses import total_fusion_loss
-from .models.from_jax import flatten_variables, variables_from_jax
+from .models import torch_import
+from .models.from_jax import flatten_variables, init_variables, variables_from_jax
 from .models.unet import SwinFusionUNet, fp32_accumulation
-from .optim import all_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
+from .optim import apply_if_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
+from .utils.meters import LossMeter
+from .utils.term import cyan, yellow
 
 
 @dataclass
@@ -56,16 +74,25 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0  # steps taken
     updates: int = 0  # updates applied: the schedule's count (a skipped step adds none)
+    notfinite: int = 0  # consecutive non-finite steps under skip_nonfinite_updates
 
 
-def create_train_state(cfg: Config, variables: Mapping, iters_per_epoch: int, *,
-                       device: torch.device | str = "cuda") -> TrainState:
-    """A train state on ``device`` ("cuda" unless the caller passes "cpu") from flax
-    variables, nested or flat (as :func:`~.models.from_jax.variables_from_jax` takes)."""
+def _require_device(device: torch.device | str, what: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("create_train_state was asked for a CUDA device and none is "
-                           "available; pass device='cpu' to run on the CPU")
+        raise RuntimeError(f"{what} was asked for a CUDA device and none is available; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
+def create_train_state(cfg: Config, variables: Optional[Mapping], iters_per_epoch: int, *,
+                       device: torch.device | str = "cuda") -> TrainState:
+    """A train state on ``device`` ("cuda" unless the caller passes "cpu") from flax
+    variables, nested or flat (as :func:`~.models.from_jax.variables_from_jax` takes), or,
+    with ``variables=None``, from :func:`~.models.from_jax.init_variables` of ``cfg.seed``."""
+    device = _require_device(device, "create_train_state")
+    if variables is None:
+        variables = init_variables(cfg.model, cfg.seed)
     model = SwinFusionUNet(cfg.model)
     model.load_state_dict(variables_from_jax(flatten_variables(variables)))
     model.to(device).train()
@@ -113,7 +140,9 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
             total, terms = total_fusion_loss(loss_cfg, fusion, ir, vis)
             total.backward()
             grads = [p.grad for p in model.parameters() if p.grad is not None]
-            apply = not optim_cfg.skip_nonfinite_updates or all_finite(grads)
+            apply = True
+            if optim_cfg.skip_nonfinite_updates:
+                apply, state.notfinite = apply_if_finite(grads, state.notfinite)
             if apply:
                 if optim_cfg.grad_clip_norm > 0.0:
                     clip_by_global_norm_(grads, optim_cfg.grad_clip_norm)
@@ -140,3 +169,219 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, torch.Tensor, torch.Ten
         return fusion, terms
 
     return step
+
+
+def get_time_str() -> str:
+    """The checkpoint and validation grid timestamp, ``MM.DD.HH.MM``."""
+    return datetime.now().strftime("%m.%d.%H.%M")
+
+
+class Trainer:
+    """The whole training workload on one device (the JAX ``Trainer``, the reference's
+    ``MyTraining``): ``start_train`` runs epochs ``current_epoch .. cfg.optim.epochs``,
+    each a pass over the shuffled training split with validation every
+    ``vali_interval_in_iters`` steps, and saves a checkpoint every
+    ``save_model_interval_in_epochs`` epochs.
+
+    ``dataset`` defaults to a :class:`~.data.dataset.FusionPairDataset` of
+    ``cfg.data.training_dataset_folder`` (decoding needs cv2). The loss terms of a step are
+    fetched two steps later (``_pending_logs``), so that the loop never waits on the step it
+    has just enqueued; the meters and the TensorBoard scalars get them then."""
+
+    def __init__(self, cfg: Config, *, device: torch.device | str = "cuda",
+                 dataset: Optional[FusionPairDataset] = None):
+        self.device = _require_device(device, "Trainer")
+        if cfg.parallel.num_data > 1 or cfg.parallel.use_shard_map:
+            raise NotImplementedError("data-parallel training (parallel.num_data > 1, "
+                                      "parallel.use_shard_map) is not ported yet (ROADMAP.md, "
+                                      "Queue 1, item 9)")
+        self.cfg = cfg
+        self.batch_size = cfg.optim.batch_size
+        if dataset is None:
+            dataset = FusionPairDataset(is_test=False, dataset_folder=cfg.data.training_dataset_folder,
+                                        cfg=cfg.data, seed=cfg.seed)
+        self.dataset = dataset
+        tr_idx, val_idx = split_train_val(len(dataset), cfg.optim.training_set_ratio, seed=cfg.seed)
+        self.train_loader = BatchLoader(dataset, tr_idx, self.batch_size, shuffle=True,
+                                        drop_last=cfg.optim.drop_last, seed=cfg.seed)
+        self.val_loader = BatchLoader(dataset, val_idx, self.batch_size, shuffle=True,
+                                      drop_last=cfg.optim.drop_last, seed=cfg.seed + 1)
+        self.iters_per_epoch = max(len(self.train_loader), 1)
+        self.state = create_train_state(cfg, None, self.iters_per_epoch, device=self.device)
+        self.schedule = self.state.schedule
+        self.train_step = make_train_step(cfg)
+        self.eval_step = make_eval_step(cfg)
+        self.train_meter = LossMeter()
+        self.val_meter = LossMeter()
+        self.current_epoch = 1
+        self.iter_in_epoch = 1
+        self.writer = self._make_writer()
+        self._pending_logs = []  # (step, the step's loss terms on the device)
+
+    # ----------------------------------------------------------------- logging
+    def _make_writer(self):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            print(yellow(f"TensorBoard unavailable ({e}); scalar logging disabled"))
+            return None
+        return SummaryWriter(log_dir=self.cfg.log.tensorboard_log_dir or None,
+                             flush_secs=self.cfg.log.tensorboard_flush_interval_secs)
+
+    @property
+    def total_iters(self) -> int:
+        return (self.current_epoch - 1) * self.iters_per_epoch + self.iter_in_epoch
+
+    def _submit_scalars(self, step: int, terms: Dict[str, float], lr: float) -> None:
+        if self.writer is None:
+            return
+        for key, value in terms.items():
+            self.writer.add_scalar(f"training/{key}", value, global_step=step)
+        self.writer.add_scalar("training/lr", lr, global_step=step)
+
+    def _drain_logs(self, force: bool = False) -> None:
+        """Fetch the queued steps' terms, all with ``force``, else all but the last two."""
+        while self._pending_logs and (force or len(self._pending_logs) > 2):
+            step, terms = self._pending_logs.pop(0)
+            host_terms = {k: float(v) for k, v in terms.items()}
+            self.train_meter.record(host_terms)
+            self._submit_scalars(step, host_terms, float(self.schedule(step)))
+
+    # ------------------------------------------------------------------ loops
+    def start_train(self) -> None:
+        cfg = self.cfg
+        print(cyan(f"Starting at epoch = {self.current_epoch}, "
+                   f"lr = {float(self.schedule(self.total_iters - 1)):.3e}, "
+                   f"iters per epoch = {self.iters_per_epoch}, device = {self.device}"))
+        epochs = range(self.current_epoch, cfg.optim.epochs + 1)
+        try:
+            from tqdm import tqdm
+            epochs = tqdm(epochs, initial=1)
+        except ImportError:
+            pass
+        for epoch in epochs:
+            self.current_epoch = epoch
+            self.train_one_epoch_with_vali()
+            if epoch % cfg.log.save_model_interval_in_epochs == 0:
+                self.save_checkpoint()
+        if self.writer is not None:
+            self.writer.close()
+
+    def train_one_epoch_with_vali(self) -> None:
+        cfg = self.cfg
+        self.dataset.set_epoch(self.current_epoch)  # fresh crops each epoch, the same for a seed
+        batches = device_prefetch(iter(self.train_loader), depth=cfg.data.prefetch_depth,
+                                  device=self.device)
+        for i, batch in enumerate(batches, start=1):
+            self.iter_in_epoch = i
+            step = self.total_iters
+            terms = self.train_step(self.state, batch["ir"], batch["vis"])
+            self._pending_logs.append((step, terms))
+            self._drain_logs()
+            if step == 1 or step % cfg.log.print_training_info_in_iters == 0:
+                self._drain_logs(force=True)
+                means = self.train_meter.mean_and_clear()
+                print(f"Training: epoch={self.current_epoch} iter={i} total={step} loss={means}")
+            if step % cfg.log.vali_interval_in_iters == 0:
+                print(cyan("Starting validation ..."))
+                self.validate()
+                means = self.val_meter.mean_and_clear()
+                print(cyan(f"Vali: epoch={self.current_epoch} total={step} loss={means}"))
+        self._drain_logs(force=True)
+
+    def validate(self) -> None:
+        if len(self.val_loader) == 0:
+            print(yellow("validation skipped: val split has no full batch "
+                         f"({len(self.val_loader.indices)} images, batch {self.batch_size}) — "
+                         "lower training_set_ratio or batch_size to validate"))
+            return
+        for i, batch in enumerate(device_prefetch(iter(self.val_loader), device=self.device), start=1):
+            fusion, terms = self.eval_step(self.state, batch["ir"], batch["vis"])
+            self.val_meter.record({k: float(v) for k, v in terms.items()})
+            if i == 1:
+                self.save_vali_grid(*(t.cpu().numpy() for t in (batch["ir"], batch["vis"], fusion)))
+
+    # ------------------------------------------------------------- artifacts
+    def save_vali_grid(self, ir: np.ndarray, vis: np.ndarray, fusion: np.ndarray) -> None:
+        """A PNG grid of (ir | vis | fused) rows, one per pair of the batch, under
+        ``save_vali_results_to_folder``; nothing without matplotlib."""
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            from matplotlib import pyplot as plt
+            from mpl_toolkits.axes_grid1 import ImageGrid
+        except ImportError:
+            return
+        os.makedirs(self.cfg.log.save_vali_results_to_folder, exist_ok=True)
+        bsz = ir.shape[0]
+        fig = plt.figure()
+        grid = ImageGrid(fig, 111, nrows_ncols=(bsz, 3), axes_pad=0, share_all=True)
+        for i in range(bsz):
+            for j, img in enumerate((ir[i], vis[i], fusion[i])):
+                ax = grid[i * 3 + j]
+                ax.imshow(img.squeeze(-1), cmap="gray")
+                ax.set_axis_off()
+        fig.subplots_adjust(left=0, right=1, bottom=0, top=1, hspace=0, wspace=0)
+        name = (f"{get_time_str()}_Epoch{self.current_epoch}_"
+                f"EpIters{self.iter_in_epoch}_TotalIters{self.total_iters}.png")
+        path = os.path.join(self.cfg.log.save_vali_results_to_folder, name)
+        fig.savefig(path, bbox_inches="tight", pad_inches=0, dpi=1024)
+        plt.close(fig)
+        print(cyan(f"Validation results saved to '{path}'"))
+
+    # ----------------------------------------------------------- checkpointing
+    def save_checkpoint(self) -> str:
+        """One ``torch.save`` file ``{MM.DD.HH.MM}_epoch{N}`` under
+        ``save_model_to_folder``: the model's state dict, Adam's, ``step``, ``updates``,
+        ``notfinite`` and ``epoch``. Returns its path."""
+        os.makedirs(self.cfg.log.save_model_to_folder, exist_ok=True)
+        name = f"{get_time_str()}_epoch{self.current_epoch}"
+        path = os.path.abspath(os.path.join(self.cfg.log.save_model_to_folder, name))
+        st = self.state
+        torch.save({"model": st.model.state_dict(), "optimizer": st.optimizer.state_dict(),
+                    "step": st.step, "updates": st.updates, "notfinite": st.notfinite,
+                    "epoch": self.current_epoch}, path)
+        print(yellow(f"State saved to '{path}'"))
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from :meth:`save_checkpoint`'s file: everything it holds, and training
+        continues at its epoch + 1. The loaders' shuffle generators are not saved."""
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        st = self.state
+        st.model.load_state_dict(ckpt["model"])
+        st.optimizer.load_state_dict(ckpt["optimizer"])
+        st.step, st.updates, st.notfinite = (int(ckpt[k]) for k in ("step", "updates", "notfinite"))
+        self.current_epoch = int(ckpt["epoch"]) + 1
+        print(cyan(f"State loaded from '{path}', resuming at epoch {self.current_epoch}"))
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Start from a reference ``.pth``: its weights and BatchNorm statistics, a fresh
+        Adam, and its epoch + 1."""
+        state_dict, epoch = torch_import.load_torch_checkpoint(path, self.cfg.model)
+        self.state.model.load_state_dict(state_dict)
+        self.state.optimizer = make_optimizer(self.state.model.parameters(), self.cfg.optim)
+        self.current_epoch = epoch + 1
+        print(cyan(f"Torch state imported from '{path}'"))
+
+
+def start_main(cfg: Optional[Config] = None, *, device: torch.device | str = "cuda") -> Trainer:
+    """The training entry point: ``cfg`` (by default from the command line's
+    ``section.key=value`` overrides, :func:`~.config.config_from_cli`), resumed from
+    ``log.using_state_path`` when ``log.use_saved_state`` is set (a ``.pth`` as a reference
+    checkpoint, anything else as :meth:`Trainer.save_checkpoint`'s file), then trained.
+    Returns the trainer."""
+    cfg = cfg or config_from_cli()
+    trainer = Trainer(cfg, device=device)
+    path = cfg.log.using_state_path
+    if cfg.log.use_saved_state and path:
+        if path.endswith(".pth"):
+            trainer.load_torch_checkpoint(path)
+        else:
+            trainer.load_checkpoint(path)
+    trainer.start_train()
+    return trainer
+
+
+if __name__ == "__main__":
+    start_main()

@@ -275,7 +275,8 @@ def test_tiny_bf16_forward_matches_jax_jnp(tiny_flat, hw):
 def test_bf16_training_raises(tiny_flat):
     """bf16 training is ported: the training forward runs (BatchNorm on the batch's
     statistics in fp32, the output fp32) and its backward reaches every parameter with an
-    fp32 gradient; only rematerialisation still raises."""
+    fp32 gradient. Nothing raises any more: with rematerialisation the bf16 forward and
+    every gradient equal those without it, bit for bit."""
     model = _port(SwinFusionUNet(ModelConfig(**TINY, compute_dtype="bfloat16")), tiny_flat).train()
     ir, vis = _inputs((14, 14))
     before = model.final_head.bn.mean.clone()
@@ -285,8 +286,12 @@ def test_bf16_training_raises(tiny_flat):
     out.sum().backward()
     assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
     remat = _port(SwinFusionUNet(ModelConfig(**TINY, compute_dtype="bfloat16", remat=True)), tiny_flat)
-    with pytest.raises(NotImplementedError, match="remat"):
-        remat(torch.from_numpy(ir), torch.from_numpy(vis), train=True)
+    remat_out = remat(torch.from_numpy(ir), torch.from_numpy(vis), train=True)
+    assert torch.equal(remat_out, out)
+    remat_out.sum().backward()
+    grads = dict(model.named_parameters())
+    for name, p in remat.named_parameters():
+        assert torch.equal(p.grad, grads[name].grad), name
 
 
 def test_unknown_compute_dtype_raises():

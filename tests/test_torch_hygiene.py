@@ -47,6 +47,10 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch.ops.hash_dropout\n"
         "import swin_unet_image_fusion_tpu_torch.ops.dropout_layout\n"
         "import swin_unet_image_fusion_tpu_torch.ops.dropout_mask\n"
+        "import swin_unet_image_fusion_tpu_torch.data.dataset, swin_unet_image_fusion_tpu_torch.testing\n"
+        "import swin_unet_image_fusion_tpu_torch.utils.term, swin_unet_image_fusion_tpu_torch.utils.meters\n"
+        "import swin_unet_image_fusion_tpu_torch.models.torch_import\n"
+        "import swin_unet_image_fusion_tpu_torch.models.torch_export\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -72,6 +76,23 @@ def test_fuser_on_the_default_device_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Fuser(Config(model=TINY), random_variables(TINY, seed=0))
+
+
+@pytest.mark.parametrize("entry", ["Trainer", "start_main", "Fuser.from_checkpoint"])
+def test_training_entry_points_on_the_default_device_raise_without_a_card(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import variables_from_jax
+    from swin_unet_image_fusion_tpu_torch.models.torch_export import save_torch_checkpoint
+    from swin_unet_image_fusion_tpu_torch.train import Trainer, start_main
+
+    cfg = Config(model=TINY)
+    path = str(tmp_path / "w.pth")
+    save_torch_checkpoint(path, variables_from_jax(random_variables(TINY, seed=0)), TINY)
+    calls = {"Trainer": lambda: Trainer(cfg), "start_main": lambda: start_main(cfg),
+             "Fuser.from_checkpoint": lambda: Fuser.from_checkpoint(cfg, path)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
 
 
 def test_window_attention_never_runs_the_plain_version_off_the_cpu():

@@ -189,7 +189,8 @@ def test_eval_step_clamps_and_nonfinite_step_is_skipped():
 def test_training_with_dropout_or_remat_raises():
     """Dropout trains (``test_torch_dropout_model.py``), and so does bf16 with or without
     dropout (``test_torch_bf16_train.py``): the step runs and updates the fp32
-    parameters. Rematerialisation is not ported and raises."""
+    parameters. So does rematerialisation (its gradients against the step without it:
+    ``test_torch_train_guards.py``); none of them raises."""
     ir = torch.zeros(1, 14, 14, 1)
     for field in ({"compute_dtype": "bfloat16"}, {"compute_dtype": "bfloat16", "mlp_drop_ratio": 0.1}):
         cfg = Config(model=ModelConfig(**TINY, **field))
@@ -201,8 +202,8 @@ def test_training_with_dropout_or_remat_raises():
     cfg = Config(model=ModelConfig(**TINY, remat=True))
     state = create_train_state(cfg, random_variables(ModelConfig(**TINY), seed=25), ITERS,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_train_step(cfg)(state, ir, ir)
+    terms = make_train_step(cfg)(state, ir, ir)
+    assert torch.isfinite(terms["total_loss"]) and (state.step, state.updates) == (1, 1)
 
 
 def test_create_train_state_raises_without_a_card():
