@@ -71,15 +71,30 @@ weights out as a reference ``.pth`` and served back by ``Fuser.from_checkpoint``
 (``[pth]``); a NaN step under ``skip_nonfinite_updates`` (``[nonfinite]``);
 ``python -m swin_unet_image_fusion_tpu_torch.train`` over a folder of PNG pairs (``[cli]``);
 and each configuration's step with and without ``remat`` in turns, gradients held to each
-other (``[remat]``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
+other (``[remat]``). Last the serving and evaluation surface with the default model in fp32
+under ``"auto"``: ``Fuser.fuse_pair_ycrcb`` against the CPU port, the torch composition and host
+``cv2.cvtColor``, timed beside ``fuse_y`` (``[colour]``); ``python -m
+swin_unet_image_fusion_tpu_torch.infer`` over PNG pairs, its files decoded equal to the
+in-process path (``[test]``); ``TiledFuser`` at 2048x2048 and 2160x3840 (each chunk against the
+composition, the blend against numpy's, exact K3 launches, uint8 against float I/O, s/image with
+and without the transfers, MP/s, peak memory, a traced 4K call; ``[tiled]``); the 224x224
+batch-20 step with the Canny texture term against the composition and the Sobel step, its edge
+maps bit-equal to the CPU's (``[canny]``); ``score_fusion`` (``[metrics]``) and the 4K run's FLOP
+rate (``[flops]``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
 It needs a CUDA device and the repository beside it, and exits non-zero without them.
+
+    python3 chip_smoke.py --serving-eval
+
+runs only the last group (``[colour]`` to ``[flops]``) after building the two sources it
+runs, and prints neither the kernels line nor the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -2976,6 +2991,657 @@ def remat_phase(device, card, rounds=TRAIN_STEPS):
         torch.cuda.empty_cache()
 
 
+# The serving and evaluation surface: colour fusion, the test-folder entry point, tiled 2K/4K
+# fusion, the Canny training step, the evaluation metrics and the FLOP count, all with the
+# default model in fp32 under "auto" (K3 on the card)
+COLOUR_ROUNDS = 20  # fuse_pair_ycrcb and fuse_y calls each at 512² bs=1, in turns
+TEST_PAIRS, TEST_HW = 4, (480, 640)
+TILE, OVERLAP, TILED_BATCH = 512, 64, 32
+TILED_SIZES = {"2K": (2048, 2048), "4K": (2160, 3840)}
+TILED_ROUNDS = 3  # timed calls per size and mode, fp32 and uint8 I/O in turns
+TILED_CHUNKED_BATCH = 8  # the chunked run held against the unchunked one at 2K
+UNTILED_HW = (1024, 1024)  # tiled against one forward of the whole image
+CANNY_CALLS = 6
+CANNY_STEPS = 6  # steps of each Canny phase form in turns
+SERVING_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serving"
+
+
+def _have_cv2() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("cv2") is not None
+
+
+def _k3_only(counts, expected_k3, what):
+    """The launches read after a run: ``expected_k3`` of K3's fp32 forward and nothing else."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != {"K3": expected_k3}:
+        raise AssertionError(f"{what}: launches {got}, expected {{'K3': {expected_k3}}}")
+
+
+def colour_phase(fuser, plain_fuser, cpu_fuser, card):
+    """``Fuser.fuse_pair_ycrcb`` (fp32, ``"auto"``): at 100x90 against the CPU port, at 512x512
+    against the torch composition on the card and against host ``cv2.cvtColor`` of the card's
+    fused Y, with K3's launches; then ms per pair against ``fuse_y`` in turns. Returns the
+    512x512 inputs and RGB."""
+    rng = np.random.default_rng(SEED + 20)
+    for hw in ((100, 90), SERVE_HW):
+        ir = rng.random((1, *hw, 1), dtype=np.float32)
+        vis = rng.random((1, *hw, 3), dtype=np.float32)
+        reset_counts()
+        rgb = fuser.fuse_pair_ycrcb(ir, vis)
+        torch.cuda.synchronize()
+        _k3_only(read_counts("cuda"), CONFIGS["cuda"][hw]["K3"], f"fuse_pair_ycrcb {hw}")
+        if rgb.shape != (1, *hw, 3) or not np.isfinite(rgb).all() or rgb.min() < 0 or rgb.max() > 1:
+            raise AssertionError(f"fuse_pair_ycrcb {hw}: shape {rgb.shape}, range {rgb.min()} .. {rgb.max()}")
+        ref = cpu_fuser if hw == (100, 90) else plain_fuser
+        ref_rgb = ref.fuse_pair_ycrcb(ir, vis)
+        err = float(np.abs(rgb - ref_rgb).max())
+        print(f"[colour] fuse_pair_ycrcb {hw[0]}x{hw[1]}: K3 {CONFIGS['cuda'][hw]['K3']} launches; against "
+              f"{'the CPU port' if hw == (100, 90) else 'the torch composition on the card'} "
+              f"max_abs_err {err:.3e}", flush=True)
+        np.testing.assert_allclose(rgb, ref_rgb, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    if _have_cv2():
+        import cv2
+
+        ycrcb = np.concatenate([fuser.fuse_y(ir, vis[..., :1]), vis[..., 1:]], axis=-1)[0]
+        host = np.clip(cv2.cvtColor(ycrcb, cv2.COLOR_YCrCb2RGB), 0.0, 1.0)
+        err = float(np.abs(rgb[0] - host).max())
+        print(f"[colour] {SERVE_HW[0]}x{SERVE_HW[1]}: the card's colour rows against host cv2.cvtColor of the "
+              f"card's fused Y: "
+              f"max_abs_err {err:.3e}", flush=True)
+        np.testing.assert_allclose(rgb[0], host, atol=2e-6, rtol=0)
+    else:
+        print("[colour] cv2 absent: the host cv2.cvtColor comparison was skipped", flush=True)
+    walls = {"fuse_pair_ycrcb": [], "fuse_y": []}
+    calls = {"fuse_pair_ycrcb": lambda: fuser.fuse_pair_ycrcb(ir, vis),
+             "fuse_y": lambda: fuser.fuse_y(ir, vis[..., :1])}
+    for _ in range(COLOUR_ROUNDS):
+        for name, call in calls.items():
+            t = time.perf_counter()
+            call()
+            walls[name].append(1e3 * (time.perf_counter() - t))
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    print(f"[colour] {SERVE_HW[0]}x{SERVE_HW[1]} bs=1, {COLOUR_ROUNDS} calls each in turns: fuse_pair_ycrcb median "
+          f"{med['fuse_pair_ycrcb']:.2f} ms/pair (min {min(walls['fuse_pair_ycrcb']):.2f}), fuse_y "
+          f"{med['fuse_y']:.2f} (min {min(walls['fuse_y']):.2f}), the colour path "
+          f"{med['fuse_pair_ycrcb'] - med['fuse_y']:+.2f} ms | {card}", flush=True)
+    colour_breakdown(fuser, ir, vis, med, card)
+    return ir, vis, rgb
+
+
+def colour_breakdown(fuser, ir, vis, med, card):
+    """What ``fuse_pair_ycrcb`` adds to ``fuse_y`` at 512x512, piece by piece, each call
+    synchronised on both sides, COLOUR_ROUNDS in turns: Cr/Cb to the card as it does it (a
+    strided view of the YCrCb array copied from pageable memory; apart, for comparison,
+    numpy's gather of that view and a contiguous array's copy), the concatenation,
+    conversion and clip on the card, and the RGB's copy back beside the Y's; then one traced
+    call of each path."""
+    from swin_unet_image_fusion_tpu_torch.infer import ycrcb_to_rgb
+
+    device = fuser.device
+    y = torch.as_tensor(fuser.fuse_y(ir, vis[..., :1]), device=device)
+    crcb_host = np.ascontiguousarray(vis[..., 1:3], np.float32)
+    crcb = torch.as_tensor(crcb_host, device=device)
+    rgb = torch.clamp(ycrcb_to_rgb(torch.cat([y, crcb], dim=-1)), 0.0, 1.0)
+    pieces = {
+        "Cr/Cb to the card as fuse_pair_ycrcb copies it": lambda: torch.as_tensor(
+            np.asarray(vis[..., 1:3], np.float32), device=device),
+        "(apart: numpy gathering the strided view)": lambda: np.ascontiguousarray(vis[..., 1:3], np.float32),
+        "(apart: a contiguous array's pageable copy)": lambda: torch.as_tensor(crcb_host, device=device),
+        "concatenation, conversion and clip on the card": lambda: torch.clamp(
+            ycrcb_to_rgb(torch.cat([y, crcb], dim=-1)), 0.0, 1.0),
+        "RGB (3 channels) to the host": lambda: rgb.cpu(),
+        "Y (1 channel) to the host": lambda: y.cpu(),
+    }
+    walls = {name: [] for name in pieces}
+    for _ in range(COLOUR_ROUNDS):
+        for name, piece in pieces.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            piece()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t))
+    ms = {name: float(np.median(w)) for name, w in walls.items()}
+    names = list(pieces)
+    added = ms[names[0]] + ms[names[3]] + ms[names[4]] - ms[names[5]]
+    print(f"[colour] {SERVE_HW[0]}x{SERVE_HW[1]} the colour path's pieces, {COLOUR_ROUNDS} calls each in turns, "
+          f"synchronised medians: " + "; ".join(f"{name} {v:.3f} ms" for name, v in ms.items())
+          + f"; added to fuse_y: {added:.3f} ms (Cr/Cb in + conversion + RGB out - Y out) against the "
+          f"{med['fuse_pair_ycrcb'] - med['fuse_y']:+.2f} ms of the calls in turns | {card}", flush=True)
+    busy = {}
+    for name, call in (("fuse_pair_ycrcb", lambda: fuser.fuse_pair_ycrcb(ir, vis)),
+                       ("fuse_y", lambda: fuser.fuse_y(ir, vis[..., :1]))):
+        kernels = trace(f"{name} {SERVE_HW[0]}x{SERVE_HW[1]} bs=1 (cuda)", f"colour {name}", call, med[name], card)
+        copies = sum(ms for key, (_, ms) in kernels.items() if "memcpy" in key.lower())
+        busy[name] = (copies, sum(ms for _, ms in kernels.values()) - copies)
+    if all(sum(v) for v in busy.values()):
+        print("[colour] traced device time: " + ", ".join(
+            f"{name} copies {c:.3f} ms, kernels {k:.3f} ms" for name, (c, k) in busy.items()) + f" | {card}",
+              flush=True)
+
+
+def test_phase(flat, device, card):
+    """``python -m swin_unet_image_fusion_tpu_torch.infer`` as a user runs it, in a subprocess
+    on the card, over TEST_PAIRS seeded 480x640 PNG pairs with a ``.pth`` the port wrote: the
+    ``{orig}_MKX_SELF.jpg`` names, and each file decoded equal to ``save_image`` of the
+    in-process ``fuse_pair_ycrcb`` of the same pair. Without cv2 nothing is decoded or
+    written: it says so (the colour path ran on arrays in ``[colour]``)."""
+    import os
+    import shutil
+
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.data.dataset import FusionPairDataset
+    from swin_unet_image_fusion_tpu_torch.infer import Fuser, save_image
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import variables_from_jax
+    from swin_unet_image_fusion_tpu_torch.models.torch_export import save_torch_checkpoint
+
+    if not _have_cv2():
+        print("[test] cv2 absent: the PNG decode and JPEG write of run_test were skipped", flush=True)
+        return
+    import cv2
+
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    folder, out_dir, again = SERVING_DIR / "input", SERVING_DIR / "output", SERVING_DIR / "again"
+    rng = np.random.default_rng(SEED + 21)
+    for sub, shape in (("ir", TEST_HW), ("vis", (*TEST_HW, 3))):
+        os.makedirs(folder / sub)
+        for i in range(TEST_PAIRS):
+            cv2.imwrite(str(folder / sub / f"pic{i}.png"), (rng.random(shape) * 255).astype(np.uint8))
+    os.makedirs(again)
+    pth = str(SERVING_DIR / "weights.pth")
+    save_torch_checkpoint(pth, variables_from_jax(flat), ModelConfig())
+    args = [sys.executable, "-m", "swin_unet_image_fusion_tpu_torch.infer", f"log.using_state_path={pth}",
+            f"data.test_dataset_folder={folder}", f"data.test_result_folder={out_dir}"]
+    t = time.perf_counter()
+    run = subprocess.run(args, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t
+    names = sorted(os.listdir(out_dir)) if out_dir.exists() else []
+    want = [f"pic{i}_MKX_SELF.jpg" for i in range(TEST_PAIRS)]
+    if run.returncode != 0 or names != want:
+        raise AssertionError(f"infer: rc {run.returncode}, files {names}:\n{run.stderr[-2000:]}")
+    cfg = Config()
+    fuser = Fuser.from_checkpoint(cfg, pth, device=device)
+    dataset = FusionPairDataset(is_test=True, dataset_folder=str(folder), cfg=cfg.data)
+    for i in range(TEST_PAIRS):
+        item = dataset[i]
+        save_image(fuser.fuse_pair_ycrcb(item["ir"][None], item["vis"][None])[0], str(again / f"{i}.jpg"))
+        a, b = cv2.imread(str(out_dir / want[i])), cv2.imread(str(again / f"{i}.jpg"))
+        if a is None or a.shape != (*TEST_HW, 3) or not np.array_equal(a, b):
+            raise AssertionError(f"infer: {want[i]} differs from save_image of the in-process fuse_pair_ycrcb")
+    print(f"[test] python -m swin_unet_image_fusion_tpu_torch.infer over {TEST_PAIRS} PNG pairs "
+          f"{TEST_HW[0]}x{TEST_HW[1]}: rc 0, {names}, each decoded equal to save_image of the in-process "
+          f"fuse_pair_ycrcb; {seconds:.1f} s with the process start | {card}", flush=True)
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+
+
+def numpy_blend(fused, plan, h, w):
+    """The JAX package's blend in numpy: each tile's fused Y times its 2-D ramp weight added
+    row-major, times the inverse of the weights' sum."""
+    from swin_unet_image_fusion_tpu_torch.parallel.tiled import _ramp_weights
+
+    wy, wx = _ramp_weights(plan.th, plan.ys, h), _ramp_weights(plan.tw, plan.xs, w)
+    acc = np.zeros((h, w, 1), np.float32)
+    norm = np.zeros((h, w, 1), np.float32)
+    for k, (y0, x0) in enumerate(plan.starts()):
+        wgt = (wy[plan.ys.index(y0)][:, None] * wx[plan.xs.index(x0)][None, :])[:, :, None]
+        acc[y0:y0 + plan.th, x0:x0 + plan.tw] += fused[k] * wgt
+        norm[y0:y0 + plan.th, x0:x0 + plan.tw] += wgt
+    return acc * (1.0 / np.maximum(norm, 1e-8)).astype(np.float32)
+
+
+def _near_half_levels(u8, ref_u8, ref_float):
+    """uint8 against float: at most one level apart, and apart only where the float value
+    x 255 lies within 255 x 5e-4 of a half-integer. Returns the pixels apart."""
+    diff = np.abs(u8.astype(int) - ref_u8.astype(int))
+    scaled = np.clip(ref_float, 0, 1) * 255.0
+    near = np.abs(scaled - np.floor(scaled) - 0.5) <= 255.0 * MODEL_ATOL
+    if diff.max() > 1 or not near[diff != 0].all():
+        raise AssertionError(f"tiled uint8: {int((diff > 1).sum())} pixels > 1 level apart, "
+                             f"{int((diff != 0)[~near].sum())} apart away from a rounding edge")
+    return int((diff != 0).sum())
+
+
+def tiled_phase(flat, device, card):
+    """``TiledFuser`` (tile 512, overlap 64, chunks of 32, fp32, ``"auto"``) at 2048x2048 and
+    2160x3840: each chunk's fused tiles against the torch composition on the card, the blend
+    against a numpy blend of the same tiles, exactly 40 K3 launches a chunk, chunks of 8
+    against one batch at 2K, uint8 against float I/O; then s/image with the transfers and
+    on the device alone, megapixels/s, peak memory and launches, fp32 and uint8 I/O in turns,
+    and one traced 4K call; at 1024x1024 the SSIM and mean |difference| of tiled against
+    untiled (printed: under random weights the model's context exceeds the 64-pixel halo).
+    Returns the device seconds and tiles of the 4K fp32 run."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+    from swin_unet_image_fusion_tpu_torch.infer import fused_y
+    from swin_unet_image_fusion_tpu_torch.metrics import ssim
+    from swin_unet_image_fusion_tpu_torch.parallel.tiled import TiledFuser
+
+    model = ModelConfig()
+    fusers = {mode: TiledFuser(model, flat, TILE, OVERLAP, TILED_BATCH, return_uint8=mode == "uint8",
+                               device=device) for mode in ("fp32", "uint8")}
+    plain = TiledFuser(ModelConfig(attention_impl="torch"), flat, TILE, OVERLAP, TILED_BATCH, device=device)
+    f = fusers["fp32"]
+    rng = np.random.default_rng(SEED + 22)
+    result = {}
+    for size, (h, w) in TILED_SIZES.items():
+        ir8, vis8 = ((rng.random((h, w, 1)) * 255).astype(np.uint8) for _ in range(2))
+        ir, vis = ir8.astype(np.float32) / 255.0, vis8.astype(np.float32) / 255.0
+        plan = f.plan(h, w)
+        chunks = -(-plan.n_tiles // TILED_BATCH)
+        with torch.inference_mode():
+            reset_counts()
+            out = f.fuse(ir, vis)
+            torch.cuda.synchronize()
+            _k3_only(read_counts("cuda"), 40 * chunks, f"tiled {size}")
+            check_fused(out[None], (1, h, w, 1))
+            tiles_ir, tiles_vis = f.tiles(f._to_device(ir), plan), f.tiles(f._to_device(vis), plan)
+            fused, worst = [], 0.0
+            for c0 in range(0, plan.n_tiles, TILED_BATCH):
+                a, b = tiles_ir[c0:c0 + TILED_BATCH], tiles_vis[c0:c0 + TILED_BATCH]
+                reset_counts()
+                got = fused_y(f.model, a, b)
+                torch.cuda.synchronize()
+                _k3_only(read_counts("cuda"), 40, f"tiled {size} chunk at tile {c0}")
+                ref = fused_y(plain.model, a, b)
+                worst = max(worst, (got - ref).abs().max().item())
+                torch.testing.assert_close(got, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+                fused.append(got)
+            fused = torch.cat(fused)
+            blended = numpy_blend(fused.cpu().numpy(), plan, h, w)
+            blend_err = float(np.abs(out - blended).max())
+            np.testing.assert_allclose(out, blended, atol=1e-6, rtol=0)
+            line = (f"[tiled] {size} {h}x{w}: {plan.n_tiles} tiles {plan.th}x{plan.tw} in {chunks} chunks "
+                    f"(the last {plan.n_tiles - (chunks - 1) * TILED_BATCH}), K3 40 a chunk; chunks against the "
+                    f"torch composition max_abs_err {worst:.3e}; the blend against numpy's {blend_err:.3e}")
+            if size == "2K":
+                chunked = TiledFuser(model, flat, TILE, OVERLAP, TILED_CHUNKED_BATCH, device=device).fuse(ir, vis)
+                whole = TiledFuser(model, flat, TILE, OVERLAP, 0, device=device).fuse(ir, vis)
+                np.testing.assert_allclose(chunked, whole, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+                line += (f"; chunks of {TILED_CHUNKED_BATCH} against one batch of {plan.n_tiles} max_abs_err "
+                         f"{float(np.abs(chunked - whole).max()):.3e}")
+            out8 = fusers["uint8"].fuse(ir8, vis8)
+            apart = _near_half_levels(out8, np.round(np.clip(out, 0, 1) * 255).astype(np.uint8), out)
+            print(f"{line}; uint8 I/O against float: {apart} pixels one level apart, each at a rounding edge",
+                  flush=True)
+            del tiles_ir, tiles_vis, fused
+            torch.cuda.empty_cache()
+
+            inputs = {"fp32": (ir, vis), "uint8": (ir8, vis8)}
+            on_device = {mode: tuple(torch.as_tensor(a, device=device) for a in pair)
+                         for mode, pair in inputs.items()}
+            walls = {(mode, where): [] for mode in inputs for where in ("host", "device")}
+            peaks = {}
+            for _ in range(TILED_ROUNDS):
+                for mode, fuser in fusers.items():
+                    t = time.perf_counter()
+                    fuser.fuse(*inputs[mode])
+                    walls[(mode, "host")].append(time.perf_counter() - t)
+                    torch.cuda.synchronize()
+                    resting = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t = time.perf_counter()
+                    fuser.fuse_on_device(*on_device[mode])
+                    torch.cuda.synchronize()
+                    walls[(mode, "device")].append(time.perf_counter() - t)
+                    _k3_only(read_counts("cuda"), 40 * chunks, f"tiled {size} {mode}")
+                    peaks[mode] = max(peaks.get(mode, 0.0), (torch.cuda.max_memory_allocated() - resting) / 2**20)
+            for mode in inputs:
+                host, dev = (float(np.median(walls[(mode, where)])) for where in ("host", "device"))
+                print(f"[tiled] {size} {h}x{w} {mode} I/O, tile {TILE} overlap {OVERLAP} max_batch {TILED_BATCH}, "
+                      f"{TILED_ROUNDS} calls in turns: {host:.4f} s/image with the transfers "
+                      f"({h * w / 1e6 / host:.2f} MP/s), {dev:.4f} s on the device alone "
+                      f"({h * w / 1e6 / dev:.2f} MP/s, {plan.n_tiles / dev:.2f} tiles/s), peak memory above the "
+                      f"{resting / 2**20:.0f} MiB allocated {peaks[mode]:.0f} MiB, K3 {40 * chunks} launches "
+                      f"| {card}", flush=True)
+            result[size] = (float(np.median(walls[("fp32", "device")])), plan.n_tiles)
+            if size == "4K":
+                a, b = on_device["fp32"]
+                trace(f"tiled 4K {h}x{w} fp32 (device-resident)", "tiled 4K",
+                      lambda: fusers["fp32"].fuse_on_device(a, b), 1e3 * result[size][0], card)
+            del on_device
+            torch.cuda.empty_cache()
+
+    hw = UNTILED_HW
+    ir, vis = (torch.from_numpy(rng.random((*hw, 1), dtype=np.float32)).to(device) for _ in range(2))
+    with torch.inference_mode():
+        tiled = f.fuse_on_device(ir, vis)
+        whole = fused_y(f.model, ir[None], vis[None])[0]
+        print(f"[tiled] {hw[0]}x{hw[1]} tiled ({f.plan(*hw).n_tiles} tiles) against one forward of the image: SSIM "
+              f"{ssim(tiled[None], whole[None]).item():.5f}, mean |difference| "
+              f"{(tiled - whole).abs().mean().item():.3e}, max {(tiled - whole).abs().max().item():.3e} "
+              f"(printed, not asserted: random weights) | {card}", flush=True)
+    del fusers, plain, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def canny_phase(flat, device, card):
+    """The 224x224 batch-20 step with ``choose_canny_else_sobel=True`` under ``"auto"`` (K3
+    forward and backward): finite; its loss terms against the torch composition's first
+    step on the card to 1e-5 relative (the texture term, a count of edge pixels, also
+    within the pixels where the two fused images' edge maps differ); the card's edge maps
+    of the batch (the fused image, ir, vis) bit-equal to the CPU port's; the step with the
+    texture term's one stacked ``canny`` call against the same step with three calls (the
+    JAX package's form; step 1's terms equal) and the Sobel step, in turns; inside the step,
+    each form's calls by CUDA events, host time and hysteresis chunks (device reads); each
+    form's calls alone in turns; and traced Canny and Sobel steps and one stacked call, for
+    the device time that the Canny step adds against its wall."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.config import LossConfig
+    from swin_unet_image_fusion_tpu_torch.ops import edges
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED + 23)
+    ir, vis = (torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+               for _ in range(2))
+    canny_loss = LossConfig(choose_canny_else_sobel=True)
+    cases = {"canny": Config(loss=canny_loss), "torch canny": Config(model=ModelConfig(attention_impl="torch"),
+                                                                   loss=canny_loss), "sobel": Config()}
+    states = {name: create_train_state(cfg, flat, 100, device=device) for name, cfg in cases.items()}
+    steps = {name: make_train_step(cfg) for name, cfg in cases.items()}
+    fusions = {}
+    with torch.no_grad():  # the step's fused image (train mode, no dropout), on copies of the states
+        for name in ("canny", "torch canny"):
+            probe = create_train_state(cases[name], flat, 100, device=device)
+            fusions[name] = torch.clamp(probe.model(ir, vis, train=True), 0.0, 1.0)
+            del probe
+    first = {}
+    for name in cases:
+        torch.cuda.synchronize()
+        reset_counts()
+        chunks = edges.HYSTERESIS_CHUNKS
+        terms = {k: float(v) for k, v in steps[name](states[name], ir, vis).items()}
+        torch.cuda.synchronize()
+        if not all(np.isfinite(v) for v in terms.values()):
+            raise AssertionError(f"{name} step: terms {terms}")
+        got = {k: v for k, v in read_counts("cuda").items() if v}
+        if got != ({} if name == "torch canny" else TRAIN_CONFIGS["cuda"]):
+            raise AssertionError(f"{name} step: launches {got}")
+        first[name] = terms
+        print(f"[canny] {name} first step: " + ", ".join(f"{k} {v:.7g}" for k, v in terms.items())
+              + f"; hysteresis chunks {edges.HYSTERESIS_CHUNKS - chunks}", flush=True)
+    maps = {name: edges.canny(fusions[name])[1] for name in fusions}
+    flips = int((maps["canny"] != maps["torch canny"]).sum())
+    texture_bound = flips / maps["canny"].numel() * canny_loss.texture_scale
+    for k, v in first["canny"].items():
+        ref = first["torch canny"][k]
+        slack = {"texture_loss": texture_bound, "total_loss": texture_bound * canny_loss.texture_loss_ratio}
+        if abs(v - ref) > 1e-5 * abs(ref) + slack.get(k, 0.0):
+            raise AssertionError(f"canny step 1 {k} {v} vs torch composition {ref} ({flips} edge pixels differ)")
+    rel = {k: abs(v - first["torch canny"][k]) / max(abs(first["torch canny"][k]), 1e-30)
+           for k, v in first["canny"].items()}
+    print(f"[parity] canny train step 1 vs torch composition on the card: loss terms relative differences "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f"; the fused images' edge maps differ in {flips} of {maps['canny'].numel()} pixels", flush=True)
+    on_card = [fusions["canny"], ir, vis]
+    card_maps = [edges.canny(x)[1] for x in on_card]
+    cpu_maps = [edges.canny(x.cpu())[1] for x in on_card]
+    for label, a, b in zip(("fusion", "ir", "vis"), card_maps, cpu_maps):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"canny {label}: the card's edge map differs from the CPU's in "
+                                 f"{int((a.cpu() != b).sum())} pixels")
+    print(f"[canny] edge maps of the batch ({TRAIN_BATCH}x{TRAIN_HW[0]}x{TRAIN_HW[1]}: the fused image, ir, vis) "
+          f"bit-equal card vs CPU; edge pixels {[int(m.sum()) for m in card_maps]}", flush=True)
+
+    states["canny, three calls"] = create_train_state(cases["canny"], flat, 100, device=device)
+    with _canny_calls(three=True):
+        terms = {k: float(v) for k, v in steps["canny"](states["canny, three calls"], ir, vis).items()}
+    if terms != first["canny"]:
+        raise AssertionError(f"canny step 1 as three calls {terms} vs one stacked call {first['canny']}")
+    # every form's steps in turns after an untimed round (the order reversed every other
+    # round, so that a form follows itself or another), each step marked: host ms since the
+    # step's start and the card's (a CUDA event) at the loss's and the texture term's entry
+    # and exit, at the return and after the synchronise; the card's minus the host's is the
+    # queue ahead of the card, zero where the card waits for the host. The canny calls'
+    # spans on the card's timeline, host time and hysteresis chunks are recorded too.
+    # Python's garbage collections (host ms before "loss in", and after it) and the caching
+    # allocator's new device segments and retries are counted per step too.
+    forms = {"canny": False, "canny, three calls": True, "sobel": None}
+    walls = {name: [] for name in forms}
+    timeline = {name: [] for name in forms}
+    record = {name: [] for name in forms}
+    host_costs = {name: [] for name in forms}
+    after_form = {}  # (form, the form of the step before) -> the forward's host ms
+    previous = None
+    for round_ in range(CANNY_STEPS + 1):
+        order = list(forms) if round_ % 2 == 0 else list(forms)[::-1]
+        for name in order:
+            three = forms[name]
+            marks, collections = [], []
+            before = torch.cuda.memory_stats()
+            with _canny_calls(three=bool(three), record=record[name] if round_ else None), \
+                    _step_marks(marks) as mark, _collections(collections):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                mark("start")
+                steps["sobel" if three is None else "canny"](states[name], ir, vis)
+                mark("returned")
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t)
+                mark("synchronised")
+            after = torch.cuda.memory_stats()
+            if round_:
+                walls[name].append(wall)
+                _, t0, e0 = marks[0]
+                timeline[name].append({label: (1e3 * (t - t0), e0.elapsed_time(e)) for label, t, e in marks[1:]})
+                loss_in = next(t for label, t, _ in marks if label == "loss in")
+                host_costs[name].append((
+                    1e3 * sum(end - begin for begin, end, _ in collections if end <= loss_in),
+                    1e3 * sum(end - begin for begin, end, _ in collections if end > loss_in),
+                    sum(1 for _, _, generation in collections if generation == 2),
+                    *(after.get(key, 0) - before.get(key, 0) for key in ("segment.all.allocated", "num_alloc_retries")),
+                    before.get("inactive_split.all.current", 0)))
+                after_form.setdefault((name, previous), []).append(1e3 * (loss_in - t0))
+            previous = name
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    print(f"[canny] step {TRAIN_HW[0]}x{TRAIN_HW[1]} bs={TRAIN_BATCH} (cuda), {CANNY_STEPS} steps each in turns "
+          f"after an untimed round: " + "; ".join(
+              f"{name} median {med[name]:.2f} ms/step (min {min(walls[name]):.2f}; in order "
+              + " ".join(f"{w:.1f}" for w in walls[name]) + ")" for name in forms)
+          + f"; Canny over Sobel {med['canny'] - med['sobel']:+.2f} ms, as three calls "
+          f"{med['canny, three calls'] - med['sobel']:+.2f} ms (step 1's terms equal bit for bit) | {card}",
+          flush=True)
+    for name in forms:
+        labels = timeline[name][0]
+        marked = {label: tuple(float(np.median([run[label][i] for run in timeline[name]])) for i in (0, 1))
+                  for label in labels}
+        line = (f"[canny] step timeline ({name}, medians; host / card ms since the start): "
+                + ", ".join(f"{label} {h:.2f} / {d:.2f}" for label, (h, d) in marked.items()))
+        costs = np.asarray(host_costs[name], dtype=np.float64)
+        line += (f"; Python's garbage collections {float(np.median(costs[:, 0])):.2f} ms a step before the loss "
+                 f"and {float(np.median(costs[:, 1])):.2f} after (medians; {costs[:, 2].sum():.0f} full collections "
+                 f"in {CANNY_STEPS} steps); the allocator's new device segments {costs[:, 3].sum():.0f} and retries "
+                 f"{costs[:, 4].sum():.0f} in {CANNY_STEPS} steps, {float(np.median(costs[:, 5])):.0f} split cached "
+                 f"blocks at a step's start; the forward's host ms by the step before: " + ", ".join(
+                     f"after {before_name} {float(np.median(v)):.2f} ({len(v)})"
+                     for (form, before_name), v in sorted(after_form.items(), key=lambda kv: str(kv[0]))
+                     if form == name))
+        if record[name]:
+            calls = record[name]
+            line += (f"; {len(calls) // CANNY_STEPS} canny calls a step spanning "
+                     f"{sum(a.elapsed_time(b) for a, b, _, _ in calls) / CANNY_STEPS:.3f} ms of the card's "
+                     f"timeline (CUDA events around each), {1e3 * sum(h for _, _, h, _ in calls) / CANNY_STEPS:.3f} "
+                     f"ms of host time in them, {sum(c for _, _, _, c in calls) / CANNY_STEPS:.1f} hysteresis "
+                     f"chunks a step, each one device read")
+        print(f"{line} | {card}", flush=True)
+
+    x = fusions["canny"]
+    stacked = torch.cat([x, ir, vis])
+    calls = {"one call over the stacked fused, ir and vis batches": lambda: edges.canny(stacked),
+             "three calls, one a batch": lambda: [edges.canny(b) for b in (x, ir, vis)]}
+    call_ms = {name: [] for name in calls}
+    call_chunks = {name: 0 for name in calls}
+    for _ in range(CANNY_CALLS):
+        for name, call in calls.items():
+            torch.cuda.synchronize()
+            chunks, t = edges.HYSTERESIS_CHUNKS, time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            call_ms[name].append(1e3 * (time.perf_counter() - t))
+            call_chunks[name] += edges.HYSTERESIS_CHUNKS - chunks
+    print(f"[canny] alone, {CANNY_CALLS} times each in turns (host clock, synchronised): " + "; ".join(
+        f"{name} median {float(np.median(call_ms[name])):.3f} ms, {call_chunks[name] / CANNY_CALLS:.1f} "
+        f"hysteresis chunks of {edges.HYSTERESIS_CHUNK}" for name in calls) + f" | {card}", flush=True)
+
+    busy = {}
+    for name in ("canny", "sobel"):
+        kernels = trace(f"{name} step {TRAIN_HW[0]}x{TRAIN_HW[1]} bs={TRAIN_BATCH} (cuda)", f"{name} step",
+                        lambda: steps[name](states[name], ir, vis), med[name], card)
+        busy[name] = (sum(ms for _, ms in kernels.values()), sum(n for n, _ in kernels.values()))
+    one = float(np.median(call_ms[next(iter(calls))]))
+    kernels = trace("canny, one stacked call", "canny call", lambda: edges.canny(stacked), one, card)
+    if kernels and all(b for b, _ in busy.values()):
+        call_busy = sum(ms for _, ms in kernels.values())
+        print(f"[canny] traced: the Canny step {busy['canny'][0]:.3f} ms busy in {busy['canny'][1]} kernels, the "
+              f"Sobel step {busy['sobel'][0]:.3f} ms in {busy['sobel'][1]}: {busy['canny'][0] - busy['sobel'][0]:+.3f} "
+              f"ms of device work against {med['canny'] - med['sobel']:+.2f} ms of wall; one stacked canny call "
+              f"{call_busy:.3f} ms busy in {sum(n for n, _ in kernels.values())} kernels of its {one:.3f} ms "
+              f"| {card}", flush=True)
+    del states, steps, fusions
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _collections(collections):
+    """For the duration, each of Python's garbage collections appended to ``collections`` as
+    (start, end host seconds, generation)."""
+    import gc
+
+    started = {}
+
+    def callback(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            collections.append((started.pop("t"), time.perf_counter(), info["generation"]))
+
+    gc.callbacks.append(callback)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(callback)
+
+
+@contextlib.contextmanager
+def _step_marks(marks):
+    """Yields ``mark(label)``, which appends (label, host seconds, a recorded CUDA event) to
+    ``marks``; for the duration, the train step's loss and its texture term mark their entry
+    and exit ("loss in", "texture in", "texture out", "loss out")."""
+    from swin_unet_image_fusion_tpu_torch import losses, train
+
+    def mark(label):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((label, time.perf_counter(), event))
+
+    def marked(fn, what):
+        def call(*args, **kw):
+            mark(f"{what} in")
+            out = fn(*args, **kw)
+            mark(f"{what} out")
+            return out
+        return call
+
+    loss, texture = train.total_fusion_loss, losses.texture_term
+    train.total_fusion_loss, losses.texture_term = marked(loss, "loss"), marked(texture, "texture")
+    try:
+        yield mark
+    finally:
+        train.total_fusion_loss, losses.texture_term = loss, texture
+
+
+@contextlib.contextmanager
+def _canny_calls(three=False, record=None):
+    """``losses.canny`` for the duration: as it is (one call over the fused, ir and vis
+    batches stacked), or with ``three`` as three calls, one a batch (the JAX package's form);
+    with ``record``, each call's CUDA events, host seconds and hysteresis chunks appended."""
+    from swin_unet_image_fusion_tpu_torch import losses
+    from swin_unet_image_fusion_tpu_torch.ops import edges
+
+    def one(x, **kw):
+        if record is None:
+            return edges.canny(x, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        chunks, t = edges.HYSTERESIS_CHUNKS, time.perf_counter()
+        start.record()
+        out = edges.canny(x, **kw)
+        end.record()
+        record.append((start, end, time.perf_counter() - t, edges.HYSTERESIS_CHUNKS - chunks))
+        return out
+
+    def patched(x, **kw):
+        if not three:
+            return one(x, **kw)
+        return tuple(torch.cat(t) for t in zip(*(one(part, **kw) for part in x.chunk(3))))
+
+    losses.canny = patched
+    try:
+        yield
+    finally:
+        losses.canny = edges.canny
+
+
+def metrics_phase(ir, vis, rgb, device, card):
+    """``score_fusion`` at 512x512 on the card against the CPU port (numpy terms equal,
+    SSIM/PSNR to 1e-5 relative), and its ms."""
+    from swin_unet_image_fusion_tpu_torch.eval_metrics import score_fusion
+
+    fused, a, b = rgb[0].mean(-1), ir[0], vis[0, ..., 0]
+    got = score_fusion(fused, a, b, device=device)
+    ref = score_fusion(fused, a, b, device="cpu")
+    for key, value in ref.items():
+        close = abs(got[key] - value) <= 1e-5 * abs(value) if key[:4] in ("SSIM", "PSNR") else got[key] == value
+        if not close:
+            raise AssertionError(f"score_fusion {key}: card {got[key]} vs CPU {value}")
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        score_fusion(fused, a, b, device=device)
+        walls.append(1e3 * (time.perf_counter() - t))
+    print(f"[metrics] score_fusion {SERVE_HW[0]}x{SERVE_HW[1]} (SSIM/PSNR on the card): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got.items())
+          + f"; equal to the CPU's (SSIM/PSNR to 1e-5); median {float(np.median(walls)):.1f} ms a call | {card}",
+          flush=True)
+
+
+def flops_phase(tiled_4k, card):
+    """``model_flops_per_pair`` at 512x512, and the 4K tiled run's achieved fp32 rate."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+    from swin_unet_image_fusion_tpu_torch.utils.flops import mfu, model_flops_per_pair
+
+    per_tile = model_flops_per_pair(ModelConfig(), (TILE, TILE))["total"]
+    seconds, tiles = tiled_4k
+    achieved, share = mfu(tiles / seconds, per_tile, PEAK_FP32_FLOPS / 1e12)
+    print(f"[flops] model_flops_per_pair {TILE}x{TILE}: {per_tile / 1e9:.3f} GFLOP; 2160x3840 in one pass "
+          f"{model_flops_per_pair(ModelConfig(), TILED_SIZES['4K'])['total'] / 1e9:.3f} GFLOP; the 4K tiled run "
+          f"({tiles} tiles in {seconds:.4f} s on the device) {achieved:.3f} TFLOP/s, {share:.2%} of the "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 peak | {card}", flush=True)
+
+
+def serving_eval_phases(flat, device, card):
+    """``[colour]``, ``[test]``, ``[tiled]``, ``[canny]``, ``[metrics]`` and ``[flops]``."""
+    from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
+
+    phase = Phases()
+    fuser = Fuser(Config(), flat, device=device)
+    plain = Fuser(Config(model=ModelConfig(attention_impl="torch")), flat, device=device)
+    cpu = Fuser(Config(), flat, device="cpu")
+    ir, vis, rgb = colour_phase(fuser, plain, cpu, card)
+    del fuser, plain, cpu
+    torch.cuda.empty_cache()
+    phase("[colour]")
+    test_phase(flat, device, card)
+    phase("[test]")
+    tiled = tiled_phase(flat, device, card)
+    phase("[tiled]")
+    canny_phase(flat, device, card)
+    phase("[canny]")
+    metrics_phase(ir, vis, rgb, device, card)
+    flops_phase(tiled["4K"], card)
+    phase("[metrics] and [flops]")
+
+
 class Phases:
     """Prints each phase's wall seconds on its own line, and the run's so far."""
 
@@ -3009,6 +3675,18 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
     phase = Phases()
+    if sys.argv[1:] == ["--serving-eval"]:
+        # the serving and evaluation phases alone, on the two sources they run (K3's fp32
+        # forward and backward); no kernels line and no last line
+        _build.build_all(("window_attention_fwd", "window_attention_bwd"))
+        phase("build of window_attention_fwd.cu and window_attention_bwd.cu")
+        serving_eval_phases(random_variables(ModelConfig(), seed=SEED), device, card)
+        phase("[colour], [test], [tiled], [canny], [metrics] and [flops]")
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one option is --serving-eval",
+              file=sys.stderr)
+        return 2
     _build.build_all()
     phase("build")
 
@@ -3093,6 +3771,8 @@ def main() -> int:
     phase("[trainer], [resume], [pth], [nonfinite] and [cli]")
     remat_phase(device, card)
     phase("[remat]")
+    serving_eval_phases(flat, device, card)
+    phase("[colour], [test], [tiled], [canny], [metrics] and [flops]")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (

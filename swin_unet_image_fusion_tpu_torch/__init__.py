@@ -7,15 +7,18 @@ device unless the caller passes ``device="cpu"``.
 """
 
 from .config import Config, ModelConfig
-from .infer import Fuser
 from .models.unet import SwinFusionUNet
 
 __all__ = ["Config", "ModelConfig", "SwinFusionUNet", "Fuser", "Trainer"]
 
 
 def __getattr__(name):
-    # ``Trainer`` on first use: importing ``train`` with the package would load it twice
-    # under ``python -m swin_unet_image_fusion_tpu_torch.train``
+    # ``Fuser`` and ``Trainer`` on first use: importing ``infer`` or ``train`` with the
+    # package would load it twice under ``python -m swin_unet_image_fusion_tpu_torch.infer``
+    # (or ``.train``)
+    if name == "Fuser":
+        from .infer import Fuser
+        return Fuser
     if name == "Trainer":
         from .train import Trainer
         return Trainer

@@ -3,6 +3,7 @@ the JAX ``losses.py``).
 
   ssim      = [MS-SSIM(fus, ir) * w_ir + MS-SSIM(fus, vis) * (1 - w_ir)] * ssim_scale
   texture   = mean|sobel(fus) - max(sobel(ir), sobel(vis))| * texture_scale
+              (Canny's binary edge maps instead with ``choose_canny_else_sobel``)
   intensity = ||fus - max(ir, vis)||_1 / numel * intensity_scale
   psnr      = optional, off by default
   total     = sum(term * ratio), ratios 1/3 each.
@@ -18,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from .config import LossConfig
-from .ops.edges import sobel_magnitude
+from .ops.edges import canny, sobel_magnitude
 from .ops.ssim import ms_ssim_l1_loss, psnr_loss, ssim_loss
 
 
@@ -38,12 +39,19 @@ def ssim_term(cfg: LossConfig, fusion: torch.Tensor, ir: torch.Tensor,
 
 def texture_term(cfg: LossConfig, fusion: torch.Tensor, ir: torch.Tensor,
                  vis: torch.Tensor) -> torch.Tensor:
-    """The fused edges should dominate both inputs' (Sobel; Canny is not ported yet)."""
+    """The fused edges should dominate both inputs'. With ``choose_canny_else_sobel`` the
+    edges are Canny's binary maps (``canny(x)[1]``), which come from comparisons and carry
+    no gradient, in JAX and in kornia alike: they are computed without a graph, in one
+    call over the three batches (each image's map is its own, so the maps are those of
+    three calls, for a third of the launches and of the hysteresis' device reads)."""
     if cfg.choose_canny_else_sobel:
-        raise NotImplementedError("the Canny texture term is not ported yet; use Sobel")
-    edge_fus = sobel_magnitude(fusion)
-    edge_ir = sobel_magnitude(ir)
-    edge_vis = sobel_magnitude(vis)
+        with torch.no_grad():
+            edges = canny(torch.cat([fusion, ir, vis]))[1]
+        edge_fus, edge_ir, edge_vis = torch.split(edges, [len(fusion), len(ir), len(vis)])
+    else:
+        edge_fus = sobel_magnitude(fusion)
+        edge_ir = sobel_magnitude(ir)
+        edge_vis = sobel_magnitude(vis)
     return torch.mean(torch.abs(edge_fus - torch.maximum(edge_ir, edge_vis)))
 
 

@@ -61,6 +61,7 @@ from .models import torch_import
 from .models.from_jax import flatten_variables, init_variables, variables_from_jax
 from .models.unet import SwinFusionUNet, fp32_accumulation
 from .optim import apply_if_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
+from .utils.device import require_device
 from .utils.meters import LossMeter
 from .utils.term import cyan, yellow
 
@@ -77,20 +78,12 @@ class TrainState:
     notfinite: int = 0  # consecutive non-finite steps under skip_nonfinite_updates
 
 
-def _require_device(device: torch.device | str, what: str) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{what} was asked for a CUDA device and none is available; pass "
-                           "device='cpu' to run on the CPU")
-    return device
-
-
 def create_train_state(cfg: Config, variables: Optional[Mapping], iters_per_epoch: int, *,
                        device: torch.device | str = "cuda") -> TrainState:
     """A train state on ``device`` ("cuda" unless the caller passes "cpu") from flax
     variables, nested or flat (as :func:`~.models.from_jax.variables_from_jax` takes), or,
     with ``variables=None``, from :func:`~.models.from_jax.init_variables` of ``cfg.seed``."""
-    device = _require_device(device, "create_train_state")
+    device = require_device(device, "create_train_state")
     if variables is None:
         variables = init_variables(cfg.model, cfg.seed)
     model = SwinFusionUNet(cfg.model)
@@ -190,7 +183,7 @@ class Trainer:
 
     def __init__(self, cfg: Config, *, device: torch.device | str = "cuda",
                  dataset: Optional[FusionPairDataset] = None):
-        self.device = _require_device(device, "Trainer")
+        self.device = require_device(device, "Trainer")
         if cfg.parallel.num_data > 1 or cfg.parallel.use_shard_map:
             raise NotImplementedError("data-parallel training (parallel.num_data > 1, "
                                       "parallel.use_shard_map) is not ported yet (ROADMAP.md, "

@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch.utils.term, swin_unet_image_fusion_tpu_torch.utils.meters\n"
         "import swin_unet_image_fusion_tpu_torch.models.torch_import\n"
         "import swin_unet_image_fusion_tpu_torch.models.torch_export\n"
+        "import swin_unet_image_fusion_tpu_torch.metrics, swin_unet_image_fusion_tpu_torch.eval_metrics\n"
+        "import swin_unet_image_fusion_tpu_torch.parallel.tiled, swin_unet_image_fusion_tpu_torch.utils.flops\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -91,6 +93,29 @@ def test_training_entry_points_on_the_default_device_raise_without_a_card(entry,
     save_torch_checkpoint(path, variables_from_jax(random_variables(TINY, seed=0)), TINY)
     calls = {"Trainer": lambda: Trainer(cfg), "start_main": lambda: start_main(cfg),
              "Fuser.from_checkpoint": lambda: Fuser.from_checkpoint(cfg, path)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["TiledFuser", "run_test", "score_fusion"])
+def test_serving_and_evaluation_entry_points_on_the_default_device_raise_without_a_card(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    from swin_unet_image_fusion_tpu_torch.config import LogConfig
+    from swin_unet_image_fusion_tpu_torch.eval_metrics import score_fusion
+    from swin_unet_image_fusion_tpu_torch.infer import run_test
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import variables_from_jax
+    from swin_unet_image_fusion_tpu_torch.models.torch_export import save_torch_checkpoint
+    from swin_unet_image_fusion_tpu_torch.parallel.tiled import TiledFuser
+
+    path = str(tmp_path / "w.pth")
+    save_torch_checkpoint(path, variables_from_jax(random_variables(TINY, seed=0)), TINY)
+    image = np.zeros((16, 16), np.float32)
+    calls = {"TiledFuser": lambda: TiledFuser(TINY, random_variables(TINY, seed=0)),
+             "run_test": lambda: run_test(Config(model=TINY, log=LogConfig(using_state_path=path))),
+             "score_fusion": lambda: score_fusion(image, image, image)}
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
 

@@ -81,9 +81,12 @@ def test_total_loss_and_its_gradient_match_jax(options):
 
 
 def test_canny_texture_is_not_ported_and_raises():
-    fusion, ir, vis = (torch.from_numpy(a) for a in _images((1, 14, 14, 1), seed=2))
-    with pytest.raises(NotImplementedError, match="Canny"):
-        losses.texture_term(LossConfig(choose_canny_else_sobel=True), fusion, ir, vis)
+    """The Canny texture term was not ported and raised; it is ported now, and equals the
+    JAX term (tests/test_torch_canny.py holds Canny itself)."""
+    fusion, ir, vis = _images((1, 14, 14, 1), seed=2)
+    ref = jlosses.texture_term(jcfg.LossConfig(choose_canny_else_sobel=True), *map(jnp.asarray, (fusion, ir, vis)))
+    got = losses.texture_term(LossConfig(choose_canny_else_sobel=True), *map(torch.from_numpy, (fusion, ir, vis)))
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
 
 
 def test_schedule_matches_jax_over_three_epochs():
