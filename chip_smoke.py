@@ -80,7 +80,17 @@ composition, the blend against numpy's, exact K3 launches, uint8 against float I
 and without the transfers, MP/s, peak memory, a traced 4K call; ``[tiled]``); the 224x224
 batch-20 step with the Canny texture term against the composition and the Sobel step, its edge
 maps bit-equal to the CPU's (``[canny]``); ``score_fusion`` (``[metrics]``) and the 4K run's FLOP
-rate (``[flops]``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
+rate (``[flops]``). Then the multi-device paths, as far as one card shows them: the data-parallel
+step (``train.make_train_step(cfg, group)``) over an NCCL group of one rank at 224x224 batch 20
+under each kernel configuration, its first step with exact launches against the bare step, timed
+in turns and traced beside it (``[dist] world 1``); the data-parallel step over
+a gloo group of two processes on the one card, rank 0's first step against the one-process step
+on the global batch (``[dist] world 2``); the K1 band and K2 halo forms (``ops/window_pack_spmd.py``)
+in 4 bands of every packed stage of a 1792x1792 request, fp32 and bf16, against the whole map's
+launches (bit-equal) and their plain versions, timed beside them, and ``SpatialFuser`` under
+``cuda_pack`` over the group of one at 1792x1792 with exact launches against ``fuse_y`` and the
+composition (``[spatial]``); ``TiledFuser`` over the group of one at 2048x2048 against no group
+(``[tiled] world 1``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -88,8 +98,14 @@ It needs a CUDA device and the repository beside it, and exits non-zero without 
 
     python3 chip_smoke.py --serving-eval
 
-runs only the last group (``[colour]`` to ``[flops]``) after building the two sources it
-runs, and prints neither the kernels line nor the last line.
+runs only the serving and evaluation group (``[colour]`` to ``[flops]``) after building the two
+sources it runs, and
+
+    python3 chip_smoke.py --multi-device
+
+only the multi-device phases after building every source; neither prints the kernels line nor
+the last line. ``--dist-worker RANK STORE OUT`` is one rank of ``[dist] world 2``, which the
+script starts itself.
 """
 
 from __future__ import annotations
@@ -1007,6 +1023,7 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
     ("csrc dropout masks", ("dropout_rows_kernel", "dropout_attn_kernel")),
     ("optimizer and foreach ops", ("multi_tensor",)),
     ("host-device copies", ("Memcpy", "Memset")),
+    ("collectives (NCCL)", ("nccl",)),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "implicit")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "Kernel2")),
     ("reductions (LayerNorm statistics)", ("reduce",)),
@@ -3642,6 +3659,476 @@ def serving_eval_phases(flat, device, card):
     phase("[metrics] and [flops]")
 
 
+# --------------------------------------------------------------- multi-device phases
+DIST_CONFIGS = ("cuda", "cuda_pack", "cuda_block")
+DIST_STEPS = 10  # timed steps of each form in turns (bare, data-parallel)
+WORLD2_STEPS = 3  # data-parallel steps each rank of the gloo world 2 takes
+SPATIAL_HW = (1792, 1792)  # every stage of the default model splits into whole window rows for 2-8 bands
+SPATIAL_BANDS = 4
+SPATIAL_ROUNDS = 10
+DIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
+# a SpatialFuser forward under cuda_pack at 1792² on one rank: stages 0-3 pack (8 blocks and
+# 4 halo re-partitions a stage pair's encoder and decoder side), stage 4 (C = 384) runs the
+# composition
+SPATIAL_LAUNCHES = {"K1 band": 32, "K2 halo": 32}
+
+
+def one_rank_group(device):
+    """An in-process NCCL group of one rank on ``device``, joined through a FileStore."""
+    import torch.distributed as dist
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    store = DIST_DIR / "store_world1"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    return dist.group.WORLD
+
+
+def _step_outputs(state, terms):
+    """(terms, {name: gradient}, BatchNorm running statistics) of a step, cloned."""
+    grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters() if p.grad is not None}
+    bn = state.model.final_head.bn
+    return {k: float(v) for k, v in terms.items()}, grads, (bn.mean.clone(), bn.var.clone())
+
+
+def _hold_step(got, ref, what):
+    """A data-parallel step's terms (1e-5 relative), gradients (``assert_grads_close``) and
+    BatchNorm statistics (atol 1e-5, rtol 1e-4) against a step on the global batch; returns
+    (terms' largest relative difference, gradients' max_abs_err, statistics' max_abs_err,
+    bit-equal gradients)."""
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    (terms, grads, stats), (ref_terms, ref_grads, ref_stats) = got, ref
+    rel = max(abs(terms[k] - ref_terms[k]) / max(abs(ref_terms[k]), 1e-30) for k in ref_terms)
+    if rel > 1e-5:
+        raise AssertionError(f"{what}: loss terms {terms} against {ref_terms}")
+    names = list(ref_grads)
+    check = assert_grads_close([grads[n].to(ref_grads[n].device) for n in names],
+                               [ref_grads[n] for n in names], names, what)
+    stat_err = max((a.to(b.device) - b).abs().max().item() for a, b in zip(stats, ref_stats))
+    for a, b in zip(stats, ref_stats):
+        torch.testing.assert_close(a.to(b.device), b, atol=1e-5, rtol=1e-4)
+    equal = all(torch.equal(grads[n].to(ref_grads[n].device), ref_grads[n]) for n in names)
+    return rel, check.worst, stat_err, equal
+
+
+def dist_world1_phase(flat, device, card, group):
+    """``[dist] world 1``: the data-parallel step (``make_train_step(cfg, group)``) over a
+    one-rank NCCL group at 224² batch 20 under each kernel configuration: its first step
+    with exact launches, held to the bare step's (terms, gradients, BatchNorm statistics),
+    then DIST_STEPS steps of the two in turns with the overhead over the bare step, each
+    step's wall and the host's time until the step returns (the device still running), and
+    one step of each traced: the overhead split into device time by kernel family and the
+    device's idle time."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED)
+    ir = torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+    vis = torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+    medians = {}
+    for impl in DIST_CONFIGS:
+        cfg = Config(model=ModelConfig(attention_impl=impl))
+        forms = {"bare": make_train_step(cfg), "data-parallel": make_train_step(cfg, group)}
+        states = {name: create_train_state(cfg, flat, iters_per_epoch=100, device=device) for name in forms}
+        first = {}
+        for name, step in forms.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            terms = step(states[name], ir, vis)
+            torch.cuda.synchronize()
+            got = read_counts(impl)
+            expected = {k: 0 for k in got}
+            expected.update(TRAIN_CONFIGS[impl])
+            if got != expected:
+                raise AssertionError(f"[dist] {impl} {name} step: launches {got}, expected {expected}")
+            first[name] = _step_outputs(states[name], terms)
+        rel, gerr, serr, equal = _hold_step(first["data-parallel"], first["bare"], f"[dist] {impl}")
+        print(f"[dist] world 1 {impl} data-parallel step 1 against the bare step: launches "
+              f"{TRAIN_CONFIGS[impl]}, loss terms max relative difference {rel:.3e}, gradients "
+              f"max_abs_err {gerr:.3e} (bit-equal {equal}), BatchNorm statistics max_abs_err "
+              f"{serr:.3e}", flush=True)
+        walls = {name: [] for name in forms}
+        hosts = {name: [] for name in forms}
+        for _ in range(DIST_STEPS):
+            for name, step in forms.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(states[name], ir, vis)
+                hosts[name].append(1e3 * (time.perf_counter() - t))
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t))
+        med = {name: float(np.median(w)) for name, w in walls.items()}
+        host = {name: float(np.median(w)) for name, w in hosts.items()}
+        medians[impl] = med
+        dp = med["data-parallel"]
+        print(f"[dist] world 1 {impl} 224x224 bs={TRAIN_BATCH}, {DIST_STEPS} steps in turns: bare "
+              f"{med['bare']:.2f} ms/step, data-parallel {dp:.2f} ({100 * (dp / med['bare'] - 1):+.2f}%); "
+              f"host time until the step returns: bare {host['bare']:.2f}, data-parallel "
+              f"{host['data-parallel']:.2f} ms; all steps: "
+              + "; ".join(f"{n} " + ", ".join(f"{v:.2f}" for v in w) for n, w in walls.items())
+              + f" | {card}", flush=True)
+        busy = {}
+        for name, step in forms.items():
+            kernels = trace(f"[dist] world 1 {impl} {name} step", f"{impl} {name}",
+                            lambda: step(states[name], ir, vis), med[name], card)
+            busy[name] = sum(ms for _, ms in kernels.values()) if kernels else None
+        if None not in busy.values():
+            extra = dp - med["bare"]
+            dev = busy["data-parallel"] - busy["bare"]
+            print(f"[dist] world 1 {impl} the data-parallel step's {extra:+.2f} ms over the bare step: "
+                  f"device busy {busy['data-parallel']:.2f} against {busy['bare']:.2f} ms ({dev:+.2f}), "
+                  f"device idle {dp - busy['data-parallel']:.2f} against "
+                  f"{med['bare'] - busy['bare']:.2f} ms ({extra - dev:+.2f}) | {card}", flush=True)
+        del forms, states, first
+        torch.cuda.empty_cache()
+    return medians
+
+
+def dist_worker(rank: int, store: str, out: str) -> int:
+    """One rank of ``[dist] world 2``: a gloo group of two processes on the one card, each
+    taking WORLD2_STEPS data-parallel steps of the default model under ``"auto"`` at local batch
+    TRAIN_BATCH / 2 (its half of the global batch); rank 0 saves its first step's terms,
+    gradients and BatchNorm statistics, and every rank its step times."""
+    import torch.distributed as dist
+    from swin_unet_image_fusion_tpu_torch import Config
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        cfg = Config()
+        state = create_train_state(cfg, random_variables(cfg.model, seed=SEED), iters_per_epoch=100,
+                                   device=DEVICE)
+        step = make_train_step(cfg, dist.group.WORLD)
+        rng = np.random.default_rng(SEED)
+        half = TRAIN_BATCH // 2
+        ir, vis = (torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)
+                                    [rank * half:(rank + 1) * half]).to(DEVICE) for _ in range(2))
+        walls, first = [], None
+        for i in range(WORLD2_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            terms = step(state, ir, vis)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+            if i == 0:
+                first = _step_outputs(state, terms)
+        terms, grads, stats = first
+        torch.save({"terms": terms, "grads": {k: v.cpu() for k, v in grads.items()},
+                    "stats": [s.cpu() for s in stats], "walls": walls}, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_world2_phase(flat, device, card):
+    """``[dist] world 2``: the data-parallel step over a gloo group of two processes on the one card
+    (``dist_worker``), rank 0's first step held to the one-process step on the global batch
+    of TRAIN_BATCH under ``"auto"``; the step times beside the bare global-batch step's."""
+    import subprocess as sp
+
+    from swin_unet_image_fusion_tpu_torch import Config
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED)
+    ir, vis = (torch.from_numpy(rng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+               for _ in range(2))
+    cfg = Config()
+    state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+    step = make_train_step(cfg)
+    terms = step(state, ir, vis)
+    ref = _step_outputs(state, terms)
+    walls = []
+    for _ in range(WORLD2_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, ir, vis)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    del state, step
+    torch.cuda.empty_cache()
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    store = DIST_DIR / "store_world2"
+    store.unlink(missing_ok=True)
+    outs = [DIST_DIR / f"world2_rank{r}.pt" for r in range(2)]
+    procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker", str(r), str(store),
+                       str(outs[r])], stdout=sp.PIPE, stderr=sp.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[dist] world 2 rank {r} failed (gloo on CUDA tensors):\n{log[-4000:]}")
+    saved = [torch.load(o, weights_only=False) for o in outs]
+    got = (saved[0]["terms"], saved[0]["grads"], tuple(saved[0]["stats"]))
+    rel, gerr, serr, equal = _hold_step(got, ref, "[dist] world 2 rank 0")
+    print(f"[dist] world 2 (gloo, two processes on the one card, local batch {TRAIN_BATCH // 2}) data-parallel step 1 "
+          f"of rank 0 against the one-process step on the global batch {TRAIN_BATCH}: loss terms max "
+          f"relative difference {rel:.3e}, gradients max_abs_err {gerr:.3e} (bit-equal {equal}), "
+          f"BatchNorm statistics max_abs_err {serr:.3e}", flush=True)
+    for r, s in enumerate(saved):
+        print(f"[dist] world 2 rank {r} step walls " + ", ".join(f"{v:.2f}" for v in s["walls"])
+              + f" ms (median of steps 2-{WORLD2_STEPS} {float(np.median(s['walls'][1:])):.2f}); the bare "
+              f"one-process step on the global batch {float(np.median(walls)):.2f} ms "
+              f"({', '.join(f'{v:.2f}' for v in walls)}) | {card}", flush=True)
+    for o in outs:
+        o.unlink(missing_ok=True)
+    store.unlink(missing_ok=True)
+
+
+def _band_cases(cfg, device, dtype):
+    """(stage, h, w, c, heads, d, hidden, shift, cross, x windows in the block's geometry,
+    weights) of every packed block of a SPATIAL_HW request's encoder role, in ``dtype``."""
+    from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_beneficial, pack_windows
+
+    for k, h, w, c, heads, d in stage_geometries(cfg, SPATIAL_HW):
+        if not pack_beneficial(c, w):
+            continue
+        hidden = mlp_hiddens(cfg, k)[0][1]
+        x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 40 + k, device)
+        for shift in (False, True):
+            for cross in (False, True):
+                xw = pack_windows(x.to(dtype), WINDOW, shift).contiguous()
+                yield k, h, w, c, heads, d, hidden, shift, cross, xw, weights
+
+
+def check_band_forms(cfg, device, card):
+    """``[spatial]``: for SPATIAL_BANDS bands of each packed stage map of a SPATIAL_HW
+    request, fp32 and bf16, the K1 band form (every shift/cross block) and the K2 halo form
+    (both directions) against the whole map's launch's matching windows (bit-equal) and
+    against their plain versions; each band's time beside its plain version, the bound and,
+    for K2, index_select's. The ms of a band are summed over a rank's launches of one
+    request (each block twice, encoder and decoder side; each re-partition direction four
+    times a stage)."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
+    from swin_unet_image_fusion_tpu_torch.parallel.spatial import split_rows
+
+    worst, times = {}, {}
+    for dtype in (torch.float32, BF16):
+        k1, k2 = f"K1 band{tag(dtype)}", f"K2 halo{tag(dtype)}"
+        worst[k1] = worst[k2] = 0.0
+        t1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
+        t2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        bound_by = "bytes"
+        for k, h, w, c, heads, d, hidden, shift, cross, xw, weights in _band_cases(cfg, device, dtype):
+            kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+            whole = tfb.fused_block(xw, *weights, layout="windows", hw=(h, w), **kw)
+            nw = w // WINDOW[1]
+            bands = split_rows(h // WINDOW[0], SPATIAL_BANDS)
+            for r, (lo, hi) in enumerate(bands):
+                part = xw[:, :, lo * nw:hi * nw].contiguous()
+                out = spmd.fused_block_band(part, *weights, hw=(h, w), row0=lo, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(out, whole[:, :, lo * nw:hi * nw]):
+                    err = (out.float() - whole[:, :, lo * nw:hi * nw].float()).abs().max().item()
+                    raise AssertionError(f"K1 band{tag(dtype)} stage {k} band {r} shift={shift} cross={cross}: "
+                                         f"not bit-equal to the whole map's windows (max_abs_err {err:.3e})")
+                ref = spmd.fused_block_band_plain(part, *weights, hw=(h, w), row0=lo, **kw)
+                err, _ = compare_kernel(out, ref, f"[k1 band{tag(dtype)}] stage {k} {h}x{w} band {r} rows "
+                                                  f"{lo}-{hi} shift={shift} cross={cross}")
+                worst[k1] = max(worst[k1], err)
+                if r == 1:  # a middle band (row seam off under shift): the rank's time
+                    ms = time_ms(lambda: spmd.fused_block_band(part, *weights, hw=(h, w), row0=lo, **kw), 20)
+                    full = time_ms(lambda: tfb.fused_block(xw, *weights, layout="windows", hw=(h, w), **kw), 10)
+                    plain = time_ms(lambda: spmd.fused_block_band_plain(part, *weights, hw=(h, w), row0=lo,
+                                                                        **kw), 3)
+                    bound, bound_by = block_bound_ms((hi - lo) * WINDOW[0], w, c, heads, d, hidden,
+                                                     dtype=dtype, layout="windows")
+                    print(f"[time] K1 band{tag(dtype)} stage {k} {h}x{w} C={c} shift={shift} cross={cross}, band "
+                          f"{r} of {SPATIAL_BANDS} ({hi - lo} window rows): {ms:.4f} ms, the whole map "
+                          f"{full:.4f} ms ({ms / full:.3f} of it), plain {plain:.4f} ms, bound {bound:.4f} ms "
+                          f"({bound_by}) | {card}", flush=True)
+                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                        t1[key] += 2 * v
+            del whole
+        for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device, SPATIAL_HW, dtype=dtype):
+            whole = twp.repartition_windows(xw, (h, w), WINDOW, from_shift, not from_shift)
+            nh, nw = h // WINDOW[0], w // WINDOW[1]
+            side = spmd.halo_side(from_shift, not from_shift)
+            for r, (lo, hi) in enumerate(split_rows(nh, SPATIAL_BANDS)):
+                row = (lo - 1) % nh if side < 0 else hi % nh
+                part, halo = xw[:, :, lo * nw:hi * nw].contiguous(), xw[:, :, row * nw:(row + 1) * nw].contiguous()
+                args = ((h, w), WINDOW, from_shift, not from_shift)
+                out = spmd.repartition_halo(part, halo, *args)
+                torch.cuda.synchronize()
+                ref = spmd.repartition_halo_plain(part, halo, *args)
+                if not (torch.equal(out, whole[:, :, lo * nw:hi * nw]) and torch.equal(out, ref)):
+                    raise AssertionError(f"K2 halo{tag(dtype)} stage {k} band {r} shift {from_shift}: not bit-equal")
+                if r == 1:
+                    ext = spmd._extended(part, halo, side, nw)
+                    rows = (hi - lo + 1) * WINDOW[0]
+                    ids = torch.arange(rows * w, dtype=torch.float32, device=device).reshape(1, 1, -1, T, 1)
+                    eperm = twp.repartition_windows_plain(ids, (rows, w), WINDOW, from_shift,
+                                                          not from_shift).reshape(-1).long()
+                    ms = time_ms(lambda: spmd.repartition_halo(part, halo, *args), 50)
+                    full = time_ms(lambda: twp.repartition_windows(xw, (h, w), WINDOW, from_shift,
+                                                                   not from_shift), 50)
+                    plain = time_ms(lambda: spmd.repartition_halo_plain(part, halo, *args), 10)
+                    library = time_ms(lambda: repartition_library(ext, eperm), 50)
+                    bound, _ = repartition_bound_ms(rows, w, c, dtype=dtype)
+                    print(f"[time] K2 halo{tag(dtype)} stage {k} {h}x{w} C={c} shift {from_shift} -> "
+                          f"{not from_shift}, band {r} of {SPATIAL_BANDS} ({hi - lo} window rows and the halo row): "
+                          f"{ms:.4f} ms (the concatenation with the halo included), the whole map {full:.4f} ms "
+                          f"({ms / full:.3f} of it), plain {plain:.4f} ms, index_select on the extended map "
+                          f"{library:.4f} ms, bound {bound:.4f} ms (bytes) | {card}", flush=True)
+                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
+                        t2[key] += 4 * v
+            del whole
+        print(f"[check] K1 band{tag(dtype)} and K2 halo{tag(dtype)}: every band of {SPATIAL_BANDS} at every packed "
+              f"stage of {SPATIAL_HW[0]}x{SPATIAL_HW[1]} bit-equal to the whole map's launch; K1 band against its "
+              f"plain version max_abs_err {worst[k1]:.3e}, K2 halo bit-exact", flush=True)
+        times[k1] = dict(t1, bound_by=bound_by)
+        times[k2] = dict(t2, bound_by="bytes")
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def spatial_phase(flat, device, card, group):
+    """``[spatial]``: the band forms (:func:`check_band_forms`), then ``SpatialFuser`` under
+    ``cuda_pack`` over the one-rank group at SPATIAL_HW: every stage banded, exact launches,
+    against ``Fuser.fuse_y`` under ``cuda_pack`` and the torch composition on the card, timed
+    in turns with ``fuse_y``. Returns the kernels' worst errors, times and the main path's
+    launches."""
+    from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
+    from swin_unet_image_fusion_tpu_torch.parallel.spatial import SpatialFuser
+
+    worst, times = check_band_forms(ModelConfig(), device, card)
+    cfg = ModelConfig(attention_impl="cuda_pack")
+    fuser = SpatialFuser(cfg, flat, group, device=device)
+    rng = np.random.default_rng(SEED + 50)
+    ir, vis = (rng.random((1, *SPATIAL_HW, 1), dtype=np.float32) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    spmd.BAND_LAUNCHES = spmd.HALO_LAUNCHES = 0
+    out = fuser.fuse(ir, vis)
+    torch.cuda.synchronize()
+    launches = {"K1 band": spmd.BAND_LAUNCHES, "K2 halo": spmd.HALO_LAUNCHES}
+    others = {k: v for k, v in read_counts("cuda_pack").items() if v}
+    if launches != SPATIAL_LAUNCHES or others:
+        raise AssertionError(f"SpatialFuser at {SPATIAL_HW}: launches {launches} and {others}, expected "
+                             f"{SPATIAL_LAUNCHES} and no other kernel")
+    if any(p[2] != "banded" for p in fuser.partitions):
+        raise AssertionError(f"SpatialFuser at {SPATIAL_HW}: a stage ran replicated: {fuser.partitions}")
+    whole = fuser.gather_rows(out, SPATIAL_HW[0]).cpu().numpy()
+    check_fused(whole, (1, *SPATIAL_HW, 1))
+    one = Fuser(Config(model=cfg), flat, device=device)
+    plain = Fuser(Config(model=ModelConfig(attention_impl="torch")), flat, device=device)
+    errs = {}
+    for name, f in (("fuse_y cuda_pack", one), ("the torch composition", plain)):
+        ref = f.fuse_y(ir, vis)
+        errs[name] = float(np.abs(whole - ref).max())
+        np.testing.assert_allclose(whole, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    del plain
+    torch.cuda.empty_cache()
+    walls = {"SpatialFuser": [], "fuse_y": []}
+    dev_ir, dev_vis = (torch.from_numpy(a).to(device) for a in (ir, vis))
+    for _ in range(SPATIAL_ROUNDS):
+        for name, fn in (("SpatialFuser", lambda: fuser.fuse(dev_ir, dev_vis)),
+                         ("fuse_y", lambda: forward_on_device(one, dev_ir, dev_vis))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[spatial] SpatialFuser cuda_pack {SPATIAL_HW[0]}x{SPATIAL_HW[1]} over one rank: every stage banded "
+          f"({len(fuser.partitions)} stage pairs), launches {launches}, no other kernel; against "
+          + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
+          + f"; {med['SpatialFuser']:.2f} ms a pair against fuse_y's {med['fuse_y']:.2f} ms, {SPATIAL_ROUNDS} "
+          f"calls each in turns (" + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in w) for k, w in walls.items())
+          + f") | {card}", flush=True)
+    busy = {}
+    for name, fn in (("SpatialFuser", lambda: fuser.fuse(dev_ir, dev_vis)),
+                     ("fuse_y", lambda: forward_on_device(one, dev_ir, dev_vis))):
+        kernels = trace(f"[spatial] {name} cuda_pack {SPATIAL_HW[0]}x{SPATIAL_HW[1]} over one rank", name,
+                        fn, med[name], card)
+        busy[name] = sum(ms for _, ms in kernels.values()) if kernels else None
+    if None not in busy.values():
+        extra = med["SpatialFuser"] - med["fuse_y"]
+        dev = busy["SpatialFuser"] - busy["fuse_y"]
+        print(f"[spatial] SpatialFuser's {extra:+.2f} ms over fuse_y: device busy {busy['SpatialFuser']:.2f} "
+              f"against {busy['fuse_y']:.2f} ms ({dev:+.2f}), device idle "
+              f"{med['SpatialFuser'] - busy['SpatialFuser']:.2f} against {med['fuse_y'] - busy['fuse_y']:.2f} "
+              f"ms ({extra - dev:+.2f}) | {card}", flush=True)
+    del fuser, one
+    torch.cuda.empty_cache()
+    return worst, times, launches
+
+
+def forward_on_device(fuser, ir, vis):
+    """``fuse_y``'s forward on device-resident inputs (no transfer)."""
+    from swin_unet_image_fusion_tpu_torch.infer import fused_y
+
+    with torch.inference_mode():
+        return fused_y(fuser.model, ir, vis)
+
+
+def tiled_ranks_phase(flat, device, card, group):
+    """``[tiled] world 1``: ``TiledFuser`` over the one-rank group at 2048² (tile 512, overlap
+    64, chunks of 32) against the fuser without a group, timed in turns."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+    from swin_unet_image_fusion_tpu_torch.parallel.tiled import TiledFuser
+
+    h, w = TILED_SIZES["2K"]
+    fusers = {"group of one": TiledFuser(ModelConfig(), flat, TILE, OVERLAP, TILED_BATCH, device=device, group=group),
+              "no group": TiledFuser(ModelConfig(), flat, TILE, OVERLAP, TILED_BATCH, device=device)}
+    rng = np.random.default_rng(SEED + 60)
+    ir, vis = (torch.from_numpy(rng.random((h, w, 1), dtype=np.float32)).to(device) for _ in range(2))
+    outs = {name: f.fuse_on_device(ir, vis) for name, f in fusers.items()}
+    err = (outs["group of one"] - outs["no group"]).abs().max().item()
+    torch.testing.assert_close(outs["group of one"], outs["no group"], atol=1e-6, rtol=0)
+    walls = {name: [] for name in fusers}
+    for _ in range(TILED_ROUNDS):
+        for name, f in fusers.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            f.fuse_on_device(ir, vis)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t)
+    print(f"[tiled] world 1 {h}x{w}: TiledFuser over a one-rank NCCL group against no group max_abs_err "
+          f"{err:.3e} (bit-equal {torch.equal(outs['group of one'], outs['no group'])}); "
+          + ", ".join(f"{name} {float(np.median(v)):.4f} s" for name, v in walls.items())
+          + f" on the device, {TILED_ROUNDS} calls each in turns | {card}", flush=True)
+    del fusers, outs
+    torch.cuda.empty_cache()
+
+
+def multi_device_phases(flat, device, card):
+    """``[dist] world 1``, ``[dist] world 2``, ``[spatial]`` and ``[tiled] world 1``. Returns
+    the band forms' worst errors, times and the main path's launches."""
+    import torch.distributed as dist
+
+    phase = Phases()
+    group = one_rank_group(device)
+    try:
+        dist_world1_phase(flat, device, card, group)
+        phase("[dist] world 1")
+        dist_world2_phase(flat, device, card)
+        phase("[dist] world 2")
+        result = spatial_phase(flat, device, card, group)
+        phase("[spatial]")
+        tiled_ranks_phase(flat, device, card, group)
+        phase("[tiled] world 1")
+    finally:
+        dist.destroy_process_group()
+    return result
+
+
 class Phases:
     """Prints each phase's wall seconds on its own line, and the run's so far."""
 
@@ -3675,6 +4162,15 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
     phase = Phases()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:] == ["--multi-device"]:
+        # the multi-device phases alone; no kernels line and no last line
+        _build.build_all()
+        phase("build")
+        multi_device_phases(random_variables(ModelConfig(), seed=SEED), device, card)
+        phase("[dist], [spatial] and [tiled] world 1")
+        return 0
     if sys.argv[1:] == ["--serving-eval"]:
         # the serving and evaluation phases alone, on the two sources they run (K3's fp32
         # forward and backward); no kernels line and no last line
@@ -3684,8 +4180,8 @@ def main() -> int:
         phase("[colour], [test], [tiled], [canny], [metrics] and [flops]")
         return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the one option is --serving-eval",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the options are --serving-eval and "
+              "--multi-device", file=sys.stderr)
         return 2
     _build.build_all()
     phase("build")
@@ -3773,6 +4269,11 @@ def main() -> int:
     phase("[remat]")
     serving_eval_phases(flat, device, card)
     phase("[colour], [test], [tiled], [canny], [metrics] and [flops]")
+    band_worst, band_times, band_launches = multi_device_phases(flat, device, card)
+    worst.update(band_worst)
+    times.update(band_times)
+    launches.update(band_launches)
+    phase("[dist], [spatial] and [tiled] world 1")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -3857,6 +4358,12 @@ def main() -> int:
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         ("mask tokens bf16", "dropout_tokens bf16, the composition's proj/MLP masks in a bf16 step",
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:365"),
+        # the banded forms of SpatialFuser (ops/window_pack_spmd.py): K1 on a band's windows
+        # with the row seam off below window row 0, K2 on [halo; band]
+        ("K1 band", "fused_block_fwd on a band of window rows (K1 band, shift code 2 below the map's first "
+         "window row)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:183"),
+        ("K2 halo", "repartition_fwd on a band with its neighbour's window row (K2 halo, the halo row's "
+         "output dropped)", f"{csrc}/repartition.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:329"),
     )
     times.update(bwd)
     times.update(drop_times)

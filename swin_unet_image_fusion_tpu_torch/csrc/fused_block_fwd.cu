@@ -399,9 +399,13 @@ size_t swin_k4_fwd_smem(int kind, int bf16_ops, int cross, int C, int inner, int
 // the weights fp32 as fused_block.cu's; 7x7 windows. fused: one launch, hc hidden columns
 // per MLP step (ln, av, y and hid unused, may be null); else hg heads per attention block and
 // hc hidden columns per fc1 block, with the scratch ln (S*B, H*W, C), av (S*B, windows, 49,
-// heads*d) and hid (S*B, H*W, hidden) in the operands' type and y (S*B, H*W, C) fp32. Returns
-// cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions the
-// kernels do not take.
+// heads*d) and hid (S*B, H*W, hidden) in the operands' type and y (S*B, H*W, C) fp32. `shift`:
+// 0 the normal partition, 1 the shifted one, 2 (windows layout only) the shifted windows of a
+// band of whole window rows that does not hold the map's first: the rolled-row seam (row
+// region "rolled row < 4") lies outside the band, so top = 0 and only the column seam is
+// masked (ops/window_pack_spmd.py). `top` enters nothing else in the windows layout
+// (window_fwd.cuh::window_rows). Returns cudaGetLastError() after the launches (0 = ok),
+// cudaErrorInvalidValue on dimensions the kernels do not take.
 int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq, const float* bq,
                 const float* wk, const float* bk, const float* wv, const float* bv, const float* wp,
                 const float* bp, const float* bias, const float* ln2g, const float* ln2b, const float* w1,
@@ -412,12 +416,13 @@ int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float
   const int inner = heads * d;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || (bf16_ops && !bf16_io) ||
       !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
-      (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)))
+      (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)) ||
+      shift < 0 || shift > 2 || (shift == 2 && !windows))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool dropping = drop != nullptr;
   const K4Args a = {x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
                     out, ln, av, y, hid, S, B, H, W, C, inner, heads, d, hidden, hg, hc,
-                    shift ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0, nullptr,
+                    shift == 1 ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0, nullptr,
                     dropping ? swin::block_drop(drop, H * W, B) : swin::BlockDrop{}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -222,15 +222,25 @@ class DualWindowAttention(nn.Module):
         if impl != "torch":
             raise ValueError(f"unknown attention impl {impl!r}; expected 'torch' or 'cuda'")
         s, b, h, w, _ = x.shape
-        wh, ww = self.window_size
-        t = wh * ww
-        heads, d = self.num_heads, self.dims_per_head
-
         if self.shift:
             x = cyclic_shift(x, self.window_size, reverse=False)
         xw = window_partition(x, self.window_size)  # (S, Bw, T, C)
+        mask = None
+        if self.shift:
+            mask = device_constant(shift_attention_mask, ((h, w), self.window_size), x.device)
+        out = window_unpartition(self.windows(xw, mask, drop), self.window_size, (h, w))
+        if self.shift:
+            out = cyclic_shift(out, self.window_size, reverse=True)
+        return token_dropout(out, drop, hd.SITE_PROJ, self.proj_drop_ratio)
+
+    def windows(self, xw: torch.Tensor, mask: Optional[torch.Tensor], drop: Drop = None) -> torch.Tensor:
+        """The composition's attention on partitioned windows ``xw`` (S, B * nWin, T, C), the
+        seams of a shifted partition masked by ``mask`` (nWin, T, T) (None: no mask), and
+        the projection; no projection dropout. The banded spatial path calls it on a band's
+        windows (``parallel/spatial.py``)."""
+        s, bw, t, _ = xw.shape
+        heads, d = self.num_heads, self.dims_per_head
         kvw = xw.flip(0) if self.cross else xw
-        bw = xw.shape[1]
 
         def split_heads(a):  # (S, Bw, T, inner) -> (S, Bw, heads, T, d)
             return a.reshape(s, bw, t, heads, d).transpose(2, 3)
@@ -242,19 +252,14 @@ class DualWindowAttention(nn.Module):
         scores = (q.float() @ k.float().transpose(-1, -2)) * d**-0.5
         bias = gather_relative_position_bias(self.rel_pos_bias_table, self.window_size)
         scores = scores + bias[:, None, None]
-        if self.shift:
-            mask = device_constant(shift_attention_mask, ((h, w), self.window_size), x.device)
+        if mask is not None:
             scores = apply_shift_mask(scores, mask)
         weights = torch.softmax(scores, dim=-1)
         if drop is not None and self.attention_drop_ratio:
             seed, key = drop
             weights = dm.attention_dropout(weights, seed, self.attention_drop_ratio, key)
         out = weights.to(v.dtype) @ v
-        out = self.proj(out.transpose(2, 3).reshape(s, bw, t, heads * d))
-        out = window_unpartition(out, self.window_size, (h, w))
-        if self.shift:
-            out = cyclic_shift(out, self.window_size, reverse=True)
-        return token_dropout(out, drop, hd.SITE_PROJ, self.proj_drop_ratio)
+        return self.proj(out.transpose(2, 3).reshape(s, bw, t, heads * d))
 
     def _kernel_forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         wq, bq = self.q.weights()
@@ -332,6 +337,24 @@ class BasicBlock(nn.Module):
         x = x + self.attn(self.norm1(x), impl, drop)
         return x + self.mlp(self.norm2(x), drop)
 
+    def windows(self, xw: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The composition's block (no dropout) on window-packed tokens ``xw`` (S, B, nWin,
+        T, C) in this block's geometry, the seams masked by ``mask`` (nWin, T, T) where the
+        block shifts (None where it does not)."""
+        s, b, n_win, t, c = xw.shape
+        attn = self.attn.windows(self.norm1(xw).reshape(s, b * n_win, t, c), mask)
+        xw = xw + attn.reshape(xw.shape)
+        return xw + self.mlp(self.norm2(xw))
+
+    def fused_weights(self) -> Tuple[torch.Tensor, ...]:
+        """The fused kernels' 17 weight arguments: LN1, q/k/v/proj kernels and biases, the
+        gathered relative-position bias, LN2, fc1 and fc2."""
+        attn = self.attn
+        weights = [t for layer in (attn.q, attn.k, attn.v, attn.proj) for t in layer.weights()]
+        bias = gather_relative_position_bias(attn.rel_pos_bias_table, attn.window_size)
+        return (self.norm1.scale, self.norm1.bias, *weights, bias.contiguous(), self.norm2.scale,
+                self.norm2.bias, *self.mlp.fc1.weights(), *self.mlp.fc2.weights())
+
     def fused(self, x: torch.Tensor, layout: str, hw: Tuple[int, int] | None = None,
               seed: Optional[int] = None) -> torch.Tensor:
         """The block through the fused kernel's wrapper (its plain version on a CPU
@@ -339,12 +362,8 @@ class BasicBlock(nn.Module):
         ``pack_windows`` tokens of an ``hw`` map in this block's geometry; with a
         ``seed``, the block's dropout in the kernel."""
         attn = self.attn
-        weights = [t for layer in (attn.q, attn.k, attn.v, attn.proj) for t in layer.weights()]
-        bias = gather_relative_position_bias(attn.rel_pos_bias_table, attn.window_size)
         return fused_block(
-            x.contiguous(), self.norm1.scale, self.norm1.bias, *weights, bias.contiguous(),
-            self.norm2.scale, self.norm2.bias, *self.mlp.fc1.weights(), *self.mlp.fc2.weights(),
-            window=attn.window_size, num_heads=attn.num_heads,
+            x.contiguous(), *self.fused_weights(), window=attn.window_size, num_heads=attn.num_heads,
             dims_per_head=attn.dims_per_head, shift=attn.shift, cross=attn.cross,
             layout=layout, hw=hw, activation=self.activation,
             drop_rates=self.drop_rates if seed is not None else (0.0, 0.0, 0.0), drop_seed=seed,
@@ -443,15 +462,34 @@ class BatchNorm(nn.Module):
     with the batch's over (B, H, W), the biased "fast" variance ``E[x^2] - E[x]^2``
     clipped at 0 (flax ``_compute_stats``, not torch's unbiased running variance), and
     updates the running statistics in place: ``new = BN_MOMENTUM * old + (1 -
-    BN_MOMENTUM) * batch``."""
+    BN_MOMENTUM) * batch``.
+
+    Across ranks (data-parallel training) the batch is the global one: with a process
+    group of more than one rank in ``group`` (set by the data-parallel step,
+    ``train.py::make_train_step``), ``[E[x], E[x^2]]`` is averaged over the ranks before
+    the variance is formed, as flax's ``pmean`` of the moments under ``axis_name``; the
+    average's backward averages the incoming gradients over the same ranks
+    (``parallel/mesh.py::AllReduceMean``). Ranks hold equal batches, so this is the
+    global batch's mean and biased variance. It is not ``nn.SyncBatchNorm``, which keeps
+    torch's unbiased running variance."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+
+    def sync_group(self):
+        """The process group the batch statistics are averaged over, None for this rank's
+        batch alone (no group, or a group of one rank)."""
+        import torch.distributed as dist
+
+        if self.group is None or not dist.is_initialized():
+            return None
+        return self.group if dist.get_world_size(self.group) > 1 else None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
@@ -460,7 +498,13 @@ class BatchNorm(nn.Module):
             # here too (one and the same tensor for an fp32 input)
             stats = x.float()
             mean = stats.mean(dim=(0, 2, 3))
-            var = torch.clamp((stats * stats).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean2 = (stats * stats).mean(dim=(0, 2, 3))
+            group = self.sync_group()
+            if group is not None:
+                from ..parallel.mesh import AllReduceMean
+
+                mean, mean2 = AllReduceMean.apply(torch.stack([mean, mean2]), group)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
                 self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)

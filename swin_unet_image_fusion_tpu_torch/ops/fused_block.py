@@ -186,11 +186,13 @@ def block_keying(layout: str, hw, window, shift: bool, num_heads: int, dims_per_
 
 def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
-                         dims_per_head, shift, cross, rnd, drop=None, kvw=None):
+                         dims_per_head, shift, cross, rnd, drop=None, kvw=None, mask=None):
     """The block on fp32 window-packed tokens; ``rnd`` is applied to every operand of a
     product that K4 rounds to bf16 (the identity for fp32 and for K1). ``drop``: None,
     or (rates, seed, keying) of the call's dropout. ``kvw``: the tokens k/v are made from
-    (stream-flipped under cross), ``xw`` by default."""
+    (stream-flipped under cross), ``xw`` by default. ``mask``: the (nWin, T, T) wrap-seam
+    mask of a shifted call, ``wrap_region_mask`` of ``hw`` by default (a band of a larger
+    map passes its windows' slice of the map's)."""
     s, b, n_win, t, c = xw.shape
     d = dims_per_head
     ln = rnd(_layer_norm(xw, ln1_scale, ln1_bias))
@@ -205,7 +207,8 @@ def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp
     v = heads(_dense(kv, rnd(wv), bv))
     scores = q @ k.transpose(-1, -2) + bias[:, None, None, None]
     if shift:
-        mask = device_constant(wrap_region_mask, (tuple(hw), tuple(window)), xw.device)
+        if mask is None:
+            mask = device_constant(wrap_region_mask, (tuple(hw), tuple(window)), xw.device)
         scores = scores.masked_fill(mask[:, None], -1e10)
     p = fast_softmax(scores)
     if drop is None:
@@ -772,6 +775,23 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
     hidden in the operands' dtype: bf16 where K4 rounds them, fp32 for fp32 and for K1, which
     never rounds them; y in fp32)."""
     global LAUNCHES, BF16_LAUNCHES, DROP_LAUNCHES, BF16_DROP_LAUNCHES
+    out = run_fwd(x, weights, kw, int(kw["shift"]))
+    drop = any(kw.get("drop_rates", (0.0, 0.0, 0.0)))
+    if drop and x.dtype == torch.bfloat16:
+        BF16_DROP_LAUNCHES += 1
+    elif drop:
+        DROP_LAUNCHES += 1
+    elif x.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def run_fwd(x, weights, kw, shift: int) -> torch.Tensor:
+    """:func:`_launch_fwd`'s launches without its count; ``shift`` is the source's code (0
+    normal, 1 shifted, 2 the shifted windows of a band below the map's first window row,
+    ``ops/window_pack_spmd.py``)."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     bf16 = x.dtype == torch.bfloat16
     ops = rounds_operands(x.dtype, kw["layout"])
@@ -790,19 +810,11 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
             x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
             *(None if a is None else a.data_ptr() for a in scratch), dl.drop_pointer(drop),
             s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
-            int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
+            int(plan.route == "fused"), shift, int(kw["cross"]),
             int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(lib, rc, "fused block")
-    if drop is not None and bf16:
-        BF16_DROP_LAUNCHES += 1
-    elif drop is not None:
-        DROP_LAUNCHES += 1
-    elif bf16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""High-resolution (2K/4K) tiled fusion on one device (port of the JAX
+"""High-resolution (2K/4K) tiled fusion on one device or over ranks (port of the JAX
 ``parallel/tiled.py``).
 
 The image pair is cut into overlapping tiles, the tiles are fused in batches, and the
@@ -22,6 +22,7 @@ from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..infer import fused_y, load_model
@@ -86,7 +87,7 @@ class _Plan:
 
 
 class TiledFuser:
-    """Fuse arbitrarily large pairs by batching fixed-size tiles on one device.
+    """Fuse arbitrarily large pairs by batching fixed-size tiles on one device or over ranks.
 
     ``model`` is a :class:`~.models.unet.SwinFusionUNet` or its ``ModelConfig``;
     ``variables`` are flax variables, flat or nested, as ``Fuser`` takes them
@@ -101,16 +102,27 @@ class TiledFuser:
     45 tiles fused instead of 64). ``return_uint8=True`` rounds the fused image to uint8 on
     the device before the copy back.
 
-    Multi-device tiling (the JAX ``mesh`` and ``data_axis`` arguments) is not ported.
+    Over ranks (the JAX ``mesh``): with a process ``group`` (``torch.distributed``, one
+    process a device) every rank is handed the whole pair, fuses its share of every chunk
+    (the chunk cut into equal shares, the last tile repeated to fill the last one), and the
+    fused tiles are all-gathered and cropped, so that every rank blends and returns the
+    whole image. ``max_batch`` must then divide by the group's size, as the JAX fuser
+    asserts. ``group=None`` is one device, as JAX's ``mesh=None``.
     """
 
     def __init__(self, model: Union[SwinFusionUNet, ModelConfig], variables: Mapping,
                  tile: int = 512, overlap: int = 64, max_batch: int = 0,
-                 return_uint8: bool = False, *, device: torch.device | str = "cuda"):
+                 return_uint8: bool = False, *, device: torch.device | str = "cuda",
+                 group=None):
         self.device = require_device(device, "TiledFuser")
         self.model = load_model(model, variables, self.device)
         self.tile = tile
         self.overlap = overlap
+        self.group = group
+        self.world = dist.get_world_size(group) if group is not None else 1
+        self.rank = dist.get_rank(group) if group is not None else 0
+        if max_batch % self.world:
+            raise ValueError(f"max_batch={max_batch} does not divide by the {self.world} ranks")
         self.max_batch = max_batch
         self.return_uint8 = return_uint8
         self._plans: Dict[Tuple[int, int], _Plan] = {}
@@ -137,8 +149,21 @@ class TiledFuser:
         with ``max_batch=0``)."""
         n = tiles_ir.shape[0]
         chunk = self.max_batch or n
-        return torch.cat([fused_y(self.model, tiles_ir[c0:c0 + chunk], tiles_vis[c0:c0 + chunk])
+        return torch.cat([self._fuse_chunk(tiles_ir[c0:c0 + chunk], tiles_vis[c0:c0 + chunk])
                           for c0 in range(0, n, chunk)])
+
+    def _fuse_chunk(self, ir: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
+        """One chunk's fused tiles: on one device one forward; over ranks this rank's share
+        (the chunk padded with its last tile to equal shares), all-gathered and cropped."""
+        if self.group is None:
+            return fused_y(self.model, ir, vis)
+        n = ir.shape[0]
+        share = -(-n // self.world)
+        pick = torch.arange(self.rank * share, (self.rank + 1) * share, device=ir.device).clamp_(max=n - 1)
+        mine = fused_y(self.model, ir[pick], vis[pick]).contiguous()
+        shares = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(shares, mine, group=self.group)
+        return torch.cat(shares)[:n]
 
     def blend(self, fused: torch.Tensor, plan: _Plan, h: int, w: int) -> torch.Tensor:
         """The weighted tiles added row-major into the (h, w, 1) image, one slice-add per

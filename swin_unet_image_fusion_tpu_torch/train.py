@@ -33,7 +33,13 @@ nothing.
 update is applied (clip, rate and Adam, ``updates`` advancing) until a finite step comes.
 The guard reads one flag from the device per step; without it the step reads nothing.
 
-:class:`Trainer` is the whole training workload on one device: the dataset
+With a process group the step is data-parallel (:func:`make_train_step`'s ``group``): each
+rank runs its share of the global batch, and every rank takes the update the global batch
+gives on one device. Dropout does not run data-parallel (:func:`check_data_parallel`).
+
+:class:`Trainer` is the whole training workload on one device, or on one device a process
+under ``torchrun --nproc_per_node=N -m swin_unet_image_fusion_tpu_torch.train`` (the JAX
+``Trainer``'s multi-host wiring): the dataset
 (``data/dataset.py``) split and batched with the JAX package's seeds and prefetched to the
 device, a state drawn by :func:`~.models.from_jax.init_variables`, the epoch loop with its
 print and validation cadence, loss meters, optional TensorBoard scalars and validation
@@ -53,6 +59,7 @@ from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config, config_from_cli
 from .data.dataset import BatchLoader, FusionPairDataset, device_prefetch, split_train_val
@@ -61,6 +68,8 @@ from .models import torch_import
 from .models.from_jax import flatten_variables, init_variables, variables_from_jax
 from .models.unet import SwinFusionUNet, fp32_accumulation
 from .optim import apply_if_finite, clip_by_global_norm_, cosine_warm_restarts_schedule, make_optimizer
+from .parallel.mesh import (average_, data_group_size, maybe_initialize_distributed,
+                            mean_over_ranks, process_local_shard, world_size)
 from .utils.device import require_device
 from .utils.meters import LossMeter
 from .utils.term import cyan, yellow
@@ -115,12 +124,35 @@ def dropout_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(np.random.SeedSequence((seed & 0xFFFFFFFF, step)).generate_state(1)[0]))
 
 
-def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+def check_data_parallel(cfg: Config) -> None:
+    """Raise for what data-parallel training does not run: dropout. The kernels' hash masks
+    are keyed on a token's place in the rank's own batch, so two ranks would draw the same
+    masks where the JAX step draws masks over the global batch (ROADMAP.md, Queue 1)."""
+    m = cfg.model
+    if m.attention_drop_ratio or m.linear_after_att_drop_ratio or m.mlp_drop_ratio:
+        raise NotImplementedError("data-parallel training with a nonzero dropout ratio is not "
+                                  "ported: the hash masks are keyed on the rank's local batch, "
+                                  "not the global one (ROADMAP.md, Queue 1)")
+
+
+def make_train_step(cfg: Config, group=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, ir, vis, seeds=None) -> terms``: one update of ``state`` in place on
     an (B, H, W, 1) pair. The gradients of the step stay in each parameter's ``.grad``.
     With dropout, ``seeds`` (a sequence of per-block seeds) replaces the step's generator
-    (:func:`dropout_generator`)."""
+    (:func:`dropout_generator`).
+
+    With a process ``group`` (``torch.distributed``), the data-parallel step, the
+    counterpart of both JAX steps (jitted over a batch-sharded global array, and
+    ``parallel/shard_map_dp.py``'s ``psum``s): each rank passes its share of the global
+    batch and runs its forward and backward with BatchNorm's moments averaged over the
+    group (``models/layers.py::BatchNorm``), then every gradient, the loss terms and the
+    BatchNorm running statistics are averaged over the group in one flattened all-reduce
+    (``parallel/mesh.py::average_``) before the guard, clip and Adam: every rank takes the
+    update the global batch gives on one device. The all-reduce follows the whole
+    backward, as JAX's ``psum``s follow its ``grad``."""
     loss_cfg, optim_cfg = cfg.loss, cfg.optim
+    if group is not None:
+        check_data_parallel(cfg)
 
     def step(state: TrainState, ir: torch.Tensor, vis: torch.Tensor,
              seeds: Optional[Iterable[int]] = None) -> Dict[str, torch.Tensor]:
@@ -129,18 +161,26 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
             seeds = dropout_generator(cfg.seed, state.step)
         with fp32_mode():
             opt.zero_grad(set_to_none=True)
+            if group is not None:
+                model.final_head.bn.group = group
             fusion = torch.clamp(model(ir, vis, train=True, seeds=seeds), 0.0, 1.0)
             total, terms = total_fusion_loss(loss_cfg, fusion, ir, vis)
             total.backward()
             grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if group is not None:
+                names = sorted(terms)
+                values = torch.stack([terms[n].detach().float() for n in names])
+                bn = model.final_head.bn
+                average_([*grads, values, bn.mean, bn.var], group)
+                terms = {n: values[i] for i, n in enumerate(names)}
             apply = True
             if optim_cfg.skip_nonfinite_updates:
                 apply, state.notfinite = apply_if_finite(grads, state.notfinite)
             if apply:
                 if optim_cfg.grad_clip_norm > 0.0:
                     clip_by_global_norm_(grads, optim_cfg.grad_clip_norm)
-                for group in opt.param_groups:
-                    group["lr"] = state.schedule(state.updates)
+                for param_group in opt.param_groups:
+                    param_group["lr"] = state.schedule(state.updates)
                 opt.step()
                 state.updates += 1
         state.step += 1
@@ -170,11 +210,20 @@ def get_time_str() -> str:
 
 
 class Trainer:
-    """The whole training workload on one device (the JAX ``Trainer``, the reference's
-    ``MyTraining``): ``start_train`` runs epochs ``current_epoch .. cfg.optim.epochs``,
-    each a pass over the shuffled training split with validation every
-    ``vali_interval_in_iters`` steps, and saves a checkpoint every
-    ``save_model_interval_in_epochs`` epochs.
+    """The whole training workload (the JAX ``Trainer``, the reference's ``MyTraining``):
+    ``start_train`` runs epochs ``current_epoch .. cfg.optim.epochs``, each a pass over the
+    shuffled training split with validation every ``vali_interval_in_iters`` steps, and
+    saves a checkpoint every ``save_model_interval_in_epochs`` epochs.
+
+    Under torchrun it first joins the process group (``parallel/mesh.py``), one GPU a
+    process (``cuda:LOCAL_RANK``), and trains data-parallel over it (``parallel.num_data``
+    0 or the world size; ``parallel.use_shard_map`` takes the same step): the batch size
+    is made a multiple of the world size, each process loads its shard of the index lists
+    (``process_local_shard``) in batches of ``batch_size // world`` with the loader seeds
+    ``seed + rank`` and ``seed + 1 + rank``, the logged terms are averaged over the ranks,
+    TensorBoard, messages and validation grids come from rank 0, which alone writes the
+    checkpoints (which any world size resumes) under a name
+    that rank 0 broadcasts, and every rank waits for the write.
 
     ``dataset`` defaults to a :class:`~.data.dataset.FusionPairDataset` of
     ``cfg.data.training_dataset_folder`` (decoding needs cv2). The loss terms of a step are
@@ -184,32 +233,53 @@ class Trainer:
     def __init__(self, cfg: Config, *, device: torch.device | str = "cuda",
                  dataset: Optional[FusionPairDataset] = None):
         self.device = require_device(device, "Trainer")
-        if cfg.parallel.num_data > 1 or cfg.parallel.use_shard_map:
-            raise NotImplementedError("data-parallel training (parallel.num_data > 1, "
-                                      "parallel.use_shard_map) is not ported yet (ROADMAP.md, "
-                                      "Queue 1, item 9)")
+        # under torchrun: join the process group first; each process drives its own GPU
+        self.rank = maybe_initialize_distributed(self.device)
+        if self.device.type == "cuda" and self.device.index is None and world_size() > 1:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        world = data_group_size(cfg.parallel.num_data)
+        self.world = world
+        self.group = dist.group.WORLD if world > 1 else None
+        if self.group is not None:
+            check_data_parallel(cfg)
+        self.is_main_process = self.rank == 0
         self.cfg = cfg
-        self.batch_size = cfg.optim.batch_size
+        batch_size = cfg.optim.batch_size
+        if world > 1 and batch_size % world:
+            adjusted = max(world, (batch_size // world) * world)
+            self._print(yellow(f"batch_size {batch_size} does not divide the {world}-process "
+                               f"data group; using {adjusted}"))
+            batch_size = adjusted
+        self.batch_size = batch_size
         if dataset is None:
             dataset = FusionPairDataset(is_test=False, dataset_folder=cfg.data.training_dataset_folder,
                                         cfg=cfg.data, seed=cfg.seed)
         self.dataset = dataset
         tr_idx, val_idx = split_train_val(len(dataset), cfg.optim.training_set_ratio, seed=cfg.seed)
-        self.train_loader = BatchLoader(dataset, tr_idx, self.batch_size, shuffle=True,
-                                        drop_last=cfg.optim.drop_last, seed=cfg.seed)
-        self.val_loader = BatchLoader(dataset, val_idx, self.batch_size, shuffle=True,
-                                      drop_last=cfg.optim.drop_last, seed=cfg.seed + 1)
+        # each process loads its shard of the index lists and its share of the global batch
+        local_batch = batch_size // world
+        if world > 1:
+            tr_idx, val_idx = process_local_shard(tr_idx), process_local_shard(val_idx)
+        self.train_loader = BatchLoader(dataset, tr_idx, local_batch, shuffle=True,
+                                        drop_last=cfg.optim.drop_last, seed=cfg.seed + self.rank)
+        self.val_loader = BatchLoader(dataset, val_idx, local_batch, shuffle=True,
+                                      drop_last=cfg.optim.drop_last, seed=cfg.seed + 1 + self.rank)
         self.iters_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(cfg, None, self.iters_per_epoch, device=self.device)
         self.schedule = self.state.schedule
-        self.train_step = make_train_step(cfg)
+        self.train_step = make_train_step(cfg, self.group)
         self.eval_step = make_eval_step(cfg)
         self.train_meter = LossMeter()
         self.val_meter = LossMeter()
         self.current_epoch = 1
         self.iter_in_epoch = 1
-        self.writer = self._make_writer()
+        self.writer = self._make_writer() if self.is_main_process else None
         self._pending_logs = []  # (step, the step's loss terms on the device)
+
+    def _print(self, message: str) -> None:
+        """Print on the main process only: the ranks' terms are averaged, the same on each."""
+        if self.is_main_process:
+            print(message)
 
     # ----------------------------------------------------------------- logging
     def _make_writer(self):
@@ -243,13 +313,14 @@ class Trainer:
     # ------------------------------------------------------------------ loops
     def start_train(self) -> None:
         cfg = self.cfg
-        print(cyan(f"Starting at epoch = {self.current_epoch}, "
-                   f"lr = {float(self.schedule(self.total_iters - 1)):.3e}, "
-                   f"iters per epoch = {self.iters_per_epoch}, device = {self.device}"))
+        self._print(cyan(f"Starting at epoch = {self.current_epoch}, "
+                         f"lr = {float(self.schedule(self.total_iters - 1)):.3e}, "
+                         f"iters per epoch = {self.iters_per_epoch}, device = {self.device}, "
+                         f"processes = {self.world}"))
         epochs = range(self.current_epoch, cfg.optim.epochs + 1)
         try:
             from tqdm import tqdm
-            epochs = tqdm(epochs, initial=1)
+            epochs = tqdm(epochs, initial=1, disable=not self.is_main_process)
         except ImportError:
             pass
         for epoch in epochs:
@@ -274,24 +345,26 @@ class Trainer:
             if step == 1 or step % cfg.log.print_training_info_in_iters == 0:
                 self._drain_logs(force=True)
                 means = self.train_meter.mean_and_clear()
-                print(f"Training: epoch={self.current_epoch} iter={i} total={step} loss={means}")
+                self._print(f"Training: epoch={self.current_epoch} iter={i} total={step} loss={means}")
             if step % cfg.log.vali_interval_in_iters == 0:
-                print(cyan("Starting validation ..."))
+                self._print(cyan("Starting validation ..."))
                 self.validate()
                 means = self.val_meter.mean_and_clear()
-                print(cyan(f"Vali: epoch={self.current_epoch} total={step} loss={means}"))
+                self._print(cyan(f"Vali: epoch={self.current_epoch} total={step} loss={means}"))
         self._drain_logs(force=True)
 
     def validate(self) -> None:
         if len(self.val_loader) == 0:
-            print(yellow("validation skipped: val split has no full batch "
-                         f"({len(self.val_loader.indices)} images, batch {self.batch_size}) — "
-                         "lower training_set_ratio or batch_size to validate"))
+            self._print(yellow("validation skipped: val split has no full batch "
+                               f"({len(self.val_loader.indices)} images, batch {self.batch_size}) — "
+                               "lower training_set_ratio or batch_size to validate"))
             return
         for i, batch in enumerate(device_prefetch(iter(self.val_loader), device=self.device), start=1):
             fusion, terms = self.eval_step(self.state, batch["ir"], batch["vis"])
+            if self.group is not None:
+                terms = mean_over_ranks(terms, self.group)
             self.val_meter.record({k: float(v) for k, v in terms.items()})
-            if i == 1:
+            if i == 1 and self.is_main_process:
                 self.save_vali_grid(*(t.cpu().numpy() for t in (batch["ir"], batch["vis"], fusion)))
 
     # ------------------------------------------------------------- artifacts
@@ -323,18 +396,31 @@ class Trainer:
         print(cyan(f"Validation results saved to '{path}'"))
 
     # ----------------------------------------------------------- checkpointing
+    def _synced_time_str(self) -> str:
+        """The timestamp of rank 0, broadcast: a minute boundary must not split the name."""
+        if self.group is None:
+            return get_time_str()
+        stamp = [get_time_str()]
+        dist.broadcast_object_list(stamp, src=0, group=self.group)
+        return stamp[0]
+
     def save_checkpoint(self) -> str:
         """One ``torch.save`` file ``{MM.DD.HH.MM}_epoch{N}`` under
         ``save_model_to_folder``: the model's state dict, Adam's, ``step``, ``updates``,
-        ``notfinite`` and ``epoch``. Returns its path."""
-        os.makedirs(self.cfg.log.save_model_to_folder, exist_ok=True)
-        name = f"{get_time_str()}_epoch{self.current_epoch}"
+        ``notfinite`` and ``epoch``. Returns its path. Across ranks every rank calls it:
+        they agree on the name, rank 0 writes the file (the model as on one device, so
+        that it resumes at any world size), and all wait for the write."""
+        name = f"{self._synced_time_str()}_epoch{self.current_epoch}"
         path = os.path.abspath(os.path.join(self.cfg.log.save_model_to_folder, name))
-        st = self.state
-        torch.save({"model": st.model.state_dict(), "optimizer": st.optimizer.state_dict(),
-                    "step": st.step, "updates": st.updates, "notfinite": st.notfinite,
-                    "epoch": self.current_epoch}, path)
-        print(yellow(f"State saved to '{path}'"))
+        if self.is_main_process:
+            os.makedirs(self.cfg.log.save_model_to_folder, exist_ok=True)
+            st = self.state
+            torch.save({"model": st.model.state_dict(), "optimizer": st.optimizer.state_dict(),
+                        "step": st.step, "updates": st.updates, "notfinite": st.notfinite,
+                        "epoch": self.current_epoch}, path)
+            print(yellow(f"State saved to '{path}'"))
+        if self.group is not None:
+            dist.barrier(group=self.group)
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -346,7 +432,7 @@ class Trainer:
         st.optimizer.load_state_dict(ckpt["optimizer"])
         st.step, st.updates, st.notfinite = (int(ckpt[k]) for k in ("step", "updates", "notfinite"))
         self.current_epoch = int(ckpt["epoch"]) + 1
-        print(cyan(f"State loaded from '{path}', resuming at epoch {self.current_epoch}"))
+        self._print(cyan(f"State loaded from '{path}', resuming at epoch {self.current_epoch}"))
 
     def load_torch_checkpoint(self, path: str) -> None:
         """Start from a reference ``.pth``: its weights and BatchNorm statistics, a fresh
@@ -355,7 +441,7 @@ class Trainer:
         self.state.model.load_state_dict(state_dict)
         self.state.optimizer = make_optimizer(self.state.model.parameters(), self.cfg.optim)
         self.current_epoch = epoch + 1
-        print(cyan(f"Torch state imported from '{path}'"))
+        self._print(cyan(f"Torch state imported from '{path}'"))
 
 
 def start_main(cfg: Optional[Config] = None, *, device: torch.device | str = "cuda") -> Trainer:
@@ -378,3 +464,5 @@ def start_main(cfg: Optional[Config] = None, *, device: torch.device | str = "cu
 
 if __name__ == "__main__":
     start_main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -53,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "import swin_unet_image_fusion_tpu_torch.models.torch_export\n"
         "import swin_unet_image_fusion_tpu_torch.metrics, swin_unet_image_fusion_tpu_torch.eval_metrics\n"
         "import swin_unet_image_fusion_tpu_torch.parallel.tiled, swin_unet_image_fusion_tpu_torch.utils.flops\n"
+        "import swin_unet_image_fusion_tpu_torch.parallel.mesh, swin_unet_image_fusion_tpu_torch.parallel.spatial\n"
+        "import swin_unet_image_fusion_tpu_torch.ops.window_pack_spmd\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -145,6 +147,19 @@ def test_repartition_never_runs_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="cpu or cuda"):
         twp.repartition_windows(torch.empty(2, 1, 4, 49, 8, device="meta"), (14, 14), (7, 7),
                                 False, True)
+
+
+def test_band_forms_never_run_the_plain_version_off_the_cpu():
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
+
+    x = torch.empty(2, 1, 2, 49, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        spmd.repartition_halo(x, torch.empty(2, 1, 2, 49, 8, device="meta"), (14, 14), (7, 7),
+                              False, True)
+    _, weights = _meta_block_args()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        spmd.fused_block_band(x, *weights, hw=(14, 14), row0=0, window=(7, 7), num_heads=2,
+                              dims_per_head=4, shift=True, cross=False)
 
 
 def test_dropout_masks_never_run_the_plain_version_off_the_cpu():

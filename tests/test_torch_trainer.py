@@ -12,7 +12,8 @@
   file's model.
 - ``start_main(cfg, device="cpu")`` from a ``.pth`` and from its own checkpoint, with the
   TensorBoard event file, the validation grid and the checkpoints it writes.
-- Data-parallel training is not ported: its options raise.
+- Outside a process group, ``num_data=2`` raises and ``use_shard_map`` takes the one-device step
+  (data-parallel training itself: ``tests/test_torch_dp.py``).
 
 About 60 s in one process, most of it the JAX trainer's compile.
 """
@@ -164,8 +165,16 @@ def test_start_main_from_a_pth_then_from_its_checkpoint(folder, pth, tmp_path):
 
 @pytest.mark.parametrize("parallel", [dict(num_data=2), dict(use_shard_map=True)])
 def test_data_parallel_training_is_not_ported_and_raises(parallel, tmp_path):
+    """Data-parallel training is ported (``tests/test_torch_dp.py`` holds it against JAX).
+    Outside a process group ``num_data=2`` asks for a width that one process cannot give and
+    raises; ``use_shard_map`` names the same data-parallel step, which outside a group is the
+    one-device step, as the JAX ``Trainer``'s is on a one-device mesh."""
     cfg = _config(tcfg, str(tmp_path), "unused", "auto")
     cfg = tcfg.Config(model=cfg.model, optim=cfg.optim, data=cfg.data, log=cfg.log,
                       parallel=tcfg.ParallelConfig(**parallel))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(cfg, device="cpu", dataset=ArrayPairDataset(PAIRS, (40, 44), cfg.data))
+    if parallel.get("num_data"):
+        with pytest.raises(ValueError, match="num_data=2"):
+            Trainer(cfg, device="cpu", dataset=ArrayPairDataset(PAIRS, (40, 44), cfg.data))
+        return
+    trainer = Trainer(cfg, device="cpu", dataset=ArrayPairDataset(PAIRS, (40, 44), cfg.data))
+    assert (trainer.world, trainer.group) == (1, None)
