@@ -87,7 +87,8 @@ in turns and traced beside it (``[dist] world 1``); the data-parallel step over
 a gloo group of two processes on the one card, rank 0's first step against the one-process step
 on the global batch (``[dist] world 2``); the K1 band and K2 halo forms (``ops/window_pack_spmd.py``)
 in 4 bands of every packed stage of a 1792x1792 request, fp32 and bf16, against the whole map's
-launches (bit-equal) and their plain versions, timed beside them, and ``SpatialFuser`` under
+launches (bit-equal) and their plain versions, timed beside them (K2 halo one kernel a call, in
+turns with its first form, concatenation, launch and copy, and index_select), and ``SpatialFuser`` under
 ``cuda_pack`` over the group of one at 1792x1792 with exact launches against ``fuse_y`` and the
 composition (``[spatial]``); ``TiledFuser`` over the group of one at 2048x2048 against no group
 (``[tiled] world 1``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
@@ -111,6 +112,7 @@ script starts itself.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import subprocess
@@ -308,6 +310,175 @@ def time_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fns, calls=200, rounds=5):
+    """Host microseconds a call of each of ``fns`` takes to return: ``rounds`` rounds in turns
+    of ``calls`` calls each with no sync between them (so few launches that the launch queue
+    never fills and the host never waits on the card), the median round; the card is
+    synchronised before and after each round, outside the clock."""
+    per = [[] for _ in fns]
+    for fn in fns:
+        for _ in range(20):
+            fn()
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per[i].append(1e6 * (time.perf_counter() - t) / calls)
+            torch.cuda.synchronize()
+    return [float(np.median(v)) for v in per]
+
+
+def queued_ms(fn, iters, warmup=3, cycles=4_000_000):
+    """Mean device ms of ``fn`` over ``iters`` back-to-back calls by CUDA events with the
+    launch queue filled ahead: a spin kernel (``torch.cuda._sleep``) holds the stream while
+    the host enqueues the calls, so the events time the calls' kernels back to back on the
+    card and not the host's launch rate. The spin is doubled until it outlasts the host's
+    enqueueing (checked on the host clock against the spin's own event time)."""
+    for _ in range(warmup):
+        fn()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(6):
+        torch.cuda.synchronize()
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        marks[2].record()
+        torch.cuda.synchronize()
+        if host_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        cycles *= 2
+    raise AssertionError(f"the spin kernel never outlasted the host's {iters} calls ({host_ms:.3f} ms)")
+
+
+def kernel_ms(call, runs=10, kernels=1):
+    """Mean device ms of one call of ``call`` that launches ``kernels`` device kernels, by
+    torch.profiler over ``runs`` calls; None unless a session recorded exactly ``runs *
+    kernels`` device events (a session now and then drops some: five tries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(events) == runs * kernels:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / runs
+    return None
+
+
+# CUgraphNodeType values of the driver API (cuda.h)
+_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph", 5: "empty",
+                     6: "event wait", 7: "event record"}
+
+
+def graph_operations(call):
+    """The type of every operation that one call of ``call`` puts on its stream (kernel,
+    memcpy, memset, ...), read from a CUDA graph captured from the call through the driver's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``: every launch and copy is a node of the
+    graph, so the count does not depend on the profiler."""
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    driver.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    rc = driver.cuGraphGetNodes(handle, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    rc = rc or driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    types = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        rc = rc or driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        types.append(_GRAPH_NODE_TYPES.get(kind.value, f"node type {kind.value}"))
+    if rc:
+        raise RuntimeError(f"reading a captured CUDA graph's nodes failed: CUresult {rc}")
+    del graph
+    return types
+
+
+def device_kernels(call, runs=3):
+    """The names of every device event (kernels, copies and sets) of one call of ``call``,
+    by torch.profiler over ``runs`` calls, or None where it recorded none or a share of
+    them (five tries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                call()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events and not len(events) % runs:
+            return [_kernel_name(e.name) for e in events[:len(events) // runs]]
+    return None
+
+
+def k2_launch_with_context(xw, hw, window, from_shift, to_shift):
+    """K2's launch as its wrapper made it before the host-path repair: the device context
+    entered and a ``torch.cuda.Stream`` made on every call (the same kernel and result)."""
+    from swin_unet_image_fusion_tpu_torch.ops import _build
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+
+    s, b, _, _, c = xw.shape
+    out = torch.empty_like(xw)
+    lib = twp._library()
+    with torch.cuda.device(xw.device):
+        rc = lib.swin_repartition_fwd(
+            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c * xw.element_size(), window[0],
+            window[1], int(from_shift), int(to_shift), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, rc, "repartition")
+    return out
+
+
+def token_mask_with_context(a, seed, site, rate, key):
+    """The token mask's launch as its wrapper made it before the host-path repair: the
+    dropout arguments built anew, the device context entered and a ``torch.cuda.Stream``
+    made on every call (the same kernel and result)."""
+    from swin_unet_image_fusion_tpu_torch.ops import _build
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+    from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
+
+    s, b, h, w, cols = a.shape
+    rates = [rate if x == site else 0.0 for x in hd.SITES]
+    args = dl.drop_args(key, rates, seed)
+    out = torch.empty_like(a)
+    lib = dm._library()
+    with torch.cuda.device(a.device):
+        rc = lib.swin_dropout_tokens(a.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
+                                     hd.SITES.index(site), s, b, h * w, cols,
+                                     int(a.dtype == BF16), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, rc, "token dropout mask")
+    return out
+
+
+def token_mask_first_form(a, seed, site, rate, key):
+    """The token mask through its kernel's first form (a thread an element, the row's unit
+    hashed again for every column; uncounted): the same result, kept for the timings in
+    turns."""
+    from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
+
+    return dm._token_launch(dm._library().swin_dropout_tokens_elementwise, a.contiguous(), seed, site,
+                            rate, key)
 
 
 def tag(dtype) -> str:
@@ -931,6 +1102,18 @@ def time_repartition(cfg, device, card):
                 totals[dt][key] += per_request * v
             request[dt].append((per_request, launch[dt],
                                 functools.partial(repartition_library, xw, perm)))
+    # the host path of one launch: the wrapper, its launcher with and without the device
+    # context and the Stream object made per call, and the library call
+    for dt, (k, h, w, c, from_shift, xw, perm) in zip(dtypes, (next(repartition_cases(cfg, device, dtype=dt))
+                                                          for dt in dtypes)):
+        args = ((h, w), WINDOW, from_shift, not from_shift)
+        wrapper, launch, old, library = host_us((
+            lambda: twp.repartition_windows(xw, *args), lambda: twp._launch(xw, *args),
+            lambda: k2_launch_with_context(xw, *args), lambda: repartition_library(xw, perm)))
+        print(f"[host] K2{tag(dt)} stage {k} {h}x{w} C={c}: {wrapper:.2f} us a call of "
+              f"repartition_windows, its launch {launch:.2f} us (with the device context and a "
+              f"Stream per call, as before: {old:.2f} us), index_select {library:.2f} us; medians of 5 "
+              f"rounds in turns of 200 calls each, no sync | {card}", flush=True)
     results = {}
     for dt in dtypes:
         name, t = f"K2{tag(dt)}", totals[dt]
@@ -1015,7 +1198,7 @@ KERNEL_FAMILIES = (  # (family, substrings of the device kernel's name), first m
      ("wgrad_rows_kernel", "::transposes)")),
     ("csrc GEMMs (q/k/v, proj, LN+fc1+ELU, fc2)", ("swin::gemm_kernel",)),
     ("csrc attention core", ("window_core_kernel",)),
-    ("csrc re-partition (K2)", ("repartition_kernel",)),
+    ("csrc re-partition (K2, and its halo form)", ("repartition_kernel", "repartition_halo_kernel")),
     ("csrc weight-gradient GEMMs (backward)", ("wgrad_kernel",)),
     ("csrc attention core backward", ("window_core_bwd_kernel",)),
     ("csrc LayerNorm fwd/bwd (backward)", ("ln_fwd_kernel", "ln_bwd_kernel")),
@@ -1456,10 +1639,12 @@ def check_k3_drop_trace(counts, label, card, bf16=False):
     expected = k3_drop_kernels(ModelConfig(), bf16)
     masks = {kernel: [sum(v[i] for name, v in counts.items() if kernel in name) for i in (0, 1)]
              for kernel in ("dropout_rows_kernel", "dropout_attn_kernel")}
+    bound = token_mask_step_bound(ModelConfig(), 2 if bf16 else 4)
     print(f"[trace]   train {label}: window_attention.cu forward and backward kernels {sum(old.values())}, K3 "
           f"forward kernels {k3} (the plan: {expected}); "
           + ", ".join(f"{kernel} {ms:.3f} ms in {n} launches" for kernel, (n, ms) in masks.items())
-          + f" | {card}", flush=True)
+          + f"; the token masks {masks['dropout_rows_kernel'][1] / bound:.2f}x their bound {bound:.4f} ms "
+          f"| {card}", flush=True)
     if old or k3 != expected:
         raise AssertionError(f"{label}: window_attention.cu's kernels ran: {old}; K3 forward kernels {k3}, "
                              f"the plan {expected}")
@@ -1550,6 +1735,60 @@ def _in_turns(nodrop, drop, iters, warmup, other=None):
     with, with, without); with ``other``, (without, with, other) in turns (without, with,
     other, other, with, without)."""
     return _turns((nodrop, drop) if other is None else (nodrop, drop, other), iters, warmup)
+
+
+def _queued_turns(fns, iters):
+    """Mean device ms of each launch in ``fns`` by :func:`queued_ms`, in turns: in order,
+    then in reverse."""
+    first = [queued_ms(fn, iters) for fn in fns]
+    second = [queued_ms(fn, iters) for fn in reversed(fns)][::-1]
+    return tuple((a + b) / 2 for a, b in zip(first, second))
+
+
+def _new_versus():
+    """The sums of a token-mask phase's comparisons with the kernel's first form."""
+    return dict(new_ms=0.0, old_ms=0.0, queued_ms=0.0, old_queued_ms=0.0, device_ms=0.0,
+                old_device_ms=0.0, read_bound_ms=0.0, unread=0, slower_queued=0, slower_device=0,
+                lost=[])
+
+
+def _versus(tally, what, weight, bound, new_ms, old_ms, queued, old_queued, dev, old_dev):
+    """Add a shape that a step launches ``weight`` times to ``tally``: its launch and the first
+    form's in turns by events, by events with the launch queue filled ahead, and by the
+    profiler's device time. A shape that the profiler did not read on either side stays out
+    of both device sums and of the bound they are held to. Shapes slower than the first form
+    are counted on each clock, and those slower by events listed."""
+    for key, v in (("new_ms", new_ms), ("old_ms", old_ms), ("queued_ms", queued),
+                   ("old_queued_ms", old_queued)):
+        tally[key] += weight * v
+    tally["slower_queued"] += queued > old_queued
+    read = dev is not None and old_dev is not None
+    if new_ms > old_ms:
+        tally["lost"].append(f"{what}: {new_ms:.4f} ms against {old_ms:.4f} by events; queue filled "
+                             f"{queued:.4f} against {old_queued:.4f}; device time "
+                             + (f"{dev:.4f} against {old_dev:.4f}" if read else "not read"))
+    if not read:
+        tally["unread"] += 1
+        return
+    tally["slower_device"] += dev > old_dev
+    for key, v in (("device_ms", dev), ("old_device_ms", old_dev), ("read_bound_ms", bound)):
+        tally[key] += weight * v
+
+
+def _versus_lines(name, tally, cases, card):
+    """Print a token-mask phase's per-step comparison with the kernel's first form."""
+    t = tally
+    ratio = t["device_ms"] / t["read_bound_ms"] if t["read_bound_ms"] else float("nan")
+    print(f"[time] {name} per step against the kernel's first form (a thread an element), in turns: "
+          f"{t['new_ms']:.3f} ms against {t['old_ms']:.3f} ms by events (the host's launch rate where a "
+          f"launch is shorter than its host path); {t['queued_ms']:.3f} against {t['old_queued_ms']:.3f} ms "
+          f"by events with the launch queue filled ahead; device time {t['device_ms']:.3f} against "
+          f"{t['old_device_ms']:.3f} ms (profiler) over the {cases - t['unread']} of {cases} shapes read on "
+          f"both sides, {ratio:.2f}x their bound {t['read_bound_ms']:.4f} ms; slower than the first form: "
+          f"{len(t['lost'])} of {cases} shapes by events, {t['slower_queued']} with the queue filled, "
+          f"{t['slower_device']} by device time | {card}", flush=True)
+    for line in t["lost"]:
+        print(f"[time] {name} slower by events than the first form at {line} | {card}", flush=True)
 
 
 def check_dropout_kernels(cfg, device, card):
@@ -1875,15 +2114,30 @@ def mask_bound_ms(elements, table_tokens, elem_bytes=4):
                   int_ops=HASH_OPS * elements)
 
 
+def token_mask_step_bound(cfg, elem_bytes=4):
+    """The bound of the token masks of a ``cuda`` dropout step at 224² batch 20: proj and MLP
+    out (8 launches a stage and keying) and each MLP hidden (2), forward and on the gradient."""
+    total = 0.0
+    for k, h, w, c, _, _ in stage_geometries(cfg, TRAIN_HW):
+        for cols, per_step in ((c, 8), *((hidden, 2) for _, hidden in mlp_hiddens(cfg, k))):
+            elements = 2 * TRAIN_BATCH * h * w * cols
+            total += 2 * 2 * per_step * mask_bound_ms(elements, h * w, elem_bytes)[0]  # both keyings
+    return total
+
+
 def check_mask_kernels(cfg, device, card):
     """The composition's dropout masks (csrc/dropout_mask.cu) against their plain versions
     at the shapes of the 224² batch-20 dropout step under cuda: every token site (proj and
     MLP out of C columns, the encoder's and the decoder's MLP hidden) of stages 0-4 and
     the attention weights of the stage-4 blocks, normal and shifted keyings, rates of
     DROP_CHECK_RATES; forward and on a gradient, bit for bit (both compute ``keep ? x *
-    scale : 0``), with the keep fraction of each site. Then each timed at the step's
-    ratios; per step a shape counts as often as the step launches it, twice (forward and
-    gradient). Returns the worst errors and the per-step times by kernel name."""
+    scale : 0``), with the keep fraction of each site; the token kernel's first form (a
+    thread an element, :func:`token_mask_first_form`) bit for bit too. Then each timed at
+    the step's ratios, the token kernel in turns with its first form by CUDA events, by CUDA
+    events with the launch queue filled ahead and by the profiler's device time, and its host
+    µs a call beside the host path it replaced; per
+    step a shape counts as often as the step launches it, twice (forward and gradient).
+    Returns the worst errors and the per-step times by kernel name."""
     from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
     from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
     from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
@@ -1913,7 +2167,7 @@ def check_mask_kernels(cfg, device, card):
             for cols, per_step in ((c, 8), *((hidden, 2) for _, hidden in mlp_hiddens(cfg, k)))]),
             ("mask attention", [(*geos[-1], shift, None, 4) for shift in (False, True)])):
         totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        by, kept = {}, {}
+        tally, by, kept = _new_versus(), {}, {}
         for k, h, w, c, heads, d, shift, cols, per_step in cases:
             key = dl.keying("k4", (h, w), WINDOW, shift, heads, d, device)
             gen = torch.Generator().manual_seed(SEED + 31 * k + cols if cols else SEED + k)
@@ -1939,16 +2193,41 @@ def check_mask_kernels(cfg, device, card):
                 kn = check(what, *fns(rate), x, g, rate)
                 sk, sn = kept.get(rate, (0, 0))
                 kept[rate] = (sk + kn[0], sn + kn[1])
+                if cols and not torch.equal(token_mask_first_form(x, DROP_SEED + k, site, rate, key),
+                                            fns(rate)[1](x)):
+                    raise AssertionError(f"{what} rate {rate}: the first form of the kernel differs")
             launch, plain = fns(DROP_RATIOS[0])
-            ms = time_ms(lambda: launch(x), iters=20)
-            plain_ms = time_ms(lambda: plain(x), iters=5)
             bound, bound_by = mask_bound_ms(x.numel(), h * w)
+            if cols:  # the wrapper; its launch in turns with the first form's by events, by events with
+                # the launch queue filled ahead, and by the profiler's device time
+                args = (x, DROP_SEED + k, site, DROP_RATIOS[0], key)
+                new, old = lambda: dm._launch_tokens(*args), lambda: token_mask_first_form(*args)
+                ms, new_ms, old_ms = _turns((lambda: launch(x), new, old), 20, 3)
+                queued, old_queued = _queued_turns((new, old), 20)
+                dev, old_dev = kernel_ms(new), kernel_ms(old)
+                _versus(tally, f"stage {k} cols={cols} shift={shift}", 2 * per_step, bound, new_ms, old_ms,
+                        queued, old_queued, dev, old_dev)
+                versus = (f" (the wrapper); its launch {new_ms:.4f} ms against the first form's {old_ms:.4f} ms in "
+                          f"turns, {queued:.4f} against {old_queued:.4f} ms with the launch queue filled ahead; "
+                          f"device time {'not read' if dev is None else f'{dev:.4f} ms'} against "
+                          f"{'not read' if old_dev is None else f'{old_dev:.4f} ms'} (profiler)")
+            else:
+                ms, versus = time_ms(lambda: launch(x), iters=20), ""
+            plain_ms = time_ms(lambda: plain(x), iters=5)
             print(f"[time] {name} stage {k} {h}x{w}x{TRAIN_BATCH} {tuple(shape[2:])} shift={shift}: "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+                  f"{ms:.4f} ms{versus}, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
                   f"{2 * per_step} launches per step | {card}", flush=True)
             for key_, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
                 totals[key_] += 2 * per_step * v
             by[bound_by] = by.get(bound_by, 0.0) + 2 * per_step * bound
+            if cols and k == len(geos) - 1 and cols == c and shift:  # the host path at the smallest map
+                args = (DROP_SEED + k, site, DROP_RATIOS[0], key)
+                us = host_us((lambda: dm.token_dropout(x, *args), lambda: dm._launch_tokens(x, *args),
+                              lambda: token_mask_with_context(x, *args)))
+                print(f"[host] mask tokens stage {k} {tuple(shape)}: {us[0]:.2f} us a call of token_dropout, its "
+                      f"launch {us[1]:.2f} us (the arguments built anew, the device context and a Stream per call, "
+                      f"as before: {us[2]:.2f} us); medians of 5 rounds in turns of 200 calls each, no sync "
+                      f"| {card}", flush=True)
             del x, g
         for rate, (k_, n_) in kept.items():
             print(f"[check] {name} rate {rate}: keep fraction {k_ / n_:.6f} of {n_} (expected "
@@ -1959,6 +2238,8 @@ def check_mask_kernels(cfg, device, card):
         print(f"[time] {name} per 224x224 batch-20 dropout step under {MASK_MAIN_PATH} ({n} "
               f"launches): {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
               f"{totals['bound_ms']:.4f} ms | {card}", flush=True)
+        if name == "mask tokens":
+            _versus_lines(name, tally, len(cases), card)
         results[name] = dict(totals, bound_by=max(by, key=by.get), library_ms=None)
         worst[name] = 0.0
         torch.cuda.empty_cache()
@@ -2440,14 +2721,17 @@ def check_bf16_masks(cfg, device, card):
     """The composition's mask kernels on bf16 tensors against their plain versions, forward
     and on a gradient, bit for bit, at the token sites of the 224² batch-20 bf16 dropout
     step under cuda (and the attention weights' bf16 form, which no bf16 step takes: the
-    composition's softmax is fp32), with the elements kept equal to the fp32 masks'; the
-    token masks timed in turns with their fp32 form."""
+    composition's softmax is fp32), with the elements kept equal to the fp32 masks' and the
+    first form's (a thread an element); the token masks timed in turns with their fp32 form
+    and their first form, by CUDA events with the launch queue filled ahead, and by the
+    profiler's device time beside the first form's."""
     from swin_unet_image_fusion_tpu_torch.ops import dropout_layout as dl
     from swin_unet_image_fusion_tpu_torch.ops import dropout_mask as dm
     from swin_unet_image_fusion_tpu_torch.ops import hash_dropout as hd
 
     geos = stage_geometries(cfg, TRAIN_HW)
     totals, by, cases = _new_totals(), {}, 0
+    tally = _new_versus()
     for k, h, w, c, heads, d in geos:
         for shift in (False, True):
             key = dl.keying("k4", (h, w), WINDOW, shift, heads, d, device)
@@ -2468,22 +2752,33 @@ def check_bf16_masks(cfg, device, card):
                     ref = plain(xr)
                     (ref_g,) = torch.autograd.grad(ref, xr, g)
                     fp32 = fn(x.float())
+                    first = token_mask_first_form(x, DROP_SEED + k, site, rate, key)
                     same = (out.dtype == BF16 and torch.equal(out, ref) and torch.equal(got, ref_g)
-                            and torch.equal(out, fp32.to(BF16)))
+                            and torch.equal(out, fp32.to(BF16)) and torch.equal(first, ref))
                     if not same:
                         raise AssertionError(f"[mask tokens bf16] stage {k} cols={cols} shift={shift} "
                                              f"rate {rate}: differs from its plain version or the fp32 mask")
                 fn = functools.partial(dm._launch_tokens, seed=DROP_SEED + k, site=site,
                                        rate=DROP_RATIOS[1], key=key)
+                old = functools.partial(token_mask_first_form, seed=DROP_SEED + k, site=site,
+                                        rate=DROP_RATIOS[1], key=key)
                 x32 = x.float()
-                fp32_ms, ms = _in_turns(lambda: fn(x32), lambda: fn(x), 20, 3)
+                fp32_ms, ms, old_ms = _in_turns(lambda: fn(x32), lambda: fn(x), 20, 3, other=lambda: old(x))
+                queued, old_queued = _queued_turns((lambda: fn(x), lambda: old(x)), 20)
+                dev, old_dev = kernel_ms(lambda: fn(x)), kernel_ms(lambda: old(x))
                 plain_ms = time_ms(lambda: dm.token_dropout_plain(x, DROP_SEED + k, site, DROP_RATIOS[1],
                                                                   key), iters=3)
                 bound, bound_by = mask_bound_ms(x.numel(), h * w, elem_bytes=2)
+                _versus(tally, f"stage {k} cols={cols} shift={shift}", 2 * per_step, bound, ms, old_ms, queued,
+                        old_queued, dev, old_dev)
                 print(f"[time] mask tokens bf16 stage {k} {h}x{w}x{TRAIN_BATCH} cols={cols} "
-                      f"shift={shift}: bit-exact, {ms:.4f} ms, fp32 {fp32_ms:.4f} ms (in turns), plain "
-                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), {2 * per_step} launches "
-                      f"per step | {card}", flush=True)
+                      f"shift={shift}: bit-exact, {ms:.4f} ms, fp32 {fp32_ms:.4f} ms and the first form "
+                      f"{old_ms:.4f} ms (in turns); with the launch queue filled ahead {queued:.4f} ms against "
+                      f"the first form's {old_queued:.4f} ms; device time "
+                      f"{'not read' if dev is None else f'{dev:.4f} ms'} against the first form's "
+                      f"{'not read' if old_dev is None else f'{old_dev:.4f} ms'} (profiler); plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), {2 * per_step} launches per step "
+                      f"| {card}", flush=True)
                 _add(totals, by, ms, plain_ms, bound, bound_by, fp32_ms, 2 * per_step)
                 del x, g
         torch.cuda.empty_cache()
@@ -2500,6 +2795,7 @@ def check_bf16_masks(cfg, device, card):
     print(f"[check] mask tokens bf16: bit-exact against its plain version, forward and gradient, "
           f"keeping the fp32 mask's elements, in {cases} shapes x rates {DROP_CHECK_RATES}; the "
           f"attention weights' bf16 form bit-exact at stage 4", flush=True)
+    _versus_lines("mask tokens bf16", tally, cases, card)
     results = {}
     _summary("mask tokens bf16", totals, by, 2 * TRAIN_DROP_MASKS["cuda"]["mask tokens"], card, results)
     return {"mask tokens bf16": 0.0}, results
@@ -3904,6 +4200,28 @@ def _band_cases(cfg, device, dtype):
                 yield k, h, w, c, heads, d, hidden, shift, cross, xw, weights
 
 
+def halo_cat_form(part, halo, hw, window, from_shift, to_shift):
+    """K2's halo form as it was first built: the band concatenated with the halo row, K2
+    launched on that (n + 1)-row map, the halo row's output dropped by a copy (three passes
+    and launches); kept for the timings in turns."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
+
+    side = spmd.halo_side(from_shift, to_shift)
+    rows, w = spmd.band_hw(part, hw, window)
+    ext = spmd._extended(part, halo, side, w // window[1])
+    out = twp._launch(ext, (rows + window[0], w), window, from_shift, to_shift)
+    return spmd._drop_halo(out, w // window[1], side)
+
+
+def halo_bound_ms(n_rows, w, c, dtype):
+    """Least time for one K2 halo launch on a band of ``n_rows`` window rows of a map ``w``
+    wide (both streams): each output token copies one source token (of the band or of the
+    halo row), read once and written once, so the band's n rows are read and written."""
+    return repartition_bound_ms(n_rows * WINDOW[0], w, c, dtype=dtype)[0]
+
+
+
 def check_band_forms(cfg, device, card):
     """``[spatial]``: for SPATIAL_BANDS bands of each packed stage map of a SPATIAL_HW
     request, fp32 and bf16, the K1 band form (every shift/cross block) and the K2 halo form
@@ -3911,7 +4229,12 @@ def check_band_forms(cfg, device, card):
     against their plain versions; each band's time beside its plain version, the bound and,
     for K2, index_select's. The ms of a band are summed over a rank's launches of one
     request (each block twice, encoder and decoder side; each re-partition direction four
-    times a stage)."""
+    times a stage). K2 halo: one launch a call by its counter and one operation on the stream,
+    a kernel (no concatenation or copy: :func:`graph_operations`), the kernels' names by the
+    profiler where it reads them, timed in turns with its first form
+    (:func:`halo_cat_form`) and index_select on the extended map, by CUDA events and with the
+    launch queue filled ahead, its device time by the profiler (a case it does not read
+    stays out of the sum and of the bound held to it) and its host µs a call."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.ops import window_pack as twp
     from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
@@ -3955,6 +4278,9 @@ def check_band_forms(cfg, device, card):
                     for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
                         t1[key] += 2 * v
             del whole
+        t2.update(cat_ms=0.0, device_ms=0.0, read_bound_ms=0.0, queued_ms=0.0, cat_queued_ms=0.0,
+                  library_queued_ms=0.0)
+        unread = cases = 0
         for k, h, w, c, from_shift, xw, perm in repartition_cases(cfg, device, SPATIAL_HW, dtype=dtype):
             whole = twp.repartition_windows(xw, (h, w), WINDOW, from_shift, not from_shift)
             nh, nw = h // WINDOW[0], w // WINDOW[1]
@@ -3966,7 +4292,8 @@ def check_band_forms(cfg, device, card):
                 out = spmd.repartition_halo(part, halo, *args)
                 torch.cuda.synchronize()
                 ref = spmd.repartition_halo_plain(part, halo, *args)
-                if not (torch.equal(out, whole[:, :, lo * nw:hi * nw]) and torch.equal(out, ref)):
+                if not (torch.equal(out, whole[:, :, lo * nw:hi * nw]) and torch.equal(out, ref)
+                        and torch.equal(halo_cat_form(part, halo, *args), ref)):
                     raise AssertionError(f"K2 halo{tag(dtype)} stage {k} band {r} shift {from_shift}: not bit-equal")
                 if r == 1:
                     ext = spmd._extended(part, halo, side, nw)
@@ -3974,20 +4301,60 @@ def check_band_forms(cfg, device, card):
                     ids = torch.arange(rows * w, dtype=torch.float32, device=device).reshape(1, 1, -1, T, 1)
                     eperm = twp.repartition_windows_plain(ids, (rows, w), WINDOW, from_shift,
                                                           not from_shift).reshape(-1).long()
-                    ms = time_ms(lambda: spmd.repartition_halo(part, halo, *args), 50)
+                    call = functools.partial(spmd.repartition_halo, part, halo, *args)
+                    cat_form = functools.partial(halo_cat_form, part, halo, *args)
+                    before = spmd.HALO_LAUNCHES + spmd.BF16_HALO_LAUNCHES
+                    call()
+                    counted = spmd.HALO_LAUNCHES + spmd.BF16_HALO_LAUNCHES - before
+                    operations, cat_operations = graph_operations(call), graph_operations(cat_form)
+                    if counted != 1 or operations != ["kernel"]:
+                        raise AssertionError(f"K2 halo{tag(dtype)} stage {k}: a call counted {counted} launches and "
+                                             f"put {operations} on its stream, not one kernel")
+                    kernels, cat_kernels = device_kernels(call), device_kernels(cat_form)
+                    library_call = functools.partial(repartition_library, ext, eperm)
+                    ms, cat_ms, library = _turns((call, cat_form, library_call), 50, 3)
+                    queued = _queued_turns((call, cat_form, library_call), 20)
                     full = time_ms(lambda: twp.repartition_windows(xw, (h, w), WINDOW, from_shift,
                                                                    not from_shift), 50)
                     plain = time_ms(lambda: spmd.repartition_halo_plain(part, halo, *args), 10)
-                    library = time_ms(lambda: repartition_library(ext, eperm), 50)
-                    bound, _ = repartition_bound_ms(rows, w, c, dtype=dtype)
+                    dev = kernel_ms(call, 20)
+                    bound = halo_bound_ms(hi - lo, w, c, dtype)
                     print(f"[time] K2 halo{tag(dtype)} stage {k} {h}x{w} C={c} shift {from_shift} -> "
                           f"{not from_shift}, band {r} of {SPATIAL_BANDS} ({hi - lo} window rows and the halo row): "
-                          f"{ms:.4f} ms (the concatenation with the halo included), the whole map {full:.4f} ms "
-                          f"({ms / full:.3f} of it), plain {plain:.4f} ms, index_select on the extended map "
-                          f"{library:.4f} ms, bound {bound:.4f} ms (bytes) | {card}", flush=True)
-                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library)):
+                          f"{ms:.4f} ms, the concatenation form in turns {cat_ms:.4f} ms, index_select on the "
+                          f"extended map in turns {library:.4f} ms; the whole map {full:.4f} ms ({ms / full:.3f} of "
+                          f"it), plain {plain:.4f} ms; with the launch queue filled ahead {queued[0]:.4f} ms, the "
+                          f"concatenation form {queued[1]:.4f} ms, index_select {queued[2]:.4f} ms; device time "
+                          f"{'not read' if dev is None else f'{dev:.4f} ms'} (profiler), bound {bound:.4f} ms "
+                          f"(bytes); a call's operations (a captured CUDA graph's nodes) {operations}, the "
+                          f"concatenation form's {cat_operations}; their kernels by the profiler (None: not read) "
+                          f"{kernels} and {cat_kernels} | {card}", flush=True)
+                    cases += 1
+                    unread += dev is None
+                    for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", library),
+                                   ("cat_ms", cat_ms), ("queued_ms", queued[0]), ("cat_queued_ms", queued[1]),
+                                   ("library_queued_ms", queued[2])):
                         t2[key] += 4 * v
+                    if dev is not None:  # an unread case stays out of the device sum and of its bound
+                        t2["device_ms"] += 4 * dev
+                        t2["read_bound_ms"] += 4 * bound
+                    if k == 0 and from_shift:
+                        us = host_us((call, cat_form, lambda: repartition_library(ext, eperm)))
+                        print(f"[host] K2 halo{tag(dtype)} stage {k}: {us[0]:.2f} us a call of repartition_halo, the "
+                              f"concatenation form {us[1]:.2f} us, index_select {us[2]:.2f} us; medians of 5 rounds in "
+                              f"turns of 200 calls each, no sync | {card}", flush=True)
             del whole
+        share = t2["read_bound_ms"] / t2["device_ms"] if t2["device_ms"] else float("nan")
+        print(f"[time] K2 halo{tag(dtype)} a rank's 32 launches of a {SPATIAL_HW[0]}x{SPATIAL_HW[1]} request in "
+              f"{SPATIAL_BANDS} bands: {t2['ms']:.4f} ms by events, the concatenation form in turns "
+              f"{t2['cat_ms']:.4f} ms, index_select {t2['library_ms']:.4f} ms; with the launch queue filled ahead "
+              f"{t2['queued_ms']:.4f} ms, {t2['cat_queued_ms']:.4f} ms and {t2['library_queued_ms']:.4f} ms; bound "
+              f"{t2['bound_ms']:.4f} ms ({t2['bound_ms'] / t2['ms']:.1%} of the time by events, "
+              f"{t2['bound_ms'] / t2['queued_ms']:.1%} with the queue filled); device time {t2['device_ms']:.4f} ms "
+              f"(profiler) over the {cases - unread} of {cases} cases read, {share:.1%} of their bound "
+              f"{t2['read_bound_ms']:.4f} ms | {card}", flush=True)
+        for key in ("cat_ms", "device_ms", "read_bound_ms", "queued_ms", "cat_queued_ms", "library_queued_ms"):
+            del t2[key]
         print(f"[check] K1 band{tag(dtype)} and K2 halo{tag(dtype)}: every band of {SPATIAL_BANDS} at every packed "
               f"stage of {SPATIAL_HW[0]}x{SPATIAL_HW[1]} bit-equal to the whole map's launch; K1 band against its "
               f"plain version max_abs_err {worst[k1]:.3e}, K2 halo bit-exact", flush=True)
@@ -4324,8 +4691,8 @@ def main() -> int:
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         # the composition's masks, where the JAX package applies flax's nn.Dropout outside
         # Pallas; launches forward and on the gradient
-        ("mask tokens", "dropout_tokens, the composition's proj/MLP masks", f"{csrc}/dropout_mask.cu",
-         "swin_unet_image_fusion_tpu/models/layers.py:365"),
+        ("mask tokens", "dropout_tokens, the composition's proj/MLP masks (a group of threads a token row, "
+         "16-byte vectors)", f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:365"),
         ("mask attention", "dropout_attention, the composition's attention-weight masks",
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:248"),
         # bf16 training: the bf16 backward forms (fp32 inside, as the JAX bodies upcast) and
@@ -4362,8 +4729,9 @@ def main() -> int:
         # with the row seam off below window row 0, K2 on [halo; band]
         ("K1 band", "fused_block_fwd on a band of window rows (K1 band, shift code 2 below the map's first "
          "window row)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:183"),
-        ("K2 halo", "repartition_fwd on a band with its neighbour's window row (K2 halo, the halo row's "
-         "output dropped)", f"{csrc}/repartition.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:329"),
+        ("K2 halo", "repartition_halo_fwd on a band with its neighbour's window row (K2 halo: one launch over "
+         "the band's rows, the halo row read in place)", f"{csrc}/repartition.cu",
+         "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:329"),
     )
     times.update(bwd)
     times.update(drop_times)

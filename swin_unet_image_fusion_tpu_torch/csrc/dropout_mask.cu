@@ -9,6 +9,9 @@
 // (ops/dropout_layout.py's masks on int64 tensors) takes some 25 elementwise launches:
 //   dropout_rows_kernel  (window_core.cuh) a token site on (S, B*H*W, cols) rows in image
 //                        order: the projection's output, the MLP hidden and the MLP output;
+//                        a group of threads a token row, its unit hash once, the columns in
+//                        16-byte vectors (swin_dropout_tokens_elementwise keeps the first
+//                        form, a thread an element, for the timings in turns alone);
 //   dropout_attn_kernel  the attention weights (S, B*nWin, heads, T, T) of the composition's
 //                        windows, whose tokens' (unit, slot) a (nWin, T) table gives.
 // out = keep ? in * scale : 0, with scale = float32(1 / (1 - rate)): the plain version's
@@ -73,6 +76,24 @@ int swin_dropout_tokens(const void* in, void* out, const DropArgs* drop, int sit
   else
     launch_dropout_rows(static_cast<const float*>(in), static_cast<float*>(out), d, B * hw, cols,
                         S, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// swin_dropout_tokens with the first form of the kernel (a thread an element): the same
+// result, for chip_smoke.py's timings in turns; no call of the model launches it.
+int swin_dropout_tokens_elementwise(const void* in, void* out, const DropArgs* drop, int site,
+                                    int S, int B, int hw, int cols, int bf16_io, void* stream) {
+  if (site <= kSiteAttn || site >= kNumSites || !drop_on(drop, site))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(B) * hw * cols == 0) return 0;
+  const DropSite d = drop_site(drop, site, hw, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_io)
+    launch_dropout_rows_elementwise(static_cast<const bf16*>(in), static_cast<bf16*>(out), d,
+                                    B * hw, cols, S, st);
+  else
+    launch_dropout_rows_elementwise(static_cast<const float*>(in), static_cast<float*>(out), d,
+                                    B * hw, cols, S, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,8 @@
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
 //                       without max subtraction, multiply by 1/(sum + 1e-30)), and AV;
 //   dropout_rows_kernel the hash-dropout mask of a token site applied to (S, M, N) rows,
-//                       fp32 or bf16 in and out.
+//                       fp32 or bf16 in and out: a group of threads a token row, its unit
+//                       hash once, the columns in 16-byte vectors.
 //
 // Dropout (kDrop, a template flag of the GEMM and of the core, so that a launch without
 // dropout compiles to the code it had before): the masks of hash_dropout.cuh. The GEMM's
@@ -231,11 +232,160 @@ void launch_gemm_site(const GemmBatchT<TA, TR, TC>& p, int M, int N, int K, int 
 // ---- the mask of a token site on (S, M, N) rows, z = stream; `out` may be `in` -------
 // TI, TO: the element types of in and out (float or bf16); a kept element is in * scale
 // in fp32, rounded once on the store.
+//
+// dropout_rows_kernel: a group of `group` threads (a power of two <= 32, the fewest that
+// span a row's vectors) takes a token row: its image, table entry, slot and unit hash once,
+// then the columns in vectors of V elements (16 bytes of the wider type, 4 fp32 or 8 bf16,
+// where the row and both pointers allow; else 8 bytes; else V = 1), each element's keep bit
+// from the row's unit hash and its intra offset. A group holds kDropRows rows at once (their
+// loads all issued before any store, so `out` may be `in`) and strides over the S*M rows of
+// every stream; the grid fills the SMs.
 constexpr int kDropThreads = 256;
+constexpr int kDropRows = 4;
+
+// V elements of E as 32-bit words (V * sizeof(E) = 16 or 8 bytes), or one element (V = 1).
+template <typename E, int V>
+struct DropChunk {
+  static constexpr int kWords = V * static_cast<int>(sizeof(E)) / 4;
+  unsigned w[kWords];
+  __device__ __forceinline__ void load(const E* p) {
+    static_assert(kWords == 4 || kWords == 2 || kWords == 1, "16-, 8- or 4-byte vectors");
+    if constexpr (kWords == 4) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else if constexpr (kWords == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+  }
+  __device__ __forceinline__ void store(E* p) const {
+    if constexpr (kWords == 4)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (kWords == 2)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<unsigned*>(p) = w[0];
+  }
+  __device__ __forceinline__ float get(int j) const {
+    if constexpr (sizeof(E) == 4) return __uint_as_float(w[j]);
+    const unsigned v = w[j >> 1];  // element 2k in the low half (little-endian)
+    return __uint_as_float(j & 1 ? v & 0xffff0000u : v << 16);
+  }
+  __device__ __forceinline__ void set(const float* y) {
+    if constexpr (sizeof(E) == 4) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) w[j] = __float_as_uint(y[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        w[k] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * k]))) |
+               static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(y[2 * k + 1]))) << 16;
+    }
+  }
+};
+
+template <typename E>
+struct DropChunk<E, 1> {
+  E e;
+  __device__ __forceinline__ void load(const E* p) { e = *p; }
+  __device__ __forceinline__ void store(E* p) const { *p = e; }
+  __device__ __forceinline__ float get(int) const { return to_float(e); }
+  __device__ __forceinline__ void set(const float* y) { e = from_float<E>(y[0]); }
+};
+
+template <typename TI, typename TO, int V>
+__global__ void __launch_bounds__(kDropThreads)
+    dropout_rows_kernel(const TI* in, TO* out, DropSite d, int M, int N, int S, int group) {
+  const int lane = threadIdx.x & (group - 1);
+  const int groups = gridDim.x * (kDropThreads / group);
+  const int rows = S * M, vecs = N / V;
+  const uint32_t step = d.pairs ? static_cast<uint32_t>(kPackLanes) : 1u;  // intra per column
+  for (int r0 = (blockIdx.x * kDropThreads + threadIdx.x) / group; r0 < rows;
+       r0 += kDropRows * groups) {
+    uint32_t ph[kDropRows], intra0[kDropRows];
+    size_t at[kDropRows];
+    bool live[kDropRows];
+#pragma unroll
+    for (int i = 0; i < kDropRows; ++i) {
+      live[i] = r0 + i * groups < rows;
+      const int r = live[i] ? r0 + i * groups : r0;
+      const int s = r / M, gr = r - s * M, b = gr / d.hw;
+      int slot;
+      ph[i] = token_hash(d, s * d.B + b, gr - b * d.hw, &slot);
+      intra0[i] = token_intra(d, slot, 0, N);  // column c adds c * step
+      at[i] = static_cast<size_t>(r) * N;
+    }
+    for (int v = lane; v < vecs; v += group) {
+      const int c0 = v * V;
+      DropChunk<TI, V> x[kDropRows];
+#pragma unroll
+      for (int i = 0; i < kDropRows; ++i)
+        if (live[i]) x[i].load(in + at[i] + c0);
+#pragma unroll
+      for (int i = 0; i < kDropRows; ++i) {
+        if (!live[i]) continue;
+        float y[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          y[j] = hash_keep(ph[i], intra0[i] + static_cast<uint32_t>(c0 + j) * step, d.threshold)
+                     ? x[i].get(j) * d.scale : 0.0f;
+        DropChunk<TO, V> o;
+        o.set(y);
+        o.store(out + at[i] + c0);
+      }
+    }
+  }
+}
+
+// The SMs of the current card, read once a card.
+inline int drop_sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && counts[dev] > 0) return counts[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0) n = 132;
+  if (dev >= 0 && dev < 64) counts[dev] = n;
+  return n;
+}
+
+template <typename TI, typename TO, int V>
+void launch_dropout_rows_v(const TI* in, TO* out, const DropSite& d, int M, int N, int S,
+                           cudaStream_t st) {
+  const int vecs = N / V;
+  int group = 1;
+  while (group < vecs && group < 32) group *= 2;
+  const long long sets = (static_cast<long long>(S) * M + kDropRows - 1) / kDropRows;
+  const long long want = (sets * group + kDropThreads - 1) / kDropThreads;
+  const int blocks = static_cast<int>(want < 8LL * drop_sm_count() ? want : 8LL * drop_sm_count());
+  dropout_rows_kernel<TI, TO, V><<<blocks, kDropThreads, 0, st>>>(in, out, d, M, N, S, group);
+}
 
 template <typename TI, typename TO>
+void launch_dropout_rows(const TI* in, TO* out, const DropSite& d, int M, int N, int S,
+                         cudaStream_t st) {
+  if (static_cast<long long>(S) * M * N == 0) return;
+  constexpr int kWide = sizeof(TI) > sizeof(TO) ? sizeof(TI) : sizeof(TO);
+  constexpr int V = 16 / kWide;  // 16 bytes of the wider type; else 8 bytes; else one element
+  const auto fits = [&](int v) {
+    return N % v == 0 && reinterpret_cast<size_t>(in) % (v * sizeof(TI)) == 0 &&
+           reinterpret_cast<size_t>(out) % (v * sizeof(TO)) == 0;
+  };
+  if (fits(V))
+    launch_dropout_rows_v<TI, TO, V>(in, out, d, M, N, S, st);
+  else if (fits(V / 2))
+    launch_dropout_rows_v<TI, TO, V / 2>(in, out, d, M, N, S, st);
+  else
+    launch_dropout_rows_v<TI, TO, 1>(in, out, d, M, N, S, st);
+}
+
+// The first form: a thread an element, its row's unit hash hashed again for every
+// column. Kept only for chip_smoke.py's timings in turns; no call of the model runs it.
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(kDropThreads)
-    dropout_rows_kernel(const TI* in, TO* out, DropSite d, int M, int N) {
+    dropout_rows_elementwise_kernel(const TI* in, TO* out, DropSite d, int M, int N) {
   const size_t per_stream = static_cast<size_t>(M) * N;
   const size_t i = static_cast<size_t>(blockIdx.x) * kDropThreads + threadIdx.x;
   if (i >= per_stream) return;
@@ -250,11 +400,11 @@ __global__ void __launch_bounds__(kDropThreads)
 }
 
 template <typename TI, typename TO>
-void launch_dropout_rows(const TI* in, TO* out, const DropSite& d, int M, int N, int S,
-                         cudaStream_t st) {
+void launch_dropout_rows_elementwise(const TI* in, TO* out, const DropSite& d, int M, int N,
+                                     int S, cudaStream_t st) {
   const size_t n = static_cast<size_t>(M) * N;
   const dim3 grid(static_cast<unsigned>((n + kDropThreads - 1) / kDropThreads), S);
-  dropout_rows_kernel<TI, TO><<<grid, kDropThreads, 0, st>>>(in, out, d, M, N);
+  dropout_rows_elementwise_kernel<TI, TO><<<grid, kDropThreads, 0, st>>>(in, out, d, M, N);
 }
 
 // The q/k/v GEMM of S streams as one batch, z = s*3 + part: q (times `scale`) from stream

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -96,6 +98,18 @@ def load(name: str) -> ctypes.CDLL:
             lib.swin_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+def launch_on(device: torch.device, launcher, *args) -> int:
+    """``launcher(*args, stream)``, a C launcher called with ``device``'s card current and the
+    raw handle of its current stream last. The ``torch.cuda.device`` context is entered only
+    when another card is current: entering and leaving it, and the ``torch.cuda.Stream``
+    object of the stream, cost microseconds on every call."""
+    index = device.index
+    if index is not None and index == torch.cuda.current_device():
+        return launcher(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(device):
+        return launcher(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

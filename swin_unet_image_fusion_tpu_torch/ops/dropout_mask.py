@@ -6,7 +6,10 @@ the projection's output and the MLP's hidden and output under ``cuda``, every si
 blocks gated to the composition), its dropout masks come from the TPU kernels' hash keyed
 on K4's geometry (``ops/dropout_layout.py``, ``"k4"``). The plain versions build each mask
 from int64 tensors (``dl.token_keep``, ``dl.attention_keep``), some 25 elementwise
-launches per masked tensor; on a card one launch of ``csrc/dropout_mask.cu`` applies it:
+launches per masked tensor; on a card one launch of ``csrc/dropout_mask.cu`` applies it
+(the token sites' kernel takes a token row to a group of threads, hashes the row's unit
+once and moves 16-byte vectors; a call copies its site's cached arguments and sets only
+the seed's hash base):
 
 - :func:`token_dropout`: a token site on (S, B, H, W, cols) in image order;
 - :func:`attention_dropout`: the attention weights (S, B*nWin, heads, T, T) of the
@@ -72,13 +75,47 @@ def _library() -> ctypes.CDLL:
     lib.swin_dropout_tokens.restype = _I
     lib.swin_dropout_attention.argtypes = [_P, _P, drop, _P] + [_I] * 6 + [_P]
     lib.swin_dropout_attention.restype = _I
+    lib.swin_dropout_tokens_elementwise.argtypes = lib.swin_dropout_tokens.argtypes
+    lib.swin_dropout_tokens_elementwise.restype = _I
     return lib
 
 
+# (site, rate and the keying's fields) -> the arguments of that one site at seed 0: a call
+# copies them and sets the seed's hash base, instead of building them anew (some 10 µs)
+_TEMPLATES = {}
+
+
+@functools.lru_cache(maxsize=4096)
+def _site_base(seed: int, site: int) -> int:
+    return hd.site_base(seed, site)
+
+
 def _site_args(key: dl.Keying, site: int, rate: float, seed: int) -> dl.DropArgs:
-    rates = [0.0] * len(hd.SITES)
-    rates[hd.SITES.index(site)] = rate
-    return dl.drop_args(key, rates, seed)
+    """``dl.drop_args`` with ``rate`` at ``site`` and every other site off, bit for bit."""
+    index = hd.SITES.index(site)
+    at = (site, rate, key.table.data_ptr(), key.table.device, key.units, key.pairs, key.attn_mode,
+          key.t_pad)
+    template = _TEMPLATES.get(at)
+    if template is None:
+        rates = [0.0] * len(hd.SITES)
+        rates[index] = rate
+        template = _TEMPLATES[at] = dl.drop_args(key, rates, 0)
+    args = dl.DropArgs.from_buffer_copy(template)
+    args.base[index] = _site_base(seed, site)
+    return args
+
+
+def _token_launch(launcher, a: torch.Tensor, seed: int, site: int, rate: float,
+                  key: dl.Keying) -> torch.Tensor:
+    """``a`` contiguous through ``launcher`` (``swin_dropout_tokens``, or its first form
+    ``swin_dropout_tokens_elementwise``, which only ``chip_smoke.py``'s timings in turns call)."""
+    s, b, h, w, cols = a.shape
+    args = _site_args(key, site, rate, seed)
+    out = torch.empty_like(a)
+    rc = _build.launch_on(a.device, launcher, a.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
+                          hd.SITES.index(site), s, b, h * w, cols, int(a.dtype == torch.bfloat16))
+    _build.check_launch(_library(), rc, "token dropout mask")
+    return out
 
 
 def _launch_tokens(a: torch.Tensor, seed: int, site: int, rate: float, key: dl.Keying,
@@ -86,15 +123,7 @@ def _launch_tokens(a: torch.Tensor, seed: int, site: int, rate: float, key: dl.K
     global TOKEN_LAUNCHES, TOKEN_BWD_LAUNCHES, BF16_TOKEN_LAUNCHES, BF16_TOKEN_BWD_LAUNCHES
     a = a.contiguous()
     bf16 = a.dtype == torch.bfloat16
-    s, b, h, w, cols = a.shape
-    args = _site_args(key, site, rate, seed)
-    out = torch.empty_like(a)
-    lib = _library()
-    with torch.cuda.device(a.device):
-        rc = lib.swin_dropout_tokens(a.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
-                                     hd.SITES.index(site), s, b, h * w, cols, int(bf16),
-                                     torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(lib, rc, "token dropout mask")
+    out = _token_launch(_library().swin_dropout_tokens, a, seed, site, rate, key)
     if backward and bf16:
         BF16_TOKEN_BWD_LAUNCHES += 1
     elif backward:
@@ -116,11 +145,9 @@ def _launch_attention(weights: torch.Tensor, seed: int, rate: float, key: dl.Key
     args = _site_args(key, hd.SITE_ATTN, rate, seed)
     out = torch.empty_like(weights)
     lib = _library()
-    with torch.cuda.device(weights.device):
-        rc = lib.swin_dropout_attention(weights.data_ptr(), out.data_ptr(), dl.drop_pointer(args),
-                                        windows.data_ptr(), s, bw // windows.shape[0],
-                                        windows.shape[0], t, heads, int(bf16),
-                                        torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch_on(weights.device, lib.swin_dropout_attention, weights.data_ptr(),
+                          out.data_ptr(), dl.drop_pointer(args), windows.data_ptr(), s,
+                          bw // windows.shape[0], windows.shape[0], t, heads, int(bf16))
     _build.check_launch(lib, rc, "attention dropout mask")
     if backward and bf16:
         BF16_ATTN_BWD_LAUNCHES += 1

@@ -805,15 +805,14 @@ def run_fwd(x, weights, kw, shift: int) -> torch.Tensor:
         mid = torch.bfloat16 if ops else torch.float32
         scratch = [x.new_empty(tokens * c, dtype=mid), x.new_empty(tokens * heads * d, dtype=mid),
                    x.new_empty(tokens * c, dtype=torch.float32), x.new_empty(tokens * hidden, dtype=mid)]
-    with torch.cuda.device(x.device):
-        rc = lib.swin_k4_fwd(
-            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(None if a is None else a.data_ptr() for a in scratch), dl.drop_pointer(drop),
-            s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
-            int(plan.route == "fused"), shift, int(kw["cross"]),
-            int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_k4_fwd,
+        x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+        *(None if a is None else a.data_ptr() for a in scratch), dl.drop_pointer(drop),
+        s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
+        int(plan.route == "fused"), shift, int(kw["cross"]),
+        int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "fused block")
     return out
 
@@ -838,14 +837,13 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
     scratch = [x.new_empty(s, tokens, inner, dtype=f32) for _ in range(3)]
     scratch += [x.new_empty(s, tokens, inner, dtype=mid), x.new_empty(s, tokens, hidden, dtype=mid),
                 x.new_empty(s, tokens, c, dtype=f32) if bf16 else out]
-    with torch.cuda.device(x.device):
-        rc = lib.swin_fused_block_fwd(
-            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(a.data_ptr() for a in scratch), dl.drop_pointer(drop),
-            s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
-            int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_fused_block_fwd,
+        x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+        *(a.data_ptr() for a in scratch), dl.drop_pointer(drop),
+        s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
+        int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "fused block")
     return out
 
@@ -897,12 +895,12 @@ def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
     workspace = x.new_empty(floats, dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_block_bwd(
-            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
-            plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
-            int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_block_bwd,
+        ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
+        plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
+        int(x.dtype == torch.bfloat16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
 
@@ -921,13 +919,13 @@ def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
     workspace = x.new_empty(floats, dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_block_bwd_split(
-            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
-            plan.hidden_chunk,
-            *plan.heads_per_block, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
-            int(x.dtype == torch.bfloat16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_block_bwd_split,
+        ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
+        plan.hidden_chunk,
+        *plan.heads_per_block, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
+        int(x.dtype == torch.bfloat16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
 
@@ -948,12 +946,11 @@ def _launch_bwd_five(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
         *dims, dl.drop_pointer(drop), int(bf16), int(kw["cross"])), dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_fused_block_bwd(
-            ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
-            int(kw["cross"]), int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_fused_block_bwd,
+        ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
+        int(kw["cross"]), int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
 

@@ -628,13 +628,13 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
     lib = _fwd_library()
     out = torch.empty_like(x)
     av = None if plan.route == "fused" else x.new_empty(s * b * h * w * heads * d)
-    with torch.cuda.device(x.device):
-        rc = lib.swin_k3_fwd(
-            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            None if av is None else av.data_ptr(), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
-            plan.heads_per_block, int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
-            int(bf16), float(d**-0.5), torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_k3_fwd,
+        x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+        None if av is None else av.data_ptr(), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
+        plan.heads_per_block, int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
+        int(bf16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "window attention")
     if drop is not None and bf16:
         BF16_DROP_LAUNCHES += 1
@@ -660,13 +660,12 @@ def _launch_three(x, weights, kw) -> torch.Tensor:
     # and read once by the kernels
     scratch = [x.new_empty(s, b, h, w, heads * d, dtype=torch.float32) for _ in range(3)]
     scratch.append(x.new_empty(s, b, h, w, heads * d))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_window_attention_fwd(
-            x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
-            *(a.data_ptr() for a in scratch), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
-            wh, ww, int(kw["shift"]), int(kw["cross"]), int(bf16), float(d**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_window_attention_fwd,
+        x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
+        *(a.data_ptr() for a in scratch), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
+        wh, ww, int(kw["shift"]), int(kw["cross"]), int(bf16), float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "window attention")
     return out
 
@@ -693,12 +692,12 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     workspace = x.new_empty(floats, dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_k3_bwd(
-            ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d,
-            plan.heads_per_block, int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16),
-            float(d**-0.5), torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_k3_bwd,
+        ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d,
+        plan.heads_per_block, int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16),
+        float(d**-0.5),
+    )
     _build.check_launch(lib, rc, "window attention backward")
     if drop is not None and bf16:
         BF16_DROP_BWD_LAUNCHES += 1
@@ -726,12 +725,11 @@ def _launch_bwd_three(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
                             dtype=torch.float32)
     ins = (_P * (len(weights) + 2))(*(a.data_ptr() for a in (x, *weights, g)))
     outs = (_P * len(grads))(*(a.data_ptr() for a in grads))
-    with torch.cuda.device(x.device):
-        rc = lib.swin_window_attention_bwd(
-            ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
-            int(kw["cross"]), int(bf16), float(kw["dims_per_head"]**-0.5),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _build.launch_on(
+        x.device, lib.swin_window_attention_bwd,
+        ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
+        int(kw["cross"]), int(bf16), float(kw["dims_per_head"]**-0.5),
+    )
     _build.check_launch(lib, rc, "window attention backward")
     return tuple(grads)
 

@@ -83,12 +83,19 @@ def unpack_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int
     return x
 
 
-def _check_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int]) -> None:
+@functools.lru_cache(maxsize=1024)
+def _check_shape(shape: Tuple[int, ...], hw: Tuple[int, int], window: Tuple[int, int]) -> None:
+    """Raises unless ``shape`` is that of the windows of an ``hw`` map (cached: the wrapper
+    checks every call, and its host time is most of a launch's)."""
     _check_map(hw, window)
     n_win = (hw[0] // window[0]) * (hw[1] // window[1])
-    if xw.ndim != 5 or xw.shape[2:4] != (n_win, window[0] * window[1]):
+    if len(shape) != 5 or shape[2:4] != (n_win, window[0] * window[1]):
         raise ValueError(f"windows of a {hw[0]}x{hw[1]} map are (S, B, {n_win}, "
-                         f"{window[0] * window[1]}, C), got {tuple(xw.shape)}")
+                         f"{window[0] * window[1]}, C), got {tuple(shape)}")
+
+
+def _check_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int]) -> None:
+    _check_shape(xw.shape, tuple(hw), tuple(window))
 
 
 def repartition_windows_plain(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int],
@@ -103,6 +110,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("repartition")
     lib.swin_repartition_fwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.swin_repartition_fwd.restype = ctypes.c_int
+    lib.swin_repartition_halo_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.swin_repartition_halo_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -110,11 +119,9 @@ def _launch(xw: torch.Tensor, hw, window, from_shift: bool, to_shift: bool) -> t
     s, b, _, _, c = xw.shape
     out = torch.empty_like(xw)
     lib = _library()
-    with torch.cuda.device(xw.device):
-        rc = lib.swin_repartition_fwd(
-            xw.data_ptr(), out.data_ptr(), s * b, hw[0], hw[1], c * xw.element_size(),
-            window[0], window[1], int(from_shift), int(to_shift),
-            torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch_on(xw.device, lib.swin_repartition_fwd, xw.data_ptr(), out.data_ptr(), s * b,
+                          hw[0], hw[1], c * xw.element_size(), window[0], window[1], int(from_shift),
+                          int(to_shift))
     _build.check_launch(lib, rc, "repartition")
     return out
 
@@ -163,9 +170,10 @@ def repartition_windows(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int
     On a CUDA tensor ``xw`` must be contiguous float32 or bfloat16; anything else raises.
     When autograd records the call, its backward is the kernel's inverse permutation.
     """
-    if xw.device.type == "cpu":
+    kind = xw.device.type
+    if kind == "cpu":
         return repartition_windows_plain(xw, hw, window, from_shift, to_shift)
-    if xw.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"repartition_windows runs on cpu or cuda tensors, not {xw.device}")
     _check_windows(xw, hw, window)
     if xw.dtype not in ACT_DTYPES or not xw.is_contiguous():

@@ -16,10 +16,12 @@ calls the kernels on its band:
 - **K2 halo** (:func:`repartition_halo`): normal -> shifted needs the previous band's last
   window row, shifted -> normal the next band's first (the roll wraps around the whole
   map, so the neighbours form a ring; ``parallel/spatial.py`` exchanges the row). The
-  unchanged ``csrc/repartition.cu`` runs on the ``[halo; band]`` (or ``[band; halo]``) map
-  of n + 1 window rows, and the halo row's output is dropped: the kept rows read the halo
-  linearly, so the kernel's own wrap touches only the dropped row (the trick of
-  ``pallas_pack_spmd.py:329-367``).
+  result is the band's rows of the re-partition of the ``[halo; band]`` (or ``[band;
+  halo]``) map of n + 1 window rows: the kept rows read the halo linearly, so the map's own
+  wrap touches only the halo row's output, which is dropped (the trick of
+  ``pallas_pack_spmd.py:329-367``). The plain version builds that map and drops the row;
+  on a card ``csrc/repartition.cu``'s halo form is one launch over the band's n rows of
+  output, reading each source token from the halo or from the band in place.
 
 Both are forward-only, as in JAX (the spatial fuser serves), and take fp32 or bf16 tokens
 (K1 computes in fp32 inside, bf16 only its I/O; K2 is a permutation). On the CPU each runs
@@ -29,11 +31,13 @@ its plain version; on a card the kernel, counted in ``BAND_LAUNCHES`` / ``HALO_L
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from . import _build
 from . import fused_block as fb
 from . import window_pack as wp
 from .window import device_constant
@@ -45,14 +49,19 @@ HALO_LAUNCHES = 0
 BF16_HALO_LAUNCHES = 0
 
 
+@functools.lru_cache(maxsize=1024)
+def _band_shape(shape: Tuple[int, ...], hw: Tuple[int, int], window: Tuple[int, int]) -> Tuple[int, int]:
+    nw = hw[1] // window[1]
+    if len(shape) != 5 or shape[3] != window[0] * window[1] or shape[2] % nw:
+        raise ValueError(f"a band of a map {hw[1]} wide is (S, B, k * {nw}, "
+                         f"{window[0] * window[1]}, C) windows, got {tuple(shape)}")
+    return shape[2] // nw * window[0], hw[1]
+
+
 def band_hw(xw: torch.Tensor, hw: Tuple[int, int], window: Tuple[int, int]) -> Tuple[int, int]:
     """The (rows, W) of the band whose windows ``xw`` (S, B, nWin, T, C) holds, for a map
-    ``hw`` W wide; raises unless it holds whole window rows of it."""
-    nw = hw[1] // window[1]
-    if xw.ndim != 5 or xw.shape[3] != window[0] * window[1] or xw.shape[2] % nw:
-        raise ValueError(f"a band of a map {hw[1]} wide is (S, B, k * {nw}, "
-                         f"{window[0] * window[1]}, C) windows, got {tuple(xw.shape)}")
-    return xw.shape[2] // nw * window[0], hw[1]
+    ``hw`` W wide; raises unless it holds whole window rows of it (cached by shape)."""
+    return _band_shape(xw.shape, tuple(hw), tuple(window))
 
 
 def band_mask(hw: Tuple[int, int], window: Tuple[int, int], row0: int, rows: int) -> np.ndarray:
@@ -123,10 +132,14 @@ def halo_side(from_shift: bool, to_shift: bool) -> int:
     return -1 if to_shift else 1
 
 
-def _extended(xw: torch.Tensor, halo: torch.Tensor, side: int, nw: int) -> torch.Tensor:
+def _check_halo(xw: torch.Tensor, halo: torch.Tensor, nw: int) -> None:
     if halo.shape != (*xw.shape[:2], nw, *xw.shape[3:]):
         raise ValueError(f"the halo is one window row {(*xw.shape[:2], nw, *xw.shape[3:])}, "
                          f"got {tuple(halo.shape)}")
+
+
+def _extended(xw: torch.Tensor, halo: torch.Tensor, side: int, nw: int) -> torch.Tensor:
+    _check_halo(xw, halo, nw)
     return torch.cat([halo, xw] if side < 0 else [xw, halo], dim=2).contiguous()
 
 
@@ -148,25 +161,35 @@ def repartition_halo_plain(xw: torch.Tensor, halo: torch.Tensor, hw: Tuple[int, 
 
 def repartition_halo(xw: torch.Tensor, halo: torch.Tensor, hw: Tuple[int, int],
                      window: Tuple[int, int], from_shift: bool, to_shift: bool) -> torch.Tensor:
-    """K2 on a band with its halo row: the plain version on the CPU, ``csrc/repartition.cu``
-    on the ``[halo; band]`` / ``[band; halo]`` map on a card (contiguous fp32 or bf16 tokens).
-    Arguments as :func:`repartition_halo_plain`. Forward-only."""
+    """K2 on a band with its halo row: the plain version on the CPU, one launch of
+    ``csrc/repartition.cu``'s halo form on a card (the band and the halo contiguous fp32 or
+    bf16 tokens on one device). Arguments as :func:`repartition_halo_plain`. Forward-only."""
     global HALO_LAUNCHES, BF16_HALO_LAUNCHES
-    if xw.device.type == "cpu":
+    device = xw.device
+    if device.type == "cpu":
         return repartition_halo_plain(xw, halo, hw, window, from_shift, to_shift)
-    if xw.device.type != "cuda":
-        raise ValueError(f"repartition_halo runs on cpu or cuda tensors, not {xw.device}")
+    if device.type != "cuda":
+        raise ValueError(f"repartition_halo runs on cpu or cuda tensors, not {device}")
     if recorded(xw, halo):
         raise ValueError("the K2 halo form is forward-only; call it without autograd recording")
     if xw.dtype not in ACT_DTYPES or halo.dtype != xw.dtype:
         raise ValueError(f"the band and its halo must be float32 or bfloat16 alike, got "
                          f"{xw.dtype} and {halo.dtype}")
+    if halo.device != device or not (xw.is_contiguous() and halo.is_contiguous()):
+        raise ValueError(f"the band and its halo must be contiguous on one device, got {device} "
+                         f"and {halo.device}")
     side = halo_side(from_shift, to_shift)
     rows, w = band_hw(xw, hw, window)
-    ext = _extended(xw, halo, side, w // window[1])
-    out = wp._launch(ext, (rows + window[0], w), window, from_shift, to_shift)
+    _check_halo(xw, halo, w // window[1])
+    s, b, _, _, c = xw.shape
+    out = torch.empty_like(xw)
+    lib = wp._library()
+    rc = _build.launch_on(device, lib.swin_repartition_halo_fwd, xw.data_ptr(), halo.data_ptr(),
+                          out.data_ptr(), s * b, rows, w, c * xw.element_size(), window[0], window[1],
+                          int(from_shift), int(to_shift), side)
+    _build.check_launch(lib, rc, "repartition halo")
     if xw.dtype == torch.bfloat16:
         BF16_HALO_LAUNCHES += 1
     else:
         HALO_LAUNCHES += 1
-    return _drop_halo(out, w // window[1], side)
+    return out

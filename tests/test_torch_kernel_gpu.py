@@ -1179,3 +1179,62 @@ def test_k3_backward_plan_agrees_with_the_kernels_on_card():
                 blocks = plan.blocks(2, 20, h, w, heads, sms)
                 assert lib.swin_k3_bwd_workspace(2, 20, h, w, c, heads, d, hg, fused, blocks, int(cross)) == \
                     twa.bwd_workspace_floats(2, 20, h, w, c, heads, d, plan, blocks, cross)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("from_shift", [False, True], ids=["to_shifted", "to_normal"])
+def test_k2_halo_form_matches_the_whole_map_on_card(dtype, from_shift):
+    """K2's halo form (one launch of ``swin_repartition_halo_fwd`` a band, the halo row read in
+    place) against the plain form and the whole map's launch, bit for bit, at 2 and 3 bands of
+    a 63x35 map (an uneven last band) with 16-, 4- and 2-byte pieces (C = 8 and 3)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_pack_spmd as spmd
+    from swin_unet_image_fusion_tpu_torch.parallel.spatial import split_rows
+
+    _need_card()
+    hw, (nh, nw) = (63, 35), (9, 5)
+    for c in (8, 3):
+        x = torch.randn(2, 2, nh * nw, 49, c, generator=torch.Generator().manual_seed(c)).to("cuda", dtype)
+        whole = twp.repartition_windows(x, hw, (7, 7), from_shift, not from_shift)
+        side = spmd.halo_side(from_shift, not from_shift)
+        for bands in (2, 3):
+            for lo, hi in split_rows(nh, bands):
+                row = (lo - 1) % nh if side < 0 else hi % nh
+                part, halo = x[:, :, lo * nw:hi * nw].contiguous(), x[:, :, row * nw:(row + 1) * nw].contiguous()
+                before = spmd.BF16_HALO_LAUNCHES if dtype == BF16 else spmd.HALO_LAUNCHES
+                out = spmd.repartition_halo(part, halo, hw, (7, 7), from_shift, not from_shift)
+                after = spmd.BF16_HALO_LAUNCHES if dtype == BF16 else spmd.HALO_LAUNCHES
+                assert after == before + 1
+                assert torch.equal(out, whole[:, :, lo * nw:hi * nw])
+                assert torch.equal(out, spmd.repartition_halo_plain(part, halo, hw, (7, 7), from_shift,
+                                                                    not from_shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+def test_token_mask_forms_match_plain_on_card(dtype):
+    """The token mask kernel in each of its vector widths (16 bytes, 8 bytes and one element:
+    cols 24, 4 and 6, and a pointer 4 bytes off 16), in place (``out`` = ``in``, as
+    ``fused_block.cu``'s backward launches it) and its first form, bit for bit against the
+    plain version."""
+    from swin_unet_image_fusion_tpu_torch.ops import _build
+
+    _need_card()
+    key = dl.keying("k4", (14, 21), (7, 7), True, 8, 3, "cuda")
+    lib = dm._library()
+    for cols in (24, 4, 6):
+        x = torch.randn(2, 3, 14, 21, cols, generator=torch.Generator().manual_seed(cols)).to("cuda", dtype)
+        ref = dm.token_dropout_plain(x, DROP_SEED, hd.SITE_MLP_OUT, 0.5, key)
+        assert torch.equal(dm.token_dropout(x, DROP_SEED, hd.SITE_MLP_OUT, 0.5, key), ref)
+        first = dm._token_launch(lib.swin_dropout_tokens_elementwise, x, DROP_SEED, hd.SITE_MLP_OUT, 0.5, key)
+        assert torch.equal(first, ref)
+        shifted = torch.empty(x.numel() + 8, dtype=dtype, device="cuda")
+        offset = 4 // x.element_size()  # 4 bytes off the allocation's alignment
+        inplace = shifted[offset:offset + x.numel()].view(x.shape)
+        inplace.copy_(x)
+        args = dm._site_args(key, hd.SITE_MLP_OUT, 0.5, DROP_SEED)
+        rc = lib.swin_dropout_tokens(inplace.data_ptr(), inplace.data_ptr(), dl.drop_pointer(args),
+                                     hd.SITES.index(hd.SITE_MLP_OUT), 2, 3, 14 * 21, cols,
+                                     int(dtype == BF16), torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(lib, rc, "token dropout mask")
+        assert torch.equal(inplace, ref)

@@ -203,6 +203,8 @@ def test_k1_band_launch_hands_the_row_seam_code(monkeypatch, row0, code):
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
     weights = _block_weights(np.random.default_rng(0), 8, 2, 4, 32)
     x = torch.zeros(2, 1, 8, 49, 8)
     before = (spmd.BAND_LAUNCHES, tfb.LAUNCHES)
@@ -215,8 +217,11 @@ def test_k1_band_launch_hands_the_row_seam_code(monkeypatch, row0, code):
     assert (spmd.BAND_LAUNCHES, tfb.LAUNCHES) == (before[0] + 1, before[1])
     before = spmd.HALO_LAUNCHES
     out = spmd.repartition_halo(x, torch.zeros(2, 1, 4, 49, 8), (56, 28), WINDOW, False, True)
+    # one launch of the halo form on the band's 14 rows, the halo row read in place (side -1)
     name, args = lib.calls[-1]
-    assert name == "swin_repartition_fwd" and args[2:5] == (2, 21, 28) and out.shape == x.shape
+    assert len(lib.calls) == 2 and out.shape == x.shape
+    assert name == "swin_repartition_halo_fwd" and args[3:7] == (2, 14, 28, 8 * 4)
+    assert args[-4:-1] == (0, 1, -1), "from_shift, to_shift, side"
     assert spmd.HALO_LAUNCHES == before + 1
 
 
