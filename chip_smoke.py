@@ -13,10 +13,10 @@ each kernel configuration (``cuda``: K3; ``cuda_pack``: K1, K2 and K3; ``cuda_bl
 K4), checks the outputs and each kernel's launch count, times the kernels and the
 requests, and breaks one request's device time down by kernel family with
 ``torch.profiler``. The fused block's forward without dropout, K4 on the image and K1 on
-window-packed tokens, is ``csrc/fused_block_fwd.cu`` (one launch at C <= 48, six above);
-each is checked for a bit-identical repeat, timed in turns with the five launches of
-``csrc/fused_block.cu`` that it replaced (the C = 384 backward's recompute still runs them;
-the dropout forms run the new forward too), and both are broken down by stage and kernel
+window-packed tokens, is ``csrc/fused_block_fwd.cu`` (one launch at C <= 48, six above; its
+dropout forms ``csrc/fused_block_fwd_drop.cu``); each is checked for a bit-identical repeat,
+timed in turns with the five launches of ``csrc/fused_block.cu`` that it replaced (no call of
+the model runs them), and both are broken down by stage and kernel
 (``[split] K1``, ``[split] K4``). K3's forward is ``csrc/window_attention_fwd.cu`` (one
 launch at C <= 64, two above, with and without dropout); it is checked for a bit-identical
 repeat, timed in turns with the three launches of ``csrc/window_attention.cu`` that it
@@ -25,15 +25,18 @@ from the profiler's device times (``[split]``). Then the training path: each bac
 kernel (K3, K1, K2 and K4 bwd) against autograd of its plain version at the shapes of a
 224x224 batch-20 train step, K1's and K4's each repeated bit for bit; their backward is the
 route ``block_bwd_plan`` names, with and without dropout ("fused", ``csrc/fused_block_bwd.cu``,
-at stages 0-1, "split", ``csrc/fused_block_bwd_split.cu``, at stages 2-3, each in its dropout
-form for a dropout call; the five-launch backward of ``csrc/fused_block.cu`` at stage 4),
-broken down by stage and kernel in turns with the five-launch backward (``[split] K1 bwd``,
-``[split] K4 bwd``); the first train
-step of the full model under each
-configuration against the torch composition on the card (loss terms, every parameter's
-gradient, the exact forward and backward launches), then timed steps in turns and one
-profiled step per configuration. The bf16 serving path (``compute_dtype="bfloat16"``) takes the same
-steps: the bf16 form of each kernel against its bf16 plain version, ``fuse_y`` under each
+at stages 0-1, "split", ``csrc/fused_block_bwd_split.cu``, at stages 2-4, each in its dropout
+form for a dropout call), broken down by stage and kernel in turns with the twenty-launch
+backward of ``csrc/fused_block.cu`` (``[split] K1 bwd``, ``[split] K4 bwd``), and the same
+at the stage-4 shapes (C = 384) of a 448x448 batch-5 step, fp32 and bf16, with and without
+dropout (K3's backward there and at the 512x512 stage 4 on its d = 48 tiled core); the first
+train step of the full model under each configuration against the torch composition on the
+card (loss terms, every parameter's gradient, the exact forward and backward launches), then
+timed steps in turns and one profiled step per configuration; the same at 448x448 batch 5,
+where stage 4 runs the kernels, its traced steps holding no kernel of ``csrc/fused_block.cu``
+or ``csrc/window_attention.cu``, stage 4's device time by kernel family, and one
+``cuda_block`` dropout step repeated bit for bit (``[train] 448``). The bf16 serving path
+(``compute_dtype="bfloat16"``) takes the same steps: the bf16 form of each kernel against its bf16 plain version, ``fuse_y`` under each
 configuration with exact launch counts and against the bf16 and the fp32 torch
 compositions on the card by image-level criteria, kernel times, latencies in turns with
 the fp32 configurations, a traced request each, and the throughput of 512x512 batches of
@@ -114,6 +117,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -148,6 +152,10 @@ LATENCY_SAMPLES = 20
 SEED = 0
 SERVE_HW = (512, 512)
 TRAIN_HW, TRAIN_BATCH = (224, 224), 20  # the JAX package's default training crop and batch
+# a larger crop at which stage 4 (C = 384, 14x14) runs the kernels; at batch 5 stages 0-3 hold the
+# tokens of the 224² batch-20 step
+TRAIN448_HW, TRAIN448_BATCH = (448, 448), 5
+TRAIN448_WIDE_BATCH = 20  # stage 4's backward checked where its blocks walk several tiles each
 TRAIN_STEPS = 5  # timed steps per configuration, after the checked first one
 THROUGHPUT_BATCH, THROUGHPUT_ROUNDS = 32, 3  # 512x512 pairs per fuse_y call; timed calls each
 WINDOW = (7, 7)
@@ -530,13 +538,14 @@ def check_attention_kernel(cfg, device, dtype=torch.float32):
     return worst
 
 
-def block_cases(cfg, device, packed_only, hw=SERVE_HW, batch=1):
+def block_cases(cfg, device, packed_only, hw=SERVE_HW, batch=1, stages=None):
     """Every (stage, role, shift, cross) block of an ``hw`` input of ``batch`` images with
-    its inputs; ``packed_only`` keeps the stages that cuda_pack packs."""
+    its inputs; ``packed_only`` keeps the stages that cuda_pack packs, ``stages`` (where
+    given) those stages alone."""
     from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_beneficial
 
     for k, h, w, c, heads, d in stage_geometries(cfg, hw):
-        if packed_only and not pack_beneficial(c, w):
+        if (packed_only and not pack_beneficial(c, w)) or (stages is not None and k not in stages):
             continue
         for r, (role, hidden) in enumerate(mlp_hiddens(cfg, k)):
             x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 10 * k + r, device, batch)
@@ -1006,13 +1015,16 @@ def block_bwd_split(cfg, device, card, runs=2):
     ``csrc/fused_block_bwd.cu`` at stages 0-1, ``csrc/fused_block_bwd_split.cu`` at 2-3) and
     the five-launch backward of ``csrc/fused_block.cu`` (``_launch_bwd_five``), in turns (the
     redesigned one first at every other block); per stage, then the split route's stages 2-3
-    and the step."""
+    and the step. Then the same at the 8 stage-4 blocks of a 448² batch-5 step (the split
+    route at C = 384; key 4 of the stage sums)."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
 
     for name, layout in (("K1 bwd", "windows"), ("K4 bwd", "image")):
         split = {"redesigned": {}, "five-launch": {}}
         events = {"redesigned": {}, "five-launch": {}}  # ms per stage by CUDA events
-        for i, (case, x, weights) in enumerate(block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH)):
+        cases = itertools.chain(block_cases(cfg, device, True, TRAIN_HW, TRAIN_BATCH),
+                                block_cases(cfg, device, False, TRAIN448_HW, TRAIN448_BATCH, stages=(4,)))
+        for i, (case, x, weights) in enumerate(cases):
             xl, kw = fused_args(case, x, layout)
             g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(case[0])).to(device)
             forms = {"redesigned": lambda: tfb._launch_bwd(g, xl, weights, kw),
@@ -1031,6 +1043,17 @@ def block_bwd_split(cfg, device, card, runs=2):
             del g
         if split is None:
             continue
+        for form, stages in split.items():
+            parts = stages[4]
+            print(f"[split] {name} {form} stage 4 of 448x448 14x14x{TRAIN448_BATCH} C=384, per step (8 calls): "
+                  + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
+                  + f", total {sum(parts.values()):.4f} ms of device time, {events[form][4]:.4f} ms "
+                  f"by events | {card}", flush=True)
+        s4 = {form: (sum(stages.pop(4).values()), per.pop(4)) for (form, stages), per in
+              zip(split.items(), events.values())}
+        print(f"[split] {name} stage 4 of a 448x448 batch-{TRAIN448_BATCH} step (8 calls): redesigned "
+              f"{s4['redesigned'][0]:.4f} ms of device time ({s4['redesigned'][1]:.4f} by events), twenty "
+              f"launches {s4['five-launch'][0]:.4f} ms ({s4['five-launch'][1]:.4f}) | {card}", flush=True)
         for k, h, w, c, heads, d in stage_geometries(cfg, TRAIN_HW):
             for form, stages in split.items():
                 if k not in stages:
@@ -1049,7 +1072,7 @@ def block_bwd_split(cfg, device, card, runs=2):
               flush=True)
         totals = {form: sum(sum(p.values()) for p in stages.values()) for form, stages in split.items()}
         by_events = {form: sum(per.values()) for form, per in events.items()}
-        print(f"[split] {name} per {TRAIN_HW[0]}x{TRAIN_HW[1]} batch-{TRAIN_BATCH} step ({i + 1} calls): "
+        print(f"[split] {name} per {TRAIN_HW[0]}x{TRAIN_HW[1]} batch-{TRAIN_BATCH} step ({i - 7} calls): "
               f"redesigned {totals['redesigned']:.4f} ms of device time ({by_events['redesigned']:.4f} by "
               f"events), five-launch {totals['five-launch']:.4f} ms ({by_events['five-launch']:.4f}) | {card}",
               flush=True)
@@ -1270,8 +1293,10 @@ def train_block_backward(cfg, device, card):
     """K1 bwd (windows layout) and K4 bwd (image layout) against autograd of their plain
     version in every stage 0-3 x role x shift x cross block of a 224² batch-20 step, each
     repeated bit for bit on the route ``block_bwd_plan`` names ("fused" at stages 0-1, "split"
-    at 2-3: the five-launch backward runs only in the timing in turns), with their times; each
-    block runs once per step."""
+    at 2-3), with their times; each block runs once per step. Then the same at the 8 stage-4
+    blocks of a 448² batch-5 step (C = 384, the split route at pitch 48), each also timed in
+    turns with the twenty launches of ``csrc/fused_block.cu`` (``_launch_bwd_five``), which no
+    step runs any more."""
     from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 
@@ -1314,26 +1339,64 @@ def train_block_backward(cfg, device, card):
               f"plain {totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms | {card}", flush=True)
         results[f"{name} bwd"] = dict(totals, bound_by=max(by, key=by.get), library_ms=None, worst=worst)
         torch.cuda.empty_cache()
+        s4 = dict(ms=0.0, old_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        s4_worst = 0.0
+        for case, x, weights in block_cases(cfg, device, False, TRAIN448_HW, TRAIN448_BATCH, stages=(4,)):
+            xl, kw = fused_args(case, x, layout)
+            k, h, w, c, heads, d, role, hidden, shift, cross = case
+            route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross).route
+            what = f"{name} bwd stage 4 of 448x448 {role} shift={shift} cross={cross}"
+            if route != "split":
+                raise AssertionError(f"{what}: the plan routes {route!r}")
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k + hidden)).to(device)
+            got = tfb._launch_bwd(g, xl, weights, kw)
+            again = tfb._launch_bwd(g, xl, weights, kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: a repeat gave other bits")
+            del again
+            ref = tfb.fused_block_bwd_plain(g, xl, *weights, **kw)
+            err = assert_grads_close(got, ref, ("x", *tfb.WEIGHT_NAMES), what).worst
+            s4_worst = max(s4_worst, err)
+            del got, ref
+            bound, _ = block_bound_ms(h, w, c, heads, d, hidden, TRAIN448_BATCH, backward=True)
+            old, ms = _in_turns(lambda: tfb._launch_bwd_five(g, xl, weights, kw),
+                                lambda: tfb._launch_bwd(g, xl, weights, kw), 5, 1)
+            plain = time_ms(lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **kw), iters=2, warmup=1)
+            print(f"[time] {name} bwd stage 4 of 448x448: {h}x{w}x{TRAIN448_BATCH} C={c} hidden={hidden} ({route}) "
+                  f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, twenty launches {old:.4f} "
+                  f"ms (in turns), plain {plain:.4f} ms, bound {bound:.4f} ms | {card}", flush=True)
+            for key, v in (("ms", ms), ("old_ms", old), ("plain_ms", plain), ("bound_ms", bound)):
+                s4[key] += v
+        results[f"{name} bwd"]["worst"] = max(worst, s4_worst)
+        print(f"[time] {name} bwd stage 4 per 448x448 batch-{TRAIN448_BATCH} step (8 launches, the split route): "
+              f"{s4['ms']:.3f} ms, twenty launches {s4['old_ms']:.3f} ms (in turns), plain {s4['plain_ms']:.3f} ms, "
+              f"bound {s4['bound_ms']:.4f} ms; worst max_abs_err {s4_worst:.3e}, every case repeated bit for "
+              f"bit | {card}", flush=True)
+        torch.cuda.empty_cache()
     return results
 
 
 def train_attention_backward(cfg, device, card):
     """K3 bwd without dropout (``csrc/window_attention_bwd.cu``) against autograd of its plain
     version at stages 0-3 of a 224² batch-20 step (each shift x cross variant runs twice per
-    step: encoder and decoder) and at the C=384 stage 4 of a 512² step (21x21, batch 20),
-    each case repeated bit for bit, with its times in turns with the three-launch backward of
-    ``csrc/window_attention.cu`` (``_launch_bwd_three``) and the plain version's."""
+    step: encoder and decoder) and at the C=384 stage 4 of a 448² batch-5 step (14x14) and of a
+    512² step (21x21, batch 20; d = 48, the tiled core), each case repeated bit for bit, with its
+    times in turns with the three-launch backward of ``csrc/window_attention.cu``
+    (``_launch_bwd_three``) and the plain version's."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
     from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
 
     totals = dict(ms=0.0, old_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     by, worst, worst_own, smallest = {}, 0.0, 0.0, 1.0
-    geometries = [(*geo, TRAIN_HW) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
-    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW))
-    for k, h, w, c, heads, d, hw in geometries:
-        args = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+    geometries = [(*geo, TRAIN_HW, TRAIN_BATCH) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
+    geometries.append((*stage_geometries(cfg, TRAIN448_HW)[4], TRAIN448_HW, TRAIN448_BATCH))
+    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW, TRAIN_BATCH))
+    s4 = {}  # stage 4 of each map: (new, three-launch) ms per call summed over the 4 variants
+    for k, h, w, c, heads, d, hw, batch in geometries:
+        args = attention_inputs(h, w, c, heads, d, SEED + k, device, batch)
         g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(k)).to(device)
-        bound, bound_by = attention_bound_ms(h, w, c, heads, d, TRAIN_BATCH, backward=True)
+        bound, bound_by = attention_bound_ms(h, w, c, heads, d, batch, backward=True)
         for shift in (False, True):
             for cross in (False, True):
                 kw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
@@ -1354,7 +1417,7 @@ def train_attention_backward(cfg, device, card):
                 old, ms = _in_turns(lambda: twa._launch_bwd_three(g, args[0], args[1:], kw),
                                     lambda: twa._launch_bwd(g, args[0], args[1:], kw), 5, 1)
                 plain = time_ms(lambda: twa.window_attention_bwd_plain(g, *args, **kw), iters=2, warmup=1)
-                print(f"[time] K3 bwd stage {k} of {hw[0]}x{hw[1]}: {h}x{w}x{TRAIN_BATCH} C={c} ({route}) "
+                print(f"[time] K3 bwd stage {k} of {hw[0]}x{hw[1]}: {h}x{w}x{batch} C={c} ({route}) "
                       f"shift={shift} cross={cross}: max_abs_err {err:.3e}, {ms:.4f} ms, three-launch "
                       f"{old:.4f} ms (in turns), plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
                       f"| {card}", flush=True)
@@ -1362,6 +1425,15 @@ def train_attention_backward(cfg, device, card):
                     for key, v in (("ms", ms), ("old_ms", old), ("plain_ms", plain), ("bound_ms", bound)):
                         totals[key] += 2 * v
                     by[bound_by] = by.get(bound_by, 0.0) + 2 * bound
+                else:
+                    new_sum, old_sum = s4.get(hw, (0.0, 0.0))
+                    s4[hw] = (new_sum + ms, old_sum + old)
+        if hw != TRAIN_HW:
+            new_sum, old_sum = s4[hw]
+            print(f"[time] K3 bwd stage 4 of {hw[0]}x{hw[1]} batch {batch} (d = {d}, the tiled core), a call "
+                  f"on average over shift x cross: {new_sum / 4:.4f} ms, three-launch {old_sum / 4:.4f} ms (in "
+                  f"turns), bound {bound:.4f} ms; per step (8 calls) {2 * new_sum:.4f} ms against "
+                  f"{2 * old_sum:.4f} | {card}", flush=True)
         torch.cuda.empty_cache()
     print(f"[check] K3 bwd: worst max_abs_err {worst:.3e} over {4 * len(geometries)} cases, "
           f"{worst_own:.3e} of a gradient's own largest; every gradient but bk's (exactly 0) "
@@ -1376,18 +1448,20 @@ def train_attention_backward(cfg, device, card):
 def k3_bwd_split(cfg, device, card, runs=2):
     """K3 bwd's device time per 224² batch-20 step by stage and by kernel, from torch.profiler
     (:func:`_profile_kernels`), and per stage by CUDA events: at each stage 0-3 x shift x cross
-    call (each twice a step, encoder and decoder) and at the 512² stage-4 shape, the new
-    backward (``_launch_bwd``: ``csrc/window_attention_bwd.cu``) and the three-launch backward
-    (``_launch_bwd_three``), in turns (the new one first at every other call)."""
+    call (each twice a step, encoder and decoder) and at the stage-4 shapes of a 448² batch-5
+    step (twice a step) and of a 512² batch-20 step, the new backward (``_launch_bwd``:
+    ``csrc/window_attention_bwd.cu``) and the three-launch backward (``_launch_bwd_three``), in
+    turns (the new one first at every other call)."""
     from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
 
     forms = ("new", "three-launch")
     split, events = {f: {} for f in forms}, {f: {} for f in forms}
-    geometries = [(*geo, TRAIN_HW, 2) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
-    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW, 1))
+    geometries = [(*geo, TRAIN_HW, TRAIN_BATCH, 2) for geo in stage_geometries(cfg, TRAIN_HW)[:4]]
+    geometries.append((*stage_geometries(cfg, TRAIN448_HW)[4], TRAIN448_HW, TRAIN448_BATCH, 2))
+    geometries.append((*stage_geometries(cfg, SERVE_HW)[4], SERVE_HW, TRAIN_BATCH, 1))
     i = 0
-    for k, h, w, c, heads, d, hw, times in geometries:
-        args = attention_inputs(h, w, c, heads, d, SEED + k, device, TRAIN_BATCH)
+    for k, h, w, c, heads, d, hw, batch, times in geometries:
+        args = attention_inputs(h, w, c, heads, d, SEED + k, device, batch)
         g = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(k)).to(device)
         key = f"stage {k} of {hw[0]}x{hw[1]}"
         for shift in (False, True):
@@ -1408,8 +1482,8 @@ def k3_bwd_split(cfg, device, card, runs=2):
         torch.cuda.empty_cache()
         for form in forms:
             parts = split[form][key]
-            print(f"[split] K3 bwd {form} {key} {h}x{w}x{TRAIN_BATCH} C={c}, "
-                  f"{'per step (8 calls)' if hw == TRAIN_HW else 'per 4 calls (shift x cross)'}: "
+            print(f"[split] K3 bwd {form} {key} {h}x{w}x{batch} C={c}, "
+                  f"{'per step (8 calls)' if times == 2 else 'per 4 calls (shift x cross)'}: "
                   + ", ".join(f"{n} {ms:.4f} ms" for n, ms in parts.items())
                   + f", total {sum(parts.values()):.4f} ms of device time, {events[form][key]:.4f} ms by "
                   f"events | {card}", flush=True)
@@ -1557,6 +1631,197 @@ def train_configs(flat, device, card):
               lambda: steps[impl](states[impl], ir, vis), median, card)
     medians = {impl: float(np.median(walls[impl])) for impl in names}
     return launches, states, steps, (ir, vis), fp32_first, medians
+
+
+# attention_impl -> kernel launches per train step at 448² batch 5: stage 4 (14x14, C = 384) runs
+# the kernels too, K3 under cuda_pack (stage 4 is not packed)
+TRAIN448_CONFIGS = {
+    "cuda_pack": {"K1": 32, "K1 bwd": 32, "K2": 24, "K2 bwd": 24, "K3": 8, "K3 bwd": 8},
+    "cuda": {"K3": 40, "K3 bwd": 40},
+    "cuda_block": {"K4": 40, "K4 bwd": 40},
+}
+TRAIN448_DROP = {"K4 drop": 40, "K4 drop bwd": 40}  # the cuda_block dropout step at 448²
+
+
+def _no_old_kernels(counts, label):
+    """A traced step launched no kernel of ``csrc/fused_block.cu`` or ``csrc/window_attention.cu``
+    (and, with the stage-4 blocks on the kernels, no composition mask): raises otherwise."""
+    kernels = FIVE_BWD_KERNELS + FIVE_FWD_KERNELS + THREE_BWD_KERNELS + ("dropout_rows_kernel", "dropout_attn_kernel")
+    old = {name: n for name, (n, _) in counts.items() if any(k in name for k in kernels)}
+    print(f"[trace]   train {label}: kernels of fused_block.cu, window_attention.cu and the composition's "
+          f"masks {sum(old.values())}", flush=True)
+    if old:
+        raise AssertionError(f"{label}: old or composition kernels ran: {old}")
+
+
+def stage4_families(cfg, device, card, runs=2):
+    """Stage 4's device ms in a 448² batch-5 step by kernel family (:data:`KERNEL_FAMILIES`),
+    from torch.profiler: the forward and backward of the step's 8 stage-4 blocks as the
+    step launches them, K4 (``cuda_block``) and K3 (``cuda``, and ``cuda_pack``, which does not
+    pack stage 4), the 8 blocks' calls in one session, each block at its shapes and inputs of
+    its scale."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    def family(name):
+        return next((f for f, keys in KERNEL_FAMILIES if any(k.lower() in name.lower() for k in keys)),
+                    "other elementwise")
+
+    calls = {"cuda_block (K4)": [], "cuda (K3)": []}
+    for case, x, weights in block_cases(cfg, device, False, TRAIN448_HW, TRAIN448_BATCH, stages=(4,)):
+        k, h, w, c, heads, d, role, hidden, shift, cross = case
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(hidden + shift)).to(device)
+        _, kw = fused_args(case, x, "image")
+        akw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+        calls["cuda_block (K4)"].append(functools.partial(
+            lambda x, g, weights, kw: (tfb._launch_fwd(x, weights, kw), tfb._launch_bwd(g, x, weights, kw)),
+            x, g, weights, kw))
+        calls["cuda (K3)"].append(functools.partial(
+            lambda x, g, weights, kw: (twa._launch_fwd(x, weights, kw), twa._launch_bwd(g, x, weights, kw)),
+            x, g, weights[2:11], akw))
+    for name, fns in calls.items():
+        got = _profile_kernels(lambda: [fn() for fn in fns], runs)
+        if got is None:
+            print(f"[train] 448x448 bs={TRAIN448_BATCH} stage 4 {name}: the profiler recorded no device time: not "
+                  f"measured | {card}", flush=True)
+            continue
+        families = {}
+        for kernel, ms in got.items():
+            families[family(kernel)] = families.get(family(kernel), 0.0) + ms
+        print(f"[train] 448x448 bs={TRAIN448_BATCH} stage 4 {name}, forward and backward of the 8 blocks: "
+              f"{sum(families.values()):.4f} ms of device time: "
+              + ", ".join(f"{f} {ms:.4f} ms" for f, ms in sorted(families.items(), key=lambda kv: -kv[1]))
+              + f" | {card}", flush=True)
+
+
+def train_448(flat, device, card):
+    """The training main paths at a 448² crop, batch 5, where stage 4 (C = 384) runs the kernels
+    (K4's backward on the split route, K3's backward at d = 48 on the tiled core): the first step
+    under each configuration with its exact launches, stage 4's included, against the torch
+    composition's first step on the card (as :func:`train_configs`); TRAIN_STEPS steps each in
+    turns and one traced step each, which must launch no kernel of ``csrc/fused_block.cu`` or
+    ``csrc/window_attention.cu``; stage 4's device time by kernel family
+    (:func:`stage4_families`); then one ``cuda_block`` step with every dropout ratio
+    DROP_RATIOS, its exact launches, repeated from a second state bit for bit, and traced the
+    same way."""
+    from swin_unet_image_fusion_tpu_torch import Config, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(SEED + 448)
+    ir = torch.from_numpy(rng.random((TRAIN448_BATCH, *TRAIN448_HW, 1), dtype=np.float32)).to(device)
+    vis = torch.from_numpy(rng.random((TRAIN448_BATCH, *TRAIN448_HW, 1), dtype=np.float32)).to(device)
+    label_hw = f"{TRAIN448_HW[0]}x{TRAIN448_HW[1]} bs={TRAIN448_BATCH}"
+    names = ("torch", *TRAIN448_CONFIGS)
+    states, steps, first = {}, {}, {}
+    for impl in names:
+        cfg = Config(model=ModelConfig(attention_impl=impl))
+        states[impl] = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+        steps[impl] = make_train_step(cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        terms = steps[impl](states[impl], ir, vis)
+        torch.cuda.synchronize()
+        if impl != "torch":
+            got = {**read_counts(impl), **read_mask_counts()}
+            expected = dict.fromkeys(got, 0)
+            expected.update(TRAIN448_CONFIGS[impl])
+            print(f"[train] 448 {impl} first step: launches {got}", flush=True)
+            if got != expected:
+                raise AssertionError(f"{impl} 448 train step: launches {got}, expected {expected}")
+        grads = _grads(states[impl].model)
+        if len(grads) != sum(1 for _ in states[impl].model.parameters()) or \
+                not all(torch.isfinite(v).all() for v in grads.values()):
+            raise AssertionError(f"{impl} 448: a gradient is missing or not finite")
+        first[impl] = ({k: float(v) for k, v in terms.items()}, grads)
+        if impl == "torch":
+            torch.cuda.empty_cache()
+    ref_terms, ref_grads = first.pop("torch")
+    for impl, (terms, grads) in first.items():
+        for k, v in terms.items():
+            if abs(v - ref_terms[k]) > 1e-5 * abs(ref_terms[k]):
+                raise AssertionError(f"{impl} 448 step 1 {k} {v} vs torch composition {ref_terms[k]}")
+        check = assert_grads_close([grads[n] for n in ref_grads], list(ref_grads.values()), list(ref_grads),
+                                   f"{impl} 448 step 1")
+        rel = max(abs(terms[k] - ref_terms[k]) / max(abs(ref_terms[k]), 1e-30) for k in terms)
+        print(f"[parity] 448 {impl} train step 1 vs torch composition on the card: loss terms max relative "
+              f"difference {rel:.3e}, gradients max_abs_err {check.worst:.3e} (the worst {check.worst_own:.3e} "
+              f"of a gradient's own largest; {len(check.zeros)} exactly 0) | {card}", flush=True)
+    del first, ref_grads
+    torch.cuda.empty_cache()
+
+    walls = {impl: [] for impl in names}
+    for _ in range(TRAIN_STEPS):
+        for impl in names:
+            t = time.perf_counter()
+            steps[impl](states[impl], ir, vis)
+            torch.cuda.synchronize()
+            walls[impl].append(1e3 * (time.perf_counter() - t))
+    for impl in names:
+        w = walls[impl]
+        median = float(np.median(w))
+        label = "torch composition" if impl == "torch" else impl
+        print(f"[train] step {label_hw} ({label}), {TRAIN_STEPS} steps in turns: median {median:.2f} ms/step, "
+              f"min {min(w):.2f}, max {max(w):.2f} | {card}", flush=True)
+        counts = trace(f"train step {label_hw} ({label})", f"train 448 {label}",
+                       lambda: steps[impl](states[impl], ir, vis), median, card)
+        if impl == "torch":
+            continue
+        if not counts:
+            raise AssertionError(f"{impl} 448: the profiler recorded no kernels: the old launches' absence not read")
+        _no_old_kernels(counts, f"448 {impl}")
+    del states, steps
+    torch.cuda.empty_cache()
+    stage4_families(ModelConfig(), device, card)
+
+    ratios = dict(zip(("attention_drop_ratio", "linear_after_att_drop_ratio", "mlp_drop_ratio"), DROP_RATIOS))
+    cfg = Config(model=ModelConfig(attention_impl="cuda_block", **ratios))
+    step = make_train_step(cfg)
+    runs = []
+    for repeat in range(2):
+        state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.use_deterministic_algorithms(True)
+        try:
+            terms = step(state, ir, vis)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got = {**read_counts("cuda_block"), **read_mask_counts()}
+        expected = dict.fromkeys(got, 0)
+        expected.update(TRAIN448_DROP)
+        if got != expected:
+            raise AssertionError(f"cuda_block dropout 448 step: launches {got}, expected {expected}")
+        grads = _grads(state.model)
+        if not all(torch.isfinite(v).all() for v in grads.values()):
+            raise AssertionError("cuda_block dropout 448: a gradient is not finite")
+        runs.append(({k: v.item() for k, v in terms.items()}, grads))
+    (terms_a, grads_a), (terms_b, grads_b) = runs
+    same = terms_a == terms_b and all(torch.equal(grads_a[n], grads_b[n]) for n in grads_a)
+    print(f"[train] 448 dropout cuda_block first step: launches {got}; "
+          + ", ".join(f"{k} {v:.7g}" for k, v in terms_a.items())
+          + f"; all {len(grads_a)} gradients finite; repeated from a second state: bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError("cuda_block dropout 448 step repeated differs")
+    del runs, grads_a, grads_b
+    w = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        step(state, ir, vis)
+        torch.cuda.synchronize()
+        w.append(1e3 * (time.perf_counter() - t))
+    median = float(np.median(w))
+    label = f"cuda_block, dropout {DROP_RATIOS}"
+    print(f"[train] step {label_hw} ({label}), {TRAIN_STEPS} steps: median {median:.2f} ms/step | {card}",
+          flush=True)
+    counts = trace(f"train step {label_hw} ({label})", f"train 448 {label}", lambda: step(state, ir, vis),
+                   median, card)
+    if not counts:
+        raise AssertionError("cuda_block dropout 448: the profiler recorded no kernels")
+    _no_old_kernels(counts, f"448 {label}")
+    del state, step
+    torch.cuda.empty_cache()
 
 
 def dropout_train(flat, device, card, states, steps, inputs):
@@ -2103,6 +2368,129 @@ def check_drop_c384(cfg, device, card):
     print(f"[check] the new dropout forms at C={c} ({h}x{w}, stage 4 of a 512x512 request): worst "
           + ", ".join(f"{key} {v:.3e}" for key, v in worst.items())
           + f" over 4 shift x cross cases x rates {DROP_CHECK_RATES}, each repeated bit for bit", flush=True)
+    worst.update(check_stage4_backward(cfg, device, card))
+    return worst
+
+
+def check_stage4_backward(cfg, device, card):
+    """The C = 384 backward at the 8 stage-4 blocks of a 448² batch-5 step (14 x 14, the encoder's
+    and the decoder's MLP width x shift x cross), in the forms :func:`train_block_backward` and
+    :func:`train_attention_backward` do not check: K1's (windows layout) and K4's (image layout)
+    backward on the split route in bf16, and their dropout forms in fp32 and bf16 at each rate of
+    DROP_CHECK_RATES; K3's backward (d = 48, the tiled core) in bf16, and its dropout form in fp32
+    and bf16. Each against its plain version (``assert_grads_close``; a bf16 backward by
+    :func:`_check_bf16_grads`), repeated bit for bit, and timed in turns with the twenty launches
+    of ``csrc/fused_block.cu`` or the three of ``csrc/window_attention.cu``. Then K1's and K4's
+    backward at TRAIN448_WIDE_BATCH (shift and cross, both MLP widths, fp32 and bf16, with and
+    without dropout), where the stepped MLP backward's and the grouped g_ln product's blocks walk
+    several 49-token tiles each, against the plain version and repeated bit for bit. Returns the
+    worst errors by kernel name."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    worst, sums = {}, {}
+    anames = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+
+    def held(key, what, got, again, ref, names, new, old, old_name):
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: a repeat gave other bits")
+        if got[0].dtype == BF16:
+            err = _check_bf16_grads(got, ref, names, what)
+        else:
+            err = assert_grads_close(got, ref, names, what).worst
+        old_ms, ms = _in_turns(old, new, 3, 1)
+        print(f"{what}: max_abs_err {err:.3e}; repeated bit for bit; {ms:.4f} ms, {old_name} {old_ms:.4f} ms "
+              f"(in turns) | {card}", flush=True)
+        worst[key] = max(worst.get(key, 0.0), err)
+        new_sum, old_sum = sums.get((key, old_name), (0.0, 0.0))
+        sums[(key, old_name)] = (new_sum + ms, old_sum + old_ms)
+
+    for dtype in (torch.float32, BF16):
+        for rate in (0.0, *DROP_CHECK_RATES):
+            if dtype == torch.float32 and not rate:
+                continue  # train_block_backward and train_attention_backward check these
+            form = (" drop bwd" if rate else " bwd") + tag(dtype)
+            for case, x, weights in block_cases(cfg, device, False, TRAIN448_HW, TRAIN448_BATCH, stages=(4,)):
+                k, h, w, c, heads, d, role, hidden, shift, cross = case
+                g = torch.randn(x.shape, generator=torch.Generator().manual_seed(hidden + shift)).to(device, dtype)
+                for name, layout in (("K1", "windows"), ("K4", "image")):
+                    xl, kw = fused_args(case, x.to(dtype), layout)
+                    gl = fused_args(case, g, layout)[0]
+                    if rate:
+                        kw = dict(kw, drop_rates=(rate,) * 3, drop_seed=DROP_SEED + 500 + 10 * shift + cross)
+                    route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, bool(rate)).route
+                    what = (f"[{name.lower()}{form}] stage 4 of 448x448 {h}x{w}x{TRAIN448_BATCH} C={c} "
+                            f"hidden={hidden} ({route}) shift={shift} cross={cross} rate {rate}")
+                    if route != "split":
+                        raise AssertionError(f"{what}: the plan routes {route!r}")
+                    got, again = tfb._launch_bwd(gl, xl, weights, kw), tfb._launch_bwd(gl, xl, weights, kw)
+                    torch.cuda.synchronize()
+                    held(f"{name}{form}", what, got, again, tfb.fused_block_bwd_plain(gl, xl, *weights, **kw),
+                         ("x", *tfb.WEIGHT_NAMES), lambda: tfb._launch_bwd(gl, xl, weights, kw),
+                         lambda: tfb._launch_bwd_five(gl, xl, weights, kw), "twenty launches")
+                    del got, again
+                if role != "enc":
+                    continue  # K3 has no MLP: one shape per shift x cross
+                ax, *aweights = attention_inputs(h, w, c, heads, d, SEED + 44, device, TRAIN448_BATCH)
+                ax = ax.to(dtype)
+                akw = dict(window=WINDOW, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                if rate:
+                    akw.update(attn_drop_rate=rate, drop_seed=DROP_SEED + 600 + 10 * shift + cross)
+                route = twa.bwd_plan(c, heads, d, WINDOW, cross, dtype == BF16, bool(rate)).route
+                what = (f"[k3{form}] stage 4 of 448x448 {h}x{w}x{TRAIN448_BATCH} C={c} ({route}) shift={shift} "
+                        f"cross={cross} rate {rate}")
+                got, again = twa._launch_bwd(g, ax, aweights, akw), twa._launch_bwd(g, ax, aweights, akw)
+                torch.cuda.synchronize()
+                held(f"K3{form}", what, got, again, twa.window_attention_bwd_plain(g, ax, *aweights, **akw), anames,
+                     lambda: twa._launch_bwd(g, ax, aweights, akw), lambda: twa._launch_bwd_three(g, ax, aweights, akw),
+                     "three launches")
+                del got, again
+            torch.cuda.empty_cache()
+    # batch 20: 80 tiles a stream, so that the blocks of the stepped MLP backward and of the
+    # grouped g_ln product walk several tiles each (at batch 5 a block holds one)
+    for case, x, weights in block_cases(cfg, device, False, TRAIN448_HW, TRAIN448_WIDE_BATCH, stages=(4,)):
+        k, h, w, c, heads, d, role, hidden, shift, cross = case
+        if not (shift and cross):
+            continue
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(hidden)).to(device)
+        for dtype in (torch.float32, BF16):
+            for rate in (0.0, DROP_CHECK_RATES[0]):
+                form = (" drop bwd" if rate else " bwd") + tag(dtype)
+                plan = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, bool(rate))
+                tiles, blocks = TRAIN448_WIDE_BATCH * h * w // 49, plan.blocks(2, TRAIN448_WIDE_BATCH, h, w,
+                                                                                tfb._sm_count(x.device))
+                for name, layout in (("K1", "windows"), ("K4", "image")):
+                    xl, kw = fused_args(case, x.to(dtype), layout)
+                    gl = fused_args(case, g.to(dtype), layout)[0]
+                    if rate:
+                        kw = dict(kw, drop_rates=(rate,) * 3, drop_seed=DROP_SEED + 700 + hidden)
+                    what = (f"[{name.lower()}{form}] stage 4 of 448x448 {h}x{w}x{TRAIN448_WIDE_BATCH} C={c} "
+                            f"hidden={hidden} ({plan.route}, steps {plan.split_steps}, blocks {blocks} for {tiles} "
+                            f"tiles) shift={shift} cross={cross} rate {rate}")
+                    if plan.route != "split" or plan.split_steps == (1, 1) or max(blocks[0], blocks[2]) >= tiles:
+                        raise AssertionError(f"{what}: not the stepped split route with blocks walking tiles")
+                    got, again = tfb._launch_bwd(gl, xl, weights, kw), tfb._launch_bwd(gl, xl, weights, kw)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{what}: a repeat gave other bits")
+                    ref = tfb.fused_block_bwd_plain(gl, xl, *weights, **kw)
+                    names = ("x", *tfb.WEIGHT_NAMES)
+                    err = (_check_bf16_grads(got, ref, names, what) if dtype == BF16 else
+                           assert_grads_close(got, ref, names, what).worst)
+                    print(f"{what}: max_abs_err {err:.3e}; repeated bit for bit | {card}", flush=True)
+                    worst[f"{name}{form}"] = max(worst.get(f"{name}{form}", 0.0), err)
+                    del got, again, ref
+        torch.cuda.empty_cache()
+    for (key, old_name), (new_sum, old_sum) in sums.items():
+        calls = 8 if key.startswith(("K1", "K4")) else 4
+        rates = 1 if "drop" not in key else len(DROP_CHECK_RATES)
+        print(f"[time] {key} stage 4 of a 448x448 batch-{TRAIN448_BATCH} step, per step (8 calls; the mean over "
+              f"{calls} shapes x {rates} rates, times 8): {8 * new_sum / (calls * rates):.4f} ms, {old_name} "
+              f"{8 * old_sum / (calls * rates):.4f} ms (in turns) | {card}", flush=True)
+    print("[check] the C = 384 backward at stage 4 of a 448x448 batch-5 step (K1 and K4 also at batch 20): worst "
+          + ", ".join(f"{key} {v:.3e}" for key, v in worst.items())
+          + f"; each case repeated bit for bit (dropout at rates {DROP_CHECK_RATES})", flush=True)
     return worst
 
 
@@ -4616,11 +5004,16 @@ def main() -> int:
         drop_times.update(bf16_times)
         torch.cuda.empty_cache()
     for key, err in c384_worst.items():
-        drop_worst[key] = max(drop_worst[key], err)
+        if key in bwd:  # K1 and K4 bwd in fp32 at check_stage4_backward's batch 20
+            bwd[key]["worst"] = max(bwd[key]["worst"], err)
+        else:
+            drop_worst[key] = max(drop_worst[key], err)
     phase("[check] and [time] of the bf16 backward and dropout forms and the bf16 mask kernels")
     train_launches, states, steps, inputs, fp32_first, train_ms = train_configs(flat, device, card)
     launches.update(train_launches)
     phase("[train] fp32")
+    train_448(flat, device, card)
+    phase("[train] 448")
     launches.update(dropout_train(flat, device, card, states, steps, inputs))
     phase("[train] dropout")
     launches.update(bf16_train(flat, device, card, states, steps, inputs, fp32_first))
@@ -4660,34 +5053,34 @@ def main() -> int:
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2210"),
         ("K4 bf16", "fused_block_fwd bf16, image layout (K4 bf16)", f"{csrc}/fused_block_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:52"),
-        ("K3 bwd", "k3_bwd (K3 bwd; the fused route at stages 0-1, the split route at stages 2-3)",
+        ("K3 bwd", "k3_bwd (K3 bwd; the fused route at stages 0-1, the split route at stages 2-4, at d = 48 "
+         "the tiled core)",
          f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
         ("K1 bwd", "block_bwd, windows layout (K1 bwd; the fused route at stages 0-1, the split route of "
-         "fused_block_bwd_split.cu at stages 2-3)", f"{csrc}/fused_block_bwd.cu",
+         "fused_block_bwd_split.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd", "repartition_bwd (K2 bwd, the inverse permutation)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
         ("K4 bwd", "block_bwd, image layout (K4 bwd; the fused route at stages 0-1, the split route of "
-         "fused_block_bwd_split.cu at stages 2-3, the five-launch backward of fused_block.cu at stage 4)",
+         "fused_block_bwd_split.cu at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop", "k3_fwd with hash dropout (K3 drop; the dropout form of the one-launch block at stages 0-1 "
          "and of the split route at stages 2-3)", f"{csrc}/window_attention_fwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:278"),
         ("K3 drop bwd", "k3_bwd with hash dropout (K3 drop bwd; the dropout form of the fused route at stages "
-         "0-1 and of the split route at stages 2-3)",
+         "0-1 and of the split route at stages 2-4)",
          f"{csrc}/window_attention_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
         ("K1 drop", "fused_block_fwd with hash dropout, windows layout (K1 drop; one launch at stages 0-1, six "
-         "at 2-3)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+         "at 2-4)", f"{csrc}/fused_block_fwd_drop.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
         ("K1 drop bwd", "block_bwd with hash dropout, windows layout (K1 drop bwd; the dropout form of the "
-         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3)",
+         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
         ("K4 drop", "fused_block_fwd with hash dropout, image layout (K4 drop; one launch at stages 0-1, six "
-         "at 2-3)", f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+         "at 2-4)", f"{csrc}/fused_block_fwd_drop.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
         ("K4 drop bwd", "block_bwd with hash dropout, image layout (K4 drop bwd; the dropout form of the "
-         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-3, "
-         "fused_block.cu's twenty launches at stage 4)",
+         "fused route at stages 0-1 and of the split route of fused_block_bwd_split.cu at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         # the composition's masks, where the JAX package applies flax's nn.Dropout outside
         # Pallas; launches forward and on the gradient
@@ -4700,13 +5093,12 @@ def main() -> int:
         ("K3 bwd bf16", "k3_bwd bf16 (K3 bwd bf16)", f"{csrc}/window_attention_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_attention.py:335"),
         ("K1 bwd bf16", "block_bwd bf16, windows layout (K1 bwd bf16; the fused route at stages 0-1, "
-         "the split route of fused_block_bwd_split.cu at stages 2-3)", f"{csrc}/fused_block_bwd.cu",
+         "the split route of fused_block_bwd_split.cu at stages 2-4)", f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:760"),
         ("K2 bwd bf16", "repartition_bwd bf16 (K2 bwd bf16)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack.py:2311"),
         ("K4 bwd bf16", "block_bwd bf16, image layout (K4 bwd bf16; the fused route at stages 0-1, "
-         "the split route of fused_block_bwd_split.cu at stages 2-3, the five-launch backward of "
-         "fused_block.cu at stage 4)",
+         "the split route of fused_block_bwd_split.cu at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_block.py:230"),
         ("K3 drop bf16", "k3_fwd bf16 with hash dropout (K3 drop bf16, mma.sync, p masked before its rounding)",
@@ -4714,14 +5106,14 @@ def main() -> int:
         ("K3 drop bwd bf16", "k3_bwd bf16 with hash dropout (K3 drop bwd bf16, fp32 inside)",
          f"{csrc}/window_attention_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_attention.py:372"),
         ("K1 drop bf16", "fused_block_fwd bf16 with hash dropout, windows layout (K1 drop bf16, fp32 inside)",
-         f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
+         f"{csrc}/fused_block_fwd_drop.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:581"),
         ("K1 drop bwd bf16", "block_bwd bf16 with hash dropout, windows layout (K1 drop bwd bf16; the "
-         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
+         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_pack.py:808"),
         ("K4 drop bf16", "fused_block_fwd bf16 with hash dropout, image layout (K4 drop bf16, mma.sync)",
-         f"{csrc}/fused_block_fwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
+         f"{csrc}/fused_block_fwd_drop.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:87"),
         ("K4 drop bwd bf16", "block_bwd bf16 with hash dropout, image layout (K4 drop bwd bf16; the "
-         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-3)",
+         "dropout form of the fused route at stages 0-1 and of the split route at stages 2-4)",
          f"{csrc}/fused_block_bwd.cu", "swin_unet_image_fusion_tpu/ops/pallas_block.py:257"),
         ("mask tokens bf16", "dropout_tokens bf16, the composition's proj/MLP masks in a bf16 step",
          f"{csrc}/dropout_mask.cu", "swin_unet_image_fusion_tpu/models/layers.py:365"),

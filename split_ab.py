@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The fused block's split route (stages 2-4 of ``csrc/fused_block_fwd.cu``) in variant builds
 against the committed one, on one CUDA card: each variant is a copy of
-``fused_block_fwd.cu`` with the same C interface, built by ``nvcc`` with the port's flags,
+``fused_block_fwd.cu`` (with ``--dropout``, of ``fused_block_fwd_drop.cu``; the kernels live in
+``fused_block_fwd.cuh``, a variant of which goes beside the copy) with the same C interface,
+built by ``nvcc`` with the port's flags,
 ``-I`` the ``csrc`` directory and its own ``-D`` flags (a copy's quoted includes find headers
 copied beside it first). At every split-route block of a
 512x512 request (stage x role x shift x cross; K1 at the packed stages in the windows
@@ -72,7 +74,7 @@ def main() -> int:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {name: build(name, spec, out_dir) for name, spec in specs.items()}
-    committed = tfb._fwd_library()
+    committed = tfb._fwd_library(dropout)
     libs = {"committed": committed}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -101,7 +103,7 @@ def main() -> int:
                     kw = dict(kw, drop_rates=cs.DROP_RATIOS, drop_seed=cs.DROP_SEED + i)
                 outs = {}
                 for n in names:
-                    tfb._fwd_library = lambda n=n: libs[n]
+                    tfb._fwd_library = lambda drop=False, n=n: libs[n]
                     out, again = tfb._launch_fwd(xl, weights, kw), tfb._launch_fwd(xl, weights, kw)
                     torch.cuda.synchronize()
                     if not torch.equal(out, again):
@@ -111,12 +113,12 @@ def main() -> int:
                     worst[n] = max(worst[n], (outs[n] - outs["committed"]).abs().max().item())
                 order = names if i % 2 == 0 else names[::-1]
                 for n in order + order[::-1]:
-                    tfb._fwd_library = lambda n=n: libs[n]
+                    tfb._fwd_library = lambda drop=False, n=n: libs[n]
                     got = cs._profile_call(lambda: tfb._launch_fwd(xl, weights, kw), 5)
                     if got is None:
                         raise AssertionError(f"{label} {n}: the profiler recorded no whole calls")
                     cs._add_parts(parts[n].setdefault(case[0], {}), got, 0.5)
-            tfb._fwd_library = lambda: committed
+            tfb._fwd_library = lambda drop=False: committed
             for n in names:
                 for k, p in parts[n].items():
                     print(f"[variant] {label}{' drop' if dropout else ''} {n} stage {k}, {per} (8 calls): "

@@ -4,7 +4,7 @@
 against the committed one and the twenty launches of ``csrc/fused_block.cu``, on one CUDA card;
 with ``--dropout``, every call at dropout rates 0.1 (the routes' dropout forms and the twenty
 launches' dropout form). Each variant is a copy of the source with the same C interface (for
-instance one whose ``split_pitch`` also takes 48, or a copy of the whole ``csrc`` directory
+instance one whose ``split_pitch`` also takes 32, or a copy of the whole ``csrc`` directory
 with one header changed: a source includes the headers beside it first), built by ``nvcc``
 with the port's flags, ``-I`` the ``csrc`` directory and its own ``-D`` flags. At
 every block of ``--stages`` of an ``--hw`` map of ``--batch`` images (role x shift x cross;

@@ -40,12 +40,14 @@
 // a 512² request (67,081 tokens a stream) about 0.3 GB a call against 26 MB of x in and
 // out, and the two streams' 96-wide hidden alone (51.5 MB) exceeds the 50 MB L2. fp32 FMA
 // throughout; TF32 and the tensor cores are off.
-// These five launches now serve the forward's dropout forms and the recompute of the backward
-// below; the forward without dropout, K4 and K1 alike, runs fused_block_fwd.cu (one launch a
-// block at C <= 48, five above; K4's bf16 products on the tensor cores, K1 fp32 inside in both
-// dtypes). The backward below runs only where ops/fused_block.py::block_bwd_plan routes "five"
-// (C = 384: stage 4 of the default model, with and without dropout); the backward at stages
-// 0-3 runs fused_block_bwd.cu and fused_block_bwd_split.cu, dropout forms included.
+// These five launches now serve the recompute of the backward below and the timings in turns;
+// the forward, K4 and K1 alike, with and without dropout, runs fused_block_fwd.cu and
+// fused_block_fwd_drop.cu (one launch a block at C <= 48, six above; K4's bf16 products on the
+// tensor cores, K1 fp32 inside in both dtypes). The backward below runs only where
+// ops/fused_block.py::block_bwd_plan routes "five": shapes that neither redesigned route takes
+// (another window, d = 13-16 or 25-32, ...), none of them in the default model, with and without
+// dropout; every stage of the default model, C = 384 included, runs fused_block_bwd.cu or
+// fused_block_bwd_split.cu, dropout forms included.
 //
 // bf16 (x and out bf16, the weights fp32). The two TPU kernels round differently, so the
 // rounding is a template parameter beside the layout, and the dispatch below ties K4's

@@ -1,5 +1,5 @@
 // K3's backward blocks, shared by window_attention_bwd.cu (K3 bwd without dropout) and the
-// split route of fused_block_bwd.cu (K1 bwd and K4 bwd at stages 2-3, which runs
+// split route of fused_block_bwd_split.cu (K1 bwd and K4 bwd at stages 2-4, which runs
 // k3_bwd_kernel<DP, false> on the stored LN1(x) and g_y): the block kernel (a block per group
 // of windows, stream and group of heads recomputes q/k/v, g_o and AV and runs window_bwd.cuh's
 // core backward), its shared-memory layout and arguments, and the split route's g_x kernel
@@ -7,8 +7,10 @@
 // for its own products of C columns). The block's kDrop form (k3_bwd_kernel<DP, kFused, true>)
 // masks the attention weights: with a.keep set it reads the keep words that a recompute wrote
 // (the split route of K1's and K4's dropout backward), else it hashes them itself once a window
-// and head (K3's dropout backward, window_attention_bwd.cu). window_attention_bwd.cu's header
-// says what bounds them and why the design is so.
+// and head (K3's dropout backward, window_attention_bwd.cu). Above a row pitch of
+// kPassesPitchMax (d = 48, stage 4) the block runs window_bwd.cuh's core_bwd_tiled, which forms
+// AV too, in place of attention_core and core_bwd. window_attention_bwd.cu's header says what
+// bounds them and why the design is so.
 
 #pragma once
 
@@ -21,8 +23,11 @@ using namespace wbwd;
 
 constexpr int kRing = 2;  // ring slots of every product
 
-// Blocks an SM of the block kernel (its register bound): one from a q/k row pitch of 24 on,
-// where the rows pass holds three rows of DP floats a lane.
+// Blocks an SM of the block kernel (its register bound): two up to a q/k row pitch of 16, one
+// from 24 on. At 24 core_bwd's rows pass holds three rows of DP floats a lane and its columns
+// pass four; above kPassesPitchMax core_bwd_tiled needs far fewer, but the block's streamed
+// q/k/v product and g_o product alone spill at two blocks' 128 registers (so do the pitches up
+// to 16, ~300-570 bytes), and at one block's 255 the block spills nothing.
 __host__ __device__ constexpr int min_blocks(int dp) { return dp >= 24 ? 1 : 2; }
 
 // Byte offsets of the block kernel's dynamic shared memory (ops/window_attention.py::bwd_smem
@@ -31,9 +36,9 @@ __host__ __device__ constexpr int min_blocks(int dp) { return dp >= 24 ? 1 : 2; 
 // g_o in the core layout [hg][49][DP] (the fused route's g_x products put their weight ring
 // and a row buffer over them after the core); the rows pass's (1/sum, dot); the window's bias
 // with the wrap mask as -inf; the row, region and token tables, the q/k/v column offsets and
-// biases.
+// biases; above kPassesPitchMax, core_bwd_tiled's P and g_S rows of one head last.
 struct BwdLayout {
-  int ring_b, q, k, v, go, rd, bias, tabs, keep, total;
+  int ring_b, q, k, v, go, rd, bias, tabs, keep, ps, total;
 };
 
 // drop: the dropout form's keep words of the group's heads after the tables ([hg][49][2]).
@@ -58,6 +63,8 @@ __host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, i
   off += align16((3 * kRowsB + 2 * kColTable) * 4);
   L.keep = off;
   if (drop) off += align16(hg * kT * swin::kKeepWords * 4);
+  L.ps = off;
+  if (dp > kPassesPitchMax) off += tiled_core_bytes();
   L.total = off;
   return L;
 }
@@ -96,6 +103,7 @@ __device__ __forceinline__ void put_act(void* p, size_t i, float v, int is_bf16)
 // (wp's gradient reads it) and the core's backward with g_P masked and g_v from the dropped P.
 template <int DP, bool kFused, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const BwdArgs a) {
+  static_assert(!(kFused && DP > kPassesPitchMax), "the fused route keeps core_bwd's pitches");
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
   const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP, kDrop);
@@ -204,55 +212,67 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
     }
     __syncthreads();
     float* av = a.av + hrow * inner + c0;
-    attention_core<DP, false, kDrop>(
-        q_s, k_s, smem + L.v, nullptr, bias_s, hg, d,
-        [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; }, keep_s, a.drop_scale);
-    if constexpr (kFused) {
-      core_bwd<DP, kDrop>(
-          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab, [&](int t, int col, float v) { a_at(u, t, col) = v; },
-          [&](int t, int col, float gk, float gv) {
-            a_at(u, t, inner + col) = gk;
-            a_at(u, t, 2 * inner + col) = gv;
-          },
-          keep_s, a.drop_scale);
-      __syncthreads();
-      store_a(u, inner, a.gq + hrow * inner, inner, tok);
-      store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);
-      store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok);
-      // g_x = [g_q | g_k | g_v] [wq | wk | wv]^T, the weight ring and a row buffer over q/k/v/g_o
-      float* rowbuf = reinterpret_cast<float*>(smem + L.q + align16(b_bytes(false, C, kRing)));
-      const float* wt = a.wqkvT + static_cast<size_t>(s) * 3 * inner * C;
-      auto product = [&](const float* a0, int K, const float* w, auto store) {
-        const Gemm gm = weights(w, C, C, K);
-        with_tn(C, [&](auto tn) {
-          Tile<decltype(tn)::value> acc;
-          zero_tile(acc);
-          gemm_tile<decltype(tn)::value, kRing>(acc, gm, a0, a0, q_s);
-          each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; });
-        });
-        __syncthreads();
-        each_row_col(kT, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
-      };
-      if (a.cross) {
-        product(u, inner, wt, [&](size_t at, float v) { a.gxq[img * map + at] = v; });
-        __syncthreads();
-        product(u + inner * kPitchF, 2 * inner, wt + static_cast<size_t>(inner) * C,
-                [&](size_t at, float v) { a.gxkv[kv_img * map + at] = v; });
-      } else {
-        product(u, 3 * inner, wt, [&](size_t at, float v) { put_act(a.gx, img * map + at, v, a.bf16); });
-      }
-    } else {
+    auto av_out = [&](int t, int col, float v) { av[static_cast<size_t>(tok[t]) * inner + col] = v; };
+    if constexpr (DP > kPassesPitchMax) {
       float* gq = a.gq + hrow * inner + c0;
       float* gk = a.gk + hrow * inner + c0;
       float* gv = a.gv + hrow * inner + c0;
-      core_bwd<DP, kDrop>(
-          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
+      core_bwd_tiled<DP, kDrop>(
+          q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, reinterpret_cast<float*>(smem + L.ps), tab, av_out,
           [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
-          [&](int t, int col, float gkv, float gvv) {
-            gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
-            gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
-          },
-          keep_s, a.drop_scale);
+          [&](int u, int col, float v) { gk[static_cast<size_t>(tok[u]) * inner + col] = v; },
+          [&](int u, int col, float v) { gv[static_cast<size_t>(tok[u]) * inner + col] = v; }, keep_s,
+          a.drop_scale);
+    } else {
+      attention_core<DP, false, kDrop>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d, av_out, keep_s, a.drop_scale);
+      if constexpr (kFused) {
+        core_bwd<DP, kDrop>(
+            q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
+            [&](int t, int col, float v) { a_at(u, t, col) = v; },
+            [&](int t, int col, float gk, float gv) {
+              a_at(u, t, inner + col) = gk;
+              a_at(u, t, 2 * inner + col) = gv;
+            },
+            keep_s, a.drop_scale);
+        __syncthreads();
+        store_a(u, inner, a.gq + hrow * inner, inner, tok);
+        store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);
+        store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok);
+        // g_x = [g_q | g_k | g_v] [wq | wk | wv]^T, the weight ring and a row buffer over q/k/v/g_o
+        float* rowbuf = reinterpret_cast<float*>(smem + L.q + align16(b_bytes(false, C, kRing)));
+        const float* wt = a.wqkvT + static_cast<size_t>(s) * 3 * inner * C;
+        auto product = [&](const float* a0, int K, const float* w, auto store) {
+          const Gemm gm = weights(w, C, C, K);
+          with_tn(C, [&](auto tn) {
+            Tile<decltype(tn)::value> acc;
+            zero_tile(acc);
+            gemm_tile<decltype(tn)::value, kRing>(acc, gm, a0, a0, q_s);
+            each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; });
+          });
+          __syncthreads();
+          each_row_col(kT, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
+        };
+        if (a.cross) {
+          product(u, inner, wt, [&](size_t at, float v) { a.gxq[img * map + at] = v; });
+          __syncthreads();
+          product(u + inner * kPitchF, 2 * inner, wt + static_cast<size_t>(inner) * C,
+                  [&](size_t at, float v) { a.gxkv[kv_img * map + at] = v; });
+        } else {
+          product(u, 3 * inner, wt, [&](size_t at, float v) { put_act(a.gx, img * map + at, v, a.bf16); });
+        }
+      } else {
+        float* gq = a.gq + hrow * inner + c0;
+        float* gk = a.gk + hrow * inner + c0;
+        float* gv = a.gv + hrow * inner + c0;
+        core_bwd<DP, kDrop>(
+            q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
+            [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
+            [&](int t, int col, float gkv, float gvv) {
+              gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
+              gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
+            },
+            keep_s, a.drop_scale);
+      }
     }
   }
 

@@ -31,7 +31,13 @@
 //     another;
 //   split (a group of heads of at most 48 columns a q/k/v part: stages 2-4): the blocks write
 //     g_q, g_k, g_v, and gx_kernel forms g_x over 49-token tiles and column groups, the q side
-//     parked in a row buffer while the k/v side is summed.
+//     parked in a row buffer while the k/v side is summed. At d = 48 (stage 4, one head a block)
+//     the block's core is window_bwd.cuh's core_bwd_tiled: core_bwd's rows and columns passes
+//     held 144-192 floats a lane there (255 registers with ~800 bytes of spills, one block an
+//     SM), and its columns pass and attention_core's AV gave a head's 49 keys or rows one thread
+//     each; core_bwd_tiled keeps the head's P and g_S in shared memory and forms AV, g_q, g_k and
+//     g_v as four 49 x 49 by 49 x 48 products on 224 threads, one block an SM (255 registers,
+//     no spills).
 // Then one wgrad_rows_kernel launch for wq, wk, wv, wp and their biases and one fixed-order
 // reduction of every partial (window_core_bwd.cuh). The transposed weights (wp^T, [wq | wk |
 // wv]^T) come first, so that every product streams its weights through the same ring.
@@ -43,8 +49,8 @@
 // query row, hash_dropout.cuh::attention_keep_words) into shared memory; AV, wp's gradient's
 // operand, comes from the dropped P = drop(p); the core backward masks g_P = drop(g_o v^T) with
 // the same bits and scale, forms g_v from the dropped P and g_S = P (g_P - sum g_P P) from the
-// undropped P. A masked score has P = 0, so its keep bit never shows. The forward keeps
-// window_attention.cu's three launches.
+// undropped P. A masked score has P = 0, so its keep bit never shows. The forward is
+// window_attention_fwd.cu's.
 
 #include "k3_bwd.cuh"
 

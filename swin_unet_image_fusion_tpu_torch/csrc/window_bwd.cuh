@@ -385,6 +385,150 @@ __device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, con
   core_bwd_cols<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out, keep_w, drop_scale);
 }
 
+// ---- the core's backward at row pitches above kPassesPitchMax (d = 48: stage 4) -------------
+// core_bwd's passes keep three rows of DP floats a lane (the rows pass q, g_o and g_q; the
+// columns pass k, v, g_k and g_v): at DP = 48 that is 144-192 registers, which spill, and the
+// columns pass gives one thread to each of a head's 49 keys. Here a head's P and g_S go to
+// shared memory instead (2 x [49][kPP] floats), and every product of the head runs on 224 of
+// the 256 threads:
+//   the rows pass: lane (t, qd) forms the scores of its 13 keys, then their g_P = g_o v^T (two
+//     loops, so that only one operand's 13 column slices are in flight: with both, the block
+//     spilled even at 255 registers), each walking the head dimension four columns at a time
+//     (each dot product summed in column order), then exp, the row's sums over the four lanes,
+//     P = e / sum, g_S = P (g_P - dot), the bias-table gradient and the P (kDrop: the dropped
+//     P) and g_S rows;
+//   the products: AV = P v, g_q = scale g_S k, g_k = g_S^T q and g_v = P^T g_o, each 49 x 49 by
+//     49 x DP, a thread a 7-row x DP/8-column tile (56 tiles a product, each sum over the 49
+//     keys or query rows in order).
+// kDrop as core_bwd's: g_P masked by the keep words and drop_scale before dot and g_S, AV and
+// g_v from the dropped P, g_S from the undropped one. AV (wp's gradient's operand) is formed
+// here, so the block runs no attention_core.
+constexpr int kPassesPitchMax = 24;  // the largest row pitch core_bwd takes in a block
+constexpr int kPP = 52;              // floats a row of P and g_S: 49 keys padded to 16 bytes
+
+__host__ __device__ constexpr int tiled_core_bytes() { return align16(2 * kT * kPP * 4); }
+
+template <int DP, bool kDrop = false, typename AvOut, typename GqOut, typename GkOut, typename GvOut>
+__device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
+                               const float* bias_s, int heads, int d, float scale, float* ps,
+                               float (&tab)[kQuarter], AvOut av_out, GqOut gq_out, GkOut gk_out, GvOut gv_out,
+                               const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
+  constexpr int kTw = DP / 8;  // columns of a product tile: 8 column groups
+  static_assert(DP % 16 == 0 && kTw % 2 == 0, "the tiles load float2 pairs of the head dimension");
+  const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
+  const bool act = t < kT;
+  const int tq = act ? t : kT - 1;
+  const int u0 = qd * kQuarter;
+  const unsigned mask = 0xfu << (threadIdx.x & 28);  // the four lanes of this row
+  auto sum4 = [&](float v) {
+    v += __shfl_xor_sync(mask, v, 1);
+    return v + __shfl_xor_sync(mask, v, 2);
+  };
+  float* p_s = ps;             // [49][kPP]: P (kDrop: dropped)
+  float* g_s = ps + kT * kPP;  // [49][kPP]: g_S
+  const int job = threadIdx.x / 56, tile = threadIdx.x % 56, rg = tile % 7, cg = tile / 7;
+  for (int h = 0; h < heads; ++h) {
+    const float* qh = q_s + h * kT * DP;
+    const float* kh = k_s + h * kT * DP;
+    const float* vh = v_s + h * kT * DP;
+    const float* goh = go_s + h * kT * DP;
+    {  // the rows pass
+      float e[kQuarter], gp[kQuarter];
+#pragma unroll
+      for (int uu = 0; uu < kQuarter; ++uu) e[uu] = gp[uu] = 0.0f;
+      const float* qrow = qh + tq * DP;
+      const float* grow = goh + tq * DP;
+#pragma unroll 1
+      for (int j = 0; j < DP; j += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qrow + j);
+#pragma unroll
+        for (int uu = 0; uu < kQuarter; ++uu) {
+          const int u = min(u0 + uu, kT - 1);  // the last lane's keys past 48 repeat key 48, unused
+          const float4 k4 = *reinterpret_cast<const float4*>(kh + u * DP + j);
+          e[uu] = fmaf(q4.w, k4.w, fmaf(q4.z, k4.z, fmaf(q4.y, k4.y, fmaf(q4.x, k4.x, e[uu]))));
+        }
+      }
+#pragma unroll 1
+      for (int j = 0; j < DP; j += 4) {
+        const float4 g4 = *reinterpret_cast<const float4*>(grow + j);
+#pragma unroll
+        for (int uu = 0; uu < kQuarter; ++uu) {
+          const int u = min(u0 + uu, kT - 1);
+          const float4 v4 = *reinterpret_cast<const float4*>(vh + u * DP + j);
+          gp[uu] = fmaf(g4.w, v4.w, fmaf(g4.z, v4.z, fmaf(g4.y, v4.y, fmaf(g4.x, v4.x, gp[uu]))));
+        }
+      }
+      const uint32_t* kw = kDrop ? keep_w + (h * kT + tq) * swin::kKeepWords : nullptr;
+      float se = 0.0f, sg = 0.0f;
+#pragma unroll
+      for (int uu = 0; uu < kQuarter; ++uu) {
+        const int u = u0 + uu;
+        if (u < kT) {
+          e[uu] = expf(fminf(e[uu] + bias_s[tq * kT + u], kSoftmaxClamp));
+          if constexpr (kDrop) gp[uu] = swin::masked(swin::word_keep(kw, u), gp[uu], drop_scale);
+          se += e[uu];
+          sg = fmaf(e[uu], gp[uu], sg);
+        }
+      }
+      const float r = 1.0f / (sum4(se) + 1e-30f);
+      const float dot = sum4(sg) * r;
+#pragma unroll
+      for (int uu = 0; uu < kQuarter; ++uu) {
+        const int u = u0 + uu;
+        if (u < kT) {
+          const float p = e[uu] * r;
+          const float gs = p * (gp[uu] - dot);
+          tab[uu] += gs;
+          if (act) {
+            if constexpr (kDrop) p_s[t * kPP + u] = swin::masked(swin::word_keep(kw, u), p, drop_scale);
+            else p_s[t * kPP + u] = p;
+            g_s[t * kPP + u] = gs;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (job < 4) {  // the products: AV = P v, g_q = g_S k (rows t); g_k = g_S^T q, g_v = P^T g_o (rows u)
+      const bool by_t = job < 2;
+      const float* a = (job == 0 || job == 3 ? p_s : g_s) + (by_t ? rg * 7 * kPP : rg * 7);
+      const int si = by_t ? kPP : 1, sk = by_t ? 1 : kPP;  // strides of a tile row and of the sum's index
+      const float* b = (job == 0 ? vh : job == 1 ? kh : job == 2 ? qh : goh) + cg * kTw;
+      float acc[7][kTw];
+#pragma unroll
+      for (int i = 0; i < 7; ++i)
+#pragma unroll
+        for (int j = 0; j < kTw; ++j) acc[i][j] = 0.0f;
+#pragma unroll 7
+      for (int k = 0; k < kT; ++k) {
+        float bv[kTw];
+#pragma unroll
+        for (int j = 0; j < kTw; j += 2) {
+          const float2 b2 = *reinterpret_cast<const float2*>(b + k * DP + j);
+          bv[j] = b2.x, bv[j + 1] = b2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 7; ++i) {
+          const float av = a[i * si + k * sk];
+#pragma unroll
+          for (int j = 0; j < kTw; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 7; ++i)
+#pragma unroll
+        for (int j = 0; j < kTw; ++j) {
+          const int row = rg * 7 + i, col = cg * kTw + j;
+          if (col >= d) continue;
+          if (job == 0) av_out(row, h * d + col, acc[i][j]);
+          else if (job == 1) gq_out(row, h * d + col, acc[i][j] * scale);
+          else if (job == 2) gk_out(row, h * d + col, acc[i][j]);
+          else gv_out(row, h * d + col, acc[i][j]);
+        }
+    }
+    __syncthreads();  // the next head's rows pass writes P and g_S
+  }
+}
+
 // ---- weight gradients: partial[chunk] (Ka + 1, Nb) = [A | 1]^T B over a chunk of rows -----
 // One launch for every weight of a call (up to kMaxWgJobs jobs of their own shapes), a block
 // per (chunk of rows, job, group of output tiles). A thread holds a 4 x 4 output tile in

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("window_attention", "window_attention_fwd", "window_attention_bwd", "fused_block",
-                  "fused_block_fwd", "fused_block_bwd", "fused_block_bwd_split", "repartition", "dropout_mask")
+                  "fused_block_fwd", "fused_block_fwd_drop", "fused_block_bwd", "fused_block_bwd_split",
+                  "repartition", "dropout_mask")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -47,15 +47,16 @@ gradient. :func:`block_bwd_plan` routes it, with and without dropout alike: wher
 blocks fit in shared memory (C <= 48 in the default model) the fused route of
 ``csrc/fused_block_bwd.cu`` (seven launches: the transposed weights, the recomputed forward a
 block per group of windows, the MLP's backward over 49-token tiles, the attention's backward
-over windows, the LN1 backward, the weight gradients, one reduction); at C = 96 and 192
-(stages 2-3) the split route of ``csrc/fused_block_bwd_split.cu`` (eleven launches: the
-transposed weights, the forward recomputed on the forward's split route, the MLP's backward
-over 49-token tiles, K3's split backward block on the stored LN1(x) and g_y, the g_ln product
-with the LN1 backward, the weight gradients, one reduction); elsewhere (C = 384) the "five"
-route, ``swin_fused_block_bwd`` of ``csrc/fused_block.cu`` (twenty launches, the forward
-recomputed with its five). A dropout call runs each route's dropout form: the same launches,
-the masks in their epilogues and operand loads (below). ``_launch_bwd_five`` keeps the twenty
-launches callable at any shape, for timing in turns.
+over windows, the LN1 backward, the weight gradients, one reduction); at C = 96, 192 and 384
+(stages 2-4, d = 12, 24 and 48) the split route of ``csrc/fused_block_bwd_split.cu`` (eleven
+launches: the transposed weights, the forward recomputed on the forward's split route, the
+MLP's backward over 49-token tiles, K3's split backward block on the stored LN1(x) and g_y, at
+d = 48 with the tiled core of ``csrc/window_bwd.cuh``, the g_ln product with the LN1 backward,
+the weight gradients, one reduction); elsewhere (shapes of no stage of the default model) the
+"five" route, ``swin_fused_block_bwd`` of ``csrc/fused_block.cu`` (twenty launches, the
+forward recomputed with its five). A dropout call runs each route's dropout form: the same
+launches, the masks in their epilogues and operand loads (below). ``_launch_bwd_five`` keeps
+the twenty launches callable at any shape, for timing in turns.
 ``fused_block_bwd_plain`` is the plain backward (autograd of the plain version); it differs
 from the kernels only where a score exceeds the softmax clamp of 80, whose derivative the
 kernels, like the TPU's, do not take. For a bf16 x, K1 and K4 alike, both compute what the
@@ -76,8 +77,8 @@ kernels (fp32 or bf16; the masks do not depend on the dtype), counted in
 ``DROP_LAUNCHES`` and ``DROP_BWD_LAUNCHES`` (``BF16_DROP_LAUNCHES`` and
 ``BF16_DROP_BWD_LAUNCHES`` in bf16); without dropout a bf16 call counts in
 ``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES``. The forward's dropout form is
-``csrc/fused_block_fwd.cu``'s, one launch or six as :func:`block_fwd_plan` lays them out: the
-attention's keep bits hashed where the fp32 core uses them, or for K4's bf16 core once per
+``csrc/fused_block_fwd_drop.cu``'s (the kDrop forms of the same kernels), one launch or six as
+:func:`block_fwd_plan` lays them out: the attention's keep bits hashed where the fp32 core uses them, or for K4's bf16 core once per
 window and head into shared memory (two 32-bit words a query row; p masked before its
 rounding), the token sites masked in the epilogues of proj, fc1 (before the hidden's rounding)
 and fc2; it stores no keep bits. The backward's dropout
@@ -136,7 +137,7 @@ from .window_pack import pack_windows, unpack_windows
 
 LN_EPS = 1e-5
 # the LayerNorm backward kernel's limit (csrc/window_core_bwd.cuh), and the forward's split
-# route's (csrc/fused_block_fwd.cu's kMaxC)
+# route's (csrc/fused_block_fwd.cuh's kMaxC)
 MAX_CHANNELS = 384
 LAYOUTS = ("image", "windows")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
@@ -335,8 +336,11 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_library() -> ctypes.CDLL:
-    lib = _build.load("fused_block_fwd")
+def _fwd_library(drop: bool = False) -> ctypes.CDLL:
+    """``csrc/fused_block_fwd.cu`` (the forms without dropout) or, with ``drop``,
+    ``csrc/fused_block_fwd_drop.cu`` (the dropout forms): one C interface, a library each, so
+    that the two build at once."""
+    lib = _build.load("fused_block_fwd_drop" if drop else "fused_block_fwd")
     lib.swin_k4_fwd.argtypes = [_P] * 23 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 16 + [ctypes.c_float, _P]
     lib.swin_k4_fwd.restype = _I
     lib.swin_k4_fwd_smem.argtypes = [_I] * 11
@@ -363,7 +367,7 @@ def _split_library() -> ctypes.CDLL:
     drop = ctypes.POINTER(dl.DropArgs)
     lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 18 + [ctypes.c_float, _P]
     lib.swin_block_bwd_split.restype = _I
-    lib.swin_block_bwd_split_workspace.argtypes = [_I] * 13
+    lib.swin_block_bwd_split_workspace.argtypes = [_I] * 14
     lib.swin_block_bwd_split_workspace.restype = ctypes.c_size_t
     lib.swin_block_bwd_split_smem.argtypes = [_I] * 10
     lib.swin_block_bwd_split_smem.restype = ctypes.c_size_t
@@ -511,9 +515,10 @@ def block_fwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
 BWD_KERNELS = ("forward", "mlp", "attention")  # the fused route's three block kernels
 # the split route's kernels with dynamic shared memory, in the source's kind order: the
 # recomputed attention, its projection rows and fc1, the MLP backward, K3's backward block,
-# the g_ln product with the LN1 backward
-SPLIT_KERNELS = ("attention", "rows", "fc1", "mlp", "attention_bwd", "gln")
-SPLIT_PITCHES = (12, 24)  # the split route's q/k row pitches: d = 12 and 24, stages 2-3
+# the g_ln product with the LN1 backward, the stepped MLP backward's LN2 epilogue, the grouped
+# g_ln product's LN1 epilogue
+SPLIT_KERNELS = ("attention", "rows", "fc1", "mlp", "attention_bwd", "gln", "ln2", "ln1")
+SPLIT_PITCHES = (12, 24, 48)  # the split route's q/k row pitches: d = 12, 24 and 48, stages 2-4
 BWD_PITCH_MAX = 8  # the fused route's q/k row pitches (4 or 8)
 _BWD_RING = 2  # weight-ring slots of the block kernels
 _LN1_ROWS = 128
@@ -571,9 +576,12 @@ def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg
     step's g_pre resident, the LN2 statistics and gradient sums; K3's backward block as
     ``window_attention.bwd_smem`` lays it out; the g_ln product (``gln_layout``) its A ring (2 x
     16 x 60 floats) and weight ring (2 x 16 x the column group), LN1(x)'s gradient [49][C] (two
-    sides under cross), the row table, LN1 statistics and gradient sums. ``drop`` (the dropout
-    form) adds the recomputed attention's token hashes and slots and its heads' keep words, the
-    MLP backward's unit hashes at three sites and slots, and K3's block's keep words."""
+    sides under cross), the row table, LN1 statistics and gradient sums; the LN2 epilogue
+    (``split_ln2_layout``) g_lny [49][C], the LN2 statistics and sums; the LN1 epilogue
+    (``split_ln1_layout``) g_ln [49][C] (two sides under cross), the LN1 statistics and sums.
+    ``drop`` (the dropout form) adds the recomputed attention's token hashes and slots and its
+    heads' keep words, the MLP backward's unit hashes at three sites and slots, the LN2
+    epilogue's at the proj site and slots, and K3's block's keep words."""
     pitch = next(p for p in FWD_PITCHES if d <= p)
     if kernel in ("attention", "rows", "fc1"):
         return block_smem(kernel, False, cross, c, inner, hg_fwd, d, pitch, max_cols(False), drop)
@@ -587,6 +595,10 @@ def split_smem(kernel: str, c: int, inner: int, d: int, hc: int, hg_fwd: int, hg
     if kernel == "gln":
         ring = _ring_a_bytes(False, 1, _BWD_RING) + _b_bytes(False, twa.gx_width(c), _BWD_RING)
         return _align16(ring) + (2 if cross else 1) * _align16(_T * c * 4) + _align16(64 * 4 + 64 * 8 + 2 * c * 4)
+    if kernel == "ln2":
+        return _align16(_T * c * 4) + _align16(64 * 8 + 2 * c * 4) + (_align16(2 * 64 * 4) if drop else 0)
+    if kernel == "ln1":
+        return (2 if cross else 1) * _align16(_T * c * 4) + _align16(64 * 8 + 2 * c * 4)
     raise ValueError(f"unknown kernel {kernel!r}; expected one of {SPLIT_KERNELS}")
 
 
@@ -610,8 +622,11 @@ class BlockBwdPlan:
     ``blocks_per_sm[0]`` blocks an SM; K3's split backward block on LN1(x) and g_y,
     ``heads_per_block[1]`` heads a block in ``groups`` groups, ``blocks_per_sm[1]`` blocks an
     SM; the g_ln product with the LN1 backward in its epilogue, ``blocks_per_sm[2]`` blocks an
-    SM; the weight gradients, one reduction) or "five" (``csrc/fused_block.cu``'s backward, twenty launches); ``smem``:
-    (kernel, dynamic shared-memory bytes) of the route's kernels (the five route's largest)."""
+    SM; the weight gradients, one reduction; ``split_steps``: at pitch 48 the MLP backward's
+    hidden steps and the g_ln product's column groups, each a block of a 49-token tile (the
+    LN2 and LN1 epilogues then one launch more each), else (1, 1)) or "five" (``csrc/fused_block.cu``'s
+    backward, twenty launches); ``smem``: (kernel, dynamic shared-memory bytes) of the route's kernels (the five route's
+    largest)."""
 
     route: str
     launches: int
@@ -621,6 +636,7 @@ class BlockBwdPlan:
     blocks_per_sm: Tuple[int, ...] = ()
     heads_per_block: Tuple[int, ...] = ()
     groups: int = 1
+    split_steps: Tuple[int, int] = (1, 1)
 
     def blocks(self, s: int, b: int, h: int, w: int, sms: int = DEFAULT_SMS) -> Tuple[int, ...]:
         """Blocks of each kernel whose blocks walk a list of items, one wave of the card: on
@@ -646,11 +662,11 @@ def block_bwd_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, i
     window's blocks fit a block's shared memory: 7x7 windows, d <= 8, C and heads*d
     multiples of 8, 3 heads*d <= 144 and C <= 144 (one product's columns), the hidden a
     multiple of 4, stepped through in chunks of at most 144 columns. Else the split route
-    where d rounds up to a row pitch of 12 or 24 (stages 2-3 of the default model), C <= 384,
-    the forward's fp32 plan and K3's backward plan both take their split routes (heads in
-    groups of at most 48 columns a q/k/v part) and every kernel fits a block's shared memory.
-    Else the five-launch backward, which takes C <= 384 (its LayerNorm kernel): at stage 4
-    (d = 48) the split route fits but lost to it at 448² batch 4 (``PERF.md`` §6)."""
+    where d rounds up to a row pitch of 12, 24 or 48 (stages 2-4 of the default model), C <=
+    384, the forward's fp32 plan and K3's backward plan both take their split routes (heads in
+    groups of at most 48 columns a q/k/v part) and every kernel fits a block's shared memory
+    (at C = 384 the MLP backward's 224 KB, one block an SM). Else the five-launch backward,
+    which takes C <= 384 (its LayerNorm kernel) and no shape of the default model."""
     inner = heads * d
     pitch = next((p for p in FWD_PITCHES if d <= p), None)
     cols = max_cols(False)
@@ -697,8 +713,12 @@ def _split_plan(c: int, heads: int, d: int, hidden: int, window: Tuple[int, int]
     if max(max(b for _, b in smem), wgrad) > SMEM_LIMIT_BYTES:
         return None
     two = {kernel: 2 if b <= SMEM_TWO_PER_SM else 1 for kernel, b in smem}
+    # stepped and grouped only at pitch 48 (C = 384, stage 4, split_mlp_steps and split_gln_groups
+    # in the source): its MLP backward holds one block an SM, and stages 2-3 keep their bits (a
+    # moved epilogue need not fuse its multiply-adds as before)
+    steps = (-(-hidden // hc), -(-c // twa.gx_width(c))) if pitch == SPLIT_PITCHES[-1] else (1, 1)
     return BlockBwdPlan("split", 11, pitch, hc, smem, (two["mlp"], k3.blocks_per_sm, two["gln"]),
-                        hg, heads // k3.heads_per_block)
+                        hg, heads // k3.heads_per_block, steps)
 
 
 def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: int, hidden: int,
@@ -709,7 +729,9 @@ def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d
     bias table (per K3 block), LN2 (per MLP block) and LN1 (per g_ln block) and the
     weight-gradient launch's chunks (about sixteen working blocks an SM: each
     job's own tile groups, ``wg_working_blocks`` in the source); ``drop`` (the dropout form):
-    then g_m and g_proj of every token and the keep words of every (image, window, head)."""
+    then g_m and g_proj of every token and the keep words of every (image, window, head); at
+    pitch 48 (``plan.split_steps``) each hidden step's g_lny and g_ln's two sides of every
+    token."""
     inner, m = heads * d, b * h * w
     sm = s * m
     mlp_blocks, k3_blocks, gln_blocks = blocks
@@ -722,6 +744,8 @@ def split_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d
     pieces.append(s * _wgrad_chunks(m, max(1, working // 2)) * sum((ka + 1) * nb for ka, nb in shapes))
     if drop:
         pieces += [sm * c, sm * c, keep_words_floats(s, b, h, w, heads)]
+    steps, groups = plan.split_steps
+    pieces += ([steps * sm * c] if steps > 1 else []) + ([2 * sm * c] if groups > 1 else [])
     return sum(_round_up(p, 32) for p in pieces)
 
 
@@ -770,7 +794,8 @@ def _drop_args(x, kw):
 def _launch_fwd(x, weights, kw) -> torch.Tensor:
     """The fp32 kernels for an fp32 x, their bf16 form (K4's or K1's rounding, by layout)
     for a bf16 x: never an upcast. K4 and K1, with and without dropout, launch the forward
-    of ``csrc/fused_block_fwd.cu`` (:func:`block_fwd_plan`, a dropout call its dropout form):
+    of ``csrc/fused_block_fwd.cu`` (:func:`block_fwd_plan`; a dropout call its dropout form, in
+    ``csrc/fused_block_fwd_drop.cu``):
     one launch, or six with the split route's scratch (LN1(x), AV window-major and the MLP
     hidden in the operands' dtype: bf16 where K4 rounds them, fp32 for fp32 and for K1, which
     never rounds them; y in fp32)."""
@@ -797,7 +822,7 @@ def run_fwd(x, weights, kw, shift: int) -> torch.Tensor:
     ops = rounds_operands(x.dtype, kw["layout"])
     drop = _drop_args(x, kw)
     plan = block_fwd_plan(c, heads, d, hidden, (wh, ww), bool(kw["cross"]), ops, drop is not None)
-    lib = _fwd_library()
+    lib = _fwd_library(drop is not None)
     out = torch.empty_like(x)
     scratch = [None] * 4
     if plan.route == "split":
@@ -853,8 +878,8 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     the weight gradients fp32; K1 and K4 alike) for a bf16 x, with or without dropout.
     :func:`block_bwd_plan` routes the call ("fused": ``csrc/fused_block_bwd.cu``, "split":
     ``csrc/fused_block_bwd_split.cu``, each in its dropout form for a dropout call); the
-    "five" route (C = 384) runs ``csrc/fused_block.cu``'s backward. A call whose route fails to
-    build or launch raises: no route falls back to another."""
+    "five" route (no stage of the default model) runs ``csrc/fused_block.cu``'s backward. A
+    call whose route fails to build or launch raises: no route falls back to another."""
     global BWD_LAUNCHES, BF16_BWD_LAUNCHES, DROP_BWD_LAUNCHES, BF16_DROP_BWD_LAUNCHES
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -907,7 +932,8 @@ def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
 
 def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tensor, ...]:
     """``csrc/fused_block_bwd_split.cu``, eleven launches (the dropout form for a dropout
-    call): x, g and g_x in x's dtype, the weight gradients fp32, the workspace
+    call; one more each at pitch 48, where ``plan.split_steps`` steps the MLP backward and
+    groups the g_ln product): x, g and g_x in x's dtype, the weight gradients fp32, the workspace
     (:func:`split_workspace_floats`) fp32."""
     s, b, h, w, c, heads, d, hidden, wh, ww = _dims(x, weights, kw)
     cross = bool(kw["cross"])
@@ -931,8 +957,8 @@ def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
 
 
 def _launch_bwd_five(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
-    """``csrc/fused_block.cu``'s backward (the five route, C = 384, with and without dropout;
-    callable at any shape for timing in turns): it recomputes with the five launches and runs
+    """``csrc/fused_block.cu``'s backward (the five route, with and without dropout; callable
+    at any shape for timing in turns): it recomputes with the five launches and runs
     twenty in all (with dropout, its ``dropout_rows_kernel`` launches too). Counts nothing
     (:func:`_launch_bwd` does)."""
     dims = _dims(x, weights, kw)

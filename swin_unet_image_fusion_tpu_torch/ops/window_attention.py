@@ -425,12 +425,17 @@ BWD_KERNELS = ("attention", "gx")  # the block kernel; the split route's g_x ker
 BWD_RING = 2
 BWD_COLS = 144
 BWD_FUSED_PITCHES = (4, 8)  # the fused route's q/k row pitches
+# the largest q/k row pitch whose block runs csrc/window_bwd.cuh's core_bwd passes; above it (d =
+# 48) the block runs core_bwd_tiled, with a head's P and g_S rows ([49][52] floats each) in
+# shared memory
+PASSES_PITCH_MAX = 24
+_TILED_CORE_BYTES = 2 * 49 * 52 * 4
 _WG_SLAB, _WG_TARGET_BLOCKS, _WG_RECT = 64, 132 * 8, 16  # csrc/window_bwd.cuh's kWgSlab, kWgTargetBlocks, kWgRect
 
 
 def _bwd_blocks_per_sm(pitch: int, smem: int) -> int:
     """Blocks an SM of the block kernel: its register bound (``min_blocks`` in the source, one
-    from a row pitch of 24 on) and its shared memory."""
+    from a row pitch of 24 on, the tiled core's pitch 48 too) and its shared memory."""
     return 1 if pitch >= 24 or smem > SMEM_TWO_PER_SM else 2
 
 
@@ -443,7 +448,8 @@ def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitc
     [hg][49][pitch] (on the fused route at least the g_x product's ring, 2 x 16 x C, and a row
     buffer [49][C]); the rows pass's (1/sum, dot) per (head, row); the masked bias table; the
     row, region and token tables, the column offsets and biases; ``drop`` (the dropout form)
-    adds the keep words of the block's heads ([hg][49][2] 32-bit words)."""
+    adds the keep words of the block's heads ([hg][49][2] 32-bit words); above
+    ``PASSES_PITCH_MAX`` the tiled core's P and g_S rows of one head come last."""
     n = hg * d
     qkv = _align16(hg * _T * pitch * 4)
     ring = _ring_a_bytes(False, 2 if cross else 1, BWD_RING) + _b_bytes(False, 3 * n, BWD_RING)
@@ -451,7 +457,8 @@ def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitc
     gx = _align16(_b_bytes(False, c, BWD_RING)) + _align16(_T * c * 4) if fused else 0
     total += max(4 * qkv, gx)
     total += _align16(hg * _T * 8) + _align16(_T * _T * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
-    return total + (keep_words_bytes(hg) if drop else 0)
+    total += keep_words_bytes(hg) if drop else 0
+    return total + (_TILED_CORE_BYTES if pitch > PASSES_PITCH_MAX else 0)
 
 
 def keep_words_bytes(heads: int) -> int:

@@ -244,7 +244,7 @@ def test_dropout_decomposition_matches_the_plain_backward_bf16(geo, shift, cross
 # (stage, C, d, hidden, the library function the dropout call reaches, the drop pointer's index)
 STAGES = ((0, 24, 3, 96, "swin_block_bwd", 4), (1, 48, 6, 192, "swin_block_bwd", 4),
           (2, 96, 12, 384, "swin_block_bwd_split", 4), (3, 192, 24, 768, "swin_block_bwd_split", 4),
-          (4, 384, 48, 1536, "swin_fused_block_bwd", 3))
+          (4, 384, 48, 1536, "swin_block_bwd_split", 4))
 FUNCTIONS = ("swin_block_bwd", "swin_block_bwd_split", "swin_fused_block_bwd")
 
 
@@ -254,8 +254,8 @@ FUNCTIONS = ("swin_block_bwd", "swin_block_bwd_split", "swin_fused_block_bwd")
 def test_a_dropout_call_reaches_its_route_with_its_dropout_arguments(fake_library, stage, c, d, hidden, function,
                                                                      at, dtype, layout):
     """A dropout call at stages 0-1 reaches ``swin_block_bwd`` (the fused route's dropout form),
-    at stages 2-3 ``swin_block_bwd_split`` (the split route's), at stage 4 ``swin_fused_block_bwd``
-    (twenty launches), each once with a non-null pointer to the call's dropout arguments (the
+    at stages 2-4 ``swin_block_bwd_split`` (the split route's; never ``swin_fused_block_bwd``,
+    the twenty launches), each once with a non-null pointer to the call's dropout arguments (the
     keying of the layout's TPU kernel, each site's hash base, threshold and scale, a site of
     rate 0 off) and the workspace that the plan sizes with the dropout pieces; the call counts
     once in its dtype's dropout counter and nowhere else."""
@@ -274,11 +274,10 @@ def test_a_dropout_call_reaches_its_route_with_its_dropout_arguments(fake_librar
     key = tfb.block_keying(layout, HW, WINDOW, True, 8, d, "cpu")
     assert drop.units == key.units and drop.attn_mode == key.attn_mode
     plan = tfb.block_bwd_plan(c, 8, d, hidden, WINDOW, True, True)
-    if stage < 4:
-        blocks = plan.blocks(2, 1, *HW)
-        sizes = (tfb.bwd_workspace_floats(2, 1, *HW, c, 8, d, hidden, blocks, True, True) if stage < 2 else
-                 tfb.split_workspace_floats(2, 1, *HW, c, 8, d, hidden, plan, blocks, True))
-        assert args[3] == sizes
+    blocks = plan.blocks(2, 1, *HW)
+    sizes = (tfb.bwd_workspace_floats(2, 1, *HW, c, 8, d, hidden, blocks, True, True) if stage < 2 else
+             tfb.split_workspace_floats(2, 1, *HW, c, 8, d, hidden, plan, blocks, True))
+    assert args[3] == sizes
     bf16 = dtype == BF16
     assert (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES) == (
         before[0], before[1], before[2] + 1 - bf16, before[3] + bf16)
@@ -293,6 +292,7 @@ def test_the_plan_counts_the_masks_shared_memory(cross):
     words lie over the row buffer, dead during the core: stage 1 keeps two blocks an SM); the
     split route's recomputed attention the hashes and slots (2 x 64 x 4) and its group's keep
     words, its MLP backward the hashes (4 x 64 x 4), K3's block its group's keep words, the
+    stepped MLP backward's LN2 epilogue the proj site's hashes and slots (2 x 64 x 4), the
     rest nothing. Every route keeps its launches and blocks an SM."""
     words = lambda heads: heads * 49 * 2 * 4
     for c, heads, d, hidden in GEOMETRIES:
@@ -306,7 +306,7 @@ def test_the_plan_counts_the_masks_shared_memory(cross):
         else:
             hg_fwd, hg_bwd = drop.heads_per_block
             assert added == {"attention": 2 * 64 * 4 + words(hg_fwd), "rows": 0, "fc1": 0, "mlp": 4 * 64 * 4,
-                             "attention_bwd": words(hg_bwd), "gln": 0}
+                             "attention_bwd": words(hg_bwd), "gln": 0, "ln2": 2 * 64 * 4, "ln1": 0}
 
 
 def test_the_workspace_counts_the_masks_buffers():

@@ -1,10 +1,10 @@
 """The launch plan of the fused block's backward without dropout (K1 bwd and K4 bwd), on the
 CPU: ``block_bwd_plan``'s route, launches, shared memory and workspace at every stage of the
 default model at 224² batch 20, 512² and 100x90 (the fused route of
-``csrc/fused_block_bwd.cu`` where one window's block fits, its split route at stages 2-3, the
-five-launch backward of ``csrc/fused_block.cu`` at stage 4), the same plan for both dtypes,
-what ``_launch_bwd`` hands the kernels (a fake library that checks ctypes' argument counts),
-that stage 4 keeps ``swin_fused_block_bwd`` with and without dropout while dropout at stage 0
+``csrc/fused_block_bwd.cu`` where one window's block fits, its split route at stages 2-4), the
+same plan for both dtypes, what ``_launch_bwd`` hands the kernels (a fake library that checks
+ctypes' argument counts), that stage 4 reaches ``swin_block_bwd_split`` with and without
+dropout and never the twenty launches of ``csrc/fused_block.cu`` while dropout at stage 0
 takes the fused route, and that shapes no backward takes raise before any launch
 (``tests/test_torch_block_bwd_drop.py`` holds the dropout form's plan at every stage). The kernels themselves run in ``tests/test_torch_kernel_gpu.py`` and
 ``chip_smoke.py``."""
@@ -38,36 +38,37 @@ def test_plan_of_each_shape(k, c, hidden, cross, hw, batch):
     """Stages 0-1 (C <= 48) take the fused route: seven launches, every head in a block (q/k
     row pitch 4 or 8), the hidden in steps of at most 144 columns, each of the three block
     kernels two blocks an SM within the 113 KB that allows (and the 227 KB a block may use);
-    stages 2-3 (C = 96 and 192) the split route: eleven launches, the recomputed attention and
-    K3's backward block in groups of four heads of d = 12 (stage 2) or two of d = 24 (stage
-    3), the MLP backward two blocks an SM at C = 96 and one at C = 192, the g_ln product two;
-    stage 4 (C = 384, whose
-    MLP backward would need 292 KB) the five-launch backward (twenty launches), whose core
-    backward fits. The fused and split routes' workspaces are what the tokens need (fused:
-    LN1(x) and its statistics, q, k, v, AV, y, g_y, g_o, LN2(y), the hidden and g_pre,
-    g_q/g_k/g_v, g_ln and under cross its k/v side; split the same but q, k, v, g_o and g_ln) plus
-    the transposed weights and partial sums, which stay below 64 MB."""
+    stages 2-4 (C = 96, 192 and 384) the split route: eleven launches, the recomputed attention
+    and K3's backward block in groups of four heads of d = 12 (stage 2), two of d = 24 (stage 3)
+    or one of d = 48 (stage 4, K3's block on its tiled core, one block an SM), the MLP backward
+    two blocks an SM at C = 96 and one at C = 192 and 384 (224 KB), the g_ln product two but at
+    C = 384 under cross (174 KB), where the MLP backward is stepped (a block a hidden step of
+    144 columns) and the g_ln product grouped (a block a column group of 128). The fused and
+    split routes' workspaces are what the tokens need (fused: LN1(x) and its statistics, q, k,
+    v, AV, y, g_y, g_o, LN2(y), the hidden and g_pre, g_q/g_k/g_v, g_ln and under cross its k/v
+    side; split the same but q, k, v, g_o and g_ln, and at stage 4 each hidden step's g_lny and
+    g_ln's two sides) plus the transposed weights and partial sums, which stay below 64 MB."""
     d = CFG.dims_per_head(c)
     plan = tfb.block_bwd_plan(c, CFG.att_num_heads, d, hidden, CFG.window_size, cross)
     assert all(0 < smem <= tfb.SMEM_LIMIT_BYTES for _, smem in plan.smem)
     h, w = _stage_map(hw, k)
-    if k == 4:
-        assert (plan.route, plan.launches, plan.blocks_per_sm) == ("five", 20, ())
-        assert [kind for kind, _ in plan.smem] == ["core_bwd"]
-        return
     if k > 1:
-        assert (plan.route, plan.launches, plan.pitch) == ("split", 11, {12: 12, 24: 24}[d])
-        assert plan.heads_per_block == {12: (4, 4), 24: (2, 2)}[d] and plan.groups == 8 // plan.heads_per_block[1]
+        assert (plan.route, plan.launches, plan.pitch) == ("split", 11, {12: 12, 24: 24, 48: 48}[d])
+        assert plan.heads_per_block == {12: (4, 4), 24: (2, 2), 48: (1, 1)}[d]
+        assert plan.groups == 8 // plan.heads_per_block[1]
         assert plan.hidden_chunk == min(hidden, 144) and [kind for kind, _ in plan.smem] == list(tfb.SPLIT_KERNELS)
         assert plan.smem == tuple((kernel, tfb.split_smem(kernel, c, c, d, plan.hidden_chunk, *plan.heads_per_block,
                                                          cross)) for kernel in tfb.SPLIT_KERNELS)
-        assert plan.blocks_per_sm == ({96: 2, 192: 1}[c], {12: 2, 24: 1}[d], 2)
+        assert plan.blocks_per_sm == ({96: 2, 192: 1, 384: 1}[c], {12: 2, 24: 1, 48: 1}[d],
+                                      1 if c == 384 and cross else 2)
         mlp_blocks, k3_blocks, gln_blocks = blocks = plan.blocks(2, batch, h, w)
         assert 1 <= min(mlp_blocks, gln_blocks) and max(mlp_blocks, gln_blocks) <= min(batch * h * w // 49,
                                                                                       tfb.DEFAULT_SMS)
         assert 1 <= k3_blocks <= min(batch * (h // 7) * (w // 7), tfb.DEFAULT_SMS)
         floats = tfb.split_workspace_floats(2, batch, h, w, c, CFG.att_num_heads, d, hidden, plan, blocks)
-        per_token = 8 * c + 2 + 2 * hidden
+        steps, groups = plan.split_steps
+        assert (steps, groups) == ({1536: 11, 768: 6}[hidden], 3) if d == 48 else (steps, groups) == (1, 1)
+        per_token = 8 * c + 2 + 2 * hidden + (steps + 2 * (groups > 1)) * c * (d == 48)
         assert 0 <= floats - 2 * batch * h * w * per_token < 16 * 2**20
         return
     assert (plan.route, plan.launches) == ("fused", 7)
@@ -132,10 +133,11 @@ def test_plan_raises_where_no_backward_takes_the_shape(what, c, heads, d, hidden
 
 
 def test_shapes_outside_the_fused_route_take_the_five_launches():
-    """Outside the fused route, the split route takes heads of d = 12 and 24 (row pitches 12
-    and 24: d = 20 in groups of two, d = 12 in groups of four); another window, d <= 8 with
-    more than 144 q/k/v columns, the other row pitches (d = 32, 48) or a hidden that is not a
-    multiple of 4 run the five-launch backward, which takes any of them."""
+    """Outside the fused route, the split route takes heads of d = 12, 24 and 48 (row pitches
+    12, 24 and 48: d = 20 in groups of two, d = 12 in groups of four, d = 48 one a block);
+    another window, d <= 8 with more than 144 q/k/v columns, the other row pitches (d = 16, 32)
+    or a hidden that is not a multiple of 4 run the five-launch backward, which takes any of
+    them."""
     assert tfb.block_bwd_plan(24, 8, 3, 96, (8, 8), True).route == "five"
     assert tfb.block_bwd_plan(64, 2, 32, 256, (7, 7), True).route == "five"
     plan = tfb.block_bwd_plan(80, 4, 20, 320, (7, 7), True)
@@ -144,7 +146,7 @@ def test_shapes_outside_the_fused_route_take_the_five_launches():
     assert tfb.block_bwd_plan(64, 4, 16, 256, (7, 7), True).route == "five"
     assert tfb.block_bwd_plan(64, 8, 8, 256, (7, 7), True).route == "five"
     assert tfb.block_bwd_plan(24, 8, 3, 98, (7, 7), True).route == "five"
-    assert tfb.block_bwd_plan(384, 8, 48, 1536, (7, 7), False).route == "five"
+    assert tfb.block_bwd_plan(384, 8, 48, 1536, (7, 7), False).route == "split"
     assert tfb.block_bwd_plan(16, 2, 8, 64, (7, 7), True).route == "fused"
 
 
@@ -258,20 +260,28 @@ def test_both_dtypes_hand_the_kernels_one_plan(fake_library, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("case", ["stage4", "stage4-dropout", "stage0-dropout"])
+@pytest.mark.parametrize("case", ["stage4", "stage4-dropout", "stage0-dropout", "five", "five-dropout"])
 def test_five_route_and_dropout_run_the_five_launch_backward(fake_library, dtype, case):
-    """Stage 4's shape (C = 384, d = 48) runs ``swin_fused_block_bwd`` (twenty launches) with
-    and without dropout; stage 0's with dropout runs the fused route's dropout form
-    (``swin_block_bwd`` with the call's dropout arguments). A dropout call counts in its
-    dtype's dropout counter, a call without dropout in its dtype's counter."""
-    stage4 = case.startswith("stage4")
+    """Stage 4's shape (C = 384, d = 48) runs the split route (``swin_block_bwd_split``) with
+    and without dropout, never the twenty launches of ``swin_fused_block_bwd``; stage 0's with
+    dropout runs the fused route's dropout form (``swin_block_bwd`` with the call's dropout
+    arguments); a shape outside the default model that plans "five" (d = 16, a row pitch neither
+    route takes) runs ``swin_fused_block_bwd`` with and without dropout, the dropout arguments
+    its fourth. A dropout call counts in its dtype's dropout counter, a call without dropout in
+    its dtype's counter."""
+    stage = case.split("-")[0]
     drop = case.endswith("dropout")
-    c, d, hidden = (384, 48, 1536) if stage4 else (24, 3, 96)
+    c, d, hidden = {"stage4": (384, 48, 1536), "stage0": (24, 3, 96), "five": (128, 16, 512)}[stage]
+    assert (tfb.block_bwd_plan(c, 8, d, hidden, (7, 7), True, drop).route == "five") == (stage == "five")
     x, weights = _block_args(c, 8, d, hidden, dtype)
     extra = dict(drop_rates=(0.1, 0.0, 0.1), drop_seed=4) if drop else {}
     before = (tfb.BWD_LAUNCHES, tfb.BF16_BWD_LAUNCHES, tfb.DROP_BWD_LAUNCHES, tfb.BF16_DROP_BWD_LAUNCHES)
     tfb._launch_bwd(torch.zeros_like(x), x, weights, _kw(d, **extra))
-    if stage4:
+    if stage == "stage4":
+        (args,) = fake_library.calls["swin_block_bwd_split"]
+        assert "swin_block_bwd" not in fake_library.calls and "swin_fused_block_bwd" not in fake_library.calls
+        pointer = args[4]
+    elif stage == "five":
         (args,) = fake_library.calls["swin_fused_block_bwd"]
         assert "swin_block_bwd" not in fake_library.calls and "swin_block_bwd_split" not in fake_library.calls
         pointer = args[3]
@@ -297,8 +307,10 @@ def test_the_split_plan_counts_every_buffer():
     (96 x 60), the step's g_pre (144 x 60), the LN2 statistics and sums; K3's block its rings
     (2 x 16 x 60 of both streams, 2 x 16 x 144 weights), q/k/v/g_o [4][49][12], the row sums,
     the bias and tables; the g_ln product's rings (2 x 16 x 60, 2 x 16 x 96), both sides of
-    LN1(x)'s gradient [49][96], the row table, LN1 statistics and sums. At stage 3 (C = 192) the
-    MLP backward's g_lny sums and g double: 136 KB, one block an SM."""
+    LN1(x)'s gradient [49][96], the row table, LN1 statistics and sums; the stepped MLP
+    backward's LN2 epilogue the g_lny sums [49][96], the LN2 statistics and sums; the grouped g_ln
+    product's LN1 epilogue both sides of LN1(x)'s gradient, the LN1 statistics and sums. At stage
+    3 (C = 192) the MLP backward's g_lny sums and g double: 136 KB, one block an SM."""
     tables = 9616 + (2 * 64 + 3 * 192) * 4
     attention = 3 * 2 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 3 * (4 * 49 * 12 * 4) + tables
     mlp = 2 * 16 * 144 * 4 + 49 * 96 * 4 + 96 * 60 * 4 + 144 * 60 * 4 + 64 * 8 + 2 * 96 * 4
@@ -306,8 +318,9 @@ def test_the_split_plan_counts_every_buffer():
     gln = 2 * 16 * 60 * 4 + 2 * 16 * 96 * 4 + 2 * 49 * 96 * 4 + 64 * 4 + 64 * 8 + 2 * 96 * 4
     plan = tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True)
     rows, fc1 = 6 * 16 * 60 * 4 + 6 * 16 * 48 * 4 + 2 * 64 * 4, 3 * 16 * 60 * 4 + 3 * 16 * 144 * 4 + 64 * 4
+    ln2, ln1 = 49 * 96 * 4 + 64 * 8 + 2 * 96 * 4, 2 * 49 * 96 * 4 + 64 * 8 + 2 * 96 * 4
     assert plan.smem == (("attention", attention), ("rows", rows), ("fc1", fc1), ("mlp", mlp),
-                         ("attention_bwd", k3), ("gln", gln))
+                         ("attention_bwd", k3), ("gln", gln), ("ln2", ln2), ("ln1", ln1))
     assert (attention, mlp, k3) == (91_344, 96_128, 84_912) and mlp <= tfb.SMEM_TWO_PER_SM
     stage3 = dict(tfb.block_bwd_plan(192, 8, 24, 768, (7, 7), True).smem)["mlp"]
     assert stage3 == mlp + 49 * 96 * 4 + 96 * 60 * 4 + 96 * 4 * 2 == 138_752 > tfb.SMEM_TWO_PER_SM
@@ -367,8 +380,9 @@ def test_split_route_gets_x_g_and_gradients_in_their_dtypes(fake_library, dtype,
     plan = tfb.block_bwd_plan(96, 8, 12, 384, (7, 7), True)
     blocks = plan.blocks(2, 1, 14, 14)
     assert blocks == (4, 4, 4)  # one per 49-token tile, one per window, one per tile
+    assert plan.split_steps == (1, 1)  # only stage 4 (pitch 48) steps its MLP backward
     assert made[ws].dtype == torch.float32 and made[ws].numel() == floats
-    assert floats == tfb.split_workspace_floats(2, 1, 14, 14, 96, 8, 12, 384, plan, blocks)
+    assert floats == tfb.split_workspace_floats(2, 1, 14, 14, 96, 8, 12, 384, plan, blocks, False)
     bf16 = dtype == torch.bfloat16
     # S, B, H, W, C, heads, d, hidden, hidden step, heads a block (recompute, K3 block), blocks
     # (MLP, K3, g_ln), shift, cross, windows, bf16

@@ -218,7 +218,7 @@ def fake_library(monkeypatch):
         monkeypatch.setattr(module, "_library", lambda: lib)
     monkeypatch.setattr(twa, "_fwd_library", lambda: lib)
     monkeypatch.setattr(twa, "_bwd_library", lambda: lib)
-    monkeypatch.setattr(tfb, "_fwd_library", lambda: lib)
+    monkeypatch.setattr(tfb, "_fwd_library", lambda drop=False: lib)
     monkeypatch.setattr(tfb, "_bwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_split_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())

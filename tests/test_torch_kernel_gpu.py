@@ -924,8 +924,8 @@ def test_k4_forward_plan_agrees_with_the_kernels_shared_memory():
 
 def _check_block_backward(layout, hw, batch, dtype, stages):
     """The backward without dropout (``_launch_bwd``: ``csrc/fused_block_bwd.cu`` where
-    ``block_bwd_plan`` routes "fused" (stages 0-1) or "split" (stages 2-3),
-    ``csrc/fused_block.cu``'s backward at stage 4) in ``layout`` against the plain backward and
+    ``block_bwd_plan`` routes "fused" (stages 0-1), ``csrc/fused_block_bwd_split.cu`` where it
+    routes "split" (stages 2-4)) in ``layout`` against the plain backward and
     against the five-launch backward (``_launch_bwd_five``) in every stage x MLP width x shift
     x cross case of ``stages`` at ``hw`` and ``batch``: every fp32 gradient by
     ``testing.assert_grads_close``, a bf16 g_x by the bf16 kernel criteria; each call counted
@@ -945,7 +945,7 @@ def _check_block_backward(layout, hw, batch, dtype, stages):
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift,
                               cross=cross, layout=layout, hw=(h, w))
                     route = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross).route
-                    assert route == ("fused" if k < 2 else "split" if k < 4 else "five"), (k, route)
+                    assert route == ("fused" if k < 2 else "split"), (k, route)
                     before = getattr(tfb, counter)
                     got = tfb._launch_bwd(g, xl, weights, kw)
                     again = tfb._launch_bwd(g, xl, weights, kw)
@@ -966,9 +966,8 @@ def _check_block_backward(layout, hw, batch, dtype, stages):
 
 def _check_block_backward_drop(layout, hw, batch, dtype, stages):
     """The backward's dropout form (``_launch_bwd`` with every site at rate 0.1 and at 0.5: the
-    fused route's at stages 0-1, the split route's at 2-3, ``csrc/fused_block.cu``'s backward
-    at stage 4) in ``layout`` against the plain dropout backward and against the twenty-launch
-    dropout backward (``_launch_bwd_five``) in every stage x MLP width x shift x cross case of
+    fused route's at stages 0-1, the split route's at 2-4) in ``layout`` against the plain dropout
+    backward and against the twenty-launch dropout backward (``_launch_bwd_five``) in every stage x MLP width x shift x cross case of
     ``stages`` at ``hw`` and ``batch``: every fp32 gradient by ``testing.assert_grads_close``,
     a bf16 g_x by the bf16 kernel criteria; each call counted once in its dtype's dropout
     counter and repeated bit for bit."""
@@ -988,7 +987,7 @@ def _check_block_backward_drop(layout, hw, batch, dtype, stages):
                     kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=shift, cross=cross,
                               layout=layout, hw=(h, w), drop_rates=(rate,) * 3, drop_seed=DROP_SEED + k)
                     route = tfb.block_bwd_plan(c, heads, d, hidden, (7, 7), cross, True).route
-                    assert route == ("fused" if k < 2 else "split" if k < 4 else "five"), (k, route)
+                    assert route == ("fused" if k < 2 else "split"), (k, route)
                     before = getattr(tfb, counter)
                     got = tfb._launch_bwd(g, xl, weights, kw)
                     again = tfb._launch_bwd(g, xl, weights, kw)
@@ -1007,37 +1006,49 @@ def _check_block_backward_drop(layout, hw, batch, dtype, stages):
                             assert_grads_close(got, other, ("x", *tfb.WEIGHT_NAMES), f"{what} vs {name}")
 
 
+# (map, batch, stages) of the block backward's card checks: every stage of a 224² batch-2 step
+# and of a 100x90 map, and stage 4 (C = 384, 14x14) of a 448² step at batch 5 (a block a
+# 49-token tile of the stepped MLP backward and the grouped g_ln product) and batch 20 (80
+# tiles a stream: their blocks walk several tiles each)
+BLOCK_BWD_MAPS = [((224, 224), 2, range(5)), ((100, 90), 1, range(5)), ((448, 448), 5, (4,)), ((448, 448), 20, (4,))]
+BLOCK_BWD_IDS = ["224x2", "100x90", "448x5-stage4", "448x20-stage4"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["image", "windows"])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
-def test_block_dropout_backward_matches_plain_and_twenty_launches_at_every_stage_on_card(hw, batch, dtype,
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(4)), ((100, 90), 1, range(4)),
+                                             ((448, 448), 5, (4,)), ((448, 448), 20, (4,))], ids=BLOCK_BWD_IDS)
+def test_block_dropout_backward_matches_plain_and_twenty_launches_at_every_stage_on_card(hw, batch, stages, dtype,
                                                                                          layout):
-    """K4's (image) and K1's (windows) dropout backward at stages 0-3, the dropout form of the
-    fused route at stages 0-1 and of the split route at 2-3 (``_check_block_backward_drop``)."""
+    """K4's (image) and K1's (windows) dropout backward at stages 0-3 and at the 448² stage 4
+    (batch 5 and 20), the dropout form of the fused route at stages 0-1 and of the split route
+    at 2-4 (``_check_block_backward_drop``)."""
     _need_card()
-    _check_block_backward_drop(layout, hw, batch, dtype, range(4))
+    _check_block_backward_drop(layout, hw, batch, dtype, stages)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
-def test_k4_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
+@pytest.mark.parametrize("hw,batch,stages", BLOCK_BWD_MAPS, ids=BLOCK_BWD_IDS)
+def test_k4_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, stages, dtype):
     """K4 bwd (the image layout) at every stage: the fused route of
-    ``csrc/fused_block_bwd.cu`` at stages 0-1, its split route at 2-3, the five-launch backward
-    at 4 (``_check_block_backward``)."""
+    ``csrc/fused_block_bwd.cu`` at stages 0-1, the split route of
+    ``csrc/fused_block_bwd_split.cu`` at 2-4 (``_check_block_backward``)."""
     _need_card()
-    _check_block_backward("image", hw, batch, dtype, range(5))
+    _check_block_backward("image", hw, batch, dtype, stages)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("hw,batch", [((224, 224), 2), ((100, 90), 1)], ids=["224x2", "100x90"])
-def test_k1_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, dtype):
-    """K1 bwd (window-packed tokens) at the stages ``cuda_pack`` packs (0-3): the fused route
-    at stages 0-1, the split route at 2-3 (``_check_block_backward``)."""
+@pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(4)), ((100, 90), 1, range(4)),
+                                             ((448, 448), 5, (4,)), ((448, 448), 20, (4,))], ids=BLOCK_BWD_IDS)
+def test_k1_backward_matches_plain_and_five_launch_backward_at_every_stage_on_card(hw, batch, stages, dtype):
+    """K1 bwd (window-packed tokens) at the stages ``cuda_pack`` packs (0-3), and at the 448²
+    stage 4 that the split route also takes in the windows layout: the fused route at stages
+    0-1, the split route at 2-4 (``_check_block_backward``)."""
     _need_card()
-    _check_block_backward("windows", hw, batch, dtype, range(4))
+    _check_block_backward("windows", hw, batch, dtype, stages)
 
 
 @pytest.mark.gpu
@@ -1072,7 +1083,8 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
                         assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
                             0, 0, int(cross), c, heads, d, hg_bwd, int(drop))
                         blocks = plan.blocks(2, 20, h, w, sms)
-                        assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden, hg_bwd, *blocks,
+                        assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden,
+                                                                    plan.hidden_chunk, hg_bwd, *blocks,
                                                                     int(drop)) == \
                             tfb.split_workspace_floats(2, 20, h, w, c, heads, d, hidden, plan, blocks, drop), what
                     if plan.route != "fused":
@@ -1137,11 +1149,12 @@ def _check_k3_backward(hw, batch, dtype, stages, rate=0.0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(5)), ((100, 90), 1, range(5)),
-                                             ((512, 512), 1, (4,))], ids=["224x2", "100x90", "512-stage4"])
+                                             ((512, 512), 1, (4,)), ((448, 448), 5, (4,))],
+                         ids=["224x2", "100x90", "512-stage4", "448x5-stage4"])
 def test_k3_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, stages, dtype):
-    """K3 bwd at every stage of a 224² batch-2 step and a 100x90 map, and at the 512² stage-4
-    shape (21², C = 384): the fused route at stages 0-1, the split route at 2-4
-    (``_check_k3_backward``)."""
+    """K3 bwd at every stage of a 224² batch-2 step and a 100x90 map, and at the 512² and 448²
+    batch-5 stage-4 shapes (21² and 14², C = 384, d = 48 on the tiled core): the fused route at
+    stages 0-1, the split route at 2-4 (``_check_k3_backward``)."""
     _need_card()
     _check_k3_backward(hw, batch, dtype, stages)
 
@@ -1150,7 +1163,8 @@ def test_k3_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 @pytest.mark.parametrize("hw,batch,stages", [((224, 224), 2, range(5)), ((100, 90), 1, range(5)),
-                                             ((512, 512), 1, (4,))], ids=["224x2", "100x90", "512-stage4"])
+                                             ((512, 512), 1, (4,)), ((448, 448), 5, (4,))],
+                         ids=["224x2", "100x90", "512-stage4", "448x5-stage4"])
 def test_k3_dropout_backward_matches_plain_and_three_launch_backward_on_card(hw, batch, stages, rate, dtype):
     """K3's dropout backward, the attention site at ``rate``: the dropout form of the fused
     route at stages 0-1 and of the split route at 2-4 (``_check_k3_backward``)."""

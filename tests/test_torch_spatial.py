@@ -198,7 +198,7 @@ class _FakeLibrary:
 @pytest.mark.parametrize("row0,code", [(0, 1), (2, 2)])
 def test_k1_band_launch_hands_the_row_seam_code(monkeypatch, row0, code):
     lib = _FakeLibrary()
-    monkeypatch.setattr(tfb, "_fwd_library", lambda: lib)
+    monkeypatch.setattr(tfb, "_fwd_library", lambda drop=False: lib)
     monkeypatch.setattr(twp, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
