@@ -4884,6 +4884,342 @@ def multi_device_phases(flat, device, card):
     return result
 
 
+# ---- the relu and gelu MLP forms of K1 and K4 ----------------------------------------------
+ACTIVATIONS = ("relu", "gelu")  # the forms beside the default model's ELU
+ACT_HW, ACT_BATCH = (224, 224), 2  # the kernel checks' stage shapes: stage 0 (fused) and stage 2 (split)
+ACT_FIVE = (28, 28, 128, 8, 16, 512)  # (H, W, C, heads, d, hidden): C = 128 with 8 heads of 16 routes "five"
+ACT_ITERS = 10  # timed calls of each form, in turns with the ELU form
+
+
+def _act_counts():
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    return dict(tfb.ACTIVATION_LAUNCHES), dict(tfb.ACTIVATION_BWD_LAUNCHES)
+
+
+def _reset_act_counts():
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+
+    reset_counts()
+    for counts in (tfb.ACTIVATION_LAUNCHES, tfb.ACTIVATION_BWD_LAUNCHES):
+        for act in counts:
+            counts[act] = 0
+
+
+def _act_cases(device):
+    """(label, case, x, weights) of the activation checks: the encoder block of stages 0 and
+    2 of a 224² batch-2 step with shift and cross, and the five route's shape."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+
+    for case, x, weights in block_cases(ModelConfig(), device, False, ACT_HW, ACT_BATCH, stages=(0, 2)):
+        k, *_, role, _, shift, cross = case
+        if role == "enc" and shift and cross:
+            yield f"stage {k}", case, x, weights
+    h, w, c, heads, d, hidden = ACT_FIVE
+    x, *weights = block_inputs(h, w, c, heads, d, hidden, SEED + 70, device, ACT_BATCH)
+    yield "five-route shape", (5, h, w, c, heads, d, "enc", hidden, True, True), x, weights
+
+
+RELU_MARGIN = 1e-5  # |z| below which the kernel's and the plain version's relu' may differ
+
+
+def relu_cotangent(g, x, weights, kw):
+    """``g`` with its windows zeroed wherever a pre-activation of the MLP lies within
+    RELU_MARGIN of 0 (by the plain version's z), in both streams. relu' jumps at 0, and the
+    kernel's and the plain version's z differ by rounding (~1e-6), so such a unit may take the
+    other side; its g_pre then differs by g_h, and the attention's backward spreads that over
+    its window (under cross the other stream's too). With no gradient through those windows,
+    the kernel and the plain backward compute the same function. Returns (g, the share of
+    (image, window) pairs zeroed)."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.ops.window_pack import pack_windows, unpack_windows
+
+    seen = []
+    mlp_out = tfb._mlp_out
+
+    def spy(z, *args):
+        seen.append(z.abs().amin(dim=(0, 3, 4)))  # (B, nWin) of the block's windows
+        return mlp_out(z, *args)
+
+    tfb._mlp_out = spy
+    try:
+        with torch.no_grad():
+            tfb.fused_block_plain(x, *weights, **kw)
+    finally:
+        tfb._mlp_out = mlp_out
+    near = seen[0] < RELU_MARGIN
+    image = kw["layout"] == "image"
+    gw = pack_windows(g, WINDOW, kw["shift"]) if image else g.clone()
+    gw[:, near] = 0
+    g = unpack_windows(gw, tuple(g.shape[2:4]), WINDOW, kw["shift"]) if image else gw
+    return g.contiguous(), near.float().mean().item()
+
+
+def check_activation_kernels(device, card):
+    """``[act]``: every relu and gelu form of K1 (windows layout) and K4 (image layout) against
+    its plain version on the same inputs, each repeated bit for bit: the forward in fp32 and bf16
+    at stage 0 (the one-launch route) and stage 2 (the split route), its dropout form (every rate
+    0.1), the backward on the fused (stage 0), split (stage 2) and five (C = 128, 8 heads of 16)
+    routes and its dropout form at stages 0 and 2; at the five route's shape also the five-launch
+    forward it recomputes with. Each form timed in turns with the ELU form at the same shape.
+    Returns the worst errors and times by kernel-line key ("K4 gelu", "K1 relu bwd", ...)."""
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    worst, times = {}, {}
+
+    def tally(key, err, ms, elu_ms, plain, bound, bound_by):
+        t = times.setdefault(key, dict(ms=0.0, elu_ms=0.0, plain_ms=0.0, bound_ms=0.0, by={}, library_ms=None))
+        t["ms"] += ms
+        t["elu_ms"] += elu_ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += bound
+        t["by"][bound_by] = t["by"].get(bound_by, 0.0) + bound
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    drop = dict(drop_rates=DROP_RATIOS, drop_seed=DROP_SEED)
+    for label, case, x, weights in _act_cases(device):
+        k, h, w, c, heads, d, role, hidden, shift, cross = case
+        five = k == 5
+        expected = "five" if five else "fused" if k < 2 else "split"
+        for name, layout in (("K1", "windows"), ("K4", "image")):
+            xl, kw = fused_args(case, x, layout)
+            g0 = torch.randn(xl.shape, generator=torch.Generator().manual_seed(SEED + k)).to(device)
+            shape = f"{label} {h}x{w}x{ACT_BATCH} C={c} heads={heads} d={d} hidden={hidden}"
+            for act in ACTIVATIONS:
+                kwa, elu = dict(kw, activation=act), dict(kw, activation="elu")
+                forms = [("bwd", False, torch.float32), ("drop bwd", True, torch.float32)] if not five else [
+                    ("bwd", False, torch.float32)]
+                fwd = [] if five else [("", False, torch.float32), (" bf16", False, BF16), (" drop", True, torch.float32)]
+                for suffix, dropping, dtype in fwd:
+                    a = dict(kwa, **drop) if dropping else kwa
+                    e = dict(elu, **drop) if dropping else elu
+                    xd = xl.to(dtype)
+                    out, again = tfb.fused_block(xd, *weights, **a), tfb.fused_block(xd, *weights, **a)
+                    torch.cuda.synchronize()
+                    what = f"[act] {name} {act}{suffix} {shape}"
+                    err, _ = compare_kernel(out, tfb.fused_block_plain(xd, *weights, **a), what)
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{what}: a repeat gave other bits")
+                    elu_ms, ms = _in_turns(lambda: tfb.fused_block(xd, *weights, **e),
+                                           lambda: tfb.fused_block(xd, *weights, **a), ACT_ITERS, 2)
+                    plain = time_ms(lambda: tfb.fused_block_plain(xd, *weights, **a), iters=2, warmup=1)
+                    ops = tfb.block_fwd_plan(c, heads, d, hidden, WINDOW, cross, tfb.rounds_operands(dtype, layout),
+                                             dropping)
+                    bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, ACT_BATCH, dtype=dtype, layout=layout)
+                    print(f"[time] {name} {act}{suffix} {shape} ({ops.route}): {ms:.4f} ms, ELU form {elu_ms:.4f} ms "
+                          f"in turns, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                    tally(f"{name} {act}{' bf16' if dtype == BF16 else ''}" if not dropping else f"{name} {act} drop",
+                          err, ms, elu_ms, plain, bound, bound_by)
+                if five:
+                    out = tfb._launch_five(xl, weights, kwa)
+                    compare_kernel(out, tfb.fused_block_plain(xl, *weights, **kwa),
+                                   f"[act] {name} {act} five launches {shape}")
+                for suffix, dropping, dtype in forms:
+                    a = dict(kwa, **drop) if dropping else kwa
+                    e = dict(elu, **drop) if dropping else elu
+                    route = tfb.block_bwd_plan(c, heads, d, hidden, WINDOW, cross, dropping).route
+                    what = f"[act] {name} {act} {suffix} {shape} ({route})"
+                    if route != expected:
+                        raise AssertionError(f"{what}: the plan routes {route!r}, expected {expected!r}")
+                    g = g0
+                    if act == "relu":
+                        g, zeroed = relu_cotangent(g0, xl, weights, a)
+                        what += f", g zeroed on {zeroed:.2%} of the windows (relu' at |z| < {RELU_MARGIN})"
+                    got, again = tfb._launch_bwd(g, xl, weights, a), tfb._launch_bwd(g, xl, weights, a)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                        raise AssertionError(f"{what}: a repeat gave other bits")
+                    del again
+                    check = assert_grads_close(got, tfb.fused_block_bwd_plain(g, xl, *weights, **a),
+                                               ("x", *tfb.WEIGHT_NAMES), what)
+                    del got
+                    print(f"{what}: max_abs_err {check.worst:.3e}, {check.worst_own:.3e} of a gradient's own "
+                          f"largest; repeated bit for bit", flush=True)
+                    elu_ms, ms = _in_turns(lambda: tfb._launch_bwd(g, xl, weights, e),
+                                           lambda: tfb._launch_bwd(g, xl, weights, a), ACT_ITERS // 2, 1)
+                    plain = time_ms(lambda: tfb.fused_block_bwd_plain(g, xl, *weights, **a), iters=2, warmup=1)
+                    bound, bound_by = block_bound_ms(h, w, c, heads, d, hidden, ACT_BATCH, backward=True)
+                    print(f"[time] {name} {act} {suffix} {shape} ({route}): {ms:.4f} ms, ELU form {elu_ms:.4f} ms "
+                          f"in turns, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}", flush=True)
+                    tally(f"{name} {act} {suffix}", check.worst, ms, elu_ms, plain, bound, bound_by)
+        torch.cuda.empty_cache()
+    for key in sorted(times):
+        t = times[key]
+        t["bound_by"] = max(t.pop("by").items(), key=lambda kv: kv[1])[0]
+        print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}; summed over its cases {t['ms']:.4f} ms, the ELU "
+              f"form in turns {t['elu_ms']:.4f} ms ({t['ms'] / t['elu_ms'] - 1:+.1%}), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms | {card}", flush=True)
+    return worst, times
+
+
+# an activation step's gradients against the plain step's: each within STEP_NORM of the reference
+# in the L2 norm, and at most STEP_FAR of all elements off by more than 1e-3 of their tensor's largest
+STEP_NORM = {"relu": 5e-2, "gelu": 1e-3}
+STEP_FAR = {"relu": 1e-2, "gelu": 1e-4}
+
+
+def step_grads(grads, ref_grads, act, what):
+    """An activation train step's gradients against the step on the fused block's plain version,
+    by norm and by the share of far elements, not element by element: at the default batch a few
+    gradients that cancellation makes tiny (stage 2's bias tables, ~1e-6) miss the elementwise
+    tolerance under gelu by up to 2.5x (the erf and exp of the kernels and of torch differ in
+    the last place; an NVIDIA H100), and under relu relu' jumps at 0: the kernels recompute z in
+    another order than the plain version (~1e-6 apart), so the units within rounding of 0 among a
+    step's ~10^9 may take the other side, each moving g of its window's tokens (both streams) and
+    so the gradients of every layer below it (5e-4 to 1.4e-3 of a bias table's norm on an NVIDIA
+    H100). A wrong derivative on a route (ELU' in place of ReLU', say, which differ on every
+    negative z) moves whole tensors by tens of percent. As in ``testing.assert_grads_close``, a
+    gradient made by cancellation (stage 4's q/k, 1e-12 to 1e-10 of the step's largest) is held to
+    a floor, 1e-6 of the largest norm and 1e-8 of the largest magnitude, and one exactly 0 by
+    construction (``testing.exact_zero``) to the largest. Returns what was held, for the parity
+    line; raises beyond it."""
+    from swin_unet_image_fusion_tpu_torch.testing import exact_zero
+
+    call = max(float(ref.abs().max()) for ref in ref_grads.values())
+    largest = max(float(ref.norm()) for ref in ref_grads.values())
+    worst, far, total = (0.0, ""), 0, 0
+    for name, ref in ref_grads.items():
+        got = grads[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: the gradient of {name} is not finite")
+        zero = exact_zero(name)
+        rel = float((got - ref).norm()) / (largest if zero else max(float(ref.norm()), 1e-6 * largest))
+        worst = max(worst, (rel, name))
+        scale = call if zero else max(float(ref.abs().max()), 1e-8 * call)
+        far += int(((got - ref).abs() > 1e-3 * scale).sum())
+        total += ref.numel()
+    print(f"[act] {what}: the farthest gradient {worst[1]} at {worst[0]:.3e} of its norm; {far} of {total} "
+          f"elements off by more than 1e-3 of their tensor's largest", flush=True)
+    if worst[0] > STEP_NORM[act]:
+        raise AssertionError(f"{what}: the gradient of {worst[1]} is {worst[0]:.3e} of its norm away, more than "
+                             f"{STEP_NORM[act]}")
+    if far > STEP_FAR[act] * total:
+        raise AssertionError(f"{what}: {far} of {total} gradient elements are off by more than 1e-3 of their "
+                             f"tensor's largest, more than {STEP_FAR[act]} of them")
+    return (f"within {worst[0]:.3e} of their norms (held to {STEP_NORM[act]}), {far} of {total} elements off by "
+            f"more than 1e-3 of their tensor's largest (held to {STEP_FAR[act]} of them)")
+
+
+def activation_models(flat, device, card):
+    """The main paths of the relu and gelu forms, each run with the counts set to 0 just
+    before it and read just after: the full-width model (``ModelConfig(mlp_activation=...)``)
+    served by ``Fuser.fuse_y`` at 512² under ``cuda_pack`` and ``cuda_block`` in fp32 and
+    bf16, held against the torch composition on the card (fp32 within MODEL_ATOL/RTOL, bf16 by
+    the image criteria against the bf16 and fp32 compositions); then one train step each at
+    224² batch 20 under ``cuda_pack`` and ``cuda_block`` with exact forward and backward launch
+    counts, its loss terms and every parameter gradient held against the same step with the
+    fused block's plain version on the card (its backward follows the TPU kernels': the erf
+    form under gelu). Returns the launches by kernel-line key."""
+    from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig
+    from swin_unet_image_fusion_tpu_torch.models import layers
+    from swin_unet_image_fusion_tpu_torch.ops import fused_block as tfb
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    launches = {}
+    rng = np.random.default_rng(SEED + 80)
+    ir = rng.random((1, *SERVE_HW, 1), dtype=np.float32)
+    vis = rng.random((1, *SERVE_HW, 1), dtype=np.float32)
+    for act in ACTIVATIONS:
+        def fuser(impl, dtype="float32"):
+            return Fuser(Config(model=ModelConfig(attention_impl=impl, compute_dtype=dtype, mlp_activation=act)),
+                         flat, device=device)
+
+        plain32, plain16 = fuser("torch"), fuser("torch", "bfloat16")
+        ref32 = plain32.fuse_y(ir, vis)
+        ref16 = plain16.fuse_y(ir, vis)
+        for impl in ("cuda_pack", "cuda_block"):
+            name = FUSED_NAME[impl]
+            for dtype in ("float32", "bfloat16"):
+                served = fuser(impl, dtype)
+                torch.cuda.synchronize()
+                _reset_act_counts()
+                out = served.fuse_y(ir, vis)
+                torch.cuda.synchronize()
+                got, (fwd, bwd) = read_counts(impl), _act_counts()
+                suffix = " bf16" if dtype == "bfloat16" else ""
+                expected = {n: 0 for n in got}
+                expected.update({f"{n}{suffix}": v for n, v in CONFIGS[impl][SERVE_HW].items()})
+                print(f"[act] {act} fuse_y {impl}{suffix} {SERVE_HW}: launches {got}, {act} forms {fwd[act]}",
+                      flush=True)
+                if got != expected or fwd != {a: expected[f"{name}{suffix}"] if a == act else 0 for a in fwd}:
+                    raise AssertionError(f"{act} {impl}{suffix}: launches {got} and {fwd}, expected {expected}")
+                check_fused(out, (1, *SERVE_HW, 1))
+                if dtype == "float32":
+                    err = float(np.abs(out - ref32).max())
+                    print(f"[parity] {act} {impl} {SERVE_HW}: kernels vs torch composition on the card, fuse_y "
+                          f"max_abs_err {err:.3e}", flush=True)
+                    np.testing.assert_allclose(out, ref32, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+                else:
+                    check_bf16_fidelity(f"{act} {impl}", SERVE_HW, out, ref16, ref32)
+                launches[f"{name} {act}{suffix}"] = fwd[act]
+                del served
+        del plain32, plain16
+        torch.cuda.empty_cache()
+
+    # the steps at the default batch, as train_configs' (at batch 2 two elements of a q gradient
+    # made by cancellation, 1e-6 of the step's largest, missed the elementwise tolerance)
+    trng = np.random.default_rng(SEED + 81)
+    tir, tvis = (torch.from_numpy(trng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+                 for _ in range(2))
+
+    def plain_block(x, *weights, **kw):
+        return tfb.fused_block_plain(x, *weights, **kw)
+
+    for act in ACTIVATIONS:
+        for impl in ("cuda_pack", "cuda_block"):
+            name = FUSED_NAME[impl]
+            cfg = Config(model=ModelConfig(attention_impl=impl, mlp_activation=act))
+            first = {}
+            for form in ("kernels", "plain"):
+                state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+                step = make_train_step(cfg)
+                torch.cuda.synchronize()
+                kernel_block = layers.fused_block
+                if form == "plain":
+                    layers.fused_block = plain_block
+                try:
+                    _reset_act_counts()
+                    terms = step(state, tir, tvis)
+                    torch.cuda.synchronize()
+                    got, (fwd, bwd) = read_counts(impl), _act_counts()
+                finally:
+                    layers.fused_block = kernel_block
+                grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+                first[form] = ({k: float(v) for k, v in terms.items()}, grads)
+                if form == "kernels":
+                    expected = {n: 0 for n in got}
+                    expected.update(TRAIN_CONFIGS[impl])
+                    want = {a: expected[name] if a == act else 0 for a in fwd}
+                    want_bwd = {a: expected[f"{name} bwd"] if a == act else 0 for a in bwd}
+                    print(f"[act] {act} train step {impl} {TRAIN_HW} bs={TRAIN_BATCH}: launches {got}, {act} "
+                          f"forms {fwd[act]} forward and {bwd[act]} backward", flush=True)
+                    if got != expected or fwd != want or bwd != want_bwd:
+                        raise AssertionError(f"{act} {impl} train step: launches {got}, {fwd}, {bwd}; expected "
+                                             f"{expected}, {want}, {want_bwd}")
+                    launches[f"{name} {act} bwd"] = bwd[act]
+                del state, step
+            (terms, grads), (ref_terms, ref_grads) = first["kernels"], first["plain"]
+            for k, v in terms.items():
+                if abs(v - ref_terms[k]) > 1e-5 * abs(ref_terms[k]):
+                    raise AssertionError(f"{act} {impl} step: {k} {v} vs the plain block's {ref_terms[k]}")
+            rel = max(abs(terms[k] - ref_terms[k]) / max(abs(ref_terms[k]), 1e-30) for k in terms)
+            held = step_grads(grads, ref_grads, act, f"{act} {impl} step")
+            print(f"[parity] {act} {impl} train step vs the fused block's plain version on the card: loss terms "
+                  f"max relative difference {rel:.3e}, {len(ref_grads)} gradients {held} | {card}", flush=True)
+            del first
+            torch.cuda.empty_cache()
+    return launches
+
+
+def activation_phase(flat, device, card):
+    """``[act]``: :func:`check_activation_kernels` and :func:`activation_models`. Returns the
+    worst errors, times and main-path launches of the relu and gelu forms."""
+    worst, times = check_activation_kernels(device, card)
+    launches = activation_models(flat, device, card)
+    return worst, times, launches
+
+
 class Phases:
     """Prints each phase's wall seconds on its own line, and the run's so far."""
 
@@ -4934,9 +5270,16 @@ def main() -> int:
         serving_eval_phases(random_variables(ModelConfig(), seed=SEED), device, card)
         phase("[colour], [test], [tiled], [canny], [metrics] and [flops]")
         return 0
+    if sys.argv[1:] == ["--activation"]:
+        # the relu and gelu forms alone; no kernels line and no last line
+        _build.build_all()
+        phase("build")
+        activation_phase(random_variables(ModelConfig(), seed=SEED), device, card)
+        phase("[act]")
+        return 0
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the options are --serving-eval and "
-              "--multi-device", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the options are --serving-eval, "
+              "--multi-device and --activation", file=sys.stderr)
         return 2
     _build.build_all()
     phase("build")
@@ -5034,6 +5377,11 @@ def main() -> int:
     times.update(band_times)
     launches.update(band_launches)
     phase("[dist], [spatial] and [tiled] world 1")
+    act_worst, act_times, act_launches = activation_phase(flat, device, card)
+    worst.update(act_worst)
+    times.update(act_times)
+    launches.update(act_launches)
+    phase("[act] relu and gelu forms of K1 and K4")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -5124,6 +5472,20 @@ def main() -> int:
         ("K2 halo", "repartition_halo_fwd on a band with its neighbour's window row (K2 halo: one launch over "
          "the band's rows, the halo row read in place)", f"{csrc}/repartition.cu",
          "swin_unet_image_fusion_tpu/ops/pallas_pack_spmd.py:329"),
+        # the relu and gelu MLP forms (the activation a runtime code of every route, activation.cuh;
+        # gelu's forward in the tanh form, its backward in the erf form, as the TPU kernels')
+        *((f"{name} {act}{form}", f"{what} {act} MLP{kind}, {layout} layout ({name} {act}{form})",
+           f"{csrc}/{source}", replaces)
+          for act in ACTIVATIONS
+          for name, layout, fwd_line, bwd_line in (
+              ("K1", "windows", "pallas_pack.py:668", "pallas_pack.py:911"),
+              ("K4", "image", "pallas_block.py:174", "pallas_block.py:364"))
+          for form, what, kind, source, replaces in (
+              ("", "fused_block_fwd", "", "fused_block_fwd.cu", f"swin_unet_image_fusion_tpu/ops/{fwd_line}"),
+              (" bf16", "fused_block_fwd bf16", "", "fused_block_fwd.cu",
+               f"swin_unet_image_fusion_tpu/ops/{fwd_line}"),
+              (" bwd", "block_bwd", " (the fused route at stages 0-1, the split route at 2-3)", "fused_block_bwd.cu",
+               f"swin_unet_image_fusion_tpu/ops/{bwd_line}"))),
     )
     times.update(bwd)
     times.update(drop_times)

@@ -86,6 +86,7 @@ struct K4Args {
   float* stats;  // the backward's recompute: LN1's (mean, 1/std) of every token, (S*B*H*W, 2)
   // the kDrop forms: the call's sites (the backward's recompute reads only the proj site)
   swin::BlockDrop drop;
+  int act;  // the MLP's activation (activation.cuh); the backward's recompute: recompute_code's
 };
 
 // One GEMM result's sums in registers, fp32 tiles or mma fragments.
@@ -292,9 +293,9 @@ __global__ void __launch_bounds__(kThreads, 2) k4_rows_kernel(const K4Args a) {
 
 // One block per (49 tokens, stream * batch, hc hidden columns): LN2(y) from the LN2 pass's
 // scratch and w1's columns both streamed through rings (no per-block LN2 prologue: the block
-// is small enough for two an SM); h = ELU(. + b1) into the hidden scratch (rounded under
-// kBf16). kDrop (the forward's dropout form): h = drop(ELU(. + b1)) at the hidden site, before
-// the rounding.
+// is small enough for two an SM); h = act(. + b1) into the hidden scratch (rounded under
+// kBf16; the backward's recompute of a GELU call stores z, activation.cuh). kDrop (the forward's
+// dropout form): h = drop(act(. + b1)) at the hidden site, before the rounding.
 template <bool kBf16, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, 2) k4_fc1_kernel(const K4Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -332,11 +333,13 @@ __global__ void __launch_bounds__(kThreads, 2) k4_fc1_kernel(const K4Args a) {
     int* slot = reinterpret_cast<int*>(ph + kRowsB);
     for (int t = threadIdx.x; t < kT; t += kThreads) ph[t] = swin::token_hash(site, nb, r0 + t, &slot[t]);
     __syncthreads();
-    apply(acc, nh, [&](int t, int col, float v) {
-      return swin::masked(swin::token_keep(site, ph[t], slot[t], j0 + col, hidden), elu(v + b1[col]), site.scale);
+    swin::with_activation(a.act, [&](auto act) {
+      apply(acc, nh, [&](int t, int col, float v) {
+        return swin::masked(swin::token_keep(site, ph[t], slot[t], j0 + col, hidden), act(v + b1[col]), site.scale);
+      });
     });
   } else {
-    apply(acc, nh, [&](int, int col, float v) { return elu(v + b1[col]); });
+    swin::with_activation(a.act, [&](auto act) { apply(acc, nh, [&](int, int col, float v) { return act(v + b1[col]); }); });
   }
   each(acc, nh, [&](int t, int col, float v) { h[static_cast<size_t>(t) * hidden + col] = from_float<T>(v); });
 }

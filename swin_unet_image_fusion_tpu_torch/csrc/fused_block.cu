@@ -8,7 +8,7 @@
 //       _block_fwd_kernel / _block_fwd_kernel_self from pallas_fused_block), on the image.
 // One whole BasicBlock per call, for both streams at once:
 //   y   = x + proj(attention(LN1(x), kv)) + bp
-//   out = y + fc2(ELU(fc1(LN2(y)) + b1)) + b2
+//   out = y + fc2(act(fc1(LN2(y)) + b1)) + b2, act ELU, ReLU or GELU (activation.cuh)
 // LayerNorm in fp32 with the biased variance and eps 1e-5. Under cross, k/v come from the
 // other stream normalised with THAT stream's LN1; attention is K3's (window_core.cuh):
 // scale folded into q, the shared relative-position bias, the wrap-seam mask setting
@@ -33,7 +33,7 @@
 //      the kv rows and their LN1 weights taken from the other stream under cross;
 //   2. K3's attention core, one block per (window, stream*batch, head);
 //   3. proj GEMM + bias + the residual x, writing y into `out`;
-//   4. fc1 GEMM with LN2 in its prologue, + b1, ELU in its epilogue, into `hid`;
+//   4. fc1 GEMM with LN2 in its prologue, + b1, the activation in its epilogue, into `hid`;
 //   5. fc2 GEMM + b2 + the residual y, in place in `out`.
 // Every block is small and the card is full at every stage; the price is writing q, k,
 // v, AV, y and the hidden activations to device memory and reading them back: at stage 0 of
@@ -55,7 +55,7 @@
 //   K4 (pallas_block.py:111-190) takes bf16 operands (kBf16Ops): x is upcast on load;
 //       LN1(x) and LN1(kv) are rounded as the q/k/v GEMM loads them, the weights as every
 //       GEMM loads them; p and v are rounded before AV and AV is stored rounded; LN2(y) is
-//       rounded in fc1's prologue and the ELU hidden on its store; the sums are fp32;
+//       rounded in fc1's prologue and the hidden on its store; the sums are fp32;
 //   K1 (pallas_pack.py:563-688) is the fp32 block with bf16 input and output: every
 //       product takes fp32 operands, the weights included (l.617-618).
 // In both, y = x + proj is never rounded: it goes to an fp32 scratch (in fp32 it is
@@ -67,8 +67,9 @@
 // Like the JAX custom VJPs it is given only x, the weights and g = dL/d out, recomputes
 // the forward into scratch and backpropagates the whole block:
 //   recompute   LN1(x) with its row statistics; q/k/v; the attention core; y = x + proj;
-//               LN2(y); h = ELU(fc1);
-//   backward    g_pre1 = (g w2^T) * ELU'(h); g_lny = g_pre1 w1^T; g_y = g + LN2 bwd;
+//               LN2(y); h = act(fc1) (under GELU z = fc1 itself, activation.cuh);
+//   backward    g_pre1 = (g w2^T) * act'(z) (under GELU the erf hidden then replaces z for
+//               w2's gradient); g_lny = g_pre1 w1^T; g_y = g + LN2 bwd;
 //               then the attention half (window_core_bwd.cuh): g_o = g_y wp^T, the core
 //               backward, g_ln = g_q wq^T + g_k wk^T + g_v wv^T; g_x = g_y + LN1 bwd;
 //   weights     every dense weight and bias gradient as [A | 1]^T B over the tokens, the
@@ -98,10 +99,10 @@
 // masks of hash_dropout.cuh keyed on each TPU kernel's own geometry (ops/dropout_layout.py:
 // "k1" window pairs for the windows layout, "k4" padded windows for the image layout):
 //   forward     p masked before AV (the core); y = x + drop(proj + bp) (proj epilogue);
-//               h = drop(ELU(fc1)) (fc1 epilogue); out = y + drop(fc2 + b2) (fc2 epilogue);
+//               h = drop(act(fc1)) (fc1 epilogue); out = y + drop(fc2 + b2) (fc2 epilogue);
 //   backward    the recompute masks p and proj as the forward and keeps h unmasked for
-//               ELU'; g_m = drop(g) (dropout_rows_kernel) feeds fc2's input and weight
-//               gradients; g_pre1 = drop(g_m w2^T) * ELU'(h) (gpre epilogue); h is then
+//               act'; g_m = drop(g) (dropout_rows_kernel) feeds fc2's input and weight
+//               gradients; g_pre1 = drop(g_m w2^T) * act'(z) (gpre epilogue); h is then
 //               masked in place for w2's gradient; g_proj = drop(g_y) feeds the attention
 //               backward (proj's gradients and g_o), whose core masks g_P and P as the
 //               JAX body does; the residual paths (g, g_y) stay unmasked.
@@ -127,7 +128,7 @@ int fused_block(const void* xv, const float* ln1g, const float* ln1b, const floa
                 const float* ln2g, const float* ln2b, const float* w1, const float* b1,
                 const float* w2, const float* b2, void* outv, float* q, float* k, float* v,
                 void* ov, void* hidv, float* y, int S, int B, int H, int W, int C, int heads,
-                int d, int hidden, int wh, int ww, int shift, int cross, float scale,
+                int d, int hidden, int wh, int ww, int shift, int cross, float scale, int act,
                 const DropArgs* drop, cudaStream_t st) {
   using TM = typename std::conditional<kBf16Ops, bf16, float>::type;
   const TX* x = static_cast<const TX*>(xv);
@@ -152,6 +153,7 @@ int fused_block(const void* xv, const float* ln1g, const float* ln1b, const floa
   GemmBatchT<TM, TX, float> proj = {};
   GemmBatchT<float, float, TM> fc1 = {};
   GemmBatchT<TM, float, TX> fc2 = {};
+  fc1.act = act;
   for (int s = 0; s < S; ++s) {
     proj.a[s] = o + s * h_stream;
     proj.b[s] = wp + static_cast<size_t>(s) * inner * C;
@@ -234,17 +236,18 @@ BlockBwdScratch carve_block_bwd(Arena& ar, int S, int B, int H, int W, int C, in
 }
 
 // The MLP's backward from the gradient gmlp of its output (TG: the block's g, or its
-// masked fp32 copy under the MLP-out dropout): g_pre1 = drop(gmlp w2^T) * ELU'(h), the
+// masked fp32 copy under the MLP-out dropout): g_pre1 = drop(gmlp w2^T) * act'(z), the
 // hidden masked in place for w2's gradient, g_lny = g_pre1 w1^T, and the w1, w2 weight
 // gradients' partials, whose reductions it queues.
 template <typename TG>
 bool mlp_bwd(const BlockBwdScratch& sc, const TG* gmlp, const float* const* in,
              float* const* out, ReduceJobs& jobs, int S, int M, int C, int hidden, int hw, int B,
-             const DropArgs* drop, cudaStream_t st) {
+             int act, const DropArgs* drop, cudaStream_t st) {
   const size_t x_stream = static_cast<size_t>(M) * C;
   const size_t m_stream = static_cast<size_t>(M) * hidden;
   GemmBatchT<TG> gpre = {};
   GemmBatch glny = {};
+  gpre.act = act;  // GELU: the epilogue replaces z in h with the erf hidden
   for (int s = 0; s < S; ++s) {
     gpre.a[s] = gmlp + s * x_stream;
     gpre.b[s] = in[kW2] + static_cast<size_t>(s) * hidden * C;  // (hidden, C) = (N, K)
@@ -293,7 +296,7 @@ bool mlp_bwd(const BlockBwdScratch& sc, const TG* gmlp, const float* const* in,
 template <bool kWindows, typename TX>
 int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S, int B, int H,
                     int W, int C, int heads, int d, int hidden, int wh, int ww, int shift,
-                    int cross, float scale, const DropArgs* drop, cudaStream_t st) {
+                    int cross, float scale, int act, const DropArgs* drop, cudaStream_t st) {
   constexpr bool kBf16 = std::is_same<TX, bf16>::value;
   const bool split_kv = kBf16 && cross != 0;
   const int inner = heads * d;
@@ -331,6 +334,7 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
   GemmBatchT<float, TX, float> proj = {};
   GemmBatch fc1 = {};
   LnBatch ln2 = {};
+  fc1.act = recompute_code(act);
   for (int s = 0; s < S; ++s) {
     proj.a[s] = sc.o + s * h_stream;
     proj.b[s] = in[kWp] + static_cast<size_t>(s) * inner * C;
@@ -353,7 +357,7 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
   }
   launch_gemm_site<false, false, true>(proj, M, C, inner, S, st, drop, kSiteProj, hw, B);
   launch_ln_fwd(ln2, M, C, S, st);
-  launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);  // h unmasked: ELU' needs it
+  launch_gemm<false, true, false>(fc1, M, hidden, C, S, st);  // h (GELU: z) unmasked: act' needs it
 
   // ---- MLP and LN2 backward; under dropout the MLP sees the masked g ----
   ReduceJobs jobs = {};
@@ -361,9 +365,9 @@ int fused_block_bwd(const float* const* in, float* const* out, float* ws, int S,
   if (drop_on(drop, kSiteOut)) {
     launch_dropout_rows(g, sc.gm, drop_site(drop, kSiteOut, hw, B), M, C, S, st);
     ok = mlp_bwd(sc, static_cast<const float*>(sc.gm), in, out, jobs, S, M, C, hidden, hw, B,
-                 drop, st);
+                 act, drop, st);
   } else {
-    ok = mlp_bwd(sc, g, in, out, jobs, S, M, C, hidden, hw, B, drop, st);
+    ok = mlp_bwd(sc, g, in, out, jobs, S, M, C, hidden, hw, B, act, drop, st);
   }
   LnBwdBatchT<float, TX, float> ln2b = {};
   for (int s = 0; s < S; ++s) {
@@ -445,8 +449,8 @@ int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, co
                          float* v, void* o, void* hid, float* y, const DropArgs* drop, int S,
                          int B, int H, int W, int C, int heads, int d, int hidden, int wh,
                          int ww, int shift, int cross, int windows, int bf16_io, float scale,
-                         void* stream) {
-  if (S * 3 > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+                         int act, void* stream) {
+  if (S * 3 > kMaxBatch || !activation_ok(act)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Launcher = decltype(&fused_block<true, float, false>);
   const Launcher run = !bf16_io ? (windows ? &fused_block<true, float, false>
@@ -455,7 +459,7 @@ int swin_fused_block_fwd(const void* x, const float* ln1g, const float* ln1b, co
                                            : &fused_block<false, bf16, true>);  // K4
   return run(x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
              out, q, k, v, o, hid, y, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross,
-             scale, drop, st);
+             scale, act, drop, st);
 }
 
 // Floats of scratch the backward needs for one block of these dimensions, dropout, dtype
@@ -477,16 +481,16 @@ size_t swin_fused_block_bwd_workspace(int S, int B, int H, int W, int C, int hea
 int swin_fused_block_bwd(const float* const* in, float* const* out, float* ws,
                          const DropArgs* drop, int S, int B, int H, int W, int C, int heads,
                          int d, int hidden, int wh, int ww, int shift, int cross, int windows,
-                         int bf16_io, float scale, void* stream) {
-  if (S * 3 > kMaxBatch || C > kLnMaxC) return static_cast<int>(cudaErrorInvalidValue);
+                         int bf16_io, float scale, int act, void* stream) {
+  if (S * 3 > kMaxBatch || C > kLnMaxC || !activation_ok(act)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Launcher = decltype(&fused_block_bwd<true, float>);
   const Launcher run = bf16_io ? (windows ? &fused_block_bwd<true, bf16>     // K1 bf16
                                           : &fused_block_bwd<false, bf16>)   // K4 bf16
                                : (windows ? &fused_block_bwd<true, float>
                                           : &fused_block_bwd<false, float>);
-  return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, drop,
-             st);
+  return run(in, out, ws, S, B, H, W, C, heads, d, hidden, wh, ww, shift, cross, scale, act,
+             drop, st);
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@
 //      core; y = x + proj; LN2(y); the MLP hidden in steps) and writes what the backward
 //      reads: LN1(x) and its statistics, q (scaled), k, v, AV, y, LN2(y), the hidden;
 //   3. block_mlp_bwd_kernel: a block per (group of 49-token tiles, stream), the MLP and LN2
-//      being per token: g_h = g w2^T, g_pre = g_h ELU'(h), g_lny += g_pre w1^T per step,
+//      being per token: g_h = g w2^T, g_pre = g_h act'(z), g_lny += g_pre w1^T per step,
 //      g_y = g + LN2'(g_lny) with its gamma/beta sums, g_o = g_y wp^T;
 //   4. block_bwd_attn_kernel: a block per (group of windows, stream): window_bwd.cuh's core
 //      backward over every head from q, k, v, g_o (the bias-table gradient summed in
@@ -73,11 +73,11 @@
 //                                   words per query row, ballots of a warp), writes the words
 //                                   to the workspace, runs the core on the dropped weights (AV
 //                                   stored dropped) and adds drop(proj + bp) to x, so y and
-//                                   LN2(y) are the forward's; the ELU hidden stays undropped;
+//                                   LN2(y) are the forward's; the hidden stays undropped;
 //   block_mlp_bwd_kernel<true>      g_m = drop(g) as the g_h product's A (and to the workspace
 //                                   for w2's and b2's gradients), g_pre = drop(g_m w2^T)
-//                                   ELU'(h) with the hidden dropped in place once the tile has
-//                                   read ELU'(h) (w2's gradient reads it), g_y = g + LN2'(g_lny)
+//                                   act'(z) with the hidden dropped in place once the tile has
+//                                   read act'(z) (w2's gradient reads it), g_y = g + LN2'(g_lny)
 //                                   with the undropped g, and g_o from g_proj = drop(g_y) (to the
 //                                   workspace for wp's and bp's gradients);
 //   block_bwd_attn_kernel<DP, true> the window's keep words (over its row buffer, dead during
@@ -200,6 +200,7 @@ struct BwdArgs {
   swin::BlockDrop drop;
   uint32_t* keep;
   float *gm, *gproj;
+  int act;  // the MLP's activation (activation.cuh)
 };
 
 // The window's token rows, wrap regions and token indices, and its bias with the wrap mask.
@@ -229,7 +230,8 @@ __device__ __forceinline__ void core_rows(float* core, float* dst, int inner, in
 // The forward, recomputed: a block per (group of windows, stream) writes what the backward
 // reads of each window: LN1(x) and its statistics, q (scaled), k, v, AV, y, LN2(y) and the
 // MLP hidden (header, step 2). kDrop: the window's keep words of every head (to a.keep too), AV
-// from the dropped weights, y = x + drop(proj + bp); the hidden stays undropped (ELU' reads it).
+// from the dropped weights, y = x + drop(proj + bp); the hidden stays undropped (act' reads it).
+// The hidden is act(z), under GELU z itself (activation.cuh).
 template <int DP, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -354,7 +356,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
     ln_to_a<false>(xs, C, C, a.ln2g + s * C, a.ln2b + s * C, a1, st + 2 * kRowsB);  // LN2(y) over LN1(x)
     store_a(a1, C, a.lny + img * map, C, tok);
     float* h_s = reinterpret_cast<float*>(smem + L.u);
-    for (int j0 = 0; j0 < hidden; j0 += a.hc) {  // h = ELU(LN2(y) w1 + b1), hc columns at a time
+    const int hact = swin::recompute_code(a.act);
+    for (int j0 = 0; j0 < hidden; j0 += a.hc) {  // h = act(LN2(y) w1 + b1) (GELU: z), hc columns at a time
       const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
       const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
       with_tn(nbh, [&](auto tn) {
@@ -362,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
         zero_tile(acc);
         gemm_tile<decltype(tn)::value, kRing>(
             acc, weights(a.w1 + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
-        each(acc, nh, [&](int t, int col, float v) { a_at(h_s, t, col) = elu(v + b1[col]); });
+        each(acc, nh, [&](int t, int col, float v) { a_at(h_s, t, col) = swin::activate(hact, v + b1[col]); });
       });
       __syncthreads();
       store_a(h_s, nh, a.h + img * hw * hidden + j0, hidden, tok);
@@ -372,9 +375,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_fwd_kernel(const
 
 // The MLP's backward: a block per (group of 49-token tiles, stream), the tokens of a tile
 // consecutive rows of x's layout (the MLP and LN2 work on rows): g_h = g w2^T, g_pre = g_h
-// ELU'(h), g_lny += g_pre w1^T per hidden step, g_y = g + LN2'(g_lny) with its gamma/beta
+// act'(z) (read from the stored hidden; under GELU the erf hidden replaces z there, w2's
+// gradient reads it), g_lny += g_pre w1^T per hidden step, g_y = g + LN2'(g_lny) with its gamma/beta
 // sums, g_o = g_y wp^T. kDrop: the g_h product's A is g_m = drop(g) (to a.gm too), g_pre =
-// drop(g_m w2^T) ELU'(h) and the hidden dropped in place once its ELU' is read (w2's gradient
+// drop(g_m w2^T) act'(z) and the hidden dropped in place once its act' is read (w2's gradient
 // reads it), g_y = g + LN2'(g_lny) with the undropped g, and g_o from g_proj = drop(g_y) (to
 // a.gproj, g_y to a.gy).
 template <bool kDrop = false>
@@ -431,19 +435,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) block_mlp_bwd_kernel(c
     for (int j0 = 0; j0 < hidden; j0 += a.hc) {
       const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
       float* h = a.h + r0 * hidden + j0;
-      with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) ELU'(h)
+      with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) act'(z)
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
         gemm_tile<decltype(tn)::value, kRing>(
             acc, weights(a.w2T + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
         each(acc, nh, [&](int t, int col, float v) {
-          const float hv = h[static_cast<size_t>(t) * hidden + col];
+          float* hp = h + static_cast<size_t>(t) * hidden + col;
+          float hv = *hp;
+          const float da = swin::act_grad(a.act, hv);  // GELU: hv becomes the erf hidden
           if constexpr (kDrop) {
             const bool keep = swin::token_keep(hid_site, ph[kRowsB + t], slot[t], j0 + col, hidden);
-            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * (hv > 0.0f ? 1.0f : hv + 1.0f);
-            h[static_cast<size_t>(t) * hidden + col] = swin::masked(keep, hv, hid_site.scale);
+            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * da;
+            *hp = swin::masked(keep, hv, hid_site.scale);
           } else {
-            a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+            a_at(ch, t, col) = v * da;
+            if (a.act == swin::kActGelu) *hp = hv;
           }
         });
       });
@@ -796,7 +803,7 @@ cudaError_t launch_blocks(Fn kernel, int blocks, int smem, const BwdArgs& a, cud
 template <typename TX>
 int block_bwd(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B, int H,
               int W, int C, int heads, int d, int hidden, int hc, const int* blocks, int shift, int cross, int windows,
-              float scale, cudaStream_t st) {
+              float scale, int act, cudaStream_t st) {
   const int inner = heads * d;
   const int M = B * H * W;
   const bool dropping = drop != nullptr;
@@ -811,6 +818,7 @@ int block_bwd(const float* const* in, float* const* out, float* ws, const swin::
                      sc.ln2_part,
                      S, B, H, W, C, inner, heads, d, hidden, hc, shift ? 4 : 0, shift ? 4 : 0, cross, scale,
                      windows != 0, std::is_same<TX, bf16>::value};
+  a.act = act;
   if (dropping) {
     a.drop = swin::block_drop(drop, H * W, B);
     a.keep = sc.keep;
@@ -894,19 +902,19 @@ size_t swin_block_bwd_workspace(int S, int B, int H, int W, int C, int heads, in
 int swin_block_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats,
                    const swin::DropArgs* drop, int S, int B, int H, int W, int C, int heads, int d, int hidden, int hc,
                    int fwd_blocks, int mlp_blocks, int attn_blocks, int shift, int cross, int windows, int bf16_io,
-                   float scale, void* stream) {
+                   float scale, int act, void* stream) {
   const int blocks[3] = {fwd_blocks, mlp_blocks, attn_blocks};
   const bool dropping = drop != nullptr;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || fwd_blocks < 1 || mlp_blocks < 1 ||
-      attn_blocks < 1 || !supported(C, heads * d, heads, d, hidden, hc, cross != 0, dropping) ||
+      attn_blocks < 1 || !supported(C, heads * d, heads, d, hidden, hc, cross != 0, dropping) || !swin::activation_ok(act) ||
       ws_floats < swin_block_bwd_workspace(S, B, H, W, C, heads, d, hidden, fwd_blocks, mlp_blocks, attn_blocks,
                                            cross, dropping))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16_io ? block_bwd<bf16>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross,
-                                   windows, scale, st)
+                                   windows, scale, act, st)
                  : block_bwd<float>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, blocks, shift, cross,
-                                    windows, scale, st);
+                                    windows, scale, act, st);
 }
 
 }  // extern "C"

@@ -61,7 +61,7 @@ using namespace bbwd;
 // (k3bwd::gx_width: 128 at C = 384); no g_o (the K3 block forms it from g_y). Writes g_pre,
 // g_y and the LN2 gamma/beta partials. kDrop: as fused_block_bwd.cu's
 // block_mlp_bwd_kernel<true>: g_m = drop(g) as the g_h product's A (to gm), g_pre = drop(g_m
-// w2^T) ELU'(h) with the hidden dropped in place after its ELU' is read, g_y with the undropped g
+// w2^T) act'(z) with the hidden dropped in place after its act' is read, g_y with the undropped g
 // as its residual, and g_proj = drop(g_y) beside it (K3's block reads it as its g).
 struct MlpArgs {
   const void* g;                                // dL/d out, (S, M, C) fp32 or bf16
@@ -73,6 +73,7 @@ struct MlpArgs {
   float *gm, *gproj;                            // kDrop: drop(g), drop(g_y), (S, M, C)
   int steps;                                    // 1, or the hidden steps each a block (stepped)
   float* glny;                                  // stepped: g_lny of each step, (steps, S, M, C)
+  int act;                                      // the MLP's activation (activation.cuh)
 };
 
 // The epilogue of the MLP backward for one 49-token tile (rows r0.. of y): g_y = g +
@@ -197,19 +198,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) split_mlp_bwd_kernel(c
     for (int j0 = j_begin; j0 < j_end; j0 += a.hc) {
       const int nh = min(a.hc, hidden - j0), nbh = round_up(nh, 4);
       float* h = a.h + r0 * hidden + j0;
-      with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) ELU'(h)
+      with_tn(nbh, [&](auto tn) {  // g_pre = (g w2^T) act'(z)
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
         gemm_tile<decltype(tn)::value, kRing>(
             acc, weights(a.w2T + static_cast<size_t>(s) * C * hidden + j0, nbh, hidden, C, nh), a1, a1, ring);
         each(acc, nh, [&](int t, int col, float v) {
-          const float hv = h[static_cast<size_t>(t) * hidden + col];
+          float* hp = h + static_cast<size_t>(t) * hidden + col;
+          float hv = *hp;
+          const float da = swin::act_grad(a.act, hv);  // GELU: hv becomes the erf hidden
           if constexpr (kDrop) {
             const bool keep = swin::token_keep(hid_site, ph[kRowsB + t], slot[t], j0 + col, hidden);
-            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * (hv > 0.0f ? 1.0f : hv + 1.0f);
-            h[static_cast<size_t>(t) * hidden + col] = swin::masked(keep, hv, hid_site.scale);
+            a_at(ch, t, col) = swin::masked(keep, v, hid_site.scale) * da;
+            *hp = swin::masked(keep, hv, hid_site.scale);
           } else {
-            a_at(ch, t, col) = v * (hv > 0.0f ? 1.0f : hv + 1.0f);
+            a_at(ch, t, col) = v * da;
+            if (a.act == swin::kActGelu) *hp = hv;
           }
         });
       });
@@ -664,7 +668,7 @@ cudaError_t launch_grid(Kernel kernel, dim3 grid, int smem, const KernelArgs& a,
 template <int DP, typename TX>
 int block_bwd_split(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B,
                     int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd, int hg_bwd,
-                    const int* blocks, int shift, int cross, int windows, float scale, cudaStream_t st) {
+                    const int* blocks, int shift, int cross, int windows, float scale, int act, cudaStream_t st) {
   const int inner = heads * d, M = B * H * W, groups = heads / hg_bwd, nb = S * B;
   const int nwin = (H / 7) * (W / 7), top = shift ? 4 : 0;
   const bool kv = cross != 0, dropping = drop != nullptr;
@@ -678,7 +682,7 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, const 
   k4fwd::K4Args f = {in[kX], in[kLn1g], in[kLn1b], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kWp],
                      in[kBp], in[kBias], in[kLn2g], in[kLn2b], in[kW1], in[kB1], in[kW2], in[kB2], nullptr, sc.lnx,
                      sc.av, sc.y, sc.h, S, B, H, W, C, inner, heads, d, hidden, hg_fwd, kFc1Cols, top, top, cross,
-                     scale, windows != 0, sc.stats1, sites};
+                     scale, windows != 0, sc.stats1, sites, swin::recompute_code(act)};
   const unsigned ln_blocks =
       static_cast<unsigned>((static_cast<size_t>(nb) * H * W + kThreads / 8 - 1) / (kThreads / 8));
   k4fwd::k4_ln_kernel<TX, false, false, true><<<ln_blocks, kThreads, 0, st>>>(f);
@@ -703,7 +707,8 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, const 
   // the MLP and LN2 backward: g_pre, g_y (stepped: a block a hidden step, then the LN2 epilogue)
   const int steps = blocks[3];
   const MlpArgs a = {in[kG], in[kLn2g], sc.w1T, sc.w2T, sc.y, sc.h, sc.gpre, sc.gy, sc.ln2_part,
-                     B, H, W, C, hidden, hc, std::is_same<TX, bf16>::value, sites, sc.gm, sc.gproj, steps, sc.glny};
+                     B, H, W, C, hidden, hc, std::is_same<TX, bf16>::value, sites, sc.gm, sc.gproj, steps, sc.glny,
+                     act};
   const dim3 mlp_grid(blocks[0], S, steps);
   err = dropping ? launch_grid(split_mlp_bwd_kernel<true>, mlp_grid, smem(3), a, st)
                  : launch_grid(split_mlp_bwd_kernel<false>, mlp_grid, smem(3), a, st);
@@ -746,13 +751,13 @@ int block_bwd_split(const float* const* in, float* const* out, float* ws, const 
 template <typename TX>
 int split_pitch_launch(int dp, const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop,
                        int S, int B, int H, int W, int C, int heads, int d, int hidden, int hc, int hg_fwd,
-                       int hg_bwd, const int* blocks, int shift, int cross, int windows, float scale,
+                       int hg_bwd, const int* blocks, int shift, int cross, int windows, float scale, int act,
                        cudaStream_t st) {
   switch (dp) {
 #define SWIN_SPLIT_CASE(P)                                                                                         \
   case P:                                                                                                          \
     return block_bwd_split<P, TX>(in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd, hg_bwd, blocks, \
-                                  shift, cross, windows, scale, st);
+                                  shift, cross, windows, scale, act, st);
     SWIN_SPLIT_CASE(12)
     SWIN_SPLIT_CASE(24)
     SWIN_SPLIT_CASE(48)
@@ -804,20 +809,21 @@ size_t swin_block_bwd_split_workspace(int S, int B, int H, int W, int C, int hea
 int swin_block_bwd_split(const float* const* in, float* const* out, float* ws, size_t ws_floats,
                          const swin::DropArgs* drop, int S, int B, int H, int W, int C, int heads, int d, int hidden,
                          int hc, int hg_fwd, int hg_bwd, int mlp_blocks, int k3_blocks, int gln_blocks, int shift,
-                         int cross, int windows, int bf16_io, float scale, void* stream) {
+                         int cross, int windows, int bf16_io, float scale, int act, void* stream) {
   const int blocks[5] = {mlp_blocks, k3_blocks, gln_blocks, split_mlp_steps(d, hidden, hc), split_gln_groups(d, C)};
   const bool dropping = drop != nullptr;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || mlp_blocks < 1 || k3_blocks < 1 ||
       gln_blocks < 1 || !split_supported(C, heads * d, heads, d, hidden, hc, hg_fwd, hg_bwd, cross != 0, dropping) ||
+      !swin::activation_ok(act) ||
       ws_floats < swin_block_bwd_split_workspace(S, B, H, W, C, heads, d, hidden, hc, hg_bwd, mlp_blocks, k3_blocks,
                                                  gln_blocks, dropping))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = split_pitch(d);
   return bf16_io ? split_pitch_launch<bf16>(dp, in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd,
-                                            hg_bwd, blocks, shift, cross, windows, scale, st)
+                                            hg_bwd, blocks, shift, cross, windows, scale, act, st)
                  : split_pitch_launch<float>(dp, in, out, ws, drop, S, B, H, W, C, heads, d, hidden, hc, hg_fwd,
-                                             hg_bwd, blocks, shift, cross, windows, scale, st);
+                                             hg_bwd, blocks, shift, cross, windows, scale, act, st);
 }
 
 }  // extern "C"

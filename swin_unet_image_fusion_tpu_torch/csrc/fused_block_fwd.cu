@@ -33,7 +33,8 @@ size_t swin_k4_fwd_smem(int kind, int bf16_ops, int cross, int C, int inner, int
 // (windows layout only) the shifted windows of a band of whole window rows that does not hold
 // the map's first: the rolled-row seam (row region "rolled row < 4") lies outside the band, so
 // top = 0 and only the column seam is masked (ops/window_pack_spmd.py). `top` enters nothing
-// else in the windows layout (window_fwd.cuh::window_rows). Returns cudaGetLastError() after
+// else in the windows layout (window_fwd.cuh::window_rows). `act`: the MLP's activation
+// (activation.cuh: 0 ELU, 1 ReLU, 2 GELU in the tanh form). Returns cudaGetLastError() after
 // the launches (0 = ok), cudaErrorInvalidValue on dimensions the kernels do not take.
 int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq, const float* bq,
                 const float* wk, const float* bk, const float* wv, const float* bv, const float* wp,
@@ -41,10 +42,10 @@ int swin_k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float
                 const float* b1, const float* w2, const float* b2, void* out, void* ln, void* av, float* y,
                 void* hid, const swin::DropArgs* drop,
                 int S, int B, int H, int W, int C, int heads, int d, int hidden, int hg, int hc, int fused,
-                int shift, int cross, int windows, int bf16_io, int bf16_ops, float scale, void* stream) {
+                int shift, int cross, int windows, int bf16_io, int bf16_ops, float scale, int act, void* stream) {
   return k4_fwd<false>(x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2, out, ln, av,
                        y, hid, drop, S, B, H, W, C, heads, d, hidden, hg, hc, fused, shift, cross, windows, bf16_io,
-                       bf16_ops, scale, stream);
+                       bf16_ops, scale, act, stream);
 }
 
 }  // extern "C"

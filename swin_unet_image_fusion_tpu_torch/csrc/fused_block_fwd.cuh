@@ -15,7 +15,7 @@
 // stages 2-4 the split route's kernels, which block_fwd.cuh holds for both files).
 // The function is the one fused_block.cu computes:
 //   y   = x + proj(attention(LN1(x), LN1(kv))) + bp
-//   out = y + fc2(ELU(fc1(LN2(y)) + b1)) + b2
+//   out = y + fc2(act(fc1(LN2(y)) + b1)) + b2, act ELU, ReLU or GELU (activation.cuh)
 // LN in fp32 with the biased variance and eps 1e-5; under cross k/v come from the other
 // stream's rows normalised with that stream's LN1; attention as window_fwd.cuh's core (the
 // scale folded into q, the shared relative-position bias with the wrap-seam mask folded in
@@ -38,7 +38,7 @@
 //     the other stream's rows), keeps LN1(x) and LN1(kv) resident as GEMM operands, computes
 //     q/k/v with the weights streamed through a three-deep cp.async ring, the attention core
 //     and AV, the projection + bp + x = y (fp32, in shared memory), LN2(y), and the MLP in
-//     chunks of the hidden: h = ELU(LN2(y) w1[:, j..] + b1) in shared memory, then its fc2
+//     chunks of the hidden: h = act(LN2(y) w1[:, j..] + b1) in shared memory, then its fc2
 //     product added to register sums, so the hidden never leaves the block and any width
 //     fits. Only x and out touch device memory.
 //   split (stages 2-4: 200, 50 and 18 windows): SIX launches, each sized to its N:
@@ -47,7 +47,7 @@
 //     groups of <= 48 columns; AV to a window-major scratch),
 //     k4_rows_kernel<proj> (48 output columns per block, + bp + x into an fp32 y scratch),
 //     k4_ln_kernel<kLn2> (LN2 of y into LN1's scratch, dead by then), k4_fc1_kernel (both
-//     it and w1 streamed, 144 / 192 hidden columns per block, two blocks an SM, + b1, ELU,
+//     it and w1 streamed, 144 / 192 hidden columns per block, two blocks an SM, + b1, act,
 //     into the hidden scratch), k4_rows_kernel<fc2> (48 columns, + b2 + y, into out). The
 //     LN2 pass and the streamed fc1 replaced an fc1 that kept 49 rows of LN2(y) resident and
 //     recomputed them in every block of a tile (one block an SM): 0.59 / 0.56 / 0.87 ms to
@@ -63,7 +63,7 @@
 // the store. K4 bf16 (kBf16, pallas_block.py:120-189): every product that the TPU body
 // rounds runs on mma.sync with bf16 operands and fp32 accumulators: LN1(x), LN1(kv) and the
 // weights (l.120-146), p and v (l.160), AV and wp (l.161-163), LN2(y) and w1 (l.172-173), the
-// ELU hidden and w2 (l.185); the weights are rounded as the fragments are built; q/k/v, the
+// hidden and w2 (l.185); the weights are rounded as the fragments are built; q/k/v, the
 // scores and y stay fp32; out is rounded once on the store.
 // Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
 // same bits.
@@ -75,7 +75,7 @@
 // whose P rows take few instructions, reads keep words hashed once a window and head, two 32-bit
 // words a query row, in shared memory: split_ab.py --dropout chose each, PERF.md §6; in bf16 p is
 // masked before its rounding), y = x + drop(proj + bp), the hidden
-// drop(ELU(fc1 + b1)) before its rounding, out = y + drop(fc2 + b2). The tokens' unit hashes are
+// drop(act(fc1 + b1)) before its rounding, out = y + drop(fc2 + b2). The tokens' unit hashes are
 // computed once a block per site. The forward stores no keep bits: the backward hashes them
 // again. The same launches: one at C <= 48, six above, no mask kernel.
 
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
   zero_smem(smem, L.h, L.h + a_bytes(kBf16, a.hc));
   __syncthreads();
 
-  // the MLP in chunks of hc hidden columns: h = ELU(LN2(y) w1[:, j0..] + b1) in shared
+  // the MLP in chunks of hc hidden columns: h = act(LN2(y) w1[:, j0..] + b1) in shared
   // memory, its product with w2[j0.., :] added to the output's sums
   Sums<kBf16> out_acc;
   zero_sums(out_acc);
@@ -251,8 +251,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) k4_fused_kernel(const 
     zero_sums(acc);
     gemm_res(acc, g1, a0, a0, ring);
     const float* b1 = a.b1 + static_cast<size_t>(s) * hidden + j0;
-    apply(acc, nh, [&](int t, int col, float v) {
-      return term(swin::kSiteHidden, t, j0 + col, hidden, elu(v + b1[col]));
+    swin::with_activation(a.act, [&](auto act) {
+      apply(acc, nh, [&](int t, int col, float v) { return term(swin::kSiteHidden, t, j0 + col, hidden, act(v + b1[col])); });
     });
     each(acc, nh, [&](int t, int col, float v) { a_put<kBf16>(h_s, a.hc, t, col, v); });
     __syncthreads();
@@ -385,17 +385,17 @@ int k4_fwd(const void* x, const float* ln1g, const float* ln1b, const float* wq,
            const float* ln2g, const float* ln2b, const float* w1, const float* b1, const float* w2, const float* b2,
            void* out, void* ln, void* av, float* y, void* hid, const swin::DropArgs* drop, int S, int B, int H, int W,
            int C, int heads, int d, int hidden, int hg, int hc, int fused, int shift, int cross, int windows,
-           int bf16_io, int bf16_ops, float scale, void* stream) {
+           int bf16_io, int bf16_ops, float scale, int act, void* stream) {
   const int inner = heads * d;
   if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || (bf16_ops && !bf16_io) ||
       !supported(bf16_ops != 0, C, inner, heads, d, hidden, hg, hc, fused != 0) ||
       (!fused && (ln == nullptr || av == nullptr || y == nullptr || hid == nullptr)) ||
-      shift < 0 || shift > 2 || (shift == 2 && !windows) || (drop != nullptr) != kDrop)
+      shift < 0 || shift > 2 || (shift == 2 && !windows) || (drop != nullptr) != kDrop || !swin::activation_ok(act))
     return static_cast<int>(cudaErrorInvalidValue);
   const K4Args a = {x, ln1g, ln1b, wq, bq, wk, bk, wv, bv, wp, bp, bias, ln2g, ln2b, w1, b1, w2, b2,
                     out, ln, av, y, hid, S, B, H, W, C, inner, heads, d, hidden, hg, hc,
                     shift == 1 ? 4 : 0, shift ? 4 : 0, cross, scale, windows != 0, nullptr,
-                    kDrop ? swin::block_drop(drop, H * W, B) : swin::BlockDrop{}};
+                    kDrop ? swin::block_drop(drop, H * W, B) : swin::BlockDrop{}, act};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16_ops) err = launch_pitch<bf16, true, kDrop>(fused != 0, a, st);        // K4 bf16

@@ -3,10 +3,11 @@
 //
 //   gemm_kernel         batched row-major C[z] = act((LN(A[z]) @ B[z] + bias[z]) * alpha[z])
 //                       + res[z], with the LayerNorm of A's rows optional in the prologue
-//                       (row statistics computed by each block for its own rows) and ELU
-//                       and a residual optional in the epilogue; for the backward also
-//                       C = A @ B^T (B stored (N, K)) without bias, and an epilogue that
-//                       multiplies by the ELU derivative of an activation `res` holds;
+//                       (row statistics computed by each block for its own rows) and the
+//                       MLP's activation (activation.cuh) and a residual optional in the
+//                       epilogue; for the backward also C = A @ B^T (B stored (N, K)) without
+//                       bias, and an epilogue that multiplies by the activation's derivative
+//                       from the hidden `res` holds (under GELU z, replaced by the erf hidden);
 //   window_core_kernel  one block per (window, stream*batch, head): scores q.k plus the
 //                       shared relative-position bias, the shift mask that SETS scores to
 //                       -1e10, the TPU kernels' fast softmax (one-sided clamp at 80, exp
@@ -17,10 +18,10 @@
 //
 // Dropout (kDrop, a template flag of the GEMM and of the core, so that a launch without
 // dropout compiles to the code it had before): the masks of hash_dropout.cuh. The GEMM's
-// epilogue masks its result after the bias, the scale and the ELU and before the
-// residual or the ELU derivative: proj (x + drop(proj + bp)), the MLP hidden
-// (drop(ELU(fc1))), the MLP output (y + drop(fc2 + b2)) and, in the backward, the
-// gradient of the hidden (drop(g w2^T) * ELU'). The core masks the normalised weights p
+// epilogue masks its result after the bias, the scale and the activation and before the
+// residual or the activation's derivative: proj (x + drop(proj + bp)), the MLP hidden
+// (drop(act(fc1))), the MLP output (y + drop(fc2 + b2)) and, in the backward, the
+// gradient of the hidden (drop(g w2^T) * act'). The core masks the normalised weights p
 // before AV. Batch entry z of a masked GEMM is stream z.
 //
 // Precision. Every sum is fp32 FMA. A, the residual and C are fp32 or bf16 in memory
@@ -48,6 +49,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "activation.cuh"
 #include "hash_dropout.cuh"
 
 namespace swin {
@@ -70,7 +72,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- batched GEMM with optional LayerNorm prologue, ELU and residual epilogue ----------
+// ---- batched GEMM with optional LayerNorm prologue, activation and residual epilogue ---
 constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
 constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kMaxBatch = 6;
@@ -83,15 +85,13 @@ struct GemmBatchT {
   const float* bias[kMaxBatch];  // (N) (kBias only)
   const float* ln_g[kMaxBatch];  // (K) LayerNorm scale of A's rows (kLn only)
   const float* ln_b[kMaxBatch];  // (K) LayerNorm bias (kLn only)
-  const TR* res[kMaxBatch];      // (M, N) added last (kRes), or the ELU output whose
+  const TR* res[kMaxBatch];      // (M, N) added last (kRes), or the hidden whose activation
                                  // derivative scales the result (kDElu); may alias c
   TC* c[kMaxBatch];              // (M, N)
   float alpha[kMaxBatch];
+  int act;                       // the activation of kElu and kDElu (activation.cuh), ELU = 0
 };
 using GemmBatch = GemmBatchT<>;
-
-// d ELU / dz from the ELU's output h: 1 where z > 0 (h > 0), else exp(z) = h + 1.
-__device__ __forceinline__ float elu_grad_from_output(float h) { return h > 0.0f ? 1.0f : h + 1.0f; }
 
 template <bool kLn, bool kElu, bool kRes, bool kBias, bool kBT, bool kDElu, bool kBf16Ops,
           bool kDrop, typename TA, typename TR, typename TC>
@@ -198,11 +198,14 @@ __global__ void __launch_bounds__(kGemmThreads)
       float v = acc[i][j];
       if (kBias) v += p.bias[z][gn];
       v *= alpha;
-      if (kElu) v = v > 0.0f ? v : expm1f(v);
+      if (kElu) v = activate(p.act, v);
       if (kDrop)
         v = hash_keep(ph, token_intra(drop, slot, gn, N), drop.threshold) ? v * drop.scale : 0.0f;
-      if (kDElu) v *= elu_grad_from_output(to_float(res[at]));
-      else if (kRes) v += to_float(res[at]);  // read and written by this thread only
+      if (kDElu) {  // act'(z) from the stored hidden; under GELU the erf hidden replaces z
+        float hv = to_float(res[at]);
+        v *= act_grad(p.act, hv);
+        if (p.act == kActGelu) const_cast<TR*>(res)[at] = from_float<TR>(hv);
+      } else if (kRes) v += to_float(res[at]);  // read and written by this thread only
       c[at] = from_float<TC>(v);
     }
   }

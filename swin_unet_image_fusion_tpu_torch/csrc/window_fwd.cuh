@@ -17,6 +17,7 @@
 
 #include <type_traits>
 
+#include "activation.cuh"
 #include "hash_dropout.cuh"
 
 namespace wfwd {
@@ -668,7 +669,6 @@ __host__ __device__ inline int a_bytes(bool bf16, int K) {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float elu(float v) { return v > 0.0f ? v : expm1f(v); }
 
 // For i in [0, n) over the block's threads, four at a time: every read of load(i) before any
 // store(i, v). An element's store could alias the next one's loads, so one at a time each

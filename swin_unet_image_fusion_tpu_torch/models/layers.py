@@ -132,11 +132,16 @@ def elu(x: torch.Tensor) -> torch.Tensor:
     return F.elu(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in the tanh form, ``jax.nn.gelu``'s default (not the erf form of ``F.gelu``'s)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "elu":
         return elu
     if name == "gelu":
-        return F.gelu
+        return gelu
     if name == "relu":
         return F.relu
     raise ValueError(f"unknown activation: {name}")

@@ -10,13 +10,22 @@ tokens packed by window). Both compute one whole ``BasicBlock`` on both streams:
   gathered relative-position bias, the wrap-seam mask *setting* scores to -1e10, the
   clamped fast softmax); under cross, k/v come from the other stream normalised with
   *that* stream's LN1;
-- proj + bias, + x; LN2; fc1 + b1; ELU; fc2 + b2; + y.
+- proj + bias, + x; LN2; fc1 + b1; the MLP's activation; fc2 + b2; + y.
+
+The activation is ELU (the default model's), ReLU or GELU (``ACTIVATIONS``), a runtime code
+of every route's kernels (``csrc/activation.cuh``). GELU has two forms, as in the TPU
+kernels: their forward bodies compute ``jax.nn.gelu``, the tanh form, and their backward
+bodies recompute the hidden and its derivative in the erf form (``_act_and_grad``,
+``pallas_block.py:194-208``, ``pallas_pack.py:725-737``): w2's gradient reads the erf hidden
+z Phi(z) and g_pre is g_h (Phi(z) + z phi(z)). The plain version and the kernels follow both
+(:class:`_GeluProduct`); the composition (``models/layers.py``) differentiates the tanh form,
+as the JAX jnp block does. ReLU's derivative is (z > 0) in both.
 
 x and the output are fp32 or bf16 (the weights fp32), and the two TPU kernels round
 differently in bf16, so the rounding goes with the layout and not with the dtype alone:
 
 - K4 (``"image"``, ``pallas_block.py::_block_fwd_body``) takes bf16 operands: x is upcast
-  on load; LN1(x) and LN1(kv), the weights, p and v before AV, AV, LN2(y) and the ELU
+  on load; LN1(x) and LN1(kv), the weights, p and v before AV, AV, LN2(y) and the MLP
   hidden are rounded to bf16 as they enter a product, whose sums stay fp32; the scores,
   the softmax, q/k/v and **y = x + proj are never rounded**; ``y + m`` is rounded once on
   the store;
@@ -69,7 +78,7 @@ apart and added in bf16.
 Dropout (training): ``drop_rates`` = (attention, proj, MLP) with a ``drop_seed`` in
 [0, 2^24) applies the reference's four sites with the TPU kernels' hash masks
 (``pallas_block.py:87-187``, ``pallas_pack.py:581-686``): p before AV, proj + bp before
-the residual, the MLP hidden after the ELU and fc2 + b2 before the residual, the MLP rate
+the residual, the MLP hidden after the activation and fc2 + b2 before the residual, the MLP rate
 at both MLP sites. The masks are keyed on the TPU kernel's own geometry
 (``ops/dropout_layout.py``): K4's padded windows for the image layout, K1's window pairs
 for the windows layout. On a card a dropout call launches the dropout form of the
@@ -84,9 +93,10 @@ rounding), the token sites masked in the epilogues of proj, fc1 (before the hidd
 and fc2; it stores no keep bits. The backward's dropout
 form of the fused and split routes recomputes
 the forward's attention and proj masks (the attention's keep bits once per window and head, two
-32-bit words per query row, stored for the attention's backward), keeps the ELU hidden
-undropped for ELU', and backpropagates g_m = drop(g) into the MLP (g_pre = drop(g_m w2^T)
-ELU'(h), the hidden dropped in place for w2's gradient) and g_proj = drop(g_y) into the
+32-bit words per query row, stored for the attention's backward), keeps the hidden
+undropped for act' (under GELU it stores z), and backpropagates g_m = drop(g) into the MLP
+(g_pre = drop(g_m w2^T) act'(z), the hidden (GELU: the erf hidden) dropped in place for w2's
+gradient) and g_proj = drop(g_y) into the
 attention (whose core masks g_P and weights g_v by the dropped P), while the residual paths
 take the undropped g and g_y; a site of rate 0 is the identity.
 """
@@ -140,6 +150,8 @@ LN_EPS = 1e-5
 # route's (csrc/fused_block_fwd.cuh's kMaxC)
 MAX_CHANNELS = 384
 LAYOUTS = ("image", "windows")
+# the MLP activations the kernels take, in the order of their codes (activation_code)
+ACTIVATIONS = ("elu", "relu", "gelu")
 WEIGHT_NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                 "bias", "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
@@ -154,6 +166,10 @@ BWD_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
 DROP_BWD_LAUNCHES = 0
 BF16_DROP_BWD_LAUNCHES = 0
+# Of those, the calls under each activation but ELU (any dtype, with or without dropout),
+# forward and backward.
+ACTIVATION_LAUNCHES = {"relu": 0, "gelu": 0}
+ACTIVATION_BWD_LAUNCHES = {"relu": 0, "gelu": 0}
 
 
 def rounds_operands(dtype: torch.dtype, layout: str) -> bool:
@@ -185,15 +201,64 @@ def block_keying(layout: str, hw, window, shift: bool, num_heads: int, dims_per_
     return dl.keying(kind, hw, window, shift, num_heads, dims_per_head, device)
 
 
+def activation_code(activation: str) -> int:
+    """The kernels' code of an MLP activation (``csrc/activation.cuh``'s ``kActElu``,
+    ``kActRelu``, ``kActGelu``); raises on any other name."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; the fused block takes {ACTIVATIONS}")
+    return ACTIVATIONS.index(activation)
+
+
+class _GeluProduct(torch.autograd.Function):
+    """``rnd(site(gelu(z))) @ rnd(w2)`` per stream, with the TPU kernels' gelu: the forward
+    in the tanh form (``jax.nn.gelu``, as the forward bodies compute it), the backward as
+    their ``_act_and_grad`` recomputes it in the erf form (``pallas_block.py:194-208``,
+    ``pallas_pack.py:725-737``): w2's gradient reads the erf hidden and g_pre is
+    g_h (Phi(z) + z phi(z)). ``site`` is the hidden's dropout (the identity without);
+    ``rnd`` K4's bf16 rounding, the identity wherever a backward runs (fp32 inside)."""
+
+    @staticmethod
+    def forward(ctx, z, w2, site, rnd):
+        ctx.save_for_backward(z, w2)
+        ctx.site = site
+        hidden = rnd(site(F.gelu(z, approximate="tanh")))
+        s, k, n = w2.shape
+        return (hidden.reshape(s, -1, k) @ rnd(w2)).reshape(*z.shape[:-1], n)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, w2 = ctx.saved_tensors
+        with torch.enable_grad():
+            z, w2 = z.detach().requires_grad_(), w2.detach().requires_grad_()
+            s, k, n = w2.shape
+            out = (ctx.site(F.gelu(z)).reshape(s, -1, k) @ w2).reshape(*z.shape[:-1], n)
+            gz, gw2 = torch.autograd.grad(out, (z, w2), g)
+        return gz, gw2, None, None
+
+
+def _mlp_out(z, w2, b2, activation, rnd, site):
+    """fc2(site(act(z))) + b2 of the pre-activation ``z``, the operands rounded by ``rnd``;
+    ``site`` is the hidden's dropout. Under gelu the kernels' two forms
+    (:class:`_GeluProduct`); elu and relu as autograd takes them (relu' = (z > 0), as
+    ``_act_and_grad``'s)."""
+    if activation == "gelu":
+        s, n = b2.shape
+        return _GeluProduct.apply(z, w2, site, rnd) + b2.reshape((s,) + (1,) * (z.ndim - 2) + (n,))
+    act = F.elu if activation == "elu" else F.relu
+    return _dense(rnd(site(act(z))), rnd(w2), b2)
+
+
 def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, *, hw, window, num_heads,
-                         dims_per_head, shift, cross, rnd, drop=None, kvw=None, mask=None):
+                         dims_per_head, shift, cross, rnd, drop=None, kvw=None, mask=None,
+                         activation="elu"):
     """The block on fp32 window-packed tokens; ``rnd`` is applied to every operand of a
     product that K4 rounds to bf16 (the identity for fp32 and for K1). ``drop``: None,
     or (rates, seed, keying) of the call's dropout. ``kvw``: the tokens k/v are made from
     (stream-flipped under cross), ``xw`` by default. ``mask``: the (nWin, T, T) wrap-seam
     mask of a shifted call, ``wrap_region_mask`` of ``hw`` by default (a band of a larger
-    map passes its windows' slice of the map's)."""
+    map passes its windows' slice of the map's). ``activation``: the MLP's, elu, relu or
+    gelu (:func:`_mlp_out`)."""
     s, b, n_win, t, c = xw.shape
     d = dims_per_head
     ln = rnd(_layer_norm(xw, ln1_scale, ln1_bias))
@@ -216,8 +281,8 @@ def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp
         av = rnd(rnd(p) @ rnd(v))
         av = av.transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
         y = xw + _dense(av, rnd(wp), bp)
-        hidden = rnd(F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)))
-        return y + _dense(hidden, rnd(w2), b2)
+        z = _dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)
+        return y + _mlp_out(z, w2, b2, activation, rnd, lambda a: a)
     (rate_a, rate_p, rate_m), seed, key = drop
     table = dl.windows_table(key)
 
@@ -233,9 +298,9 @@ def _block_windows_plain(xw, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp
     av = rnd(rnd(p) @ rnd(v))
     av = av.transpose(3, 4).reshape(s, b, n_win, t, num_heads * d)
     y = xw + site(_dense(av, rnd(wp), bp), hd.SITE_PROJ, rate_p)
-    hidden = F.elu(_dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1))
-    hidden = rnd(site(hidden, hd.SITE_MLP_HIDDEN, rate_m))
-    return y + site(_dense(hidden, rnd(w2), b2), hd.SITE_MLP_OUT, rate_m)
+    z = _dense(rnd(_layer_norm(y, ln2_scale, ln2_bias)), rnd(w1), b1)
+    m = _mlp_out(z, w2, b2, activation, rnd, lambda a: site(a, hd.SITE_MLP_HIDDEN, rate_m))
+    return y + site(m, hd.SITE_MLP_OUT, rate_m)
 
 
 def _check(x: torch.Tensor, layout: str, hw, window) -> Tuple[int, int]:
@@ -279,10 +344,10 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
     with the hash dropout of ``drop_rates`` and ``drop_seed`` (module docstring).
     ``kv``: a tensor like x that k/v are made from (stream-flipped under cross), x itself
     by default; the plain backward passes a copy of x to keep the k/v side of x's
-    gradient apart.
+    gradient apart. ``activation``: the MLP's, one of ``ACTIVATIONS``; under gelu autograd
+    takes the TPU kernels' backward (module docstring).
     """
-    if activation != "elu":
-        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    activation_code(activation)
     hw = _check(x, layout, hw, window)
     dl.check_seed(drop_rates, drop_seed)
     weights = (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
@@ -293,7 +358,7 @@ def fused_block_plain(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bi
         drop = (tuple(drop_rates), drop_seed, key)
     kw = dict(hw=hw, window=window, num_heads=num_heads, dims_per_head=dims_per_head,
               shift=shift, cross=cross, rnd=operand_rounding(rounds_operands(x.dtype, layout)),
-              drop=drop)
+              drop=drop, activation=activation)
     if layout == "windows":
         kvw = None if kv is None else kv.float()
         return _block_windows_plain(x.float(), *weights, kvw=kvw, **kw).to(x.dtype)
@@ -326,11 +391,11 @@ def fused_block_bwd_plain(g, x, *weights, **kw) -> Tuple[torch.Tensor, ...]:
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     drop = ctypes.POINTER(dl.DropArgs)
-    lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
+    lib.swin_fused_block_fwd.argtypes = [_P] * 25 + [drop] + [_I] * 14 + [ctypes.c_float, _I, _P]
     lib.swin_fused_block_fwd.restype = _I
     lib.swin_fused_block_bwd_workspace.argtypes = [_I] * 10 + [drop] + [_I] * 2
     lib.swin_fused_block_bwd_workspace.restype = ctypes.c_size_t
-    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 14 + [ctypes.c_float, _P]
+    lib.swin_fused_block_bwd.argtypes = [_P] * 3 + [drop] + [_I] * 14 + [ctypes.c_float, _I, _P]
     lib.swin_fused_block_bwd.restype = _I
     return lib
 
@@ -341,7 +406,7 @@ def _fwd_library(drop: bool = False) -> ctypes.CDLL:
     ``csrc/fused_block_fwd_drop.cu`` (the dropout forms): one C interface, a library each, so
     that the two build at once."""
     lib = _build.load("fused_block_fwd_drop" if drop else "fused_block_fwd")
-    lib.swin_k4_fwd.argtypes = [_P] * 23 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 16 + [ctypes.c_float, _P]
+    lib.swin_k4_fwd.argtypes = [_P] * 23 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 16 + [ctypes.c_float, _I, _P]
     lib.swin_k4_fwd.restype = _I
     lib.swin_k4_fwd_smem.argtypes = [_I] * 11
     lib.swin_k4_fwd_smem.restype = ctypes.c_size_t
@@ -352,7 +417,7 @@ def _fwd_library(drop: bool = False) -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_bwd")
     drop = ctypes.POINTER(dl.DropArgs)
-    lib.swin_block_bwd.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 16 + [ctypes.c_float, _P]
+    lib.swin_block_bwd.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 16 + [ctypes.c_float, _I, _P]
     lib.swin_block_bwd.restype = _I
     lib.swin_block_bwd_workspace.argtypes = [_I] * 13
     lib.swin_block_bwd_workspace.restype = ctypes.c_size_t
@@ -365,7 +430,7 @@ def _bwd_library() -> ctypes.CDLL:
 def _split_library() -> ctypes.CDLL:
     lib = _build.load("fused_block_bwd_split")
     drop = ctypes.POINTER(dl.DropArgs)
-    lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 18 + [ctypes.c_float, _P]
+    lib.swin_block_bwd_split.argtypes = [_P] * 3 + [ctypes.c_size_t, drop] + [_I] * 18 + [ctypes.c_float, _I, _P]
     lib.swin_block_bwd_split.restype = _I
     lib.swin_block_bwd_split_workspace.argtypes = [_I] * 14
     lib.swin_block_bwd_split_workspace.restype = ctypes.c_size_t
@@ -779,6 +844,11 @@ def _dims(x, weights, kw):
             weights[-4].shape[-1], *kw["window"])
 
 
+def _act(kw) -> int:
+    """The kernels' activation code of a call (ELU where ``kw`` names none)."""
+    return activation_code(kw.get("activation", "elu"))
+
+
 def _drop_args(x, kw):
     """The kernels' dropout arguments of a call (None without dropout); kept alive by the
     caller until the launch returns."""
@@ -810,6 +880,8 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
         BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    if kw.get("activation", "elu") != "elu":
+        ACTIVATION_LAUNCHES[kw["activation"]] += 1
     return out
 
 
@@ -836,7 +908,7 @@ def run_fwd(x, weights, kw, shift: int) -> torch.Tensor:
         *(None if a is None else a.data_ptr() for a in scratch), dl.drop_pointer(drop),
         s, b, h, w, c, heads, d, hidden, plan.heads_per_block, plan.hidden_chunk,
         int(plan.route == "fused"), shift, int(kw["cross"]),
-        int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5),
+        int(kw["layout"] == "windows"), int(bf16), int(ops), float(d**-0.5), _act(kw),
     )
     _build.check_launch(lib, rc, "fused block")
     return out
@@ -867,7 +939,7 @@ def _launch_five(x, weights, kw) -> torch.Tensor:
         x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
         *(a.data_ptr() for a in scratch), dl.drop_pointer(drop),
         s, b, h, w, c, heads, d, hidden, wh, ww, int(kw["shift"]), int(kw["cross"]),
-        int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
+        int(kw["layout"] == "windows"), int(bf16), float(d**-0.5), _act(kw),
     )
     _build.check_launch(lib, rc, "fused block")
     return out
@@ -903,6 +975,8 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
         BF16_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
+    if kw.get("activation", "elu") != "elu":
+        ACTIVATION_BWD_LAUNCHES[kw["activation"]] += 1
     return grads
 
 
@@ -924,7 +998,7 @@ def _launch_bwd_fused(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
         x.device, lib.swin_block_bwd,
         ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
         plan.hidden_chunk, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
-        int(x.dtype == torch.bfloat16), float(d**-0.5),
+        int(x.dtype == torch.bfloat16), float(d**-0.5), _act(kw),
     )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
@@ -950,7 +1024,7 @@ def _launch_bwd_split(g, x, weights, kw, plan: BlockBwdPlan) -> Tuple[torch.Tens
         ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d, hidden,
         plan.hidden_chunk,
         *plan.heads_per_block, *blocks, int(kw["shift"]), int(cross), int(kw["layout"] == "windows"),
-        int(x.dtype == torch.bfloat16), float(d**-0.5),
+        int(x.dtype == torch.bfloat16), float(d**-0.5), _act(kw),
     )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
@@ -975,7 +1049,7 @@ def _launch_bwd_five(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     rc = _build.launch_on(
         x.device, lib.swin_fused_block_bwd,
         ins, outs, workspace.data_ptr(), dl.drop_pointer(drop), *dims, int(kw["shift"]),
-        int(kw["cross"]), int(kw["layout"] == "windows"), int(bf16), float(d**-0.5),
+        int(kw["cross"]), int(kw["layout"] == "windows"), int(bf16), float(d**-0.5), _act(kw),
     )
     _build.check_launch(lib, rc, "fused block backward")
     return tuple(grads)
@@ -1028,8 +1102,7 @@ def fused_block(x, ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wp, bp, bias,
         return fused_block_plain(x, *weights, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block runs on cpu or cuda tensors, not {x.device}")
-    if activation != "elu":
-        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    activation_code(activation)
     _check(x, layout, hw, window)
     s, c = x.shape[0], x.shape[-1]
     wh, ww = window

@@ -77,8 +77,7 @@ def fused_block_band_plain(xw, *weights, hw: Tuple[int, int], row0: int, window:
     """Plain version of the K1 band form: the block on the windows of window rows [row0,
     row0 + n) of an ``hw`` map, ``xw`` (S, B, n * nw, T, C) fp32 or bf16 in the geometry of
     ``shift``; the weights as ``fused_block_plain``'s."""
-    if activation != "elu":
-        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    fb.activation_code(activation)
     bhw = band_hw(xw, hw, window)
     mask = None
     if shift:
@@ -86,7 +85,8 @@ def fused_block_band_plain(xw, *weights, hw: Tuple[int, int], row0: int, window:
         mask = device_constant(band_mask, args, xw.device)
     out = fb._block_windows_plain(
         xw.float(), *weights, hw=bhw, window=window, num_heads=num_heads,
-        dims_per_head=dims_per_head, shift=shift, cross=cross, rnd=lambda t: t, mask=mask)
+        dims_per_head=dims_per_head, shift=shift, cross=cross, rnd=lambda t: t, mask=mask,
+        activation=activation)
     return out.to(xw.dtype)
 
 
@@ -112,8 +112,7 @@ def fused_block_band(xw, *weights, hw: Tuple[int, int], row0: int, window: Tuple
     for a in weights:
         if a.device != xw.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError(f"the weights must be contiguous float32 tensors on {xw.device}")
-    if activation != "elu":
-        raise ValueError(f"the fused block computes an ELU MLP, not {activation!r}")
+    fb.activation_code(activation)
     bhw = band_hw(xw, hw, window)
     code = 0 if not shift else 1 if row0 == 0 else 2
     out = fb.run_fwd(xw, weights, dict(kw, layout="windows", hw=bhw), code)

@@ -110,8 +110,8 @@ def test_both_layouts_compute_the_same_block():
 
 def test_wrapper_rejects_other_activations_and_layouts():
     x, _, _, port = _block_case(CASES["c8-shift0-cross0"])
-    port.activation = "gelu"
-    with pytest.raises(ValueError, match="ELU"):
+    port.activation = "silu"
+    with pytest.raises(ValueError, match="unknown activation"):
         port.fused(torch.from_numpy(x), "image")
     port.activation = "elu"
     with pytest.raises(ValueError, match="layout"):

@@ -248,9 +248,10 @@ def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
         out = tfb._launch_fwd(xl, weights, dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=True,
                                                 cross=True, layout=layout, hw=(7, 7)))
         args = fake_library.calls["swin_k4_fwd"]
-        assert out.dtype == dtype and args[-4] == bf16
-        assert args[-3] == (bf16 if layout == "image" else 0), "the operands' rounding"
-        assert args[-5] == (layout == "windows"), "the windows layout's flag"
+        assert args[-2] == 0, "the activation's code (ELU), the last argument before the stream"
+        assert out.dtype == dtype and args[-5] == bf16
+        assert args[-4] == (bf16 if layout == "image" else 0), "the operands' rounding"
+        assert args[-6] == (layout == "windows"), "the windows layout's flag"
         assert "swin_fused_block_fwd" not in fake_library.calls
         assert (tfb.LAUNCHES, tfb.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
@@ -298,7 +299,7 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
             assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
             # csrc/fused_block_bwd.cu's fused route, without dropout and in its dropout form
             args = fake_library.calls["swin_block_bwd"]
-            assert args[-3] == 1 and args[-4] == int(layout == "windows")
+            assert args[-4] == 1 and args[-5] == int(layout == "windows") and args[-2] == 0
             assert counters(tfb) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
 
 

@@ -1252,3 +1252,42 @@ def test_token_mask_forms_match_plain_on_card(dtype):
                                      int(dtype == BF16), torch.cuda.current_stream().cuda_stream)
         _build.check_launch(lib, rc, "token dropout mask")
         assert torch.equal(inplace, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["image", "windows"])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+def test_activation_forms_match_plain_on_card(activation, layout, dtype):
+    """K4's (image) and K1's (windows) relu and gelu forms at stages 0 (one launch) and 2 (the
+    split route) of a 224² batch-2 step, shift and cross: the forward against its plain version
+    (fp32 within atol/rtol 1e-4, bf16 by the share bound) and, under gelu in fp32, the backward
+    against the plain backward (the erf form, as the TPU kernels'), each counted once in its
+    activation's counter and repeated bit for bit. ``chip_smoke.py``'s ``[act]`` phase holds
+    relu's backward, whose derivative jumps at 0, with the cotangent zeroed near it."""
+    _need_card()
+    for k, h, w, c, heads, d in _stage_cases((224, 224)):
+        if k not in (0, 2):
+            continue
+        hidden = 4 * c
+        x, *weights = _block_case(k, h, w, c, heads, d, hidden, dtype, 2)
+        xl = twp.pack_windows(x, (7, 7), True).contiguous() if layout == "windows" else x
+        kw = dict(window=(7, 7), num_heads=heads, dims_per_head=d, shift=True, cross=True, layout=layout,
+                  hw=(h, w), activation=activation)
+        what = f"{activation} {layout} stage {k} {dtype}"
+        before = tfb.ACTIVATION_LAUNCHES[activation]
+        out, again = tfb.fused_block(xl, *weights, **kw), tfb.fused_block(xl, *weights, **kw)
+        torch.cuda.synchronize()
+        assert tfb.ACTIVATION_LAUNCHES[activation] == before + 2
+        assert torch.equal(out, again), f"{what}: a repeat gave other bits"
+        ref = tfb.fused_block_plain(xl, *weights, **kw)
+        if dtype == BF16:
+            _assert_bf16_close(out, ref, what)
+            continue
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4, msg=lambda m: f"{what}: {m}")
+        if activation == "gelu":
+            g = torch.randn(xl.shape, generator=torch.Generator().manual_seed(k)).cuda()
+            got, again = tfb._launch_bwd(g, xl, weights, kw), tfb._launch_bwd(g, xl, weights, kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: a backward repeat gave other bits"
+            assert_grads_close(got, tfb.fused_block_bwd_plain(g, xl, *weights, **kw), ("x", *tfb.WEIGHT_NAMES),
+                               f"{what} bwd")

@@ -212,8 +212,8 @@ def test_k1_band_launch_hands_the_row_seam_code(monkeypatch, row0, code):
                           dims_per_head=4, shift=True, cross=False)
     (name, args), = lib.calls
     assert name == "swin_k4_fwd"
-    # ..., fused, shift, cross, windows, bf16_io, bf16_ops, scale, stream
-    assert args[-8:-4] == (1, code, 0, 1) and args[-18:-14] == (2, 1, 14, 28)
+    # ..., fused, shift, cross, windows, bf16_io, bf16_ops, scale, activation (ELU), stream
+    assert args[-9:-5] == (1, code, 0, 1) and args[-19:-15] == (2, 1, 14, 28) and args[-2] == 0
     assert (spmd.BAND_LAUNCHES, tfb.LAUNCHES) == (before[0] + 1, before[1])
     before = spmd.HALO_LAUNCHES
     out = spmd.repartition_halo(x, torch.zeros(2, 1, 4, 49, 8), (56, 28), WINDOW, False, True)
