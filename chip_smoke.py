@@ -94,7 +94,14 @@ launches (bit-equal) and their plain versions, timed beside them (K2 halo one ke
 turns with its first form, concatenation, launch and copy, and index_select), and ``SpatialFuser`` under
 ``cuda_pack`` over the group of one at 1792x1792 with exact launches against ``fuse_y`` and the
 composition (``[spatial]``); ``TiledFuser`` over the group of one at 2048x2048 against no group
-(``[tiled] world 1``). Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
+(``[tiled] world 1``). Then the relu and gelu MLP forms of K1 and K4 (``[act]``). Last K3 at windows
+other than 7x7 (``[window]``): the any-window build (``window_attention_fwd_any.cu``,
+``window_attention_bwd_any.cu``) forward and backward, fp32 and bf16, at 8x8, 4x4 and 7x8 windows at
+every stage against the plain K3 and repeated bit for bit, the dropout forms at 8x8; each 8x8 form
+timed in turns with the 7x7 form at the same C; the full-width model with 8x8 windows served at
+512x512 under ``"auto"`` (fp32 against the composition, bf16 by the image criteria, timed beside
+the 7x7 model) and one train step at 224x224 batch 20 without and with attention dropout, with
+exact launches. Each phase prints its wall seconds (``[phase]``). Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with their
 launches, errors, times and bounds.
 
@@ -107,8 +114,9 @@ sources it runs, and
 
     python3 chip_smoke.py --multi-device
 
-only the multi-device phases after building every source; neither prints the kernels line nor
-the last line. ``--dist-worker RANK STORE OUT`` is one rank of ``[dist] world 2``, which the
+only the multi-device phases after building every source; ``--activation`` only ``[act]``, and
+``--window`` only ``[window]`` after building K3's five sources; none of them prints the kernels
+line or the last line. ``--dist-worker RANK STORE OUT`` is one rank of ``[dist] world 2``, which the
 script starts itself.
 """
 
@@ -204,16 +212,18 @@ def _rand(gen, device):
     return rand
 
 
-def attention_inputs(h, w, c, heads, d, seed, device, batch=1):
-    """x like an LN output, He-scaled weights, small biases, N(0, 1) bias table."""
+def attention_inputs(h, w, c, heads, d, seed, device, batch=1, window=WINDOW):
+    """x like an LN output, He-scaled weights, small biases, N(0, 1) bias table (T x T of the
+    window's T tokens)."""
     rand = _rand(torch.Generator().manual_seed(seed), device)
     inner = heads * d
+    t = window[0] * window[1]
     return (rand(2, batch, h, w, c),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, c, inner, scale=c**-0.5), rand(2, inner, scale=0.1),
             rand(2, inner, c, scale=inner**-0.5), rand(2, c, scale=0.1),
-            rand(2, T, T))
+            rand(2, t, t))
 
 
 def block_inputs(h, w, c, heads, d, hidden, seed, device, batch=1):
@@ -248,7 +258,7 @@ def _bound(flops, bytes_, peak_flops=PEAK_FP32_FLOPS, int_ops=0):
 
 
 def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.float32,
-                       int_ops=0):
+                       int_ops=0, window=WINDOW):
     """Least time for one K3 launch: matmul FLOPs over the peak for their operands vs each
     input byte read once and the output written once over HBM bandwidth (both streams).
     In bf16 the products take bf16 operands, so the FLOPs are at the dense bf16
@@ -259,14 +269,15 @@ def attention_bound_ms(h, w, c, heads, d, batch=1, backward=False, dtype=torch.f
     projection's 2*T*C*inner per window. It reads x and g and writes g_x and the weight
     gradients. In bf16 the backward computes in fp32 (the JAX body upcasts), at the fp32
     rate, on 2-byte x, g and g_x. ``int_ops``: the dropout form's hash work, added to the
-    operations."""
+    operations. ``window``: (wh, ww) of T = wh * ww tokens."""
     inner = heads * d
-    windows = 2 * batch * (h // WINDOW[0]) * (w // WINDOW[1])
-    flops = windows * (8 * T * c * inner + 4 * T * T * inner)
-    maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + T * T)
+    t = window[0] * window[1]
+    windows = 2 * batch * (h // window[0]) * (w // window[1])
+    flops = windows * (8 * t * c * inner + 4 * t * t * inner)
+    maps, weights = 2 * 2 * batch * h * w * c, 2 * (4 * c * inner + 3 * inner + c + t * t)
     act = 2 if dtype == BF16 else 4  # bytes of an x, g, g_x or output element
     if backward:
-        return _bound(3 * flops - windows * 2 * T * c * inner, act * 3 * maps // 2 + 8 * weights,
+        return _bound(3 * flops - windows * 2 * t * c * inner, act * 3 * maps // 2 + 8 * weights,
                       int_ops=int_ops)
     if dtype == BF16:
         return _bound(flops, 2 * maps + 4 * weights, PEAK_BF16_FLOPS, int_ops=int_ops)
@@ -1950,14 +1961,14 @@ MASK_MAIN_PATH = "cuda"  # the configuration whose dropout step gives the masks'
 PARITY_HW, PARITY_BATCH = (112, 112), 2  # the full-width dropout step on the card vs the CPU
 
 
-def hash_ops(h, w, c, heads, hidden, batch, attention_only):
+def hash_ops(h, w, c, heads, hidden, batch, attention_only, window=WINDOW):
     """Integer operations of the hash masks of one dropout launch (both streams): HASH_OPS
     per masked element, each keep decision once: the attention weights (heads x T x T per
     window), proj, the MLP hidden and out. The least the function needs, forward and backward
     alike: a backward that recomputes its forward can keep the recompute's bits for its own
     use, as the redesigned K1/K4 dropout backward keeps the attention's."""
     tokens = 2 * batch * h * w
-    attention = tokens * heads * T
+    attention = tokens * heads * window[0] * window[1]
     if attention_only:
         return HASH_OPS * attention
     return HASH_OPS * (attention + tokens * c + tokens * hidden + tokens * c)
@@ -5220,6 +5231,312 @@ def activation_phase(flat, device, card):
     return worst, times, launches
 
 
+# ---- [window]: K3 at windows other than 7x7 (csrc/window_attention_fwd_any.cu, _bwd_any.cu) ----
+WINDOWS = ((8, 8), (4, 4), (7, 8))  # windows of the any-window build held against the plain K3
+WIN_MODEL = (8, 8)  # the window of the model that the phase serves and steps
+WIN_CHECK_BATCH = 2  # images a stream in the kernel checks, at each window's 224² stage maps
+WIN_ITERS = 5  # timed calls of each form, in turns with the 7x7 form at the same C
+WIN_DROP_RATE = 0.1  # the attention dropout of the 8x8 model's dropout step
+# launches of the 8x8 model: every block's K3 at 512² (no stage map within the 49-token gate) and
+# at 224² (stage 4's 8x8 map is one window of 64 tokens, above the gate)
+WIN_SERVE = {"K3": 40}
+WIN_TRAIN = {"K3": 40, "K3 bwd": 40}
+WIN_TRAIN_DROP = {"K3 drop": 40, "K3 drop bwd": 40}
+
+
+def window_key(suffix):
+    """The kernels-line key of the 8x8 form whose counter has ``suffix`` (FORM_COUNTERS)."""
+    return f"K3 8x8{suffix}"
+
+
+def window_stages(window, hw, batch, device, seed=SEED + 90):
+    """(stage, h, w, c, heads, d, x, weights) of the default model's five stages at ``window`` for
+    an ``hw`` input, ``batch`` images a stream."""
+    from swin_unet_image_fusion_tpu_torch import ModelConfig
+
+    for k, h, w, c, heads, d in stage_geometries(ModelConfig(window_size=window), hw):
+        x, *weights = attention_inputs(h, w, c, heads, d, seed + k, device, batch, window)
+        yield k, h, w, c, heads, d, x, weights
+
+
+def check_window_kernels(device, card):
+    """``[window]``: every form of K3's any-window build against its plain version on the same
+    inputs, each repeated bit for bit: the forward and the backward in fp32 and bf16 at 8x8, 4x4
+    and 7x8 windows at every stage of the default model (C = 24-384, d = C/8; each window's 224²
+    stage maps, batch 2), each without shift or cross and with both; at 8x8 also the dropout
+    forward and backward at the rates of DROP_CHECK_RATES, fp32 and bf16. Returns the worst
+    errors by kernels-line key (and by window)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import assert_grads_close
+
+    names = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp", "bias")
+    worst, cases = {}, 0
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for window in WINDOWS:
+        for k, h, w, c, heads, d, x32, weights in window_stages(window, TRAIN_HW, WIN_CHECK_BATCH, device):
+            g32 = torch.randn(x32.shape, generator=torch.Generator().manual_seed(SEED + 95 + k)).to(device)
+            rates = (0.0, *DROP_CHECK_RATES) if window == WIN_MODEL else (0.0,)
+            for (shift, cross), dtype, rate in itertools.product(((False, False), (True, True)), (torch.float32, BF16),
+                                                                 rates):
+                x, g = x32.to(dtype), g32.to(dtype)
+                bf16 = dtype == BF16
+                kw = dict(window=window, num_heads=heads, dims_per_head=d, shift=shift, cross=cross)
+                if rate:
+                    kw.update(attn_drop_rate=rate, drop_seed=DROP_SEED + 10 * k + 2 * shift + bf16)
+                fwd = twa.fwd_plan(c, heads, d, window, cross, bf16, bool(rate))
+                bwd = twa.bwd_plan(c, heads, d, window, cross, bf16, bool(rate))
+                what = (f"[window] K3 {window[0]}x{window[1]}{tag(dtype)}{f' drop {rate}' if rate else ''} stage {k} "
+                        f"{h}x{w}x{WIN_CHECK_BATCH} C={c} d={d} shift={shift} cross={cross} (forward {fwd.route}, "
+                        f"backward {bwd.route})")
+                out, again = twa.window_attention(x, *weights, **kw), twa.window_attention(x, *weights, **kw)
+                torch.cuda.synchronize()
+                err, _ = compare_kernel(out, twa.window_attention_plain(x, *weights, **kw), what)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{what}: a repeat gave other bits")
+                del out, again
+                got, again = twa._launch_bwd(g, x, weights, kw), twa._launch_bwd(g, x, weights, kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what} bwd: a repeat gave other bits")
+                del again
+                ref = twa.window_attention_bwd_plain(g, x, *weights, **kw)
+                if bf16:
+                    bwd_err = _check_bf16_grads(got, ref, names, what + " bwd")
+                else:
+                    check = assert_grads_close(got, ref, names, what + " bwd")
+                    bwd_err = check.worst
+                    print(f"{what} bwd: max_abs_err {bwd_err:.3e}, {check.worst_own:.3e} of a gradient's own "
+                          f"largest", flush=True)
+                del got, ref
+                cases += 1
+                drop, b16 = " drop" if rate else "", " bf16" if bf16 else ""
+                if window == WIN_MODEL:
+                    note(window_key(f"{drop}{b16}"), err)
+                    note(window_key(f"{drop} bwd{b16}"), bwd_err)
+                note(f"K3 {window[0]}x{window[1]} (every form)", max(err, bwd_err))
+            del x32, g32, weights
+        torch.cuda.empty_cache()
+    for key in sorted(worst):
+        print(f"[check] {key}: worst max_abs_err {worst[key]:.3e}; every case repeated bit for bit", flush=True)
+    print(f"[check] K3's any-window build: {cases} cases (each a forward and a backward) at windows {WINDOWS} "
+          f"against the plain K3 on the card", flush=True)
+    return worst
+
+
+def time_window_kernels(device, card):
+    """``[window]``: the 8x8 forms of K3 timed per call in turns with the 7x7 form at the same C
+    (8x8, 7x7, 7x7, 8x8), at every stage, shifted and under cross: the forward (fp32, bf16) at the
+    stage maps of a 512² request (batch 1), the backward and the dropout forms (rate 0.1) at those
+    of a 224² batch-20 step; each beside its bound, its plain version's time, and per token of the
+    call (both streams). Returns the times by kernels-line key, summed over a request's or a step's
+    40 calls (each stage's 8 calls at this variant's time)."""
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+
+    times = {}
+    forms = (("", torch.float32, False, False, SERVE_HW, 1), (" bf16", BF16, False, False, SERVE_HW, 1),
+             (" bwd", torch.float32, True, False, TRAIN_HW, TRAIN_BATCH),
+             (" drop", torch.float32, False, True, TRAIN_HW, TRAIN_BATCH),
+             (" drop bwd", torch.float32, True, True, TRAIN_HW, TRAIN_BATCH))
+    for suffix, dtype, backward, dropping, hw, batch in forms:
+        key = window_key(suffix)
+        t = times.setdefault(key, dict(ms=0.0, seven_ms=0.0, plain_ms=0.0, bound_ms=0.0, by={}, library_ms=None))
+        pairs = zip(window_stages(WIN_MODEL, hw, batch, device), window_stages(WINDOW, hw, batch, device))
+        for (k, h, w, c, heads, d, x, weights), (_, h7, w7, _, _, _, x7, weights7) in pairs:
+            x, x7 = x.to(dtype), x7.to(dtype)
+            g, g7 = torch.randn_like(x), torch.randn_like(x7)
+            extra = dict(attn_drop_rate=WIN_DROP_RATE, drop_seed=DROP_SEED + k) if dropping else {}
+            kw = dict(window=WIN_MODEL, num_heads=heads, dims_per_head=d, shift=True, cross=True, **extra)
+            kw7 = dict(kw, window=WINDOW)
+            if backward:
+                calls = (lambda: twa._launch_bwd(g, x, weights, kw), lambda: twa._launch_bwd(g7, x7, weights7, kw7))
+                plain = lambda: twa.window_attention_bwd_plain(g, x, *weights, **kw)  # noqa: E731
+            else:
+                calls = (lambda: twa.window_attention(x, *weights, **kw),
+                         lambda: twa.window_attention(x7, *weights7, **kw7))
+                plain = lambda: twa.window_attention_plain(x, *weights, **kw)  # noqa: E731
+            ms, seven = _in_turns(*calls, WIN_ITERS, 2)
+            plain_ms = time_ms(plain, iters=1, warmup=1)
+            ops = hash_ops(h, w, c, heads, 0, batch, True, WIN_MODEL) if dropping else 0
+            bound, bound_by = attention_bound_ms(h, w, c, heads, d, batch, backward=backward, dtype=dtype,
+                                                 int_ops=ops, window=WIN_MODEL)
+            tokens, tokens7 = 2 * batch * h * w, 2 * batch * h7 * w7
+            print(f"[time] {key} stage {k} {h}x{w}x{batch} C={c} d={d} shifted cross: {ms:.4f} ms "
+                  f"({1e6 * ms / tokens:.3f} ns a token), 7x7 form at {h7}x{w7} {seven:.4f} ms "
+                  f"({1e6 * seven / tokens7:.3f} ns a token, in turns), plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by}) | {card}", flush=True)
+            for name, v in (("ms", ms), ("seven_ms", seven), ("plain_ms", plain_ms), ("bound_ms", bound)):
+                t[name] += 8 * v
+            t["by"][bound_by] = t["by"].get(bound_by, 0.0) + 8 * bound
+            del x, x7, g, g7, weights, weights7
+        torch.cuda.empty_cache()
+        t["bound_by"] = max(t.pop("by").items(), key=lambda kv: kv[1])[0]
+        per = "512x512 request" if hw == SERVE_HW else f"{hw[0]}x{hw[1]} batch-{batch} step"
+        print(f"[time] {key} per {per} (40 calls): {t['ms']:.3f} ms, the 7x7 form {t['seven_ms']:.3f} ms "
+              f"({t['ms'] / t['seven_ms'] - 1:+.1%}, in turns), plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.4f} ms | {card}", flush=True)
+    return times
+
+
+def window_models(device, card):
+    """``[window]``: the main paths of a model with 8x8 windows, each run with the counts set to 0
+    just before it and read just after. ``Fuser.fuse_y`` of the full-width 33M model
+    (``ModelConfig(window_size=(8, 8))``, its own random weights: the relative-position tables
+    are 15 x 15) at 512² under ``"auto"`` in fp32, against the torch composition on the card
+    (MODEL_ATOL / MODEL_RTOL), and in bf16 by the image criteria; its fp32 request timed in
+    turns with the 7x7 model's. Then one fp32 train step at 224² batch TRAIN_BATCH under
+    ``"auto"`` against the composition's first step: loss terms to 1e-5 relative, every gradient
+    by ``testing.assert_grads_close`` with ``rounding``, each atol at least ROUNDING_NOISE times
+    the fp32 composition's own distance from its float64 evaluation (the stage-0
+    relative-position table gradient, summed over 3,920 windows with cancellation, moves in fp32
+    by more than the 1e-4 of its largest that assert_grads_close allows alone; the line prints
+    the largest such distance); and one with attention dropout (rate WIN_DROP_RATE) against the
+    same step with K3's plain version on the card. Returns the launches by kernels-line key."""
+    from swin_unet_image_fusion_tpu_torch import Config, Fuser, ModelConfig, SwinFusionUNet, losses
+    from swin_unet_image_fusion_tpu_torch.models import layers
+    from swin_unet_image_fusion_tpu_torch.models.from_jax import random_variables, variables_from_jax
+    from swin_unet_image_fusion_tpu_torch.ops import window_attention as twa
+    from swin_unet_image_fusion_tpu_torch.testing import ROUNDING_NOISE, assert_grads_close, exact_zero, rounding_of
+    from swin_unet_image_fusion_tpu_torch.train import create_train_state, make_train_step
+
+    flat = random_variables(ModelConfig(window_size=WIN_MODEL), seed=SEED)
+    launches = {}
+
+    def fuser(impl, dtype="float32", window=WIN_MODEL, weights=flat):
+        model = ModelConfig(window_size=window, attention_impl=impl, compute_dtype=dtype)
+        return Fuser(Config(model=model), weights, device=device)
+
+    rng = np.random.default_rng(SEED + 91)
+    ir, vis = (rng.random((1, *SERVE_HW, 1), dtype=np.float32) for _ in range(2))
+    plain32, plain16 = fuser("torch"), fuser("torch", "bfloat16")
+    ref32, ref16 = plain32.fuse_y(ir, vis), plain16.fuse_y(ir, vis)
+    del plain32, plain16
+    for dtype in ("float32", "bfloat16"):
+        served = fuser("auto", dtype)
+        routes = served.model.stage_impls(*SERVE_HW, device)
+        if routes != ("cuda",) * 5:
+            raise AssertionError(f"the 8x8 model routes {routes} at {SERVE_HW}")
+        suffix = " bf16" if dtype == "bfloat16" else ""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = served.fuse_y(ir, vis)
+        torch.cuda.synchronize()
+        got = read_counts("cuda")
+        expected = {n: 0 for n in got}
+        expected.update({f"{n}{suffix}": v for n, v in WIN_SERVE.items()})
+        print(f"[window] fuse_y with 8x8 windows{suffix} {SERVE_HW} under auto: launches {got}", flush=True)
+        if got != expected:
+            raise AssertionError(f"8x8 fuse_y{suffix}: launches {got}, expected {expected}")
+        launches[window_key(suffix)] = got[f"K3{suffix}"]
+        check_fused(out, (1, *SERVE_HW, 1))
+        if suffix:
+            check_bf16_fidelity("auto 8x8", SERVE_HW, out, ref16, ref32)
+        else:
+            print(f"[parity] 8x8 auto {SERVE_HW}: kernels vs torch composition on the card, fuse_y max_abs_err "
+                  f"{float(np.abs(out - ref32).max()):.3e}", flush=True)
+            np.testing.assert_allclose(out, ref32, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+            seven = fuser("auto", window=WINDOW, weights=random_variables(ModelConfig(), seed=SEED))
+            walls = {"8x8": [], "7x7": []}
+            for _ in range(LATENCY_SAMPLES // 4):
+                for name, f in (("8x8", served), ("7x7", seven), ("7x7", seven), ("8x8", served)):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    f.fuse_y(ir, vis)
+                    torch.cuda.synchronize()
+                    walls[name].append(1e3 * (time.perf_counter() - start))
+            print(f"[window] fuse_y {SERVE_HW} bs=1 under auto, {len(walls['8x8'])} requests each in turns: 8x8 "
+                  f"windows median {np.median(walls['8x8']):.3f} ms, 7x7 windows {np.median(walls['7x7']):.3f} ms "
+                  f"| {card}", flush=True)
+            del seven
+        del served
+    torch.cuda.empty_cache()
+
+    trng = np.random.default_rng(SEED + 92)
+    tir, tvis = (torch.from_numpy(trng.random((TRAIN_BATCH, *TRAIN_HW, 1), dtype=np.float32)).to(device)
+                 for _ in range(2))
+
+    def first_step(impl, drop=0.0, plain_k3=False):
+        cfg = Config(model=ModelConfig(window_size=WIN_MODEL, attention_impl=impl, attention_drop_ratio=drop))
+        state = create_train_state(cfg, flat, iters_per_epoch=100, device=device)
+        step = make_train_step(cfg)
+        kernel_k3 = layers.window_attention
+        if plain_k3:
+            layers.window_attention = twa.window_attention_plain
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            terms = step(state, tir, tvis)
+            torch.cuda.synchronize()
+            got = read_counts("cuda")
+        finally:
+            layers.window_attention = kernel_k3
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        del state, step
+        return {k: float(v) for k, v in terms.items()}, grads, got
+
+    def grads64():  # the step's gradients from the composition in float64
+        cfg = Config(model=ModelConfig(window_size=WIN_MODEL, attention_impl="torch"))
+        model = SwinFusionUNet(cfg.model)
+        model.load_state_dict(variables_from_jax(flat))
+        model = model.to(device, torch.float64)
+        a, b = tir.double(), tvis.double()
+        losses.total_fusion_loss(cfg.loss, model(a, b, train=True).clamp(0.0, 1.0), a, b)[0].backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model
+        return grads
+
+    for drop, counts, what in ((0.0, WIN_TRAIN, "train step"),
+                               (WIN_DROP_RATE, WIN_TRAIN_DROP, f"dropout train step (attention {WIN_DROP_RATE})")):
+        terms, grads, got = first_step("auto", drop)
+        expected = {n: 0 for n in got}
+        expected.update(counts)
+        print(f"[window] 8x8 {what} {TRAIN_HW} bs={TRAIN_BATCH} under auto: launches {got}", flush=True)
+        if got != expected:
+            raise AssertionError(f"8x8 {what}: launches {got}, expected {expected}")
+        for name in counts:
+            if "bwd" in name or "drop" in name:  # the forward's launches are the served request's
+                launches[window_key(name[2:])] = got[name]
+        ref_terms, ref_grads, _ = first_step("auto", drop, plain_k3=True) if drop else first_step("torch")
+        reference = "the same step with K3's plain version" if drop else "the torch composition"
+        for key, v in terms.items():
+            if abs(v - ref_terms[key]) > 1e-5 * abs(ref_terms[key]):
+                raise AssertionError(f"8x8 {what}: {key} {v} vs {reference}'s {ref_terms[key]}")
+        # without dropout the reference is the composition, another implementation: each atol at
+        # least ROUNDING_NOISE times the composition's own fp32 rounding
+        if drop:
+            rounding = None
+        else:
+            fp64 = grads64()
+            rounding = rounding_of(list(ref_grads.values()), [fp64[n] for n in ref_grads])
+            del fp64
+        check = assert_grads_close([grads[n] for n in ref_grads], list(ref_grads.values()), list(ref_grads),
+                                   f"8x8 {what}", rounding)
+        rel = max(abs(terms[key] - ref_terms[key]) / max(abs(ref_terms[key]), 1e-30) for key in terms)
+        held = f"gradients max_abs_err {check.worst:.3e} ({check.worst_own:.3e} of a gradient's own largest)"
+        if rounding:
+            own = max(r / max(float(g.abs().max()), 1e-30) for r, g, n in zip(rounding, ref_grads.values(), ref_grads)
+                      if not exact_zero(n))
+            held += (f", atol {ROUNDING_NOISE:g}x the fp32 composition's own distance from its float64 evaluation "
+                     f"(at most {own:.3e} of a gradient's own largest) on {len(check.widened)} of them")
+        print(f"[parity] 8x8 {what} vs {reference} on the card: loss terms max relative difference {rel:.3e}, "
+              f"{held}, {len(ref_grads)} gradients | {card}", flush=True)
+        del grads, ref_grads, rounding
+        torch.cuda.empty_cache()
+    return launches
+
+
+def window_phase(device, card):
+    """``[window]``: :func:`check_window_kernels`, :func:`time_window_kernels` and
+    :func:`window_models`. Returns the worst errors, the times and the main-path launches of the
+    8x8 forms by kernels-line key."""
+    worst = check_window_kernels(device, card)
+    times = time_window_kernels(device, card)
+    launches = window_models(device, card)
+    return worst, times, launches
+
+
 class Phases:
     """Prints each phase's wall seconds on its own line, and the run's so far."""
 
@@ -5277,9 +5594,17 @@ def main() -> int:
         activation_phase(random_variables(ModelConfig(), seed=SEED), device, card)
         phase("[act]")
         return 0
+    if sys.argv[1:] == ["--window"]:
+        # K3 at windows other than 7x7 alone, on K3's sources; no kernels line and no last line
+        _build.build_all(("window_attention_fwd", "window_attention_bwd", "window_attention_fwd_any",
+                          "window_attention_bwd_any", "window_attention_bwd_any_drop"))
+        phase("build of K3's sources")
+        window_phase(device, card)
+        phase("[window]")
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; the options are --serving-eval, "
-              "--multi-device and --activation", file=sys.stderr)
+              "--multi-device, --activation and --window", file=sys.stderr)
         return 2
     _build.build_all()
     phase("build")
@@ -5382,6 +5707,11 @@ def main() -> int:
     times.update(act_times)
     launches.update(act_launches)
     phase("[act] relu and gelu forms of K1 and K4")
+    win_worst, win_times, win_launches = window_phase(device, card)
+    worst.update(win_worst)
+    times.update(win_times)
+    launches.update(win_launches)
+    phase("[window] K3 at 8x8, 4x4 and 7x8 windows")
 
     csrc = "swin_unet_image_fusion_tpu_torch/csrc"
     described = (
@@ -5486,6 +5816,17 @@ def main() -> int:
                f"swin_unet_image_fusion_tpu/ops/{fwd_line}"),
               (" bwd", "block_bwd", " (the fused route at stages 0-1, the split route at 2-3)", "fused_block_bwd.cu",
                f"swin_unet_image_fusion_tpu/ops/{bwd_line}"))),
+        # K3 at 8x8 windows: the any-window builds of window_attention_fwd.cu and _bwd.cu (T, wh and
+        # ww at run time, 64 rows a block; the backward's dropout form its own library), on the 8x8
+        # model's serving and training paths
+        *((window_key(suffix), f"{what} at 8x8 windows, T = 64 ({window_key(suffix)})", f"{csrc}/{source}",
+           f"swin_unet_image_fusion_tpu/ops/pallas_attention.py:{line}")
+          for suffix, what, source, line in (
+              ("", "k3_fwd", "window_attention_fwd_any.cu", 756),
+              (" bf16", "k3_fwd bf16", "window_attention_fwd_any.cu", 756),
+              (" bwd", "k3_bwd", "window_attention_bwd_any.cu", 796),
+              (" drop", "k3_fwd with hash dropout", "window_attention_fwd_any.cu", 756),
+              (" drop bwd", "k3_bwd with hash dropout", "window_attention_bwd_any_drop.cu", 796))),
     )
     times.update(bwd)
     times.update(drop_times)

@@ -137,29 +137,30 @@ __device__ __forceinline__ bool token_keep(const DropSite& d, uint32_t ph, int s
   return hash_keep(ph, token_intra(d, slot, c, cols), d.threshold);
 }
 
-constexpr int kKeepT = 49;      // tokens of the 7x7 windows these kernels take
-constexpr int kKeepWords = 2;   // keep words of one (head, query row): keys 0-31, then 32-48
+constexpr int kKeepT = 49;      // tokens of the 7x7 windows that K1 and K4 take
+constexpr int kKeepWords = 2;   // keep words of one (head, query row): keys 0-31, then 32-63
 constexpr int kKeepIlp = 4;     // words a warp hashes at once
 
-// The attention keep bits of one window: bit u % 32 of words[(h * 49 + t) * 2 + u / 32] keeps
-// the weight of query t and key u of head h0 + h, for hg heads; ph: the tokens' unit hashes at
-// the attention site (the query's unit keys the pair), slot: their slots. A warp per word and a
-// lane per key (__ballot_sync), over the block's warps, kKeepIlp words at a time: the hash is a
-// chain of dependent integer operations, and independent chains hide each other's latency.
-// Every thread of the block calls it.
+// The attention keep bits of one window of T <= 64 tokens (K1's and K4's 49; K3's any): bit
+// u % 32 of words[(h * T + t) * 2 + u / 32] keeps the weight of query t and key u of head h0 + h,
+// for hg heads; ph: the tokens' unit hashes at the attention site (the query's unit keys the
+// pair), slot: their slots. A warp per word and a lane per key (__ballot_sync), over the
+// block's warps, kKeepIlp words at a time: the hash is a chain of dependent integer operations,
+// and independent chains hide each other's latency. Every thread of the block calls it.
 __device__ __forceinline__ void attention_keep_words(const DropSite& d, const uint32_t* ph, const int* slot,
-                                                     int h0, int hg, int heads, uint32_t* words) {
+                                                     int h0, int hg, int heads, uint32_t* words,
+                                                     int T = kKeepT) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  const int n = hg * kKeepT * kKeepWords;
+  const int n = hg * T * kKeepWords;
   for (int w0 = warp * kKeepIlp; w0 < n; w0 += warps * kKeepIlp) {
     bool keep[kKeepIlp];
 #pragma unroll
     for (int i = 0; i < kKeepIlp; ++i) {
       const int w = w0 + i, ht = w / kKeepWords, u = (w % kKeepWords) * 32 + lane;
-      const int h = ht / kKeepT, t = ht - h * kKeepT;
+      const int h = ht / T, t = ht - h * T;
       // hashed unconditionally (slot has 64 entries), so that the chains carry no branch
       const bool k = hash_keep(ph[t], attn_intra(d, h0 + h, slot[t], slot[u], heads), d.threshold);
-      keep[i] = k && w < n && u < kKeepT;
+      keep[i] = k && w < n && u < T;
     }
 #pragma unroll
     for (int i = 0; i < kKeepIlp; ++i) {

@@ -41,12 +41,14 @@ struct BwdLayout {
   int ring_b, q, k, v, go, rd, bias, tabs, keep, ps, total;
 };
 
-// drop: the dropout form's keep words of the group's heads after the tables ([hg][49][2]).
+// drop: the dropout form's keep words of the group's heads after the tables ([hg][T][2]); t:
+// the any-window class's T (tokens()).
 __host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, int inner, int hg, int d, int dp,
-                                                bool drop = false) {
+                                                bool drop = false, int t = kT) {
+  const int T = tokens(t);
   BwdLayout L{};
   const int n = hg * d;
-  const int qkv = align16(hg * kT * dp * 4);
+  const int qkv = align16(hg * T * dp * 4);
   L.ring_b = ring_a_bytes(false, cross ? 2 : 1, kRing);
   const int ring = L.ring_b + b_bytes(false, 3 * n, kRing);
   int off = align16(max2(ring, fused ? a_bytes(false, 3 * inner) : 0));
@@ -54,15 +56,15 @@ __host__ __device__ inline BwdLayout bwd_layout(bool fused, bool cross, int C, i
   L.k = off + qkv;
   L.v = off + 2 * qkv;
   L.go = off + 3 * qkv;
-  off += max2(4 * qkv, fused ? align16(b_bytes(false, C, kRing)) + align16(kT * C * 4) : 0);
+  off += max2(4 * qkv, fused ? align16(b_bytes(false, C, kRing)) + align16(T * C * 4) : 0);
   L.rd = off;
-  off += align16(hg * kT * 8);
+  off += align16(hg * T * 8);
   L.bias = off;
-  off += align16(kT * kT * 4);
+  off += align16(T * T * 4);
   L.tabs = off;
   off += align16((3 * kRowsB + 2 * kColTable) * 4);
   L.keep = off;
-  if (drop) off += align16(hg * kT * swin::kKeepWords * 4);
+  if (drop) off += align16(hg * T * swin::kKeepWords * 4);
   L.ps = off;
   if (dp > kPassesPitchMax) off += tiled_core_bytes();
   L.total = off;
@@ -77,17 +79,18 @@ struct BwdArgs {
   float *av, *gq, *gk, *gv;  // (S, B*H*W, inner) token rows
   void* gx;                  // fused self: g_x, in x's type
   float *gxq, *gxkv;         // fused cross: its q side and k/v side, (S, B*H*W, C)
-  float* tab_part;           // (S, groups, blocks, 49*49)
+  float* tab_part;           // (S, groups, blocks, T*T)
   int S, B, H, W, C, inner, d, hg, top, left, cross;
   float scale;
   int windows;  // the token layout that window_rows reads: 0, the image
   int bf16;     // x, g and g_x bf16 (else fp32)
-  // kDrop: the keep words of every (image, window, head), (S*B, windows, heads, 49, 2), as the
+  // kDrop: the keep words of every (image, window, head), (S*B, windows, heads, T, 2), as the
   // recomputed forward wrote them, or nullptr for the block to hash them at `drop` (the
   // attention site, K3's keying); and the attention site's scale
   const uint32_t* keep;
   float drop_scale;
   swin::DropSite drop;
+  int wh, ww, t;  // the any-window class's window and its tokens (window_hw(), tokens())
 };
 
 // Element i of x's type (fp32, or bf16 rounded once) from an fp32 value.
@@ -106,10 +109,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
   static_assert(!(kFused && DP > kPassesPitchMax), "the fused route keeps core_bwd's pitches");
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, inner = a.inner, d = a.d, hg = a.hg, n = hg * d;
-  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP, kDrop);
+  const int T = tokens(a.t);
+  const int2 wd = window_hw(a);
+  const BwdLayout L = bwd_layout(kFused, a.cross != 0, C, inner, hg, d, DP, kDrop, T);
   const int s = blockIdx.y, grp = blockIdx.z, c0 = grp * n;
   const int kvs = a.cross ? a.S - 1 - s : s;
-  const int nwin = (a.H / 7) * (a.W / 7), hw = a.H * a.W;
+  const int nwin = (a.H / wd.x) * (a.W / wd.y), hw = a.H * a.W;
   const size_t map = static_cast<size_t>(hw) * C;
 
   int* rows = reinterpret_cast<int*>(smem + L.tabs);
@@ -129,13 +134,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
 
   zero_smem(smem, 0, L.total);  // the padded dims and channels stay finite
   __syncthreads();
-  fill_col_table<DP, false>(col_ofs, n, d);
+  fill_col_table<DP, false>(col_ofs, n, d, T);
   for (int col = threadIdx.x; col < 3 * n; col += kThreads) {
     const int part = (col >= n) + (col >= 2 * n);
     const float* bsrc = part == 0 ? a.bq : part == 1 ? a.bk : a.bv;
     bqkv_s[col] = bsrc[s * inner + c0 + col - part * n];
   }
-  float tab[kQuarter];
+  TabSum tab[kQuarter];
 #pragma unroll
   for (int uu = 0; uu < kQuarter; ++uu) tab[uu] = 0.0f;
   const size_t elem = a.bf16 ? 2 : 4;  // bytes of an x or g element
@@ -152,21 +157,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
     window_rows(a, win, rows, region);
     for (int t = threadIdx.x; t < kRowsB; t += kThreads) tok[t] = rows[t] / C;  // this thread's rows[t]
     __syncthreads();
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads)
-      bias_s[e] = region[e / kT] == region[e % kT] ? a.bias[s * kT * kT + e] : -__int_as_float(0x7f800000);
+    for (int e = threadIdx.x; e < T * T; e += kThreads)
+      bias_s[e] = region[e / T] == region[e % T] ? a.bias[s * T * T + e] : -__int_as_float(0x7f800000);
     uint32_t* keep_s = reinterpret_cast<uint32_t*>(smem + L.keep);
     if constexpr (kDrop) {
       if (a.keep != nullptr) {
-        const int words = hg * kT * swin::kKeepWords;
-        const uint32_t* keep = a.keep + ((img * nwin + win) * (inner / d) + grp * hg) * kT * swin::kKeepWords;
+        const int words = hg * T * swin::kKeepWords;
+        const uint32_t* keep = a.keep + ((img * nwin + win) * (inner / d) + grp * hg) * T * swin::kKeepWords;
         for (int i = threadIdx.x; i < words; i += kThreads) keep_s[i] = keep[i];
       } else {  // the query's unit keys the pair: image img, the window's tokens
         uint32_t* ph = reinterpret_cast<uint32_t*>(smem);
         int* slot = reinterpret_cast<int*>(ph + kRowsB);
-        for (int t = threadIdx.x; t < kT; t += kThreads)
+        for (int t = threadIdx.x; t < T; t += kThreads)
           ph[t] = swin::token_hash(a.drop, static_cast<int>(img), tok[t], &slot[t]);
         __syncthreads();
-        swin::attention_keep_words(a.drop, ph, slot, grp * hg, hg, inner / d, keep_s);
+        swin::attention_keep_words(a.drop, ph, slot, grp * hg, hg, inner / d, keep_s, T);
         __syncthreads();  // the q/k/v product's ring goes over the hashes
       }
     }
@@ -184,14 +189,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
       gm.ldw = inner;
       gm.nb = 3 * n;
       gm.K = C;
+      gm.t = T;
       with_tn(gm.nb, [&](auto tn) {
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
         gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
-        each(acc, gm.nb, [&](int t, int col, float v) {
-          const float y = v + bqkv_s[col];
-          put_qkv<DP, false>(t, col, col < n ? y * a.scale : y, n, col_ofs, q_s, k_s, smem + L.v);
-        });
+        each(
+            acc, gm.nb,
+            [&](int t, int col, float v) {
+              const float y = v + bqkv_s[col];
+              put_qkv<DP, false>(t, col, col < n ? y * a.scale : y, n, col_ofs, q_s, k_s, smem + L.v);
+            },
+            T);
       });
     }
     {  // g_o = g wp^T for the group's heads
@@ -203,11 +212,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
       gm.n = gm.nb = n;
       gm.ldw = inner;
       gm.K = C;
+      gm.t = T;
       with_tn(n, [&](auto tn) {
         Tile<decltype(tn)::value> acc;
         zero_tile(acc);
         gemm_stream<decltype(tn)::value>(acc, gm, ring, bring, a.bf16);
-        each(acc, n, [&](int t, int col, float v) { go_s[col_ofs[col] + t * DP] = v; });
+        each(acc, n, [&](int t, int col, float v) { go_s[col_ofs[col] + t * DP] = v; }, T);
       });
     }
     __syncthreads();
@@ -222,9 +232,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
           [&](int t, int col, float v) { gq[static_cast<size_t>(tok[t]) * inner + col] = v; },
           [&](int u, int col, float v) { gk[static_cast<size_t>(tok[u]) * inner + col] = v; },
           [&](int u, int col, float v) { gv[static_cast<size_t>(tok[u]) * inner + col] = v; }, keep_s,
-          a.drop_scale);
+          a.drop_scale, T);
     } else {
-      attention_core<DP, false, kDrop>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d, av_out, keep_s, a.drop_scale);
+      attention_core<DP, false, kDrop>(q_s, k_s, smem + L.v, nullptr, bias_s, hg, d, av_out, keep_s, a.drop_scale,
+                                       swin::AttnHash{}, T);
       if constexpr (kFused) {
         core_bwd<DP, kDrop>(
             q_s, k_s, v_s, go_s, bias_s, hg, d, a.scale, rd, tab,
@@ -233,11 +244,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
               a_at(u, t, inner + col) = gk;
               a_at(u, t, 2 * inner + col) = gv;
             },
-            keep_s, a.drop_scale);
+            keep_s, a.drop_scale, T);
         __syncthreads();
-        store_a(u, inner, a.gq + hrow * inner, inner, tok);
-        store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok);
-        store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok);
+        store_a(u, inner, a.gq + hrow * inner, inner, tok, T);
+        store_a(u + inner * kPitchF, inner, a.gk + hrow * inner, inner, tok, T);
+        store_a(u + 2 * inner * kPitchF, inner, a.gv + hrow * inner, inner, tok, T);
         // g_x = [g_q | g_k | g_v] [wq | wk | wv]^T, the weight ring and a row buffer over q/k/v/g_o
         float* rowbuf = reinterpret_cast<float*>(smem + L.q + align16(b_bytes(false, C, kRing)));
         const float* wt = a.wqkvT + static_cast<size_t>(s) * 3 * inner * C;
@@ -247,10 +258,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
             Tile<decltype(tn)::value> acc;
             zero_tile(acc);
             gemm_tile<decltype(tn)::value, kRing>(acc, gm, a0, a0, q_s);
-            each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; });
+            each(acc, C, [&](int t, int col, float v) { rowbuf[t * C + col] = v; }, T);
           });
           __syncthreads();
-          each_row_col(kT, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
+          each_row_col(T, C, [&](int t, int k) { store(static_cast<size_t>(tok[t]) * C + k, rowbuf[t * C + k]); });
         };
         if (a.cross) {
           product(u, inner, wt, [&](size_t at, float v) { a.gxq[img * map + at] = v; });
@@ -271,22 +282,22 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP)) k3_bwd_kernel(const 
               gk[static_cast<size_t>(tok[t]) * inner + col] = gkv;
               gv[static_cast<size_t>(tok[t]) * inner + col] = gvv;
             },
-            keep_s, a.drop_scale);
+            keep_s, a.drop_scale, T);
       }
     }
   }
 
   const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  if (t < kT) {
-    float* tp = a.tab_part + ((static_cast<size_t>(s) * gridDim.z + grp) * gridDim.x + blockIdx.x) * kT * kT + t * kT;
+  if (t < T) {
+    float* tp = a.tab_part + ((static_cast<size_t>(s) * gridDim.z + grp) * gridDim.x + blockIdx.x) * T * T + t * T;
 #pragma unroll
     for (int uu = 0; uu < kQuarter; ++uu)
-      if (qd * kQuarter + uu < kT) tp[qd * kQuarter + uu] = tab[uu];
+      if (qd * kQuarter + uu < T) tp[qd * kQuarter + uu] = static_cast<float>(tab[uu]);
   }
 }
 
 // ---- the split route's g_x: [g_q | g_k' | g_v'] [wq | wk' | wv']^T over token rows ---------
-// A block per (49-token tile, stream, group of `width` output columns): the q side from the
+// A block per (T-token tile, stream, group of `width` output columns): the q side from the
 // stream's g_q and wq^T into a row buffer, then the k/v side from the k/v stream's g_k, g_v
 // and wk^T, wv^T (the other stream under cross) added to it; g_x = q + kv, in bf16 under cross
 // rnd(rnd(q) + rnd(kv)); from the row buffer to coalesced stores.
@@ -294,11 +305,11 @@ struct GxLayout {
   int ring_b, rowbuf, rows, total;
 };
 
-__host__ __device__ inline GxLayout gx_layout(int width) {
+__host__ __device__ inline GxLayout gx_layout(int width, int t = kT) {
   GxLayout L{};
   L.ring_b = ring_a_bytes(false, 1, kRing);
   L.rowbuf = align16(L.ring_b + b_bytes(false, width, kRing));
-  L.rows = L.rowbuf + align16(kT * width * 4);
+  L.rows = L.rowbuf + align16(tokens(t) * width * 4);
   L.total = L.rows + align16(kRowsB * 4);
   return L;
 }
@@ -314,11 +325,13 @@ struct GxArgs {
   const float *gq, *gk, *gv, *wqkvT;
   void* gx;
   int S, M, C, inner, width, cross, bf16;
+  int t;  // the any-window class's T: the rows of a block's tile
 };
 
 __global__ void __launch_bounds__(kThreads) gx_kernel(const GxArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const GxLayout L = gx_layout(a.width);
+  const int T = tokens(a.t);
+  const GxLayout L = gx_layout(a.width, T);
   float* ring = reinterpret_cast<float*>(smem);
   float* bring = reinterpret_cast<float*>(smem + L.ring_b);
   float* rowbuf = reinterpret_cast<float*>(smem + L.rowbuf);
@@ -326,9 +339,9 @@ __global__ void __launch_bounds__(kThreads) gx_kernel(const GxArgs a) {
   const int s = blockIdx.y, kvs = a.cross ? a.S - 1 - s : s;
   const int C = a.C, inner = a.inner, width = a.width;
   const int cg0 = blockIdx.z * width, ncols = min(width, C - cg0);
-  const size_t r0 = static_cast<size_t>(s) * a.M + static_cast<size_t>(blockIdx.x) * kT;
-  const size_t kv0 = static_cast<size_t>(kvs) * a.M + static_cast<size_t>(blockIdx.x) * kT;
-  for (int t = threadIdx.x; t < kRowsB; t += kThreads) rows[t] = t < kT ? t * inner : 0;
+  const size_t r0 = static_cast<size_t>(s) * a.M + static_cast<size_t>(blockIdx.x) * T;
+  const size_t kv0 = static_cast<size_t>(kvs) * a.M + static_cast<size_t>(blockIdx.x) * T;
+  for (int t = threadIdx.x; t < kRowsB; t += kThreads) rows[t] = t < T ? t * inner : 0;
   __syncthreads();
   with_tn(width, [&](auto tn) {
     constexpr int TN = decltype(tn)::value;
@@ -342,20 +355,23 @@ __global__ void __launch_bounds__(kThreads) gx_kernel(const GxArgs a) {
       gm.ldw = C;
       gm.K = inner;
       gm.ncols = ncols;
+      gm.t = T;
       gemm_stream<TN>(acc, gm, ring, bring, 0);
     };
     const bool apart = a.bf16 && a.cross;  // bf16 under cross: each side rounded
     Tile<TN> acc;
     zero_tile(acc);
     part(acc, a.gq + r0 * inner, s, 0);
-    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] = apart ? swin::round_bf16(v) : v; });
+    each(
+        acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] = apart ? swin::round_bf16(v) : v; }, T);
     zero_tile(acc);
     part(acc, a.gk + kv0 * inner, kvs, 1);
     part(acc, a.gv + kv0 * inner, kvs, 2);
-    each(acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] += apart ? swin::round_bf16(v) : v; });
+    each(
+        acc, ncols, [&](int t, int col, float v) { rowbuf[t * width + col] += apart ? swin::round_bf16(v) : v; }, T);
   });
   __syncthreads();
-  each_row_col(kT, ncols, [&](int t, int k) { put_act(a.gx, (r0 + t) * C + cg0 + k, rowbuf[t * width + k], a.bf16); });
+  each_row_col(T, ncols, [&](int t, int k) { put_act(a.gx, (r0 + t) * C + cg0 + k, rowbuf[t * width + k], a.bf16); });
 }
 
 }  // namespace k3bwd

@@ -42,7 +42,10 @@
 // reduction of every partial (window_core_bwd.cuh). The transposed weights (wp^T, [wq | wk |
 // wv]^T) come first, so that every product streams its weights through the same ring.
 // fp32 FMA throughout (TF32 off), no atomics: every sum has one fixed order, and the blocks
-// per stream and group come from the caller, so a repeat gives the same bits.
+// per stream and group come from the caller, so a repeat gives the same bits. Built as it stands,
+// the file takes 7x7 windows (T = 49 at compile time); window_attention_bwd_any.cu builds it in
+// window_fwd.cuh's any-window class (SWIN_ANY_WINDOW: any window of T <= 64 tokens, T at run
+// time, 64-row blocks).
 // Dropout (the attention site of `drop`, keyed on K3's wrap windows, ops/dropout_layout.py "k3";
 // the projection's dropout is the caller's): the same launches with the block's kDrop form
 // (k3_bwd.cuh). The block hashes its window's keep words of its heads once (two 32-bit words a
@@ -53,6 +56,16 @@
 // window_attention_fwd.cu's.
 
 #include "k3_bwd.cuh"
+
+// The block kernel's forms this build holds: both in the 7x7 build; the any-window backward is
+// built once a form (SWIN_K3_BWD_DROP 0: without dropout, window_attention_bwd_any.cu; 1: with,
+// window_attention_bwd_any_drop.cu), so that its two halves compile at once.
+#if !defined(SWIN_K3_BWD_DROP) || SWIN_K3_BWD_DROP == 0
+#define SWIN_K3_BWD_NODROP_FORM 1
+#endif
+#if !defined(SWIN_K3_BWD_DROP) || SWIN_K3_BWD_DROP == 1
+#define SWIN_K3_BWD_DROP_FORM 1
+#endif
 
 namespace {
 
@@ -79,13 +92,21 @@ int pitch_for(int d, bool fused) {
 // checks and raises first): every head in the block on the fused route, the weight-gradient
 // launch's slabs and each block within a block's shared memory.
 // drop: the dropout form, whose block holds its heads' keep words.
-bool supported(int C, int inner, int heads, int d, int hg, bool fused, bool cross, bool drop) {
+// t: the window's tokens, which this build must take (takes_window).
+bool supported(int C, int inner, int heads, int d, int hg, bool fused, bool cross, bool drop, int t) {
   const int n = hg * d;
   if (pitch_for(d, fused) == 0 || hg < 1 || heads % hg != 0 || inner != heads * d || C % 8 != 0 || inner % 8 != 0 ||
       n % 8 != 0 || 3 * n > kMaxCols || 3 * n > kColTable || (fused && (hg != heads || C > kMaxCols)))
     return false;
-  return bwd_layout(fused, cross, C, inner, hg, d, pitch_for(d, fused), drop).total <= kSmemMax &&
-         gx_layout(gx_width(C)).total <= kSmemMax && wg_smem(C, inner) <= kSmemMax && wg_smem(inner, C) <= kSmemMax;
+  return bwd_layout(fused, cross, C, inner, hg, d, pitch_for(d, fused), drop, t).total <= kSmemMax &&
+         gx_layout(gx_width(C), t).total <= kSmemMax && wg_smem(C, inner) <= kSmemMax && wg_smem(inner, C) <= kSmemMax;
+}
+
+// Whether this build takes a wh x ww window: 7 x 7 alone, or (the any-window class) any window
+// of at most kT = 64 tokens.
+bool takes_window(int wh, int ww) {
+  if (!kAnyWindow) return wh == 7 && ww == 7;
+  return wh >= 1 && ww >= 1 && wh * ww <= kT;
 }
 
 // Workspace of one call, carved in this order (ops/window_attention.py::bwd_workspace_floats
@@ -97,7 +118,8 @@ struct BwdScratch {
 
 constexpr int kWgPerStream = 4;  // wq, wk, wv (A = the rows each read, B = g_q, g_k, g_v); wp (A = AV, B = g)
 
-BwdScratch carve(swin::Arena& ar, int S, int M, int C, int inner, int groups, int blocks, bool fused, bool cross) {
+BwdScratch carve(swin::Arena& ar, int S, int M, int C, int inner, int groups, int blocks, bool fused, bool cross,
+                 int T) {
   BwdScratch sc{};
   const size_t SM = static_cast<size_t>(S) * M;
   sc.wpT = ar.take(static_cast<size_t>(S) * C * inner);
@@ -108,7 +130,7 @@ BwdScratch carve(swin::Arena& ar, int S, int M, int C, int inner, int groups, in
   sc.gv = ar.take(SM * inner);
   sc.gxq = fused && cross ? ar.take(SM * C) : nullptr;
   sc.gxkv = fused && cross ? ar.take(SM * C) : nullptr;
-  sc.tab_part = ar.take(static_cast<size_t>(S) * groups * blocks * kT * kT);
+  sc.tab_part = ar.take(static_cast<size_t>(S) * groups * blocks * T * T);
   sc.chunk_rows = wg_chunk_rows(M, kWgPerStream * S * max2(wg_groups_of_tiles(C, inner), wg_groups_of_tiles(inner, C)));
   sc.chunks = (M + sc.chunk_rows - 1) / sc.chunk_rows;
   sc.wg_part = ar.take(static_cast<size_t>(S) * sc.chunks * (3 * (C + 1) * inner + (inner + 1) * C));
@@ -151,10 +173,10 @@ cudaError_t launch_pitch(bool fused, int dp, int blocks, int groups, int smem, c
 // dropout arguments, or nullptr.
 int k3_bwd(const float* const* in, float* const* out, float* ws, const swin::DropArgs* drop, int S, int B, int H,
            int W, int C, int heads, int d, int hg, bool fused, int blocks, int shift, int cross, int is_bf16,
-           float scale, cudaStream_t st) {
-  const int inner = heads * d, M = B * H * W, groups = heads / hg;
+           float scale, int wh, int ww, cudaStream_t st) {
+  const int inner = heads * d, M = B * H * W, groups = heads / hg, T = wh * ww;
   swin::Arena ar{ws};
-  const BwdScratch sc = carve(ar, S, M, C, inner, groups, blocks, fused, cross != 0);
+  const BwdScratch sc = carve(ar, S, M, C, inner, groups, blocks, fused, cross != 0, T);
 
   Transposes tr = {};
   int jobs = 0, most = 0;
@@ -174,14 +196,20 @@ int k3_bwd(const float* const* in, float* const* out, float* ws, const swin::Dro
   const bool dropping = drop != nullptr;
   BwdArgs a = {in[kX], in[kG], in[kWq], in[kBq], in[kWk], in[kBk], in[kWv], in[kBv], in[kBias], sc.wpT,
                sc.wqkvT, sc.av, sc.gq, sc.gk, sc.gv, out[0], sc.gxq, sc.gxkv, sc.tab_part, S, B, H, W, C,
-               inner, d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0, is_bf16};
+               inner, d, hg, shift ? wh - wh / 2 : 0, shift ? ww - ww / 2 : 0, cross, scale, /*windows=*/0, is_bf16};
+  a.wh = wh, a.ww = ww, a.t = T;
   if (dropping) {  // the block hashes its keep words (a.keep stays nullptr)
     a.drop = swin::drop_site(drop, swin::kSiteAttn, H * W, B);
     a.drop_scale = a.drop.scale;
   }
-  const int smem = bwd_layout(fused, cross != 0, C, inner, hg, d, pitch_for(d, fused), dropping).total;
-  cudaError_t err = dropping ? launch_pitch<true>(fused, pitch_for(d, fused), blocks, groups, smem, a, st)
-                             : launch_pitch<false>(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
+  const int smem = bwd_layout(fused, cross != 0, C, inner, hg, d, pitch_for(d, fused), dropping, T).total;
+  cudaError_t err = cudaErrorInvalidValue;  // swin_k3_bwd refuses a form the build leaves out
+#ifdef SWIN_K3_BWD_DROP_FORM
+  if (dropping) err = launch_pitch<true>(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
+#endif
+#ifdef SWIN_K3_BWD_NODROP_FORM
+  if (!dropping) err = launch_pitch<false>(fused, pitch_for(d, fused), blocks, groups, smem, a, st);
+#endif
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t n_x = static_cast<size_t>(S) * M * C;
@@ -190,11 +218,11 @@ int k3_bwd(const float* const* in, float* const* out, float* ws, const swin::Dro
                        kThreads, 0, st>>>(sc.gxq, sc.gxkv, out[0], n_x, is_bf16);
   } else if (!fused) {
     const int width = gx_width(C);
-    const GxArgs ga = {sc.gq, sc.gk, sc.gv, sc.wqkvT, out[0], S, M, C, inner, width, cross, is_bf16};
-    const int gsmem = gx_layout(width).total;
+    const GxArgs ga = {sc.gq, sc.gk, sc.gv, sc.wqkvT, out[0], S, M, C, inner, width, cross, is_bf16, T};
+    const int gsmem = gx_layout(width, T).total;
     err = cudaFuncSetAttribute(gx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gx_kernel<<<dim3(M / kT, S, (C + width - 1) / width), kThreads, gsmem, st>>>(ga);
+    gx_kernel<<<dim3(M / T, S, (C + width - 1) / width), kThreads, gsmem, st>>>(ga);
   }
 
   // weight gradients from the stored operands, one launch; then every partial sum
@@ -235,8 +263,8 @@ int k3_bwd(const float* const* in, float* const* out, float* ws, const swin::Dro
 
   const int tab_chunks = groups * blocks;
   for (int s = 0; s < S; ++s)
-    ok &= red.add(sc.tab_part + static_cast<size_t>(s) * tab_chunks * kT * kT, tab_chunks, kT * kT, kT * kT,
-                  out[kBias] + static_cast<size_t>(s) * kT * kT, nullptr);
+    ok &= red.add(sc.tab_part + static_cast<size_t>(s) * tab_chunks * T * T, tab_chunks, T * T, T * T,
+                  out[kBias] + static_cast<size_t>(s) * T * T, nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   swin::launch_reduce(red, st);
   return static_cast<int>(cudaGetLastError());
@@ -249,23 +277,25 @@ extern "C" {
 // swin_cuda_error_string comes with window_core.cuh.
 
 // Dynamic shared memory in bytes of one block of the block kernel (kind 0) or of the split
-// route's g_x kernel (kind 1), or 0 where the route does not take the dimensions (hg: heads a
-// block; fused: every head, hg == heads; drop: the dropout form, its block holding the keep
-// words of its heads).
-size_t swin_k3_bwd_smem(int kind, int fused, int cross, int C, int heads, int d, int hg, int drop) {
-  const int inner = heads * d;
-  if (kind < 0 || kind > 1 || !supported(C, inner, heads, d, hg, fused != 0, cross != 0, drop != 0)) return 0;
-  if (kind == 1) return static_cast<size_t>(gx_layout(gx_width(C)).total);
+// route's g_x kernel (kind 1) at wh x ww windows, or 0 where the route does not take the
+// dimensions (hg: heads a block; fused: every head, hg == heads; drop: the dropout form, its
+// block holding the keep words of its heads).
+size_t swin_k3_bwd_smem(int kind, int fused, int cross, int C, int heads, int d, int hg, int drop, int wh, int ww) {
+  const int inner = heads * d, T = wh * ww;
+  if (kind < 0 || kind > 1 || !takes_window(wh, ww) ||
+      !supported(C, inner, heads, d, hg, fused != 0, cross != 0, drop != 0, T))
+    return 0;
+  if (kind == 1) return static_cast<size_t>(gx_layout(gx_width(C), T).total);
   return static_cast<size_t>(
-      bwd_layout(fused != 0, cross != 0, C, inner, hg, d, pitch_for(d, fused != 0), drop != 0).total);
+      bwd_layout(fused != 0, cross != 0, C, inner, hg, d, pitch_for(d, fused != 0), drop != 0, T).total);
 }
 
-// Floats of workspace one call needs; blocks: blocks per (stream, group of heads). The dropout
-// form needs no more: its keep words live in each block's shared memory.
+// Floats of workspace one call needs at wh x ww windows; blocks: blocks per (stream, group of
+// heads). The dropout form needs no more: its keep words live in each block's shared memory.
 size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d, int hg, int fused, int blocks,
-                             int cross) {
+                             int cross, int wh, int ww) {
   swin::Arena ar{nullptr};
-  carve(ar, S, B * H * W, C, heads * d, heads / hg, blocks, fused != 0, cross != 0);
+  carve(ar, S, B * H * W, C, heads * d, heads / hg, blocks, fused != 0, cross != 0, wh * ww);
   return ar.used;
 }
 
@@ -273,21 +303,28 @@ size_t swin_k3_bwd_workspace(int S, int B, int H, int W, int C, int heads, int d
 // keying; its attention site) is not nullptr. in: x, wq, bq, wk, bk, wv, bv, wp, bp, bias, then
 // g = dL/d out; out: g_x, then the gradients of those nine weights in that order and shapes. x,
 // g and g_x are (S, B, H, W, C) fp32, or bf16 when `bf16_io` is set (fp32 inside); the weights
-// and their gradients fp32; 7x7 windows. hg: heads a block (fused: every head, g_x in the
+// and their gradients fp32, the bias (S, T, T); wh x ww windows of T tokens (7 x 7 in this
+// build, any of T <= 64 in the any-window build). hg: heads a block (fused: every head, g_x in the
 // block); blocks: blocks per (stream, group of heads); ws: ws_floats floats of workspace, at
 // least swin_k3_bwd_workspace(...). Every output is written in full. Returns
 // cudaGetLastError() after the launches (0 = ok), cudaErrorInvalidValue on dimensions the
 // route does not take or a workspace too small.
 int swin_k3_bwd(const float* const* in, float* const* out, float* ws, size_t ws_floats, const swin::DropArgs* drop,
                 int S, int B, int H, int W, int C, int heads, int d, int hg, int fused, int blocks, int shift,
-                int cross, int bf16_io, float scale, void* stream) {
+                int cross, int bf16_io, float scale, int wh, int ww, void* stream) {
   if (!swin::drop_on(drop, swin::kSiteAttn)) drop = nullptr;
-  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) || blocks < 1 ||
-      !supported(C, heads * d, heads, d, hg, fused != 0, cross != 0, drop != nullptr) ||
-      ws_floats < swin_k3_bwd_workspace(S, B, H, W, C, heads, d, hg, fused, blocks, cross))
+#ifndef SWIN_K3_BWD_DROP_FORM
+  if (drop != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+#ifndef SWIN_K3_BWD_NODROP_FORM
+  if (drop == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  if (!takes_window(wh, ww) || H % wh != 0 || W % ww != 0 || S < 1 || S > 2 || (cross && S != 2) || blocks < 1 ||
+      !supported(C, heads * d, heads, d, hg, fused != 0, cross != 0, drop != nullptr, wh * ww) ||
+      ws_floats < swin_k3_bwd_workspace(S, B, H, W, C, heads, d, hg, fused, blocks, cross, wh, ww))
     return static_cast<int>(cudaErrorInvalidValue);
   return k3_bwd(in, out, ws, drop, S, B, H, W, C, heads, d, hg, fused != 0, blocks, shift, cross, bf16_io != 0,
-                scale, static_cast<cudaStream_t>(stream));
+                scale, wh, ww, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -55,7 +55,9 @@
 // rounded once on the store (l.331-332). Rows pad to 64 and keys to 64 with zeros, so
 // padding adds exactly 0.
 // Every sum runs in a fixed order in one thread or one mma; no atomics: a repeat gives the
-// same bits, with and without dropout. The attention kernel and the device code under it
+// same bits, with and without dropout. Built as it stands, the file takes 7x7 windows (T = 49
+// at compile time); window_attention_fwd_any.cu builds it in window_fwd.cuh's any-window class
+// (SWIN_ANY_WINDOW: any window of T <= 64 tokens, T at run time, 64-row blocks). The attention kernel and the device code under it
 // (rings, GEMMs, the core) are window_fwd.cuh's, which K4's forward (fused_block_fwd.cu)
 // shares; this file holds the projection kernel and the launches.
 
@@ -80,11 +82,13 @@ __host__ __device__ inline Layout proj_layout(bool bf16_io) {
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2) k3_proj_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using T = Act<kBf16>;
+  using IO = Act<kBf16>;  // AV and out
   const Layout L = proj_layout(kBf16);
+  const int T = tokens(a.t);
+  const int2 wd = window_hw(a);
   const int win = blockIdx.x, nb = blockIdx.y, c0 = blockIdx.z * kProjCols;
   const int s = nb / a.B, b = nb % a.B;
-  const int nwin = (a.H / 7) * (a.W / 7);
+  const int nwin = (a.H / wd.x) * (a.W / wd.y);
   int* orows = reinterpret_cast<int*>(smem + L.rows);  // output rows: pixel * C
   int* arows = orows + kRowsB;                           // AV rows in the scratch
   window_rows(a, win, orows, arows);
@@ -92,23 +96,24 @@ __global__ void __launch_bounds__(kThreads, 2) k3_proj_kernel(const Args a) {
   __syncthreads();
 
   Gemm g{};
-  g.abase[0] = static_cast<const T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner;
+  g.abase[0] = static_cast<const IO*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * T * a.inner;
   g.aparts = 1;
   g.rows = arows;
   g.w[0] = a.wp + static_cast<size_t>(s) * a.inner * a.C + c0;
   g.n = g.nb = a.C - c0 < kProjCols ? a.C - c0 : kProjCols;
   g.ldw = a.C;
   g.K = a.inner;
-  T* out = static_cast<T*>(a.out) + static_cast<size_t>(s * a.B + b) * a.H * a.W * a.C + c0;
+  g.t = T;
+  IO* out = static_cast<IO*>(a.out) + static_cast<size_t>(s * a.B + b) * a.H * a.W * a.C + c0;
   if constexpr (kBf16) {
     float acc[kMaxNTilesB][4][4];
     gemm_bf16<kProjStages>(g, reinterpret_cast<bf16*>(smem + L.a), reinterpret_cast<float*>(smem + L.b), acc);
-    store_proj_bf16(acc, g.nb, orows, a.bp + s * a.C + c0, out);
+    store_proj_bf16(acc, g.nb, orows, a.bp + s * a.C + c0, out, T);
   } else {
     float acc[8][kTileN];
     const int tile =
         gemm_f32<kProjStages>(g, reinterpret_cast<float*>(smem + L.a), reinterpret_cast<float*>(smem + L.b), acc);
-    store_proj_f32(acc, tile, orows, a.bp + s * a.C + c0, out);
+    store_proj_f32(acc, tile, orows, a.bp + s * a.C + c0, out, T);
   }
 }
 
@@ -132,7 +137,8 @@ cudaError_t set_smem(const void* kernel, int smem) {
 template <int DP, bool kBf16, bool kDrop>
 cudaError_t launch_route(bool fused, int smem, const Args& a, cudaStream_t st) {
   constexpr int kCore = !kDrop ? swin::kNoDrop : kBf16 ? swin::kDropWords : swin::kDropHashed;
-  const dim3 grid((a.H / 7) * (a.W / 7), a.S * a.B, a.heads / a.hg);
+  const int2 wd = window_hw(a);
+  const dim3 grid((a.H / wd.x) * (a.W / wd.y), a.S * a.B, a.heads / a.hg);
   const void* kernel = fused ? reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, true, kCore>)
                              : reinterpret_cast<const void*>(k3_attention_kernel<DP, kBf16, false, kCore>);
   cudaError_t err = set_smem(kernel, smem);
@@ -181,9 +187,16 @@ bool supported(int C, int inner, int heads, int d, int hg, bool fused) {
 }
 
 // drop: the dropout form's token hashes and slots after the layout, and bf16's keep words
-int block_smem(bool bf16_io, bool fused, bool cross, int C, int inner, int d, int hg, bool drop) {
-  return attention_layout(bf16_io, fused, cross, C, inner, hg, d, pitch_for(d)).total +
-         (drop ? drop_attention_bytes(hg, bf16_io) : 0);
+int block_smem(bool bf16_io, bool fused, bool cross, int C, int inner, int d, int hg, bool drop, int t) {
+  return attention_layout(bf16_io, fused, cross, C, inner, hg, d, pitch_for(d), t).total +
+         (drop ? drop_attention_bytes(hg, bf16_io, t) : 0);
+}
+
+// Whether this build takes a wh x ww window: 7 x 7 alone, or (the any-window class) any window
+// of at most kT = 64 tokens.
+bool takes_window(int wh, int ww) {
+  if (!kAnyWindow) return wh == 7 && ww == 7;
+  return wh >= 1 && ww >= 1 && wh * ww <= kT;
 }
 
 }  // namespace
@@ -196,35 +209,38 @@ const char* swin_cuda_error_string(int code) {
 
 // Shared memory in bytes of one block of the attention kernel (fused: every head and the
 // projection; else hg heads; drop: its dropout form) with proj = 0, or of the projection
-// kernel with proj = 1; 0 where the kernels do not take the dimensions.
+// kernel with proj = 1, at wh x ww windows; 0 where the kernels do not take the dimensions.
 size_t swin_k3_fwd_smem(int bf16_io, int fused, int cross, int C, int inner, int heads, int d,
-                        int hg, int proj, int drop) {
-  if (!supported(C, inner, heads, d, hg, fused != 0)) return 0;
+                        int hg, int proj, int drop, int wh, int ww) {
+  if (!takes_window(wh, ww) || !supported(C, inner, heads, d, hg, fused != 0)) return 0;
   if (proj) return static_cast<size_t>(proj_layout(bf16_io != 0).total);
-  return static_cast<size_t>(block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, drop != 0));
+  return static_cast<size_t>(
+      block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, drop != 0, wh * ww));
 }
 
 // The forward on `stream`, with dropout where `drop` (ops/dropout_layout.py's "k3" keying; its
 // attention site) is not nullptr: x and out (S, B, H, W, C) fp32, or bf16 when `bf16_io` is
-// set; the weights fp32 as window_attention.cu's; 7x7 windows. fused: one launch with every
-// head in a block (hg == heads); else hg heads per block and av, a (S*B, windows, 49,
+// set; the weights fp32 as window_attention.cu's, the bias (S, T, T); wh x ww windows of T
+// tokens (7 x 7 in this build, any of T <= 64 in the any-window build). fused: one launch with
+// every head in a block (hg == heads); else hg heads per block and av, a (S*B, windows, T,
 // heads*d) scratch in x's type, then the projection launch. Returns cudaGetLastError() after
 // the launches (0 = ok), cudaErrorInvalidValue on dimensions the kernels do not take.
 int swin_k3_fwd(const void* x, const float* wq, const float* bq, const float* wk, const float* bk,
                 const float* wv, const float* bv, const float* wp, const float* bp,
                 const float* bias, void* out, void* av, const swin::DropArgs* drop, int S, int B, int H,
                 int W, int C, int heads, int d, int hg, int fused, int shift, int cross, int bf16_io,
-                float scale, void* stream) {
+                float scale, int wh, int ww, void* stream) {
   const int inner = heads * d;
-  if (H % 7 != 0 || W % 7 != 0 || S < 1 || S > 2 || (cross && S != 2) ||
+  if (!takes_window(wh, ww) || H % wh != 0 || W % ww != 0 || S < 1 || S > 2 || (cross && S != 2) ||
       !supported(C, inner, heads, d, hg, fused != 0) || (!fused && av == nullptr) ||
       (drop != nullptr && !swin::drop_on(drop, swin::kSiteAttn)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool dropping = drop != nullptr;
   const Args a = {x, wq, bq, wk, bk, wv, bv, wp, bp, bias, out, av, S, B, H, W, C, inner, heads,
-                  d, hg, shift ? 4 : 0, shift ? 4 : 0, cross, scale, /*windows=*/0,
-                  dropping ? swin::drop_site(drop, swin::kSiteAttn, H * W, B) : swin::DropSite{}, nullptr};
-  const int smem = block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, dropping);
+                  d, hg, shift ? wh - wh / 2 : 0, shift ? ww - ww / 2 : 0, cross, scale, /*windows=*/0,
+                  dropping ? swin::drop_site(drop, swin::kSiteAttn, H * W, B) : swin::DropSite{}, nullptr,
+                  wh, ww, wh * ww};
+  const int smem = block_smem(bf16_io != 0, fused != 0, cross != 0, C, inner, d, hg, dropping, wh * ww);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = pitch_for(d);
   return static_cast<int>(bf16_io ? launch_drop<true>(fused != 0, dropping, dp, smem, a, st)

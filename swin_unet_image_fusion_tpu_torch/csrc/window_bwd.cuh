@@ -1,7 +1,7 @@
 // Device code of the window-attention backward, redesigned for Hopper (sm_90a): what the
 // fused block's backward (fused_block_bwd.cu, K1 bwd and K4 bwd) and K3's backward
 // (window_attention_bwd.cu) run in their blocks of one window. Built on window_fwd.cuh: one
-// 7x7 window of T = 49 tokens per block, 256 threads, GEMM operands resident in shared memory
+// 7x7 window of T = 49 tokens per block (the any-window class: up to 64), 256 threads, GEMM operands resident in shared memory
 // channel-major ([k][kPitchF], row groups at a_col) or streamed through a ring in that layout,
 // with the weights streamed through a cp.async ring.
 //
@@ -48,27 +48,37 @@ namespace wbwd {
 
 using namespace wfwd;
 
-constexpr int kMaxCols = 36 * kTileN;  // columns one product takes at most (7 x 36 tiles of 8 x 4)
+constexpr int kMaxCols = 144;  // columns one product takes at most (7 x 36 tiles of 8 x 4; 8 x 18 of 8 x 8)
 constexpr int kSmemMax = 232448;       // dynamic shared memory a block may use
 
 template <int N> struct TnTag { static constexpr int value = N; };
 
-// The register tile width for a GEMM of nb columns: the widest whose 7 x nb / TN tiles fit
-// the 256 threads.
-__host__ __device__ constexpr int tn_for(int nb) { return nb <= 36 ? 1 : nb <= 72 ? 2 : 4; }
+// The register tile width for a GEMM of nb columns: the narrowest whose kRowGroups x nb / TN
+// tiles fit the 256 threads (7 row groups: TN <= 4). The any-window class's 8 row groups take TN
+// 2, 4 or 8 (three instantiations a product, as the 7x7 class: its build is the longest).
+__host__ __device__ constexpr int tn_for(int nb) {
+  if (!kAnyWindow) return nb <= 36 ? 1 : nb <= 72 ? 2 : 4;
+  return nb <= 64 ? 2 : nb <= 128 ? 4 : 8;
+}
 
 // f(TnTag<TN>{}) with TN = tn_for(nb): one instantiation of the GEMM per tile width.
 template <typename F>
 __device__ __forceinline__ void with_tn(int nb, F f) {
   const int tn = tn_for(nb);
-  if (tn == 1) f(TnTag<1>{});
-  else if (tn == 2) f(TnTag<2>{});
-  else f(TnTag<4>{});
+  if constexpr (kAnyWindow) {
+    if (tn == 2) f(TnTag<2>{});
+    else if (tn == 4) f(TnTag<4>{});
+    else f(TnTag<8>{});
+  } else {
+    if (tn == 1) f(TnTag<1>{});
+    else if (tn == 2) f(TnTag<2>{});
+    else f(TnTag<4>{});
+  }
 }
 
 template <int TN> struct Tile {
   float v[8][TN];
-  int tile;  // rg + 7 cg of the thread's tile, -1 for none
+  int tile;  // rg + kRowGroups cg of the thread's tile, -1 for none
 };
 
 template <int TN>
@@ -89,7 +99,12 @@ __device__ __forceinline__ void chunk_tn(float (&acc)[8][TN], const float* a, co
     const float4 a1 = *reinterpret_cast<const float4*>(a + kk * kPitchF + 4);
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     float bv[TN];
-    if constexpr (TN == 4) {
+    if constexpr (TN == 8) {
+      const float4 b4 = *reinterpret_cast<const float4*>(b + kk * ldb);
+      const float4 c4 = *reinterpret_cast<const float4*>(b + kk * ldb + 4);
+      bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
+      bv[4] = c4.x, bv[5] = c4.y, bv[6] = c4.z, bv[7] = c4.w;
+    } else if constexpr (TN == 4) {
       const float4 b4 = *reinterpret_cast<const float4*>(b + kk * ldb);
       bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
     } else if constexpr (TN == 2) {
@@ -155,18 +170,19 @@ __device__ __forceinline__ void gemm_tile(Tile<TN>& acc, const Gemm& g, const fl
 template <int TN>
 __device__ __forceinline__ void gemm_stream(Tile<TN>& acc, const Gemm& g, float* abuf, float* bbuf, int a_bf16) {
   constexpr int kPer = (2 * kKc * kT + kThreads - 1) / kThreads;  // A elements a thread stages
+  const int T = tokens(g.t);
   const int tid = threadIdx.x;
   const bool active = tid < kRowGroups * (g.nb / TN);
   const int rg = tid % kRowGroups, cg = tid / kRowGroups;
   const int ap = a_part(g, cg * TN >= g.n);
   const int chunks = (g.K + kKc - 1) / kKc;
-  const int per = g.aparts * kKc * kT, slot = g.aparts * kKc * kPitchF;
+  const int per = g.aparts * kKc * T, slot = g.aparts * kKc * kPitchF;
   float staged[kPer];
   auto fetch = [&](int c) {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
-      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % kT, k = c * kKc + kk;
-      const void* base = i >= kKc * kT ? g.abase[1] : g.abase[0];
+      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % T, k = c * kKc + kk;
+      const void* base = i >= kKc * T ? g.abase[1] : g.abase[0];
       const int at = g.rows[t] + k;
       staged[u] = i >= per || k >= g.K ? 0.0f
                   : a_bf16              ? __bfloat162float(static_cast<const bf16*>(base)[at])
@@ -177,7 +193,7 @@ __device__ __forceinline__ void gemm_stream(Tile<TN>& acc, const Gemm& g, float*
     float* ab = abuf + (c % 2) * slot;
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
-      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % kT, part = i / (kKc * kT);
+      const int i = tid + u * kThreads, kk = i % kKc, t = (i / kKc) % T, part = i / (kKc * T);
       if (i < per) ab[(part * kKc + kk) * kPitchF + a_col(t >> 3) + (t & 7)] = staged[u];
     }
   };
@@ -204,16 +220,17 @@ __device__ __forceinline__ void gemm_stream(Tile<TN>& acc, const Gemm& g, float*
   acc.tile = active ? tid : -1;
 }
 
-// f(t, col, sum) for every row t < 49 and column col < ncols of the thread's tile.
+// f(t, col, sum) for every row t < T and column col < ncols of the thread's tile.
 template <int TN, typename F>
-__device__ __forceinline__ void each(const Tile<TN>& s, int ncols, F f) {
+__device__ __forceinline__ void each(const Tile<TN>& s, int ncols, F f, int ntok = kT) {
   if (s.tile < 0) return;
+  const int T = tokens(ntok);
   const int rg = s.tile % kRowGroups, c0 = s.tile / kRowGroups * TN;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      if (rg * 8 + i < kT && c0 + j < ncols) f(rg * 8 + i, c0 + j, s.v[i][j]);
+      if (rg * 8 + i < T && c0 + j < ncols) f(rg * 8 + i, c0 + j, s.v[i][j]);
 }
 
 // A resident operand's element (t, k), fp32 channel-major.
@@ -221,8 +238,8 @@ __device__ __forceinline__ float& a_at(float* a, int t, int k) { return a[k * kP
 
 // K channels of a resident operand to token rows of device memory: row t to
 // dst[tok[t] * width + k], consecutive threads along k.
-__device__ __forceinline__ void store_a(float* a, int K, float* dst, int width, const int* tok) {
-  each_row_col(kT, K, [&](int t, int k) { dst[static_cast<size_t>(tok[t]) * width + k] = a_at(a, t, k); });
+__device__ __forceinline__ void store_a(float* a, int K, float* dst, int width, const int* tok, int ntok = kT) {
+  each_row_col(tokens(ntok), K, [&](int t, int k) { dst[static_cast<size_t>(tok[t]) * width + k] = a_at(a, t, k); });
 }
 
 template <int DP>
@@ -248,23 +265,31 @@ __device__ __forceinline__ float dot_row(const float (&a)[DP], const float* b) {
   return (s0 + s1) + (s2 + s3);
 }
 
-constexpr int kQuarter = 13;  // keys per lane of a query row in the rows pass (4 x 13 >= 49)
+// keys per lane of a query row in the rows pass (4 x 13 >= 49; the any-window class 4 x 16 = 64)
+constexpr int kQuarter = kAnyWindow ? 16 : 13;
 
-// The rows pass. Thread (t, qd) = (tid / 4, tid % 4) holds keys 13 qd.. of query row t for
-// every head in turn. q/k/v/g_o: [heads][49][DP] fp32 (q scaled, pads 0); bias: the
-// relative-position bias of the window, -inf between wrap regions. Writes scale * g_S k for
-// (t, head h, dim j) through gq(t, h * d + j, value), and (1 / sum, dot) of every (h, t) to
-// rd; adds g_S to tab, the lane's bias-gradient sums of entries (t, 13 qd + uu). kDrop: g_P =
-// g_o v^T is masked by the keep words (keep_w, [heads][49][2], hash_dropout.cuh) and
-// drop_scale before dot and g_S, whose P stays the undropped one.
+// A lane's bias-table gradient sums (tab below), one chain over every head and window its block
+// walks: fp32 in the 7x7 class; double in the any-window class, whose 64-row blocks often fit
+// one an SM and so walk twice the windows (the 224² batch-20 step's stage-0 table at 8x8: the
+// fp32 chain put it 1.56e-4 of its largest from the exact gradient, the composition 1.19e-4).
+using TabSum = std::conditional<kAnyWindow, double, float>::type;
+
+// The rows pass. Thread (t, qd) = (tid / 4, tid % 4) holds keys kQuarter qd.. of query row t for
+// every head in turn (64 rows: the any-window class's every row). q/k/v/g_o: [heads][T][DP] fp32
+// (q scaled, pads 0); bias: the relative-position bias of the window ([T][T]), -inf between wrap
+// regions. Writes scale * g_S k for (t, head h, dim j) through gq(t, h * d + j, value), and
+// (1 / sum, dot) of every (h, t) to rd; adds g_S to tab, the lane's bias-gradient sums of entries
+// (t, kQuarter qd + uu). kDrop: g_P = g_o v^T is masked by the keep words (keep_w, [heads][T][2],
+// hash_dropout.cuh) and drop_scale before dot and g_S, whose P stays the undropped one.
 template <int DP, bool kDrop = false, typename GqOut>
 __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                               const float* bias_s, int heads, int d, float scale, float2* rd,
-                              float (&tab)[kQuarter], GqOut gq_out, const uint32_t* keep_w = nullptr,
-                              float drop_scale = 1.0f) {
+                              TabSum (&tab)[kQuarter], GqOut gq_out, const uint32_t* keep_w = nullptr,
+                              float drop_scale = 1.0f, int ntok = kT) {
+  const int T = tokens(ntok);
   const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const bool act = t < kT;
-  const int tq = act ? t : kT - 1;
+  const bool act = t < T;
+  const int tq = act ? t : T - 1;
   const int u0 = qd * kQuarter;
   const unsigned mask = 0xfu << (threadIdx.x & 28);  // the four lanes of this row
   auto sum4 = [&](float v) {
@@ -273,19 +298,19 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
   };
   for (int h = 0; h < heads; ++h) {
     float qr[DP], gor[DP];
-    load_row<DP>(q_s + (h * kT + tq) * DP, qr);
-    load_row<DP>(go_s + (h * kT + tq) * DP, gor);
-    const float* kh = k_s + h * kT * DP;
-    const float* vh = v_s + h * kT * DP;
+    load_row<DP>(q_s + (h * T + tq) * DP, qr);
+    load_row<DP>(go_s + (h * T + tq) * DP, gor);
+    const float* kh = k_s + h * T * DP;
+    const float* vh = v_s + h * T * DP;
     float e[kQuarter], gp[kQuarter];
     float se = 0.0f, sg = 0.0f;
-    const uint32_t* kw = kDrop ? keep_w + (h * kT + tq) * swin::kKeepWords : nullptr;
+    const uint32_t* kw = kDrop ? keep_w + (h * T + tq) * swin::kKeepWords : nullptr;
 #pragma unroll
     for (int uu = 0; uu < kQuarter; ++uu) {
       const int u = u0 + uu;
       e[uu] = gp[uu] = 0.0f;
-      if (u < kT) {
-        e[uu] = expf(fminf(dot_row<DP>(qr, kh + u * DP) + bias_s[tq * kT + u], kSoftmaxClamp));
+      if (u < T) {
+        e[uu] = expf(fminf(dot_row<DP>(qr, kh + u * DP) + bias_s[tq * T + u], kSoftmaxClamp));
         gp[uu] = dot_row<DP>(gor, vh + u * DP);
         if constexpr (kDrop) gp[uu] = swin::masked(swin::word_keep(kw, u), gp[uu], drop_scale);
         se += e[uu];
@@ -300,7 +325,7 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
 #pragma unroll
     for (int uu = 0; uu < kQuarter; ++uu) {
       const int u = u0 + uu;
-      if (u < kT) {
+      if (u < T) {
         const float gs = e[uu] * r * (gp[uu] - dot);
         tab[uu] += gs;
 #pragma unroll
@@ -319,35 +344,36 @@ __device__ void core_bwd_rows(const float* q_s, const float* k_s, const float* v
 #pragma unroll
       for (int j = 0; j < DP; ++j)
         if (j < d) gq_out(t, h * d + j, gq[j] * scale);
-      rd[h * kT + t] = make_float2(r, dot);
+      rd[h * T + t] = make_float2(r, dot);
     }
   }
 }
 
-// The columns pass: a lane per (head, key u), the 49 query rows in order. Writes g_k and
+// The columns pass: a lane per (head, key u), the T query rows in order. Writes g_k and
 // g_v of (u, head h, dim j) through gkv(u, h * d + j, g_k, g_v). kDrop: g_P masked as in the
 // rows pass, and g_v = drop(P)^T g_o.
 template <int DP, bool kDrop = false, typename GkvOut>
 __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                               const float* bias_s, int heads, int d, const float2* rd, GkvOut gkv_out,
-                              const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
-  for (int item = threadIdx.x; item < heads * kT; item += kThreads) {
-    const int h = item / kT, u = item - h * kT;
+                              const uint32_t* keep_w = nullptr, float drop_scale = 1.0f, int ntok = kT) {
+  const int T = tokens(ntok);
+  for (int item = threadIdx.x; item < heads * T; item += kThreads) {
+    const int h = item / T, u = item - h * T;
     float kr[DP], vr[DP], gk[DP], gv[DP];
-    load_row<DP>(k_s + (h * kT + u) * DP, kr);
-    load_row<DP>(v_s + (h * kT + u) * DP, vr);
+    load_row<DP>(k_s + (h * T + u) * DP, kr);
+    load_row<DP>(v_s + (h * T + u) * DP, vr);
 #pragma unroll
     for (int j = 0; j < DP; ++j) gk[j] = gv[j] = 0.0f;
-    const float* qh = q_s + h * kT * DP;
-    const float* goh = go_s + h * kT * DP;
+    const float* qh = q_s + h * T * DP;
+    const float* goh = go_s + h * T * DP;
 #pragma unroll 7
-    for (int t = 0; t < kT; ++t) {
-      const float e = expf(fminf(dot_row<DP>(kr, qh + t * DP) + bias_s[t * kT + u], kSoftmaxClamp));
-      const float2 rdt = rd[h * kT + t];
+    for (int t = 0; t < T; ++t) {
+      const float e = expf(fminf(dot_row<DP>(kr, qh + t * DP) + bias_s[t * T + u], kSoftmaxClamp));
+      const float2 rdt = rd[h * T + t];
       float p = e * rdt.x;
       float gs;
       if constexpr (kDrop) {
-        const bool keep = swin::word_keep(keep_w + (h * kT + t) * swin::kKeepWords, u);
+        const bool keep = swin::word_keep(keep_w + (h * T + t) * swin::kKeepWords, u);
         gs = p * (swin::masked(keep, dot_row<DP>(vr, goh + t * DP), drop_scale) - rdt.y);
         p = swin::masked(keep, p, drop_scale);  // g_v's weight: the dropped P
       } else {
@@ -378,11 +404,11 @@ __device__ void core_bwd_cols(const float* q_s, const float* k_s, const float* v
 template <int DP, bool kDrop = false, typename GqOut, typename GkvOut>
 __device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                                          const float* bias_s, int heads, int d, float scale, float2* rd,
-                                         float (&tab)[kQuarter], GqOut gq_out, GkvOut gkv_out,
-                                         const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
-  core_bwd_rows<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, scale, rd, tab, gq_out, keep_w, drop_scale);
+                                         TabSum (&tab)[kQuarter], GqOut gq_out, GkvOut gkv_out,
+                                         const uint32_t* keep_w = nullptr, float drop_scale = 1.0f, int ntok = kT) {
+  core_bwd_rows<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, scale, rd, tab, gq_out, keep_w, drop_scale, ntok);
   __syncthreads();
-  core_bwd_cols<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out, keep_w, drop_scale);
+  core_bwd_cols<DP, kDrop>(q_s, k_s, v_s, go_s, bias_s, heads, d, rd, gkv_out, keep_w, drop_scale, ntok);
 }
 
 // ---- the core's backward at row pitches above kPassesPitchMax (d = 48: stage 4) -------------
@@ -390,7 +416,7 @@ __device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, con
 // columns pass k, v, g_k and g_v): at DP = 48 that is 144-192 registers, which spill, and the
 // columns pass gives one thread to each of a head's 49 keys. Here a head's P and g_S go to
 // shared memory instead (2 x [49][kPP] floats), and every product of the head runs on 224 of
-// the 256 threads:
+// the 256 threads (7x7 class):
 //   the rows pass: lane (t, qd) forms the scores of its 13 keys, then their g_P = g_o v^T (two
 //     loops, so that only one operand's 13 column slices are in flight: with both, the block
 //     spilled even at 255 registers), each walking the head dimension four columns at a time
@@ -400,38 +426,51 @@ __device__ __forceinline__ void core_bwd(const float* q_s, const float* k_s, con
 //   the products: AV = P v, g_q = scale g_S k, g_k = g_S^T q and g_v = P^T g_o, each 49 x 49 by
 //     49 x DP, a thread a 7-row x DP/8-column tile (56 tiles a product, each sum over the 49
 //     keys or query rows in order).
+// The any-window class (T <= 64) runs the same passes on 64 rows and every one of the 256
+// threads: the rows pass's lanes take 16 keys each, and a product tile is 8 rows x DP/8 columns
+// (64 tiles a product), its rows interleaved (rg, rg + 8, ...) so that the tiles' reads of P and
+// g_S, rows pitched kPP = 65 floats, fall in distinct banks; rows and keys from T on are never
+// summed or stored.
 // kDrop as core_bwd's: g_P masked by the keep words and drop_scale before dot and g_S, AV and
 // g_v from the dropped P, g_S from the undropped one. AV (wp's gradient's operand) is formed
 // here, so the block runs no attention_core.
 constexpr int kPassesPitchMax = 24;  // the largest row pitch core_bwd takes in a block
-constexpr int kPP = 52;              // floats a row of P and g_S: 49 keys padded to 16 bytes
+constexpr int kPP = kAnyWindow ? 65 : 52;  // floats a row of P and g_S: 49 keys padded to 16 bytes; 64 + 1
+constexpr int kTileRows = kAnyWindow ? 8 : 7;         // rows of a product tile
+constexpr int kProductTiles = kTileRows * 8;          // tiles of a product: 8 row groups x 8 column groups
 
+// P and g_S of one head, kT rows each (the products of the any-window class read its padded rows)
 __host__ __device__ constexpr int tiled_core_bytes() { return align16(2 * kT * kPP * 4); }
 
 template <int DP, bool kDrop = false, typename AvOut, typename GqOut, typename GkOut, typename GvOut>
 __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* v_s, const float* go_s,
                                const float* bias_s, int heads, int d, float scale, float* ps,
-                               float (&tab)[kQuarter], AvOut av_out, GqOut gq_out, GkOut gk_out, GvOut gv_out,
-                               const uint32_t* keep_w = nullptr, float drop_scale = 1.0f) {
+                               TabSum (&tab)[kQuarter], AvOut av_out, GqOut gq_out, GkOut gk_out, GvOut gv_out,
+                               const uint32_t* keep_w = nullptr, float drop_scale = 1.0f, int ntok = kT) {
   constexpr int kTw = DP / 8;  // columns of a product tile: 8 column groups
   static_assert(DP % 16 == 0 && kTw % 2 == 0, "the tiles load float2 pairs of the head dimension");
+  // a tile's rows: rg * 7 + i in the 7x7 class, rg + 8 i in the any-window class
+  constexpr int kRowStep = kAnyWindow ? 8 : 1;
+  const int T = tokens(ntok);
   const int t = threadIdx.x >> 2, qd = threadIdx.x & 3;
-  const bool act = t < kT;
-  const int tq = act ? t : kT - 1;
+  const bool act = t < T;
+  const int tq = act ? t : T - 1;
   const int u0 = qd * kQuarter;
   const unsigned mask = 0xfu << (threadIdx.x & 28);  // the four lanes of this row
   auto sum4 = [&](float v) {
     v += __shfl_xor_sync(mask, v, 1);
     return v + __shfl_xor_sync(mask, v, 2);
   };
-  float* p_s = ps;             // [49][kPP]: P (kDrop: dropped)
-  float* g_s = ps + kT * kPP;  // [49][kPP]: g_S
-  const int job = threadIdx.x / 56, tile = threadIdx.x % 56, rg = tile % 7, cg = tile / 7;
+  float* p_s = ps;             // [kT][kPP]: P (kDrop: dropped)
+  float* g_s = ps + kT * kPP;  // [kT][kPP]: g_S
+  const int job = threadIdx.x / kProductTiles, tile = threadIdx.x % kProductTiles;
+  const int rg = tile % kTileRows, cg = tile / kTileRows;
+  const int r0 = kAnyWindow ? rg : rg * kTileRows;  // the tile's first row
   for (int h = 0; h < heads; ++h) {
-    const float* qh = q_s + h * kT * DP;
-    const float* kh = k_s + h * kT * DP;
-    const float* vh = v_s + h * kT * DP;
-    const float* goh = go_s + h * kT * DP;
+    const float* qh = q_s + h * T * DP;
+    const float* kh = k_s + h * T * DP;
+    const float* vh = v_s + h * T * DP;
+    const float* goh = go_s + h * T * DP;
     {  // the rows pass
       float e[kQuarter], gp[kQuarter];
 #pragma unroll
@@ -443,7 +482,7 @@ __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* 
         const float4 q4 = *reinterpret_cast<const float4*>(qrow + j);
 #pragma unroll
         for (int uu = 0; uu < kQuarter; ++uu) {
-          const int u = min(u0 + uu, kT - 1);  // the last lane's keys past 48 repeat key 48, unused
+          const int u = min(u0 + uu, T - 1);  // the last lane's keys past T - 1 repeat key T - 1, unused
           const float4 k4 = *reinterpret_cast<const float4*>(kh + u * DP + j);
           e[uu] = fmaf(q4.w, k4.w, fmaf(q4.z, k4.z, fmaf(q4.y, k4.y, fmaf(q4.x, k4.x, e[uu]))));
         }
@@ -453,18 +492,18 @@ __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* 
         const float4 g4 = *reinterpret_cast<const float4*>(grow + j);
 #pragma unroll
         for (int uu = 0; uu < kQuarter; ++uu) {
-          const int u = min(u0 + uu, kT - 1);
+          const int u = min(u0 + uu, T - 1);
           const float4 v4 = *reinterpret_cast<const float4*>(vh + u * DP + j);
           gp[uu] = fmaf(g4.w, v4.w, fmaf(g4.z, v4.z, fmaf(g4.y, v4.y, fmaf(g4.x, v4.x, gp[uu]))));
         }
       }
-      const uint32_t* kw = kDrop ? keep_w + (h * kT + tq) * swin::kKeepWords : nullptr;
+      const uint32_t* kw = kDrop ? keep_w + (h * T + tq) * swin::kKeepWords : nullptr;
       float se = 0.0f, sg = 0.0f;
 #pragma unroll
       for (int uu = 0; uu < kQuarter; ++uu) {
         const int u = u0 + uu;
-        if (u < kT) {
-          e[uu] = expf(fminf(e[uu] + bias_s[tq * kT + u], kSoftmaxClamp));
+        if (u < T) {
+          e[uu] = expf(fminf(e[uu] + bias_s[tq * T + u], kSoftmaxClamp));
           if constexpr (kDrop) gp[uu] = swin::masked(swin::word_keep(kw, u), gp[uu], drop_scale);
           se += e[uu];
           sg = fmaf(e[uu], gp[uu], sg);
@@ -475,7 +514,7 @@ __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* 
 #pragma unroll
       for (int uu = 0; uu < kQuarter; ++uu) {
         const int u = u0 + uu;
-        if (u < kT) {
+        if (u < T) {
           const float p = e[uu] * r;
           const float gs = p * (gp[uu] - dot);
           tab[uu] += gs;
@@ -490,16 +529,17 @@ __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* 
     __syncthreads();
     if (job < 4) {  // the products: AV = P v, g_q = g_S k (rows t); g_k = g_S^T q, g_v = P^T g_o (rows u)
       const bool by_t = job < 2;
-      const float* a = (job == 0 || job == 3 ? p_s : g_s) + (by_t ? rg * 7 * kPP : rg * 7);
-      const int si = by_t ? kPP : 1, sk = by_t ? 1 : kPP;  // strides of a tile row and of the sum's index
+      const float* a = (job == 0 || job == 3 ? p_s : g_s) + (by_t ? r0 * kPP : r0);
+      // strides of a tile row and of the sum's index
+      const int si = by_t ? kRowStep * kPP : kRowStep, sk = by_t ? 1 : kPP;
       const float* b = (job == 0 ? vh : job == 1 ? kh : job == 2 ? qh : goh) + cg * kTw;
-      float acc[7][kTw];
+      float acc[kTileRows][kTw];
 #pragma unroll
-      for (int i = 0; i < 7; ++i)
+      for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
         for (int j = 0; j < kTw; ++j) acc[i][j] = 0.0f;
 #pragma unroll 7
-      for (int k = 0; k < kT; ++k) {
+      for (int k = 0; k < T; ++k) {
         float bv[kTw];
 #pragma unroll
         for (int j = 0; j < kTw; j += 2) {
@@ -507,18 +547,18 @@ __device__ void core_bwd_tiled(const float* q_s, const float* k_s, const float* 
           bv[j] = b2.x, bv[j + 1] = b2.y;
         }
 #pragma unroll
-        for (int i = 0; i < 7; ++i) {
+        for (int i = 0; i < kTileRows; ++i) {
           const float av = a[i * si + k * sk];
 #pragma unroll
           for (int j = 0; j < kTw; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 7; ++i)
+      for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
         for (int j = 0; j < kTw; ++j) {
-          const int row = rg * 7 + i, col = cg * kTw + j;
-          if (col >= d) continue;
+          const int row = r0 + kRowStep * i, col = cg * kTw + j;
+          if (col >= d || (kAnyWindow && row >= T)) continue;
           if (job == 0) av_out(row, h * d + col, acc[i][j]);
           else if (job == 1) gq_out(row, h * d + col, acc[i][j] * scale);
           else if (job == 2) gk_out(row, h * d + col, acc[i][j]);

@@ -1,7 +1,8 @@
 // Device code of the window-attention forward, with and without dropout, shared by K3's
 // redesigned forward (window_attention_fwd.cu) and the fused block's, K4 and K1
 // (fused_block_fwd.cu), for Hopper (sm_90a): the
-// block geometry (one 7x7 window of T = 49 tokens per block, 256 threads), cp.async and
+// block geometry (one 7x7 window of T = 49 tokens per block, or in the any-window class below
+// one window of up to 64; 256 threads), cp.async and
 // mma.sync helpers, the GEMMs of a window's rows (fp32 FMA with 8x4 register tiles, or bf16
 // operands on mma.sync.m16n8k16 with fp32 accumulators) with x and the weights streamed
 // through a cp.async ring or the A operand resident in shared memory, and the attention core
@@ -24,11 +25,23 @@ namespace wfwd {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kT = 49;              // tokens of a 7x7 window
+// The window class a translation unit is built for. By default the 7x7 class: T = 49 tokens a
+// window, a compile-time constant everywhere, which every kernel of the fused block (K1, K4)
+// and K3's 7x7 forms run. With SWIN_ANY_WINDOW set (window_attention_fwd_any.cu,
+// window_attention_bwd_any.cu: K3 alone) the any-window class: any window of T <= 64 tokens,
+// T, wh and ww read at run time from the launch's arguments (tokens(), window_hw()), the blocks
+// sized for 64 rows: eight fp32 row groups, and 8 x 8 register tiles so that a product of up to
+// 256 columns still takes one tile a thread.
+#ifdef SWIN_ANY_WINDOW
+constexpr bool kAnyWindow = true;
+#else
+constexpr bool kAnyWindow = false;
+#endif
+constexpr int kT = kAnyWindow ? 64 : 49;          // tokens a block holds (7x7: every window's 49)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowGroups = 7;       // fp32 GEMM rows: 7 groups of 8 (49 used)
-constexpr int kPitchF = 60;         // floats per fp32 A row (channel): group rg at a_col(rg)
+constexpr int kRowGroups = kAnyWindow ? 8 : 7;    // fp32 GEMM rows: groups of 8 (7x7: 49 of 56 used)
+constexpr int kPitchF = kAnyWindow ? 68 : 60;     // floats per fp32 A row (channel): group rg at a_col(rg)
 constexpr int kRowsB = 64;          // bf16 rows: 4 mma row tiles of 16
 constexpr int kKc = 16;             // channels per streamed chunk (one mma k-step)
 // cp.async ring depths of the attention kernel and of the projection kernel
@@ -43,13 +56,24 @@ __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / 
 __host__ __device__ constexpr int align16(int v) { return round_up(v, 16); }
 __host__ __device__ constexpr int max2(int a, int b) { return a > b ? a : b; }
 
-// Column of row group rg in an fp32 A row: groups 4-6 shifted by 4 floats, so that the seven
-// float4 a quarter-warp reads fall in seven distinct bank quads.
+// Column of row group rg in an fp32 A row: groups 4-7 shifted by 4 floats, so that the seven
+// (any-window class: eight) float4 a quarter-warp reads fall in distinct bank quads.
 __host__ __device__ constexpr int a_col(int rg) { return rg * 8 + (rg >= 4 ? 4 : 0); }
 
-constexpr int kTileN = 4;           // fp32 register tile: 8 rows x kTileN columns
-// fp32 GEMM of nb columns: 7 row groups x nb/kTileN column groups, one tile per thread.
+constexpr int kTileN = kAnyWindow ? 8 : 4;  // fp32 register tile: 8 rows x kTileN columns
+// fp32 GEMM of nb columns: kRowGroups row groups x nb/kTileN column groups, one tile per thread.
 __host__ __device__ constexpr int f32_tiles(int nb) { return kRowGroups * (nb / kTileN); }
+
+// The tokens of the call's window: kT in the 7x7 class (a constant the compiler folds), the
+// call's t in the any-window class.
+__host__ __device__ constexpr int tokens(int t) { return kAnyWindow ? t : kT; }
+
+// The window's (rows, columns): 7 x 7, or the launch's wh x ww in the any-window class.
+template <typename Args>
+__host__ __device__ __forceinline__ int2 window_hw(const Args& a) {
+  if constexpr (kAnyWindow) return make_int2(a.wh, a.ww);
+  else return make_int2(7, 7);
+}
 constexpr int kColTable = 192;      // q/k/v columns of a block at most (3 x 64)
 
 // bytes of the A ring and of the B (weight) ring; bf16 keeps the weights fp32 in the ring,
@@ -99,18 +123,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- the GEMMs: Y[49, NB] = A[49, K] @ Wcols[K, NB] ----------------------------------------
+// ---- the GEMMs: Y[T, NB] = A[T, K] @ Wcols[K, NB] ------------------------------------------
 // Column c of the NB belongs to part c / n (q, k, v; one part for a projection) and reads
 // w[part][k * ldw + c % n]; columns from `ncols` on (where set) load as 0. A is streamed from
 // device memory (row t of A's part `apart` at abase[apart] + rows[t], channel k contiguous)
 // or resident in shared memory (the *_res forms); B is always streamed.
 struct Gemm {
   const void* abase[2];  // A, per A part (the q part reads 0, k/v read 1 under cross)
-  const int* rows;       // row offsets (elements) of the 49 tokens
+  const int* rows;       // row offsets (elements) of the T tokens
   int aparts;
   const float* w[3];
   int n, ldw, nb, K;
   int ncols;             // real columns of the nb (0: all)
+  int t;                 // the any-window class's T, the rows streamed A loads (tokens())
 };
 
 // The A part of a column: the q part reads stream s, the k/v parts stream kv(s).
@@ -153,20 +178,20 @@ __device__ __forceinline__ void f32_chunk(float (&acc)[8][kTileN], const float* 
   }
 }
 
-template <int M>
-__device__ __forceinline__ void zero_acc(float (&acc)[M][4]) {
+template <int M, int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[M][N]) {
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.0f;
 }
 __device__ __forceinline__ void zero_acc(float (&acc)[kMaxNTilesB][4][4]) {
 #pragma unroll
   for (int m = 0; m < kMaxNTilesB; ++m) zero_acc(acc[m]);
 }
 
-// fp32: tile (rg, cg) = (tile % 7, tile / 7) holds rows 8 rg.. and columns kTileN cg.. in
-// registers; per channel two float4 of A and kTileN / 4 of w feed 8 kTileN FMAs. A
+// fp32: tile (rg, cg) = (tile % kRowGroups, tile / kRowGroups) holds rows 8 rg.. and columns
+// kTileN cg.. in registers; per channel two float4 of A and kTileN / 4 of w feed 8 kTileN FMAs. A
 // kDepth-deep cp.async ring fills chunk c + kDepth - 1 while chunk c is multiplied.
 // Returns the tile whose sums this thread holds (-1: none).
 template <int kDepth>
@@ -182,8 +207,9 @@ __device__ int gemm_f32(const Gemm& g, float* abuf, float* bbuf, float (&acc)[8]
     if (c < chunks) {
       const int k0 = c * kKc, slot = c % kDepth;
       float* ab = abuf + slot * g.aparts * kKc * kPitchF;
-      for (int i = tid; i < g.aparts * kKc * kT; i += kThreads) {
-        const int kk = i % kKc, t = (i / kKc) % kT, part = i / (kKc * kT);
+      const int T = tokens(g.t);
+      for (int i = tid; i < g.aparts * kKc * T; i += kThreads) {
+        const int kk = i % kKc, t = (i / kKc) % T, part = i / (kKc * T);
         const int k = k0 + kk;
         const bool ok = k < g.K;
         const float* base = static_cast<const float*>(part ? g.abase[1] : g.abase[0]);
@@ -281,7 +307,7 @@ __device__ void gemm_bf16(const Gemm& g, bf16* abuf, float* bbuf, float (&acc)[k
       for (int i = tid; i < g.aparts * kRowsB * kSegs; i += kThreads) {
         const int seg = i % kSegs, t = (i / kSegs) % kRowsB, part = i / (kSegs * kRowsB);
         const int k = k0 + seg * 8;
-        const bool ok = t < kT && k < g.K;
+        const bool ok = t < tokens(g.t) && k < g.K;
         const bf16* base = static_cast<const bf16*>(part ? g.abase[1] : g.abase[0]);
         cp_async16(ab + (part * kRowsB + t) * kStrideB + seg * 8, ok ? base + g.rows[t] + k : base, ok);
       }
@@ -373,11 +399,12 @@ __device__ void bf16_resident(float (&acc)[kMaxNTilesB][4][4], const bf16* a, in
   }
 }
 
-// out[rows[t] + col] = acc + bp[col] for the 49 rows and nb columns of a projection: fp32
-// stores two float4 per row of a tile, bf16 rounds each sum once and stores two columns.
+// out[rows[t] + col] = acc + bp[col] for the T rows and nb columns of a projection: fp32
+// stores kTileN / 4 float4 per row of a tile, bf16 rounds each sum once and stores two columns.
 __device__ void store_proj_f32(const float (&acc)[8][kTileN], int tile, const int* rows, const float* bp,
-                               float* out) {
+                               float* out, int ntok = kT) {
   if (tile < 0) return;
+  const int T = tokens(ntok);
   const int rg = tile % kRowGroups, col = tile / kRowGroups * kTileN;
   float b[kTileN];
 #pragma unroll
@@ -385,7 +412,7 @@ __device__ void store_proj_f32(const float (&acc)[8][kTileN], int tile, const in
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int t = rg * 8 + i;
-    if (t < kT) {
+    if (t < T) {
       float4* o = reinterpret_cast<float4*>(out + rows[t] + col);
 #pragma unroll
       for (int j = 0; j < kTileN; j += 4)
@@ -396,7 +423,8 @@ __device__ void store_proj_f32(const float (&acc)[8][kTileN], int tile, const in
 }
 
 __device__ void store_proj_bf16(const float (&acc)[kMaxNTilesB][4][4], int nb, const int* rows,
-                                const float* bp, bf16* out) {
+                                const float* bp, bf16* out, int ntok = kT) {
+  const int T = tokens(ntok);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -409,7 +437,7 @@ __device__ void store_proj_bf16(const float (&acc)[kMaxNTilesB][4][4], int nb, c
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int t = mt * 16 + gq + half * 8;
-        if (t < kT)
+        if (t < T)
           *reinterpret_cast<uint32_t*>(out + rows[t] + col) =
               pack_bf16(acc[m][mt][2 * half] + bp[col], acc[m][mt][2 * half + 1] + bp[col + 1]);
       }
@@ -419,19 +447,21 @@ __device__ void store_proj_bf16(const float (&acc)[kMaxNTilesB][4][4], int nb, c
 template <bool kBf16>
 using Act = typename std::conditional<kBf16, bf16, float>::type;
 
-// Row offsets (x rows: token * C) and wrap regions of window `win`'s 49 tokens; the padded
+// Row offsets (x rows: token * C) and wrap regions of window `win`'s T tokens; the padded
 // rows get offset 0 and region -1. The image layout (a.windows == 0) finds a token's pixel
 // through the roll; the windows layout (ops/window_pack.py::pack_windows, already rolled and
-// partitioned in the block's geometry) holds token t of window win at row win * 49 + t. The
+// partitioned in the block's geometry) holds token t of window win at row win * T + t. The
 // region comes from the rolled-map coordinates in both.
 template <typename Args>
 __device__ void window_rows(const Args& a, int win, int* rows, int* region) {
-  const int nw = a.W / 7;
+  const int2 wd = window_hw(a);
+  const int T = wd.x * wd.y;
+  const int nw = a.W / wd.y;
   const int wr = win / nw, wc = win % nw;
   for (int t = threadIdx.x; t < kRowsB; t += kThreads) {
-    if (t < kT) {
-      const int rr = wr * 7 + t / 7, rc = wc * 7 + t % 7;  // row and column in the rolled map
-      rows[t] = (a.windows ? win * kT + t : ((rr - a.top + a.H) % a.H) * a.W + (rc - a.left + a.W) % a.W) * a.C;
+    if (t < T) {
+      const int rr = wr * wd.x + t / wd.y, rc = wc * wd.y + t % wd.y;  // row and column in the rolled map
+      rows[t] = (a.windows ? win * T + t : ((rr - a.top + a.H) % a.H) * a.W + (rc - a.left + a.W) % a.W) * a.C;
       region[t] = ((rr < a.top) << 1) | (rc < a.left);
     } else {
       rows[t] = 0;
@@ -440,15 +470,16 @@ __device__ void window_rows(const Args& a, int win, int* rows, int* region) {
   }
 }
 
-// q/k/v column -> offset of its (head, dim) at token 0: q/k/v fp32 [head][token][DP], v in
-// bf16 v^T [head][dp8][72].
+// q/k/v column -> offset of its (head, dim) at token 0: q/k/v fp32 [head][token][DP] (T tokens
+// a head), v in bf16 v^T [head][dp8][72].
 template <int DP, bool kBf16>
-__device__ void fill_col_table(int* col_ofs, int n, int d) {
+__device__ void fill_col_table(int* col_ofs, int n, int d, int ntok = kT) {
+  const int T = tokens(ntok);
   const int dp8 = round_up(d, 8);
   for (int col = threadIdx.x; col < 3 * n; col += kThreads) {
     const int part = (col >= n) + (col >= 2 * n), jc = col - part * n;
     const int h = jc / d, j = jc - h * d;
-    col_ofs[col] = kBf16 && part == 2 ? (h * dp8 + j) * kPStride : h * kT * DP + j;
+    col_ofs[col] = kBf16 && part == 2 ? (h * dp8 + j) * kPStride : h * T * DP + j;
   }
 }
 
@@ -469,20 +500,24 @@ __device__ __forceinline__ void store_qkv(int t, int col, float acc, int n, cons
 
 template <int DP, bool kBf16>
 __device__ void store_qkv_gemm(const float (&acc)[8][kTileN], int tile, int n, const int* col_ofs,
-                               const float* bqkv, float scale, float* q_s, float* k_s, unsigned char* v_s) {
+                               const float* bqkv, float scale, float* q_s, float* k_s, unsigned char* v_s,
+                               int ntok = kT) {
   if (tile < 0) return;
+  const int T = tokens(ntok);
   const int rg = tile % kRowGroups, cg = tile / kRowGroups;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < kTileN; ++j)
-      if (rg * 8 + i < kT)
+      if (rg * 8 + i < T)
         store_qkv<DP, kBf16>(rg * 8 + i, cg * kTileN + j, acc[i][j], n, col_ofs, bqkv, scale, q_s, k_s, v_s);
 }
 
 template <int DP, bool kBf16>
 __device__ void store_qkv_mma(const float (&acc)[kMaxNTilesB][4][4], int nb, int n, const int* col_ofs,
-                              const float* bqkv, float scale, float* q_s, float* k_s, unsigned char* v_s) {
+                              const float* bqkv, float scale, float* q_s, float* k_s, unsigned char* v_s,
+                              int ntok = kT) {
+  const int T = tokens(ntok);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -494,43 +529,46 @@ __device__ void store_qkv_mma(const float (&acc)[kMaxNTilesB][4][4], int nb, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = mt * 16 + gq + (e >> 1) * 8;
-        if (t < kT)
+        if (t < T)
           store_qkv<DP, kBf16>(t, nt * 8 + 2 * t4 + (e & 1), acc[m][mt][e], n, col_ofs, bqkv, scale,
                                q_s, k_s, v_s);
       }
   }
 }
 
-// The core: one warp per (head, 32 query rows), a query row per lane: scores against the 49
+// The core: one warp per (head, 32 query rows), a query row per lane: scores against the T
 // keys (four partial sums, so that the chains stay short at large d), + the bias table
 // (which carries the region mask), exp of the clamped score, its sum,
 // and AV: fp32 FMAs folding 1/(sum + 1e-30) in after the sum; bf16 p = rnd(e * r) into
 // the warp's P rows and AV on the tensor cores. store(t, col, value): AV of token t, column
 // col of the block's heads (h * d + j). kDrop (swin::AttnDrop): AV of the dropped weights, a key
-// kept or not by bit u of the row's keep words (kDropWords: keep_w, [hg][49][2], hash_dropout.cuh)
+// kept or not by bit u of the row's keep words (kDropWords: keep_w, [hg][T][2], hash_dropout.cuh)
 // or by its hash (kDropHashed: hash, fp32 only): in fp32 the kept terms' sum times drop_scale after
 // 1/(sum + 1e-30); in bf16 p = e / (sum + 1e-30) of a kept key times drop_scale, 0 else, before
-// its rounding (the TPU body masks p before the cast for AV).
+// its rounding (the TPU body masks p before the cast for AV). q/k/v, the bias table and the keep
+// words hold T rows a head (T = kT in the 7x7 class; at most 64, the warp's two row halves).
 template <int DP, bool kBf16, int kDrop = swin::kNoDrop, typename Store>
 __device__ void attention_core(const float* q_s, const float* k_s, const unsigned char* v_s, bf16* p_s,
                                const float* bias_s, int hg, int d, Store store, const uint32_t* keep_w = nullptr,
-                               float drop_scale = 1.0f, const swin::AttnHash& hash = swin::AttnHash{}) {
+                               float drop_scale = 1.0f, const swin::AttnHash& hash = swin::AttnHash{},
+                               int ntok = kT) {
   static_assert(!(kBf16 && kDrop == swin::kDropHashed), "the bf16 core reads keep words");
+  const int T = tokens(ntok);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int dp8 = round_up(d, 8);
   for (int item = warp; item < 2 * hg; item += kWarps) {
     const int h = item >> 1;
     const int t = (item & 1) * 32 + lane;
-    const bool act = t < kT;
-    const int tq = act ? t : kT - 1;
+    const bool act = t < T;
+    const int tq = act ? t : T - 1;
     float qr[DP];
 #pragma unroll
     for (int j = 0; j < DP; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(q_s + (h * kT + tq) * DP + j);
+      const float4 v = *reinterpret_cast<const float4*>(q_s + (h * T + tq) * DP + j);
       qr[j] = v.x, qr[j + 1] = v.y, qr[j + 2] = v.z, qr[j + 3] = v.w;
     }
-    const float* kh = k_s + h * kT * DP;
-    const float* brow = bias_s + tq * kT;
+    const float* kh = k_s + h * T * DP;
+    const float* brow = bias_s + tq * T;
     auto score = [&](int u) {
       float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
 #pragma unroll
@@ -548,22 +586,22 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
       uint32_t* prow = reinterpret_cast<uint32_t*>(pw + lane * kPStride);
       uint32_t w0 = 0u, w1 = 0u;  // kDrop: the row's keep words
       if constexpr (kDrop) {
-        w0 = keep_w[(h * kT + tq) * swin::kKeepWords];
-        w1 = keep_w[(h * kT + tq) * swin::kKeepWords + 1];
+        w0 = keep_w[(h * T + tq) * swin::kKeepWords];
+        w1 = keep_w[(h * T + tq) * swin::kKeepWords + 1];
       }
       auto weight = [&](int u, float p) {  // p = e * r, dropped or kept
         if constexpr (kDrop) return ((u < 32 ? w0 : w1) >> (u & 31)) & 1u ? p * drop_scale : 0.0f;
         else return p;
       };
-      if constexpr (DP >= 24) {  // the scores twice rather than 49 more registers at large d
+      if constexpr (DP >= 24) {  // the scores twice rather than kT more registers at large d
         float sum = 0.0f;
 #pragma unroll 7
-        for (int u = 0; u < kT; ++u) sum += score(u);
+        for (int u = 0; u < T; ++u) sum += score(u);
         const float r = 1.0f / (sum + 1e-30f);
 #pragma unroll 2
         for (int u = 0; u < 64; u += 2) {
-          const float lo = act && u < kT ? weight(u, score(u) * r) : 0.0f;
-          const float hi = act && u + 1 < kT ? weight(u + 1, score(u + 1) * r) : 0.0f;
+          const float lo = act && u < T ? weight(u, score(u) * r) : 0.0f;
+          const float hi = act && u + 1 < T ? weight(u + 1, score(u + 1) * r) : 0.0f;
           prow[u / 2] = pack_bf16(lo, hi);
         }
       } else {
@@ -571,14 +609,17 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
         float sum = 0.0f;
 #pragma unroll
         for (int u = 0; u < kT; ++u) {
-          e[u] = score(u);
-          sum += e[u];
+          e[u] = 0.0f;
+          if (u < T) {  // every key in the 7x7 class
+            e[u] = score(u);
+            sum += e[u];
+          }
         }
         const float r = 1.0f / (sum + 1e-30f);
 #pragma unroll
         for (int u = 0; u < 64; u += 2) {
-          const float lo = act && u < kT ? weight(u, e[u] * r) : 0.0f;
-          const float hi = act && u + 1 < kT ? weight(u + 1, e[u + 1] * r) : 0.0f;
+          const float lo = act && u < T ? weight(u, e[u] * r) : 0.0f;
+          const float hi = act && u + 1 < T ? weight(u + 1, e[u + 1] * r) : 0.0f;
           prow[u / 2] = pack_bf16(lo, hi);
         }
       }
@@ -610,11 +651,11 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
           for (int e2 = 0; e2 < 4; ++e2) {
             const int row = (item & 1) * 32 + mt * 16 + gq + (e2 >> 1) * 8;
             const int j = nt * 8 + 2 * t4 + (e2 & 1);
-            if (row < kT && j < d) store(row, h * d + j, o[mt][nt][e2]);
+            if (row < T && j < d) store(row, h * d + j, o[mt][nt][e2]);
           }
       __syncwarp();
     } else {
-      const float* vh = reinterpret_cast<const float*>(v_s) + h * kT * DP;
+      const float* vh = reinterpret_cast<const float*>(v_s) + h * T * DP;
       float acc[DP];
 #pragma unroll
       for (int j = 0; j < DP; ++j) acc[j] = 0.0f;
@@ -622,14 +663,14 @@ __device__ void attention_core(const float* q_s, const float* k_s, const unsigne
       uint32_t w0 = 0u, w1 = 0u, phq = 0u;  // the row's keep words, or its query's unit hash
       int sq = 0;                            // and slot
       if constexpr (kDrop == swin::kDropWords) {
-        w0 = keep_w[(h * kT + tq) * swin::kKeepWords];
-        w1 = keep_w[(h * kT + tq) * swin::kKeepWords + 1];
+        w0 = keep_w[(h * T + tq) * swin::kKeepWords];
+        w1 = keep_w[(h * T + tq) * swin::kKeepWords + 1];
       } else if constexpr (kDrop == swin::kDropHashed) {
         phq = hash.ph[tq];
         sq = hash.slot[tq];
       }
 #pragma unroll 7
-      for (int u = 0; u < kT; ++u) {
+      for (int u = 0; u < T; ++u) {
         const float e = score(u);
         sum += e;
         float ev = e;
@@ -801,9 +842,11 @@ struct Layout {
 };
 
 // The attention kernel: hg heads of n = hg * d columns per q/k/v part; dp: the q/k row pitch
-// (d rounded up to an instantiated pitch); fused: every head, AV kept for the projection.
+// (d rounded up to an instantiated pitch); fused: every head, AV kept for the projection; t: the
+// any-window class's T (q/k/v rows a head and the bias table's sides; tokens()).
 __host__ __device__ inline Layout attention_layout(bool bf16_io, bool fused, bool cross, int C, int inner,
-                                                   int hg, int d, int dp) {
+                                                   int hg, int d, int dp, int t = kT) {
+  const int T = tokens(t);
   Layout L{};
   const int parts = cross ? 2 : 1;
   const int ki = round_up(inner, kKc);
@@ -815,15 +858,15 @@ __host__ __device__ inline Layout attention_layout(bool bf16_io, bool fused, boo
   L.wp = p_bytes;
   int off = align16(max2(ring, p_bytes + wp_bytes));
   L.q = off;  // from here to zero_end the kernel zero-fills at its start
-  off += align16(hg * kT * dp * 4);
+  off += align16(hg * T * dp * 4);
   L.k = off;
-  off += align16(hg * kT * dp * 4);
+  off += align16(hg * T * dp * 4);
   L.v = off;
-  off += align16(bf16_io ? hg * round_up(d, 8) * kPStride * 2 : hg * kT * dp * 4);
-  L.av = off;  // fused: AV, fp32 [k][60] or bf16 [64][ki + 8]
+  off += align16(bf16_io ? hg * round_up(d, 8) * kPStride * 2 : hg * T * dp * 4);
+  L.av = off;  // fused: AV, fp32 [k][kPitchF] or bf16 [64][ki + 8]
   if (fused) off += align16(bf16_io ? kRowsB * (ki + 8) * 2 : ki * kPitchF * 4);
   L.zero_end = L.bias = off;
-  off += align16(kT * kT * 4);
+  off += align16(T * T * 4);
   L.rows = off;
   off += align16((2 * kRowsB + 3 * kColTable) * 4);  // rows, regions, columns, q/k/v and out biases
   L.total = off;
@@ -834,21 +877,22 @@ struct Args {
   const void* x;
   const float *wq, *bq, *wk, *bk, *wv, *bv, *wp, *bp, *bias;
   void* out;
-  void* av;  // split: AV scratch (S*B, windows, 49, inner) in x's type
+  void* av;  // split: AV scratch (S*B, windows, T, inner) in x's type
   int S, B, H, W, C, inner, heads, d, hg, top, left, cross;
   float scale;
   int windows;  // the token layout: 0 image (K3's and K4's), 1 windows (K1's)
   // kDrop: the attention site, and where the keep words of every (image, window, head) go,
-  // (S*B, windows, heads, 49, 2), for the dropout backward's recompute (nullptr: not stored,
+  // (S*B, windows, heads, T, 2), for the dropout backward's recompute (nullptr: not stored,
   // the forward's dropout form)
   swin::DropSite drop;
   uint32_t* keep;
+  int wh, ww, t;  // the any-window class's window and its tokens (window_hw(), tokens())
 };
 
 // Bytes a kDrop attention block adds after attention_layout's: the tokens' unit hashes and
-// slots, and (words: the kDropWords core's) the keep words of its hg heads.
-__host__ __device__ inline int drop_attention_bytes(int hg, bool words = true) {
-  return align16(2 * kRowsB * 4) + (words ? align16(hg * kT * swin::kKeepWords * 4) : 0);
+// slots, and (words: the kDropWords core's) the keep words of its hg heads (T rows each).
+__host__ __device__ inline int drop_attention_bytes(int hg, bool words = true, int t = kT) {
+  return align16(2 * kRowsB * 4) + (words ? align16(hg * tokens(t) * swin::kKeepWords * 4) : 0);
 }
 
 // One block per (window, stream * batch, group of hg heads): q/k/v of the group's heads from
@@ -866,13 +910,15 @@ __host__ __device__ inline int drop_attention_bytes(int hg, bool words = true) {
 template <int DP, bool kBf16, bool kFused, int kDrop = swin::kNoDrop>
 __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attention_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using T = Act<kBf16>;
-  const Layout L = attention_layout(kBf16, kFused, a.cross != 0, a.C, a.inner, a.hg, a.d, DP);
+  using IO = Act<kBf16>;  // x and out
+  const int T = tokens(a.t);
+  const int2 wd = window_hw(a);
+  const Layout L = attention_layout(kBf16, kFused, a.cross != 0, a.C, a.inner, a.hg, a.d, DP, T);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int win = blockIdx.x, nb = blockIdx.y, grp = blockIdx.z;
   const int s = nb / a.B, b = nb % a.B;
   const int kvs = a.cross ? a.S - 1 - s : s;
-  const int nwin = (a.H / 7) * (a.W / 7);
+  const int nwin = (a.H / wd.x) * (a.W / wd.y);
   const size_t map = static_cast<size_t>(a.H) * a.W * a.C;
   const int n = a.hg * a.d, c0 = grp * n;
   const int ki = round_up(a.inner, kKc);
@@ -886,10 +932,10 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
   float* q_s = reinterpret_cast<float*>(smem + L.q);
   float* k_s = reinterpret_cast<float*>(smem + L.k);
   window_rows(a, win, rows, region);
-  fill_col_table<DP, kBf16>(col_ofs, n, a.d);
+  fill_col_table<DP, kBf16>(col_ofs, n, a.d, T);
   // the relative-position bias and the biases, one cp.async group that the q/k/v GEMM
   // waits for with its own
-  for (int i = tid; i < kT * kT; i += kThreads) cp_async4(bias_s + i, a.bias + s * kT * kT + i, true);
+  for (int i = tid; i < T * T; i += kThreads) cp_async4(bias_s + i, a.bias + s * T * T + i, true);
   for (int col = tid; col < 3 * n; col += kThreads) {
     const int part = (col >= n) + (col >= 2 * n);
     const float* bsrc = part == 0 ? a.bq : part == 1 ? a.bk : a.bv;
@@ -905,13 +951,13 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
   uint32_t* ph = reinterpret_cast<uint32_t*>(smem + L.total);
   int* slot = reinterpret_cast<int*>(ph + kRowsB);
   if constexpr (kDrop) {  // the tokens' unit hashes (the rows are in place); kDropWords the group's keep words
-    for (int t = tid; t < kT; t += kThreads) ph[t] = swin::token_hash(a.drop, nb, rows[t] / a.C, &slot[t]);
+    for (int t = tid; t < T; t += kThreads) ph[t] = swin::token_hash(a.drop, nb, rows[t] / a.C, &slot[t]);
     __syncthreads();
     if constexpr (kDrop == swin::kDropWords)
-      swin::attention_keep_words(a.drop, ph, slot, grp * a.hg, a.hg, a.heads, keep_s);
+      swin::attention_keep_words(a.drop, ph, slot, grp * a.hg, a.hg, a.heads, keep_s, T);
   }
 
-  const T* x = static_cast<const T*>(a.x);
+  const IO* x = static_cast<const IO*>(a.x);
   Gemm g{};
   g.abase[0] = x + static_cast<size_t>(s * a.B + b) * map;
   g.abase[1] = x + static_cast<size_t>(kvs * a.B + b) * map;
@@ -925,20 +971,21 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
   g.ldw = a.inner;
   g.nb = 3 * n;
   g.K = a.C;
+  g.t = T;
   if constexpr (kBf16) {
     float acc[kMaxNTilesB][4][4];
     gemm_bf16<kStages>(g, reinterpret_cast<bf16*>(smem + L.a), reinterpret_cast<float*>(smem + L.b), acc);
-    store_qkv_mma<DP, kBf16>(acc, g.nb, n, col_ofs, bqkv_s, a.scale, q_s, k_s, smem + L.v);
+    store_qkv_mma<DP, kBf16>(acc, g.nb, n, col_ofs, bqkv_s, a.scale, q_s, k_s, smem + L.v, T);
   } else {
     float acc[8][kTileN];
     const int tile = gemm_f32<kStages>(g, reinterpret_cast<float*>(smem + L.a),
                                        reinterpret_cast<float*>(smem + L.b), acc);
-    store_qkv_gemm<DP, kBf16>(acc, tile, n, col_ofs, bqkv_s, a.scale, q_s, k_s, smem + L.v);
+    store_qkv_gemm<DP, kBf16>(acc, tile, n, col_ofs, bqkv_s, a.scale, q_s, k_s, smem + L.v, T);
   }
   // the region mask folded into the bias: -inf between regions, whose exp is exactly 0 as
   // exp(-1e10) is (the scores are finite)
-  for (int i = tid; i < kT * kT; i += kThreads)
-    if (region[i / kT] != region[i % kT]) bias_s[i] = -__int_as_float(0x7f800000);
+  for (int i = tid; i < T * T; i += kThreads)
+    if (region[i / T] != region[i % T]) bias_s[i] = -__int_as_float(0x7f800000);
   const float* wp = a.wp + static_cast<size_t>(s) * a.inner * a.C;
   float* wp_s = reinterpret_cast<float*>(smem + L.wp);  // fused: [ki][C (+ 4 in bf16)]
   if (kFused) {  // the rings are free: wp streams in under the core
@@ -953,48 +1000,49 @@ __global__ void __launch_bounds__(kThreads, kBf16 && DP >= 24 ? 1 : 2) k3_attent
 
   const swin::AttnHash hash{a.drop, ph, slot, grp * a.hg, a.heads};  // kDropHashed's keys
   if constexpr (kFused) {
-    T* out = static_cast<T*>(a.out) + static_cast<size_t>(s * a.B + b) * map;
+    IO* out = static_cast<IO*>(a.out) + static_cast<size_t>(s * a.B + b) * map;
     if constexpr (kBf16) {
       bf16* av = reinterpret_cast<bf16*>(smem + L.av);
       attention_core<DP, kBf16, kDrop>(
           q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
           [&](int t, int col, float v) { av[t * (ki + 8) + col] = __float2bfloat16_rn(v); }, keep_s, a.drop.scale,
-          hash);
+          hash, T);
       cp_async_wait<0>();
       __syncthreads();
       float acc[kMaxNTilesB][4][4];
       bf16_resident(acc, av, ki + 8, wp_s, a.C, ki / kKc);
-      store_proj_bf16(acc, a.C, rows, bp_s, out);
+      store_proj_bf16(acc, a.C, rows, bp_s, out, T);
     } else {
       float* av = reinterpret_cast<float*>(smem + L.av);
       attention_core<DP, kBf16, kDrop>(
           q_s, k_s, smem + L.v, nullptr, bias_s, a.hg, a.d,
           [&](int t, int col, float v) { av[col * kPitchF + a_col(t >> 3) + (t & 7)] = v; }, keep_s, a.drop.scale,
-          hash);
+          hash, T);
       cp_async_wait<0>();
       __syncthreads();
       float acc[8][kTileN];
       const int tile = f32_resident(acc, av, wp_s, a.C, ki / kKc);
-      store_proj_f32(acc, tile, rows, bp_s, out);
+      store_proj_f32(acc, tile, rows, bp_s, out, T);
     }
   } else if constexpr (kDrop) {
     if (kDrop == swin::kDropWords && a.keep != nullptr) {
-      const int words = a.hg * kT * swin::kKeepWords;
+      const int words = a.hg * T * swin::kKeepWords;
       uint32_t* keep =
-          a.keep + ((static_cast<size_t>(nb) * nwin + win) * a.heads + grp * a.hg) * kT * swin::kKeepWords;
+          a.keep + ((static_cast<size_t>(nb) * nwin + win) * a.heads + grp * a.hg) * T * swin::kKeepWords;
       for (int i = tid; i < words; i += kThreads) keep[i] = keep_s[i];
     }
-    T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
+    IO* av = static_cast<IO*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * T * a.inner + c0;
     attention_core<DP, kBf16, kDrop>(
         q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
-        [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = from_float<T>(v); }, keep_s,
-        a.drop.scale, hash);
+        [&](int t, int col, float v) { av[static_cast<size_t>(t) * a.inner + col] = from_float<IO>(v); },
+        keep_s, a.drop.scale, hash, T);
   } else {
-    T* av = static_cast<T*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * kT * a.inner + c0;
+    IO* av = static_cast<IO*>(a.av) + (static_cast<size_t>(nb) * nwin + win) * T * a.inner + c0;
     attention_core<DP, kBf16>(q_s, k_s, smem + L.v, reinterpret_cast<bf16*>(smem + L.p), bias_s, a.hg, a.d,
                               [&](int t, int col, float v) {
-                                av[static_cast<size_t>(t) * a.inner + col] = from_float<T>(v);
-                              });
+                                av[static_cast<size_t>(t) * a.inner + col] = from_float<IO>(v);
+                              },
+                              nullptr, 1.0f, swin::AttnHash{}, T);
   }
 }
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,10 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("window_attention", "window_attention_fwd", "window_attention_bwd", "fused_block",
-                  "fused_block_fwd", "fused_block_fwd_drop", "fused_block_bwd", "fused_block_bwd_split",
-                  "repartition", "dropout_mask")
+KERNEL_SOURCES = ("window_attention", "window_attention_fwd", "window_attention_bwd", "window_attention_fwd_any",
+                  "window_attention_bwd_any", "window_attention_bwd_any_drop", "fused_block", "fused_block_fwd",
+                  "fused_block_fwd_drop", "fused_block_bwd", "fused_block_bwd_split", "repartition", "dropout_mask")
 
+_INCLUDED_SOURCE = re.compile(rb'^#include "(\w+\.cu)"', re.M)
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -44,7 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source)
+    for included in _INCLUDED_SOURCE.findall(source):  # an any-window build includes its 7x7 source
+        digest.update((CSRC / included.decode()).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -26,11 +26,14 @@ mask, softmax and AV in shared memory and, where every head fits a block that tw
 share an SM (the stages with C <= 64 of the default model), the output projection too:
 one launch; elsewhere a block takes a group of heads and writes AV, and a second launch
 projects. On the tensor cores in bf16 (``mma.sync``), on fp32 FMA in fp32. A dropout call
-runs the attention block's dropout form on the same route. ``_launch_three`` keeps the
-three launches of ``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one block per
-(window, stream, head) for scores, mask, softmax and AV, a batched GEMM for the output
-projection) callable, for timing in turns; no call of the model runs them. There is no
-fallback between the versions.
+runs the attention block's dropout form on the same route. That is the 7x7 build, whose T = 49
+is a compile-time constant; any other window of at most 64 tokens runs the same kernels'
+any-window build, ``csrc/window_attention_fwd_any.cu`` (and the backward's
+``window_attention_bwd_any.cu``): T, wh and ww at run time, 64 rows a block
+(:func:`window_class`). A larger window raises. ``_launch_three`` keeps the three launches of
+``csrc/window_attention.cu`` (a batched GEMM for q/k/v, one block per (window, stream, head)
+for scores, mask, softmax and AV, a batched GEMM for the output projection) callable, for
+timing in turns; no call of the model runs them. There is no fallback between the versions.
 
 On a card, a call that autograd records (grad mode on and an input that requires grad)
 goes through ``_WindowAttentionFunction``, whose backward (K3 bwd) recomputes q/k/v and AV
@@ -275,37 +278,85 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load("window_attention_bwd")
+def _bwd_library(build: str = "") -> ctypes.CDLL:
+    """``csrc/window_attention_bwd{build}.cu``: the 7x7 build (""), or the any-window one without
+    dropout ("_any") or with it ("_any_drop") (:meth:`WindowClass.bwd_build`)."""
+    lib = _build.load(f"window_attention_bwd{build}")
     drop = ctypes.POINTER(dl.DropArgs)
-    lib.swin_k3_bwd.argtypes = [_P, _P, _P, ctypes.c_size_t, drop] + [_I] * 13 + [ctypes.c_float, _P]
+    lib.swin_k3_bwd.argtypes = [_P, _P, _P, ctypes.c_size_t, drop] + [_I] * 13 + [ctypes.c_float, _I, _I, _P]
     lib.swin_k3_bwd.restype = _I
-    lib.swin_k3_bwd_smem.argtypes = [_I] * 8
+    lib.swin_k3_bwd_smem.argtypes = [_I] * 10
     lib.swin_k3_bwd_smem.restype = ctypes.c_size_t
-    lib.swin_k3_bwd_workspace.argtypes = [_I] * 11
+    lib.swin_k3_bwd_workspace.argtypes = [_I] * 13
     lib.swin_k3_bwd_workspace.restype = ctypes.c_size_t
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_library() -> ctypes.CDLL:
-    lib = _build.load("window_attention_fwd")
-    lib.swin_k3_fwd.argtypes = [_P] * 12 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 12 + [ctypes.c_float, _P]
+def _fwd_library(build: str = "") -> ctypes.CDLL:
+    """``csrc/window_attention_fwd{build}.cu``: the 7x7 build ("") or the any-window one ("_any")."""
+    lib = _build.load(f"window_attention_fwd{build}")
+    lib.swin_k3_fwd.argtypes = [_P] * 12 + [ctypes.POINTER(dl.DropArgs)] + [_I] * 12 + [ctypes.c_float, _I, _I, _P]
     lib.swin_k3_fwd.restype = _I
-    lib.swin_k3_fwd_smem.argtypes = [_I] * 10
+    lib.swin_k3_fwd_smem.argtypes = [_I] * 12
     lib.swin_k3_fwd_smem.restype = ctypes.c_size_t
     return lib
 
 
+# ---- the window classes (csrc/window_fwd.cuh): which build of the kernels a window runs ------
+FWD_WINDOW = (7, 7)  # the window of the 7x7 build, whose T = 49 is a compile-time constant
+MAX_WINDOW_TOKENS = 64  # the largest window (wh * ww tokens) the any-window build takes
+
+
+@dataclass(frozen=True)
+class WindowClass:
+    """The build of K3's kernels that a window runs, and the block geometry it fixes (as
+    ``csrc/window_fwd.cuh``, ``window_bwd.cuh``): ``build`` the sources' suffix ("" for
+    ``window_attention_fwd.cu`` / ``_bwd.cu``, "_any" for ``window_attention_fwd_any.cu`` /
+    ``_bwd_any.cu``); ``t`` the window's tokens; ``row_groups`` the fp32 GEMMs' groups of 8 rows;
+    ``pitch_f`` floats a channel of an fp32 A operand; ``tile_n`` the forward GEMM's register tile
+    columns; ``core_rows`` and ``pp`` the rows and row pitch of the tiled core's P and g_S."""
+
+    build: str
+    t: int
+    row_groups: int
+    pitch_f: int
+    tile_n: int
+    core_rows: int
+    pp: int
+
+    def bwd_build(self, drop: bool) -> str:
+        """The backward library's suffix: the 7x7 build holds both forms of the block kernel; the
+        any-window backward is built once a form, ``_bwd_any.cu`` and ``_bwd_any_drop.cu``, so
+        that the two halves of the longest build compile at once."""
+        return self.build + ("_drop" if drop and self.build else "")
+
+
+SEVEN = WindowClass("", 49, 7, 60, 4, 49, 52)
+
+
+@functools.lru_cache(maxsize=None)
+def window_class(window: Tuple[int, int]) -> WindowClass:
+    """The 7x7 build for (7, 7); the any-window build (64 rows a block: eight row groups of 8 x 8
+    register tiles, A rows pitched 68 floats, the tiled core's rows pitched 65) for any other
+    window of at most ``MAX_WINDOW_TOKENS`` tokens; ValueError naming "windows" above it."""
+    wh, ww = window
+    if (wh, ww) == FWD_WINDOW:
+        return SEVEN
+    if wh < 1 or ww < 1 or wh * ww > MAX_WINDOW_TOKENS:
+        raise ValueError(f"the window-attention kernels take windows of at most {MAX_WINDOW_TOKENS} tokens, "
+                         f"got {tuple(window)} ({wh * ww} tokens)")
+    return WindowClass("_any", wh * ww, 8, 68, 8, 64, 65)
+
+
 # ---- the forward (csrc/window_attention_fwd.cu): its launch plan ----------------------------
-# Block geometry of the kernels, as in the source: 256 threads; fp32 GEMM rows padded to 56
-# (8x4 register tiles, at most one per thread; A rows pitched 60 floats), bf16 rows to 64
-# (mma tiles of 16 rows and 8 columns, at most three column tiles per warp); channels in
-# chunks of 16; tables of at most 192 q/k/v columns.
-FWD_WINDOW = (7, 7)
+# Block geometry of the kernels, as in the source: 256 threads; fp32 GEMM rows in groups of 8
+# (the window class's: 7 groups of 8x4 register tiles for 7x7 windows, 8 of 8x8 tiles for the
+# others, at most one tile per thread), bf16 rows padded to 64 (mma tiles of 16 rows and 8
+# columns, at most three column tiles per warp); channels in chunks of 16; tables of at most
+# 192 q/k/v columns.
 FWD_PITCHES = (4, 8, 12, 16, 24, 32, 48)  # q/k row pitches (d rounded up), one kernel each
-_T = FWD_WINDOW[0] * FWD_WINDOW[1]
-_THREADS, _WARPS, _PITCH_F, _TILE_N, _ROWS_B, _KC = 256, 8, 60, 4, 64, 16
+_THREADS, _WARPS, _ROWS_B, _KC = 256, 8, 64, 16
 _STAGES, _PROJ_STAGES = 3, 6  # cp.async ring depths of the attention and projection kernels
 _STRIDE_B, _P_STRIDE, _MAX_COLS = 24, 72, 3 * 8 * 8
 PROJ_COLS = 48  # output columns per block of the projection launch
@@ -337,12 +388,12 @@ def _align16(v: int) -> int:
     return _round_up(v, 16)
 
 
-def _f32_tiles(nb: int) -> int:
-    return 7 * (nb // _TILE_N)
+def _f32_tiles(nb: int, cls: WindowClass = SEVEN) -> int:
+    return cls.row_groups * (nb // cls.tile_n)
 
 
-def _ring_a_bytes(bf16: bool, parts: int, stages: int) -> int:
-    return stages * parts * (_ROWS_B * _STRIDE_B * 2 if bf16 else _KC * _PITCH_F * 4)
+def _ring_a_bytes(bf16: bool, parts: int, stages: int, pitch_f: int = SEVEN.pitch_f) -> int:
+    return stages * parts * (_ROWS_B * _STRIDE_B * 2 if bf16 else _KC * pitch_f * 4)
 
 
 def _b_bytes(bf16: bool, nb: int, stages: int) -> int:
@@ -351,37 +402,41 @@ def _b_bytes(bf16: bool, nb: int, stages: int) -> int:
 
 
 def attention_smem(bf16: bool, fused: bool, cross: bool, c: int, inner: int, hg: int, d: int,
-                   pitch: int, drop: bool = False) -> int:
-    """Shared-memory bytes of one attention block (``attention_layout`` in the source): the
-    GEMM space (the x and weight rings; after the q/k/v GEMM, bf16's P and the fused
-    route's wp), q/k/v, AV when fused, the bias table, the row and column tables; ``drop``
-    (the dropout form, ``drop_attention_bytes``) adds the tokens' unit hashes and slots and,
-    for the bf16 core, the keep words of the block's heads."""
+                   pitch: int, drop: bool = False, window: Tuple[int, int] = FWD_WINDOW) -> int:
+    """Shared-memory bytes of one attention block (``attention_layout`` in the source) at
+    ``window``: the GEMM space (the x and weight rings; after the q/k/v GEMM, bf16's P and the
+    fused route's wp), q/k/v (T rows a head), AV when fused, the T x T bias table, the row and
+    column tables; ``drop`` (the dropout form, ``drop_attention_bytes``) adds the tokens' unit
+    hashes and slots and, for the bf16 core, the keep words of the block's heads."""
+    cls = window_class(window)
+    t = cls.t
     ki = _round_up(inner, _KC)
-    ring = _ring_a_bytes(bf16, 2 if cross else 1, _STAGES) + _b_bytes(bf16, 3 * hg * d, _STAGES)
+    ring = _ring_a_bytes(bf16, 2 if cross else 1, _STAGES, cls.pitch_f) + _b_bytes(bf16, 3 * hg * d, _STAGES)
     after = (_WARPS * 32 * _P_STRIDE * 2 if bf16 else 0) + (ki * (c + 4 if bf16 else c) * 4 if fused else 0)
-    total = _align16(max(ring, after)) + 2 * _align16(hg * _T * pitch * 4)
-    total += _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * _T * pitch * 4)
+    total = _align16(max(ring, after)) + 2 * _align16(hg * t * pitch * 4)
+    total += _align16(hg * _round_up(d, 8) * _P_STRIDE * 2 if bf16 else hg * t * pitch * 4)
     if fused:
-        total += _align16(_ROWS_B * (ki + 8) * 2 if bf16 else ki * _PITCH_F * 4)
-    total += _align16(_T * _T * 4) + _align16((2 * _ROWS_B + 3 * _MAX_COLS) * 4)
+        total += _align16(_ROWS_B * (ki + 8) * 2 if bf16 else ki * cls.pitch_f * 4)
+    total += _align16(t * t * 4) + _align16((2 * _ROWS_B + 3 * _MAX_COLS) * 4)
     if drop:
-        total += _align16(2 * _ROWS_B * 4) + (keep_words_bytes(hg) if bf16 else 0)
+        total += _align16(2 * _ROWS_B * 4) + (keep_words_bytes(hg, window) if bf16 else 0)
     return total
 
 
-def proj_smem(bf16: bool) -> int:
+def proj_smem(bf16: bool, window: Tuple[int, int] = FWD_WINDOW) -> int:
     """Shared-memory bytes of one projection block (``proj_layout`` in the source)."""
-    gemm = _ring_a_bytes(bf16, 1, _PROJ_STAGES) + _b_bytes(bf16, PROJ_COLS, _PROJ_STAGES)
+    gemm = (_ring_a_bytes(bf16, 1, _PROJ_STAGES, window_class(window).pitch_f)
+            + _b_bytes(bf16, PROJ_COLS, _PROJ_STAGES))
     return _align16(gemm) + _align16(2 * _ROWS_B * 4)
 
 
-def _takes(c: int, heads: int, d: int, hg: int, fused: bool) -> bool:
-    """The kernels' limits on a head grouping (``supported`` in the source)."""
+def _takes(c: int, heads: int, d: int, hg: int, fused: bool, cls: WindowClass = SEVEN) -> bool:
+    """The kernels' limits on a head grouping (``supported`` in the source): every q/k/v column
+    and, fused, every output column a tile of the block's threads."""
     n = hg * d
-    if n % 8 or 3 * n > _MAX_COLS or _f32_tiles(3 * n) > _THREADS:
+    if n % 8 or 3 * n > _MAX_COLS or _f32_tiles(3 * n, cls) > _THREADS:
         return False
-    return not fused or (c <= _MAX_COLS and _f32_tiles(c) <= _THREADS)
+    return not fused or (c <= _MAX_COLS and _f32_tiles(c, cls) <= _THREADS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,16 +444,17 @@ def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
              bf16: bool, drop: bool = False) -> FwdPlan:
     """The launch plan of the forward (``drop``: its dropout form, whose blocks add the
     masks' pieces to their shared memory), or ValueError where its kernels do
-    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8. Every head in
+    not take the shape: windows of at most 64 tokens (7x7 runs the 7x7 build, any other the
+    any-window build, ``window_class``), d <= 48, C and heads*d multiples of 8. Every head in
     one block (one launch) where q, k, v of every head fit its column tiles (3 heads*d <=
     192) and two such blocks fit an SM (alone on an SM a block waits on each of its phases);
     else the largest group of heads with at most 48 columns per q/k/v part (a multiple of
     8) and the projection as a second launch. With dropout every stage of the default model
-    keeps its route: the masks add 512 bytes (fp32) or 3,648 (bf16) to a stage-1 block, which
-    stays within two an SM."""
+    at 7x7 keeps its route: the masks add 512 bytes (fp32) or 3,648 (bf16) to a stage-1 block,
+    which stays within two an SM. At 8x8 the 64-row blocks move stage 1 (C = 48) to the split
+    route, but for its bf16 form without dropout (115,200 bytes, within two an SM)."""
     inner = heads * d
-    if tuple(window) != FWD_WINDOW:
-        raise ValueError(f"the window-attention forward takes {FWD_WINDOW} windows, got {tuple(window)}")
+    cls = window_class(tuple(window))
     pitch = next((p for p in FWD_PITCHES if d <= p), None)
     if pitch is None:
         raise ValueError(f"the window-attention forward takes at most {FWD_PITCHES[-1]} dims per "
@@ -406,30 +462,36 @@ def fwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
     if c % 8 or inner % 8:
         raise ValueError(f"the window-attention forward takes C and heads*d multiples of 8, "
                          f"got C={c}, heads*d={inner}")
-    if _takes(c, heads, d, heads, True):
-        smem = attention_smem(bf16, True, cross, c, inner, heads, d, pitch, drop)
+    if _takes(c, heads, d, heads, True, cls):
+        smem = attention_smem(bf16, True, cross, c, inner, heads, d, pitch, drop, window)
         if smem <= FUSED_SMEM_MAX:
             return FwdPlan("fused", 1, heads, pitch, smem, 0)
     for hg in range(heads, 0, -1):
-        if heads % hg == 0 and hg * d <= GROUP_COLS and _takes(c, heads, d, hg, False):
-            return FwdPlan("split", 2, hg, pitch,
-                           attention_smem(bf16, False, cross, c, inner, hg, d, pitch, drop), proj_smem(bf16))
+        if heads % hg == 0 and hg * d <= GROUP_COLS and _takes(c, heads, d, hg, False, cls):
+            return FwdPlan("split", 2, hg, pitch, attention_smem(bf16, False, cross, c, inner, hg, d, pitch, drop,
+                                                                 window), proj_smem(bf16, window))
     raise ValueError(f"the window-attention forward has no head grouping for {heads} heads "
                      f"of {d} dims")
 
 
 # ---- the backward without dropout (csrc/window_attention_bwd.cu): its launch plan ----------
 # Block geometry as the forward's; every product streams its weights (and on the recompute its
-# A rows) through two-slot rings; a product takes at most 144 columns (7 x 36 tiles of 8 x 4).
+# A rows) through two-slot rings; a product takes at most 144 columns (7 x 36 tiles of 8 x 4 at
+# 7x7 windows, 8 x 18 of 8 x 8 in the any-window build).
 BWD_KERNELS = ("attention", "gx")  # the block kernel; the split route's g_x kernel
 BWD_RING = 2
 BWD_COLS = 144
 BWD_FUSED_PITCHES = (4, 8)  # the fused route's q/k row pitches
 # the largest q/k row pitch whose block runs csrc/window_bwd.cuh's core_bwd passes; above it (d =
-# 48) the block runs core_bwd_tiled, with a head's P and g_S rows ([49][52] floats each) in
-# shared memory
+# 48) the block runs core_bwd_tiled, with a head's P and g_S rows ([49][52] floats each; the
+# any-window build's [64][65]) in shared memory
 PASSES_PITCH_MAX = 24
-_TILED_CORE_BYTES = 2 * 49 * 52 * 4
+
+
+def tiled_core_bytes(window: Tuple[int, int] = FWD_WINDOW) -> int:
+    """Shared memory of core_bwd_tiled's P and g_S of one head (``tiled_core_bytes``)."""
+    cls = window_class(window)
+    return _align16(2 * cls.core_rows * cls.pp * 4)
 _WG_SLAB, _WG_TARGET_BLOCKS, _WG_RECT = 64, 132 * 8, 16  # csrc/window_bwd.cuh's kWgSlab, kWgTargetBlocks, kWgRect
 
 
@@ -440,32 +502,35 @@ def _bwd_blocks_per_sm(pitch: int, smem: int) -> int:
 
 
 def bwd_smem(fused: bool, cross: bool, c: int, inner: int, hg: int, d: int, pitch: int,
-             drop: bool = False) -> int:
+             drop: bool = False, window: Tuple[int, int] = FWD_WINDOW) -> int:
     """Shared-memory bytes of one block of the backward's block kernel (``bwd_layout`` in the
-    source): the A ring (x, and under cross the kv rows, 2 slots x 16 channels x 60 floats a
-    part) and the weight ring (2 x 16 x the 3 hg*d q/k/v columns), over which the fused route
-    keeps g_q | g_k | g_v resident ([3 heads*d rounded to 16][60]); q, k, v and g_o of hg heads
-    [hg][49][pitch] (on the fused route at least the g_x product's ring, 2 x 16 x C, and a row
-    buffer [49][C]); the rows pass's (1/sum, dot) per (head, row); the masked bias table; the
-    row, region and token tables, the column offsets and biases; ``drop`` (the dropout form)
-    adds the keep words of the block's heads ([hg][49][2] 32-bit words); above
-    ``PASSES_PITCH_MAX`` the tiled core's P and g_S rows of one head come last."""
+    source) at ``window`` (T tokens, the class's A pitch): the A ring (x, and under cross the kv
+    rows, 2 slots x 16 channels x 60 floats a part; 68 in the any-window build) and the weight
+    ring (2 x 16 x the 3 hg*d q/k/v columns), over which the fused route keeps g_q | g_k | g_v
+    resident ([3 heads*d rounded to 16][the A pitch]); q, k, v and g_o of hg heads [hg][T][pitch]
+    (on the fused route at least the g_x product's ring, 2 x 16 x C, and a row buffer [T][C]); the
+    rows pass's (1/sum, dot) per (head, row); the masked bias table; the row, region and token
+    tables, the column offsets and biases; ``drop`` (the dropout form) adds the keep words of the
+    block's heads ([hg][T][2] 32-bit words); above ``PASSES_PITCH_MAX`` the tiled core's P and g_S
+    rows of one head come last."""
+    cls = window_class(window)
+    t = cls.t
     n = hg * d
-    qkv = _align16(hg * _T * pitch * 4)
-    ring = _ring_a_bytes(False, 2 if cross else 1, BWD_RING) + _b_bytes(False, 3 * n, BWD_RING)
-    total = _align16(max(ring, _round_up(3 * inner, _KC) * _PITCH_F * 4 if fused else 0))
-    gx = _align16(_b_bytes(False, c, BWD_RING)) + _align16(_T * c * 4) if fused else 0
+    qkv = _align16(hg * t * pitch * 4)
+    ring = _ring_a_bytes(False, 2 if cross else 1, BWD_RING, cls.pitch_f) + _b_bytes(False, 3 * n, BWD_RING)
+    total = _align16(max(ring, _round_up(3 * inner, _KC) * cls.pitch_f * 4 if fused else 0))
+    gx = _align16(_b_bytes(False, c, BWD_RING)) + _align16(t * c * 4) if fused else 0
     total += max(4 * qkv, gx)
-    total += _align16(hg * _T * 8) + _align16(_T * _T * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
-    total += keep_words_bytes(hg) if drop else 0
-    return total + (_TILED_CORE_BYTES if pitch > PASSES_PITCH_MAX else 0)
+    total += _align16(hg * t * 8) + _align16(t * t * 4) + _align16((3 * _ROWS_B + 2 * _MAX_COLS) * 4)
+    total += keep_words_bytes(hg, window) if drop else 0
+    return total + (tiled_core_bytes(window) if pitch > PASSES_PITCH_MAX else 0)
 
 
-def keep_words_bytes(heads: int) -> int:
+def keep_words_bytes(heads: int, window: Tuple[int, int] = FWD_WINDOW) -> int:
     """Shared memory of a window's attention keep words for ``heads`` heads (``csrc/
     hash_dropout.cuh::attention_keep_words``: two 32-bit words per (head, query row), keys 0-31
-    and 32-48)."""
-    return _align16(heads * _T * 2 * 4)
+    and 32-63)."""
+    return _align16(heads * window_class(window).t * 2 * 4)
 
 
 def gx_width(c: int) -> int:
@@ -475,12 +540,14 @@ def gx_width(c: int) -> int:
     return _round_up(-(-c // groups), 4)
 
 
-def gx_smem(c: int) -> int:
+def gx_smem(c: int, window: Tuple[int, int] = FWD_WINDOW) -> int:
     """Shared-memory bytes of one block of the g_x kernel (``gx_layout``): its A ring (2 x 16
-    x 60 floats), weight ring (2 x 16 x width), a row buffer [49][width] and the row table."""
+    x the class's A pitch), weight ring (2 x 16 x width), a row buffer [T][width] and the row
+    table."""
+    cls = window_class(window)
     width = gx_width(c)
-    return (_align16(_ring_a_bytes(False, 1, BWD_RING) + _b_bytes(False, width, BWD_RING))
-            + _align16(_T * width * 4) + _align16(_ROWS_B * 4))
+    return (_align16(_ring_a_bytes(False, 1, BWD_RING, cls.pitch_f) + _b_bytes(False, width, BWD_RING))
+            + _align16(cls.t * width * 4) + _align16(_ROWS_B * 4))
 
 
 def _wg_rect(ka: int, nb: int) -> bool:
@@ -511,13 +578,14 @@ class BwdPlan:
     weight gradients, one reduction) or "split" (a block per group of windows, stream and group
     of ``heads_per_block`` heads, then the g_x kernel); ``smem``: (kernel, dynamic
     shared-memory bytes of one block) of the route's kernels (``BWD_KERNELS``);
-    ``blocks_per_sm`` of the block kernel."""
+    ``blocks_per_sm`` of the block kernel; ``window`` the call's."""
 
     route: str
     heads_per_block: int
     pitch: int
     smem: Tuple[Tuple[str, int], ...]
     blocks_per_sm: int
+    window: Tuple[int, int] = FWD_WINDOW
 
     def launches(self, cross: bool) -> int:
         """Kernel launches of one call."""
@@ -526,7 +594,7 @@ class BwdPlan:
     def blocks(self, s: int, b: int, h: int, w: int, heads: int, sms: int = DEFAULT_SMS) -> int:
         """Blocks per (stream, group of heads) of the block kernel: one wave of the card, at
         most one per window."""
-        windows = b * (h // FWD_WINDOW[0]) * (w // FWD_WINDOW[1])
+        windows = b * (h // self.window[0]) * (w // self.window[1])
         groups = heads // self.heads_per_block
         return max(1, min(windows, sms * self.blocks_per_sm // (s * groups)))
 
@@ -536,15 +604,16 @@ def bwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
              bf16: bool, drop: bool = False) -> BwdPlan:
     """The launch plan of the backward (``drop``: its dropout form, whose block adds its heads'
     keep words to its shared memory), or ValueError where its kernels do
-    not take the shape: 7x7 windows, d <= 48, C and heads*d multiples of 8, and the weight
-    gradients' row slabs within a block's shared memory. Every head in one block ("fused")
-    where d <= 8, 3 heads*d <= 144 and C <= 144 (one product's columns); else the largest group
-    of heads with at most 48 columns per q/k/v part (a multiple of 8, as the forward's split
-    route). ``bf16`` does not change the plan: the backward is fp32 inside."""
+    not take the shape: windows of at most 64 tokens (``window_class``), d <= 48, C and heads*d
+    multiples of 8, and the weight gradients' row slabs within a block's shared memory. Every
+    head in one block ("fused") where d <= 8, 3 heads*d <= 144 and C <= 144 (one product's
+    columns); else the largest group of heads with at most 48 columns per q/k/v part (a
+    multiple of 8, as the forward's split route). ``bf16`` does not change the plan: the
+    backward is fp32 inside."""
     del bf16  # one plan for both dtypes
     inner = heads * d
-    if tuple(window) != FWD_WINDOW:
-        raise ValueError(f"the window-attention backward takes {FWD_WINDOW} windows, got {tuple(window)}")
+    window = tuple(window)
+    window_class(window)
     pitch = next((p for p in FWD_PITCHES if d <= p), None)
     if pitch is None:
         raise ValueError(f"the window-attention backward takes at most {FWD_PITCHES[-1]} dims per "
@@ -552,22 +621,22 @@ def bwd_plan(c: int, heads: int, d: int, window: Tuple[int, int], cross: bool,
     if c % 8 or inner % 8:
         raise ValueError(f"the window-attention backward takes C and heads*d multiples of 8, "
                          f"got C={c}, heads*d={inner}")
-    if max(_wg_smem(c, inner), _wg_smem(inner, c), gx_smem(c)) > SMEM_LIMIT_BYTES:
+    if max(_wg_smem(c, inner), _wg_smem(inner, c), gx_smem(c, window)) > SMEM_LIMIT_BYTES:
         raise ValueError(f"the window-attention backward's weight gradients at C={c}, heads*d={inner} "
                          f"need more than the {SMEM_LIMIT_BYTES} bytes of shared memory a block has")
     if pitch in BWD_FUSED_PITCHES and 3 * inner <= BWD_COLS and c <= BWD_COLS:
-        smem = bwd_smem(True, cross, c, inner, heads, d, pitch, drop)
+        smem = bwd_smem(True, cross, c, inner, heads, d, pitch, drop, window)
         if smem <= SMEM_LIMIT_BYTES:
-            return BwdPlan("fused", heads, pitch, (("attention", smem),), _bwd_blocks_per_sm(pitch, smem))
+            return BwdPlan("fused", heads, pitch, (("attention", smem),), _bwd_blocks_per_sm(pitch, smem), window)
     for hg in range(heads, 0, -1):
         n = hg * d
         if heads % hg or n > GROUP_COLS or n % 8:
             continue
-        smem = bwd_smem(False, cross, c, inner, hg, d, pitch, drop)
+        smem = bwd_smem(False, cross, c, inner, hg, d, pitch, drop, window)
         if smem > SMEM_LIMIT_BYTES:
             break
-        return BwdPlan("split", hg, pitch, (("attention", smem), ("gx", gx_smem(c))),
-                       _bwd_blocks_per_sm(pitch, smem))
+        return BwdPlan("split", hg, pitch, (("attention", smem), ("gx", gx_smem(c, window))),
+                       _bwd_blocks_per_sm(pitch, smem), window)
     raise ValueError(f"the window-attention backward has no head grouping for {heads} heads of {d} dims")
 
 
@@ -586,13 +655,14 @@ def bwd_workspace_floats(s: int, b: int, h: int, w: int, c: int, heads: int, d: 
     floats): wp^T and [wq | wk | wv]^T; AV, g_q, g_k and g_v of every token; on the fused route
     under cross g_x's q side and k/v side; the bias-table partials per block; the weight
     gradients' chunks (wq, wk, wv, wp with their biases; chunks for about eight blocks an SM
-    counting every job's tile groups). The dropout form needs no more: its keep words live in
-    each block's shared memory."""
+    counting every job's tile groups); the bias-table partials are T x T at the plan's window. The
+    dropout form needs no more: its keep words live in each block's shared memory."""
     inner, m = heads * d, b * h * w
     sm = s * m
     pieces = [s * c * inner, s * 3 * inner * c] + [sm * inner] * 4
     pieces += [sm * c] * 2 if plan.route == "fused" and cross else []
-    pieces.append(s * (heads // plan.heads_per_block) * blocks * _T * _T)
+    t = window_class(plan.window).t
+    pieces.append(s * (heads // plan.heads_per_block) * blocks * t * t)
     jobs = 4 * s * max(_wg_groups(c, inner), _wg_groups(inner, c))
     pieces.append(s * _wgrad_chunks(m, jobs) * (3 * (c + 1) * inner + (inner + 1) * c))
     return sum(_round_up(p, 32) for p in pieces)
@@ -632,7 +702,7 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
     bf16 = x.dtype == torch.bfloat16
     plan = fwd_plan(c, heads, d, (wh, ww), bool(kw["cross"]), bf16, bool(kw.get("attn_drop_rate")))
     drop = _drop_args(x, kw)
-    lib = _fwd_library()
+    lib = _fwd_library(window_class((wh, ww)).build)
     out = torch.empty_like(x)
     av = None if plan.route == "fused" else x.new_empty(s * b * h * w * heads * d)
     rc = _build.launch_on(
@@ -640,7 +710,7 @@ def _launch_fwd(x, weights, kw) -> torch.Tensor:
         x.data_ptr(), *(a.data_ptr() for a in weights), out.data_ptr(),
         None if av is None else av.data_ptr(), dl.drop_pointer(drop), s, b, h, w, c, heads, d,
         plan.heads_per_block, int(plan.route == "fused"), int(kw["shift"]), int(kw["cross"]),
-        int(bf16), float(d**-0.5),
+        int(bf16), float(d**-0.5), wh, ww,
     )
     _build.check_launch(lib, rc, "window attention")
     if drop is not None and bf16:
@@ -693,7 +763,7 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
     plan = bwd_plan(c, heads, d, (wh, ww), cross, bf16, drop is not None)
     blocks = plan.blocks(s, b, h, w, heads, _sm_count(x.device))
     g = g.contiguous()
-    lib = _bwd_library()
+    lib = _bwd_library(window_class((wh, ww)).bwd_build(drop is not None))
     grads = [torch.empty_like(a) for a in (x, *weights)]
     floats = bwd_workspace_floats(s, b, h, w, c, heads, d, plan, blocks, cross)
     workspace = x.new_empty(floats, dtype=torch.float32)
@@ -703,7 +773,7 @@ def _launch_bwd(g, x, weights, kw) -> Tuple[torch.Tensor, ...]:
         x.device, lib.swin_k3_bwd,
         ins, outs, workspace.data_ptr(), floats, dl.drop_pointer(drop), s, b, h, w, c, heads, d,
         plan.heads_per_block, int(plan.route == "fused"), blocks, int(kw["shift"]), int(cross), int(bf16),
-        float(d**-0.5),
+        float(d**-0.5), wh, ww,
     )
     _build.check_launch(lib, rc, "window attention backward")
     if drop is not None and bf16:

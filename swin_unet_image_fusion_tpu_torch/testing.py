@@ -5,7 +5,7 @@ for the trainer where no image folder or decoder is at hand."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +16,7 @@ from .data.dataset import FusionPairDataset
 GRAD_RTOL = 1e-3
 GRAD_ATOL = 1e-4  # times each tensor's scale
 SCALE_FLOOR = 1e-8  # of the call's largest magnitude
+ROUNDING_NOISE = 8.0  # times an fp32 evaluation's own distance from its float64 evaluation
 
 
 def exact_zero(name: str) -> bool:
@@ -35,10 +36,12 @@ class GradCheck(NamedTuple):
     floored: int  # tensors held to the floor instead of their own scale
     zeros: Tuple[str, ...]  # the exactly-zero gradients, held to the call's scale
     zero_noise: float  # their largest magnitude, either side, over the call's largest
+    widened: Tuple[str, ...] = ()  # with ``rounding``: the tensors whose atol their rounding set
 
 
 def assert_grads_close(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
-                       names: Sequence[str], what: str = "") -> GradCheck:
+                       names: Sequence[str], what: str = "",
+                       rounding: Optional[Sequence[float]] = None) -> GradCheck:
     """Every gradient in ``got`` finite and within rtol 1e-3 and atol 1e-4 x its scale of
     ``ref``'s (fp32 sums over up to B*H*W tokens per stream, in another order than
     autograd's). Raises on the first gradient that fails.
@@ -49,13 +52,26 @@ def assert_grads_close(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
     2e-12 to 4e-11 of the step's largest), and the floor still fails a zeroed gradient down
     to 1e-12 of the largest. An exactly-zero gradient (:func:`exact_zero`) is held to the
     call's largest magnitude.
+
+    ``rounding``: where ``ref`` is an fp32 evaluation of the function by another implementation
+    (not a plain version of the code under test), each tensor's fp32 rounding: the largest
+    distance of an fp32 evaluation from the float64 evaluation of the same code
+    (:func:`rounding_of`). It measures how far fp32 moves that gradient, and a fault of the code
+    under test does not widen it, since ``got`` takes no part in it. Each tensor's atol is then
+    the larger of the above and ROUNDING_NOISE times it: a gradient summed with cancellation over
+    thousands of windows (a relative-position table, the q and k gradients of a block whose
+    scores barely move) lies further from its exact value in fp32 than 1e-4 of its scale, two
+    fp32 evaluations in other orders lie up to about twice that apart, and a wrong gradient lies
+    orders of magnitude further.
     """
     own = [float(b.abs().max()) if b.numel() else 0.0 for b in ref]
     call = max(own)
-    worst, worst_own, smallest, floored, zeros, zero_noise = 0.0, 0.0, 1.0, 0, [], 0.0
-    for name, a, b, scale in zip(names, got, ref, own):
+    worst, worst_own, smallest, floored, zeros, zero_noise, widened = 0.0, 0.0, 1.0, 0, [], 0.0, []
+    rounding = [0.0] * len(own) if rounding is None else rounding
+    for name, a, b, scale, fp32 in zip(names, got, ref, own, rounding):
         if not torch.isfinite(a).all():
             raise AssertionError(f"{what}: the gradient of {name} is not finite")
+        noise = ROUNDING_NOISE * fp32
         err = float((a - b).abs().max()) if b.numel() else 0.0
         if exact_zero(name):
             zeros.append(name)
@@ -68,10 +84,20 @@ def assert_grads_close(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
             if scale < SCALE_FLOOR * call:
                 floored += 1
                 scale = SCALE_FLOOR * call
-        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL * scale,
-                                   msg=lambda m: f"{what}, {name}: {m}")
+        atol = GRAD_ATOL * scale
+        if noise > atol:
+            atol = noise
+            widened.append(name)
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=atol, msg=lambda m: f"{what}, {name}: {m}")
         worst = max(worst, err)
-    return GradCheck(worst, worst_own, smallest, floored, tuple(zeros), zero_noise)
+    return GradCheck(worst, worst_own, smallest, floored, tuple(zeros), zero_noise, tuple(widened))
+
+
+def rounding_of(fp32: Sequence[torch.Tensor], fp64: Sequence[torch.Tensor]) -> list:
+    """Each tensor's largest distance between an fp32 evaluation and the float64 evaluation of
+    the same code: the ``rounding`` of :func:`assert_grads_close`."""
+    return [float((a.double() - b.to(a.device, torch.float64)).abs().max()) if a.numel() else 0.0
+            for a, b in zip(fp32, fp64)]
 
 
 # A bf16 forward of the whole model is held to a reference by image metrics on the

@@ -216,8 +216,8 @@ def fake_library(monkeypatch):
     lib = _FakeLibrary()
     for module in (twa, tfb, twp, dm):
         monkeypatch.setattr(module, "_library", lambda: lib)
-    monkeypatch.setattr(twa, "_fwd_library", lambda: lib)
-    monkeypatch.setattr(twa, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(twa, "_fwd_library", lambda build="": lib)
+    monkeypatch.setattr(twa, "_bwd_library", lambda build="": lib)
     monkeypatch.setattr(tfb, "_fwd_library", lambda drop=False: lib)
     monkeypatch.setattr(tfb, "_bwd_library", lambda: lib)
     monkeypatch.setattr(tfb, "_split_library", lambda: lib)
@@ -236,7 +236,8 @@ def test_each_dtype_launches_its_own_kernel_form(fake_library, dtype):
     before = (twa.LAUNCHES, twa.BF16_LAUNCHES)
     out = twa._launch_fwd(x, (w, b, w, b, w, b, w, b, torch.zeros(2, 49, 49)),
                           dict(window=(7, 7), num_heads=2, dims_per_head=4, shift=False, cross=False))
-    assert out.dtype == dtype and fake_library.calls["swin_k3_fwd"][-3] == bf16
+    # ..., the bf16 flag, the scale, the window's rows and columns, the stream
+    assert out.dtype == dtype and fake_library.calls["swin_k3_fwd"][-5] == bf16
     assert (twa.LAUNCHES, twa.BF16_LAUNCHES) == (before[0] + 1 - bf16, before[1] + bf16)
 
     _, weights = _meta_block_args()
@@ -288,7 +289,7 @@ def test_bf16_backward_raises_before_any_launch(fake_library):
         assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
         # the backward of csrc/window_attention_bwd.cu, with dropout its dropout form
         args = fake_library.calls["swin_k3_bwd"]
-        assert args[-3] == 1 and args[-4] == 1, "the bf16 form, cross"
+        assert args[-5] == 1 and args[-6] == 1, "the bf16 form, cross (then the scale, the window, the stream)"
         assert (args[4] is None) == (rate == 0.0), "the dropout arguments"
         assert counters(twa) == tuple(c + (i == (3 if rate else 1)) for i, c in enumerate(before))
         for layout in ("image", "windows"):
@@ -395,6 +396,21 @@ def test_kernel_build_hash_covers_the_shared_headers(monkeypatch, tmp_path):
     (tmp_path / "shared.cuh").write_text("// two\n")
     assert _build._target("k") != before
 
+
+
+def test_kernel_build_hash_covers_an_included_source_and_no_other(monkeypatch, tmp_path):
+    """A source that includes another source (an any-window build and its 7x7 source) is rebuilt
+    when only the included source changes; an edit to a source it does not include leaves its
+    build in place."""
+    (tmp_path / "k_any.cu").write_text('#define SWIN_ANY_WINDOW 1\n#include "k.cu"\n')
+    (tmp_path / "k.cu").write_text("// one\n")
+    (tmp_path / "other.cu").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k_any")
+    (tmp_path / "other.cu").write_text("// two\n")
+    assert _build._target("k_any") == before
+    (tmp_path / "k.cu").write_text("// two\n")
+    assert _build._target("k_any") != before
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No toolkit: the build raises instead of leaving a caller on another path."""

@@ -105,7 +105,7 @@ def test_the_plan_is_one_for_both_dtypes():
 
 
 @pytest.mark.parametrize("what,c,heads,d,window", [
-    ("windows", 24, 8, 3, (8, 8)),
+    ("windows", 24, 8, 3, (12, 12)),
     ("dims per head", 512, 8, 64, (7, 7)),
     ("multiples of 8", 20, 4, 5, (7, 7)),
     ("head grouping", 72, 2, 36, (7, 7)),
@@ -162,13 +162,15 @@ def test_backward_without_dropout_launches_swin_k3_bwd(fake_library, k, c, route
 
 
 def test_library_binds_the_entry_points_with_their_argument_counts(fake_library):
-    """``swin_k3_bwd`` takes 20 arguments (in, out, workspace and its floats, the dropout
-    arguments, 13 ints, the scale, the stream), ``swin_k3_bwd_smem`` 8 and
-    ``swin_k3_bwd_workspace`` 11: the counts that ``tests/test_torch_kernel_gpu.py`` calls the
-    library with on the card."""
-    lib = twa._bwd_library()
-    assert [len(lib.swin_k3_bwd.argtypes), len(lib.swin_k3_bwd_smem.argtypes),
-            len(lib.swin_k3_bwd_workspace.argtypes)] == [20, 8, 11]
+    """``swin_k3_bwd`` takes 22 arguments (in, out, workspace and its floats, the dropout
+    arguments, 13 ints, the scale, the window's rows and columns, the stream),
+    ``swin_k3_bwd_smem`` 10 and ``swin_k3_bwd_workspace`` 13 (each ending with the window): the
+    counts that ``tests/test_torch_kernel_gpu.py`` calls the library with on the card, in the
+    7x7 build and the any-window builds alike."""
+    for build in ("", "_any", "_any_drop"):
+        lib = twa._bwd_library(build)
+        assert [len(lib.swin_k3_bwd.argtypes), len(lib.swin_k3_bwd_smem.argtypes),
+                len(lib.swin_k3_bwd_workspace.argtypes)] == [22, 10, 13]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

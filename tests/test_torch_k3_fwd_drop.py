@@ -53,11 +53,12 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-def source_smem(bf16, fused, cross, c, inner, heads, d, hg, proj, drop):
+def source_smem(bf16, fused, cross, c, inner, heads, d, hg, proj, drop, wh, ww):
     """``swin_k3_fwd_smem`` of ``csrc/window_attention_fwd.cu`` transcribed line by line for the
-    shapes these tests take (the pitches of ``kPitches``; ``supported`` holds): ``proj_layout``
-    or ``attention_layout`` (window_fwd.cuh) + ``drop_attention_bytes(hg, bf16)``."""
+    shapes these tests take (the pitches of ``kPitches``; ``supported`` holds; 7x7 windows):
+    ``proj_layout`` or ``attention_layout`` (window_fwd.cuh) + ``drop_attention_bytes(hg, bf16)``."""
     del heads  # only supported() reads it
+    assert (wh, ww) == WINDOW
     if proj:
         ring = 6 * (64 * 24 * 2 if bf16 else 16 * 60 * 4) + 6 * 16 * ((48 + 4) if bf16 else 48) * 4
         return _align16(ring) + _align16(2 * 64 * 4)
@@ -91,7 +92,7 @@ def test_the_dropout_plan_keeps_each_stage_route_and_counts_its_masks(fake_libra
     """``fwd_plan(..., drop=True)`` at every stage of the default model (the plan depends on C,
     heads and d alone, so a 224² and a 512² step share it; stage 4 is the C = 384 shape): the
     route, launches, head group and pitch of the form without dropout; its attention block's
-    shared memory that of the source's layout (the bound ``swin_k3_fwd_smem``, ten arguments),
+    shared memory that of the source's layout (the bound ``swin_k3_fwd_smem``, twelve arguments),
     the form without dropout's plus 512 bytes of unit hashes and slots and, in bf16, the keep
     words of its heads; the one-launch block still two an SM."""
     fake_library.swin_k3_fwd_smem = _SourceSmem(fake_library.calls, "swin_k3_fwd_smem")
@@ -102,11 +103,12 @@ def test_the_dropout_plan_keeps_each_stage_route_and_counts_its_masks(fake_libra
     assert (drop.launches, drop.pitch, drop.proj_smem) == (plain.launches, plain.pitch, plain.proj_smem)
     assert drop.smem - plain.smem == 512 + (twa.keep_words_bytes(hg) if bf16 else 0)
     args = (int(bf16), int(route == "fused"), int(cross), c, heads * d, heads, d, hg)
-    assert lib.swin_k3_fwd_smem(*args, 0, 1) == drop.smem and lib.swin_k3_fwd_smem(*args, 0, 0) == plain.smem
+    assert lib.swin_k3_fwd_smem(*args, 0, 1, *WINDOW) == drop.smem and lib.swin_k3_fwd_smem(*args, 0, 0, *WINDOW) == \
+        plain.smem
     if route == "fused":
         assert drop.smem <= twa.SMEM_TWO_PER_SM and drop.proj_smem == 0
     else:
-        assert lib.swin_k3_fwd_smem(*args, 1, 1) == drop.proj_smem and drop.smem <= twa.SMEM_LIMIT_BYTES
+        assert lib.swin_k3_fwd_smem(*args, 1, 1, *WINDOW) == drop.proj_smem and drop.smem <= twa.SMEM_LIMIT_BYTES
 
 
 def test_the_tightest_one_launch_block_still_fits_two_an_sm():
@@ -161,7 +163,7 @@ def test_a_dropout_call_reaches_swin_k3_fwd_with_its_dropout_arguments(fake_libr
 
 
 @pytest.mark.parametrize("what,c,heads,d,window", [
-    ("windows", 24, 8, 3, (8, 8)),
+    ("windows", 24, 8, 3, (12, 12)),
     ("dims per head", 512, 8, 64, (7, 7)),
     ("multiples of 8", 20, 4, 5, (7, 7)),
 ])
@@ -169,7 +171,7 @@ def test_a_dropout_call_on_a_shape_the_plan_does_not_take_raises_before_any_laun
                                                                                   d, window):
     """Nothing falls back to the three launches: a dropout call that the plan does not take
     raises before any launcher is called."""
-    x, weights = _attention_args(c, heads, d, hw=(16, 16) if window == (8, 8) else (14, 14))
+    x, weights = _attention_args(c, heads, d, hw=(24, 24) if window == (12, 12) else (14, 14))
     kw = dict(window=window, num_heads=heads, dims_per_head=d, shift=False, cross=False, attn_drop_rate=0.1,
               drop_seed=3)
     with pytest.raises(ValueError, match=what):

@@ -105,7 +105,7 @@ def test_shared_memory_counts_every_buffer():
 
 
 @pytest.mark.parametrize("what,c,heads,d,window", [
-    ("window", 24, 8, 3, (8, 8)),
+    ("window", 24, 8, 3, (12, 12)),
     ("dims per head", 512, 8, 64, (7, 7)),
     ("multiples of 8", 20, 4, 5, (7, 7)),
 ])
@@ -159,8 +159,8 @@ def test_dropout_keeps_the_three_launches_and_the_backward_without_dropout_is_ne
 
 
 def test_launch_raises_before_any_call_on_a_shape_it_does_not_take(fake_library):
-    x, weights = _attention_args(24, 8, 3, hw=(16, 16))
+    x, weights = _attention_args(24, 8, 3, hw=(24, 24))
     with pytest.raises(ValueError, match="windows"):
-        twa._launch_fwd(x, weights, dict(window=(4, 4), num_heads=8, dims_per_head=3,
+        twa._launch_fwd(x, weights, dict(window=(12, 12), num_heads=8, dims_per_head=3,
                                          shift=False, cross=False))
     assert "swin_k3_fwd" not in fake_library.calls

@@ -669,12 +669,13 @@ def test_bf16_composition_masks_match_plain_on_card(shift):
     assert torch.equal(out, dm.attention_dropout_plain(weights, DROP_SEED, 0.1, key))
 
 
-def _stage_cases(hw):
-    """(stage, H, W, C, heads, d) of every attention stage of the default model at ``hw``."""
+def _stage_cases(hw, window=(7, 7)):
+    """(stage, H, W, C, heads, d) of every attention stage of the default model at ``hw`` (its
+    maps padded to ``window`` multiples)."""
     from swin_unet_image_fusion_tpu_torch.ops.shape_plan import make_plan
 
     cfg = ModelConfig()
-    plan = make_plan(*hw, cfg.num_stages, cfg.merging_size, cfg.window_size)
+    plan = make_plan(*hw, cfg.num_stages, cfg.merging_size, window)
     return [(k, *p.att_hw, cfg.out_dims_list[k], cfg.att_num_heads,
              cfg.dims_per_head(cfg.out_dims_list[k])) for k, p in enumerate(plan)]
 
@@ -722,19 +723,22 @@ def test_k3_forward_matches_plain_at_every_stage_on_card(hw, dtype):
 def test_k3_forward_plan_agrees_with_the_kernels_shared_memory():
     """The launch plan's shared-memory bytes (``ops/window_attention.py::attention_smem``,
     ``proj_smem``) are the ones the kernels' layouts give, at every stage in both dtypes
-    and modes, with and without dropout, and within what a block may use."""
+    and modes, with and without dropout, and within what a block may use: the 7x7 build's at
+    7x7 windows, the any-window build's at 8x8, 4x4 and 7x8."""
     _need_card()
-    lib = twa._fwd_library()
-    for k, h, w, c, heads, d in _stage_cases((512, 512)):
-        for bf16 in (False, True):
-            for cross in (False, True):
-                for drop in (False, True):
-                    plan = twa.fwd_plan(c, heads, d, (7, 7), cross, bf16, drop)
-                    args = (int(bf16), int(plan.route == "fused"), int(cross), c, heads * d, heads, d,
-                            plan.heads_per_block)
-                    assert lib.swin_k3_fwd_smem(*args, 0, int(drop)) == plan.smem <= twa.SMEM_LIMIT_BYTES
-                    if plan.route == "split":
-                        assert lib.swin_k3_fwd_smem(*args, 1, int(drop)) == plan.proj_smem
+    for window in ((7, 7), (8, 8), (4, 4), (7, 8)):
+        lib = twa._fwd_library(twa.window_class(window).build)
+        for k, h, w, c, heads, d in _stage_cases((512, 512)):
+            for bf16 in (False, True):
+                for cross in (False, True):
+                    for drop in (False, True):
+                        plan = twa.fwd_plan(c, heads, d, window, cross, bf16, drop)
+                        args = (int(bf16), int(plan.route == "fused"), int(cross), c, heads * d, heads, d,
+                                plan.heads_per_block)
+                        assert lib.swin_k3_fwd_smem(*args, 0, int(drop), *window) == plan.smem \
+                            <= twa.SMEM_LIMIT_BYTES, (window, k, bf16, cross, drop)
+                        if plan.route == "split":
+                            assert lib.swin_k3_fwd_smem(*args, 1, int(drop), *window) == plan.proj_smem
 
 
 def _check_k3_dropout_forward(hw, batch, dtype, stages, rate):
@@ -1081,7 +1085,7 @@ def test_block_backward_plan_agrees_with_the_kernels_on_card():
                         assert smem["attention"] == tfb._fwd_library().swin_k4_fwd_smem(
                             1, 0, int(cross), c, heads * d, heads, d, hidden, hg_fwd, tfb.max_cols(False), int(drop))
                         assert smem["attention_bwd"] == twa._bwd_library().swin_k3_bwd_smem(
-                            0, 0, int(cross), c, heads, d, hg_bwd, int(drop))
+                            0, 0, int(cross), c, heads, d, hg_bwd, int(drop), 7, 7)
                         blocks = plan.blocks(2, 20, h, w, sms)
                         assert split.swin_block_bwd_split_workspace(2, 20, h, w, c, heads, d, hidden,
                                                                     plan.hidden_chunk, hg_bwd, *blocks,
@@ -1179,20 +1183,22 @@ def test_k3_backward_plan_agrees_with_the_kernels_on_card():
     stage of a 224² and a 512² batch-20 step in both modes, without and with dropout (whose
     block adds its heads' keep words; the workspace is the same)."""
     _need_card()
-    lib = twa._bwd_library()
     sms = twa._sm_count(torch.device("cuda"))
-    for hw in ((224, 224), (512, 512)):
-        for k, h, w, c, heads, d in _stage_cases(hw):
-            for cross in (False, True):
-                for drop in (True, False):
-                    plan = twa.bwd_plan(c, heads, d, (7, 7), cross, False, drop)
-                    fused, hg = int(plan.route == "fused"), plan.heads_per_block
-                    for kind, (kernel, smem) in enumerate(plan.smem):
-                        got = lib.swin_k3_bwd_smem(kind, fused, int(cross), c, heads, d, hg, int(drop))
-                        assert got == smem <= twa.SMEM_LIMIT_BYTES, (hw, k, cross, drop, kernel)
-                blocks = plan.blocks(2, 20, h, w, heads, sms)
-                assert lib.swin_k3_bwd_workspace(2, 20, h, w, c, heads, d, hg, fused, blocks, int(cross)) == \
-                    twa.bwd_workspace_floats(2, 20, h, w, c, heads, d, plan, blocks, cross)
+    for window in ((7, 7), (8, 8), (4, 4), (7, 8)):  # the 7x7 build, then the any-window build
+        lib = twa._bwd_library(twa.window_class(window).build)
+        for hw in ((224, 224), (512, 512)):
+            for k, h, w, c, heads, d in _stage_cases(hw, window):
+                for cross in (False, True):
+                    for drop in (True, False):
+                        plan = twa.bwd_plan(c, heads, d, window, cross, False, drop)
+                        fused, hg = int(plan.route == "fused"), plan.heads_per_block
+                        for kind, (kernel, smem) in enumerate(plan.smem):
+                            got = lib.swin_k3_bwd_smem(kind, fused, int(cross), c, heads, d, hg, int(drop), *window)
+                            assert got == smem <= twa.SMEM_LIMIT_BYTES, (window, hw, k, cross, drop, kernel)
+                    blocks = plan.blocks(2, 20, h, w, heads, sms)
+                    assert lib.swin_k3_bwd_workspace(2, 20, h, w, c, heads, d, hg, fused, blocks, int(cross),
+                                                     *window) == \
+                        twa.bwd_workspace_floats(2, 20, h, w, c, heads, d, plan, blocks, cross)
 
 
 @pytest.mark.gpu
